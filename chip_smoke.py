@@ -20,8 +20,28 @@ It builds the CUDA kernels from the sources in the checkout and then:
      holds the kernel against the plain version on them (these are the
      timings in the kernel line), then times the stages of one tile batch;
   5. runs a small image through the engine in float32 on the card and on
-     the CPU (the plain RoIAlign) and compares the detections.
+     the CPU (the plain RoIAlign) and compares the detections;
+  7. trains Mask R-CNN R50-FPN through ``train()`` (2 classes, 512² batches
+     of 2 synthetic micrographs, bf16 compute over float32 master weights,
+     Detectron2 capacities, seeded random init with zeroed residual norms):
+     6 steps with a checkpoint every 3, then a second ``train()`` call to
+     step 8 that resumes at 6; checks that every loss is finite, that the
+     first step's update of every parameter matches torch's SGD on the CPU
+     given the same weights and gradients, and that each step launched the
+     RoIAlign forward (K1) and backward (K2) kernels exactly twice (box and
+     mask stage); prints seconds per step and peak device memory;
+  6. records the RoIAlign inputs and cotangents of one real training step
+     (box stage 2x512 RoIs at 7x7, mask stage 2x128 at 14x14, C = 256) and
+     holds K2 against its plain version on them, and on a seeded unit-scale
+     cotangent, each in bf16 and float32; checks the adjoint identity
+     <K1(F), G> = sum_l <F_l, K2(G)_l> on the card, and times K2, its plain
+     version and K1 at these shapes;
+  8. runs one float32 training step (128², same weights, batch and sampling
+     draws) on the card and on the CPU (plain RoIAlign forward and backward)
+     and compares the RPN outputs, the card's proposal selection given the
+     CPU's RPN outputs, the losses and every parameter's gradient.
 
+Phase 7 runs before phase 6, whose inputs come from a training step.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -46,11 +66,31 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# kernel vs plain, both relative to max(1, max |feature|): float32 output
-# differs by sums taken in another order, bfloat16 output by at most one
-# rounding step of the bf16 result
+# kernel vs plain, relative to the largest magnitude the result can hold
+# (K1: the largest feature, which bounds every bilinear average; K2: the
+# largest entry of the plain result), with no absolute floor, so that a
+# kernel writing zeros fails however small the values: float32 output
+# differs by sums taken in another order (for K2, atomics in a varying
+# order), bfloat16 output by at most one rounding step (2^-7 relative) of
+# the bf16 result
 F32_TOL = 1e-5
 BF16_TOL = 1e-2
+# |<K1(F),G> - sum_l <F_l,K2(G)_l>| over sum |F_l * K2(G)_l|, sums in f64:
+# the pair shares one sample grid, so only f32 rounding separates them
+ADJOINT_TOL = 1e-5
+# card vs CPU training step (float32, TF32 off): RPN outputs to RPN_RTOL
+# of each level's largest entry; losses to 1e-4 relative;
+# each parameter's gradient to GRAD_TOL of its largest entry and the
+# median tensor to GRAD_TOL_MEDIAN. Random weights put the class logits at
+# ~1e2 (a class loss of ~29), so cuDNN's and the CPU's float32 sums differ
+# by ~1e-4 of a tensor's largest gradient entry
+RPN_RTOL = 1e-4
+# proposal boxes the card selects from the CPU's RPN outputs vs the CPU's
+PROPOSAL_TOL_PX = 1e-3
+LOSS_RTOL = 1e-4
+GRAD_TOL = 5e-3
+GRAD_TOL_MEDIAN = 5e-4
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 
 
 def card_line() -> str:
@@ -149,7 +189,7 @@ def compare_roi_align(tag, feats, boxes, valid, batch_idx, out_size, dtype, reps
     ref = plain()
     err = float((got.float() - ref.float()).abs().max())
     scale = max(float(f.float().abs().max()) for f in feats)
-    tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * max(scale, 1.0)
+    tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
     zeros = bool((got[~valid] == 0).all())
     k_ms = time_ms(kernel, reps)
     p_ms = time_ms(plain, max(3, reps // 5))
@@ -376,6 +416,397 @@ def phase_small_reference():
     assert db <= 1e-2 and ds <= 1e-4 and dm <= 1e-3, (db, ds, dm)
 
 
+def synthetic_train_batches(n_batches, seed, size=512, gmax=64, ims=2):
+    """Training batches in the loader's format: grey micrographs (noisy
+    background, 10-40 bright disks and ellipses each), GT boxes as the
+    masks' tight bounds, 2 classes, masks rasterized in numpy and
+    bit-packed as the loader sends them."""
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(n_batches):
+        img = np.clip(rng.normal(90.0, 15.0, (ims, size, size)), 0, 255)
+        boxes = np.zeros((ims, gmax, 4), np.float32)
+        classes = np.zeros((ims, gmax), np.int32)
+        valid = np.zeros((ims, gmax), bool)
+        masks = np.zeros((ims, gmax, size, size), bool)
+        for i in range(ims):
+            for j in range(min(int(rng.integers(10, 41)), gmax)):
+                cy, cx = rng.uniform(20, size - 20, 2)
+                ry, rx = rng.uniform(6, 30, 2) if rng.random() < 0.5 else (rng.uniform(6, 30),) * 2
+                th = rng.uniform(0, np.pi)
+                r = int(max(ry, rx)) + 1
+                y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, size)
+                x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, size)
+                yy, xx = np.mgrid[y0:y1, x0:x1]
+                u = (xx - cx) * np.cos(th) + (yy - cy) * np.sin(th)
+                v = -(xx - cx) * np.sin(th) + (yy - cy) * np.cos(th)
+                win = (u / rx) ** 2 + (v / ry) ** 2 <= 1.0
+                if not win.any():
+                    continue
+                masks[i, j, y0:y1, x0:x1] = win
+                img[i, y0:y1, x0:x1][win] = rng.uniform(160, 230)
+                ys, xs = np.nonzero(win)
+                boxes[i, j] = [x0 + xs.min(), y0 + ys.min(), x0 + xs.max() + 1, y0 + ys.max() + 1]
+                classes[i, j] = int(rng.integers(0, 2))
+                valid[i, j] = True
+        image = np.repeat(img.round().astype(np.uint8)[..., None], 3, axis=-1)
+        batches.append(dict(image=image, gt_boxes=boxes, gt_classes=classes, gt_valid=valid,
+                            gt_masks=np.packbits(masks, axis=-1)))
+    return batches
+
+
+def check_first_update(model, opt, before, lr, cfg):
+    """The card's first optimizer step against torch's SGD on the CPU,
+    applied to the same weights and the same gradients: from scratch every
+    parameter trains, at the schedule's rate at count 0 (Detectron2's
+    warmup factor 1e-3 times the base rate), with momentum 0.9 and weight
+    decay 1e-4. Each updated weight must match to 2 float32 steps of its
+    magnitude, so a tensor the card left in place fails wherever the CPU
+    moved it."""
+    params = dict(model.named_parameters())
+    n_opt = sum(len(group["params"]) for group in opt.param_groups)
+    assert n_opt == len(params), f"the optimizer holds {n_opt} of {len(params)} parameter tensors"
+    assert math.isclose(lr, cfg.base_lr * 1e-3, rel_tol=1e-9), (lr, cfg.base_lr)
+    missing = [n for n, p in params.items() if p.grad is None]
+    assert not missing, f"no gradient for {missing[:5]}"
+    ref = {n: before[n].cpu().clone().requires_grad_() for n in params}
+    for n, p in params.items():
+        ref[n].grad = p.grad.detach().cpu()
+    sgd = torch.optim.SGD(list(ref.values()), lr=lr, momentum=0.9, weight_decay=1e-4)
+    sgd.step()
+    moved_card = moved_ref = 0
+    for n, p in params.items():
+        got, want, p0 = p.detach().cpu(), ref[n].detach(), before[n].cpu()
+        moved_card += not torch.equal(got, p0)
+        moved_ref += not torch.equal(want, p0)
+        excess = (got - want).abs() - 2.0**-22 * torch.maximum(p0.abs(), want.abs())
+        assert float(excess.max()) <= 0.0, f"{n}: the card's update differs from SGD on the CPU"
+    print(f"train step 1 update: lr={lr:.6g}, {n_opt} tensors in the optimizer, all with gradients; "
+          f"moved on the card {moved_card}, by SGD on the CPU {moved_ref}; every weight within "
+          f"2 float32 steps of the CPU's update", flush=True)
+    assert moved_ref > 0, "SGD on the CPU moved no tensor"
+
+
+def phase_train(batches):
+    """``train()`` from scratch to step 6 (checkpoints at 3 and 6), then a
+    second call to step 8 that resumes at 6. Every train_step is wrapped
+    to time it and to count its kernel launches."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels.roi_align import bwd_counter, counter
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    cfg = trainer_mod.TrainConfig(checkpoint_every=3, log_every=1)
+    steps = []
+    real = trainer_mod.train_step
+
+    def timed(model, opt, *args):
+        first = not steps
+        if first:
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            lr = opt.param_groups[0]["lr"]
+        k1, k2 = counter.launches, bwd_counter.launches
+        metrics, dt = sync_time(lambda: real(model, opt, *args))
+        steps.append(dict(metrics, seconds=dt, k1=counter.launches - k1, k2=bwd_counter.launches - k2))
+        if first:
+            check_first_update(model, opt, before, lr, cfg)
+        return metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = bwd_counter.launches = 0
+    trainer_mod.train_step = timed
+    try:
+        trainer_mod.train(batches, 2, TRAIN_DIR, cfg, max_steps_override=6)
+        first = sorted(os.listdir(os.path.join(TRAIN_DIR, "ckpts")))
+        final, _ = trainer_mod.train(batches, 2, TRAIN_DIR, cfg, max_steps_override=8)
+    finally:
+        trainer_mod.train_step = real
+    launches = {"roi_align_fwd": counter.launches, "roi_align_bwd": bwd_counter.launches}
+    peak = torch.cuda.max_memory_allocated()
+    second = sorted(os.listdir(os.path.join(TRAIN_DIR, "ckpts")))
+    for i, st in enumerate(steps):
+        print("train step {}: ".format(i + 1) + json.dumps({k: round(v, 6) for k, v in st.items()}), flush=True)
+    assert first == ["step_00000003.pt", "step_00000006.pt"], first
+    assert len(steps) == 8 and second == ["step_00000006.pt", "step_00000008.pt"], (len(steps), second)
+    for st in steps:
+        assert all(math.isfinite(st[k]) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")), st
+        assert st["k1"] == 2 and st["k2"] == 2, st
+    assert launches == {"roi_align_fwd": 16, "roi_align_bwd": 16}, launches
+
+    start = build_train_model("R50", 2, device="cpu", seed=cfg.seed)
+    trainer_mod.zero_residual_norms(start)
+    after = torch.load(final, map_location="cpu")["model"]
+    moved = sum(not torch.equal(v, after[k]) for k, v in start.state_dict().items())
+    # at the schedule's warmup rates (~1e-7) an update of a small gradient
+    # is below one float32 step of its weight, so not every tensor moves
+    print(f"train: {moved} of {len(after)} parameter tensors moved in 8 steps", flush=True)
+    assert moved > 0
+    steady = float(np.median([st["seconds"] for st in steps[2:]]))
+    print(
+        f"train: steady seconds/step={steady:.6f} (median of steps 3-8; R50-FPN, 2 x 512², bf16) "
+        f"first_step_seconds={steps[0]['seconds']:.4f} resumed_first_step_seconds={steps[6]['seconds']:.4f} "
+        f"peak_memory_allocated_GB={peak / 1e9:.4f} launches={launches} (expected 2 + 2 per step)",
+        flush=True,
+    )
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return launches, steady
+
+
+def capture_train_step(batch):
+    """The RoIAlign inputs (features, boxes, image indices) and cotangents
+    of one training step as ``train()`` runs it (outside the counted run)."""
+    import deepemia_tpu_torch.models.heads as heads_mod
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+
+    cfg = trainer_mod.TrainConfig()
+    model = build_train_model("R50", 2, device="cuda", seed=cfg.seed)
+    trainer_mod.zero_residual_norms(model)
+    opt, sched = trainer_mod.make_optimizer(model.parameters(), cfg.base_lr, 8, cfg.warmup_iters, cfg.gamma)
+    calls = []
+    real = heads_mod.roi_align_dispatch
+
+    def record(features, boxes, **kw):
+        out = real(features, boxes, **kw)
+        call = dict(feats=[features[k].detach() for k in ("p2", "p3", "p4", "p5")], boxes=boxes.detach().float(),
+                    bidx=kw["batch_idx"].to(torch.int32), out=kw["output_size"])
+        out.register_hook(lambda g: call.__setitem__("g", g.detach().contiguous()))
+        calls.append(call)
+        return out
+
+    heads_mod.roi_align_dispatch = record
+    try:
+        trainer_mod.train_step(model, opt, sched, batch, cfg, trainer_mod.step_generator(cfg.seed, 0, "cuda"))
+    finally:
+        heads_mod.roi_align_dispatch = real
+    torch.cuda.synchronize()
+    assert [c["out"] for c in calls] == [7, 14] and all("g" in c for c in calls)
+    return calls
+
+
+def bwd_work(g, boxes, shapes, out_dtype):
+    """Bytes and float ops of the function one K2 call computes: the
+    cotangent and the RoI tables read once, the feature cotangents written
+    once in ``out_dtype`` (the zeros of untouched cells are part of that
+    write); 2 ops per corner weight and channel of every valid sample.
+    Also returns the milliseconds at the memory rate of this design's own
+    extra traffic: its float32 accumulators zeroed and written, and for a
+    bf16 result read back before the cast."""
+    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels, sample_grid
+
+    n, out, c = g.shape[0], g.shape[1], g.shape[3]
+    lvl = (assign_fpn_levels(boxes) - 2).long()
+    sx, sy = sample_grid(boxes, lvl, out, 2, True)
+    hs = torch.tensor([sh[1] for sh in shapes], device=boxes.device)[lvl][:, None]
+    ws = torch.tensor([sh[2] for sh in shapes], device=boxes.device)[lvl][:, None]
+    vy = (sy >= -1.0) & (sy <= hs.float())
+    vx = (sx >= -1.0) & (sx <= ws.float())
+    samples = int((vy[:, :, None] & vx[:, None, :]).sum())
+    total = sum(b * h * w for b, h, w in shapes) * c
+    out_bytes = total * torch.empty((), dtype=out_dtype).element_size()
+    nbytes = g.numel() * g.element_size() + n * (16 + 4 + 4) + out_bytes
+    acc_bytes = 2 * 4 * total + (4 * total if out_dtype == torch.bfloat16 else 0)
+    if out_dtype == torch.float32:
+        acc_bytes -= out_bytes  # the accumulators are the result
+    flops = samples * 4 * c * 2
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), acc_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def phase_backward(calls):
+    """K2 against its plain version on the captured inputs and on a seeded
+    unit-scale cotangent (bf16, the path's dtype, and float32), the
+    adjoint identity, and times."""
+    from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda, roi_align_cuda
+    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels, multilevel_roi_align_backward
+
+    rows = []
+    for call, tag in zip(calls, ("box", "mask")):
+        boxes, bidx, out = call["boxes"], call["bidx"], call["out"]
+        levels = (assign_fpn_levels(boxes) - 2).contiguous()
+        shapes = [tuple(f.shape[:3]) for f in call["feats"]]
+        # the step's own cotangent (timed), then a seeded unit-scale one on
+        # the same RoIs, each in the path's dtype (bf16: the bf16 load and
+        # the cast to bf16) and in float32
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        g_unit = torch.randn(call["g"].shape, device="cuda", generator=gen)
+        for source, g_src in (("captured", call["g"]), ("unit", g_unit)):
+            for dtype in (torch.bfloat16, torch.float32):
+                g = g_src.to(dtype)
+
+                def kernel():
+                    return roi_align_backward_cuda(g, boxes, levels, bidx, shapes, 2, True, dtype)
+
+                def plain():
+                    return multilevel_roi_align_backward(g, boxes, shapes, bidx, 2, True, dtype)
+
+                got = kernel()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+                peak = max(float(b.float().abs().max()) for b in ref)
+                tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * peak
+                line = (f"roi_align_bwd train {tag} stage, {source} cotangent: N={boxes.shape[0]} out={out} "
+                        f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={tol:.3g} (max |dF| {peak:.4g})")
+                if not (peak > 0 and err <= tol and math.isfinite(err)):
+                    raise AssertionError(f"{line}: kernel disagrees with plain")
+                if source == "unit":
+                    print(line, flush=True)
+                    rows[-1]["err"] = max(rows[-1]["err"], err)
+                    continue
+                k_ms = time_ms(kernel, 25 if dtype == torch.bfloat16 else 5)
+                p_ms = time_ms(plain, 5 if dtype == torch.bfloat16 else 3)
+                bound_ms, by, extra_ms = bwd_work(g, boxes, shapes, dtype)
+                print(f"{line} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
+                      f"share_of_bound={bound_ms / k_ms:.3f} accumulator_traffic_ms={extra_ms:.4f}", flush=True)
+                if dtype == torch.bfloat16:
+                    rows.append(dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by))
+
+        f32 = [f.float().contiguous() for f in call["feats"]]
+        g32 = call["g"].float()
+        fwd = roi_align_cuda(f32, boxes, levels, bidx, None, out, 2, True, torch.float32)
+        bwd = roi_align_backward_cuda(g32, boxes, levels, bidx, shapes, 2, True, torch.float32)
+        lhs = float((fwd.double() * g32.double()).sum())
+        rhs = sum(float((a.double() * b.double()).sum()) for a, b in zip(f32, bwd))
+        mag = sum(float((a.double() * b.double()).abs().sum()) for a, b in zip(f32, bwd))
+        rel = abs(lhs - rhs) / max(mag, 1e-30)
+        print(f"adjoint {tag} stage: <K1(F),G>={lhs:.9g} sum<F,K2(G)>={rhs:.9g} rel={rel:.3g} "
+              f"tol={ADJOINT_TOL}", flush=True)
+        assert rel <= ADJOINT_TOL, (tag, rel)
+        valid = torch.ones(boxes.shape[0], dtype=torch.bool, device="cuda")
+        compare_roi_align(f"train {tag} stage (K1)", call["feats"], boxes, valid, bidx, out,
+                          call["feats"][0].dtype, reps=25)
+    return rows
+
+
+def phase_train_reference():
+    """One float32 training step at 128² on the card (K1, K2) and on the
+    CPU (plain RoIAlign and adjoint): same weights, batch and draws, and
+    the CPU's proposals handed to the card's loss. Objectness scores of
+    random weights sit closer together than the two devices' rounding
+    differences, so the top-k cuts and NMS may keep another proposal on
+    each device; how many differ is printed. The card's selection is held
+    to the CPU's on its own: the RPN outputs of the two devices must agree
+    to RPN_RTOL, and the card, given the CPU's RPN outputs, must select the
+    CPU's proposals (same validity, boxes within PROPOSAL_TOL_PX)."""
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train import losses as losses_mod
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+
+    cfg = trainer_mod.TrainConfig(train_size=128, max_instances=16, use_bf16=False)
+    batch = synthetic_train_batches(1, seed=11, size=128, gmax=16)[0]
+    cpu = build_train_model("R50", 2, device="cpu", seed=3)
+    sane_geometry(cpu)
+    gpu = build_train_model("R50", 2, device="cuda", seed=3)
+    gpu.load_state_dict(cpu.state_dict())
+    n_anchors = sum(3 * (128 // st) ** 2 for st in (4, 8, 16, 32, 64))
+    n_rois = 1000 + 16  # post-NMS proposals + the appended GT rows
+    gen = torch.Generator().manual_seed(5)
+    draws = [losses_mod.Draws(*(torch.rand(n, generator=gen) for n in (n_anchors, n_anchors, n_rois, n_rois)))
+             for _ in range(2)]
+    out, props, rpn = {}, {}, {}
+    real = losses_mod.select_proposals_batched
+
+    def select(logits, regs, anchors, hw, **kw):
+        p = real(logits, regs, anchors, hw, **kw)
+        dev = p.boxes.device.type
+        props[dev] = p
+        rpn[dev] = ({k: v.detach() for k, v in logits.items()}, {k: v.detach() for k, v in regs.items()},
+                    anchors, hw, kw)
+        return p if dev == "cpu" else type(p)(*(t.to(dev) for t in props["cpu"]))
+
+    losses_mod.select_proposals_batched = select
+    try:
+        for dev, model in (("cpu", cpu), ("cuda", gpu)):
+            images, gt = trainer_mod.batch_to_device(batch, dev, cfg)
+            d = [losses_mod.Draws(*(t.to(dev) for t in dr)) for dr in draws]
+            losses = losses_mod.maskrcnn_loss(model, images, gt, draws=d)
+            losses["total"].backward()
+            out[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+    finally:
+        losses_mod.select_proposals_batched = real
+    pc, pg = props["cpu"], type(props["cuda"])(*(t.cpu() for t in props["cuda"]))
+    both = pc.valid & pg.valid
+    print(f"train reference proposals, each device's own: valid cpu={int(pc.valid.sum())} "
+          f"gpu={int(pg.valid.sum())} rows differing in validity={int((pc.valid != pg.valid).sum())} "
+          f"rows moved > {PROPOSAL_TOL_PX} px="
+          f"{int(((pc.boxes - pg.boxes).abs().amax(-1) > PROPOSAL_TOL_PX)[both].sum())}", flush=True)
+    (lc, rc, ac, hw, kw), (lg, rg) = rpn["cpu"], rpn["cuda"][:2]
+    for name, c_maps, g_maps in (("objectness", lc, lg), ("deltas", rc, rg)):
+        for lv in c_maps:
+            gap = float((g_maps[lv].cpu() - c_maps[lv]).abs().max()) / float(c_maps[lv].abs().max())
+            print(f"train reference rpn {name} {lv}: max |card - cpu| / max |cpu| = {gap:.3g} "
+                  f"(tol {RPN_RTOL})", flush=True)
+            assert gap <= RPN_RTOL, (name, lv, gap)
+    on_card = real({k: v.cuda() for k, v in lc.items()}, {k: v.cuda() for k, v in rc.items()},
+                   {k: v.cuda() for k, v in ac.items()}, hw, **kw)
+    sv, sb = on_card.valid.cpu(), on_card.boxes.cpu()
+    moved = float((sb - pc.boxes).abs().amax(-1)[pc.valid].max())
+    print(f"train reference proposals, the card's selection from the CPU's RPN outputs: valid "
+          f"{int(sv.sum())} (cpu {int(pc.valid.sum())}), rows differing in validity "
+          f"{int((sv != pc.valid).sum())}, max |d box| {moved:.3g} px (tol {PROPOSAL_TOL_PX})", flush=True)
+    assert bool((sv == pc.valid).all()) and moved <= PROPOSAL_TOL_PX, "the card selects other proposals"
+    (ref, ref_g), (got, got_g) = out["cpu"], out["cuda"]
+    print("train reference losses cpu: " + json.dumps(ref), flush=True)
+    print("train reference losses gpu: " + json.dumps(got), flush=True)
+    for k in ref:
+        assert math.isfinite(got[k]) and abs(got[k] - ref[k]) <= LOSS_RTOL * abs(ref[k]), (k, got[k], ref[k])
+    errs = {}
+    for n, r in ref_g.items():
+        scale = float(r.abs().max())
+        errs[n] = float((got_g[n] - r).abs().max()) / scale if scale > 0 else float((got_g[n]).abs().max())
+    worst = sorted(errs.items(), key=lambda kv: kv[1])[-3:]
+    median = float(np.median(list(errs.values())))
+    print(f"train reference gradients: {len(errs)} tensors, err / max |grad| median={median:.3g} "
+          f"(tol {GRAD_TOL_MEDIAN}) worst={worst} (tol {GRAD_TOL})", flush=True)
+    assert all(e <= GRAD_TOL for e in errs.values()) and median <= GRAD_TOL_MEDIAN, worst
+
+
+def phase_train_profile(batch):
+    """Device time of two steady training steps by kernel (torch.profiler,
+    CUDA activity), and the device's busy share of their wall time. The
+    profiler's host-side recording lengthens the wall time, so the busy
+    share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+
+    cfg = trainer_mod.TrainConfig()
+    model = build_train_model("R50", 2, device="cuda", seed=cfg.seed)
+    trainer_mod.zero_residual_norms(model)
+    opt, sched = trainer_mod.make_optimizer(model.parameters(), cfg.base_lr, 8, cfg.warmup_iters, cfg.gamma)
+
+    def step(i):
+        trainer_mod.train_step(model, opt, sched, batch, cfg, trainer_mod.step_generator(cfg.seed, i, "cuda"))
+
+    for i in range(3):
+        step(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3, 5):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies, sets): the host ops that
+    # launched them, and annotated ranges, carry the same time again
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation]
+    assert rows, "the profiler recorded no device time"
+    busy_s = sum(t for _, t, _ in rows) / 1e6
+    print(f"train profile: 2 steps wall={wall:.4f} s device_busy={busy_s:.4f} s "
+          f"busy_share={busy_s / wall:.3f} (profiler on)", flush=True)
+    for key, t, count in sorted(rows, key=lambda r: -r[1])[:15]:
+        print(f"train profile: {t / 2e3:9.4f} ms/step  x{count // 2:<5d} {key[:110]}", flush=True)
+    print(f"train profile: {len(rows)} device event kinds, {sum(c for _, _, c in rows) // 2} device events per step",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -389,11 +820,13 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    _, build_s = sync_time(lambda: _build.build(["roi_align_fwd"]))
-    print(f"build: roi_align_fwd.cu in {build_s:.2f} s", flush=True)
-    for line in _build.build_logs.get("roi_align_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), flush=True)
+    sources = ["roi_align_fwd", "roi_align_bwd"]
+    _, build_s = sync_time(lambda: _build.build(sources))
+    print(f"build: {', '.join(nm + '.cu' for nm in sources)} in {build_s:.2f} s (in parallel)", flush=True)
+    for nm in sources:
+        for line in _build.build_logs.get(nm, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {nm}:", line.strip(), flush=True)
 
     with torch.inference_mode():
         tile_rows = phase_kernel_vs_plain()
@@ -403,6 +836,12 @@ def main() -> int:
         captured = phase_captured(calls)
         phase_stage_times(model, engine, images[0])
         phase_small_reference()
+
+    batches = synthetic_train_batches(4, seed=7)
+    train_launches, _ = phase_train(batches)
+    bwd_rows = phase_backward(capture_train_step(batches[0]))
+    phase_train_reference()
+    phase_train_profile(batches[1])
 
     errs = [r["err"] for r in list(tile_rows.values()) + captured]
     kernel = {
@@ -419,8 +858,22 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in captured) else "operations",
         "library_ms": None,
     }
+    backward = {
+        "name": "roi_align_bwd",
+        "route": "cuda",
+        "source": "deepemia_tpu_torch/kernels/csrc/roi_align_bwd.cu",
+        "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
+        "launches": train_launches["roi_align_bwd"],
+        "max_abs_err": max(r["err"] for r in bwd_rows),
+        # one training step: its box-stage + mask-stage call, bf16
+        "ms": sum(r["ms"] for r in bwd_rows),
+        "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
+        "bound_ms": sum(r["bound_ms"] for r in bwd_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows) else "operations",
+        "library_ms": None,
+    }
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, backward]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles,
 on first use, into ``build/torch_kernels/lib<name>-<hash>.so`` at the root
-of the checkout (the hash covers the source and the flags, so an edited
-source rebuilds). Several sources build in parallel, one ``nvcc`` each.
+of the checkout (the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source rebuilds). Several sources build in parallel, one ``nvcc`` each.
 Nothing here runs at import time.
 """
 
@@ -40,7 +40,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

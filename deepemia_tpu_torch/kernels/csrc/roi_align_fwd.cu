@@ -21,16 +21,19 @@
 // in bf16, read fully coalesced. One block per (RoI, output row); its
 // threads run over channel pairs (float2 / __nv_bfloat162 loads), loop over
 // the row's bins and their samples, and accumulate in f32. The sample
-// coordinates are evaluated with the same f32 expressions as the plain
-// version, with explicit round-to-nearest intrinsics so that no fused
-// multiply-add changes a floor() at a cell boundary.
+// geometry comes from roi_align_geom.cuh, shared with the backward kernel.
 // A TMA / shared-memory staged design is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roi_align_geom.cuh"
+
 namespace {
+
+using roi_geom::load2;
+using roi_geom::store2;
 
 struct Level {
   const void* data;
@@ -41,33 +44,6 @@ struct Level {
 struct Pyramid {
   Level lv[4];
 };
-
-__device__ __forceinline__ float2 load2(const float* p, size_t i) {
-  return reinterpret_cast<const float2*>(p)[i];
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, size_t i) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
-}
-
-__device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
-  reinterpret_cast<float2*>(p)[i] = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, size_t i, float a, float b) {
-  reinterpret_cast<__nv_bfloat162*>(p)[i] = __floats2bfloat162_rn(a, b);
-}
-
-// Sample coordinate k (0 <= k < out*s) along one axis, in level cells:
-// origin + grid_k * extent, grid_k = (k + 0.5) / P, or the bin centre
-// (floor(k / s) + 0.5) / out when the axis collapses.
-__device__ __forceinline__ float sample_coord(float origin, float extent, int k,
-                                              int out, int s, bool collapse) {
-  const float kf = (float)k;
-  const float g = collapse ? __fdiv_rn(__fadd_rn(floorf(__fdiv_rn(kf, (float)s)), 0.5f), (float)out)
-                           : __fdiv_rn(__fadd_rn(kf, 0.5f), (float)(out * s));
-  return __fadd_rn(origin, __fmul_rn(g, extent));
-}
 
 template <typename T, typename OutT>
 __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxes,
@@ -90,15 +66,7 @@ __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxe
 
   const int l = levels[roi];
   const Level lev = pyr.lv[l];
-  const float scale = __fdiv_rn(1.0f, (float)(4 << l));
-  const float b0 = boxes[roi * 4 + 0], b1 = boxes[roi * 4 + 1];
-  const float b2 = boxes[roi * 4 + 2], b3 = boxes[roi * 4 + 3];
-  const float x0 = __fsub_rn(__fmul_rn(b0, scale), 0.5f);
-  const float y0 = __fsub_rn(__fmul_rn(b1, scale), 0.5f);
-  const float bw = __fmul_rn(__fsub_rn(b2, b0), scale);
-  const float bh = __fmul_rn(__fsub_rn(b3, b1), scale);
-  const bool coll_x = adaptive && bw <= (float)out_size;
-  const bool coll_y = adaptive && bh <= (float)out_size;
+  const roi_geom::Frame fr = roi_geom::roi_frame(boxes, roi, l, out_size, adaptive);
 
   const T* feat = reinterpret_cast<const T*>(lev.data) +
                   (size_t)batch_idx[roi] * lev.h * lev.w * c;
@@ -108,30 +76,20 @@ __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxe
     for (int c2 = threadIdx.x; c2 < c2n; c2 += blockDim.x) {
       float acc0 = 0.f, acc1 = 0.f;
       for (int sy = 0; sy < s; ++sy) {
-        const float y = sample_coord(y0, bh, i * s + sy, out_size, s, coll_y);
-        if (!(y >= -1.0f && y <= (float)lev.h)) continue;
-        const float yf = floorf(y);
-        const int yi = (int)yf;
-        const float fy = __fsub_rn(y, yf);
-        const int ya = min(max(yi, 0), lev.h - 1);
-        const int yb = min(max(yi + 1, 0), lev.h - 1);
-        const float wy0 = __fsub_rn(1.0f, fy);
+        roi_geom::Tap ty;
+        const float y = roi_geom::sample_coord(fr.y0, fr.bh, i * s + sy, out_size, s, fr.coll_y);
+        if (!roi_geom::axis_tap(y, lev.h, &ty)) continue;
         for (int sx = 0; sx < s; ++sx) {
-          const float x = sample_coord(x0, bw, j * s + sx, out_size, s, coll_x);
-          if (!(x >= -1.0f && x <= (float)lev.w)) continue;
-          const float xf = floorf(x);
-          const int xi = (int)xf;
-          const float fx = __fsub_rn(x, xf);
-          const int xa = min(max(xi, 0), lev.w - 1);
-          const int xb = min(max(xi + 1, 0), lev.w - 1);
-          const float wx0 = __fsub_rn(1.0f, fx);
-          const size_t ra = (size_t)ya * lev.w, rb = (size_t)yb * lev.w;
-          const float2 f00 = load2(feat + (ra + xa) * c, c2);
-          const float2 f01 = load2(feat + (ra + xb) * c, c2);
-          const float2 f10 = load2(feat + (rb + xa) * c, c2);
-          const float2 f11 = load2(feat + (rb + xb) * c, c2);
-          const float w00 = __fmul_rn(wy0, wx0), w01 = __fmul_rn(wy0, fx);
-          const float w10 = __fmul_rn(fy, wx0), w11 = __fmul_rn(fy, fx);
+          roi_geom::Tap tx;
+          const float x = roi_geom::sample_coord(fr.x0, fr.bw, j * s + sx, out_size, s, fr.coll_x);
+          if (!roi_geom::axis_tap(x, lev.w, &tx)) continue;
+          const size_t ra = (size_t)ty.lo * lev.w, rb = (size_t)ty.hi * lev.w;
+          const float2 f00 = load2(feat + (ra + tx.lo) * c, c2);
+          const float2 f01 = load2(feat + (ra + tx.hi) * c, c2);
+          const float2 f10 = load2(feat + (rb + tx.lo) * c, c2);
+          const float2 f11 = load2(feat + (rb + tx.hi) * c, c2);
+          const float w00 = __fmul_rn(ty.w_lo, tx.w_lo), w01 = __fmul_rn(ty.w_lo, tx.w_hi);
+          const float w10 = __fmul_rn(ty.w_hi, tx.w_lo), w11 = __fmul_rn(ty.w_hi, tx.w_hi);
           acc0 += f00.x * w00 + f01.x * w01 + f10.x * w10 + f11.x * w11;
           acc1 += f00.y * w00 + f01.y * w01 + f10.y * w10 + f11.y * w11;
         }

@@ -1,16 +1,20 @@
-"""Wrapper of the CUDA RoIAlign forward (``csrc/roi_align_fwd.cu``).
+"""Wrappers of the CUDA RoIAlign kernels: the forward
+(``csrc/roi_align_fwd.cu``, K1) and its adjoint (``csrc/roi_align_bwd.cu``,
+K2).
 
-The kernel replaces the JAX package's Pallas ``roi_align_pallas``; its
-plain counterpart is ``models/roi_align.py:multilevel_roi_align``. The
-wrapper checks what the kernel takes, allocates the output, launches on
-PyTorch's current stream and raises on a nonzero launch status. It never
-falls back to the plain version.
+K1 replaces the JAX package's Pallas ``roi_align_pallas``, K2 its
+``roi_align_backward_pallas``; their plain counterparts are
+``models/roi_align.py:multilevel_roi_align`` and
+``multilevel_roi_align_backward``. Each wrapper checks what its kernel
+takes, allocates the outputs, launches on PyTorch's current stream, raises
+on a nonzero launch status and counts the launch. Neither falls back to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -18,6 +22,7 @@ from deepemia_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = "roi_align_fwd"
+_BWD_LIB = "roi_align_bwd"
 
 
 class LaunchCounter:
@@ -28,7 +33,8 @@ class LaunchCounter:
         self.launches = 0
 
 
-counter = LaunchCounter()
+counter = LaunchCounter()  # K1, roi_align_cuda
+bwd_counter = LaunchCounter()  # K2, roi_align_backward_cuda
 
 
 def _library():
@@ -48,10 +54,10 @@ def _library():
 def _require_cuda(tensors: Sequence[torch.Tensor]) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
-        raise ValueError(f"roi_align_cuda takes CUDA tensors, got {dev}")
+        raise ValueError(f"RoIAlign kernels take CUDA tensors, got {dev}")
     for t in tensors:
         if t.device != dev:
-            raise ValueError(f"roi_align_cuda: tensors on {t.device} and {dev}")
+            raise ValueError(f"RoIAlign kernels: tensors on {t.device} and {dev}")
 
 
 def _check(feats, boxes, levels, batch_idx, valid, out_dtype) -> None:
@@ -78,14 +84,19 @@ def _check(feats, boxes, levels, batch_idx, valid, out_dtype) -> None:
             )
         if f.data_ptr() % (2 * f.element_size()):
             raise ValueError("roi_align_cuda: feature rows must be 2-element aligned")
+    _check_rois("roi_align_cuda", boxes, levels, batch_idx)
     n = boxes.shape[0]
-    if boxes.shape != (n, 4) or boxes.dtype != torch.float32 or not boxes.is_contiguous():
-        raise ValueError("roi_align_cuda: boxes must be contiguous [N,4] float32")
-    for name, t in (("levels", levels), ("batch_idx", batch_idx)):
-        if t.shape != (n,) or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"roi_align_cuda: {name} must be contiguous [N] int32")
     if valid is not None and (valid.shape != (n,) or valid.dtype != torch.bool):
         raise ValueError("roi_align_cuda: valid must be [N] bool")
+
+
+def _check_rois(fn: str, boxes, levels, batch_idx) -> None:
+    n = boxes.shape[0]
+    if boxes.shape != (n, 4) or boxes.dtype != torch.float32 or not boxes.is_contiguous():
+        raise ValueError(f"{fn}: boxes must be contiguous [N,4] float32")
+    for name, t in (("levels", levels), ("batch_idx", batch_idx)):
+        if t.shape != (n,) or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous [N] int32")
 
 
 def roi_align_cuda(
@@ -135,3 +146,76 @@ def roi_align_cuda(
     if n:
         counter.launches += 1
     return out
+
+
+def _bwd_library():
+    lib = _build.load(_BWD_LIB)
+    fn = lib.roi_align_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    return fn
+
+
+def roi_align_backward_cuda(
+    g: torch.Tensor,
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    batch_idx: torch.Tensor,
+    level_shapes: Sequence[Sequence[int]],
+    sampling_ratio: int = 2,
+    adaptive_ratio: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> List[torch.Tensor]:
+    """RoIAlign backward on the card: the adjoint of :func:`roi_align_cuda`
+    for the same boxes, levels and image indices.
+
+    g: the pooled cotangent, contiguous [N,out,out,C] float32 or bfloat16;
+    level_shapes: (B,H,W) of p2..p5 -> the feature cotangents of p2..p5,
+    NHWC-contiguous [B,H,W,C] in ``out_dtype`` (float32 or bfloat16): the
+    gradient of the NHWC levels the forward read. Sums run in float32
+    accumulators that the kernel's entry zeroes.
+    """
+    _require_cuda([g, boxes, levels, batch_idx])
+    fn = "roi_align_backward_cuda"
+    if g.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"{fn}: cotangent {g.dtype} / output {out_dtype} must be float32 or bfloat16")
+    n = boxes.shape[0]
+    if g.ndim != 4 or g.shape[0] != n or g.shape[1] != g.shape[2] or not g.is_contiguous():
+        raise ValueError(f"{fn}: g must be contiguous [N,out,out,C], got {tuple(g.shape)}")
+    out_size, c = g.shape[1], g.shape[3]
+    if c % 2:
+        raise ValueError(f"{fn}: channel count {c} must be even")
+    if len(level_shapes) != 4 or len({sh[0] for sh in level_shapes}) != 1:
+        raise ValueError(f"{fn}: level_shapes must be (B,H,W) of the 4 levels p2..p5")
+    _check_rois(fn, boxes, levels, batch_idx)
+    lib = _bwd_library()
+    sizes = [int(b * h * w * c) for b, h, w in level_shapes]
+    acc = torch.empty(sum(sizes), dtype=torch.float32, device=g.device)
+    out = acc if out_dtype == torch.float32 else torch.empty(sum(sizes), dtype=out_dtype, device=g.device)
+    status = lib(
+        g.data_ptr(),
+        boxes.data_ptr(),
+        levels.data_ptr(),
+        batch_idx.data_ptr(),
+        acc.data_ptr(),
+        out.data_ptr(),
+        int(level_shapes[0][0]),
+        *[int(d) for sh in level_shapes for d in sh[1:3]],
+        n,
+        c,
+        out_size,
+        sampling_ratio,
+        int(adaptive_ratio),
+        _DTYPE_CODE[g.dtype],
+        _DTYPE_CODE[out_dtype],
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    if status != 0:
+        raise RuntimeError(f"roi_align_bwd launch failed: CUDA error {status}")
+    if n:
+        bwd_counter.launches += 1
+    grads, start = [], 0
+    for size, (b, h, w) in zip(sizes, level_shapes):
+        grads.append(out[start : start + size].view(int(b), int(h), int(w), c))
+        start += size
+    return grads

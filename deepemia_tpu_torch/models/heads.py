@@ -158,6 +158,26 @@ class ROIHeads(nn.Module):
         self.box_predictor = BoxPredictor(num_classes)
         self.mask_head = MaskHead(num_classes)
 
+    def box_forward(self, features, boxes, batch_idx=None):
+        """Training box branch: features {p2..p5: [B,H,W,C]} (or [H,W,C]
+        without ``batch_idx``), boxes [N,4], batch_idx [N] -> (class logits
+        [N,C+1], deltas [N,C*4]). Differentiable in the features; pools
+        every row (no ``valid`` mask)."""
+        pooled = roi_align_dispatch(
+            features, boxes, output_size=7, adaptive_ratio=self.adaptive_pooler,
+            batch_idx=batch_idx,
+        )
+        return self.box_predictor(self.box_head(pooled))
+
+    def mask_forward(self, features, boxes, batch_idx=None):
+        """Training mask branch: as :meth:`box_forward` -> mask logits
+        [N,num_classes,28,28]."""
+        pooled = roi_align_dispatch(
+            features, boxes, output_size=14, adaptive_ratio=self.adaptive_pooler,
+            batch_idx=batch_idx,
+        )
+        return self.mask_head(pooled)
+
     def _pool(self, features, boxes, valid, output_size):
         """boxes [B,K,4], valid [B,K] -> pooled [B*K,out,out,C] in the heads'
         dtype (the RoIAlign writes it directly; its sums run in f32)."""

@@ -56,6 +56,25 @@ class MaskRCNN(nn.Module):
         feats = self.features_batched(image[None])
         return {k: v[0].permute(1, 2, 0) for k, v in feats.items()}
 
+    # -- training sub-forwards over a batch of pyramids {lv: [B,C,h,w]} ----
+
+    def rpn_forward(self, feats: Dict[str, torch.Tensor]):
+        """-> per-level (objectness {lv: [B,h,w,A]}, deltas {lv: [B,h,w,A*4]})."""
+        return self.proposal_generator["rpn_head"](feats)
+
+    def box_forward(self, feats: Dict[str, torch.Tensor], boxes, batch_idx):
+        """Boxes [N,4] of images ``batch_idx`` [N] -> (class logits, deltas)."""
+        return self.roi_heads.box_forward(
+            {k: feats[k].permute(0, 2, 3, 1) for k in POOLED}, boxes, batch_idx
+        )
+
+    def mask_forward(self, feats: Dict[str, torch.Tensor], boxes, batch_idx):
+        """Boxes [N,4] of images ``batch_idx`` [N] -> mask logits
+        [N,num_classes,28,28]."""
+        return self.roi_heads.mask_forward(
+            {k: feats[k].permute(0, 2, 3, 1) for k in POOLED}, boxes, batch_idx
+        )
+
     def detect_batched(
         self,
         feats: Dict[str, torch.Tensor],
@@ -131,3 +150,17 @@ def build_model(
     init_weights(model, torch.Generator().manual_seed(seed))
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     return model.to(device=dev, dtype=dtype).eval().requires_grad_(False)
+
+
+def build_train_model(
+    backbone: str = "R50", num_classes: int = 2, device=None, seed: int = 0
+) -> MaskRCNN:
+    """Mask R-CNN for training on ``device`` (``cuda`` unless the caller
+    passes another): seeded random float32 master weights, every parameter
+    trainable (``train/trainer.py`` freezes the early trunk when it
+    fine-tunes). The compute dtype is the caller's autocast (bf16 in
+    training on the card)."""
+    dev = resolve_device(device)
+    model = MaskRCNN(depth=101 if "101" in backbone else 50, num_classes=num_classes)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device=dev).train().requires_grad_(True)

@@ -20,7 +20,8 @@ STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 class FrozenBatchNorm(nn.Module):
     """Per-channel affine y = x * weight + bias (batch norm with its
-    statistics folded in)."""
+    statistics folded in), in the dtype of ``x``: float32 master weights
+    under bf16 compute keep the trunk in bf16, as Flax's ``dtype`` does."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -28,7 +29,8 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        w = self.weight.to(x.dtype).view(1, -1, 1, 1)
+        return x * w + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
 class ConvNorm(nn.Conv2d):

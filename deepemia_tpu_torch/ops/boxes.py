@@ -82,6 +82,32 @@ def apply_deltas(
     )
 
 
+def get_deltas(
+    src: torch.Tensor, target: torch.Tensor, weights=(10.0, 10.0, 5.0, 5.0)
+) -> torch.Tensor:
+    """Encode target boxes relative to source boxes (the training targets
+    of :func:`apply_deltas`; widths and heights floored at 1e-6)."""
+    wx, wy, ww, wh = weights
+    src_w = src[..., 2] - src[..., 0]
+    src_h = src[..., 3] - src[..., 1]
+    src_cx = src[..., 0] + 0.5 * src_w
+    src_cy = src[..., 1] + 0.5 * src_h
+    t_w = target[..., 2] - target[..., 0]
+    t_h = target[..., 3] - target[..., 1]
+    t_cx = target[..., 0] + 0.5 * t_w
+    t_cy = target[..., 1] + 0.5 * t_h
+    eps = 1e-6
+    return torch.stack(
+        [
+            wx * (t_cx - src_cx) / src_w.clamp(min=eps),
+            wy * (t_cy - src_cy) / src_h.clamp(min=eps),
+            ww * torch.log(t_w.clamp(min=eps) / src_w.clamp(min=eps)),
+            wh * torch.log(t_h.clamp(min=eps) / src_h.clamp(min=eps)),
+        ],
+        dim=-1,
+    )
+
+
 def stable_topk(key: torch.Tensor, k: int):
     """Top-``k`` along the last axis with ties broken by the lower index
     (``jax.lax.top_k``'s order; ``torch.topk`` promises none)."""

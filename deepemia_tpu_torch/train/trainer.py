@@ -1,0 +1,312 @@
+"""Training loop on one GPU: SGD over ``maskrcnn_loss``, warmup-multistep
+schedule, torch checkpoints with resume (counterpart of the JAX package's
+``train/trainer.py``).
+
+What carries over: the Detectron2 WarmupMultiStepLR schedule read at step
+0 for the first update, SGD with momentum 0.9 and weight decay 1e-4 after
+an optional global-norm clip (optax's clip -> decay -> sgd order), the
+from-scratch conditioning (``zero_residual_norms``), freezing of the stem,
+``res2`` and every frozen-BN affine only when fine-tuning, checkpoints
+every ``checkpoint_every`` steps with a resume from the newest, and the
+final ``model_final_{r50,r101}`` weights. Compute runs in bf16 under
+autocast over float32 master weights.
+
+Left out as TPU artefacts: the ``('data','model')`` mesh and the
+tensor-parallel box head, the packed one-buffer batch transfer, the
+chunked ``lax.scan`` dispatch and Orbax. Batches come from the caller in
+the JAX loader's dict format; the loader itself is not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import os
+import re
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from deepemia_tpu_torch import resolve_device
+from deepemia_tpu_torch.models.mask_rcnn import MaskRCNN, build_train_model
+from deepemia_tpu_torch.train.losses import GroundTruth, maskrcnn_loss
+
+log = logging.getLogger("deepemia_tpu_torch.trainer")
+
+_CKPT = re.compile(r"step_(\d+)\.pt$")
+_KEEP_CHECKPOINTS = 2
+
+
+def warmup_multistep_schedule(
+    base_lr: float,
+    max_iter: int,
+    warmup_iters: int = 1000,
+    warmup_factor: float = 1e-3,
+    gamma: float = 0.1,
+    step_fractions=(0.6, 0.8),
+):
+    """Detectron2 WarmupMultiStepLR: count -> learning rate. Linear warmup
+    from ``warmup_factor`` over ``warmup_iters`` steps, then x``gamma`` at
+    each of the ``step_fractions`` of ``max_iter``."""
+    steps = [int(f * max_iter) for f in step_fractions]
+
+    def schedule(count: int) -> float:
+        warm = warmup_factor + (1.0 - warmup_factor) * count / max(warmup_iters, 1)
+        lr = base_lr * (warm if count < warmup_iters else 1.0)
+        for s in steps:
+            if count >= s:
+                lr *= gamma
+        return lr
+
+    return schedule
+
+
+def auto_max_iter(num_images: int) -> int:
+    """The reference's automatic schedule: 200 steps per image below 100
+    images, else 100, at least 1000."""
+    per = 200 if num_images < 100 else 100
+    return max(1000, per * num_images)
+
+
+def _trainable_mask(model: nn.Module) -> Dict[str, bool]:
+    """{parameter name: trainable} for fine-tuning: the stem, ``res2`` and
+    every frozen-BN affine are frozen (Detectron2 FREEZE_AT=2)."""
+    frozen = ("backbone.bottom_up.stem.", "backbone.bottom_up.res2.")
+    return {
+        name: not (name.startswith(frozen) or ".norm." in name)
+        for name, _ in model.named_parameters()
+    }
+
+
+def make_optimizer(
+    params: Iterable[torch.Tensor],
+    base_lr: float,
+    max_iter: int,
+    warmup_iters: int = 1000,
+    gamma: float = 0.1,
+    momentum: float = 0.9,
+    weight_decay: float = 1e-4,
+) -> Tuple[torch.optim.SGD, torch.optim.lr_scheduler.LambdaLR]:
+    """SGD with momentum and weight decay, and the warmup-multistep
+    schedule as a ``LambdaLR`` over a base rate of 1 (so the rate is the
+    schedule's value: step 0's for the first update, as optax reads it)."""
+    opt = torch.optim.SGD(params, lr=1.0, momentum=momentum, weight_decay=weight_decay)
+    schedule = warmup_multistep_schedule(base_lr, max_iter, warmup_iters, gamma=gamma)
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+
+
+def optimizer_step(optimizer, scheduler, grad_clip_norm: Optional[float] = None) -> None:
+    """Apply the gradients in ``.grad``: global-norm clip (when set), then
+    SGD (decay, momentum, rate), then advance the schedule."""
+    if grad_clip_norm:
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        torch.nn.utils.clip_grad_norm_(params, grad_clip_norm)
+    optimizer.step()
+    scheduler.step()
+
+
+@dataclass
+class TrainConfig:
+    backbone: str = "R50"
+    base_lr: float = 0.00025
+    ims_per_batch: int = 2
+    max_iter: Optional[int] = None
+    warmup_iters: int = 1000
+    gamma: float = 0.1
+    # shape every batch must have: images [ims_per_batch, S, S, 3], GT
+    # padded to max_instances rows
+    train_size: int = 512
+    max_instances: int = 64
+    checkpoint_every: int = 1000
+    log_every: int = 20
+    # bf16 autocast over float32 master weights
+    use_bf16: bool = True
+    seed: int = 0
+    # static proposal / sample capacity overrides (small for tests)
+    loss_caps: Optional[dict] = None
+    # a torch file with a Detectron2-named state dict (as model_final_*.pt
+    # holds) to fine-tune from; freezes the stem, res2 and the norms
+    init_checkpoint: Optional[str] = None
+    # global-norm gradient clipping (advised from scratch: frozen BN does
+    # not normalise activations)
+    grad_clip_norm: Optional[float] = None
+    # from-scratch conditioning (zero_residual_norms); ignored when
+    # fine-tuning
+    zero_init_residual: bool = True
+
+
+def zero_residual_norms(model: MaskRCNN, stem_scale: float = 1.0 / 120.0) -> None:
+    """From-scratch conditioning, in place: zero every bottleneck's last
+    norm scale (each residual block starts as the identity) and scale the
+    stem norm by ~1/std of raw pixels, so features start near unit scale
+    (frozen BN never re-normalises them)."""
+    block_norm3 = re.compile(r"backbone\.bottom_up\.res\d\.\d+\.conv3\.norm\.weight$")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if block_norm3.match(name):
+                p.zero_()
+            elif name == "backbone.bottom_up.stem.conv1.norm.weight":
+                p.mul_(stem_scale)
+
+
+def unpack_mask_bits(packed: torch.Tensor) -> torch.Tensor:
+    """[..., W//8] uint8 (``np.packbits`` order, bitorder 'big') -> [..., W]
+    bool: the loader's bit-packed GT masks."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8).bool()
+
+
+def batch_to_device(batch: dict, device, cfg: TrainConfig) -> Tuple[torch.Tensor, GroundTruth]:
+    """A batch in the loader's format (``image`` uint8 [B,S,S,3],
+    ``gt_boxes`` float32 [B,G,4], ``gt_classes`` int [B,G], ``gt_valid``
+    bool [B,G], ``gt_masks`` bool [B,G,S,S] or packbits uint8 [B,G,S,S/8];
+    numpy arrays or tensors) -> (images, GroundTruth) on ``device``."""
+    t = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    b, s, g = cfg.ims_per_batch, cfg.train_size, cfg.max_instances
+    if tuple(t["image"].shape) != (b, s, s, 3) or tuple(t["gt_boxes"].shape) != (b, g, 4):
+        raise ValueError(
+            f"batch shapes image {tuple(t['image'].shape)}, gt_boxes {tuple(t['gt_boxes'].shape)} "
+            f"do not match ims_per_batch={b}, train_size={s}, max_instances={g}"
+        )
+    masks = t["gt_masks"]
+    if masks.dtype == torch.uint8:
+        masks = unpack_mask_bits(masks)
+    gt = GroundTruth(
+        boxes=t["gt_boxes"].float(),
+        classes=t["gt_classes"].long(),
+        valid=t["gt_valid"].bool(),
+        masks=masks.bool(),
+    )
+    return t["image"], gt
+
+
+def train_step(
+    model: MaskRCNN,
+    optimizer,
+    scheduler,
+    batch: dict,
+    cfg: TrainConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, float]:
+    """One SGD step on one batch -> the loss components (floats, batch
+    means). Sampling draws come from ``generator``."""
+    dev = next(model.parameters()).device
+    images, gt = batch_to_device(batch, dev, cfg)
+    with torch.autocast(device_type=dev.type, dtype=torch.bfloat16, enabled=cfg.use_bf16):
+        losses = maskrcnn_loss(model, images, gt, generator=generator, **(cfg.loss_caps or {}))
+    optimizer.zero_grad(set_to_none=True)
+    losses["total"].backward()
+    optimizer_step(optimizer, scheduler, cfg.grad_clip_norm)
+    return {k: float(v.detach()) for k, v in losses.items()}
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The sampling generator of one step, a function of (seed, step) only,
+    so a resumed run draws what an uninterrupted one would."""
+    return torch.Generator(device=device).manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def _checkpoints(ckpt_dir: Path):
+    found = [(int(m.group(1)), p) for p in ckpt_dir.glob("step_*.pt") if (m := _CKPT.search(p.name))]
+    return sorted(found)
+
+
+def _model_state(obj) -> dict:
+    return obj["model"] if isinstance(obj, dict) and "model" in obj else obj
+
+
+def train(
+    batches: Iterable[dict],
+    num_classes: int,
+    output_dir: str,
+    cfg: TrainConfig = TrainConfig(),
+    init_checkpoint: Optional[str] = None,
+    resume: bool = True,
+    max_steps_override: Optional[int] = None,
+    device=None,
+) -> Tuple[str, Dict[str, float]]:
+    """Train Mask R-CNN on ``batches`` (dicts in the loader's format, see
+    :func:`batch_to_device`) on ``device`` (``cuda`` unless the caller
+    passes another) -> (final weights path, last step's losses).
+
+    A list or tuple of batches is one epoch and repeats; any other iterable
+    is consumed once and must hold a batch for every step. Without
+    ``max_iter`` the schedule length is :func:`auto_max_iter` of the
+    epoch's image count. Checkpoints go to ``output_dir/ckpts`` (the newest
+    two are kept); with ``resume`` the run continues from the newest one,
+    with the batch stream restarted from its start, as the JAX loader is.
+    The final weights are ``output_dir/model_final_{backbone}.pt``."""
+    dev = resolve_device(device)
+    out_dir = Path(output_dir)
+    ckpt_dir = out_dir / "ckpts"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    max_iter = max_steps_override or cfg.max_iter or auto_max_iter(len(batches) * cfg.ims_per_batch)
+
+    model = build_train_model(cfg.backbone, num_classes, device=dev, seed=cfg.seed)
+    init_checkpoint = init_checkpoint or cfg.init_checkpoint
+    if init_checkpoint:
+        state = torch.load(os.path.expanduser(init_checkpoint), map_location=dev)
+        model.load_state_dict(_model_state(state), strict=True)
+        # fine-tuning protects the pretrained early layers; from scratch
+        # everything trains (freezing would pin the zeroed residual norms)
+        trainable = _trainable_mask(model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable[name])
+        log.info("Fine-tuning from %s", init_checkpoint)
+    elif cfg.zero_init_residual:
+        zero_residual_norms(model)
+    optimizer, scheduler = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad],
+        cfg.base_lr, max_iter, cfg.warmup_iters, cfg.gamma,
+    )
+
+    start_step = 0
+    found = _checkpoints(ckpt_dir)
+    if resume and found:
+        start_step, path = found[-1]
+        state = torch.load(path, map_location=dev)
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        scheduler.load_state_dict(state["scheduler"])
+        # the rate of the next step follows this run's schedule (its
+        # max_iter may differ from the saved run's), as optax's count does
+        for group, lr_lambda in zip(optimizer.param_groups, scheduler.lr_lambdas):
+            group["lr"] = lr_lambda(start_step)
+        log.info("Resumed from step %d", start_step)
+
+    stream = itertools.cycle(batches) if isinstance(batches, (list, tuple)) else iter(batches)
+    metrics: Dict[str, float] = {}
+    log.info("Training %s on %s: steps %d-%d", cfg.backbone, dev, start_step, max_iter)
+    for step in range(start_step, max_iter):
+        batch = next(stream, None)
+        if batch is None:
+            raise ValueError(f"batches ran out at step {step} of {max_iter}")
+        metrics = train_step(model, optimizer, scheduler, batch, cfg, step_generator(cfg.seed, step, dev))
+        done = step + 1
+        if done % cfg.log_every == 0 or done == max_iter:
+            log.info(
+                "step %d/%d loss %.4f (rpn %.3f/%.3f cls %.3f box %.3f mask %.3f) lr %.3g",
+                done, max_iter, metrics["total"], metrics["rpn_cls"], metrics["rpn_loc"],
+                metrics["cls"], metrics["box"], metrics["mask"], scheduler.get_last_lr()[0],
+            )
+        if done % cfg.checkpoint_every == 0 or done == max_iter:
+            state = {
+                "step": done,
+                "model": model.state_dict(),
+                "optimizer": optimizer.state_dict(),
+                "scheduler": scheduler.state_dict(),
+            }
+            torch.save(state, ckpt_dir / f"step_{done:08d}.pt")
+            for _, old in _checkpoints(ckpt_dir)[:-_KEEP_CHECKPOINTS]:
+                old.unlink()
+
+    final = out_dir / f"model_final_{cfg.backbone.lower()}.pt"
+    torch.save(
+        {"model": model.state_dict(), "backbone": cfg.backbone, "num_classes": num_classes}, final
+    )
+    log.info("Final weights: %s", final)
+    return str(final), metrics

@@ -46,7 +46,9 @@ def test_forbidden_rule(module, bad):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 16
+    assert len(files) >= 20
+    walked = {f.relative_to(PORT).as_posix() for f in files}
+    assert {"train/targets.py", "train/losses.py", "train/trainer.py"} <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
         for f in files
@@ -61,7 +63,7 @@ def test_port_sources_import_no_jax():
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, deepemia_tpu_torch, deepemia_tpu_torch.inference.engine, "
-        "deepemia_tpu_torch.kernels.roi_align; "
+        "deepemia_tpu_torch.kernels.roi_align, deepemia_tpu_torch.train.trainer; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'deepemia_tpu')]; "
         "assert not bad, bad"
@@ -69,9 +71,10 @@ def test_import_leaves_jax_unloaded():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from deepemia_tpu_torch.inference.engine import TileEngine
-    from deepemia_tpu_torch.models.mask_rcnn import build_model
+    from deepemia_tpu_torch.models.mask_rcnn import build_model, build_train_model
+    from deepemia_tpu_torch.train.trainer import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -81,3 +84,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TileEngine(model)
     assert TileEngine(model, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_train_model("R50", num_classes=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train([], 2, str(tmp_path), max_steps_override=1)
