@@ -39,7 +39,29 @@ It builds the CUDA kernels from the sources in the checkout and then:
   8. runs one float32 training step (128², same weights, batch and sampling
      draws) on the card and on the CPU (plain RoIAlign forward and backward)
      and compares the RPN outputs, the card's proposal selection given the
-     CPU's RPN outputs, the losses and every parameter's gradient.
+     CPU's RPN outputs, the losses and every parameter's gradient;
+  9. serves three synthetic 2048² micrographs, written as uncompressed TIFF
+     by this script, through ``InferencePipeline.run`` under the default
+     configuration (Mask R-CNN R50-FPN, 2 classes, bf16, the seeded phase-3
+     weights saved as ``model_final_r50.pt``; the size heuristic, 512 px
+     tiles with the x2 upscale the heuristic keeps or drops, multiscale at
+     0.7/1.0/1.5/2.0, morphology postprocess, device RLE, native host
+     measurements) to both CSVs; checks that every image was processed,
+     that the RLE rows are the valid instances and decode inside the image,
+     that every measurement row belongs to one of them, and that every
+     multilevel RoIAlign of the run launched the K1 kernel; holds K1
+     against the plain RoIAlign on the first call of every pyramid shape
+     and stage of that run (tile batches and whole-image passes of every
+     scale); prints seconds per image and the pipeline's stage seconds;
+     then runs one 256² image through the pipeline in float32 on the card
+     and on the CPU and compares the two CSVs, and once more on the card
+     with every RoIAlign box moved by 0.25 px, which the comparison must
+     reject;
+ 10. holds the windowed-sum kernel (K3) against its plain version on the
+     conv-chain output of its micro-benchmark, in bf16 and float32; times
+     it, the plain version and ``torch.sum``; runs the micro-benchmark's
+     six variants (``deepemia_tpu_torch.tools.bench_decouple``) with K3's
+     launch count reset before and read after.
 
 Phase 7 runs before phase 6, whose inputs come from a training step.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
@@ -91,6 +113,22 @@ LOSS_RTOL = 1e-4
 GRAD_TOL = 5e-3
 GRAD_TOL_MEDIAN = 5e-4
 TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+PIPELINE_DIR = os.path.join(ROOT, "build", "chip_smoke_pipeline")
+# K3 vs plain: both sum the window in float32, in other orders; relative to
+# the sum of |x| over the window
+K3_TOL = 1e-5
+# card vs CPU pipeline (float32, TF32 off): the share of instances on each
+# device with a partner on the other at mask IoU >= PIPE_MIN_IOU, and of
+# measurement rows with a partner whose numbers all agree to 1e-3 relative.
+# Random weights make the pipeline chaotic at rounding scale, so the two
+# devices' CSVs are not identical; the limits sit between the sound
+# readings and those of a planted fault (every RoIAlign box on the card
+# moved by PIPE_FAULT_PX), which the phase replays on every run and must
+# reject. The readings are in PERF.md (Findings)
+PIPE_MIN_IOU = 0.95
+PIPE_MATCH_SHARE = 0.95
+PIPE_ROW_SHARE = 0.9
+PIPE_FAULT_PX = 0.25
 
 
 def card_line() -> str:
@@ -167,8 +205,9 @@ def roi_work(feats, boxes, valid, batch_idx, out_size, out_dtype):
     return bound_s * 1e3, by
 
 
-def compare_roi_align(tag, feats, boxes, valid, batch_idx, out_size, dtype, reps=25):
-    """Kernel vs plain on the same inputs; returns the record of one row."""
+def compare_roi_align(tag, feats, boxes, valid, batch_idx, out_size, dtype, reps=25, adaptive=True, timed=True):
+    """Kernel vs plain on the same inputs; returns the record of one row
+    (with ``timed=False`` only its error, and nothing is timed)."""
     from deepemia_tpu_torch.kernels.roi_align import roi_align_cuda
     from deepemia_tpu_torch.models.roi_align import assign_fpn_levels, multilevel_roi_align
 
@@ -177,11 +216,11 @@ def compare_roi_align(tag, feats, boxes, valid, batch_idx, out_size, dtype, reps
 
     def kernel():
         return roi_align_cuda(feats, boxes, levels, bidx, valid, output_size=out_size,
-                              sampling_ratio=2, adaptive_ratio=True, out_dtype=dtype)
+                              sampling_ratio=2, adaptive_ratio=adaptive, out_dtype=dtype)
 
     def plain():
         fd = dict(zip(("p2", "p3", "p4", "p5"), feats))
-        return multilevel_roi_align(fd, boxes, out_size, 2, adaptive_ratio=True, valid=valid,
+        return multilevel_roi_align(fd, boxes, out_size, 2, adaptive_ratio=adaptive, valid=valid,
                                     batch_idx=bidx, out_dtype=dtype)
 
     got = kernel()
@@ -191,18 +230,18 @@ def compare_roi_align(tag, feats, boxes, valid, batch_idx, out_size, dtype, reps
     scale = max(float(f.float().abs().max()) for f in feats)
     tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
     zeros = bool((got[~valid] == 0).all())
+    line = (f"roi_align {tag}: N={boxes.shape[0]} valid={int(valid.sum())} out={out_size} "
+            f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={tol:.3g} invalid_rows_zero={zeros}")
+    if not (err <= tol and zeros and math.isfinite(err)):
+        raise AssertionError(f"{line}: kernel disagrees with plain")
+    if not timed:
+        print(line, flush=True)
+        return dict(err=err)
     k_ms = time_ms(kernel, reps)
     p_ms = time_ms(plain, max(3, reps // 5))
     bound_ms, by = roi_work(feats, boxes, valid, bidx, out_size, dtype)
-    print(
-        f"roi_align {tag}: N={boxes.shape[0]} valid={int(valid.sum())} out={out_size} "
-        f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={tol:.3g} invalid_rows_zero={zeros} "
-        f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
-        f"share_of_bound={bound_ms / k_ms:.3f}",
-        flush=True,
-    )
-    if not (err <= tol and zeros and math.isfinite(err)):
-        raise AssertionError(f"roi_align {tag}: kernel disagrees with plain ({err} > {tol})")
+    print(f"{line} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
+          f"share_of_bound={bound_ms / k_ms:.3f}", flush=True)
     return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by)
 
 
@@ -807,6 +846,249 @@ def phase_train_profile(batch):
           flush=True)
 
 
+def write_tiff(path: str, gray: np.ndarray) -> None:
+    """A baseline uncompressed 8-bit gray TIFF: header, one strip, IFD."""
+    import struct
+
+    h, w = gray.shape
+    data = np.ascontiguousarray(gray, np.uint8).tobytes()
+    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1), (273, 4, 8),
+            (277, 3, 1), (278, 4, h), (279, 4, len(data))]
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", t, typ, 1) + (struct.pack("<HH", v, 0) if typ == 3 else struct.pack("<I", v))
+        for t, typ, v in tags
+    ) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(b"II*\x00" + struct.pack("<I", 8 + len(data)) + data + ifd)
+
+
+def pipeline_home(name: str, model, images):
+    """A dataset home under ``PIPELINE_DIR/name``: the category file, the
+    model's float32 state dict as ``model_final_r50.pt``, the images as
+    TIFF. -> (config, split_dir, image folder, output folder)."""
+    import shutil
+
+    from deepemia_tpu_torch.config.config import default_config
+
+    home = os.path.join(PIPELINE_DIR, name)
+    shutil.rmtree(home, ignore_errors=True)
+    cfg = default_config(home)
+    folder = os.path.join(home, "INFERENCE")
+    ckpt = os.path.join(cfg["paths"]["split_dir"], "smoke", "rcnn_r50")
+    os.makedirs(folder)
+    os.makedirs(ckpt)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"smoke": [folder, folder, ["particle", "pore"]]}, f)
+    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    torch.save({"model": sd, "backbone": "R50", "num_classes": 2}, os.path.join(ckpt, "model_final_r50.pt"))
+    for i, img in enumerate(images):
+        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), img[..., 0])
+    return cfg, cfg["paths"]["split_dir"], folder, os.path.join(home, "out")
+
+
+def read_csv(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.reader(f))
+
+
+def phase_pipeline(model, images):
+    """The pipeline on three 2048² micrographs at full width, default
+    configuration; every multilevel RoIAlign must launch K1, and K1 must
+    agree with the plain RoIAlign at every pyramid shape the run gave it."""
+    import deepemia_tpu_torch.models.heads as heads_mod
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+    from deepemia_tpu_torch.kernels.roi_align import counter
+    from deepemia_tpu_torch.ops.rle import rle_decode
+
+    cfg, split_dir, folder, out = pipeline_home("full", model, images)
+    pipe = InferencePipeline("smoke", split_dir, out, cfg, scale_bar=lambda img: ("0", 1.0))
+    assert pipe.use_multiscale and pipe.postproc_enabled and next(pipe.engine.model.parameters()).dtype == torch.bfloat16
+    counts, calls, shapes = {}, [], {}
+    real_infer, real_dispatch = pipe._infer_one, heads_mod.roi_align_dispatch
+
+    def infer(image, timers):
+        inst, q = real_infer(image, timers)
+        counts[len(counts)] = int(inst.valid.sum())
+        return inst, q
+
+    def dispatch(features, boxes, **kw):
+        # the first call of each pyramid shape and stage, held against the
+        # plain version after the counted run
+        calls.append(int(boxes.shape[0]))
+        key = (tuple(features["p2"].shape), kw["output_size"])
+        if boxes.shape[0] and key not in shapes:
+            shapes[key] = ([features[k] for k in ("p2", "p3", "p4", "p5")], boxes.clone(),
+                           {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+        return real_dispatch(features, boxes, **kw)
+
+    pipe._infer_one, heads_mod.roi_align_dispatch = infer, dispatch
+    counter.launches = 0
+    try:
+        res = pipe.run(folder, visualize=False)
+    finally:
+        heads_mod.roi_align_dispatch = real_dispatch
+    launches = counter.launches
+    names = sorted(os.listdir(folder))
+    assert res["processed"] == names and not res["failed"], res
+    rle = read_csv(res["rle_csv"])[1:]
+    meas = read_csv(res["measurements_csv"])
+    assert meas[0][0] == "Instance_ID" and len(meas) > 1
+    h, w = images[0].shape[:2]
+    for i, name in enumerate(names):
+        rows = [r for r in rle if r[0] == name]
+        assert len(rows) == counts[i] > 0, (name, len(rows), counts[i])
+        for _, enc in rows:
+            vals = [int(t) for t in enc.split()]
+            starts, lengths = vals[0::2], vals[1::2]
+            assert all(s >= 1 and s + n - 1 <= h * w for s, n in zip(starts, lengths)), name
+            assert rle_decode(vals, (h, w)).sum() == sum(lengths), name
+        ids = {int(r[0].rsplit("_", 1)[1]) for r in meas[1:] if r[-1] == name}
+        assert ids and ids <= set(range(1, counts[i] + 1)), name
+    rois = sum(1 for n in calls if n > 0)
+    print(f"pipeline: images={len(names)} valid_instances={[counts[i] for i in range(len(names))]} "
+          f"rle_rows={len(rle)} measurement_rows={len(meas) - 1} multilevel_roi_align_calls={len(calls)} "
+          f"(with RoIs {rois}) roi_align_fwd launches={launches}", flush=True)
+    assert launches > 0 and launches == rois, "a multilevel RoIAlign of the pipeline did not launch K1"
+    errs = []
+    for ((b, hp, wp, _), out_size), (feats, boxes, kw) in sorted(shapes.items()):
+        args = (feats, boxes, kw["valid"], kw["batch_idx"], out_size)
+        tag = f"pipeline {b} x {4 * hp}x{4 * wp} input, {'box' if out_size == 7 else 'mask'} stage"
+        for dtype in dict.fromkeys((kw["out_dtype"], torch.float32)):
+            errs.append(compare_roi_align(tag, *args, dtype, adaptive=kw["adaptive_ratio"], timed=False)["err"])
+    print(f"pipeline: K1 held against the plain RoIAlign at {len(shapes)} pyramid shapes and stages", flush=True)
+    shapes.clear()
+    print(f"pipeline: size heuristic valid={pipe._heuristic_valid} small classes={sorted(pipe.small_classes)} "
+          f"classes needing the upscale={sorted(pipe.upscale_classes)} -> tile upscale "
+          f"{'x1 (native tiles)' if pipe._heuristic_valid and not pipe.upscale_classes else 'configured'}", flush=True)
+    secs = res["seconds_per_image"]
+    print(f"pipeline: seconds_per_image first={secs[0]:.4f} steady={secs[1:]} ({h}x{w}, bf16, default config; "
+          f"size heuristic before the loop {res['stages']['size_heuristic']['total_s']:.4f} s)", flush=True)
+    print("pipeline stage seconds: " + json.dumps(
+        {k: {"total_s": round(v["total_s"], 6), "count": v["count"]} for k, v in res["stages"].items()}), flush=True)
+    return launches, errs
+
+
+def best_match_share(score):
+    """[N,M] agreement scores in [0,1] -> the share of rows and of columns
+    whose best partner scores 1 (both directions)."""
+    if score.size == 0:
+        return 0.0, 0.0
+    return float((score.max(axis=1) >= 1).mean()), float((score.max(axis=0) >= 1).mean())
+
+
+def pipeline_csvs(model, img, name, device):
+    """Both CSVs' rows (headers dropped) of one image through the pipeline
+    in float32."""
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+
+    cfg, split_dir, folder, out = pipeline_home(name, model, [img])
+    pipe = InferencePipeline("smoke", split_dir, out, cfg, use_bf16=False, scale_bar=lambda im: ("0", 1.0),
+                             device=device)
+    res = pipe.run(folder)
+    assert not res["failed"], res
+    return read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:]
+
+
+def csv_agreement(rle_g, meas_g, rle_c, meas_c, hw):
+    """Instances matched by mask IoU >= PIPE_MIN_IOU and measurement rows
+    matched by value (same class, every number to 1e-3 relative), each
+    side's share with a partner on the other; identical RLE strings."""
+    from deepemia_tpu_torch.ops.rle import rle_decode
+
+    def masks(rows):
+        return np.stack([rle_decode([int(t) for t in r[1].split()], hw).ravel() for r in rows]).astype(np.float32)
+
+    mg, mc = masks(rle_g), masks(rle_c)
+    inter = mg @ mc.T
+    union = mg.sum(1)[:, None] + mc.sum(1)[None, :] - inter
+    iou = np.where(union > 0, inter / np.maximum(union, 1), 1.0)
+    inst_g, inst_c = best_match_share(iou >= PIPE_MIN_IOU)
+
+    def numbers(rows):
+        return np.array([[float(v) for v in r[3:15]] for r in rows]), np.array([r[2] for r in rows])
+
+    (vg, cg), (vc, cc) = numbers(meas_g), numbers(meas_c)
+    rel = np.abs(vg[:, None, :] - vc[None, :, :]) / np.maximum(np.abs(vc[None, :, :]), 1e-9)
+    rows_g, rows_c = best_match_share((rel.max(axis=2) <= 1e-3) & (cg[:, None] == cc[None, :]))
+    cpu_strings = {r[1] for r in rle_c}
+    return dict(n_card=len(rle_g), n_cpu=len(rle_c), identical=sum(r[1] in cpu_strings for r in rle_g),
+                inst=min(inst_g, inst_c), rows_card=len(meas_g), rows_cpu=len(meas_c), rows=min(rows_g, rows_c))
+
+
+def phase_pipeline_reference(model):
+    """One 256² image through the pipeline in float32 on the card and on
+    the CPU (plain RoIAlign), same weights and default configuration.
+    Borderline instances (a score, size gate or IoU within rounding of its
+    threshold) may differ between the two devices and shift the rows after
+    them, so instances are matched by mask IoU and measurement rows by
+    value, not by position. Then the card again with a planted fault (every
+    RoIAlign box moved by PIPE_FAULT_PX), which the limits must reject."""
+    import deepemia_tpu_torch.models.heads as heads_mod
+
+    img = synthetic_micrograph(256, seed=7)
+    rle_c, meas_c = pipeline_csvs(model, img, "ref_cpu", "cpu")
+    rle_g, meas_g = pipeline_csvs(model, img, "ref_cuda", "cuda")
+    a = csv_agreement(rle_g, meas_g, rle_c, meas_c, (256, 256))
+    print("pipeline reference 256² f32: " + json.dumps(a), flush=True)
+    assert min(a["n_card"], a["n_cpu"], a["rows_card"], a["rows_cpu"]) > 0
+    assert a["inst"] >= PIPE_MATCH_SHARE and a["rows"] >= PIPE_ROW_SHARE, a
+    real = heads_mod.roi_align_dispatch
+    heads_mod.roi_align_dispatch = lambda features, boxes, **kw: real(features, boxes + PIPE_FAULT_PX, **kw)
+    try:
+        rle_f, meas_f = pipeline_csvs(model, img, "ref_fault", "cuda")
+    finally:
+        heads_mod.roi_align_dispatch = real
+    f = csv_agreement(rle_f, meas_f, rle_c, meas_c, (256, 256))
+    print(f"pipeline reference 256² f32, card with RoIAlign boxes moved by {PIPE_FAULT_PX} px: " + json.dumps(f),
+          flush=True)
+    assert f["inst"] < PIPE_MATCH_SHARE or f["rows"] < PIPE_ROW_SHARE, "the limits pass a planted RoIAlign fault"
+
+
+def phase_window_sum():
+    """K3 against its plain version on the micro-benchmark's conv-chain
+    output, bf16 and float32; times; the six variants of the tool with the
+    launch count reset before and read after."""
+    from deepemia_tpu_torch.kernels import window_sum as ws
+    from deepemia_tpu_torch.tools import bench_decouple
+
+    x, convs, _ = bench_decouple.conv_chain(torch.device("cuda"))
+    with torch.inference_mode():
+        feat = convs(x)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f = feat.to(dtype)
+        got = ws.window_sum(f)
+        torch.cuda.synchronize()
+        ref = ws.window_sum_plain(f)
+        scale = float(f[: ws.WINDOW[0], : ws.WINDOW[1]].float().abs().sum())
+        err = float((got - ref).abs().max())
+        tol = K3_TOL * scale
+        line = (f"window_sum {tuple(f.shape)} {str(dtype).split('.')[-1]}: kernel={float(got):.6f} "
+                f"plain={float(ref):.6f} max_abs_err={err:.3g} tol={tol:.3g} (sum |x| {scale:.6g})")
+        if not (scale > 0 and err <= tol and math.isfinite(err)):
+            raise AssertionError(f"{line}: kernel disagrees with plain")
+        win = f[: ws.WINDOW[0], : ws.WINDOW[1]]
+        k_ms = time_ms(lambda: ws.window_sum(f), 50)
+        p_ms = time_ms(lambda: ws.window_sum_plain(f), 50)
+        l_ms = time_ms(lambda: torch.sum(win, dtype=torch.float32), 50)
+        nbytes = win.numel() * win.element_size() + 4
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, win.numel() / F32_FLOPS_PER_S
+        bound_ms, by = max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+        print(f"{line} kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} library_ms={l_ms:.5f} bound_ms={bound_ms:.3g} "
+              f"({by}, {nbytes} bytes)", flush=True)
+        rows[dtype] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=by)
+    ws.counter.launches = 0
+    variants = bench_decouple.main(device="cuda")
+    launches = ws.counter.launches
+    print("bench_decouple: " + json.dumps({k: round(v["ms"], 6) for k, v in variants.items()})
+          + f" window_sum launches={launches}", flush=True)
+    assert launches == 5 * 8 * (2 + 8), launches  # 5 consuming variants x 8 steps x 10 calls
+    assert all(math.isfinite(v["value"]) for v in variants.values())
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -820,7 +1102,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    sources = ["roi_align_fwd", "roi_align_bwd"]
+    sources = ["roi_align_fwd", "roi_align_bwd", "window_sum"]
     _, build_s = sync_time(lambda: _build.build(sources))
     print(f"build: {', '.join(nm + '.cu' for nm in sources)} in {build_s:.2f} s (in parallel)", flush=True)
     for nm in sources:
@@ -843,7 +1125,14 @@ def main() -> int:
     phase_train_reference()
     phase_train_profile(batches[1])
 
-    errs = [r["err"] for r in list(tile_rows.values()) + captured]
+    import shutil
+
+    pipeline_launches, pipeline_errs = phase_pipeline(model, images)
+    phase_pipeline_reference(model)
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    k3_rows, k3_launches = phase_window_sum()
+
+    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -872,8 +1161,24 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows) else "operations",
         "library_ms": None,
     }
+    k3 = k3_rows[torch.bfloat16]
+    window = {
+        "name": "window_sum",
+        "route": "cuda",
+        "source": "deepemia_tpu_torch/kernels/csrc/window_sum.cu",
+        "replaces": "tools/bench_decouple.py:49",
+        "launches": k3_launches,
+        "max_abs_err": max(r["err"] for r in k3_rows.values()),
+        # one call at the benchmark's shape: [256,256,256] bf16 -> the 8x16x256 window
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
+    }
+    print(f"pipeline roi_align_fwd launches={pipeline_launches}", flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [kernel, backward]}), flush=True)
+    print(json.dumps({"kernels": [kernel, backward, window]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

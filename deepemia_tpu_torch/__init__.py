@@ -1,9 +1,11 @@
-"""PyTorch / CUDA port of deepEMIA's tiled Mask R-CNN serving path.
+"""PyTorch / CUDA port of deepEMIA: tiled Mask R-CNN serving, the
+inference pipeline and training.
 
 The package mirrors the JAX package's module layout (``config/``,
-``models/``, ``ops/``, ``kernels/``, ``inference/``) so every module has one
-counterpart. It imports ``torch`` and ``numpy`` only. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``data/``, ``models/``, ``ops/``, ``kernels/``, ``native/``,
+``inference/``, ``train/``, ``tools/``, ``utils/``) so every module has one
+counterpart. It imports ``torch``, ``numpy`` and ``scipy`` only. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

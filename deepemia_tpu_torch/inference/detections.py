@@ -96,3 +96,24 @@ def dedup_by_mask_iou(
         iou = torch.where(same, iou, 0.0)
     keep = box_ops.nms_mask(inst.boxes, inst.scores, iou_threshold, valid=inst.valid, iou=iou)
     return filter_instances(inst, keep)
+
+
+def compact_instances(inst: InstanceSet) -> InstanceSet:
+    """Valid rows to the front in descending score (ties keep their order),
+    invalid rows to the back, so a small prefix holds every detection."""
+    key = torch.where(inst.valid, inst.scores, float("-inf"))
+    order = torch.sort(-key, stable=True).indices
+    return InstanceSet(*(t[order] for t in inst))
+
+
+def slice_instances(inst: InstanceSet, k: int) -> InstanceSet:
+    """First-``k`` prefix of a (compacted) InstanceSet."""
+    return InstanceSet(*(t[:k] for t in inst))
+
+
+def bucket_size(count: int, cap: int, minimum: int = 8) -> int:
+    """Next power of 2 >= ``count``, clamped to [minimum, cap]."""
+    b = minimum
+    while b < count and b < cap:
+        b *= 2
+    return min(b, cap)

@@ -1,8 +1,13 @@
-"""Image ops: pixel normalisation, the quality score behind adaptive
-confidence, and the bilinear resize of the tile upscale."""
+"""Image ops: decoding micrograph files, pixel normalisation, the quality
+score behind adaptive confidence, and the bilinear resize of the tile
+upscale."""
 
 from __future__ import annotations
 
+import struct
+import zlib
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,3 +70,149 @@ def normalize_bgr(image: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(PIXEL_MEAN_BGR, dtype=torch.float32, device=image.device)
     std = torch.tensor(PIXEL_STD_BGR, dtype=torch.float32, device=image.device)
     return (image.float() - mean) / std
+
+
+# ---------------------------------------------------------------------------
+# Decoding: the port's cv2.imread(path, cv2.IMREAD_COLOR)
+# ---------------------------------------------------------------------------
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples
+_TIFF_COMPRESSION = {5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate"}
+
+
+def read_image(path: str) -> np.ndarray:
+    """Decode an image file to [H,W,3] uint8 BGR, as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it.
+
+    Reads non-interlaced PNG (8/16-bit gray, gray+alpha, RGB, RGBA and
+    8-bit palette) and baseline uncompressed TIFF (8/16-bit gray, RGB, RGBA,
+    strips, first page). Gray is replicated to three channels and alpha is
+    dropped. 16-bit samples reduce to 8 bits as OpenCV reduces them: the
+    high byte, except for 16-bit colour TIFF, which libtiff's RGBA reader
+    rounds (v * 255 + 32767) // 65535. Any other encoding raises a
+    ``ValueError`` that names it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIGNATURE):
+        return _decode_png(data)
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return _decode_tiff(data)
+    if data[:4] in (b"II+\x00", b"MM\x00+"):
+        raise ValueError(f"{path}: BigTIFF is not supported")
+    if data[:3] == b"\xff\xd8\xff":
+        raise ValueError(f"{path}: JPEG is not supported")
+    if data[:2] == b"BM":
+        raise ValueError(f"{path}: BMP is not supported")
+    raise ValueError(f"{path}: unknown image encoding")
+
+
+def _to_bgr(pix: np.ndarray) -> np.ndarray:
+    """[H,W,S] uint8 samples (gray, gray+alpha, RGB or RGBA) -> [H,W,3] BGR."""
+    if pix.shape[2] <= 2:
+        return np.repeat(pix[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pix[..., 2::-1])
+
+
+def _unfilter_png(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """Undo the PNG scanline filters. raw [H,W,B] filtered bytes, ftype [H]
+    -> [H,W,B] uint8. A pixel depends on its left, upper and upper-left
+    neighbours, so every anti-diagonal decodes at once (H+W-1 steps)."""
+    h, w, _ = raw.shape
+    if int(ftype.max(initial=0)) > 4:
+        raise ValueError(f"PNG: invalid filter type {int(ftype.max())}")
+    out = np.zeros((h + 1, w + 1, raw.shape[2]), np.int32)  # zero row above, column left
+    raw = raw.astype(np.int32)
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        x = d - r
+        a = out[r + 1, x]
+        b = out[r, x + 1]
+        c = out[r, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = ftype[r][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) >> 1, paeth], 0)
+        out[r + 1, x + 1] = (raw[r, x] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def _decode_png(data: bytes) -> np.ndarray:
+    pos, idat, palette, hdr = 8, [], None, None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if interlace:
+        raise ValueError("PNG: interlaced (Adam7) PNG is not supported")
+    if ctype not in _PNG_CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
+        raise ValueError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
+    spp = _PNG_CHANNELS[ctype]
+    bpp = spp * depth // 8
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (1 + w * bpp):
+        raise ValueError("PNG: image data has the wrong length")
+    rows = rows.reshape(h, 1 + w * bpp)
+    pix = _unfilter_png(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
+    if depth == 16:
+        pix = pix[..., 0::2]  # big-endian samples: keep the high byte
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("PNG: palette image without a PLTE chunk")
+        pix = palette[pix[..., 0]]
+    return _to_bgr(pix)
+
+
+def _decode_tiff(data: bytes) -> np.ndarray:
+    end = "<" if data[:2] == b"II" else ">"
+    sizes = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4)}
+    (ifd,) = struct.unpack(end + "I", data[4:8])
+    (n,) = struct.unpack(end + "H", data[ifd : ifd + 2])
+    tags = {}
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count = struct.unpack(end + "HHI", data[e : e + 8])
+        if typ not in sizes:
+            continue
+        fmt, size = sizes[typ]
+        at = e + 8 if count * size <= 4 else struct.unpack(end + "I", data[e + 8 : e + 12])[0]
+        tags[tag] = struct.unpack(f"{end}{count}{fmt}", data[at : at + count * size])
+    get = lambda t, d: tags.get(t, (d,))  # noqa: E731
+    w, h = tags[256][0], tags[257][0]
+    spp = get(277, 1)[0]
+    bits = set(get(258, 1))
+    comp, photometric = get(259, 1)[0], get(262, 1)[0]
+    if comp != 1:
+        raise ValueError(f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported")
+    if 322 in tags or 324 in tags:
+        raise ValueError("TIFF: tiled TIFF is not supported")
+    if get(284, 1)[0] != 1:
+        raise ValueError("TIFF: planar (separate-plane) TIFF is not supported")
+    if len(bits) != 1 or bits - {8, 16} or set(get(339, 1)) != {1}:
+        raise ValueError(f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported")
+    if photometric not in (1, 2) or spp not in ((1, 2) if photometric == 1 else (3, 4)):
+        raise ValueError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
+    depth = bits.pop()
+    offsets, counts = tags[273], tags[279]
+    raw = b"".join(data[o : o + c] for o, c in zip(offsets, counts))
+    dtype = np.dtype(np.uint8) if depth == 8 else np.dtype(end + "u2")
+    need = h * w * spp * dtype.itemsize
+    if len(raw) < need:
+        raise ValueError("TIFF: strips hold fewer bytes than the image")
+    pix = np.frombuffer(raw[:need], dtype).reshape(h, w, spp)
+    if depth == 16:
+        v = pix.astype(np.int64)
+        pix = ((v * 255 + 32767) // 65535 if photometric == 2 else v >> 8).astype(np.uint8)
+    return _to_bgr(pix)

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, Flax or ``deepemia_tpu`` imports, and its
-entry points run on CUDA unless told otherwise."""
+"""The port stands alone: no JAX, Flax, ``deepemia_tpu``, OpenCV or PIL
+imports, and its entry points run on CUDA unless told otherwise."""
 
 import ast
 import subprocess
@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepemia_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepemia_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepemia_tpu", "cv2", "PIL")
 
 
 def _imported_modules(path: Path):
@@ -36,6 +36,8 @@ def _forbidden(module: str) -> bool:
         ("flax.linen", True),
         ("deepemia_tpu", True),
         ("deepemia_tpu.ops.boxes", True),
+        ("cv2", True),
+        ("PIL.Image", True),
         ("deepemia_tpu_torch.ops.boxes", False),
         ("torch.nn", False),
     ],
@@ -49,6 +51,11 @@ def test_port_sources_import_no_jax():
     assert len(files) >= 20
     walked = {f.relative_to(PORT).as_posix() for f in files}
     assert {"train/targets.py", "train/losses.py", "train/trainer.py"} <= walked
+    assert {
+        "inference/pipeline.py", "inference/multiscale.py", "inference/postprocess.py",
+        "inference/constraints.py", "inference/measure_host.py", "ops/rle.py", "data/models.py",
+        "native/__init__.py", "kernels/window_sum.py", "tools/bench_decouple.py",
+    } <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
         for f in files
@@ -63,9 +70,12 @@ def test_port_sources_import_no_jax():
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, deepemia_tpu_torch, deepemia_tpu_torch.inference.engine, "
-        "deepemia_tpu_torch.kernels.roi_align, deepemia_tpu_torch.train.trainer; "
+        "deepemia_tpu_torch.kernels.roi_align, deepemia_tpu_torch.train.trainer, "
+        "deepemia_tpu_torch.inference.pipeline, deepemia_tpu_torch.inference.multiscale, "
+        "deepemia_tpu_torch.kernels.window_sum, deepemia_tpu_torch.tools.bench_decouple, "
+        "deepemia_tpu_torch.native, deepemia_tpu_torch.data.models; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'deepemia_tpu')]; "
+        "('jax', 'flax', 'deepemia_tpu', 'cv2', 'PIL')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -73,6 +83,8 @@ def test_import_leaves_jax_unloaded():
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from deepemia_tpu_torch.inference.engine import TileEngine
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+    from deepemia_tpu_torch.tools import bench_decouple
     from deepemia_tpu_torch.models.mask_rcnn import build_model, build_train_model
     from deepemia_tpu_torch.train.trainer import train
 
@@ -88,3 +100,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
         build_train_model("R50", num_classes=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train([], 2, str(tmp_path), max_steps_override=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferencePipeline("ds", str(tmp_path), str(tmp_path / "out"), scale_bar=lambda img: ("0", 1.0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_decouple.main()
+    res = bench_decouple.main(device="cpu", size=16, channels=8, dtype=torch.float32, warmup=0, reps=1, steps=1)
+    assert set(res) == {"no_consumer", "direct", "f32_convert", "identity_dot", "flip", "transpose"}
