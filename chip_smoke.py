@@ -11,6 +11,10 @@ It builds the CUDA kernels from the sources in the checkout and then:
   2. holds the RoIAlign kernel against its plain PyTorch version at one
      1024² tile's shapes (box stage 1000 RoIs, about half invalid, 7x7;
      mask stage 100 RoIs, 14x14), in float32 and bfloat16, and times both;
+     then on edge cases at 5x5 (the generic kernel instance), 7x7 and
+     14x14 in both dtypes (``edge_rois``: elongated 700x4 px boxes, p5
+     boxes of a 2048² whole-image pass wider than the output, boxes past
+     the level edge and past [-1, size]; an all-invalid set; N = 0);
   3. serves three synthetic 2048² micrographs through ``TileEngine.infer``
      (Mask R-CNN R50-FPN, 2 classes, bf16, seeded random weights with the
      box regression zeroed, default engine settings: 512 px tiles, 0.1
@@ -35,7 +39,10 @@ It builds the CUDA kernels from the sources in the checkout and then:
      holds K2 against its plain version on them, and on a seeded unit-scale
      cotangent, each in bf16 and float32; checks the adjoint identity
      <K1(F), G> = sum_l <F_l, K2(G)_l> on the card, and times K2, its plain
-     version and K1 at these shapes;
+     version and K1 at these shapes; then K2 against its plain version and
+     the adjoint identity on phase 2's edge cases, in both dtypes, N = 0,
+     and an all-invalid set through ``RoIAlignFunction`` (zero rows, zero
+     feature gradients);
   8. runs one float32 training step (128², same weights, batch and sampling
      draws) on the card and on the CPU (plain RoIAlign forward and backward)
      and compares the RPN outputs, the card's proposal selection given the
@@ -52,7 +59,8 @@ It builds the CUDA kernels from the sources in the checkout and then:
      multilevel RoIAlign of the run launched the K1 kernel; holds K1
      against the plain RoIAlign on the first call of every pyramid shape
      and stage of that run (tile batches and whole-image passes of every
-     scale); prints seconds per image and the pipeline's stage seconds;
+     scale) and times it there per launch; prints seconds per image and
+     the pipeline's stage seconds;
      then runs one 256² image through the pipeline in float32 on the card
      and on the CPU and compares the two CSVs, and once more on the card
      with every RoIAlign box moved by 0.25 px, which the comparison must
@@ -254,7 +262,39 @@ def synthetic_rois(n, image, frac_valid, gen):
     return boxes.cuda().contiguous(), valid.cuda()
 
 
+def edge_rois():
+    """RoIs on the pyramid of a 2048² whole-image pass (p2..p5 of 512..64
+    cells) that stress the kernels' tap tables and footprints: elongated
+    700x4 and 4x700 px boxes (p2, 175 x 1 cells), p5 boxes of 19-64 cells
+    (wider than 7 and 14), boxes past the image edge and past [-1, size]
+    (two of them wholly outside, whose samples all weigh zero). Every fifth
+    row is invalid for K1."""
+    rows = []
+    for y in (10.0, 1000.0, 2040.0):
+        rows += [[100.0, y, 800.0, y + 4.0], [y / 2, 300.0, y / 2 + 4.0, 1000.0]]
+    rows += [[0.0, 0.0, 2048.0, 2048.0], [100.0, 200.0, 1900.0, 1300.0], [300.0, 300.0, 1000.0, 1000.0],
+             [1024.0, 0.0, 2048.0, 600.0]]
+    rows += [[-300.0, 100.0, 200.0, 400.0], [1900.0, -250.0, 2300.0, 150.0], [-40.0, -40.0, 60.0, 60.0],
+             [2000.0, 2000.0, 2100.0, 2100.0], [-500.0, -500.0, -100.0, -100.0], [2200.0, 100.0, 2600.0, 500.0]]
+    boxes = torch.tensor(rows, dtype=torch.float32, device="cuda")
+    valid = torch.ones(len(rows), dtype=torch.bool, device="cuda")
+    valid[::5] = False
+    return boxes, valid
+
+
+# output sizes of the edge cases: 7 and 14 take the kernels' unrolled
+# instances, 5 their generic one
+EDGE_OUTS = (5, 7, 14)
+
+
+def edge_pyramid(dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(1, s, s, 256, device="cuda", generator=gen).to(dtype) for s in (512, 256, 128, 64)]
+
+
 def phase_kernel_vs_plain():
+    from deepemia_tpu_torch.kernels.roi_align import counter, roi_align_cuda
+
     gen = torch.Generator().manual_seed(1)
     shapes = [256, 128, 64, 32]  # p2..p5 of one 1024² model input
     rows = {}
@@ -264,6 +304,21 @@ def phase_kernel_vs_plain():
             boxes, valid = synthetic_rois(n, 1024.0, frac, gen)
             bidx = torch.zeros(n, dtype=torch.int32, device="cuda")
             rows[(n, dtype)] = compare_roi_align(f"tile {n}x{out}", feats, boxes, valid, bidx, out, dtype)
+    # edge cases: elongated, wide p5, past the edges, all invalid, N = 0
+    boxes, valid = edge_rois()
+    bidx = torch.zeros(boxes.shape[0], dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = edge_pyramid(dtype, seed=2)
+        for out in EDGE_OUTS:
+            for tag, v in (("edge cases", valid), ("edge cases, all invalid", torch.zeros_like(valid))):
+                rows[(tag, out, dtype)] = compare_roi_align(f"{tag} {out}x{out}", feats, boxes, v, bidx, out,
+                                                            dtype, timed=False)
+            before = counter.launches
+            got = roi_align_cuda(feats, boxes[:0], bidx[:0], bidx[:0], valid[:0], out, 2, True, dtype)
+            torch.cuda.synchronize()
+            assert got.shape == (0, out, out, 256) and counter.launches == before, "N = 0"
+            print(f"roi_align edge cases N=0 {out}x{out} {str(dtype).split('.')[-1]}: empty result, "
+                  f"nothing launched", flush=True)
     return rows
 
 
@@ -654,12 +709,53 @@ def bwd_work(g, boxes, shapes, out_dtype):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), acc_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def compare_backward(tag, g, boxes, levels, bidx, shapes, dtype):
+    """K2 against its plain version on the same inputs, tolerance relative
+    to the plain result's max |dF| with no floor -> (kernel, plain, err,
+    line); raises where they disagree."""
+    from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+    from deepemia_tpu_torch.models.roi_align import multilevel_roi_align_backward
+
+    def kernel():
+        return roi_align_backward_cuda(g, boxes, levels, bidx, shapes, 2, True, dtype)
+
+    def plain():
+        return multilevel_roi_align_backward(g, boxes, shapes, bidx, 2, True, dtype)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+    peak = max(float(b.float().abs().max()) for b in ref)
+    tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * peak
+    line = (f"roi_align_bwd {tag}: N={boxes.shape[0]} out={g.shape[1]} {str(dtype).split('.')[-1]} "
+            f"max_abs_err={err:.3g} tol={tol:.3g} (max |dF| {peak:.4g})")
+    if not (peak > 0 and err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{line}: kernel disagrees with plain")
+    return kernel, plain, err, line
+
+
+def check_adjoint(tag, f32, boxes, levels, bidx, g32):
+    """<K1(F),G> = sum_l <F_l, K2(G)_l> on the card, float32 kernels,
+    float64 sums, to ADJOINT_TOL of sum |F_l * K2(G)_l|."""
+    from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda, roi_align_cuda
+
+    shapes = [tuple(f.shape[:3]) for f in f32]
+    fwd = roi_align_cuda(f32, boxes, levels, bidx, None, g32.shape[1], 2, True, torch.float32)
+    bwd = roi_align_backward_cuda(g32, boxes, levels, bidx, shapes, 2, True, torch.float32)
+    lhs = float((fwd.double() * g32.double()).sum())
+    rhs = sum(float((a.double() * b.double()).sum()) for a, b in zip(f32, bwd))
+    mag = sum(float((a.double() * b.double()).abs().sum()) for a, b in zip(f32, bwd))
+    rel = abs(lhs - rhs) / max(mag, 1e-30)
+    print(f"adjoint {tag}: <K1(F),G>={lhs:.9g} sum<F,K2(G)>={rhs:.9g} rel={rel:.3g} tol={ADJOINT_TOL}", flush=True)
+    assert rel <= ADJOINT_TOL, (tag, rel)
+
+
 def phase_backward(calls):
     """K2 against its plain version on the captured inputs and on a seeded
     unit-scale cotangent (bf16, the path's dtype, and float32), the
     adjoint identity, and times."""
-    from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda, roi_align_cuda
-    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels, multilevel_roi_align_backward
+    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels
 
     rows = []
     for call, tag in zip(calls, ("box", "mask")):
@@ -674,23 +770,8 @@ def phase_backward(calls):
         for source, g_src in (("captured", call["g"]), ("unit", g_unit)):
             for dtype in (torch.bfloat16, torch.float32):
                 g = g_src.to(dtype)
-
-                def kernel():
-                    return roi_align_backward_cuda(g, boxes, levels, bidx, shapes, 2, True, dtype)
-
-                def plain():
-                    return multilevel_roi_align_backward(g, boxes, shapes, bidx, 2, True, dtype)
-
-                got = kernel()
-                torch.cuda.synchronize()
-                ref = plain()
-                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
-                peak = max(float(b.float().abs().max()) for b in ref)
-                tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * peak
-                line = (f"roi_align_bwd train {tag} stage, {source} cotangent: N={boxes.shape[0]} out={out} "
-                        f"{str(dtype).split('.')[-1]} max_abs_err={err:.3g} tol={tol:.3g} (max |dF| {peak:.4g})")
-                if not (peak > 0 and err <= tol and math.isfinite(err)):
-                    raise AssertionError(f"{line}: kernel disagrees with plain")
+                kernel, plain, err, line = compare_backward(f"train {tag} stage, {source} cotangent", g, boxes,
+                                                            levels, bidx, shapes, dtype)
                 if source == "unit":
                     print(line, flush=True)
                     rows[-1]["err"] = max(rows[-1]["err"], err)
@@ -703,21 +784,46 @@ def phase_backward(calls):
                 if dtype == torch.bfloat16:
                     rows.append(dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by))
 
-        f32 = [f.float().contiguous() for f in call["feats"]]
-        g32 = call["g"].float()
-        fwd = roi_align_cuda(f32, boxes, levels, bidx, None, out, 2, True, torch.float32)
-        bwd = roi_align_backward_cuda(g32, boxes, levels, bidx, shapes, 2, True, torch.float32)
-        lhs = float((fwd.double() * g32.double()).sum())
-        rhs = sum(float((a.double() * b.double()).sum()) for a, b in zip(f32, bwd))
-        mag = sum(float((a.double() * b.double()).abs().sum()) for a, b in zip(f32, bwd))
-        rel = abs(lhs - rhs) / max(mag, 1e-30)
-        print(f"adjoint {tag} stage: <K1(F),G>={lhs:.9g} sum<F,K2(G)>={rhs:.9g} rel={rel:.3g} "
-              f"tol={ADJOINT_TOL}", flush=True)
-        assert rel <= ADJOINT_TOL, (tag, rel)
+        check_adjoint(f"{tag} stage", [f.float().contiguous() for f in call["feats"]], boxes, levels, bidx,
+                      call["g"].float())
         valid = torch.ones(boxes.shape[0], dtype=torch.bool, device="cuda")
         compare_roi_align(f"train {tag} stage (K1)", call["feats"], boxes, valid, bidx, out,
                           call["feats"][0].dtype, reps=25)
     return rows
+
+
+def phase_backward_edges():
+    """K2 against its plain version on the edge-case RoIs of phase 2 (all
+    rows; K2 has no valid mask), a seeded unit cotangent, bf16 and float32,
+    with the adjoint identity; N = 0 gives zeros; an all-invalid set
+    through ``RoIAlignFunction`` on the card gives zero rows and zero
+    feature gradients."""
+    from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda
+    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels, roi_align_dispatch
+
+    gen = torch.Generator().manual_seed(4)
+    boxes, valid = edge_rois()
+    n = boxes.shape[0]
+    levels = (assign_fpn_levels(boxes) - 2).contiguous()
+    bidx = torch.zeros(n, dtype=torch.int32, device="cuda")
+    f32 = edge_pyramid(torch.float32, seed=5)
+    shapes = [tuple(f.shape[:3]) for f in f32]
+    for out in EDGE_OUTS:
+        g_unit = torch.randn(n, out, out, 256, generator=gen).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            print(compare_backward(f"edge cases {out}x{out}", g_unit.to(dtype), boxes, levels, bidx, shapes,
+                                   dtype)[3], flush=True)
+        check_adjoint(f"edge cases {out}x{out}", f32, boxes, levels, bidx, g_unit)
+        empty = roi_align_backward_cuda(g_unit[:0], boxes[:0], levels[:0], bidx[:0], shapes, 2, True, torch.float32)
+        assert all(int(t.count_nonzero()) == 0 for t in empty), "N = 0 must give zero gradients"
+        feats = {k: f.clone().requires_grad_(True) for k, f in zip(("p2", "p3", "p4", "p5"), f32)}
+        pooled = roi_align_dispatch(feats, boxes, out, adaptive_ratio=True, valid=torch.zeros_like(valid),
+                                    batch_idx=bidx)
+        (pooled * g_unit).sum().backward()
+        zero = int(pooled.count_nonzero()) == 0 and all(int(f.grad.count_nonzero()) == 0 for f in feats.values())
+        print(f"roi_align_bwd edge cases {out}x{out}: N=0 gives zeros; all-invalid set through RoIAlignFunction "
+              f"gives zero rows and zero feature gradients: {zero}", flush=True)
+        assert zero
 
 
 def phase_train_reference():
@@ -951,12 +1057,19 @@ def phase_pipeline(model, images):
           f"rle_rows={len(rle)} measurement_rows={len(meas) - 1} multilevel_roi_align_calls={len(calls)} "
           f"(with RoIs {rois}) roi_align_fwd launches={launches}", flush=True)
     assert launches > 0 and launches == rois, "a multilevel RoIAlign of the pipeline did not launch K1"
-    errs = []
+    errs, timed = [], []
     for ((b, hp, wp, _), out_size), (feats, boxes, kw) in sorted(shapes.items()):
         args = (feats, boxes, kw["valid"], kw["batch_idx"], out_size)
         tag = f"pipeline {b} x {4 * hp}x{4 * wp} input, {'box' if out_size == 7 else 'mask'} stage"
+        # timed in the path's dtype (per-launch times), float32 output untimed
         for dtype in dict.fromkeys((kw["out_dtype"], torch.float32)):
-            errs.append(compare_roi_align(tag, *args, dtype, adaptive=kw["adaptive_ratio"], timed=False)["err"])
+            row = compare_roi_align(tag, *args, dtype, reps=10, adaptive=kw["adaptive_ratio"],
+                                    timed=dtype == kw["out_dtype"])
+            errs.append(row["err"])
+            if "ms" in row:
+                timed.append(row)
+    print(f"pipeline: K1 at the {len(timed)} captured shapes, one launch each: kernel ms "
+          f"{sum(r['ms'] for r in timed):.4f}, bound ms {sum(r['bound_ms'] for r in timed):.4f}", flush=True)
     print(f"pipeline: K1 held against the plain RoIAlign at {len(shapes)} pyramid shapes and stages", flush=True)
     shapes.clear()
     print(f"pipeline: size heuristic valid={pipe._heuristic_valid} small classes={sorted(pipe.small_classes)} "
@@ -1122,6 +1235,7 @@ def main() -> int:
     batches = synthetic_train_batches(4, seed=7)
     train_launches, _ = phase_train(batches)
     bwd_rows = phase_backward(capture_train_step(batches[0]))
+    phase_backward_edges()
     phase_train_reference()
     phase_train_profile(batches[1])
 

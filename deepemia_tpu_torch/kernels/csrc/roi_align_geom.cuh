@@ -11,6 +11,10 @@
 
 namespace roi_geom {
 
+// Samples per axis a kernel's shared-memory tap tables hold: out * s is
+// at most this (the wrappers refuse more).
+constexpr int MAX_TAPS = 64;
+
 // A RoI on its level (0 = p2, stride 4 << level), in level cells: the
 // origin of the half-pixel-offset box, its extent, and whether each axis
 // collapses its sub-samples onto the bin centre (adaptive_ratio).
@@ -48,7 +52,7 @@ __device__ __forceinline__ float sample_coord(float origin, float extent, int k,
 // Bilinear taps of one sample along one axis of `size` cells: the clamped
 // low and high corners and the weights (1 - frac, frac). Returns false for
 // a sample outside [-1, size], which weighs zero.
-struct Tap {
+struct __align__(16) Tap {
   int lo, hi;
   float w_lo, w_hi;
 };
@@ -65,20 +69,27 @@ __device__ __forceinline__ bool axis_tap(float v, int size, Tap* t) {
   return true;
 }
 
-__device__ __forceinline__ float2 load2(const float* p, size_t i) {
-  return reinterpret_cast<const float2*>(p)[i];
-}
+// A sample inside [-1, size] has w_lo + w_hi = 1, so at least one nonzero
+// weight; fill_taps gives every other sample two zeros.
+__device__ __forceinline__ bool tap_valid(const Tap& t) { return t.w_lo != 0.f || t.w_hi != 0.f; }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p, size_t i) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
-}
-
-__device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
-  reinterpret_cast<float2*>(p)[i] = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, size_t i, float a, float b) {
-  reinterpret_cast<__nv_bfloat162*>(p)[i] = __floats2bfloat162_rn(a, b);
+// The RoI's tap tables, computed once per block into shared memory: ty[k]
+// and tx[k] for the k < P = out * s samples of each axis of an h x w level.
+// A sample outside [-1, size] gets zero weights on cell 0, so the loops
+// over taps need no branch: they read a cell that exists and add nothing.
+// Every thread of the block calls it; the caller synchronises.
+__device__ __forceinline__ void fill_taps(const Frame& f, int out, int s, int h, int w,
+                                          Tap* ty, Tap* tx) {
+  const int p = out * s;
+  for (int k = threadIdx.x; k < 2 * p; k += blockDim.x) {
+    const bool is_x = k >= p;
+    const int i = is_x ? k - p : k;
+    const float v = is_x ? sample_coord(f.x0, f.bw, i, out, s, f.coll_x)
+                         : sample_coord(f.y0, f.bh, i, out, s, f.coll_y);
+    Tap t;
+    if (!axis_tap(v, is_x ? w : h, &t)) t = Tap{0, 0, 0.f, 0.f};
+    (is_x ? tx : ty)[i] = t;
+  }
 }
 
 }  // namespace roi_geom

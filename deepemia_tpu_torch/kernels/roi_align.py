@@ -21,6 +21,7 @@ import torch
 from deepemia_tpu_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TAPS = 64  # samples per axis the kernels' tap tables hold (roi_align_geom.cuh)
 _LIB = "roi_align_fwd"
 _BWD_LIB = "roi_align_bwd"
 
@@ -60,7 +61,7 @@ def _require_cuda(tensors: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"RoIAlign kernels: tensors on {t.device} and {dev}")
 
 
-def _check(feats, boxes, levels, batch_idx, valid, out_dtype) -> None:
+def _check(feats, boxes, levels, batch_idx, valid, out_dtype, samples_per_axis) -> None:
     if len(feats) != 4:
         raise ValueError(f"roi_align_cuda takes the 4 levels p2..p5, got {len(feats)}")
     dtype = feats[0].dtype
@@ -69,8 +70,7 @@ def _check(feats, boxes, levels, batch_idx, valid, out_dtype) -> None:
             f"roi_align_cuda: features {dtype} / output {out_dtype} must be float32 or bfloat16"
         )
     b, _, _, c = feats[0].shape
-    if c % 2:
-        raise ValueError(f"roi_align_cuda: channel count {c} must be even")
+    _check_layout("roi_align_cuda", c, samples_per_axis)
     for f in feats:
         if f.ndim != 4 or f.shape[0] != b or f.shape[3] != c or f.dtype != dtype:
             raise ValueError(
@@ -82,12 +82,24 @@ def _check(feats, boxes, levels, batch_idx, valid, out_dtype) -> None:
                 "roi_align_cuda: features must be NHWC-contiguous; permute a "
                 "channels_last [B,C,H,W] tensor with .permute(0, 2, 3, 1)"
             )
-        if f.data_ptr() % (2 * f.element_size()):
-            raise ValueError("roi_align_cuda: feature rows must be 2-element aligned")
+        if f.data_ptr() % 16:
+            raise ValueError("roi_align_cuda: feature levels must be 16-byte aligned")
     _check_rois("roi_align_cuda", boxes, levels, batch_idx)
     n = boxes.shape[0]
     if valid is not None and (valid.shape != (n,) or valid.dtype != torch.bool):
         raise ValueError("roi_align_cuda: valid must be [N] bool")
+
+
+def _check_layout(fn: str, c: int, samples_per_axis: int) -> None:
+    """What the kernels' layout takes: a lane owns 8 channels (one 16-byte
+    bf16 load), and the tap tables hold at most MAX_TAPS samples per
+    axis."""
+    if c % 8:
+        raise ValueError(f"{fn}: channel count {c} must be a multiple of 8")
+    if not 1 <= samples_per_axis <= MAX_TAPS:
+        raise ValueError(
+            f"{fn}: output_size * sampling_ratio = {samples_per_axis} must be in [1, {MAX_TAPS}]"
+        )
 
 
 def _check_rois(fn: str, boxes, levels, batch_idx) -> None:
@@ -118,7 +130,7 @@ def roi_align_cuda(
     ``out_dtype``. Sums run in float32.
     """
     _require_cuda([*feats, boxes, levels, batch_idx] + ([] if valid is None else [valid]))
-    _check(feats, boxes, levels, batch_idx, valid, out_dtype)
+    _check(feats, boxes, levels, batch_idx, valid, out_dtype, output_size * sampling_ratio)
     fn = _library()
     n, c = boxes.shape[0], feats[0].shape[3]
     out = torch.empty((n, output_size, output_size, c), dtype=out_dtype, device=boxes.device)
@@ -183,8 +195,9 @@ def roi_align_backward_cuda(
     if g.ndim != 4 or g.shape[0] != n or g.shape[1] != g.shape[2] or not g.is_contiguous():
         raise ValueError(f"{fn}: g must be contiguous [N,out,out,C], got {tuple(g.shape)}")
     out_size, c = g.shape[1], g.shape[3]
-    if c % 2:
-        raise ValueError(f"{fn}: channel count {c} must be even")
+    _check_layout(fn, c, out_size * sampling_ratio)
+    if g.data_ptr() % 16:
+        raise ValueError(f"{fn}: g must be 16-byte aligned")
     if len(level_shapes) != 4 or len({sh[0] for sh in level_shapes}) != 1:
         raise ValueError(f"{fn}: level_shapes must be (B,H,W) of the 4 levels p2..p5")
     _check_rois(fn, boxes, levels, batch_idx)

@@ -14,7 +14,7 @@ fast-gradient custom VJP):
     which reproduces the adaptive ceil(roi/out) sample count exactly for
     grids of 1 or 2 (every box on p2..p4; wider p5 boxes keep the 2x2 grid);
   * samples outside [-1, size] weigh zero, corner indices are clamped;
-  * rows with ``valid`` False return zeros (inference route only);
+  * rows with ``valid`` False return zeros and get no gradient;
   * the gradient reaches the features only: box coordinates get none
     (proposals are detached in training, as Detectron2 does).
 
@@ -257,40 +257,46 @@ class RoIAlignFunction(torch.autograd.Function):
     """Multilevel RoIAlign with its adjoint: kernels K1 / K2 for CUDA
     tensors, the plain versions for CPU tensors.
 
-    ``apply(boxes, batch_idx, output_size, sampling_ratio, adaptive_ratio,
-    p2, p3, p4, p5)`` with levels [B,H,W,C] (NHWC-contiguous on CUDA) and
-    ``batch_idx`` [N] int32 -> [N,out,out,C] in the feature dtype, sums in
-    float32. The backward returns feature cotangents in the feature dtype
-    and no gradient for the boxes (the JAX package's ``_mra_fast_grad``)."""
+    ``apply(boxes, batch_idx, valid, output_size, sampling_ratio,
+    adaptive_ratio, out_dtype, p2, p3, p4, p5)`` with levels [B,H,W,C]
+    (NHWC-contiguous on CUDA), ``batch_idx`` [N] int32 and ``valid`` [N]
+    bool or None -> [N,out,out,C] in ``out_dtype`` (None: the feature
+    dtype), sums in float32; rows with ``valid`` False are zeros and read
+    nothing. The backward zeroes the cotangent of those rows, returns
+    feature cotangents in the feature dtype and no gradient for the boxes
+    (the JAX package's ``_mra_fast_grad``)."""
 
     @staticmethod
-    def forward(ctx, boxes, batch_idx, output_size, sampling_ratio, adaptive_ratio, *feats):
+    def forward(ctx, boxes, batch_idx, valid, output_size, sampling_ratio, adaptive_ratio, out_dtype, *feats):
         dev = boxes.device
         boxes = boxes.float().contiguous()
         batch_idx = batch_idx.to(torch.int32).contiguous()
         levels = (assign_fpn_levels(boxes) - 2).contiguous()
-        ctx.save_for_backward(boxes, batch_idx, levels)
+        out_dtype = feats[0].dtype if out_dtype is None else out_dtype
+        ctx.save_for_backward(boxes, batch_idx, levels, valid)
         ctx.config = (sampling_ratio, adaptive_ratio, [tuple(f.shape[:3]) for f in feats], feats[0].dtype)
         if dev.type == "cuda":
             from deepemia_tpu_torch.kernels.roi_align import roi_align_cuda
 
             return roi_align_cuda(
-                list(feats), boxes, levels, batch_idx, None,
+                list(feats), boxes, levels, batch_idx, valid,
                 output_size=output_size, sampling_ratio=sampling_ratio,
-                adaptive_ratio=adaptive_ratio, out_dtype=feats[0].dtype,
+                adaptive_ratio=adaptive_ratio, out_dtype=out_dtype,
             )
         if dev.type == "cpu":
             return multilevel_roi_align(
                 dict(zip(POOLED_LEVELS, feats)), boxes, output_size, sampling_ratio,
-                adaptive_ratio=adaptive_ratio, batch_idx=batch_idx,
+                adaptive_ratio=adaptive_ratio, valid=valid, batch_idx=batch_idx, out_dtype=out_dtype,
             )
         raise ValueError(f"RoIAlignFunction: no RoIAlign for device {dev}")
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        boxes, batch_idx, levels = ctx.saved_tensors
+        boxes, batch_idx, levels, valid = ctx.saved_tensors
         sampling_ratio, adaptive_ratio, shapes, dtype = ctx.config
+        if valid is not None:
+            g = torch.where(valid[:, None, None, None], g, 0.0)
         if g.device.type == "cuda":
             from deepemia_tpu_torch.kernels.roi_align import roi_align_backward_cuda
 
@@ -302,7 +308,7 @@ class RoIAlignFunction(torch.autograd.Function):
             grads = multilevel_roi_align_backward(
                 g, boxes, shapes, batch_idx, sampling_ratio, adaptive_ratio, out_dtype=dtype
             )
-        return (None, None, None, None, None, *grads)
+        return (None,) * 7 + tuple(grads)
 
 
 def roi_align_dispatch(
@@ -315,47 +321,14 @@ def roi_align_dispatch(
     batch_idx: torch.Tensor | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Multilevel RoIAlign: the CUDA kernels for CUDA tensors, the plain
-    versions for CPU tensors, an error for anything else.
-
-    With a ``valid`` mask (the serving heads) it is the forward alone:
-    invalid rows are zeros and read nothing. Without one (the training
-    heads) it is :class:`RoIAlignFunction`, differentiable in the
-    features."""
-    if valid is None:
-        feats, batch_idx = _batched(features, boxes, batch_idx)
-        out = RoIAlignFunction.apply(
-            boxes, batch_idx, output_size, sampling_ratio, adaptive_ratio, *feats
-        )
-        return out if out_dtype is None else out.to(out_dtype)
-    if boxes.device.type == "cuda":
-        from deepemia_tpu_torch.kernels.roi_align import roi_align_cuda
-
-        feats, batch_idx = _batched(features, boxes, batch_idx)
-        boxes = boxes.float().contiguous()
-        return roi_align_cuda(
-            feats,
-            boxes,
-            assign_fpn_levels(boxes) - 2,
-            batch_idx.to(torch.int32).contiguous(),
-            valid,
-            output_size=output_size,
-            sampling_ratio=sampling_ratio,
-            adaptive_ratio=adaptive_ratio,
-            out_dtype=feats[0].dtype if out_dtype is None else out_dtype,
-        )
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align(
-            features,
-            boxes,
-            output_size=output_size,
-            sampling_ratio=sampling_ratio,
-            adaptive_ratio=adaptive_ratio,
-            valid=valid,
-            batch_idx=batch_idx,
-            out_dtype=out_dtype,
-        )
-    raise ValueError(f"roi_align_dispatch: no RoIAlign for device {boxes.device}")
+    """Multilevel RoIAlign through :class:`RoIAlignFunction`: the CUDA
+    kernels for CUDA tensors, the plain versions for CPU tensors, an error
+    for anything else. Serving (with ``valid``), the pipeline and training
+    take this one route; it is differentiable in the features."""
+    feats, batch_idx = _batched(features, boxes, batch_idx)
+    return RoIAlignFunction.apply(
+        boxes, batch_idx, valid, output_size, sampling_ratio, adaptive_ratio, out_dtype, *feats
+    )
 
 
 def roi_align_level(

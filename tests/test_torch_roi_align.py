@@ -88,6 +88,31 @@ def test_plain_valid_rows_and_zeros(pyramid):
     assert (got[~valid] == 0.0).all()
 
 
+@pytest.mark.parametrize("out", [7, 14])
+def test_serving_route_matches_jax(pyramid, out):
+    """The one route serving and the pipeline take (``valid`` mask, bf16
+    output, a batch of images) against the JAX package's
+    ``multilevel_roi_align`` per image: valid rows to one bf16 rounding of
+    the result, invalid rows exactly zero."""
+    boxes = _boxes(30 + out)
+    n = len(boxes)
+    valid = np.random.default_rng(31).random(n) > 0.5
+    bidx = (np.arange(n) % 2).astype(np.int32)
+    pyr2 = {k: v * -0.5 for k, v in pyramid.items()}
+    stacked = {k: torch.from_numpy(np.stack([pyramid[k], pyr2[k]])) for k in pyramid}
+    got = pt_ra.roi_align_dispatch(
+        stacked, torch.from_numpy(boxes), out, adaptive_ratio=True, valid=torch.from_numpy(valid),
+        batch_idx=torch.from_numpy(bidx), out_dtype=torch.bfloat16,
+    )
+    assert got.dtype == torch.bfloat16 and got.shape == (n, out, out, C)
+    got = got.float().numpy()
+    for img, pyr in enumerate((pyramid, pyr2)):
+        rows = valid & (bidx == img)
+        ref = np.asarray(jax_ra.multilevel_roi_align(_jx(pyr), jnp.asarray(boxes[rows]), out, adaptive_ratio=True))
+        np.testing.assert_allclose(got[rows], ref, atol=1e-6, rtol=2.0**-8)
+    assert (got[~valid] == 0.0).all() and valid.sum() >= 10
+
+
 def test_plain_batched_equals_single(pyramid):
     """A batch of pyramids with per-RoI image indices pools each RoI from
     its own image."""
@@ -179,16 +204,20 @@ def test_wrapper_requires_cuda_tensors():
         (lambda a: a.__setitem__(2, a[2].long()), "levels"),
         (lambda a: a.__setitem__(3, a[3][:2]), "batch_idx"),
         (lambda a: a.__setitem__(0, a[0][:3]), "4 levels"),
+        (lambda a: a.__setitem__(0, [f[..., :4].contiguous() for f in a[0]]), "multiple of 8"),
+        (lambda a: a.__setitem__(0, [torch.zeros(f.numel() + 1)[1:].view(f.shape) for f in a[0]]),
+         "16-byte aligned"),
+        (lambda a: a.append(33), r"output_size \* sampling_ratio = 66"),
     ],
 )
 def test_wrapper_refuses_misuse(monkeypatch, mutate, message):
     stub = _StubKernel()
     monkeypatch.setattr(kra, "_require_cuda", lambda tensors: None)
     monkeypatch.setattr(kra, "_library", lambda: stub)
-    args = list(_wrapper_args())
+    args = list(_wrapper_args()) + [None]
     mutate(args)
     with pytest.raises(ValueError, match=message):
-        kra.roi_align_cuda(*args, None)
+        kra.roi_align_cuda(*args)
     assert not stub.calls
 
 

@@ -155,7 +155,7 @@ def test_function_gradcheck_float64():
     bidx = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
 
     def fn(*f):
-        return pt_ra.RoIAlignFunction.apply(boxes, bidx, 3, 2, True, *f)
+        return pt_ra.RoIAlignFunction.apply(boxes, bidx, None, 3, 2, True, None, *f)
 
     assert fn(*feats).dtype == torch.float64
     assert torch.autograd.gradcheck(fn, feats, eps=1e-6, atol=1e-8)
@@ -171,6 +171,28 @@ def test_function_forward_equals_plain_and_box_grad_is_none():
     assert torch.equal(out.detach(), ref)
     out.sum().backward()
     assert boxes.grad is None and feats["p2"].grad is not None
+
+
+def test_function_invalid_rows_get_no_gradient():
+    """With a ``valid`` mask the cotangent of invalid rows is dropped: the
+    feature gradient equals the one of the valid rows alone, and the
+    invalid rows of the forward are zeros."""
+    pyr = _pyramid(15, bsz=2)
+    boxes = _boxes(16)
+    n = len(boxes)
+    valid = np.random.default_rng(17).random(n) > 0.4
+    bidx = (np.arange(n) % 2).astype(np.int32)
+    g = _cotangent(18, n, 14)
+    feats = {k: torch.from_numpy(v).requires_grad_(True) for k, v in pyr.items()}
+    pooled = pt_ra.roi_align_dispatch(
+        feats, torch.from_numpy(boxes), 14, adaptive_ratio=True, valid=torch.from_numpy(valid),
+        batch_idx=torch.from_numpy(bidx),
+    )
+    assert (pooled.detach().numpy()[~valid] == 0.0).all()
+    (pooled * torch.from_numpy(g)).sum().backward()
+    _, ref = _port_grad(pyr, boxes[valid], g[valid], 14, True, bidx[valid])
+    _assert_grads_close({k: v.grad.numpy() for k, v in feats.items()}, ref, rel=1e-6)
+    assert all(np.abs(ref[k]).max() > 0 for k in LEVELS)
 
 
 def test_plain_backward_adds_coincident_corners():
@@ -259,7 +281,9 @@ def test_bwd_wrapper_requires_cuda_tensors():
         (lambda a: a.__setitem__(0, a[0].half()), "float32 or bfloat16"),
         (lambda a: a.__setitem__(0, a[0].transpose(1, 2)), r"contiguous \[N,out,out,C\]"),
         (lambda a: a.__setitem__(0, a[0][:3]), r"contiguous \[N,out,out,C\]"),
-        (lambda a: a.__setitem__(0, a[0][..., :7].contiguous()), "must be even"),
+        (lambda a: a.__setitem__(0, a[0][..., :7].contiguous()), "multiple of 8"),
+        (lambda a: a.__setitem__(0, torch.zeros(a[0].numel() + 1)[1:].view(a[0].shape)), "16-byte aligned"),
+        (lambda a: a.__setitem__(0, torch.zeros(5, 33, 33, 8)), r"output_size \* sampling_ratio = 66"),
         (lambda a: a.__setitem__(1, a[1].double()), "boxes"),
         (lambda a: a.__setitem__(2, a[2].long()), "levels"),
         (lambda a: a.__setitem__(3, a[3][:2]), "batch_idx"),
