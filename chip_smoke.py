@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (``deepemia_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-times ROOT   # only K3's timings, see k3_times
 
 Run from the root of a checkout on a machine with one NVIDIA H100 (the
 CUDA toolkit's ``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``).
@@ -66,10 +67,17 @@ It builds the CUDA kernels from the sources in the checkout and then:
      with every RoIAlign box moved by 0.25 px, which the comparison must
      reject;
  10. holds the windowed-sum kernel (K3) against its plain version on the
-     conv-chain output of its micro-benchmark, in bf16 and float32; times
-     it, the plain version and ``torch.sum``; runs the micro-benchmark's
-     six variants (``deepemia_tpu_torch.tools.bench_decouple``) with K3's
-     launch count reset before and read after.
+     conv-chain output of its micro-benchmark and on edge cases
+     (``window_sum_edge_cases``: the map exactly the window, C in {1, 3,
+     8, 257}, a row pitch off 16 bytes, a base one element off, a
+     transposed view, magnitudes 1e4 beside 1e-3), in bf16 and float32,
+     printing the plan instance that ran; checks 20 launches bitwise
+     equal; times K3, ``torch.sum`` and the empty kernel in turns, per call
+     with CUDA events, on the host per call, and per launch on the device
+     with ``torch.profiler``, and the plain version; runs the
+     micro-benchmark's six variants
+     (``deepemia_tpu_torch.tools.bench_decouple``) with K3's launch count
+     reset before and read after.
 
 Phase 7 runs before phase 6, whose inputs come from a training step.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
@@ -1159,39 +1167,173 @@ def phase_pipeline_reference(model):
     assert f["inst"] < PIPE_MATCH_SHARE or f["rows"] < PIPE_ROW_SHARE, "the limits pass a planted RoIAlign fault"
 
 
+def check_window_sum(tag, f, got, expect_instance=None):
+    """K3's [1,1] output ``got`` for ``f`` against the plain version within
+    K3_TOL of sum |x| over the window; -> the absolute error. Prints the
+    plan instance that ran."""
+    from deepemia_tpu_torch.kernels import window_sum as ws
+
+    torch.cuda.synchronize()
+    plan = ws.plan_of(f.contiguous())
+    ref = ws.window_sum_plain(f)
+    scale = float(f[: ws.WINDOW[0], : ws.WINDOW[1]].float().abs().sum())
+    err = float((got - ref).abs().max())
+    tol = K3_TOL * scale
+    line = (f"window_sum {tag} {tuple(f.shape)} {str(f.dtype).split('.')[-1]} "
+            f"instance={ws.INSTANCE_NAMES[plan.instance]}: kernel={float(got):.6f} plain={float(ref):.6f} "
+            f"max_abs_err={err:.3g} tol={tol:.3g} (sum |x| {scale:.6g})")
+    print(line, flush=True)
+    if not (scale > 0 and err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{line}: kernel disagrees with plain")
+    if expect_instance is not None and plan.instance != expect_instance:
+        raise AssertionError(f"{line}: expected instance {ws.INSTANCE_NAMES[expect_instance]}")
+    return err
+
+
+def window_sum_edge_cases(dtype, gen):
+    """(name, operand, expected plan instance) for K3's edge cases: the
+    map is exactly the window; C in {1, 3, 8, 257}; a row pitch W*C*esize
+    that is not a multiple of 16; a contiguous view one element past a
+    16-byte boundary; a transposed view (copied by the wrapper); values of
+    ~1e4 beside ~1e-3."""
+    from deepemia_tpu_torch.kernels.window_sum import SCALAR, VECTOR
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    mixed = torch.randn((20, 33, 64), generator=gen, device="cuda")
+    mixed *= torch.where(torch.rand((20, 33, 64), generator=gen, device="cuda") < 0.5, 1e4, 1e-3)
+    return [
+        ("exact 8x16xC", randn(8, 16, 256), VECTOR),
+        ("C=1", randn(20, 33, 1), SCALAR),
+        ("C=3", randn(20, 33, 3), SCALAR),
+        ("C=8", randn(20, 33, 8), VECTOR),
+        ("C=257", randn(20, 33, 257), SCALAR),
+        ("pitch % 16 != 0", randn(12, 21, 10), SCALAR),
+        ("base + 1 element", randn(12 * 20 * 64 + 1)[1:].view(12, 20, 64), SCALAR),
+        ("transposed view", randn(33, 20, 64).transpose(0, 1), VECTOR),
+        ("mixed 1e4 / 1e-3", mixed.to(dtype), VECTOR),
+    ]
+
+
+def device_ms(fn, n=200, skip=frozenset()):
+    """Device time per call of the kernels ``fn`` launches, from
+    torch.profiler (CUDA activity) over ``n`` calls, each after the
+    L2-evicting write of time_ms: for each device event kind but those in
+    ``skip`` (the write's own), its mean self device time times its events
+    per call (the profiler drops some records, up to 9 % seen, so counts
+    are rounded); -> (ms per call, {event kind: count})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.is_user_annotation and e.key not in skip]
+    return sum(t / c * max(1, round(c / n)) for _, t, c in rows) / 1e3, {k: c for k, _, c in rows}
+
+
+def host_ms(fn, n=1000):
+    """Median host time of one call of ``fn`` over ``n`` calls back to
+    back (the wrapper and the launch; the device keeps up)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        fn()
+        ts.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ts)) / 1e6
+
+
+def window_sum_times(timed):
+    """Times each function of ``timed`` ({dtype: {name: fn}}) in turns,
+    forward and back, within a dtype: per call with time_ms (three rounds:
+    the per-call times show the host path wherever it outlasts the
+    L2-evicting write, so they swing with the host's load), on the host
+    with host_ms, and on the device with device_ms after every other
+    timing; -> {dtype: {"<name>_ms", "<name>_host_ms", "<name>_device_ms"}},
+    the medians over the turns."""
+    rows = {}
+    for dtype, fns in timed.items():
+        name = str(dtype).split(".")[-1]
+        order = list(fns) + list(fns)[::-1]
+        ms, host = {k: [] for k in fns}, {k: [] for k in fns}
+        for k in order * 3:
+            ms[k].append(time_ms(fns[k], 50))
+        for k in order:
+            host[k].append(host_ms(fns[k]))
+        rows[dtype] = row = {}
+        for k in fns:
+            row[f"{k}_ms"], row[f"{k}_host_ms"] = float(np.median(ms[k])), float(np.median(host[k]))
+            print(f"window_sum {name} {k:8s}: per-call ms median {row[f'{k}_ms']:.6f} {ms[k]} "
+                  f"host ms median {row[f'{k}_host_ms']:.6f} {host[k]}", flush=True)
+
+    _, flush_kinds = device_ms(lambda: None, 20)
+    skip = frozenset(flush_kinds)
+    for dtype, fns in timed.items():
+        dev, kinds = {k: [] for k in fns}, {}
+        for k in list(fns) + list(fns)[::-1]:
+            t, kinds[k] = device_ms(fns[k], 200, skip)
+            dev[k].append(t)
+            if k != "library":  # its own kernel only, at most once a call
+                assert len(kinds[k]) == 1 and list(kinds[k].values())[0] <= 200, (k, kinds[k])
+        for k in fns:
+            rows[dtype][f"{k}_device_ms"] = float(np.median(dev[k]))
+            print(f"window_sum {str(dtype).split('.')[-1]} {k:8s}: device ms median "
+                  f"{rows[dtype][f'{k}_device_ms']:.6f} {dev[k]} events per call "
+                  f"{json.dumps({n[:90]: c / 200 for n, c in kinds[k].items()})}", flush=True)
+    return rows
+
+
 def phase_window_sum():
     """K3 against its plain version on the micro-benchmark's conv-chain
-    output, bf16 and float32; times; the six variants of the tool with the
-    launch count reset before and read after."""
+    output and on edge cases, bf16 and float32; 20 launches bitwise equal;
+    per-call, host and device times of K3, torch.sum and the empty kernel
+    (window_sum_times); the six variants of the tool with the launch count
+    reset before and read after."""
     from deepemia_tpu_torch.kernels import window_sum as ws
     from deepemia_tpu_torch.tools import bench_decouple
 
     x, convs, _ = bench_decouple.conv_chain(torch.device("cuda"))
     with torch.inference_mode():
         feat = convs(x)
-    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, timed = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
         f = feat.to(dtype)
-        got = ws.window_sum(f)
-        torch.cuda.synchronize()
-        ref = ws.window_sum_plain(f)
-        scale = float(f[: ws.WINDOW[0], : ws.WINDOW[1]].float().abs().sum())
-        err = float((got - ref).abs().max())
-        tol = K3_TOL * scale
-        line = (f"window_sum {tuple(f.shape)} {str(dtype).split('.')[-1]}: kernel={float(got):.6f} "
-                f"plain={float(ref):.6f} max_abs_err={err:.3g} tol={tol:.3g} (sum |x| {scale:.6g})")
-        if not (scale > 0 and err <= tol and math.isfinite(err)):
-            raise AssertionError(f"{line}: kernel disagrees with plain")
+        err = check_window_sum("benchmark", f, ws.window_sum(f), ws.VECTOR)
+        for tag, e, instance in window_sum_edge_cases(dtype, gen):
+            err = max(err, check_window_sum(tag, e, ws.window_sum(e), instance))
+        outs = [ws.window_sum(f) for _ in range(20)]
+        patterns = torch.cat(outs).view(torch.int32).unique().numel()
+        print(f"window_sum {name}: 20 launches, {patterns} bit pattern(s)", flush=True)
+        assert patterns == 1, "K3 differs between launches"
+
         win = f[: ws.WINDOW[0], : ws.WINDOW[1]]
-        k_ms = time_ms(lambda: ws.window_sum(f), 50)
         p_ms = time_ms(lambda: ws.window_sum_plain(f), 50)
-        l_ms = time_ms(lambda: torch.sum(win, dtype=torch.float32), 50)
         nbytes = win.numel() * win.element_size() + 4
         t_b, t_f = nbytes / HBM_BYTES_PER_S, win.numel() / F32_FLOPS_PER_S
         bound_ms, by = max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
-        print(f"{line} kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} library_ms={l_ms:.5f} bound_ms={bound_ms:.3g} "
-              f"({by}, {nbytes} bytes)", flush=True)
-        rows[dtype] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=by)
+        rows[dtype] = dict(err=err, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by)
+        print(f"window_sum {name}: plain_ms={p_ms:.5f} bound_ms={bound_ms:.3g} ({by}, {nbytes} bytes)",
+              flush=True)
+        timed[dtype] = {
+            "kernel": lambda f=f: ws.window_sum(f),
+            "library": lambda win=win: torch.sum(win, dtype=torch.float32),
+            "empty": lambda f=f: ws.launch(f, "window_sum_empty"),
+        }
+    for dtype, times in window_sum_times(timed).items():
+        rows[dtype].update(times)
     ws.counter.launches = 0
     variants = bench_decouple.main(device="cuda")
     launches = ws.counter.launches
@@ -1202,10 +1344,43 @@ def phase_window_sum():
     return rows, launches
 
 
+def k3_times(root):
+    """``python3 chip_smoke.py --k3-times ROOT``: K3 and torch.sum timed by
+    window_sum_times through ``window_sum`` of the package in the checkout
+    at ROOT (which may be another commit's), at the benchmark's shape
+    [256,256,256] of seeded normal values, bf16 and float32, after a check
+    against the plain version; prints one JSON line. To compare two
+    commits' K3 on one card, run it once for each in one call: parent,
+    change, change, parent."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from deepemia_tpu_torch.kernels import window_sum as ws
+
+    assert ws.__file__.startswith(root + os.sep), ws.__file__
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((256, 256, 256), generator=gen, device="cuda")
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f = x.to(dtype)
+        win = f[: ws.WINDOW[0], : ws.WINDOW[1]]
+        err = float((ws.window_sum(f) - ws.window_sum_plain(f)).abs().max())
+        assert err <= K3_TOL * float(win.float().abs().sum()), err
+        timed[dtype] = {
+            "kernel": lambda f=f: ws.window_sum(f),
+            "library": lambda win=win: torch.sum(win, dtype=torch.float32),
+        }
+    rows = window_sum_times(timed)
+    print(json.dumps({"root": root, **{str(d).split(".")[-1]: r for d, r in rows.items()}}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--k3-times"]:  # before this checkout's package is imported
+        print(f"card: {card_line()}", flush=True)
+        k3_times(sys.argv[2])
+        return 0
     from deepemia_tpu_torch.kernels import _build
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1275,7 +1450,7 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bwd_rows) else "operations",
         "library_ms": None,
     }
-    k3 = k3_rows[torch.bfloat16]
+    k3, k3_f32 = k3_rows[torch.bfloat16], k3_rows[torch.float32]
     window = {
         "name": "window_sum",
         "route": "cuda",
@@ -1284,11 +1459,28 @@ def main() -> int:
         "launches": k3_launches,
         "max_abs_err": max(r["err"] for r in k3_rows.values()),
         # one call at the benchmark's shape: [256,256,256] bf16 -> the 8x16x256 window
-        "ms": k3["ms"],
+        # (CUDA events around the call, median of six time_ms readings); *_device_ms:
+        # the profiler's device time per launch; *_host_ms: host time per call;
+        # *_f32: the same in float32; empty_*: the same launch of a kernel that does nothing
+        "ms": k3["kernel_ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": k3["library_ms"],
+        "device_ms": k3["kernel_device_ms"],
+        "host_ms": k3["kernel_host_ms"],
+        "library_device_ms": k3["library_device_ms"],
+        "library_host_ms": k3["library_host_ms"],
+        "empty_ms": k3["empty_ms"],
+        "empty_device_ms": k3["empty_device_ms"],
+        "ms_f32": k3_f32["kernel_ms"],
+        "plain_ms_f32": k3_f32["plain_ms"],
+        "bound_ms_f32": k3_f32["bound_ms"],
+        "library_ms_f32": k3_f32["library_ms"],
+        "device_ms_f32": k3_f32["kernel_device_ms"],
+        "host_ms_f32": k3_f32["kernel_host_ms"],
+        "library_device_ms_f32": k3_f32["library_device_ms"],
+        "library_host_ms_f32": k3_f32["library_host_ms"],
     }
     print(f"pipeline roi_align_fwd launches={pipeline_launches}", flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)

@@ -4,10 +4,13 @@ The plain version (what CPU tensors take) is held against the TPU kernel
 itself, the JAX tool's ``consume`` (tools/bench_decouple.py:40-58) run by
 ``pl.pallas_call(..., interpret=True)``; each of the port tool's six
 variants is held against a JAX restatement of the tool's program
-(:30-75) in float32 at 32². Tolerances: the window sum in float32 to 1e-6
-relative of sum |x| (sums in another order); the variants to 1e-5
-relative of the JAX value (the JAX program's convolutions sum in another
-order)."""
+(:30-75) in float32 at 32². The kernel's plan (``window_sum_plan``) is
+checked to load every window element once and nothing else, and a sum
+taken in the plan's thread, warp, block and cluster order is held
+against the plain version and the Pallas kernel. Tolerances: the window
+sum in float32 to 1e-6 relative of sum |x| (sums in another order); the
+variants to 1e-5 relative of the JAX value (the JAX program's
+convolutions sum in another order)."""
 
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from deepemia_tpu_torch.kernels.window_sum import WINDOW, window_sum, window_sum_plain
+from deepemia_tpu_torch.kernels import window_sum as ws
+from deepemia_tpu_torch.kernels.window_sum import WINDOW, window_sum, window_sum_plain, window_sum_plan
 from deepemia_tpu_torch.tools import bench_decouple
 
 torch.set_num_threads(2)
@@ -61,6 +65,111 @@ def test_plain_window_sum_matches_pallas_kernel(shape, dtype):
 def test_window_sum_rejects_other_devices():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         window_sum(torch.empty((8, 16, 4), device="meta"))
+
+
+# the kernel's edge cases on the card (chip_smoke.py phase 10) and more:
+# 8x16xC exactly, C in {1, 3, 8, 257}, a row pitch W*C*esize that is not a
+# multiple of 16, the benchmark's shape
+PLAN_SHAPES = [
+    (8, 16, 256), (8, 16, 1), (20, 33, 1), (20, 33, 3), (20, 33, 8), (20, 33, 257),
+    (12, 21, 10), (9, 17, 12), (256, 256, 256),
+]
+ESIZE = {"bfloat16": 2, "float32": 4}
+
+
+def _plan_loads(plan):
+    """The first element (from the operand's base) of every load the kernel
+    makes under ``plan``, in kernel order: [blocks] lists of [threads]
+    arrays, one per load slot, with -1 where the slot is predicated off."""
+    t = np.arange(ws.THREADS)
+    per_block = []
+    for b in range(plan.blocks):
+        slots = []
+        for r in range(b, plan.rows, plan.blocks):
+            for base in range(0, plan.loads_per_row, plan.batch * ws.THREADS):
+                for i in range(plan.batch):
+                    k = base + i * ws.THREADS + t
+                    slots.append(np.where(k < plan.loads_per_row, r * plan.pitch + k * plan.vec, -1))
+        per_block.append(slots)
+    return per_block
+
+
+@pytest.mark.parametrize("byte_offset", [0, "element", 8])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_covers_window_once(shape, dtype, byte_offset):
+    """Every window element is loaded exactly once, nothing outside it is
+    loaded, and a vector plan's loads are 16-byte aligned."""
+    esize = ESIZE[dtype]
+    off = esize if byte_offset == "element" else byte_offset
+    h, w, c = shape
+    plan = window_sum_plan(shape, getattr(torch, dtype), off)
+    aligned = off % 16 == 0 and (w * c * esize) % 16 == 0
+    assert plan.instance == (ws.VECTOR if aligned else ws.SCALAR)
+    assert plan.vec * esize == (16 if aligned else esize)
+    assert (plan.dtype, plan.blocks, plan.batch) == (ws._DTYPE_CODE[getattr(torch, dtype)], ws.CLUSTER,
+                                                     ws.BATCH[plan.instance])
+    starts = np.concatenate([s for block in _plan_loads(plan) for s in block])
+    starts = starts[starts >= 0]
+    if plan.instance == ws.VECTOR:
+        assert np.all((off + starts * esize) % 16 == 0)
+    touched = (starts[:, None] + np.arange(plan.vec)).ravel()
+    rows, cols = WINDOW
+    assert touched.min() >= 0 and touched.max() < rows * w * c
+    counts = np.bincount(touched, minlength=rows * w * c).reshape(rows, w, c)
+    assert np.all(counts[:, :cols] == 1)
+    assert not counts[:, cols:].any()
+
+
+def _emulate(x, plan):
+    """The kernel's float32 sum of the flat operand ``x`` (float32 values)
+    in its order: each thread adds its loads' elements in turn, a
+    shuffle-down tree adds each warp's 32 sums, the block's warp sums are
+    added in order, and the cluster's block sums in rank order."""
+    block_sums = []
+    for slots in _plan_loads(plan):
+        acc = np.zeros(ws.THREADS, np.float32)
+        for start in slots:
+            on = start >= 0
+            for e in range(plan.vec):
+                acc[on] = acc[on] + x[start[on] + e]
+        lanes = acc.reshape(-1, 32)
+        for o in (16, 8, 4, 2, 1):
+            nxt = lanes.copy()
+            nxt[:, : 32 - o] = lanes[:, : 32 - o] + lanes[:, o:]
+            lanes = nxt
+        s = np.float32(0)
+        for i, v in enumerate(lanes[:, 0]):
+            s = v if i == 0 else np.float32(s + v)
+        block_sums.append(s)
+    total = block_sums[0]
+    for v in block_sums[1:]:
+        total = np.float32(total + v)
+    return total
+
+
+@pytest.mark.parametrize("values", ["normal", "mixed"])
+@pytest.mark.parametrize("byte_offset", [0, "element"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(8, 16, 256), (20, 33, 3), (12, 21, 10), (20, 33, 257)])
+def test_plan_order_sum_matches_plain_and_pallas(shape, dtype, byte_offset, values):
+    """The sum in the plan's thread, warp, block and cluster order agrees
+    with the plain version and the Pallas kernel to 1e-6 of sum |x|; the
+    "mixed" values put magnitudes ~1e4 and ~1e-3 side by side."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if values == "mixed":
+        x *= np.where(rng.random(shape) < 0.5, np.float32(1e4), np.float32(1e-3))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    xf = np.array(jx.astype(jnp.float32))
+    esize = ESIZE[dtype]
+    plan = window_sum_plan(shape, getattr(torch, dtype), esize if byte_offset == "element" else 0)
+    got = float(_emulate(xf.ravel(), plan))
+    plain = float(window_sum_plain(torch.from_numpy(xf).to(getattr(torch, dtype))))
+    ref = float(np.asarray(_pallas_consume(jx))[0, 0])
+    scale = float(np.abs(xf[: WINDOW[0], : WINDOW[1]]).sum())
+    assert abs(got - plain) <= 1e-6 * scale, (got, plain)
+    assert abs(got - ref) <= 1e-6 * scale, (got, ref)
 
 
 def _jax_tool(size, channels, steps):
