@@ -49,12 +49,21 @@ It builds the CUDA kernels from the sources in the checkout and then:
      and compares the RPN outputs, the card's proposal selection given the
      CPU's RPN outputs, the losses and every parameter's gradient;
   9. serves three synthetic 2048² micrographs, written as uncompressed TIFF
-     by this script, through ``InferencePipeline.run`` under the default
-     configuration (Mask R-CNN R50-FPN, 2 classes, bf16, the seeded phase-3
+     by this script with a 300x4 px scale bar and its label ("500 nm",
+     "2 um" dark on bright, "1.5 um", glyphs pasted from the reader's atlas
+     at 28 px) in the default scale-bar region, through ``run_inference``
+     with no config when PyYAML is importable (the store's ``config.yaml``
+     and a ``config/datasets/smoke.yaml`` that sets ``scale_bar_roi`` and
+     one ``inference_overrides`` value, which must reach the pipeline), else
+     through ``InferencePipeline`` under ``validate_config(default_config())``
+     after checking that ``get_config`` names the file it cannot read
+     (Mask R-CNN R50-FPN, 2 classes, bf16, the seeded phase-3
      weights saved as ``model_final_r50.pt``; the size heuristic, 512 px
      tiles with the x2 upscale the heuristic keeps or drops, multiscale at
      0.7/1.0/1.5/2.0, morphology postprocess, device RLE, native host
      measurements) to both CSVs; checks that every image was processed,
+     that the reader read every drawn bar (the value exactly, micrometres
+     per pixel within 2 % of value / 300),
      that the RLE rows are the valid instances and decode inside the image,
      that every measurement row belongs to one of them, and that every
      multilevel RoIAlign of the run launched the K1 kernel; holds K1
@@ -66,6 +75,17 @@ It builds the CUDA kernels from the sources in the checkout and then:
      and on the CPU and compares the two CSVs, and once more on the card
      with every RoIAlign box moved by 0.25 px, which the comparison must
      reject;
+ 11. the ensemble: phase 9's images and R50 checkpoint beside a seeded
+     Mask R-CNN R101-FPN checkpoint (bf16, published widths), through
+     ``InferencePipeline`` under the default configuration (ensemble on,
+     small classes only; members R101 then R50, one after the other);
+     checks that both members ran on every image, that every multilevel
+     RoIAlign with RoIs launched K1 in both members, and that every bar was
+     read; holds K1 against the plain RoIAlign at the R101 member's first
+     shape of each stage; prints seconds per image, R101's trunk + FPN
+     seconds per 16-tile batch of 1024² inputs, and the merged instance
+     counts. ``python3 -c "import chip_smoke; chip_smoke.ensemble_only()"``
+     runs phases 1 and 11 alone;
  10. holds the windowed-sum kernel (K3) against its plain version on the
      conv-chain output of its micro-benchmark and on edge cases
      (``window_sum_edge_cases``: the map exactly the window, C in {1, 3,
@@ -79,7 +99,9 @@ It builds the CUDA kernels from the sources in the checkout and then:
      (``deepemia_tpu_torch.tools.bench_decouple``) with K3's launch count
      reset before and read after.
 
-Phase 7 runs before phase 6, whose inputs come from a training step.
+Phase 7 runs before phase 6, whose inputs come from a training step, and
+phase 11 before phase 10. K1's ``launches`` in the kernel line is the sum
+of phases 3, 9 and 11, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -145,6 +167,17 @@ PIPE_MIN_IOU = 0.95
 PIPE_MATCH_SHARE = 0.95
 PIPE_ROW_SHARE = 0.9
 PIPE_FAULT_PX = 0.25
+# the scale bars drawn into phase 9's and 11's micrographs: (label, value in
+# micrometres, dark on bright), a BAR_LEN x 4 px bar, glyphs GLYPH_PX tall;
+# the read value must be exact and um/px within BAR_RTOL of value / BAR_LEN
+BARS = (("500 nm", 0.5, False), ("2 um", 2.0, True), ("1.5 um", 1.5, False))
+BAR_LEN = 300
+GLYPH_PX = 28
+BAR_RTOL = 0.02
+# the dataset YAML's scale-bar region (it contains the default region, where
+# the bars are drawn) and its one inference override
+SMOKE_ROI = {"x_start_factor": 0.68, "y_start_factor": 0.04, "width_factor": 1.0, "height_factor": 0.07}
+SMOKE_OVERRIDE = {"postprocessing": {"size_heuristic_sample": 3}}
 
 
 def card_line() -> str:
@@ -976,10 +1009,41 @@ def write_tiff(path: str, gray: np.ndarray) -> None:
         f.write(b"II*\x00" + struct.pack("<I", 8 + len(data)) + data + ifd)
 
 
-def pipeline_home(name: str, model, images):
+def draw_scale_bar(gray: np.ndarray, label: str, dark_on_bright: bool) -> np.ndarray:
+    """``gray`` with SMOKE_ROI (which holds the default scale-bar region: x
+    from 0.7 of the width, rows 0.05..0.10 of the height) cleared to a flat
+    background, a BAR_LEN x 4 px bar in the default region and ``label``
+    centred above the bar, its glyphs (DejaVu Sans, GLYPH_PX tall) pasted
+    from the reader's atlas on one baseline."""
+    from deepemia_tpu_torch.inference.scalebar import _atlas
+
+    h, w = gray.shape
+    out = gray.copy()
+    x0, y0 = int(w * 0.7), int(h * 0.05)
+    bg, fg = (225, 25) if dark_on_bright else (30, 230)
+    cx, cy = int(w * SMOKE_ROI["x_start_factor"]), int(h * SMOKE_ROI["y_start_factor"])
+    out[cy : cy + int(h * SMOKE_ROI["height_factor"]), cx:] = bg
+    sans = dict(_atlas()[GLYPH_PX][2::4])  # per glyph: simplex, duplex, sans, serif
+    widths = [GLYPH_PX // 2 + 4 if ch == " " else sans[ch].shape[1] for ch in label]
+    bar_x, bar_y = x0 + 130, y0 + GLYPH_PX + 24
+    x = bar_x + (BAR_LEN - sum(widths) - 4 * (len(label) - 1)) // 2
+    base = y0 + 10 + GLYPH_PX
+    for ch, wd in zip(label, widths):
+        if ch != " ":
+            t = sans[ch].astype(np.float32) / 255.0
+            region = out[base - t.shape[0] : base, x : x + wd].astype(np.float32)
+            out[base - t.shape[0] : base, x : x + wd] = np.round(region + (fg - region) * t).astype(np.uint8)
+        x += wd + 4
+    out[bar_y : bar_y + 4, bar_x : bar_x + BAR_LEN] = fg
+    return out
+
+
+def pipeline_home(name: str, model, images, r101=None, bars=False):
     """A dataset home under ``PIPELINE_DIR/name``: the category file, the
-    model's float32 state dict as ``model_final_r50.pt``, the images as
-    TIFF. -> (config, split_dir, image folder, output folder)."""
+    model's float32 state dict as ``model_final_r50.pt`` (and ``r101``'s as
+    ``model_final_r101.pt``), the images as TIFF, with the BARS drawn when
+    ``bars``. -> (default config of the home, split_dir, image folder,
+    output folder)."""
     import shutil
 
     from deepemia_tpu_torch.config.config import default_config
@@ -988,44 +1052,166 @@ def pipeline_home(name: str, model, images):
     shutil.rmtree(home, ignore_errors=True)
     cfg = default_config(home)
     folder = os.path.join(home, "INFERENCE")
-    ckpt = os.path.join(cfg["paths"]["split_dir"], "smoke", "rcnn_r50")
     os.makedirs(folder)
-    os.makedirs(ckpt)
     with open(cfg["paths"]["category_json"], "w") as f:
         json.dump({"smoke": [folder, folder, ["particle", "pore"]]}, f)
-    sd = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
-    torch.save({"model": sd, "backbone": "R50", "num_classes": 2}, os.path.join(ckpt, "model_final_r50.pt"))
+    for depth, net in (("R50", model), ("R101", r101)):
+        if net is None:
+            continue
+        ckpt = os.path.join(cfg["paths"]["split_dir"], "smoke", f"rcnn_{depth.lower()}")
+        os.makedirs(ckpt)
+        sd = {k: v.detach().float().cpu() for k, v in net.state_dict().items()}
+        torch.save({"model": sd, "backbone": depth, "num_classes": 2},
+                   os.path.join(ckpt, f"model_final_{depth.lower()}.pt"))
     for i, img in enumerate(images):
-        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), img[..., 0])
+        gray = img[..., 0]
+        if bars:
+            gray = draw_scale_bar(gray, BARS[i][0], BARS[i][2])
+        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), gray)
     return cfg, cfg["paths"]["split_dir"], folder, os.path.join(home, "out")
+
+
+def check_scale_bars(res, meas, names):
+    """Every drawn bar read: the value exactly (in the reader's result and
+    in the CSV's scale-bar column), um/px within BAR_RTOL of value / BAR_LEN."""
+    for i, name in enumerate(names):
+        label, value_um, _ = BARS[i]
+        psum, um_pix = res["scale_bars"][name]
+        expected = value_um / BAR_LEN
+        print(f"scale bar {name}: drawn {label!r} -> read {psum!r}, um_pix {um_pix:.6g} "
+              f"(expected {expected:.6g})", flush=True)
+        assert psum == label.split()[0], (name, psum, label)
+        assert abs(um_pix - expected) <= BAR_RTOL * expected, (name, um_pix, expected)
+        assert {r[-2] for r in meas[1:] if r[-1] == name} == {psum}, name
 
 
 def read_csv(path):
     import csv
 
+    csv.field_size_limit(1 << 30)  # the RLE of a mask over most of a 2048² image
     with open(path) as f:
         return list(csv.reader(f))
 
 
+def smoke_config(home: str):
+    """The configuration branch of phase 9: with PyYAML, write the dataset
+    YAML (SMOKE_ROI, SMOKE_OVERRIDE) and return None, so that the store
+    reads ``<home>/config``; without it, check that ``get_config`` names the
+    file it cannot read and return ``validate_config(default_config(home))``."""
+    from deepemia_tpu_torch.config.config import default_config, get_config
+    from deepemia_tpu_torch.config.schema import validate_config
+    from deepemia_tpu_torch.utils.exceptions import ConfigurationError
+
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
+    print(f"config: PyYAML importable={yaml is not None}", flush=True)
+    if yaml is not None:
+        d = os.path.join(home, "config", "datasets")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "smoke.yaml"), "w") as f:
+            yaml.safe_dump({"scale_bar_roi": SMOKE_ROI, "inference_overrides": SMOKE_OVERRIDE}, f)
+        print("config: branch = run_inference('smoke', split_dir) with no config: the store's config.yaml "
+              "and config/datasets/smoke.yaml", flush=True)
+        return None
+    try:
+        get_config("smoke")
+    except ConfigurationError as e:
+        assert "config.yaml" in str(e) and "yaml" in str(e), e
+        print(f"config: get_config('smoke') raised ConfigurationError: {e}", flush=True)
+    else:
+        raise AssertionError("get_config read a YAML file without PyYAML")
+    print("config: branch = InferencePipeline under validate_config(default_config(home))", flush=True)
+    return validate_config(default_config(home))
+
+
+class ObservedPipelines:
+    """Within the block, every ``InferencePipeline`` that
+    ``run_inference`` builds is kept in ``.made``, with its ``_infer_one``
+    wrapped by ``wrap``."""
+
+    def __init__(self, wrap):
+        import deepemia_tpu_torch.inference.pipeline as pipeline_mod
+
+        self.mod, self.wrap, self.made = pipeline_mod, wrap, []
+
+    def __enter__(self):
+        base, made, wrap = self.mod.InferencePipeline, self.made, self.wrap
+
+        class Observed(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self._infer_one = wrap(self._infer_one)
+                made.append(self)
+
+        self.base, self.mod.InferencePipeline = base, Observed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.InferencePipeline = self.base
+
+
+class StageLog:
+    """Within the block, every ``StageTimers`` that the pipeline makes also
+    appends each stage's (name, seconds) to ``.calls``, in order."""
+
+    def __enter__(self):
+        import contextlib
+
+        import deepemia_tpu_torch.inference.pipeline as pipeline_mod
+
+        base, calls = pipeline_mod.StageTimers, []
+
+        class Logged(base):
+            @contextlib.contextmanager
+            def time(self, name):
+                before = self.totals[name]
+                with super().time(name):
+                    yield
+                calls.append((name, self.totals[name] - before))
+
+        self.mod, self.base, self.calls = pipeline_mod, base, calls
+        pipeline_mod.StageTimers = Logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.StageTimers = self.base
+
+    def steady(self):
+        """Stage seconds of each image after the first: the calls from one
+        ``decode`` to the next, without the run's closing RLE file write."""
+        per_image = []
+        for name, sec in self.calls[:-1]:
+            if name == "decode":
+                per_image.append({})
+            if per_image:
+                per_image[-1][name] = round(per_image[-1].get(name, 0.0) + sec, 4)
+        return per_image[1:]
+
+
 def phase_pipeline(model, images):
     """The pipeline on three 2048² micrographs at full width, default
-    configuration; every multilevel RoIAlign must launch K1, and K1 must
-    agree with the plain RoIAlign at every pyramid shape the run gave it."""
+    configuration, each with a drawn scale bar; every bar must be read,
+    every multilevel RoIAlign must launch K1, and K1 must agree with the
+    plain RoIAlign at every pyramid shape the run gave it."""
     import deepemia_tpu_torch.models.heads as heads_mod
-    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline, run_inference
     from deepemia_tpu_torch.kernels.roi_align import counter
     from deepemia_tpu_torch.ops.rle import rle_decode
 
-    cfg, split_dir, folder, out = pipeline_home("full", model, images)
-    pipe = InferencePipeline("smoke", split_dir, out, cfg, scale_bar=lambda img: ("0", 1.0))
-    assert pipe.use_multiscale and pipe.postproc_enabled and next(pipe.engine.model.parameters()).dtype == torch.bfloat16
+    _, split_dir, folder, out = pipeline_home("full", model, images, bars=True)
+    home = os.path.join(PIPELINE_DIR, "full")
     counts, calls, shapes = {}, [], {}
-    real_infer, real_dispatch = pipe._infer_one, heads_mod.roi_align_dispatch
+    real_dispatch = heads_mod.roi_align_dispatch
 
-    def infer(image, timers):
-        inst, q = real_infer(image, timers)
-        counts[len(counts)] = int(inst.valid.sum())
-        return inst, q
+    def wrap(real_infer):
+        def infer(image, timers):
+            inst, q = real_infer(image, timers)
+            counts[len(counts)] = int(inst.valid.sum())
+            return inst, q
+
+        return infer
 
     def dispatch(features, boxes, **kw):
         # the first call of each pyramid shape and stage, held against the
@@ -1037,18 +1223,40 @@ def phase_pipeline(model, images):
                            {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
         return real_dispatch(features, boxes, **kw)
 
-    pipe._infer_one, heads_mod.roi_align_dispatch = infer, dispatch
-    counter.launches = 0
+    saved_home = os.environ.get("DEEPEMIA_TPU_HOME")
+    os.environ["DEEPEMIA_TPU_HOME"] = home
     try:
-        res = pipe.run(folder, visualize=False)
+        cfg = smoke_config(home)
+        with ObservedPipelines(wrap) as seen, StageLog() as stage_log:
+            heads_mod.roi_align_dispatch = dispatch
+            counter.launches = 0
+            if cfg is None:
+                res = run_inference("smoke", split_dir, image_folder=folder, output_dir=out)
+            else:
+                pipe = InferencePipeline("smoke", split_dir, out, cfg)
+                pipe._infer_one = wrap(pipe._infer_one)
+                res = pipe.run(folder, visualize=False)
+            launches = counter.launches
     finally:
         heads_mod.roi_align_dispatch = real_dispatch
-    launches = counter.launches
+        if saved_home is None:
+            os.environ.pop("DEEPEMIA_TPU_HOME", None)
+        else:
+            os.environ["DEEPEMIA_TPU_HOME"] = saved_home
+    if cfg is None:
+        (pipe,) = seen.made
+        assert pipe.config["scale_bar_rois"]["smoke"] == SMOKE_ROI, pipe.config["scale_bar_rois"]
+        assert pipe.size_heuristic_sample == SMOKE_OVERRIDE["postprocessing"]["size_heuristic_sample"]
+        print(f"config: the dataset YAML reached the pipeline: scale_bar_rois.smoke={SMOKE_ROI}, "
+              f"size_heuristic_sample={pipe.size_heuristic_sample}", flush=True)
+    assert pipe.use_multiscale and pipe.postproc_enabled and not pipe.use_ensemble
+    assert next(pipe.engine.model.parameters()).dtype == torch.bfloat16
     names = sorted(os.listdir(folder))
     assert res["processed"] == names and not res["failed"], res
     rle = read_csv(res["rle_csv"])[1:]
     meas = read_csv(res["measurements_csv"])
     assert meas[0][0] == "Instance_ID" and len(meas) > 1
+    check_scale_bars(res, meas, names)
     h, w = images[0].shape[:2]
     for i, name in enumerate(names):
         rows = [r for r in rle if r[0] == name]
@@ -1088,7 +1296,152 @@ def phase_pipeline(model, images):
           f"size heuristic before the loop {res['stages']['size_heuristic']['total_s']:.4f} s)", flush=True)
     print("pipeline stage seconds: " + json.dumps(
         {k: {"total_s": round(v["total_s"], 6), "count": v["count"]} for k, v in res["stages"].items()}), flush=True)
+    print(f"pipeline: steady stage seconds per image {json.dumps(stage_log.steady())}", flush=True)
+    sb = res["stages"]["scalebar"]
+    print(f"pipeline: scalebar stage seconds per image {sb['total_s'] / sb['count']:.4f} "
+          f"(host, {sb['count']} images of {h}x{w}, the first loads the glyph atlas)", flush=True)
+    scalebar_steady_seconds(folder, pipe)
     return launches, errs
+
+
+def scalebar_steady_seconds(folder, pipe):
+    """The reader's seconds per image on the run's decoded images, the
+    atlas loaded and the run's template caches warm (second of two passes)."""
+    from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
+    from deepemia_tpu_torch.ops.image import read_image
+
+    imgs = [read_image(os.path.join(folder, n)) for n in sorted(os.listdir(folder))]
+    for _ in range(2):
+        secs = []
+        for img in imgs:
+            t0 = time.perf_counter()
+            detect_scale_bar(img, pipe.config, pipe.dataset_name, return_debug=True)
+            secs.append(time.perf_counter() - t0)
+    print(f"pipeline: scalebar steady seconds per image {json.dumps([round(x, 4) for x in secs])} "
+          f"(host, {imgs[0].shape[0]}x{imgs[0].shape[1]})", flush=True)
+
+
+def phase_ensemble(model, images):
+    """The default configuration's ensemble on phase 9's images: a seeded
+    R101-FPN checkpoint beside the R50 one; both members must run on every
+    image, every multilevel RoIAlign with RoIs must launch K1 in each
+    member, and K1 must agree with the plain RoIAlign at the R101 member's
+    first shape of each stage. -> (K1 launches of the run, errors)."""
+    import deepemia_tpu_torch.models.heads as heads_mod
+    from deepemia_tpu_torch.config.schema import validate_config
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+    from deepemia_tpu_torch.kernels.roi_align import counter
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+    from deepemia_tpu_torch.ops import tiles as tile_ops
+    from deepemia_tpu_torch.ops.image import resize_image
+
+    r101 = build_model("R101", num_classes=2, use_bf16=True, device="cuda", seed=1)
+    sane_geometry(r101)
+    cfg, split_dir, folder, out = pipeline_home("ensemble", model, images, r101=r101, bars=True)
+    cfg = validate_config(cfg)
+    es = cfg["inference_settings"]["ensemble_settings"]
+    assert es["enabled"] and es["small_classes_only"], es
+    pipe = InferencePipeline("smoke", split_dir, out, cfg)
+    assert pipe.use_ensemble and [n for n, _, _ in pipe.engines] == ["R101", "R50"], pipe.engines
+    assert len(pipe.engines[0][1].model.backbone.bottom_up.res4) == 23
+    assert all(next(e.model.parameters()).dtype == torch.bfloat16 for _, e, _ in pipe.engines)
+
+    member = {"name": None}
+    calls = {"R101": [], "R50": []}
+    shapes = {}
+    real_dispatch = heads_mod.roi_align_dispatch
+
+    def tracked(name, infer):
+        def run(*a, **kw):
+            member["name"] = name
+            try:
+                return infer(*a, **kw)
+            finally:
+                member["name"] = None
+
+        return run
+
+    for name, engine, _ in pipe.engines:
+        engine.infer = tracked(name, engine.infer)
+
+    def dispatch(features, boxes, **kw):
+        calls[member["name"]].append(int(boxes.shape[0]))
+        key = kw["output_size"]
+        if member["name"] == "R101" and boxes.shape[0] and key not in shapes:
+            shapes[key] = ([features[k] for k in ("p2", "p3", "p4", "p5")], boxes.clone(),
+                           {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
+        return real_dispatch(features, boxes, **kw)
+
+    counter.launches = 0
+    heads_mod.roi_align_dispatch = dispatch
+    try:
+        with StageLog() as stage_log:
+            res = pipe.run(folder, visualize=False)
+    finally:
+        heads_mod.roi_align_dispatch = real_dispatch
+    launches = counter.launches
+    names = sorted(os.listdir(folder))
+    assert res["processed"] == names and not res["failed"], res
+    assert res["members"] == {n: ["R101", "R50"] for n in names}, res["members"]
+    meas = read_csv(res["measurements_csv"])
+    rle = read_csv(res["rle_csv"])[1:]
+    check_scale_bars(res, meas, names)
+    with_rois = {m: sum(1 for n in c if n > 0) for m, c in calls.items()}
+    print(f"ensemble: members {res['members'][names[0]]} on every image; multilevel_roi_align calls "
+          f"{ {m: len(c) for m, c in calls.items()} } (with RoIs {with_rois}) roi_align_fwd launches={launches}",
+          flush=True)
+    assert min(with_rois.values()) > 0 and launches == sum(with_rois.values()), \
+        "a multilevel RoIAlign of the ensemble did not launch K1"
+    errs = []
+    for out_size, (feats, boxes, kw) in sorted(shapes.items()):
+        tag = f"ensemble R101 {tuple(feats[0].shape)} p2, {'box' if out_size == 7 else 'mask'} stage"
+        for dtype in dict.fromkeys((kw["out_dtype"], torch.float32)):
+            row = compare_roi_align(tag, feats, boxes, kw["valid"], kw["batch_idx"], out_size, dtype,
+                                    adaptive=kw["adaptive_ratio"], timed=False)
+            errs.append(row["err"])
+    assert sorted(shapes) == [7, 14], sorted(shapes)
+    per_image = {n: sum(1 for r in rle if r[0] == n) for n in names}
+    secs = res["seconds_per_image"]
+    print(f"ensemble: merged instances per image {per_image}; seconds_per_image first={secs[0]:.4f} "
+          f"steady={[round(x, 4) for x in secs[1:]]} ({images[0].shape[0]}x{images[0].shape[1]}, bf16, "
+          f"R101 + R50, default config)", flush=True)
+    print("ensemble stage seconds: " + json.dumps(
+        {k: {"total_s": round(v["total_s"], 6), "count": v["count"]} for k, v in res["stages"].items()}), flush=True)
+    print(f"ensemble: steady stage seconds per image {json.dumps(stage_log.steady())}", flush=True)
+
+    # R101's trunk + FPN on one 16-tile batch of 1024² inputs (512 px tiles, x2)
+    engine = pipe.engines[0][1]
+    img = torch.as_tensor(images[0]).cuda()
+    grid = tile_ops.compute_tile_grid(img.shape[0], img.shape[1], engine.tile_size, engine.overlap_ratio)
+    ts_up = int(round(engine.tile_size * engine.upscale_factor))
+    ups = resize_image(tile_ops.extract_tiles(img, grid)[: engine.tile_batch].float(), ts_up, ts_up)
+    r50 = pipe.engines[1][1].model
+    times = {}
+    for rep_i in range(3):  # the last pass is kept
+        for tag, net in (("R101", engine.model), ("R50", r50)):
+            _, times[tag] = sync_time(lambda net=net: net.features_batched(ups))
+    print(f"ensemble: trunk + FPN seconds per {engine.tile_batch}-tile batch of {ts_up}² inputs, bf16: "
+          f"R101 {times['R101']:.4f}, R50 {times['R50']:.4f}", flush=True)
+    return launches, errs
+
+
+def ensemble_only():
+    """Phases 1 and 11 alone (phase 3's R50 weights rebuilt from their seed)."""
+    from deepemia_tpu_torch.kernels import _build
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    import shutil
+
+    print(f"card: {card_line()}", flush=True)
+    _build.build(["roi_align_fwd"])
+    with torch.inference_mode():
+        model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
+        sane_geometry(model)
+        images = [synthetic_micrograph(2048, seed) for seed in range(3)]
+        try:
+            phase_ensemble(model, images)
+        finally:
+            shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
 
 
 def best_match_share(score):
@@ -1105,8 +1458,7 @@ def pipeline_csvs(model, img, name, device):
     from deepemia_tpu_torch.inference.pipeline import InferencePipeline
 
     cfg, split_dir, folder, out = pipeline_home(name, model, [img])
-    pipe = InferencePipeline("smoke", split_dir, out, cfg, use_bf16=False, scale_bar=lambda im: ("0", 1.0),
-                             device=device)
+    pipe = InferencePipeline("smoke", split_dir, out, cfg, use_bf16=False, device=device)
     res = pipe.run(folder)
     assert not res["failed"], res
     return read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:]
@@ -1416,18 +1768,23 @@ def main() -> int:
 
     import shutil
 
-    pipeline_launches, pipeline_errs = phase_pipeline(model, images)
-    phase_pipeline_reference(model)
-    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    try:
+        pipeline_launches, pipeline_errs = phase_pipeline(model, images)
+        phase_pipeline_reference(model)
+        with torch.inference_mode():
+            ensemble_launches, ensemble_errs = phase_ensemble(model, images)
+    finally:
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
     k3_rows, k3_launches = phase_window_sum()
 
-    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs
+    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_fwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:351",
-        "launches": launches,
+        # phases 3 (tile engine), 9 (pipeline) and 11 (ensemble), each counted from zero
+        "launches": launches + pipeline_launches + ensemble_launches,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -1482,7 +1839,8 @@ def main() -> int:
         "library_device_ms_f32": k3_f32["library_device_ms"],
         "library_host_ms_f32": k3_f32["library_host_ms"],
     }
-    print(f"pipeline roi_align_fwd launches={pipeline_launches}", flush=True)
+    print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
+          f"ensemble {ensemble_launches}", flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window]}), flush=True)
     print(card, flush=True)

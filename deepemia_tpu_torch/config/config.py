@@ -1,16 +1,30 @@
-"""The built-in default configuration and the merge of overrides.
+"""The configuration store: the built-in default, ``<home>/config/config.yaml``
+validated against the schema, and each dataset's YAML merged over it
+(the JAX package's ``config/config.py``).
 
-Counterpart of the JAX package's ``config/config.py`` without its YAML
-store: callers hand ``InferencePipeline`` a config dict, which starts from
-:func:`default_config` and takes overrides through :func:`deep_merge`.
+A dataset YAML feeds ``inference_overrides`` into ``inference_settings``,
+``scale_bar_roi`` into ``scale_bar_rois[<dataset>]``, ``spatial_constraints``
+into ``inference_settings.spatial_constraints[<dataset>]`` and
+``rcnn_hyperparameters.best_R50`` / ``best_R101`` into
+``rcnn_hyperparameters.best``; any other key deep-merges under its own name.
+
+PyYAML is imported by the functions that read or write YAML, so this module
+imports without it; reading or writing a file then raises
+:class:`ConfigurationError` naming the file and the missing module.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
+
+from deepemia_tpu_torch.config.schema import validate_config
+from deepemia_tpu_torch.utils.exceptions import ConfigurationError
+
+log = logging.getLogger("deepemia_tpu_torch.config")
 
 ENV_HOME = "DEEPEMIA_TPU_HOME"
 
@@ -145,3 +159,189 @@ def default_config(home: Optional[Path] = None) -> Dict[str, Any]:
             "donate_buffers": True,
         },
     }
+
+
+DATASET_TEMPLATE = """\
+# Dataset-specific configuration for '{name}'
+metadata:
+  name: "{name}"
+  description: "Describe the dataset here"
+
+# Per-dataset scale bar region of interest (fractions of image size)
+scale_bar_roi:
+  x_start_factor: 0.7
+  y_start_factor: 0.05
+  width_factor: 1.0
+  height_factor: 0.05
+
+# Override inference settings (merged into inference_settings)
+inference_overrides:
+  class_specific_settings:
+    class_0:
+      confidence_threshold: 0.5
+
+# Spatial constraints between detected classes
+spatial_constraints:
+  enabled: false
+  overlap_rules: []
+  containment_rules: []
+"""
+
+# dataset YAML keys with a channel of their own (the rest deep-merge directly)
+_SPECIAL_KEYS = {
+    "inference_overrides",
+    "scale_bar_roi",
+    "spatial_constraints",
+    "rcnn_hyperparameters",
+    "name",
+    "description",
+}
+
+
+def _yaml(path: Path):
+    """The ``yaml`` module, or a ConfigurationError naming ``path``."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ConfigurationError(
+            f"Cannot read or write configuration file {path}: the module 'yaml' (PyYAML) is not installed"
+        ) from e
+    return yaml
+
+
+class ConfigStore:
+    """Loads, validates, caches and merges the global and per-dataset configs."""
+
+    def __init__(self, home: Optional[Path] = None):
+        self.home = Path(home) if home else framework_home()
+        self.config_path = self.home / "config" / "config.yaml"
+        self._config: Optional[Dict[str, Any]] = None
+        self._dataset_configs: Dict[str, Optional[Dict[str, Any]]] = {}
+
+    def ensure_default_config(self) -> Path:
+        """Write the default config file if it does not exist."""
+        if not self.config_path.exists():
+            yaml = _yaml(self.config_path)
+            self.config_path.parent.mkdir(parents=True, exist_ok=True)
+            with open(self.config_path, "w") as f:
+                yaml.safe_dump(default_config(self.home), f, sort_keys=False)
+            log.info("Wrote default config to %s", self.config_path)
+        return self.config_path
+
+    def load(self, force: bool = False) -> Dict[str, Any]:
+        if self._config is not None and not force:
+            return self._config
+        yaml = _yaml(self.config_path)
+        self.ensure_default_config()
+        try:
+            with open(self.config_path) as f:
+                raw = yaml.safe_load(f) or {}
+        except yaml.YAMLError as e:
+            raise ConfigurationError(f"Error parsing configuration file {self.config_path}: {e}") from e
+        self._config = validate_config(raw)
+        return self._config
+
+    def save(self, config: Dict[str, Any]) -> None:
+        """Write a (modified) global config back to disk."""
+        yaml = _yaml(self.config_path)
+        self.config_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(self.config_path, "w") as f:
+            yaml.safe_dump(config, f, sort_keys=False)
+        self._config = validate_config(config)
+
+    @property
+    def dataset_config_dir(self) -> Path:
+        return Path(os.path.expanduser(self.load()["paths"]["dataset_configs_dir"]))
+
+    def load_dataset_config(self, dataset_name: str) -> Optional[Dict[str, Any]]:
+        if dataset_name in self._dataset_configs:
+            return self._dataset_configs[dataset_name]
+        path = self.dataset_config_dir / f"{dataset_name}.yaml"
+        if not path.exists():
+            self._dataset_configs[dataset_name] = None
+            return None
+        yaml = _yaml(path)
+        try:
+            with open(path) as f:
+                ds_cfg = yaml.safe_load(f) or {}
+        except yaml.YAMLError as e:
+            log.error("Error loading dataset config for %s: %s", dataset_name, e)
+            return None
+        self._dataset_configs[dataset_name] = ds_cfg
+        return ds_cfg
+
+    def get(self, dataset_name: Optional[str] = None) -> Dict[str, Any]:
+        """The global config, with the dataset's overrides merged when given."""
+        base = self.load()
+        if dataset_name is None:
+            return base
+        ds = self.load_dataset_config(dataset_name)
+        if ds is None:
+            return base
+        merged = copy.deepcopy(base)
+        direct = {k: v for k, v in ds.items() if k not in _SPECIAL_KEYS}
+        if direct:
+            merged = deep_merge(merged, direct)
+        if "inference_overrides" in ds:
+            merged["inference_settings"] = deep_merge(merged.get("inference_settings", {}), ds["inference_overrides"])
+        if "scale_bar_roi" in ds:
+            merged.setdefault("scale_bar_rois", {})[dataset_name] = ds["scale_bar_roi"]
+        if "spatial_constraints" in ds:
+            merged.setdefault("inference_settings", {}).setdefault("spatial_constraints", {})[dataset_name] = ds[
+                "spatial_constraints"
+            ]
+        if "rcnn_hyperparameters" in ds:
+            best = merged.setdefault("rcnn_hyperparameters", {}).setdefault("best", {})
+            for key in ("best_R50", "best_R101"):
+                if key in ds["rcnn_hyperparameters"]:
+                    best[key.replace("best_", "")] = ds["rcnn_hyperparameters"][key]
+        return merged
+
+    def list_dataset_configs(self) -> List[str]:
+        d = self.dataset_config_dir
+        if not d.exists():
+            return []
+        return sorted(p.stem for p in d.glob("*.yaml"))
+
+    def create_dataset_config(self, dataset_name: str, template: str = "template") -> Path:
+        """A new dataset config from the built-in template or from an
+        existing dataset's config."""
+        d = self.dataset_config_dir
+        d.mkdir(parents=True, exist_ok=True)
+        target = d / f"{dataset_name}.yaml"
+        if target.exists():
+            log.warning("Dataset config already exists: %s", target)
+            return target
+        if template == "template":
+            content = DATASET_TEMPLATE.format(name=dataset_name)
+        else:
+            src = d / f"{template}.yaml"
+            if not src.exists():
+                raise ConfigurationError(f"Template not found: {src}")
+            content = src.read_text()
+            for q in ('"', "'"):
+                content = content.replace(f"name: {q}{template}{q}", f"name: {q}{dataset_name}{q}")
+        target.write_text(content)
+        self._dataset_configs.pop(dataset_name, None)
+        log.info("Created dataset config: %s", target)
+        return target
+
+    def invalidate(self) -> None:
+        self._config = None
+        self._dataset_configs.clear()
+
+
+# the process-wide store, made on first use and remade when the home changes
+_default_store: Optional[ConfigStore] = None
+
+
+def get_store() -> ConfigStore:
+    global _default_store
+    if _default_store is None or _default_store.home != framework_home():
+        _default_store = ConfigStore()
+    return _default_store
+
+
+def get_config(dataset_name: Optional[str] = None) -> Dict[str, Any]:
+    """The effective config of ``dataset_name`` (the global one for None)."""
+    return get_store().get(dataset_name)

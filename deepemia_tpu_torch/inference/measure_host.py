@@ -16,6 +16,7 @@ import numpy as np
 import scipy.ndimage as ndi
 
 from deepemia_tpu_torch import native
+from deepemia_tpu_torch.ops import cv
 
 
 def _area_weights(src: int, dst: int) -> np.ndarray:
@@ -23,20 +24,10 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     downscale (src >= dst): each output cell averages the source cells it
     covers, partial cells by their covered fraction (OpenCV's
     ``computeResizeAreaTab``, its float32 weights included)."""
-    scale = 1.0 / (dst / src)
-    wts = np.zeros((dst, src), np.float64)
-    for d in range(dst):
-        f1 = d * scale
-        f2 = f1 + scale
-        cell = min(scale, src - f1)
-        s2 = min(int(np.floor(f2)), src - 1)
-        s1 = min(int(np.ceil(f1)), s2)
-        if s1 - f1 > 1e-3:
-            wts[d, s1 - 1] += np.float32((s1 - f1) / cell)
-        wts[d, s1:s2] += np.float32(1.0 / cell)
-        if f2 - s2 > 1e-3:
-            wts[d, s2] += np.float32(min(min(f2 - s2, 1.0), cell) / cell)
-    return wts
+    idx, wts = cv.area_table(src, dst, 1.0 / (dst / src))
+    out = np.zeros((dst, src), np.float64)
+    np.add.at(out, (np.arange(dst)[:, None], idx), wts)
+    return out
 
 
 def resize_area(image: np.ndarray, height: int, width: int) -> np.ndarray:

@@ -2,8 +2,10 @@
 measurements CSV and the RLE CSV.
 
 Per image: decode (prefetched by a thread pool, with the upload to the
-card started there), the scale bar, then on the device the multiscale
-(or single-scale) tile engine, morphology postprocess, cross-class dedup,
+card started there), the scale bar read on the host, then on the device
+the ensemble of every trained checkpoint (R101 before R50, one after the
+other), or else the multiscale (or single-scale) tile engine of the one
+checkpoint, morphology postprocess, cross-class dedup,
 spatial constraints and compaction to a power-of-2 bucket; the run-length
 encoding of every instance on the device, read back in one packed copy;
 per-instance mask windows read back for the exact native measurements on
@@ -11,10 +13,11 @@ the host; rows streamed to ``measurements_results.csv``, RLE rows to
 ``R50_flip_results.csv`` (the reference's file name for any model). A
 failing image is logged and listed in ``failed``; the others go on.
 
-Not ported yet, and raising ``NotImplementedError``: overlays
-(``visualize=True``), ensembles of several checkpoints, int8 serving
-(``quantized_inference``) and the device measurement backend. Scale-bar
-OCR is not ported either: the caller passes ``scale_bar``.
+The configuration is the dataset's (``get_config(dataset_name)``: the
+user's ``config.yaml`` with the dataset YAML merged) unless the caller
+passes one. Not ported yet, and raising ``NotImplementedError``: overlays
+(``visualize=True``), int8 serving (``quantized_inference``) and the
+device measurement backend.
 """
 
 from __future__ import annotations
@@ -25,13 +28,13 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepemia_tpu_torch import resolve_device
-from deepemia_tpu_torch.config.config import default_config
+from deepemia_tpu_torch.config.config import get_config
 from deepemia_tpu_torch.data.datasets import dataset_class_names, read_dataset_info
 from deepemia_tpu_torch.data.models import get_trained_model_paths, load_model
 from deepemia_tpu_torch.inference import measure as measure_lib
@@ -43,8 +46,10 @@ from deepemia_tpu_torch.inference.detections import (
     slice_instances,
 )
 from deepemia_tpu_torch.inference.engine import TileEngine, class_settings_from_config, cross_class_dedup
+from deepemia_tpu_torch.inference.ensemble import run_ensemble, weights_from_config
 from deepemia_tpu_torch.inference.measure_host import measurement_rows_host_windows
 from deepemia_tpu_torch.inference.postprocess import morphology_postprocess, window_geometry
+from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
 from deepemia_tpu_torch.ops.image import read_image, to_grayscale
 from deepemia_tpu_torch.ops.masks import paste_masks
 from deepemia_tpu_torch.ops.rle import rle_encode, rle_encode_batch, rle_encode_windowed, rle_to_string
@@ -53,8 +58,6 @@ from deepemia_tpu_torch.utils.profiling import StageTimers
 log = logging.getLogger("deepemia_tpu_torch.pipeline")
 
 IMAGE_EXTS = (".tif", ".tiff", ".png", ".jpg", ".jpeg", ".bmp")
-# a scale-bar reader: BGR image -> (the bar's value as read, micrometres per pixel)
-ScaleBar = Callable[[np.ndarray], Tuple[str, float]]
 # full-resolution pastes of the device RLE hold at most this many pixels at once
 PASTE_BUDGET = 1 << 25
 
@@ -73,10 +76,11 @@ def _load_image(path: str, device: torch.device):
 
 
 class InferencePipeline:
-    """Builds the engine once, then processes folders of micrographs.
+    """Builds the engines once, then processes folders of micrographs.
 
-    ``scale_bar`` reads each image's scale bar; ``device`` is ``cuda``
-    unless the caller names another (raises when CUDA is absent)."""
+    ``config`` defaults to ``get_config(dataset_name)``. Each image's scale
+    bar is read by :func:`detect_scale_bar`. ``device`` is ``cuda`` unless
+    the caller names another (raises when CUDA is absent)."""
 
     def __init__(
         self,
@@ -86,20 +90,13 @@ class InferencePipeline:
         config: Optional[dict] = None,
         use_bf16: Optional[bool] = None,
         default_threshold: Optional[float] = None,
-        scale_bar: Optional[ScaleBar] = None,
         device=None,
     ):
         """``default_threshold`` applies to every class when
         ``use_class_specific_inference`` is off."""
-        if scale_bar is None:
-            raise ValueError(
-                "scale-bar OCR is not ported yet (ROADMAP: scale-bar OCR without cv2): pass "
-                "scale_bar, a callable image -> (scale-bar value, micrometres per pixel)"
-            )
-        self.scale_bar = scale_bar
         self.device = resolve_device(device)
         self.dataset_name = dataset_name
-        self.config = config or default_config()
+        self.config = config or get_config(dataset_name)
         self.split_dir = os.path.expanduser(split_dir)
         paths = self.config["paths"]
         self.output_dir = Path(os.path.expanduser(output_dir or paths["output_dir"]))
@@ -131,13 +128,6 @@ class InferencePipeline:
         model_paths = get_trained_model_paths(self.split_dir, dataset_name)
         if not model_paths:
             raise FileNotFoundError(f"No trained models for dataset {dataset_name} under {self.split_dir}")
-        es = self.inf.get("ensemble_settings", {})
-        if bool(es.get("enabled", True)) and len(model_paths) > 1:
-            raise NotImplementedError(
-                f"ensembles are not ported yet (ROADMAP: the ensemble): found {sorted(model_paths)}; "
-                "disable ensemble_settings or keep one checkpoint"
-            )
-        name, path = sorted(model_paths.items())[0]
         ts = self.inf.get("tile_settings", {})
         self.mask_threshold = float(self.inf.get("mask_threshold", 0.5))
         self.measurement_window = int(self.inf.get("measurement_window", 192))
@@ -156,9 +146,20 @@ class InferencePipeline:
         cap = int(ts.get("instance_capacity", 0) or 0)
         if cap > 0:
             engine_kw["capacity"] = cap
-        model = load_model(path, self.num_classes, self.use_bf16, device=self.device)
-        self.engine = TileEngine(model, device=self.device, **engine_kw)
-        log.info("Loaded %s from %s", name, path)
+        # one engine per checkpoint, in name order: R101 before R50, and the
+        # first is the primary model (size heuristic, multiscale, large classes)
+        weights = weights_from_config(self.inf)
+        self.engines: List[Tuple[str, TileEngine, float]] = []
+        for name, path in sorted(model_paths.items()):
+            model = load_model(path, self.num_classes, self.use_bf16, device=self.device)
+            self.engines.append((name, TileEngine(model, device=self.device, **engine_kw), weights.get(name, 1.0)))
+            log.info("Loaded %s from %s", name, path)
+        self.engine = self.engines[0][1]
+        es = self.inf.get("ensemble_settings", {})
+        self.use_ensemble = bool(es.get("enabled", True)) and len(self.engines) > 1
+        self.ensemble_small_only = bool(es.get("small_classes_only", True))
+        # names of the members that ran on the last image
+        self.members_ran: List[str] = [self.engines[0][0]]
 
         # class-conditional upscale: tiles run at native resolution when the
         # size heuristic, on a sample with detections, finds no class below
@@ -201,7 +202,9 @@ class InferencePipeline:
         if self._heuristics_done:
             return
         self._heuristics_done = True
-        needed_for_settings = self.num_classes >= 2 and self.postproc_enabled
+        needed_for_settings = self.num_classes >= 2 and (
+            self.postproc_enabled or (self.use_ensemble and self.ensemble_small_only)
+        )
         needed_for_upscale = self.class_conditional_upscale and self.configured_upscale > 1
         if not (needed_for_settings or needed_for_upscale) or not images:
             return
@@ -237,7 +240,13 @@ class InferencePipeline:
             # one pass down to the floor threshold; the ladder picks the cut
             settings = settings._replace(confidence=torch.clamp(settings.confidence, max=floor))
         with timers.time("engine"):
-            if self.use_multiscale:
+            if self.use_ensemble:
+                inst, quality, self.members_ran = run_ensemble(
+                    self.engines, image, settings, hw, dedup_iou=0.4,
+                    secondary_class_filter=self.small_classes if self.ensemble_small_only else None,
+                    upscale=upscale,
+                )
+            elif self.use_multiscale:
                 from deepemia_tpu_torch.inference.multiscale import run_multiscale_inference
 
                 inst, quality = run_multiscale_inference(
@@ -368,6 +377,8 @@ class InferencePipeline:
         rle_csv = self.output_dir / "R50_flip_results.csv"
         measure_contrast = self.config.get("measure_contrast_distribution", False)
         processed, failed, seconds = [], [], []
+        scale_bars: Dict[str, Tuple[str, float]] = {}
+        members: Dict[str, List[str]] = {}
 
         # bounded prefetch: a few decoded images (and their uploads) ahead
         pool = ThreadPoolExecutor(max_workers=self.max_workers) if self.parallel_loading else None
@@ -399,8 +410,10 @@ class InferencePipeline:
                                 img, img_dev = _load_image(os.path.join(image_folder, name), self.device)
                         hw = (img.shape[0], img.shape[1])
                         with timers.time("scalebar"):
-                            psum, um_pix = self.scale_bar(img)
+                            psum, um_pix, _ = detect_scale_bar(img, self.config, self.dataset_name, return_debug=True)
+                        scale_bars[name] = (psum, um_pix)
                         inst, quality = self._infer_one(img_dev, timers)
+                        members[name] = list(self.members_ran)
                         with timers.time("rle"):
                             # one packed copy of the two columns the host reads
                             vc = torch.stack([inst.valid.to(torch.int32), inst.classes.to(torch.int32)]).cpu().numpy()
@@ -450,22 +463,24 @@ class InferencePipeline:
             "failed": failed,
             "seconds_per_image": seconds,
             "stages": timers.summary(),
+            "scale_bars": scale_bars,
+            "members": members,
         }
 
 
 def run_inference(
     dataset_name: str,
     split_dir: str,
-    scale_bar: ScaleBar,
     image_folder: Optional[str] = None,
     output_dir: Optional[str] = None,
     config: Optional[dict] = None,
     device=None,
 ) -> Dict[str, object]:
-    """Module-level entry point: ``image_folder`` defaults to
+    """Module-level entry point: the config defaults to
+    ``get_config(dataset_name)`` and ``image_folder`` to
     ``<local_dataset_root>/DATASET/INFERENCE``."""
-    cfg = config or default_config()
-    pipeline = InferencePipeline(dataset_name, split_dir, output_dir, cfg, scale_bar=scale_bar, device=device)
+    cfg = config or get_config(dataset_name)
+    pipeline = InferencePipeline(dataset_name, split_dir, output_dir, cfg, device=device)
     folder = image_folder or os.path.join(
         os.path.expanduser(cfg["paths"].get("local_dataset_root", "~")), "DATASET", "INFERENCE"
     )

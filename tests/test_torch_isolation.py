@@ -55,6 +55,8 @@ def test_port_sources_import_no_jax():
         "inference/pipeline.py", "inference/multiscale.py", "inference/postprocess.py",
         "inference/constraints.py", "inference/measure_host.py", "ops/rle.py", "data/models.py",
         "native/__init__.py", "kernels/window_sum.py", "tools/bench_decouple.py",
+        "config/config.py", "config/schema.py", "utils/exceptions.py", "ops/cv.py",
+        "inference/scalebar.py", "inference/ensemble.py",
     } <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -73,12 +75,24 @@ def test_import_leaves_jax_unloaded():
         "deepemia_tpu_torch.kernels.roi_align, deepemia_tpu_torch.train.trainer, "
         "deepemia_tpu_torch.inference.pipeline, deepemia_tpu_torch.inference.multiscale, "
         "deepemia_tpu_torch.kernels.window_sum, deepemia_tpu_torch.tools.bench_decouple, "
-        "deepemia_tpu_torch.native, deepemia_tpu_torch.data.models; "
+        "deepemia_tpu_torch.native, deepemia_tpu_torch.data.models, deepemia_tpu_torch.config.config, "
+        "deepemia_tpu_torch.inference.scalebar, deepemia_tpu_torch.inference.ensemble, deepemia_tpu_torch.ops.cv; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'deepemia_tpu', 'cv2', 'PIL')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_yaml_is_imported_only_inside_functions():
+    """PyYAML may be absent where the port runs: no module imports it at
+    load time (tests/test_torch_config.py imports the package without it)."""
+    for f in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in names if m.split(".")[0] == "yaml"], f
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
@@ -101,7 +115,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train([], 2, str(tmp_path), max_steps_override=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        InferencePipeline("ds", str(tmp_path), str(tmp_path / "out"), scale_bar=lambda img: ("0", 1.0))
+        InferencePipeline("ds", str(tmp_path), str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_decouple.main()
     res = bench_decouple.main(device="cpu", size=16, channels=8, dtype=torch.float32, warmup=0, reps=1, steps=1)
