@@ -86,6 +86,26 @@ It builds the CUDA kernels from the sources in the checkout and then:
      seconds per 16-tile batch of 1024² inputs, and the merged instance
      counts. ``python3 -c "import chip_smoke; chip_smoke.ensemble_only()"``
      runs phases 1 and 11 alone;
+ 12. ``--task inference`` as users start it: the port's CLI
+     (``python -m deepemia_tpu_torch.cli.main --task inference --visualize
+     --id --draw-scalebar --no-download --no-upload``, run by ``runpy`` in a
+     subprocess that reports its stage seconds and RoIAlign counts) on a
+     framework home with the phase-3 checkpoint, the default config.yaml,
+     phase 9's dataset YAML and phase 9's three micrographs written as LZW,
+     Deflate (predictor 2) and PackBits TIFF by this script's own encoders
+     (64-row strips); checks that every image was processed, every bar read,
+     that each ``*_predictions.png`` and ``class_legend.png`` decode (by the
+     port's ``read_image``) to their shapes, and that every multilevel
+     RoIAlign with RoIs launched K1; prints each encoding's decode seconds
+     and the steady image's stage seconds (``mask_export``, ``rle``,
+     ``measurements``, ``overlay``, ``png``). Then, in process: the same
+     images with ``measurement_backend: device`` (and the contrast), the
+     last image's instances measured on the card and on the CPU (counts,
+     extents, perimeters and contrast equal, moments to 1e-5 relative), and
+     one 256² image through that pipeline on the card and on the CPU,
+     compared as phase 9's reference is; then one 4096² micrograph without
+     overlays, whose RLE rows (the windowed device encoder) must equal the
+     full-image encoder's on the same instances;
  10. holds the windowed-sum kernel (K3) against its plain version on the
      conv-chain output of its micro-benchmark and on edge cases
      (``window_sum_edge_cases``: the map exactly the window, C in {1, 3,
@@ -100,8 +120,8 @@ It builds the CUDA kernels from the sources in the checkout and then:
      reset before and read after.
 
 Phase 7 runs before phase 6, whose inputs come from a training step, and
-phase 11 before phase 10. K1's ``launches`` in the kernel line is the sum
-of phases 3, 9 and 11, each counted from zero over its own run.
+phases 11 and 12 before phase 10. K1's ``launches`` in the kernel line is
+the sum of phases 3, 9, 11 and 12, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -993,20 +1013,124 @@ def phase_train_profile(batch):
           flush=True)
 
 
-def write_tiff(path: str, gray: np.ndarray) -> None:
-    """A baseline uncompressed 8-bit gray TIFF: header, one strip, IFD."""
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW: MSB-first codes of 9..12 bits that widen one code early, a
+    Clear code first and when the table fills, EOI last."""
+    out = bytearray()
+    acc = nacc = 0
+    width, nxt = 9, 258
+    table = {bytes((i,)): i for i in range(256)}
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 255)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    w = b""
+    for byte in data:
+        wc = w + bytes((byte,))
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4095:
+            put(256)
+            table = {bytes((i,)): i for i in range(256)}
+            width, nxt = 9, 258
+        elif nxt >= (1 << width):
+            width += 1
+        w = bytes((byte,))
+    if w:
+        put(table[w])
+        if nxt + 1 >= (1 << width) and width < 12:
+            width += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeat packets, the rest
+    as literal packets of at most 128 bytes."""
+    a = np.frombuffer(data, np.uint8)
+    n = a.size
+    change = np.flatnonzero(np.diff(a) != 0) + 1
+    starts = np.concatenate([[0], change])
+    lengths = np.diff(np.concatenate([starts, [n]]))
+    out = bytearray()
+    lit = 0  # start of the pending literal span
+
+    def literals(lo, hi):
+        for k in range(lo, hi, 128):
+            chunk = data[k : min(k + 128, hi)]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+
+    for st, ln in zip(starts[lengths >= 3].tolist(), lengths[lengths >= 3].tolist()):
+        literals(lit, st)
+        for k in range(st, st + ln, 128):
+            m = min(128, st + ln - k)
+            if m >= 2:
+                out.extend((257 - m, a[k]))
+            else:
+                literals(k, k + 1)
+        lit = st + ln
+    literals(lit, n)
+    return bytes(out)
+
+
+# the encodings phase 12 writes its micrographs in: (name, TIFF compression, predictor)
+CLI_ENCODINGS = (("LZW", 5, 1), ("Deflate, predictor 2", 8, 2), ("PackBits", 32773, 1))
+
+
+def write_tiff(path: str, gray: np.ndarray, compression: int = 1, predictor: int = 1, rows_per_strip=None) -> None:
+    """An 8-bit gray TIFF: header, strips of ``rows_per_strip`` rows (one
+    strip by default) in ``compression`` (1 none, 5 LZW, 8 Deflate, 32773
+    PackBits) with ``predictor`` (2: horizontal differencing), the IFD and
+    the strip tables after it."""
     import struct
+    import zlib
 
     h, w = gray.shape
-    data = np.ascontiguousarray(gray, np.uint8).tobytes()
-    tags = [(256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1), (262, 3, 1), (273, 4, 8),
-            (277, 3, 1), (278, 4, h), (279, 4, len(data))]
-    ifd = struct.pack("<H", len(tags)) + b"".join(
-        struct.pack("<HHI", t, typ, 1) + (struct.pack("<HH", v, 0) if typ == 3 else struct.pack("<I", v))
-        for t, typ, v in tags
-    ) + struct.pack("<I", 0)
+    rps = rows_per_strip or h
+    g = np.ascontiguousarray(gray, np.uint8)
+    encode = {1: bytes, 5: lzw_encode, 8: zlib.compress, 32773: packbits_encode}[compression]
+    strips = []
+    for y in range(0, h, rps):
+        s = g[y : y + rps]
+        if predictor == 2:
+            s = np.concatenate([s[:, :1], np.diff(s, axis=1)], axis=1)  # uint8 wraps modulo 256
+        strips.append(encode(s.tobytes()))
+    body, offsets = bytearray(), []
+    for b in strips:
+        offsets.append(8 + len(body))
+        body += b + b"\0" * (len(b) & 1)
+    ifd_at = 8 + len(body)
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8]), (259, 3, [compression]), (262, 3, [1]),
+            (273, 4, offsets), (277, 3, [1]), (278, 4, [rps]), (279, 4, [len(b) for b in strips])]
+    if predictor != 1:
+        tags.append((317, 3, [predictor]))
+    tail_at = ifd_at + 2 + 12 * len(tags) + 4
+    ifd, tail = bytearray(struct.pack("<H", len(tags))), bytearray()
+    for tag, typ, vals in tags:
+        fmt = "H" if typ == 3 else "I"
+        payload = struct.pack(f"<{len(vals)}{fmt}", *vals)
+        if len(payload) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + payload.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals), tail_at + len(tail))
+            tail += payload
+    ifd += struct.pack("<I", 0)
     with open(path, "wb") as f:
-        f.write(b"II*\x00" + struct.pack("<I", 8 + len(data)) + data + ifd)
+        f.write(b"II*\x00" + struct.pack("<I", ifd_at) + bytes(body) + bytes(ifd) + bytes(tail))
 
 
 def draw_scale_bar(gray: np.ndarray, label: str, dark_on_bright: bool) -> np.ndarray:
@@ -1231,7 +1355,7 @@ def phase_pipeline(model, images):
             heads_mod.roi_align_dispatch = dispatch
             counter.launches = 0
             if cfg is None:
-                res = run_inference("smoke", split_dir, image_folder=folder, output_dir=out)
+                res = run_inference("smoke", split_dir, image_folder=folder, output_dir=out, visualize=False)
             else:
                 pipe = InferencePipeline("smoke", split_dir, out, cfg)
                 pipe._infer_one = wrap(pipe._infer_one)
@@ -1452,14 +1576,15 @@ def best_match_share(score):
     return float((score.max(axis=1) >= 1).mean()), float((score.max(axis=0) >= 1).mean())
 
 
-def pipeline_csvs(model, img, name, device):
+def pipeline_csvs(model, img, name, device, backend="host"):
     """Both CSVs' rows (headers dropped) of one image through the pipeline
-    in float32."""
+    in float32, measured by ``backend``."""
     from deepemia_tpu_torch.inference.pipeline import InferencePipeline
 
     cfg, split_dir, folder, out = pipeline_home(name, model, [img])
+    cfg["performance"]["measurement_backend"] = backend
     pipe = InferencePipeline("smoke", split_dir, out, cfg, use_bf16=False, device=device)
-    res = pipe.run(folder)
+    res = pipe.run(folder, visualize=False)
     assert not res["failed"], res
     return read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:]
 
@@ -1517,6 +1642,295 @@ def phase_pipeline_reference(model):
     print(f"pipeline reference 256² f32, card with RoIAlign boxes moved by {PIPE_FAULT_PX} px: " + json.dumps(f),
           flush=True)
     assert f["inst"] < PIPE_MATCH_SHARE or f["rows"] < PIPE_ROW_SHARE, "the limits pass a planted RoIAlign fault"
+
+
+class CountedRoIAlign:
+    """Within the block, count the multilevel RoIAlign calls with RoIs
+    (``.with_rois``) and the K1 launches (``.launches``, from zero)."""
+
+    def __enter__(self):
+        import deepemia_tpu_torch.models.heads as heads_mod
+        from deepemia_tpu_torch.kernels.roi_align import counter
+
+        self.heads, self.counter, self.real = heads_mod, counter, heads_mod.roi_align_dispatch
+        self.with_rois, self.launches = 0, 0
+
+        def dispatch(features, boxes, **kw):
+            self.with_rois += int(boxes.shape[0] > 0)
+            return self.real(features, boxes, **kw)
+
+        heads_mod.roi_align_dispatch = dispatch
+        counter.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self.counter.launches
+        self.heads.roi_align_dispatch = self.real
+
+
+def cli_child(out_json: str, *argv: str) -> int:
+    """Run ``python -m deepemia_tpu_torch.cli.main *argv`` in this process
+    (``runpy``, as ``-m`` runs it) and write to ``out_json`` its exit code,
+    the pipeline's result, its steady stage seconds and the RoIAlign counts."""
+    import runpy
+
+    import deepemia_tpu_torch.inference.pipeline as pipeline_mod
+
+    results = []
+    real_run = pipeline_mod.InferencePipeline.run
+
+    def run(self, *a, **kw):
+        results.append(real_run(self, *a, **kw))
+        return results[-1]
+
+    pipeline_mod.InferencePipeline.run = run
+    sys.argv = ["deepemia_tpu_torch.cli.main", *argv]
+    rc = 0
+    with StageLog() as stage_log, CountedRoIAlign() as roi:
+        try:
+            runpy.run_module("deepemia_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            rc = e.code
+    with open(out_json, "w") as f:
+        json.dump({"rc": rc, "result": results[0] if results else None, "steady": stage_log.steady(),
+                   "with_rois": roi.with_rois, "launches": roi.launches}, f)
+    return 0
+
+
+def cli_home(model, images, config_hook=None):
+    """A framework home under PIPELINE_DIR/cli for the CLI: config.yaml
+    (the defaults, through ``config_hook`` when given) and the dataset YAML
+    of phase 9, dataset_info.json, the model as ``model_final_r50.pt``, and
+    DATASET/INFERENCE with ``images`` (their scale bars drawn) as TIFFs in
+    the CLI_ENCODINGS, strips of 64 rows. -> (home, image folder)."""
+    import yaml
+
+    from deepemia_tpu_torch.config.config import default_config
+
+    home = os.path.join(PIPELINE_DIR, "cli")
+    cfg, split_dir, _, _ = pipeline_home("cli", model, [])
+    if config_hook:
+        config_hook(cfg)
+    os.makedirs(os.path.join(home, "config", "datasets"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    with open(os.path.join(home, "config", "datasets", "smoke.yaml"), "w") as f:
+        yaml.safe_dump({"scale_bar_roi": SMOKE_ROI, "inference_overrides": SMOKE_OVERRIDE}, f)
+    folder = os.path.join(home, "DATASET", "INFERENCE")
+    os.makedirs(folder)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"smoke": [folder, folder, ["particle", "pore"]]}, f)
+    assert default_config(home)["paths"]["local_dataset_root"] == home
+    for i, img in enumerate(images):
+        gray = draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2])
+        _, comp, pred = CLI_ENCODINGS[i]
+        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), gray, comp, pred, rows_per_strip=64)
+    return home, folder
+
+
+def phase_cli(model, images, device="cuda", config_hook=None):
+    """Phase 12: the port's CLI in a subprocess, ``--task inference
+    --visualize --id --draw-scalebar --no-download --no-upload``, on the
+    three micrographs of phase 9 written as LZW, Deflate (predictor 2) and
+    PackBits TIFF; every image processed, every bar read, one overlay per
+    image and the legend, every multilevel RoIAlign with RoIs launching K1.
+    -> the K1 launches of the run."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    home, folder = cli_home(model, images, config_hook)
+    names = sorted(os.listdir(folder))
+    for (enc, _, _), name in zip(CLI_ENCODINGS, names):
+        path = os.path.join(folder, name)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = read_image(path)
+            secs.append(time.perf_counter() - t0)
+        np.testing.assert_array_equal(img[..., 0], draw_scale_bar(images[names.index(name)][..., 0],
+                                                                  BARS[names.index(name)][0], BARS[names.index(name)][2]))
+        print(f"cli: decode {enc} TIFF {img.shape[0]}x{img.shape[1]} ({os.path.getsize(path)} bytes, 64-row strips): "
+              f"{float(np.median(secs)):.4f} s (median of 3, host)", flush=True)
+    out_json = os.path.join(home, "child.json")
+    argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--id", "--draw-scalebar",
+            "--no-download", "--no-upload", "--device", device]
+    env = {**os.environ, "DEEPEMIA_TPU_HOME": home}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.cli_child({out_json!r}, *{argv!r}))"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_json):
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
+        raise AssertionError(f"the CLI's process exited {proc.returncode}")
+    with open(out_json) as f:
+        child = json.load(f)
+    res = child["result"]
+    assert child["rc"] == 0, (child["rc"], proc.stderr[-4000:])
+    assert res["processed"] == names and not res["failed"], res
+    meas = read_csv(res["measurements_csv"])
+    rle = read_csv(res["rle_csv"])[1:]
+    check_scale_bars(res, meas, names)
+    out = res["output_dir"]
+    for name in names:
+        ov = read_image(os.path.join(out, f"{name}_predictions.png"))
+        assert ov.shape == images[0].shape, (name, ov.shape)
+        assert any(r[0] == name for r in rle), name
+    legend = read_image(os.path.join(out, "class_legend.png"))
+    assert legend.shape == (60, 260, 3), legend.shape
+    print(f"cli: {len(names)} images processed ({', '.join(e for e, _, _ in CLI_ENCODINGS)} TIFF), rle_rows={len(rle)} "
+          f"measurement_rows={len(meas) - 1}, {len(names)} overlays {ov.shape[0]}x{ov.shape[1]} and class_legend.png "
+          f"read back; the CLI process took {wall:.1f} s", flush=True)
+    print(f"cli: multilevel_roi_align calls with RoIs {child['with_rois']}, roi_align_fwd launches={child['launches']}",
+          flush=True)
+    preflight = [ln for ln in proc.stderr.splitlines() if "CUDA device:" in ln or "on the CPU, as asked" in ln]
+    assert preflight, "the CLI logged no device preflight"
+    print(f"cli: preflight {preflight[0].split(': ', 1)[-1]}", flush=True)
+    try:
+        import psutil  # noqa: F401
+
+        has_psutil = True
+    except ImportError:
+        has_psutil = False
+    from deepemia_tpu_torch.utils.logging_utils import log_memory_usage
+
+    print(f"cli: psutil importable={has_psutil}; this process's memory (MB) {json.dumps(log_memory_usage('smoke'))}",
+          flush=True)
+    if device == "cuda":
+        assert child["launches"] > 0 and child["launches"] == child["with_rois"], \
+            "a multilevel RoIAlign of the CLI's run did not launch K1"
+    secs = res["seconds_per_image"]
+    print(f"cli: seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]} "
+          f"({images[0].shape[0]}x{images[0].shape[1]}, bf16, visualize, default config)", flush=True)
+    print("cli stage seconds: " + json.dumps(
+        {k: {"total_s": round(v["total_s"], 6), "count": v["count"]} for k, v in res["stages"].items()}), flush=True)
+    print(f"cli: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
+    return child["launches"]
+
+
+def phase_device_measurements(model, images, device="cuda", config_hook=None):
+    """Phase 12, in process: ``measurement_backend: device`` on phase 12's
+    images (every RoIAlign with RoIs launching K1); the device measurements
+    of the last image's instances on the card against the CPU (counts,
+    extents, perimeters and contrast equal, moments to 1e-5 relative); and
+    one 256² image through the pipeline with the device backend on the card
+    and on the CPU, compared as phase 9's reference is. -> K1 launches."""
+    from deepemia_tpu_torch.config.schema import validate_config
+    from deepemia_tpu_torch.inference import measure as measure_lib
+    from deepemia_tpu_torch.inference.detections import InstanceSet
+    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+    from deepemia_tpu_torch.ops.image import read_image
+
+    home = os.path.join(PIPELINE_DIR, "cli")
+    folder = os.path.join(home, "DATASET", "INFERENCE")
+    cfg, split_dir, _, out = pipeline_home("device", model, [])
+    if config_hook:
+        config_hook(cfg)
+    cfg["performance"]["measurement_backend"] = "device"
+    cfg["measure_contrast_distribution"] = True
+    pipe = InferencePipeline("smoke", split_dir, out, validate_config(cfg), device=device)
+    last = {}
+    real_infer = pipe._infer_one
+
+    def infer(image, timers):
+        last["inst"], q = real_infer(image, timers)
+        return last["inst"], q
+
+    pipe._infer_one = infer
+    with StageLog() as stage_log, CountedRoIAlign() as roi:
+        res = pipe.run(folder, visualize=False)
+    names = sorted(os.listdir(folder))
+    assert res["processed"] == names and not res["failed"], res
+    m = res["stages"]["measurements"]
+    print(f"device measurements: {len(names)} images, measurements stage {m['total_s'] / m['count']:.4f} s per image "
+          f"(steady stages {json.dumps(stage_log.steady())}); multilevel_roi_align calls with RoIs {roi.with_rois}, "
+          f"roi_align_fwd launches={roi.launches}", flush=True)
+    if device == "cuda":
+        assert roi.launches > 0 and roi.launches == roi.with_rois, "a RoIAlign with RoIs did not launch K1"
+    inst = last["inst"]
+    img = torch.from_numpy(read_image(os.path.join(folder, names[-1])))
+    _, secs = sync_time(lambda: measure_lib.measure_instances_device(inst, img.to(device), measure_contrast=True))
+    got = measure_lib.measure_instances_device(inst, img.to(device), measure_contrast=True)
+    cpu_inst = InstanceSet(*(t.cpu() for t in inst)) if device == "cuda" else inst
+    ref = measure_lib.measure_instances_device(cpu_inst, img, measure_contrast=True)
+    exact = ("area", "pixel_count", "perimeter", "rect_w", "rect_h", "contrast_d10", "contrast_d50", "contrast_d90",
+             "valid")
+    worst = 0.0
+    for k, v in ref.items():
+        g = got[k].cpu()
+        if k in exact:
+            assert torch.equal(g, v), (k, int((g != v).sum()))
+        else:
+            rel = float(((g - v).abs() / v.abs().clamp(min=1e-6)).max()) if v.numel() else 0.0
+            worst = max(worst, rel)
+            assert rel <= 1e-5, (k, rel)
+    n = int(inst.valid.sum())
+    print(f"device measurements card vs CPU on {n} instances of {names[-1]}: counts, extents, perimeters and "
+          f"contrast equal; moments max relative difference {worst:.3g} (limit 1e-5); "
+          f"measure_instances_device {secs:.4f} s on the card", flush=True)
+    if device == "cuda":
+        img256 = synthetic_micrograph(256, seed=7)
+        rle_c, meas_c = pipeline_csvs(model, img256, "dev_cpu", "cpu", backend="device")
+        rle_g, meas_g = pipeline_csvs(model, img256, "dev_cuda", "cuda", backend="device")
+        a = csv_agreement(rle_g, meas_g, rle_c, meas_c, (256, 256))
+        print("device measurements 256² f32 card vs CPU: " + json.dumps(a), flush=True)
+        assert min(a["n_card"], a["n_cpu"], a["rows_card"], a["rows_cpu"]) > 0
+        assert a["inst"] >= PIPE_MATCH_SHARE and a["rows"] >= PIPE_ROW_SHARE, a
+    return roi.launches
+
+
+def phase_windowed_rle(model, size=4096, device="cuda", config_hook=None):
+    """Phase 12: one size² micrograph through the pipeline without
+    overlays, so the RLE takes the windowed device encoder (above 2048²);
+    its rows must equal the full-image encoder's on the same instances.
+    -> K1 launches."""
+    from deepemia_tpu_torch.config.schema import validate_config
+    from deepemia_tpu_torch.inference.pipeline import PASTE_BUDGET, InferencePipeline
+    from deepemia_tpu_torch.ops.masks import paste_masks
+    from deepemia_tpu_torch.ops.rle import rle_encode_batch
+
+    img = synthetic_micrograph(size, seed=11)
+    cfg, split_dir, folder, out = pipeline_home("windowed", model, [img])
+    if config_hook:
+        config_hook(cfg)
+    pipe = InferencePipeline("smoke", split_dir, out, validate_config(cfg), device=device)
+    kept = {}
+    real_infer = pipe._infer_one
+
+    def infer(image, timers):
+        kept["inst"], q = real_infer(image, timers)
+        return kept["inst"], q
+
+    pipe._infer_one = infer
+    with StageLog() as stage_log, CountedRoIAlign() as roi:
+        res = pipe.run(folder, visualize=False)
+    assert not res["failed"], res
+    if device == "cuda":
+        assert roi.launches > 0 and roi.launches == roi.with_rois, "a RoIAlign with RoIs did not launch K1"
+    inst, hw, name = kept["inst"], (size, size), res["processed"][0]
+    assert hw[0] * hw[1] > 2048 * 2048, "the windowed encoder runs above 2048² only"
+    rows = read_csv(res["rle_csv"])[1:]
+    with torch.inference_mode():
+        max_runs = min(hw[0] * hw[1] // 2 + 1, 4 * max(hw))
+        chunk = max(1, PASTE_BUDGET // (hw[0] * hw[1]))
+        parts = []
+        for s0 in range(0, inst.capacity, chunk):
+            m = paste_masks(inst.mask_probs[s0 : s0 + chunk], inst.boxes[s0 : s0 + chunk], hw[0], hw[1],
+                            pipe.mask_threshold) & inst.valid[s0 : s0 + chunk, None, None]
+            parts.append(rle_encode_batch(m, max_runs=max_runs))
+        starts, lengths, n_runs = (torch.cat(t) for t in zip(*parts))
+        packed = torch.cat([starts, lengths, n_runs[:, None]], dim=1).cpu().numpy()
+        valid = inst.valid.cpu().numpy()
+        full = pipe._rle_rows(name, inst, [i for i in range(len(valid)) if valid[i]], hw, packed, max_runs)
+    assert len(rows) == len(full) > 0 and [list(r) for r in full] == rows, \
+        "the windowed RLE differs from the full-image encoder's"
+    secs = res["seconds_per_image"]
+    print(f"windowed rle: {size}x{size}, {len(rows)} instances, rows equal to the full-image encoder's; "
+          f"seconds {secs[0]:.4f} (one image, bf16, default config, no overlays); multilevel_roi_align calls with "
+          f"RoIs {roi.with_rois}, roi_align_fwd launches={roi.launches}", flush=True)
+    print(f"windowed rle: stage seconds {json.dumps({k: round(v['total_s'], 4) for k, v in res['stages'].items()})}",
+          flush=True)
+    return roi.launches
 
 
 def check_window_sum(tag, f, got, expect_instance=None):
@@ -1629,7 +2043,13 @@ def window_sum_times(timed):
             print(f"window_sum {name} {k:8s}: per-call ms median {row[f'{k}_ms']:.6f} {ms[k]} "
                   f"host ms median {row[f'{k}_host_ms']:.6f} {host[k]}", flush=True)
 
-    _, flush_kinds = device_ms(lambda: None, 20)
+    # the L2-evicting write's own device events, over as many calls as the
+    # timed runs (a short profile has come back without them)
+    flush_kinds = {}
+    for _ in range(2):
+        flush_kinds.update(device_ms(lambda: None, 200)[1])
+    print(f"window_sum: the L2-evicting write's device events {list(flush_kinds)}", flush=True)
+    assert flush_kinds, "the profiler recorded no device event of the L2-evicting write"
     skip = frozenset(flush_kinds)
     for dtype, fns in timed.items():
         dev, kinds = {k: [] for k in fns}, {}
@@ -1773,6 +2193,10 @@ def main() -> int:
         phase_pipeline_reference(model)
         with torch.inference_mode():
             ensemble_launches, ensemble_errs = phase_ensemble(model, images)
+        cli_launches = phase_cli(model, images)
+        with torch.inference_mode():
+            cli_launches += phase_device_measurements(model, images)
+            cli_launches += phase_windowed_rle(model)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
     k3_rows, k3_launches = phase_window_sum()
@@ -1783,8 +2207,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_fwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:351",
-        # phases 3 (tile engine), 9 (pipeline) and 11 (ensemble), each counted from zero
-        "launches": launches + pipeline_launches + ensemble_launches,
+        # phases 3 (tile engine), 9 (pipeline), 11 (ensemble) and 12 (the CLI's process, the device
+        # measurement backend and the 4096² image), each counted from zero
+        "launches": launches + pipeline_launches + ensemble_launches + cli_launches,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -1840,7 +2265,7 @@ def main() -> int:
         "library_host_ms_f32": k3_f32["library_host_ms"],
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
-          f"ensemble {ensemble_launches}", flush=True)
+          f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}", flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window]}), flush=True)
     print(card, flush=True)

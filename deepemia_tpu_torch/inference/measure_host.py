@@ -45,18 +45,24 @@ def measure_mask_host(
     mask: np.ndarray,
     gray: Optional[np.ndarray] = None,
     measure_contrast: bool = False,
+    origin=(0, 0),
 ) -> List[Dict[str, float]]:
     """Measurements for every external contour of one binary mask.
 
     Returns a list (one dict per connected component) of raw pixel-space
     quantities: area, perimeter, rect dims, ellipse axes/eccentricity,
-    contrast percentiles.
+    contrast percentiles. ``mask`` (and ``gray``) may be a crop whose
+    top-left pixel is ``origin`` (x, y) in an image that is false outside
+    it: the contour points are moved there before they are measured, so
+    the results equal the whole image's bit for bit.
     """
     out: List[Dict[str, float]] = []
     labels, n = ndi.label(mask, structure=np.ones((3, 3)))
     for comp in range(1, n + 1):
         m = labels == comp
         pts = native.trace_outer_contour(m)
+        if origin[0] or origin[1]:
+            pts = pts + np.asarray(origin, np.float64)
         if len(pts) < 2:
             continue
         area, perim = native.polygon_area_perimeter(pts)
@@ -149,10 +155,12 @@ def measurement_rows_host(
     image_area: float,
     gray: Optional[np.ndarray] = None,
     measure_contrast: bool = False,
+    origins: Optional[np.ndarray] = None,
 ) -> List[List]:
     """CSV rows from full-resolution host masks: the per-contour adaptive
     gate min_area = max(5, image_area·5e-6·0.05), one row per surviving
-    contour, instance numbers counting the valid masks."""
+    contour, instance numbers counting the valid masks. With ``origins``
+    [K,2] (x, y), ``masks`` are crops placed there (false outside them)."""
     rows: List[List] = []
     min_area = max(5.0, image_area * 0.000005 * 0.05)
     instance_id = 0
@@ -160,7 +168,12 @@ def measurement_rows_host(
         if not valid[i]:
             continue
         instance_id += 1
-        for meas in measure_mask_host(masks[i], gray, measure_contrast):
+        g, origin = gray, (0, 0)
+        if origins is not None:
+            origin = (int(origins[i][0]), int(origins[i][1]))
+            h, w = masks[i].shape
+            g = None if gray is None else gray[origin[1] : origin[1] + h, origin[0] : origin[0] + w]
+        for meas in measure_mask_host(masks[i], g, measure_contrast, origin):
             if meas["area"] < min_area:
                 continue
             rows.append(

@@ -1,23 +1,31 @@
 """End-to-end inference pipeline: a folder of micrographs -> the
-measurements CSV and the RLE CSV.
+measurements CSV, the RLE CSV and (with ``visualize``) the overlays.
 
 Per image: decode (prefetched by a thread pool, with the upload to the
 card started there), the scale bar read on the host, then on the device
 the ensemble of every trained checkpoint (R101 before R50, one after the
 other), or else the multiscale (or single-scale) tile engine of the one
 checkpoint, morphology postprocess, cross-class dedup,
-spatial constraints and compaction to a power-of-2 bucket; the run-length
-encoding of every instance on the device, read back in one packed copy;
-per-instance mask windows read back for the exact native measurements on
-the host; rows streamed to ``measurements_results.csv``, RLE rows to
+spatial constraints and compaction to a power-of-2 bucket. Then, with
+``visualize`` (the default, as in the JAX package): every instance's
+full-resolution mask pasted and bit-packed on the device, read back in one
+copy a chunk and unpacked within its bounding box, RLE rows and exact
+native measurements from those masks (equal to the whole image's), and
+``<name>_predictions.png`` (with instance IDs and the scale-bar debug
+drawing on request) and ``class_legend.png``; without it: the run-length
+encoding of every instance on the device, read back in one packed copy,
+and per-instance mask windows for the native measurements. With
+``measurement_backend: device`` the measurements are
+``measure.measure_instances_device`` on the device, read back in one packed
+copy. Rows stream to ``measurements_results.csv``, RLE rows to
 ``R50_flip_results.csv`` (the reference's file name for any model). A
-failing image is logged and listed in ``failed``; the others go on.
+failing image is logged and listed in ``failed``; the others go on. With
+an ``eta_file`` the run's seconds per image update its running average.
 
 The configuration is the dataset's (``get_config(dataset_name)``: the
 user's ``config.yaml`` with the dataset YAML merged) unless the caller
-passes one. Not ported yet, and raising ``NotImplementedError``: overlays
-(``visualize=True``), int8 serving (``quantized_inference``) and the
-device measurement backend.
+passes one. Not ported yet, and raising ``NotImplementedError``: int8
+serving (``quantized_inference`` other than ``none``).
 """
 
 from __future__ import annotations
@@ -46,13 +54,21 @@ from deepemia_tpu_torch.inference.detections import (
     slice_instances,
 )
 from deepemia_tpu_torch.inference.engine import TileEngine, class_settings_from_config, cross_class_dedup
+from deepemia_tpu_torch.inference import viz
 from deepemia_tpu_torch.inference.ensemble import run_ensemble, weights_from_config
-from deepemia_tpu_torch.inference.measure_host import measurement_rows_host_windows
+from deepemia_tpu_torch.inference.measure_host import measurement_rows_host, measurement_rows_host_windows
 from deepemia_tpu_torch.inference.postprocess import morphology_postprocess, window_geometry
 from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
 from deepemia_tpu_torch.ops.image import read_image, to_grayscale
 from deepemia_tpu_torch.ops.masks import paste_masks
-from deepemia_tpu_torch.ops.rle import rle_encode, rle_encode_batch, rle_encode_windowed, rle_to_string
+from deepemia_tpu_torch.ops.rle import (
+    rle_encode,
+    rle_encode_batch,
+    rle_encode_crop,
+    rle_encode_windowed,
+    rle_to_string,
+)
+from deepemia_tpu_torch.utils.eta import update_eta_data
 from deepemia_tpu_torch.utils.profiling import StageTimers
 
 log = logging.getLogger("deepemia_tpu_torch.pipeline")
@@ -108,12 +124,8 @@ class InferencePipeline:
         self.parallel_loading = bool(perf.get("enable_parallel_image_loading", True))
         self.inference_batch = int(perf.get("inference_batch_size", 1))
         self.stream_measurements = bool(perf.get("stream_measurements_to_csv", True))
-        backend = perf.get("measurement_backend", "host")
-        if backend != "host":
-            raise NotImplementedError(
-                f"measurement_backend {backend!r} is not ported yet (ROADMAP: the device "
-                "measurement backend); use 'host'"
-            )
+        # host: the native exact contours; device: measure_instances_device
+        self.measurement_backend = perf.get("measurement_backend", "host")
         quant = str(perf.get("quantized_inference", "none") or "none")
         if quant != "none":
             raise NotImplementedError(f"quantized_inference {quant!r} is not ported; use 'none'")
@@ -330,6 +342,51 @@ class InferencePipeline:
         m = paste_masks(inst.mask_probs[i : i + 1], inst.boxes[i : i + 1], hw[0], hw[1], self.mask_threshold)
         return (m[0] & inst.valid[i]).cpu().numpy()
 
+    def _packed_masks(self, inst: InstanceSet, hw) -> Tuple[np.ndarray, np.ndarray]:
+        """([K,H,ceil(W/8)] uint8, [K,4] int64) on the host: every
+        instance's full-resolution mask, pasted a few at a time (peak about
+        ``PASTE_BUDGET`` pixels) and bit-packed on the device, 8 pixels a
+        byte in ``np.unpackbits`` order (MSB first), so the one copy to the
+        host is 8x smaller than the masks; and each mask's pixel bounding
+        box (x0, y0, x1, y1), end exclusive (x1 <= x0 for an empty mask)."""
+        h, w = hw
+        wp = w + (-w) % 8
+        dev = inst.boxes.device
+        weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=dev)
+        ys, xs = torch.arange(h, device=dev), torch.arange(w, device=dev)
+        chunk = max(1, PASTE_BUDGET // (h * w))
+        out = torch.empty((inst.capacity, h, wp // 8), dtype=torch.uint8, device=dev)
+        boxes = []
+        for s in range(0, inst.capacity, chunk):
+            p, b, v = inst.mask_probs[s : s + chunk], inst.boxes[s : s + chunk], inst.valid[s : s + chunk]
+            m = paste_masks(p, b, h, w, self.mask_threshold) & v[:, None, None]
+            rows, cols = m.any(2), m.any(1)
+            boxes.append(torch.stack([
+                torch.where(cols, xs, w).amin(1), torch.where(rows, ys, h).amin(1),
+                torch.where(cols, xs + 1, 0).amax(1), torch.where(rows, ys + 1, 0).amax(1),
+            ], dim=1))
+            if wp != w:
+                m = torch.nn.functional.pad(m, (0, wp - w))
+            bits = m.view(m.shape[0], h, wp // 8, 8).to(torch.int32)
+            out[s : s + chunk] = (bits * weights).sum(-1).to(torch.uint8)
+        # one copy of the packed masks, one of the boxes
+        return out.cpu().numpy(), torch.cat(boxes).cpu().numpy()
+
+    def _mask_crops(self, inst: InstanceSet, hw) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Each instance's full-resolution mask cut to its pixel bounding
+        box, from :meth:`_packed_masks` (only the box's bytes are
+        unpacked): ([K] [h,w] bool crops, [K,2] origins (x, y))."""
+        packed, boxes = self._packed_masks(inst, hw)
+        crops = []
+        for i, (x0, y0, x1, y1) in enumerate(boxes.tolist()):
+            if x1 <= x0:
+                crops.append(np.zeros((0, 0), bool))
+                continue
+            b0 = x0 // 8
+            bits = np.unpackbits(packed[i, y0:y1, b0 : (x1 + 7) // 8], axis=-1)
+            crops.append(bits[:, x0 - 8 * b0 : x1 - 8 * b0].astype(bool))
+        return crops, boxes[:, :2]
+
     def _mask_windows(self, inst: InstanceSet, window: int = 192):
         """Per-instance [K,S,S] bool crops at native pixel scale
         (shrink-to-fit for longer boxes), window origins [K,2] (x, y in
@@ -359,16 +416,24 @@ class InferencePipeline:
         return rows
 
     @torch.inference_mode()
-    def run(self, image_folder: str, visualize: bool = False) -> Dict[str, object]:
+    def run(
+        self,
+        image_folder: str,
+        visualize: bool = True,
+        eta_file: Optional[str] = None,
+        draw_ids: bool = False,
+        draw_scalebar: bool = False,
+    ) -> Dict[str, object]:
         """Process every image in ``image_folder``; returns the artefact
         paths, the processed and failed image names and the stage timers'
-        summary."""
-        if visualize:
-            raise NotImplementedError("overlays (visualize=True) are not ported yet (ROADMAP: overlays)")
+        summary. ``visualize`` writes each image's overlay (instance IDs with
+        ``draw_ids``, the scale-bar ROI and line with ``draw_scalebar``) and
+        the class legend, and measures the full-resolution masks."""
         image_folder = os.path.expanduser(image_folder)
         images = sorted(f for f in os.listdir(image_folder) if is_image_file(f))
         if not images:
             log.warning("No images found in %s", image_folder)
+        t_start = time.perf_counter()
         timers = StageTimers(self.device)
         with timers.time("size_heuristic"):
             self.ensure_size_heuristics(image_folder, images)
@@ -410,31 +475,48 @@ class InferencePipeline:
                                 img, img_dev = _load_image(os.path.join(image_folder, name), self.device)
                         hw = (img.shape[0], img.shape[1])
                         with timers.time("scalebar"):
-                            psum, um_pix, _ = detect_scale_bar(img, self.config, self.dataset_name, return_debug=True)
+                            psum, um_pix, sb_debug = detect_scale_bar(img, self.config, self.dataset_name, return_debug=True)
                         scale_bars[name] = (psum, um_pix)
                         inst, quality = self._infer_one(img_dev, timers)
                         members[name] = list(self.members_ran)
-                        with timers.time("rle"):
-                            # one packed copy of the two columns the host reads
-                            vc = torch.stack([inst.valid.to(torch.int32), inst.classes.to(torch.int32)]).cpu().numpy()
-                            valid, cls_host = vc[0] != 0, vc[1]
-                            kept = [i for i in range(len(valid)) if valid[i]]
-                            starts, lengths, n_runs, max_runs = self._device_rle(inst, hw)
-                            # one packed device -> host copy
-                            packed = torch.cat([starts, lengths, n_runs[:, None]], dim=1).cpu().numpy()
-                        with timers.time("rle_rows"):
-                            rle_rows.extend(self._rle_rows(name, inst, kept, hw, packed, max_runs))
+                        # one packed copy of the two columns the host reads
+                        vc = torch.stack([inst.valid.to(torch.int32), inst.classes.to(torch.int32)]).cpu().numpy()
+                        valid, cls_host = vc[0] != 0, vc[1]
+                        kept = [i for i in range(len(valid)) if valid[i]]
+                        masks = origins = None
+                        if visualize:
+                            with timers.time("mask_export"):
+                                masks, origins = self._mask_crops(inst, hw)
+                            with timers.time("rle"):
+                                rle_rows.extend(
+                                    (name, rle_to_string(rle_encode_crop(masks[i], origins[i], hw[0]))) for i in kept
+                                )
+                        else:
+                            with timers.time("rle"):
+                                starts, lengths, n_runs, max_runs = self._device_rle(inst, hw)
+                                # one packed device -> host copy
+                                packed = torch.cat([starts, lengths, n_runs[:, None]], dim=1).cpu().numpy()
+                            with timers.time("rle_rows"):
+                                rle_rows.extend(self._rle_rows(name, inst, kept, hw, packed, max_runs))
                         with timers.time("measurements"):
-                            gray = to_grayscale(torch.from_numpy(img)).numpy() if measure_contrast else None
-                            wins, origins, scales = self._mask_windows(inst, self.measurement_window)
-                            rows = measurement_rows_host_windows(
-                                wins, origins, scales, cls_host, valid, name, self.class_names,
-                                um_pix, psum, float(hw[0] * hw[1]), gray=gray, measure_contrast=measure_contrast,
+                            rows = self._measurement_rows(
+                                name, inst, img, img_dev, masks, origins, cls_host, valid, um_pix, psum,
+                                measure_contrast,
                             )
                         with timers.time("csv"):
                             writer.writerows(rows)
                             if self.stream_measurements:
                                 f.flush()
+                        if visualize:
+                            with timers.time("overlay"):
+                                overlay = viz.render_overlay(
+                                    img, [masks[i] for i in kept], [int(cls_host[i]) for i in kept],
+                                    draw_ids=draw_ids, origins=[origins[i] for i in kept],
+                                )
+                                if draw_scalebar:
+                                    viz.draw_scalebar_debug(overlay, sb_debug, psum)
+                            with timers.time("png"):
+                                viz.save_png(self.output_dir / f"{name}_predictions.png", overlay)
                         processed.append(name)
                         seconds.append(time.perf_counter() - t0)
                         log.info("%s: %d instances, quality %.2f, %.2fs", name, len(kept), float(quality), seconds[-1])
@@ -450,11 +532,15 @@ class InferencePipeline:
                 w = csv.writer(f)
                 w.writerow(["ImageId", "EncodedPixels"])
                 w.writerows(rle_rows)
+        if visualize:
+            viz.save_png(self.output_dir / "class_legend.png", viz.render_legend(self.class_names))
         timers.log_summary("inference-profile")
         if failed:
             log.warning("Images not processed: %s", failed)
         else:
             log.info("All %d images processed", len(processed))
+        if eta_file and processed:
+            update_eta_data(eta_file, "inference", time.perf_counter() - t_start, num_images=len(processed))
         return {
             "measurements_csv": str(meas_csv),
             "rle_csv": str(rle_csv),
@@ -467,6 +553,35 @@ class InferencePipeline:
             "members": members,
         }
 
+    def _measurement_rows(self, name, inst, img, img_dev, masks, origins, cls_host, valid, um_pix, psum,
+                          measure_contrast):
+        """One image's measurement rows: the device backend, or the native
+        host measurements of the full-resolution masks (the crops exported
+        for the overlay, at ``origins``) or of the per-instance windows."""
+        area = float(img.shape[0] * img.shape[1])
+        if self.measurement_backend == "device":
+            measures = measure_lib.measure_instances_device(
+                inst, img_dev, measure_contrast=measure_contrast, mask_threshold=self.mask_threshold
+            )
+            keys = sorted(measures)
+            # one packed device -> host copy of the columns
+            packed = torch.stack([measures[k].float() for k in keys]).cpu().numpy()
+            return measure_lib.measurement_rows(
+                {k: packed[j] for j, k in enumerate(keys)}, inst, name, self.class_names, um_pix, psum, area,
+                valid=valid, classes=cls_host,
+            )
+        gray = to_grayscale(torch.from_numpy(img)).numpy() if measure_contrast else None
+        if masks is not None:
+            return measurement_rows_host(
+                masks, cls_host, valid, name, self.class_names, um_pix, psum, area,
+                gray=gray, measure_contrast=measure_contrast, origins=origins,
+            )
+        wins, origins, scales = self._mask_windows(inst, self.measurement_window)
+        return measurement_rows_host_windows(
+            wins, origins, scales, cls_host, valid, name, self.class_names, um_pix, psum, area,
+            gray=gray, measure_contrast=measure_contrast,
+        )
+
 
 def run_inference(
     dataset_name: str,
@@ -475,13 +590,15 @@ def run_inference(
     output_dir: Optional[str] = None,
     config: Optional[dict] = None,
     device=None,
+    visualize: bool = True,
 ) -> Dict[str, object]:
     """Module-level entry point: the config defaults to
     ``get_config(dataset_name)`` and ``image_folder`` to
-    ``<local_dataset_root>/DATASET/INFERENCE``."""
+    ``<local_dataset_root>/DATASET/INFERENCE``; the run updates the
+    configured ETA file."""
     cfg = config or get_config(dataset_name)
     pipeline = InferencePipeline(dataset_name, split_dir, output_dir, cfg, device=device)
     folder = image_folder or os.path.join(
         os.path.expanduser(cfg["paths"].get("local_dataset_root", "~")), "DATASET", "INFERENCE"
     )
-    return pipeline.run(folder)
+    return pipeline.run(folder, visualize=visualize, eta_file=cfg["paths"]["eta_file"])

@@ -1,7 +1,9 @@
-"""ctypes bindings of the native measurement kernels (``measure.cpp``).
+"""ctypes bindings of the native host libraries: the measurement kernels
+(``measure.cpp``) and the LZW and PackBits decoders of ``read_image``
+(``codecs.cpp``).
 
-The library compiles on first use with ``g++ -O2 -shared -fPIC`` into
-``build/torch_native/libmeasure-<hash>.so`` at the root of the checkout
+Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
+``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
 (the hash covers the source and the flags, so an edited source rebuilds).
 A failed build raises; there is no numpy fallback. Nothing here runs at
 import time.
@@ -15,57 +17,67 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "measure.cpp"
+SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC")
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
+
+# name -> {function: (argtypes, restype)}
+_SIGNATURES = {
+    "measure": {
+        "trace_outer_contour": ([_P, _I, _I, _P, _I], _I),
+        "polygon_area_perimeter": ([_P, _I, _P], None),
+        "min_area_rect": ([_P, _I, _P], None),
+        "fit_ellipse": ([_P, _I, _P], _I),
+    },
+    "codecs": {
+        "lzw_decode": ([_P, _L, _P, _L], _L),
+        "packbits_decode": ([_P, _L, _P, _L], _L),
+    },
+}
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libmeasure-{digest}.so"
+def library_path(name: str = "measure") -> Path:
+    src = SRC_DIR / f"{name}.cpp"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _build(target: Path) -> None:
+def _build(src: Path, target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run(
-        ["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+        ["g++", *CXX_FLAGS, str(src), "-o", str(tmp)],
         capture_output=True, text=True, timeout=300,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SRC.name} (exit {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {src.name} (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, target)
 
 
-def get_lib() -> ctypes.CDLL:
-    """The loaded library, built first if it is missing."""
-    global _lib
+def get_lib(name: str = "measure") -> ctypes.CDLL:
+    """The loaded library ``name``, built first if it is missing."""
     with _lock:
-        if _lib is None:
-            path = library_path()
+        if name not in _libs:
+            path = library_path(name)
             if not path.exists():
-                _build(path)
+                _build(SRC_DIR / f"{name}.cpp", path)
             lib = ctypes.CDLL(str(path))
-            lib.trace_outer_contour.argtypes = [_P, _I, _I, _P, _I]
-            lib.trace_outer_contour.restype = _I
-            lib.polygon_area_perimeter.argtypes = [_P, _I, _P]
-            lib.polygon_area_perimeter.restype = None
-            lib.min_area_rect.argtypes = [_P, _I, _P]
-            lib.min_area_rect.restype = None
-            lib.fit_ellipse.argtypes = [_P, _I, _P]
-            lib.fit_ellipse.restype = _I
-            _lib = lib
-        return _lib
+            for fn, (args, res) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
+            _libs[name] = lib
+        return _libs[name]
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -112,3 +124,24 @@ def fit_ellipse(pts: np.ndarray) -> Optional[Tuple[float, float, float]]:
     if get_lib().fit_ellipse(_ptr(pts), len(pts), _ptr(out)) != 0:
         return None
     return float(out[0]), float(out[1]), float(out[2])
+
+
+def _decode(fn: str, data: bytes, size: int) -> bytes:
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(max(size, 1), np.uint8)
+    n = getattr(get_lib("codecs"), fn)(_ptr(src), src.size, _ptr(out), size)
+    if n == -2:
+        raise ValueError("TIFF: old-style (LSB-first) LZW is not supported")
+    if n < 0:
+        raise ValueError(f"TIFF: corrupt {fn.split('_')[0]} stream")
+    return out[:n].tobytes()
+
+
+def lzw_decode(data: bytes, size: int) -> bytes:
+    """A TIFF LZW strip or tile -> at most ``size`` decoded bytes."""
+    return _decode("lzw_decode", data, size)
+
+
+def packbits_decode(data: bytes, size: int) -> bytes:
+    """A PackBits strip or tile -> at most ``size`` decoded bytes."""
+    return _decode("packbits_decode", data, size)

@@ -78,32 +78,46 @@ def normalize_bgr(image: torch.Tensor) -> torch.Tensor:
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples
-_TIFF_COMPRESSION = {5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate"}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_TIFF_COMPRESSION = {
+    1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
+    7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP",
+}
+_TIFF_DECODED = (1, 5, 8, 32773, 32946)
 
 
 def read_image(path: str) -> np.ndarray:
     """Decode an image file to [H,W,3] uint8 BGR, as
     ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it.
 
-    Reads non-interlaced PNG (8/16-bit gray, gray+alpha, RGB, RGBA and
-    8-bit palette) and baseline uncompressed TIFF (8/16-bit gray, RGB, RGBA,
-    strips, first page). Gray is replicated to three channels and alpha is
-    dropped. 16-bit samples reduce to 8 bits as OpenCV reduces them: the
-    high byte, except for 16-bit colour TIFF, which libtiff's RGBA reader
-    rounds (v * 255 + 32767) // 65535. Any other encoding raises a
+    Reads PNG (8/16-bit gray, gray+alpha, RGB, RGBA and 8-bit palette,
+    plain or Adam7-interlaced), TIFF (the first page; 8/16-bit gray, RGB,
+    RGBA; strips or tiles, contiguous or separate planes; uncompressed,
+    LZW, Deflate or PackBits, with predictor 1 or 2) and BMP (8-bit palette,
+    24-bit, 32-bit; bottom-up or top-down rows). Gray is replicated to three
+    channels and alpha is dropped. 16-bit samples reduce to 8 bits as
+    OpenCV reduces them: the high byte, except for 16-bit colour TIFF,
+    which libtiff's RGBA reader rounds (v * 255 + 32767) // 65535. Any
+    other encoding (JPEG, BigTIFF, the other TIFF compressions) raises a
     ``ValueError`` that names it."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_PNG_SIGNATURE):
-        return _decode_png(data)
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        return _decode_tiff(data)
-    if data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise ValueError(f"{path}: BigTIFF is not supported")
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: JPEG is not supported")
-    if data[:2] == b"BM":
-        raise ValueError(f"{path}: BMP is not supported")
+    try:
+        if data.startswith(_PNG_SIGNATURE):
+            return _decode_png(data)
+        if data[:4] in (b"II*\x00", b"MM\x00*"):
+            return _decode_tiff(data)
+        if data[:4] in (b"II+\x00", b"MM\x00+"):
+            raise ValueError("BigTIFF is not supported")
+        if data[:3] == b"\xff\xd8\xff":
+            raise ValueError("JPEG is not supported")
+        if data[:2] == b"BM":
+            return _decode_bmp(data)
+    except (struct.error, KeyError, IndexError, zlib.error) as e:
+        raise ValueError(f"{path}: corrupt or truncated file ({type(e).__name__}: {e})") from e
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     raise ValueError(f"{path}: unknown image encoding")
 
 
@@ -138,6 +152,16 @@ def _unfilter_png(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _png_pass(stream: np.ndarray, pos: int, h: int, w: int, bpp: int):
+    """Unfilter one h x w image (or Adam7 pass) from ``stream`` at ``pos``
+    -> ([h,w,bpp] uint8, next position)."""
+    end = pos + h * (1 + w * bpp)
+    if end > stream.size:
+        raise ValueError("PNG: image data has the wrong length")
+    rows = stream[pos:end].reshape(h, 1 + w * bpp)
+    return _unfilter_png(rows[:, 1:].reshape(h, w, bpp), rows[:, 0]), end
+
+
 def _decode_png(data: bytes) -> np.ndarray:
     pos, idat, palette, hdr = 8, [], None, None
     while pos + 8 <= len(data):
@@ -155,17 +179,23 @@ def _decode_png(data: bytes) -> np.ndarray:
     if hdr is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if interlace:
-        raise ValueError("PNG: interlaced (Adam7) PNG is not supported")
     if ctype not in _PNG_CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
         raise ValueError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG: interlace method {interlace} is not supported")
     spp = _PNG_CHANNELS[ctype]
     bpp = spp * depth // 8
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (1 + w * bpp):
+    stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if interlace == 0:
+        pix, end = _png_pass(stream, 0, h, w, bpp)
+    else:
+        pix, end = np.zeros((h, w, bpp), np.uint8), 0
+        for x0, y0, dx, dy in _ADAM7:
+            ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
+            if ph > 0 and pw > 0:  # an empty pass has no scanlines at all
+                pix[y0::dy, x0::dx], end = _png_pass(stream, end, ph, pw, bpp)
+    if end != stream.size:
         raise ValueError("PNG: image data has the wrong length")
-    rows = rows.reshape(h, 1 + w * bpp)
-    pix = _unfilter_png(rows[:, 1:].reshape(h, w, bpp), rows[:, 0])
     if depth == 16:
         pix = pix[..., 0::2]  # big-endian samples: keep the high byte
     if ctype == 3:
@@ -173,6 +203,18 @@ def _decode_png(data: bytes) -> np.ndarray:
             raise ValueError("PNG: palette image without a PLTE chunk")
         pix = palette[pix[..., 0]]
     return _to_bgr(pix)
+
+
+def _tiff_segment(raw: bytes, comp: int, size: int) -> bytes:
+    """One strip or tile, decompressed to at most ``size`` bytes."""
+    if comp == 1:
+        return raw[:size]
+    if comp in (8, 32946):
+        d = zlib.decompressobj()
+        return d.decompress(raw, size)
+    from deepemia_tpu_torch import native
+
+    return native.lzw_decode(raw, size) if comp == 5 else native.packbits_decode(raw, size)
 
 
 def _decode_tiff(data: bytes) -> np.ndarray:
@@ -194,25 +236,83 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     spp = get(277, 1)[0]
     bits = set(get(258, 1))
     comp, photometric = get(259, 1)[0], get(262, 1)[0]
-    if comp != 1:
+    predictor, planar = get(317, 1)[0], get(284, 1)[0]
+    if comp not in _TIFF_DECODED:
         raise ValueError(f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported")
-    if 322 in tags or 324 in tags:
-        raise ValueError("TIFF: tiled TIFF is not supported")
-    if get(284, 1)[0] != 1:
-        raise ValueError("TIFF: planar (separate-plane) TIFF is not supported")
+    # libtiff reads the predictor tag for LZW and Deflate only
+    predictor = predictor if comp in (5, 8, 32946) else 1
+    if predictor not in (1, 2):
+        raise ValueError(f"TIFF: predictor {predictor} is not supported")
+    if planar not in (1, 2):
+        raise ValueError(f"TIFF: planar configuration {planar} is not supported")
     if len(bits) != 1 or bits - {8, 16} or set(get(339, 1)) != {1}:
         raise ValueError(f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported")
     if photometric not in (1, 2) or spp not in ((1, 2) if photometric == 1 else (3, 4)):
         raise ValueError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
     depth = bits.pop()
-    offsets, counts = tags[273], tags[279]
-    raw = b"".join(data[o : o + c] for o, c in zip(offsets, counts))
     dtype = np.dtype(np.uint8) if depth == 8 else np.dtype(end + "u2")
-    need = h * w * spp * dtype.itemsize
-    if len(raw) < need:
-        raise ValueError("TIFF: strips hold fewer bytes than the image")
-    pix = np.frombuffer(raw[:need], dtype).reshape(h, w, spp)
+    sps = spp if planar == 1 else 1  # samples per pixel within one segment
+    if 322 in tags:  # tiles, padded to the full tile size at the edges
+        tw, th = tags[322][0], tags[323][0]
+        offsets, counts = tags[324], tags[325]
+        grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+        shape_of = lambda y: (th, tw)  # noqa: E731
+    else:
+        rps = min(get(278, h)[0], h)
+        offsets, counts = tags[273], tags[279]
+        grid = [(y, 0) for y in range(0, h, rps)]
+        shape_of = lambda y: (min(rps, h - y), w)  # noqa: E731
+    planes = 1 if planar == 1 else spp
+    if len(offsets) < planes * len(grid) or len(counts) < len(offsets):
+        raise ValueError("TIFF: fewer strips or tiles than the image needs")
+    pix = np.empty((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    for p in range(planes):
+        for k, (y, x) in enumerate(grid):
+            sh, sw = shape_of(y)
+            need = sh * sw * sps * dtype.itemsize
+            j = p * len(grid) + k
+            seg = _tiff_segment(data[offsets[j] : offsets[j] + counts[j]], comp, need)
+            if len(seg) < need:
+                raise ValueError("TIFF: a strip or tile holds fewer bytes than it must")
+            a = np.frombuffer(seg, dtype).reshape(sh, sw, sps).astype(pix.dtype)
+            if predictor == 2:  # horizontal differencing, per sample, modulo 2^bits
+                a = np.cumsum(a, axis=1, dtype=pix.dtype)
+            ch = slice(None) if planar == 1 else slice(p, p + 1)
+            pix[y : y + sh, x : x + sw, ch] = a[: h - y, : w - x]
     if depth == 16:
         v = pix.astype(np.int64)
         pix = ((v * 255 + 32767) // 65535 if photometric == 2 else v >> 8).astype(np.uint8)
+    if photometric == 2 and spp == 4 and get(338, 0)[0] == 2:
+        # libtiff's RGBA reader premultiplies unassociated alpha
+        v = pix.astype(np.int32)
+        pix = ((v[..., :3] * v[..., 3:] + 127) // 255).astype(np.uint8)
     return _to_bgr(pix)
+
+
+def _decode_bmp(data: bytes) -> np.ndarray:
+    (pixel_at,) = struct.unpack("<I", data[10:14])
+    (hsize,) = struct.unpack("<I", data[14:18])
+    if hsize < 40:
+        raise ValueError(f"BMP: OS/2 header of {hsize} bytes is not supported")
+    w, h, _, bits, comp, _, _, _, ncolors = struct.unpack("<iiHHIIiiI", data[18:50])
+    if comp == 3 and bits == 32:
+        masks = struct.unpack("<III", data[54:66])
+        if masks != (0xFF0000, 0xFF00, 0xFF):
+            raise ValueError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
+    elif comp != 0:
+        raise ValueError(f"BMP: compression {comp} (RLE or bit fields) is not supported")
+    if bits not in (8, 24, 32):
+        raise ValueError(f"BMP: {bits}-bit pixels are not supported")
+    rows, width = abs(h), w
+    stride = (width * bits // 8 + 3) & ~3
+    raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)
+    if h > 0:  # bottom-up rows
+        raw = raw[::-1]
+    if bits == 8:
+        ncolors = ncolors or 256
+        pal = np.frombuffer(data, np.uint8, count=4 * ncolors, offset=14 + hsize).reshape(-1, 4)[:, :3]
+        idx = raw[:, :width]
+        if int(idx.max(initial=0)) >= len(pal):
+            raise ValueError("BMP: a pixel indexes past the palette")
+        return np.ascontiguousarray(pal[idx])
+    return np.ascontiguousarray(raw[:, : width * bits // 8].reshape(rows, width, bits // 8)[..., :3])

@@ -6,6 +6,8 @@ masks and runs on the device the masks lie on."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -69,21 +71,28 @@ def paste_masks(
     height: int,
     width: int,
     threshold: float = 0.5,
+    origin: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Paste RoI mask probabilities [N,R,R] over boxes [N,4] into
     [N,height,width] bool masks: every pixel centre samples the R×R grid
     bilinearly with ``grid_sample(align_corners=False,
     padding_mode='zeros')`` semantics (Detectron2's paste), then the
-    threshold applies."""
+    threshold applies. With ``origin`` [N,2] (x, y) the result is each
+    instance's height x width crop at that pixel of the image, sampled at
+    the same float32 coordinates as the whole image's paste."""
     n, r, _ = mask_probs.shape
     dev = mask_probs.device
-    ys = torch.arange(height, dtype=torch.float32, device=dev) + 0.5
-    xs = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    ys = torch.arange(height, dtype=torch.float32, device=dev)[None]
+    xs = torch.arange(width, dtype=torch.float32, device=dev)[None]
+    if origin is not None:
+        ys = ys + origin[:, 1:2].float()
+        xs = xs + origin[:, 0:1].float()
+    ys, xs = ys + 0.5, xs + 0.5
     x0, y0, x1, y1 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
     bw = (x1 - x0).clamp(min=1e-4)
     bh = (y1 - y0).clamp(min=1e-4)
-    gx = (xs[None, :] - x0[:, None]) / bw[:, None] * r - 0.5  # [N,W]
-    gy = (ys[None, :] - y0[:, None]) / bh[:, None] * r - 0.5  # [N,H]
+    gx = (xs - x0[:, None]) / bw[:, None] * r - 0.5  # [N,W]
+    gy = (ys - y0[:, None]) / bh[:, None] * r - 0.5  # [N,H]
 
     def sample_axis(g):
         i0f = torch.floor(g)

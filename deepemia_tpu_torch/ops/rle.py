@@ -1,7 +1,8 @@
 """Run-length encoding of binary masks: column-major (Fortran order),
 1-indexed (start, length) pairs.
 
-The host half (numpy) encodes and decodes single masks. The device half
+The host half (numpy) encodes and decodes single masks (a whole-image
+mask, or a mask's crop at its origin). The device half
 produces fixed-capacity run tensors, so that only integers leave the card:
 ``rle_encode_batch`` for full-image masks, ``rle_encode_windowed`` for
 instances pasted into a window at their box corner (O(K·S²) instead of
@@ -22,15 +23,31 @@ from deepemia_tpu_torch.ops.masks import paste_masks
 def rle_encode(mask: np.ndarray) -> List[int]:
     """Encode a binary mask into [start1, len1, start2, len2, ...]:
     column-major scan, 1-indexed starts."""
-    flat = np.asarray(mask).T.ravel().astype(bool)
-    if not flat.any():
+    mask = np.asarray(mask)
+    return rle_encode_crop(mask, (0, 0), mask.shape[0])
+
+
+def rle_encode_crop(crop: np.ndarray, origin, height: int) -> List[int]:
+    """:func:`rle_encode` of a mask of ``height`` rows that is false outside
+    ``crop`` [h,w], whose top-left pixel is ``origin`` (x, y): O(h·w). A run
+    that ends on the image's last row and one that starts on the next
+    column's first row are one run, as in the whole image."""
+    crop = np.asarray(crop, bool)
+    x0, y0 = int(origin[0]), int(origin[1])
+    cols = np.zeros((crop.shape[1], crop.shape[0] + 2), np.int8)
+    cols[:, 1:-1] = crop.T
+    d = np.diff(cols, axis=1)
+    sc, sr = np.nonzero(d == 1)  # column-major order
+    _, er = np.nonzero(d == -1)
+    if sc.size == 0:
         return []
-    diff = np.diff(np.concatenate([[False], flat, [False]]).astype(np.int8))
-    starts = np.flatnonzero(diff == 1)
-    ends = np.flatnonzero(diff == -1)
-    out = np.empty(2 * starts.size, dtype=np.int64)
-    out[0::2] = starts + 1
-    out[1::2] = ends - starts
+    starts = (x0 + sc).astype(np.int64) * height + y0 + sr
+    lengths = (er - sr).astype(np.int64)
+    first = np.concatenate([[True], starts[1:] != starts[:-1] + lengths[:-1]])
+    at = np.flatnonzero(first)
+    out = np.empty(2 * at.size, np.int64)
+    out[0::2] = starts[at] + 1
+    out[1::2] = np.add.reduceat(lengths, at)
     return out.tolist()
 
 

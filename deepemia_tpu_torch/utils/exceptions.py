@@ -1,6 +1,7 @@
-"""The errors the configuration store raises: a pipeline error carrying its
-stage and details, and the configuration error under it (the JAX package's
-``utils/exceptions.py``, the part the store needs)."""
+"""The port's errors: a pipeline error carrying its stage and details, and
+the configuration and storage errors under it (the part of the JAX
+package's ``utils/exceptions.py`` that the store, the storage backends and
+the CLI raise)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,10 @@ class ConfigurationError(PipelineError):
 
     def __init__(self, message: str, **kw):
         super().__init__(message, stage="configuration", **kw)
+
+
+class StorageError(PipelineError):
+    """Remote or local artefact storage failure."""
+
+    def __init__(self, message: str, **kw):
+        super().__init__(message, stage="storage", **kw)

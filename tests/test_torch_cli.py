@@ -1,0 +1,177 @@
+"""The port's command line against the JAX package's: the same options,
+dests, choices and defaults (the port adds ``--device``); ``--task
+inference --device cpu`` end to end on a tiny home against ``python
+main.py`` (``JAX_PLATFORMS=cpu``) on a home built the same way, both in
+subprocesses: the same exit code and the same files out, the RLE CSV
+equal and the measurement CSV to 1e-4 relative; the refusals of what is
+not ported, with exit code 2 and the ROADMAP item; ``--cleanup`` within its
+allowed bases."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import deepemia_tpu_torch.config.config as port_cfg
+from deepemia_tpu.cli.main import build_parser as jax_build_parser
+from deepemia_tpu_torch.cli import main as cli
+from deepemia_tpu_torch.config.config import default_config
+from test_torch_pipeline import _assert_csvs_match, _write_checkpoint, _zoo_state_dict
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _actions(parser):
+    return {
+        a.dest: (tuple(a.option_strings), a.default, tuple(a.choices) if a.choices else None, a.type, a.required,
+                 a.nargs, type(a).__name__)
+        for a in parser._actions
+    }
+
+
+def test_parser_matches_jax():
+    ref, got = _actions(jax_build_parser()), _actions(cli.build_parser())
+    assert set(got) - set(ref) == {"device"}
+    assert got["device"][:3] == (("--device",), "cuda", ("cuda", "cpu"))
+    for dest in ref:
+        assert got[dest] == ref[dest], dest
+    args = cli.build_parser().parse_args(["--task", "inference", "--dataset_name", "d", "--id", "--no-upload"])
+    assert (args.draw_id, args.upload, args.download, args.visualize, args.threshold, args.device) == (
+        True, False, True, False, 0.65, "cuda")
+
+
+def make_home(home: Path, sd) -> Path:
+    """A framework home: config.yaml (one scale, no tiling, class-specific
+    inference and the ensemble off), dataset_info.json, an R50 checkpoint
+    with its (empty) split file and DATASET/INFERENCE with one 128²
+    micrograph with a scale bar."""
+    cfg = default_config(home)
+    cfg["scale_bar_rois"]["default"] = {"x_start_factor": 0.3, "y_start_factor": 0.7, "width_factor": 0.7,
+                                        "height_factor": 0.3}
+    cfg["scalebar_thresholds"]["min_line_length"] = 30
+    cfg["scalebar_thresholds"]["edge_margin_factor"] = 0.0
+    cfg["performance"]["use_bf16"] = False
+    inf = cfg["inference_settings"]
+    inf["use_tile_based_inference"] = False
+    inf["use_class_specific_inference"] = False
+    inf["ensemble_settings"] = {"enabled": False}
+    inf["multiscale_settings"]["baseline_scales"] = [1.0]
+    (home / "config").mkdir(parents=True)
+    (home / "config" / "config.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+    folder = home / "DATASET" / "INFERENCE"
+    folder.mkdir(parents=True)
+    (home / "dataset_info.json").write_text(json.dumps({"zds": [str(folder), str(folder), ["particle", "pore"]]}))
+    _write_checkpoint(home / "split_dir" / "zds" / "rcnn_r50" / "model_final_r50.pkl", sd)
+    (home / "split_dir" / "zds_split.json").write_text(json.dumps({"train": [], "test": []}))
+    im = np.full((128, 128, 3), 30, np.uint8)
+    cv2.circle(im, (40, 50), 16, (220, 220, 220), -1)
+    cv2.rectangle(im, (60, 118), (109, 120), (255, 255, 255), -1)
+    cv2.putText(im, "2 um", (60, 112), cv2.FONT_HERSHEY_SIMPLEX, 0.45, (255, 255, 255), 1, cv2.LINE_AA)
+    cv2.imwrite(str(folder / "micro.tif"), im)  # OpenCV's default TIFF: LZW
+    return home
+
+
+def _run(cmd, home):
+    env = {**os.environ, "DEEPEMIA_TPU_HOME": str(home), "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "2",
+           "PYTHONPATH": str(ROOT)}
+    return subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+
+
+FLAGS = ["--task", "inference", "--dataset_name", "zds", "--threshold", "0.2", "--visualize", "--id",
+         "--draw-scalebar", "--no-download", "--no-upload"]
+
+
+def test_inference_task_matches_the_jax_cli(tmp_path, tiny_r50):
+    sd = _zoo_state_dict(tiny_r50[1])
+    homes = {k: make_home(tmp_path / k, sd) for k in ("jax", "port")}
+    ref = _run([sys.executable, "main.py", *FLAGS, "--no-gpu-check"], homes["jax"])
+    got = _run([sys.executable, "-m", "deepemia_tpu_torch.cli.main", *FLAGS, "--device", "cpu"], homes["port"])
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    assert got.returncode == ref.returncode, got.stderr[-3000:]
+    outs = {k: h / "output" for k, h in homes.items()}
+    names = sorted(p.name for p in outs["port"].iterdir())
+    assert names == sorted(p.name for p in outs["jax"].iterdir()) == [
+        "R50_flip_results.csv", "class_legend.png", "measurements_results.csv", "micro.tif_predictions.png"]
+    res = {k: {"rle_csv": str(o / "R50_flip_results.csv"), "measurements_csv": str(o / "measurements_results.csv")}
+           for k, o in outs.items()}
+    _assert_csvs_match(res["port"], res["jax"], (128, 128))
+    for name in ("micro.tif_predictions.png", "class_legend.png"):
+        a, b = (cv2.imread(str(o / name)) for o in (outs["port"], outs["jax"]))
+        assert a.shape == b.shape and np.abs(a.astype(int) - b.astype(int)).max() <= 1, name
+    for h in homes.values():
+        assert json.loads((h / "config" / "eta_data.json").read_text())["inference"]["average_time_per_image"] > 0
+    assert "CPU" in got.stderr and "ETA" in got.stderr
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--task", "train", "--dataset_name", "zds"], "A5"),
+    (["--task", "evaluate", "--dataset_name", "zds"], "A5"),
+    (["--task", "prepare"], "A5"),
+    (["--task", "inference", "--dataset_name", "zds", "--chips", "4"], "A8"),
+    (["--task", "inference", "--dataset_name", "zds", "--quantized", "trunk"], "A6"),
+])
+def test_what_is_not_ported_exits_2(argv, item, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.cli_entry(argv)
+    assert e.value.code == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_inference_without_a_dataset_name_exits_2(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.cli_entry(["--task", "inference"])
+    assert e.value.code == 2 and "--dataset_name is required" in capsys.readouterr().err
+
+
+def test_cleanup_stays_inside_its_bases(tmp_path, tiny_r50, monkeypatch):
+    """After the upload, ``--cleanup`` removes the output and INFERENCE
+    folders through the path guard and nothing else; an output folder
+    configured outside the allowed bases survives."""
+    home = make_home(tmp_path / "home", _zoo_state_dict(tiny_r50[1]))
+    monkeypatch.setenv("DEEPEMIA_TPU_HOME", str(home))
+    monkeypatch.setattr(port_cfg, "_default_store", None)
+    before = {p for p in home.rglob("*") if p.is_file()}
+    with pytest.raises(SystemExit) as e:
+        cli.cli_entry([*FLAGS[:-1], "--upload", "--cleanup", "--device", "cpu"])
+    assert e.value.code == 0
+    assert not (home / "output").exists() and not (home / "DATASET" / "INFERENCE").exists()
+    archived = list((home / "bucket" / "Archive").rglob("measurements_results.csv"))
+    assert len(archived) == 1
+    kept = {p for p in home.rglob("*") if p.is_file()}
+    assert {p for p in before if "DATASET" not in p.parts} <= kept
+    port_cfg._default_store = None
+
+
+def test_setup_task_writes_what_the_jax_setup_writes(tmp_path, monkeypatch):
+    """``--task setup`` on the port's store and on the JAX package's, with
+    the same answers: the same config.yaml but for the home's paths."""
+    import deepemia_tpu.config.config as jax_cfg
+    from deepemia_tpu.cli.main import cli_entry as jax_cli_entry
+
+    answers = ["bkt", "0.6", "", "0.9", "", "120", "", "true"]
+    written = {}
+    for name, entry, store_mod in (("jax", jax_cli_entry, jax_cfg), ("port", cli.cli_entry, port_cfg)):
+        home = tmp_path / name
+        monkeypatch.setenv("DEEPEMIA_TPU_HOME", str(home))
+        monkeypatch.setattr(store_mod, "_default_store", None)
+        feed = iter(answers)
+        monkeypatch.setattr("builtins.input", lambda prompt="": next(feed))
+        with pytest.raises(SystemExit) as e:
+            entry(["--task", "setup"])
+        assert e.value.code == 0
+        written[name] = yaml.safe_load((home / "config" / "config.yaml").read_text())
+    for cfg in written.values():
+        cfg.pop("paths")
+    assert written["port"] == written["jax"]
+    assert written["port"]["bucket"] == "bkt" and written["port"]["measure_contrast_distribution"] is True
+    assert written["port"]["scale_bar_rois"]["default"]["x_start_factor"] == 0.6
+    port_cfg._default_store = None

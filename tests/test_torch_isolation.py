@@ -56,7 +56,9 @@ def test_port_sources_import_no_jax():
         "inference/constraints.py", "inference/measure_host.py", "ops/rle.py", "data/models.py",
         "native/__init__.py", "kernels/window_sum.py", "tools/bench_decouple.py",
         "config/config.py", "config/schema.py", "utils/exceptions.py", "ops/cv.py",
-        "inference/scalebar.py", "inference/ensemble.py",
+        "inference/scalebar.py", "inference/ensemble.py", "inference/viz.py", "inference/measure.py",
+        "ops/morphometrics.py", "ops/image.py", "cli/main.py", "utils/eta.py", "utils/logging_utils.py",
+        "utils/device.py", "utils/safe_ops.py", "utils/storage.py", "utils/profiling.py",
     } <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -76,9 +78,11 @@ def test_import_leaves_jax_unloaded():
         "deepemia_tpu_torch.inference.pipeline, deepemia_tpu_torch.inference.multiscale, "
         "deepemia_tpu_torch.kernels.window_sum, deepemia_tpu_torch.tools.bench_decouple, "
         "deepemia_tpu_torch.native, deepemia_tpu_torch.data.models, deepemia_tpu_torch.config.config, "
-        "deepemia_tpu_torch.inference.scalebar, deepemia_tpu_torch.inference.ensemble, deepemia_tpu_torch.ops.cv; "
+        "deepemia_tpu_torch.inference.scalebar, deepemia_tpu_torch.inference.ensemble, deepemia_tpu_torch.ops.cv, "
+        "deepemia_tpu_torch.cli.main, deepemia_tpu_torch.inference.viz, deepemia_tpu_torch.ops.morphometrics, "
+        "deepemia_tpu_torch.utils.storage, deepemia_tpu_torch.utils.device, deepemia_tpu_torch.utils.logging_utils; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'deepemia_tpu', 'cv2', 'PIL')]; "
+        "('jax', 'flax', 'deepemia_tpu', 'cv2', 'PIL', 'psutil') or m.startswith('google.cloud.storage')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -137,12 +137,45 @@ def test_read_image_matches_cv2(tmp_path, shape, dtype, ext):
 
 def test_read_image_names_what_it_cannot_decode(tmp_path):
     img = np.zeros((8, 8, 3), np.uint8)
-    cv2.imwrite(str(tmp_path / "lzw.tif"), img)  # cv2's default TIFF compression is LZW
+    # an LZMA TIFF (compression 34925): the header of an uncompressed one
+    # with the compression tag changed
+    cv2.imwrite(str(tmp_path / "raw.tif"), img, [cv2.IMWRITE_TIFF_COMPRESSION, 1])
+    data = bytearray((tmp_path / "raw.tif").read_bytes())
+    ifd = int.from_bytes(data[4:8], "little")
+    for e in range(ifd + 2, ifd + 2 + 12 * int.from_bytes(data[ifd : ifd + 2], "little"), 12):
+        if int.from_bytes(data[e : e + 2], "little") == 259:
+            data[e + 8 : e + 10] = (34925).to_bytes(2, "little")
+    (tmp_path / "lzma.tif").write_bytes(bytes(data))
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
-    with pytest.raises(ValueError, match="LZW"):
-        read_image(str(tmp_path / "lzw.tif"))
+    with pytest.raises(ValueError, match="LZMA"):
+        read_image(str(tmp_path / "lzma.tif"))
     with pytest.raises(ValueError, match="JPEG"):
         read_image(str(tmp_path / "a.jpg"))
     (tmp_path / "junk.png").write_bytes(b"not an image")
     with pytest.raises(ValueError, match="unknown image encoding"):
         read_image(str(tmp_path / "junk.png"))
+
+
+def test_host_rows_from_crops_equal_the_whole_masks():
+    """``measurement_rows_host`` on each mask's bounding-box crop at its
+    origin (the overlay path's export) gives the whole masks' rows exactly,
+    contrast included."""
+    masks = np.zeros((5, 60, 70), bool)
+    masks[:, 6:54, 11:59] = _shapes()
+    masks[3] = False
+    masks[4, :, 0] = True  # a column on the left border
+    gray = (np.random.default_rng(4).random((60, 70)) * 255).astype(np.float32)
+    crops, origins = [], []
+    for m in masks:
+        ys, xs = np.nonzero(m)
+        if ys.size == 0:
+            crops.append(np.zeros((0, 0), bool))
+            origins.append((0, 0))
+            continue
+        crops.append(m[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1])
+        origins.append((xs.min(), ys.min()))
+    args = (np.array([0, 1, 1, 0, 1]), np.ones(5, bool), "m.png", ["p", "q"], 0.5, "0", 60.0 * 70)
+    ref = pt_host.measurement_rows_host(masks, *args, gray=gray, measure_contrast=True)
+    assert ref == jax_host.measurement_rows_host(masks, *args, gray=gray, measure_contrast=True)
+    got = pt_host.measurement_rows_host(crops, *args, gray=gray, measure_contrast=True, origins=np.array(origins))
+    assert got == ref and len(got) > 4

@@ -127,7 +127,7 @@ def test_pipeline_matches_jax(golden):
     assert psum == "2"
     pipe = InferencePipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / "port"), device="cpu", **common)
     assert pipe.use_multiscale and pipe.postproc_enabled and not pipe.use_ensemble
-    got = pipe.run(golden["inf_dir"])
+    got = pipe.run(golden["inf_dir"], visualize=False)
     assert got["processed"] == ref["processed"] == ["micro.png"] and not got["failed"]
     assert got["scale_bars"] == {"micro.png": (psum, um_pix)} and got["members"] == {"micro.png": ["R50"]}
     assert {"decode", "scalebar", "engine", "postprocess", "rle", "rle_rows", "measurements", "csv"} <= set(got["stages"])
@@ -157,17 +157,16 @@ def _assert_csvs_match(got, ref, hw):
 
 
 def test_pipeline_refuses_what_is_not_ported(golden):
+    """Int8 serving is not ported (overlays and the device measurement
+    backend are: see the tests below)."""
     cfg = golden["cfg"]
-    pipe = InferencePipeline("zds", golden["split_dir"], config=cfg, use_bf16=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="visualize"):
-        pipe.run(golden["inf_dir"], visualize=True)
-    for key, value, match in (
-        ("quantized_inference", "trunk", "quantized_inference"),
-        ("measurement_backend", "device", "device measurement backend"),
-    ):
-        bad = {**cfg, "performance": {**cfg["performance"], key: value}}
-        with pytest.raises(NotImplementedError, match=match):
+    for value in ("trunk", "full"):
+        bad = {**cfg, "performance": {**cfg["performance"], "quantized_inference": value}}
+        with pytest.raises(NotImplementedError, match="quantized_inference"):
             InferencePipeline("zds", golden["split_dir"], config=bad, use_bf16=False, device="cpu")
+    ok = {**cfg, "performance": {**cfg["performance"], "measurement_backend": "device"}}
+    pipe = InferencePipeline("zds", golden["split_dir"], config=ok, use_bf16=False, device="cpu")
+    assert pipe.measurement_backend == "device"
 
 
 def test_default_run_inference_with_ensemble_matches_jax(golden):
@@ -200,7 +199,8 @@ def test_default_run_inference_with_ensemble_matches_jax(golden):
     jax_cfg_mod = __import__("deepemia_tpu.config.config", fromlist=["get_store"])
     jax_cfg_mod.get_store().invalidate()
     ref = jax_run_inference("zds", golden["split_dir"], golden["inf_dir"], str(golden["tmp"] / "jax_ens"), visualize=False)
-    got = run_inference("zds", golden["split_dir"], golden["inf_dir"], str(golden["tmp"] / "port_ens"), device="cpu")
+    got = run_inference("zds", golden["split_dir"], golden["inf_dir"], str(golden["tmp"] / "port_ens"), device="cpu",
+                        visualize=False)
     assert got["processed"] == ref["processed"] == ["micro.png"] and not got["failed"]
     assert got["members"] == {"micro.png": ["R101", "R50"]}
     assert got["scale_bars"]["micro.png"][0] == "2"
@@ -209,12 +209,13 @@ def test_default_run_inference_with_ensemble_matches_jax(golden):
 
 
 def test_unreadable_image_is_isolated(golden, tmp_path):
-    """A file the decoder refuses (LZW TIFF) lands in ``failed``; the other
-    images go on to both CSVs."""
+    """A file the decoder refuses (a JPEG named .tif) lands in ``failed``;
+    the other images go on to both CSVs."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((Path(golden["inf_dir"]) / "micro.png").read_bytes())
-    cv2.imwrite(str(folder / "b.tif"), golden["image"])  # cv2 writes LZW TIFF by default
+    cv2.imwrite(str(folder / "b.jpg"), golden["image"])
+    (folder / "b.jpg").rename(folder / "b.tif")
     cfg = {**golden["cfg"], "performance": {**golden["cfg"]["performance"], "use_bf16": False}}
     res = run_inference(
         "zds", golden["split_dir"], image_folder=str(folder),
@@ -223,3 +224,138 @@ def test_unreadable_image_is_isolated(golden, tmp_path):
     assert res["processed"] == ["a.png"] and res["failed"] == ["b.tif"]
     rle = _rows(res["rle_csv"])
     assert len(rle) > 1 and {r[0] for r in rle[1:]} == {"a.png"}
+
+
+@pytest.fixture()
+def large(golden, tiny_r50, request):
+    """A 224² micrograph with a blob and a scale bar, in a folder of its
+    own, one scale, and the golden checkpoint with every box widened and
+    heightened 15x (the box regression's bias: dw = dh = log 15 after
+    Detectron2's weights 5, 5), so that instances reach past the 192 px
+    measurement window. ``request.param`` may give the bar's label and the
+    class names, (label, names)."""
+    label, names = getattr(request, "param", ("2 um", ["particle", "pore"]))
+    paths = golden["cfg"]["paths"]
+    cats = Path(os.path.expanduser(paths["category_json"]))
+    info = json.loads(cats.read_text())
+    info["zds"][2] = names
+    cats.write_text(json.dumps(info))
+    sd = _zoo_state_dict(tiny_r50[1])
+    bias = sd["roi_heads.box_predictor.bbox_pred.bias"]
+    bias[2::4] = bias[3::4] = 5.0 * np.log(15.0)
+    _write_checkpoint(Path(golden["split_dir"]) / "zds" / "rcnn_r50" / "model_final_r50.pkl", sd)
+    im = np.full((224, 224, 3), 30, np.uint8)
+    cv2.ellipse(im, (112, 100), (100, 60), 10, 0, 360, (200, 200, 200), -1)
+    cv2.circle(im, (40, 180), 10, (230, 230, 230), -1)
+    cv2.rectangle(im, (105, 206), (190, 209), (255, 255, 255), -1)
+    cv2.putText(im, label, (120, 198), cv2.FONT_HERSHEY_SIMPLEX, 0.45, (255, 255, 255), 1, cv2.LINE_AA)
+    folder = golden["tmp"] / "LARGE"
+    folder.mkdir()
+    cv2.imwrite(str(folder / "large.png"), im)
+    cfg = golden["cfg"]
+    cfg["inference_settings"]["multiscale_settings"]["baseline_scales"] = [1.0]
+    return {**golden, "inf_dir": str(folder), "image": im, "label": label, "names": names}
+
+
+def _text_region(hw, rle_rows, debug, psum):
+    """The text boxes of an overlay: each kept instance's ID at its
+    centroid and the scale-bar reading."""
+    from deepemia_tpu_torch.inference import viz
+
+    labels = []
+    for i, (_, enc) in enumerate(rle_rows, 1):
+        m = rle_decode([int(t) for t in enc.split()], hw)
+        ys, xs = np.nonzero(m)
+        if ys.size:
+            labels.append((str(i), (int(xs.mean()), int(ys.mean())), 0.5))
+    if debug["line"]:
+        labels.append((f"scale: {psum} ({debug['text']!r})", (debug["line"][0], max(debug["line"][1] - 6, 12)), 0.45))
+    region = np.zeros(hw, bool)
+    for text, org, scale in labels:
+        x0, y0, x1, y1 = viz.text_box(text, org, scale)
+        region[max(y0, 0) : max(y1, 0), max(x0, 0) : max(x1, 0)] = True
+    return region
+
+
+@pytest.mark.parametrize("large", [("2 um", ["particle", "pore"]), ("2 µm", ["partícula", "póro µ"])],
+                         indirect=True, ids=["ascii", "latin1"])
+def test_run_with_overlays_matches_jax(large):
+    """``visualize`` with instance IDs and the scale-bar drawing: the same
+    CSVs as the JAX package (measured on the full-resolution masks, one
+    instance wider than 192 px), the same bit-packed masks from the same
+    instances, overlays equal outside the text boxes and within
+    ``tests/test_torch_viz.py``'s TEXT_TOL inside them, the legend and the
+    ETA file written; with an ASCII label and class names, and with a 'µm'
+    label and non-ASCII class names."""
+    from deepemia_tpu.inference.detections import InstanceSet as JaxInstanceSet
+    from deepemia_tpu_torch.inference.detections import InstanceSet
+    from deepemia_tpu_torch.inference.scalebar import detect_scale_bar as pt_detect
+    from test_torch_viz import TEXT_TOL
+
+    cfg = large["cfg"]
+    common = dict(config=cfg, use_bf16=False, default_threshold=0.2)
+    eta = {k: str(large["tmp"] / f"eta_{k}.json") for k in ("jax", "port")}
+    jax_pipe = JaxPipeline("zds", large["split_dir"], output_dir=str(large["tmp"] / "jax_v"), **common)
+    ref = jax_pipe.run(large["inf_dir"], visualize=True, eta_file=eta["jax"], draw_ids=True, draw_scalebar=True)
+    pipe = InferencePipeline("zds", large["split_dir"], output_dir=str(large["tmp"] / "port_v"), device="cpu", **common)
+    got = pipe.run(large["inf_dir"], eta_file=eta["port"], draw_ids=True, draw_scalebar=True)
+    assert got["processed"] == ref["processed"] == ["large.png"] and not got["failed"]
+    assert {"mask_export", "rle", "measurements", "overlay", "png"} <= set(got["stages"])
+    _assert_csvs_match(got, ref, (224, 224))
+    rle = _rows(got["rle_csv"])[1:]
+    widths = [np.ptp(np.nonzero(rle_decode([int(t) for t in e.split()], (224, 224)))[1]) + 1 for _, e in rle]
+    assert max(widths) > 192, widths
+
+    psum, um_pix, debug = pt_detect(large["image"], cfg, "zds", return_debug=True)
+    assert psum == "2" and debug["line"] is not None
+    assert ("µ" in debug["text"]) == ("µ" in large["label"])
+    for name in ("large.png_predictions.png", "class_legend.png"):
+        a = cv2.imread(str(large["tmp"] / "port_v" / name))
+        b = cv2.imread(str(large["tmp"] / "jax_v" / name))
+        assert a is not None and a.shape == b.shape, name
+        if name == "class_legend.png":
+            from deepemia_tpu_torch.inference import viz
+
+            region = np.zeros(a.shape[:2], bool)
+            for i, n in enumerate(large["names"]):
+                x0, y0, x1, y1 = viz.text_box(f"{i}: {n}", (48, i * 30 + 20), 0.55)
+                region[y0:y1, x0:x1] = True
+        else:
+            region = _text_region((224, 224), rle, debug, psum)
+        np.testing.assert_array_equal(a[~region], b[~region])
+        assert int(np.abs(a.astype(int) - b.astype(int))[region].max(initial=0)) <= TEXT_TOL
+    for k in ("jax", "port"):
+        data = json.loads(Path(eta[k]).read_text())
+        assert data["inference"]["average_time_per_image"] > 0
+
+    # the bit-packed export of one instance set, the same in both packages
+    rng = np.random.default_rng(0)
+    k = 11
+    boxes = np.sort(rng.uniform(-20, 240, (k, 2, 2)), axis=1).reshape(k, 4)[:, [0, 2, 1, 3]].astype(np.float32)
+    arrays = dict(boxes=boxes, scores=rng.random(k).astype(np.float32), classes=np.zeros(k, np.int32),
+                  valid=rng.random(k) < 0.8, mask_probs=rng.random((k, 28, 28)).astype(np.float32))
+    for hw in ((224, 224), (61, 77)):
+        inst = InstanceSet(**{n: torch.from_numpy(v) for n, v in arrays.items()})
+        packed, _ = pipe._packed_masks(inst, hw)
+        ref_masks = jax_pipe._full_masks(JaxInstanceSet(**arrays), hw)
+        np.testing.assert_array_equal(packed, np.packbits(ref_masks, axis=-1))
+        crops, origins = pipe._mask_crops(inst, hw)  # each mask within its bounding box
+        for m, c, (x0, y0) in zip(ref_masks, crops, origins):
+            whole = np.zeros(hw, bool)
+            whole[y0 : y0 + c.shape[0], x0 : x0 + c.shape[1]] = c
+            np.testing.assert_array_equal(whole, m)
+            assert c.size == 0 or (c[0].any() and c[-1].any() and c[:, 0].any() and c[:, -1].any())
+
+
+def test_device_measurement_backend_matches_jax(golden):
+    """``measurement_backend: device``: the measurement CSV of the JAX
+    package's device backend, every number to 1e-4 relative."""
+    cfg = {**golden["cfg"], "performance": {**golden["cfg"]["performance"], "measurement_backend": "device"}}
+    common = dict(config=cfg, use_bf16=False, default_threshold=0.2)
+    ref = JaxPipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / "jax_d"), **common).run(
+        golden["inf_dir"], visualize=False
+    )
+    got = InferencePipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / "port_d"), device="cpu",
+                            **common).run(golden["inf_dir"], visualize=False)
+    assert got["processed"] == ref["processed"] == ["micro.png"]
+    _assert_csvs_match(got, ref, (128, 128))

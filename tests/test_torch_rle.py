@@ -33,6 +33,25 @@ def test_host_encoder_matches_jax_and_round_trips():
         np.testing.assert_array_equal(pt_rle.rle_decode(got, m.shape), jax_rle.rle_decode(got, m.shape))
 
 
+def test_crop_encoder_matches_the_whole_image():
+    """``rle_encode_crop`` of a mask's bounding box at its origin equals the
+    JAX package's ``rle_encode`` of the whole mask, runs across a column's
+    end (boxes over the full height) included."""
+    rng = np.random.default_rng(1)
+    masks = list(_masks(3)) + [np.zeros((37, 29), bool) for _ in range(20)]
+    for m in masks[6:]:
+        y0, x0 = rng.integers(0, 37), rng.integers(0, 29)
+        y1, x1 = rng.integers(y0 + 1, 38), rng.integers(x0 + 1, 30)
+        m[y0:y1, x0:x1] = rng.random((y1 - y0, x1 - x0)) < rng.choice([0.3, 1.0])
+    for m in masks:
+        ys, xs = np.nonzero(m)
+        if ys.size == 0:
+            assert pt_rle.rle_encode_crop(np.zeros((0, 0), bool), (0, 0), 37) == []
+            continue
+        crop = m[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
+        assert pt_rle.rle_encode_crop(crop, (xs.min(), ys.min()), m.shape[0]) == jax_rle.rle_encode(m)
+
+
 @pytest.mark.parametrize("max_runs", [4096, 40, 7])
 def test_batch_encoder_matches_jax(max_runs):
     """Capacities above, near and far below the masks' run counts: a mask
