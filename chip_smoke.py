@@ -26,10 +26,10 @@ It builds the CUDA kernels from the sources in the checkout and then:
      timings in the kernel line), then times the stages of one tile batch;
   5. runs a small image through the engine in float32 on the card and on
      the CPU (the plain RoIAlign) and compares the detections;
-  7. trains Mask R-CNN R50-FPN through ``train()`` (2 classes, 512² batches
+  7. trains Mask R-CNN R50-FPN through ``train_on_batches()`` (2 classes, 512² batches
      of 2 synthetic micrographs, bf16 compute over float32 master weights,
      Detectron2 capacities, seeded random init with zeroed residual norms):
-     6 steps with a checkpoint every 3, then a second ``train()`` call to
+     6 steps with a checkpoint every 3, then a second ``train_on_batches()`` call to
      step 8 that resumes at 6; checks that every loss is finite, that the
      first step's update of every parameter matches torch's SGD on the CPU
      given the same weights and gradients, and that each step launched the
@@ -106,6 +106,29 @@ It builds the CUDA kernels from the sources in the checkout and then:
      compared as phase 9's reference is; then one 4096² micrograph without
      overlays, whose RLE rows (the windowed device encoder) must equal the
      full-image encoder's on the same instances;
+ 13. training from a dataset through the port's CLI (``runpy`` of
+     ``deepemia_tpu_torch.cli.main`` in this process, ``run_cli``) on ten
+     synthetic labelled 1024x768 micrographs written as LZW TIFF with
+     per-image label JSONs (10-40 polygons and ellipses, two classes) and a
+     ``dataset_info.json`` entry, under the default config (Mask R-CNN
+     R50-FPN, 2 x 512² a step, 64 GT slots, bf16, two loader workers):
+     ``--task prepare`` (an 8/2 split file); K2 (bf16 and float32) and K1
+     against their plain versions, and the adjoint identity, on one
+     training step of a 4-image batch from the loader (4 x 512² levels,
+     twice the RoIs of a 2-image step); ``train --rcnn 50 --augment
+     --max-iter 24`` (finite losses, 2 K1 + 2 K2 launches every step,
+     checkpoints and ``model_final_r50.pt``, weights moved; steady seconds
+     per step, the step's wait in ``next(loader)`` and its share of the
+     wall time); ``evaluate --rcnn 50 --visualize`` (metrics.csv with the
+     JAX evaluator's metric names, all finite; one overlay and 2 K1
+     launches per test image; K1 against its plain version on the first
+     call of each stage, whose levels are non-square: 1024x768 padded to
+     /64; seconds and detections per image); ``train --pretrained-weights
+     <zoo.pkl>`` for 4 steps from a Detectron2-named pickle of the seeded
+     model with 81-class heads (those heads skipped and re-initialised, the
+     stem and res2 unchanged); ``train --optimize --n-trials 3 --max-iter 6
+     --hpo-strategy random`` (the winner in config.yaml and the dataset
+     YAML, no trial directory left); peak device memory;
  10. holds the windowed-sum kernel (K3) against its plain version on the
      conv-chain output of its micro-benchmark and on edge cases
      (``window_sum_edge_cases``: the map exactly the window, C in {1, 3,
@@ -120,8 +143,9 @@ It builds the CUDA kernels from the sources in the checkout and then:
      reset before and read after.
 
 Phase 7 runs before phase 6, whose inputs come from a training step, and
-phases 11 and 12 before phase 10. K1's ``launches`` in the kernel line is
-the sum of phases 3, 9, 11 and 12, each counted from zero over its own run.
+phases 11, 12 and 13 before phase 10. K1's ``launches`` in the kernel line
+is the sum of phases 3, 9, 11, 12 and 13, K2's of phases 7 and 13, each
+counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -643,7 +667,7 @@ def check_first_update(model, opt, before, lr, cfg):
 
 
 def phase_train(batches):
-    """``train()`` from scratch to step 6 (checkpoints at 3 and 6), then a
+    """``train_on_batches()`` from scratch to step 6 (checkpoints at 3 and 6), then a
     second call to step 8 that resumes at 6. Every train_step is wrapped
     to time it and to count its kernel launches."""
     import shutil
@@ -673,9 +697,9 @@ def phase_train(batches):
     counter.launches = bwd_counter.launches = 0
     trainer_mod.train_step = timed
     try:
-        trainer_mod.train(batches, 2, TRAIN_DIR, cfg, max_steps_override=6)
+        trainer_mod.train_on_batches(batches, 2, TRAIN_DIR, cfg, max_steps_override=6)
         first = sorted(os.listdir(os.path.join(TRAIN_DIR, "ckpts")))
-        final, _ = trainer_mod.train(batches, 2, TRAIN_DIR, cfg, max_steps_override=8)
+        final, _ = trainer_mod.train_on_batches(batches, 2, TRAIN_DIR, cfg, max_steps_override=8)
     finally:
         trainer_mod.train_step = real
     launches = {"roi_align_fwd": counter.launches, "roi_align_bwd": bwd_counter.launches}
@@ -711,12 +735,12 @@ def phase_train(batches):
 
 def capture_train_step(batch):
     """The RoIAlign inputs (features, boxes, image indices) and cotangents
-    of one training step as ``train()`` runs it (outside the counted run)."""
+    of one training step as ``train_on_batches()`` runs it (outside the counted run)."""
     import deepemia_tpu_torch.models.heads as heads_mod
     from deepemia_tpu_torch.models.mask_rcnn import build_train_model
     from deepemia_tpu_torch.train import trainer as trainer_mod
 
-    cfg = trainer_mod.TrainConfig()
+    cfg = trainer_mod.TrainConfig(ims_per_batch=len(batch["image"]))
     model = build_train_model("R50", 2, device="cuda", seed=cfg.seed)
     trainer_mod.zero_residual_norms(model)
     opt, sched = trainer_mod.make_optimizer(model.parameters(), cfg.base_lr, 8, cfg.warmup_iters, cfg.gamma)
@@ -981,7 +1005,7 @@ def phase_train_profile(batch):
     from deepemia_tpu_torch.models.mask_rcnn import build_train_model
     from deepemia_tpu_torch.train import trainer as trainer_mod
 
-    cfg = trainer_mod.TrainConfig()
+    cfg = trainer_mod.TrainConfig(ims_per_batch=len(batch["image"]))
     model = build_train_model("R50", 2, device="cuda", seed=cfg.seed)
     trainer_mod.zero_residual_norms(model)
     opt, sched = trainer_mod.make_optimizer(model.parameters(), cfg.base_lr, 8, cfg.warmup_iters, cfg.gamma)
@@ -1397,17 +1421,7 @@ def phase_pipeline(model, images):
           f"rle_rows={len(rle)} measurement_rows={len(meas) - 1} multilevel_roi_align_calls={len(calls)} "
           f"(with RoIs {rois}) roi_align_fwd launches={launches}", flush=True)
     assert launches > 0 and launches == rois, "a multilevel RoIAlign of the pipeline did not launch K1"
-    errs, timed = [], []
-    for ((b, hp, wp, _), out_size), (feats, boxes, kw) in sorted(shapes.items()):
-        args = (feats, boxes, kw["valid"], kw["batch_idx"], out_size)
-        tag = f"pipeline {b} x {4 * hp}x{4 * wp} input, {'box' if out_size == 7 else 'mask'} stage"
-        # timed in the path's dtype (per-launch times), float32 output untimed
-        for dtype in dict.fromkeys((kw["out_dtype"], torch.float32)):
-            row = compare_roi_align(tag, *args, dtype, reps=10, adaptive=kw["adaptive_ratio"],
-                                    timed=dtype == kw["out_dtype"])
-            errs.append(row["err"])
-            if "ms" in row:
-                timed.append(row)
+    errs, timed = hold_captured(shapes, "pipeline", timed=True)
     print(f"pipeline: K1 at the {len(timed)} captured shapes, one launch each: kernel ms "
           f"{sum(r['ms'] for r in timed):.4f}, bound ms {sum(r['bound_ms'] for r in timed):.4f}", flush=True)
     print(f"pipeline: K1 held against the plain RoIAlign at {len(shapes)} pyramid shapes and stages", flush=True)
@@ -1426,6 +1440,24 @@ def phase_pipeline(model, images):
           f"(host, {sb['count']} images of {h}x{w}, the first loads the glyph atlas)", flush=True)
     scalebar_steady_seconds(folder, pipe)
     return launches, errs
+
+
+def hold_captured(shapes, label, timed=False):
+    """K1 against the plain RoIAlign on captured calls ({(p2 shape, output
+    size): (levels, boxes, keywords)}), in the path's dtype (timed per
+    launch when ``timed``) and with float32 output -> (errors, timed
+    rows)."""
+    errs, rows = [], []
+    for ((b, hp, wp, _), out_size), (feats, boxes, kw) in sorted(shapes.items()):
+        args = (feats, boxes, kw["valid"], kw["batch_idx"], out_size)
+        tag = f"{label} {b} x {4 * hp}x{4 * wp} input, {'box' if out_size == 7 else 'mask'} stage"
+        for dtype in dict.fromkeys((kw["out_dtype"], torch.float32)):
+            row = compare_roi_align(tag, *args, dtype, reps=10, adaptive=kw["adaptive_ratio"],
+                                    timed=timed and dtype == kw["out_dtype"])
+            errs.append(row["err"])
+            if "ms" in row:
+                rows.append(row)
+    return errs, rows
 
 
 def scalebar_steady_seconds(folder, pipe):
@@ -1646,7 +1678,12 @@ def phase_pipeline_reference(model):
 
 class CountedRoIAlign:
     """Within the block, count the multilevel RoIAlign calls with RoIs
-    (``.with_rois``) and the K1 launches (``.launches``, from zero)."""
+    (``.with_rois``) and the K1 launches (``.launches``, from zero); with
+    ``capture``, keep the inputs of the first call with RoIs of each pyramid
+    shape and stage (``.shapes``, for ``hold_captured``)."""
+
+    def __init__(self, capture=False):
+        self.capture, self.shapes = capture, {}
 
     def __enter__(self):
         import deepemia_tpu_torch.models.heads as heads_mod
@@ -1657,6 +1694,10 @@ class CountedRoIAlign:
 
         def dispatch(features, boxes, **kw):
             self.with_rois += int(boxes.shape[0] > 0)
+            key = (tuple(features["p2"].shape), kw["output_size"])
+            if self.capture and boxes.shape[0] and key not in self.shapes:
+                self.shapes[key] = ([features[k] for k in ("p2", "p3", "p4", "p5")], boxes.clone(),
+                                    {k: v.clone() if torch.is_tensor(v) else v for k, v in kw.items()})
             return self.real(features, boxes, **kw)
 
         heads_mod.roi_align_dispatch = dispatch
@@ -1670,10 +1711,9 @@ class CountedRoIAlign:
 
 def cli_child(out_json: str, *argv: str) -> int:
     """Run ``python -m deepemia_tpu_torch.cli.main *argv`` in this process
-    (``runpy``, as ``-m`` runs it) and write to ``out_json`` its exit code,
-    the pipeline's result, its steady stage seconds and the RoIAlign counts."""
-    import runpy
-
+    (``run_cli`` on the home ``$DEEPEMIA_TPU_HOME``) and write to
+    ``out_json`` its exit code, the pipeline's result, its steady stage
+    seconds and the RoIAlign counts."""
     import deepemia_tpu_torch.inference.pipeline as pipeline_mod
 
     results = []
@@ -1684,13 +1724,8 @@ def cli_child(out_json: str, *argv: str) -> int:
         return results[-1]
 
     pipeline_mod.InferencePipeline.run = run
-    sys.argv = ["deepemia_tpu_torch.cli.main", *argv]
-    rc = 0
     with StageLog() as stage_log, CountedRoIAlign() as roi:
-        try:
-            runpy.run_module("deepemia_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
-        except SystemExit as e:
-            rc = e.code
+        rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
     with open(out_json, "w") as f:
         json.dump({"rc": rc, "result": results[0] if results else None, "steady": stage_log.steady(),
                    "with_rois": roi.with_rois, "launches": roi.launches}, f)
@@ -1933,6 +1968,406 @@ def phase_windowed_rle(model, size=4096, device="cuda", config_hook=None):
     return roi.launches
 
 
+DATASET_DIR = os.path.join(ROOT, "build", "chip_smoke_dataset")
+# phase 13's dataset: ten 1024x768 grey micrographs (a common SEM frame),
+# 10-40 labelled instances each (polygons and ellipses, two classes, some
+# wider than 96 px so every COCO area range has ground truth)
+DATASET_IMAGES = 10
+DATASET_HW = (768, 1024)
+TRAIN_STEPS = 24
+TUNE_STEPS = 4
+
+
+def synthetic_dataset(root: str, n: int, hw=DATASET_HW, seed: int = 13) -> str:
+    """``n`` labelled micrographs under ``root``: LZW TIFFs (64-row strips)
+    with per-image label JSONs in the reference format (``metadata.name/
+    height/width``; ``instances`` of type ``polygon`` (star-shaped, 5-9
+    points) and ``ellipse``, classes ``particle`` and ``pore``). Each
+    instance is drawn bright into the image with the port's ``fill_poly``
+    as the dataset rasterises it. -> root."""
+    from deepemia_tpu_torch.data.datasets import ellipse_to_polygon
+    from deepemia_tpu_torch.ops.cv import fill_poly
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        gray = np.clip(rng.normal(80.0, 12.0, (h, w)), 0, 255).astype(np.uint8)
+        instances = []
+        for j in range(int(rng.integers(10, 41))):
+            cls = ("particle", "pore")[j % 2]
+            cx, cy = rng.uniform(40, w - 40), rng.uniform(40, h - 40)
+            big = rng.random() < 0.15
+            r = rng.uniform(50, 90) if big else rng.uniform(6, 30)
+            if rng.random() < 0.5:
+                inst = dict(type="ellipse", className=cls, cx=cx, cy=cy, rx=r, ry=r * rng.uniform(0.5, 1.0),
+                            angle=rng.uniform(0, 180))
+                poly = ellipse_to_polygon(inst["cx"], inst["cy"], inst["rx"], inst["ry"], inst["angle"])
+            else:
+                k = int(rng.integers(5, 10))
+                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+                rad = r * rng.uniform(0.6, 1.0, k)
+                pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+                inst = dict(type="polygon", className=cls, points=pts.ravel().tolist())
+                poly = (pts + 0.5).ravel().tolist()
+            mask = np.zeros((h, w), np.uint8)
+            fill_poly(mask, np.round(np.asarray(poly).reshape(-1, 2)).astype(np.int32), 1)
+            gray[mask.astype(bool)] = np.uint8(rng.uniform(160, 230))
+            instances.append(inst)
+        name = f"sem_{i:02d}.tif"
+        write_tiff(os.path.join(root, name), gray, 5, rows_per_strip=64)
+        with open(os.path.join(root, f"sem_{i:02d}.json"), "w") as f:
+            json.dump({"metadata": {"name": name, "height": h, "width": w}, "instances": instances}, f)
+    return root
+
+
+def zoo_pickle(path: str, seed: int = 0) -> dict:
+    """A Detectron2-named zoo pickle (``{"model": {name: ndarray}}``) of the
+    seeded R50 training model with COCO's 81-class box and mask heads ->
+    its state dict."""
+    import pickle
+
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+
+    sd = {k: v.float().numpy() for k, v in build_train_model("R50", 2, device="cpu", seed=seed).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    for name, shape in (("roi_heads.box_predictor.cls_score", (81, 1024)), ("roi_heads.box_predictor.bbox_pred", (320, 1024)),
+                        ("roi_heads.mask_head.predictor", (80, 256, 1, 1))):
+        sd[f"{name}.weight"] = rng.normal(0, 0.01, shape).astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(shape[0], np.float32)
+    with open(path, "wb") as f:
+        pickle.dump({"model": sd, "__author__": "Detectron2 Model Zoo"}, f, protocol=2)
+    return sd
+
+
+class TrainRun:
+    """Within the block, each ``train_step`` is timed (synchronised on
+    ``device``) with its K1/K2 launches, each batch the trainer takes from
+    the ``TrainLoader`` is timed from request to hand-over (the step's wait
+    on the loader), and every ``load_pretrained_params`` result is kept."""
+
+    def __init__(self, device="cuda"):
+        self.device = device
+
+    def __enter__(self):
+        from deepemia_tpu_torch.data import loader as loader_mod
+        from deepemia_tpu_torch.kernels.roi_align import bwd_counter, counter
+        from deepemia_tpu_torch.train import trainer as trainer_mod
+
+        self.steps, self.waits, self.requests, self.pretrained = [], [], [], []
+        self.mods = (loader_mod, trainer_mod)
+        self.real = (loader_mod.TrainLoader.__iter__, trainer_mod.train_step, trainer_mod.load_pretrained_params)
+        real_iter, real_step, real_pretrained = self.real
+        sync = torch.cuda.synchronize if self.device == "cuda" else (lambda: None)
+
+        def timed_iter(loader):
+            stream = real_iter(loader)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(stream)
+                self.requests.append(t0)
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+        def timed_step(*args, **kw):
+            k1, k2 = counter.launches, bwd_counter.launches
+            sync()
+            t0 = time.perf_counter()
+            metrics = real_step(*args, **kw)
+            sync()
+            self.steps.append(dict(metrics, seconds=time.perf_counter() - t0, k1=counter.launches - k1,
+                                   k2=bwd_counter.launches - k2))
+            return metrics
+
+        def pretrained(*args, **kw):
+            self.pretrained.append(real_pretrained(*args, **kw))
+            return self.pretrained[-1]
+
+        loader_mod.TrainLoader.__iter__ = timed_iter
+        trainer_mod.train_step = timed_step
+        trainer_mod.load_pretrained_params = pretrained
+        return self
+
+    def __exit__(self, *exc):
+        loader_mod, trainer_mod = self.mods
+        loader_mod.TrainLoader.__iter__, trainer_mod.train_step, trainer_mod.load_pretrained_params = self.real
+
+
+def loader_batch(cfg, files, batch_size):
+    """The first batch of ``batch_size`` images that the training loader
+    (one worker, augmentation on, the config's size) makes from ``files``
+    of the dataset ``sem``."""
+    from deepemia_tpu_torch.data.datasets import get_split_dicts, read_dataset_info
+    from deepemia_tpu_torch.data.loader import TrainLoader
+
+    img_dir, label_dir, _ = read_dataset_info(cfg["paths"]["category_json"])["sem"]
+    records = get_split_dicts(img_dir, label_dir, files, cfg["paths"]["category_json"], "sem")
+    tc = cfg.get("train", {})
+    loader = TrainLoader(records, batch_size, tc.get("train_size", 512), tc.get("max_instances", 64), augment=True,
+                         workers=1)
+    try:
+        return next(iter(loader))
+    finally:
+        loader.close()
+
+
+def hold_train_capture(calls, label):
+    """K2 (bf16 and float32) and K1 against their plain versions on the
+    RoIAlign inputs and cotangents of one captured training step, and the
+    adjoint identity, untimed -> (K1 errors, K2 errors)."""
+    from deepemia_tpu_torch.models.roi_align import assign_fpn_levels
+
+    k1_errs, k2_errs = [], []
+    for call, tag in zip(calls, ("box", "mask")):
+        boxes, bidx = call["boxes"], call["bidx"]
+        levels = (assign_fpn_levels(boxes) - 2).contiguous()
+        shapes = [tuple(f.shape[:3]) for f in call["feats"]]
+        for dtype in (torch.bfloat16, torch.float32):
+            *_, err, line = compare_backward(f"{label}, {tag} stage {shapes[0]} p2", call["g"].to(dtype), boxes,
+                                             levels, bidx, shapes, dtype)
+            print(line, flush=True)
+            k2_errs.append(err)
+        check_adjoint(f"{label}, {tag} stage", [f.float().contiguous() for f in call["feats"]], boxes, levels, bidx,
+                      call["g"].float())
+        valid = torch.ones(boxes.shape[0], dtype=torch.bool, device="cuda")
+        k1_errs.append(compare_roi_align(f"{label}, {tag} stage (K1)", call["feats"], boxes, valid, bidx, call["out"],
+                                         call["feats"][0].dtype, timed=False)["err"])
+    return k1_errs, k2_errs
+
+
+def step_stats(run, steps) -> str:
+    """Steady step statistics of a ``TrainRun`` of ``steps`` steps (steps 3
+    to the last): ``train_step`` seconds (synchronised), the wall seconds
+    from one batch request to the next, the wait in ``next(loader)`` and its
+    share of the wall time."""
+    step_s = float(np.median([st["seconds"] for st in run.steps[2:steps]]))
+    waits = run.waits[2:steps]
+    span = run.requests[steps - 1] - run.requests[2]
+    share = sum(run.waits[2 : steps - 1]) / span
+    return (f"steady seconds/step={step_s:.6f} (median of steps 3-{steps}, train_step synchronised) "
+            f"wall seconds/step={span / (steps - 3):.6f} (batch request to batch request) "
+            f"loader wait/step median={float(np.median(waits)):.6f} mean={float(np.mean(waits)):.6f} "
+            f"(in next(loader)) loader share={share:.4f} of the wall time; first step "
+            f"{run.steps[0]['seconds']:.4f} s after a {run.waits[0]:.4f} s wait")
+
+
+class TimedInfer:
+    """Within the block, each ``TileEngine.infer`` call is timed
+    (synchronised on ``device``) and its valid detections counted."""
+
+    def __init__(self, device="cuda"):
+        self.device = device
+
+    def __enter__(self):
+        from deepemia_tpu_torch.inference.engine import TileEngine
+
+        self.cls, self.real, self.seconds, self.detections = TileEngine, TileEngine.infer, [], []
+        sync = torch.cuda.synchronize if self.device == "cuda" else (lambda: None)
+
+        def infer(engine, *args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = self.real(engine, *args, **kw)
+            sync()
+            self.seconds.append(time.perf_counter() - t0)
+            self.detections.append(int(out[0].valid.sum()))
+            return out
+
+        TileEngine.infer = infer
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.infer = self.real
+
+
+def run_cli(home: str, *argv: str) -> int:
+    """``python -m deepemia_tpu_torch.cli.main *argv`` in this process
+    (``runpy``, as ``-m`` runs it) on the framework home ``home`` -> its
+    exit code."""
+    import runpy
+
+    import deepemia_tpu_torch.config.config as port_cfg
+
+    before = os.environ.get("DEEPEMIA_TPU_HOME")
+    os.environ["DEEPEMIA_TPU_HOME"] = home
+    port_cfg._default_store = None
+    sys.argv = ["deepemia_tpu_torch.cli.main", *argv]
+    try:
+        runpy.run_module("deepemia_tpu_torch.cli.main", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        return e.code
+    finally:
+        if before is None:
+            del os.environ["DEEPEMIA_TPU_HOME"]
+        else:
+            os.environ["DEEPEMIA_TPU_HOME"] = before
+        port_cfg._default_store = None
+    return 0
+
+
+def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES, hw=DATASET_HW,
+                        steps=TRAIN_STEPS):
+    """Phase 13: training from a dataset through the port's CLI, in
+    process, on ``n_images`` synthetic labelled micrographs (Mask R-CNN
+    R50-FPN, 2 classes, the default config: 2 x 512² a step, 64 GT slots,
+    bf16 over float32 master weights, two loader workers): ``--task
+    prepare`` (an 80/20 split); K1 and K2 against their plain versions on
+    one training step of a 4-image loader batch (the batch an HPO winner
+    with ``ims_per_batch`` 4 trains on); ``train --rcnn 50 --augment
+    --max-iter <steps>`` (finite losses, 2 K1 + 2 K2 launches a step,
+    checkpoints and ``model_final_r50.pt``, weights moved); ``evaluate
+    --rcnn 50 --visualize`` (the JAX evaluator's metric names, finite, one
+    overlay and 2 K1 launches per test image, K1 against its plain version
+    at the whole-image pass's non-square levels); ``train --pretrained-weights
+    <zoo.pkl>`` for TUNE_STEPS steps (81-class heads skipped and
+    re-initialised, stem and res2 as loaded), and ``train --optimize
+    --n-trials 3 --max-iter 6 --hpo-strategy random`` (the winner in
+    config.yaml and the dataset YAML, no trial directory left).
+    -> (K1 launches, K2 launches, K1 errors, K2 errors) of the phase."""
+    import shutil
+
+    import yaml
+
+    from deepemia_tpu_torch.config.config import default_config
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train.trainer import zero_residual_norms
+
+    shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    home = os.path.join(DATASET_DIR, "home")
+    t0 = time.perf_counter()
+    root = synthetic_dataset(os.path.join(home, "DATASET", "sem"), n_images, hw)
+    print(f"dataset: {n_images} LZW TIFFs {hw[1]}x{hw[0]} with labels written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = default_config(home)
+    if config_hook:
+        config_hook(cfg)
+    os.makedirs(os.path.join(home, "config"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"sem": [root, root, ["particle", "pore"]]}, f)
+    flags = ["--dataset_name", "sem", "--no-download", "--no-upload", "--device", device, "--verbosity", "warning"]
+    split_dir = cfg["paths"]["split_dir"]
+    out_r50 = os.path.join(split_dir, "sem", "rcnn_r50")
+    k1 = k2 = 0
+
+    assert run_cli(home, "--task", "prepare", *flags) == 0
+    with open(os.path.join(split_dir, "sem_split.json")) as f:
+        split = json.load(f)
+    n_test = math.ceil(0.2 * n_images)
+    assert len(split["train"]) == n_images - n_test and len(split["test"]) == n_test, split
+    print(f"prepare: split {len(split['train'])}/{len(split['test'])}", flush=True)
+    k1_errs, k2_errs = [], []
+    if device == "cuda":
+        k1_errs, k2_errs = hold_train_capture(capture_train_step(loader_batch(cfg, split["train"], 4)),
+                                              "4-image loader batch")
+
+    # train from scratch
+    with TrainRun(device) as run, CountedRoIAlign() as roi:
+        t0 = time.perf_counter()
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--augment", "--max-iter", str(steps), *flags)
+        wall = time.perf_counter() - t0
+    assert rc == 0, rc
+    train_steps, waits = run.steps[:steps], run.waits[:steps]
+    assert len(run.steps) == steps and len(waits) == steps, (len(run.steps), len(waits))
+    for st in train_steps:
+        assert all(math.isfinite(st[k]) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")), st
+        if device == "cuda":
+            assert st["k1"] == 2 and st["k2"] == 2, st
+    assert os.listdir(os.path.join(out_r50, "ckpts")) and os.path.exists(os.path.join(out_r50, "model_final_r50.pt"))
+    start = build_train_model("R50", 2, device="cpu", seed=0)
+    zero_residual_norms(start)
+    after = torch.load(os.path.join(out_r50, "model_final_r50.pt"), map_location="cpu")["model"]
+    moved = sum(not torch.equal(v, after[k]) for k, v in start.state_dict().items())
+    assert moved > 0
+    tc = cfg.get("train", {})
+    setting = (f"R50-FPN, 2 x {tc.get('train_size', 512)}², {tc.get('max_instances', 64)} GT slots, "
+               f"{'bf16' if cfg['performance'].get('use_bf16', True) else 'float32'}, augment")
+    print(f"train: {steps} steps from {len(split['train'])} records ({setting}, {tc.get('loader_workers', 2)} loader "
+          f"workers): {step_stats(run, steps)}; the task took {wall:.1f} s; {moved} parameter tensors moved; "
+          "losses at the last step "
+          + json.dumps({k: round(train_steps[-1][k], 5) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")}),
+          flush=True)
+    print("train: loader waits " + json.dumps([round(x, 4) for x in waits]), flush=True)
+    k1, k2 = k1 + roi.launches, k2 + sum(st["k2"] for st in run.steps)
+
+    # evaluate
+    with CountedRoIAlign(capture=True) as roi, TimedInfer(device) as infer:
+        t0 = time.perf_counter()
+        assert run_cli(home, "--task", "evaluate", "--rcnn", "50", "--visualize", *flags) == 0
+        wall = time.perf_counter() - t0
+    out = os.path.join(cfg["paths"]["output_dir"], "sem", "eval_r50")
+    with open(os.path.join(out, "metrics.csv")) as f:
+        rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+    metrics = {k: float(v) for k, v in rows}
+    want = {f"{t}/{m}" for t in ("bbox", "segm") for m in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+                                                          "AR100", "ARs", "ARm", "ARl", "AP-class0", "AP-class1")}
+    assert set(metrics) == want | {"eval_seconds", "num_images"}, sorted(metrics)
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    overlays = sorted(p for p in os.listdir(out) if p.endswith("_eval.png"))
+    assert len(overlays) == n_test and metrics["num_images"] == n_test, (overlays, metrics["num_images"])
+    if device == "cuda":
+        assert roi.launches == roi.with_rois == 2 * n_test, (roi.launches, roi.with_rois)
+        # the whole-image pass pads 1024x768 only to /64: non-square levels
+        errs, _ = hold_captured(roi.shapes, "evaluate")
+        k1_errs += errs
+    print(f"evaluate: {n_test} test images, {metrics['eval_seconds'] / n_test:.4f} s per image (the evaluator's "
+          f"clock; the task took {wall:.1f} s; TileEngine.infer per image {[round(x, 4) for x in infer.seconds]} "
+          f"with {infer.detections} detections at the 0.45 threshold), roi_align_fwd launches={roi.launches} "
+          "(2 per image), "
+          f"{len(overlays)} overlays; bbox/AP={metrics['bbox/AP']:.4f} segm/AP={metrics['segm/AP']:.4f} "
+          f"(random init, {steps} steps)", flush=True)
+    k1 += roi.launches
+
+    # fine-tune from a zoo pickle with 81-class heads
+    zoo = os.path.join(DATASET_DIR, "zoo_r50.pkl")
+    zoo_sd = zoo_pickle(zoo)
+    shutil.rmtree(os.path.join(out_r50, "ckpts"))  # a fresh run, not a resume of the one above
+    with TrainRun(device) as run, CountedRoIAlign() as roi:
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--pretrained-weights", zoo, "--max-iter",
+                     str(TUNE_STEPS), *flags)
+    assert rc == 0 and len(run.steps) == TUNE_STEPS and len(run.pretrained) == 1, (rc, len(run.steps))
+    info = run.pretrained[0]
+    skipped = sorted(name for name, _, _ in info["skipped"])
+    assert skipped == [f"roi_heads.{n}.{p}" for n in ("box_predictor.bbox_pred", "box_predictor.cls_score",
+                                                      "mask_head.predictor") for p in ("bias", "weight")], skipped
+    after = torch.load(os.path.join(out_r50, "model_final_r50.pt"), map_location="cpu")["model"]
+    frozen = [k for k in after if k.startswith(("backbone.bottom_up.stem.", "backbone.bottom_up.res2."))]
+    assert frozen and all(np.array_equal(after[k].numpy(), zoo_sd[k]) for k in frozen)
+    assert after["roi_heads.box_predictor.cls_score.weight"].shape == (3, 1024)
+    print(f"fine-tune: {info['used']} tensors loaded from the zoo pickle, skipped and re-initialised "
+          f"{len(skipped)} ({', '.join(skipped)}); {len(frozen)} stem/res2 tensors unchanged after "
+          f"{TUNE_STEPS} steps", flush=True)
+    k1, k2 = k1 + roi.launches, k2 + sum(st["k2"] for st in run.steps)
+
+    # random-search HPO (its winner's run starts afresh: the fine-tuning
+    # run's optimizer holds only the unfrozen tensors)
+    shutil.rmtree(os.path.join(out_r50, "ckpts"))
+    with TrainRun(device) as run, CountedRoIAlign() as roi:
+        t0 = time.perf_counter()
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--optimize", "--n-trials", "3", "--max-iter", "6",
+                     "--hpo-strategy", "random", *flags)
+        wall = time.perf_counter() - t0
+    assert rc == 0, rc
+    with open(os.path.join(home, "config", "config.yaml")) as f:
+        best = yaml.safe_load(f)["rcnn_hyperparameters"]["best"]["R50"]
+    with open(os.path.join(cfg["paths"]["dataset_configs_dir"], "sem.yaml")) as f:
+        ds_best = yaml.safe_load(f)["rcnn_hyperparameters"]["best_R50"]
+    assert best == ds_best and set(best) == {"base_lr", "ims_per_batch", "warmup_iters", "gamma",
+                                             "batch_size_per_image"}, (best, ds_best)
+    assert not [p for p in os.listdir(os.path.join(split_dir, "sem")) if p.startswith("hpo_")]
+    print(f"hpo: 3 random trials of 6 steps and the winner's run in {wall:.1f} s ({len(run.steps)} steps); "
+          f"winner {json.dumps(best)} in config.yaml and sem.yaml; trial directories removed", flush=True)
+    k1, k2 = k1 + roi.launches, k2 + sum(st["k2"] for st in run.steps)
+    if device == "cuda":
+        print(f"train from a dataset: peak_memory_allocated_GB={torch.cuda.max_memory_allocated() / 1e9:.4f}",
+              flush=True)
+    shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    return k1, k2, k1_errs, k2_errs
+
+
 def check_window_sum(tag, f, got, expect_instance=None):
     """K3's [1,1] output ``got`` for ``f`` against the plain version within
     K3_TOL of sum |x| over the window; -> the absolute error. Prints the
@@ -2158,6 +2593,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(phases):
+        laps.append(time.perf_counter())
+        print(f"phases {phases}: {laps[-1] - laps[-2]:.1f} s", flush=True)
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
@@ -2178,6 +2619,7 @@ def main() -> int:
         captured = phase_captured(calls)
         phase_stage_times(model, engine, images[0])
         phase_small_reference()
+    lap("build and 1-5")
 
     batches = synthetic_train_batches(4, seed=7)
     train_launches, _ = phase_train(batches)
@@ -2185,31 +2627,41 @@ def main() -> int:
     phase_backward_edges()
     phase_train_reference()
     phase_train_profile(batches[1])
+    lap("6-8")
 
     import shutil
 
     try:
         pipeline_launches, pipeline_errs = phase_pipeline(model, images)
         phase_pipeline_reference(model)
+        lap(9)
         with torch.inference_mode():
             ensemble_launches, ensemble_errs = phase_ensemble(model, images)
+        lap(11)
         cli_launches = phase_cli(model, images)
         with torch.inference_mode():
             cli_launches += phase_device_measurements(model, images)
             cli_launches += phase_windowed_rle(model)
+        lap(12)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    try:
+        dataset_k1, dataset_k2, dataset_k1_errs, dataset_k2_errs = phase_train_dataset()
+    finally:
+        shutil.rmtree(DATASET_DIR, ignore_errors=True)
+    lap(13)
     k3_rows, k3_launches = phase_window_sum()
+    lap(10)
 
-    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs
+    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_fwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:351",
-        # phases 3 (tile engine), 9 (pipeline), 11 (ensemble) and 12 (the CLI's process, the device
-        # measurement backend and the 4096² image), each counted from zero
-        "launches": launches + pipeline_launches + ensemble_launches + cli_launches,
+        # phases 3 (tile engine), 9 (pipeline), 11 (ensemble), 12 (the CLI's process, the device
+        # measurement backend and the 4096² image) and 13 (training from a dataset), each counted from zero
+        "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -2223,8 +2675,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_bwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
-        "launches": train_launches["roi_align_bwd"],
-        "max_abs_err": max(r["err"] for r in bwd_rows),
+        # phases 7 (train_on_batches() on ready batches) and 13 (training from a dataset through the CLI)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2,
+        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
@@ -2265,7 +2718,10 @@ def main() -> int:
         "library_host_ms_f32": k3_f32["library_host_ms"],
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
-          f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}", flush=True)
+          f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}; "
+          f"roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset "
+          f"{dataset_k2}",
+          flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window]}), flush=True)
     print(card, flush=True)

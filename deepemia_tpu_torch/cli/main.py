@@ -3,13 +3,18 @@
 
 The JAX package's flag set, names and defaults (``deepemia_tpu/cli/main.py``),
 plus ``--device {cuda,cpu}`` (default ``cuda``), the torch form of the JAX
-CLI's ``JAX_PLATFORMS`` switch. ``--task inference`` runs as the JAX
-package's: the ETA estimate, the ``dataset_info.json`` and ``INFERENCE/``
-sync, the pipeline with ``--threshold``, ``--visualize``, ``--id``,
+CLI's ``JAX_PLATFORMS`` switch. Every task runs as the JAX package's:
+``prepare`` (the dataset sync and the train/test split file), ``train``
+(registration, ``--augment``, ``--optimize`` with ``--n-trials`` and
+``--hpo-strategy``, ``--max-iter``, ``--pretrained-weights``, evaluation
+after training, and ``--cleanup`` of the local dataset), ``evaluate``
+(COCO metrics on the test split, ``--visualize`` overlays), ``inference``
+(the ETA estimate, the ``dataset_info.json`` and ``INFERENCE/`` sync, the
+pipeline with ``--threshold``, ``--visualize``, ``--id``,
 ``--draw-scalebar`` and ``--profile``, the selective upload and the
-path-guarded ``--cleanup``. ``--task setup`` runs the interactive setup on
-the port's config store. Not ported yet, and refused with exit code 2 and
-the ROADMAP item named: ``--task prepare/train/evaluate`` (A5),
+path-guarded ``--cleanup``) and ``setup`` (the interactive setup on the
+port's config store); prepare, train and evaluate update the ETA store.
+Not ported yet, and refused with exit code 2 and the ROADMAP item named:
 ``--quantized`` other than ``none`` (A6), ``--chips`` above 1 (A8).
 """
 
@@ -25,15 +30,12 @@ from typing import Optional
 
 from deepemia_tpu_torch.config.config import get_config, get_store
 from deepemia_tpu_torch.utils.device import check_accelerator_availability
-from deepemia_tpu_torch.utils.eta import estimate_eta
+from deepemia_tpu_torch.utils.eta import estimate_eta, update_eta_data
 from deepemia_tpu_torch.utils.exceptions import PipelineError
 from deepemia_tpu_torch.utils.logging_utils import setup_logging, system_logger
 from deepemia_tpu_torch.utils.storage import storage_from_config
 
 log = logging.getLogger("deepemia_tpu_torch.cli")
-
-# tasks that wait for training from a dataset (ROADMAP A5)
-NOT_PORTED = ("prepare", "train", "evaluate")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="successive halving (default) or flat random search")
     p.add_argument("--max-iter", type=int, default=None, help="Override auto training schedule length")
     p.add_argument("--pretrained-weights", default=None, metavar="PATH",
-                   help="Fine-tune from a pretrained checkpoint")
+                   help=("Fine-tune from a zoo/pretrained checkpoint (Detectron2 .pth/.pkl or Caffe2 backbone pickle; "
+                         "class-count heads are re-initialized), or a checkpoint of this package. Defaults to "
+                         "train.pretrained_weights.<backbone> from config"))
     p.add_argument("--verbosity", default="info", choices=["debug", "info", "warning", "error"])
     p.add_argument("--no-gpu-check", action="store_true", help="Skip the CUDA preflight (automated runs)")
     p.add_argument("--draw-scalebar", action="store_true", default=False)
@@ -123,8 +127,6 @@ def setup_config_interactive() -> None:
 
 def _refusal(args) -> Optional[str]:
     """Why the port cannot run these arguments yet, or None."""
-    if args.task in NOT_PORTED:
-        return f"--task {args.task} is not ported to the PyTorch package yet: ROADMAP A5 (training from a dataset)"
     if args.chips not in (None, 0, 1):
         return f"--chips {args.chips}: tile sharding across GPUs is not ported (ROADMAP A8); the port runs on one"
     if args.quantized not in (None, "none"):
@@ -174,37 +176,86 @@ def run_task(args) -> int:
             log.warning("Using local dataset_info.json (sync failed: %s)", e)
 
     ds_root = Path(os.path.expanduser(paths.get("local_dataset_root", "~")))
+    dataset_dir = ds_root / "DATASET" / args.dataset_name
     split_dir = os.path.expanduser(paths["split_dir"])
     t_start = time.time()
+    rc = 0
 
-    from deepemia_tpu_torch.inference.pipeline import InferencePipeline
-    from deepemia_tpu_torch.utils.profiling import trace
+    if args.task == "prepare":
+        if args.download:
+            _try_download(storage, args.dataset_name, dataset_dir)
+        from deepemia_tpu_torch.data.datasets import read_dataset_info, split_dataset
 
-    inference_dir = ds_root / "DATASET" / "INFERENCE"
-    if args.download:
-        _try_download(storage, "INFERENCE", inference_dir)
-    n_images = len(list(inference_dir.glob("*"))) if inference_dir.exists() else 0
-    system_logger.info("ETA: ~%.0fs for %d images", estimate_eta(eta_file, "inference", max(n_images, 1)), n_images)
-    pipe = InferencePipeline(args.dataset_name, split_dir, config=cfg, default_threshold=args.threshold,
-                             device=args.device)
-    with trace(args.profile):
-        result = pipe.run(str(inference_dir), visualize=args.visualize, eta_file=eta_file, draw_ids=args.draw_id,
-                          draw_scalebar=args.draw_scalebar)
-    if args.upload:
-        try:
-            storage.upload_inference_results(Path(result["output_dir"]))
-            if args.cleanup:
-                from deepemia_tpu_torch.utils.safe_ops import safe_remove_files
+        info = read_dataset_info(paths["category_json"])
+        if args.dataset_name not in info:
+            log.error("Dataset %s not in dataset_info.json", args.dataset_name)
+            return 1
+        img_dir, label_dir, _ = info[args.dataset_name]
+        split_dataset(label_dir if os.path.isdir(os.path.expanduser(label_dir)) else img_dir, args.dataset_name,
+                      split_dir)
+        update_eta_data(eta_file, "prepare", time.time() - t_start)
 
-                removed = safe_remove_files(
-                    [result["output_dir"], str(inference_dir)],
-                    allowed_bases=[paths["output_dir"], str(ds_root / "DATASET")],
-                )
-                log.info("Cleaned up %d local paths after upload", len(removed))
-        except Exception as e:  # noqa: BLE001 - the results stay on disk
-            log.error("Result upload failed: %s", e)
+    elif args.task == "train":
+        if args.download:
+            _try_download(storage, args.dataset_name, dataset_dir)
+        from deepemia_tpu_torch.train.workflow import train_on_dataset
+
+        rcnn = {"combo": 0, "50": 50, "101": 101}[args.rcnn]
+        results = train_on_dataset(
+            args.dataset_name, split_dir, rcnn=rcnn, augment=args.augment, optimize=args.optimize,
+            n_trials=args.n_trials, config=cfg, max_steps_override=args.max_iter,
+            init_checkpoint=args.pretrained_weights, hpo_strategy=args.hpo_strategy, device=args.device,
+        )
+        for backbone, metrics in results.items():
+            system_logger.info("%s: segm AP %.2f bbox AP %.2f", backbone, metrics.get("segm/AP", float("nan")),
+                               metrics.get("bbox/AP", float("nan")))
+        if args.cleanup:
+            from deepemia_tpu_torch.utils.safe_ops import safe_remove_files
+
+            safe_remove_files([str(dataset_dir)], allowed_bases=[str(ds_root / "DATASET")])
+            log.info("Deleted local dataset after training (--cleanup)")
+        update_eta_data(eta_file, "train", time.time() - t_start)
+
+    elif args.task == "evaluate":
+        from deepemia_tpu_torch.train.workflow import evaluate_model
+
+        rcnn = 101 if args.rcnn in ("101", "combo") else 50
+        evaluate_model(args.dataset_name, split_dir, rcnn=rcnn, threshold=0.45, config=cfg, visualize=args.visualize,
+                       device=args.device)
+        update_eta_data(eta_file, "evaluate", time.time() - t_start)
+
+    elif args.task == "inference":
+        from deepemia_tpu_torch.inference.pipeline import InferencePipeline
+        from deepemia_tpu_torch.utils.profiling import trace
+
+        inference_dir = ds_root / "DATASET" / "INFERENCE"
+        if args.download:
+            _try_download(storage, "INFERENCE", inference_dir)
+        n_images = len(list(inference_dir.glob("*"))) if inference_dir.exists() else 0
+        system_logger.info("ETA: ~%.0fs for %d images", estimate_eta(eta_file, "inference", max(n_images, 1)),
+                           n_images)
+        pipe = InferencePipeline(args.dataset_name, split_dir, config=cfg, default_threshold=args.threshold,
+                                 device=args.device)
+        with trace(args.profile):
+            result = pipe.run(str(inference_dir), visualize=args.visualize, eta_file=eta_file, draw_ids=args.draw_id,
+                              draw_scalebar=args.draw_scalebar)
+        if args.upload:
+            try:
+                storage.upload_inference_results(Path(result["output_dir"]))
+                if args.cleanup:
+                    from deepemia_tpu_torch.utils.safe_ops import safe_remove_files
+
+                    removed = safe_remove_files(
+                        [result["output_dir"], str(inference_dir)],
+                        allowed_bases=[paths["output_dir"], str(ds_root / "DATASET")],
+                    )
+                    log.info("Cleaned up %d local paths after upload", len(removed))
+            except Exception as e:  # noqa: BLE001 - the results stay on disk
+                log.error("Result upload failed: %s", e)
+        rc = 0 if not result["failed"] else 1
+
     system_logger.info("Task %s finished in %.1fs", args.task, time.time() - t_start)
-    return 0 if not result["failed"] else 1
+    return rc
 
 
 def cli_entry(argv: Optional[list] = None) -> None:

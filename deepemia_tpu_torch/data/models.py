@@ -17,8 +17,6 @@ The JAX package's Orbax directories are a TPU artefact and do not load.
 from __future__ import annotations
 
 import os
-import pickle
-import re
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -26,10 +24,7 @@ import numpy as np
 import torch
 
 from deepemia_tpu_torch.models.mask_rcnn import MaskRCNN, build_model
-
-BN_EPS = 1e-5  # FrozenBatchNorm2d default
-# buffers a Detectron2 model may save that the port computes itself
-_NOT_PARAMETERS = re.compile(r"^(pixel_mean|pixel_std|proposal_generator\.anchor_generator\..*)$")
+from deepemia_tpu_torch.models.weights import fold_norms, infer_depth, load_torch_state_dict
 
 
 def get_trained_model_paths(split_dir: str, dataset_name: str) -> Dict[str, str]:
@@ -55,45 +50,6 @@ def get_trained_model_paths(split_dir: str, dataset_name: str) -> Dict[str, str]
     return found
 
 
-def _read_state_dict(path: str) -> Dict[str, np.ndarray]:
-    if path.endswith(".pkl"):
-        with open(path, "rb") as f:
-            obj = pickle.load(f, encoding="latin1")
-        sd = obj.get("model", obj)
-        return {k: np.asarray(v) for k, v in sd.items() if isinstance(v, np.ndarray)}
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    sd = obj.get("model", obj)
-    return {k: v.detach().float().numpy() for k, v in sd.items() if isinstance(v, torch.Tensor)}
-
-
-def _fold_norms(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Frozen batch norms with running statistics -> the affine norm:
-    scale = w / sqrt(var + eps), bias = b - mean * scale."""
-    out = {}
-    for k, v in sd.items():
-        if k.endswith((".running_mean", ".running_var")) or _NOT_PARAMETERS.match(k):
-            continue
-        prefix, _, leaf = k.rpartition(".")
-        var = sd.get(f"{prefix}.running_var")
-        if var is not None and leaf in ("weight", "bias"):
-            scale = sd[f"{prefix}.weight"] / np.sqrt(var + BN_EPS)
-            v = scale if leaf == "weight" else v - sd[f"{prefix}.running_mean"] * scale
-        out[k] = v
-    return out
-
-
-def infer_depth(sd: Dict[str, np.ndarray]) -> int:
-    """R50 vs R101 from the number of res4 blocks."""
-    blocks = {
-        int(m.group(1))
-        for k in sd
-        if (m := re.match(r"backbone\.bottom_up\.res4\.(\d+)\.conv1\.weight", k))
-    }
-    if not blocks:
-        raise ValueError("no res4 blocks found in checkpoint")
-    return 101 if max(blocks) + 1 == 23 else 50
-
-
 def load_model(
     path: str,
     num_classes: Optional[int] = None,
@@ -106,7 +62,7 @@ def load_model(
     path = os.path.expanduser(path)
     if not path.endswith((".pt", ".pth", ".pkl")):
         raise ValueError(f"Unrecognized checkpoint format: {path}")
-    sd = _fold_norms(_read_state_dict(path))
+    sd = fold_norms(load_torch_state_dict(path))
     w = sd.get("roi_heads.box_predictor.cls_score.weight")
     if w is None:
         raise ValueError(f"{path}: cls_score.weight missing from checkpoint")

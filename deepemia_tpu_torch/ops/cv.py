@@ -25,7 +25,22 @@ fixed-point code (rounded half up):
   reflect-101.
 - ``rotation_matrix2d`` and ``warp_affine_linear``: OpenCV's matrix and its
   float32 warp (fused multiply-adds, 16 output columns per vector, a
-  scalar tail), zero border.
+  scalar tail), zero border. A colour image is warped as three 2-D
+  images: the sample grid is the same, and each channel's value is
+  OpenCV's (checked on BGR images of 30-300 px, rotated and scaled, with
+  output widths on and off a multiple of 16).
+- ``convert_scale_abs``: saturate(round-half-even(|x * alpha|)) in float32.
+- ``fill_poly``: OpenCV's polygon fill for one polygon of whole-pixel
+  points. It draws every edge as an 8-connected line (Bresenham, leftmost
+  end first, clipped to the image as ``cv::clipLine`` clips it), then
+  fills scanlines from 16-bit fixed-point edge walks: an edge runs over
+  rows [y0, y1) of
+  its unclipped ends with x = X << 16 and slope dx = (dX << 16) / dY
+  (truncated); an edge with an end outside the image takes its x from the
+  clipped segment (both ends' x, and their rows unless the clipped segment
+  is horizontal) and extrapolates it to the unclipped rows. Each row pairs
+  the edges in x order and fills [ceil(left), floor(right)], clipped to
+  the row (a span wholly outside fills nothing).
 """
 
 from __future__ import annotations
@@ -304,7 +319,8 @@ def _invert_affine(m: np.ndarray) -> np.ndarray:
 
 def warp_affine_linear(image: np.ndarray, m: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """``cv2.warpAffine(image, m, size, flags=INTER_LINEAR)`` (zero border)
-    for a 2-D uint8 image; ``size`` is (width, height)."""
+    for a 2-D or [H,W,C] uint8 image; ``size`` is (width, height). Channels
+    are warped one by one on the one sample grid."""
     width, height = size
     mi = _invert_affine(m).astype(F32)
     xs = np.broadcast_to(np.arange(width, dtype=F32)[None, :], (height, width))
@@ -319,16 +335,146 @@ def warp_affine_linear(image: np.ndarray, m: np.ndarray, size: Tuple[int, int]) 
     sy[t] = _fma(xs[t], mi[3], (ys[t] * mi[4]).astype(F32)) + mi[5]
     ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
     fx, fy = (sx - ix.astype(F32)).astype(F32), (sy - iy.astype(F32)).astype(F32)
-    h, w = image.shape
-    src = image.astype(F32)
+    h, w = image.shape[:2]
+    taps = []
+    for yy, xx in ((iy, ix), (iy, ix + 1), (iy + 1, ix), (iy + 1, ix + 1)):
+        taps.append(((yy >= 0) & (yy < h) & (xx >= 0) & (xx < w), np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)))
 
-    def pixel(yy, xx):
-        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-        return np.where(inside, src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)], F32(0)).astype(F32)
+    def warp_plane(plane: np.ndarray) -> np.ndarray:
+        src = plane.astype(F32)
+        p00, p01, p10, p11 = (np.where(inside, src[yy, xx], F32(0)).astype(F32) for inside, yy, xx in taps)
+        top = _fma(fx, p01 - p00, p00)
+        bottom = _fma(fx, p11 - p10, p10)
+        out = _fma(fy, bottom - top, top)
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
-    p00, p01 = pixel(iy, ix), pixel(iy, ix + 1)
-    p10, p11 = pixel(iy + 1, ix), pixel(iy + 1, ix + 1)
-    top = _fma(fx, p01 - p00, p00)
-    bottom = _fma(fx, p11 - p10, p10)
-    out = _fma(fy, bottom - top, top)
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    if image.ndim == 2:
+        return warp_plane(image)
+    return np.stack([warp_plane(image[..., c]) for c in range(image.shape[2])], axis=-1)
+
+
+def convert_scale_abs(image: np.ndarray, alpha: float) -> np.ndarray:
+    """``cv2.convertScaleAbs(image, alpha=alpha)`` for uint8."""
+    scaled = np.abs(image.astype(F32) * F32(alpha))
+    return np.clip(np.rint(scaled), 0, 255).astype(np.uint8)
+
+
+# -- fillPoly -----------------------------------------------------------------
+
+_XY_SHIFT = 16
+
+
+def _clip_line(width: int, height: int, x1: int, y1: int, x2: int, y2: int):
+    """``cv::clipLine`` to [0, width) x [0, height) on whole-pixel ends
+    (Cohen-Sutherland, rows first, each step truncated toward zero) ->
+    (inside, x1, y1, x2, y2); the ends may be moved when it returns
+    False."""
+    right, bottom = width - 1, height - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line_pixels(lines: np.ndarray):
+    """8-connected lines [L,4] (x0, y0, x1, y1, inside the image) -> the
+    (rows, cols) of their pixels, as ``cv::LineIterator`` walks them: from
+    the leftmost end, the minor coordinate after k major steps being
+    (2·minor·k + major - 1) // (2·major)."""
+    swap = lines[:, 2] < lines[:, 0]
+    x0 = np.where(swap, lines[:, 2], lines[:, 0])
+    y0 = np.where(swap, lines[:, 3], lines[:, 1])
+    dx = np.abs(lines[:, 2] - lines[:, 0])
+    dy_signed = np.where(swap, lines[:, 1] - lines[:, 3], lines[:, 3] - lines[:, 1])
+    sy = np.where(dy_signed < 0, -1, 1)
+    dy = np.abs(dy_signed)
+    vert = dy > dx
+    major = np.maximum(dx, dy)
+    minor = np.minimum(dx, dy)
+    count = major + 1
+    first = np.repeat(np.cumsum(count) - count, count)
+    k = np.arange(int(count.sum()), dtype=np.int64) - first
+    a, b = np.repeat(major, count), np.repeat(minor, count)
+    m = np.where(a > 0, (2 * b * k + a - 1) // np.maximum(2 * a, 1), 0)
+    v = np.repeat(vert, count)
+    xs = np.repeat(x0, count) + np.where(v, m, k)
+    ys = np.repeat(y0, count) + np.repeat(sy, count) * np.where(v, k, m)
+    return ys, xs
+
+
+def fill_poly(mask: np.ndarray, points, value=1) -> np.ndarray:
+    """``cv2.fillPoly(mask, [points], value)`` for one polygon of int32
+    points [N,2] (x, y) on a 2-D mask; fills in place and returns it."""
+    h, w = mask.shape
+    pts = np.asarray(points, np.int64).reshape(-1, 2)
+    if not len(pts):
+        return mask
+    p0, p1 = np.roll(pts, 1, axis=0), pts  # edge i runs from point i-1 to point i
+    ends = np.concatenate([p0, p1], axis=1)  # [N, 4] x0, y0, x1, y1
+    inside = ((ends[:, 0::2] >= 0) & (ends[:, 0::2] < w) & (ends[:, 1::2] >= 0) & (ends[:, 1::2] < h)).all(1)
+    lines = [ends[inside]]
+    clipped = ends.copy()  # the ends the fill takes its x (and rows) from
+    for i in np.flatnonzero(~inside):
+        ok, cx0, cy0, cx1, cy1 = _clip_line(w, h, *(int(v) for v in ends[i]))
+        if ok:
+            lines.append(np.array([[cx0, cy0, cx1, cy1]], np.int64))
+        clipped[i, 0], clipped[i, 2] = cx0, cx1
+        if cy0 != cy1:
+            clipped[i, 1], clipped[i, 3] = cy0, cy1
+    ys, xs = _line_pixels(np.concatenate(lines))
+    mask[ys, xs] = value
+
+    edge = ends[:, 1] != ends[:, 3]
+    if edge.sum() < 2:
+        return mask
+    e, c = ends[edge], clipped[edge]
+    num = (c[:, 2] - c[:, 0]) << _XY_SHIFT
+    den = c[:, 3] - c[:, 1]
+    dx = np.sign(num) * np.sign(den) * (np.abs(num) // np.abs(den))  # C++ division truncates
+    down = e[:, 1] < e[:, 3]
+    y0 = np.where(down, e[:, 1], e[:, 3])
+    y1 = np.where(down, e[:, 3], e[:, 1])
+    x_at = np.where(down, c[:, 0], c[:, 2]) << _XY_SHIFT
+    y_at = np.where(down, c[:, 1], c[:, 3])
+    x0 = x_at + (y0 - y_at) * dx
+    lo, hi = np.maximum(y0, 0), np.minimum(y1, h)
+    n = np.maximum(hi - lo, 0)
+    if not n.sum():
+        return mask
+    rows = np.repeat(lo, n) + np.arange(int(n.sum()), dtype=np.int64) - np.repeat(np.cumsum(n) - n, n)
+    x = np.repeat(x0, n) + (rows - np.repeat(y0, n)) * np.repeat(dx, n)
+    order = np.lexsort((x, rows))
+    pairs_r = rows[order].reshape(-1, 2)[:, 0]
+    pairs_x = x[order].reshape(-1, 2)
+    left = (pairs_x[:, 0] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    right = pairs_x[:, 1] >> _XY_SHIFT
+    keep = (left < w) & (right >= 0)
+    if not keep.any():
+        return mask
+    r, left, right = pairs_r[keep], np.maximum(left[keep], 0), np.minimum(right[keep], w - 1)
+    r0, c0 = int(r.min()), int(left.min())
+    cover = np.zeros((int(r.max()) - r0 + 1, int(right.max()) - c0 + 2), np.int32)
+    np.add.at(cover, (r - r0, left - c0), 1)
+    np.add.at(cover, (r - r0, right + 1 - c0), -1)
+    region = mask[r0 : r0 + cover.shape[0], c0 : c0 + cover.shape[1] - 1]
+    region[np.cumsum(cover[:, :-1], axis=1) > 0] = value
+    return mask

@@ -16,6 +16,12 @@ PIXEL_MEAN_BGR = (103.53, 116.28, 123.675)
 PIXEL_STD_BGR = (1.0, 1.0, 1.0)
 
 
+class UnsupportedImageError(ValueError):
+    """An image file in an encoding ``read_image`` does not decode (where
+    OpenCV may): unlike a missing or corrupt file, which OpenCV cannot read
+    either, it is not to be skipped as unreadable."""
+
+
 def to_grayscale(image: torch.Tensor) -> torch.Tensor:
     """[H,W,3] BGR -> [H,W] float32 luma (cv2 BGR2GRAY weights)."""
     img = image.float()
@@ -99,8 +105,9 @@ def read_image(path: str) -> np.ndarray:
     channels and alpha is dropped. 16-bit samples reduce to 8 bits as
     OpenCV reduces them: the high byte, except for 16-bit colour TIFF,
     which libtiff's RGBA reader rounds (v * 255 + 32767) // 65535. Any
-    other encoding (JPEG, BigTIFF, the other TIFF compressions) raises a
-    ``ValueError`` that names it."""
+    other encoding (JPEG, BigTIFF, the other TIFF compressions) raises an
+    ``UnsupportedImageError`` that names it; a corrupt or truncated file a
+    ``ValueError``, and a missing one an ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -109,16 +116,16 @@ def read_image(path: str) -> np.ndarray:
         if data[:4] in (b"II*\x00", b"MM\x00*"):
             return _decode_tiff(data)
         if data[:4] in (b"II+\x00", b"MM\x00+"):
-            raise ValueError("BigTIFF is not supported")
+            raise UnsupportedImageError("BigTIFF is not supported")
         if data[:3] == b"\xff\xd8\xff":
-            raise ValueError("JPEG is not supported")
+            raise UnsupportedImageError("JPEG is not supported (JPEG decoding is ROADMAP A7)")
         if data[:2] == b"BM":
             return _decode_bmp(data)
     except (struct.error, KeyError, IndexError, zlib.error) as e:
         raise ValueError(f"{path}: corrupt or truncated file ({type(e).__name__}: {e})") from e
     except ValueError as e:
-        raise ValueError(f"{path}: {e}") from None
-    raise ValueError(f"{path}: unknown image encoding")
+        raise type(e)(f"{path}: {e}") from None
+    raise UnsupportedImageError(f"{path}: unknown image encoding")
 
 
 def _to_bgr(pix: np.ndarray) -> np.ndarray:
@@ -180,9 +187,9 @@ def _decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
     if ctype not in _PNG_CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
-        raise ValueError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
+        raise UnsupportedImageError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
     if interlace not in (0, 1):
-        raise ValueError(f"PNG: interlace method {interlace} is not supported")
+        raise UnsupportedImageError(f"PNG: interlace method {interlace} is not supported")
     spp = _PNG_CHANNELS[ctype]
     bpp = spp * depth // 8
     stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -238,17 +245,19 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     comp, photometric = get(259, 1)[0], get(262, 1)[0]
     predictor, planar = get(317, 1)[0], get(284, 1)[0]
     if comp not in _TIFF_DECODED:
-        raise ValueError(f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported")
+        raise UnsupportedImageError(
+            f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported"
+        )
     # libtiff reads the predictor tag for LZW and Deflate only
     predictor = predictor if comp in (5, 8, 32946) else 1
     if predictor not in (1, 2):
-        raise ValueError(f"TIFF: predictor {predictor} is not supported")
+        raise UnsupportedImageError(f"TIFF: predictor {predictor} is not supported")
     if planar not in (1, 2):
-        raise ValueError(f"TIFF: planar configuration {planar} is not supported")
+        raise UnsupportedImageError(f"TIFF: planar configuration {planar} is not supported")
     if len(bits) != 1 or bits - {8, 16} or set(get(339, 1)) != {1}:
-        raise ValueError(f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported")
+        raise UnsupportedImageError(f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported")
     if photometric not in (1, 2) or spp not in ((1, 2) if photometric == 1 else (3, 4)):
-        raise ValueError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
+        raise UnsupportedImageError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
     depth = bits.pop()
     dtype = np.dtype(np.uint8) if depth == 8 else np.dtype(end + "u2")
     sps = spp if planar == 1 else 1  # samples per pixel within one segment
@@ -293,16 +302,16 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     (pixel_at,) = struct.unpack("<I", data[10:14])
     (hsize,) = struct.unpack("<I", data[14:18])
     if hsize < 40:
-        raise ValueError(f"BMP: OS/2 header of {hsize} bytes is not supported")
+        raise UnsupportedImageError(f"BMP: OS/2 header of {hsize} bytes is not supported")
     w, h, _, bits, comp, _, _, _, ncolors = struct.unpack("<iiHHIIiiI", data[18:50])
     if comp == 3 and bits == 32:
         masks = struct.unpack("<III", data[54:66])
         if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise ValueError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
+            raise UnsupportedImageError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
     elif comp != 0:
-        raise ValueError(f"BMP: compression {comp} (RLE or bit fields) is not supported")
+        raise UnsupportedImageError(f"BMP: compression {comp} (RLE or bit fields) is not supported")
     if bits not in (8, 24, 32):
-        raise ValueError(f"BMP: {bits}-bit pixels are not supported")
+        raise UnsupportedImageError(f"BMP: {bits}-bit pixels are not supported")
     rows, width = abs(h), w
     stride = (width * bits // 8 + 3) & ~3
     raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)

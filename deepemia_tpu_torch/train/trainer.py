@@ -1,20 +1,28 @@
-"""Training loop on one GPU: SGD over ``maskrcnn_loss``, warmup-multistep
+"""Training on one GPU: SGD over ``maskrcnn_loss``, warmup-multistep
 schedule, torch checkpoints with resume (counterpart of the JAX package's
 ``train/trainer.py``).
+
+``train`` takes registered records, as the JAX package's does: it runs the
+``TrainLoader`` (``data/loader.py``) and sizes the schedule from the record
+count. ``train_on_batches`` is the loop itself, over ready batches in the
+loader's format; ``train`` calls it with the loader's stream.
 
 What carries over: the Detectron2 WarmupMultiStepLR schedule read at step
 0 for the first update, SGD with momentum 0.9 and weight decay 1e-4 after
 an optional global-norm clip (optax's clip -> decay -> sgd order), the
-from-scratch conditioning (``zero_residual_norms``), freezing of the stem,
-``res2`` and every frozen-BN affine only when fine-tuning, checkpoints
-every ``checkpoint_every`` steps with a resume from the newest, and the
-final ``model_final_{r50,r101}`` weights. Compute runs in bf16 under
-autocast over float32 master weights.
+from-scratch conditioning (``zero_residual_norms``), the zoo fine-tune
+overlay for ``.pth``/``.pkl`` checkpoints (``models.weights.
+load_pretrained_params``), freezing of the stem, ``res2`` and every
+frozen-BN affine only when fine-tuning, checkpoints every
+``checkpoint_every`` steps with a resume from the newest, and the final
+``model_final_{r50,r101}`` weights. Compute runs in bf16 under autocast
+over float32 master weights.
 
 Left out as TPU artefacts: the ``('data','model')`` mesh and the
 tensor-parallel box head, the packed one-buffer batch transfer, the
-chunked ``lax.scan`` dispatch and Orbax. Batches come from the caller in
-the JAX loader's dict format; the loader itself is not ported yet.
+chunked ``lax.scan`` dispatch, buffer donation and Orbax (the config keys
+``roi_backend``, ``steps_per_dispatch``, ``donate_buffers`` and
+``n_model_shards`` have no field here).
 """
 
 from __future__ import annotations
@@ -25,13 +33,15 @@ import os
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from deepemia_tpu_torch import resolve_device
+from deepemia_tpu_torch.data.loader import TrainLoader
 from deepemia_tpu_torch.models.mask_rcnn import MaskRCNN, build_train_model
+from deepemia_tpu_torch.models.weights import load_pretrained_params
 from deepemia_tpu_torch.train.losses import GroundTruth, maskrcnn_loss
 
 log = logging.getLogger("deepemia_tpu_torch.trainer")
@@ -119,7 +129,15 @@ class TrainConfig:
     # shape every batch must have: images [ims_per_batch, S, S, 3], GT
     # padded to max_instances rows
     train_size: int = 512
+    # 'fixed' (long side to train_size) or 'range' (Detectron2's shortest
+    # edge schedule inside the train_size canvas, data/loader.prepare_sample)
+    resize_mode: str = "fixed"
+    min_size_range: Tuple[int, int] = (640, 800)
+    max_size: int = 1333
     max_instances: int = 64
+    # loader producer threads; 1 = the batch order is fixed by the seed
+    loader_workers: int = 2
+    augment: bool = False
     checkpoint_every: int = 1000
     log_every: int = 20
     # bf16 autocast over float32 master weights
@@ -127,8 +145,10 @@ class TrainConfig:
     seed: int = 0
     # static proposal / sample capacity overrides (small for tests)
     loss_caps: Optional[dict] = None
-    # a torch file with a Detectron2-named state dict (as model_final_*.pt
-    # holds) to fine-tune from; freezes the stem, res2 and the norms
+    # weights to fine-tune from (freezes the stem, res2 and the norms): a
+    # Detectron2 .pth/.pkl or Caffe2 backbone pickle is overlaid on the
+    # seeded model (class-count heads re-initialised); any other file is a
+    # torch state dict of this model (as model_final_*.pt holds)
     init_checkpoint: Optional[str] = None
     # global-norm gradient clipping (advised from scratch: frozen BN does
     # not normalise activations)
@@ -219,7 +239,28 @@ def _model_state(obj) -> dict:
     return obj["model"] if isinstance(obj, dict) and "model" in obj else obj
 
 
-def train(
+def _init_weights(model: MaskRCNN, init_checkpoint: Optional[str], cfg: TrainConfig, dev) -> None:
+    """Fine-tuning weights (and freezing), or the from-scratch
+    conditioning."""
+    if init_checkpoint:
+        path = os.path.expanduser(init_checkpoint)
+        if path.endswith((".pth", ".pkl")):
+            info = load_pretrained_params(path, model)
+            log.info("Fine-tuning from %s (%d tensors loaded, %d head/shape re-inits)",
+                     init_checkpoint, info["used"], len(info["skipped"]))
+        else:
+            model.load_state_dict(_model_state(torch.load(path, map_location=dev)), strict=True)
+            log.info("Fine-tuning from %s", init_checkpoint)
+        # fine-tuning protects the pretrained early layers; from scratch
+        # everything trains (freezing would pin the zeroed residual norms)
+        trainable = _trainable_mask(model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(trainable[name])
+    elif cfg.zero_init_residual:
+        zero_residual_norms(model)
+
+
+def train_on_batches(
     batches: Iterable[dict],
     num_classes: int,
     output_dir: str,
@@ -247,18 +288,7 @@ def train(
     max_iter = max_steps_override or cfg.max_iter or auto_max_iter(len(batches) * cfg.ims_per_batch)
 
     model = build_train_model(cfg.backbone, num_classes, device=dev, seed=cfg.seed)
-    init_checkpoint = init_checkpoint or cfg.init_checkpoint
-    if init_checkpoint:
-        state = torch.load(os.path.expanduser(init_checkpoint), map_location=dev)
-        model.load_state_dict(_model_state(state), strict=True)
-        # fine-tuning protects the pretrained early layers; from scratch
-        # everything trains (freezing would pin the zeroed residual norms)
-        trainable = _trainable_mask(model)
-        for name, p in model.named_parameters():
-            p.requires_grad_(trainable[name])
-        log.info("Fine-tuning from %s", init_checkpoint)
-    elif cfg.zero_init_residual:
-        zero_residual_norms(model)
+    _init_weights(model, init_checkpoint or cfg.init_checkpoint, cfg, dev)
     optimizer, scheduler = make_optimizer(
         [p for p in model.parameters() if p.requires_grad],
         cfg.base_lr, max_iter, cfg.warmup_iters, cfg.gamma,
@@ -310,3 +340,31 @@ def train(
     )
     log.info("Final weights: %s", final)
     return str(final), metrics
+
+
+def train(
+    records: List[dict],
+    num_classes: int,
+    output_dir: str,
+    cfg: TrainConfig = TrainConfig(),
+    init_checkpoint: Optional[str] = None,
+    resume: bool = True,
+    max_steps_override: Optional[int] = None,
+    device=None,
+) -> Tuple[str, Dict[str, float]]:
+    """Train Mask R-CNN on registered records (``data/datasets.py``) ->
+    (final weights path, last step's losses): the ``TrainLoader`` of the
+    config's size, augmentation and workers feeds :func:`train_on_batches`,
+    and the schedule is :func:`auto_max_iter` of the record count unless
+    ``max_steps_override`` or ``cfg.max_iter`` sets it."""
+    dev = resolve_device(device)
+    max_iter = max_steps_override or cfg.max_iter or auto_max_iter(len(records))
+    loader = TrainLoader(
+        records, cfg.ims_per_batch, cfg.train_size, cfg.max_instances, cfg.augment, cfg.seed,
+        resize_mode=cfg.resize_mode, min_size_range=tuple(cfg.min_size_range), max_size=cfg.max_size,
+        workers=cfg.loader_workers,
+    )
+    try:
+        return train_on_batches(iter(loader), num_classes, output_dir, cfg, init_checkpoint, resume, max_iter, dev)
+    finally:
+        loader.close()

@@ -1,7 +1,7 @@
 """The port's errors: a pipeline error carrying its stage and details, and
-the configuration and storage errors under it (the part of the JAX
-package's ``utils/exceptions.py`` that the store, the storage backends and
-the CLI raise)."""
+the configuration, model-load, training, data and storage errors under it
+(the JAX package's ``utils/exceptions.py`` but its ``InferenceError``,
+which nothing in the port raises)."""
 
 from __future__ import annotations
 
@@ -31,6 +31,27 @@ class ConfigurationError(PipelineError):
 
     def __init__(self, message: str, **kw):
         super().__init__(message, stage="configuration", **kw)
+
+
+class ModelLoadError(PipelineError):
+    """Checkpoint discovery or restore failure."""
+
+    def __init__(self, message: str, **kw):
+        super().__init__(message, stage="model_load", **kw)
+
+
+class TrainingError(PipelineError):
+    """Training-loop failure."""
+
+    def __init__(self, message: str, **kw):
+        super().__init__(message, stage="training", **kw)
+
+
+class DataError(PipelineError):
+    """Dataset split, registration or parsing failure."""
+
+    def __init__(self, message: str, **kw):
+        super().__init__(message, stage="data", **kw)
 
 
 class StorageError(PipelineError):

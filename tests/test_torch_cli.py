@@ -3,12 +3,18 @@ dests, choices and defaults (the port adds ``--device``); ``--task
 inference --device cpu`` end to end on a tiny home against ``python
 main.py`` (``JAX_PLATFORMS=cpu``) on a home built the same way, both in
 subprocesses: the same exit code and the same files out, the RLE CSV
-equal and the measurement CSV to 1e-4 relative; the refusals of what is
-not ported, with exit code 2 and the ROADMAP item; ``--cleanup`` within its
-allowed bases."""
+equal and the measurement CSV to 1e-4 relative; ``--task prepare``, then
+``train --max-iter 2``, then ``evaluate --visualize`` with ``--device cpu``
+on a 3-image 64² dataset (the split file, the final weights, metrics.csv
+with the JAX evaluator's metric names, the ETA store); the refusals of what
+is not ported, with exit code 2 and the ROADMAP item; ``--cleanup`` within
+its allowed bases."""
 
+import contextlib
 import json
+import logging
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -18,16 +24,46 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from sklearn.model_selection import train_test_split as sk_train_test_split
 
 import deepemia_tpu_torch.config.config as port_cfg
+import deepemia_tpu_torch.data.datasets as port_ds
+import deepemia_tpu_torch.train.workflow as port_wf
+import deepemia_tpu_torch.utils.logging_utils as pt_logging
 from deepemia_tpu.cli.main import build_parser as jax_build_parser
+from deepemia_tpu.train.evaluator import evaluate_predictions as jax_evaluate_predictions
 from deepemia_tpu_torch.cli import main as cli
 from deepemia_tpu_torch.config.config import default_config
+from deepemia_tpu_torch.train.trainer import TrainConfig
+from test_torch_datasets import make_dataset
 from test_torch_pipeline import _assert_csvs_match, _write_checkpoint, _zoo_state_dict
 
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@contextlib.contextmanager
+def restored_logging():
+    """The package logger (handlers, level, propagation, configured flag)
+    as it was before the block: the CLI configures it in process, and a
+    later test file in the same worker counts its handlers."""
+    logger = logging.getLogger("deepemia_tpu_torch")
+    saved = (list(logger.handlers), logger.level, logger.propagate, pt_logging._configured)
+    try:
+        yield
+    finally:
+        for h in logger.handlers:
+            if h not in saved[0]:
+                h.close()
+        logger.handlers[:], logger.level, logger.propagate = saved[:3]
+        pt_logging._configured = saved[3]
+
+
+@pytest.fixture(autouse=True)
+def _package_logging():
+    with restored_logging():
+        yield
 
 
 def _actions(parser):
@@ -113,9 +149,7 @@ def test_inference_task_matches_the_jax_cli(tmp_path, tiny_r50):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--task", "train", "--dataset_name", "zds"], "A5"),
-    (["--task", "evaluate", "--dataset_name", "zds"], "A5"),
-    (["--task", "prepare"], "A5"),
+    (["--task", "train", "--dataset_name", "zds", "--chips", "4"], "A8"),
     (["--task", "inference", "--dataset_name", "zds", "--chips", "4"], "A8"),
     (["--task", "inference", "--dataset_name", "zds", "--quantized", "trunk"], "A6"),
 ])
@@ -124,6 +158,85 @@ def test_what_is_not_ported_exits_2(argv, item, capsys):
         cli.cli_entry(argv)
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+# small proposal and sample capacities keep a CPU training step at 64² near 1 s
+SMALL_CAPS = dict(pre_nms_topk=128, post_nms_topk=64, rpn_batch=64, roi_batch=64, mask_rois=16)
+
+
+@pytest.fixture(scope="module")
+def dataset_home(tmp_path_factory):
+    """A home with a 3-image 64² dataset (DATASET/zds), its dataset_info
+    entry and a config.yaml that trains at 64² with 8 GT slots and one
+    loader worker, in float32; then ``--task prepare``, ``train --rcnn 50
+    --max-iter 2`` and ``evaluate --rcnn 50 --visualize``, each with
+    ``--device cpu --no-download --no-upload`` -> (home, exit codes, what
+    the run left in ``rcnn_r50/``: the checkpoint names and the final
+    weights' backbone, class count and class-head shape; the weight files
+    themselves, ~0.5 GB, are removed)."""
+    home = tmp_path_factory.mktemp("dataset_home")
+    cfg = default_config(home)
+    cfg["performance"]["use_bf16"] = False
+    cfg["train"] = {"train_size": 64, "max_instances": 8, "loader_workers": 1}
+    (home / "config").mkdir()
+    (home / "config" / "config.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+    root = make_dataset(home / "DATASET" / "zds", 3, seed=12, size=(64, 64), classes=("particle", "pore"))
+    (home / "dataset_info.json").write_text(json.dumps({"zds": [root, root, ["particle", "pore"]]}))
+    rcs = {}
+    with pytest.MonkeyPatch.context() as mp, restored_logging():
+        mp.setenv("DEEPEMIA_TPU_HOME", str(home))
+        mp.setattr(port_cfg, "_default_store", None)
+        mp.setattr(port_wf, "TrainConfig", lambda **kw: TrainConfig(loss_caps=SMALL_CAPS, **kw))
+        port_ds.catalog_clear()
+        for task in (["prepare"], ["train", "--rcnn", "50", "--max-iter", "2"],
+                     ["evaluate", "--rcnn", "50", "--visualize"]):
+            with pytest.raises(SystemExit) as e:
+                cli.cli_entry(["--task", *task, "--dataset_name", "zds", "--no-download", "--no-upload",
+                               "--device", "cpu"])
+            rcs[task[0]] = e.value.code
+        port_ds.catalog_clear()
+    port_cfg._default_store = None
+    out = home / "split_dir" / "zds" / "rcnn_r50"
+    trained = {"ckpts": sorted(p.name for p in (out / "ckpts").iterdir())}
+    final = torch.load(out / "model_final_r50.pt", map_location="cpu")
+    trained.update(backbone=final["backbone"], num_classes=final["num_classes"],
+                   cls_shape=tuple(final["model"]["roi_heads.box_predictor.cls_score.weight"].shape))
+    shutil.rmtree(out / "ckpts")
+    (out / "model_final_r50.pt").unlink()
+    return home, rcs, trained
+
+
+def test_prepare_task_writes_the_split(dataset_home):
+    home, rcs, _ = dataset_home
+    assert rcs["prepare"] == 0
+    split = json.loads((home / "split_dir" / "zds_split.json").read_text())
+    train, test = sk_train_test_split(["img0.json", "img1.json", "img2.json"], test_size=0.2, random_state=42)
+    assert split == {"train": train, "test": test} and len(test) == 1
+
+
+def test_train_task_writes_the_final_weights(dataset_home):
+    _, rcs, trained = dataset_home
+    assert rcs["train"] == 0
+    assert trained == {"ckpts": ["step_00000002.pt"], "backbone": "R50", "num_classes": 2, "cls_shape": (3, 1024)}
+
+
+def test_evaluate_task_writes_metrics(dataset_home):
+    home, rcs, _ = dataset_home
+    assert rcs["evaluate"] == 0
+    out = home / "output" / "zds" / "eval_r50"
+    test = json.loads((home / "split_dir" / "zds_split.json").read_text())["test"]
+    assert sorted(p.name for p in out.iterdir()) == [test[0].replace(".json", ".png_eval.png"), "metrics.csv"]
+    with open(out / "metrics.csv") as f:
+        rows = [line.split(",") for line in f.read().splitlines()]
+    sample = [{"pred_boxes": np.zeros((0, 4)), "pred_scores": np.zeros(0), "pred_classes": np.zeros(0, int),
+               "pred_masks": np.zeros((0, 8, 8), bool), "gt_boxes": np.array([[0, 0, 4, 4]] * 2, np.float32),
+               "gt_classes": np.array([0, 1]), "gt_masks": np.ones((2, 8, 8), bool)}]  # every class has GT
+    names = sorted([*jax_evaluate_predictions(sample, 2), "eval_seconds", "num_images"])
+    assert rows[0] == ["metric", "value"] and [r[0] for r in rows[1:]] == names
+    values = dict(rows[1:])
+    assert float(values["num_images"]) == 1 and float(values["eval_seconds"]) > 0
+    eta = json.loads((home / "config" / "eta_data.json").read_text())
+    assert set(eta) >= {"prepare", "train", "evaluate"}
 
 
 def test_inference_without_a_dataset_name_exits_2(capsys):

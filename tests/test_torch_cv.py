@@ -130,3 +130,31 @@ def test_rotation_and_warp_affine(seed):
             assert np.array_equal(m, m_ref)
             ref = cv2.warpAffine(img, m_ref, (w, h), flags=cv2.INTER_LINEAR)
             assert np.array_equal(cv.warp_affine_linear(img, m, (w, h)), ref), (img.shape, angle)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_warp_affine_colour_as_the_loader_warps(seed):
+    """[H,W,3] images through the loader's composed affine (flips, rotation,
+    resize scale), output widths on and off a multiple of 16."""
+    rng = np.random.default_rng(40 + seed)
+    for i in range(12):
+        h, w = (int(v) for v in rng.integers(30, 300, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        geo = np.eye(3)
+        if rng.random() < 0.5:
+            geo = np.array([[-1, 0, w - 1], [0, 1, 0], [0, 0, 1]], np.float64) @ geo
+        rot = np.eye(3)
+        rot[:2] = cv.rotation_matrix2d((w / 2.0, h / 2.0), float(rng.uniform(-20, 20)), 1.0)
+        size = int(rng.integers(16, 200)) // 16 * 16 if i % 2 else int(rng.integers(17, 200))
+        s = size / max(h, w)
+        geo = np.array([[s, 0, (s - 1) / 2], [0, s, (s - 1) / 2], [0, 0, 1]]) @ rot @ geo
+        ref = cv2.warpAffine(img, geo[:2], (size, size), flags=cv2.INTER_LINEAR)
+        got = cv.warp_affine_linear(img, geo[:2], (size, size))
+        assert got.shape == ref.shape and np.array_equal(got, ref), (h, w, size)
+
+
+def test_convert_scale_abs():
+    rng = np.random.default_rng(5)
+    for img in list(_cases(6, n_random=20, hi=120)) + [np.arange(256, dtype=np.uint8).reshape(16, 16)]:
+        for alpha in [0.8, 1.2, float(rng.uniform(0.8, 1.2)), 1.0, -0.7, 0.5]:
+            assert np.array_equal(cv.convert_scale_abs(img, alpha), cv2.convertScaleAbs(img, alpha=alpha)), alpha

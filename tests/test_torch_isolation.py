@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, Flax, ``deepemia_tpu``, OpenCV or PIL
-imports, and its entry points run on CUDA unless told otherwise."""
+"""The port stands alone: no JAX, Flax, Optax, Orbax, ``deepemia_tpu``,
+OpenCV, PIL or scikit-learn imports, and its entry points run on CUDA
+unless told otherwise."""
 
 import ast
 import subprocess
@@ -11,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepemia_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepemia_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "deepemia_tpu", "cv2", "PIL", "sklearn")
 
 
 def _imported_modules(path: Path):
@@ -38,6 +39,9 @@ def _forbidden(module: str) -> bool:
         ("deepemia_tpu.ops.boxes", True),
         ("cv2", True),
         ("PIL.Image", True),
+        ("sklearn.model_selection", True),
+        ("orbax.checkpoint", True),
+        ("optax", True),
         ("deepemia_tpu_torch.ops.boxes", False),
         ("torch.nn", False),
     ],
@@ -59,6 +63,8 @@ def test_port_sources_import_no_jax():
         "inference/scalebar.py", "inference/ensemble.py", "inference/viz.py", "inference/measure.py",
         "ops/morphometrics.py", "ops/image.py", "cli/main.py", "utils/eta.py", "utils/logging_utils.py",
         "utils/device.py", "utils/safe_ops.py", "utils/storage.py", "utils/profiling.py",
+        "data/datasets.py", "data/loader.py", "train/augment.py", "train/evaluator.py", "train/workflow.py",
+        "models/weights.py",
     } <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -80,9 +86,12 @@ def test_import_leaves_jax_unloaded():
         "deepemia_tpu_torch.native, deepemia_tpu_torch.data.models, deepemia_tpu_torch.config.config, "
         "deepemia_tpu_torch.inference.scalebar, deepemia_tpu_torch.inference.ensemble, deepemia_tpu_torch.ops.cv, "
         "deepemia_tpu_torch.cli.main, deepemia_tpu_torch.inference.viz, deepemia_tpu_torch.ops.morphometrics, "
-        "deepemia_tpu_torch.utils.storage, deepemia_tpu_torch.utils.device, deepemia_tpu_torch.utils.logging_utils; "
+        "deepemia_tpu_torch.utils.storage, deepemia_tpu_torch.utils.device, deepemia_tpu_torch.utils.logging_utils, "
+        "deepemia_tpu_torch.data.datasets, deepemia_tpu_torch.data.loader, deepemia_tpu_torch.train.augment, "
+        "deepemia_tpu_torch.train.evaluator, deepemia_tpu_torch.train.workflow, deepemia_tpu_torch.models.weights; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'deepemia_tpu', 'cv2', 'PIL', 'psutil') or m.startswith('google.cloud.storage')]; "
+        "('jax', 'flax', 'optax', 'orbax', 'deepemia_tpu', 'cv2', 'PIL', 'sklearn', 'psutil') "
+        "or m.startswith('google.cloud.storage')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -105,6 +114,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
     from deepemia_tpu_torch.tools import bench_decouple
     from deepemia_tpu_torch.models.mask_rcnn import build_model, build_train_model
     from deepemia_tpu_torch.train.trainer import train
+    from deepemia_tpu_torch.train.workflow import evaluate_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -118,6 +128,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for(monkeypatch, tmp_path):
         build_train_model("R50", num_classes=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train([], 2, str(tmp_path), max_steps_override=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluate_model("ds", str(tmp_path), config={"paths": {}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferencePipeline("ds", str(tmp_path), str(tmp_path / "out"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,6 +1,6 @@
 """Port parity: the trainer. The schedule, one optimizer update against the
 JAX package's optax chain, the fine-tune freeze mask, the from-scratch
-conditioning, the mask bit unpacking, and a short CPU ``train()`` with a
+conditioning, the mask bit unpacking, and a short CPU ``train_on_batches()`` with a
 checkpoint and a resume (the port's analogue of tests/test_train_loop.py)."""
 
 import numpy as np
@@ -140,17 +140,17 @@ def test_train_checkpoint_resume_matches_uninterrupted(tmp_path):
     batches = loader_batches(3)
     cfg = pt_tr.TrainConfig(checkpoint_every=1, gamma=1.0, **CFG)
     a = tmp_path / "a"
-    final, metrics = pt_tr.train(batches, 2, str(a), cfg, max_steps_override=2, device="cpu")
+    final, metrics = pt_tr.train_on_batches(batches, 2, str(a), cfg, max_steps_override=2, device="cpu")
     assert all(np.isfinite(v) for v in metrics.values()) and metrics["total"] > 0
     assert sorted(p.name for p in (a / "ckpts").iterdir()) == ["step_00000001.pt", "step_00000002.pt"]
-    final, metrics = pt_tr.train(batches, 2, str(a), cfg, max_steps_override=3, device="cpu")
+    final, metrics = pt_tr.train_on_batches(batches, 2, str(a), cfg, max_steps_override=3, device="cpu")
     assert final.endswith("model_final_r50.pt")
     assert sorted(p.name for p in (a / "ckpts").iterdir()) == ["step_00000002.pt", "step_00000003.pt"]
     assert torch.load(a / "ckpts" / "step_00000003.pt", map_location="cpu")["step"] == 3
 
     b = tmp_path / "b"
-    ref_final, ref_metrics = pt_tr.train(batches[:2] + batches[:1], 2, str(b), cfg, max_steps_override=3,
-                                         device="cpu")
+    ref_final, ref_metrics = pt_tr.train_on_batches(batches[:2] + batches[:1], 2, str(b), cfg,
+                                                    max_steps_override=3, device="cpu")
     # the resumed run restarts its batch stream: step 3 saw batches[0]
     assert metrics == pytest.approx(ref_metrics, rel=1e-6)
     got, ref = _weights(final), _weights(ref_final)
@@ -163,7 +163,8 @@ def test_train_fine_tune_freezes_only_with_checkpoint(tmp_path):
     fine-tune checkpoint the stem, res2 and every norm stay put."""
     batches = loader_batches(1, seed=4)
     cfg = pt_tr.TrainConfig(checkpoint_every=10, base_lr=0.01, **dict(CFG, warmup_iters=0))
-    start, _ = pt_tr.train(batches, 2, str(tmp_path / "scratch"), cfg, max_steps_override=1, device="cpu")
+    start, _ = pt_tr.train_on_batches(batches, 2, str(tmp_path / "scratch"), cfg, max_steps_override=1,
+                                      device="cpu")
     init = _weights(start)
     scratch_model = build_train_model("R50", 2, device="cpu")
     pt_tr.zero_residual_norms(scratch_model)
@@ -171,8 +172,8 @@ def test_train_fine_tune_freezes_only_with_checkpoint(tmp_path):
     assert {"backbone.bottom_up.stem.conv1.weight", "backbone.bottom_up.res2.0.shortcut.weight",
             "backbone.bottom_up.res2.0.conv3.norm.weight"} <= moved
 
-    tuned, _ = pt_tr.train(batches, 2, str(tmp_path / "tune"), cfg, init_checkpoint=start, max_steps_override=1,
-                           device="cpu")
+    tuned, _ = pt_tr.train_on_batches(batches, 2, str(tmp_path / "tune"), cfg, init_checkpoint=start,
+                                      max_steps_override=1, device="cpu")
     after = _weights(tuned)
     mask = pt_tr._trainable_mask(scratch_model)
     tuned_moved = {k for k in mask if not torch.equal(after[k], init[k])}
