@@ -141,11 +141,32 @@ It builds the CUDA kernels from the sources in the checkout and then:
      micro-benchmark's six variants
      (``deepemia_tpu_torch.tools.bench_decouple``) with K3's launch count
      reset before and read after.
+  14. int8 serving and JPEG input: the committed JPEG fixtures
+     (``tests/data/torch_jpeg_fixtures.npz``, OpenCV's and PIL's files and
+     the arrays ``cv2.imread`` returns) decode bit for bit; a 2048²
+     micrograph written by ``jpeg_encode`` (this script's baseline encoder:
+     the card's host has no JPEG writer) as gray and colour 4:4:4 / 4:2:2 /
+     4:2:0 decodes within JPEG's error, with host seconds; the int8
+     implicit-GEMM conv (K4) equals its plain version (max abs diff 0) at
+     every distinct conv shape of the R50 trunk and FPN, captured from one
+     forward of a 16-tile batch of 1024² inputs and one 2048² whole-image
+     pass, in bf16 and float32, and is timed per shape beside its plain
+     version, its bound, bf16 ``F.conv2d`` and, at the 1x1 stride-1 shapes,
+     ``torch._int_mm`` (one ``int8_conv {...}`` line per shape); the
+     trunk + FPN seconds of one batch for ``--quantized`` none / trunk /
+     full; the float and int8 engines' detections on one micrograph matched
+     as INT8_AP.md counts them; the int8 trunk of one 256² tile on the card
+     against the plain int8 trunk on the CPU (share of bit-equal elements,
+     max abs diff per level); and ``--task inference --quantized trunk``
+     through the CLI in its own process on phase 9's micrographs, the first
+     a JPEG, then ``--quantized full`` on the JPEG (every image processed,
+     every bar read, K4 launched). Phase 13 writes every other image of its
+     dataset as JPEG, so train and evaluate read JPEG records.
 
 Phase 7 runs before phase 6, whose inputs come from a training step, and
-phases 11, 12 and 13 before phase 10. K1's ``launches`` in the kernel line
-is the sum of phases 3, 9, 11, 12 and 13, K2's of phases 7 and 13, each
-counted from zero over its own run.
+phases 11, 12, 14 and 13 before phase 10. K1's ``launches`` in the kernel
+line is the sum of phases 3, 9, 11, 12 and 13, K2's of phases 7 and 13,
+K4's of phase 14's two CLI runs, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -1713,7 +1734,7 @@ def cli_child(out_json: str, *argv: str) -> int:
     """Run ``python -m deepemia_tpu_torch.cli.main *argv`` in this process
     (``run_cli`` on the home ``$DEEPEMIA_TPU_HOME``) and write to
     ``out_json`` its exit code, the pipeline's result, its steady stage
-    seconds and the RoIAlign counts."""
+    seconds, the RoIAlign counts and the int8 conv (K4) launches."""
     import deepemia_tpu_torch.inference.pipeline as pipeline_mod
 
     results = []
@@ -1724,26 +1745,31 @@ def cli_child(out_json: str, *argv: str) -> int:
         return results[-1]
 
     pipeline_mod.InferencePipeline.run = run
+    from deepemia_tpu_torch.kernels import int8_conv
+
+    int8_conv.counter.launches = 0
     with StageLog() as stage_log, CountedRoIAlign() as roi:
         rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
     with open(out_json, "w") as f:
         json.dump({"rc": rc, "result": results[0] if results else None, "steady": stage_log.steady(),
-                   "with_rois": roi.with_rois, "launches": roi.launches}, f)
+                   "with_rois": roi.with_rois, "launches": roi.launches,
+                   "k4_launches": int8_conv.counter.launches}, f)
     return 0
 
 
-def cli_home(model, images, config_hook=None):
-    """A framework home under PIPELINE_DIR/cli for the CLI: config.yaml
+def cli_home(model, images, config_hook=None, name="cli", jpeg=()):
+    """A framework home under PIPELINE_DIR/<name> for the CLI: config.yaml
     (the defaults, through ``config_hook`` when given) and the dataset YAML
     of phase 9, dataset_info.json, the model as ``model_final_r50.pt``, and
     DATASET/INFERENCE with ``images`` (their scale bars drawn) as TIFFs in
-    the CLI_ENCODINGS, strips of 64 rows. -> (home, image folder)."""
+    the CLI_ENCODINGS, strips of 64 rows, but those whose index is in
+    ``jpeg`` as gray JPEG (``jpeg_encode``). -> (home, image folder)."""
     import yaml
 
     from deepemia_tpu_torch.config.config import default_config
 
-    home = os.path.join(PIPELINE_DIR, "cli")
-    cfg, split_dir, _, _ = pipeline_home("cli", model, [])
+    home = os.path.join(PIPELINE_DIR, name)
+    cfg, split_dir, _, _ = pipeline_home(name, model, [])
     if config_hook:
         config_hook(cfg)
     os.makedirs(os.path.join(home, "config", "datasets"))
@@ -1758,9 +1784,33 @@ def cli_home(model, images, config_hook=None):
     assert default_config(home)["paths"]["local_dataset_root"] == home
     for i, img in enumerate(images):
         gray = draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2])
+        if i in jpeg:
+            write_jpeg(os.path.join(folder, f"micrograph_{i}.jpg"), gray)
+            continue
         _, comp, pred = CLI_ENCODINGS[i]
         write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), gray, comp, pred, rows_per_strip=64)
     return home, folder
+
+
+def cli_subprocess(home, argv):
+    """``cli_child`` in a new process on the home ``home`` -> (its JSON
+    report, wall seconds, the completed process); raises if it failed."""
+    out_json = os.path.join(home, "child.json")
+    env = {**os.environ, "DEEPEMIA_TPU_HOME": home}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.cli_child({out_json!r}, *{argv!r}))"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_json):
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
+        raise AssertionError(f"the CLI's process exited {proc.returncode}")
+    with open(out_json) as f:
+        child = json.load(f)
+    os.remove(out_json)
+    assert child["rc"] == 0, (child["rc"], proc.stderr[-4000:])
+    return child, wall, proc
 
 
 def phase_cli(model, images, device="cuda", config_hook=None):
@@ -1785,23 +1835,10 @@ def phase_cli(model, images, device="cuda", config_hook=None):
                                                                   BARS[names.index(name)][0], BARS[names.index(name)][2]))
         print(f"cli: decode {enc} TIFF {img.shape[0]}x{img.shape[1]} ({os.path.getsize(path)} bytes, 64-row strips): "
               f"{float(np.median(secs)):.4f} s (median of 3, host)", flush=True)
-    out_json = os.path.join(home, "child.json")
     argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--id", "--draw-scalebar",
             "--no-download", "--no-upload", "--device", device]
-    env = {**os.environ, "DEEPEMIA_TPU_HOME": home}
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.cli_child({out_json!r}, *{argv!r}))"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-    )
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0 or not os.path.exists(out_json):
-        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
-        raise AssertionError(f"the CLI's process exited {proc.returncode}")
-    with open(out_json) as f:
-        child = json.load(f)
+    child, wall, proc = cli_subprocess(home, argv)
     res = child["result"]
-    assert child["rc"] == 0, (child["rc"], proc.stderr[-4000:])
     assert res["processed"] == names and not res["failed"], res
     meas = read_csv(res["measurements_csv"])
     rle = read_csv(res["rle_csv"])[1:]
@@ -1979,8 +2016,9 @@ TUNE_STEPS = 4
 
 
 def synthetic_dataset(root: str, n: int, hw=DATASET_HW, seed: int = 13) -> str:
-    """``n`` labelled micrographs under ``root``: LZW TIFFs (64-row strips)
-    with per-image label JSONs in the reference format (``metadata.name/
+    """``n`` labelled micrographs under ``root``: LZW TIFFs (64-row strips),
+    every other one (even indices) a gray JPEG (``jpeg_encode``, quality
+    95) instead, with per-image label JSONs in the reference format (``metadata.name/
     height/width``; ``instances`` of type ``polygon`` (star-shaped, 5-9
     points) and ``ellipse``, classes ``particle`` and ``pore``). Each
     instance is drawn bright into the image with the port's ``fill_poly``
@@ -2014,8 +2052,11 @@ def synthetic_dataset(root: str, n: int, hw=DATASET_HW, seed: int = 13) -> str:
             fill_poly(mask, np.round(np.asarray(poly).reshape(-1, 2)).astype(np.int32), 1)
             gray[mask.astype(bool)] = np.uint8(rng.uniform(160, 230))
             instances.append(inst)
-        name = f"sem_{i:02d}.tif"
-        write_tiff(os.path.join(root, name), gray, 5, rows_per_strip=64)
+        name = f"sem_{i:02d}.{'jpg' if i % 2 == 0 else 'tif'}"
+        if i % 2 == 0:
+            write_jpeg(os.path.join(root, name), gray)
+        else:
+            write_tiff(os.path.join(root, name), gray, 5, rows_per_strip=64)
         with open(os.path.join(root, f"sem_{i:02d}.json"), "w") as f:
             json.dump({"metadata": {"name": name, "height": h, "width": w}, "instances": instances}, f)
     return root
@@ -2238,8 +2279,8 @@ def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES
     home = os.path.join(DATASET_DIR, "home")
     t0 = time.perf_counter()
     root = synthetic_dataset(os.path.join(home, "DATASET", "sem"), n_images, hw)
-    print(f"dataset: {n_images} LZW TIFFs {hw[1]}x{hw[0]} with labels written in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"dataset: {n_images} micrographs {hw[1]}x{hw[0]} (LZW TIFF and, every other one, JPEG) with labels "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
     cfg = default_config(home)
     if config_hook:
         config_hook(cfg)
@@ -2258,7 +2299,11 @@ def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES
         split = json.load(f)
     n_test = math.ceil(0.2 * n_images)
     assert len(split["train"]) == n_images - n_test and len(split["test"]) == n_test, split
-    print(f"prepare: split {len(split['train'])}/{len(split['test'])}", flush=True)
+    jpeg_records = {k: sum(int(f[4:6]) % 2 == 0 for f in v) for k, v in split.items()}
+    # at the default ten images the split (seed 42) puts JPEGs in both parts
+    assert jpeg_records["train"] and (jpeg_records["test"] or n_images != DATASET_IMAGES), jpeg_records
+    print(f"prepare: split {len(split['train'])}/{len(split['test'])}, JPEG records {json.dumps(jpeg_records)}",
+          flush=True)
     k1_errs, k2_errs = [], []
     if device == "cuda":
         k1_errs, k2_errs = hold_train_capture(capture_train_step(loader_batch(cfg, split["train"], 4)),
@@ -2580,6 +2625,484 @@ def k3_times(root):
     print(json.dumps({"root": root, **{str(d).split(".")[-1]: r for d, r in rows.items()}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: int8 serving (K4) and JPEG input
+# ---------------------------------------------------------------------------
+
+INT8_DIR = os.path.join(ROOT, "build", "chip_smoke_int8")
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg_fixtures.npz")
+JPEG_QUALITY = 95
+# the R50 trunk + FPN conv shapes are captured from one forward of a
+# 16-tile batch of 1024² inputs and one 2048² whole-image pass
+INT8_TILE, INT8_BATCH, INT8_WHOLE = 1024, 16, 2048
+I8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# detections of the float and the int8 engines matched as INT8_AP.md
+# counts them: box IoU > 0.85, the same class, greedy in score order
+MATCH_IOU = 0.85
+
+# JPEG tables of ITU T.81 Annex K: the luminance quantization table
+# (natural order) and the luminance DC and AC Huffman tables, used here for
+# every component
+_JPEG_QT = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
+_JPEG_DC = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+_JPEG_AC = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], list(bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a"
+    "3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a9293"
+    "9495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6"
+    "e7e8e9eaf1f2f3f4f5f6f7f8f9fa")))
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7,
+    14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39,
+    46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+
+def _huff_codes(bits, vals):
+    """Canonical Huffman codes of a DHT table -> (code, length) per symbol."""
+    code_of, len_of, code, k = np.zeros(256, np.int64), np.zeros(256, np.int64), 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def jpeg_encode(image: np.ndarray, quality: int = JPEG_QUALITY, sampling=(1, 1)) -> bytes:
+    """A baseline JPEG (JFIF, Huffman, ITU T.81 Annex K tables) of a gray
+    [H,W] or BGR [H,W,3] uint8 image; colour as YCbCr with luma sampling
+    ``sampling`` (h, v): (1, 1) 4:4:4, (2, 1) 4:2:2, (2, 2) 4:2:0. The card's
+    host has no JPEG writer, so this script makes its own JPEG files, in
+    numpy: an orthonormal float DCT, libjpeg's quality scaling, and the
+    entropy coding vectorised over all blocks."""
+    h, w = image.shape[:2]
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qt = np.clip((_JPEG_QT * scale + 50) // 100, 1, 255)
+    if image.ndim == 2:
+        planes, factors = [image.astype(np.float64)], [(1, 1)]
+    else:
+        b, g, r = (image[..., i].astype(np.float64) for i in range(3))
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b, 128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+        factors = [sampling, (1, 1), (1, 1)]
+    hmax, vmax = factors[0]
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    u = np.arange(8)
+    dct = np.sqrt(np.where(u == 0, 1 / 8, 2 / 8))[:, None] * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
+    comps = []
+    for plane, (ch, cv) in zip(planes, factors):
+        full = np.pad(plane, ((0, mcuy * 8 * vmax - h), (0, mcux * 8 * hmax - w)), mode="edge")
+        sy, sx = vmax // cv, hmax // ch
+        sub = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx, sx).mean(axis=(1, 3))
+        blocks = sub.reshape(sub.shape[0] // 8, 8, sub.shape[1] // 8, 8).transpose(0, 2, 1, 3) - 128.0
+        coef = np.einsum("ur,pqrc,vc->pquv", dct, blocks, dct, optimize=True)
+        comps.append(np.round(coef.reshape(*coef.shape[:2], 64) / qt).astype(np.int64)[..., _ZIGZAG])
+    # blocks in MCU order: per MCU, each component's v x h blocks
+    order, owner = [], []
+    for c, (ch, cv) in enumerate(factors):
+        by = np.arange(mcuy)[:, None, None, None] * cv + np.arange(cv)[None, None, :, None]
+        bx = np.arange(mcux)[None, :, None, None] * ch + np.arange(ch)[None, None, None, :]
+        by, bx = np.broadcast_arrays(by, bx)
+        order.append(comps[c][by, bx].reshape(mcuy, mcux, cv * ch, 64))
+        owner.append(np.full((mcuy, mcux, cv * ch), c))
+    coef = np.concatenate(order, axis=2).reshape(-1, 64)
+    owner = np.concatenate(owner, axis=2).reshape(-1)
+    dc = coef[:, 0].copy()
+    diff = np.empty_like(dc)
+    for c in range(len(planes)):
+        sel = owner == c
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    dc_code, dc_len = _huff_codes(*_JPEG_DC)
+    ac_code, ac_len = _huff_codes(*_JPEG_AC)
+
+    def magnitude(v):
+        size = np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
+        return size, np.where(v < 0, v + (1 << size) - 1, v)
+
+    nblk = coef.shape[0]
+    events = []  # (block, position, sub-order, code << value bits | value, total length)
+    s, val = magnitude(diff)
+    events.append((np.arange(nblk), np.zeros(nblk, np.int64), np.zeros(nblk, np.int64),
+                   (dc_code[s] << s) | val, dc_len[s] + s))
+    b, k = np.nonzero(coef[:, 1:])
+    k = k + 1
+    prev = np.where(np.r_[True, b[1:] != b[:-1]], 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    s, val = magnitude(coef[b, k])
+    sym = (run % 16) * 16 + s
+    events.append((b, k, np.full(b.size, 16), (ac_code[sym] << s) | val, ac_len[sym] + s))
+    nzrl = run // 16
+    zb = np.repeat(np.arange(b.size), nzrl)
+    zsub = np.arange(zb.size) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl)
+    events.append((b[zb], k[zb], zsub, np.full(zb.size, ac_code[0xF0]), np.full(zb.size, ac_len[0xF0])))
+    last = np.zeros(nblk, np.int64)
+    np.maximum.at(last, b, k)
+    eob = np.nonzero(last < 63)[0]
+    events.append((eob, np.full(eob.size, 64), np.zeros(eob.size, np.int64), np.full(eob.size, ac_code[0]),
+                   np.full(eob.size, ac_len[0])))
+    blk, pos, sub, word, length = (np.concatenate(x) for x in zip(*events))
+    idx = np.lexsort((sub, pos, blk))
+    word, length = word[idx], length[idx]
+    nbits = int(length.sum())
+    owner_ev = np.repeat(np.arange(length.size), length)
+    shift = length[owner_ev] - 1 - (np.arange(nbits) - np.repeat(np.cumsum(length) - length, length))
+    bits = ((word[owner_ev] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-nbits % 8, np.uint8)])  # pad with 1-bits
+    data = np.packbits(bits)
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).astype(np.uint8)  # byte stuffing
+
+    def segment(marker, body):
+        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + bytes(body)
+
+    def dht(cls_id, table):
+        return segment(0xC4, [cls_id, *table[0], *table[1]])
+
+    nc = len(planes)
+    sof = [8, *h.to_bytes(2, "big"), *w.to_bytes(2, "big"), nc]
+    sos = [nc]
+    for c, (ch, cv) in enumerate(factors):
+        sof += [c + 1, ch * 16 + cv, 0]
+        sos += [c + 1, 0x00]
+    sos += [0, 63, 0]
+    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + segment(0xDB, [0, *qt[_ZIGZAG].tolist()]) + segment(0xC0, sof)
+            + dht(0x00, _JPEG_DC) + dht(0x10, _JPEG_AC) + segment(0xDA, sos) + data.tobytes() + b"\xff\xd9")
+
+
+def write_jpeg(path: str, image: np.ndarray, quality: int = JPEG_QUALITY, sampling=(1, 1)) -> None:
+    with open(path, "wb") as f:
+        f.write(jpeg_encode(image, quality, sampling))
+
+
+def phase_jpeg_fixtures(size: int = 2048):
+    """Phase 14: the committed JPEG fixtures (``python
+    tools/make_torch_jpeg_fixtures.py``: OpenCV's and PIL's files beside
+    the arrays ``cv2.imread`` returns) decode to those arrays bit for bit;
+    then a ``size``² micrograph written by ``jpeg_encode`` as gray and as
+    colour 4:4:4, 4:2:2 and 4:2:0 decodes within JPEG's own error, and the
+    host decode seconds of each."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    os.makedirs(INT8_DIR, exist_ok=True)
+    fixtures = np.load(JPEG_FIXTURES)
+    names = sorted(k for k in fixtures.files if not k.endswith(".jpg"))
+    assert len(names) == 6, names
+    for name in names:
+        path = os.path.join(INT8_DIR, f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}.jpg"].tobytes())
+        got = read_image(path)
+        assert got.shape == fixtures[name].shape and np.array_equal(got, fixtures[name]), name
+    print(f"jpeg: {len(names)} committed fixtures ({', '.join(names)}) decode bit for bit to OpenCV's arrays",
+          flush=True)
+    gray = synthetic_micrograph(size, 7)[..., 0]
+    colour = np.stack([gray, np.clip(gray.astype(np.int16) + 25, 0, 255).astype(np.uint8), gray], -1)
+    rows = {}
+    for tag, img, sampling in (("gray", gray, (1, 1)), ("4:4:4", colour, (1, 1)), ("4:2:2", colour, (2, 1)),
+                               ("4:2:0", colour, (2, 2))):
+        path = os.path.join(INT8_DIR, f"decode_{tag.replace(':', '')}.jpg")
+        t0 = time.perf_counter()
+        write_jpeg(path, img, JPEG_QUALITY, sampling)
+        enc = time.perf_counter() - t0
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read_image(path)
+            secs.append(time.perf_counter() - t0)
+        want = img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2)
+        err = np.abs(got.astype(np.int16) - want).astype(np.float64)
+        psnr = 10 * np.log10(255.0 ** 2 / max(float((err ** 2).mean()), 1e-12))
+        assert got.shape == want.shape and psnr > 30, (tag, psnr)
+        rows[tag] = float(np.median(secs))
+        print(f"jpeg: decode {size}x{size} {tag} (quality {JPEG_QUALITY}, {os.path.getsize(path)} bytes, written by "
+              f"jpeg_encode in {enc:.2f} s): {rows[tag]:.4f} s (median of 3, host), PSNR {psnr:.1f} dB", flush=True)
+    return rows
+
+
+def conv_work(x_shape, w_shape, stride, padding, out_dtype):
+    """(bound ms, 'bytes' or 'operations') of one int8 conv: 2 ops a
+    multiply-add over 1,979 TOPS; the int8 activations and weights read
+    once, the output written once, the scale table read once, over 3.35
+    TB/s."""
+    from deepemia_tpu_torch.kernels.int8_conv import conv_out_hw
+
+    n, ci, h, w = x_shape
+    co, kh, kw, _ = w_shape
+    ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
+    ops = 2.0 * n * ho * wo * co * kh * kw * ci
+    nbytes = n * ci * h * w + co * kh * kw * ci + n * co * 4 + n * ho * wo * co * torch.empty(
+        (), dtype=out_dtype).element_size()
+    t_ops, t_bytes = ops / I8_TOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+class ConvCapture:
+    """Within the block, the first input of every distinct int8 conv shape
+    (N, Ci, H, W, Co, k, stride) of the model's forwards, quantized as the
+    module quantizes it, and how many convs of each shape one forward
+    runs, in the trunk and in the FPN."""
+
+    def __init__(self, model):
+        from deepemia_tpu_torch.models.quant import Int8Conv2d
+
+        self.model, self.cls = model, Int8Conv2d
+        self.inputs, self.counts, self.handles = {}, {}, []
+
+    def __enter__(self):
+        from deepemia_tpu_torch.models import quant
+
+        for name, mod in self.model.named_modules():
+            if not isinstance(mod, self.cls):
+                continue
+
+            def hook(m, args, name=name):
+                x = args[0]
+                key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], m.weight_q.shape[0], m.weight_q.shape[1],
+                       m.stride)
+                part = "fpn" if ".fpn_" in name else "trunk"
+                self.counts.setdefault(key, {"trunk": 0, "fpn": 0})[part] += 1
+                if key not in self.inputs:
+                    x_q, a_amax = quant._quantize_activation(x)
+                    self.inputs[key] = dict(x=x, x_q=x_q, scale=quant.dequant_scale(a_amax, m.w_amax), w=m.weight_q,
+                                            bias=m.bias, stride=m.stride, padding=m.padding, name=name)
+
+            self.handles.append(mod.register_forward_pre_hook(hook))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def int8_inputs(images):
+    """A batch of INT8_BATCH tiles of INT8_TILE² cut from the corners of
+    the micrographs (each twice the tile), as the engine feeds the trunk:
+    [N,H,W,3] float32 on the card."""
+    n_tiles, tile = INT8_BATCH, INT8_TILE
+    img = torch.stack([torch.as_tensor(i) for i in images]).cuda().float()
+    tiles = [img[k % len(images), (k // 2 % 2) * tile: (k // 2 % 2 + 1) * tile, (k % 2) * tile: (k % 2 + 1) * tile]
+             for k in range(n_tiles)]
+    return torch.stack(tiles)
+
+
+def phase_int8_conv(images):
+    """Phase 14: K4 against its plain version on the card at every distinct
+    conv shape of the R50 trunk and FPN (``quantized_inference: full``
+    captures both), from one forward of a 16-tile batch of 1024² inputs and
+    one 2048² whole-image pass, in bf16 and float32: max abs diff 0. At the
+    16-tile batch in bf16 it times each shape (CUDA events after an
+    L2-evicting write): K4, its plain version, bf16 ``F.conv2d`` at the same
+    shape and, at the 1x1 stride-1 shapes, ``torch._int_mm`` on the same
+    int8 operands (the int32 product alone). Then the trunk + FPN seconds
+    of one 16-tile batch in bf16 for ``none``, ``trunk`` and ``full``, and
+    the detections of the float and int8 engines on one micrograph matched
+    as INT8_AP.md counts them. -> (rows of the timed shapes, max error,
+    per-forward sums)."""
+    import torch.nn.functional as F
+
+    from deepemia_tpu_torch.kernels import int8_conv as k4
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    batch = int8_inputs(images)
+    whole = torch.as_tensor(images[0]).cuda().float()[None]
+    captured = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model("R50", num_classes=2, use_bf16=dtype == torch.bfloat16, device="cuda", seed=0,
+                            quant_backbone="full")
+        for tag, x in (("batch", batch), ("whole", whole)):
+            with ConvCapture(model) as cap:
+                feats = model.features_batched(x)
+            assert all(bool(torch.isfinite(v).all()) for v in feats.values())
+            captured[(dtype, tag)] = cap
+        del model, feats
+    errs, rows = [], []
+    for (dtype, tag), cap in captured.items():
+        assert sum(c["trunk"] for c in cap.counts.values()) == 53 and sum(c["fpn"] for c in cap.counts.values()) == 8
+        for key, a in cap.inputs.items():
+            got = k4.launch(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
+            want = k4.int8_conv2d_plain(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+            err = float((got.float() - want.float()).abs().max())
+            errs.append(err)
+            assert err == 0.0, (key, dtype, tag, err)
+            if dtype != torch.bfloat16 or tag != "batch":
+                continue
+            n, ci, h, w, co, k, stride = key
+            bound, by = conv_work(a["x_q"].shape, a["w"].shape, stride, a["padding"], dtype)
+            row = dict(shape=f"{n}x{ci}x{h}x{w} -> {co}, {k}x{k}/{stride}", layer=a["name"],
+                       count_trunk=cap.counts[key]["trunk"], count_fpn=cap.counts[key]["fpn"],
+                       ms=time_ms(lambda a=a: k4.launch(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"],
+                                                        a["padding"], dtype)),
+                       plain_ms=time_ms(lambda a=a: k4.int8_conv2d_plain(
+                           a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype), reps=3),
+                       bound_ms=bound, bound_by=by)
+            w_bf16 = a["w"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+            row["bf16_conv_ms"] = time_ms(lambda a=a, wb=w_bf16: F.conv2d(a["x"], wb, None, a["stride"],
+                                                                          a["padding"]))
+            row["int_mm_ms"] = None
+            if k == 1 and stride == 1:
+                a2 = a["x_q"].permute(0, 2, 3, 1).reshape(-1, ci)
+                b2 = a["w"].reshape(co, ci).t()
+                mm = torch._int_mm(a2, b2)
+                acc = k4.int8_conv_acc_plain(a["x_q"], a["w"], 1, 0)
+                assert torch.equal(mm, acc.permute(0, 2, 3, 1).reshape(-1, co))
+                row["int_mm_ms"] = time_ms(lambda a2=a2, b2=b2: torch._int_mm(a2, b2))
+            row["share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            print("int8_conv " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v)
+                                             for k_, v in row.items()}), flush=True)
+    n_shapes = {f"{str(d).split('.')[-1]} {t}": len(c.inputs) for (d, t), c in captured.items()}
+    print(f"int8_conv: K4 equals its plain version (max abs diff {max(errs)}) at every shape of the R50 trunk + FPN "
+          f"{json.dumps(n_shapes)}", flush=True)
+    sums = {}
+    for part in ("trunk", "fpn"):
+        for col in ("ms", "plain_ms", "bound_ms", "bf16_conv_ms"):
+            sums[f"{part}_{col}"] = sum(r[col] * r[f"count_{part}"] for r in rows)
+        sums[f"{part}_int_mm_ms"] = sum(r["int_mm_ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
+        sums[f"{part}_ms_1x1"] = sum(r["ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
+    sums["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes"
+    print("int8_conv: one R50 forward of a 16-tile batch of 1024² inputs, bf16, per-shape times x convs of that "
+          "shape: " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v) for k_, v in sums.items()}),
+          flush=True)
+    del captured
+
+    # trunk + FPN seconds per batch, and the engines' detections matched
+    nets = {mode: build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0, quant_backbone=mode)
+            for mode in ("none", "trunk", "full")}
+    times = {}
+    for _ in range(3):  # the last pass is kept
+        for mode, net in nets.items():
+            _, times[mode] = sync_time(lambda net=net: net.features_batched(batch))
+    print(f"int8: trunk + FPN seconds per {INT8_BATCH}-tile batch of {INT8_TILE}² inputs, bf16: "
+          + ", ".join(f"{m} {t:.4f}" for m, t in times.items()), flush=True)
+    for net in nets.values():
+        sane_geometry(net)
+    agreement = {mode: engine_agreement(nets["none"], nets[mode], images[0]) for mode in ("trunk", "full")}
+    print("int8: detections of the float and int8 engines on one 2048² micrograph matched at box IoU > "
+          f"{MATCH_IOU}, same class (INT8_AP.md's count): " + json.dumps(agreement), flush=True)
+    return rows, max(errs), sums, times
+
+
+def engine_agreement(float_model, int8_model, image):
+    """The default ``TileEngine`` on ``image`` with both models -> the share
+    of detections matched (box IoU > MATCH_IOU, same class, greedy in
+    float score order) over the larger count, and the counts."""
+    from deepemia_tpu_torch.inference.engine import TileEngine, class_settings_from_config
+    from deepemia_tpu_torch.ops.boxes import box_iou_matrix
+
+    dets = []
+    for net in (float_model, int8_model):
+        inst, _ = TileEngine(net, device="cuda").infer(image, class_settings_from_config({}, 2, device="cuda"))
+        keep = inst.valid.nonzero().squeeze(1)
+        dets.append((inst.boxes[keep].float(), inst.scores[keep].float(), inst.classes[keep]))
+    (ba, sa, ca), (bb, sb, cb) = dets
+    iou = box_iou_matrix(ba, bb) if len(ba) and len(bb) else torch.zeros((len(ba), len(bb)), device="cuda")
+    used = torch.zeros(len(bb), dtype=torch.bool, device="cuda")
+    matched = 0
+    for i in torch.argsort(-sa, stable=True).tolist():
+        cand = (iou[i] > MATCH_IOU) & ~used & (cb == ca[i])
+        if bool(cand.any()):
+            used[int(torch.argmax(torch.where(cand, iou[i], -1.0)))] = True
+            matched += 1
+    denom = max(len(ba), len(bb))
+    return {"float": len(ba), "int8": len(bb), "matched": matched,
+            "share": matched / denom if denom else 1.0}
+
+
+def phase_int8_trunk_reference(size: int = 256):
+    """Phase 14: the int8 trunk of one ``size``² tile in bf16 on the card
+    (K4) against the port's plain int8 trunk on the CPU with the same
+    weights and input: the share of bit-equal elements and the max abs
+    diff per level (finite, same shapes)."""
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    img = torch.as_tensor(synthetic_micrograph(size, 11)).float()[None]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        net = build_model("R50", num_classes=2, use_bf16=True, device=dev, seed=0, quant_backbone="trunk")
+        x = net.normalize(img.to(dev))
+        out[dev] = {k: v.float().cpu() for k, v in net.backbone.bottom_up(x).items()}
+    rows = {}
+    for lv, g in out["cuda"].items():
+        c = out["cpu"][lv]
+        assert g.shape == c.shape and bool(torch.isfinite(g).all()), lv
+        rows[lv] = {"bit_equal": float((g == c).float().mean()), "max_abs": float((g - c).abs().max()),
+                    "max": float(c.abs().max())}
+    print(f"int8 trunk, one {size}² tile, bf16, card (K4) vs CPU (plain): " + json.dumps(
+        {k: {k_: round(v_, 6) for k_, v_ in v.items()} for k, v in rows.items()}), flush=True)
+    return rows
+
+
+def phase_int8_cli(model, images):
+    """Phase 14: ``--task inference --quantized trunk`` through the CLI in
+    its own process (``cli_child``) on phase 9's three micrographs, the
+    first written as JPEG (``jpeg_encode``, gray, quality 95) and the others
+    as LZW TIFF; then ``--quantized full`` on the JPEG alone. Every image
+    processed, every bar read, one overlay per image, and K4 launched (its
+    count from zero in the child). -> the K4 launches of both runs."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    home, folder = cli_home(model, images, name="int8", jpeg=(0,))
+    names = sorted(os.listdir(folder))
+    assert names[0].endswith(".jpg"), names
+    src = draw_scale_bar(images[0][..., 0], BARS[0][0], BARS[0][2])
+    got = read_image(os.path.join(folder, names[0]))
+    assert got.shape == images[0].shape and float(np.abs(got[..., 0].astype(np.int16) - src).mean()) < 2.0
+    launches = 0
+    for mode, keep in (("trunk", names), ("full", names[:1])):
+        for name in names:
+            if name not in keep and os.path.exists(os.path.join(folder, name)):
+                os.rename(os.path.join(folder, name), os.path.join(home, name))
+        argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--no-download", "--no-upload",
+                "--quantized", mode, "--device", "cuda"]
+        child, wall, _ = cli_subprocess(home, argv)
+        res = child["result"]
+        assert child["rc"] == 0 and res["processed"] == list(keep) and not res["failed"], res
+        meas = read_csv(res["measurements_csv"])
+        check_scale_bars(res, meas, list(keep))
+        for name in keep:
+            assert os.path.exists(os.path.join(res["output_dir"], f"{name}_predictions.png")), name
+        assert child["k4_launches"] > 0 and child["launches"] == child["with_rois"], child
+        secs = res["seconds_per_image"]
+        print(f"int8 cli --quantized {mode}: {len(keep)} images ({', '.join(keep)}) processed, bars read, "
+              f"int8_conv launches={child['k4_launches']}, roi_align_fwd launches={child['launches']}; "
+              f"seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]}; the process took "
+              f"{wall:.1f} s", flush=True)
+        print(f"int8 cli --quantized {mode}: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
+        launches += child["k4_launches"]
+    return launches
+
+
+def int8_only():
+    """Phases 1 and 14 alone: the build, the JPEG fixtures, K4 at every
+    trunk + FPN shape, the int8 trunk card vs CPU and the int8 CLI runs
+    (phase 3's R50 weights rebuilt from their seed)."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    print(f"card: {card_line()}", flush=True)
+    _build.build(["roi_align_fwd", "int8_conv"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            images = [synthetic_micrograph(2048, seed) for seed in range(3)]
+            phase_jpeg_fixtures()
+            phase_int8_conv(images)
+            phase_int8_trunk_reference()
+            model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
+            sane_geometry(model)
+        phase_int8_cli(model, images)
+    finally:
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2603,7 +3126,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    sources = ["roi_align_fwd", "roi_align_bwd", "window_sum"]
+    sources = ["roi_align_fwd", "roi_align_bwd", "window_sum", "int8_conv"]
     _, build_s = sync_time(lambda: _build.build(sources))
     print(f"build: {', '.join(nm + '.cu' for nm in sources)} in {build_s:.2f} s (in parallel)", flush=True)
     for nm in sources:
@@ -2643,8 +3166,15 @@ def main() -> int:
             cli_launches += phase_device_measurements(model, images)
             cli_launches += phase_windowed_rle(model)
         lap(12)
+        with torch.inference_mode():
+            phase_jpeg_fixtures()
+            int8_rows, int8_err, int8_sums, int8_times = phase_int8_conv(images)
+            phase_int8_trunk_reference()
+        int8_launches = phase_int8_cli(model, images)
+        lap(14)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+        shutil.rmtree(INT8_DIR, ignore_errors=True)
     try:
         dataset_k1, dataset_k2, dataset_k1_errs, dataset_k2_errs = phase_train_dataset()
     finally:
@@ -2717,13 +3247,39 @@ def main() -> int:
         "library_device_ms_f32": k3_f32["library_device_ms"],
         "library_host_ms_f32": k3_f32["library_host_ms"],
     }
+    int8 = {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "deepemia_tpu_torch/kernels/csrc/int8_conv.cu",
+        "replaces": "deepemia_tpu/models/quant.py:105",
+        # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's process
+        "launches": int8_launches,
+        "max_abs_err": int8_err,
+        # one R50 trunk forward (its 53 convs) of a 16-tile batch of 1024² inputs, bf16: each distinct shape's
+        # time_ms median x the convs of that shape; library_ms: torch._int_mm (the int32 product alone) at the
+        # trunk's 1x1 stride-1 convs, beside K4's time over the same convs (ms_1x1); bf16_conv_ms: F.conv2d in
+        # bf16 at every trunk shape; *_fpn: the same over the 8 FPN convs of `full`; trunk_fpn_s: the seconds
+        # of one batch through trunk + FPN for --quantized none / trunk / full
+        "ms": int8_sums["trunk_ms"],
+        "plain_ms": int8_sums["trunk_plain_ms"],
+        "bound_ms": int8_sums["trunk_bound_ms"],
+        "bound_by": int8_sums["bound_by"],
+        "library_ms": int8_sums["trunk_int_mm_ms"],
+        "ms_1x1": int8_sums["trunk_ms_1x1"],
+        "bf16_conv_ms": int8_sums["trunk_bf16_conv_ms"],
+        "ms_fpn": int8_sums["fpn_ms"],
+        "plain_ms_fpn": int8_sums["fpn_plain_ms"],
+        "bound_ms_fpn": int8_sums["fpn_bound_ms"],
+        "bf16_conv_ms_fpn": int8_sums["fpn_bf16_conv_ms"],
+        "trunk_fpn_s": int8_times,
+    }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}; "
           f"roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset "
           f"{dataset_k2}",
           flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [kernel, backward, window]}), flush=True)
+    print(json.dumps({"kernels": [kernel, backward, window, int8]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

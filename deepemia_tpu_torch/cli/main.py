@@ -14,8 +14,9 @@ pipeline with ``--threshold``, ``--visualize``, ``--id``,
 ``--draw-scalebar`` and ``--profile``, the selective upload and the
 path-guarded ``--cleanup``) and ``setup`` (the interactive setup on the
 port's config store); prepare, train and evaluate update the ETA store.
-Not ported yet, and refused with exit code 2 and the ROADMAP item named:
-``--quantized`` other than ``none`` (A6), ``--chips`` above 1 (A8).
+``--quantized {none,trunk,full}`` sets ``performance.quantized_inference``
+(int8 serving of the backbone). Not ported yet, and refused with exit code
+2 and the ROADMAP item named: ``--chips`` above 1 (A8).
 """
 
 from __future__ import annotations
@@ -87,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chips", type=int, default=None,
                    help="Devices for tile-sharded inference (the port runs on one: None, 0 or 1)")
     p.add_argument("--quantized", choices=["none", "trunk", "full"], default=None,
-                   help="Int8 backbone serving (the port serves none)")
+                   help="Int8 backbone serving: trunk = int8 ResNet, full = ResNet + FPN")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where the task runs [default cuda; cpu only when asked for]")
     return p
@@ -129,8 +130,6 @@ def _refusal(args) -> Optional[str]:
     """Why the port cannot run these arguments yet, or None."""
     if args.chips not in (None, 0, 1):
         return f"--chips {args.chips}: tile sharding across GPUs is not ported (ROADMAP A8); the port runs on one"
-    if args.quantized not in (None, "none"):
-        return f"--quantized {args.quantized}: int8 serving is not ported (ROADMAP A6)"
     return None
 
 
@@ -234,6 +233,8 @@ def run_task(args) -> int:
         n_images = len(list(inference_dir.glob("*"))) if inference_dir.exists() else 0
         system_logger.info("ETA: ~%.0fs for %d images", estimate_eta(eta_file, "inference", max(n_images, 1)),
                            n_images)
+        if args.quantized is not None:
+            cfg.setdefault("performance", {})["quantized_inference"] = args.quantized
         pipe = InferencePipeline(args.dataset_name, split_dir, config=cfg, default_threshold=args.threshold,
                                  device=args.device)
         with trace(args.profile):

@@ -12,8 +12,10 @@ Producer threads assemble whole batches into a bounded queue.
 
 Unreadable images: the JAX loader skips any file OpenCV cannot read. This
 one skips a file that is missing or corrupt, and raises for an encoding
-``read_image`` does not decode (JPEG, ROADMAP A7), which OpenCV would read:
-skipping it would train on fewer images than the JAX package does.
+``read_image`` does not decode (``UnsupportedImageError``: JPEG's
+arithmetic, lossless, 12-bit and CMYK codings, the rarer TIFF
+compressions), which OpenCV may read: skipping it would train on fewer
+images than the JAX package does.
 
 With ``workers=1`` the batch sequence is the JAX loader's for the same seed.
 """

@@ -55,10 +55,12 @@ def load_model(
     num_classes: Optional[int] = None,
     use_bf16: bool = True,
     device=None,
+    quant_backbone: str = "none",
 ) -> MaskRCNN:
     """A checkpoint -> the port's model in eval mode on ``device`` (``cuda``
-    unless the caller passes another), bf16 or float32. Raises when the
-    checkpoint's class count differs from ``num_classes``."""
+    unless the caller passes another), bf16 or float32, its backbone int8
+    per ``quant_backbone`` (``none``, ``trunk`` or ``full``). Raises when
+    the checkpoint's class count differs from ``num_classes``."""
     path = os.path.expanduser(path)
     if not path.endswith((".pt", ".pth", ".pkl")):
         raise ValueError(f"Unrecognized checkpoint format: {path}")
@@ -73,7 +75,8 @@ def load_model(
         f"R{infer_depth(sd)}", num_classes=ckpt_classes, use_bf16=use_bf16, device=device
     )
     dtype = next(model.parameters()).dtype
-    model.load_state_dict(
-        {k: torch.from_numpy(np.asarray(v, np.float32)).to(dtype) for k, v in sd.items()}, strict=True
-    )
-    return model
+    f32 = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
+    model.load_state_dict({k: v.to(dtype) for k, v in f32.items()}, strict=True)
+    # from the float32 checkpoint, not the model's bf16 copy: the JAX
+    # package quantizes its float32 parameters
+    return model.quantize(quant_backbone, f32)

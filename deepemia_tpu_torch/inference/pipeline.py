@@ -24,8 +24,10 @@ an ``eta_file`` the run's seconds per image update its running average.
 
 The configuration is the dataset's (``get_config(dataset_name)``: the
 user's ``config.yaml`` with the dataset YAML merged) unless the caller
-passes one. Not ported yet, and raising ``NotImplementedError``: int8
-serving (``quantized_inference`` other than ``none``).
+passes one. ``performance.quantized_inference`` (``trunk`` or ``full``)
+serves every checkpoint's backbone in int8 (``models/quant.py``, kernel K4
+on the card); an unknown value logs a warning and serves ``none``, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from deepemia_tpu_torch.inference.ensemble import run_ensemble, weights_from_con
 from deepemia_tpu_torch.inference.measure_host import measurement_rows_host, measurement_rows_host_windows
 from deepemia_tpu_torch.inference.postprocess import morphology_postprocess, window_geometry
 from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
+from deepemia_tpu_torch.models.quant import QUANT_MODES
 from deepemia_tpu_torch.ops.image import read_image, to_grayscale
 from deepemia_tpu_torch.ops.masks import paste_masks
 from deepemia_tpu_torch.ops.rle import (
@@ -126,9 +129,10 @@ class InferencePipeline:
         self.stream_measurements = bool(perf.get("stream_measurements_to_csv", True))
         # host: the native exact contours; device: measure_instances_device
         self.measurement_backend = perf.get("measurement_backend", "host")
-        quant = str(perf.get("quantized_inference", "none") or "none")
-        if quant != "none":
-            raise NotImplementedError(f"quantized_inference {quant!r} is not ported; use 'none'")
+        self.quant_backbone = str(perf.get("quantized_inference", "none") or "none")
+        if self.quant_backbone not in QUANT_MODES:
+            log.warning("Unknown quantized_inference=%r; using 'none'", self.quant_backbone)
+            self.quant_backbone = "none"
 
         self.class_names = dataset_class_names(read_dataset_info(paths["category_json"]), dataset_name)
         self.num_classes = len(self.class_names)
@@ -163,7 +167,8 @@ class InferencePipeline:
         weights = weights_from_config(self.inf)
         self.engines: List[Tuple[str, TileEngine, float]] = []
         for name, path in sorted(model_paths.items()):
-            model = load_model(path, self.num_classes, self.use_bf16, device=self.device)
+            model = load_model(path, self.num_classes, self.use_bf16, device=self.device,
+                               quant_backbone=self.quant_backbone)
             self.engines.append((name, TileEngine(model, device=self.device, **engine_kw), weights.get(name, 1.0)))
             log.info("Loaded %s from %s", name, path)
         self.engine = self.engines[0][1]

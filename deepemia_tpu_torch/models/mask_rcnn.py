@@ -5,6 +5,11 @@ pixels (0-255), features {level: [h,w,C]}, padded ``Detections``. The
 ``*_batched`` methods take a leading tile axis and are what the tile engine
 runs: the trunk and FPN run NCHW in ``channels_last`` memory format, so the
 pyramid arrives NHWC in memory, the layout the RoIAlign kernel reads.
+
+``quant_backbone`` (``none``, ``trunk`` or ``full``, as the JAX package's
+``MaskRCNN``) serves the ResNet trunk, and with ``full`` the FPN too, with
+int8 convs (``models/quant.py``); the same state dict loads in every mode
+(``data/models.py:load_model`` quantizes after loading).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from deepemia_tpu_torch.config.constants import StaticShapes
 from deepemia_tpu_torch.models import anchors as anchor_lib
 from deepemia_tpu_torch.models.fpn import FPNBackbone
 from deepemia_tpu_torch.models.heads import Detections, ROIHeads
+from deepemia_tpu_torch.models.quant import quantize_backbone
 from deepemia_tpu_torch.models.rpn import RPNHead, select_proposals_batched
 from deepemia_tpu_torch.ops.image import normalize_bgr
 
@@ -36,10 +42,21 @@ class MaskRCNN(nn.Module):
         self.backbone = FPNBackbone(depth)
         self.proposal_generator = nn.ModuleDict({"rpn_head": RPNHead()})
         self.roi_heads = ROIHeads(num_classes, adaptive_pooler=adaptive_pooler)
+        self.quant_backbone = "none"
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.backbone.fpn_lateral2.weight.dtype
+        return self.proposal_generator["rpn_head"].conv.weight.dtype
+
+    def quantize(self, mode: str, weights=None) -> "MaskRCNN":
+        """Serve the backbone's convs of ``mode`` in int8, quantized from
+        ``weights`` (a float32 state dict) or the model's own weights."""
+        if mode != "none":
+            if self.quant_backbone != "none":
+                raise ValueError(f"the backbone is already quantized ({self.quant_backbone})")
+            quantize_backbone(self, mode, weights)
+            self.quant_backbone = mode
+        return self
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         """[B,H,W,3] raw BGR -> [B,3,H,W] channels_last, mean-subtracted, in
@@ -141,13 +158,17 @@ def build_model(
     use_bf16: bool = True,
     device=None,
     seed: int = 0,
+    quant_backbone: str = "none",
 ) -> MaskRCNN:
     """Mask R-CNN with seeded random weights on ``device`` (``cuda`` unless
-    the caller passes another), in bf16 or f32. Load trained or converted
-    weights with ``load_state_dict``."""
+    the caller passes another), in bf16 or f32, its backbone int8 per
+    ``quant_backbone`` (quantized from the float32 weights). Load trained
+    or converted weights into a float model with ``load_state_dict``
+    (``data/models.py:load_model`` loads and then quantizes)."""
     dev = resolve_device(device)
     model = MaskRCNN(depth=101 if "101" in backbone else 50, num_classes=num_classes)
     init_weights(model, torch.Generator().manual_seed(seed))
+    model.quantize(quant_backbone)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     return model.to(device=dev, dtype=dtype).eval().requires_grad_(False)
 

@@ -1,0 +1,168 @@
+"""Int8 serving of the backbone (``--quantized trunk|full``): the port of
+``deepemia_tpu/models/quant.py``.
+
+  * weights: symmetric int8 per output channel, from the float32 weight:
+    ``w_scale[co] = max(amax|W[co]|, 1e-12) / 127``,
+    ``clip(round(W / w_scale), -127, 127)`` (round half to even);
+  * activations: the same, per image (per tile), computed on the device
+    for every conv input;
+  * the convolution sums int8 products in int32 (``kernels/int8_conv.py``,
+    K4 on the card) and dequantizes ``acc * (a_scale * w_scale) + bias`` in
+    float32 before the cast to the compute dtype; the frozen-BN affine
+    that follows is unchanged.
+
+The ``a_scale * w_scale`` table is the one XLA computes for the JAX
+package (:func:`dequant_scale`): with one image in the batch its algebraic
+simplifier folds the two reciprocals of 127 into one constant and computes
+``w_amax * (a_amax * (1/127)²)``, the written order otherwise.
+
+The JAX package runs these functions inside ``jit``, where XLA turns the
+division by the constant 127 into a multiply by its float32 reciprocal;
+the port multiplies by ``float32(1/127)`` so that its scales are the same
+bits as the JAX model's. XLA's CPU backend also contracts a multiply
+feeding an add (the bias, the frozen-BN affine) into one fused
+multiply-add, which the port does not (the card's bf16 serving path has no
+such fusion to match): that moves a float32 result by an ulp, which in an
+int8 network can flip a level at the next quantizer; the parity tests
+state their tolerances with that reason.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from deepemia_tpu_torch.kernels.int8_conv import int8_conv2d
+
+QUANT_MODES = ("none", "trunk", "full")
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's A / 127 -> A * (1/127)
+_INV_127_SQ = float(np.float32(_INV_127) * np.float32(_INV_127))  # folded in float32
+
+
+def _floor(amax: torch.Tensor) -> torch.Tensor:
+    return amax.float().clamp_min(1e-12)
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 [Co,Ci,kh,kw] -> (int8 [Co,kh,kw,Ci], float32 per-channel
+    scale [Co])."""
+    q, amax = _quantize_weight(w)
+    return q, amax * _INV_127
+
+
+def _quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    w = w.float()
+    amax = _floor(w.abs().amax(dim=(1, 2, 3)))
+    q = torch.round(w / (amax * _INV_127).view(-1, 1, 1, 1)).clamp_(-127, 127).to(torch.int8)
+    return q.permute(0, 2, 3, 1).contiguous(), amax
+
+
+def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N,C,H,W] (any float dtype and memory format) -> (int8 of the same
+    shape and memory format, float32 per-image scale [N])."""
+    q, amax = _quantize_activation(x)
+    return q, amax * _INV_127
+
+
+def _quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (int8, the floored per-image max |x|). The max and the min are
+    taken in the input dtype, in one pass (both are exact, and max |x| =
+    max(max, -min)); the division promotes to float32 as it reads, which
+    divides the exact float32 value of each element, as ``x.float() /
+    scale`` does, without a float32 copy of ``x``."""
+    flat = x.permute(0, *range(2, x.ndim), 1) if x.is_contiguous(memory_format=torch.channels_last) else x
+    lo, hi = torch.aminmax(flat.reshape(x.shape[0], -1), dim=1)
+    amax = _floor(torch.maximum(hi, -lo))
+    q = torch.div(x, (amax * _INV_127).view(-1, *([1] * (x.ndim - 1))))
+    return q.round_().clamp_(-127, 127).to(torch.int8), amax
+
+
+def dequant_scale(a_amax: torch.Tensor, w_amax: torch.Tensor) -> torch.Tensor:
+    """The [N,Co] float32 table of ``a_scale[n] * w_scale[co]`` from the
+    floored maxima, as XLA computes it for the JAX package: ``(a_amax /
+    127) * (w_amax / 127)`` with each division a multiply by float32(1/127),
+    but ``w_amax * (a_amax * float32(1/127)²)`` for a batch of one image,
+    where XLA's simplifier reassociates the two constants into one."""
+    if a_amax.numel() == 1:
+        return w_amax[None, :] * (a_amax * _INV_127_SQ)[:, None]
+    return (a_amax * _INV_127)[:, None] * (w_amax * _INV_127)[None, :]
+
+
+class Int8Conv2d(nn.Module):
+    """A quantized conv: int8 weights ``weight_q`` [Co,kh,kw,Ci] (K-major,
+    as NHWC reads them), their float32 per-channel maxima ``w_amax`` [Co]
+    (the scale is ``w_amax / 127``) and optional float32 ``bias`` [Co],
+    then the replaced conv's ``norm`` if it had one. Its
+    float buffers stay float32 when the model is cast (``model.to(bf16)``);
+    the output is in the input's dtype."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor], stride: int, padding: int,
+                 norm: Optional[nn.Module] = None):
+        super().__init__()
+        q, amax = _quantize_weight(weight)
+        self.register_buffer("weight_q", q)
+        self.register_buffer("w_amax", amax)  # w_scale = w_amax * float32(1/127)
+        self.register_buffer("bias", None if bias is None else bias.detach().float().clone())
+        self.stride = stride
+        self.padding = padding
+        self.norm = norm
+
+    def _apply(self, fn, recurse=True):
+        keep = {n: b for n, b in self._buffers.items() if b is not None and b.is_floating_point()}
+        super()._apply(fn, recurse)
+        for n, b in keep.items():  # follow the device, not the dtype
+            self._buffers[n] = b.to(fn(b.new_empty(0)).device)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # K4 reads NHWC: a no-op for the trunk's channels_last maps
+        x_q, a_amax = _quantize_activation(x.contiguous(memory_format=torch.channels_last))
+        scale = dequant_scale(a_amax, self.w_amax)
+        y = int8_conv2d(x_q, self.weight_q, scale, self.bias, self.stride, self.padding, x.dtype)
+        return y if self.norm is None else self.norm(y)
+
+
+def quantized_conv_names(model: nn.Module, mode: str):
+    """The names (in ``model``) of the convs ``mode`` quantizes: every conv
+    of the ResNet trunk, stem included, for ``trunk`` and ``full``, and the
+    FPN's laterals and outputs for ``full`` only (as
+    ``deepemia_tpu/models/mask_rcnn.py:52-59``)."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"quant_backbone must be one of {QUANT_MODES}, got {mode!r}")
+    names = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, nn.Conv2d):
+            continue
+        in_trunk = ".bottom_up." in f".{name}."
+        in_fpn = ".fpn_lateral" in f".{name}" or ".fpn_output" in f".{name}"
+        if (mode in ("trunk", "full") and in_trunk) or (mode == "full" and in_fpn):
+            names.append(name)
+    return names
+
+
+def quantize_backbone(model: nn.Module, mode: str,
+                      weights: Optional[Dict[str, torch.Tensor]] = None) -> nn.Module:
+    """Replaces the convs of ``mode`` (``none``, ``trunk`` or ``full``) by
+    :class:`Int8Conv2d`, in place, and returns ``model``. Each is quantized
+    from ``weights[name + ".weight"]`` (and its ``.bias``) where given,
+    else from the conv's own weight: a bf16 model must be handed its
+    float32 checkpoint, since the JAX package quantizes the float32
+    parameter."""
+    for name in quantized_conv_names(model, mode):
+        parent_name, _, attr = name.rpartition(".")
+        parent = model.get_submodule(parent_name) if parent_name else model
+        conv = getattr(parent, attr)
+        if conv.groups != 1 or conv.dilation != (1, 1) or conv.stride[0] != conv.stride[1] \
+                or conv.padding[0] != conv.padding[1]:
+            raise ValueError(f"{name}: only square, undilated, ungrouped convs quantize")
+        w = weights[f"{name}.weight"] if weights is not None else conv.weight
+        b = None
+        if conv.bias is not None:
+            b = weights[f"{name}.bias"] if weights is not None else conv.bias
+        q = Int8Conv2d(w.detach().to(torch.float32).cpu(), None if b is None else b.cpu(), conv.stride[0],
+                       conv.padding[0], getattr(conv, "norm", None))
+        setattr(parent, attr, q.to(conv.weight.device))
+    return model

@@ -1,6 +1,6 @@
 """ctypes bindings of the native host libraries: the measurement kernels
-(``measure.cpp``) and the LZW and PackBits decoders of ``read_image``
-(``codecs.cpp``).
+(``measure.cpp``) and the LZW, PackBits and JPEG decoders of
+``read_image`` (``codecs.cpp``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
 ``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "codecs": {
         "lzw_decode": ([_P, _L, _P, _L], _L),
         "packbits_decode": ([_P, _L, _P, _L], _L),
+        "jpeg_decode": ([_P, _L, _P, _L, _P], _I),
     },
 }
 
@@ -145,3 +146,18 @@ def lzw_decode(data: bytes, size: int) -> bytes:
 def packbits_decode(data: bytes, size: int) -> bytes:
     """A PackBits strip or tile -> at most ``size`` decoded bytes."""
     return _decode("packbits_decode", data, size)
+
+
+def jpeg_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
+    """A JPEG file's bytes -> (status, meta, pixels): status 0 with [H,W,3]
+    BGR uint8 pixels, else a negative status of ``codecs.cpp:jpeg_decode``
+    and no pixels; meta = (height, width, components, SOF marker)."""
+    src = np.frombuffer(data, np.uint8)
+    meta = np.zeros(4, np.int32)
+    lib = get_lib("codecs")
+    status = lib.jpeg_decode(_ptr(src), src.size, None, 0, _ptr(meta))
+    if status != 1:
+        return status, meta, None
+    out = np.empty((int(meta[0]), int(meta[1]), 3), np.uint8)
+    status = lib.jpeg_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta))
+    return status, meta, out if status == 0 else None

@@ -104,10 +104,16 @@ def read_image(path: str) -> np.ndarray:
     24-bit, 32-bit; bottom-up or top-down rows). Gray is replicated to three
     channels and alpha is dropped. 16-bit samples reduce to 8 bits as
     OpenCV reduces them: the high byte, except for 16-bit colour TIFF,
-    which libtiff's RGBA reader rounds (v * 255 + 32767) // 65535. Any
-    other encoding (JPEG, BigTIFF, the other TIFF compressions) raises an
-    ``UnsupportedImageError`` that names it; a corrupt or truncated file a
-    ``ValueError``, and a missing one an ``OSError``."""
+    which libtiff's RGBA reader rounds (v * 255 + 32767) // 65535. JPEG
+    (baseline, extended and progressive Huffman, 8-bit gray, YCbCr or RGB,
+    any sampling libjpeg takes) decodes to libjpeg-turbo's pixels bit for
+    bit (``native/codecs.cpp:jpeg_decode``), EXIF orientation applied as
+    OpenCV applies it. Any other encoding (BigTIFF, the other TIFF
+    compressions, JPEG's arithmetic, lossless and hierarchical codings,
+    12-bit and CMYK JPEG) raises an ``UnsupportedImageError`` that names
+    it; a corrupt file, or one cut off before its pixel data, a
+    ``ValueError`` (where OpenCV returns None), and a missing one an
+    ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -117,8 +123,8 @@ def read_image(path: str) -> np.ndarray:
             return _decode_tiff(data)
         if data[:4] in (b"II+\x00", b"MM\x00+"):
             raise UnsupportedImageError("BigTIFF is not supported")
-        if data[:3] == b"\xff\xd8\xff":
-            raise UnsupportedImageError("JPEG is not supported (JPEG decoding is ROADMAP A7)")
+        if data[:2] == b"\xff\xd8":
+            return _decode_jpeg(data)
         if data[:2] == b"BM":
             return _decode_bmp(data)
     except (struct.error, KeyError, IndexError, zlib.error) as e:
@@ -325,3 +331,79 @@ def _decode_bmp(data: bytes) -> np.ndarray:
             raise ValueError("BMP: a pixel indexes past the palette")
         return np.ascontiguousarray(pal[idx])
     return np.ascontiguousarray(raw[:, : width * bits // 8].reshape(rows, width, bits // 8)[..., :3])
+
+
+# ---------------------------------------------------------------------------
+# JPEG
+# ---------------------------------------------------------------------------
+
+_JPEG_CODINGS = {
+    0xC3: "lossless (SOF3)", 0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
+    0xC7: "differential lossless (SOF7)", 0xC9: "arithmetic-coded sequential (SOF9)",
+    0xCA: "arithmetic-coded progressive (SOF10)", 0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCC: "arithmetic coding (DAC)", 0xCD: "differential arithmetic-coded sequential (SOF13)",
+    0xCE: "differential arithmetic-coded progressive (SOF14)", 0xCF: "differential arithmetic-coded lossless (SOF15)",
+}
+
+
+def _decode_jpeg(data: bytes) -> np.ndarray:
+    from deepemia_tpu_torch import native
+
+    status, meta, pix = native.jpeg_decode(data)
+    if status == 0:
+        return _orient(pix, _exif_orientation(data))
+    if status == -2:
+        coding = int(meta[3])
+        raise UnsupportedImageError(f"JPEG: {_JPEG_CODINGS.get(coding, f'SOF marker 0x{coding:02X}')} is not supported")
+    if status == -3:
+        raise UnsupportedImageError(f"JPEG: {int(meta[2]) or 'these'} components (CMYK, YCCK) are not supported")
+    if status == -4:
+        raise UnsupportedImageError("JPEG: sample precision other than 8 bits (12-bit) is not supported")
+    if status == -5:
+        raise UnsupportedImageError(
+            "JPEG: a progressive image whose scans leave low coefficients unrefined (libjpeg's block "
+            "smoothing) is not supported"
+        )
+    raise ValueError("JPEG: corrupt, or cut off before its pixel data")
+
+
+def _exif_orientation(data: bytes) -> int:
+    """The Orientation tag (0x0112) of the first APP1 Exif segment, or 1;
+    an unreadable Exif block reads as 1, as OpenCV ignores it."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker in (0xD9, 0xDA):
+            break
+        if marker == 0xFF:
+            pos += 1
+            continue
+        (length,) = struct.unpack(">H", data[pos + 2 : pos + 4])
+        body = data[pos + 4 : pos + 2 + length]
+        pos += 2 + length
+        if marker != 0xE1 or not body.startswith(b"Exif\x00\x00"):
+            continue
+        tiff = body[6:]
+        try:
+            end = {b"II": "<", b"MM": ">"}[tiff[:2]]
+            (ifd,) = struct.unpack(end + "I", tiff[4:8])
+            (count,) = struct.unpack(end + "H", tiff[ifd : ifd + 2])
+            for i in range(count):
+                tag, typ, _, value = struct.unpack(end + "HHI4s", tiff[ifd + 2 + 12 * i : ifd + 14 + 12 * i])
+                if tag == 0x0112 and typ == 3:
+                    return struct.unpack(end + "H", value[:2])[0]
+        except (KeyError, struct.error):
+            return 1
+        return 1
+    return 1
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ``ApplyExifOrientation``: 2 flips left-right, 3 turns 180°,
+    4 flips up-down, 5 transposes, 6 turns 90° clockwise, 7 transposes and
+    turns 180°, 8 turns 90° counter-clockwise; any other value leaves the
+    image as it is."""
+    t = img.transpose(1, 0, 2)
+    out = {2: img[:, ::-1], 3: img[::-1, ::-1], 4: img[::-1], 5: t, 6: t[:, ::-1], 7: t[::-1, ::-1],
+           8: t[::-1]}.get(orientation, img)
+    return np.ascontiguousarray(out)

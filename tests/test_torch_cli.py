@@ -151,13 +151,39 @@ def test_inference_task_matches_the_jax_cli(tmp_path, tiny_r50):
 @pytest.mark.parametrize("argv, item", [
     (["--task", "train", "--dataset_name", "zds", "--chips", "4"], "A8"),
     (["--task", "inference", "--dataset_name", "zds", "--chips", "4"], "A8"),
-    (["--task", "inference", "--dataset_name", "zds", "--quantized", "trunk"], "A6"),
 ])
 def test_what_is_not_ported_exits_2(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
         cli.cli_entry(argv)
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_quantized_reaches_the_config(tmp_path, tiny_r50, monkeypatch):
+    """``--quantized trunk`` sets ``performance.quantized_inference``, as the
+    JAX CLI does: the pipeline serves the int8 trunk (all 53 ResNet convs)
+    and the run writes its CSVs."""
+    from deepemia_tpu_torch.inference import pipeline as port_pipeline
+    from deepemia_tpu_torch.models.quant import Int8Conv2d
+
+    home = make_home(tmp_path / "home", _zoo_state_dict(tiny_r50[1]))
+    monkeypatch.setenv("DEEPEMIA_TPU_HOME", str(home))
+    monkeypatch.setattr(port_cfg, "_default_store", None)
+    seen = []
+    init = port_pipeline.InferencePipeline.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen.append((self.config["performance"]["quantized_inference"], self.quant_backbone,
+                     sum(isinstance(m, Int8Conv2d) for m in self.engine.model.modules())))
+
+    monkeypatch.setattr(port_pipeline.InferencePipeline, "__init__", spy)
+    with pytest.raises(SystemExit) as e:
+        cli.cli_entry([*FLAGS, "--quantized", "trunk", "--device", "cpu"])
+    assert e.value.code == 0
+    assert seen == [("trunk", "trunk", 53)]
+    assert len(list((home / "output").rglob("measurements_results.csv"))) == 1
+    port_cfg._default_store = None
 
 
 # small proposal and sample capacities keep a CPU training step at 64² near 1 s

@@ -427,8 +427,14 @@ def test_unsupported_tiff_compressions_raise_by_name(tmp_path, code, name):
 def test_other_unsupported_kinds_raise_by_name(tmp_path):
     a = _image((8, 8, 3), np.uint8, seed=1)
     cv2.imwrite(str(tmp_path / "a.jpg"), a)
-    with pytest.raises(ValueError, match="JPEG is not supported"):
-        read_image(str(tmp_path / "a.jpg"))
+    # JPEG decodes now, to OpenCV's pixels (tests/test_torch_jpeg.py); its
+    # arithmetic coding does not: the frame header SOF0 patched to SOF9
+    np.testing.assert_array_equal(read_image(str(tmp_path / "a.jpg")), cv2.imread(str(tmp_path / "a.jpg")))
+    jpg = bytearray((tmp_path / "a.jpg").read_bytes())
+    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC9
+    (tmp_path / "arith.jpg").write_bytes(bytes(jpg))
+    with pytest.raises(ValueError, match=r"arithmetic-coded sequential \(SOF9\) is not supported"):
+        read_image(str(tmp_path / "arith.jpg"))
     (tmp_path / "big.tif").write_bytes(b"II+\x00\x08\x00\x00\x00" + b"\0" * 16)
     with pytest.raises(ValueError, match="BigTIFF is not supported"):
         read_image(str(tmp_path / "big.tif"))

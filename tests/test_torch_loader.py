@@ -3,7 +3,9 @@ and augmentation (``train/augment.py``) against the JAX package's, array for
 array: ``prepare_sample`` with augmentation on and off and both resize modes,
 a one-worker ``TrainLoader`` sequence of three batches, the augmentation
 affine and ``boxes_from_masks``; missing or corrupt images are skipped as
-the JAX loader skips them, and a JPEG raises, naming ROADMAP A7. The colour
+the JAX loader skips them, a JPEG record gives the JAX loader's sample, and
+an encoding ``read_image`` does not decode (an arithmetic-coded JPEG)
+raises rather than be skipped. The colour
 warp and ``convertScaleAbs`` the loader uses are held to OpenCV in
 ``tests/test_torch_cv.py``."""
 
@@ -104,17 +106,36 @@ def test_missing_and_corrupt_images_are_skipped(records, tmp_path):
 
 
 def test_jpeg_raises_naming_a7(records, tmp_path):
-    """OpenCV reads a JPEG and the JAX loader trains on it; the port cannot
-    decode it yet and refuses rather than skip it."""
+    """A JPEG record (the first record's image, written as JPEG) gives the
+    JAX loader's sample, with and without augmentation, and its batch. An
+    arithmetic-coded JPEG, which OpenCV may read and the port does not
+    decode, raises rather than be skipped."""
     jpg = tmp_path / "micro.jpg"
-    cv2.imwrite(str(jpg), np.full((50, 60), 128, np.uint8))
+    cv2.imwrite(str(jpg), cv2.imread(records[0]["file_name"]), [cv2.IMWRITE_JPEG_QUALITY, 85])
     rec = dict(records[0], file_name=str(jpg))
-    assert jax_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0)) is not None
-    with pytest.raises(UnsupportedImageError, match="ROADMAP A7"):
+    for augment in (False, True):
+        want = jax_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(0))
+        got = port_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(0))
+        assert want is not None
+        _assert_samples_equal(got, want, augment)
+    loaders = [mod.TrainLoader([rec, records[1]], 2, 64, 8, augment=True, seed=3, workers=1)
+               for mod in (jax_loader, port_loader)]
+    try:
+        _assert_samples_equal(next(iter(loaders[1])), next(iter(loaders[0])), "batch")
+    finally:
+        for ld in loaders:
+            ld.close()
+
+    data = bytearray(jpg.read_bytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9
+    arith = tmp_path / "arith.jpg"
+    arith.write_bytes(bytes(data))
+    rec = dict(records[0], file_name=str(arith))
+    with pytest.raises(UnsupportedImageError, match="SOF9"):
         port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0))
     loader = port_loader.TrainLoader([rec], 2, 64, 8, workers=1)
     try:
-        with pytest.raises(RuntimeError, match="ROADMAP A7"):
+        with pytest.raises(RuntimeError, match="SOF9"):
             next(iter(loader))
     finally:
         loader.close()

@@ -118,14 +118,27 @@ def _rows(path):
 
 
 def test_pipeline_matches_jax(golden):
+    _pipeline_matches_jax(golden, golden["cfg"], "")
+
+
+def test_pipeline_matches_jax_int8_trunk(golden):
+    """``quantized_inference: trunk``: both packages serve the ResNet trunk
+    in int8 (the port through the plain version of K4 on the CPU)."""
     cfg = golden["cfg"]
+    cfg = {**cfg, "performance": {**cfg["performance"], "quantized_inference": "trunk"}}
+    pipe = _pipeline_matches_jax(golden, cfg, "_int8")
+    assert pipe.quant_backbone == "trunk" and pipe.engine.model.quant_backbone == "trunk"
+
+
+def _pipeline_matches_jax(golden, cfg, tag):
     common = dict(config=cfg, use_bf16=False, default_threshold=0.2)
-    ref = JaxPipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / "jax"), **common).run(
+    ref = JaxPipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / f"jax{tag}"), **common).run(
         golden["inf_dir"], visualize=False
     )
     psum, um_pix = detect_scale_bar(cv2.imread(str(Path(golden["inf_dir"]) / "micro.png")), cfg, "zds")
     assert psum == "2"
-    pipe = InferencePipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / "port"), device="cpu", **common)
+    pipe = InferencePipeline("zds", golden["split_dir"], output_dir=str(golden["tmp"] / f"port{tag}"), device="cpu",
+                             **common)
     assert pipe.use_multiscale and pipe.postproc_enabled and not pipe.use_ensemble
     got = pipe.run(golden["inf_dir"], visualize=False)
     assert got["processed"] == ref["processed"] == ["micro.png"] and not got["failed"]
@@ -133,6 +146,7 @@ def test_pipeline_matches_jax(golden):
     assert {"decode", "scalebar", "engine", "postprocess", "rle", "rle_rows", "measurements", "csv"} <= set(got["stages"])
 
     _assert_csvs_match(got, ref, (128, 128))
+    return pipe
 
 
 def _assert_csvs_match(got, ref, hw):
@@ -156,14 +170,21 @@ def _assert_csvs_match(got, ref, hw):
             assert abs(fa - fb) <= REL_TOL * max(abs(fb), 1e-12), (a, b)
 
 
-def test_pipeline_refuses_what_is_not_ported(golden):
-    """Int8 serving is not ported (overlays and the device measurement
-    backend are: see the tests below)."""
+def test_pipeline_refuses_what_is_not_ported(golden, caplog):
+    """Every serving option is ported now: ``quantized_inference`` trunk and
+    full serve int8 backbones, and an unknown value warns and serves
+    ``none``, as the JAX package does; the device measurement backend
+    builds too."""
+    from deepemia_tpu_torch.models.quant import Int8Conv2d
+
     cfg = golden["cfg"]
-    for value in ("trunk", "full"):
-        bad = {**cfg, "performance": {**cfg["performance"], "quantized_inference": value}}
-        with pytest.raises(NotImplementedError, match="quantized_inference"):
-            InferencePipeline("zds", golden["split_dir"], config=bad, use_bf16=False, device="cpu")
+    for value, n_int8 in (("trunk", 53), ("full", 61), ("int4", 0)):
+        q = {**cfg, "performance": {**cfg["performance"], "quantized_inference": value}}
+        caplog.clear()
+        pipe = InferencePipeline("zds", golden["split_dir"], config=q, use_bf16=False, device="cpu")
+        assert pipe.quant_backbone == (value if n_int8 else "none")
+        assert sum(isinstance(m, Int8Conv2d) for m in pipe.engine.model.modules()) == n_int8
+        assert ("Unknown quantized_inference" in caplog.text) == (n_int8 == 0)
     ok = {**cfg, "performance": {**cfg["performance"], "measurement_backend": "device"}}
     pipe = InferencePipeline("zds", golden["split_dir"], config=ok, use_bf16=False, device="cpu")
     assert pipe.measurement_backend == "device"
@@ -209,13 +230,12 @@ def test_default_run_inference_with_ensemble_matches_jax(golden):
 
 
 def test_unreadable_image_is_isolated(golden, tmp_path):
-    """A file the decoder refuses (a JPEG named .tif) lands in ``failed``;
-    the other images go on to both CSVs."""
+    """A file the decoder cannot read (a TIFF cut off inside its header)
+    lands in ``failed``; the other images go on to both CSVs."""
     folder = tmp_path / "mixed"
     folder.mkdir()
     (folder / "a.png").write_bytes((Path(golden["inf_dir"]) / "micro.png").read_bytes())
-    cv2.imwrite(str(folder / "b.jpg"), golden["image"])
-    (folder / "b.jpg").rename(folder / "b.tif")
+    (folder / "b.tif").write_bytes(b"II*\x00\x08\x00\x00\x00\x0c\x00\x00\x01")
     cfg = {**golden["cfg"], "performance": {**golden["cfg"]["performance"], "use_bf16": False}}
     res = run_inference(
         "zds", golden["split_dir"], image_folder=str(folder),
