@@ -150,23 +150,30 @@ It builds the CUDA kernels from the sources in the checkout and then:
      implicit-GEMM conv (K4) equals its plain version (max abs diff 0) at
      every distinct conv shape of the R50 trunk and FPN, captured from one
      forward of a 16-tile batch of 1024² inputs and one 2048² whole-image
-     pass, in bf16 and float32, and is timed per shape beside its plain
-     version, its bound, bf16 ``F.conv2d`` and, at the 1x1 stride-1 shapes,
-     ``torch._int_mm`` (one ``int8_conv {...}`` line per shape); the
+     pass, in bf16 and float32, with its fused epilogue off and on (the
+     conv's own frozen norm and ReLU), and is timed per shape (CUDA events,
+     the profiler's device time and the host time per call) beside its
+     plain version, its bound, bf16 ``F.conv2d`` and, at the 1x1 stride-1
+     shapes, ``torch._int_mm`` (one ``int8_conv {...}`` line per shape);
+     the activation quantizer (K5) equals its plain version at every input
+     shape it takes there (int8 and per-image max equal, the stem's
+     16-channel layout included) and is timed beside it, its bound and the
+     torch-op chain (one ``int8_quant {...}`` line per shape); the
      trunk + FPN seconds of one batch for ``--quantized`` none / trunk /
      full; the float and int8 engines' detections on one micrograph matched
-     as INT8_AP.md counts them; the int8 trunk of one 256² tile on the card
-     against the plain int8 trunk on the CPU (share of bit-equal elements,
-     max abs diff per level); and ``--task inference --quantized trunk``
+     as INT8_AP.md counts them; the int8 trunk of one 256² and one 253x259
+     tile on the card against the plain int8 trunk on the CPU (bit for bit
+     at every level); and ``--task inference --quantized trunk``
      through the CLI in its own process on phase 9's micrographs, the first
      a JPEG, then ``--quantized full`` on the JPEG (every image processed,
-     every bar read, K4 launched). Phase 13 writes every other image of its
+     every bar read, K4 and K5 launched). Phase 13 writes every other image of its
      dataset as JPEG, so train and evaluate read JPEG records.
 
 Phase 7 runs before phase 6, whose inputs come from a training step, and
 phases 11, 12, 14 and 13 before phase 10. K1's ``launches`` in the kernel
 line is the sum of phases 3, 9, 11, 12 and 13, K2's of phases 7 and 13,
-K4's of phase 14's two CLI runs, each counted from zero over its own run.
+K4's and K5's of phase 14's two CLI runs, each counted from zero over its
+own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -1734,7 +1741,8 @@ def cli_child(out_json: str, *argv: str) -> int:
     """Run ``python -m deepemia_tpu_torch.cli.main *argv`` in this process
     (``run_cli`` on the home ``$DEEPEMIA_TPU_HOME``) and write to
     ``out_json`` its exit code, the pipeline's result, its steady stage
-    seconds, the RoIAlign counts and the int8 conv (K4) launches."""
+    seconds, the RoIAlign counts and the int8 conv (K4) and activation
+    quantizer (K5) launches."""
     import deepemia_tpu_torch.inference.pipeline as pipeline_mod
 
     results = []
@@ -1745,15 +1753,15 @@ def cli_child(out_json: str, *argv: str) -> int:
         return results[-1]
 
     pipeline_mod.InferencePipeline.run = run
-    from deepemia_tpu_torch.kernels import int8_conv
+    from deepemia_tpu_torch.kernels import int8_conv, int8_quant
 
-    int8_conv.counter.launches = 0
+    int8_conv.counter.launches = int8_quant.counter.launches = 0
     with StageLog() as stage_log, CountedRoIAlign() as roi:
         rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
     with open(out_json, "w") as f:
         json.dump({"rc": rc, "result": results[0] if results else None, "steady": stage_log.steady(),
                    "with_rois": roi.with_rois, "launches": roi.launches,
-                   "k4_launches": int8_conv.counter.launches}, f)
+                   "k4_launches": int8_conv.counter.launches, "k5_launches": int8_quant.counter.launches}, f)
     return 0
 
 
@@ -2824,31 +2832,38 @@ def phase_jpeg_fixtures(size: int = 2048):
 def conv_work(x_shape, w_shape, stride, padding, out_dtype):
     """(bound ms, 'bytes' or 'operations') of one int8 conv: 2 ops a
     multiply-add over 1,979 TOPS; the int8 activations and weights read
-    once, the output written once, the scale table read once, over 3.35
-    TB/s."""
+    once, the output written once, the per-image and per-channel maxima
+    read once, over 3.35 TB/s."""
     from deepemia_tpu_torch.kernels.int8_conv import conv_out_hw
 
     n, ci, h, w = x_shape
     co, kh, kw, _ = w_shape
     ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
     ops = 2.0 * n * ho * wo * co * kh * kw * ci
-    nbytes = n * ci * h * w + co * kh * kw * ci + n * co * 4 + n * ho * wo * co * torch.empty(
+    nbytes = n * ci * h * w + co * kh * kw * ci + (n + co) * 4 + n * ho * wo * co * torch.empty(
         (), dtype=out_dtype).element_size()
     t_ops, t_bytes = ops / I8_TOPS, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 class ConvCapture:
-    """Within the block, the first input of every distinct int8 conv shape
-    (N, Ci, H, W, Co, k, stride) of the model's forwards, quantized as the
-    module quantizes it, and how many convs of each shape one forward
-    runs, in the trunk and in the FPN."""
+    """Within the block, the first call of every distinct int8 conv shape
+    (N, Ci, H, W, Co, k, stride of the replaced conv) that the model's
+    forwards make to K4's wrapper, with the arguments the module passes
+    (K5's int8 input, the weights and stride K4 reads: the stem's
+    space-to-depth form included, the epilogue), and how many convs of each
+    shape one forward runs, in the trunk and in the FPN; and the first
+    input of every distinct shape the activation quantizer (K5) takes (N,
+    C, H, W, channels, space-to-depth), with how many quantizations of it
+    one forward makes."""
 
     def __init__(self, model):
         from deepemia_tpu_torch.models.quant import Int8Conv2d
 
         self.model, self.cls = model, Int8Conv2d
         self.inputs, self.counts, self.handles = {}, {}, []
+        self.quant_inputs, self.quant_counts, self.patched = {}, {}, []
+        self.current = None
 
     def __enter__(self):
         from deepemia_tpu_torch.models import quant
@@ -2858,22 +2873,53 @@ class ConvCapture:
                 continue
 
             def hook(m, args, name=name):
-                x = args[0]
+                x = args[0].x if isinstance(args[0], quant.QuantizedActivation) else args[0]
                 key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], m.weight_q.shape[0], m.weight_q.shape[1],
                        m.stride)
                 part = "fpn" if ".fpn_" in name else "trunk"
                 self.counts.setdefault(key, {"trunk": 0, "fpn": 0})[part] += 1
-                if key not in self.inputs:
-                    x_q, a_amax = quant._quantize_activation(x)
-                    self.inputs[key] = dict(x=x, x_q=x_q, scale=quant.dequant_scale(a_amax, m.w_amax), w=m.weight_q,
-                                            bias=m.bias, stride=m.stride, padding=m.padding, name=name)
+                self.current = (key, name, m, x)
 
             self.handles.append(mod.register_forward_pre_hook(hook))
+
+            def counted(x, part="fpn" if ".fpn_" in name else "trunk", mod=mod, real=mod.quantize):
+                q = real(x)
+                key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], q.x_q.shape[1], mod.space_to_depth)
+                self.quant_counts.setdefault(key, {"trunk": 0, "fpn": 0})[part] += 1
+                self.quant_inputs.setdefault(key, x.contiguous(memory_format=torch.channels_last))
+                return q
+
+            mod.quantize = counted  # the block's shared quantization calls it too
+            self.patched.append(mod)
+        self.real_conv = quant.int8_conv2d
+
+        def conv(x_q, w, scale, bias, stride, padding, out_dtype, **fused):
+            key, name, m, x = self.current
+            if key not in self.inputs:
+                self.inputs[key] = dict(x=x, x_q=x_q, w=w, scale=scale, bias=bias, stride=stride, padding=padding,
+                                        fused=fused, name=name, conv_w=m.weight_q, conv_stride=m.stride,
+                                        conv_padding=m.padding)
+            return self.real_conv(x_q, w, scale, bias, stride, padding, out_dtype, **fused)
+
+        quant.int8_conv2d = conv
         return self
 
     def __exit__(self, *exc):
+        from deepemia_tpu_torch.models import quant
+
+        quant.int8_conv2d = self.real_conv
+        for mod in self.patched:
+            del mod.quantize
         for h in self.handles:
             h.remove()
+
+
+def quant_work(x_shape, q_shape, dtype):
+    """(bound ms, 'bytes') of one activation quantization: the input read
+    once, the int8 output (in the layout K4 reads, its zero channels
+    included) and the per-image max written once, over 3.35 TB/s."""
+    nbytes = math.prod(x_shape) * torch.empty((), dtype=dtype).element_size() + math.prod(q_shape) + 4 * x_shape[0]
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def int8_inputs(images):
@@ -2891,18 +2937,30 @@ def phase_int8_conv(images):
     """Phase 14: K4 against its plain version on the card at every distinct
     conv shape of the R50 trunk and FPN (``quantized_inference: full``
     captures both), from one forward of a 16-tile batch of 1024² inputs and
-    one 2048² whole-image pass, in bf16 and float32: max abs diff 0. At the
-    16-tile batch in bf16 it times each shape (CUDA events after an
-    L2-evicting write): K4, its plain version, bf16 ``F.conv2d`` at the same
-    shape and, at the 1x1 stride-1 shapes, ``torch._int_mm`` on the same
-    int8 operands (the int32 product alone). Then the trunk + FPN seconds
-    of one 16-tile batch in bf16 for ``none``, ``trunk`` and ``full``, and
-    the detections of the float and int8 engines on one micrograph matched
-    as INT8_AP.md counts them. -> (rows of the timed shapes, max error,
-    per-forward sums)."""
+    one 2048² whole-image pass, in bf16 and float32, with the fused
+    epilogue off (dequantize and bias) and on (the conv's own frozen norm
+    and ReLU), with the scale the module hands it (the maxima) and as a
+    table: max abs diff 0; and K5 against its plain version (the module's
+    torch-op quantizer, then the layout) at every input shape the quantizer
+    takes there, the stem's space-to-depth layout included: equal. At the
+    16-tile batch in bf16 it times each conv shape (CUDA events after an
+    L2-evicting write): K4 with the conv's epilogue, its plain version,
+    bf16 ``F.conv2d`` at the same shape and, at the 1x1 stride-1 shapes,
+    ``torch._int_mm`` on the same int8 operands (the int32 product alone),
+    and K4's device time (``device_ms``, the profiler's) and host time per
+    call (``host_ms``); and each quantizer input shape: K5, its plain
+    version and the torch-op chain alone (``_quantize_activation``), and
+    K5's device time. Then the trunk
+    + FPN seconds of one 16-tile batch in bf16 for ``none``, ``trunk`` and
+    ``full``, and the detections of the float and int8 engines on one
+    micrograph matched as INT8_AP.md counts them. -> (rows of the timed
+    conv shapes, K4's max error, per-forward sums, batch seconds, rows of
+    the timed quantizer shapes, K5's max error, its per-forward sums)."""
     import torch.nn.functional as F
 
     from deepemia_tpu_torch.kernels import int8_conv as k4
+    from deepemia_tpu_torch.kernels import int8_quant as k5
+    from deepemia_tpu_torch.models import quant
     from deepemia_tpu_torch.models.mask_rcnn import build_model
 
     batch = int8_inputs(images)
@@ -2917,31 +2975,49 @@ def phase_int8_conv(images):
             assert all(bool(torch.isfinite(v).all()) for v in feats.values())
             captured[(dtype, tag)] = cap
         del model, feats
-    errs, rows = [], []
+    errs, rows, qerrs, qrows = [], [], [], []
+    # the L2-evicting write's own device events, left out of device_ms (as window_sum_times does)
+    flush_kinds = {}
+    for _ in range(2):
+        flush_kinds.update(device_ms(lambda: None, 100)[1])
+    assert flush_kinds, "the profiler recorded no device event of the L2-evicting write"
+    skip = frozenset(flush_kinds)
     for (dtype, tag), cap in captured.items():
         assert sum(c["trunk"] for c in cap.counts.values()) == 53 and sum(c["fpn"] for c in cap.counts.values()) == 8
+        # 53 trunk convs read 49 quantized inputs: each stage's first block quantizes once for conv1 and shortcut
+        assert sum(c["trunk"] for c in cap.quant_counts.values()) == 49, cap.quant_counts
         for key, a in cap.inputs.items():
-            got = k4.launch(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
-            want = k4.int8_conv2d_plain(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
-            torch.cuda.synchronize()
-            assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
-            err = float((got.float() - want.float()).abs().max())
-            errs.append(err)
-            assert err == 0.0, (key, dtype, tag, err)
+            args = (a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
+            assert isinstance(a["scale"], k4.DequantScale), type(a["scale"])  # the maxima, made into the scale by K4
+            for fused in ({"out_hw": a["fused"]["out_hw"]}, a["fused"]):
+                got = k4.launch(*args, **fused)
+                want = k4.int8_conv2d_plain(*args, **fused)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
+                err = float((got.float() - want.float()).abs().max())
+                errs.append(err)
+                assert err == 0.0, (key, dtype, tag, bool(fused), err)
+            table = (a["x_q"], a["w"], a["scale"].table()) + args[3:]  # the same scale as a [N,Co] table
+            assert torch.equal(k4.launch(*table, **a["fused"]), got), (key, dtype, tag)
             if dtype != torch.bfloat16 or tag != "batch":
                 continue
             n, ci, h, w, co, k, stride = key
-            bound, by = conv_work(a["x_q"].shape, a["w"].shape, stride, a["padding"], dtype)
+            # the replaced conv's work (the stem's 3 channels and 7x7 taps, not its space-to-depth form)
+            bound, by = conv_work(a["x"].shape, a["conv_w"].shape, stride, a["conv_padding"], dtype)
+            fused = a["fused"]
             row = dict(shape=f"{n}x{ci}x{h}x{w} -> {co}, {k}x{k}/{stride}", layer=a["name"],
                        count_trunk=cap.counts[key]["trunk"], count_fpn=cap.counts[key]["fpn"],
-                       ms=time_ms(lambda a=a: k4.launch(a["x_q"], a["w"], a["scale"], a["bias"], a["stride"],
-                                                        a["padding"], dtype)),
-                       plain_ms=time_ms(lambda a=a: k4.int8_conv2d_plain(
-                           a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype), reps=3),
+                       epilogue="norm+relu" if fused["relu"] else "norm" if fused["norm_weight"] is not None else
+                       "bias" if a["bias"] is not None else "none",
+                       ms=time_ms(lambda args=args, fused=fused: k4.launch(*args, **fused)),
+                       plain_ms=time_ms(lambda args=args, fused=fused: k4.int8_conv2d_plain(*args, **fused), reps=3),
                        bound_ms=bound, bound_by=by)
-            w_bf16 = a["w"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
-            row["bf16_conv_ms"] = time_ms(lambda a=a, wb=w_bf16: F.conv2d(a["x"], wb, None, a["stride"],
-                                                                          a["padding"]))
+            row["device_ms"], kinds = device_ms(lambda args=args, fused=fused: k4.launch(*args, **fused), 50, skip)
+            assert len(kinds) == 1, kinds  # K4's kernel alone: no other device work in the wrapper
+            row["host_ms"] = host_ms(lambda args=args, fused=fused: k4.launch(*args, **fused), 200)
+            w_bf16 = a["conv_w"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
+            row["bf16_conv_ms"] = time_ms(lambda a=a, wb=w_bf16: F.conv2d(a["x"], wb, None, a["conv_stride"],
+                                                                          a["conv_padding"]))
             row["int_mm_ms"] = None
             if k == 1 and stride == 1:
                 a2 = a["x_q"].permute(0, 2, 3, 1).reshape(-1, ci)
@@ -2954,12 +3030,39 @@ def phase_int8_conv(images):
             rows.append(row)
             print("int8_conv " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v)
                                              for k_, v in row.items()}), flush=True)
+        for key, x in cap.quant_inputs.items():
+            channels, s2d = key[4], key[5]
+            q, amax = k5.launch(x, s2d)
+            q_ref, amax_ref = k5.int8_quantize_plain(x, s2d)
+            torch.cuda.synchronize()
+            assert q.is_contiguous(memory_format=torch.channels_last) and q.shape[1] == channels, key
+            assert torch.equal(q, q_ref) and torch.equal(amax, amax_ref), (key, dtype, tag)
+            qerrs.append(max(float((q.int() - q_ref.int()).abs().max()), float((amax - amax_ref).abs().max())))
+            if dtype != torch.bfloat16 or tag != "batch":
+                continue
+            bound, by = quant_work(x.shape, q.shape, dtype)
+            blocks = " (2x2 blocks)" if s2d else ""
+            qrow = dict(shape=f"{key[0]}x{key[1]}x{key[2]}x{key[3]} -> {tuple(q.shape)}{blocks}",
+                        count_trunk=cap.quant_counts[key]["trunk"], count_fpn=cap.quant_counts[key]["fpn"],
+                        ms=time_ms(lambda x=x, s2d=s2d: k5.launch(x, s2d)),
+                        plain_ms=time_ms(lambda x=x, s2d=s2d: k5.int8_quantize_plain(x, s2d)),
+                        torch_chain_ms=time_ms(lambda x=x: quant._quantize_activation(x)),
+                        bound_ms=bound, bound_by=by)
+            qrow["device_ms"], kinds = device_ms(lambda x=x, s2d=s2d: k5.launch(x, s2d), 50, skip)
+            assert len(kinds) == 2, kinds  # K5's max pass and quantize pass
+            qrow["share"] = qrow["bound_ms"] / qrow["ms"]
+            qrows.append(qrow)
+            print("int8_quant " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v)
+                                              for k_, v in qrow.items()}), flush=True)
     n_shapes = {f"{str(d).split('.')[-1]} {t}": len(c.inputs) for (d, t), c in captured.items()}
     print(f"int8_conv: K4 equals its plain version (max abs diff {max(errs)}) at every shape of the R50 trunk + FPN "
-          f"{json.dumps(n_shapes)}", flush=True)
+          f"{json.dumps(n_shapes)}, fused epilogue off and on", flush=True)
+    n_quant = {f"{str(d).split('.')[-1]} {t}": len(c.quant_inputs) for (d, t), c in captured.items()}
+    print(f"int8_quant: K5 equals its plain version (x_q and amax equal) at every quantized input shape "
+          f"{json.dumps(n_quant)}", flush=True)
     sums = {}
     for part in ("trunk", "fpn"):
-        for col in ("ms", "plain_ms", "bound_ms", "bf16_conv_ms"):
+        for col in ("ms", "plain_ms", "bound_ms", "bf16_conv_ms", "device_ms", "host_ms"):
             sums[f"{part}_{col}"] = sum(r[col] * r[f"count_{part}"] for r in rows)
         sums[f"{part}_int_mm_ms"] = sum(r["int_mm_ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
         sums[f"{part}_ms_1x1"] = sum(r["ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
@@ -2967,6 +3070,12 @@ def phase_int8_conv(images):
     print("int8_conv: one R50 forward of a 16-tile batch of 1024² inputs, bf16, per-shape times x convs of that "
           "shape: " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v) for k_, v in sums.items()}),
           flush=True)
+    qsums = {}
+    for part in ("trunk", "fpn"):
+        for col in ("ms", "plain_ms", "torch_chain_ms", "bound_ms", "device_ms"):
+            qsums[f"{part}_{col}"] = sum(r[col] * r[f"count_{part}"] for r in qrows)
+    print("int8_quant: one R50 forward of a 16-tile batch of 1024² inputs, bf16, per-shape times x quantizations "
+          "of that shape: " + json.dumps({k_: round(v, 6) for k_, v in qsums.items()}), flush=True)
     del captured
 
     # trunk + FPN seconds per batch, and the engines' detections matched
@@ -2983,7 +3092,7 @@ def phase_int8_conv(images):
     agreement = {mode: engine_agreement(nets["none"], nets[mode], images[0]) for mode in ("trunk", "full")}
     print("int8: detections of the float and int8 engines on one 2048² micrograph matched at box IoU > "
           f"{MATCH_IOU}, same class (INT8_AP.md's count): " + json.dumps(agreement), flush=True)
-    return rows, max(errs), sums, times
+    return rows, max(errs), sums, times, qrows, max(qerrs), qsums
 
 
 def engine_agreement(float_model, int8_model, image):
@@ -3012,27 +3121,31 @@ def engine_agreement(float_model, int8_model, image):
             "share": matched / denom if denom else 1.0}
 
 
-def phase_int8_trunk_reference(size: int = 256):
-    """Phase 14: the int8 trunk of one ``size``² tile in bf16 on the card
-    (K4) against the port's plain int8 trunk on the CPU with the same
-    weights and input: the share of bit-equal elements and the max abs
-    diff per level (finite, same shapes)."""
+def phase_int8_trunk_reference(sizes=((256, 256), (253, 259))):
+    """Phase 14: the int8 trunk of one tile of each size (h, w) in bf16 on
+    the card (K4, K5) against the port's plain int8 trunk on the CPU with
+    the same weights and input: the share of bit-equal elements and the
+    max abs diff per level, which must be 1.0 and 0 (finite, same shapes).
+    The odd size takes the stem's space-to-depth layout over a ragged
+    edge and every conv at tiles that end inside an image."""
     from deepemia_tpu_torch.models.mask_rcnn import build_model
 
-    img = torch.as_tensor(synthetic_micrograph(size, 11)).float()[None]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        net = build_model("R50", num_classes=2, use_bf16=True, device=dev, seed=0, quant_backbone="trunk")
-        x = net.normalize(img.to(dev))
-        out[dev] = {k: v.float().cpu() for k, v in net.backbone.bottom_up(x).items()}
+    nets = {dev: build_model("R50", num_classes=2, use_bf16=True, device=dev, seed=0, quant_backbone="trunk")
+            for dev in ("cuda", "cpu")}
     rows = {}
-    for lv, g in out["cuda"].items():
-        c = out["cpu"][lv]
-        assert g.shape == c.shape and bool(torch.isfinite(g).all()), lv
-        rows[lv] = {"bit_equal": float((g == c).float().mean()), "max_abs": float((g - c).abs().max()),
-                    "max": float(c.abs().max())}
-    print(f"int8 trunk, one {size}² tile, bf16, card (K4) vs CPU (plain): " + json.dumps(
-        {k: {k_: round(v_, 6) for k_, v_ in v.items()} for k, v in rows.items()}), flush=True)
+    for h, w in sizes:
+        img = torch.as_tensor(synthetic_micrograph(max(h, w), 11)[:h, :w]).float()[None]
+        out = {dev: {k: v.float().cpu() for k, v in net.backbone.bottom_up(net.normalize(img.to(dev))).items()}
+               for dev, net in nets.items()}
+        rows[(h, w)] = {}
+        for lv, g in out["cuda"].items():
+            c = out["cpu"][lv]
+            assert g.shape == c.shape and bool(torch.isfinite(g).all()), lv
+            rows[(h, w)][lv] = {"bit_equal": float((g == c).float().mean()), "max_abs": float((g - c).abs().max()),
+                                "max": float(c.abs().max())}
+            assert rows[(h, w)][lv]["bit_equal"] == 1.0, (h, w, lv, rows[(h, w)][lv])
+        print(f"int8 trunk, one {h}x{w} tile, bf16, card (K4, K5) vs CPU (plain): " + json.dumps(
+            {k: {k_: round(v_, 6) for k_, v_ in v.items()} for k, v in rows[(h, w)].items()}), flush=True)
     return rows
 
 
@@ -3041,8 +3154,9 @@ def phase_int8_cli(model, images):
     its own process (``cli_child``) on phase 9's three micrographs, the
     first written as JPEG (``jpeg_encode``, gray, quality 95) and the others
     as LZW TIFF; then ``--quantized full`` on the JPEG alone. Every image
-    processed, every bar read, one overlay per image, and K4 launched (its
-    count from zero in the child). -> the K4 launches of both runs."""
+    processed, every bar read, one overlay per image, and K4 and K5
+    launched (their counts from zero in the child). -> the K4 and the K5
+    launches of both runs."""
     from deepemia_tpu_torch.ops.image import read_image
 
     home, folder = cli_home(model, images, name="int8", jpeg=(0,))
@@ -3051,7 +3165,7 @@ def phase_int8_cli(model, images):
     src = draw_scale_bar(images[0][..., 0], BARS[0][0], BARS[0][2])
     got = read_image(os.path.join(folder, names[0]))
     assert got.shape == images[0].shape and float(np.abs(got[..., 0].astype(np.int16) - src).mean()) < 2.0
-    launches = 0
+    launches = k5_launches = 0
     for mode, keep in (("trunk", names), ("full", names[:1])):
         for name in names:
             if name not in keep and os.path.exists(os.path.join(folder, name)):
@@ -3065,28 +3179,36 @@ def phase_int8_cli(model, images):
         check_scale_bars(res, meas, list(keep))
         for name in keep:
             assert os.path.exists(os.path.join(res["output_dir"], f"{name}_predictions.png")), name
-        assert child["k4_launches"] > 0 and child["launches"] == child["with_rois"], child
+        assert child["k4_launches"] > 0 and child["k5_launches"] > 0, child
+        assert child["launches"] == child["with_rois"], child
         secs = res["seconds_per_image"]
         print(f"int8 cli --quantized {mode}: {len(keep)} images ({', '.join(keep)}) processed, bars read, "
-              f"int8_conv launches={child['k4_launches']}, roi_align_fwd launches={child['launches']}; "
+              f"int8_conv launches={child['k4_launches']}, int8_quant launches={child['k5_launches']}, "
+              f"roi_align_fwd launches={child['launches']}; "
               f"seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]}; the process took "
               f"{wall:.1f} s", flush=True)
         print(f"int8 cli --quantized {mode}: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
         launches += child["k4_launches"]
-    return launches
+        k5_launches += child["k5_launches"]
+    return launches, k5_launches
 
 
 def int8_only():
-    """Phases 1 and 14 alone: the build, the JPEG fixtures, K4 at every
-    trunk + FPN shape, the int8 trunk card vs CPU and the int8 CLI runs
-    (phase 3's R50 weights rebuilt from their seed)."""
+    """Phases 1 and 14 alone: the build, the JPEG fixtures, K4 and K5 at
+    every trunk + FPN shape, the int8 trunk card vs CPU and the int8 CLI
+    runs (phase 3's R50 weights rebuilt from their seed)."""
     import shutil
 
     from deepemia_tpu_torch.kernels import _build
     from deepemia_tpu_torch.models.mask_rcnn import build_model
 
     print(f"card: {card_line()}", flush=True)
-    _build.build(["roi_align_fwd", "int8_conv"])
+    sources = ["roi_align_fwd", "int8_conv", "int8_quant"]
+    _build.build(sources)
+    for nm in sources:
+        for line in _build.build_logs.get(nm, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {nm}:", line.strip(), flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -3126,7 +3248,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    sources = ["roi_align_fwd", "roi_align_bwd", "window_sum", "int8_conv"]
+    sources = ["roi_align_fwd", "roi_align_bwd", "window_sum", "int8_conv", "int8_quant"]
     _, build_s = sync_time(lambda: _build.build(sources))
     print(f"build: {', '.join(nm + '.cu' for nm in sources)} in {build_s:.2f} s (in parallel)", flush=True)
     for nm in sources:
@@ -3168,9 +3290,9 @@ def main() -> int:
         lap(12)
         with torch.inference_mode():
             phase_jpeg_fixtures()
-            int8_rows, int8_err, int8_sums, int8_times = phase_int8_conv(images)
+            int8_rows, int8_err, int8_sums, int8_times, quant_rows, quant_err, quant_sums = phase_int8_conv(images)
             phase_int8_trunk_reference()
-        int8_launches = phase_int8_cli(model, images)
+        int8_launches, quant_launches = phase_int8_cli(model, images)
         lap(14)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
@@ -3259,13 +3381,16 @@ def main() -> int:
         # time_ms median x the convs of that shape; library_ms: torch._int_mm (the int32 product alone) at the
         # trunk's 1x1 stride-1 convs, beside K4's time over the same convs (ms_1x1); bf16_conv_ms: F.conv2d in
         # bf16 at every trunk shape; *_fpn: the same over the 8 FPN convs of `full`; trunk_fpn_s: the seconds
-        # of one batch through trunk + FPN for --quantized none / trunk / full
+        # of one batch through trunk + FPN for --quantized none / trunk / full; device_ms: the profiler's device
+        # time of K4 per call x the convs of that shape; host_ms: the wrapper's host time per call, the same way
         "ms": int8_sums["trunk_ms"],
         "plain_ms": int8_sums["trunk_plain_ms"],
         "bound_ms": int8_sums["trunk_bound_ms"],
         "bound_by": int8_sums["bound_by"],
         "library_ms": int8_sums["trunk_int_mm_ms"],
         "ms_1x1": int8_sums["trunk_ms_1x1"],
+        "device_ms": int8_sums["trunk_device_ms"],
+        "host_ms": int8_sums["trunk_host_ms"],
         "bf16_conv_ms": int8_sums["trunk_bf16_conv_ms"],
         "ms_fpn": int8_sums["fpn_ms"],
         "plain_ms_fpn": int8_sums["fpn_plain_ms"],
@@ -3273,13 +3398,37 @@ def main() -> int:
         "bf16_conv_ms_fpn": int8_sums["fpn_bf16_conv_ms"],
         "trunk_fpn_s": int8_times,
     }
+    quantizer = {
+        "name": "int8_quant",
+        "route": "cuda",
+        "source": "deepemia_tpu_torch/kernels/csrc/int8_quant.cu",
+        "replaces": "deepemia_tpu/models/quant.py:53",
+        # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process; two launches a
+        # quantized input (its max pass and its quantize pass)
+        "launches": quant_launches,
+        "max_abs_err": quant_err,
+        # one R50 trunk forward (its 49 quantized inputs) of a 16-tile batch of 1024² inputs, bf16: each distinct
+        # input shape's time_ms median x the quantizations of that shape; plain_ms: the torch-op quantizer and the
+        # layout; torch_chain_ms: the torch-op quantizer alone; device_ms: the profiler's device time of K5's two
+        # kernels; *_fpn: the same over the 8 FPN inputs of `full`
+        "ms": quant_sums["trunk_ms"],
+        "plain_ms": quant_sums["trunk_plain_ms"],
+        "bound_ms": quant_sums["trunk_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "torch_chain_ms": quant_sums["trunk_torch_chain_ms"],
+        "device_ms": quant_sums["trunk_device_ms"],
+        "ms_fpn": quant_sums["fpn_ms"],
+        "plain_ms_fpn": quant_sums["fpn_plain_ms"],
+        "bound_ms_fpn": quant_sums["fpn_bound_ms"],
+    }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}; "
           f"roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset "
           f"{dataset_k2}",
           flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
-    print(json.dumps({"kernels": [kernel, backward, window, int8]}), flush=True)
+    print(json.dumps({"kernels": [kernel, backward, window, int8, quantizer]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

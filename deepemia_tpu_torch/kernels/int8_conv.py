@@ -5,26 +5,33 @@ K4 computes the quantized backbone's convolution: int8 NHWC activations
 output channel), summed in int32, then dequantized as the JAX package's
 ``Int8Conv`` does (``deepemia_tpu/models/quant.py:105-119``):
 ``acc.float() * scale[n, co]`` (the table of ``a_scale[n] * w_scale[co]``,
-``models/quant.py:dequant_scale``), ``+ bias[co]`` in float32, cast to the
-compute dtype. It replaces no Pallas kernel: the JAX package
-leaves that int32 convolution to XLA (``quant.py:105``,
-``preferred_element_type=jnp.int32``), and PyTorch has no int8
-convolution on CUDA.
+:class:`DequantScale`, which the kernel makes from the per-image and
+per-channel maxima), ``+ bias[co]`` in float32, cast to the
+compute dtype; then, where the conv carries one, the frozen-BN affine
+(``models/resnet.py:FrozenBatchNorm``: weight and bias cast to the compute
+dtype, ``y * w`` and ``+ b`` each rounded to it) and, where a ReLU follows
+the conv, the ReLU, all in the kernel's epilogue. It replaces no Pallas
+kernel: the JAX package leaves that int32 convolution to XLA
+(``quant.py:105``, ``preferred_element_type=jnp.int32``), and PyTorch has
+no int8 convolution on CUDA.
 
 Int8 products summed in int32 are exact in any order (|acc| <= 127² x
 4608 < 2³¹ at the largest K of R50/R101 + FPN): the kernel's int32 sums
 equal its plain version's :func:`int8_conv2d_plain` and the JAX
 package's, and with the same epilogue the outputs agree bit for bit.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+The kernel reads input channels in 16-byte groups: it takes Ci a multiple
+of 16 (the module runs the stem's 3 channels as a space-to-depth conv of
+16). A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,11 +39,29 @@ from deepemia_tpu_torch.kernels import _build
 from deepemia_tpu_torch.kernels.roi_align import LaunchCounter
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's two instances: 16-byte loads (Ci % 16 == 0), 4-byte loads
-# (Ci % 4 == 0); the stem's Ci = 3 is zero-padded to 4 by the wrapper
-VEC16, VEC4 = 16, 4
+_VEC_DTYPES = (torch.float32, torch.bfloat16)  # of the norm vectors the kernel reads
+INV_127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's A / 127 -> A * (1/127)
+INV_127_SQ = float(np.float32(INV_127) * np.float32(INV_127))  # folded in float32
 
 counter = LaunchCounter()  # K4, int8_conv2d on CUDA tensors
+
+
+class DequantScale(NamedTuple):
+    """The [N,Co] table of ``a_scale[n] * w_scale[co]`` given by the
+    floored maxima ``a_amax`` [N] and ``w_amax`` [Co] (float32), as XLA
+    computes it for the JAX package: ``(a_amax / 127) * (w_amax / 127)``
+    with each division a multiply by float32(1/127), but ``w_amax *
+    (a_amax * float32(1/127)²)`` for a batch of one image, where XLA's
+    simplifier reassociates the two constants into one. K4 makes it in its
+    epilogue; :meth:`table` in torch ops."""
+
+    a_amax: torch.Tensor
+    w_amax: torch.Tensor
+
+    def table(self) -> torch.Tensor:
+        if self.a_amax.numel() == 1:
+            return self.w_amax[None, :] * (self.a_amax * INV_127_SQ)[:, None]
+        return (self.a_amax * INV_127)[:, None] * (self.w_amax * INV_127)[None, :]
 
 
 def conv_out_hw(h: int, w: int, k: Tuple[int, int], stride: int, padding: int) -> Tuple[int, int]:
@@ -52,20 +77,31 @@ def int8_conv_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor, stride: int, paddi
     return torch.round(acc).to(torch.int32)
 
 
-def dequantize(acc: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+def dequantize(acc: torch.Tensor, scale: Union[torch.Tensor, DequantScale], bias: Optional[torch.Tensor],
                out_dtype: torch.dtype) -> torch.Tensor:
     """int32 [N,Co,h,w] -> ``out_dtype``: the kernel's epilogue in torch ops,
     in the JAX package's order (no fused multiply-add)."""
+    if isinstance(scale, DequantScale):
+        scale = scale.table()
     y = acc.float() * scale[:, :, None, None]
     if bias is not None:
         y = y + bias.view(1, -1, 1, 1)
     return y.to(out_dtype)
 
 
-def int8_conv2d_plain(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """The plain version of :func:`int8_conv2d`, on any device."""
+def int8_conv2d_plain(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype: torch.dtype, *,
+                      norm_weight: Optional[torch.Tensor] = None, norm_bias: Optional[torch.Tensor] = None,
+                      relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The plain version of :func:`int8_conv2d`, on any device: the
+    dequantized conv, then the frozen-BN affine and the ReLU as the
+    separate torch ops of ``FrozenBatchNorm.forward`` and ``F.relu``."""
     acc = int8_conv_acc_plain(x_q, w_q, stride, padding)
-    return dequantize(acc, scale, bias, out_dtype).contiguous(memory_format=torch.channels_last)
+    if out_hw is not None:
+        acc = acc[:, :, :out_hw[0], :out_hw[1]]
+    y = dequantize(acc, scale, bias, out_dtype).contiguous(memory_format=torch.channels_last)
+    if norm_weight is not None:
+        y = y * norm_weight.to(out_dtype).view(1, -1, 1, 1) + norm_bias.to(out_dtype).view(1, -1, 1, 1)
+    return F.relu(y) if relu else y
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,14 +109,17 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("int8_conv")
     fn = lib.int8_conv
     fn.restype = ctypes.c_int
-    # x, w, scale, bias, out; N H W Ci Co kh kw stride pad Ho Wo vec out_code; stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    # x, w, scale, a_amax, w_amax, bias, norm_w, norm_b; norm_bf16; out; N H W Ci Co kh kw stride pad Ho Wo relu
+    # out_code; stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     return lib
 
 
-def _check(x_q, w_q, scale, bias, out_dtype) -> None:
+def _check(x_q, w_q, scale, bias, out_dtype, norm_weight=None, norm_bias=None, out_hw=None, stride=1,
+           padding=0) -> None:
     dev = x_q.device
-    for t in (w_q, scale) + ((bias,) if bias is not None else ()):
+    scales = tuple(scale) if isinstance(scale, DequantScale) else (scale,)
+    for t in (w_q,) + scales + tuple(t for t in (bias, norm_weight, norm_bias) if t is not None):
         if t.device != dev:
             raise ValueError(f"int8_conv2d: tensors on {t.device} and {dev}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -90,63 +129,92 @@ def _check(x_q, w_q, scale, bias, out_dtype) -> None:
             f"int8_conv2d takes x [N,Ci,H,W] and w [Co,kh,kw,Ci], got {tuple(x_q.shape)} / {tuple(w_q.shape)}"
         )
     n, co = x_q.shape[0], w_q.shape[0]
-    if scale.dtype != torch.float32 or tuple(scale.shape) != (n, co):
+    if isinstance(scale, DequantScale):
+        for t, want in zip(scale, ((n,), (co,))):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"int8_conv2d: the maxima of the scale must be float32 [{n}] and [{co}], got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+    elif scale.dtype != torch.float32 or tuple(scale.shape) != (n, co):
         raise ValueError(f"int8_conv2d: scale must be float32 [{n},{co}], got {scale.dtype} {tuple(scale.shape)}")
     if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (co,)):
         raise ValueError(f"int8_conv2d: bias must be float32 [{co}], got {bias.dtype} {tuple(bias.shape)}")
+    if (norm_weight is None) != (norm_bias is None):
+        raise ValueError("int8_conv2d: the frozen norm needs both norm_weight and norm_bias")
+    for t in (norm_weight, norm_bias):
+        if t is not None and (not t.is_floating_point() or tuple(t.shape) != (co,)):
+            raise ValueError(f"int8_conv2d: norm_weight and norm_bias must be float [{co}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if co % 2:
         raise ValueError(f"int8_conv2d: the kernel writes channel pairs, so Co must be even, got {co}")
     if out_dtype not in _OUT_CODE:
         raise ValueError(f"int8_conv2d writes float32 or bfloat16, not {out_dtype}")
+    full = conv_out_hw(x_q.shape[2], x_q.shape[3], w_q.shape[1:3], stride, padding)
+    if out_hw is not None and not (0 < out_hw[0] <= full[0] and 0 < out_hw[1] <= full[1]):
+        raise ValueError(f"int8_conv2d: out_hw {tuple(out_hw)} is not within the conv's {full}")
 
 
-def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
-                stride: int, padding: int, out_dtype: torch.dtype) -> torch.Tensor:
+def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor, scale: Union[torch.Tensor, DequantScale],
+                bias: Optional[torch.Tensor], stride: int, padding: int, out_dtype: torch.dtype, *,
+                norm_weight: Optional[torch.Tensor] = None, norm_bias: Optional[torch.Tensor] = None,
+                relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """int8 ``x_q`` [N,Ci,H,W] (``channels_last``, NHWC in memory) with int8
     ``w_q`` [Co,kh,kw,Ci], the float32 dequantization table ``scale``
-    [N,Co] and an optional float32 ``bias`` [Co] -> [N,Co,Ho,Wo]
-    ``out_dtype`` (float32 or bfloat16) in ``channels_last``. On the card
-    the activations must already be ``channels_last``: the wrapper raises
-    rather than copy them."""
-    _check(x_q, w_q, scale, bias, out_dtype)
+    [N,Co] (or the :class:`DequantScale` of the maxima, which the kernel
+    turns into it) and an optional float32 ``bias`` [Co] -> [N,Co,Ho,Wo]
+    ``out_dtype`` (float32 or bfloat16) in ``channels_last``, then the
+    frozen norm ``y * norm_weight + norm_bias`` (both [Co], cast to
+    ``out_dtype`` first) and the ReLU where asked. ``out_hw`` keeps only the
+    first rows and columns of the output (a conv padded more at the top and
+    left than at the bottom and right: the stem as a space-to-depth conv).
+    On the card the activations must already be ``channels_last`` and Ci
+    a multiple of 16: the wrapper raises rather than copy or pad them."""
+    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding)
+    fused = dict(norm_weight=norm_weight, norm_bias=norm_bias, relu=relu, out_hw=out_hw)
     if x_q.is_cpu:
-        return int8_conv2d_plain(x_q, w_q, scale, bias, stride, padding, out_dtype)
-    out = launch(x_q, w_q, scale, bias, stride, padding, out_dtype)
+        return int8_conv2d_plain(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
+    out = launch(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
     counter.launches += 1
     return out
 
 
-def launch(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype) -> torch.Tensor:
-    """Checks the layouts, pads the stem's 3 channels to 4 and launches K4
-    into a new ``channels_last`` output. Counts nothing."""
+def launch(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype, *, norm_weight=None, norm_bias=None,
+           relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Checks the layouts and launches K4 into a new ``channels_last``
+    output, reading every operand where it lies. Counts nothing."""
     if not x_q.is_cuda:
         raise ValueError(f"int8_conv2d: no kernel for device {x_q.device}")
-    _check(x_q, w_q, scale, bias, out_dtype)
+    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding)
     if not x_q.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("int8_conv2d: activations must be channels_last (NHWC in memory)")
     if not w_q.is_contiguous():
         raise ValueError("int8_conv2d: weights must be contiguous [Co,kh,kw,Ci]")
     n, ci, h, w = x_q.shape
     co, kh, kw, _ = w_q.shape
-    if ci % VEC4:
-        # zero channels add zero products: exact
-        pad = VEC4 - ci % VEC4
-        x_q = F.pad(x_q.permute(0, 2, 3, 1), (0, pad)).permute(0, 3, 1, 2)
-        w_q = F.pad(w_q, (0, pad)).contiguous()
-        ci += pad
-    vec = VEC16 if ci % VEC16 == 0 else VEC4
-    ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
+    if co % 8:
+        raise ValueError(f"int8_conv2d: the kernel's TMA store needs Co % 8 == 0, got {co}")
+    if max(h, w, padding) >= 16384:
+        raise ValueError(f"int8_conv2d: the kernel takes H, W and padding below 16384, got {h}x{w}, {padding}")
+    if ci % 16:
+        raise ValueError(f"int8_conv2d: the kernel reads 16-byte channel groups, so Ci must be a multiple of 16, "
+                         f"got {ci}")
+    ho, wo = out_hw or conv_out_hw(h, w, (kh, kw), stride, padding)
     if ho < 1 or wo < 1:
         raise ValueError(f"int8_conv2d: empty output for {h}x{w} input, {kh}x{kw} kernel")
     out = torch.empty((n, co, ho, wo), dtype=out_dtype, device=x_q.device,
                       memory_format=torch.channels_last)
-    scale = scale.contiguous()
-    bias = bias.contiguous() if bias is not None else None
+    table, a_amax, w_amax = (None, *scale) if isinstance(scale, DequantScale) else (scale, None, None)
+    if norm_weight is not None and (norm_weight.dtype not in _VEC_DTYPES or norm_bias.dtype != norm_weight.dtype):
+        raise ValueError(f"int8_conv2d: the kernel reads the norm in float32 or bfloat16, one dtype for both, got "
+                         f"{norm_weight.dtype} / {norm_bias.dtype}")
+    vectors = (table, a_amax, w_amax, bias, norm_weight, norm_bias)
+    for t in vectors:
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError("int8_conv2d: the scale, bias and norm vectors must be contiguous and 8-byte aligned")
+    ptrs = [None if t is None else t.data_ptr() for t in (x_q, w_q, *vectors)]
     stream = torch._C._cuda_getCurrentRawStream(x_q.get_device())
     status = _library().int8_conv(
-        x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr() if bias is not None else None,
-        out.data_ptr(),
-        n, h, w, ci, co, kh, kw, stride, padding, ho, wo, vec, _OUT_CODE[out_dtype], stream,
+        *ptrs, int(norm_weight is not None and norm_weight.dtype == torch.bfloat16), out.data_ptr(), n, h, w, ci,
+        co, kh, kw, stride, padding, ho, wo, int(relu), _OUT_CODE[out_dtype], stream,
     )
     if status != 0:
         raise RuntimeError(

@@ -5,6 +5,13 @@ the Detectron2 / MSRA convention): converted checkpoints are only right with
 the stride there, and the kernel shapes would not reveal a mismatch.
 Callers run the trunk on NCHW tensors in ``torch.channels_last`` memory
 format, so every feature map is NHWC in memory.
+
+A :class:`ConvNorm` applies the ReLU that follows it where it is built
+with ``relu``. Int8 serving (``models/quant.py``) swaps each for a module
+that applies its norm and ReLU in the int8 conv's epilogue and whose
+``quantize`` makes the int8 copy of an input: a block hands its input to
+``conv1`` and ``shortcut`` as ``conv1.quantize`` made it, quantized once
+(a float conv's ``quantize`` returns the input itself).
 """
 
 from __future__ import annotations
@@ -35,14 +42,20 @@ class FrozenBatchNorm(nn.Module):
 
 class ConvNorm(nn.Conv2d):
     """Bias-free conv followed by its ``norm`` (Detectron2's Conv2d with a
-    norm attached)."""
+    norm attached) and, with ``relu``, a ReLU."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0, relu: bool = False):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding, bias=False)
         self.norm = FrozenBatchNorm(cout)
+        self.relu = relu
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """The input as this conv reads it: ``x`` itself."""
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(super().forward(x))
+        y = self.norm(super().forward(x))
+        return F.relu(y) if self.relu else y
 
 
 class BottleneckBlock(nn.Module):
@@ -55,15 +68,14 @@ class BottleneckBlock(nn.Module):
             if cin != cout or stride != 1
             else None
         )
-        self.conv1 = ConvNorm(cin, bottleneck, 1, stride=stride)
-        self.conv2 = ConvNorm(bottleneck, bottleneck, 3, padding=1)
+        self.conv1 = ConvNorm(cin, bottleneck, 1, stride=stride, relu=True)
+        self.conv2 = ConvNorm(bottleneck, bottleneck, 3, padding=1, relu=True)
         self.conv3 = ConvNorm(bottleneck, cout, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x if self.shortcut is None else self.shortcut(x)
-        y = F.relu(self.conv1(x))
-        y = F.relu(self.conv2(y))
-        y = self.conv3(y)
+        x_in = self.conv1.quantize(x)  # int8 serving: one int8 copy for conv1 and shortcut
+        shortcut = x if self.shortcut is None else self.shortcut(x_in)
+        y = self.conv3(self.conv2(self.conv1(x_in)))
         return F.relu(y + shortcut)
 
 
@@ -72,10 +84,10 @@ class Stem(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = ConvNorm(3, 64, 7, stride=2, padding=3)
+        self.conv1 = ConvNorm(3, 64, 7, stride=2, padding=3, relu=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.max_pool2d(F.relu(self.conv1(x)), 3, stride=2, padding=1)
+        return F.max_pool2d(self.conv1(x), 3, stride=2, padding=1)
 
 
 class ResNet(nn.Module):
