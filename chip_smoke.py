@@ -168,12 +168,34 @@ It builds the CUDA kernels from the sources in the checkout and then:
      a JPEG, then ``--quantized full`` on the JPEG (every image processed,
      every bar read, K4 and K5 launched). Phase 13 writes every other image of its
      dataset as JPEG, so train and evaluate read JPEG records.
+ 15. the entry points users start besides the CLI, on the encodings
+     ``read_image`` takes beside the plain ones: the committed fixtures
+     (``tests/data/torch_image_fixtures.npz``: PNG, TIFF and BMP files beside
+     the arrays ``cv2.imread`` returns) decode bit for bit; phase 9's three
+     micrographs, bars drawn, written as an 8-bit palette TIFF (a gray
+     ColorMap), a PNG stored transposed with an ``eXIf`` Orientation 5 that
+     turns it back, and an RLE8 BMP, each decoding to the raster written
+     (host seconds printed); the web panel (``deepemia_tpu_torch.gui.server``,
+     in this process on port 0, the admin password set) refuses a wrong
+     password with 403, starts ``--task inference --visualize
+     --no-download`` on a home holding them (phase 12's config, dataset YAML
+     and checkpoint), is polled on /status until the task ends with exit
+     code 0, and serves both CSVs through /files and /download and the
+     results through /zip; the task ran on the card (the CLI's device line)
+     and its rows match phase 12's CLI rows for the same rasters (instances
+     at mask IoU >= 0.95, at least 0.98 of them); then the wizard (``python
+     -m deepemia_tpu_torch.cli.wizard`` in its own process, started from
+     the home, with scripted answers: "Run inference" on that dataset with
+     ``--quantized trunk``, then "Exit") processes every image on the card,
+     reads every bar and launches K1, K4 and K5 (the launches its CLI logs).
+     ``python3 -c "import chip_smoke; chip_smoke.entry_points_only()"``
+     runs phase 12's CLI run and phase 15 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step, and
-phases 11, 12, 14 and 13 before phase 10. K1's ``launches`` in the kernel
-line is the sum of phases 3, 9, 11, 12 and 13, K2's of phases 7 and 13,
-K4's and K5's of phase 14's two CLI runs, each counted from zero over its
-own run.
+phases 11, 12, 14, 15 and 13 before phase 10. K1's ``launches`` in the kernel
+line is the sum of phases 3, 9, 11, 12, 13 and 15, K2's of phases 7 and 13,
+K4's and K5's of phase 14's two CLI runs and phase 15's wizard task, each
+counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -1143,11 +1165,13 @@ def packbits_encode(data: bytes) -> bytes:
 CLI_ENCODINGS = (("LZW", 5, 1), ("Deflate, predictor 2", 8, 2), ("PackBits", 32773, 1))
 
 
-def write_tiff(path: str, gray: np.ndarray, compression: int = 1, predictor: int = 1, rows_per_strip=None) -> None:
+def write_tiff(path: str, gray: np.ndarray, compression: int = 1, predictor: int = 1, rows_per_strip=None,
+               colormap=None) -> None:
     """An 8-bit gray TIFF: header, strips of ``rows_per_strip`` rows (one
     strip by default) in ``compression`` (1 none, 5 LZW, 8 Deflate, 32773
     PackBits) with ``predictor`` (2: horizontal differencing), the IFD and
-    the strip tables after it."""
+    the strip tables after it; with a ``colormap`` ([3,256] 16-bit
+    entries), an 8-bit palette TIFF of the same indices."""
     import struct
     import zlib
 
@@ -1166,10 +1190,13 @@ def write_tiff(path: str, gray: np.ndarray, compression: int = 1, predictor: int
         offsets.append(8 + len(body))
         body += b + b"\0" * (len(b) & 1)
     ifd_at = 8 + len(body)
-    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8]), (259, 3, [compression]), (262, 3, [1]),
-            (273, 4, offsets), (277, 3, [1]), (278, 4, [rps]), (279, 4, [len(b) for b in strips])]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8]), (259, 3, [compression]),
+            (262, 3, [1 if colormap is None else 3]), (273, 4, offsets), (277, 3, [1]), (278, 4, [rps]),
+            (279, 4, [len(b) for b in strips])]
     if predictor != 1:
         tags.append((317, 3, [predictor]))
+    if colormap is not None:
+        tags.append((320, 3, [int(v) for v in np.asarray(colormap).ravel()]))
     tail_at = ifd_at + 2 + 12 * len(tags) + 4
     ifd, tail = bytearray(struct.pack("<H", len(tags))), bytearray()
     for tag, typ, vals in tags:
@@ -1649,20 +1676,43 @@ def pipeline_csvs(model, img, name, device, backend="host"):
     return read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:]
 
 
-def csv_agreement(rle_g, meas_g, rle_c, meas_c, hw):
+def mask_iou(rle_a, rle_b):
+    """[Na, Nb] mask IoU of two lists of RLE rows (1-based run starts and
+    lengths over one image's flat pixel order), counted on the runs: only
+    pairs whose first-to-last pixel spans overlap are compared, identical
+    strings score 1, two empty masks 1."""
+
+    def runs(row):
+        v = np.array(row[1].split(), np.int64).reshape(-1, 2)
+        span = (int(v[0, 0]), int(v[-1, 0] + v[-1, 1])) if v.size else (0, 0)
+        return v, span
+
+    def pixels(v):
+        offsets = np.repeat(v[:, 0] - np.r_[0, np.cumsum(v[:-1, 1])], v[:, 1])
+        return np.arange(int(v[:, 1].sum()), dtype=np.int64) + offsets
+
+    ra, rb = [runs(r) for r in rle_a], [runs(r) for r in rle_b]
+    iou = np.zeros((len(ra), len(rb)))
+    for i, (va, (a0, a1)) in enumerate(ra):
+        pa = None
+        for j, (vb, (b0, b1)) in enumerate(rb):
+            if not va.size and not vb.size:
+                iou[i, j] = 1.0
+            elif rle_a[i][1] == rle_b[j][1]:
+                iou[i, j] = 1.0
+            elif a0 < b1 and b0 < a1:
+                pa = pixels(va) if pa is None else pa
+                pb = pixels(vb)
+                inter = np.intersect1d(pa, pb, assume_unique=True).size
+                iou[i, j] = inter / (pa.size + pb.size - inter)
+    return iou
+
+
+def csv_agreement(rle_g, meas_g, rle_c, meas_c):
     """Instances matched by mask IoU >= PIPE_MIN_IOU and measurement rows
     matched by value (same class, every number to 1e-3 relative), each
     side's share with a partner on the other; identical RLE strings."""
-    from deepemia_tpu_torch.ops.rle import rle_decode
-
-    def masks(rows):
-        return np.stack([rle_decode([int(t) for t in r[1].split()], hw).ravel() for r in rows]).astype(np.float32)
-
-    mg, mc = masks(rle_g), masks(rle_c)
-    inter = mg @ mc.T
-    union = mg.sum(1)[:, None] + mc.sum(1)[None, :] - inter
-    iou = np.where(union > 0, inter / np.maximum(union, 1), 1.0)
-    inst_g, inst_c = best_match_share(iou >= PIPE_MIN_IOU)
+    inst_g, inst_c = best_match_share(mask_iou(rle_g, rle_c) >= PIPE_MIN_IOU)
 
     def numbers(rows):
         return np.array([[float(v) for v in r[3:15]] for r in rows]), np.array([r[2] for r in rows])
@@ -1688,7 +1738,7 @@ def phase_pipeline_reference(model):
     img = synthetic_micrograph(256, seed=7)
     rle_c, meas_c = pipeline_csvs(model, img, "ref_cpu", "cpu")
     rle_g, meas_g = pipeline_csvs(model, img, "ref_cuda", "cuda")
-    a = csv_agreement(rle_g, meas_g, rle_c, meas_c, (256, 256))
+    a = csv_agreement(rle_g, meas_g, rle_c, meas_c)
     print("pipeline reference 256² f32: " + json.dumps(a), flush=True)
     assert min(a["n_card"], a["n_cpu"], a["rows_card"], a["rows_cpu"]) > 0
     assert a["inst"] >= PIPE_MATCH_SHARE and a["rows"] >= PIPE_ROW_SHARE, a
@@ -1698,7 +1748,7 @@ def phase_pipeline_reference(model):
         rle_f, meas_f = pipeline_csvs(model, img, "ref_fault", "cuda")
     finally:
         heads_mod.roi_align_dispatch = real
-    f = csv_agreement(rle_f, meas_f, rle_c, meas_c, (256, 256))
+    f = csv_agreement(rle_f, meas_f, rle_c, meas_c)
     print(f"pipeline reference 256² f32, card with RoIAlign boxes moved by {PIPE_FAULT_PX} px: " + json.dumps(f),
           flush=True)
     assert f["inst"] < PIPE_MATCH_SHARE or f["rows"] < PIPE_ROW_SHARE, "the limits pass a planted RoIAlign fault"
@@ -1827,7 +1877,8 @@ def phase_cli(model, images, device="cuda", config_hook=None):
     three micrographs of phase 9 written as LZW, Deflate (predictor 2) and
     PackBits TIFF; every image processed, every bar read, one overlay per
     image and the legend, every multilevel RoIAlign with RoIs launching K1.
-    -> the K1 launches of the run."""
+    -> (the K1 launches of the run, its RLE and measurement rows without
+    their headers)."""
     from deepemia_tpu_torch.ops.image import read_image
 
     home, folder = cli_home(model, images, config_hook)
@@ -1885,7 +1936,7 @@ def phase_cli(model, images, device="cuda", config_hook=None):
     print("cli stage seconds: " + json.dumps(
         {k: {"total_s": round(v["total_s"], 6), "count": v["count"]} for k, v in res["stages"].items()}), flush=True)
     print(f"cli: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
-    return child["launches"]
+    return child["launches"], (rle, meas[1:])
 
 
 def phase_device_measurements(model, images, device="cuda", config_hook=None):
@@ -1952,7 +2003,7 @@ def phase_device_measurements(model, images, device="cuda", config_hook=None):
         img256 = synthetic_micrograph(256, seed=7)
         rle_c, meas_c = pipeline_csvs(model, img256, "dev_cpu", "cpu", backend="device")
         rle_g, meas_g = pipeline_csvs(model, img256, "dev_cuda", "cuda", backend="device")
-        a = csv_agreement(rle_g, meas_g, rle_c, meas_c, (256, 256))
+        a = csv_agreement(rle_g, meas_g, rle_c, meas_c)
         print("device measurements 256² f32 card vs CPU: " + json.dumps(a), flush=True)
         assert min(a["n_card"], a["n_cpu"], a["rows_card"], a["rows_cpu"]) > 0
         assert a["inst"] >= PIPE_MATCH_SHARE and a["rows"] >= PIPE_ROW_SHARE, a
@@ -2476,20 +2527,25 @@ def device_ms(fn, n=200, skip=frozenset()):
     L2-evicting write of time_ms: for each device event kind but those in
     ``skip`` (the write's own), its mean self device time times its events
     per call (the profiler drops some records, up to 9 % seen, so counts
-    are rounded); -> (ms per call, {event kind: count})."""
+    are rounded; a window in which it kept no record of ``fn``'s kernels at
+    all, seen once on K5, is profiled again, up to three times); -> (ms per
+    call, {event kind: count})."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.is_user_annotation and e.key not in skip]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.is_user_annotation and e.key not in skip]
+        if rows:
+            break
     return sum(t / c * max(1, round(c / n)) for _, t, c in rows) / 1e3, {k: c for k, _, c in rows}
 
 
@@ -3193,6 +3249,349 @@ def phase_int8_cli(model, images):
     return launches, k5_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the web panel and the wizard start inference; the encodings
+# read_image takes beside the plain ones
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_image_fixtures.npz")
+PANEL_PASSWORD = "smoke panel"
+# the panel's and the wizard's task: its exit within this many seconds
+TASK_TIMEOUT_S = 600
+# panel rows vs phase 12's CLI rows on the same rasters (the same card, the
+# same weights): instances matched at mask IoU >= PIPE_MIN_IOU, as PERF.md's
+# "CSV agreement" counts them
+PANEL_MATCH_SHARE = 0.98
+
+
+def write_gray_png(path: str, gray: np.ndarray, orientation: int = 1) -> None:
+    """An 8-bit gray PNG of ``gray`` stored as the EXIF ``orientation``
+    turns it back (5: stored transposed), with an ``eXIf`` chunk (the bare
+    TIFF structure) that says so, before the image data; rows filtered
+    "Sub"."""
+    import struct
+    import zlib
+
+    stored = gray.T if orientation == 5 else gray
+    assert orientation in (1, 5)
+    h, w = stored.shape
+    sub = np.concatenate([stored[:, :1], np.diff(stored, axis=1)], axis=1)  # uint8 wraps modulo 256
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    exif = b"II*\x00" + struct.pack("<IHHHIHHI", 8, 1, 0x0112, 3, 1, orientation, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                + chunk(b"eXIf", exif) + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def rle8_encode(gray: np.ndarray) -> bytes:
+    """[H,W] uint8 -> a BMP RLE8 stream, bottom row first: runs of 3 or
+    more equal pixels as encoded pairs (up to 255 a pair), the stretches
+    between them in absolute mode (3-255 pixels, padded to 16 bits; a
+    stretch's last one or two pixels as encoded pairs), an end of line after
+    each row and the end of bitmap after the last."""
+    out = bytearray()
+    for row in gray[::-1]:
+        starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+        lengths = np.diff(np.r_[starts, row.size])
+        lit = 0  # the start of the pending literal stretch
+        for s, n in zip(starts[lengths >= 3].tolist(), lengths[lengths >= 3].tolist()):
+            out += _rle8_literal(row[lit:s])
+            for k in range(0, n, 255):
+                out += bytes([min(255, n - k), int(row[s])])
+            lit = s + n
+        out += _rle8_literal(row[lit:])
+        out += b"\x00\x00"
+    return bytes(out[:-2]) + b"\x00\x01"
+
+
+def _rle8_literal(px: np.ndarray) -> bytes:
+    out = bytearray()
+    for k in range(0, px.size, 255):
+        part = px[k : k + 255]
+        if part.size >= 3:
+            out += bytes([0, part.size]) + part.tobytes() + b"\x00" * (part.size & 1)
+        else:
+            out += b"".join(bytes([1, int(v)]) for v in part)
+    return bytes(out)
+
+
+def write_rle8_bmp(path: str, gray: np.ndarray) -> None:
+    """An RLE8 BMP (compression 1) of ``gray`` with a 256-entry gray palette."""
+    import struct
+
+    h, w = gray.shape
+    data = rle8_encode(gray)
+    pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 4, axis=1)
+    pal[:, 3] = 0
+    at = 14 + 40 + pal.size
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 1, len(data), 2835, 2835, 256, 0)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", at + len(data), 0, 0, at) + info + pal.tobytes() + data)
+
+
+# phase 15's micrographs, phase 9's rasters with their bars: (name, writer)
+ENTRY_ENCODINGS = (
+    ("micrograph_0.tif", "8-bit palette TIFF (gray ColorMap, 64-row strips)",
+     lambda p, g: write_tiff(p, g, rows_per_strip=64, colormap=np.tile(np.arange(256) * 257, (3, 1)))),
+    ("micrograph_1.png", "PNG stored transposed, eXIf Orientation 5", lambda p, g: write_gray_png(p, g, 5)),
+    ("micrograph_2.bmp", "RLE8 BMP", write_rle8_bmp),
+)
+
+
+def phase_image_fixtures():
+    """Phase 15: every committed encoding fixture (``python
+    tools/make_torch_image_fixtures.py``: small PNG, TIFF and BMP files in
+    the encodings ``read_image`` takes beside the plain ones, each beside
+    the array ``cv2.imread`` returns) decodes to that array bit for bit."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    fixtures = np.load(IMAGE_FIXTURES)
+    names = sorted(k for k in fixtures.files if "." not in k)
+    assert len(names) >= 45, names
+    os.makedirs(PIPELINE_DIR, exist_ok=True)
+    for name in names:
+        (key,) = [k for k in fixtures.files if k.startswith(name + ".")]
+        path = os.path.join(PIPELINE_DIR, key)
+        with open(path, "wb") as f:
+            f.write(fixtures[key].tobytes())
+        got = read_image(path)
+        assert got.shape == fixtures[name].shape and np.array_equal(got, fixtures[name]), name
+        os.remove(path)
+    print(f"image fixtures: {len(names)} committed PNG, TIFF and BMP fixtures decode bit for bit to OpenCV's "
+          f"arrays ({', '.join(names)})", flush=True)
+
+
+def entry_home(model, images, config_hook=None):
+    """Phase 12's home layout (``cli_home``) under PIPELINE_DIR/entry with
+    ``images`` (their bars drawn) in the ENTRY_ENCODINGS; each decoded
+    raster must equal the one written; prints the host decode seconds of
+    each. -> (home, folder)."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    home, folder = cli_home(model, [], config_hook, name="entry")
+    for i, (name, enc, write) in enumerate(ENTRY_ENCODINGS):
+        gray = draw_scale_bar(images[i][..., 0], BARS[i][0], BARS[i][2])
+        path = os.path.join(folder, name)
+        write(path, gray)
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read_image(path)
+            secs.append(time.perf_counter() - t0)
+        assert got.shape == images[i].shape and np.array_equal(got, np.repeat(gray[..., None], 3, axis=2)), name
+        print(f"entry points: {name} as {enc} ({os.path.getsize(path)} bytes) decodes to the raster written, "
+              f"{gray.shape[0]}x{gray.shape[1]}: {float(np.median(secs)):.4f} s (median of 3, host)", flush=True)
+    return home, folder
+
+
+def task_log(lines, names):
+    """The CLI's log lines of one inference task -> (the device line,
+    {kernel: launches}, [seconds per image in order])."""
+    device = [ln for ln in lines if "Task inference runs on " in ln]
+    kernels = [ln for ln in lines if "CUDA kernel launches:" in ln]
+    assert device and kernels, "the task logged no device or no kernel launches"
+    counts = dict(part.split() for part in kernels[-1].split("CUDA kernel launches:")[1].split(","))
+    secs = []
+    for name in names:
+        hit = [ln for ln in lines if f" {name}: " in ln and " instances, quality " in ln]
+        assert hit, f"the task logged no result for {name}"
+        secs.append(float(hit[-1].rsplit(", ", 1)[1].rstrip("s")))
+    return device[-1].split("Task inference ")[1], {k: int(v) for k, v in counts.items()}, secs
+
+
+def rows_by_image(rle, meas, name):
+    return [r for r in rle if r[0] == name], [r for r in meas if r[-1] == name]
+
+
+def panel_http(base, path, data=None):
+    """-> (status, body bytes) of one request to the panel."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_panel(home, names, cli_rows):
+    """Phase 15: the web panel in this process (``serve("127.0.0.1", 0)``
+    on a thread, the admin password set) starts ``--task inference
+    --visualize --no-download`` on the home (a wrong password gets 403),
+    /status is polled until the task ends with exit code 0, the CSVs are
+    fetched through /files and /download and the results through /zip; the
+    task ran on the card, and its rows match phase 12's CLI rows for the
+    same rasters. -> the task's K1 launches."""
+    import csv
+    import hashlib
+    import io
+    import threading
+    import urllib.parse
+    import zipfile
+
+    import deepemia_tpu_torch.config.config as config_mod
+    from deepemia_tpu_torch.gui import server
+
+    saved = {k: os.environ.get(k) for k in ("DEEPEMIA_TPU_HOME", server.PASSWORD_ENV)}
+    os.environ["DEEPEMIA_TPU_HOME"] = home
+    os.environ[server.PASSWORD_ENV] = hashlib.sha256(PANEL_PASSWORD.encode()).hexdigest()
+    config_mod._default_store = None
+    httpd = server.serve("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        form = {"task": "inference", "dataset": "smoke", "flags": "--visualize --no-download"}
+        code, body = panel_http(base, "/run", urllib.parse.urlencode({**form, "password": "wrong"}).encode())
+        assert code == 403 and json.loads(body) == {"error": "invalid password"}, (code, body)
+        t0 = time.perf_counter()
+        code, body = panel_http(base, "/run", urllib.parse.urlencode({**form, "password": PANEL_PASSWORD}).encode())
+        assert code == 200 and json.loads(body) == {"ok": True}, (code, body)
+        polls = 0
+        while True:
+            status = json.loads(panel_http(base, "/status")[1])
+            polls += 1
+            if not status["running"] and status["history"]:
+                break
+            assert time.perf_counter() - t0 < TASK_TIMEOUT_S, "the panel's task did not end"
+            time.sleep(1.0)
+        wall = time.perf_counter() - t0
+        lines = list(server.RUNNER.output_tail)
+        if status["history"][-1]["rc"] != 0:
+            print("\n".join(lines[-60:]), file=sys.stderr, flush=True)
+            raise AssertionError(f"the panel's task exited {status['history'][-1]['rc']}")
+        device, launches, secs = task_log(lines, names)
+        assert "cuda" in device and "NVIDIA" in device, device
+        assert launches["roi_align_fwd"] > 0, launches
+        files = json.loads(panel_http(base, "/files")[1])
+        csvs = {}
+        for want in ("measurements_results.csv", "R50_flip_results.csv"):
+            (rel,) = [f for f in files if f.endswith(want)]
+            code, body = panel_http(base, "/download?p=" + urllib.parse.quote(rel))
+            assert code == 200, (rel, code)
+            csvs[want] = list(csv.reader(io.StringIO(body.decode())))
+        assert panel_http(base, "/download?p=" + urllib.parse.quote("../../etc/passwd"))[0] == 404
+        code, body = panel_http(base, "/zip")
+        with zipfile.ZipFile(io.BytesIO(body)) as z:
+            zipped = z.namelist()
+        assert code == 200 and all(f in zipped for f in files), (code, len(zipped))
+        assert all(f"{n}_predictions.png" in files for n in names), files
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config_mod._default_store = None
+    meas, rle = csvs["measurements_results.csv"], csvs["R50_flip_results.csv"][1:]
+    for i, name in enumerate(names):
+        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[i][0].split()[0]}, name
+    print(f"panel: /run with a wrong password -> 403; --task inference --visualize --no-download: exit 0 after "
+          f"{wall:.1f} s ({polls} /status polls), device '{device}', kernel launches {json.dumps(launches)}; "
+          f"/files {len(files)} files, /download of both CSVs, /zip {len(zipped)} entries; "
+          f"seconds_per_image first={secs[0]:.2f} steady={secs[1:]}", flush=True)
+    cli_rle, cli_meas = cli_rows
+    totals = dict(inst=0, n=0, rows=0, m=0)
+    for i, name in enumerate(names):
+        cli_name = f"micrograph_{i}.tif"
+        a = csv_agreement(*rows_by_image(rle, meas[1:], name), *rows_by_image(cli_rle, cli_meas, cli_name))
+        print(f"panel vs phase 12 CLI, {name} vs {cli_name}: " + json.dumps(a), flush=True)
+        assert min(a["n_card"], a["n_cpu"]) > 0, a
+        assert a["inst"] >= PANEL_MATCH_SHARE, a
+        totals["inst"] += a["inst"] * min(a["n_card"], a["n_cpu"])
+        totals["n"] += min(a["n_card"], a["n_cpu"])
+    print(f"panel vs phase 12 CLI: instances matched {totals['inst'] / totals['n']:.4f} (IoU >= {PIPE_MIN_IOU}; "
+          f"limit {PANEL_MATCH_SHARE})", flush=True)
+    return launches["roi_align_fwd"]
+
+
+def phase_wizard(home, names):
+    """Phase 15: ``python -m deepemia_tpu_torch.cli.wizard`` in its own
+    process, from the home (not the checkout), with scripted answers: "Run
+    inference" on the home's dataset with ``--quantized trunk`` and the
+    other defaults, then "Exit"; every image processed, every bar read (the
+    CSV's scale-bar column), the task on the card, and K4 and K5 launched.
+    -> (K1, K4, K5 launches)."""
+    import shutil
+
+    from deepemia_tpu_torch.config.config import default_config
+
+    out_dir = default_config(home)["paths"]["output_dir"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = os.environ.get("PYTHONPATH")
+    env = {**os.environ, "DEEPEMIA_TPU_HOME": home, "PYTHONPATH": ROOT + (os.pathsep + path if path else "")}
+    answers = "5\nsmoke\n\n\n\n\ntrunk\n7\n"  # Run inference: dataset, verbosity, threshold, ids, bar debug, int8
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepemia_tpu_torch.cli.wizard"], input=answers, text=True,
+                          capture_output=True, cwd=home, env=env, timeout=TASK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or "Task finished with exit code 0" not in proc.stdout:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr, flush=True)
+        raise AssertionError(f"the wizard exited {proc.returncode}")
+    running = [ln for ln in proc.stdout.splitlines() if ln.startswith("Running: ")]
+    assert running and running[0].split()[1:5] == [sys.executable, "-m", "deepemia_tpu_torch.cli.main", "--task"]
+    assert "--quantized trunk" in running[0], running
+    lines = (proc.stdout + proc.stderr).splitlines()
+    device, launches, secs = task_log(lines, names)
+    assert "cuda" in device and "NVIDIA" in device, device
+    assert any(f"All {len(names)} images processed" in ln for ln in lines), "the wizard's task skipped an image"
+    assert launches["int8_conv"] > 0 and launches["int8_quant"] > 0 and launches["roi_align_fwd"] > 0, launches
+    meas = read_csv(os.path.join(out_dir, "measurements_results.csv"))
+    for i, name in enumerate(names):
+        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[i][0].split()[0]}, name
+    print(f"wizard: {running[0][len('Running: '):]}: exit 0, the wizard's process took {wall:.1f} s, device "
+          f"'{device}', {len(names)} images processed, bars read, kernel launches {json.dumps(launches)}; "
+          f"seconds_per_image first={secs[0]:.2f} steady={secs[1:]}", flush=True)
+    return launches["roi_align_fwd"], launches["int8_conv"], launches["int8_quant"]
+
+
+def phase_entry_points(model, images, cli_rows, config_hook=None):
+    """Phase 15: the committed encoding fixtures; phase 9's micrographs as
+    a palette TIFF, a transposed PNG with its eXIf orientation and an RLE8
+    BMP, decoded bit for bit; inference started from the web panel, its
+    rows held to phase 12's, and from the wizard with ``--quantized trunk``.
+    ``config_hook`` edits the home's config.yaml, as phase 12's does. ->
+    (K1, K4, K5 launches of both tasks)."""
+    phase_image_fixtures()
+    home, folder = entry_home(model, images, config_hook)
+    names = sorted(os.listdir(folder))
+    assert names == [n for n, _, _ in ENTRY_ENCODINGS], names
+    k1 = phase_panel(home, names, cli_rows)
+    w1, k4, k5 = phase_wizard(home, names)
+    return k1 + w1, k4, k5
+
+
+def entry_points_only():
+    """Phase 15 alone, after phase 12's CLI run whose rows it holds the
+    panel's to (phase 3's R50 weights rebuilt from their seed)."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    print(f"card: {card_line()}", flush=True)
+    _build.build(["roi_align_fwd", "int8_conv", "int8_quant"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            images = [synthetic_micrograph(2048, seed) for seed in range(3)]
+            model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
+            sane_geometry(model)
+        _, cli_rows = phase_cli(model, images)
+        print(json.dumps(dict(zip(("roi_align_fwd", "int8_conv", "int8_quant"),
+                                  phase_entry_points(model, images, cli_rows)))), flush=True)
+    finally:
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+
+
 def int8_only():
     """Phases 1 and 14 alone: the build, the JPEG fixtures, K4 and K5 at
     every trunk + FPN shape, the int8 trunk card vs CPU and the int8 CLI
@@ -3283,7 +3682,7 @@ def main() -> int:
         with torch.inference_mode():
             ensemble_launches, ensemble_errs = phase_ensemble(model, images)
         lap(11)
-        cli_launches = phase_cli(model, images)
+        cli_launches, cli_rows = phase_cli(model, images)
         with torch.inference_mode():
             cli_launches += phase_device_measurements(model, images)
             cli_launches += phase_windowed_rle(model)
@@ -3294,6 +3693,8 @@ def main() -> int:
             phase_int8_trunk_reference()
         int8_launches, quant_launches = phase_int8_cli(model, images)
         lap(14)
+        entry_k1, entry_k4, entry_k5 = phase_entry_points(model, images, cli_rows)
+        lap(15)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(INT8_DIR, ignore_errors=True)
@@ -3312,8 +3713,9 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_fwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:351",
         # phases 3 (tile engine), 9 (pipeline), 11 (ensemble), 12 (the CLI's process, the device
-        # measurement backend and the 4096² image) and 13 (training from a dataset), each counted from zero
-        "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1,
+        # measurement backend and the 4096² image), 13 (training from a dataset) and 15 (the tasks the panel
+        # and the wizard started, as their CLI logged them), each counted from zero
+        "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -3374,8 +3776,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/int8_conv.cu",
         "replaces": "deepemia_tpu/models/quant.py:105",
-        # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's process
-        "launches": int8_launches,
+        # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's
+        # process, and phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them
+        "launches": int8_launches + entry_k4,
         "max_abs_err": int8_err,
         # one R50 trunk forward (its 53 convs) of a 16-tile batch of 1024² inputs, bf16: each distinct shape's
         # time_ms median x the convs of that shape; library_ms: torch._int_mm (the int32 product alone) at the
@@ -3403,9 +3806,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/int8_quant.cu",
         "replaces": "deepemia_tpu/models/quant.py:53",
-        # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process; two launches a
-        # quantized input (its max pass and its quantize pass)
-        "launches": quant_launches,
+        # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process, and phase 15's
+        # wizard task, as its CLI logged them; two launches a quantized input (its max pass and its quantize pass)
+        "launches": quant_launches + entry_k5,
         "max_abs_err": quant_err,
         # one R50 trunk forward (its 49 quantized inputs) of a 16-tile batch of 1024² inputs, bf16: each distinct
         # input shape's time_ms median x the quantizations of that shape; plain_ms: the torch-op quantizer and the
@@ -3423,9 +3826,10 @@ def main() -> int:
         "bound_ms_fpn": quant_sums["fpn_bound_ms"],
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
-          f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}; "
-          f"roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset "
-          f"{dataset_k2}",
+          f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
+          f"panel and wizard {entry_k1}; roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, "
+          f"training from a dataset {dataset_k2}; int8_conv launches: phase 14 {int8_launches}, wizard {entry_k4}; "
+          f"int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}",
           flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window, int8, quantizer]}), flush=True)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__version__ = "0.1.0"
+from deepemia_tpu_torch.version import VERSION_INFO, __version__  # noqa: F401
 
 
 def resolve_device(device=None) -> torch.device:

@@ -15,8 +15,11 @@ pipeline with ``--threshold``, ``--visualize``, ``--id``,
 path-guarded ``--cleanup``) and ``setup`` (the interactive setup on the
 port's config store); prepare, train and evaluate update the ETA store.
 ``--quantized {none,trunk,full}`` sets ``performance.quantized_inference``
-(int8 serving of the backbone). Not ported yet, and refused with exit code
-2 and the ROADMAP item named: ``--chips`` above 1 (A8).
+(int8 serving of the backbone). Every task but setup logs the device it
+runs on, with or without ``--no-gpu-check``, and inference the launches of
+the CUDA kernels it ran (RoIAlign K1, the int8 conv K4 and quantizer K5).
+Not ported yet, and refused with exit code 2 and the ROADMAP item named:
+``--chips`` above 1 (A8).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 from deepemia_tpu_torch.config.config import get_config, get_store
 from deepemia_tpu_torch.utils.device import check_accelerator_availability
@@ -163,6 +168,9 @@ def run_task(args) -> int:
     eta_file = paths["eta_file"]
     if not args.no_gpu_check:
         check_accelerator_availability(args.device)
+    dev = torch.device(args.device)
+    system_logger.info("Task %s runs on %s: %s", args.task, dev, "the CPU" if dev.type == "cpu" else
+                       torch.cuda.get_device_name(dev) if torch.cuda.is_available() else "no CUDA device found")
 
     category_json = Path(os.path.expanduser(paths["category_json"]))
     if args.download:
@@ -240,6 +248,10 @@ def run_task(args) -> int:
         with trace(args.profile):
             result = pipe.run(str(inference_dir), visualize=args.visualize, eta_file=eta_file, draw_ids=args.draw_id,
                               draw_scalebar=args.draw_scalebar)
+        from deepemia_tpu_torch.kernels import int8_conv, int8_quant, roi_align
+
+        system_logger.info("CUDA kernel launches: roi_align_fwd %d, int8_conv %d, int8_quant %d",
+                           roi_align.counter.launches, int8_conv.counter.launches, int8_quant.counter.launches)
         if args.upload:
             try:
                 storage.upload_inference_results(Path(result["output_dir"]))

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "codecs": {
         "lzw_decode": ([_P, _L, _P, _L], _L),
         "packbits_decode": ([_P, _L, _P, _L], _L),
-        "jpeg_decode": ([_P, _L, _P, _L, _P], _I),
+        "jpeg_decode": ([_P, _L, _P, _L, _P, _I], _I),
     },
 }
 
@@ -148,16 +148,18 @@ def packbits_decode(data: bytes, size: int) -> bytes:
     return _decode("packbits_decode", data, size)
 
 
-def jpeg_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
-    """A JPEG file's bytes -> (status, meta, pixels): status 0 with [H,W,3]
+def jpeg_decode(data: bytes, color: int = -1) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
+    """A JPEG stream's bytes -> (status, meta, pixels): status 0 with [H,W,3]
     BGR uint8 pixels, else a negative status of ``codecs.cpp:jpeg_decode``
-    and no pixels; meta = (height, width, components, SOF marker)."""
+    and no pixels; meta = (height, width, components, SOF marker). ``color``
+    is the colour space of three components: -1 as libjpeg guesses it, 0
+    YCbCr, 1 as stored (R, G, B)."""
     src = np.frombuffer(data, np.uint8)
     meta = np.zeros(4, np.int32)
     lib = get_lib("codecs")
-    status = lib.jpeg_decode(_ptr(src), src.size, None, 0, _ptr(meta))
+    status = lib.jpeg_decode(_ptr(src), src.size, None, 0, _ptr(meta), color)
     if status != 1:
         return status, meta, None
     out = np.empty((int(meta[0]), int(meta[1]), 3), np.uint8)
-    status = lib.jpeg_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta))
+    status = lib.jpeg_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta), color)
     return status, meta, out if status == 0 else None

@@ -122,7 +122,10 @@ int64_t packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap
 //     replication for other integral ratios; edge rows repeat (jdmainct.c's
 //     context rows);
 //   * colour (jdcolor.c): the fixed-point YCbCr -> RGB tables, RGB as is,
-//     gray replicated.
+//     gray replicated; the caller may set the colour space, as libtiff sets
+//     jpeg_color_space for the JPEG strips and tiles of a TIFF (tif_jpeg.c
+//     JPEGPreDecode: YCbCr converted to RGB, any other photometric as
+//     stored).
 // Not decoded, each with its own status: arithmetic coding, lossless and
 // hierarchical processes (SOF3, SOF5-7, SOF9-15), 12-bit precision, two or
 // four components (CMYK, YCCK), and a progressive image whose scans leave
@@ -231,6 +234,7 @@ struct Decoder {
   // frame
   bool progressive = false, saw_sof = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
+  int color = -1;  // the caller's colour space: -1 guess (jdapimin.c), 0 YCbCr, 1 as stored
   int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   Component comp[4];
   uint16_t qt[4][64] = {};
@@ -957,7 +961,9 @@ struct Decoder {
       return;
     }
     bool rgb = false;  // jdapimin.c default_decompress_parms
-    if (saw_jfif) {
+    if (color >= 0) {
+      rgb = color == 1;
+    } else if (saw_jfif) {
       rgb = false;
     } else if (saw_adobe) {
       rgb = adobe_transform == 0;
@@ -1000,13 +1006,16 @@ struct Decoder {
 extern "C" {
 
 // meta[0..3] = height, width, components, the SOF marker of a coding it does
-// not decode. Returns 0 with the pixels in `out` (height * width * 3 BGR
+// not decode; `color` the colour space of three components (-1: guessed from
+// the JFIF and Adobe markers and the component ids, 0: YCbCr, 1: as stored,
+// R, G, B). Returns 0 with the pixels in `out` (height * width * 3 BGR
 // bytes); 1 when `out` is null or smaller than that (meta filled); or a
 // negative status: -1 corrupt or truncated before its first scan (cv2 reads
 // nothing), -2 a coding it does not decode (meta[3]), -3 two or four
 // components, -4 a precision other than 8 bits, -5 block smoothing.
-int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t cap, int32_t* meta) {
+int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t cap, int32_t* meta, int color) {
   jpg::Decoder dec;
+  dec.color = color;
   dec.d = data;
   dec.n = (size_t)size;
   meta[0] = meta[1] = meta[2] = meta[3] = 0;

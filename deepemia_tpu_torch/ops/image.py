@@ -84,36 +84,60 @@ def normalize_bgr(image: torch.Tensor) -> torch.Tensor:
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 # Adam7 passes: (x0, y0, dx, dy)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _TIFF_COMPRESSION = {
     1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
     7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP",
 }
-_TIFF_DECODED = (1, 5, 8, 32773, 32946)
+_TIFF_DECODED = (1, 5, 7, 8, 32773, 32946)
+# field type -> (struct code, bytes per value); a RATIONAL is two LONGs
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 7: ("B", 1)}
+# (photometric, samples per pixel) -> the bit depths OpenCV reads: WhiteIsZero and BlackIsZero gray (with
+# alpha), RGB(A), palette, CMYK and YCbCr. OpenCV refuses 2- and 4-bit gray and 2-bit palettes.
+_TIFF_KINDS = {
+    (0, 1): (1, 8, 16), (1, 1): (1, 8, 16), (0, 2): (8, 16), (1, 2): (8, 16), (2, 3): (8, 16), (2, 4): (8, 16),
+    (3, 1): (1, 4, 8), (5, 4): (8,), (6, 3): (8,),
+}
+# the YCbCr subsamplings libtiff's RGBA reader places (tif_getimage.c)
+_YCBCR_SUBSAMPLING = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
 
 
 def read_image(path: str) -> np.ndarray:
     """Decode an image file to [H,W,3] uint8 BGR, as
     ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it.
 
-    Reads PNG (8/16-bit gray, gray+alpha, RGB, RGBA and 8-bit palette,
-    plain or Adam7-interlaced), TIFF (the first page; 8/16-bit gray, RGB,
-    RGBA; strips or tiles, contiguous or separate planes; uncompressed,
-    LZW, Deflate or PackBits, with predictor 1 or 2) and BMP (8-bit palette,
-    24-bit, 32-bit; bottom-up or top-down rows). Gray is replicated to three
-    channels and alpha is dropped. 16-bit samples reduce to 8 bits as
-    OpenCV reduces them: the high byte, except for 16-bit colour TIFF,
-    which libtiff's RGBA reader rounds (v * 255 + 32767) // 65535. JPEG
-    (baseline, extended and progressive Huffman, 8-bit gray, YCbCr or RGB,
-    any sampling libjpeg takes) decodes to libjpeg-turbo's pixels bit for
-    bit (``native/codecs.cpp:jpeg_decode``), EXIF orientation applied as
-    OpenCV applies it. Any other encoding (BigTIFF, the other TIFF
-    compressions, JPEG's arithmetic, lossless and hierarchical codings,
-    12-bit and CMYK JPEG) raises an ``UnsupportedImageError`` that names
-    it; a corrupt file, or one cut off before its pixel data, a
-    ``ValueError`` (where OpenCV returns None), and a missing one an
-    ``OSError``."""
+    Reads PNG (gray at 1, 2, 4, 8 and 16 bits, gray+alpha, RGB, RGBA and
+    palettes at 1, 2, 4 and 8 bits, plain or Adam7-interlaced; ``tRNS`` is
+    dropped with alpha), TIFF (the first page; BlackIsZero and WhiteIsZero
+    gray at 1, 8 and 16 bits, gray+alpha, RGB and RGBA at 8 and 16 bits,
+    palettes at 1, 4 and 8 bits, 8-bit CMYK and YCbCr with any subsampling
+    libtiff places; strips or tiles, contiguous or separate planes;
+    uncompressed, LZW, Deflate, PackBits with predictor 1 or 2, or JPEG with
+    its ``JPEGTables``) and BMP (1-, 4- and 8-bit palettes, uncompressed,
+    RLE4 or RLE8; 24-bit, 32-bit; bottom-up or top-down rows). Gray is
+    replicated to three channels and alpha is dropped. Sub-byte gray
+    expands to 0..255; palettes map through their colours (a TIFF
+    ``ColorMap`` of 16-bit entries by its high byte, one whose entries are
+    all below 256 as it is); CMYK and YCbCr convert as libtiff's RGBA reader
+    converts them. 16-bit samples reduce to 8 bits as OpenCV reduces them:
+    the high byte, except for 16-bit colour TIFF, which libtiff's RGBA
+    reader rounds (v * 255 + 32767) // 65535. JPEG (baseline, extended and
+    progressive Huffman, 8-bit gray, YCbCr or RGB, any sampling libjpeg
+    takes) decodes to libjpeg-turbo's pixels bit for bit
+    (``native/codecs.cpp:jpeg_decode``), as do a TIFF's JPEG strips and
+    tiles. The EXIF orientation of a JPEG (APP1) or a PNG (``eXIf``, before
+    or after the image data), and a TIFF's Orientation tag, turn the image
+    as OpenCV's ``ApplyExifOrientation`` does (OpenCV 5.0 returns None for
+    a TIFF with that tag; the port turns it, so that the scale-bar region
+    lies where the user sees it). Any other encoding (BigTIFF, the other
+    TIFF compressions, old-style JPEG in TIFF, JPEG's arithmetic, lossless
+    and hierarchical codings, 12-bit and CMYK JPEG, and what OpenCV also
+    refuses: 2- and 4-bit gray TIFF, 32-bit samples) raises an
+    ``UnsupportedImageError`` that names it; a corrupt file, or one cut off
+    before its pixel data, a ``ValueError`` (where OpenCV returns None), and
+    a missing one an ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -141,6 +165,13 @@ def _to_bgr(pix: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(pix[..., 2::-1])
 
 
+def _unpack_bits(raw: np.ndarray, n: int, bits: int) -> np.ndarray:
+    """[H, row bytes] uint8 -> [H, n] uint8: the first n samples of each row
+    at ``bits`` (1, 2 or 4) each, packed MSB first."""
+    b = np.unpackbits(raw, axis=1).reshape(raw.shape[0], -1, bits)[:, :n]
+    return (b << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(axis=2, dtype=np.uint8)
+
+
 def _unfilter_png(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     """Undo the PNG scanline filters. raw [H,W,B] filtered bytes, ftype [H]
     -> [H,W,B] uint8. A pixel depends on its left, upper and upper-left
@@ -165,18 +196,26 @@ def _unfilter_png(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def _png_pass(stream: np.ndarray, pos: int, h: int, w: int, bpp: int):
-    """Unfilter one h x w image (or Adam7 pass) from ``stream`` at ``pos``
-    -> ([h,w,bpp] uint8, next position)."""
-    end = pos + h * (1 + w * bpp)
+def _png_pass(stream: np.ndarray, pos: int, h: int, w: int, spp: int, depth: int):
+    """Unfilter one h x w image (or Adam7 pass) of ``spp`` samples at
+    ``depth`` bits from ``stream`` at ``pos`` -> ([h,w,spp] uint8 samples,
+    16-bit ones cut to their high byte; the next position). The filters
+    work on bytes, a pixel's left neighbour one pixel back (one byte below 8
+    bits a pixel); an Adam7 pass's rows are counted in pixels."""
+    rowbytes = (w * spp * depth + 7) // 8
+    unit = max(1, spp * depth // 8)
+    end = pos + h * (1 + rowbytes)
     if end > stream.size:
         raise ValueError("PNG: image data has the wrong length")
-    rows = stream[pos:end].reshape(h, 1 + w * bpp)
-    return _unfilter_png(rows[:, 1:].reshape(h, w, bpp), rows[:, 0]), end
+    rows = stream[pos:end].reshape(h, 1 + rowbytes)
+    raw = _unfilter_png(rows[:, 1:].reshape(h, rowbytes // unit, unit), rows[:, 0]).reshape(h, rowbytes)
+    if depth < 8:  # one sample a pixel: gray or a palette index
+        return _unpack_bits(raw, w, depth)[..., None], end
+    return raw.reshape(h, w, spp, depth // 8)[..., 0], end  # big-endian samples: the high byte first
 
 
 def _decode_png(data: bytes) -> np.ndarray:
-    pos, idat, palette, hdr = 8, [], None, None
+    pos, idat, palette, hdr, exif = 8, [], None, None, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
@@ -187,35 +226,61 @@ def _decode_png(data: bytes) -> np.ndarray:
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"eXIf" and exif is None:
+            exif = body
         elif kind == b"IEND":
             break
     if hdr is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if ctype not in _PNG_CHANNELS or depth not in (8, 16) or (ctype == 3 and depth != 8):
+    if depth not in _PNG_DEPTHS.get(ctype, ()):
         raise UnsupportedImageError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
     if interlace not in (0, 1):
         raise UnsupportedImageError(f"PNG: interlace method {interlace} is not supported")
     spp = _PNG_CHANNELS[ctype]
-    bpp = spp * depth // 8
     stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if interlace == 0:
-        pix, end = _png_pass(stream, 0, h, w, bpp)
+        pix, end = _png_pass(stream, 0, h, w, spp, depth)
     else:
-        pix, end = np.zeros((h, w, bpp), np.uint8), 0
+        pix, end = np.zeros((h, w, spp), np.uint8), 0
         for x0, y0, dx, dy in _ADAM7:
             ph, pw = -(-(h - y0) // dy), -(-(w - x0) // dx)
             if ph > 0 and pw > 0:  # an empty pass has no scanlines at all
-                pix[y0::dy, x0::dx], end = _png_pass(stream, end, ph, pw, bpp)
+                pix[y0::dy, x0::dx], end = _png_pass(stream, end, ph, pw, spp, depth)
     if end != stream.size:
         raise ValueError("PNG: image data has the wrong length")
-    if depth == 16:
-        pix = pix[..., 0::2]  # big-endian samples: keep the high byte
     if ctype == 3:
         if palette is None:
             raise ValueError("PNG: palette image without a PLTE chunk")
         pix = palette[pix[..., 0]]
-    return _to_bgr(pix)
+    elif depth < 8:  # libpng's expansion of 1-, 2- and 4-bit gray
+        pix = pix * np.uint8(255 // (2**depth - 1))
+    # libpng keeps an eXIf chunk that starts with its byte order, before or after the image data
+    return _orient(_to_bgr(pix), _tiff_orientation(exif) if exif else 1)
+
+
+# ---------------------------------------------------------------------------
+# TIFF
+# ---------------------------------------------------------------------------
+
+
+def _tiff_tags(data: bytes):
+    """The first IFD -> (byte order, {tag: values}); a RATIONAL's values
+    are its numerators and denominators in turn, an UNDEFINED's its bytes."""
+    end = "<" if data[:2] == b"II" else ">"
+    (ifd,) = struct.unpack(end + "I", data[4:8])
+    (n,) = struct.unpack(end + "H", data[ifd : ifd + 2])
+    tags = {}
+    for i in range(n):
+        e = ifd + 2 + 12 * i
+        tag, typ, count = struct.unpack(end + "HHI", data[e : e + 8])
+        if typ not in _TIFF_TYPES:
+            continue
+        fmt, size = _TIFF_TYPES[typ]
+        at = e + 8 if count * size <= 4 else struct.unpack(end + "I", data[e + 8 : e + 12])[0]
+        k = 2 * count if typ == 5 else count
+        tags[tag] = struct.unpack(f"{end}{k}{fmt}", data[at : at + count * size])
+    return end, tags
 
 
 def _tiff_segment(raw: bytes, comp: int, size: int) -> bytes:
@@ -230,20 +295,106 @@ def _tiff_segment(raw: bytes, comp: int, size: int) -> bytes:
     return native.lzw_decode(raw, size) if comp == 5 else native.packbits_decode(raw, size)
 
 
+def _ycbcr_units(seg: bytes, sh: int, sw: int, sub) -> np.ndarray:
+    """A YCbCr strip or tile's data units (TIFF 6.0 section 21: each block
+    of sub[0] x sub[1] pixels holds its luma samples row by row, then one
+    Cb and one Cr) -> [sh, sw, 3] Y, Cb, Cr, each block's chroma on all of
+    its pixels, as libtiff's RGBA reader places them."""
+    hs, vs = sub
+    by, bx = -(-sh // vs), -(-sw // hs)
+    u = np.frombuffer(seg, np.uint8, count=by * bx * (hs * vs + 2)).reshape(by, bx, hs * vs + 2)
+    y = u[..., : hs * vs].reshape(by, bx, vs, hs).transpose(0, 2, 1, 3).reshape(by * vs, bx * hs)
+    c = np.repeat(np.repeat(u[..., hs * vs :], vs, axis=0), hs, axis=1)
+    return np.concatenate([y[..., None], c], axis=2)[:sh, :sw]
+
+
+def _tiff_jpeg(raw: bytes, tables: bytes, photometric: int, spp: int, sh: int, sw: int) -> np.ndarray:
+    """One JPEG-compressed strip or tile -> [sh, sw, spp] uint8 gray or
+    RGB: its stream with the ``JPEGTables`` spliced in after SOI, decoded as
+    libtiff has libjpeg decode it (tif_jpeg.c: YCbCr converted to RGB, gray
+    and RGB as stored). A last strip may hold more rows than the image."""
+    from deepemia_tpu_torch import native
+
+    if raw[:2] != b"\xff\xd8":
+        raise ValueError("TIFF: a JPEG strip or tile does not start with SOI")
+    status, meta, bgr = native.jpeg_decode(raw[:2] + tables + raw[2:], 0 if photometric == 6 else 1)
+    if status:
+        _jpeg_refusal(status, meta)
+    if int(meta[2]) != spp or bgr.shape[1] != sw or bgr.shape[0] < sh:
+        raise ValueError(f"TIFF: a JPEG strip or tile of {bgr.shape[0]}x{bgr.shape[1]}x{int(meta[2])} where "
+                         f"{sh}x{sw}x{spp} was expected")
+    return bgr[:sh, :, 2::-1][..., :spp]
+
+
+def _rationals(values, default):
+    """A RATIONAL tag's values as libtiff reads them (float32 numerator over
+    float32 denominator, 0 for a zero denominator), or ``default``."""
+    if values is None:
+        return [np.float32(v) for v in default]
+    num, den = np.float32(values[0::2]), np.float32(values[1::2])
+    return list(np.where(den == 0, np.float32(0), num / np.where(den == 0, np.float32(1), den)))
+
+
+def _ycbcr_to_bgr(ycc: np.ndarray, tags: dict) -> np.ndarray:
+    """[H,W,3] Y, Cb, Cr -> BGR by libtiff's ``TIFFYCbCrToRGBInit`` and
+    ``TIFFYCbCrtoRGB`` (tif_color.c): float32 coefficients from
+    YCbCrCoefficients (tag 529) and ReferenceBlackWhite (532), or libtiff's
+    defaults, then 16-bit fixed-point tables."""
+    f32 = np.float32
+    lr, lg, lb = _rationals(tags.get(529), (0.299, 0.587, 0.114))
+    rbw = _rationals(tags.get(532), (0, 255, 128, 255, 128, 255))
+
+    def fix(v):  # FIX(x): (int32)(x * 65536 + 0.5), the product in float32, the sum in double
+        return int(np.float64(f32(min(max(v, f32(0)), f32(2))) * f32(65536)) + 0.5)
+
+    f1, f3 = f32(2) - f32(2) * lr, f32(2) - f32(2) * lb
+    d1, d2, d3, d4 = fix(f1), -fix(f32(lr * f1) / lg), fix(f3), -fix(f32(lb * f3) / lg)
+
+    def code2v(c, rb, rw, cr):  # Code2V, then CLAMPw to +-4096 and the cast to int32
+        den = f32(rw - rb) if rw != rb else f32(1)
+        v = (c - int(rb)).astype(f32) * f32(cr) / den
+        return np.clip(v, f32(-4096), f32(4096)).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    y = code2v(x + 128, rbw[0], rbw[1], 255)[ycc[..., 0]]
+    r = y + ((d1 * cr + 32768) >> 16)[ycc[..., 2]]
+    g = y + (((d4 * cb + 32768)[ycc[..., 1]] + (d2 * cr)[ycc[..., 2]]) >> 16)
+    b = y + ((d3 * cb + 32768) >> 16)[ycc[..., 1]]
+    return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _tiff_to_bgr(pix: np.ndarray, photometric: int, depth: int, tags: dict) -> np.ndarray:
+    """The decoded samples -> [H,W,3] BGR as libtiff's RGBA reader
+    (tif_getimage.c), which OpenCV reads 8-bit images through, maps them."""
+    if photometric in (0, 1):  # 1 bit: 0 / 255; 16 bits: the high byte; WhiteIsZero inverted
+        g = pix[..., :1]
+        g = (g * 255 if depth == 1 else g >> 8 if depth == 16 else g).astype(np.uint8)
+        return _to_bgr(255 - g if photometric == 0 else g)
+    if photometric == 3:
+        cmap = np.asarray(tags[320], np.int64)
+        if cmap.size != 3 << depth:
+            raise ValueError(f"TIFF: a ColorMap of {cmap.size} entries where {3 << depth} were expected")
+        if cmap.max() >= 256:  # checkcmap: 16-bit entries, unless all are below 256
+            cmap >>= 8
+        return cmap.reshape(3, -1).T[:, ::-1].astype(np.uint8)[pix[..., 0]]
+    if photometric == 5:  # putRGBcontig8bitCMYKtile
+        v = pix.astype(np.int32)
+        return ((255 - v[..., 3:]) * (255 - v[..., 2::-1]) // 255).astype(np.uint8)
+    if photometric == 6:
+        return _ycbcr_to_bgr(pix, tags)
+    if depth == 16:
+        pix = ((pix.astype(np.int64) * 255 + 32767) // 65535).astype(np.uint8)
+    if pix.shape[2] == 4 and tags.get(338, (0,))[0] == 2:
+        # libtiff's RGBA reader premultiplies unassociated alpha
+        v = pix.astype(np.int32)
+        pix = ((v[..., :3] * v[..., 3:] + 127) // 255).astype(np.uint8)
+    return _to_bgr(pix)
+
+
 def _decode_tiff(data: bytes) -> np.ndarray:
-    end = "<" if data[:2] == b"II" else ">"
-    sizes = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4)}
-    (ifd,) = struct.unpack(end + "I", data[4:8])
-    (n,) = struct.unpack(end + "H", data[ifd : ifd + 2])
-    tags = {}
-    for i in range(n):
-        e = ifd + 2 + 12 * i
-        tag, typ, count = struct.unpack(end + "HHI", data[e : e + 8])
-        if typ not in sizes:
-            continue
-        fmt, size = sizes[typ]
-        at = e + 8 if count * size <= 4 else struct.unpack(end + "I", data[e + 8 : e + 12])[0]
-        tags[tag] = struct.unpack(f"{end}{count}{fmt}", data[at : at + count * size])
+    end, tags = _tiff_tags(data)
     get = lambda t, d: tags.get(t, (d,))  # noqa: E731
     w, h = tags[256][0], tags[257][0]
     spp = get(277, 1)[0]
@@ -260,12 +411,32 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise UnsupportedImageError(f"TIFF: predictor {predictor} is not supported")
     if planar not in (1, 2):
         raise UnsupportedImageError(f"TIFF: planar configuration {planar} is not supported")
-    if len(bits) != 1 or bits - {8, 16} or set(get(339, 1)) != {1}:
-        raise UnsupportedImageError(f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported")
-    if photometric not in (1, 2) or spp not in ((1, 2) if photometric == 1 else (3, 4)):
+    if (photometric, spp) not in _TIFF_KINDS:
         raise UnsupportedImageError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
+    if len(bits) != 1 or set(get(339, 1)) != {1} or not bits <= set(_TIFF_KINDS[photometric, spp]):
+        raise UnsupportedImageError(
+            f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported with photometric "
+            f"{photometric}"
+        )
     depth = bits.pop()
-    dtype = np.dtype(np.uint8) if depth == 8 else np.dtype(end + "u2")
+    if planar == 2 and (depth < 8 or photometric > 2):
+        raise UnsupportedImageError(f"TIFF: separate planes of photometric {photometric} at {depth} bits "
+                                    "are not supported")
+    if predictor == 2 and (depth < 8 or photometric == 6):
+        raise UnsupportedImageError(f"TIFF: predictor 2 with photometric {photometric} at {depth} bits "
+                                    "is not supported")
+    if photometric == 5 and get(332, 1)[0] != 1:
+        raise UnsupportedImageError(f"TIFF: ink set {get(332, 1)[0]} (not CMYK) is not supported")
+    if comp == 7 and (photometric not in (1, 2, 6) or planar == 2):
+        raise UnsupportedImageError(f"TIFF: JPEG compression of photometric {photometric}, planar configuration "
+                                    f"{planar} is not supported")
+    sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
+    ycc = photometric == 6 and comp != 7  # JPEG strips convert YCbCr inside the JPEG decoder
+    if ycc and sub not in _YCBCR_SUBSAMPLING:
+        raise UnsupportedImageError(f"TIFF: YCbCr subsampling {sub} is not supported")
+    tables = bytes(tags.get(347, b""))
+    tables = tables[2:-2] if tables[:2] == b"\xff\xd8" else tables  # its SOI and EOI
+    dtype = np.dtype(np.uint8) if depth <= 8 else np.dtype(end + "u2")
     sps = spp if planar == 1 else 1  # samples per pixel within one segment
     if 322 in tags:  # tiles, padded to the full tile size at the edges
         tw, th = tags[322][0], tags[323][0]
@@ -284,24 +455,90 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     for p in range(planes):
         for k, (y, x) in enumerate(grid):
             sh, sw = shape_of(y)
-            need = sh * sw * sps * dtype.itemsize
             j = p * len(grid) + k
-            seg = _tiff_segment(data[offsets[j] : offsets[j] + counts[j]], comp, need)
-            if len(seg) < need:
-                raise ValueError("TIFF: a strip or tile holds fewer bytes than it must")
-            a = np.frombuffer(seg, dtype).reshape(sh, sw, sps).astype(pix.dtype)
-            if predictor == 2:  # horizontal differencing, per sample, modulo 2^bits
-                a = np.cumsum(a, axis=1, dtype=pix.dtype)
+            raw = data[offsets[j] : offsets[j] + counts[j]]
+            if comp == 7:
+                a = _tiff_jpeg(raw, tables, photometric, spp, sh, sw)
+            else:
+                if ycc:
+                    need = -(-sh // sub[1]) * -(-sw // sub[0]) * (sub[0] * sub[1] + 2)
+                else:
+                    need = sh * ((sw * sps * depth + 7) // 8)
+                seg = _tiff_segment(raw, comp, need)
+                if len(seg) < need:
+                    raise ValueError("TIFF: a strip or tile holds fewer bytes than it must")
+                if ycc:
+                    a = _ycbcr_units(seg, sh, sw, sub)
+                elif depth < 8:
+                    a = _unpack_bits(np.frombuffer(seg, np.uint8).reshape(sh, -1), sw, depth)[..., None]
+                else:
+                    a = np.frombuffer(seg, dtype).reshape(sh, sw, sps).astype(pix.dtype)
+                if predictor == 2:  # horizontal differencing, per sample, modulo 2^bits
+                    a = np.cumsum(a, axis=1, dtype=pix.dtype)
             ch = slice(None) if planar == 1 else slice(p, p + 1)
             pix[y : y + sh, x : x + sw, ch] = a[: h - y, : w - x]
-    if depth == 16:
-        v = pix.astype(np.int64)
-        pix = ((v * 255 + 32767) // 65535 if photometric == 2 else v >> 8).astype(np.uint8)
-    if photometric == 2 and spp == 4 and get(338, 0)[0] == 2:
-        # libtiff's RGBA reader premultiplies unassociated alpha
-        v = pix.astype(np.int32)
-        pix = ((v[..., :3] * v[..., 3:] + 127) // 255).astype(np.uint8)
-    return _to_bgr(pix)
+    photometric = 2 if comp == 7 and photometric == 6 else photometric
+    return _orient(_tiff_to_bgr(pix, photometric, depth, tags), get(274, 1)[0])
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+
+def _bmp_rle(src: bytes, width: int, rows: int, bits: int) -> np.ndarray:
+    """A BMP's RLE8 (``bits`` 8) or RLE4 (4) stream -> [rows, width]
+    palette indices in stream row order, as OpenCV's decoder
+    (grfmt_bmp.cpp) lays them out: a run or an absolute stretch that would
+    cross the end of its row is corrupt; the pixels an end of line, a delta
+    or the end of the bitmap skips take index 0 (the skip runs on in raster
+    order); an RLE8 run that fills its row moves to the next, where an end
+    of line that follows does nothing, while an RLE4 run or an absolute
+    stretch that fills its row waits for the end of line. In RLE4, OpenCV
+    reads an end of bitmap as an end of line and moves a delta by its dx
+    alone."""
+    out = np.zeros(rows * width, np.uint8)
+    n, pos, y, x, wrapped = len(src), 0, 0, 0, False
+    while y < rows:
+        if pos + 2 > n:
+            raise ValueError("BMP: the RLE data ends before the image does")
+        count, code = src[pos], src[pos + 1]
+        pos += 2
+        at = y * width + x  # x == width (a filled row) is the next row's start
+        if count or code > 2:
+            m = count or code
+            if x + m > width:
+                raise ValueError("BMP: an RLE run crosses the end of its row")
+            if count:  # a run of one index (RLE4: of two in turn)
+                vals = code if bits == 8 else np.array([code >> 4, code & 15], np.uint8)[np.arange(m) % 2]
+            else:  # absolute: m indices, padded to 16 bits
+                size = m if bits == 8 else (m + 1) // 2
+                if pos + ((size + 1) & ~1) > n:
+                    raise ValueError("BMP: the RLE data ends before the image does")
+                vals = np.frombuffer(src, np.uint8, count=size, offset=pos)
+                vals = vals if bits == 8 else _unpack_bits(vals[None], m, 4)[0]
+                pos += (size + 1) & ~1
+            out[at : at + m] = vals
+            x += m
+            wrapped = bool(count) and bits == 8 and x == width
+            if wrapped:
+                y, x = y + 1, 0
+            continue
+        if code == 0 and wrapped:
+            wrapped = False
+            continue
+        if code == 2:  # delta: dx right, dy down (RLE4: dy is not read)
+            if pos + 2 > n:
+                raise ValueError("BMP: the RLE data ends before the image does")
+            skip = src[pos] + (src[pos + 1] * width if bits == 8 else 0)
+            pos += 2
+        elif code == 0 or bits == 4:  # end of line (RLE4: the end of bitmap too)
+            skip = width - x
+        else:  # end of bitmap
+            skip = width - x + (rows - y) * width
+        y, x = divmod(at + skip, width)
+        wrapped = False
+    return out.reshape(rows, width)
 
 
 def _decode_bmp(data: bytes) -> np.ndarray:
@@ -314,23 +551,27 @@ def _decode_bmp(data: bytes) -> np.ndarray:
         masks = struct.unpack("<III", data[54:66])
         if masks != (0xFF0000, 0xFF00, 0xFF):
             raise UnsupportedImageError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
-    elif comp != 0:
-        raise UnsupportedImageError(f"BMP: compression {comp} (RLE or bit fields) is not supported")
-    if bits not in (8, 24, 32):
+    elif comp not in (0, {8: 1, 4: 2}.get(bits, 0)):
+        raise UnsupportedImageError(f"BMP: compression {comp} at {bits} bits is not supported")
+    if bits not in (1, 4, 8, 24, 32):
         raise UnsupportedImageError(f"BMP: {bits}-bit pixels are not supported")
     rows, width = abs(h), w
-    stride = (width * bits // 8 + 3) & ~3
-    raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)
-    if h > 0:  # bottom-up rows
-        raw = raw[::-1]
-    if bits == 8:
-        ncolors = ncolors or 256
-        pal = np.frombuffer(data, np.uint8, count=4 * ncolors, offset=14 + hsize).reshape(-1, 4)[:, :3]
-        idx = raw[:, :width]
-        if int(idx.max(initial=0)) >= len(pal):
-            raise ValueError("BMP: a pixel indexes past the palette")
-        return np.ascontiguousarray(pal[idx])
-    return np.ascontiguousarray(raw[:, : width * bits // 8].reshape(rows, width, bits // 8)[..., :3])
+    if bits > 8:
+        stride = (width * bits // 8 + 3) & ~3
+        raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)
+        raw = raw[::-1] if h > 0 else raw  # bottom-up rows
+        return np.ascontiguousarray(raw[:, : width * bits // 8].reshape(rows, width, bits // 8)[..., :3])
+    # OpenCV's palette has 256 entries; those the file does not give are black
+    given = min(ncolors or 1 << bits, 256)
+    pal = np.zeros((256, 3), np.uint8)
+    pal[:given] = np.frombuffer(data, np.uint8, count=4 * given, offset=14 + hsize).reshape(-1, 4)[:, :3]
+    if comp:
+        idx = _bmp_rle(data[pixel_at:], width, rows, bits)
+    else:
+        stride = (width * bits + 31) // 32 * 4
+        raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)
+        idx = raw[:, :width] if bits == 8 else _unpack_bits(raw, width, bits)
+    return np.ascontiguousarray(pal[idx[::-1] if h > 0 else idx])
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +591,13 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
     from deepemia_tpu_torch import native
 
     status, meta, pix = native.jpeg_decode(data)
-    if status == 0:
-        return _orient(pix, _exif_orientation(data))
+    if status:
+        _jpeg_refusal(status, meta)
+    return _orient(pix, _exif_orientation(data))
+
+
+def _jpeg_refusal(status: int, meta: np.ndarray) -> None:
+    """Raise for a negative status of ``native.jpeg_decode``."""
     if status == -2:
         coding = int(meta[3])
         raise UnsupportedImageError(f"JPEG: {_JPEG_CODINGS.get(coding, f'SOF marker 0x{coding:02X}')} is not supported")
@@ -368,8 +614,7 @@ def _decode_jpeg(data: bytes) -> np.ndarray:
 
 
 def _exif_orientation(data: bytes) -> int:
-    """The Orientation tag (0x0112) of the first APP1 Exif segment, or 1;
-    an unreadable Exif block reads as 1, as OpenCV ignores it."""
+    """The Orientation of the first APP1 Exif segment of a JPEG, or 1."""
     pos = 2
     while pos + 4 <= len(data) and data[pos] == 0xFF:
         marker = data[pos + 1]
@@ -381,19 +626,24 @@ def _exif_orientation(data: bytes) -> int:
         (length,) = struct.unpack(">H", data[pos + 2 : pos + 4])
         body = data[pos + 4 : pos + 2 + length]
         pos += 2 + length
-        if marker != 0xE1 or not body.startswith(b"Exif\x00\x00"):
-            continue
-        tiff = body[6:]
-        try:
-            end = {b"II": "<", b"MM": ">"}[tiff[:2]]
-            (ifd,) = struct.unpack(end + "I", tiff[4:8])
-            (count,) = struct.unpack(end + "H", tiff[ifd : ifd + 2])
-            for i in range(count):
-                tag, typ, _, value = struct.unpack(end + "HHI4s", tiff[ifd + 2 + 12 * i : ifd + 14 + 12 * i])
-                if tag == 0x0112 and typ == 3:
-                    return struct.unpack(end + "H", value[:2])[0]
-        except (KeyError, struct.error):
-            return 1
+        if marker == 0xE1 and body.startswith(b"Exif\x00\x00"):
+            return _tiff_orientation(body[6:])
+    return 1
+
+
+def _tiff_orientation(tiff: bytes) -> int:
+    """The Orientation tag (0x0112, SHORT) of the first IFD of an Exif
+    block's TIFF structure, or 1; an unreadable block reads as 1, as OpenCV
+    ignores it."""
+    try:
+        end = {b"II": "<", b"MM": ">"}[tiff[:2]]
+        (ifd,) = struct.unpack(end + "I", tiff[4:8])
+        (count,) = struct.unpack(end + "H", tiff[ifd : ifd + 2])
+        for i in range(count):
+            tag, typ, _, value = struct.unpack(end + "HHI4s", tiff[ifd + 2 + 12 * i : ifd + 14 + 12 * i])
+            if tag == 0x0112 and typ == 3:
+                return struct.unpack(end + "H", value[:2])[0]
+    except (KeyError, struct.error):
         return 1
     return 1
 

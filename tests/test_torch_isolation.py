@@ -65,6 +65,7 @@ def test_port_sources_import_no_jax():
         "utils/device.py", "utils/safe_ops.py", "utils/storage.py", "utils/profiling.py",
         "data/datasets.py", "data/loader.py", "train/augment.py", "train/evaluator.py", "train/workflow.py",
         "models/weights.py", "models/quant.py", "kernels/int8_conv.py", "kernels/int8_quant.py",
+        "cli/__init__.py", "cli/wizard.py", "gui/server.py", "utils/color.py", "version.py",
     } <= walked
     offenders = [
         f"{f.relative_to(ROOT)}: {m}"
@@ -89,7 +90,9 @@ def test_import_leaves_jax_unloaded():
         "deepemia_tpu_torch.utils.storage, deepemia_tpu_torch.utils.device, deepemia_tpu_torch.utils.logging_utils, "
         "deepemia_tpu_torch.data.datasets, deepemia_tpu_torch.data.loader, deepemia_tpu_torch.train.augment, "
         "deepemia_tpu_torch.train.evaluator, deepemia_tpu_torch.train.workflow, deepemia_tpu_torch.models.weights, "
-        "deepemia_tpu_torch.models.quant, deepemia_tpu_torch.kernels.int8_conv, deepemia_tpu_torch.kernels.int8_quant; "
+        "deepemia_tpu_torch.models.quant, deepemia_tpu_torch.kernels.int8_conv, deepemia_tpu_torch.kernels.int8_quant, "
+        "deepemia_tpu_torch.cli.wizard, deepemia_tpu_torch.gui.server, deepemia_tpu_torch.utils.color, "
+        "deepemia_tpu_torch.version; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'deepemia_tpu', 'cv2', 'PIL', 'sklearn', 'psutil') "
         "or m.startswith('google.cloud.storage')]; "
