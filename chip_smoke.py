@@ -151,14 +151,22 @@ It builds the CUDA kernels from the sources in the checkout and then:
      every distinct conv shape of the R50 trunk and FPN, captured from one
      forward of a 16-tile batch of 1024² inputs and one 2048² whole-image
      pass, in bf16 and float32, with its fused epilogue off and on (the
-     conv's own frozen norm and ReLU), and is timed per shape (CUDA events,
-     the profiler's device time and the host time per call) beside its
-     plain version, its bound, bf16 ``F.conv2d`` and, at the 1x1 stride-1
-     shapes, ``torch._int_mm`` (one ``int8_conv {...}`` line per shape);
-     the activation quantizer (K5) equals its plain version at every input
+     conv's own frozen norm and ReLU, each conv3's shortcut as its residual,
+     the per-image max of every conv1, conv2 and conv3 output, the maxima
+     equal), and where a tile spans three or more images, and is timed per
+     shape (CUDA events, the profiler's device time and the host time per
+     call) beside its plain version, its bound (the residual's read
+     included), bf16 ``F.conv2d`` and, at the 1x1 stride-1 shapes,
+     ``torch._int_mm`` (one ``int8_conv {...}`` line per shape); the
+     activation quantizer (K5) equals its plain version at every input
      shape it takes there (int8 and per-image max equal, the stem's
-     16-channel layout included) and is timed beside it, its bound and the
-     torch-op chain (one ``int8_quant {...}`` line per shape); the
+     16-channel layout included), in one pass where the input comes with
+     its producer's max (which must equal the max the plain version takes
+     of it) and in two where not, and is timed beside it, its bound and the
+     torch-op chain (one ``int8_quant {...}`` line per shape, with its
+     route); one forward launches K4 53 and K5 51 times with ``trunk`` (61
+     and 63 with ``full``), and the profiler splits one trunk forward's
+     device time into K4, K5's one pass, its two passes and the rest; the
      trunk + FPN seconds of one batch for ``--quantized`` none / trunk /
      full; the float and int8 engines' detections on one micrograph matched
      as INT8_AP.md counts them; the int8 trunk of one 256² and one 253x259
@@ -2885,33 +2893,51 @@ def phase_jpeg_fixtures(size: int = 2048):
     return rows
 
 
-def conv_work(x_shape, w_shape, stride, padding, out_dtype):
+def conv_work(x_shape, w_shape, stride, padding, out_dtype, residual=False, with_max=False):
     """(bound ms, 'bytes' or 'operations') of one int8 conv: 2 ops a
     multiply-add over 1,979 TOPS; the int8 activations and weights read
     once, the output written once, the per-image and per-channel maxima
-    read once, over 3.35 TB/s."""
+    read once, and where the epilogue takes them the residual (the
+    output's size) read once and the per-image max written once, over
+    3.35 TB/s."""
     from deepemia_tpu_torch.kernels.int8_conv import conv_out_hw
 
     n, ci, h, w = x_shape
     co, kh, kw, _ = w_shape
     ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
     ops = 2.0 * n * ho * wo * co * kh * kw * ci
-    nbytes = n * ci * h * w + co * kh * kw * ci + (n + co) * 4 + n * ho * wo * co * torch.empty(
-        (), dtype=out_dtype).element_size()
+    out_bytes = n * ho * wo * co * torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (n * ci * h * w + co * kh * kw * ci + (n + co) * 4 + out_bytes * (2 if residual else 1)
+              + (4 * n if with_max else 0))
     t_ops, t_bytes = ops / I8_TOPS, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k4_outputs(result):
+    """K4's (output, max or None) from a wrapper's result (a tuple where
+    ``with_max``)."""
+    return result if isinstance(result, tuple) else (result, None)
+
+
+def epilogue_name(fused, bias):
+    """The epilogue of a captured K4 call, as the int8_conv lines print it."""
+    parts = [p for p, on in (("norm", fused.get("norm_weight") is not None),
+                             ("residual", fused.get("residual") is not None), ("relu", fused.get("relu")))
+             if on] or (["bias"] if bias is not None else ["none"])
+    return "+".join(parts) + (", max" if fused.get("with_max") else "")
+
+
 class ConvCapture:
     """Within the block, the first call of every distinct int8 conv shape
-    (N, Ci, H, W, Co, k, stride of the replaced conv) that the model's
-    forwards make to K4's wrapper, with the arguments the module passes
-    (K5's int8 input, the weights and stride K4 reads: the stem's
-    space-to-depth form included, the epilogue), and how many convs of each
-    shape one forward runs, in the trunk and in the FPN; and the first
-    input of every distinct shape the activation quantizer (K5) takes (N,
-    C, H, W, channels, space-to-depth), with how many quantizations of it
-    one forward makes."""
+    (N, Ci, H, W, Co, k, stride of the replaced conv, whether it adds a
+    residual, whether it takes the max) that the model's forwards make to
+    K4's wrapper, with the arguments the module passes (K5's int8 input,
+    the weights and stride K4 reads: the stem's space-to-depth form
+    included, the epilogue), and how many convs of each shape one forward
+    runs, in the trunk and in the FPN; and the first input of every
+    distinct shape the activation quantizer (K5) takes (N, C, H, W,
+    channels, space-to-depth, whether it comes with its producer's max),
+    with that max and how many quantizations of it one forward makes."""
 
     def __init__(self, model):
         from deepemia_tpu_torch.models.quant import Int8Conv2d
@@ -2923,26 +2949,29 @@ class ConvCapture:
 
     def __enter__(self):
         from deepemia_tpu_torch.models import quant
+        from deepemia_tpu_torch.models.resnet import ActivationMax
 
         for name, mod in self.model.named_modules():
             if not isinstance(mod, self.cls):
                 continue
 
-            def hook(m, args, name=name):
-                x = args[0].x if isinstance(args[0], quant.QuantizedActivation) else args[0]
+            def hook(m, args, kwargs, name=name):
+                x = args[0].x if isinstance(args[0], (quant.QuantizedActivation, ActivationMax)) else args[0]
                 key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], m.weight_q.shape[0], m.weight_q.shape[1],
-                       m.stride)
+                       m.stride, kwargs.get("residual") is not None, bool(kwargs.get("with_max")))
                 part = "fpn" if ".fpn_" in name else "trunk"
                 self.counts.setdefault(key, {"trunk": 0, "fpn": 0})[part] += 1
                 self.current = (key, name, m, x)
 
-            self.handles.append(mod.register_forward_pre_hook(hook))
+            self.handles.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
 
             def counted(x, part="fpn" if ".fpn_" in name else "trunk", mod=mod, real=mod.quantize):
                 q = real(x)
-                key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], q.x_q.shape[1], mod.space_to_depth)
+                x, amax = x if isinstance(x, ActivationMax) else (x, None)
+                key = (x.shape[0], x.shape[1], x.shape[2], x.shape[3], q.x_q.shape[1], mod.space_to_depth,
+                       amax is not None)
                 self.quant_counts.setdefault(key, {"trunk": 0, "fpn": 0})[part] += 1
-                self.quant_inputs.setdefault(key, x.contiguous(memory_format=torch.channels_last))
+                self.quant_inputs.setdefault(key, (x.contiguous(memory_format=torch.channels_last), amax))
                 return q
 
             mod.quantize = counted  # the block's shared quantization calls it too
@@ -2973,7 +3002,8 @@ class ConvCapture:
 def quant_work(x_shape, q_shape, dtype):
     """(bound ms, 'bytes') of one activation quantization: the input read
     once, the int8 output (in the layout K4 reads, its zero channels
-    included) and the per-image max written once, over 3.35 TB/s."""
+    included) and the per-image max written once, over 3.35 TB/s (the same
+    for the one pass, which reads the producer's max instead)."""
     nbytes = math.prod(x_shape) * torch.empty((), dtype=dtype).element_size() + math.prod(q_shape) + 4 * x_shape[0]
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
@@ -2989,29 +3019,117 @@ def int8_inputs(images):
     return torch.stack(tiles)
 
 
+K4_EDGE_SHAPES = (  # (N, Ci, H, W, Co, k, stride, padding, residual, with_max): tiles over three or more images
+    (5, 64, 6, 7, 256, 1, 1, 0, True, True),
+    (3, 64, 9, 11, 64, 3, 1, 1, False, True),
+    (7, 128, 5, 5, 512, 1, 1, 0, True, True),
+)
+
+
+def k4_edge_cases(device="cuda"):
+    """K4 with the residual and the max against its plain version where a
+    128-row tile spans three or more images (maps below 128 pixels, which
+    the captured shapes never reach), in both dtypes: diff 0, maxima equal.
+    -> the max abs diff."""
+    from deepemia_tpu_torch.kernels import int8_conv as k4
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    errs = []
+    for n, ci, h, w, co, k, stride, pad, residual, with_max in K4_EDGE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x_q = torch.randint(-127, 128, (n, h, w, ci), generator=gen, device=device, dtype=torch.int8)
+            x_q = x_q.permute(0, 3, 1, 2)
+            w_q = torch.randint(-127, 128, (co, k, k, ci), generator=gen, device=device, dtype=torch.int8)
+            scale = k4.DequantScale(torch.rand(n, generator=gen, device=device) * 20 + 0.1,
+                                    torch.rand(co, generator=gen, device=device) + 0.01)
+            nw = torch.rand(co, generator=gen, device=device) + 0.5
+            nb = torch.randn(co, generator=gen, device=device)
+            ho, wo = k4.conv_out_hw(h, w, (k, k), stride, pad)
+            res = None
+            if residual:
+                res = torch.randn((n, ho, wo, co), generator=gen, device=device).to(dtype).permute(0, 3, 1, 2)
+            fused = dict(norm_weight=nw, norm_bias=nb, relu=True, residual=res, with_max=with_max)
+            got, amax = k4_outputs(k4.launch(x_q, w_q, scale, None, stride, pad, dtype, **fused))
+            want, amax_ref = k4_outputs(k4.int8_conv2d_plain(x_q, w_q, scale, None, stride, pad, dtype, **fused))
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            assert err == 0.0 and torch.equal(amax, amax_ref), (n, ci, h, w, co, dtype, err)
+            errs.append(err)
+    print(f"int8_conv: K4 with the residual and the max equals its plain version where a tile spans three or "
+          f"more images ({len(K4_EDGE_SHAPES)} shapes x bf16, f32; max abs diff {max(errs)}, maxima equal)",
+          flush=True)
+    return max(errs)
+
+
+def trunk_breakdown(model, x, n=5):
+    """One int8 trunk forward (``bottom_up``) of ``x`` split by the
+    profiler's device time into K4, K5's one pass, K5's two passes (its
+    max pass and the quantize pass after it), the memsets that zero K4's
+    max slots, and the other torch ops; the launches of K4 and K5 a
+    forward (the wrappers' counts); and the forward's seconds on the host
+    clock (median of ``n``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepemia_tpu_torch.kernels import int8_conv as k4
+    from deepemia_tpu_torch.kernels import int8_quant as k5
+
+    trunk = model.backbone.bottom_up
+    xn = model.normalize(x)
+    trunk(xn)
+    k4.counter.launches = k5.counter.launches = 0
+    _, wall = sync_time(lambda: trunk(xn))
+    launches = {"int8_conv": k4.counter.launches, "int8_quant": k5.counter.launches}
+    walls = [wall] + [sync_time(lambda: trunk(xn))[1] for _ in range(n - 1)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trunk(xn)
+        torch.cuda.synchronize()
+    split = {"k4_ms": 0.0, "k5_one_pass_ms": 0.0, "k5_two_pass_ms": 0.0, "memset_ms": 0.0, "other_ms": 0.0}
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0 or e.is_user_annotation:
+            continue
+        key = ("k4_ms" if "int8_conv_kernel" in e.key else "k5_one_pass_ms" if "quant_producer_max_kernel" in e.key
+               else "k5_two_pass_ms" if "amax_kernel" in e.key or "quant_kernel" in e.key
+               else "memset_ms" if "memset" in e.key.lower() else "other_ms")
+        split[key] += e.self_device_time_total / 1e3 / n
+        if key == "other_ms":
+            names[e.key[:60]] = round(e.self_device_time_total / 1e3 / n, 4)
+    split["device_ms"] = sum(split.values())
+    split["wall_ms"] = float(np.median(walls)) * 1e3
+    return split, launches, names
+
+
 def phase_int8_conv(images):
     """Phase 14: K4 against its plain version on the card at every distinct
     conv shape of the R50 trunk and FPN (``quantized_inference: full``
     captures both), from one forward of a 16-tile batch of 1024² inputs and
     one 2048² whole-image pass, in bf16 and float32, with the fused
     epilogue off (dequantize and bias) and on (the conv's own frozen norm
-    and ReLU), with the scale the module hands it (the maxima) and as a
-    table: max abs diff 0; and K5 against its plain version (the module's
+    and ReLU; each bottleneck's conv3 with its shortcut as the residual;
+    the per-image max of every conv1, conv2 and conv3 output), with the
+    scale the module hands it (the maxima) and as a table: max abs diff 0,
+    maxima equal; K4 where a tile spans three or more images
+    (``k4_edge_cases``); and K5 against its plain version (the module's
     torch-op quantizer, then the layout) at every input shape the quantizer
-    takes there, the stem's space-to-depth layout included: equal. At the
-    16-tile batch in bf16 it times each conv shape (CUDA events after an
-    L2-evicting write): K4 with the conv's epilogue, its plain version,
-    bf16 ``F.conv2d`` at the same shape and, at the 1x1 stride-1 shapes,
-    ``torch._int_mm`` on the same int8 operands (the int32 product alone),
-    and K4's device time (``device_ms``, the profiler's) and host time per
-    call (``host_ms``); and each quantizer input shape: K5, its plain
-    version and the torch-op chain alone (``_quantize_activation``), and
-    K5's device time. Then the trunk
-    + FPN seconds of one 16-tile batch in bf16 for ``none``, ``trunk`` and
-    ``full``, and the detections of the float and int8 engines on one
-    micrograph matched as INT8_AP.md counts them. -> (rows of the timed
-    conv shapes, K4's max error, per-forward sums, batch seconds, rows of
-    the timed quantizer shapes, K5's max error, its per-forward sums)."""
+    takes there, the stem's space-to-depth layout included, by its one pass
+    (the producer's max, which must equal the max the plain version takes
+    of the input) and its two passes: equal. At the 16-tile batch in bf16 it
+    times each conv shape (CUDA events after an L2-evicting write): K4 with
+    the conv's epilogue, its plain version, bf16 ``F.conv2d`` at the same
+    shape and, at the 1x1 stride-1 shapes, ``torch._int_mm`` on the same
+    int8 operands (the int32 product alone), and K4's device time
+    (``device_ms``, the profiler's) and host time per call (``host_ms``);
+    and each quantizer input shape: K5, its plain version and the torch-op
+    chain alone (``_quantize_activation``), and K5's device time. Then one
+    ``trunk`` forward's K4 and K5 launches (53 and 51: 47 inputs in one
+    pass, 2 in two) and ``full``'s (61 and 63), and the profiler's split of
+    its device time (``trunk_breakdown``); the trunk + FPN seconds of one
+    16-tile batch in bf16 for ``none``, ``trunk`` and ``full``, and the
+    detections of the float and int8 engines on one micrograph matched as
+    INT8_AP.md counts them. -> (rows of the timed conv shapes, K4's max
+    error, per-forward sums, batch seconds, rows of the timed quantizer
+    shapes, K5's max error, its per-forward sums, the trunk's split)."""
     import torch.nn.functional as F
 
     from deepemia_tpu_torch.kernels import int8_conv as k4
@@ -3031,45 +3149,53 @@ def phase_int8_conv(images):
             assert all(bool(torch.isfinite(v).all()) for v in feats.values())
             captured[(dtype, tag)] = cap
         del model, feats
-    errs, rows, qerrs, qrows = [], [], [], []
+    errs, rows, qerrs, qrows = [k4_edge_cases()], [], [], []
     # the L2-evicting write's own device events, left out of device_ms (as window_sum_times does)
     flush_kinds = {}
     for _ in range(2):
         flush_kinds.update(device_ms(lambda: None, 100)[1])
     assert flush_kinds, "the profiler recorded no device event of the L2-evicting write"
     skip = frozenset(flush_kinds)
+    n_residual = {}
     for (dtype, tag), cap in captured.items():
         assert sum(c["trunk"] for c in cap.counts.values()) == 53 and sum(c["fpn"] for c in cap.counts.values()) == 8
-        # 53 trunk convs read 49 quantized inputs: each stage's first block quantizes once for conv1 and shortcut
+        # 53 trunk convs read 49 quantized inputs: each stage's first block quantizes once for conv1 and shortcut;
+        # all but the stem's image and the max-pool output come with their producer's max
         assert sum(c["trunk"] for c in cap.quant_counts.values()) == 49, cap.quant_counts
+        assert sum(c["trunk"] for k_, c in cap.quant_counts.items() if not k_[6]) == 2, cap.quant_counts
+        assert sum(c["trunk"] for k_, c in cap.counts.items() if k_[7]) == 16, cap.counts  # the 16 conv3s
+        n_residual[f"{str(dtype).split('.')[-1]} {tag}"] = sum(1 for k_ in cap.inputs if k_[7])
         for key, a in cap.inputs.items():
             args = (a["x_q"], a["w"], a["scale"], a["bias"], a["stride"], a["padding"], dtype)
             assert isinstance(a["scale"], k4.DequantScale), type(a["scale"])  # the maxima, made into the scale by K4
             for fused in ({"out_hw": a["fused"]["out_hw"]}, a["fused"]):
-                got = k4.launch(*args, **fused)
-                want = k4.int8_conv2d_plain(*args, **fused)
+                got, amax = k4_outputs(k4.launch(*args, **fused))
+                want, amax_ref = k4_outputs(k4.int8_conv2d_plain(*args, **fused))
                 torch.cuda.synchronize()
                 assert got.shape == want.shape and got.is_contiguous(memory_format=torch.channels_last)
                 err = float((got.float() - want.float()).abs().max())
                 errs.append(err)
                 assert err == 0.0, (key, dtype, tag, bool(fused), err)
+                assert (amax is None) == (amax_ref is None) and (amax is None or torch.equal(amax, amax_ref)), (
+                    key, dtype, tag, amax, amax_ref)
             table = (a["x_q"], a["w"], a["scale"].table()) + args[3:]  # the same scale as a [N,Co] table
-            assert torch.equal(k4.launch(*table, **a["fused"]), got), (key, dtype, tag)
+            assert torch.equal(k4_outputs(k4.launch(*table, **a["fused"]))[0], got), (key, dtype, tag)
             if dtype != torch.bfloat16 or tag != "batch":
                 continue
-            n, ci, h, w, co, k, stride = key
+            n, ci, h, w, co, k, stride, residual, with_max = key
             # the replaced conv's work (the stem's 3 channels and 7x7 taps, not its space-to-depth form)
-            bound, by = conv_work(a["x"].shape, a["conv_w"].shape, stride, a["conv_padding"], dtype)
+            bound, by = conv_work(a["x"].shape, a["conv_w"].shape, stride, a["conv_padding"], dtype, residual,
+                                  with_max)
             fused = a["fused"]
             row = dict(shape=f"{n}x{ci}x{h}x{w} -> {co}, {k}x{k}/{stride}", layer=a["name"],
                        count_trunk=cap.counts[key]["trunk"], count_fpn=cap.counts[key]["fpn"],
-                       epilogue="norm+relu" if fused["relu"] else "norm" if fused["norm_weight"] is not None else
-                       "bias" if a["bias"] is not None else "none",
+                       epilogue=epilogue_name(fused, a["bias"]),
                        ms=time_ms(lambda args=args, fused=fused: k4.launch(*args, **fused)),
                        plain_ms=time_ms(lambda args=args, fused=fused: k4.int8_conv2d_plain(*args, **fused), reps=3),
                        bound_ms=bound, bound_by=by)
             row["device_ms"], kinds = device_ms(lambda args=args, fused=fused: k4.launch(*args, **fused), 50, skip)
-            assert len(kinds) == 1, kinds  # K4's kernel alone: no other device work in the wrapper
+            # K4's kernel alone, and the memset of the max's slots where it takes the max
+            assert sum("int8_conv_kernel" in k_ for k_ in kinds) == 1 and len(kinds) <= 1 + with_max, kinds
             row["host_ms"] = host_ms(lambda args=args, fused=fused: k4.launch(*args, **fused), 200)
             w_bf16 = a["conv_w"].permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
             row["bf16_conv_ms"] = time_ms(lambda a=a, wb=w_bf16: F.conv2d(a["x"], wb, None, a["conv_stride"],
@@ -3086,10 +3212,10 @@ def phase_int8_conv(images):
             rows.append(row)
             print("int8_conv " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v)
                                              for k_, v in row.items()}), flush=True)
-        for key, x in cap.quant_inputs.items():
-            channels, s2d = key[4], key[5]
-            q, amax = k5.launch(x, s2d)
-            q_ref, amax_ref = k5.int8_quantize_plain(x, s2d)
+        for key, (x, amax_in) in cap.quant_inputs.items():
+            channels, s2d, one_pass = key[4], key[5], key[6]
+            q, amax = k5.launch(x, s2d, amax_in)
+            q_ref, amax_ref = k5.int8_quantize_plain(x, s2d)  # its max taken from x
             torch.cuda.synchronize()
             assert q.is_contiguous(memory_format=torch.channels_last) and q.shape[1] == channels, key
             assert torch.equal(q, q_ref) and torch.equal(amax, amax_ref), (key, dtype, tag)
@@ -3099,29 +3225,36 @@ def phase_int8_conv(images):
             bound, by = quant_work(x.shape, q.shape, dtype)
             blocks = " (2x2 blocks)" if s2d else ""
             qrow = dict(shape=f"{key[0]}x{key[1]}x{key[2]}x{key[3]} -> {tuple(q.shape)}{blocks}",
+                        route="one-pass" if one_pass else "two-pass",
                         count_trunk=cap.quant_counts[key]["trunk"], count_fpn=cap.quant_counts[key]["fpn"],
-                        ms=time_ms(lambda x=x, s2d=s2d: k5.launch(x, s2d)),
+                        ms=time_ms(lambda x=x, s2d=s2d, a_=amax_in: k5.launch(x, s2d, a_)),
                         plain_ms=time_ms(lambda x=x, s2d=s2d: k5.int8_quantize_plain(x, s2d)),
                         torch_chain_ms=time_ms(lambda x=x: quant._quantize_activation(x)),
                         bound_ms=bound, bound_by=by)
-            qrow["device_ms"], kinds = device_ms(lambda x=x, s2d=s2d: k5.launch(x, s2d), 50, skip)
-            assert len(kinds) == 2, kinds  # K5's max pass and quantize pass
+            qrow["device_ms"], kinds = device_ms(lambda x=x, s2d=s2d, a_=amax_in: k5.launch(x, s2d, a_), 50, skip)
+            assert len(kinds) == (1 if one_pass else 2), kinds  # the quantize pass, after the max pass in two
             qrow["share"] = qrow["bound_ms"] / qrow["ms"]
             qrows.append(qrow)
             print("int8_quant " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v)
                                               for k_, v in qrow.items()}), flush=True)
     n_shapes = {f"{str(d).split('.')[-1]} {t}": len(c.inputs) for (d, t), c in captured.items()}
-    print(f"int8_conv: K4 equals its plain version (max abs diff {max(errs)}) at every shape of the R50 trunk + FPN "
-          f"{json.dumps(n_shapes)}, fused epilogue off and on", flush=True)
-    n_quant = {f"{str(d).split('.')[-1]} {t}": len(c.quant_inputs) for (d, t), c in captured.items()}
-    print(f"int8_quant: K5 equals its plain version (x_q and amax equal) at every quantized input shape "
-          f"{json.dumps(n_quant)}", flush=True)
+    print(f"int8_conv: K4 equals its plain version (max abs diff {max(errs)}, maxima equal) at every shape of the "
+          f"R50 trunk + FPN {json.dumps(n_shapes)}, fused epilogue off and on; with the residual at every conv3 "
+          f"shape {json.dumps(n_residual)}", flush=True)
+    n_quant = {f"{str(d).split('.')[-1]} {t}": [sum(1 for k_ in c.quant_inputs if k_[6]),
+                                                 sum(1 for k_ in c.quant_inputs if not k_[6])]
+               for (d, t), c in captured.items()}
+    print(f"int8_quant: K5 equals its plain version (x_q and amax equal) at every quantized input shape, "
+          f"[one-pass, two-pass] shapes {json.dumps(n_quant)}", flush=True)
     sums = {}
     for part in ("trunk", "fpn"):
         for col in ("ms", "plain_ms", "bound_ms", "bf16_conv_ms", "device_ms", "host_ms"):
             sums[f"{part}_{col}"] = sum(r[col] * r[f"count_{part}"] for r in rows)
         sums[f"{part}_int_mm_ms"] = sum(r["int_mm_ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
         sums[f"{part}_ms_1x1"] = sum(r["ms"] * r[f"count_{part}"] for r in rows if r["int_mm_ms"])
+    sums["trunk_ms_residual"] = sum(r["ms"] * r["count_trunk"] for r in rows if "residual" in r["epilogue"])
+    sums["trunk_bound_ms_residual"] = sum(r["bound_ms"] * r["count_trunk"] for r in rows
+                                          if "residual" in r["epilogue"])
     sums["bound_by"] = "operations" if all(r["bound_by"] == "operations" for r in rows) else "bytes"
     print("int8_conv: one R50 forward of a 16-tile batch of 1024² inputs, bf16, per-shape times x convs of that "
           "shape: " + json.dumps({k_: (round(v, 6) if isinstance(v, float) else v) for k_, v in sums.items()}),
@@ -3130,13 +3263,33 @@ def phase_int8_conv(images):
     for part in ("trunk", "fpn"):
         for col in ("ms", "plain_ms", "torch_chain_ms", "bound_ms", "device_ms"):
             qsums[f"{part}_{col}"] = sum(r[col] * r[f"count_{part}"] for r in qrows)
+        for route in ("one-pass", "two-pass"):
+            tag_ = route.replace("-", "_")
+            qsums[f"{part}_ms_{tag_}"] = sum(r["ms"] * r[f"count_{part}"] for r in qrows if r["route"] == route)
+            qsums[f"{part}_bound_ms_{tag_}"] = sum(r["bound_ms"] * r[f"count_{part}"] for r in qrows
+                                                   if r["route"] == route)
+            qsums[f"{part}_inputs_{tag_}"] = sum(r[f"count_{part}"] for r in qrows if r["route"] == route)
     print("int8_quant: one R50 forward of a 16-tile batch of 1024² inputs, bf16, per-shape times x quantizations "
           "of that shape: " + json.dumps({k_: round(v, 6) for k_, v in qsums.items()}), flush=True)
     del captured
 
-    # trunk + FPN seconds per batch, and the engines' detections matched
+    # K4's and K5's launches a forward, the trunk's device time split; trunk + FPN seconds per batch; the
+    # engines' detections matched
     nets = {mode: build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0, quant_backbone=mode)
             for mode in ("none", "trunk", "full")}
+    for mode, want in (("trunk", (53, 51)), ("full", (61, 63))):
+        nets[mode].features_batched(batch)
+        k4.counter.launches = k5.counter.launches = 0
+        nets[mode].features_batched(batch)
+        got = (k4.counter.launches, k5.counter.launches)
+        assert got == want, (mode, got, want)
+        print(f"int8 --quantized {mode}: one forward of a {INT8_BATCH}-tile batch launches K4 {got[0]} times and "
+              f"K5 {got[1]} times", flush=True)
+    breakdown, launches, others = trunk_breakdown(nets["trunk"], batch)
+    assert launches == {"int8_conv": 53, "int8_quant": 51}, launches
+    print(f"int8 trunk: one R50 trunk forward of a {INT8_BATCH}-tile batch of {INT8_TILE}² inputs, bf16, device ms "
+          f"by kernel (profiler, mean of 5): " + json.dumps({k_: round(v, 4) for k_, v in breakdown.items()})
+          + "; other kernels: " + json.dumps(others), flush=True)
     times = {}
     for _ in range(3):  # the last pass is kept
         for mode, net in nets.items():
@@ -3148,7 +3301,7 @@ def phase_int8_conv(images):
     agreement = {mode: engine_agreement(nets["none"], nets[mode], images[0]) for mode in ("trunk", "full")}
     print("int8: detections of the float and int8 engines on one 2048² micrograph matched at box IoU > "
           f"{MATCH_IOU}, same class (INT8_AP.md's count): " + json.dumps(agreement), flush=True)
-    return rows, max(errs), sums, times, qrows, max(qerrs), qsums
+    return rows, max(errs), sums, times, qrows, max(qerrs), qsums, breakdown
 
 
 def engine_agreement(float_model, int8_model, image):
@@ -3689,7 +3842,8 @@ def main() -> int:
         lap(12)
         with torch.inference_mode():
             phase_jpeg_fixtures()
-            int8_rows, int8_err, int8_sums, int8_times, quant_rows, quant_err, quant_sums = phase_int8_conv(images)
+            int8_rows, int8_err, int8_sums, int8_times, quant_rows, quant_err, quant_sums, trunk_split = \
+                phase_int8_conv(images)
             phase_int8_trunk_reference()
         int8_launches, quant_launches = phase_int8_cli(model, images)
         lap(14)
@@ -3785,7 +3939,10 @@ def main() -> int:
         # trunk's 1x1 stride-1 convs, beside K4's time over the same convs (ms_1x1); bf16_conv_ms: F.conv2d in
         # bf16 at every trunk shape; *_fpn: the same over the 8 FPN convs of `full`; trunk_fpn_s: the seconds
         # of one batch through trunk + FPN for --quantized none / trunk / full; device_ms: the profiler's device
-        # time of K4 per call x the convs of that shape; host_ms: the wrapper's host time per call, the same way
+        # time of K4 per call x the convs of that shape; host_ms: the wrapper's host time per call, the same way;
+        # *_residual: the 16 conv3s, which add the shortcut; trunk_split: one trunk forward's device ms by kernel
+        # (the profiler's: K4, K5 one pass, K5 two passes, the max slots' memsets, the other torch ops) and its
+        # host-clock ms
         "ms": int8_sums["trunk_ms"],
         "plain_ms": int8_sums["trunk_plain_ms"],
         "bound_ms": int8_sums["trunk_bound_ms"],
@@ -3799,7 +3956,10 @@ def main() -> int:
         "plain_ms_fpn": int8_sums["fpn_plain_ms"],
         "bound_ms_fpn": int8_sums["fpn_bound_ms"],
         "bf16_conv_ms_fpn": int8_sums["fpn_bf16_conv_ms"],
+        "ms_residual": int8_sums["trunk_ms_residual"],
+        "bound_ms_residual": int8_sums["trunk_bound_ms_residual"],
         "trunk_fpn_s": int8_times,
+        "trunk_split": trunk_split,
     }
     quantizer = {
         "name": "int8_quant",
@@ -3807,13 +3967,15 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/int8_quant.cu",
         "replaces": "deepemia_tpu/models/quant.py:53",
         # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process, and phase 15's
-        # wizard task, as its CLI logged them; two launches a quantized input (its max pass and its quantize pass)
+        # wizard task, as its CLI logged them; one launch a quantized input that comes with its producer's max
+        # (47 of a trunk forward's 49), two for the others (its max pass and its quantize pass)
         "launches": quant_launches + entry_k5,
         "max_abs_err": quant_err,
         # one R50 trunk forward (its 49 quantized inputs) of a 16-tile batch of 1024² inputs, bf16: each distinct
         # input shape's time_ms median x the quantizations of that shape; plain_ms: the torch-op quantizer and the
-        # layout; torch_chain_ms: the torch-op quantizer alone; device_ms: the profiler's device time of K5's two
-        # kernels; *_fpn: the same over the 8 FPN inputs of `full`
+        # layout; torch_chain_ms: the torch-op quantizer alone; device_ms: the profiler's device time of K5's
+        # kernels; *_one_pass / *_two_pass: the same split by route; *_fpn: the same over the 8 FPN inputs of
+        # `full`; launches_per_trunk_forward: the count one trunk forward of that batch adds (asserted)
         "ms": quant_sums["trunk_ms"],
         "plain_ms": quant_sums["trunk_plain_ms"],
         "bound_ms": quant_sums["trunk_bound_ms"],
@@ -3824,6 +3986,11 @@ def main() -> int:
         "ms_fpn": quant_sums["fpn_ms"],
         "plain_ms_fpn": quant_sums["fpn_plain_ms"],
         "bound_ms_fpn": quant_sums["fpn_bound_ms"],
+        "ms_one_pass": quant_sums["trunk_ms_one_pass"],
+        "bound_ms_one_pass": quant_sums["trunk_bound_ms_one_pass"],
+        "ms_two_pass": quant_sums["trunk_ms_two_pass"],
+        "bound_ms_two_pass": quant_sums["trunk_bound_ms_two_pass"],
+        "launches_per_trunk_forward": 51,
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "

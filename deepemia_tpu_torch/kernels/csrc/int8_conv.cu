@@ -1,7 +1,9 @@
 // Int8 implicit-GEMM convolution for Hopper (sm_90a), K4: int8 NHWC
 // activations x int8 [Co, kh, kw, Ci] weights, summed in int32 on the
 // tensor cores, then the fused epilogue: dequantize, bias, cast to the
-// compute dtype, frozen-BN affine, ReLU, into float32 or bfloat16 NHWC.
+// compute dtype, frozen-BN affine, the bottleneck's residual add, ReLU,
+// into float32 or bfloat16 NHWC, and the per-image max |y| of what it
+// stores (the next conv's quantizer, K5, then reads y once).
 //
 // Replaces the int32 convolution of the JAX package's Int8Conv
 // (deepemia_tpu/models/quant.py:105, lax.conv_general_dilated with
@@ -17,10 +19,11 @@
 //
 // Bound (chip_smoke.py:conv_work): per conv the larger of 2*M*N*K over
 // 1,979 int8 TOPS and the int8 input, weights and per-image and
-// per-channel maxima read once and the output written once over 3.35 TB/s; 3.41 ms per R50 trunk
-// forward of a 16-tile batch of 1024² inputs, bytes at 19 of its 26
-// shapes (most are 1x1 convs with K = 64-1024 bytes, whose bf16 output is
-// most of the traffic).
+// per-channel maxima read once, the residual read once where the epilogue
+// adds one, and the output (and the per-image max) written once over
+// 3.35 TB/s; bytes at most shapes of an R50 trunk forward (most are 1x1
+// convs with K = 64-1024 bytes, whose bf16 output, and the conv3s'
+// residual, are most of the traffic; PERF.md).
 //
 // What held the first design (mma.sync) to 23 % of that bound, and
 // what this one does about each:
@@ -77,6 +80,23 @@
 //     per-channel maxima, and the bias and norm vectors are read as the
 //     module holds them (float32 or bf16, length Co): no host-side tensor
 //     op runs before a launch.
+//   * the bottleneck's relu(conv3 + shortcut) as a torch pass over the
+//     block output (read twice, written once), and the quantizer's max
+//     pass over every map it quantizes (a second read of each): both in
+//     the epilogue, chosen per launch (Epilogue, a template argument, so
+//     the convs that take neither run the unchanged code). The residual
+//     tile has the output tile's layout, so the consumer's first thread
+//     loads it by TMA into the warpgroup's staging tile (the output's map,
+//     over the residual) as the tile's products start, and each thread
+//     adds the element it then overwrites. The max is taken as the bits of
+//     the stored values with the sign cleared (non-negative floats order
+//     as unsigned integers: exact, and independent of the order), per row,
+//     then per warp over its rows of the tile's one or two images, and
+//     one red.max per warp and image goes to a [N] slot the host zeroes
+//     on the same stream; every value starts at the bits of 1e-12, so the
+//     slot holds the floored max, models/quant.py:_floor. A tile of maps
+//     below 128 pixels can span more images: each thread then adds its
+//     rows' maxima on their own.
 //
 // Hang guard: every mbarrier wait traps after 2e10 SM cycles (~10 s at
 // 1.98 GHz; a wait of the ring lasts microseconds). A trap is a sticky
@@ -98,7 +118,12 @@
 // w_scale[co] is made from the floored maxima in the order XLA computes it
 // for the JAX package (kernels/int8_conv.py:DequantScale), each product
 // rounded on its own; or it is read from a [N, Co] table the caller gives.
-// So the output equals the plain version's bit for bit.
+// The residual is added to the value rounded to the compute dtype, in
+// float32 and rounded once (add.rn.bf16x2 for bf16: for two bf16 operands
+// the float32 sum of torch's add is exact wherever a second rounding could
+// differ), before the ReLU, as F.relu(y + shortcut) does.
+// So the output equals the plain version's bit for bit, and the max is the
+// plain version's per-image max of that output.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver entry point comes from the runtime
 #include <cuda_bf16.h>
@@ -118,6 +143,11 @@ constexpr int kKernelRegs = (128 * kProducerRegs + 256 * kConsumerRegs) / kThrea
 constexpr int kMaxKChunks = 1024;  // 16-byte chunks of K the producer's tap table holds: K <= 16384
 constexpr long long kWaitTrapCycles = 20000000000LL;  // ~10 s: a wait that never ends traps (see the note)
 constexpr float kInv127 = 1.0f / 127.0f;  // float32(1/127), rounded at compile time, as K5's
+constexpr uint32_t kFloorBits = 0x2B8CBCCCu;  // the bits of float32(1e-12), the quantizer's floor of the max
+
+// What the epilogue adds to the norm and the ReLU: nothing; the per-image
+// max of what it stores; or the residual before the ReLU and the max.
+enum Epilogue { kPlain = 0, kMax = 1, kResidualMax = 2 };
 
 template <int BN, typename OutT>
 struct Tile {
@@ -136,14 +166,15 @@ struct Tile {
   static constexpr int kColTabOffset = kRowTabOffset + 16 * kBM;
   static constexpr int kColTabBytes = (BN / 2) * (sizeof(OutT) == 2 ? 32 : 48);
   static constexpr int kBarrierOffset = kColTabOffset + 2 * kColTabBytes;
-  // full[kStages], empty[kStages], order[2]; + 1024 to align the base
-  static constexpr int kSmemBytes = kBarrierOffset + 16 * kStages + 16 + 1024;
+  // full[kStages], empty[kStages], order[2], residual[2]; + 1024 to align the base
+  static constexpr int kSmemBytes = kBarrierOffset + 16 * kStages + 32 + 1024;
 };
 
 struct Params {
   CUtensorMap w_map;    // [Co, K] int8, box {128, BN}, 128-byte swizzle
   CUtensorMap out_map;  // [M, Co] OutT, box {128 / sizeof(OutT), 128}, 128-byte swizzle
   CUtensorMap a_map;    // 1x1 stride-1 unpadded convs: x as [M, Ci] int8, box {128, 128}
+  CUtensorMap res_map;  // kResidualMax: the residual [M, Co] OutT, as out_map
   const int8_t* x;      // [N, H, W, Ci]
   // the dequantization scale: a [N, Co] table, or null and then made from
   // the floored maxima a_amax [N] and w_amax [Co]
@@ -153,6 +184,7 @@ struct Params {
   const float* bias;    // [Co] or null
   const void* norm_w;   // [Co] float32 or bf16 (norm_bf16), or null (then norm_b is null too)
   const void* norm_b;
+  uint32_t* amax;       // kMax, kResidualMax: [N] zeroed, or null (no max taken)
   int norm_bf16;
   int n, h, w_in, ci, co, kw, stride, pad, ho, wo, k, m;
   int relu;
@@ -475,19 +507,43 @@ __device__ __forceinline__ float dequant(int acc, float scale, float bias) {
 
 // one pair of output elements of one row into the staged tile: the
 // dequantized conv cast to OutT, the frozen norm (each step rounded to
-// OutT) and the ReLU; bf16: the cast, the norm and the ReLU as bf16 pair
-// instructions. Plain stores, so the compiler interleaves the pairs.
-__device__ __forceinline__ void store_pair(uint8_t* at, int a0, int a1, float2 s,
-                                           const ColumnPair<__nv_bfloat16>& c, uint32_t relu_floor2, float) {
-  const uint32_t v = bf16x2_bits(dequant(a0, s.x, c.b.x), dequant(a1, s.y, c.b.y));
-  *reinterpret_cast<uint32_t*>(at) = max_bf16x2(add_bf16x2(mul_bf16x2(v, c.w2), c.nb2), relu_floor2);
+// OutT), with kResidualMax the residual pair staged at `at` (the bytes it
+// then overwrites), and the ReLU; bf16: the cast, the norm, the add and
+// the ReLU as bf16 pair instructions. Plain stores, so the compiler
+// interleaves the pairs. Returns the larger |value| of the pair as
+// non-negative float32 bits (with kPlain, 0: the compiler drops it).
+template <int kEpi>
+__device__ __forceinline__ uint32_t store_pair(uint8_t* at, int a0, int a1, float2 s,
+                                               const ColumnPair<__nv_bfloat16>& c, uint32_t relu_floor2, float) {
+  uint32_t v = add_bf16x2(mul_bf16x2(bf16x2_bits(dequant(a0, s.x, c.b.x), dequant(a1, s.y, c.b.y)), c.w2), c.nb2);
+  if constexpr (kEpi == kResidualMax) v = add_bf16x2(v, *reinterpret_cast<const uint32_t*>(at));
+  v = max_bf16x2(v, relu_floor2);
+  *reinterpret_cast<uint32_t*>(at) = v;
+  if constexpr (kEpi == kPlain) return 0u;
+  return max((v << 16) & 0x7FFFFFFFu, v & 0x7FFF0000u);  // a bf16 is the top half of its float32
 }
 
-__device__ __forceinline__ void store_pair(uint8_t* at, int a0, int a1, float2 s, const ColumnPair<float>& c,
-                                           uint32_t, float relu_floor) {
-  const float y0 = fmaxf(__fadd_rn(__fmul_rn(dequant(a0, s.x, c.b.x), c.w.x), c.nb.x), relu_floor);
-  const float y1 = fmaxf(__fadd_rn(__fmul_rn(dequant(a1, s.y, c.b.y), c.w.y), c.nb.y), relu_floor);
+template <int kEpi>
+__device__ __forceinline__ uint32_t store_pair(uint8_t* at, int a0, int a1, float2 s, const ColumnPair<float>& c,
+                                               uint32_t, float relu_floor) {
+  float y0 = __fadd_rn(__fmul_rn(dequant(a0, s.x, c.b.x), c.w.x), c.nb.x);
+  float y1 = __fadd_rn(__fmul_rn(dequant(a1, s.y, c.b.y), c.w.y), c.nb.y);
+  if constexpr (kEpi == kResidualMax) {
+    const float2 r = *reinterpret_cast<const float2*>(at);
+    y0 = __fadd_rn(y0, r.x);
+    y1 = __fadd_rn(y1, r.y);
+  }
+  y0 = fmaxf(y0, relu_floor);
+  y1 = fmaxf(y1, relu_floor);
   *reinterpret_cast<float2*>(at) = make_float2(y0, y1);
+  if constexpr (kEpi == kPlain) return 0u;
+  return max(__float_as_uint(y0) & 0x7FFFFFFFu, __float_as_uint(y1) & 0x7FFFFFFFu);
+}
+
+__device__ __forceinline__ uint32_t warp_max(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
 }
 
 // Pingpong: consumer warpgroup c takes every other tile of the block (the
@@ -498,7 +554,7 @@ __device__ __forceinline__ void store_pair(uint8_t* at, int a0, int a1, float2 s
 // parity names a phase only while the barrier is at most one phase short
 // of it, so the warpgroups take turns: tile i's products start once the
 // other warpgroup has seen every full barrier of tile i - 1 (order[c]).
-template <int BN, typename OutT>
+template <int BN, typename OutT, int kEpi>
 __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32_t staging_all, uint32_t bars,
                                         uint8_t* staging_ptr_all, uint8_t* coltab_all) {
   using T = Tile<BN, OutT>;
@@ -514,17 +570,35 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32
   const uint32_t relu_floor2 = p.relu ? 0u : 0xFF80FF80u;  // bf16 pairs of 0 or -inf
   int acc[2][T::kAcc];  // rows 0-63 and 64-127 of the tile
   const uint32_t order = bars + 8 * (2 * T::kStages);  // order[c] at order + 8 c
-  uint32_t order_phase = 0;
+  const uint32_t res_bar = bars + 8 * (2 * T::kStages + 2 + cw);  // residual[c]
+  uint32_t order_phase = 0, res_phase = 0;
   for (int i = cw;; i += 2) {
     const int tile = blockIdx.x + i * gridDim.x;
     if (tile >= p.tiles) break;
+    const int m0 = (tile / p.n_tiles) * kBM;
+    const int n0 = (tile % p.n_tiles) * BN;
+    const int img0 = m0 / hw;
+    if constexpr (kEpi == kResidualMax) {
+      // the tile's residual into the staging tile once its last TMA store has read it: in flight
+      // while the products run (rows past M read as zeros, boxes past Co are not loaded)
+      if (ct == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        int boxes = 0;
+#pragma unroll
+        for (int box = 0; box < T::kBoxes; ++box) boxes += n0 + box * T::kBoxCols < p.co;
+        mbar_arrive_expect_tx(res_bar, boxes * kBM * 128);
+#pragma unroll
+        for (int box = 0; box < T::kBoxes; ++box) {
+          if (n0 + box * T::kBoxCols < p.co) {
+            tma_load_2d(staging + box * (kBM * 128), &p.res_map, res_bar, n0 + box * T::kBoxCols, m0);
+          }
+        }
+      }
+    }
     if (i > 0) {  // the other warpgroup is through tile i - 1's full barriers
       mbar_wait(order + 8 * cw, order_phase);
       order_phase ^= 1;
     }
-    const int m0 = (tile / p.n_tiles) * kBM;
-    const int n0 = (tile % p.n_tiles) * BN;
-    const int img0 = m0 / hw;
     if (ct < BN / 2) {  // the tile's column table (read after the epilogue's first barrier)
       const int col = n0 + 2 * ct;
       const bool in = col < p.co;  // Co is even: col + 1 too; columns past Co are never stored
@@ -571,6 +645,10 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32
     // epilogue: the staging tile is free once this warpgroup's last TMA store has read it
     if (ct == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_barrier(1 + cw, 128);
+    if constexpr (kEpi == kResidualMax) {  // the residual tile has landed in it
+      mbar_wait(res_bar, res_phase);
+      res_phase ^= 1;
+    }
     // this thread's rows 16 warp + g + {0, 8, 64, 72} of the tile and its column pairs
     // 4 j + t4 (columns 8 j + 2 t4), j = 0 .. BN / 8 - 1
     int rows[4];
@@ -580,6 +658,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32
       rows[h] = warp * 16 + g + (h & 1) * 8 + (h >> 1) * 64;
       next[h] = m0 + rows[h] >= (img0 + 1) * hw;
     }
+    uint32_t mx[4] = {0u, 0u, 0u, 0u};  // kMax, kResidualMax: max |value| of each row's stored pairs
     // the pairs of column pair 4 j + t4 of this thread's rows; scale(h, c) is the row's scale
     auto stage_tile = [&](auto scale) {
 #pragma unroll
@@ -591,20 +670,48 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32
         uint8_t* const at = staging_ptr + box * (kBM * 128) + ((((byte >> 4) ^ g) << 4) | (byte & 15));
 #pragma unroll
         for (int h = 0; h < 4; ++h) {  // row & 7 == g for each
-          store_pair(at + rows[h] * 128, acc[h >> 1][4 * j + 2 * (h & 1)], acc[h >> 1][4 * j + 2 * (h & 1) + 1],
-                     scale(h, c, n0 + cc), c, relu_floor2, relu_floor);
+          mx[h] = max(mx[h], store_pair<kEpi>(at + rows[h] * 128, acc[h >> 1][4 * j + 2 * (h & 1)],
+                                              acc[h >> 1][4 * j + 2 * (h & 1) + 1], scale(h, c, n0 + cc), c,
+                                              relu_floor2, relu_floor));
         }
       }
     };
     // one branch a tile, none in the unrolled loop: every row in image img0 or img0 + 1
     // (always when Ho*Wo >= 128), or else each row's own scale
-    if ((min(m0 + kBM, p.m) - 1) / hw <= img0 + 1) {
+    const int img_last = (min(m0 + kBM, p.m) - 1) / hw;
+    if (img_last <= img0 + 1) {
       stage_tile([&](int h, const ColumnPair<OutT>& c, int) { return next[h] ? c.s1 : c.s0; });
     } else {
       stage_tile([&](int h, const ColumnPair<OutT>&, int col) {
         const int m = min(m0 + rows[h], p.m - 1);
         return col < p.co ? scale2(p, m / hw, col) : make_float2(0.f, 0.f);
       });
+    }
+    if constexpr (kEpi != kPlain) {
+      // the per-image max of the stored rows (not those past M), each value floored at 1e-12; columns
+      // past Co hold zeros
+      if (p.amax != nullptr) {
+        if (img_last <= img0 + 1) {  // per warp: one red.max for each of the tile's images
+          uint32_t v0 = kFloorBits, v1 = kFloorBits;
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const uint32_t m = m0 + rows[h] < p.m ? mx[h] : 0u;
+            v0 = max(v0, next[h] ? 0u : m);
+            v1 = max(v1, next[h] ? m : 0u);
+          }
+          v0 = warp_max(v0);
+          v1 = warp_max(v1);
+          if (lane == 0) {
+            atomicMax(p.amax + img0, v0);
+            if (img_last > img0) atomicMax(p.amax + img0 + 1, v1);
+          }
+        } else {  // rows of three or more images: each row's own
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            if (m0 + rows[h] < p.m) atomicMax(p.amax + (m0 + rows[h]) / hw, max(mx[h], kFloorBits));
+          }
+        }
+      }
     }
     fence_proxy_async();  // the staged tile, to the TMA store
     named_barrier(1 + cw, 128);
@@ -621,7 +728,7 @@ __device__ __forceinline__ void consume(const Params& p, uint32_t stages, uint32
   if (ct == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int BN, typename OutT>
+template <int BN, typename OutT, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(const __grid_constant__ Params p) {
   using T = Tile<BN, OutT>;
   extern __shared__ uint8_t smem_raw[];
@@ -634,6 +741,9 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(const __grid_con
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&p.w_map)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&p.out_map)) : "memory");
     if (p.a_tma) asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&p.a_map)) : "memory");
+    if (kEpi == kResidualMax) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&p.res_map)) : "memory");
+    }
     for (int s = 0; s < T::kStages; ++s) {
       // the producers' cp.async arrivals + the TMA's expect_tx, or that alone
       mbar_init(bars + 8 * s, p.a_tma ? 1 : 128 + 1);
@@ -641,6 +751,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(const __grid_con
     }
     mbar_init(bars + 8 * (2 * T::kStages), 1);  // order[0], order[1]
     mbar_init(bars + 8 * (2 * T::kStages + 1), 1);
+    mbar_init(bars + 8 * (2 * T::kStages + 2), 1);  // residual[0], residual[1]: the TMA's expect_tx
+    mbar_init(bars + 8 * (2 * T::kStages + 3), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     fence_proxy_async();
   }
@@ -652,7 +764,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_conv_kernel(const __grid_con
                       reinterpret_cast<int4*>(base_ptr + T::kRowTabOffset));
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<BN, OutT>(p, stages, staging, bars, base_ptr + (staging - stages), base_ptr + T::kColTabOffset);
+    consume<BN, OutT, kEpi>(p, stages, staging, bars, base_ptr + (staging - stages), base_ptr + T::kColTabOffset);
   }
 }
 
@@ -700,10 +812,10 @@ int num_sms() {
   return sms[dev];
 }
 
-template <int BN, typename OutT>
-int launch(Params& p, const void* w, void* out, cudaStream_t stream) {
+template <int BN, typename OutT, int kEpi>
+int launch_epilogue(Params& p, const void* w, void* out, const void* residual, cudaStream_t stream) {
   using T = Tile<BN, OutT>;
-  void (*kernel)(const Params) = int8_conv_kernel<BN, OutT>;
+  void (*kernel)(const Params) = int8_conv_kernel<BN, OutT, kEpi>;
   static bool ready = false;
   if (!ready) {
     // setmaxnreg.inc waits for registers the block does not hold unless the
@@ -720,7 +832,9 @@ int launch(Params& p, const void* w, void* out, cudaStream_t stream) {
       sizeof(OutT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!encode_2d(&p.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, p.co, p.k, 1, kBK, BN) ||
       !encode_2d(&p.out_map, out_type, out, p.m, p.co, (int)sizeof(OutT), T::kBoxCols, kBM) ||
-      (p.a_tma && !encode_2d(&p.a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.x, p.m, p.k, 1, kBK, kBM))) {
+      (p.a_tma && !encode_2d(&p.a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.x, p.m, p.k, 1, kBK, kBM)) ||
+      (kEpi == kResidualMax &&
+       !encode_2d(&p.res_map, out_type, residual, p.m, p.co, (int)sizeof(OutT), T::kBoxCols, kBM))) {
     return (int)cudaErrorInvalidValue;
   }
   const int m_tiles = (p.m + kBM - 1) / kBM;
@@ -732,26 +846,41 @@ int launch(Params& p, const void* w, void* out, cudaStream_t stream) {
   const int sms = num_sms();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const int grid = p.tiles < sms ? p.tiles : sms;
-  int8_conv_kernel<BN, OutT><<<grid, kThreads, T::kSmemBytes, stream>>>(p);
+  if (p.amax != nullptr) {  // the max's slots start at 0 (below every value's bits)
+    const cudaError_t err = cudaMemsetAsync(p.amax, 0, sizeof(uint32_t) * p.n, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int8_conv_kernel<BN, OutT, kEpi><<<grid, kThreads, T::kSmemBytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int BN, typename OutT>
+int launch(Params& p, const void* w, void* out, const void* residual, cudaStream_t stream) {
+  if (residual != nullptr) return launch_epilogue<BN, OutT, kResidualMax>(p, w, out, residual, stream);
+  if (p.amax != nullptr) return launch_epilogue<BN, OutT, kMax>(p, w, out, residual, stream);
+  return launch_epilogue<BN, OutT, kPlain>(p, w, out, residual, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or a CUDA error code for
-// arguments the kernel does not take (the wrapper raises on either). x, w
-// and out must be 16-byte aligned and the vectors 8-byte aligned; Ci a
-// multiple of 16, Co a multiple of 8 (the TMA store's row pitch), H and W
-// below 16384, K = kh*kw*Ci at most 16384 and N*H*W*Ci below 2^31. The
-// scale: a float32 [N, Co] table, or null and the floored maxima a_amax
-// [N] and w_amax [Co]; bias float32 [Co] or null; norm_w and norm_b [Co]
-// (float32, or bf16 with norm_bf16 1) or both null.
+// arguments the kernel does not take (the wrapper raises on either). x, w,
+// out and residual must be 16-byte aligned, the vectors 8-byte aligned and
+// amax 4-byte aligned; Ci a multiple of 16, Co a multiple of 8 (the TMA
+// store's row pitch), H and W below 16384, K = kh*kw*Ci at most 16384 and
+// N*H*W*Ci below 2^31. The scale: a float32 [N, Co] table, or null and the
+// floored maxima a_amax [N] and w_amax [Co]; bias float32 [Co] or null;
+// norm_w and norm_b [Co] (float32, or bf16 with norm_bf16 1) or both null;
+// residual: null, or [N, Ho, Wo, Co] of the output's type, added before
+// the ReLU; amax: null, or [N] float32 that receives the floored
+// per-image max |out| (zeroed on the stream first).
 extern "C" int int8_conv(const void* x, const void* w, const void* scale, const void* a_amax, const void* w_amax,
-                         const void* bias, const void* norm_w, const void* norm_b, int norm_bf16, void* out, int n,
-                         int h, int w_in, int ci, int co, int kh, int kw, int stride, int pad, int ho, int wo, int relu,
-                         int out_code, void* stream) {
+                         const void* bias, const void* norm_w, const void* norm_b, int norm_bf16, const void* residual,
+                         void* out, void* amax, int n, int h, int w_in, int ci, int co, int kh, int kw, int stride,
+                         int pad, int ho, int wo, int relu, int out_code, void* stream) {
   const long long m = (long long)n * ho * wo;
   const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)w % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
+                       (uintptr_t)residual % 16 == 0 && (uintptr_t)amax % 4 == 0 &&
                        (uintptr_t)scale % 8 == 0 && (uintptr_t)w_amax % 8 == 0 && (uintptr_t)bias % 8 == 0 &&
                        (uintptr_t)norm_w % 8 == 0 && (uintptr_t)norm_b % 8 == 0;
   const bool scaled = scale != nullptr ? a_amax == nullptr && w_amax == nullptr : a_amax != nullptr && w_amax != nullptr;
@@ -770,6 +899,7 @@ extern "C" int int8_conv(const void* x, const void* w, const void* scale, const 
   p.bias = static_cast<const float*>(bias);
   p.norm_w = norm_w;
   p.norm_b = norm_b;
+  p.amax = static_cast<uint32_t*>(amax);
   p.norm_bf16 = norm_bf16;
   p.n = n;
   p.h = h;
@@ -787,7 +917,9 @@ extern "C" int int8_conv(const void* x, const void* w, const void* scale, const 
   p.a_tma = kh == 1 && kw == 1 && stride == 1 && pad == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (co <= 64) {
-    return out_code == 0 ? launch<64, float>(p, w, out, s) : launch<64, __nv_bfloat16>(p, w, out, s);
+    return out_code == 0 ? launch<64, float>(p, w, out, residual, s)
+                         : launch<64, __nv_bfloat16>(p, w, out, residual, s);
   }
-  return out_code == 0 ? launch<128, float>(p, w, out, s) : launch<128, __nv_bfloat16>(p, w, out, s);
+  return out_code == 0 ? launch<128, float>(p, w, out, residual, s)
+                       : launch<128, __nv_bfloat16>(p, w, out, residual, s);
 }

@@ -9,14 +9,19 @@
 // traffic per element as torch ops; kernels/int8_quant.py adds the
 // layouts).
 //
-// Two launches per quantized input:
+// One launch per quantized input whose producer took its max (K4's
+// epilogue: every conv1, conv2 and block output of the int8 trunk): the
+// quantize pass below alone, which reads the [N] floored maxima once a
+// block and x once. Two launches for the others (the stem's image and the
+// max-pool output, and the FPN's top-down sums):
 //   1. amax_kernel: blocks over (slice, image) take max |x| of their slice
 //      as the bits of a non-negative float (which order as unsigned
 //      integers, so the result is exact and independent of the order),
 //      four 16-byte loads in flight a thread, and write one partial per
 //      block. Partials, not atomics into [N]: no zeroed buffer (one launch
 //      fewer) and no ordering to reason about.
-//   2. quant_kernel: each block reduces its image's partials to
+//   2. quant_kernel: each block reduces its image's partials (or, as
+//      quant_producer_max_kernel, reads the producer's max) to
 //      a = max(amax, 1e-12), s = a * float32(1/127) (XLA's division by the
 //      constant 127), then writes q = clamp(rint(x / s), -127, 127) with an
 //      IEEE division (__fdiv_rn, as torch divides by a tensor), 16 output
@@ -27,8 +32,7 @@
 //
 // Bound: bytes, x read once and the int8 output written once (3 bytes per
 // bf16 element). The two passes read x twice, so they can reach at most
-// ~60 % of that bound; moving the max into the producing conv's epilogue
-// would remove the first read (later work).
+// ~60 % of that bound; the one pass reads it once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,26 +127,12 @@ __device__ __forceinline__ int8_t quantize(float v, float s, float inv_s) {
 // stem's input, read by K4 as a 4x4 stride-1 conv.
 enum Layout { kDense = 0, kSpaceToDepth = 1 };
 
-// q[n] = clamp(rint(x[n] / s[n]), -127, 127), int8, in `layout`, 16 output
-// channels (16 bytes) a thread; x[n] is [h, w, c]
+// q[n] = clamp(rint(x[n] / s), -127, 127), int8, in `layout`, 16 output
+// channels (16 bytes) a thread, n = blockIdx.y; x[n] is [h, w, c]
 template <typename T, int kLayout>
-__global__ void __launch_bounds__(kThreads) quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                                                        const uint32_t* __restrict__ partial, int slices,
-                                                        float* __restrict__ amax_out, int h, int w, int c) {
+__device__ __forceinline__ void quantize_image(const T* __restrict__ x, int8_t* __restrict__ q, float s_scale, int h,
+                                               int w, int c) {
   const int n = blockIdx.y;
-  __shared__ float s_scale;
-  if (threadIdx.x < 32) {
-    uint32_t m = 0;
-    for (int i = threadIdx.x; i < slices; i += 32) m = max(m, partial[(long long)n * slices + i]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-    if (threadIdx.x == 0) {
-      const float a = fmaxf(__uint_as_float(m), 1e-12f);  // models/quant.py:_floor
-      s_scale = __fmul_rn(a, kInv127);
-      if (blockIdx.x == 0) amax_out[n] = a;
-    }
-  }
-  __syncthreads();
   const float s = s_scale, inv_s = __fdiv_rn(1.f, s_scale);
   const int w2 = (w + 1) / 2;
   const long long out_pixels = kLayout == kSpaceToDepth ? (long long)((h + 1) / 2) * w2 : (long long)h * w;
@@ -207,6 +197,40 @@ __global__ void __launch_bounds__(kThreads) quant_kernel(const T* __restrict__ x
   }
 }
 
+// the quantize pass after the max pass: s[n] from its partials, whose
+// floored max it also writes to amax_out
+template <typename T, int kLayout>
+__global__ void __launch_bounds__(kThreads) quant_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                                                        const uint32_t* __restrict__ partial, int slices,
+                                                        float* __restrict__ amax_out, int h, int w, int c) {
+  const int n = blockIdx.y;
+  __shared__ float s_scale;
+  if (threadIdx.x < 32) {
+    uint32_t m = 0;
+    for (int i = threadIdx.x; i < slices; i += 32) m = max(m, partial[(long long)n * slices + i]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+    if (threadIdx.x == 0) {
+      const float a = fmaxf(__uint_as_float(m), 1e-12f);  // models/quant.py:_floor
+      s_scale = __fmul_rn(a, kInv127);
+      if (blockIdx.x == 0) amax_out[n] = a;
+    }
+  }
+  __syncthreads();
+  quantize_image<T, kLayout>(x, q, s_scale, h, w, c);
+}
+
+// the one pass: s[n] from the producer's floored max amax_in[n], read once a block
+template <typename T, int kLayout>
+__global__ void __launch_bounds__(kThreads) quant_producer_max_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                                                                     const float* __restrict__ amax_in, int h, int w,
+                                                                     int c) {
+  __shared__ float s_scale;
+  if (threadIdx.x == 0) s_scale = __fmul_rn(fmaxf(amax_in[blockIdx.y], 1e-12f), kInv127);
+  __syncthreads();
+  quantize_image<T, kLayout>(x, q, s_scale, h, w, c);
+}
+
 int num_sms() {
   static int sms[64] = {0};
   int dev = 0;
@@ -219,25 +243,33 @@ int num_sms() {
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 template <typename T>
-int launch(const void* x, void* q, uint32_t* partial, float* amax, int n, int h, int w, int c, int layout,
-           cudaStream_t stream) {
+int launch(const void* x, void* q, const float* amax_in, uint32_t* partial, float* amax, int n, int h, int w, int c,
+           int layout, cudaStream_t stream) {
   const int sms = num_sms();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const long long per_image = (long long)h * w * c;
   // ~8 blocks a SM over the batch, at least 4K elements a block
   const long long slices = std::max(1LL, std::min<long long>({(long long)kMaxSlices, ceil_div(8LL * sms, n),
                                                               ceil_div(per_image, 4096)}));
-  amax_kernel<T><<<dim3((unsigned)slices, n), kThreads, 0, stream>>>(static_cast<const T*>(x), per_image,
-                                                                      (int)slices, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (amax_in == nullptr) {
+    amax_kernel<T><<<dim3((unsigned)slices, n), kThreads, 0, stream>>>(static_cast<const T*>(x), per_image,
+                                                                        (int)slices, partial);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const long long out_pixels = layout == kSpaceToDepth ? (long long)((h + 1) / 2) * ((w + 1) / 2) : (long long)h * w;
   const long long chunks = layout == kSpaceToDepth ? out_pixels : out_pixels * (c / 16);
   const long long blocks = std::max(1LL, std::min(ceil_div(chunks, kThreads), ceil_div(8LL * sms, n)));
   const dim3 grid((unsigned)blocks, n);
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
-  if (layout == kDense) {
+  if (amax_in != nullptr) {
+    if (layout == kDense) {
+      quant_producer_max_kernel<T, kDense><<<grid, kThreads, 0, stream>>>(xt, qt, amax_in, h, w, c);
+    } else {
+      quant_producer_max_kernel<T, kSpaceToDepth><<<grid, kThreads, 0, stream>>>(xt, qt, amax_in, h, w, c);
+    }
+  } else if (layout == kDense) {
     quant_kernel<T, kDense><<<grid, kThreads, 0, stream>>>(xt, qt, partial, (int)slices, amax, h, w, c);
   } else {
     quant_kernel<T, kSpaceToDepth><<<grid, kThreads, 0, stream>>>(xt, qt, partial, (int)slices, amax, h, w, c);
@@ -248,22 +280,27 @@ int launch(const void* x, void* q, uint32_t* partial, float* amax, int n, int h,
 }  // namespace
 
 // x [n, h, w, c] (NHWC, 16-byte aligned) float32 (dtype_code 0) or
-// bfloat16 (1) -> q int8 (16-byte aligned) and amax [n] float32; partial:
-// n * 1024 uint32 of scratch. space_to_depth 0: q is [n, h, w, c]
-// (c % 16 == 0); 1: q is [n, ceil(h / 2), ceil(w / 2), 16] (4 c <= 16).
-// Returns cudaGetLastError() after the launches, or cudaErrorInvalidValue
-// for arguments it does not take.
-extern "C" int int8_quant(const void* x, void* q, void* partial, void* amax, int n, int h, int w, int c,
-                          int space_to_depth, int dtype_code, void* stream) {
+// bfloat16 (1) -> q int8 (16-byte aligned). amax_in: the producer's
+// floored per-image max [n] float32 (one pass; partial and amax unused,
+// may be null), or null: then the max pass writes partial, n * 1024 uint32
+// of scratch, and the quantize pass the floored max to amax [n] float32.
+// space_to_depth 0: q is [n, h, w, c] (c % 16 == 0); 1: q is
+// [n, ceil(h / 2), ceil(w / 2), 16] (4 c <= 16). Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int int8_quant(const void* x, void* q, const void* amax_in, void* partial, void* amax, int n, int h,
+                          int w, int c, int space_to_depth, int dtype_code, void* stream) {
   const int layout = space_to_depth ? kSpaceToDepth : kDense;
   if (n < 1 || n > 65535 || h < 1 || w < 1 || c < 1 || (long long)h * w > 0x7fffffffLL ||
       (space_to_depth ? 4 * c > 16 : c % 16 != 0) || ((uintptr_t)x % 16) != 0 || ((uintptr_t)q % 16) != 0 ||
+      ((uintptr_t)amax_in % 4) != 0 || (amax_in == nullptr && (partial == nullptr || amax == nullptr)) ||
       (dtype_code != 0 && dtype_code != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a_in = static_cast<const float*>(amax_in);
   uint32_t* part = static_cast<uint32_t*>(partial);
   float* a = static_cast<float*>(amax);
-  return dtype_code == 0 ? launch<float>(x, q, part, a, n, h, w, c, layout, s)
-                         : launch<__nv_bfloat16>(x, q, part, a, n, h, w, c, layout, s);
+  return dtype_code == 0 ? launch<float>(x, q, a_in, part, a, n, h, w, c, layout, s)
+                         : launch<__nv_bfloat16>(x, q, a_in, part, a, n, h, w, c, layout, s);
 }

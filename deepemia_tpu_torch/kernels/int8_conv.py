@@ -9,8 +9,11 @@ output channel), summed in int32, then dequantized as the JAX package's
 per-channel maxima), ``+ bias[co]`` in float32, cast to the
 compute dtype; then, where the conv carries one, the frozen-BN affine
 (``models/resnet.py:FrozenBatchNorm``: weight and bias cast to the compute
-dtype, ``y * w`` and ``+ b`` each rounded to it) and, where a ReLU follows
-the conv, the ReLU, all in the kernel's epilogue. It replaces no Pallas
+dtype, ``y * w`` and ``+ b`` each rounded to it), where it is given one the
+residual (a bottleneck's shortcut, ``+`` rounded to the compute dtype) and,
+where a ReLU follows, the ReLU, all in the kernel's epilogue, which also
+takes the per-image max |out| where asked (``with_max``: the floored max
+the next conv's quantizer, K5, would take of it). It replaces no Pallas
 kernel: the JAX package leaves that int32 convolution to XLA
 (``quant.py:105``, ``preferred_element_type=jnp.int32``), and PyTorch has
 no int8 convolution on CUDA.
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from deepemia_tpu_torch.kernels import _build
+from deepemia_tpu_torch.kernels.int8_quant import image_amax
 from deepemia_tpu_torch.kernels.roi_align import LaunchCounter
 
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,17 +95,23 @@ def dequantize(acc: torch.Tensor, scale: Union[torch.Tensor, DequantScale], bias
 
 def int8_conv2d_plain(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype: torch.dtype, *,
                       norm_weight: Optional[torch.Tensor] = None, norm_bias: Optional[torch.Tensor] = None,
-                      relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                      relu: bool = False, out_hw: Optional[Tuple[int, int]] = None,
+                      residual: Optional[torch.Tensor] = None, with_max: bool = False):
     """The plain version of :func:`int8_conv2d`, on any device: the
-    dequantized conv, then the frozen-BN affine and the ReLU as the
-    separate torch ops of ``FrozenBatchNorm.forward`` and ``F.relu``."""
+    dequantized conv, then the frozen-BN affine, the residual and the ReLU
+    as the separate torch ops of ``FrozenBatchNorm.forward`` and the
+    block's ``F.relu(y + shortcut)``, and the max as the quantizer takes
+    it (:func:`kernels.int8_quant.image_amax`)."""
     acc = int8_conv_acc_plain(x_q, w_q, stride, padding)
     if out_hw is not None:
         acc = acc[:, :, :out_hw[0], :out_hw[1]]
     y = dequantize(acc, scale, bias, out_dtype).contiguous(memory_format=torch.channels_last)
     if norm_weight is not None:
         y = y * norm_weight.to(out_dtype).view(1, -1, 1, 1) + norm_bias.to(out_dtype).view(1, -1, 1, 1)
-    return F.relu(y) if relu else y
+    if residual is not None:
+        y = y + residual
+    y = F.relu(y) if relu else y
+    return (y, image_amax(y)) if with_max else y
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,17 +119,18 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("int8_conv")
     fn = lib.int8_conv
     fn.restype = ctypes.c_int
-    # x, w, scale, a_amax, w_amax, bias, norm_w, norm_b; norm_bf16; out; N H W Ci Co kh kw stride pad Ho Wo relu
-    # out_code; stream
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    # x, w, scale, a_amax, w_amax, bias, norm_w, norm_b; norm_bf16; residual, out, amax; N H W Ci Co kh kw
+    # stride pad Ho Wo relu out_code; stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [
+        ctypes.c_void_p]
     return lib
 
 
 def _check(x_q, w_q, scale, bias, out_dtype, norm_weight=None, norm_bias=None, out_hw=None, stride=1,
-           padding=0) -> None:
+           padding=0, residual=None) -> None:
     dev = x_q.device
     scales = tuple(scale) if isinstance(scale, DequantScale) else (scale,)
-    for t in (w_q,) + scales + tuple(t for t in (bias, norm_weight, norm_bias) if t is not None):
+    for t in (w_q,) + scales + tuple(t for t in (bias, norm_weight, norm_bias, residual) if t is not None):
         if t.device != dev:
             raise ValueError(f"int8_conv2d: tensors on {t.device} and {dev}")
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
@@ -151,25 +162,37 @@ def _check(x_q, w_q, scale, bias, out_dtype, norm_weight=None, norm_bias=None, o
     full = conv_out_hw(x_q.shape[2], x_q.shape[3], w_q.shape[1:3], stride, padding)
     if out_hw is not None and not (0 < out_hw[0] <= full[0] and 0 < out_hw[1] <= full[1]):
         raise ValueError(f"int8_conv2d: out_hw {tuple(out_hw)} is not within the conv's {full}")
+    if residual is not None:
+        want = (n, co, *(out_hw or full))
+        if tuple(residual.shape) != want or residual.dtype != out_dtype:
+            raise ValueError(f"int8_conv2d: the residual must be {out_dtype} {want}, the output's, got "
+                             f"{residual.dtype} {tuple(residual.shape)}")
+        if not residual.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("int8_conv2d: the residual must be channels_last (NHWC in memory), as the output")
 
 
 def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor, scale: Union[torch.Tensor, DequantScale],
                 bias: Optional[torch.Tensor], stride: int, padding: int, out_dtype: torch.dtype, *,
                 norm_weight: Optional[torch.Tensor] = None, norm_bias: Optional[torch.Tensor] = None,
-                relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                relu: bool = False, out_hw: Optional[Tuple[int, int]] = None, residual: Optional[torch.Tensor] = None,
+                with_max: bool = False):
     """int8 ``x_q`` [N,Ci,H,W] (``channels_last``, NHWC in memory) with int8
     ``w_q`` [Co,kh,kw,Ci], the float32 dequantization table ``scale``
     [N,Co] (or the :class:`DequantScale` of the maxima, which the kernel
     turns into it) and an optional float32 ``bias`` [Co] -> [N,Co,Ho,Wo]
     ``out_dtype`` (float32 or bfloat16) in ``channels_last``, then the
     frozen norm ``y * norm_weight + norm_bias`` (both [Co], cast to
-    ``out_dtype`` first) and the ReLU where asked. ``out_hw`` keeps only the
-    first rows and columns of the output (a conv padded more at the top and
-    left than at the bottom and right: the stem as a space-to-depth conv).
-    On the card the activations must already be ``channels_last`` and Ci
-    a multiple of 16: the wrapper raises rather than copy or pad them."""
-    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding)
-    fused = dict(norm_weight=norm_weight, norm_bias=norm_bias, relu=relu, out_hw=out_hw)
+    ``out_dtype`` first), ``+ residual`` (an ``out_dtype`` [N,Co,Ho,Wo]
+    ``channels_last`` tensor) and the ReLU where asked. ``out_hw`` keeps
+    only the first rows and columns of the output (a conv padded more at
+    the top and left than at the bottom and right: the stem as a
+    space-to-depth conv). With ``with_max`` it returns ``(out, amax)``,
+    ``amax`` the float32 [N] per-image max |out| floored at 1e-12. On the
+    card the activations must already be ``channels_last`` and Ci a
+    multiple of 16: the wrapper raises rather than copy or pad them."""
+    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding, residual)
+    fused = dict(norm_weight=norm_weight, norm_bias=norm_bias, relu=relu, out_hw=out_hw, residual=residual,
+                 with_max=with_max)
     if x_q.is_cpu:
         return int8_conv2d_plain(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
     out = launch(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
@@ -178,12 +201,13 @@ def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor, scale: Union[torch.Tensor,
 
 
 def launch(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype, *, norm_weight=None, norm_bias=None,
-           relu: bool = False, out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+           relu: bool = False, out_hw: Optional[Tuple[int, int]] = None, residual=None, with_max: bool = False):
     """Checks the layouts and launches K4 into a new ``channels_last``
-    output, reading every operand where it lies. Counts nothing."""
+    output (and, with ``with_max``, a new [N] max), reading every operand
+    where it lies. Counts nothing."""
     if not x_q.is_cuda:
         raise ValueError(f"int8_conv2d: no kernel for device {x_q.device}")
-    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding)
+    _check(x_q, w_q, scale, bias, out_dtype, norm_weight, norm_bias, out_hw, stride, padding, residual)
     if not x_q.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("int8_conv2d: activations must be channels_last (NHWC in memory)")
     if not w_q.is_contiguous():
@@ -210,15 +234,19 @@ def launch(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype, *, norm_
     for t in vectors:
         if t is not None and (not t.is_contiguous() or t.data_ptr() % 8):
             raise ValueError("int8_conv2d: the scale, bias and norm vectors must be contiguous and 8-byte aligned")
+    if residual is not None and residual.data_ptr() % 16:
+        raise ValueError("int8_conv2d: the residual must be 16-byte aligned")
+    amax = torch.empty((n,), dtype=torch.float32, device=x_q.device) if with_max else None
     ptrs = [None if t is None else t.data_ptr() for t in (x_q, w_q, *vectors)]
     stream = torch._C._cuda_getCurrentRawStream(x_q.get_device())
     status = _library().int8_conv(
-        *ptrs, int(norm_weight is not None and norm_weight.dtype == torch.bfloat16), out.data_ptr(), n, h, w, ci,
-        co, kh, kw, stride, padding, ho, wo, int(relu), _OUT_CODE[out_dtype], stream,
+        *ptrs, int(norm_weight is not None and norm_weight.dtype == torch.bfloat16),
+        None if residual is None else residual.data_ptr(), out.data_ptr(), None if amax is None else amax.data_ptr(),
+        n, h, w, ci, co, kh, kw, stride, padding, ho, wo, int(relu), _OUT_CODE[out_dtype], stream,
     )
     if status != 0:
         raise RuntimeError(
             f"int8_conv launch failed: CUDA error {status} (x {tuple(x_q.shape)}, w {tuple(w_q.shape)}, "
-            f"stride {stride}, padding {padding})"
+            f"stride {stride}, padding {padding}, residual {residual is not None}, max {with_max})"
         )
-    return out
+    return (out, amax) if with_max else out

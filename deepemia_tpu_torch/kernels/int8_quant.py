@@ -13,16 +13,22 @@ stride-1 conv (``models/quant.py:space_to_depth_weights``). It returns
 ``models/quant.py:_quantize_activation`` does; the module hands ``amax``
 on to K4, whose epilogue makes the dequantization scale of it.
 
+Where x's producer took its floored max (K4's epilogue, ``amax``), one
+kernel launches: the quantize pass, which reads x once. Otherwise two: the
+max pass and the quantize pass. The plain version takes the max from x
+in either case, so that holding the kernel to it also holds the
+producer's max to x's own.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(two kernels, the max pass and the quantize pass, counted as two launches)
-or raises.
+(counted as one launch a kernel: one with ``amax``, two without) or
+raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,17 +53,27 @@ def space_to_depth(x_q: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2)
 
 
+def image_amax(x: torch.Tensor) -> torch.Tensor:
+    """[N,...] float -> float32 [N]: the per-image max |x| floored at
+    1e-12, the quantizer's max (``models/quant.py:_floor``). The max and
+    the min are taken in x's dtype, in one pass (both are exact, and max
+    |x| = max(max, -min)), over x's memory order."""
+    flat = x.permute(0, *range(2, x.ndim), 1) if x.is_contiguous(memory_format=torch.channels_last) else x
+    lo, hi = torch.aminmax(flat.reshape(x.shape[0], -1), dim=1)
+    return torch.maximum(hi, -lo).float().clamp_min(1e-12)
+
+
 def int8_quantize_plain(x: torch.Tensor, space_to_depth_blocks: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of :func:`int8_quantize`, on any device: the
-    module's torch-op quantizer, then the space-to-depth layout where
-    asked."""
+    module's torch-op quantizer (its max taken from x, whatever the
+    producer's), then the space-to-depth layout where asked."""
     from deepemia_tpu_torch.models.quant import _quantize_activation  # the models import this module
 
     x_q, amax = _quantize_activation(x)
     return (space_to_depth(x_q) if space_to_depth_blocks else x_q), amax
 
 
-def _check(x: torch.Tensor, space_to_depth_blocks: bool = False) -> None:
+def _check(x: torch.Tensor, space_to_depth_blocks: bool = False, amax: Optional[torch.Tensor] = None) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"int8_quantize takes float32 or bfloat16 activations, not {x.dtype}")
     if x.ndim != 4:
@@ -66,20 +82,27 @@ def _check(x: torch.Tensor, space_to_depth_blocks: bool = False) -> None:
         raise ValueError("int8_quantize: activations must be channels_last (NHWC in memory)")
     if space_to_depth_blocks and 4 * x.shape[1] > 16:
         raise ValueError(f"int8_quantize: space-to-depth takes at most 4 channels, got {x.shape[1]}")
+    if amax is not None and (amax.dtype != torch.float32 or tuple(amax.shape) != (x.shape[0],)
+                             or amax.device != x.device or not amax.is_contiguous()):
+        raise ValueError(f"int8_quantize: the producer's max must be float32 [{x.shape[0]}] on {x.device}, got "
+                         f"{amax.dtype} {tuple(amax.shape)} on {amax.device}")
 
 
-def int8_quantize(x: torch.Tensor, space_to_depth_blocks: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def int8_quantize(x: torch.Tensor, space_to_depth_blocks: bool = False,
+                  amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N,C,H,W] float32 or bfloat16 ``x`` (``channels_last``, NHWC in
     memory) -> (int8 [N,C,H,W] ``channels_last``, float32 per-image max
     |x| floored at 1e-12 [N]). With ``space_to_depth_blocks`` (C <= 4) the
     int8 output is :func:`space_to_depth`'s layout,
     [N,16,ceil(H/2),ceil(W/2)]. The kernel takes C a multiple of 16 in
-    x's own layout."""
-    _check(x, space_to_depth_blocks)
+    x's own layout. ``amax``: x's floored per-image max as its producer
+    took it (``int8_conv2d(..., with_max=True)``); the kernel then quantizes
+    in one pass and returns it."""
+    _check(x, space_to_depth_blocks, amax)
     if x.is_cpu:
         return int8_quantize_plain(x, space_to_depth_blocks)
-    out = launch(x, space_to_depth_blocks)
-    counter.launches += 2  # the max pass and the quantize pass
+    out = launch(x, space_to_depth_blocks, amax)
+    counter.launches += 1 if amax is not None else 2  # the quantize pass, after the max pass where it runs
     return out
 
 
@@ -88,16 +111,19 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("int8_quant")
     fn = lib.int8_quant
     fn.restype = ctypes.c_int
-    # x, q, partial, amax; n, h, w, c, space_to_depth, dtype_code; stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    # x, q, amax_in, partial, amax; n, h, w, c, space_to_depth, dtype_code; stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
-def launch(x: torch.Tensor, space_to_depth_blocks: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Checks the layout and launches K5 into new outputs. Counts nothing."""
+def launch(x: torch.Tensor, space_to_depth_blocks: bool = False,
+           amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks the layout and launches K5 into new outputs: the quantize
+    pass with the producer's ``amax`` (returned as it is), or the max pass
+    and the quantize pass. Counts nothing."""
     if not x.is_cuda:
         raise ValueError(f"int8_quantize: no kernel for device {x.device}")
-    _check(x, space_to_depth_blocks)
+    _check(x, space_to_depth_blocks, amax)
     n, c, h, w = x.shape
     if not space_to_depth_blocks and c % 16:
         raise ValueError(f"int8_quantize: the kernel takes C a multiple of 16 (or space-to-depth), got {c}")
@@ -109,12 +135,16 @@ def launch(x: torch.Tensor, space_to_depth_blocks: bool = False) -> Tuple[torch.
         raise ValueError(f"int8_quantize takes images below 2^31 pixels, got {h}x{w}")
     shape = (n, 16, (h + 1) // 2, (w + 1) // 2) if space_to_depth_blocks else (n, c, h, w)
     q = torch.empty(shape, dtype=torch.int8, device=x.device, memory_format=torch.channels_last)
-    amax = torch.empty((n,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((n * MAX_SLICES,), dtype=torch.int32, device=x.device)
+    if amax is None:
+        out_amax = torch.empty((n,), dtype=torch.float32, device=x.device)
+        partial = torch.empty((n * MAX_SLICES,), dtype=torch.int32, device=x.device)
+        ptrs = (None, partial.data_ptr(), out_amax.data_ptr())
+    else:
+        out_amax, ptrs = amax, (amax.data_ptr(), None, None)
     stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    status = _library().int8_quant(x.data_ptr(), q.data_ptr(), partial.data_ptr(), amax.data_ptr(), n, h, w, c,
-                                   int(space_to_depth_blocks), _DTYPE_CODE[x.dtype], stream)
+    status = _library().int8_quant(x.data_ptr(), q.data_ptr(), *ptrs, n, h, w, c, int(space_to_depth_blocks),
+                                   _DTYPE_CODE[x.dtype], stream)
     if status != 0:
         raise RuntimeError(f"int8_quant launch failed: CUDA error {status} (x {tuple(x.shape)} {x.dtype}, "
-                           f"space-to-depth {space_to_depth_blocks})")
-    return q, amax
+                           f"space-to-depth {space_to_depth_blocks}, producer's max {amax is not None})")
+    return q, out_amax

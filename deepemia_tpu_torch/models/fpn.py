@@ -32,7 +32,8 @@ class FPNBackbone(nn.Module):
             )
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        feats = self.bottom_up(x)
+        # int8 serving's int8 laterals (``full``) take the levels with the maxima the trunk took
+        feats = self.bottom_up(x, with_max=not isinstance(self.fpn_lateral2, nn.Conv2d))
         td = getattr(self, "fpn_lateral5")(feats["res5"])
         tops = {5: td}
         for lvl in (4, 3, 2):

@@ -11,8 +11,14 @@
   * the convolution sums int8 products in int32 (``kernels/int8_conv.py``,
     K4 on the card) and dequantizes ``acc * (a_scale * w_scale) + bias`` in
     float32 before the cast to the compute dtype; the frozen-BN affine
-    and the ReLU that follow in the trunk (``ConvNorm.relu``) run in K4's
-    epilogue, rounded as the separate ops round.
+    and the ReLU that follow in the trunk (``ConvNorm.relu``), and a
+    block's ``relu(conv3 + shortcut)``, run in K4's epilogue, rounded as
+    the separate ops round;
+  * the per-image max of a conv output that another int8 conv reads (each
+    bottleneck's ``conv1``, ``conv2`` and block output) is taken in that
+    epilogue too and carried beside the map (``ActivationMax``), so K5
+    reads the map once; the stem's image, the max-pool output and the
+    FPN's top-down sums take K5's own max pass.
 
 The ``a_scale * w_scale`` table is the one XLA computes for the JAX
 package (:func:`dequant_scale`): with one image in the batch its algebraic
@@ -40,8 +46,8 @@ import torch.nn.functional as F
 
 from deepemia_tpu_torch.kernels.int8_conv import INV_127 as _INV_127
 from deepemia_tpu_torch.kernels.int8_conv import DequantScale, conv_out_hw, int8_conv2d
-from deepemia_tpu_torch.kernels.int8_quant import int8_quantize
-from deepemia_tpu_torch.models.resnet import ConvNorm
+from deepemia_tpu_torch.kernels.int8_quant import image_amax, int8_quantize
+from deepemia_tpu_torch.models.resnet import ActivationMax, ConvNorm
 
 QUANT_MODES = ("none", "trunk", "full")
 
@@ -73,14 +79,11 @@ def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (int8, the floored per-image max |x|): the plain version of K5
-    (``kernels/int8_quant.py``). The max and the min are
-    taken in the input dtype, in one pass (both are exact, and max |x| =
-    max(max, -min)); the division promotes to float32 as it reads, which
-    divides the exact float32 value of each element, as ``x.float() /
-    scale`` does, without a float32 copy of ``x``."""
-    flat = x.permute(0, *range(2, x.ndim), 1) if x.is_contiguous(memory_format=torch.channels_last) else x
-    lo, hi = torch.aminmax(flat.reshape(x.shape[0], -1), dim=1)
-    amax = _floor(torch.maximum(hi, -lo))
+    (``kernels/int8_quant.py``). The max is :func:`image_amax`'s; the
+    division promotes to float32 as it reads, which divides the exact
+    float32 value of each element, as ``x.float() / scale`` does, without
+    a float32 copy of ``x``."""
+    amax = image_amax(x)
     q = torch.div(x, (amax * _INV_127).view(-1, *([1] * (x.ndim - 1))))
     return q.round_().clamp_(-127, 127).to(torch.int8), amax
 
@@ -163,15 +166,23 @@ class Int8Conv2d(nn.Module):
             self._buffers[n] = b.to(fn(b.new_empty(0)).device)
         return self
 
-    def quantize(self, x: torch.Tensor) -> QuantizedActivation:
-        """``x`` in int8 as this conv reads it (K5 on the card); K4 reads NHWC,
-        a no-op for the trunk's ``channels_last`` maps."""
-        x_q, amax = int8_quantize(x.contiguous(memory_format=torch.channels_last), self.space_to_depth)
+    def quantize(self, x) -> QuantizedActivation:
+        """``x`` in int8 as this conv reads it (K5 on the card, in one pass
+        where ``x`` is an :class:`ActivationMax`, whose max its producer
+        took); K4 reads NHWC, a no-op for the trunk's ``channels_last``
+        maps."""
+        x, amax = x if isinstance(x, ActivationMax) else (x, None)
+        x_q, amax = int8_quantize(x.contiguous(memory_format=torch.channels_last), self.space_to_depth, amax)
         return QuantizedActivation(x, x_q, amax)
 
-    def forward(self, x) -> torch.Tensor:
-        """``x``: a float tensor, or its :class:`QuantizedActivation` from
-        :meth:`quantize` (of this conv or one that reads the same layout)."""
+    def forward(self, x, residual: Optional[torch.Tensor] = None, with_max: bool = False):
+        """``x``: a float tensor, its :class:`ActivationMax`, or its
+        :class:`QuantizedActivation` from :meth:`quantize` (of this conv or
+        one that reads the same layout). With ``residual`` (a bottleneck's
+        shortcut, ``channels_last`` in the output's dtype) the output is
+        ``relu(conv + residual)``, the block's. With ``with_max`` it
+        returns the :class:`ActivationMax` of the output, its max taken by
+        K4."""
         q = x if isinstance(x, QuantizedActivation) else self.quantize(x)
         scale = DequantScale(q.amax, self.w_amax)  # made in K4's epilogue
         norm = (None, None) if self.norm is None else (self.norm.weight, self.norm.bias)
@@ -180,8 +191,10 @@ class Int8Conv2d(nn.Module):
             k = self.weight_q.shape[1]
             stride, padding = 1, (self.padding + 1) // 2
             out_hw = conv_out_hw(q.x.shape[2], q.x.shape[3], (k, k), self.stride, self.padding)
-        return int8_conv2d(q.x_q, self.weight_k, scale, self.bias, stride, padding, q.x.dtype, norm_weight=norm[0],
-                           norm_bias=norm[1], relu=self.relu, out_hw=out_hw)
+        out = int8_conv2d(q.x_q, self.weight_k, scale, self.bias, stride, padding, q.x.dtype, norm_weight=norm[0],
+                          norm_bias=norm[1], relu=self.relu or residual is not None, out_hw=out_hw,
+                          residual=residual, with_max=with_max)
+        return ActivationMax(*out) if with_max else out
 
 
 def quantized_conv_names(model: nn.Module, mode: str):

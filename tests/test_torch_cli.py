@@ -37,6 +37,7 @@ from deepemia_tpu_torch.config.config import default_config
 from deepemia_tpu_torch.train.trainer import TrainConfig
 from test_torch_datasets import make_dataset
 from test_torch_pipeline import _assert_csvs_match, _write_checkpoint, _zoo_state_dict
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(2)
 

@@ -28,6 +28,7 @@ from PIL import Image
 from deepemia_tpu_torch.inference.pipeline import InferencePipeline
 from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 from test_torch_pipeline import golden  # noqa: F401 - the fixture
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(2)
 

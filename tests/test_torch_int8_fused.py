@@ -177,15 +177,25 @@ def _unfused_forward(self, x):
     return F.relu(y) if self.relu else y
 
 
+def _unfused_block(self, x):
+    """``BottleneckBlock.forward`` before the fusions: the shortcut added
+    and the block's ReLU applied as separate ops, no max handed on."""
+    shortcut = x if self.shortcut is None else self.shortcut(x)
+    return F.relu(self.conv3(self.conv2(self.conv1(x))) + shortcut)
+
+
 def _unfused_chain(model):
     """A copy of the quantized ``model`` that runs as the previous design
-    did: each int8 conv unfused, every ReLU a separate op and each conv's
-    input quantized for that conv alone."""
+    did: each int8 conv unfused, every ReLU and residual add a separate op
+    and each conv's input quantized for that conv alone, its max taken
+    from it."""
     ref = copy.deepcopy(model)
     for mod in ref.modules():
         if isinstance(mod, quant.Int8Conv2d):
             mod.forward = types.MethodType(_unfused_forward, mod)
             mod.quantize = lambda x: x  # the blocks hand the float input on
+        elif isinstance(mod, resnet.BottleneckBlock):
+            mod.forward = types.MethodType(_unfused_block, mod)
     return ref
 
 

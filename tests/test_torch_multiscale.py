@@ -25,6 +25,7 @@ from deepemia_tpu_torch.inference import engine as pt_engine
 from deepemia_tpu_torch.inference import multiscale as pt_ms
 from tests.test_torch_engine import _assert_sets_match, _instances, _jax_set, _pt_set
 from tests.test_torch_heads import port_model, sane_geometry
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(4)
 

@@ -31,6 +31,7 @@ from deepemia_tpu.models.weights import export_detectron2_state_dict
 from deepemia_tpu_torch.inference.measure import CSV_HEADER
 from deepemia_tpu_torch.inference.pipeline import InferencePipeline, run_inference
 from deepemia_tpu_torch.ops.rle import rle_decode
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(4)
 

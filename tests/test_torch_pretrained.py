@@ -22,6 +22,7 @@ from deepemia_tpu_torch.models.mask_rcnn import build_train_model
 from deepemia_tpu_torch.train import trainer as pt_tr
 from deepemia_tpu_torch.utils.exceptions import ModelLoadError
 from test_torch_trainer import CFG, loader_batches
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(2)
 

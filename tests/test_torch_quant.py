@@ -23,6 +23,7 @@ from deepemia_tpu_torch.models import quant
 from deepemia_tpu_torch.models.mask_rcnn import build_model
 from deepemia_tpu_torch.models.weights import params_from_jax
 from deepemia_tpu_torch.ops.image import PIXEL_MEAN_BGR
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(2)
 

@@ -18,6 +18,7 @@ from deepemia_tpu.models.weights import export_detectron2_state_dict
 from deepemia_tpu_torch.data.models import load_model
 from deepemia_tpu_torch.models.mask_rcnn import build_model
 from deepemia_tpu_torch.models.weights import params_from_jax
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(2)
 

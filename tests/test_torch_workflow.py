@@ -7,9 +7,11 @@ hyperparameter resolution and write-back, the training configs
 the same weights and the same two test records (the same detection
 counts, metrics within ``METRIC_TOL``)."""
 
+import contextlib
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -22,8 +24,10 @@ import deepemia_tpu.train.workflow as jax_wf
 import deepemia_tpu_torch.config.config as port_cfg
 import deepemia_tpu_torch.data.datasets as port_ds
 import deepemia_tpu_torch.train.workflow as port_wf
+from deepemia_tpu_torch.utils.exceptions import TrainingError
 from test_torch_datasets import make_dataset
 from test_torch_pipeline import _write_checkpoint, _zoo_state_dict
+from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
 torch.set_num_threads(4)
 
@@ -225,3 +229,24 @@ def test_evaluate_model_matches_jax(homes, monkeypatch, tmp_path, tiny_r50):
     assert names == sorted(metrics["jax"])
     for home in homes.values():  # ~0.2 GB of weights each
         (home / "split_dir" / "ds" / "rcnn_r50" / "model_final_r50.pkl").unlink()
+
+
+@pytest.mark.parametrize("free_gb, refused", [(4.9, True), (5.0, False)])
+def test_training_needs_5_gb_free(tmp_path, monkeypatch, free_gb, refused):
+    """``train_on_dataset`` (``--task train``) refuses to start below 5 GB
+    free on the split directory's filesystem, as the JAX package's does,
+    before it reads any dataset: a nearly full disk fails every training
+    task at once (the fault that ``torch_tmp_weights.drop_weights`` keeps
+    the port's own tests clear of)."""
+    usage = shutil.disk_usage(tmp_path)
+    monkeypatch.setattr(shutil, "disk_usage", lambda path: usage._replace(free=int(free_gb * 1e9)))
+
+    def registered(*args):
+        raise LookupError("past the check")
+
+    monkeypatch.setattr(port_wf, "_register", registered)
+    with pytest.raises(TrainingError if refused else LookupError,
+                       match=f"Insufficient disk space: {free_gb} GB free" if refused else "past the check"):
+        port_wf.train_on_dataset("zds", str(tmp_path), config={"train": {}})
+    with pytest.raises(Exception, match="Insufficient disk space") if refused else contextlib.nullcontext():
+        jax_wf.check_disk_space(str(tmp_path))
