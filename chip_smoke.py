@@ -198,12 +198,33 @@ It builds the CUDA kernels from the sources in the checkout and then:
      reads every bar and launches K1, K4 and K5 (the launches its CLI logs).
      ``python3 -c "import chip_smoke; chip_smoke.entry_points_only()"``
      runs phase 12's CLI run and phase 15 alone.
+ 16. more than one GPU, on the one card (two shards, members or ranks
+     share it; a second physical GPU is not there to run on): (a) phase 3's
+     model on one 2048² micrograph through ``TileEngine(device=[cuda:0,
+     cuda:0])`` and then with ``--quantized trunk``, each held to the
+     one-device engine (``hold_instances``: phase 3's checks and phase 5's
+     limits, and whether it is bit-equal), the launches of one sharded
+     image counted (K1 6; K4 159 and K5 153 in int8) and both engines
+     timed; (b) ``--task inference --chips 2`` through the CLI in its own
+     process, which sees ``cuda:0`` twice as the host's GPUs, on phase 11's
+     images, checkpoints and configuration: R101 and R50 run at once on
+     one-device groups, and the rows are held to phase 11's, which ran them
+     in turn; (c) one training step on two ranks on the card
+     (``train_on_batches(devices=[cuda:0, cuda:0])``, two started
+     processes over gloo) against the one-process step on the same global
+     batch, float32 (every weight within RANKS_TOL of the largest update;
+     the gap also read in ulps), then
+     ``--task train --max-iter 3`` through the CLI in an NCCL process group
+     of world size 1. Each check prints its launches and times beside the
+     card's name and power limit. ``python3 -c "import chip_smoke;
+     chip_smoke.parallel_only()"`` runs phases 11 and 16 alone.
 
-Phase 7 runs before phase 6, whose inputs come from a training step, and
-phases 11, 12, 14, 15 and 13 before phase 10. K1's ``launches`` in the kernel
-line is the sum of phases 3, 9, 11, 12, 13 and 15, K2's of phases 7 and 13,
-K4's and K5's of phase 14's two CLI runs and phase 15's wizard task, each
-counted from zero over its own run.
+Phase 7 runs before phase 6, whose inputs come from a training step,
+phases 11, 12, 14, 15 and 16 (a, b) before phase 13, and phase 16 (c)
+before phase 10. K1's ``launches`` in the kernel line is the sum of phases
+3, 9, 11, 12, 13, 15 and 16, K2's of phases 7, 13 and 16, K4's and K5's of
+phase 14's two CLI runs, phase 15's wizard task and phase 16's two-shard
+int8 engine, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -815,7 +836,8 @@ def capture_train_step(batch):
 
     heads_mod.roi_align_dispatch = record
     try:
-        trainer_mod.train_step(model, opt, sched, batch, cfg, trainer_mod.step_generator(cfg.seed, 0, "cuda"))
+        trainer_mod.train_step(model, opt, sched, batch, cfg,
+                               trainer_mod.image_generators(cfg.seed, 0, range(len(batch["image"])), "cuda"))
     finally:
         heads_mod.roi_align_dispatch = real
     torch.cuda.synchronize()
@@ -1069,7 +1091,8 @@ def phase_train_profile(batch):
     opt, sched = trainer_mod.make_optimizer(model.parameters(), cfg.base_lr, 8, cfg.warmup_iters, cfg.gamma)
 
     def step(i):
-        trainer_mod.train_step(model, opt, sched, batch, cfg, trainer_mod.step_generator(cfg.seed, i, "cuda"))
+        trainer_mod.train_step(model, opt, sched, batch, cfg,
+                               trainer_mod.image_generators(cfg.seed, i, range(len(batch["image"])), "cuda"))
 
     for i in range(3):
         step(i)
@@ -1545,7 +1568,8 @@ def phase_ensemble(model, images):
     R101-FPN checkpoint beside the R50 one; both members must run on every
     image, every multilevel RoIAlign with RoIs must launch K1 in each
     member, and K1 must agree with the plain RoIAlign at the R101 member's
-    first shape of each stage. -> (K1 launches of the run, errors)."""
+    first shape of each stage. -> (K1 launches of the run, errors, its RLE
+    and measurement rows without their headers)."""
     import deepemia_tpu_torch.models.heads as heads_mod
     from deepemia_tpu_torch.config.schema import validate_config
     from deepemia_tpu_torch.inference.pipeline import InferencePipeline
@@ -1641,7 +1665,7 @@ def phase_ensemble(model, images):
             _, times[tag] = sync_time(lambda net=net: net.features_batched(ups))
     print(f"ensemble: trunk + FPN seconds per {engine.tile_batch}-tile batch of {ts_up}² inputs, bf16: "
           f"R101 {times['R101']:.4f}, R50 {times['R50']:.4f}", flush=True)
-    return launches, errs
+    return launches, errs, (rle, meas[1:])
 
 
 def ensemble_only():
@@ -1798,28 +1822,40 @@ class CountedRoIAlign:
 def cli_child(out_json: str, *argv: str) -> int:
     """Run ``python -m deepemia_tpu_torch.cli.main *argv`` in this process
     (``run_cli`` on the home ``$DEEPEMIA_TPU_HOME``) and write to
-    ``out_json`` its exit code, the pipeline's result, its steady stage
-    seconds, the RoIAlign counts and the int8 conv (K4) and activation
-    quantizer (K5) launches."""
+    ``out_json`` its exit code, the pipeline's result and device layout
+    (its tile devices, whether the members ran at once, each engine's
+    devices), its steady stage seconds, the RoIAlign counts and the
+    RoIAlign backward (K2), int8 conv (K4) and activation quantizer (K5)
+    launches. With ``$SMOKE_LOCAL_DEVICES`` (e.g. ``cuda:0,cuda:0``) the
+    port sees those as the host's GPUs: two on one card."""
     import deepemia_tpu_torch.inference.pipeline as pipeline_mod
 
-    results = []
+    if os.environ.get("SMOKE_LOCAL_DEVICES"):
+        from deepemia_tpu_torch.parallel import mesh
+
+        names = os.environ["SMOKE_LOCAL_DEVICES"].split(",")
+        mesh.local_devices = lambda: [torch.device(n) for n in names]
+    results, layouts = [], []
     real_run = pipeline_mod.InferencePipeline.run
 
     def run(self, *a, **kw):
+        layouts.append({"tile_devices": [str(d) for d in self.tile_devices], "member_parallel": self.member_parallel,
+                        "engines": [[str(d) for d in e.devices] for _, e, _ in self.engines]})
         results.append(real_run(self, *a, **kw))
         return results[-1]
 
     pipeline_mod.InferencePipeline.run = run
     from deepemia_tpu_torch.kernels import int8_conv, int8_quant
+    from deepemia_tpu_torch.kernels.roi_align import bwd_counter
 
-    int8_conv.counter.launches = int8_quant.counter.launches = 0
+    int8_conv.counter.launches = int8_quant.counter.launches = bwd_counter.launches = 0
     with StageLog() as stage_log, CountedRoIAlign() as roi:
         rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
     with open(out_json, "w") as f:
-        json.dump({"rc": rc, "result": results[0] if results else None, "steady": stage_log.steady(),
-                   "with_rois": roi.with_rois, "launches": roi.launches,
-                   "k4_launches": int8_conv.counter.launches, "k5_launches": int8_quant.counter.launches}, f)
+        json.dump({"rc": rc, "result": results[0] if results else None, "layout": layouts[0] if layouts else None,
+                   "steady": stage_log.steady(), "with_rois": roi.with_rois, "launches": roi.launches,
+                   "k2_launches": bwd_counter.launches, "k4_launches": int8_conv.counter.launches,
+                   "k5_launches": int8_quant.counter.launches}, f)
     return 0
 
 
@@ -1858,11 +1894,12 @@ def cli_home(model, images, config_hook=None, name="cli", jpeg=()):
     return home, folder
 
 
-def cli_subprocess(home, argv):
-    """``cli_child`` in a new process on the home ``home`` -> (its JSON
-    report, wall seconds, the completed process); raises if it failed."""
+def cli_subprocess(home, argv, env=None):
+    """``cli_child`` in a new process on the home ``home`` (``env`` added to
+    its environment) -> (its JSON report, wall seconds, the completed
+    process); raises if it failed."""
     out_json = os.path.join(home, "child.json")
-    env = {**os.environ, "DEEPEMIA_TPU_HOME": home}
+    env = {**os.environ, "DEEPEMIA_TPU_HOME": home, **(env or {})}
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.cli_child({out_json!r}, *{argv!r}))"],
@@ -3721,6 +3758,297 @@ def phase_entry_points(model, images, cli_rows, config_hook=None):
     return k1 + w1, k4, k5
 
 
+# phase 16: two shards, two ensemble members and two training ranks on the one card
+TWO_ON_ONE = ["cuda:0", "cuda:0"]
+# the 2-rank training step vs one process, float32 with TF32 off: every
+# weight within RANKS_TOL of the step's largest update. The ranks add their
+# gradients in another order, and at step 1's rate the update is ~1e-5 of
+# a weight, so a last-bit difference in a gradient rounds the new weight
+# to the neighbouring float: one ulp near 1/32, 2^-29, is 9.68e-5 of this
+# step's largest update (the check prints the gap in ulps and beyond one)
+RANKS_TOL = 1e-3
+RANKS_DIR = os.path.join(ROOT, "build", "chip_smoke_ranks")
+
+
+def hold_instances(tag, got, ref):
+    """Phase 3's checks on ``got`` and the one-device engine's detections
+    ``ref`` held to it as phase 5 holds the card's to the CPU's: the same
+    valid set and classes, boxes within 1e-2 px, scores within 1e-4, mask
+    probabilities within 1e-3. -> whether every tensor is bit-equal."""
+    check_instances(got, ref.capacity)
+    rv = ref.valid
+    assert int(rv.sum()) > 0 and torch.equal(got.valid, rv), f"{tag}: valid sets differ"
+    assert torch.equal(got.classes[rv], ref.classes[rv]), f"{tag}: classes differ"
+    db = float((got.boxes[rv].float() - ref.boxes[rv].float()).abs().max())
+    ds = float((got.scores[rv].float() - ref.scores[rv].float()).abs().max())
+    dm = float((got.mask_probs[rv].float() - ref.mask_probs[rv].float()).abs().max())
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    print(f"{tag}: valid {int(rv.sum())}, max |d box|={db:.3g} px |d score|={ds:.3g} |d mask|={dm:.3g}, "
+          f"bit-equal={equal}", flush=True)
+    assert db <= 1e-2 and ds <= 1e-4 and dm <= 1e-3, (tag, db, ds, dm)
+    return equal
+
+
+def phase_sharded_serving(model, image, card):
+    """Phase 16 (a): phase 3's serving model on one 2048² micrograph through
+    ``TileEngine(device=[cuda:0, cuda:0])`` (its two 16-tile chunks on two
+    shard threads, one replica), then the same with ``--quantized trunk``;
+    each held to the one-device engine (``hold_instances``) with the
+    launches of one sharded image counted from zero (K1 box + mask stage of
+    the whole-image pass and of each chunk; K4 and K5 of three trunk
+    forwards in int8) and both engines timed. -> (K1, K4, K5 launches)."""
+    from deepemia_tpu_torch.inference.engine import TileEngine, class_settings_from_config
+    from deepemia_tpu_torch.kernels import int8_conv, int8_quant
+    from deepemia_tpu_torch.kernels.roi_align import counter
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    t_start = time.perf_counter()
+    settings = class_settings_from_config({}, 2, device="cuda")
+    int8 = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0, quant_backbone="trunk")
+    sane_geometry(int8)
+    launches = {"k1": 0, "k4": 0, "k5": 0}
+    for label, net, per_forward in (("bf16", model, (0, 0)), ("--quantized trunk", int8, (53, 51))):
+        one, two = TileEngine(net), TileEngine(net, device=TWO_ON_ONE)
+        assert len(two.replicas) == 1 and two.devices == [torch.device("cuda", 0)] * 2
+        secs = {"one device": [], "two shards": []}
+        for _ in range(3):  # the first turn warms up
+            for tag, eng in (("one device", one), ("two shards", two)):
+                (inst, _), dt = sync_time(lambda eng=eng: eng.infer(image, settings))
+                secs[tag].append(dt)
+        ref, _ = one.infer(image, settings)
+        counter.launches = int8_conv.counter.launches = int8_quant.counter.launches = 0
+        got, _ = two.infer(image, settings)
+        torch.cuda.synchronize()
+        k1, k4, k5 = counter.launches, int8_conv.counter.launches, int8_quant.counter.launches
+        chunks = math.ceil(25 / two.tile_batch)
+        print(f"sharded serving, {label}: {image.shape[0]}x{image.shape[1]}, {chunks} chunks of {two.tile_batch} "
+              f"tiles on {TWO_ON_ONE}; launches of one image roi_align_fwd={k1} int8_conv={k4} int8_quant={k5}; "
+              f"seconds per image (turns 2-3) one device {[round(x, 4) for x in secs['one device'][1:]]}, "
+              f"two shards {[round(x, 4) for x in secs['two shards'][1:]]} ({card})", flush=True)
+        assert k1 == 2 * (1 + chunks), (k1, chunks)
+        assert (k4, k5) == (per_forward[0] * (1 + chunks), per_forward[1] * (1 + chunks)), (k4, k5)
+        hold_instances(f"sharded serving, {label}: two shards vs one device", got, ref)
+        launches = {"k1": launches["k1"] + k1, "k4": launches["k4"] + k4, "k5": launches["k5"] + k5}
+    print(f"phase 16 (a): {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches["k1"], launches["k4"], launches["k5"]
+
+
+def phase_chips_cli(model, images, ensemble_rows, card):
+    """Phase 16 (b): ``--task inference --chips 2`` through the CLI in its
+    own process, which sees two GPUs on the one card
+    (``$SMOKE_LOCAL_DEVICES``), on phase 11's images, checkpoints and
+    default configuration (R101 + R50, bars drawn, uncompressed TIFF): the
+    members must run at once on one-device groups, every image processed,
+    every multilevel RoIAlign with RoIs launching K1, and the rows held to
+    phase 11's, which ran the members in turn: identical, or else
+    instances at mask IoU >= 0.95 and rows by value, at least
+    PANEL_MATCH_SHARE of each, per image. -> K1 launches."""
+    import yaml
+
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    t_start = time.perf_counter()
+    r101 = build_model("R101", num_classes=2, use_bf16=True, device="cuda", seed=1)
+    sane_geometry(r101)
+    name = "chips"
+    home = os.path.join(PIPELINE_DIR, name)
+    cfg, _, _, _ = pipeline_home(name, model, [], r101=r101)
+    del r101
+    os.makedirs(os.path.join(home, "config"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    folder = os.path.join(home, "DATASET", "INFERENCE")
+    os.makedirs(folder)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"smoke": [folder, folder, ["particle", "pore"]]}, f)
+    for i, img in enumerate(images):
+        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2]))
+    argv = ["--task", "inference", "--dataset_name", "smoke", "--no-download", "--no-upload", "--chips", "2"]
+    t_home = time.perf_counter() - t_start
+    child, wall, _ = cli_subprocess(home, argv, {"SMOKE_LOCAL_DEVICES": ",".join(TWO_ON_ONE)})
+    res, layout = child["result"], child["layout"]
+    names = sorted(os.listdir(folder))
+    assert res["processed"] == names and not res["failed"], res
+    assert res["members"] == {n: ["R101", "R50"] for n in names}, res["members"]
+    assert layout == {"tile_devices": TWO_ON_ONE, "member_parallel": True, "engines": [["cuda:0"], ["cuda:0"]]}, \
+        layout
+    assert child["launches"] > 0 and child["launches"] == child["with_rois"], \
+        "a multilevel RoIAlign of the --chips 2 run did not launch K1"
+    meas = read_csv(res["measurements_csv"])
+    rle = read_csv(res["rle_csv"])[1:]
+    check_scale_bars(res, meas, names)
+    ref_rle, ref_meas = ensemble_rows
+    same = rle == ref_rle and meas[1:] == ref_meas
+    for n in names if not same else []:  # matched row by row only where the CSVs differ
+        a = csv_agreement(*rows_by_image(rle, meas[1:], n), *rows_by_image(ref_rle, ref_meas, n))
+        print(f"chips 2 vs phase 11, {n}: {json.dumps(a)}", flush=True)
+        assert a["inst"] >= PANEL_MATCH_SHARE and a["rows"] >= PANEL_MATCH_SHARE, (n, a)
+    secs = res["seconds_per_image"]
+    print(f"chips 2: layout {json.dumps(layout)}; rows identical to phase 11's={same}; roi_align_fwd "
+          f"launches={child['launches']}; seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]}"
+          f" (phase 11 ran the members in turn); the CLI process took {wall:.1f} s ({card})", flush=True)
+    print(f"chips 2: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
+    print(f"phase 16 (b): {time.perf_counter() - t_start:.1f} s (the home {t_home:.1f} s)", flush=True)
+    return child["launches"]
+
+
+def weight_gap(got, ref, largest):
+    """Two state dicts' largest difference as a share of the step's
+    ``largest`` update, and that difference in float32 ulps of its weight
+    (the larger of the two values); the largest difference beyond one ulp,
+    as a share of ``largest`` -> (a line naming both tensors, the first
+    share, the last)."""
+    frac, ulps, beyond = {}, {}, {}
+    for k in ref:
+        a, b = got[k].float().flatten(), ref[k].float().flatten()
+        diff = (a - b).abs()
+        top = torch.maximum(a.abs(), b.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        i = int(diff.argmax())
+        frac[k], ulps[k] = float(diff[i]) / largest, float(diff[i] / ulp[i])
+        beyond[k] = float((diff - ulp).clamp(min=0).max()) / largest
+    f, e = max(frac, key=frac.get), max(beyond, key=beyond.get)
+    return (f"worst tensor {f} at {frac[f]:.3g} of the largest update ({ulps[f]:.3g} ulp of its weight); "
+            f"beyond one ulp: {e} at {beyond[e]:.3g} of the largest update"), frac[f], beyond[e]
+
+
+def blocks_in_turn_step(batch, cfg, world=2, device="cuda:0"):
+    """The ranks' arithmetic without the ranks: one process builds the
+    trainer's model as ``train_on_batches`` does, runs each rank's block of
+    ``batch`` forward and backward in turn with that block's per-image
+    draws, each block's loss scaled by 1/world so the gradients add up to
+    the ranks' average, and takes one step -> the state dict after it."""
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+    from deepemia_tpu_torch.train.losses import maskrcnn_loss
+
+    dev = torch.device(device)
+    model = trainer_mod.build_train_model(cfg.backbone, 2, device=dev, seed=cfg.seed)
+    trainer_mod._init_weights(model, None, cfg, dev)
+    optimizer, scheduler = trainer_mod.make_optimizer([p for p in model.parameters() if p.requires_grad],
+                                                      cfg.base_lr, 1, cfg.warmup_iters, cfg.gamma)
+    block = cfg.ims_per_batch // world
+    for rank in range(world):
+        images, gt = trainer_mod.batch_to_device(trainer_mod.shard_batch(batch, rank, world), dev, cfg, ims=block)
+        gens = trainer_mod.image_generators(cfg.seed, 0, range(rank * block, (rank + 1) * block), dev)
+        (maskrcnn_loss(model, images, gt, generators=gens, **(cfg.loss_caps or {}))["total"] / world).backward()
+    trainer_mod.optimizer_step(optimizer, scheduler, cfg.grad_clip_norm)
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def phase_ranks(card):
+    """Phase 16 (c): ``train_on_batches`` on two ranks on the one card
+    (``devices=[cuda:0, cuda:0]``: two started processes over gloo, since
+    NCCL refuses two ranks on one GPU), float32 with TF32 off, one step on
+    two 2 x 512² batches' first, against the one-process step on the same
+    global batch: every weight within RANKS_TOL of the largest update (the
+    gap also read in float32 ulps of the weight; the draws are the
+    trainer's per-image ones, the same in both runs), and the blocks
+    stepped in turn in one process beside both. Then
+    ``--task train --max-iter 3`` through the CLI in its own process, inside
+    an NCCL process group of world size 1 (``MASTER_ADDR``, ``RANK``,
+    ``WORLD_SIZE`` set, as ``torchrun`` does). -> (K1, K2 launches of the
+    one-process step and the CLI's training)."""
+    import shutil
+
+    import yaml
+
+    from deepemia_tpu_torch.config.config import default_config
+    from deepemia_tpu_torch.kernels.roi_align import bwd_counter, counter
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+
+    t_start = time.perf_counter()
+    shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    batches = synthetic_train_batches(1, seed=17)
+    cfg = trainer_mod.TrainConfig(use_bf16=False, warmup_iters=0, checkpoint_every=1000, log_every=1)
+    start = build_train_model("R50", 2, device="cpu", seed=cfg.seed)
+    trainer_mod.zero_residual_norms(start)
+    start = start.state_dict()
+    counter.launches = bwd_counter.launches = 0
+    (ref_path, ref_metrics), t_one = sync_time(lambda: trainer_mod.train_on_batches(
+        batches, 2, os.path.join(RANKS_DIR, "one"), cfg, max_steps_override=1, device="cuda"))
+    k1, k2 = counter.launches, bwd_counter.launches
+    assert (k1, k2) == (2, 2), (k1, k2)
+    t0 = time.perf_counter()
+    path, metrics = trainer_mod.train_on_batches(batches, 2, os.path.join(RANKS_DIR, "two"), cfg,
+                                                 max_steps_override=1, devices=TWO_ON_ONE)
+    t_two = time.perf_counter() - t0
+    ref = torch.load(ref_path, map_location="cpu")["model"]
+    got = torch.load(path, map_location="cpu")["model"]
+    largest = max(float((ref[k].float() - start[k].float()).abs().max()) for k in ref)
+    gap = weight_gap(got, ref, largest)
+    print(f"ranks: one step, 2 x 512², float32: two ranks on {TWO_ON_ONE} (gloo) vs one process: largest update "
+          f"{largest:.4g}; {gap[0]}; losses "
+          f"{json.dumps({k: [round(metrics[k], 6), round(ref_metrics[k], 6)] for k in ('total', 'cls', 'mask')})}; "
+          f"wall seconds (process starts included) two ranks {t_two:.1f}, one process {t_one:.1f} ({card})",
+          flush=True)
+    assert largest > 0 and gap[1] <= RANKS_TOL, gap
+    # where the gap comes from: the same blocks in turn in one process
+    turn = blocks_in_turn_step(batches[0], cfg)
+    for tag, other in (("two ranks", got), ("one process on the global batch", ref)):
+        print(f"ranks: the blocks in turn in one process (batch 1 twice) vs {tag}: "
+              f"{weight_gap(turn, other, largest)[0]}", flush=True)
+    for k in ("total", "rpn_cls", "rpn_loc", "cls", "box", "mask"):
+        assert abs(metrics[k] - ref_metrics[k]) <= 1e-4 * max(abs(ref_metrics[k]), 1e-3), (k, metrics, ref_metrics)
+
+    t_step = time.perf_counter() - t_start
+    home = os.path.join(RANKS_DIR, "home")
+    root = synthetic_dataset(os.path.join(home, "DATASET", "sem"), 4, seed=19)
+    dcfg = default_config(home)
+    os.makedirs(os.path.join(home, "config"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(dcfg, f, sort_keys=False)
+    with open(dcfg["paths"]["category_json"], "w") as f:
+        json.dump({"sem": [root, root, ["particle", "pore"]]}, f)
+    flags = ["--dataset_name", "sem", "--no-download", "--no-upload"]
+    assert run_cli(home, "--task", "prepare", *flags) == 0
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(trainer_mod._free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0"}
+    child, wall, proc = cli_subprocess(home, ["--task", "train", "--rcnn", "50", "--max-iter", "3", *flags], env)
+    started = [ln for ln in proc.stderr.splitlines() if "torch.distributed started" in ln]
+    assert started and "rank 0 of 1 (nccl)" in started[0], proc.stderr[-3000:]
+    final = os.path.join(dcfg["paths"]["split_dir"], "sem", "rcnn_r50", "model_final_r50.pt")
+    assert os.path.exists(final) and child["k2_launches"] == 2 * 3, child["k2_launches"]
+    print(f"ranks: --task train --max-iter 3 in an NCCL process group of world size 1: exit 0, "
+          f"'{started[0].split(': ', 1)[-1]}', roi_align_fwd launches={child['launches']} (3 steps and evaluate), "
+          f"roi_align_bwd launches={child['k2_launches']}; the CLI process took {wall:.1f} s ({card})", flush=True)
+    shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    print(f"phase 16 (c): {time.perf_counter() - t_start:.1f} s (the step's part {t_step:.1f} s)", flush=True)
+    return k1 + child["launches"], k2 + child["k2_launches"]
+
+
+def parallel_only():
+    """Phases 1, 11 and 16 alone (phase 3's R50 weights rebuilt from their
+    seed; phase 11 makes the rows phase 16 (b) is held to)."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd", "roi_align_bwd", "int8_conv", "int8_quant"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            images = [synthetic_micrograph(2048, seed) for seed in range(3)]
+            model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
+            sane_geometry(model)
+            _, _, ensemble_rows = phase_ensemble(model, images)
+            t1 = time.perf_counter()
+            k1a, k4, k5 = phase_sharded_serving(model, images[0], card)
+        k1b = phase_chips_cli(model, images, ensemble_rows, card)
+        k1c, k2 = phase_ranks(card)
+        print(json.dumps({"roi_align_fwd": k1a + k1b + k1c, "roi_align_bwd": k2, "int8_conv": k4,
+                          "int8_quant": k5}), flush=True)
+        print(f"phase 16: {time.perf_counter() - t1:.1f} s (phase 11 before it {t1 - t0:.1f} s)", flush=True)
+    finally:
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+        shutil.rmtree(RANKS_DIR, ignore_errors=True)
+
+
 def entry_points_only():
     """Phase 15 alone, after phase 12's CLI run whose rows it holds the
     panel's to (phase 3's R50 weights rebuilt from their seed)."""
@@ -3833,7 +4161,7 @@ def main() -> int:
         phase_pipeline_reference(model)
         lap(9)
         with torch.inference_mode():
-            ensemble_launches, ensemble_errs = phase_ensemble(model, images)
+            ensemble_launches, ensemble_errs, ensemble_rows = phase_ensemble(model, images)
         lap(11)
         cli_launches, cli_rows = phase_cli(model, images)
         with torch.inference_mode():
@@ -3849,6 +4177,10 @@ def main() -> int:
         lap(14)
         entry_k1, entry_k4, entry_k5 = phase_entry_points(model, images, cli_rows)
         lap(15)
+        with torch.inference_mode():
+            shard_k1, shard_k4, shard_k5 = phase_sharded_serving(model, images[0], card)
+        shard_k1 += phase_chips_cli(model, images, ensemble_rows, card)
+        lap("16 (a, b)")
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(INT8_DIR, ignore_errors=True)
@@ -3857,6 +4189,11 @@ def main() -> int:
     finally:
         shutil.rmtree(DATASET_DIR, ignore_errors=True)
     lap(13)
+    try:
+        ranks_k1, ranks_k2 = phase_ranks(card)
+    finally:
+        shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    lap("16 (c)")
     k3_rows, k3_launches = phase_window_sum()
     lap(10)
 
@@ -3867,9 +4204,12 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_fwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:351",
         # phases 3 (tile engine), 9 (pipeline), 11 (ensemble), 12 (the CLI's process, the device
-        # measurement backend and the 4096² image), 13 (training from a dataset) and 15 (the tasks the panel
-        # and the wizard started, as their CLI logged them), each counted from zero
-        "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1,
+        # measurement backend and the 4096² image), 13 (training from a dataset), 15 (the tasks the panel
+        # and the wizard started, as their CLI logged them) and 16 (two tile shards, bf16 and int8; the
+        # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
+        # group), each counted from zero
+        "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
+        + shard_k1 + ranks_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -3883,8 +4223,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_bwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
-        # phases 7 (train_on_batches() on ready batches) and 13 (training from a dataset through the CLI)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2,
+        # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI) and
+        # 16 (the one-process step and the CLI's training in an NCCL group)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2,
         "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
@@ -3931,8 +4272,9 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/int8_conv.cu",
         "replaces": "deepemia_tpu/models/quant.py:105",
         # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's
-        # process, and phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them
-        "launches": int8_launches + entry_k4,
+        # process, phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them, and phase 16's
+        # two-shard int8 engine (one image)
+        "launches": int8_launches + entry_k4 + shard_k4,
         "max_abs_err": int8_err,
         # one R50 trunk forward (its 53 convs) of a 16-tile batch of 1024² inputs, bf16: each distinct shape's
         # time_ms median x the convs of that shape; library_ms: torch._int_mm (the int32 product alone) at the
@@ -3967,9 +4309,10 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/int8_quant.cu",
         "replaces": "deepemia_tpu/models/quant.py:53",
         # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process, and phase 15's
-        # wizard task, as its CLI logged them; one launch a quantized input that comes with its producer's max
-        # (47 of a trunk forward's 49), two for the others (its max pass and its quantize pass)
-        "launches": quant_launches + entry_k5,
+        # wizard task, as its CLI logged them, and phase 16's two-shard int8 engine; one launch a quantized input
+        # that comes with its producer's max (47 of a trunk forward's 49), two for the others (its max pass and
+        # its quantize pass)
+        "launches": quant_launches + entry_k5 + shard_k5,
         "max_abs_err": quant_err,
         # one R50 trunk forward (its 49 quantized inputs) of a 16-tile batch of 1024² inputs, bf16: each distinct
         # input shape's time_ms median x the quantizations of that shape; plain_ms: the torch-op quantizer and the
@@ -3994,9 +4337,10 @@ def main() -> int:
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
-          f"panel and wizard {entry_k1}; roi_align_bwd launches: ready batches {train_launches['roi_align_bwd']}, "
-          f"training from a dataset {dataset_k2}; int8_conv launches: phase 14 {int8_launches}, wizard {entry_k4}; "
-          f"int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}",
+          f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}; roi_align_bwd launches: ready batches "
+          f"{train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 {ranks_k2}; int8_conv "
+          f"launches: phase 14 {int8_launches}, wizard {entry_k4}, phase 16 {shard_k4}; int8_quant launches: "
+          f"phase 14 {quant_launches}, wizard {entry_k5}, phase 16 {shard_k5}",
           flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window, int8, quantizer]}), flush=True)

@@ -18,8 +18,14 @@ port's config store); prepare, train and evaluate update the ETA store.
 (int8 serving of the backbone). Every task but setup logs the device it
 runs on, with or without ``--no-gpu-check``, and inference the launches of
 the CUDA kernels it ran (RoIAlign K1, the int8 conv K4 and quantizer K5).
-Not ported yet, and refused with exit code 2 and the ROADMAP item named:
-``--chips`` above 1 (A8).
+``--chips`` sets ``performance.inference_chips``: the GPUs inference shards
+each image's tile grid over (0, the default, for all; with ``--device
+cpu``, that many shards on the CPU). ``--task train`` trains data-parallel
+on every GPU of the host (``train/trainer.py``). Under a launcher
+(``torchrun``, or ``DEEPEMIA_DISTRIBUTED=1`` with its variables) the task
+starts ``torch.distributed`` first (``utils/device.py:
+maybe_init_distributed``); inference then refuses with exit code 2, for
+tile sharding across processes is not ported (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -33,9 +39,10 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from deepemia_tpu_torch.config.config import get_config, get_store
-from deepemia_tpu_torch.utils.device import check_accelerator_availability
+from deepemia_tpu_torch.utils.device import check_accelerator_availability, maybe_init_distributed
 from deepemia_tpu_torch.utils.eta import estimate_eta, update_eta_data
 from deepemia_tpu_torch.utils.exceptions import PipelineError
 from deepemia_tpu_torch.utils.logging_utils import setup_logging, system_logger
@@ -91,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Capture a torch.profiler trace of the task into DIR")
     p.add_argument("--chips", type=int, default=None,
-                   help="Devices for tile-sharded inference (the port runs on one: None, 0 or 1)")
+                   help="Devices for tile-sharded inference (default: config performance.inference_chips; "
+                        "0 = all local)")
     p.add_argument("--quantized", choices=["none", "trunk", "full"], default=None,
                    help="Int8 backbone serving: trunk = int8 ResNet, full = ResNet + FPN")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -131,13 +139,6 @@ def setup_config_interactive() -> None:
     print(f"Configuration written to {path}")
 
 
-def _refusal(args) -> Optional[str]:
-    """Why the port cannot run these arguments yet, or None."""
-    if args.chips not in (None, 0, 1):
-        return f"--chips {args.chips}: tile sharding across GPUs is not ported (ROADMAP A8); the port runs on one"
-    return None
-
-
 def _try_download(storage, name: str, target: Path) -> None:
     try:
         storage.download_dataset(name, target)
@@ -150,13 +151,17 @@ def _try_download(storage, name: str, target: Path) -> None:
 
 def run_task(args) -> int:
     setup_logging(None, args.verbosity)
+    maybe_init_distributed(args.device)  # several processes, when a launcher set them up
     if args.task == "setup":
         setup_config_interactive()
         return 0
-    refusal = _refusal(args)
-    if refusal:
-        print(f"error: {refusal}", file=sys.stderr)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world > 1 and args.task != "train":
+        why = ("tile sharding across processes is not ported (ROADMAP A8b); run one process, which shards over the "
+               "host's GPUs (--chips)" if args.task == "inference" else "only --task train runs data-parallel")
+        print(f"error: --task {args.task} in a process group of {world} ranks: {why}", file=sys.stderr)
         return 2
+    lead = world == 1 or dist.get_rank() == 0  # the rank that writes the task's records
     if not args.dataset_name:
         print("--dataset_name is required for this task", file=sys.stderr)
         return 2
@@ -216,12 +221,13 @@ def run_task(args) -> int:
         for backbone, metrics in results.items():
             system_logger.info("%s: segm AP %.2f bbox AP %.2f", backbone, metrics.get("segm/AP", float("nan")),
                                metrics.get("bbox/AP", float("nan")))
-        if args.cleanup:
+        if args.cleanup and lead:
             from deepemia_tpu_torch.utils.safe_ops import safe_remove_files
 
             safe_remove_files([str(dataset_dir)], allowed_bases=[str(ds_root / "DATASET")])
             log.info("Deleted local dataset after training (--cleanup)")
-        update_eta_data(eta_file, "train", time.time() - t_start)
+        if lead:
+            update_eta_data(eta_file, "train", time.time() - t_start)
 
     elif args.task == "evaluate":
         from deepemia_tpu_torch.train.workflow import evaluate_model
@@ -241,6 +247,8 @@ def run_task(args) -> int:
         n_images = len(list(inference_dir.glob("*"))) if inference_dir.exists() else 0
         system_logger.info("ETA: ~%.0fs for %d images", estimate_eta(eta_file, "inference", max(n_images, 1)),
                            n_images)
+        if args.chips is not None:
+            cfg.setdefault("performance", {})["inference_chips"] = args.chips
         if args.quantized is not None:
             cfg.setdefault("performance", {})["quantized_inference"] = args.quantized
         pipe = InferencePipeline(args.dataset_name, split_dir, config=cfg, default_threshold=args.threshold,
@@ -281,6 +289,9 @@ def cli_entry(argv: Optional[list] = None) -> None:
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
         rc = 130
+    finally:
+        if dist.is_initialized():  # the group maybe_init_distributed started
+            dist.destroy_process_group()
     raise SystemExit(rc)
 
 

@@ -8,7 +8,10 @@ and to the polygon coordinates, the brightness factor
 (``ops.cv.convert_scale_abs``), masks filled at the final resolution
 (``ops.cv.fill_poly``), boxes from the masks, GT padded to a fixed
 capacity; the image stays uint8 and the masks are bit-packed along W.
-Producer threads assemble whole batches into a bounded queue.
+Producer threads assemble whole batches, each into a bounded queue of its
+own; batch i is worker i mod W's, so the sequence is fixed by the seed for
+any worker count (every rank of a data-parallel run makes the same global
+batches).
 
 Unreadable images: the JAX loader skips any file OpenCV cannot read. This
 one skips a file that is missing or corrupt, and raises for an encoding
@@ -17,11 +20,13 @@ arithmetic, lossless, 12-bit and CMYK codings, the rarer TIFF
 compressions), which OpenCV may read: skipping it would train on fewer
 images than the JAX package does.
 
-With ``workers=1`` the batch sequence is the JAX loader's for the same seed.
+With ``workers=1`` the batch sequence is the JAX loader's for the same seed
+(with several, the JAX loader's order follows its threads' timing).
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -123,10 +128,10 @@ class TrainLoader:
     """Infinite shuffled batch iterator with background prefetch.
 
     ``workers`` producer threads each draw from their own permutation
-    stream (seed + 1000003 * worker) and assemble whole batches; with one
-    worker the batch sequence is fixed by the seed, with several the batch
-    order interleaves by thread timing. Call ``close()`` when done: it stops
-    and joins every worker."""
+    stream (seed + 1000003 * worker) and assemble whole batches into their
+    own queue; the consumer takes the workers' batches in turn, so the
+    batch sequence is fixed by the seed. Call ``close()`` when done: it
+    stops and joins every worker."""
 
     def __init__(
         self,
@@ -155,30 +160,33 @@ class TrainLoader:
         self.resize_mode = resize_mode
         self.min_size_range = min_size_range
         self.max_size = max_size
-        self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, workers))
+        n_workers = max(1, workers)
+        self._qs: List["queue.Queue"] = [queue.Queue(maxsize=max(1, -(-prefetch // n_workers)))
+                                         for _ in range(n_workers)]
         self._error: Optional[BaseException] = None
         self._stop = threading.Event()
         self._threads = [
             threading.Thread(
-                target=self._producer, args=(np.random.default_rng(seed + 1000003 * wid),), daemon=True
+                target=self._producer, args=(np.random.default_rng(seed + 1000003 * wid), self._qs[wid]), daemon=True
             )
-            for wid in range(max(1, workers))
+            for wid in range(n_workers)
         ]
         for t in self._threads:
             t.start()
 
-    def _producer(self, rng: np.random.Generator):
+    def _producer(self, rng: np.random.Generator, q: "queue.Queue"):
         try:
-            self._produce_loop(rng)
+            self._produce_loop(rng, q)
         except BaseException as e:  # noqa: BLE001 - handed to the consumer through the queue
             log.error("Train loader producer failed: %s", e, exc_info=True)
             self._error = e
-            try:
-                self._q.put(None, timeout=1.0)  # wake the consumer
-            except queue.Full:
-                pass
+            for other in self._qs:  # wake the consumer, whichever queue it waits on
+                try:
+                    other.put(None, timeout=1.0)
+                except queue.Full:
+                    pass
 
-    def _produce_loop(self, rng: np.random.Generator):
+    def _produce_loop(self, rng: np.random.Generator, q: "queue.Queue"):
         order = rng.permutation(len(self.records))
         pos = 0
         while not self._stop.is_set():
@@ -206,15 +214,15 @@ class TrainLoader:
             # close() within 0.5 s
             while True:
                 try:
-                    self._q.put(batch, timeout=0.5)
+                    q.put(batch, timeout=0.5)
                     break
                 except queue.Full:
                     if self._stop.is_set():
                         return
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        while True:
-            item = self._q.get()
+        for i in itertools.count():
+            item = self._qs[i % len(self._qs)].get()
             if item is None or self._error is not None:
                 raise RuntimeError(f"training data producer failed: {self._error}") from self._error
             yield item
@@ -226,8 +234,9 @@ class TrainLoader:
         deadline = time.time() + 5.0
         for t in self._threads:
             while t.is_alive() and time.time() < deadline:
-                try:
-                    self._q.get_nowait()
-                except queue.Empty:
-                    pass
+                for q in self._qs:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        pass
                 t.join(timeout=0.05)

@@ -5,11 +5,26 @@ none — ``full_pass_max_dim``); tiles in chunks of ``tile_batch`` — x2
 upscale, one batched trunk + FPN + RPN head, then proposals and RoI heads
 batched over the chunk; edge filter and tile -> global coordinates; the
 merge, per-class thresholds and the mask-IoU dedup.
+
+Across devices (the JAX engine's ``shard_map`` over the ``tile`` axis,
+``deepemia_tpu/inference/engine.py:392-414``): given a list of devices,
+the engine keeps one replica of the model on each distinct device that
+gets a block of a grid, splits the grid's ``tile_batch`` chunks into contiguous blocks in tile order (sizes
+differing by at most one chunk, earlier blocks larger) and runs each block
+in a thread of its own, with its device current. The whole-image pass runs
+meanwhile on the first device, where the blocks' results come back, in
+tile order, for the merge, the thresholds and the dedup. The unit is the
+chunk, not the tile (as in the JAX package's split serving, which hands each
+device one chunk a step, ``engine.py:539-562``): every chunk is the one the
+one-device engine runs, so the result is the one-device engine's, bit for
+bit on the same device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import copy
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +48,7 @@ from deepemia_tpu_torch.ops.image import (
     image_quality_score,
     resize_image,
 )
+from deepemia_tpu_torch.parallel.mesh import partition_devices
 
 
 class ClassSettings(NamedTuple):
@@ -101,10 +117,29 @@ def _flatten(inst: InstanceSet) -> InstanceSet:
     return InstanceSet(*(t.reshape(-1, *t.shape[2:]) for t in inst))
 
 
+def move_instances(inst: InstanceSet, device) -> InstanceSet:
+    """``inst`` on ``device`` (itself when it lies there)."""
+    return InstanceSet(*(t.to(device) for t in inst))
+
+
+def _device_key(device: torch.device) -> torch.device:
+    """``cuda`` and ``cuda:<current>`` name one GPU: the key of a replica."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def current_device(device: torch.device):
+    """A context in which ``device`` is the thread's current CUDA device (a
+    no-op for the CPU)."""
+    return torch.cuda.device(device if device.type == "cuda" else -1)
+
+
 class TileEngine:
     """Runs the tiled serving path of one model on one device (``cuda``
     unless ``device`` names another; raises when CUDA is absent and the CPU
-    was not asked for)."""
+    was not asked for), or with its tile grid sharded across a list of
+    devices."""
 
     def __init__(
         self,
@@ -127,9 +162,17 @@ class TileEngine:
         resolution up to this long side and downscaled to it beyond; 0
         turns it off (tiles only) unless tiling is off or degenerate, when
         it is the only source of detections. ``classes_using_tiling``
-        restricts tile-sourced detections to these class ids."""
-        self.device = resolve_device(device)
+        restricts tile-sourced detections to these class ids. ``device``
+        may be a list: the tile shards' devices (one may repeat), the first
+        the engine's ``device``, where the results merge; a list of one is
+        the one-device engine."""
+        names = list(device) if isinstance(device, (list, tuple)) else [device]
+        self.devices: List[torch.device] = [resolve_device(d) for d in names]
+        self.device = self.devices[0]
         self.model = model.to(self.device)
+        # one replica a distinct device that gets a block of a grid, the
+        # int8 tables included (built at its first block, _replica)
+        self.replicas: Dict[torch.device, MaskRCNN] = {_device_key(self.device): self.model}
         self.tile_size = tile_size
         self.overlap_ratio = overlap_ratio
         self.upscale_factor = upscale_factor
@@ -147,6 +190,39 @@ class TileEngine:
 
     def _forward(self, image: torch.Tensor) -> InstanceSet:
         return detections_to_instances(self.model(image, score_threshold=0.05))
+
+    def _replica(self, device: torch.device) -> MaskRCNN:
+        """The model on ``device``: a copy of it made there at the first
+        call."""
+        key = _device_key(device)
+        if key not in self.replicas:
+            self.replicas[key] = copy.deepcopy(self.model).to(device)
+        return self.replicas[key]
+
+    def _run_chunks(self, device, chunks, tiles, offsets, ts, ts_up, h, w) -> List[InstanceSet]:
+        """The flat per-tile sets of the ``(start, stop)`` tile chunks on
+        ``device``, its replica of the model, in order."""
+        model = self.replicas[_device_key(device)]
+        scale = ts_up / ts
+        out = []
+        for a, b in chunks:
+            tc = tiles[a:b].to(device, non_blocking=True).float()
+            if ts_up != ts:
+                tc = resize_image(tc, ts_up, ts_up)
+            feats = model.features_batched(tc)
+            det = model.detect_batched(feats, (ts_up, ts_up), score_threshold=0.05)
+            offs = offsets[a:b].to(device, non_blocking=True)
+            ok = torch.ones(offs.shape[0], dtype=torch.bool, device=device)
+            out.append(_flatten(self._finish_batch(detections_to_instances(det), offs, ok, ts, scale, h, w)))
+        return out
+
+    def _run_shard(self, device, chunks, tiles, offsets, ts, ts_up, h, w) -> List[InstanceSet]:
+        """:meth:`_run_chunks` on a shard's own thread: its device current,
+        inference mode (a thread's own), the sets moved to the engine's
+        device."""
+        with current_device(device), torch.inference_mode():
+            sets = self._run_chunks(device, chunks, tiles, offsets, ts, ts_up, h, w)
+            return [move_instances(s, self.device) for s in sets]
 
     def _finish_batch(
         self, inst_b: InstanceSet, offs_b, ok_b, ts: int, scale: float, h: int, w: int
@@ -182,6 +258,7 @@ class TileEngine:
         moves to the device in its own dtype (uint8 moves 4x less than f32).
         ``upscale`` overrides the tile upscale factor for this call."""
         image = torch.as_tensor(image).to(self.device)
+        settings = ClassSettings(*(t.to(self.device) for t in settings))
         h, w = int(image.shape[0]), int(image.shape[1])
         ts = self.tile_size
         up = self.upscale_factor if upscale is None else upscale
@@ -199,32 +276,39 @@ class TileEngine:
             qscale = adaptive_threshold_scale(quality)
 
         parts = []
-        if full_pass and native_full:
-            padded = F.pad(image, (0, 0, 0, (-w) % 64, 0, (-h) % 64))
-            parts.append(self._forward(padded))
-        elif full_pass:
-            ds = self.full_pass_max_dim / max(h, w)
-            dh = max(64, int(round(h * ds / 64)) * 64)
-            dw = max(64, int(round(w * ds / 64)) * 64)
-            inst = self._forward(resize_image(image, dh, dw))
-            back = torch.tensor([w / dw, h / dh, w / dw, h / dh], device=self.device)
-            parts.append(inst._replace(boxes=inst.boxes * back))
         if tiling:
             tiles = tile_ops.extract_tiles(image, grid)
             offsets = torch.as_tensor(grid.offsets, dtype=torch.float32, device=self.device)
-            scale = ts_up / ts
-            for a in range(0, grid.num_tiles, self.tile_batch):
-                tc = tiles[a : a + self.tile_batch].float()
-                if ts_up != ts:
-                    tc = resize_image(tc, ts_up, ts_up)
-                feats = self.model.features_batched(tc)
-                det = self.model.detect_batched(feats, (ts_up, ts_up), score_threshold=0.05)
-                offs = offsets[a : a + self.tile_batch]
-                ok = torch.ones(offs.shape[0], dtype=torch.bool, device=self.device)
-                inst_b = self._finish_batch(
-                    detections_to_instances(det), offs, ok, ts, scale, h, w
-                )
-                parts.append(_flatten(inst_b))
+            chunks = [(a, min(a + self.tile_batch, grid.num_tiles)) for a in range(0, grid.num_tiles, self.tile_batch)]
+        sharded = tiling and len(self.devices) > 1
+        pool = ThreadPoolExecutor(max_workers=len(self.devices), thread_name_prefix="tile-shard") if sharded else None
+        try:
+            if sharded:
+                # a block a device (fewer when the grid has fewer chunks);
+                # the shards start first, so the whole-image pass below runs beside them
+                blocks = list(zip(self.devices, partition_devices(chunks, len(self.devices))))
+                for dev, _ in blocks:
+                    self._replica(dev)
+                shards = [pool.submit(self._run_shard, dev, block, tiles, offsets, ts, ts_up, h, w)
+                          for dev, block in blocks]
+            if full_pass and native_full:
+                padded = F.pad(image, (0, 0, 0, (-w) % 64, 0, (-h) % 64))
+                parts.append(self._forward(padded))
+            elif full_pass:
+                ds = self.full_pass_max_dim / max(h, w)
+                dh = max(64, int(round(h * ds / 64)) * 64)
+                dw = max(64, int(round(w * ds / 64)) * 64)
+                inst = self._forward(resize_image(image, dh, dw))
+                back = torch.tensor([w / dw, h / dh, w / dw, h / dh], device=self.device)
+                parts.append(inst._replace(boxes=inst.boxes * back))
+            if sharded:
+                for shard in shards:
+                    parts.extend(shard.result())
+            elif tiling:
+                parts.extend(self._run_chunks(self.device, chunks, tiles, offsets, ts, ts_up, h, w))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
         if not parts:
             parts = [empty_instances(self.capacity, device=self.device)]
 

@@ -28,11 +28,21 @@ passes one. ``performance.quantized_inference`` (``trunk`` or ``full``)
 serves every checkpoint's backbone in int8 (``models/quant.py``, kernel K4
 on the card); an unknown value logs a warning and serves ``none``, as the
 JAX package does.
+
+Across GPUs (``deepemia_tpu/inference/pipeline.py:273-318``):
+``performance.inference_chips`` (0, the default, for every local GPU) sets
+the devices every engine shards its tile grid over; with
+``ensemble_member_parallel`` (default on) and at least as many devices as
+members, each member takes its own contiguous group of them and the members
+run at once, one thread each. On the CPU, ``inference_chips`` n runs n
+shards (the JAX package's virtual CPU devices). One device is the
+one-device path.
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import logging
 import os
 import time
@@ -62,6 +72,7 @@ from deepemia_tpu_torch.inference.measure_host import measurement_rows_host, mea
 from deepemia_tpu_torch.inference.postprocess import morphology_postprocess, window_geometry
 from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
 from deepemia_tpu_torch.models.quant import QUANT_MODES
+from deepemia_tpu_torch.parallel import mesh
 from deepemia_tpu_torch.ops.image import read_image, to_grayscale
 from deepemia_tpu_torch.ops.masks import paste_masks
 from deepemia_tpu_torch.ops.rle import (
@@ -165,14 +176,19 @@ class InferencePipeline:
         # one engine per checkpoint, in name order: R101 before R50, and the
         # first is the primary model (size heuristic, multiscale, large classes)
         weights = weights_from_config(self.inf)
+        es = self.inf.get("ensemble_settings", {})
+        self.tile_devices = self._choose_tile_devices(perf, self.device)
+        enabled = bool(es.get("enabled", True)) and bool(perf.get("ensemble_member_parallel", True))
+        groups = self._member_groups(self.tile_devices, len(model_paths), enabled)
+        # members on disjoint groups run at once (ensemble.run_ensemble)
+        self.member_parallel = groups is not None
         self.engines: List[Tuple[str, TileEngine, float]] = []
-        for name, path in sorted(model_paths.items()):
-            model = load_model(path, self.num_classes, self.use_bf16, device=self.device,
+        for (name, path), group in zip(sorted(model_paths.items()), groups or itertools.repeat(self.tile_devices)):
+            model = load_model(path, self.num_classes, self.use_bf16, device=group[0],
                                quant_backbone=self.quant_backbone)
-            self.engines.append((name, TileEngine(model, device=self.device, **engine_kw), weights.get(name, 1.0)))
+            self.engines.append((name, TileEngine(model, device=group, **engine_kw), weights.get(name, 1.0)))
             log.info("Loaded %s from %s", name, path)
         self.engine = self.engines[0][1]
-        es = self.inf.get("ensemble_settings", {})
         self.use_ensemble = bool(es.get("enabled", True)) and len(self.engines) > 1
         self.ensemble_small_only = bool(es.get("small_classes_only", True))
         # names of the members that ran on the last image
@@ -202,6 +218,35 @@ class InferencePipeline:
         self.iterative_cfg = self.inf.get("iterative_stopping", {}) or {}
 
     # ------------------------------------------------------------------
+
+    @staticmethod
+    def _choose_tile_devices(perf: dict, device: torch.device) -> List[torch.device]:
+        """The devices every engine shards its tile grid over:
+        ``performance.inference_chips`` of the local GPUs from ``device``'s
+        index on (0 = all), or n shards on the CPU; ``[device]`` when one is
+        in play."""
+        n_chips = int(perf.get("inference_chips", 0) or 0)
+        if device.type == "cpu":
+            return [device] * max(1, n_chips)
+        local = mesh.local_devices()[device.index or 0:]
+        want = len(local) if n_chips <= 0 else min(n_chips, len(local))
+        if want <= 1:
+            return [device]
+        log.info("Tile-sharded inference across %d devices", want)
+        return mesh.tile_devices(want, local)
+
+    @staticmethod
+    def _member_groups(devices: List[torch.device], n_members: int, enabled: bool) -> Optional[List[List]]:
+        """Each member's devices, disjoint contiguous groups of ``devices``,
+        when member-parallel ensembling applies (enabled, several members,
+        at least as many devices); None when every member shards over all
+        of ``devices``."""
+        if not (enabled and n_members > 1 and len(devices) >= n_members):
+            return None
+        groups = mesh.partition_devices(devices, n_members)
+        log.info("Member-parallel ensemble: %d members on disjoint device groups %s", n_members,
+                 [len(g) for g in groups])
+        return groups
 
     def _set_settings(self, small_classes) -> None:
         """Per-class thresholds; the default threshold overrides every class
@@ -261,7 +306,7 @@ class InferencePipeline:
                 inst, quality, self.members_ran = run_ensemble(
                     self.engines, image, settings, hw, dedup_iou=0.4,
                     secondary_class_filter=self.small_classes if self.ensemble_small_only else None,
-                    upscale=upscale,
+                    upscale=upscale, parallel=self.member_parallel,
                 )
             elif self.use_multiscale:
                 from deepemia_tpu_torch.inference.multiscale import run_multiscale_inference

@@ -130,6 +130,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_state.cuh"
+
 namespace {
 
 constexpr int kBM = 128;       // output pixels per tile, all of one consumer warpgroup
@@ -774,9 +776,9 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled's address is one for the process: looked up once, safely across threads
 EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiled fn = [] {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
@@ -784,8 +786,8 @@ EncodeTiled encode_tiled() {
 #else
     cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
 #endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
   return fn;
 }
 
@@ -803,31 +805,22 @@ bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, lon
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int num_sms() {
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 0;
-  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return sms[dev];
-}
-
 template <int BN, typename OutT, int kEpi>
-int launch_epilogue(Params& p, const void* w, void* out, const void* residual, cudaStream_t stream) {
+int launch_epilogue(Params& p, const void* w, void* out, const void* residual, int dev, cudaStream_t stream) {
   using T = Tile<BN, OutT>;
   void (*kernel)(const Params) = int8_conv_kernel<BN, OutT, kEpi>;
-  static bool ready = false;
-  if (!ready) {
-    // setmaxnreg.inc waits for registers the block does not hold unless the
-    // kernel was compiled at kKernelRegs: refuse rather than hang
+  // setmaxnreg.inc waits for registers the block does not hold unless the
+  // kernel was compiled at kKernelRegs: refuse rather than hang. The
+  // shared-memory attribute belongs to each device's context.
+  static device_state::Once setup;
+  const cudaError_t ready = device_state::once_per_device(setup, dev, [kernel] {
     cudaFuncAttributes fa;
     cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-    if (err != cudaSuccess) return (int)err;
-    if (fa.numRegs < kKernelRegs) return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    ready = true;
-  }
+    if (err != cudaSuccess) return err;
+    if (fa.numRegs < kKernelRegs) return cudaErrorInvalidConfiguration;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  });
+  if (ready != cudaSuccess) return (int)ready;
   const CUtensorMapDataType out_type =
       sizeof(OutT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (!encode_2d(&p.w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, p.co, p.k, 1, kBK, BN) ||
@@ -843,7 +836,7 @@ int launch_epilogue(Params& p, const void* w, void* out, const void* residual, c
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.tiles = (int)tiles;
   p.k_steps = (p.k + kBK - 1) / kBK;
-  const int sms = num_sms();
+  const int sms = device_state::num_sms(dev);
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const int grid = p.tiles < sms ? p.tiles : sms;
   if (p.amax != nullptr) {  // the max's slots start at 0 (below every value's bits)
@@ -855,16 +848,18 @@ int launch_epilogue(Params& p, const void* w, void* out, const void* residual, c
 }
 
 template <int BN, typename OutT>
-int launch(Params& p, const void* w, void* out, const void* residual, cudaStream_t stream) {
-  if (residual != nullptr) return launch_epilogue<BN, OutT, kResidualMax>(p, w, out, residual, stream);
-  if (p.amax != nullptr) return launch_epilogue<BN, OutT, kMax>(p, w, out, residual, stream);
-  return launch_epilogue<BN, OutT, kPlain>(p, w, out, residual, stream);
+int launch(Params& p, const void* w, void* out, const void* residual, int dev, cudaStream_t stream) {
+  if (residual != nullptr) return launch_epilogue<BN, OutT, kResidualMax>(p, w, out, residual, dev, stream);
+  if (p.amax != nullptr) return launch_epilogue<BN, OutT, kMax>(p, w, out, residual, dev, stream);
+  return launch_epilogue<BN, OutT, kPlain>(p, w, out, residual, dev, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch, or a CUDA error code for
-// arguments the kernel does not take (the wrapper raises on either). x, w,
+// arguments the kernel does not take (the wrapper raises on either):
+// cudaErrorInvalidDevice when x does not lie on the thread's current device,
+// which is the device the launch goes to. x, w,
 // out and residual must be 16-byte aligned, the vectors 8-byte aligned and
 // amax 4-byte aligned; Ci a multiple of 16, Co a multiple of 8 (the TMA
 // store's row pitch), H and W below 16384, K = kh*kw*Ci at most 16384 and
@@ -915,11 +910,13 @@ extern "C" int int8_conv(const void* x, const void* w, const void* scale, const 
   p.m = (int)m;
   p.relu = relu != 0;
   p.a_tma = kh == 1 && kw == 1 && stride == 1 && pad == 0;
+  const int dev = device_state::launch_device(x);
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (co <= 64) {
-    return out_code == 0 ? launch<64, float>(p, w, out, residual, s)
-                         : launch<64, __nv_bfloat16>(p, w, out, residual, s);
+    return out_code == 0 ? launch<64, float>(p, w, out, residual, dev, s)
+                         : launch<64, __nv_bfloat16>(p, w, out, residual, dev, s);
   }
-  return out_code == 0 ? launch<128, float>(p, w, out, residual, s)
-                       : launch<128, __nv_bfloat16>(p, w, out, residual, s);
+  return out_code == 0 ? launch<128, float>(p, w, out, residual, dev, s)
+                       : launch<128, __nv_bfloat16>(p, w, out, residual, dev, s);
 }

@@ -40,6 +40,8 @@
 
 #include <algorithm>
 
+#include "device_state.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -231,21 +233,12 @@ __global__ void __launch_bounds__(kThreads) quant_producer_max_kernel(const T* _
   quantize_image<T, kLayout>(x, q, s_scale, h, w, c);
 }
 
-int num_sms() {
-  static int sms[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 0;
-  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return sms[dev];
-}
-
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 template <typename T>
 int launch(const void* x, void* q, const float* amax_in, uint32_t* partial, float* amax, int n, int h, int w, int c,
-           int layout, cudaStream_t stream) {
-  const int sms = num_sms();
+           int layout, int dev, cudaStream_t stream) {
+  const int sms = device_state::num_sms(dev);
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const long long per_image = (long long)h * w * c;
   // ~8 blocks a SM over the batch, at least 4K elements a block
@@ -286,8 +279,9 @@ int launch(const void* x, void* q, const float* amax_in, uint32_t* partial, floa
 // of scratch, and the quantize pass the floored max to amax [n] float32.
 // space_to_depth 0: q is [n, h, w, c] (c % 16 == 0); 1: q is
 // [n, ceil(h / 2), ceil(w / 2), 16] (4 c <= 16). Returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// arguments it does not take.
+// cudaGetLastError() after the launches, cudaErrorInvalidValue for
+// arguments it does not take, or cudaErrorInvalidDevice when x does not lie
+// on the thread's current device.
 extern "C" int int8_quant(const void* x, void* q, const void* amax_in, void* partial, void* amax, int n, int h,
                           int w, int c, int space_to_depth, int dtype_code, void* stream) {
   const int layout = space_to_depth ? kSpaceToDepth : kDense;
@@ -297,10 +291,12 @@ extern "C" int int8_quant(const void* x, void* q, const void* amax_in, void* par
       (dtype_code != 0 && dtype_code != 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int dev = device_state::launch_device(x);
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a_in = static_cast<const float*>(amax_in);
   uint32_t* part = static_cast<uint32_t*>(partial);
   float* a = static_cast<float*>(amax);
-  return dtype_code == 0 ? launch<float>(x, q, a_in, part, a, n, h, w, c, layout, s)
-                         : launch<__nv_bfloat16>(x, q, a_in, part, a, n, h, w, c, layout, s);
+  return dtype_code == 0 ? launch<float>(x, q, a_in, part, a, n, h, w, c, layout, dev, s)
+                         : launch<__nv_bfloat16>(x, q, a_in, part, a, n, h, w, c, layout, dev, s);
 }

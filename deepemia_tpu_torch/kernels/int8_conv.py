@@ -196,7 +196,7 @@ def int8_conv2d(x_q: torch.Tensor, w_q: torch.Tensor, scale: Union[torch.Tensor,
     if x_q.is_cpu:
         return int8_conv2d_plain(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
     out = launch(x_q, w_q, scale, bias, stride, padding, out_dtype, **fused)
-    counter.launches += 1
+    counter.add()
     return out
 
 
@@ -238,12 +238,15 @@ def launch(x_q, w_q, scale, bias, stride: int, padding: int, out_dtype, *, norm_
         raise ValueError("int8_conv2d: the residual must be 16-byte aligned")
     amax = torch.empty((n,), dtype=torch.float32, device=x_q.device) if with_max else None
     ptrs = [None if t is None else t.data_ptr() for t in (x_q, w_q, *vectors)]
-    stream = torch._C._cuda_getCurrentRawStream(x_q.get_device())
-    status = _library().int8_conv(
-        *ptrs, int(norm_weight is not None and norm_weight.dtype == torch.bfloat16),
-        None if residual is None else residual.data_ptr(), out.data_ptr(), None if amax is None else amax.data_ptr(),
-        n, h, w, ci, co, kh, kw, stride, padding, ho, wo, int(relu), _OUT_CODE[out_dtype], stream,
-    )
+    device = x_q.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    with torch.cuda.device(device):  # the launch, and the kernel's per-device setup, go to x's GPU
+        status = _library().int8_conv(
+            *ptrs, int(norm_weight is not None and norm_weight.dtype == torch.bfloat16),
+            None if residual is None else residual.data_ptr(), out.data_ptr(),
+            None if amax is None else amax.data_ptr(),
+            n, h, w, ci, co, kh, kw, stride, padding, ho, wo, int(relu), _OUT_CODE[out_dtype], stream,
+        )
     if status != 0:
         raise RuntimeError(
             f"int8_conv launch failed: CUDA error {status} (x {tuple(x_q.shape)}, w {tuple(w_q.shape)}, "

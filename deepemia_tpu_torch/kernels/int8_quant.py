@@ -102,7 +102,7 @@ def int8_quantize(x: torch.Tensor, space_to_depth_blocks: bool = False,
     if x.is_cpu:
         return int8_quantize_plain(x, space_to_depth_blocks)
     out = launch(x, space_to_depth_blocks, amax)
-    counter.launches += 1 if amax is not None else 2  # the quantize pass, after the max pass where it runs
+    counter.add(1 if amax is not None else 2)  # the quantize pass, after the max pass where it runs
     return out
 
 
@@ -141,9 +141,11 @@ def launch(x: torch.Tensor, space_to_depth_blocks: bool = False,
         ptrs = (None, partial.data_ptr(), out_amax.data_ptr())
     else:
         out_amax, ptrs = amax, (amax.data_ptr(), None, None)
-    stream = torch._C._cuda_getCurrentRawStream(x.get_device())
-    status = _library().int8_quant(x.data_ptr(), q.data_ptr(), *ptrs, n, h, w, c, int(space_to_depth_blocks),
-                                   _DTYPE_CODE[x.dtype], stream)
+    device = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    with torch.cuda.device(device):  # the launch, and the SM count it sizes the grid by, are x's GPU's
+        status = _library().int8_quant(x.data_ptr(), q.data_ptr(), *ptrs, n, h, w, c, int(space_to_depth_blocks),
+                                       _DTYPE_CODE[x.dtype], stream)
     if status != 0:
         raise RuntimeError(f"int8_quant launch failed: CUDA error {status} (x {tuple(x.shape)} {x.dtype}, "
                            f"space-to-depth {space_to_depth_blocks}, producer's max {amax is not None})")

@@ -6,14 +6,16 @@ K1 replaces the JAX package's Pallas ``roi_align_pallas``, K2 its
 ``roi_align_backward_pallas``; their plain counterparts are
 ``models/roi_align.py:multilevel_roi_align`` and
 ``multilevel_roi_align_backward``. Each wrapper checks what its kernel
-takes, allocates the outputs, launches on PyTorch's current stream, raises
-on a nonzero launch status and counts the launch. Neither falls back to the
-plain version.
+takes, allocates the outputs, launches on PyTorch's current stream of the
+operands' device with that device current (``torch.cuda.device``: a thread
+may hold another GPU current), raises on a nonzero launch status and counts
+the launch. Neither falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Sequence
 
 import torch
@@ -28,10 +30,16 @@ _BWD_LIB = "roi_align_bwd"
 
 class LaunchCounter:
     """Counts kernel launches (one per wrapper call that reaches the
-    kernel)."""
+    kernel). Tile shards and ensemble members launch from several threads,
+    so a launch adds under a lock."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self.launches += n
 
 
 counter = LaunchCounter()  # K1, roi_align_cuda
@@ -136,27 +144,28 @@ def roi_align_cuda(
     out = torch.empty((n, output_size, output_size, c), dtype=out_dtype, device=boxes.device)
     valid_u8 = None if valid is None else valid.contiguous().view(torch.uint8)
     shapes = [d for f in feats for d in (f.shape[1], f.shape[2])]
-    status = fn(
-        *[f.data_ptr() for f in feats],
-        *shapes,
-        boxes.data_ptr(),
-        levels.data_ptr(),
-        batch_idx.data_ptr(),
-        None if valid_u8 is None else valid_u8.data_ptr(),
-        out.data_ptr(),
-        n,
-        c,
-        output_size,
-        sampling_ratio,
-        int(adaptive_ratio),
-        _DTYPE_CODE[feats[0].dtype],
-        _DTYPE_CODE[out_dtype],
-        torch.cuda.current_stream(boxes.device).cuda_stream,
-    )
+    with torch.cuda.device(boxes.get_device()):
+        status = fn(
+            *[f.data_ptr() for f in feats],
+            *shapes,
+            boxes.data_ptr(),
+            levels.data_ptr(),
+            batch_idx.data_ptr(),
+            None if valid_u8 is None else valid_u8.data_ptr(),
+            out.data_ptr(),
+            n,
+            c,
+            output_size,
+            sampling_ratio,
+            int(adaptive_ratio),
+            _DTYPE_CODE[feats[0].dtype],
+            _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream(boxes.device).cuda_stream,
+        )
     if status != 0:
         raise RuntimeError(f"roi_align_fwd launch failed: CUDA error {status}")
     if n:
-        counter.launches += 1
+        counter.add()
     return out
 
 
@@ -205,28 +214,29 @@ def roi_align_backward_cuda(
     sizes = [int(b * h * w * c) for b, h, w in level_shapes]
     acc = torch.empty(sum(sizes), dtype=torch.float32, device=g.device)
     out = acc if out_dtype == torch.float32 else torch.empty(sum(sizes), dtype=out_dtype, device=g.device)
-    status = lib(
-        g.data_ptr(),
-        boxes.data_ptr(),
-        levels.data_ptr(),
-        batch_idx.data_ptr(),
-        acc.data_ptr(),
-        out.data_ptr(),
-        int(level_shapes[0][0]),
-        *[int(d) for sh in level_shapes for d in sh[1:3]],
-        n,
-        c,
-        out_size,
-        sampling_ratio,
-        int(adaptive_ratio),
-        _DTYPE_CODE[g.dtype],
-        _DTYPE_CODE[out_dtype],
-        torch.cuda.current_stream(g.device).cuda_stream,
-    )
+    with torch.cuda.device(g.get_device()):
+        status = lib(
+            g.data_ptr(),
+            boxes.data_ptr(),
+            levels.data_ptr(),
+            batch_idx.data_ptr(),
+            acc.data_ptr(),
+            out.data_ptr(),
+            int(level_shapes[0][0]),
+            *[int(d) for sh in level_shapes for d in sh[1:3]],
+            n,
+            c,
+            out_size,
+            sampling_ratio,
+            int(adaptive_ratio),
+            _DTYPE_CODE[g.dtype],
+            _DTYPE_CODE[out_dtype],
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
     if status != 0:
         raise RuntimeError(f"roi_align_bwd launch failed: CUDA error {status}")
     if n:
-        bwd_counter.launches += 1
+        bwd_counter.add()
     grads, start = [], 0
     for size, (b, h, w) in zip(sizes, level_shapes):
         grads.append(out[start : start + size].view(int(b), int(h), int(w), c))

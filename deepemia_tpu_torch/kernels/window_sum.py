@@ -119,8 +119,10 @@ def launch(feat: torch.Tensor, entry: str = "window_sum") -> torch.Tensor:
     # the raw handle of the current stream, as torch's own generated
     # kernels take it: torch.cuda.current_stream() builds a Stream object,
     # several microseconds of a call this short
-    stream = torch._C._cuda_getCurrentRawStream(feat.get_device())
-    status = getattr(_library(), entry)(ptr, *plan, out.data_ptr(), stream)
+    device = feat.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    with torch.cuda.device(device):
+        status = getattr(_library(), entry)(ptr, *plan, out.data_ptr(), stream)
     if status != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {status} ({plan})")
     return out
@@ -133,5 +135,5 @@ def window_sum(feat: torch.Tensor) -> torch.Tensor:
     if feat.is_cpu:
         return window_sum_plain(feat)
     out = launch(feat)
-    counter.launches += 1
+    counter.add()
     return out

@@ -134,7 +134,7 @@ def maskrcnn_loss(
     model: MaskRCNN,
     images: torch.Tensor,
     gt: GroundTruth,
-    generator: torch.Generator | None = None,
+    generators: Sequence[torch.Generator] | None = None,
     draws: Sequence[Draws] | None = None,
     pre_nms_topk: int = StaticShapes.PRE_NMS_TOPK_TRAIN,
     post_nms_topk: int = StaticShapes.POST_NMS_TOPK_TRAIN,
@@ -147,9 +147,10 @@ def maskrcnn_loss(
     the mean over images of the per-image term.
 
     Sampling priorities are ``draws`` (one per image) when given, else
-    drawn from ``generator``: per image, RPN positives, RPN negatives, RoI
-    positives, RoI negatives. The static capacities are parameters so that
-    small-shape runs stay fast; the defaults are Detectron2's."""
+    drawn from ``generators`` (one per image; torch's default generator
+    without them): per image, RPN positives, RPN negatives, RoI positives,
+    RoI negatives. The static capacities are parameters so that small-shape
+    runs stay fast; the defaults are Detectron2's."""
     num_classes = model.num_classes
     bsz, h, w = images.shape[:3]
     dev = images.device
@@ -169,16 +170,17 @@ def maskrcnn_loss(
     s_idx, s_pos, s_valid, gt_index = [], [], [], []
     for b in range(bsz):
         d = draws[b] if draws is not None else Draws(None, None, None, None)
+        gen = generators[b] if generators is not None else None
         rpn = rpn_losses(
             {k: v[b] for k, v in logits.items()}, {k: v[b] for k, v in regs.items()}, anchors,
-            gt.boxes[b], gt.valid[b], rpn_batch, generator, d.rpn_pos, d.rpn_neg,
+            gt.boxes[b], gt.valid[b], rpn_batch, gen, d.rpn_pos, d.rpn_neg,
         )
         rpn_cls.append(rpn["rpn_cls"])
         rpn_loc.append(rpn["rpn_loc"])
         match = T.match_proposals(prop_boxes[b], gt.boxes[b], gt.valid[b])
         sample = T.subsample(
             match.labels, roi_batch, ROI_POS_FRACTION, extra_valid=prop_valid[b],
-            generator=generator, pos_rand=d.roi_pos, neg_rand=d.roi_neg,
+            generator=gen, pos_rand=d.roi_pos, neg_rand=d.roi_neg,
         )
         s_idx.append(sample.idx)
         s_pos.append(sample.is_pos)

@@ -1,6 +1,6 @@
-"""Training on one GPU: SGD over ``maskrcnn_loss``, warmup-multistep
-schedule, torch checkpoints with resume (counterpart of the JAX package's
-``train/trainer.py``).
+"""Training: SGD over ``maskrcnn_loss``, warmup-multistep schedule, torch
+checkpoints with resume (counterpart of the JAX package's
+``train/trainer.py``), on one GPU or data-parallel over several.
 
 ``train`` takes registered records, as the JAX package's does: it runs the
 ``TrainLoader`` (``data/loader.py``) and sizes the schedule from the record
@@ -18,11 +18,26 @@ frozen-BN affine only when fine-tuning, checkpoints every
 ``model_final_{r50,r101}`` weights. Compute runs in bf16 under autocast
 over float32 master weights.
 
-Left out as TPU artefacts: the ``('data','model')`` mesh and the
-tensor-parallel box head, the packed one-buffer batch transfer, the
-chunked ``lax.scan`` dispatch, buffer donation and Orbax (the config keys
-``roi_backend``, ``steps_per_dispatch``, ``donate_buffers`` and
-``n_model_shards`` have no field here).
+Data-parallel (the JAX trainer's ``data`` axis, ``trainer.py:144-166,
+605``): ``data_world_size(GPUs, ims_per_batch)`` ranks, one GPU each. On a
+host with more than one GPU, ``train`` and ``train_on_batches`` start the
+ranks themselves (``torch.multiprocessing``, NCCL), unless this process
+already is a rank of a process group (``torchrun``,
+``utils/device.maybe_init_distributed``), which they then train in. Every
+rank makes the same global batch (the same batches, or the loader with the
+same seed) and takes its contiguous block; the gradients are averaged
+across ranks before the clip and the step, so the step is the one-process
+step on the global batch (the loss is the mean over images, the blocks are
+equal). Each image's sampling draws are a function of (seed, step, its
+index in the global batch), whichever rank holds it. Rank 0 writes the
+checkpoints and the final weights, between barriers, and logs; every rank
+reads a resume.
+
+Left out: the tensor-parallel box head (``n_model_shards`` above 1 is
+refused by name, ROADMAP A8b), and as TPU artefacts the packed one-buffer
+batch transfer, the chunked ``lax.scan`` dispatch, buffer donation and Orbax
+(the config keys ``roi_backend``, ``steps_per_dispatch`` and
+``donate_buffers`` have no field here).
 """
 
 from __future__ import annotations
@@ -31,18 +46,22 @@ import itertools
 import logging
 import os
 import re
+import socket
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from deepemia_tpu_torch import resolve_device
 from deepemia_tpu_torch.data.loader import TrainLoader
 from deepemia_tpu_torch.models.mask_rcnn import MaskRCNN, build_train_model
 from deepemia_tpu_torch.models.weights import load_pretrained_params
-from deepemia_tpu_torch.train.losses import GroundTruth, maskrcnn_loss
+from deepemia_tpu_torch.parallel.mesh import data_world_size, local_devices
+from deepemia_tpu_torch.train.losses import Draws, GroundTruth, maskrcnn_loss
 
 log = logging.getLogger("deepemia_tpu_torch.trainer")
 
@@ -135,7 +154,8 @@ class TrainConfig:
     min_size_range: Tuple[int, int] = (640, 800)
     max_size: int = 1333
     max_instances: int = 64
-    # loader producer threads; 1 = the batch order is fixed by the seed
+    # loader producer threads (the batch order is fixed by the seed for any
+    # count: the consumer takes the workers' batches in turn)
     loader_workers: int = 2
     augment: bool = False
     checkpoint_every: int = 1000
@@ -156,6 +176,9 @@ class TrainConfig:
     # from-scratch conditioning (zero_residual_norms); ignored when
     # fine-tuning
     zero_init_residual: bool = True
+    # tensor parallelism of the box head (the JAX trainer's 'model' axis):
+    # not ported, only 1 runs
+    n_model_shards: int = 1
 
 
 def zero_residual_norms(model: MaskRCNN, stem_scale: float = 1.0 / 120.0) -> None:
@@ -180,13 +203,15 @@ def unpack_mask_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8).bool()
 
 
-def batch_to_device(batch: dict, device, cfg: TrainConfig) -> Tuple[torch.Tensor, GroundTruth]:
+def batch_to_device(batch: dict, device, cfg: TrainConfig, ims: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, GroundTruth]:
     """A batch in the loader's format (``image`` uint8 [B,S,S,3],
     ``gt_boxes`` float32 [B,G,4], ``gt_classes`` int [B,G], ``gt_valid``
     bool [B,G], ``gt_masks`` bool [B,G,S,S] or packbits uint8 [B,G,S,S/8];
-    numpy arrays or tensors) -> (images, GroundTruth) on ``device``."""
+    numpy arrays or tensors) -> (images, GroundTruth) on ``device``. B is
+    ``ims`` (a rank's block), by default ``cfg.ims_per_batch``."""
     t = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-    b, s, g = cfg.ims_per_batch, cfg.train_size, cfg.max_instances
+    b, s, g = ims or cfg.ims_per_batch, cfg.train_size, cfg.max_instances
     if tuple(t["image"].shape) != (b, s, s, 3) or tuple(t["gt_boxes"].shape) != (b, g, 4):
         raise ValueError(
             f"batch shapes image {tuple(t['image'].shape)}, gt_boxes {tuple(t['gt_boxes'].shape)} "
@@ -204,30 +229,90 @@ def batch_to_device(batch: dict, device, cfg: TrainConfig) -> Tuple[torch.Tensor
     return t["image"], gt
 
 
+def process_group() -> Tuple[int, int]:
+    """(rank, world size) of the process group this process trains in;
+    (0, 1) outside one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def shard_batch(batch: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s contiguous block of a global batch (every array's
+    leading axis split in ``world`` equal blocks)."""
+    if world == 1:
+        return batch
+    n = len(batch["image"])
+    if n % world:
+        raise ValueError(f"a batch of {n} images does not split over {world} ranks")
+    b = n // world
+    return {k: v[rank * b : (rank + 1) * b] for k, v in batch.items()}
+
+
+def average_gradients(params: Sequence[torch.Tensor], world: int) -> None:
+    """Replace each parameter's ``.grad`` with its mean over the ranks, in
+    one all-reduce. A parameter without a gradient on some ranks counts zero
+    there; one without a gradient on every rank keeps none (SGD skips it,
+    as in one process)."""
+    params = [p for p in params if p.requires_grad]
+    if world == 1 or not params:
+        return
+    dev = params[0].device
+    has = torch.tensor([p.grad is not None for p in params], dtype=torch.float32, device=dev)
+    flat = torch.cat([has] + [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+                              for p in params])
+    dist.all_reduce(flat)
+    flat /= world
+    start = len(params)
+    for p, present in zip(params, flat[: len(params)].tolist()):
+        n = p.numel()
+        if present > 0:
+            p.grad = flat[start : start + n].view_as(p).to(p.dtype)
+        start += n
+
+
 def train_step(
     model: MaskRCNN,
     optimizer,
     scheduler,
     batch: dict,
     cfg: TrainConfig,
-    generator: Optional[torch.Generator] = None,
+    generators: Optional[Sequence[torch.Generator]] = None,
+    draws: Optional[Sequence[Draws]] = None,
 ) -> Dict[str, float]:
-    """One SGD step on one batch -> the loss components (floats, batch
-    means). Sampling draws come from ``generator``."""
+    """One SGD step -> the loss components (floats, means over the global
+    batch). ``batch`` is this rank's block of it (the whole batch in one
+    process); the gradients are averaged across the process group's ranks
+    before the step. Sampling draws come from ``draws`` (one per image of
+    the block) or ``generators`` (one per image, :func:`image_generators`)."""
     dev = next(model.parameters()).device
-    images, gt = batch_to_device(batch, dev, cfg)
+    _, world = process_group()
+    images, gt = batch_to_device(batch, dev, cfg, ims=cfg.ims_per_batch // world)
     with torch.autocast(device_type=dev.type, dtype=torch.bfloat16, enabled=cfg.use_bf16):
-        losses = maskrcnn_loss(model, images, gt, generator=generator, **(cfg.loss_caps or {}))
+        losses = maskrcnn_loss(model, images, gt, generators=generators, draws=draws, **(cfg.loss_caps or {}))
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
+    average_gradients([p for group in optimizer.param_groups for p in group["params"]], world)
     optimizer_step(optimizer, scheduler, cfg.grad_clip_norm)
-    return {k: float(v.detach()) for k, v in losses.items()}
+    values = torch.stack([v.detach().float() for v in losses.values()])
+    if world > 1:
+        dist.all_reduce(values)
+        values /= world
+    return dict(zip(losses, values.tolist()))
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The sampling generator of one step, a function of (seed, step) only,
-    so a resumed run draws what an uninterrupted one would."""
-    return torch.Generator(device=device).manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+def _draw_seed(seed: int, step: int, index: int) -> int:
+    """A 64-bit generator seed from (seed, step, image index)."""
+    words = np.random.SeedSequence([seed & 0xFFFFFFFF, step, index]).generate_state(2, np.uint32)
+    return (int(words[0]) << 32) | int(words[1])
+
+
+def image_generators(seed: int, step: int, images: Iterable[int], device) -> List[torch.Generator]:
+    """The sampling generators of the ``images`` (indices in the step's
+    global batch): each a function of (seed, step, index) only, so a rank
+    holding image i draws what one process draws for it, and a resumed run
+    what an uninterrupted one would."""
+    return [torch.Generator(device=device).manual_seed(_draw_seed(seed, step, i)) for i in images]
 
 
 def _checkpoints(ckpt_dir: Path):
@@ -260,6 +345,75 @@ def _init_weights(model: MaskRCNN, init_checkpoint: Optional[str], cfg: TrainCon
         zero_residual_norms(model)
 
 
+def rank_devices(device, devices: Optional[Sequence], ims_per_batch: int) -> Optional[List[torch.device]]:
+    """The devices of the ranks to start, one each, or None to train in this
+    process (one device, or already a rank of a process group):
+    ``devices`` when given (one may repeat), else on CUDA the first
+    :func:`data_world_size` local GPUs."""
+    if dist.is_available() and dist.is_initialized():
+        return None
+    if devices:
+        ranks = [torch.device(d) for d in devices]
+    elif resolve_device(device).type == "cuda":
+        ranks = local_devices()[: data_world_size(torch.cuda.device_count(), ims_per_batch)]
+    else:
+        return None
+    if len(ranks) <= 1:
+        return None
+    if ims_per_batch % len(ranks):
+        raise ValueError(f"ims_per_batch={ims_per_batch} does not split over {len(ranks)} ranks")
+    return ranks
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, devices: List[str], fn, kwargs: dict, results, level: int,
+               numerics: Tuple[bool, bool, int]) -> None:
+    """A started rank: its device current, the process group joined (NCCL
+    when every rank has a GPU of its own, else gloo), ``fn(**kwargs)`` run
+    on its device with the starting process's TF32 settings (cuDNN, matmul)
+    and CPU threads; rank 0 hands the result back and logs at ``level``."""
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, threads = numerics
+    torch.set_num_threads(threads)
+    dev = torch.device(devices[rank])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    distinct = dev.type == "cuda" and len({str(d) for d in devices}) == world
+    dist.init_process_group("nccl" if distinct else "gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        if rank == 0:
+            from deepemia_tpu_torch.utils.logging_utils import setup_logging
+
+            setup_logging(None, logging.getLevelName(level).lower())
+        result = fn(**kwargs, device=dev)
+        if rank == 0:
+            results.put(result)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks(devices: Sequence[torch.device], fn, **kwargs):
+    """Run ``fn(**kwargs, device=...)`` on one started process a device
+    (``torch.multiprocessing``, spawned), as ranks of one process group ->
+    rank 0's result. Raises what a rank raised."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    level = logging.getLogger("deepemia_tpu_torch").getEffectiveLevel()
+    names = [str(d) for d in devices]
+    numerics = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads())
+    log.info("Training data-parallel on %d ranks: %s", len(names), ", ".join(names))
+    mp.start_processes(_rank_main, args=(len(names), _free_port(), names, fn, kwargs, results, level, numerics),
+                       nprocs=len(names), join=True, start_method="spawn")
+    return results.get()
+
+
 def train_on_batches(
     batches: Iterable[dict],
     num_classes: int,
@@ -269,6 +423,7 @@ def train_on_batches(
     resume: bool = True,
     max_steps_override: Optional[int] = None,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> Tuple[str, Dict[str, float]]:
     """Train Mask R-CNN on ``batches`` (dicts in the loader's format, see
     :func:`batch_to_device`) on ``device`` (``cuda`` unless the caller
@@ -280,8 +435,29 @@ def train_on_batches(
     epoch's image count. Checkpoints go to ``output_dir/ckpts`` (the newest
     two are kept); with ``resume`` the run continues from the newest one,
     with the batch stream restarted from its start, as the JAX loader is.
-    The final weights are ``output_dir/model_final_{backbone}.pt``."""
-    dev = resolve_device(device)
+    The final weights are ``output_dir/model_final_{backbone}.pt``.
+
+    Data-parallel (:func:`rank_devices`): ``devices`` names the ranks'
+    devices, by default every GPU the batch splits over; inside a process
+    group this process trains as its rank."""
+    if cfg.n_model_shards > 1:
+        raise ValueError(f"n_model_shards={cfg.n_model_shards}: the tensor-parallel box head is not ported "
+                         "(ROADMAP A8b)")
+    ranks = rank_devices(device, devices, cfg.ims_per_batch)
+    if ranks is not None:
+        if not isinstance(batches, (list, tuple)):
+            raise ValueError("data-parallel training on started ranks takes a list of batches")
+        return start_ranks(ranks, train_on_batches, batches=list(batches), num_classes=num_classes,
+                           output_dir=output_dir, cfg=cfg, init_checkpoint=init_checkpoint, resume=resume,
+                           max_steps_override=max_steps_override)
+    rank, world = process_group()
+    if world > 1 and data_world_size(world, cfg.ims_per_batch) != world:
+        n = data_world_size(world, cfg.ims_per_batch)
+        raise ValueError(f"ims_per_batch={cfg.ims_per_batch} does not train on a process group of {world} ranks: "
+                         f"data-parallel training takes data_world_size({world}, {cfg.ims_per_batch}) = {n} ranks "
+                         "(every rank an equal block of the batch); start that many (torchrun --nproc_per_node "
+                         f"{n}) or raise ims_per_batch to a multiple of {world}")
+    dev = _indexed_device(device)
     out_dir = Path(output_dir)
     ckpt_dir = out_dir / "ckpts"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -306,40 +482,70 @@ def train_on_batches(
         # max_iter may differ from the saved run's), as optax's count does
         for group, lr_lambda in zip(optimizer.param_groups, scheduler.lr_lambdas):
             group["lr"] = lr_lambda(start_step)
-        log.info("Resumed from step %d", start_step)
+        if rank == 0:
+            log.info("Resumed from step %d", start_step)
 
     stream = itertools.cycle(batches) if isinstance(batches, (list, tuple)) else iter(batches)
     metrics: Dict[str, float] = {}
-    log.info("Training %s on %s: steps %d-%d", cfg.backbone, dev, start_step, max_iter)
+    block = cfg.ims_per_batch // world
+    if rank == 0:
+        log.info("Training %s on %s%s: steps %d-%d", cfg.backbone, dev,
+                 f" and {world - 1} more ranks" if world > 1 else "", start_step, max_iter)
     for step in range(start_step, max_iter):
         batch = next(stream, None)
         if batch is None:
             raise ValueError(f"batches ran out at step {step} of {max_iter}")
-        metrics = train_step(model, optimizer, scheduler, batch, cfg, step_generator(cfg.seed, step, dev))
+        gens = image_generators(cfg.seed, step, range(rank * block, (rank + 1) * block), dev)
+        metrics = train_step(model, optimizer, scheduler, shard_batch(batch, rank, world), cfg, gens)
         done = step + 1
-        if done % cfg.log_every == 0 or done == max_iter:
+        if rank == 0 and (done % cfg.log_every == 0 or done == max_iter):
             log.info(
                 "step %d/%d loss %.4f (rpn %.3f/%.3f cls %.3f box %.3f mask %.3f) lr %.3g",
                 done, max_iter, metrics["total"], metrics["rpn_cls"], metrics["rpn_loc"],
                 metrics["cls"], metrics["box"], metrics["mask"], scheduler.get_last_lr()[0],
             )
         if done % cfg.checkpoint_every == 0 or done == max_iter:
-            state = {
-                "step": done,
-                "model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
-                "scheduler": scheduler.state_dict(),
-            }
-            torch.save(state, ckpt_dir / f"step_{done:08d}.pt")
-            for _, old in _checkpoints(ckpt_dir)[:-_KEEP_CHECKPOINTS]:
-                old.unlink()
+            if rank == 0:
+                state = {
+                    "step": done,
+                    "model": model.state_dict(),
+                    "optimizer": optimizer.state_dict(),
+                    "scheduler": scheduler.state_dict(),
+                }
+                torch.save(state, ckpt_dir / f"step_{done:08d}.pt")
+                for _, old in _checkpoints(ckpt_dir)[:-_KEEP_CHECKPOINTS]:
+                    old.unlink()
+            _barrier(dev)
 
     final = out_dir / f"model_final_{cfg.backbone.lower()}.pt"
-    torch.save(
-        {"model": model.state_dict(), "backbone": cfg.backbone, "num_classes": num_classes}, final
-    )
-    log.info("Final weights: %s", final)
+    if rank == 0:
+        torch.save(
+            {"model": model.state_dict(), "backbone": cfg.backbone, "num_classes": num_classes}, final
+        )
+        log.info("Final weights: %s", final)
+    _barrier(dev)
     return str(final), metrics
+
+
+def _indexed_device(device) -> torch.device:
+    """:func:`resolve_device`, a GPU named by its index: ``cuda`` alone is the
+    thread's current GPU (the one ``maybe_init_distributed`` gave a
+    launcher's rank), as NCCL's barrier takes it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _barrier(dev: torch.device) -> None:
+    """Every rank of the process group, if there is one, waits here (the
+    files rank 0 wrote exist after it); ``dev`` is this rank's device."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[dev.index])
+    else:
+        dist.barrier()
 
 
 def train(
@@ -351,13 +557,20 @@ def train(
     resume: bool = True,
     max_steps_override: Optional[int] = None,
     device=None,
+    devices: Optional[Sequence] = None,
 ) -> Tuple[str, Dict[str, float]]:
     """Train Mask R-CNN on registered records (``data/datasets.py``) ->
     (final weights path, last step's losses): the ``TrainLoader`` of the
     config's size, augmentation and workers feeds :func:`train_on_batches`,
     and the schedule is :func:`auto_max_iter` of the record count unless
-    ``max_steps_override`` or ``cfg.max_iter`` sets it."""
-    dev = resolve_device(device)
+    ``max_steps_override`` or ``cfg.max_iter`` sets it. Data-parallel as
+    :func:`train_on_batches` is: every rank runs the loader with the same
+    seed, so the ranks' blocks make one global batch."""
+    ranks = rank_devices(device, devices, cfg.ims_per_batch)
+    if ranks is not None:
+        return start_ranks(ranks, train, records=records, num_classes=num_classes, output_dir=output_dir, cfg=cfg,
+                           init_checkpoint=init_checkpoint, resume=resume, max_steps_override=max_steps_override)
+    dev = _indexed_device(device)
     max_iter = max_steps_override or cfg.max_iter or auto_max_iter(len(records))
     loader = TrainLoader(
         records, cfg.ims_per_batch, cfg.train_size, cfg.max_instances, cfg.augment, cfg.seed,

@@ -18,7 +18,11 @@
     space, maximising segm AP; trial directories are removed in
     ``finally``.
 
-Entry points run on ``cuda`` unless ``device`` names another. Left out:
+Entry points run on ``cuda`` unless ``device`` names another; training
+runs data-parallel over the host's GPUs (``trainer.py``). In a process
+group that a launcher started (``torchrun``), every rank trains and rank 0
+alone evaluates; the HPO search runs in one process, which starts the
+ranks of each trial itself. Left out:
 nothing of the JAX module; the TPU-only training fields it sets
 (``roi_backend``, ``steps_per_dispatch``, ``donate_buffers``) have no
 counterpart in the port's ``TrainConfig``.
@@ -45,7 +49,7 @@ from deepemia_tpu_torch.data.datasets import (
     register_datasets,
 )
 from deepemia_tpu_torch.train.evaluator import evaluate_predictions
-from deepemia_tpu_torch.train.trainer import TrainConfig, train
+from deepemia_tpu_torch.train.trainer import TrainConfig, process_group, train
 from deepemia_tpu_torch.utils.exceptions import TrainingError
 
 log = logging.getLogger("deepemia_tpu_torch.workflow")
@@ -144,6 +148,10 @@ def train_on_dataset(
     config) fine-tunes from zoo weights, re-initialising class-count heads
     that do not match."""
     config = config or get_config(dataset_name)
+    rank, world = process_group()
+    if optimize and world > 1:
+        raise TrainingError(f"the HPO search runs in one process, not in a process group of {world} ranks: it "
+                            "starts each trial's ranks itself")
     check_disk_space(split_dir)
     class_names = _register(config, dataset_name)
     train_records = _registered_records(dataset_name, "train")
@@ -189,6 +197,9 @@ def train_on_dataset(
         ckpt, train_metrics = train(
             train_records, len(class_names), out_dir, cfg, max_steps_override=max_steps_override, device=device
         )
+        if rank > 0:  # rank 0 evaluates
+            results[backbone] = {"checkpoint": ckpt, **{f"train/{k}": v for k, v in train_metrics.items()}}
+            continue
         eval_metrics = evaluate_model(
             dataset_name, split_dir, rcnn=int(backbone[1:]), config=config, visualize=False, device=device
         )

@@ -5,13 +5,15 @@ whether to go on without one (``utils/device.py``). The port's entry points
 run on CUDA unless the caller asks for the CPU, so the preflight reports
 the card (name, power limit, memory, compute capability, device count) and
 raises when CUDA is asked for and absent; it never falls back to the CPU.
-The JAX module's multi-host start and mesh helpers belong to tile sharding
-across GPUs (ROADMAP A8) and are not ported.
+``maybe_init_distributed`` is the JAX module's multi-host start, for
+``torch.distributed``; the device lists of the parallel axes are in
+``parallel/mesh.py``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import subprocess
 from typing import Dict
 
@@ -67,3 +69,41 @@ def check_accelerator_availability(device: str = "cuda") -> Dict[str, object]:
         info["torch"], info["cuda"],
     )
     return info
+
+
+def maybe_init_distributed(device: str = "cuda") -> bool:
+    """Start ``torch.distributed`` from the environment a launcher sets
+    (``deepemia_tpu/utils/device.py:183-216``): ``torchrun``'s
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``, or
+    ``DEEPEMIA_DISTRIBUTED=1`` beside them. NCCL on CUDA, with each rank's
+    current GPU ``LOCAL_RANK`` (else the rank modulo the GPUs); gloo on the
+    CPU. Returns False, doing nothing, when nothing is set, and True when a
+    process group runs (this start's or an earlier one's).
+
+    A start that fails raises ``PipelineError``: the JAX function warns and
+    runs on one host, but a run of several processes that was asked for
+    must not go on quietly as one."""
+    import torch.distributed as dist
+
+    env = os.environ
+    if env.get("DEEPEMIA_DISTRIBUTED") != "1" and not all(env.get(k) for k in ("MASTER_ADDR", "RANK", "WORLD_SIZE")):
+        return False
+    if dist.is_initialized():
+        return True
+    missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE") if not env.get(k)]
+    if missing:
+        raise PipelineError(f"torch.distributed was asked for but {', '.join(missing)} is not set", stage="distributed")
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    try:
+        if backend == "nccl":
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available")
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", int(env["RANK"]) % torch.cuda.device_count())))
+        dist.init_process_group(backend, init_method="env://")
+    except Exception as e:  # noqa: BLE001 - reported with what was asked for
+        raise PipelineError(
+            f"torch.distributed failed to start ({backend}, rank {env['RANK']} of {env['WORLD_SIZE']} at "
+            f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}): {e}", stage="distributed",
+        ) from e
+    log.info("torch.distributed started: rank %d of %d (%s)", dist.get_rank(), dist.get_world_size(), backend)
+    return True

@@ -6,9 +6,9 @@ subprocesses: the same exit code and the same files out, the RLE CSV
 equal and the measurement CSV to 1e-4 relative; ``--task prepare``, then
 ``train --max-iter 2``, then ``evaluate --visualize`` with ``--device cpu``
 on a 3-image 64² dataset (the split file, the final weights, metrics.csv
-with the JAX evaluator's metric names, the ETA store); the refusals of what
-is not ported, with exit code 2 and the ROADMAP item; ``--cleanup`` within
-its allowed bases."""
+with the JAX evaluator's metric names, the ETA store); ``--chips 2`` with
+``--device cpu`` (two tile shards on the CPU for inference; train runs with
+it); ``--cleanup`` within its allowed bases."""
 
 import contextlib
 import json
@@ -149,17 +149,6 @@ def test_inference_task_matches_the_jax_cli(tmp_path, tiny_r50):
     assert "CPU" in got.stderr and "ETA" in got.stderr
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--task", "train", "--dataset_name", "zds", "--chips", "4"], "A8"),
-    (["--task", "inference", "--dataset_name", "zds", "--chips", "4"], "A8"),
-])
-def test_what_is_not_ported_exits_2(argv, item, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.cli_entry(argv)
-    assert e.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
-
-
 def test_quantized_reaches_the_config(tmp_path, tiny_r50, monkeypatch):
     """``--quantized trunk`` sets ``performance.quantized_inference``, as the
     JAX CLI does: the pipeline serves the int8 trunk (all 53 ResNet convs)
@@ -196,7 +185,7 @@ def dataset_home(tmp_path_factory):
     """A home with a 3-image 64² dataset (DATASET/zds), its dataset_info
     entry and a config.yaml that trains at 64² with 8 GT slots and one
     loader worker, in float32; then ``--task prepare``, ``train --rcnn 50
-    --max-iter 2`` and ``evaluate --rcnn 50 --visualize``, each with
+    --max-iter 2 --chips 2`` and ``evaluate --rcnn 50 --visualize``, each with
     ``--device cpu --no-download --no-upload`` -> (home, exit codes, what
     the run left in ``rcnn_r50/``: the checkpoint names and the final
     weights' backbone, class count and class-head shape; the weight files
@@ -215,7 +204,7 @@ def dataset_home(tmp_path_factory):
         mp.setattr(port_cfg, "_default_store", None)
         mp.setattr(port_wf, "TrainConfig", lambda **kw: TrainConfig(loss_caps=SMALL_CAPS, **kw))
         port_ds.catalog_clear()
-        for task in (["prepare"], ["train", "--rcnn", "50", "--max-iter", "2"],
+        for task in (["prepare"], ["train", "--rcnn", "50", "--max-iter", "2", "--chips", "2"],
                      ["evaluate", "--rcnn", "50", "--visualize"]):
             with pytest.raises(SystemExit) as e:
                 cli.cli_entry(["--task", *task, "--dataset_name", "zds", "--no-download", "--no-upload",
@@ -264,6 +253,35 @@ def test_evaluate_task_writes_metrics(dataset_home):
     assert float(values["num_images"]) == 1 and float(values["eval_seconds"]) > 0
     eta = json.loads((home / "config" / "eta_data.json").read_text())
     assert set(eta) >= {"prepare", "train", "evaluate"}
+
+
+def test_chips_above_1_run_on_the_cpu(tmp_path, tiny_r50, monkeypatch):
+    """``--chips 2 --device cpu`` exits 0. Inference shards every image's
+    tile grid (a 2x2 grid of 96 px tiles, two chunks) over two CPU shards
+    and writes its CSVs."""
+    from deepemia_tpu_torch.inference import pipeline as port_pipeline
+
+    home = make_home(tmp_path / "home", _zoo_state_dict(tiny_r50[1]))
+    cfg = yaml.safe_load((home / "config" / "config.yaml").read_text())
+    cfg["inference_settings"]["use_tile_based_inference"] = True
+    cfg["inference_settings"]["tile_settings"].update(tile_size=96, upscale_factor=1.0, tile_batch_size=2)
+    (home / "config" / "config.yaml").write_text(yaml.safe_dump(cfg, sort_keys=False))
+    monkeypatch.setenv("DEEPEMIA_TPU_HOME", str(home))
+    monkeypatch.setattr(port_cfg, "_default_store", None)
+    seen = []
+    init = port_pipeline.InferencePipeline.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen.append((self.config["performance"]["inference_chips"], self.tile_devices, self.engine.devices))
+
+    monkeypatch.setattr(port_pipeline.InferencePipeline, "__init__", spy)
+    with pytest.raises(SystemExit) as e:
+        cli.cli_entry([*FLAGS, "--chips", "2", "--device", "cpu"])
+    assert e.value.code == 0
+    assert seen == [(2, [torch.device("cpu")] * 2, [torch.device("cpu")] * 2)]
+    assert len((home / "output" / "measurements_results.csv").read_text().splitlines()) > 1
+    port_cfg._default_store = None
 
 
 def test_inference_without_a_dataset_name_exits_2(capsys):
