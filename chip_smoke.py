@@ -216,15 +216,36 @@ It builds the CUDA kernels from the sources in the checkout and then:
      the gap also read in ulps), then
      ``--task train --max-iter 3`` through the CLI in an NCCL process group
      of world size 1. Each check prints its launches and times beside the
-     card's name and power limit. ``python3 -c "import chip_smoke;
-     chip_smoke.parallel_only()"`` runs phases 11 and 16 alone.
+     card's name and power limit.
+ 17. ranks of a process group, on the one card (two ranks share it over
+     gloo, since NCCL refuses two ranks on one GPU): (a) ``--task inference
+     --visualize --id --draw-scalebar`` through the CLI in two processes
+     started as ``torchrun`` starts them (``MASTER_ADDR``, ``RANK``,
+     ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``; each sees
+     ``cuda:0`` as its GPU through ``$SMOKE_LOCAL_DEVICES``), each on its
+     own copy of phase 12's home: bf16, its rows held to phase 12's
+     one-process rows, then ``--quantized trunk`` held to the same run in
+     an NCCL process group of world size 1 (exit 0); every image processed
+     and every bar read on both ranks, rank 1 writing no result, and each
+     kernel's launches on the two ranks (K1, K4, K5, printed per rank) adding
+     up to the one-process run's; (b) one float32 training step with
+     ``n_model_shards=2`` on two such ranks (data 1 x model 2: the box
+     head's fc1 and fc2 split) against phase 16 (c)'s one-process step on
+     the same global batch (every weight within RANKS_TOL of the largest
+     update, the gap also read in ulps; the losses to 1e-4), 2 K1 and 2 K2
+     launches on each rank, which collectives gloo takes on CUDA tensors,
+     and the checkpoint rank 0 wrote loaded into one process equal to what
+     each rank held. ``python3 -c "import chip_smoke;
+     chip_smoke.parallel_only()"`` runs phases 11, 12 (the rows phase 17
+     (a) is held to), 16 and 17 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
-phases 11, 12, 14, 15 and 16 (a, b) before phase 13, and phase 16 (c)
-before phase 10. K1's ``launches`` in the kernel line is the sum of phases
-3, 9, 11, 12, 13, 15 and 16, K2's of phases 7, 13 and 16, K4's and K5's of
-phase 14's two CLI runs, phase 15's wizard task and phase 16's two-shard
-int8 engine, each counted from zero over its own run.
+phases 11, 12, 14, 15, 16 (a, b) and 17 (a) before phase 13, and phases
+16 (c) and 17 (b) before phase 10. K1's ``launches`` in the kernel line is
+the sum of phases 3, 9, 11, 12, 13, 15, 16 and 17, K2's of phases 7, 13,
+16 and 17, K4's and K5's of phase 14's two CLI runs, phase 15's wizard
+task, phase 16's two-shard int8 engine and phase 17's ``--quantized trunk``
+runs, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -760,13 +781,13 @@ def phase_train(batches):
     steps = []
     real = trainer_mod.train_step
 
-    def timed(model, opt, *args):
+    def timed(model, opt, *args, **kw):
         first = not steps
         if first:
             before = {n: p.detach().clone() for n, p in model.named_parameters()}
             lr = opt.param_groups[0]["lr"]
         k1, k2 = counter.launches, bwd_counter.launches
-        metrics, dt = sync_time(lambda: real(model, opt, *args))
+        metrics, dt = sync_time(lambda: real(model, opt, *args, **kw))
         steps.append(dict(metrics, seconds=dt, k1=counter.launches - k1, k2=bwd_counter.launches - k2))
         if first:
             check_first_update(model, opt, before, lr, cfg)
@@ -1839,7 +1860,9 @@ def cli_child(out_json: str, *argv: str) -> int:
     real_run = pipeline_mod.InferencePipeline.run
 
     def run(self, *a, **kw):
-        layouts.append({"tile_devices": [str(d) for d in self.tile_devices], "member_parallel": self.member_parallel,
+        # a process group's tile devices are (rank, device) pairs
+        layouts.append({"tile_devices": [str(d[1] if isinstance(d, tuple) else d) for d in self.tile_devices],
+                        "member_parallel": self.member_parallel,
                         "engines": [[str(d) for d in e.devices] for _, e, _ in self.engines]})
         results.append(real_run(self, *a, **kw))
         return results[-1]
@@ -3947,7 +3970,8 @@ def phase_ranks(card):
     ``--task train --max-iter 3`` through the CLI in its own process, inside
     an NCCL process group of world size 1 (``MASTER_ADDR``, ``RANK``,
     ``WORLD_SIZE`` set, as ``torchrun`` does). -> (K1, K2 launches of the
-    one-process step and the CLI's training)."""
+    one-process step and the CLI's training, the one-process step: its
+    weights, losses and largest update, for phase 17 (b))."""
     import shutil
 
     import yaml
@@ -4014,12 +4038,286 @@ def phase_ranks(card):
           f"roi_align_bwd launches={child['k2_launches']}; the CLI process took {wall:.1f} s ({card})", flush=True)
     shutil.rmtree(RANKS_DIR, ignore_errors=True)
     print(f"phase 16 (c): {time.perf_counter() - t_start:.1f} s (the step's part {t_step:.1f} s)", flush=True)
-    return k1 + child["launches"], k2 + child["k2_launches"]
+    return k1 + child["launches"], k2 + child["k2_launches"], (ref, ref_metrics, largest)
+
+
+# phase 17: ranks of a process group on the one card (two ranks share it over
+# gloo, since NCCL refuses two ranks on one GPU)
+RANK_TIMEOUT_S = 300
+
+
+def wait_ranks(procs):
+    """Wait for the rank processes ``procs``; when one exits nonzero, or at
+    RANK_TIMEOUT_S, kill the rest (a rank left alone waits in a collective
+    for good)."""
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    try:
+        while any(proc.poll() is None for proc in procs):
+            if time.perf_counter() > deadline or any(proc.poll() not in (None, 0) for proc in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def cli_ranks(homes, argv, env=None):
+    """``cli_child`` in one process a rank, started as ``torchrun`` starts
+    them (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), rank r on ``homes[r]``, its output
+    in files (a full pipe would stall a rank inside a collective); every
+    rank killed at RANK_TIMEOUT_S -> (each rank's JSON report, the wall
+    seconds, each rank's standard error)."""
+    from deepemia_tpu_torch.train.trainer import _free_port
+
+    port, world = _free_port(), len(homes)
+    procs = []
+    t0 = time.perf_counter()
+    for r, home in enumerate(homes):
+        out_json = os.path.join(home, "child.json")
+        log = open(os.path.join(home, "child.log"), "w")
+        e = {**os.environ, "DEEPEMIA_TPU_HOME": home, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+             "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world),
+             **(env or {})}
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.cli_child({out_json!r}, *{argv!r}))"],
+            cwd=ROOT, env=e, stdout=log, stderr=subprocess.STDOUT), out_json, log))
+    try:
+        wait_ranks([proc for proc, _, _ in procs])
+    finally:
+        for _, _, log in procs:
+            log.close()
+    wall = time.perf_counter() - t0
+    reports, logs = [], []
+    for r, (proc, out_json, log) in enumerate(procs):
+        with open(log.name) as f:
+            logs.append(f.read())
+        if proc.returncode != 0 or not os.path.exists(out_json):
+            print(logs[-1][-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"rank {r} of the CLI's {world} exited {proc.returncode}")
+        with open(out_json) as f:
+            reports.append(json.load(f))
+        os.remove(out_json)
+        assert reports[-1]["rc"] == 0, (r, reports[-1]["rc"], logs[-1][-4000:])
+    return reports, wall, logs
+
+
+def hold_rows(tag, got, ref, share=PANEL_MATCH_SHARE):
+    """``got``'s (RLE, measurement) rows against ``ref``'s: identical, or
+    else, image by image, instances at mask IoU >= PIPE_MIN_IOU and rows by
+    value, at least ``share`` of each. -> whether they are identical."""
+    same = got == ref
+    names = sorted({r[0] for r in ref[0]} | {r[0] for r in got[0]})
+    for n in names if not same else []:
+        a = csv_agreement(*rows_by_image(*got, n), *rows_by_image(*ref, n))
+        print(f"{tag}, {n}: {json.dumps(a)}", flush=True)
+        assert a["inst"] >= share and a["rows"] >= share, (tag, n, a)
+    return same
+
+
+def phase_rank_inference(model, images, phase12, card):
+    """Phase 17 (a): ``--task inference --visualize --id --draw-scalebar``
+    through the CLI in two ranks (``cli_ranks``: gloo, both on ``cuda:0``,
+    which ``$SMOKE_LOCAL_DEVICES`` shows each rank as its GPU), on phase
+    12's three micrographs, home and config, each rank on a home of its
+    own: bf16, held to phase 12's one-process rows (``phase12``: its K1
+    launches and rows); then ``--quantized trunk`` in an NCCL group of
+    world size 1 (one process: exit 0) and in the two ranks, held to it.
+    Rank 1 writes no result; each kernel's per-rank launches add up to the
+    one-process run's. -> (K1, K4, K5 launches of the five processes)."""
+    import shutil
+
+    t_start = time.perf_counter()
+    homes = [cli_home(model, images, name=f"ranks{r}")[0] for r in range(2)]
+    argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--id", "--draw-scalebar",
+            "--no-download", "--no-upload"]
+    two = {"SMOKE_LOCAL_DEVICES": ",".join(TWO_ON_ONE)}
+    from deepemia_tpu_torch.train.trainer import _free_port
+
+    one = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
+    single, wall1, proc = cli_subprocess(homes[0], argv + ["--quantized", "trunk"], one)
+    started = [ln for ln in proc.stderr.splitlines() if "torch.distributed started" in ln]
+    assert started and "rank 0 of 1 (nccl)" in started[0], proc.stderr[-3000:]
+    print(f"rank inference: --task inference --quantized trunk in an NCCL process group of world size 1: exit 0, "
+          f"'{started[0].split(': ', 1)[-1]}', launches roi_align_fwd={single['launches']} "
+          f"int8_conv={single['k4_launches']} int8_quant={single['k5_launches']}; the process took {wall1:.1f} s "
+          f"({card})", flush=True)
+    res1 = single["result"]
+    quant_ref = (read_csv(res1["rle_csv"])[1:], read_csv(res1["measurements_csv"])[1:])
+    shutil.rmtree(res1["output_dir"])
+    launches = {"k1": single["launches"], "k4": single["k4_launches"], "k5": single["k5_launches"]}
+    for label, extra, (ref_k1, ref_rows), ref_k45 in (
+            ("bf16", [], phase12, (0, 0)),
+            ("--quantized trunk", ["--quantized", "trunk"], (single["launches"], quant_ref),
+             (single["k4_launches"], single["k5_launches"]))):
+        reports, wall, logs = cli_ranks(homes, argv + extra, two)
+        started = [next(ln for ln in lg.splitlines() if "torch.distributed started" in ln) for lg in logs]
+        assert all(f"rank {r} of 2 (gloo)" in ln for r, ln in enumerate(started)), started
+        names = sorted(os.listdir(os.path.join(homes[0], "DATASET", "INFERENCE")))
+        for r, rep in enumerate(reports):
+            res = rep["result"]
+            assert res["processed"] == names and not res["failed"], (r, res)
+            assert rep["layout"]["tile_devices"] == ["cuda:0", "cuda:0"], rep["layout"]
+        res = reports[0]["result"]
+        rows = (read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:])
+        # the config store makes the (empty) output folder on every rank, as the JAX package's does
+        out1 = reports[1]["result"]["output_dir"]
+        assert not os.path.exists(out1) or not os.listdir(out1), f"rank 1 wrote results: {os.listdir(out1)}"
+        check_scale_bars(res, [[]] + rows[1], names)
+        same = hold_rows(f"ranks, {label}", rows, ref_rows)
+        per_rank = [(rep["launches"], rep["k4_launches"], rep["k5_launches"]) for rep in reports]
+        sums = tuple(map(sum, zip(*per_rank)))
+        secs = [rep["result"]["seconds_per_image"] for rep in reports]
+        print(f"rank inference, {label}: two ranks (gloo, {TWO_ON_ONE}), 3 images 2048²: rows identical to the "
+              f"one-process run's={same}; launches per rank (roi_align_fwd, int8_conv, int8_quant) {per_rank}, "
+              f"sums {sums}, one process ({ref_k1}, {ref_k45[0]}, {ref_k45[1]}); rank 1 wrote nothing; seconds per "
+              f"image rank 0 {[round(x, 4) for x in secs[0]]} rank 1 {[round(x, 4) for x in secs[1]]}; the ranks "
+              f"took {wall:.1f} s ({card})", flush=True)
+        assert sums == (ref_k1, *ref_k45), (sums, ref_k1, ref_k45)
+        assert all(rep["launches"] == rep["with_rois"] for rep in reports), \
+            "a multilevel RoIAlign of a rank did not launch K1"
+        for key, i in (("k1", 0), ("k4", 1), ("k5", 2)):
+            launches[key] += sums[i]
+        shutil.rmtree(res["output_dir"])
+    print(f"phase 17 (a): {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches["k1"], launches["k4"], launches["k5"]
+
+
+def tp_rank_child(out_path: str, out_dir: str) -> int:
+    """A launcher's rank on CUDA (``maybe_init_distributed``): which
+    collectives gloo takes on CUDA tensors, then ``train_on_batches`` at
+    ``n_model_shards=2`` for one float32 step on phase 16 (c)'s batch; writes
+    its K1 and K2 launches, losses, the collectives and the weights it held
+    (its blocks of fc1 and fc2) to ``out_path``."""
+    import torch.distributed as dist
+
+    from deepemia_tpu_torch.kernels.roi_align import bwd_counter, counter
+    from deepemia_tpu_torch.train import trainer as trainer_mod
+    from deepemia_tpu_torch.utils.device import maybe_init_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert maybe_init_distributed("cuda")
+    takes = {}
+    t = torch.ones(4, device="cuda")
+    for name, call in (("all_reduce", lambda: dist.all_reduce(t.clone())),
+                       ("broadcast", lambda: dist.broadcast(t.clone(), src=0)),
+                       ("all_gather", lambda: dist.all_gather([torch.empty_like(t) for _ in range(2)], t)),
+                       ("gather", lambda: dist.gather(t, [torch.empty_like(t) for _ in range(2)]
+                                                      if dist.get_rank() == 0 else None, dst=0))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            takes[name] = True
+        except RuntimeError as e:
+            takes[name] = str(e).splitlines()[0][:200]
+    held = {}
+    real = trainer_mod.full_state
+
+    def full_state(model, optimizer):
+        held.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        return real(model, optimizer)
+
+    trainer_mod.full_state = full_state
+    cfg = trainer_mod.TrainConfig(use_bf16=False, warmup_iters=0, checkpoint_every=1000, log_every=1,
+                                  n_model_shards=2)
+    counter.launches = bwd_counter.launches = 0
+    try:
+        t0 = time.perf_counter()
+        path, metrics = trainer_mod.train_on_batches(synthetic_train_batches(1, seed=17), 2, out_dir, cfg,
+                                                     max_steps_override=1, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        torch.save({"rank": dist.get_rank(), "k1": counter.launches, "k2": bwd_counter.launches, "path": path,
+                    "metrics": metrics, "takes": takes, "held": held, "seconds": secs}, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_tp_training(one_step, card):
+    """Phase 17 (b): one float32 training step with ``n_model_shards=2`` on
+    two ranks on the one card (data 1 x model 2; ``tp_rank_child`` in two
+    processes started as ``torchrun`` starts them, gloo) against phase 16
+    (c)'s one-process step on the same global batch: every weight within
+    RANKS_TOL of the largest update (the gap also read in ulps), the losses
+    to 1e-4; 2 K1 and 2 K2 launches on each rank (each runs its data block
+    whole); the checkpoint rank 0 wrote, loaded into one process, equal to
+    what each rank held (the whole parameters, and its block of fc1 and
+    fc2). -> (K1, K2 launches of both ranks)."""
+    import shutil
+
+    from deepemia_tpu_torch.models.heads import block_bounds
+    from deepemia_tpu_torch.models.mask_rcnn import build_train_model
+    from deepemia_tpu_torch.train.trainer import _free_port
+
+    t_start = time.perf_counter()
+    ref, ref_metrics, largest = one_step
+    out_dir = os.path.join(RANKS_DIR, "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": str(r), "WORLD_SIZE": "2",
+               "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2"}
+        out = os.path.join(RANKS_DIR, f"tp_rank{r}.pt")
+        log = open(os.path.join(RANKS_DIR, f"tp_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.tp_rank_child({out!r}, {out_dir!r}))"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), out, log))
+    try:
+        wait_ranks([proc for proc, _, _ in procs])
+    finally:
+        for _, _, log in procs:
+            log.close()
+    wall = time.perf_counter() - t_start
+    got = []
+    for r, (proc, out, log) in enumerate(procs):
+        if proc.returncode != 0 or not os.path.exists(out):
+            with open(log.name) as f:
+                print(f.read()[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"tensor-parallel rank {r} exited {proc.returncode}")
+        got.append(torch.load(out, map_location="cpu"))
+    print(f"tp: gloo's collectives on CUDA tensors (as called, before any staging): {json.dumps(got[0]['takes'])}",
+          flush=True)
+    full = torch.load(got[0]["path"], map_location="cpu")["model"]
+    gap = weight_gap(full, ref, largest)
+    metrics = got[0]["metrics"]
+    print(f"tp: one step, 2 x 512², float32, data 1 x model 2 on {TWO_ON_ONE} (gloo) vs one process: largest "
+          f"update {largest:.4g}; {gap[0]}; losses "
+          f"{json.dumps({k: [round(metrics[k], 6), round(ref_metrics[k], 6)] for k in ('total', 'cls', 'box')})}; "
+          f"launches per rank (roi_align_fwd, roi_align_bwd) {[(g['k1'], g['k2']) for g in got]}; the step on the "
+          f"ranks {[round(g['seconds'], 2) for g in got]} s, wall {wall:.1f} s (process starts included) ({card})",
+          flush=True)
+    assert gap[1] <= RANKS_TOL, gap
+    for k in ("total", "rpn_cls", "rpn_loc", "cls", "box", "mask"):
+        assert abs(metrics[k] - ref_metrics[k]) <= 1e-4 * max(abs(ref_metrics[k]), 1e-3), (k, metrics, ref_metrics)
+    assert [(g["k1"], g["k2"]) for g in got] == [(2, 2), (2, 2)]
+    one = build_train_model("R50", 2, device="cpu")
+    one.load_state_dict(full, strict=True)
+    loaded = one.state_dict()
+    dims = {"roi_heads.box_head.fc1.weight": 0, "roi_heads.box_head.fc2.weight": 1}
+    for g in got:
+        for k, v in g["held"].items():
+            want = loaded[k]
+            if k in dims:
+                a, b = block_bounds(1024, g["rank"], 2)
+                want = want.narrow(dims[k], a, b - a)
+            assert torch.equal(v, want), (g["rank"], k)
+    print(f"tp: the checkpoint rank 0 wrote loads into one process (strict) and equals what each rank held: fc1 "
+          f"rows and fc2 columns {[block_bounds(1024, r, 2) for r in range(2)]}, every other tensor whole", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 17 (b): {time.perf_counter() - t_start:.1f} s", flush=True)
+    return sum(g["k1"] for g in got), sum(g["k2"] for g in got)
 
 
 def parallel_only():
-    """Phases 1, 11 and 16 alone (phase 3's R50 weights rebuilt from their
-    seed; phase 11 makes the rows phase 16 (b) is held to)."""
+    """Phases 1, 11, 16 and 17 alone (phase 3's R50 weights rebuilt from
+    their seed; phase 11 makes the rows phase 16 (b) is held to, phase 12's
+    CLI run those phase 17 (a) is held to)."""
     import shutil
 
     from deepemia_tpu_torch.kernels import _build
@@ -4037,13 +4335,19 @@ def parallel_only():
             model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
             sane_geometry(model)
             _, _, ensemble_rows = phase_ensemble(model, images)
-            t1 = time.perf_counter()
+        phase12 = phase_cli(model, images)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
             k1a, k4, k5 = phase_sharded_serving(model, images[0], card)
         k1b = phase_chips_cli(model, images, ensemble_rows, card)
-        k1c, k2 = phase_ranks(card)
-        print(json.dumps({"roi_align_fwd": k1a + k1b + k1c, "roi_align_bwd": k2, "int8_conv": k4,
-                          "int8_quant": k5}), flush=True)
-        print(f"phase 16: {time.perf_counter() - t1:.1f} s (phase 11 before it {t1 - t0:.1f} s)", flush=True)
+        k1c, k2, one_step = phase_ranks(card)
+        t2 = time.perf_counter()
+        k1d, k4d, k5d = phase_rank_inference(model, images, phase12, card)
+        k1e, k2e = phase_tp_training(one_step, card)
+        print(json.dumps({"roi_align_fwd": k1a + k1b + k1c + k1d + k1e, "roi_align_bwd": k2 + k2e,
+                          "int8_conv": k4 + k4d, "int8_quant": k5 + k5d}), flush=True)
+        print(f"phase 16: {t2 - t1:.1f} s, phase 17: {time.perf_counter() - t2:.1f} s (phases 11 and 12 before "
+              f"them {t1 - t0:.1f} s)", flush=True)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(RANKS_DIR, ignore_errors=True)
@@ -4164,6 +4468,7 @@ def main() -> int:
             ensemble_launches, ensemble_errs, ensemble_rows = phase_ensemble(model, images)
         lap(11)
         cli_launches, cli_rows = phase_cli(model, images)
+        phase12 = (cli_launches, cli_rows)
         with torch.inference_mode():
             cli_launches += phase_device_measurements(model, images)
             cli_launches += phase_windowed_rle(model)
@@ -4181,6 +4486,8 @@ def main() -> int:
             shard_k1, shard_k4, shard_k5 = phase_sharded_serving(model, images[0], card)
         shard_k1 += phase_chips_cli(model, images, ensemble_rows, card)
         lap("16 (a, b)")
+        rank_k1, rank_k4, rank_k5 = phase_rank_inference(model, images, phase12, card)
+        lap("17 (a)")
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(INT8_DIR, ignore_errors=True)
@@ -4190,10 +4497,12 @@ def main() -> int:
         shutil.rmtree(DATASET_DIR, ignore_errors=True)
     lap(13)
     try:
-        ranks_k1, ranks_k2 = phase_ranks(card)
+        ranks_k1, ranks_k2, one_step = phase_ranks(card)
+        lap("16 (c)")
+        tp_k1, tp_k2 = phase_tp_training(one_step, card)
+        lap("17 (b)")
     finally:
         shutil.rmtree(RANKS_DIR, ignore_errors=True)
-    lap("16 (c)")
     k3_rows, k3_launches = phase_window_sum()
     lap(10)
 
@@ -4207,9 +4516,10 @@ def main() -> int:
         # measurement backend and the 4096² image), 13 (training from a dataset), 15 (the tasks the panel
         # and the wizard started, as their CLI logged them) and 16 (two tile shards, bf16 and int8; the
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
-        # group), each counted from zero
+        # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
+        # the tensor-parallel step), each counted from zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -4223,9 +4533,9 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_bwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
-        # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI) and
-        # 16 (the one-process step and the CLI's training in an NCCL group)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2,
+        # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI), 16 (the
+        # one-process step and the CLI's training in an NCCL group) and 17 (both ranks of the tensor-parallel step)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2,
         "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
@@ -4272,9 +4582,9 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/int8_conv.cu",
         "replaces": "deepemia_tpu/models/quant.py:105",
         # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's
-        # process, phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them, and phase 16's
-        # two-shard int8 engine (one image)
-        "launches": int8_launches + entry_k4 + shard_k4,
+        # process, phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them, phase 16's
+        # two-shard int8 engine (one image) and phase 17's --quantized trunk runs (two ranks, an NCCL group of one)
+        "launches": int8_launches + entry_k4 + shard_k4 + rank_k4,
         "max_abs_err": int8_err,
         # one R50 trunk forward (its 53 convs) of a 16-tile batch of 1024² inputs, bf16: each distinct shape's
         # time_ms median x the convs of that shape; library_ms: torch._int_mm (the int32 product alone) at the
@@ -4309,10 +4619,11 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/int8_quant.cu",
         "replaces": "deepemia_tpu/models/quant.py:53",
         # phase 14's CLI runs, --quantized trunk and full, counted from zero in the CLI's process, and phase 15's
-        # wizard task, as its CLI logged them, and phase 16's two-shard int8 engine; one launch a quantized input
+        # wizard task, as its CLI logged them, phase 16's two-shard int8 engine and phase 17's --quantized trunk
+        # runs (two ranks, an NCCL group of one); one launch a quantized input
         # that comes with its producer's max (47 of a trunk forward's 49), two for the others (its max pass and
         # its quantize pass)
-        "launches": quant_launches + entry_k5 + shard_k5,
+        "launches": quant_launches + entry_k5 + shard_k5 + rank_k5,
         "max_abs_err": quant_err,
         # one R50 trunk forward (its 49 quantized inputs) of a 16-tile batch of 1024² inputs, bf16: each distinct
         # input shape's time_ms median x the quantizations of that shape; plain_ms: the torch-op quantizer and the
@@ -4337,10 +4648,11 @@ def main() -> int:
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
-          f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}; roi_align_bwd launches: ready batches "
-          f"{train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 {ranks_k2}; int8_conv "
-          f"launches: phase 14 {int8_launches}, wizard {entry_k4}, phase 16 {shard_k4}; int8_quant launches: "
-          f"phase 14 {quant_launches}, wizard {entry_k5}, phase 16 {shard_k5}",
+          f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}; roi_align_bwd "
+          f"launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 "
+          f"{ranks_k2}, phase 17 {tp_k2}; int8_conv launches: phase 14 {int8_launches}, wizard {entry_k4}, phase 16 "
+          f"{shard_k4}, phase 17 {rank_k4}; int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}, phase "
+          f"16 {shard_k5}, phase 17 {rank_k5}",
           flush=True)
     print(f"total seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": [kernel, backward, window, int8, quantizer]}), flush=True)

@@ -24,8 +24,12 @@ cpu``, that many shards on the CPU). ``--task train`` trains data-parallel
 on every GPU of the host (``train/trainer.py``). Under a launcher
 (``torchrun``, or ``DEEPEMIA_DISTRIBUTED=1`` with its variables) the task
 starts ``torch.distributed`` first (``utils/device.py:
-maybe_init_distributed``); inference then refuses with exit code 2, for
-tile sharding across processes is not ported (ROADMAP A8b).
+maybe_init_distributed``): ``train`` trains as a rank of the group,
+``inference`` shards each image's tile grid over the devices of every rank
+(``--chips`` then counts those), and ``prepare`` and ``evaluate`` run on
+rank 0 while the other ranks wait for it and exit 0. Rank 0 alone writes
+the results and uploads them (the JAX package writes the same files from
+every process).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from deepemia_tpu_torch.config.config import get_config, get_store
+from deepemia_tpu_torch.parallel import ranks as rank_ops
 from deepemia_tpu_torch.utils.device import check_accelerator_availability, maybe_init_distributed
 from deepemia_tpu_torch.utils.eta import estimate_eta, update_eta_data
 from deepemia_tpu_torch.utils.exceptions import PipelineError
@@ -155,17 +160,25 @@ def run_task(args) -> int:
     if args.task == "setup":
         setup_config_interactive()
         return 0
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if world > 1 and args.task != "train":
-        why = ("tile sharding across processes is not ported (ROADMAP A8b); run one process, which shards over the "
-               "host's GPUs (--chips)" if args.task == "inference" else "only --task train runs data-parallel")
-        print(f"error: --task {args.task} in a process group of {world} ranks: {why}", file=sys.stderr)
-        return 2
-    lead = world == 1 or dist.get_rank() == 0  # the rank that writes the task's records
+    lead = rank_ops.is_lead()  # the rank that writes the task's records
     if not args.dataset_name:
         print("--dataset_name is required for this task", file=sys.stderr)
         return 2
+    if rank_ops.rank_world()[1] > 1 and args.task in ("prepare", "evaluate"):
+        # one rank's work: rank 0 does it, the others wait for it
+        dev = torch.device(args.device)
+        if not lead:
+            rank_ops.barrier(dev)
+            return 0
+        try:
+            return _run(args, lead)
+        finally:
+            rank_ops.barrier(dev)
+    return _run(args, lead)
 
+
+def _run(args, lead: bool) -> int:
+    """The task (not setup) on this rank; ``lead`` writes its records."""
     cfg = get_config(args.dataset_name)
     paths = cfg["paths"]
     setup_logging(paths.get("logs_dir"), args.verbosity)
@@ -260,7 +273,7 @@ def run_task(args) -> int:
 
         system_logger.info("CUDA kernel launches: roi_align_fwd %d, int8_conv %d, int8_quant %d",
                            roi_align.counter.launches, int8_conv.counter.launches, int8_quant.counter.launches)
-        if args.upload:
+        if args.upload and lead:
             try:
                 storage.upload_inference_results(Path(result["output_dir"]))
                 if args.cleanup:

@@ -18,6 +18,21 @@ chunk, not the tile (as in the JAX package's split serving, which hands each
 device one chunk a step, ``engine.py:539-562``): every chunk is the one the
 one-device engine runs, so the result is the one-device engine's, bit for
 bit on the same device.
+
+Across the ranks of a process group (the JAX engine on a mesh that spans
+processes, ``engine.py:700-745``): the list holds ``(rank, device)``
+pairs, every rank's devices in rank order (``parallel/mesh.py:
+global_devices``), and every rank runs ``infer`` on the same image. The
+chunks split into blocks over that list as above; each rank runs the
+blocks of its own devices, in threads. The rank of the first device, the
+lead, runs the whole-image pass meanwhile; the blocks' sets, padded to
+fixed shapes, are gathered there in rank order (which is tile order), the
+lead merges them as one process does, and the merged set and the quality
+score are broadcast, so every rank returns the lead's result, the
+one-device engine's bit for bit. A rank that owns no device of the list
+takes no block and still joins the collectives. A rank whose blocks fail
+says so in the exchange, and the lead whether its merge failed, so that
+every rank raises for that image rather than waiting.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ from deepemia_tpu_torch.ops.image import (
     image_quality_score,
     resize_image,
 )
+from deepemia_tpu_torch.parallel import ranks as rank_ops
 from deepemia_tpu_torch.parallel.mesh import partition_devices
 
 
@@ -122,6 +138,23 @@ def move_instances(inst: InstanceSet, device) -> InstanceSet:
     return InstanceSet(*(t.to(device) for t in inst))
 
 
+# a packed InstanceSet row: box (4), score, class, valid, then the R x R mask
+_PACKED = 7
+
+
+def pack_instances(inst: InstanceSet) -> torch.Tensor:
+    """[K, 7 + R*R] float32, every field exact (class ids below 2**24)."""
+    return torch.cat([inst.boxes.float(), inst.scores.float()[:, None], inst.classes.float()[:, None],
+                      inst.valid.float()[:, None], inst.mask_probs.float().flatten(1)], dim=1)
+
+
+def unpack_instances(rows: torch.Tensor) -> InstanceSet:
+    """The inverse of :func:`pack_instances`."""
+    r = int(round((rows.shape[1] - _PACKED) ** 0.5))
+    return InstanceSet(rows[:, :4], rows[:, 4], rows[:, 5].to(torch.int32), rows[:, 6] != 0,
+                       rows[:, _PACKED:].reshape(-1, r, r))
+
+
 def _device_key(device: torch.device) -> torch.device:
     """``cuda`` and ``cuda:<current>`` name one GPU: the key of a replica."""
     if device.type == "cuda" and device.index is None:
@@ -165,10 +198,19 @@ class TileEngine:
         restricts tile-sourced detections to these class ids. ``device``
         may be a list: the tile shards' devices (one may repeat), the first
         the engine's ``device``, where the results merge; a list of one is
-        the one-device engine."""
-        names = list(device) if isinstance(device, (list, tuple)) else [device]
-        self.devices: List[torch.device] = [resolve_device(d) for d in names]
-        self.device = self.devices[0]
+        the one-device engine. Inside a process group the list may hold
+        ``(rank, device)`` pairs, every rank's devices: this rank's
+        ``device`` is then the first of its own, or, when it owns none of
+        the list, the one the model lies on."""
+        entries = list(device) if isinstance(device, list) else [device]
+        pairs = [e if isinstance(e, tuple) else (None, e) for e in entries]
+        self.rank, self.world = rank_ops.rank_world() if pairs[0][0] is not None else (0, 1)
+        # the rank running each device's block (this one outside a group)
+        self.ranks: List[int] = [self.rank if r is None else r for r, _ in pairs]
+        self.devices: List[torch.device] = [resolve_device(d) for _, d in pairs]
+        self.lead = self.ranks[0] == self.rank
+        mine = [d for r, d in zip(self.ranks, self.devices) if r == self.rank]
+        self.device = mine[0] if mine else next(model.parameters()).device
         self.model = model.to(self.device)
         # one replica a distinct device that gets a block of a grid, the
         # int8 tables included (built at its first block, _replica)
@@ -247,6 +289,51 @@ class TileEngine:
         gboxes = tile_ops.tile_boxes_to_global(inst_b.boxes, offs_b, scale=scale)
         return inst_b._replace(boxes=gboxes, valid=inst_b.valid & keep & ok_b[:, None])
 
+    def _merge(self, parts: List[InstanceSet], settings: ClassSettings, qscale, h: int, w: int) -> InstanceSet:
+        """The parts (whole-image pass first, then the tiles in order)
+        concatenated to the capacity, the class thresholds, the dedup."""
+        if not parts:
+            parts = [empty_instances(self.capacity, device=self.device)]
+        merged = concat_instances(parts, self.capacity)
+        merged = apply_class_thresholds(merged, settings, qscale)
+        stride = max(self.dedup_stride, -(-max(h, w) // 512))
+        return dedup_by_mask_iou(merged, (h, w), self.dedup_iou, stride=stride, class_aware=True)
+
+    def _exchange(self, full: List[InstanceSet], tile_sets: List[InstanceSet], err: Optional[BaseException],
+                  quality, settings, qscale, h: int, w: int) -> Tuple[InstanceSet, torch.Tensor]:
+        """This rank's part of the group's merge: the header (whether its
+        work ran, its tile rows, its row width) to every rank, its blocks'
+        rows gathered on the lead, the lead's merged set and quality
+        broadcast back."""
+        rows = pack_instances(InstanceSet(*(torch.cat(f) for f in zip(*tile_sets)))) if tile_sets else None
+        res = (tile_sets or full)[0].mask_probs.shape[-1] if tile_sets or full else 0
+        header = torch.tensor([int(err is None), 0 if rows is None else rows.shape[0], _PACKED + res * res],
+                              dtype=torch.int64)
+        heads = torch.stack(rank_ops.all_gather(header)).tolist()
+        failed = [r for r, (ok, _, _) in enumerate(heads) if not ok]
+        if failed:
+            raise RuntimeError(f"the tile work failed on rank(s) {failed} of {self.world}") from err
+        width = max(wd for _, _, wd in heads)
+        most = max(1, max(n for _, n, _ in heads))
+        buf = torch.zeros((most, width), dtype=torch.float32, device=self.device)
+        if rows is not None:
+            buf[: rows.shape[0]] = rows
+        lead = self.ranks[0]
+        gathered = rank_ops.gather(buf, dst=lead)
+        out = torch.zeros((self.capacity * width + 2,), dtype=torch.float32, device=self.device)
+        if self.lead:
+            try:
+                sets = [unpack_instances(g[:n]) for g, (_, n, _) in zip(gathered, heads) if n]
+                merged = self._merge(full + sets, settings, qscale, h, w)
+                out = torch.cat([pack_instances(merged).flatten(), quality.float().reshape(1),
+                                 torch.ones(1, device=self.device)])
+            except Exception as e:  # noqa: BLE001 - every rank raises it below
+                err = e
+        out = rank_ops.broadcast(out, src=lead)
+        if out[-1] == 0:
+            raise RuntimeError(f"the merge failed on the lead, rank {lead}") from err
+        return unpack_instances(out[:-2].reshape(self.capacity, width)), out[-2].clone()
+
     @torch.inference_mode()
     def infer(
         self,
@@ -256,9 +343,9 @@ class TileEngine:
     ) -> Tuple[InstanceSet, torch.Tensor]:
         """[H,W,3] uint8/float BGR image -> (InstanceSet, quality). The image
         moves to the device in its own dtype (uint8 moves 4x less than f32).
-        ``upscale`` overrides the tile upscale factor for this call."""
-        image = torch.as_tensor(image).to(self.device)
-        settings = ClassSettings(*(t.to(self.device) for t in settings))
+        ``upscale`` overrides the tile upscale factor for this call. Inside
+        a process group every rank calls it on the same image, and every
+        rank returns the same result."""
         h, w = int(image.shape[0]), int(image.shape[1])
         ts = self.tile_size
         up = self.upscale_factor if upscale is None else upscale
@@ -269,51 +356,61 @@ class TileEngine:
         full_pass = self.full_pass_max_dim > 0 or not tiling
         native_full = max(h, w) <= self.full_pass_max_dim or not tiling
 
-        quality = image_quality_score(image)
-        if self.confidence_mode == "manual":
-            qscale = torch.ones((), device=self.device)
-        else:
-            qscale = adaptive_threshold_scale(quality)
-
-        parts = []
-        if tiling:
-            tiles = tile_ops.extract_tiles(image, grid)
-            offsets = torch.as_tensor(grid.offsets, dtype=torch.float32, device=self.device)
-            chunks = [(a, min(a + self.tile_batch, grid.num_tiles)) for a in range(0, grid.num_tiles, self.tile_batch)]
-        sharded = tiling and len(self.devices) > 1
-        pool = ThreadPoolExecutor(max_workers=len(self.devices), thread_name_prefix="tile-shard") if sharded else None
+        full: List[InstanceSet] = []
+        tile_sets: List[InstanceSet] = []
+        quality = qscale = None
+        err = None
+        pool = None
         try:
+            image = torch.as_tensor(image).to(self.device)
+            settings = ClassSettings(*(t.to(self.device) for t in settings))
+            quality = image_quality_score(image)
+            if self.confidence_mode == "manual":
+                qscale = torch.ones((), device=self.device)
+            else:
+                qscale = adaptive_threshold_scale(quality)
+            if tiling:
+                tiles = tile_ops.extract_tiles(image, grid)
+                offsets = torch.as_tensor(grid.offsets, dtype=torch.float32, device=self.device)
+                chunks = [(a, min(a + self.tile_batch, grid.num_tiles))
+                          for a in range(0, grid.num_tiles, self.tile_batch)]
+                # a block a device (fewer when the grid has fewer chunks); this
+                # rank runs those of its own devices
+                blocks = [(dev, block) for r, dev, block in
+                          zip(self.ranks, self.devices, partition_devices(chunks, len(self.devices)))
+                          if r == self.rank]
+            sharded = tiling and len(self.devices) > 1
             if sharded:
-                # a block a device (fewer when the grid has fewer chunks);
+                pool = ThreadPoolExecutor(max_workers=max(1, len(blocks)), thread_name_prefix="tile-shard")
                 # the shards start first, so the whole-image pass below runs beside them
-                blocks = list(zip(self.devices, partition_devices(chunks, len(self.devices))))
                 for dev, _ in blocks:
                     self._replica(dev)
                 shards = [pool.submit(self._run_shard, dev, block, tiles, offsets, ts, ts_up, h, w)
                           for dev, block in blocks]
-            if full_pass and native_full:
-                padded = F.pad(image, (0, 0, 0, (-w) % 64, 0, (-h) % 64))
-                parts.append(self._forward(padded))
-            elif full_pass:
-                ds = self.full_pass_max_dim / max(h, w)
-                dh = max(64, int(round(h * ds / 64)) * 64)
-                dw = max(64, int(round(w * ds / 64)) * 64)
-                inst = self._forward(resize_image(image, dh, dw))
-                back = torch.tensor([w / dw, h / dh, w / dw, h / dh], device=self.device)
-                parts.append(inst._replace(boxes=inst.boxes * back))
+            if full_pass and self.lead:
+                if native_full:
+                    padded = F.pad(image, (0, 0, 0, (-w) % 64, 0, (-h) % 64))
+                    full.append(self._forward(padded))
+                else:
+                    ds = self.full_pass_max_dim / max(h, w)
+                    dh = max(64, int(round(h * ds / 64)) * 64)
+                    dw = max(64, int(round(w * ds / 64)) * 64)
+                    inst = self._forward(resize_image(image, dh, dw))
+                    back = torch.tensor([w / dw, h / dh, w / dw, h / dh], device=self.device)
+                    full.append(inst._replace(boxes=inst.boxes * back))
             if sharded:
                 for shard in shards:
-                    parts.extend(shard.result())
+                    tile_sets.extend(shard.result())
             elif tiling:
-                parts.extend(self._run_chunks(self.device, chunks, tiles, offsets, ts, ts_up, h, w))
+                for dev, block in blocks:  # the one device's, when it is this rank's
+                    tile_sets.extend(self._run_chunks(dev, block, tiles, offsets, ts, ts_up, h, w))
+        except Exception as e:  # noqa: BLE001 - in a group the other ranks must hear of it
+            if self.world == 1:
+                raise
+            err = e
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)
-        if not parts:
-            parts = [empty_instances(self.capacity, device=self.device)]
-
-        merged = concat_instances(parts, self.capacity)
-        merged = apply_class_thresholds(merged, settings, qscale)
-        stride = max(self.dedup_stride, -(-max(h, w) // 512))
-        merged = dedup_by_mask_iou(merged, (h, w), self.dedup_iou, stride=stride, class_aware=True)
-        return merged, quality
+        if self.world > 1:
+            return self._exchange(full, tile_sets, err, quality, settings, qscale, h, w)
+        return self._merge(full + tile_sets, settings, qscale, h, w), quality

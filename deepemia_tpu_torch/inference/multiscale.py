@@ -29,6 +29,7 @@ from deepemia_tpu_torch.inference.detections import (
 )
 from deepemia_tpu_torch.inference.engine import ClassSettings, TileEngine
 from deepemia_tpu_torch.ops.image import read_image
+from deepemia_tpu_torch.parallel import ranks as rank_ops
 
 BASELINE_SCALES = (0.7, 1.0, 1.5, 2.0)
 AGGRESSIVE_SCALES = (1.0, 1.5, 2.0, 2.5, 3.0)
@@ -134,12 +135,14 @@ def calculate_average_mask_sizes(
 ) -> Dict[int, float]:
     """Average confident-instance area per class over a small sample of
     images (RoI mask fraction x box area); unreadable images are
-    skipped."""
+    skipped (in a process group, those any rank cannot read)."""
     sizes: Dict[int, List[float]] = {}
     for path in list(image_paths)[:sample_size]:
         try:
             img = read_image(str(path))
         except (OSError, ValueError):
+            img = None
+        if not rank_ops.agree(img is not None):
             continue
         inst, _ = engine.infer(img, settings)
         b = inst.boxes

@@ -37,10 +37,22 @@ members, each member takes its own contiguous group of them and the members
 run at once, one thread each. On the CPU, ``inference_chips`` n runs n
 shards (the JAX package's virtual CPU devices). One device is the
 one-device path.
+
+In a process group (``deepemia_tpu/inference/pipeline.py:270-309``, under
+``torchrun``): every rank runs the whole pipeline over the same images.
+The ranks first agree on the sorted image list (``PipelineError`` naming
+the first difference otherwise) and, for each image, on whether every
+rank read it (one all-reduce; a file one rank cannot read is skipped by
+all). Every engine shards each image's tile grid over the devices of every
+rank (``parallel/mesh.py:global_devices``, rank order, cut to
+``inference_chips``), and the members of an ensemble share them and run
+in turn, as the JAX package's do across processes. Every rank then holds
+the same results; rank 0 alone writes the CSVs, the overlays and the ETA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import itertools
 import logging
@@ -73,6 +85,7 @@ from deepemia_tpu_torch.inference.postprocess import morphology_postprocess, win
 from deepemia_tpu_torch.inference.scalebar import detect_scale_bar
 from deepemia_tpu_torch.models.quant import QUANT_MODES
 from deepemia_tpu_torch.parallel import mesh
+from deepemia_tpu_torch.parallel import ranks as rank_ops
 from deepemia_tpu_torch.ops.image import read_image, to_grayscale
 from deepemia_tpu_torch.ops.masks import paste_masks
 from deepemia_tpu_torch.ops.rle import (
@@ -130,7 +143,10 @@ class InferencePipeline:
         self.split_dir = os.path.expanduser(split_dir)
         paths = self.config["paths"]
         self.output_dir = Path(os.path.expanduser(output_dir or paths["output_dir"]))
-        self.output_dir.mkdir(parents=True, exist_ok=True)
+        # in a process group rank 0 writes the results, the others nothing
+        self.lead = rank_ops.is_lead()
+        if self.lead:
+            self.output_dir.mkdir(parents=True, exist_ok=True)
         self.inf = self.config.get("inference_settings", {})
         perf = self.config.get("performance", {})
         self.use_bf16 = perf.get("use_bf16", True) if use_bf16 is None else use_bf16
@@ -184,7 +200,7 @@ class InferencePipeline:
         self.member_parallel = groups is not None
         self.engines: List[Tuple[str, TileEngine, float]] = []
         for (name, path), group in zip(sorted(model_paths.items()), groups or itertools.repeat(self.tile_devices)):
-            model = load_model(path, self.num_classes, self.use_bf16, device=group[0],
+            model = load_model(path, self.num_classes, self.use_bf16, device=self._own_device(group),
                                quant_backbone=self.quant_backbone)
             self.engines.append((name, TileEngine(model, device=group, **engine_kw), weights.get(name, 1.0)))
             log.info("Loaded %s from %s", name, path)
@@ -220,12 +236,21 @@ class InferencePipeline:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _choose_tile_devices(perf: dict, device: torch.device) -> List[torch.device]:
+    def _choose_tile_devices(perf: dict, device: torch.device) -> List:
         """The devices every engine shards its tile grid over:
         ``performance.inference_chips`` of the local GPUs from ``device``'s
         index on (0 = all), or n shards on the CPU; ``[device]`` when one is
-        in play."""
+        in play. In a process group: the first ``inference_chips`` (0 = all)
+        of every rank's devices, as ``(rank, device)`` pairs in rank order
+        (a rank's own: ``mesh.owned_devices`` of the host's GPUs, or its
+        CPU)."""
         n_chips = int(perf.get("inference_chips", 0) or 0)
+        if rank_ops.rank_world()[1] > 1:
+            mine = mesh.owned_devices(mesh.local_devices()) if device.type == "cuda" else [device]
+            every = mesh.global_devices(mine)
+            want = len(every) if n_chips <= 0 else min(n_chips, len(every))
+            log.info("Tile-sharded inference across %d devices of %d ranks", want, len({r for r, _ in every}))
+            return every[:want]
         if device.type == "cpu":
             return [device] * max(1, n_chips)
         local = mesh.local_devices()[device.index or 0:]
@@ -240,13 +265,23 @@ class InferencePipeline:
         """Each member's devices, disjoint contiguous groups of ``devices``,
         when member-parallel ensembling applies (enabled, several members,
         at least as many devices); None when every member shards over all
-        of ``devices``."""
-        if not (enabled and n_members > 1 and len(devices) >= n_members):
+        of ``devices``, as in a process group, where the JAX rule shares
+        the mesh."""
+        if not (enabled and n_members > 1 and len(devices) >= n_members) or rank_ops.rank_world()[1] > 1:
             return None
         groups = mesh.partition_devices(devices, n_members)
         log.info("Member-parallel ensemble: %d members on disjoint device groups %s", n_members,
                  [len(g) for g in groups])
         return groups
+
+    def _own_device(self, group: List) -> torch.device:
+        """Where this rank keeps an engine's model: the first device of
+        ``group`` (pairs in a process group) that it runs, else its own
+        device."""
+        if not isinstance(group[0], tuple):
+            return group[0]
+        rank = rank_ops.rank_world()[0]
+        return next((d for r, d in group if r == rank), self.device)
 
     def _set_settings(self, small_classes) -> None:
         """Per-class thresholds; the default threshold overrides every class
@@ -481,6 +516,7 @@ class InferencePipeline:
         the class legend, and measures the full-resolution masks."""
         image_folder = os.path.expanduser(image_folder)
         images = sorted(f for f in os.listdir(image_folder) if is_image_file(f))
+        rank_ops.same_on_every_rank(images, f"the sorted image list of {image_folder}")
         if not images:
             log.warning("No images found in %s", image_folder)
         t_start = time.perf_counter()
@@ -511,9 +547,10 @@ class InferencePipeline:
         try:
             if pool:
                 submit(depth)
-            with open(meas_csv, "w", newline="") as f:
-                writer = csv.writer(f)
-                writer.writerow(measure_lib.CSV_HEADER)
+            with open(meas_csv, "w", newline="") if self.lead else contextlib.nullcontext() as f:
+                writer = csv.writer(f) if self.lead else None
+                if writer:
+                    writer.writerow(measure_lib.CSV_HEADER)
                 for idx, name in enumerate(images):
                     t0 = time.perf_counter()
                     try:
@@ -526,6 +563,18 @@ class InferencePipeline:
                         hw = (img.shape[0], img.shape[1])
                         with timers.time("scalebar"):
                             psum, um_pix, sb_debug = detect_scale_bar(img, self.config, self.dataset_name, return_debug=True)
+                        unread = None
+                    except Exception as e:  # noqa: BLE001 - per-image isolation
+                        unread = e
+                    # in a process group every rank goes on with the image or none does
+                    if not rank_ops.agree(unread is None):
+                        failed.append(name)
+                        if unread is not None:
+                            log.error("Image %s failed: %s", name, unread, exc_info=unread)
+                        else:
+                            log.error("Image %s skipped: another rank could not read it", name)
+                        continue
+                    try:
                         scale_bars[name] = (psum, um_pix)
                         inst, quality = self._infer_one(img_dev, timers)
                         members[name] = list(self.members_ran)
@@ -533,40 +582,42 @@ class InferencePipeline:
                         vc = torch.stack([inst.valid.to(torch.int32), inst.classes.to(torch.int32)]).cpu().numpy()
                         valid, cls_host = vc[0] != 0, vc[1]
                         kept = [i for i in range(len(valid)) if valid[i]]
-                        masks = origins = None
-                        if visualize:
-                            with timers.time("mask_export"):
-                                masks, origins = self._mask_crops(inst, hw)
-                            with timers.time("rle"):
-                                rle_rows.extend(
-                                    (name, rle_to_string(rle_encode_crop(masks[i], origins[i], hw[0]))) for i in kept
+                        if self.lead:
+                            masks = origins = None
+                            if visualize:
+                                with timers.time("mask_export"):
+                                    masks, origins = self._mask_crops(inst, hw)
+                                with timers.time("rle"):
+                                    rle_rows.extend(
+                                        (name, rle_to_string(rle_encode_crop(masks[i], origins[i], hw[0])))
+                                        for i in kept
+                                    )
+                            else:
+                                with timers.time("rle"):
+                                    starts, lengths, n_runs, max_runs = self._device_rle(inst, hw)
+                                    # one packed device -> host copy
+                                    packed = torch.cat([starts, lengths, n_runs[:, None]], dim=1).cpu().numpy()
+                                with timers.time("rle_rows"):
+                                    rle_rows.extend(self._rle_rows(name, inst, kept, hw, packed, max_runs))
+                            with timers.time("measurements"):
+                                rows = self._measurement_rows(
+                                    name, inst, img, img_dev, masks, origins, cls_host, valid, um_pix, psum,
+                                    measure_contrast,
                                 )
-                        else:
-                            with timers.time("rle"):
-                                starts, lengths, n_runs, max_runs = self._device_rle(inst, hw)
-                                # one packed device -> host copy
-                                packed = torch.cat([starts, lengths, n_runs[:, None]], dim=1).cpu().numpy()
-                            with timers.time("rle_rows"):
-                                rle_rows.extend(self._rle_rows(name, inst, kept, hw, packed, max_runs))
-                        with timers.time("measurements"):
-                            rows = self._measurement_rows(
-                                name, inst, img, img_dev, masks, origins, cls_host, valid, um_pix, psum,
-                                measure_contrast,
-                            )
-                        with timers.time("csv"):
-                            writer.writerows(rows)
-                            if self.stream_measurements:
-                                f.flush()
-                        if visualize:
-                            with timers.time("overlay"):
-                                overlay = viz.render_overlay(
-                                    img, [masks[i] for i in kept], [int(cls_host[i]) for i in kept],
-                                    draw_ids=draw_ids, origins=[origins[i] for i in kept],
-                                )
-                                if draw_scalebar:
-                                    viz.draw_scalebar_debug(overlay, sb_debug, psum)
-                            with timers.time("png"):
-                                viz.save_png(self.output_dir / f"{name}_predictions.png", overlay)
+                            with timers.time("csv"):
+                                writer.writerows(rows)
+                                if self.stream_measurements:
+                                    f.flush()
+                            if visualize:
+                                with timers.time("overlay"):
+                                    overlay = viz.render_overlay(
+                                        img, [masks[i] for i in kept], [int(cls_host[i]) for i in kept],
+                                        draw_ids=draw_ids, origins=[origins[i] for i in kept],
+                                    )
+                                    if draw_scalebar:
+                                        viz.draw_scalebar_debug(overlay, sb_debug, psum)
+                                with timers.time("png"):
+                                    viz.save_png(self.output_dir / f"{name}_predictions.png", overlay)
                         processed.append(name)
                         seconds.append(time.perf_counter() - t0)
                         log.info("%s: %d instances, quality %.2f, %.2fs", name, len(kept), float(quality), seconds[-1])
@@ -577,19 +628,20 @@ class InferencePipeline:
             if pool:
                 pool.shutdown(wait=True, cancel_futures=True)
 
-        with timers.time("csv"):
-            with open(rle_csv, "w", newline="") as f:
-                w = csv.writer(f)
-                w.writerow(["ImageId", "EncodedPixels"])
-                w.writerows(rle_rows)
-        if visualize:
-            viz.save_png(self.output_dir / "class_legend.png", viz.render_legend(self.class_names))
+        if self.lead:
+            with timers.time("csv"):
+                with open(rle_csv, "w", newline="") as f:
+                    w = csv.writer(f)
+                    w.writerow(["ImageId", "EncodedPixels"])
+                    w.writerows(rle_rows)
+            if visualize:
+                viz.save_png(self.output_dir / "class_legend.png", viz.render_legend(self.class_names))
         timers.log_summary("inference-profile")
         if failed:
             log.warning("Images not processed: %s", failed)
         else:
             log.info("All %d images processed", len(processed))
-        if eta_file and processed:
+        if eta_file and processed and self.lead:
             update_eta_data(eta_file, "inference", time.perf_counter() - t_start, num_images=len(processed))
         return {
             "measurements_csv": str(meas_csv),

@@ -17,20 +17,112 @@ import torch.nn.functional as F
 
 from deepemia_tpu_torch.config.constants import StaticShapes
 from deepemia_tpu_torch.models.roi_align import roi_align_dispatch
+from deepemia_tpu_torch.parallel import ranks as rank_ops
+from deepemia_tpu_torch.parallel.mesh import partition_devices
 from deepemia_tpu_torch.ops import boxes as box_ops
 
 
+def block_bounds(size: int, index: int, n: int):
+    """(start, stop) of block ``index`` of ``range(size)`` split as
+    :func:`partition_devices` splits devices (contiguous, sizes differing
+    by at most one, earlier blocks larger)."""
+    block = partition_devices(range(size), n)[index]
+    return block[0], block[-1] + 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The input of a column-parallel layer: the identity forward, the
+    gradient summed over the model group backward (each rank's block of
+    the layer adds its share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rank_ops.all_reduce(grad, group=ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The output of a row-parallel layer: the blocks' partial products
+    summed over the model group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return rank_ops.all_reduce(x, group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class BoxHead(nn.Module):
-    """Flatten (C,H,W order) -> FC 1024 -> FC 1024 (FastRCNNConvFCHead)."""
+    """Flatten (C,H,W order) -> FC 1024 -> FC 1024 (FastRCNNConvFCHead).
+
+    Tensor-parallel after :meth:`shard` (the JAX trainer's ``model`` axis,
+    ``_tp_spec_for_path``): each rank of a model group keeps one block of
+    fc1's outputs (column-parallel) and the matching block of fc2's inputs
+    (row-parallel); fc2's partial products are summed over the group
+    before its bias, which is added once. Only the two weight matrices are
+    split; the biases stay whole (fc1's block of its bias is used), as
+    every other parameter is."""
+
+    # the split parameters and the axis of each that is split
+    SPLIT = {"fc1.weight": 0, "fc2.weight": 1}
 
     def __init__(self, in_channels: int = 256, resolution: int = 7, fc_dim: int = 1024):
         super().__init__()
         self.fc1 = nn.Linear(in_channels * resolution * resolution, fc_dim)
         self.fc2 = nn.Linear(fc_dim, fc_dim)
+        self.fc_dim = fc_dim
+        self.model_group = None
+        self.index, self.n_blocks = 0, 1
+
+    def shard(self, group, index: int, n: int) -> None:
+        """Keep block ``index`` of ``n`` (this rank's place in the model
+        ``group``) of the two weight matrices, in place. Each split
+        parameter is marked ``model_split = "block"``, fc1's bias, whose
+        gradient the group's blocks add up, ``"sum"``."""
+        self.model_group, self.index, self.n_blocks = group, index, n
+        for name in self.SPLIT:
+            fc = getattr(self, name.split(".")[0])
+            whole = fc.weight
+            fc.weight = nn.Parameter(self.block_of(name, whole.detach()).clone(), requires_grad=whole.requires_grad)
+            fc.weight.model_split = "block"
+        self.fc1.bias.model_split = "sum"
+
+    def _sizes(self):
+        return [b - a for a, b in (block_bounds(self.fc_dim, i, self.n_blocks) for i in range(self.n_blocks))]
+
+    def block_of(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole ``name``-shaped tensor (the
+        parameter, or its momentum)."""
+        a, b = block_bounds(self.fc_dim, self.index, self.n_blocks)
+        return whole.narrow(self.SPLIT[name], a, b - a)
+
+    def gather(self, name: str, block: torch.Tensor) -> torch.Tensor:
+        """The whole ``name``-shaped tensor from the model group's blocks of
+        it (every rank of the group calls this)."""
+        dim, sizes = self.SPLIT[name], self._sizes()
+        shape = list(block.shape)
+        shape[dim] = max(sizes)
+        padded = block.new_zeros(shape)
+        padded.narrow(dim, 0, block.shape[dim]).copy_(block)
+        parts = rank_ops.all_gather(padded, group=self.model_group)
+        return torch.cat([t.narrow(dim, 0, n) for t, n in zip(parts, sizes)], dim=dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [N,7,7,C]
         x = x.permute(0, 3, 1, 2).flatten(1)
-        return F.relu(self.fc2(F.relu(self.fc1(x))))
+        if self.model_group is None:
+            return F.relu(self.fc2(F.relu(self.fc1(x))))
+        a, b = block_bounds(self.fc_dim, self.index, self.n_blocks)
+        h = F.relu(F.linear(_CopyToModel.apply(x, self.model_group), self.fc1.weight, self.fc1.bias[a:b]))
+        partial = F.linear(h, self.fc2.weight)
+        # summed in float32 whatever autocast computes in
+        y = _ReduceFromModel.apply(partial.float(), self.model_group) + self.fc2.bias.float()
+        return F.relu(y).to(partial.dtype)
 
 
 class BoxPredictor(nn.Module):

@@ -18,26 +18,34 @@ frozen-BN affine only when fine-tuning, checkpoints every
 ``model_final_{r50,r101}`` weights. Compute runs in bf16 under autocast
 over float32 master weights.
 
-Data-parallel (the JAX trainer's ``data`` axis, ``trainer.py:144-166,
-605``): ``data_world_size(GPUs, ims_per_batch)`` ranks, one GPU each. On a
-host with more than one GPU, ``train`` and ``train_on_batches`` start the
-ranks themselves (``torch.multiprocessing``, NCCL), unless this process
-already is a rank of a process group (``torchrun``,
-``utils/device.maybe_init_distributed``), which they then train in. Every
-rank makes the same global batch (the same batches, or the loader with the
-same seed) and takes its contiguous block; the gradients are averaged
-across ranks before the clip and the step, so the step is the one-process
-step on the global batch (the loss is the mean over images, the blocks are
-equal). Each image's sampling draws are a function of (seed, step, its
-index in the global batch), whichever rank holds it. Rank 0 writes the
-checkpoints and the final weights, between barriers, and logs; every rank
-reads a resume.
+Parallel (the JAX trainer's ``('data', 'model')`` mesh, ``trainer.py:
+144-176, 605``): ``train_layout(GPUs, n_model_shards, ims_per_batch)``
+gives (data, model), and ``data * model`` ranks train, one GPU each; rank r
+is ``(d, m) = divmod(r, model)``. On a host with more than one GPU,
+``train`` and ``train_on_batches`` start the ranks themselves
+(``torch.multiprocessing``, NCCL), unless this process already is a rank of
+a process group (``torchrun``, ``utils/device.maybe_init_distributed``),
+which they then train in. Every rank makes the same global batch (the same
+batches, or the loader with the same seed) and takes data block d; the
+ranks of one data block (a model group) take the same block and draw the
+same samples. With ``model`` above 1 the box head's fc1 is column-parallel
+and its fc2 row-parallel over the model group (``models/heads.py:
+BoxHead.shard``); every other parameter is whole on every rank. The
+gradients are averaged before the clip and the step (a whole parameter's
+over every rank, a block's over the ranks holding that block), the clip
+takes the global norm of the whole parameters, so the step is the
+one-process step on the global batch (the loss is the mean over images,
+the blocks are equal). Each image's sampling draws are a function of
+(seed, step, its index in the global batch), whichever rank holds it. Rank
+0 writes the checkpoints and the final weights in the one-process format
+(the blocks and their momentum gathered), between barriers, and logs;
+every rank reads a resume and takes its blocks from it.
 
-Left out: the tensor-parallel box head (``n_model_shards`` above 1 is
-refused by name, ROADMAP A8b), and as TPU artefacts the packed one-buffer
-batch transfer, the chunked ``lax.scan`` dispatch, buffer donation and Orbax
-(the config keys ``roi_backend``, ``steps_per_dispatch`` and
-``donate_buffers`` have no field here).
+Left out, as TPU artefacts: the packed one-buffer batch transfer, the
+chunked ``lax.scan`` dispatch, buffer donation and Orbax (the config keys
+``roi_backend``, ``steps_per_dispatch`` and ``donate_buffers`` have no
+field here). As in the JAX package no command-line flag sets
+``n_model_shards``.
 """
 
 from __future__ import annotations
@@ -60,12 +68,17 @@ from deepemia_tpu_torch import resolve_device
 from deepemia_tpu_torch.data.loader import TrainLoader
 from deepemia_tpu_torch.models.mask_rcnn import MaskRCNN, build_train_model
 from deepemia_tpu_torch.models.weights import load_pretrained_params
-from deepemia_tpu_torch.parallel.mesh import data_world_size, local_devices
+from deepemia_tpu_torch.parallel import ranks as rank_ops
+from deepemia_tpu_torch.parallel.mesh import local_devices, train_layout
 from deepemia_tpu_torch.train.losses import Draws, GroundTruth, maskrcnn_loss
 
 log = logging.getLogger("deepemia_tpu_torch.trainer")
 
 _CKPT = re.compile(r"step_(\d+)\.pt$")
+# (rank, world size) of the process group this process trains in, (0, 1)
+# outside one; the barrier rank 0's files are written behind
+process_group = rank_ops.rank_world
+_barrier = rank_ops.barrier
 _KEEP_CHECKPOINTS = 2
 
 
@@ -127,12 +140,77 @@ def make_optimizer(
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
 
-def optimizer_step(optimizer, scheduler, grad_clip_norm: Optional[float] = None) -> None:
+@dataclass
+class RankLayout:
+    """Where a training rank sits: data block ``d`` of ``data`` and box-head
+    block ``m`` of ``model``; ``data_group`` holds the ranks with its box-head
+    block, ``model_group`` those with its data block (None with one model
+    block: the whole process group, and no model group)."""
+
+    data: int = 1
+    model: int = 1
+    d: int = 0
+    m: int = 0
+    data_group: object = None
+    model_group: object = None
+
+
+def rank_layout(n_model_shards: int = 1, ims_per_batch: Optional[int] = None) -> RankLayout:
+    """This process's :class:`RankLayout` in its process group (one block
+    each outside one). ``ims_per_batch`` set: the group must have the
+    size of ``train_layout(world, n_model_shards, ims_per_batch)``, else
+    ValueError; unset: every rank is a data rank. With model blocks every
+    rank makes every data and model group, in one order (``new_group`` is a
+    collective)."""
+    rank, world = process_group()
+    if ims_per_batch is None or world == 1:
+        return RankLayout(data=world, d=rank)
+    data, model = train_layout(world, n_model_shards, ims_per_batch)
+    if data * model != world:
+        raise ValueError(
+            f"ims_per_batch={ims_per_batch} with n_model_shards={n_model_shards} does not train on a process group "
+            f"of {world} ranks: training takes train_layout({world}, {n_model_shards}, {ims_per_batch}) = "
+            f"(data {data}, model {model}): {data * model} ranks (every data rank an equal block of the batch); "
+            f"start that many (torchrun --nproc_per_node {data * model}) or raise ims_per_batch to a multiple of "
+            f"{world // model}")
+    d, m = divmod(rank, model)
+    if model == 1:
+        return RankLayout(data=data, d=d)
+    data_groups = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(data)]
+    return RankLayout(data, model, d, m, data_groups[m], model_groups[d])
+
+
+def clip_gradients(params: Sequence[torch.Tensor], max_norm: float, layout: Optional[RankLayout] = None
+                   ) -> torch.Tensor:
+    """``clip_grad_norm_`` over the whole parameters -> the global norm.
+    With model blocks, a block's squares are summed over its model group
+    once and the whole parameters' counted on each rank once, so every
+    rank takes the one-process norm and scales as ``clip_grad_norm_``
+    does."""
+    if layout is None or layout.model == 1:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    grads = [p for p in params if p.grad is not None]
+    blocks = [p.grad for p in grads if getattr(p, "model_split", None) == "block"]
+    whole = [p.grad for p in grads if getattr(p, "model_split", None) != "block"]
+
+    def squares(gs):
+        return torch.stack([torch.linalg.vector_norm(g.float()) ** 2 for g in gs]).sum()
+
+    total = (squares(whole) + rank_ops.all_reduce(squares(blocks), group=layout.model_group)).sqrt()
+    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for g in blocks + whole:
+        g.mul_(coef.to(g.dtype))
+    return total
+
+
+def optimizer_step(optimizer, scheduler, grad_clip_norm: Optional[float] = None,
+                   layout: Optional[RankLayout] = None) -> None:
     """Apply the gradients in ``.grad``: global-norm clip (when set), then
     SGD (decay, momentum, rate), then advance the schedule."""
     if grad_clip_norm:
         params = [p for group in optimizer.param_groups for p in group["params"]]
-        torch.nn.utils.clip_grad_norm_(params, grad_clip_norm)
+        clip_gradients(params, grad_clip_norm, layout)
     optimizer.step()
     scheduler.step()
 
@@ -177,7 +255,7 @@ class TrainConfig:
     # fine-tuning
     zero_init_residual: bool = True
     # tensor parallelism of the box head (the JAX trainer's 'model' axis):
-    # not ported, only 1 runs
+    # its fc1 and fc2 split over this many ranks of each data block
     n_model_shards: int = 1
 
 
@@ -229,14 +307,6 @@ def batch_to_device(batch: dict, device, cfg: TrainConfig, ims: Optional[int] = 
     return t["image"], gt
 
 
-def process_group() -> Tuple[int, int]:
-    """(rank, world size) of the process group this process trains in;
-    (0, 1) outside one."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def shard_batch(batch: dict, rank: int, world: int) -> dict:
     """Rank ``rank``'s contiguous block of a global batch (every array's
     leading axis split in ``world`` equal blocks)."""
@@ -249,26 +319,36 @@ def shard_batch(batch: dict, rank: int, world: int) -> dict:
     return {k: v[rank * b : (rank + 1) * b] for k, v in batch.items()}
 
 
-def average_gradients(params: Sequence[torch.Tensor], world: int) -> None:
-    """Replace each parameter's ``.grad`` with its mean over the ranks, in
-    one all-reduce. A parameter without a gradient on some ranks counts zero
-    there; one without a gradient on every rank keeps none (SGD skips it,
-    as in one process)."""
+def average_gradients(params: Sequence[torch.Tensor], layout: RankLayout) -> None:
+    """Replace each parameter's ``.grad`` with its mean over the data
+    blocks: a whole parameter's over every rank (one all-reduce); fc1's
+    bias, whose model blocks each hold a part of its gradient, summed over
+    every rank and divided by the data blocks; a box-head block's over the
+    ranks holding it (``layout.data_group``, a second all-reduce). A
+    parameter without a gradient on some ranks counts zero there; one
+    without a gradient on every rank keeps none (SGD skips it, as in one
+    process)."""
     params = [p for p in params if p.requires_grad]
+    world = layout.data * layout.model
     if world == 1 or not params:
         return
-    dev = params[0].device
-    has = torch.tensor([p.grad is not None for p in params], dtype=torch.float32, device=dev)
-    flat = torch.cat([has] + [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
-                              for p in params])
-    dist.all_reduce(flat)
-    flat /= world
-    start = len(params)
-    for p, present in zip(params, flat[: len(params)].tolist()):
-        n = p.numel()
-        if present > 0:
-            p.grad = flat[start : start + n].view_as(p).to(p.dtype)
-        start += n
+    split = [getattr(p, "model_split", None) for p in params]
+    whole = [(p, layout.data if s == "sum" else world) for p, s in zip(params, split) if s != "block"]
+    blocks = [(p, layout.data) for p, s in zip(params, split) if s == "block"]
+    for part, group in ((whole, None), (blocks, layout.data_group)):
+        if not part:
+            continue
+        dev = part[0][0].device
+        has = torch.tensor([p.grad is not None for p, _ in part], dtype=torch.float32, device=dev)
+        flat = rank_ops.all_reduce(torch.cat(
+            [has] + [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float() for p, _ in part]),
+            group=group)
+        start = len(part)
+        for (p, div), present in zip(part, flat[: len(part)].tolist()):
+            n = p.numel()
+            if present > 0:
+                p.grad = (flat[start : start + n] / div).view_as(p).to(p.dtype)
+            start += n
 
 
 def train_step(
@@ -279,25 +359,28 @@ def train_step(
     cfg: TrainConfig,
     generators: Optional[Sequence[torch.Generator]] = None,
     draws: Optional[Sequence[Draws]] = None,
+    layout: Optional[RankLayout] = None,
 ) -> Dict[str, float]:
     """One SGD step -> the loss components (floats, means over the global
-    batch). ``batch`` is this rank's block of it (the whole batch in one
-    process); the gradients are averaged across the process group's ranks
-    before the step. Sampling draws come from ``draws`` (one per image of
-    the block) or ``generators`` (one per image, :func:`image_generators`)."""
+    batch). ``batch`` is this rank's data block of it (the whole batch in
+    one process); ``layout`` places the rank (by default every rank of the
+    process group a data rank), and the gradients are averaged across the
+    ranks before the step. Sampling draws come from ``draws`` (one per
+    image of the block) or ``generators`` (one per image,
+    :func:`image_generators`)."""
     dev = next(model.parameters()).device
-    _, world = process_group()
-    images, gt = batch_to_device(batch, dev, cfg, ims=cfg.ims_per_batch // world)
+    layout = layout or rank_layout()
+    world = layout.data * layout.model
+    images, gt = batch_to_device(batch, dev, cfg, ims=cfg.ims_per_batch // layout.data)
     with torch.autocast(device_type=dev.type, dtype=torch.bfloat16, enabled=cfg.use_bf16):
         losses = maskrcnn_loss(model, images, gt, generators=generators, draws=draws, **(cfg.loss_caps or {}))
     optimizer.zero_grad(set_to_none=True)
     losses["total"].backward()
-    average_gradients([p for group in optimizer.param_groups for p in group["params"]], world)
-    optimizer_step(optimizer, scheduler, cfg.grad_clip_norm)
+    average_gradients([p for group in optimizer.param_groups for p in group["params"]], layout)
+    optimizer_step(optimizer, scheduler, cfg.grad_clip_norm, layout)
     values = torch.stack([v.detach().float() for v in losses.values()])
     if world > 1:
-        dist.all_reduce(values)
-        values /= world
+        values = rank_ops.all_reduce(values) / world
     return dict(zip(losses, values.tolist()))
 
 
@@ -324,6 +407,55 @@ def _model_state(obj) -> dict:
     return obj["model"] if isinstance(obj, dict) and "model" in obj else obj
 
 
+def _split_params(model: MaskRCNN):
+    """{state-dict key: (box head, its name there)} of the parameters split
+    over a model group; empty when none is."""
+    head = model.roi_heads.box_head
+    if head.model_group is None:
+        return {}
+    return {f"roi_heads.box_head.{name}": (head, name) for name in head.SPLIT}
+
+
+def full_state(model: MaskRCNN, optimizer) -> Tuple[dict, dict]:
+    """(model state dict, optimizer state dict) in the one-process format:
+    the box head's blocks and their momentum gathered over the model group
+    (every rank of it calls this)."""
+    sd, opt = model.state_dict(), optimizer.state_dict()
+    split = _split_params(model)
+    index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    params = dict(model.named_parameters())
+    for key, (head, name) in split.items():
+        sd[key] = head.gather(name, sd[key])
+        i = index.get(id(params[key]))
+        st = opt["state"].get(i)
+        if st is not None and st.get("momentum_buffer") is not None:
+            opt["state"][i] = {**st, "momentum_buffer": head.gather(name, st["momentum_buffer"])}
+    return sd, opt
+
+
+def load_full_state(model: MaskRCNN, optimizer, state: dict) -> None:
+    """Load a checkpoint in the one-process format (``model`` and, when
+    given, ``optimizer``); this rank takes its blocks of the split
+    parameters and of their momentum."""
+    split = _split_params(model)
+    sd = dict(state["model"])
+    for key, (head, name) in split.items():
+        sd[key] = head.block_of(name, sd[key])
+    model.load_state_dict(sd)
+    if optimizer is None or "optimizer" not in state:
+        return
+    opt = state["optimizer"]
+    index = {id(p): i for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"])}
+    params = dict(model.named_parameters())
+    opt = {**opt, "state": dict(opt["state"])}
+    for key, (head, name) in split.items():
+        i = index.get(id(params[key]))
+        st = opt["state"].get(i)
+        if st is not None and st.get("momentum_buffer") is not None:
+            opt["state"][i] = {**st, "momentum_buffer": head.block_of(name, st["momentum_buffer"]).clone()}
+    optimizer.load_state_dict(opt)
+
+
 def _init_weights(model: MaskRCNN, init_checkpoint: Optional[str], cfg: TrainConfig, dev) -> None:
     """Fine-tuning weights (and freezing), or the from-scratch
     conditioning."""
@@ -345,23 +477,29 @@ def _init_weights(model: MaskRCNN, init_checkpoint: Optional[str], cfg: TrainCon
         zero_residual_norms(model)
 
 
-def rank_devices(device, devices: Optional[Sequence], ims_per_batch: int) -> Optional[List[torch.device]]:
+def rank_devices(device, devices: Optional[Sequence], ims_per_batch: int, n_model_shards: int = 1
+                 ) -> Optional[List[torch.device]]:
     """The devices of the ranks to start, one each, or None to train in this
     process (one device, or already a rank of a process group):
-    ``devices`` when given (one may repeat), else on CUDA the first
-    :func:`data_world_size` local GPUs."""
+    ``devices`` when given (one may repeat; their count must be a
+    :func:`train_layout` of itself), else on CUDA the first ``data *
+    model`` local GPUs of ``train_layout(GPUs, n_model_shards,
+    ims_per_batch)``."""
     if dist.is_available() and dist.is_initialized():
         return None
     if devices:
         ranks = [torch.device(d) for d in devices]
     elif resolve_device(device).type == "cuda":
-        ranks = local_devices()[: data_world_size(torch.cuda.device_count(), ims_per_batch)]
+        data, model = train_layout(torch.cuda.device_count(), n_model_shards, ims_per_batch)
+        ranks = local_devices()[: data * model]
     else:
         return None
     if len(ranks) <= 1:
         return None
-    if ims_per_batch % len(ranks):
-        raise ValueError(f"ims_per_batch={ims_per_batch} does not split over {len(ranks)} ranks")
+    data, model = train_layout(len(ranks), n_model_shards, ims_per_batch)
+    if data * model != len(ranks):
+        raise ValueError(f"ims_per_batch={ims_per_batch} with n_model_shards={n_model_shards} does not split over "
+                         f"{len(ranks)} ranks: train_layout gives (data {data}, model {model})")
     return ranks
 
 
@@ -408,7 +546,7 @@ def start_ranks(devices: Sequence[torch.device], fn, **kwargs):
     level = logging.getLogger("deepemia_tpu_torch").getEffectiveLevel()
     names = [str(d) for d in devices]
     numerics = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads())
-    log.info("Training data-parallel on %d ranks: %s", len(names), ", ".join(names))
+    log.info("Training on %d ranks: %s", len(names), ", ".join(names))
     mp.start_processes(_rank_main, args=(len(names), _free_port(), names, fn, kwargs, results, level, numerics),
                        nprocs=len(names), join=True, start_method="spawn")
     return results.get()
@@ -437,13 +575,10 @@ def train_on_batches(
     with the batch stream restarted from its start, as the JAX loader is.
     The final weights are ``output_dir/model_final_{backbone}.pt``.
 
-    Data-parallel (:func:`rank_devices`): ``devices`` names the ranks'
-    devices, by default every GPU the batch splits over; inside a process
+    Parallel (:func:`rank_devices`): ``devices`` names the ranks'
+    devices, by default every GPU of the ``train_layout``; inside a process
     group this process trains as its rank."""
-    if cfg.n_model_shards > 1:
-        raise ValueError(f"n_model_shards={cfg.n_model_shards}: the tensor-parallel box head is not ported "
-                         "(ROADMAP A8b)")
-    ranks = rank_devices(device, devices, cfg.ims_per_batch)
+    ranks = rank_devices(device, devices, cfg.ims_per_batch, cfg.n_model_shards)
     if ranks is not None:
         if not isinstance(batches, (list, tuple)):
             raise ValueError("data-parallel training on started ranks takes a list of batches")
@@ -451,12 +586,7 @@ def train_on_batches(
                            output_dir=output_dir, cfg=cfg, init_checkpoint=init_checkpoint, resume=resume,
                            max_steps_override=max_steps_override)
     rank, world = process_group()
-    if world > 1 and data_world_size(world, cfg.ims_per_batch) != world:
-        n = data_world_size(world, cfg.ims_per_batch)
-        raise ValueError(f"ims_per_batch={cfg.ims_per_batch} does not train on a process group of {world} ranks: "
-                         f"data-parallel training takes data_world_size({world}, {cfg.ims_per_batch}) = {n} ranks "
-                         "(every rank an equal block of the batch); start that many (torchrun --nproc_per_node "
-                         f"{n}) or raise ims_per_batch to a multiple of {world}")
+    layout = rank_layout(cfg.n_model_shards, cfg.ims_per_batch)
     dev = _indexed_device(device)
     out_dir = Path(output_dir)
     ckpt_dir = out_dir / "ckpts"
@@ -465,6 +595,8 @@ def train_on_batches(
 
     model = build_train_model(cfg.backbone, num_classes, device=dev, seed=cfg.seed)
     _init_weights(model, init_checkpoint or cfg.init_checkpoint, cfg, dev)
+    if layout.model > 1:
+        model.roi_heads.box_head.shard(layout.model_group, layout.m, layout.model)
     optimizer, scheduler = make_optimizer(
         [p for p in model.parameters() if p.requires_grad],
         cfg.base_lr, max_iter, cfg.warmup_iters, cfg.gamma,
@@ -475,8 +607,7 @@ def train_on_batches(
     if resume and found:
         start_step, path = found[-1]
         state = torch.load(path, map_location=dev)
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        load_full_state(model, optimizer, state)
         scheduler.load_state_dict(state["scheduler"])
         # the rate of the next step follows this run's schedule (its
         # max_iter may differ from the saved run's), as optax's count does
@@ -487,16 +618,18 @@ def train_on_batches(
 
     stream = itertools.cycle(batches) if isinstance(batches, (list, tuple)) else iter(batches)
     metrics: Dict[str, float] = {}
-    block = cfg.ims_per_batch // world
+    block = cfg.ims_per_batch // layout.data
     if rank == 0:
         log.info("Training %s on %s%s: steps %d-%d", cfg.backbone, dev,
-                 f" and {world - 1} more ranks" if world > 1 else "", start_step, max_iter)
+                 f" and {world - 1} more ranks (data {layout.data} x model {layout.model})" if world > 1 else "",
+                 start_step, max_iter)
     for step in range(start_step, max_iter):
         batch = next(stream, None)
         if batch is None:
             raise ValueError(f"batches ran out at step {step} of {max_iter}")
-        gens = image_generators(cfg.seed, step, range(rank * block, (rank + 1) * block), dev)
-        metrics = train_step(model, optimizer, scheduler, shard_batch(batch, rank, world), cfg, gens)
+        gens = image_generators(cfg.seed, step, range(layout.d * block, (layout.d + 1) * block), dev)
+        metrics = train_step(model, optimizer, scheduler, shard_batch(batch, layout.d, layout.data), cfg, gens,
+                             layout=layout)
         done = step + 1
         if rank == 0 and (done % cfg.log_every == 0 or done == max_iter):
             log.info(
@@ -505,11 +638,12 @@ def train_on_batches(
                 metrics["cls"], metrics["box"], metrics["mask"], scheduler.get_last_lr()[0],
             )
         if done % cfg.checkpoint_every == 0 or done == max_iter:
+            model_sd, opt_sd = full_state(model, optimizer)
             if rank == 0:
                 state = {
                     "step": done,
-                    "model": model.state_dict(),
-                    "optimizer": optimizer.state_dict(),
+                    "model": model_sd,
+                    "optimizer": opt_sd,
                     "scheduler": scheduler.state_dict(),
                 }
                 torch.save(state, ckpt_dir / f"step_{done:08d}.pt")
@@ -518,10 +652,9 @@ def train_on_batches(
             _barrier(dev)
 
     final = out_dir / f"model_final_{cfg.backbone.lower()}.pt"
+    model_sd, _ = full_state(model, optimizer)
     if rank == 0:
-        torch.save(
-            {"model": model.state_dict(), "backbone": cfg.backbone, "num_classes": num_classes}, final
-        )
+        torch.save({"model": model_sd, "backbone": cfg.backbone, "num_classes": num_classes}, final)
         log.info("Final weights: %s", final)
     _barrier(dev)
     return str(final), metrics
@@ -535,17 +668,6 @@ def _indexed_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-def _barrier(dev: torch.device) -> None:
-    """Every rank of the process group, if there is one, waits here (the
-    files rank 0 wrote exist after it); ``dev`` is this rank's device."""
-    if not (dist.is_available() and dist.is_initialized()):
-        return
-    if dist.get_backend() == "nccl":
-        dist.barrier(device_ids=[dev.index])
-    else:
-        dist.barrier()
 
 
 def train(
@@ -566,7 +688,7 @@ def train(
     ``max_steps_override`` or ``cfg.max_iter`` sets it. Data-parallel as
     :func:`train_on_batches` is: every rank runs the loader with the same
     seed, so the ranks' blocks make one global batch."""
-    ranks = rank_devices(device, devices, cfg.ims_per_batch)
+    ranks = rank_devices(device, devices, cfg.ims_per_batch, cfg.n_model_shards)
     if ranks is not None:
         return start_ranks(ranks, train, records=records, num_classes=num_classes, output_dir=output_dir, cfg=cfg,
                            init_checkpoint=init_checkpoint, resume=resume, max_steps_override=max_steps_override)

@@ -76,9 +76,11 @@ def maybe_init_distributed(device: str = "cuda") -> bool:
     (``deepemia_tpu/utils/device.py:183-216``): ``torchrun``'s
     ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``, or
     ``DEEPEMIA_DISTRIBUTED=1`` beside them. NCCL on CUDA, with each rank's
-    current GPU ``LOCAL_RANK`` (else the rank modulo the GPUs); gloo on the
-    CPU. Returns False, doing nothing, when nothing is set, and True when a
-    process group runs (this start's or an earlier one's).
+    current GPU ``LOCAL_RANK`` (else the rank) modulo the GPUs; gloo on the
+    CPU, and on CUDA where the host's ranks (``LOCAL_WORLD_SIZE``) outnumber
+    its GPUs, since NCCL refuses two ranks on one GPU. Returns False, doing
+    nothing, when nothing is set, and True when a process group runs (this
+    start's or an earlier one's).
 
     A start that fails raises ``PipelineError``: the JAX function warns and
     runs on one host, but a run of several processes that was asked for
@@ -93,12 +95,15 @@ def maybe_init_distributed(device: str = "cuda") -> bool:
     missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE") if not env.get(k)]
     if missing:
         raise PipelineError(f"torch.distributed was asked for but {', '.join(missing)} is not set", stage="distributed")
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    cuda = torch.device(device).type == "cuda"
+    backend = "gloo"
     try:
-        if backend == "nccl":
+        if cuda:
             if not torch.cuda.is_available():
                 raise RuntimeError("CUDA is not available")
-            torch.cuda.set_device(int(env.get("LOCAL_RANK", int(env["RANK"]) % torch.cuda.device_count())))
+            gpus = torch.cuda.device_count()
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", env["RANK"])) % gpus)
+            backend = "nccl" if int(env.get("LOCAL_WORLD_SIZE", 1)) <= gpus else "gloo"
         dist.init_process_group(backend, init_method="env://")
     except Exception as e:  # noqa: BLE001 - reported with what was asked for
         raise PipelineError(

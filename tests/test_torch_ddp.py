@@ -46,12 +46,12 @@ def test_ranks_follow_the_jax_data_axis(ims):
     from deepemia_tpu.train.trainer import make_mesh
 
     assert len(jax.devices()) == 8
-    assert pt_tr.data_world_size(8, ims) == make_mesh(1, max_data=ims).devices.shape[0]
+    assert pt_tr.train_layout(8, 1, ims) == make_mesh(1, max_data=ims).devices.shape
 
 
 def test_ranks_split_every_batch_evenly():
     # where the JAX rule cannot shard (12 images on 8 devices) the gcd
-    assert [pt_tr.data_world_size(n, 12) for n in (1, 2, 3, 4, 5, 8)] == [1, 2, 3, 4, 1, 4]
+    assert [pt_tr.train_layout(n, 1, 12)[0] for n in (1, 2, 3, 4, 5, 8)] == [1, 2, 3, 4, 1, 4]
     with pytest.raises(ValueError, match="does not split"):
         pt_tr.rank_devices("cpu", ["cpu"] * 3, 2)
     assert pt_tr.rank_devices("cpu", None, 2) is None and pt_tr.rank_devices("cpu", ["cpu"], 2) is None
@@ -247,7 +247,8 @@ def test_launcher_ranks_train_as_one_process(start, one_process_run, tmp_path):
     got = sorted(results.get() for _ in range(2))
     assert [r for r, *_ in got] == [0, 1]
     for _, refused, final, metrics in got:
-        assert "data_world_size(2, 1) = 1 ranks" in refused and "torchrun --nproc_per_node 1" in refused
+        assert "train_layout(2, 1, 1) = (data 1, model 1): 1 ranks" in refused
+        assert "torchrun --nproc_per_node 1" in refused
         _assert_run_as_one_process(tmp_path, final, metrics, one_process_run, start)
 
 

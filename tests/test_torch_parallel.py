@@ -3,8 +3,10 @@ JAX package's mesh helpers; the member-group rule against
 ``InferencePipeline._member_meshes`` on the 8 virtual CPU devices; the tile
 engine sharded over 2 and 3 CPU shards (and over a second replica) bit for
 bit against the one-device engine, with a replica only where a block runs,
-and the 2-shard engine against the JAX engine; the ensemble's members run at once against in turn, alone and in
-the pipeline; the tile devices ``inference_chips`` chooses."""
+and the 2-shard engine against the JAX engine, at 64x288 and 64x352 (where
+one dedup decision sits at its threshold: pinned with its margin); the
+ensemble's members run at once against in turn, alone and in the pipeline;
+the tile devices ``inference_chips`` chooses."""
 
 from pathlib import Path
 
@@ -83,24 +85,69 @@ def test_inference_chips_choose_the_tile_devices(monkeypatch):
 
 # a 64x288 micrograph in 64 px tiles at overlap 0.1 is a 2x6 grid of 12
 # tiles: 3 chunks of 5 (the last of 2), which split 2/1 over 2 shards and
-# one each over 3
+# one each over 3; 64x352 is a 2x7 grid of 14 tiles: 3 chunks (5, 5, 4)
 KW = dict(tile_size=64, tile_batch=5, upscale_factor=1.0, full_pass_max_dim=0, confidence_mode="auto")
 SETTINGS = {"class_specific_settings": {"class_0": {"confidence_threshold": 0.3}}}
+WIDTHS = (288, 352)
+
+
+class _DedupInput:
+    """Within the block, ``module.dedup_by_mask_iou`` records the set it is
+    given (the merged, thresholded set before the dedup) in ``.got``, as
+    numpy arrays; through ``jax.debug.callback`` inside the JAX engine's
+    program, which then compiles once for both results."""
+
+    def __init__(self, module, traced=False):
+        self.module, self.traced, self.got = module, traced, None
+
+    def __enter__(self):
+        real = self.real = self.module.dedup_by_mask_iou
+
+        def record(*arrays):
+            self.got = InstanceSet(*(np.array(a) for a in arrays))
+
+        def dedup(inst, *a, **kw):
+            if self.traced:
+                jax.debug.callback(record, *inst)
+            else:
+                record(*(t.numpy() for t in inst))
+            return real(inst, *a, **kw)
+
+        self.module.dedup_by_mask_iou = dedup
+        return self
+
+    def __exit__(self, *exc):
+        self.module.dedup_by_mask_iou = self.real
+
+
+@pytest.fixture(scope="module", params=WIDTHS, ids=[f"64x{w}" for w in WIDTHS])
+def strip(request, tiny_r50):
+    """(JAX model, params, image, settings, the one-device engine's set,
+    its quality, the set its dedup took)."""
+    model, params = tiny_r50
+    params = sane_geometry(params)
+    image = (np.random.default_rng(8).random((64, request.param, 3)) * 255).astype(np.uint8)
+    settings = pt_engine.class_settings_from_config(SETTINGS, 2)
+    one = pt_engine.TileEngine(port_model(params), device="cpu", **KW)
+    with _DedupInput(pt_engine) as pre:
+        ref, q = one.infer(image, settings)
+    return model, params, image, settings, ref, q, pre.got
 
 
 @pytest.fixture(scope="module")
-def strip(tiny_r50):
-    model, params = tiny_r50
-    params = sane_geometry(params)
-    image = (np.random.default_rng(8).random((64, 288, 3)) * 255).astype(np.uint8)
-    settings = pt_engine.class_settings_from_config(SETTINGS, 2)
-    one = pt_engine.TileEngine(port_model(params), device="cpu", **KW)
-    ref, q = one.infer(image, settings)
-    return model, params, image, settings, ref, q
+def jax_strip(strip):
+    """The JAX engine on the strip: (its set, its quality, the set its
+    dedup took)."""
+    model, params, image = strip[:3]
+    with _DedupInput(jax_engine, traced=True) as pre:
+        ref, q = jax_engine.TileEngine(model, params, **KW).infer(
+            image, jax_engine.class_settings_from_config(SETTINGS, 2))
+        jax.block_until_ready(ref)
+    return ref, q, pre.got
 
 
 def _shard_run(strip, devices):
-    _, params, image, settings, _, _ = strip
+    _, params, image, settings = strip[:4]
     eng = pt_engine.TileEngine(port_model(params), device=devices, **KW)
     out = eng.infer(image, settings)
     assert len(eng.replicas) == len(set(devices))
@@ -117,7 +164,7 @@ def test_sharded_engine_equals_one_device_engine(strip, two_shards, devices):
     """The same InstanceSet bit for bit: every shard runs the one-device
     engine's chunks. ``cpu:0`` is a second name of the CPU, so the engine
     keeps a second replica of the model (a deep copy) for that shard."""
-    *_, ref, ref_q = strip
+    ref, ref_q = strip[4:6]
     got, q = two_shards if devices == ["cpu"] * 2 else _shard_run(strip, devices)
     assert int(ref.valid.sum()) > 0
     assert torch.equal(q, ref_q)
@@ -125,21 +172,85 @@ def test_sharded_engine_equals_one_device_engine(strip, two_shards, devices):
         assert torch.equal(a, b), name
 
 
-def test_two_shard_engine_matches_jax(strip, two_shards):
-    model, params, image, _, _, _ = strip
-    ref, ref_q = jax_engine.TileEngine(model, params, **KW).infer(
-        image, jax_engine.class_settings_from_config(SETTINGS, 2))
+def test_two_shard_engine_matches_jax(strip, jax_strip, two_shards):
+    """At 64x288 the JAX engine's set; at 64x352 the JAX engine's set but
+    for the one instance the port keeps and JAX drops
+    (``test_64x352_differs_from_jax_at_one_threshold_decision``)."""
+    ref, ref_q, _ = jax_strip
     got, q = two_shards
     np.testing.assert_allclose(float(q), float(ref_q), rtol=1e-5)
     assert got.capacity == ref.capacity and int(np.asarray(ref.valid).sum()) > 0
-    _assert_sets_match(got, ref, box_atol=1e-3)
+    extra = got.valid.numpy() & ~np.asarray(ref.valid)
+    assert not (np.asarray(ref.valid) & ~got.valid.numpy()).any()
+    assert int(extra.sum()) == (1 if strip[2].shape[1] == 352 else 0)
+    _assert_sets_match(got._replace(valid=got.valid & ~torch.from_numpy(extra)), ref, box_atol=1e-3)
 
 
-def test_replicas_only_where_a_block_runs(strip):
-    """A grid of fewer chunks than devices (one chunk of all 12 tiles) runs
-    on the first device alone: no replica is made for the second, and the
-    result is the one-device engine's."""
-    _, params, image, settings, _, _ = strip
+# the instance the port keeps at 64x352 and the JAX engine drops, and the
+# one JAX drops it for (rows of the merged set, before the dedup)
+KEPT_BOX = [181.74, 38.50, 197.57, 64.00]
+
+
+def test_64x352_differs_from_jax_at_one_threshold_decision(strip, jax_strip):
+    """A last-bit difference at a threshold, not a departure from the JAX
+    semantics. The merged sets the two dedups take agree (the same rows,
+    scores and classes; boxes within 1e-3 px, mask probabilities within
+    1e-4, ``test_torch_engine``'s limits). Given the same input, the port's dedup keeps what JAX's keeps.
+    The port keeps one instance more: the row at ``KEPT_BOX`` (score 1.0,
+    class 0). Its low-res paste (stride 8) differs in one cell, whose
+    bilinear probability lies within 5e-5 of the 0.5 mask threshold: just
+    below it from the port's input, at or above it from JAX's. That cell
+    lifts the row's mask IoU with the earlier, kept row it overlaps from
+    2/7 to 3/7 across the dedup's 0.4, so JAX suppresses it. At 64x288
+    nothing sits at a threshold and the sets are equal."""
+    from deepemia_tpu_torch.inference import detections as pt_det
+    from deepemia_tpu_torch.ops import masks as pt_masks
+
+    image, ref = strip[2], strip[4]
+    pre, jax_ref, jax_pre = strip[6], jax_strip[0], jax_strip[2]
+    v = pre.valid
+    np.testing.assert_array_equal(v, jax_pre.valid)
+    np.testing.assert_array_equal(pre.classes[v], jax_pre.classes[v])
+    np.testing.assert_array_equal(pre.scores[v], jax_pre.scores[v])
+    np.testing.assert_allclose(pre.boxes[v], jax_pre.boxes[v], atol=1e-3)
+    np.testing.assert_allclose(pre.mask_probs[v], jax_pre.mask_probs[v], atol=1e-4)
+    hw, stride, iou_thr = image.shape[:2], 8, 0.4
+    dedup = pt_det.dedup_by_mask_iou(InstanceSet(*(torch.tensor(a) for a in jax_pre)), hw, iou_thr, stride)
+    np.testing.assert_array_equal(dedup.valid.numpy(), np.asarray(jax_ref.valid))
+    extra = np.nonzero(ref.valid.numpy() & ~np.asarray(jax_ref.valid))[0]
+    if image.shape[1] == 288:
+        assert len(extra) == 0 and torch.equal(ref.valid, torch.tensor(np.asarray(jax_ref.valid)))
+        return
+    assert len(extra) == 1
+    i = int(extra[0])
+    assert pre.scores[i] == 1.0 and pre.classes[i] == 0
+    np.testing.assert_allclose(pre.boxes[i], KEPT_BOX, atol=1e-2)
+
+    def lowres(s, thr=0.5):
+        b = torch.from_numpy(s.boxes) / float(stride)
+        return pt_masks.paste_masks(torch.from_numpy(s.mask_probs), b, 8, hw[1] // stride, thr).numpy()
+
+    port_lm, jax_lm = lowres(pre), lowres(jax_pre)
+    cells = np.argwhere(port_lm[i] != jax_lm[i])
+    assert len(cells) == 1 and not port_lm[i][tuple(cells[0])] and jax_lm[i][tuple(cells[0])]
+    margin = 5e-5
+    assert lowres(pre, 0.5 - margin)[i][tuple(cells[0])] and not lowres(jax_pre, 0.5 + margin)[i][tuple(cells[0])]
+    port_iou = pt_masks.mask_iou_matrix(torch.from_numpy(port_lm), torch.from_numpy(port_lm)).numpy()[i]
+    jax_iou = pt_masks.mask_iou_matrix(torch.from_numpy(jax_lm), torch.from_numpy(jax_lm)).numpy()[i]
+    same = (pre.classes == pre.classes[i]) & np.asarray(jax_ref.valid) & (np.arange(len(v)) < i)
+    suppressor = np.nonzero(same & (jax_iou > iou_thr))[0]
+    assert len(suppressor) == 1 and not (same & (port_iou > iou_thr)).any()
+    j = int(suppressor[0])
+    assert (port_iou[j], jax_iou[j]) == (np.float32(2 / 7), np.float32(3 / 7))
+
+
+def test_replicas_only_where_a_block_runs(tiny_r50):
+    """A grid of fewer chunks than devices (one chunk of all 12 tiles of the
+    64x288 strip) runs on the first device alone: no replica is made for
+    the second, and the result is the one-device engine's."""
+    params = sane_geometry(tiny_r50[1])
+    image = (np.random.default_rng(8).random((64, 288, 3)) * 255).astype(np.uint8)
+    settings = pt_engine.class_settings_from_config(SETTINGS, 2)
     kw = {**KW, "tile_batch": 16}
     one = pt_engine.TileEngine(port_model(params), device="cpu", **kw).infer(image, settings)
     eng = pt_engine.TileEngine(port_model(params), device=["cpu", "cpu:0"], **kw)
