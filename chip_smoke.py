@@ -238,11 +238,31 @@ It builds the CUDA kernels from the sources in the checkout and then:
      each rank held. ``python3 -c "import chip_smoke;
      chip_smoke.parallel_only()"`` runs phases 11, 12 (the rows phase 17
      (a) is held to), 16 and 17 alone.
+ 18. the image codings ``read_image`` reads beside the plain ones: (a) the
+     committed fixtures (``tests/data/torch_codings_fixtures.npz``, written
+     by ``tools/make_torch_codings_fixtures.py``: FillOrder 2, BigTIFF,
+     old-style LZW and cut TIFFs, CCITT RLE, RLEW, Group 3 and Group 4 fax,
+     arithmetic-coded, CMYK and YCCK, block-smoothed and lossless JPEG,
+     16-bit, bit-field and OS/2 BMP, each beside the array ``cv2.imread``
+     returns) decode bit for bit; (b) 2048² files written by
+     that tool's numpy writers in six worker processes: the arithmetic-
+     coded twins (SOF9 and SOF10, gray and 4:2:0, quality 90) of one set of
+     quantised coefficients decode bit-equal to its Huffman file; phase 12's
+     rasters as FillOrder 2 (raw, LZW, PackBits) and BigTIFF (II and MM,
+     strips and LZW tiles) decode to the raster, and a thresholded
+     micrograph as Group 4 and 2D Group 3 to its bits, each with its host
+     decode seconds (median of 3) beside its plain counterpart's; (c)
+     ``--task inference`` through the CLI in its own process, phase 12's
+     argv, on phase 12's rasters as BigTIFF LZW tiles, FillOrder 2 LZW
+     strips and a FillOrder 2 PackBits BigTIFF: the rows of both CSVs
+     byte-equal to phase 12's, as many K1 launches, the preflight naming the
+     card. ``python3 -c "import chip_smoke; chip_smoke.codings_only()"``
+     runs phase 12's CLI run and phase 18 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
-phases 11, 12, 14, 15, 16 (a, b) and 17 (a) before phase 13, and phases
-16 (c) and 17 (b) before phase 10. K1's ``launches`` in the kernel line is
-the sum of phases 3, 9, 11, 12, 13, 15, 16 and 17, K2's of phases 7, 13,
+phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, and
+phases 16 (c) and 17 (b) before phase 10. K1's ``launches`` in the kernel
+line is the sum of phases 3, 9, 11, 12, 13, 15, 16, 17 and 18, K2's of phases 7, 13,
 16 and 17, K4's and K5's of phase 14's two CLI runs, phase 15's wizard
 task, phase 16's two-shard int8 engine and phase 17's ``--quantized trunk``
 runs, each counted from zero over its own run.
@@ -267,6 +287,24 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+
+def _codings_tool():
+    """``tools/make_torch_codings_fixtures.py``, loaded by its path: the
+    numpy writers of TIFF (FillOrder 2, BigTIFF), CCITT fax, and Huffman-
+    and arithmetic-coded JPEG that this script writes its files with (the
+    card's host has no image writers)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_codings_fixtures", os.path.join(ROOT, "tools", "make_torch_codings_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+codings = _codings_tool()
+lzw_encode, packbits_encode, jpeg_encode = codings.lzw_encode, codings.packbits_encode, codings.jpeg_encode
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1137,80 +1175,6 @@ def phase_train_profile(batch):
         print(f"train profile: {t / 2e3:9.4f} ms/step  x{count // 2:<5d} {key[:110]}", flush=True)
     print(f"train profile: {len(rows)} device event kinds, {sum(c for _, _, c in rows) // 2} device events per step",
           flush=True)
-
-
-def lzw_encode(data: bytes) -> bytes:
-    """TIFF LZW: MSB-first codes of 9..12 bits that widen one code early, a
-    Clear code first and when the table fills, EOI last."""
-    out = bytearray()
-    acc = nacc = 0
-    width, nxt = 9, 258
-    table = {bytes((i,)): i for i in range(256)}
-
-    def put(code):
-        nonlocal acc, nacc
-        acc = (acc << width) | code
-        nacc += width
-        while nacc >= 8:
-            nacc -= 8
-            out.append((acc >> nacc) & 255)
-        acc &= (1 << nacc) - 1
-
-    put(256)
-    w = b""
-    for byte in data:
-        wc = w + bytes((byte,))
-        if wc in table:
-            w = wc
-            continue
-        put(table[w])
-        table[wc] = nxt
-        nxt += 1
-        if nxt == 4095:
-            put(256)
-            table = {bytes((i,)): i for i in range(256)}
-            width, nxt = 9, 258
-        elif nxt >= (1 << width):
-            width += 1
-        w = bytes((byte,))
-    if w:
-        put(table[w])
-        if nxt + 1 >= (1 << width) and width < 12:
-            width += 1
-    put(257)
-    if nacc:
-        out.append((acc << (8 - nacc)) & 255)
-    return bytes(out)
-
-
-def packbits_encode(data: bytes) -> bytes:
-    """PackBits: runs of 3 or more equal bytes as repeat packets, the rest
-    as literal packets of at most 128 bytes."""
-    a = np.frombuffer(data, np.uint8)
-    n = a.size
-    change = np.flatnonzero(np.diff(a) != 0) + 1
-    starts = np.concatenate([[0], change])
-    lengths = np.diff(np.concatenate([starts, [n]]))
-    out = bytearray()
-    lit = 0  # start of the pending literal span
-
-    def literals(lo, hi):
-        for k in range(lo, hi, 128):
-            chunk = data[k : min(k + 128, hi)]
-            out.append(len(chunk) - 1)
-            out.extend(chunk)
-
-    for st, ln in zip(starts[lengths >= 3].tolist(), lengths[lengths >= 3].tolist()):
-        literals(lit, st)
-        for k in range(st, st + ln, 128):
-            m = min(128, st + ln - k)
-            if m >= 2:
-                out.extend((257 - m, a[k]))
-            else:
-                literals(k, k + 1)
-        lit = st + ln
-    literals(lit, n)
-    return bytes(out)
 
 
 # the encodings phase 12 writes its micrographs in: (name, TIFF compression, predictor)
@@ -2772,137 +2736,6 @@ I8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 # counts them: box IoU > 0.85, the same class, greedy in score order
 MATCH_IOU = 0.85
 
-# JPEG tables of ITU T.81 Annex K: the luminance quantization table
-# (natural order) and the luminance DC and AC Huffman tables, used here for
-# every component
-_JPEG_QT = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
-    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
-_JPEG_DC = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
-_JPEG_AC = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], list(bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a"
-    "3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a9293"
-    "9495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6"
-    "e7e8e9eaf1f2f3f4f5f6f7f8f9fa")))
-_ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7,
-    14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39,
-    46, 53, 60, 61, 54, 47, 55, 62, 63])
-
-
-def _huff_codes(bits, vals):
-    """Canonical Huffman codes of a DHT table -> (code, length) per symbol."""
-    code_of, len_of, code, k = np.zeros(256, np.int64), np.zeros(256, np.int64), 0, 0
-    for length, count in enumerate(bits, 1):
-        for _ in range(count):
-            code_of[vals[k]], len_of[vals[k]] = code, length
-            code, k = code + 1, k + 1
-        code <<= 1
-    return code_of, len_of
-
-
-def jpeg_encode(image: np.ndarray, quality: int = JPEG_QUALITY, sampling=(1, 1)) -> bytes:
-    """A baseline JPEG (JFIF, Huffman, ITU T.81 Annex K tables) of a gray
-    [H,W] or BGR [H,W,3] uint8 image; colour as YCbCr with luma sampling
-    ``sampling`` (h, v): (1, 1) 4:4:4, (2, 1) 4:2:2, (2, 2) 4:2:0. The card's
-    host has no JPEG writer, so this script makes its own JPEG files, in
-    numpy: an orthonormal float DCT, libjpeg's quality scaling, and the
-    entropy coding vectorised over all blocks."""
-    h, w = image.shape[:2]
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    qt = np.clip((_JPEG_QT * scale + 50) // 100, 1, 255)
-    if image.ndim == 2:
-        planes, factors = [image.astype(np.float64)], [(1, 1)]
-    else:
-        b, g, r = (image[..., i].astype(np.float64) for i in range(3))
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b, 128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
-        factors = [sampling, (1, 1), (1, 1)]
-    hmax, vmax = factors[0]
-    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
-    u = np.arange(8)
-    dct = np.sqrt(np.where(u == 0, 1 / 8, 2 / 8))[:, None] * np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16)
-    comps = []
-    for plane, (ch, cv) in zip(planes, factors):
-        full = np.pad(plane, ((0, mcuy * 8 * vmax - h), (0, mcux * 8 * hmax - w)), mode="edge")
-        sy, sx = vmax // cv, hmax // ch
-        sub = full.reshape(full.shape[0] // sy, sy, full.shape[1] // sx, sx).mean(axis=(1, 3))
-        blocks = sub.reshape(sub.shape[0] // 8, 8, sub.shape[1] // 8, 8).transpose(0, 2, 1, 3) - 128.0
-        coef = np.einsum("ur,pqrc,vc->pquv", dct, blocks, dct, optimize=True)
-        comps.append(np.round(coef.reshape(*coef.shape[:2], 64) / qt).astype(np.int64)[..., _ZIGZAG])
-    # blocks in MCU order: per MCU, each component's v x h blocks
-    order, owner = [], []
-    for c, (ch, cv) in enumerate(factors):
-        by = np.arange(mcuy)[:, None, None, None] * cv + np.arange(cv)[None, None, :, None]
-        bx = np.arange(mcux)[None, :, None, None] * ch + np.arange(ch)[None, None, None, :]
-        by, bx = np.broadcast_arrays(by, bx)
-        order.append(comps[c][by, bx].reshape(mcuy, mcux, cv * ch, 64))
-        owner.append(np.full((mcuy, mcux, cv * ch), c))
-    coef = np.concatenate(order, axis=2).reshape(-1, 64)
-    owner = np.concatenate(owner, axis=2).reshape(-1)
-    dc = coef[:, 0].copy()
-    diff = np.empty_like(dc)
-    for c in range(len(planes)):
-        sel = owner == c
-        diff[sel] = np.diff(dc[sel], prepend=0)
-    dc_code, dc_len = _huff_codes(*_JPEG_DC)
-    ac_code, ac_len = _huff_codes(*_JPEG_AC)
-
-    def magnitude(v):
-        size = np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
-        return size, np.where(v < 0, v + (1 << size) - 1, v)
-
-    nblk = coef.shape[0]
-    events = []  # (block, position, sub-order, code << value bits | value, total length)
-    s, val = magnitude(diff)
-    events.append((np.arange(nblk), np.zeros(nblk, np.int64), np.zeros(nblk, np.int64),
-                   (dc_code[s] << s) | val, dc_len[s] + s))
-    b, k = np.nonzero(coef[:, 1:])
-    k = k + 1
-    prev = np.where(np.r_[True, b[1:] != b[:-1]], 0, np.r_[0, k[:-1]])
-    run = k - prev - 1
-    s, val = magnitude(coef[b, k])
-    sym = (run % 16) * 16 + s
-    events.append((b, k, np.full(b.size, 16), (ac_code[sym] << s) | val, ac_len[sym] + s))
-    nzrl = run // 16
-    zb = np.repeat(np.arange(b.size), nzrl)
-    zsub = np.arange(zb.size) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl)
-    events.append((b[zb], k[zb], zsub, np.full(zb.size, ac_code[0xF0]), np.full(zb.size, ac_len[0xF0])))
-    last = np.zeros(nblk, np.int64)
-    np.maximum.at(last, b, k)
-    eob = np.nonzero(last < 63)[0]
-    events.append((eob, np.full(eob.size, 64), np.zeros(eob.size, np.int64), np.full(eob.size, ac_code[0]),
-                   np.full(eob.size, ac_len[0])))
-    blk, pos, sub, word, length = (np.concatenate(x) for x in zip(*events))
-    idx = np.lexsort((sub, pos, blk))
-    word, length = word[idx], length[idx]
-    nbits = int(length.sum())
-    owner_ev = np.repeat(np.arange(length.size), length)
-    shift = length[owner_ev] - 1 - (np.arange(nbits) - np.repeat(np.cumsum(length) - length, length))
-    bits = ((word[owner_ev] >> shift) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(-nbits % 8, np.uint8)])  # pad with 1-bits
-    data = np.packbits(bits)
-    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).astype(np.uint8)  # byte stuffing
-
-    def segment(marker, body):
-        return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + bytes(body)
-
-    def dht(cls_id, table):
-        return segment(0xC4, [cls_id, *table[0], *table[1]])
-
-    nc = len(planes)
-    sof = [8, *h.to_bytes(2, "big"), *w.to_bytes(2, "big"), nc]
-    sos = [nc]
-    for c, (ch, cv) in enumerate(factors):
-        sof += [c + 1, ch * 16 + cv, 0]
-        sos += [c + 1, 0x00]
-    sos += [0, 63, 0]
-    return (b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-            + segment(0xDB, [0, *qt[_ZIGZAG].tolist()]) + segment(0xC0, sof)
-            + dht(0x00, _JPEG_DC) + dht(0x10, _JPEG_AC) + segment(0xDA, sos) + data.tobytes() + b"\xff\xd9")
-
-
 def write_jpeg(path: str, image: np.ndarray, quality: int = JPEG_QUALITY, sampling=(1, 1)) -> None:
     with open(path, "wb") as f:
         f.write(jpeg_encode(image, quality, sampling))
@@ -4314,6 +4147,211 @@ def phase_tp_training(one_step, card):
     return sum(g["k1"] for g in got), sum(g["k2"] for g in got)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the image codings read beside the plain ones
+# ---------------------------------------------------------------------------
+
+CODINGS_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_codings_fixtures.npz")
+CODINGS_DIR = os.path.join(PIPELINE_DIR, "codings_files")
+# the arithmetic-coded twins' quality (phase 14 writes at JPEG_QUALITY, whose
+# many coefficients would keep the numpy arithmetic coder busy for minutes)
+CODINGS_QUALITY = 90
+# phase 12's rasters as phase 18 (c) writes them: (TIFF variant, its compression, strips or tiles)
+CODINGS_CLI = (("BigTIFF LZW tiles", "bigtiff II", 5, None, (256, 256)),
+               ("FillOrder 2 LZW strips", "fill order 2", 5, 64, None),
+               ("FillOrder 2 PackBits BigTIFF", "fill order 2 bigtiff MM", 32773, 64, None))
+CODINGS_VARIANTS = {"classic": (1, False, False), "fill order 2": (2, False, False),
+                    "bigtiff II": (1, True, False), "bigtiff MM": (1, True, True),
+                    "fill order 2 bigtiff MM": (2, True, True)}
+
+
+def codings_task(kind: str, *args):
+    """One of phase 18's 2048² files, written in a worker process by the
+    numpy writers of ``tools/make_torch_codings_fixtures.py``: "jpeg"
+    (image, sampling, coding) -> the file in that coding of the image's
+    quantised coefficients; "tiff" (raster, compression, rows per strip,
+    tile) -> {variant: file} over CODINGS_VARIANTS, the segments encoded
+    once; "fax" (bits, compression, T4Options) -> the bilevel file, 256-row
+    strips."""
+    if kind == "jpeg":
+        image, sampling, coding = args
+        return codings.jpeg_encode(image, CODINGS_QUALITY, sampling, coding)
+    if kind == "tiff":
+        raster, compression, rows, tile = args
+        return codings.tiff_variants(raster, compression, CODINGS_VARIANTS, rows, tile)
+    bits, compression, options = args
+    if compression == 1:  # the plain counterpart: uncompressed bilevel rows
+        tags = {256: (codings.LONG, [bits.shape[1]]), 257: (codings.LONG, [bits.shape[0]]),
+                258: (codings.SHORT, [1]), 259: (codings.SHORT, [1]), 262: (codings.SHORT, [0]),
+                277: (codings.SHORT, [1]), 278: (codings.LONG, [256])}
+        rows = np.packbits(bits, axis=1)
+        return codings.tiff_bytes(tags, [rows[y : y + 256].tobytes() for y in range(0, bits.shape[0], 256)])
+    return codings.fax_tiff(bits, compression, options, rows_per_strip=256)
+
+
+def decode_seconds(path: str):
+    """``read_image(path)`` three times -> (its pixels, the median seconds)."""
+    from deepemia_tpu_torch.ops.image import read_image
+
+    secs, img = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = read_image(path)
+        secs.append(time.perf_counter() - t0)
+    return img, float(np.median(secs))
+
+
+def phase_codings(model, images, phase12, card, size=2048):
+    """Phase 18: the codings ``read_image`` reads beside the plain ones.
+    (a) the committed fixtures (``tests/data/torch_codings_fixtures.npz``:
+    FillOrder 2, BigTIFF, old-style LZW, CCITT fax, arithmetic-coded,
+    CMYK/YCCK, block-smoothed and lossless JPEG, 16-bit and OS/2 BMP, each
+    beside the array ``cv2.imread`` returns) decode bit for bit; (b) at ``size``², written by this script's
+    numpy writers in worker processes: the arithmetic-coded twins
+    (sequential and progressive, gray and 4:2:0) of the Huffman file of
+    one set of quantised coefficients decode bit-equal to it; phase 12's
+    rasters as FillOrder 2 (raw, LZW, PackBits) and BigTIFF (II and MM,
+    strips and LZW tiles) decode to the raster; a thresholded micrograph as
+    Group 4 and 2D Group 3 decodes to its bits; each file's decode seconds
+    beside its plain counterpart's; (c) ``--task inference`` through the
+    CLI in its own process (phase 12's argv) on phase 12's rasters written
+    as BigTIFF LZW tiles, FillOrder 2 LZW strips and a FillOrder 2 PackBits
+    BigTIFF: its rows in both CSVs byte-equal to phase 12's, as many K1
+    launches, the device line naming the card. -> the run's K1 launches."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from deepemia_tpu_torch.ops.image import read_image
+
+    os.makedirs(CODINGS_DIR, exist_ok=True)
+    rasters = [draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2]) for i, img in enumerate(images)]
+    gray = images[0][..., 0]
+    colour = np.stack([gray, np.clip(gray.astype(np.int16) + 25, 0, 255).astype(np.uint8), gray], -1)
+    bits = (gray < 128).astype(np.uint8)  # the particles
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=6, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {}
+        for tag, img, sampling in (("gray", gray, (1, 1)), ("4:2:0", colour, (2, 2))):
+            for coding in ("arith-progressive", "arith", "huffman"):
+                jobs[f"jpeg {coding} {tag}"] = pool.submit(codings_task, "jpeg", img, sampling, coding)
+        for i, (_, _, comp, rows, tile) in enumerate(CODINGS_CLI):
+            jobs[f"tiff {i}"] = pool.submit(codings_task, "tiff", rasters[i], comp, rows, tile)
+        jobs["tiff raw"] = pool.submit(codings_task, "tiff", rasters[0], 1, 64, None)
+        for comp, options in ((4, 0), (3, 1), (1, 0)):
+            jobs[f"fax {comp} {options}"] = pool.submit(codings_task, "fax", bits, comp, options)
+        # (a) while the workers write
+        fixtures = np.load(CODINGS_FIXTURES)
+        names = sorted(k for k in fixtures.files if "." not in k)
+        assert len(names) >= 30, names
+        for name in names:
+            (key,) = [k for k in fixtures.files if k.startswith(name + ".")]
+            path = os.path.join(CODINGS_DIR, key)
+            with open(path, "wb") as f:
+                f.write(fixtures[key].tobytes())
+            got = read_image(path)
+            assert got.shape == fixtures[name].shape and np.array_equal(got, fixtures[name]), name
+            os.remove(path)
+        print(f"codings: {len(names)} committed fixtures decode bit for bit to OpenCV's arrays ({', '.join(names)})",
+              flush=True)
+        files = {k: j.result() for k, j in jobs.items()}
+    print(f"codings: {len(files)} jobs of {size}x{size} files written by the numpy writers in "
+          f"{time.perf_counter() - t0:.1f} s (6 worker processes, host)", flush=True)
+
+    def write(name, data):
+        path = os.path.join(CODINGS_DIR, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    def report(what, path, secs, plain, plain_secs):
+        print(f"codings: decode {what} {size}x{size} ({os.path.getsize(path)} bytes): {secs:.4f} s beside {plain} "
+              f"{plain_secs:.4f} s (median of 3, host)", flush=True)
+
+    # (b) the arithmetic-coded twins
+    for tag in ("gray", "4:2:0"):
+        huff, huff_s = decode_seconds(write(f"huffman_{tag[0]}.jpg", files[f"jpeg huffman {tag}"]))
+        for coding in ("arith", "arith-progressive"):
+            path = write(f"{coding}_{tag[0]}.jpg", files[f"jpeg {coding} {tag}"])
+            got, secs = decode_seconds(path)
+            assert np.array_equal(got, huff), (coding, tag)
+            report(f"{coding.replace('-', ' ')} {tag} JPEG (quality {CODINGS_QUALITY}), bit-equal to its Huffman twin,",
+                   path, secs, "the Huffman file's", huff_s)
+    # (b) FillOrder 2 and BigTIFF
+    sets = [(files[f"tiff {i}"], rasters[i], f"{('LZW 256² tiles', 'LZW 64-row strips', 'PackBits 64-row strips')[i]}")
+            for i in range(3)] + [(files["tiff raw"], rasters[0], "uncompressed 64-row strips")]
+    for variants, raster, layout in sets:
+        plain, plain_s = decode_seconds(write("classic.tif", variants["classic"]))
+        assert np.array_equal(plain[..., 0], raster)
+        for variant in ("fill order 2", "bigtiff II", "bigtiff MM", "fill order 2 bigtiff MM"):
+            got, secs = decode_seconds(write("variant.tif", variants[variant]))
+            assert np.array_equal(got[..., 0], raster) and np.array_equal(got, plain), (variant, layout)
+            report(f"{variant} {layout}", os.path.join(CODINGS_DIR, "variant.tif"), secs, "the classic file's", plain_s)
+    # (b) fax
+    plain, plain_s = decode_seconds(write("bilevel.tif", files["fax 1 0"]))
+    assert np.array_equal(plain[..., 0] == 0, bits == 1)
+    for key, what in (("fax 4 0", "Group 4"), ("fax 3 1", "Group 3 2D")):
+        got, secs = decode_seconds(write("fax.tif", files[key]))
+        assert np.array_equal(got, plain), what
+        report(f"{what} (a thresholded micrograph, {int(bits.sum())} black pixels)",
+               os.path.join(CODINGS_DIR, "fax.tif"), secs, "uncompressed 1-bit's", plain_s)
+    shutil.rmtree(CODINGS_DIR, ignore_errors=True)
+
+    # (c) --task inference on phase 12's rasters in the new codings
+    home, folder = cli_home(model, [], name="codings")
+    for i, (what, variant, _, _, _) in enumerate(CODINGS_CLI):
+        with open(os.path.join(folder, f"micrograph_{i}.tif"), "wb") as f:
+            f.write(files[f"tiff {i}"][variant])
+        assert np.array_equal(read_image(os.path.join(folder, f"micrograph_{i}.tif"))[..., 0], rasters[i]), what
+    argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--id", "--draw-scalebar",
+            "--no-download", "--no-upload", "--device", "cuda"]
+    child, wall, proc = cli_subprocess(home, argv)
+    res = child["result"]
+    names = sorted(os.listdir(folder))
+    names = [n for n in names if n.endswith(".tif")]
+    assert res["processed"] == names and not res["failed"], res
+    rle, meas = read_csv(res["rle_csv"])[1:], read_csv(res["measurements_csv"])[1:]
+    preflight = [ln for ln in proc.stderr.splitlines() if "CUDA device:" in ln]
+    assert preflight and torch.cuda.get_device_name(0) in preflight[0], preflight
+    same = (rle, meas) == tuple(phase12[1])
+    print(f"codings: --task inference on {', '.join(w for w, *_ in CODINGS_CLI)} ({wall:.1f} s, its preflight "
+          f"{preflight[0].split(': ', 1)[-1]!r}): rle_rows={len(rle)} measurement_rows={len(meas)}, byte-equal to "
+          f"phase 12's: {same}; roi_align_fwd launches={child['launches']} (phase 12: {phase12[0]}), multilevel "
+          f"calls with RoIs {child['with_rois']}; card {card}", flush=True)
+    assert same, "phase 18's rows differ from phase 12's"
+    assert child["launches"] == phase12[0] == child["with_rois"], (child["launches"], phase12[0])
+    return child["launches"]
+
+
+def codings_only():
+    """Phase 18 alone, after phase 12's CLI run whose rows and launches it
+    is held to (phase 3's R50 weights rebuilt from their seed)."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+    from deepemia_tpu_torch.models.mask_rcnn import build_model
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            images = [synthetic_micrograph(2048, seed) for seed in range(3)]
+            model = build_model("R50", num_classes=2, use_bf16=True, device="cuda", seed=0)
+            sane_geometry(model)
+        t0 = time.perf_counter()
+        phase12 = phase_cli(model, images)
+        print(f"phases 12 (CLI run): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        launches = phase_codings(model, images, phase12, card)
+        print(f"phases 18: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"roi_align_fwd": launches}), flush=True)
+    finally:
+        shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+
+
 def parallel_only():
     """Phases 1, 11, 16 and 17 alone (phase 3's R50 weights rebuilt from
     their seed; phase 11 makes the rows phase 16 (b) is held to, phase 12's
@@ -4488,6 +4526,8 @@ def main() -> int:
         lap("16 (a, b)")
         rank_k1, rank_k4, rank_k5 = phase_rank_inference(model, images, phase12, card)
         lap("17 (a)")
+        codings_k1 = phase_codings(model, images, phase12, card)
+        lap(18)
     finally:
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(INT8_DIR, ignore_errors=True)
@@ -4517,9 +4557,10 @@ def main() -> int:
         # and the wizard started, as their CLI logged them) and 16 (two tile shards, bf16 and int8; the
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
         # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
-        # the tensor-parallel step), each counted from zero
+        # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters), each counted
+        # from zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1 + rank_k1 + tp_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -4648,7 +4689,8 @@ def main() -> int:
     }
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
-          f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}; roi_align_bwd "
+          f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}, phase 18 "
+          f"{codings_k1}; roi_align_bwd "
           f"launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 "
           f"{ranks_k2}, phase 17 {tp_k2}; int8_conv launches: phase 14 {int8_launches}, wizard {entry_k4}, phase 16 "
           f"{shard_k4}, phase 17 {rank_k4}; int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}, phase "

@@ -1,5 +1,5 @@
 """ctypes bindings of the native host libraries: the measurement kernels
-(``measure.cpp``) and the LZW, PackBits and JPEG decoders of
+(``measure.cpp``) and the LZW, PackBits, CCITT fax and JPEG decoders of
 ``read_image`` (``codecs.cpp``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
@@ -41,9 +41,10 @@ _SIGNATURES = {
         "fit_ellipse": ([_P, _I, _P], _I),
     },
     "codecs": {
-        "lzw_decode": ([_P, _L, _P, _L], _L),
+        "lzw_decode": ([_P, _L, _P, _L, _P], _L),
         "packbits_decode": ([_P, _L, _P, _L], _L),
         "jpeg_decode": ([_P, _L, _P, _L, _P, _I], _I),
+        "fax_decode": ([_P, _L, _P, _L, _L, _I, _I, _I], _I),
     },
 }
 
@@ -127,25 +128,39 @@ def fit_ellipse(pts: np.ndarray) -> Optional[Tuple[float, float, float]]:
     return float(out[0]), float(out[1]), float(out[2])
 
 
-def _decode(fn: str, data: bytes, size: int) -> bytes:
+def lzw_decode(data: bytes, size: int) -> Tuple[bytes, bool]:
+    """A TIFF LZW strip or tile, new-style or old-style (LSB-first) -> (at
+    most ``size`` decoded bytes, whether the stream was sound): a corrupt one
+    gives the bytes decoded before its first bad code, as libtiff leaves
+    them."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros(max(size, 1), np.uint8)
-    n = getattr(get_lib("codecs"), fn)(_ptr(src), src.size, _ptr(out), size)
-    if n == -2:
-        raise ValueError("TIFF: old-style (LSB-first) LZW is not supported")
-    if n < 0:
-        raise ValueError(f"TIFF: corrupt {fn.split('_')[0]} stream")
-    return out[:n].tobytes()
-
-
-def lzw_decode(data: bytes, size: int) -> bytes:
-    """A TIFF LZW strip or tile -> at most ``size`` decoded bytes."""
-    return _decode("lzw_decode", data, size)
+    corrupt = np.zeros(1, np.int32)
+    n = get_lib("codecs").lzw_decode(_ptr(src), src.size, _ptr(out), size, _ptr(corrupt))
+    return out[:n].tobytes(), not corrupt[0]
 
 
 def packbits_decode(data: bytes, size: int) -> bytes:
     """A PackBits strip or tile -> at most ``size`` decoded bytes."""
-    return _decode("packbits_decode", data, size)
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(max(size, 1), np.uint8)
+    n = get_lib("codecs").packbits_decode(_ptr(src), src.size, _ptr(out), size)
+    return out[:n].tobytes()
+
+
+def fax_decode(data: bytes, compression: int, rows: int, width: int, options: int, lsb_first: bool) -> bytes:
+    """A CCITT strip or tile (TIFF compression 2, 3, 4 or 32771; T4Options
+    or T6Options ``options``; FillOrder 2 if ``lsb_first``) -> its ``rows``
+    rows of ``width`` pixels, packed MSB first, black 1. Where libtiff's
+    decoder gives up on damaged data, the rows it wrote stand and the rest
+    stay 0, as OpenCV reads them."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(rows * ((width + 7) // 8), np.uint8)
+    status = get_lib("codecs").fax_decode(_ptr(src), src.size, _ptr(out), rows, width, compression, options,
+                                         int(lsb_first))
+    if status == -2:
+        raise ValueError(f"TIFF: a fax strip or tile of {rows}x{width} pixels")
+    return out.tobytes()
 
 
 def jpeg_decode(data: bytes, color: int = -1) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
@@ -153,13 +168,13 @@ def jpeg_decode(data: bytes, color: int = -1) -> Tuple[int, np.ndarray, Optional
     BGR uint8 pixels, else a negative status of ``codecs.cpp:jpeg_decode``
     and no pixels; meta = (height, width, components, SOF marker). ``color``
     is the colour space of three components: -1 as libjpeg guesses it, 0
-    YCbCr, 1 as stored (R, G, B)."""
+    YCbCr, 1 as stored (R, G, B; four components as stored too, [H,W,4])."""
     src = np.frombuffer(data, np.uint8)
     meta = np.zeros(4, np.int32)
     lib = get_lib("codecs")
     status = lib.jpeg_decode(_ptr(src), src.size, None, 0, _ptr(meta), color)
     if status != 1:
         return status, meta, None
-    out = np.empty((int(meta[0]), int(meta[1]), 3), np.uint8)
+    out = np.empty((int(meta[0]), int(meta[1]), 4 if color == 1 and meta[2] == 4 else 3), np.uint8)
     status = lib.jpeg_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta), color)
     return status, meta, out if status == 0 else None

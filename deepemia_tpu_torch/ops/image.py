@@ -91,13 +91,18 @@ _TIFF_COMPRESSION = {
     1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
     7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP",
 }
-_TIFF_DECODED = (1, 5, 7, 8, 32773, 32946)
-# field type -> (struct code, bytes per value); a RATIONAL is two LONGs
-_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 7: ("B", 1)}
+_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
+_TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, Group 3, Group 4, RLEW: 1-bit only
+# field type -> (struct code, bytes per value); a RATIONAL is two LONGs; LONG8, SLONG8 and IFD8 are BigTIFF's
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 7: ("B", 1), 16: ("Q", 8), 17: ("q", 8),
+               18: ("Q", 8)}
+# byte -> its bits reversed: the strips of a FillOrder 2 (LSB first) TIFF
+_BIT_REVERSED = np.packbits(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1)[:, ::-1], axis=1)[:, 0]
 # (photometric, samples per pixel) -> the bit depths OpenCV reads: WhiteIsZero and BlackIsZero gray (with
-# alpha), RGB(A), palette, CMYK and YCbCr. OpenCV refuses 2- and 4-bit gray and 2-bit palettes.
+# extra samples), RGB(A), palette, CMYK, YCbCr and CIELab. OpenCV refuses 2- and 4-bit gray and 2-bit palettes.
 _TIFF_KINDS = {
-    (0, 1): (1, 8, 16), (1, 1): (1, 8, 16), (0, 2): (8, 16), (1, 2): (8, 16), (2, 3): (8, 16), (2, 4): (8, 16),
+    (0, 1): (1, 8, 16), (1, 1): (1, 8, 16), (0, 2): (8, 16), (1, 2): (8, 16), (0, 3): (8, 16), (1, 3): (8, 16),
+    (0, 4): (8, 16), (1, 4): (8, 16), (2, 3): (8, 16), (2, 4): (8, 16), (8, 3): (8, 16),
     (3, 1): (1, 4, 8), (5, 4): (8,), (6, 3): (8,),
 }
 # the YCbCr subsamplings libtiff's RGBA reader places (tif_getimage.c)
@@ -110,43 +115,51 @@ def read_image(path: str) -> np.ndarray:
 
     Reads PNG (gray at 1, 2, 4, 8 and 16 bits, gray+alpha, RGB, RGBA and
     palettes at 1, 2, 4 and 8 bits, plain or Adam7-interlaced; ``tRNS`` is
-    dropped with alpha), TIFF (the first page; BlackIsZero and WhiteIsZero
-    gray at 1, 8 and 16 bits, gray+alpha, RGB and RGBA at 8 and 16 bits,
-    palettes at 1, 4 and 8 bits, 8-bit CMYK and YCbCr with any subsampling
-    libtiff places; strips or tiles, contiguous or separate planes;
-    uncompressed, LZW, Deflate, PackBits with predictor 1 or 2, or JPEG with
-    its ``JPEGTables``) and BMP (1-, 4- and 8-bit palettes, uncompressed,
-    RLE4 or RLE8; 24-bit, 32-bit; bottom-up or top-down rows). Gray is
-    replicated to three channels and alpha is dropped. Sub-byte gray
-    expands to 0..255; palettes map through their colours (a TIFF
-    ``ColorMap`` of 16-bit entries by its high byte, one whose entries are
-    all below 256 as it is); CMYK and YCbCr convert as libtiff's RGBA reader
-    converts them. 16-bit samples reduce to 8 bits as OpenCV reduces them:
-    the high byte, except for 16-bit colour TIFF, which libtiff's RGBA
-    reader rounds (v * 255 + 32767) // 65535. JPEG (baseline, extended and
-    progressive Huffman, 8-bit gray, YCbCr or RGB, any sampling libjpeg
-    takes) decodes to libjpeg-turbo's pixels bit for bit
-    (``native/codecs.cpp:jpeg_decode``), as do a TIFF's JPEG strips and
-    tiles. The EXIF orientation of a JPEG (APP1) or a PNG (``eXIf``, before
-    or after the image data), and a TIFF's Orientation tag, turn the image
-    as OpenCV's ``ApplyExifOrientation`` does (OpenCV 5.0 returns None for
-    a TIFF with that tag; the port turns it, so that the scale-bar region
-    lies where the user sees it). Any other encoding (BigTIFF, the other
-    TIFF compressions, old-style JPEG in TIFF, JPEG's arithmetic, lossless
-    and hierarchical codings, 12-bit and CMYK JPEG, and what OpenCV also
-    refuses: 2- and 4-bit gray TIFF, 32-bit samples) raises an
-    ``UnsupportedImageError`` that names it; a corrupt file, or one cut off
-    before its pixel data, a ``ValueError`` (where OpenCV returns None), and
-    a missing one an ``OSError``."""
+    dropped with alpha), TIFF and BigTIFF, either byte order (the first
+    page; BlackIsZero and WhiteIsZero gray at 1, 8 and 16 bits, gray+alpha,
+    RGB and RGBA at 8 and 16 bits, gray with extra samples, palettes at 1,
+    4 and 8 bits, 8-bit CMYK and YCbCr with any subsampling libtiff places,
+    CIELab at 8 and 16 bits; strips or tiles,
+    contiguous or separate planes; uncompressed, LZW (old-style too),
+    Deflate, PackBits with predictor 1 or 2, JPEG (gray, RGB, YCbCr or
+    CMYK) with its ``JPEGTables``, and bilevel CCITT RLE, RLEW, Group 3 (1D
+    and 2D) and Group 4; FillOrder 2 bits reversed where libtiff reverses
+    them; a strip or tile cut short or damaged read as libtiff's RGBA reader
+    leaves it: what its codec decoded, zeros after) and BMP (Windows and
+    OS/2 core headers; 1-, 4- and 8-bit palettes, uncompressed, RLE4 or
+    RLE8; 16-bit 5:5:5 and 5:6:5, 24-bit, 32-bit whatever its bit fields;
+    bottom-up or top-down rows). Gray is replicated to
+    three channels and alpha is dropped. Sub-byte gray expands to 0..255;
+    palettes map through their colours (a TIFF ``ColorMap`` of 16-bit
+    entries by its high byte, one whose entries are all below 256 as it
+    is); CMYK, YCbCr and CIELab convert as libtiff's RGBA reader converts
+    them.
+    16-bit samples reduce to 8 bits as OpenCV reduces them: the high byte,
+    except for 16-bit colour TIFF, which libtiff's RGBA reader rounds (v *
+    255 + 32767) // 65535. JPEG decodes to libjpeg-turbo's pixels bit for
+    bit (``native/codecs.cpp:jpeg_decode``): baseline, extended and
+    progressive, Huffman- or arithmetic-coded, 8-bit gray, YCbCr, RGB, CMYK
+    and YCCK (converted as OpenCV converts CMYK) in any sampling libjpeg
+    takes, a progressive file with unrefined low coefficients block-
+    smoothed as libjpeg smooths it, and lossless RGB and CMYK; so do a
+    TIFF's JPEG strips and tiles. The EXIF orientation of a JPEG (APP1) or
+    a PNG (``eXIf``, before or after the image data), and a TIFF's
+    Orientation tag, turn the image as OpenCV's ``ApplyExifOrientation``
+    does (OpenCV 5.0 returns None for a TIFF with that tag; the port turns
+    it, so that the scale-bar region lies where the user sees it). What
+    OpenCV refuses too raises an ``UnsupportedImageError`` that names it:
+    old-style JPEG, LZMA, ZSTD and WEBP TIFF, 2- and 4-bit gray TIFF,
+    32-bit samples, hierarchical and arithmetic-coded lossless JPEG,
+    lossless gray or YCbCr JPEG, 12-bit and two-component JPEG; a corrupt
+    file, or one cut off before its pixel data, a ``ValueError`` (where
+    OpenCV returns None), and a missing one an ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
         if data.startswith(_PNG_SIGNATURE):
             return _decode_png(data)
-        if data[:4] in (b"II*\x00", b"MM\x00*"):
+        if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
             return _decode_tiff(data)
-        if data[:4] in (b"II+\x00", b"MM\x00+"):
-            raise UnsupportedImageError("BigTIFF is not supported")
         if data[:2] == b"\xff\xd8":
             return _decode_jpeg(data)
         if data[:2] == b"BM":
@@ -266,33 +279,61 @@ def _decode_png(data: bytes) -> np.ndarray:
 
 def _tiff_tags(data: bytes):
     """The first IFD -> (byte order, {tag: values}); a RATIONAL's values
-    are its numerators and denominators in turn, an UNDEFINED's its bytes."""
+    are its numerators and denominators in turn, an UNDEFINED's its bytes.
+    A BigTIFF (version 43) has an 8-byte first-IFD offset after its
+    ``8, 0`` header, an 8-byte entry count, and 20-byte entries with 8-byte
+    counts and values inline up to 8 bytes."""
     end = "<" if data[:2] == b"II" else ">"
-    (ifd,) = struct.unpack(end + "I", data[4:8])
-    (n,) = struct.unpack(end + "H", data[ifd : ifd + 2])
+    big = struct.unpack(end + "H", data[2:4])[0] == 43
+    if big and struct.unpack(end + "HH", data[4:8]) != (8, 0):
+        raise ValueError("BigTIFF: offsets of other than 8 bytes")
+    word = "Q" if big else "I"  # offsets and counts
+    (ifd,) = struct.unpack(end + word, data[4 + 4 * big : 8 + 8 * big])
+    (n,) = struct.unpack(end + ("Q" if big else "H"), data[ifd : ifd + 2 + 6 * big])
+    entry, inline = (20, 8) if big else (12, 4)
     tags = {}
     for i in range(n):
-        e = ifd + 2 + 12 * i
-        tag, typ, count = struct.unpack(end + "HHI", data[e : e + 8])
+        e = ifd + 2 + 6 * big + entry * i
+        tag, typ, count = struct.unpack(end + "HH" + word, data[e : e + entry - inline])
         if typ not in _TIFF_TYPES:
             continue
         fmt, size = _TIFF_TYPES[typ]
-        at = e + 8 if count * size <= 4 else struct.unpack(end + "I", data[e + 8 : e + 12])[0]
+        e += entry - inline
+        at = e if count * size <= inline else struct.unpack(end + word, data[e : e + inline])[0]
         k = 2 * count if typ == 5 else count
         tags[tag] = struct.unpack(f"{end}{k}{fmt}", data[at : at + count * size])
     return end, tags
 
 
-def _tiff_segment(raw: bytes, comp: int, size: int) -> bytes:
-    """One strip or tile, decompressed to at most ``size`` bytes."""
+def _tiff_segment(raw: bytes, comp: int, size: int):
+    """One strip or tile, decompressed to at most ``size`` bytes -> (the
+    bytes, whether its codec filled ``size`` without an error). A codec that
+    fails keeps what it wrote, as libtiff's does: an LZW or Deflate stream
+    up to its first bad code, any stream cut short up to its end; an
+    uncompressed one shorter than ``size`` copies nothing (DumpModeDecode)."""
     if comp == 1:
-        return raw[:size]
+        return (raw[:size], True) if len(raw) >= size else (b"", False)
     if comp in (8, 32946):
-        d = zlib.decompressobj()
-        return d.decompress(raw, size)
+        try:
+            out = zlib.decompressobj().decompress(raw, size)
+        except zlib.error:  # the bytes inflate wrote before the error: those of the longest sound prefix
+            lo, hi = 0, len(raw)
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                try:
+                    zlib.decompressobj().decompress(raw[:mid], size)
+                    lo = mid
+                except zlib.error:
+                    hi = mid
+            return zlib.decompressobj().decompress(raw[:lo], size), False
+        return out, len(out) == size
     from deepemia_tpu_torch import native
 
-    return native.lzw_decode(raw, size) if comp == 5 else native.packbits_decode(raw, size)
+    if comp == 5:
+        out, sound = native.lzw_decode(raw, size)
+        return out, sound and len(out) == size
+    out = native.packbits_decode(raw, size)
+    return out, len(out) == size
 
 
 def _ycbcr_units(seg: bytes, sh: int, sw: int, sub) -> np.ndarray:
@@ -309,10 +350,11 @@ def _ycbcr_units(seg: bytes, sh: int, sw: int, sub) -> np.ndarray:
 
 
 def _tiff_jpeg(raw: bytes, tables: bytes, photometric: int, spp: int, sh: int, sw: int) -> np.ndarray:
-    """One JPEG-compressed strip or tile -> [sh, sw, spp] uint8 gray or
-    RGB: its stream with the ``JPEGTables`` spliced in after SOI, decoded as
-    libtiff has libjpeg decode it (tif_jpeg.c: YCbCr converted to RGB, gray
-    and RGB as stored). A last strip may hold more rows than the image."""
+    """One JPEG-compressed strip or tile -> [sh, sw, spp] uint8 gray, RGB
+    or CMYK: its stream with the ``JPEGTables`` spliced in after SOI,
+    decoded as libtiff has libjpeg decode it (tif_jpeg.c: YCbCr converted to
+    RGB, gray, RGB and CMYK as stored). A last strip may hold more rows than
+    the image."""
     from deepemia_tpu_torch import native
 
     if raw[:2] != b"\xff\xd8":
@@ -323,7 +365,7 @@ def _tiff_jpeg(raw: bytes, tables: bytes, photometric: int, spp: int, sh: int, s
     if int(meta[2]) != spp or bgr.shape[1] != sw or bgr.shape[0] < sh:
         raise ValueError(f"TIFF: a JPEG strip or tile of {bgr.shape[0]}x{bgr.shape[1]}x{int(meta[2])} where "
                          f"{sh}x{sw}x{spp} was expected")
-    return bgr[:sh, :, 2::-1][..., :spp]
+    return bgr[:sh] if spp == 4 else bgr[:sh, :, 2::-1][..., :spp]
 
 
 def _rationals(values, default):
@@ -365,6 +407,50 @@ def _ycbcr_to_bgr(ycc: np.ndarray, tags: dict) -> np.ndarray:
     return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
 
 
+def _cielab_to_bgr(lab: np.ndarray, depth: int, tags: dict) -> np.ndarray:
+    """[H,W,3] CIELab samples -> BGR as libtiff's RGBA reader converts them
+    (tif_getimage.c initCIELabConversion, tif_color.c): TIFFCIELab16ToXYZ
+    against the WhitePoint (D50 by default), then TIFFXYZToRGB on the sRGB
+    display (its matrix, 1500-step gamma 2.4 tables), in float32 as libtiff
+    computes it."""
+    f32 = np.float32
+    if depth == 8:  # TIFFCIELabToXYZ: L * 257, a and b (signed) * 256
+        l = lab[..., 0].astype(np.int64) * 257
+        a, b = (lab[..., k].astype(np.int8).astype(np.int64) * 256 for k in (1, 2))
+    else:
+        l = lab[..., 0].astype(np.int64)
+        a, b = (lab[..., k].astype(np.int16).astype(np.int64) for k in (1, 2))
+    if 318 in tags:
+        wp0, wp1 = _rationals(tags[318], ())[:2]
+    else:
+        s = f32(96.425) + f32(100) + f32(82.468)
+        wp0, wp1 = f32(96.425) / s, f32(100) / s
+    if wp1 == 0:
+        raise ValueError("TIFF: a WhitePoint of y 0")
+    x0, y0, z0 = wp0 / wp1 * f32(100), f32(100), (f32(1) - wp0 - wp1) / wp1 * f32(100)
+    lum = l.astype(f32) * f32(100) / f32(65535)
+    low = lum < f32(8.856)
+    y = np.where(low, (lum * y0) / f32(903.292), f32(0)).astype(f32)
+    cby = np.where(low, f32(7.787) * (y / y0) + f32(16) / f32(116), (lum + f32(16)) / f32(116)).astype(f32)
+    y = np.where(low, y, y0 * cby * cby * cby).astype(f32)
+
+    def xz(t, w0):
+        return np.where(t < f32(0.2069), w0 * (t - f32(0.13793)) / f32(7.787), w0 * t * t * t).astype(f32)
+
+    x = xz((a.astype(f32) / f32(256) / f32(500) + cby).astype(f32), x0)
+    z = xz((cby - b.astype(f32) / f32(256) / f32(200)).astype(f32), z0)
+    steps = 1500
+    step = (f32(100) - f32(1)) / f32(steps)
+    table = f32(255) * np.power(np.arange(steps + 1) / steps, 1.0 / np.float64(f32(2.4))).astype(f32)
+    out = []
+    for m in ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416), (0.0556, -0.2040, 1.0570)):
+        v = (f32(m[0]) * x + f32(m[1]) * y + f32(m[2]) * z).astype(f32)
+        v = np.minimum(np.maximum(v, f32(1)), f32(100))
+        i = np.minimum(((v - f32(1)) / step).astype(f32).astype(np.int64), steps)
+        out.append(np.minimum((table[i].astype(np.float64) + 0.5).astype(np.int64), 255))  # RINT, then the clip
+    return np.stack(out[::-1], axis=-1).astype(np.uint8)
+
+
 def _tiff_to_bgr(pix: np.ndarray, photometric: int, depth: int, tags: dict) -> np.ndarray:
     """The decoded samples -> [H,W,3] BGR as libtiff's RGBA reader
     (tif_getimage.c), which OpenCV reads 8-bit images through, maps them."""
@@ -384,6 +470,8 @@ def _tiff_to_bgr(pix: np.ndarray, photometric: int, depth: int, tags: dict) -> n
         return ((255 - v[..., 3:]) * (255 - v[..., 2::-1]) // 255).astype(np.uint8)
     if photometric == 6:
         return _ycbcr_to_bgr(pix, tags)
+    if photometric == 8:
+        return _cielab_to_bgr(pix, depth, tags)
     if depth == 16:
         pix = ((pix.astype(np.int64) * 255 + 32767) // 65535).astype(np.uint8)
     if pix.shape[2] == 4 and tags.get(338, (0,))[0] == 2:
@@ -400,6 +488,9 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     spp = get(277, 1)[0]
     bits = set(get(258, 1))
     comp, photometric = get(259, 1)[0], get(262, 1)[0]
+    # libtiff reverses the bits of every raw segment of a FillOrder 2 file, but those of the codecs
+    # that set TIFF_NOBITREV: JPEG, and the fax codecs, which read either order through their tables
+    fill = get(266, 1)[0]
     predictor, planar = get(317, 1)[0], get(284, 1)[0]
     if comp not in _TIFF_DECODED:
         raise UnsupportedImageError(
@@ -427,7 +518,9 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                                     "is not supported")
     if photometric == 5 and get(332, 1)[0] != 1:
         raise UnsupportedImageError(f"TIFF: ink set {get(332, 1)[0]} (not CMYK) is not supported")
-    if comp == 7 and (photometric not in (1, 2, 6) or planar == 2):
+    if comp in _TIFF_FAX and (depth != 1 or spp != 1):
+        raise ValueError(f"TIFF: {_TIFF_COMPRESSION[comp]} compression of {spp} samples at {depth} bits")
+    if comp == 7 and (photometric not in (1, 2, 5, 6) or planar == 2):
         raise UnsupportedImageError(f"TIFF: JPEG compression of photometric {photometric}, planar configuration "
                                     f"{planar} is not supported")
     sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
@@ -438,16 +531,31 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     tables = tables[2:-2] if tables[:2] == b"\xff\xd8" else tables  # its SOI and EOI
     dtype = np.dtype(np.uint8) if depth <= 8 else np.dtype(end + "u2")
     sps = spp if planar == 1 else 1  # samples per pixel within one segment
+    if 322 in tags and comp == 1 and fill == 2:
+        raise ValueError("TIFF: uncompressed tiles in FillOrder 2, which libtiff's tile reader fails on")
     if 322 in tags:  # tiles, padded to the full tile size at the edges
         tw, th = tags[322][0], tags[323][0]
         offsets, counts = tags[324], tags[325]
         grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
         shape_of = lambda y: (th, tw)  # noqa: E731
+        if comp == 1 and planar == 1 and len(counts) > 2 and counts[0] != counts[1] and counts[0] and counts[1]:
+            counts = (th * ((tw * spp * depth + 7) // 8),) * len(offsets)  # as for strips, below
     else:
         rps = min(get(278, h)[0], h)
         offsets, counts = tags[273], tags[279]
         grid = [(y, 0) for y in range(0, h, rps)]
         shape_of = lambda y: (min(rps, h - y), w)  # noqa: E731
+        row_bytes = (w * (spp if planar == 1 else 1) * depth + 7) // 8
+        if photometric == 6 and comp == 1:  # TIFFScanlineSize of subsampled YCbCr: a row of data units over v
+            row_bytes = -(-w // sub[0]) * (sub[0] * sub[1] + 2) // sub[1]
+        # tif_dirread.c ignores the StripByteCounts of an uncompressed image where they look wrong (one strip
+        # of fewer bytes than the image or more than the file holds, or the first two of three or more
+        # unequal) and works them out from the image size
+        if comp == 1 and planar == 1 and len(offsets) == 1 and not (
+                0 < row_bytes * h <= counts[0] <= len(data) - offsets[0]):
+            counts = (row_bytes * h,)
+        elif comp == 1 and planar == 1 and len(counts) > 2 and counts[0] != counts[1] and counts[0] and counts[1]:
+            counts = (row_bytes * (h // len(offsets)),) * len(offsets)
     planes = 1 if planar == 1 else spp
     if len(offsets) < planes * len(grid) or len(counts) < len(offsets):
         raise ValueError("TIFF: fewer strips or tiles than the image needs")
@@ -456,24 +564,40 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         for k, (y, x) in enumerate(grid):
             sh, sw = shape_of(y)
             j = p * len(grid) + k
+            # libtiff's RGBA reader gives up where the first plane's segment cannot be read (or, in tiles, is
+            # uncompressed and short), and reads what a failed codec left, zeros after it, everywhere else
+            first_plane = planar == 1 or p == 0
             raw = data[offsets[j] : offsets[j] + counts[j]]
+            if not counts[j] or offsets[j] + counts[j] > len(data):
+                if first_plane:
+                    raise ValueError("TIFF: a strip or tile of no bytes, or past the end of the file")
+                raw = b""
+            if fill == 2 and comp != 7 and comp not in _TIFF_FAX:  # tif_read.c: TIFFReverseBits
+                raw = _BIT_REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
             if comp == 7:
                 a = _tiff_jpeg(raw, tables, photometric, spp, sh, sw)
+            elif comp in _TIFF_FAX:
+                from deepemia_tpu_torch import native
+
+                seg = native.fax_decode(raw, comp, sh, sw, get(293 if comp == 4 else 292, 0)[0], fill == 2)
+                a = _unpack_bits(np.frombuffer(seg, np.uint8).reshape(sh, -1), sw, 1)[..., None]
             else:
                 if ycc:
                     need = -(-sh // sub[1]) * -(-sw // sub[0]) * (sub[0] * sub[1] + 2)
                 else:
                     need = sh * ((sw * sps * depth + 7) // 8)
-                seg = _tiff_segment(raw, comp, need)
-                if len(seg) < need:
-                    raise ValueError("TIFF: a strip or tile holds fewer bytes than it must")
+                seg, sound = _tiff_segment(raw, comp, need)
+                if comp == 1 and not sound and 322 in tags and first_plane:
+                    raise ValueError("TIFF: an uncompressed tile shorter than the tile, which libtiff's tile reader "
+                                     "fails on")
+                seg = seg.ljust(need, b"\0")  # the rest of libtiff's buffer, zeroed when allocated
                 if ycc:
                     a = _ycbcr_units(seg, sh, sw, sub)
                 elif depth < 8:
                     a = _unpack_bits(np.frombuffer(seg, np.uint8).reshape(sh, -1), sw, depth)[..., None]
                 else:
                     a = np.frombuffer(seg, dtype).reshape(sh, sw, sps).astype(pix.dtype)
-                if predictor == 2:  # horizontal differencing, per sample, modulo 2^bits
+                if predictor == 2 and sound:  # horizontal differencing, undone only where the codec succeeded
                     a = np.cumsum(a, axis=1, dtype=pix.dtype)
             ch = slice(None) if planar == 1 else slice(p, p + 1)
             pix[y : y + sh, x : x + sw, ch] = a[: h - y, : w - x]
@@ -542,29 +666,47 @@ def _bmp_rle(src: bytes, width: int, rows: int, bits: int) -> np.ndarray:
 
 
 def _decode_bmp(data: bytes) -> np.ndarray:
+    """OpenCV's BMP reader (grfmt_bmp.cpp): a Windows header of 36 bytes or
+    more, or an OS/2 core header (12 bytes, 3-byte palette entries);
+    palettes at 1, 4 and 8 bits (RLE4, RLE8), 16-bit 5:5:5 (masks 0x7C00,
+    0x3E0, 0x1F or none) and 5:6:5, 24- and 32-bit (bit fields or not: the
+    first three bytes are B, G, R)."""
     (pixel_at,) = struct.unpack("<I", data[10:14])
     (hsize,) = struct.unpack("<I", data[14:18])
-    if hsize < 40:
-        raise UnsupportedImageError(f"BMP: OS/2 header of {hsize} bytes is not supported")
-    w, h, _, bits, comp, _, _, _, ncolors = struct.unpack("<iiHHIIiiI", data[18:50])
-    if comp == 3 and bits == 32:
-        masks = struct.unpack("<III", data[54:66])
-        if masks != (0xFF0000, 0xFF00, 0xFF):
+    entry = 4  # palette entry bytes
+    if hsize == 12:
+        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
+        comp, ncolors, entry = 0, 0, 3
+    elif hsize >= 36:
+        w, h, _, bits, comp, _, _, _, ncolors = struct.unpack("<iiHHIIiiI", data[18:50])
+    else:
+        raise UnsupportedImageError(f"BMP: a header of {hsize} bytes is not supported")
+    if bits == 16 and comp == 3:  # OpenCV reads the masks after the header and takes 5:5:5 and 5:6:5
+        masks = struct.unpack("<III", data[14 + hsize : 26 + hsize])
+        if masks not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
             raise UnsupportedImageError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
-    elif comp not in (0, {8: 1, 4: 2}.get(bits, 0)):
+    elif comp not in (0, {8: 1, 4: 2, 16: 3, 32: 3}.get(bits, 0)):
         raise UnsupportedImageError(f"BMP: compression {comp} at {bits} bits is not supported")
-    if bits not in (1, 4, 8, 24, 32):
+    if bits not in (1, 4, 8, 16, 24, 32) or (bits == 16 and hsize == 12):
         raise UnsupportedImageError(f"BMP: {bits}-bit pixels are not supported")
+    if ncolors > 256:
+        raise ValueError(f"BMP: {ncolors} palette colours")
     rows, width = abs(h), w
     if bits > 8:
-        stride = (width * bits // 8 + 3) & ~3
+        stride = (width * bits + 31) // 32 * 4
         raw = np.frombuffer(data, np.uint8, count=rows * stride, offset=pixel_at).reshape(rows, stride)
         raw = raw[::-1] if h > 0 else raw  # bottom-up rows
+        if bits == 16:  # icvCvt_BGR5552BGR / BGR5652BGR: each field's bits at the top of its byte
+            t = raw[:, : 2 * width].view("<u2").astype(np.int32)
+            g565 = comp == 3 and masks[1] == 0x7E0
+            bgr = [(t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8] if g565 else \
+                [(t << 3) & 0xF8, (t >> 2) & 0xF8, (t >> 7) & 0xF8]
+            return np.stack(bgr, axis=-1).astype(np.uint8)
         return np.ascontiguousarray(raw[:, : width * bits // 8].reshape(rows, width, bits // 8)[..., :3])
     # OpenCV's palette has 256 entries; those the file does not give are black
-    given = min(ncolors or 1 << bits, 256)
+    given = ncolors or 1 << bits
     pal = np.zeros((256, 3), np.uint8)
-    pal[:given] = np.frombuffer(data, np.uint8, count=4 * given, offset=14 + hsize).reshape(-1, 4)[:, :3]
+    pal[:given] = np.frombuffer(data, np.uint8, count=entry * given, offset=14 + hsize).reshape(-1, entry)[:, :3]
     if comp:
         idx = _bmp_rle(data[pixel_at:], width, rows, bits)
     else:
@@ -578,12 +720,13 @@ def _decode_bmp(data: bytes) -> np.ndarray:
 # JPEG
 # ---------------------------------------------------------------------------
 
+# the JPEG processes libjpeg-turbo (and so OpenCV) does not decode either: the
+# hierarchical ones, and arithmetic-coded lossless
 _JPEG_CODINGS = {
-    0xC3: "lossless (SOF3)", 0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
-    0xC7: "differential lossless (SOF7)", 0xC9: "arithmetic-coded sequential (SOF9)",
-    0xCA: "arithmetic-coded progressive (SOF10)", 0xCB: "arithmetic-coded lossless (SOF11)",
-    0xCC: "arithmetic coding (DAC)", 0xCD: "differential arithmetic-coded sequential (SOF13)",
-    0xCE: "differential arithmetic-coded progressive (SOF14)", 0xCF: "differential arithmetic-coded lossless (SOF15)",
+    0xC5: "differential sequential (SOF5)", 0xC6: "differential progressive (SOF6)",
+    0xC7: "differential lossless (SOF7)", 0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "differential arithmetic-coded sequential (SOF13)", 0xCE: "differential arithmetic-coded progressive (SOF14)",
+    0xCF: "differential arithmetic-coded lossless (SOF15)",
 }
 
 
@@ -602,14 +745,12 @@ def _jpeg_refusal(status: int, meta: np.ndarray) -> None:
         coding = int(meta[3])
         raise UnsupportedImageError(f"JPEG: {_JPEG_CODINGS.get(coding, f'SOF marker 0x{coding:02X}')} is not supported")
     if status == -3:
-        raise UnsupportedImageError(f"JPEG: {int(meta[2]) or 'these'} components (CMYK, YCCK) are not supported")
+        raise UnsupportedImageError("JPEG: two components (no colour space libjpeg converts) are not supported")
     if status == -4:
         raise UnsupportedImageError("JPEG: sample precision other than 8 bits (12-bit) is not supported")
     if status == -5:
-        raise UnsupportedImageError(
-            "JPEG: a progressive image whose scans leave low coefficients unrefined (libjpeg's block "
-            "smoothing) is not supported"
-        )
+        raise UnsupportedImageError("JPEG: lossless (SOF3) gray, YCbCr or YCCK, which libjpeg-turbo does not "
+                                    "convert to BGR, is not supported")
     raise ValueError("JPEG: corrupt, or cut off before its pixel data")
 
 

@@ -427,6 +427,14 @@ def test_unsupported_tiff_compressions_raise_by_name(tmp_path, code, name):
             read_image(str(tmp_path / "b.tif"))
         assert not isinstance(e.value, UnsupportedImageError)
         return
+    if code in (2, 3, 4):
+        # fax TIFF decodes now (tests/test_torch_tiff_codings.py): 8-bit
+        # samples tagged as fax are a file libtiff refuses, and OpenCV reads None
+        assert cv2.imread(str(tmp_path / "b.tif"), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match=f"{name} compression of 1 samples at 8 bits") as e:
+            read_image(str(tmp_path / "b.tif"))
+        assert not isinstance(e.value, UnsupportedImageError)
+        return
     with pytest.raises(ValueError, match=f"{name} compression is not supported"):
         read_image(str(tmp_path / "b.tif"))
 
@@ -434,17 +442,19 @@ def test_unsupported_tiff_compressions_raise_by_name(tmp_path, code, name):
 def test_other_unsupported_kinds_raise_by_name(tmp_path):
     a = _image((8, 8, 3), np.uint8, seed=1)
     cv2.imwrite(str(tmp_path / "a.jpg"), a)
-    # JPEG decodes now, to OpenCV's pixels (tests/test_torch_jpeg.py); its
-    # arithmetic coding does not: the frame header SOF0 patched to SOF9
+    # JPEG decodes now, to OpenCV's pixels (tests/test_torch_jpeg.py), and
+    # so do its arithmetic and lossless codings (tests/test_torch_jpeg_codings.py);
+    # its hierarchical processes do not: the frame header SOF0 patched to SOF5
     np.testing.assert_array_equal(read_image(str(tmp_path / "a.jpg")), cv2.imread(str(tmp_path / "a.jpg")))
     jpg = bytearray((tmp_path / "a.jpg").read_bytes())
-    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC9
-    (tmp_path / "arith.jpg").write_bytes(bytes(jpg))
-    with pytest.raises(ValueError, match=r"arithmetic-coded sequential \(SOF9\) is not supported"):
-        read_image(str(tmp_path / "arith.jpg"))
-    (tmp_path / "big.tif").write_bytes(b"II+\x00\x08\x00\x00\x00" + b"\0" * 16)
-    with pytest.raises(ValueError, match="BigTIFF is not supported"):
-        read_image(str(tmp_path / "big.tif"))
+    jpg[jpg.index(b"\xff\xc0") + 1] = 0xC5
+    (tmp_path / "hierarchical.jpg").write_bytes(bytes(jpg))
+    with pytest.raises(ValueError, match=r"differential sequential \(SOF5\) is not supported"):
+        read_image(str(tmp_path / "hierarchical.jpg"))
+    # BigTIFF reads now (tests/test_torch_tiff_codings.py): one written by PIL reads as OpenCV reads it
+    Image.fromarray(a).save(str(tmp_path / "big.tif"), big_tiff=True)
+    assert (tmp_path / "big.tif").read_bytes()[:4] == b"II+\x00"
+    np.testing.assert_array_equal(read_image(str(tmp_path / "big.tif")), cv2.imread(str(tmp_path / "big.tif")))
     write_tiff(tmp_path / "f.tif", a, compression=DEFLATE, predictor=2)
     _retag(tmp_path / "f.tif", tmp_path / "g.tif", 317, 3)
     with pytest.raises(ValueError, match="predictor 3 is not supported"):

@@ -221,6 +221,20 @@ def test_codings_it_does_not_decode_are_named(tmp_path, sof, name):
     data = bytearray(_write(tmp_path / "a.jpg", _micrograph(16, 16, 7), []).read_bytes())
     data[data.index(b"\xff\xc0") + 1] = sof
     (tmp_path / "b.jpg").write_bytes(bytes(data))
+    if sof == 0xC9:
+        # arithmetic coding decodes now (tests/test_torch_jpeg_codings.py):
+        # Huffman data read as arithmetic-coded is what libjpeg makes of it
+        _assert_reads_as_cv2(tmp_path / "b.jpg")
+        return
+    if sof in (0xCA, 0xC3):
+        # lossless decodes now too (tests/test_torch_jpeg_codings.py); a
+        # progressive frame whose scan is 0..63, or a lossless one whose
+        # predictor is 0, is corrupt (JERR_BAD_PROGRESSION)
+        assert cv2.imread(str(tmp_path / "b.jpg")) is None
+        with pytest.raises(ValueError, match="JPEG: corrupt") as e:
+            read_image(str(tmp_path / "b.jpg"))
+        assert not isinstance(e.value, UnsupportedImageError)
+        return
     with pytest.raises(UnsupportedImageError, match=f"JPEG: {name} is not supported"):
         read_image(str(tmp_path / "b.jpg"))
 
@@ -231,24 +245,21 @@ def test_precision_and_components_it_does_not_decode_are_named(tmp_path):
     (tmp_path / "p12.jpg").write_bytes(bytes(data))
     with pytest.raises(UnsupportedImageError, match="12-bit"):
         read_image(str(tmp_path / "p12.jpg"))
+    # CMYK decodes now (tests/test_torch_jpeg_codings.py), as OpenCV converts it
     buf = io.BytesIO()
     Image.fromarray(_micrograph(16, 16, 8)).convert("CMYK").save(buf, "JPEG")
     (tmp_path / "cmyk.jpg").write_bytes(buf.getvalue())
-    assert cv2.imread(str(tmp_path / "cmyk.jpg")) is not None
-    with pytest.raises(UnsupportedImageError, match="CMYK"):
-        read_image(str(tmp_path / "cmyk.jpg"))
+    _assert_reads_as_cv2(tmp_path / "cmyk.jpg")
 
 
 def test_block_smoothing_is_refused(tmp_path):
     """A progressive file cut before its refinement scans: libjpeg smooths
-    the blocks whose low coefficients are still coarse, which the port does
-    not; it names that rather than return other pixels."""
+    the blocks whose low coefficients are still coarse, and so does the
+    port now (tests/test_torch_jpeg_codings.py): it reads as OpenCV's."""
     data = _write(tmp_path / "a.jpg", _micrograph(64, 80, 10), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]).read_bytes()
     path = tmp_path / "half.jpg"
     path.write_bytes(data[: len(data) // 2])
-    assert cv2.imread(str(path)) is not None
-    with pytest.raises(UnsupportedImageError, match="block smoothing"):
-        read_image(str(path))
+    _assert_reads_as_cv2(path)
 
 
 def test_committed_fixtures(tmp_path):

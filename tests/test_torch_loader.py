@@ -107,9 +107,10 @@ def test_missing_and_corrupt_images_are_skipped(records, tmp_path):
 
 def test_jpeg_raises_naming_a7(records, tmp_path):
     """A JPEG record (the first record's image, written as JPEG) gives the
-    JAX loader's sample, with and without augmentation, and its batch. An
-    arithmetic-coded JPEG, which OpenCV may read and the port does not
-    decode, raises rather than be skipped."""
+    JAX loader's sample, with and without augmentation, and its batch; so
+    does the same file with its frame marked arithmetic-coded (SOF9), which
+    both readers decode alike. A coding the port does not decode (the
+    hierarchical SOF5) raises rather than be skipped."""
     jpg = tmp_path / "micro.jpg"
     cv2.imwrite(str(jpg), cv2.imread(records[0]["file_name"]), [cv2.IMWRITE_JPEG_QUALITY, 85])
     rec = dict(records[0], file_name=str(jpg))
@@ -131,11 +132,18 @@ def test_jpeg_raises_naming_a7(records, tmp_path):
     arith = tmp_path / "arith.jpg"
     arith.write_bytes(bytes(data))
     rec = dict(records[0], file_name=str(arith))
-    with pytest.raises(UnsupportedImageError, match="SOF9"):
+    want = jax_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0))
+    assert want is not None
+    _assert_samples_equal(port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0)), want, False)
+    data[data.index(b"\xff\xc9") + 1] = 0xC5
+    hierarchical = tmp_path / "hierarchical.jpg"
+    hierarchical.write_bytes(bytes(data))
+    rec = dict(records[0], file_name=str(hierarchical))
+    with pytest.raises(UnsupportedImageError, match="SOF5"):
         port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0))
     loader = port_loader.TrainLoader([rec], 2, 64, 8, workers=1)
     try:
-        with pytest.raises(RuntimeError, match="SOF9"):
+        with pytest.raises(RuntimeError, match="SOF5"):
             next(iter(loader))
     finally:
         loader.close()

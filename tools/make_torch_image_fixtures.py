@@ -123,41 +123,50 @@ def png_bytes(samples: np.ndarray, depth: int = 8, ctype: int = 0, palette=None,
 # TIFF
 # ---------------------------------------------------------------------------
 
-SHORT, LONG, RATIONAL, UNDEFINED = 3, 4, 5, 7
+BYTE, ASCII, SHORT, LONG, RATIONAL, UNDEFINED, LONG8 = 1, 2, 3, 4, 5, 7, 16
 
 
-def tiff_bytes(tags: dict, segments, tiled: bool = False, big_endian: bool = False) -> bytes:
-    """A one-page TIFF: header, the ``segments`` (strips, or tiles when
-    ``tiled``), then the IFD of ``tags`` ({tag: (type, values)}, values a
-    list of ints, of (numerator, denominator) pairs for RATIONAL, or bytes
-    for UNDEFINED) with the offsets and byte counts of the segments."""
+def tiff_bytes(tags: dict, segments, tiled: bool = False, big_endian: bool = False, big: bool = False,
+               offsets_type: int = None) -> bytes:
+    """A one-page TIFF, or a BigTIFF when ``big``: header, the ``segments``
+    (strips, or tiles when ``tiled``), then the IFD of ``tags`` ({tag:
+    (type, values)}, values a list of ints, or bytes for UNDEFINED) with
+    the offsets and byte counts of the segments, as ``offsets_type`` (LONG,
+    or LONG8 in a BigTIFF by default)."""
     e = ">" if big_endian else "<"
+    head = 16 if big else 8
     body, offsets = bytearray(), []
     for seg in segments:
-        offsets.append(8 + len(body))
+        offsets.append(head + len(body))
         body += seg + b"\0" * (len(seg) & 1)
+    otype = offsets_type or (LONG8 if big else LONG)
     tags = dict(tags)
-    tags[324 if tiled else 273] = (LONG, offsets)
-    tags[325 if tiled else 279] = (LONG, [len(s) for s in segments])
-    ifd_at = 8 + len(body)
-    tail_at = ifd_at + 2 + 12 * len(tags) + 4
-    ifd, tail = bytearray(struct.pack(e + "H", len(tags))), bytearray()
+    tags[324 if tiled else 273] = (otype, offsets)
+    tags[325 if tiled else 279] = (otype, [len(s) for s in segments])
+    word, entry, inline = ("Q", 20, 8) if big else ("I", 12, 4)
+    ifd_at = head + len(body)
+    tail_at = ifd_at + (8 if big else 2) + entry * len(tags) + (8 if big else 4)
+    ifd, tail = bytearray(struct.pack(e + ("Q" if big else "H"), len(tags))), bytearray()
+    codes = {BYTE: "B", SHORT: "H", LONG: "I", RATIONAL: "I", LONG8: "Q"}
     for tag in sorted(tags):
         typ, vals = tags[tag]
-        if typ == UNDEFINED:
+        if typ in (ASCII, UNDEFINED):
             payload, count = bytes(vals), len(vals)
-        elif typ == RATIONAL:
-            payload, count = b"".join(struct.pack(e + "II", *v) for v in vals), len(vals)
         else:
-            payload, count = struct.pack(f"{e}{len(vals)}{'H' if typ == SHORT else 'I'}", *vals), len(vals)
-        if len(payload) <= 4:
-            ifd += struct.pack(e + "HHI", tag, typ, count) + payload.ljust(4, b"\0")
+            flat = [int(x) for v in vals for x in (v if typ == RATIONAL else (v,))]
+            payload, count = struct.pack(f"{e}{len(flat)}{codes[typ]}", *flat), len(vals)
+        if len(payload) <= inline:
+            ifd += struct.pack(e + "HH" + word, tag, typ, count) + payload.ljust(inline, b"\0")
         else:
-            ifd += struct.pack(e + "HHII", tag, typ, count, tail_at + len(tail))
+            ifd += struct.pack(e + "HH" + word + word, tag, typ, count, tail_at + len(tail))
             tail += payload + b"\0" * (len(payload) & 1)
-    ifd += struct.pack(e + "I", 0)
-    return (b"MM\x00*" if big_endian else b"II*\x00") + struct.pack(e + "I", ifd_at) + bytes(body) + bytes(ifd) \
-        + bytes(tail)
+    ifd += struct.pack(e + word, 0)
+    magic = (b"MM\x00" if big_endian else b"II") + (b"+" if big else b"*") + (b"" if big_endian else b"\x00")
+    if big:
+        magic += struct.pack(e + "HHQ", 8, 0, ifd_at)
+    else:
+        magic += struct.pack(e + "I", ifd_at)
+    return magic + bytes(body) + bytes(ifd) + bytes(tail)
 
 
 def tiff_image(samples: np.ndarray, bits: int = 8, photometric: int = 1, rows_per_strip: int = None,
