@@ -258,12 +258,32 @@ It builds the CUDA kernels from the sources in the checkout and then:
      byte-equal to phase 12's, as many K1 launches, the preflight naming the
      card. ``python3 -c "import chip_smoke; chip_smoke.codings_only()"``
      runs phase 12's CLI run and phase 18 alone.
+ 19. the containers ``read_image`` reads beside PNG, TIFF, JPEG and BMP:
+     the host's image libraries (``ldconfig -p``, printed, never loaded);
+     (a) the committed fixtures (``tests/data/torch_container_fixtures.npz``,
+     written by ``tools/make_torch_container_fixtures.py``: PNM, PAM, PFM,
+     Sun raster, HDR, GIF, lossless, lossy, alpha and animated WebP,
+     libwebp's encoder forms and the numpy VP8 writer's, each beside
+     cv2's array or its SHA-256) decode bit for bit; (b) phase 3's first
+     raster in each container, written by that tool's numpy writers, and
+     a committed 2048² libwebp lossy file: host decode seconds (median of
+     3) beside an uncompressed TIFF of the same raster; (c) nine 1024x768
+     labelled micrographs (``draw_labelled``), one per container (the
+     lossy WebP's bytes committed), through the CLI: ``--task prepare``,
+     the first loader batch equal to that of their TIFF twins, K1 and K2
+     against their plain versions on one step of a 4-image batch, ``train
+     --rcnn 50 --max-iter 4`` (finite losses, 2 K1 + 2 K2 a step) and
+     ``evaluate --rcnn 50`` (the JAX evaluator's metric names, 2 K1 a
+     test image, K1 against its plain version on its calls).
+     ``python3 -c "import chip_smoke; chip_smoke.containers_only()"``
+     runs phase 19 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
-phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, and
-phases 16 (c) and 17 (b) before phase 10. K1's ``launches`` in the kernel
-line is the sum of phases 3, 9, 11, 12, 13, 15, 16, 17 and 18, K2's of phases 7, 13,
-16 and 17, K4's and K5's of phase 14's two CLI runs, phase 15's wizard
+phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, phase 19
+after it, and phases 16 (c) and 17 (b) before phase 10. K1's ``launches``
+in the kernel line is the sum of phases 3, 9, 11, 12, 13, 15, 16, 17, 18
+and 19, K2's of phases 7, 13, 16, 17 and 19, K4's and K5's of phase 14's
+two CLI runs, phase 15's wizard
 task, phase 16's two-shard int8 engine and phase 17's ``--quantized trunk``
 runs, each counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
@@ -305,6 +325,22 @@ def _codings_tool():
 
 codings = _codings_tool()
 lzw_encode, packbits_encode, jpeg_encode = codings.lzw_encode, codings.packbits_encode, codings.jpeg_encode
+
+
+def _containers_tool():
+    """``tools/make_torch_container_fixtures.py``, loaded by its path: the
+    numpy writers of the PNM family, PAM, PFM, Sun raster, Radiance HDR,
+    GIF and lossless WebP that phase 19 writes its files with."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_container_fixtures", os.path.join(ROOT, "tools", "make_torch_container_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+containers = _containers_tool()
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -2106,43 +2142,52 @@ TRAIN_STEPS = 24
 TUNE_STEPS = 4
 
 
+def draw_labelled(rng, hw=DATASET_HW):
+    """One labelled micrograph from ``rng``: a noisy gray background and
+    10-40 instances (polygons and ellipses, classes ``particle`` and
+    ``pore``, some wider than 96 px) drawn bright with the port's
+    ``fill_poly`` as the dataset rasterises them -> (gray [H,W] uint8, the
+    label JSON's ``instances``)."""
+    from deepemia_tpu_torch.data.datasets import ellipse_to_polygon
+    from deepemia_tpu_torch.ops.cv import fill_poly
+
+    h, w = hw
+    gray = np.clip(rng.normal(80.0, 12.0, (h, w)), 0, 255).astype(np.uint8)
+    instances = []
+    for j in range(int(rng.integers(10, 41))):
+        cls = ("particle", "pore")[j % 2]
+        cx, cy = rng.uniform(40, w - 40), rng.uniform(40, h - 40)
+        big = rng.random() < 0.15
+        r = rng.uniform(50, 90) if big else rng.uniform(6, 30)
+        if rng.random() < 0.5:
+            inst = dict(type="ellipse", className=cls, cx=cx, cy=cy, rx=r, ry=r * rng.uniform(0.5, 1.0),
+                        angle=rng.uniform(0, 180))
+            poly = ellipse_to_polygon(inst["cx"], inst["cy"], inst["rx"], inst["ry"], inst["angle"])
+        else:
+            k = int(rng.integers(5, 10))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+            rad = r * rng.uniform(0.6, 1.0, k)
+            pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+            inst = dict(type="polygon", className=cls, points=pts.ravel().tolist())
+            poly = (pts + 0.5).ravel().tolist()
+        mask = np.zeros((h, w), np.uint8)
+        fill_poly(mask, np.round(np.asarray(poly).reshape(-1, 2)).astype(np.int32), 1)
+        gray[mask.astype(bool)] = np.uint8(rng.uniform(160, 230))
+        instances.append(inst)
+    return gray, instances
+
+
 def synthetic_dataset(root: str, n: int, hw=DATASET_HW, seed: int = 13) -> str:
     """``n`` labelled micrographs under ``root``: LZW TIFFs (64-row strips),
     every other one (even indices) a gray JPEG (``jpeg_encode``, quality
     95) instead, with per-image label JSONs in the reference format (``metadata.name/
     height/width``; ``instances`` of type ``polygon`` (star-shaped, 5-9
-    points) and ``ellipse``, classes ``particle`` and ``pore``). Each
-    instance is drawn bright into the image with the port's ``fill_poly``
-    as the dataset rasterises it. -> root."""
-    from deepemia_tpu_torch.data.datasets import ellipse_to_polygon
-    from deepemia_tpu_torch.ops.cv import fill_poly
-
+    points) and ``ellipse``, drawn by ``draw_labelled``). -> root."""
     rng = np.random.default_rng(seed)
     h, w = hw
     os.makedirs(root, exist_ok=True)
     for i in range(n):
-        gray = np.clip(rng.normal(80.0, 12.0, (h, w)), 0, 255).astype(np.uint8)
-        instances = []
-        for j in range(int(rng.integers(10, 41))):
-            cls = ("particle", "pore")[j % 2]
-            cx, cy = rng.uniform(40, w - 40), rng.uniform(40, h - 40)
-            big = rng.random() < 0.15
-            r = rng.uniform(50, 90) if big else rng.uniform(6, 30)
-            if rng.random() < 0.5:
-                inst = dict(type="ellipse", className=cls, cx=cx, cy=cy, rx=r, ry=r * rng.uniform(0.5, 1.0),
-                            angle=rng.uniform(0, 180))
-                poly = ellipse_to_polygon(inst["cx"], inst["cy"], inst["rx"], inst["ry"], inst["angle"])
-            else:
-                k = int(rng.integers(5, 10))
-                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
-                rad = r * rng.uniform(0.6, 1.0, k)
-                pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
-                inst = dict(type="polygon", className=cls, points=pts.ravel().tolist())
-                poly = (pts + 0.5).ravel().tolist()
-            mask = np.zeros((h, w), np.uint8)
-            fill_poly(mask, np.round(np.asarray(poly).reshape(-1, 2)).astype(np.int32), 1)
-            gray[mask.astype(bool)] = np.uint8(rng.uniform(160, 230))
-            instances.append(inst)
+        gray, instances = draw_labelled(rng, hw)
         name = f"sem_{i:02d}.{'jpg' if i % 2 == 0 else 'tif'}"
         if i % 2 == 0:
             write_jpeg(os.path.join(root, name), gray)
@@ -2225,15 +2270,15 @@ class TrainRun:
         loader_mod.TrainLoader.__iter__, trainer_mod.train_step, trainer_mod.load_pretrained_params = self.real
 
 
-def loader_batch(cfg, files, batch_size):
+def loader_batch(cfg, files, batch_size, dataset="sem"):
     """The first batch of ``batch_size`` images that the training loader
     (one worker, augmentation on, the config's size) makes from ``files``
-    of the dataset ``sem``."""
+    of ``dataset``."""
     from deepemia_tpu_torch.data.datasets import get_split_dicts, read_dataset_info
     from deepemia_tpu_torch.data.loader import TrainLoader
 
-    img_dir, label_dir, _ = read_dataset_info(cfg["paths"]["category_json"])["sem"]
-    records = get_split_dicts(img_dir, label_dir, files, cfg["paths"]["category_json"], "sem")
+    img_dir, label_dir, _ = read_dataset_info(cfg["paths"]["category_json"])[dataset]
+    records = get_split_dicts(img_dir, label_dir, files, cfg["paths"]["category_json"], dataset)
     tc = cfg.get("train", {})
     loader = TrainLoader(records, batch_size, tc.get("train_size", 512), tc.get("max_instances", 64), augment=True,
                          workers=1)
@@ -4352,6 +4397,267 @@ def codings_only():
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
 
 
+# phase 19: one 1024x768 labelled micrograph in each container read_image reads beside PNG, TIFF, JPEG and
+# BMP (the first a lossy WebP whose bytes the fixtures hold: the card's host has no WebP encoder), trained on
+# for CONTAINER_STEPS steps and evaluated through the CLI
+CONTAINER_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_container_fixtures.npz")
+CONTAINERS_DIR = os.path.join(ROOT, "build", "chip_smoke_containers")
+CONTAINER_KINDS = ("webp-lossy", "pgm", "ppm", "pam", "pfm", "ras", "hdr", "gif", "webp-lossless")
+CONTAINER_SEED = 19
+CONTAINER_STEPS = 4
+# the image libraries phase 19 looks for on the host (printed; nothing loads them)
+HOST_LIBRARIES = ("libwebp", "libopenjp2", "libavif", "libdav1d", "libaom")
+GRAY_PALETTE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+
+
+def container_file(kind: str, gray: np.ndarray):
+    """A gray raster in one of phase 19's containers, written by the numpy
+    writers of ``tools/make_torch_container_fixtures.py`` -> (extension,
+    bytes): binary PGM, PPM, PAM (GRAYSCALE), PFM (the gray levels as
+    floats, scale -1), 8-bit Sun raster, Radiance HDR (RLE scanlines of
+    level / 255), GIF (a gray palette, code size 8) or lossless WebP
+    (literal pixels, the subtract-green transform)."""
+    h, w = gray.shape
+    rgb = np.repeat(gray[..., None], 3, axis=2)
+    if kind == "pgm":
+        return ".pgm", containers.pnm(5, gray)
+    if kind == "ppm":
+        return ".ppm", containers.pnm(6, rgb)
+    if kind == "pam":
+        return ".pam", containers.pam(gray[..., None], 255, "GRAYSCALE")
+    if kind == "pfm":
+        return ".pfm", containers.pfm(rgb.astype(np.float32), -1.0)
+    if kind == "ras":
+        return ".ras", containers.sun(w, h, 8, gray)
+    if kind == "hdr":
+        return ".hdr", containers.hdr(containers.rgbe_of(rgb.astype(np.float32) / 255))
+    if kind == "gif":
+        return ".gif", containers.gif([dict(indices=gray, min_size=8)], (w, h), GRAY_PALETTE)
+    assert kind == "webp-lossless", kind
+    return ".webp", containers.vp8l(rgb)
+
+
+def host_libraries() -> dict:
+    """{library: the sonames ``ldconfig -p`` lists for it} over
+    HOST_LIBRARIES."""
+    import subprocess
+
+    try:
+        listing = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        listing = ""
+    names = [ln.split()[0] for ln in listing.splitlines() if ln.strip() and "=>" in ln]
+    return {lib: sorted({n for n in names if n.startswith((lib + ".", lib + "-"))}) for lib in HOST_LIBRARIES}
+
+
+def container_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = CONTAINER_SEED) -> list:
+    """Phase 19's dataset: one labelled micrograph (``draw_labelled``) per
+    CONTAINER_KINDS in ``root``, the first the fixtures' lossy WebP of the
+    same drawing, and in ``twin`` the same labels beside uncompressed RGB
+    TIFFs of the arrays ``read_image`` decodes from those files -> the
+    file names."""
+    import hashlib
+
+    from deepemia_tpu_torch.ops.image import read_image
+
+    fixtures = np.load(CONTAINER_FIXTURES)
+    rng = np.random.default_rng(seed)
+    for d in (root, twin):
+        os.makedirs(d, exist_ok=True)
+    names = []
+    for i, kind in enumerate(CONTAINER_KINDS):
+        gray, instances = draw_labelled(rng, hw)
+        if kind == "webp-lossy":
+            ext, data = ".webp", fixtures["dataset-webp-lossy/file"].tobytes()
+        else:
+            ext, data = container_file(kind, gray)
+        name = f"sem_{i:02d}{ext}"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(data)
+        img = read_image(os.path.join(root, name))
+        if kind == "webp-lossy":  # the arrays cv2 decoded from these bytes
+            assert hashlib.sha256(img.tobytes()).hexdigest() == fixtures["dataset-webp-lossy/sha256"].tobytes().decode()
+        elif kind != "hdr":  # RGBE keeps 8 bits of mantissa: 1/255 steps come back within one level
+            assert np.array_equal(img[..., 0], gray) and np.array_equal(img[..., 2], gray), kind
+        else:
+            assert np.abs(img.astype(np.int16) - gray[..., None]).max() <= 1
+        with open(os.path.join(twin, f"sem_{i:02d}.tif"), "wb") as f:
+            f.write(codings.tiff_of(np.ascontiguousarray(img[..., ::-1])))
+        for d, n in ((root, name), (twin, f"sem_{i:02d}.tif")):
+            with open(os.path.join(d, f"sem_{i:02d}.json"), "w") as f:
+                json.dump({"metadata": {"name": n, "height": hw[0], "width": hw[1]}, "instances": instances}, f)
+        names.append(name)
+    return names
+
+
+def phase_containers(image, card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
+    """Phase 19: the containers ``read_image`` reads beside PNG, TIFF, JPEG
+    and BMP. The host's image libraries (``ldconfig -p``, printed for
+    information); (a) the committed fixtures
+    (``tests/data/torch_container_fixtures.npz``: PNM, PAM, PFM, Sun
+    raster, HDR, GIF, lossless, lossy, alpha and animated WebP and
+    libwebp's encoder forms, each beside cv2's array or its SHA-256) decode
+    bit for bit; (b) ``image``'s gray raster in each container, written by
+    the numpy writers, and the fixtures' 2048² lossy WebP: the decode
+    seconds (median of 3) beside an uncompressed TIFF of the same raster;
+    (c) CONTAINER_KINDS' dataset through the port's CLI: ``--task
+    prepare``, the first loader batch bit-equal to the TIFF twins', K1 and
+    K2 against their plain versions on one step of a 4-image loader batch,
+    ``train --rcnn 50 --max-iter <steps>`` (finite losses, 2 K1 + 2 K2
+    launches a step) and ``evaluate --rcnn 50`` (the JAX evaluator's metric
+    names, 2 K1 launches a test image, K1 against its plain version on its
+    calls). -> (K1 launches, K2 launches, K1 errors, K2 errors)."""
+    import hashlib
+    import shutil
+
+    import yaml
+
+    from deepemia_tpu_torch.config.config import default_config
+    from deepemia_tpu_torch.ops.image import read_image
+
+    shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
+    os.makedirs(CONTAINERS_DIR)
+    print("containers: host image libraries (ldconfig -p; information only, nothing loads them) "
+          + json.dumps(host_libraries()), flush=True)
+
+    # (a) the fixtures
+    fixtures = np.load(CONTAINER_FIXTURES)
+    names = sorted({k.split("/")[0] for k in fixtures.files})
+    for name in names:
+        path = os.path.join(CONTAINERS_DIR, name + fixtures[f"{name}/ext"].tobytes().decode())
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        got = read_image(path)
+        if f"{name}/bgr" in fixtures.files:
+            assert np.array_equal(got, fixtures[f"{name}/bgr"]), name
+        else:
+            assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+        os.remove(path)
+    print(f"containers: {len(names)} committed fixtures decode bit for bit to OpenCV's arrays ({', '.join(names)})",
+          flush=True)
+
+    # (b) decode seconds at 2048²
+    gray = np.ascontiguousarray(image[..., 0])
+    size = f"{gray.shape[1]}x{gray.shape[0]}"
+
+    def timed(name, data):
+        path = os.path.join(CONTAINERS_DIR, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        got, secs = decode_seconds(path)
+        return got, secs, os.path.getsize(path)
+
+    tiff_path = os.path.join(CONTAINERS_DIR, "plain.tif")
+    write_tiff(tiff_path, gray)
+    plain, plain_s = decode_seconds(tiff_path)
+    for kind in CONTAINER_KINDS[1:]:
+        t0 = time.perf_counter()
+        ext, data = container_file(kind, gray)
+        write_s = time.perf_counter() - t0
+        got, secs, nbytes = timed(f"raster{ext}", data)
+        diff = int(np.abs(got.astype(np.int16) - plain.astype(np.int16)).max())
+        assert diff <= (1 if kind == "hdr" else 0), (kind, diff)
+        print(f"containers: decode {kind} {size} ({nbytes} bytes, written by numpy in {write_s:.2f} s): "
+              f"{secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; max |diff| {diff})",
+              flush=True)
+    got, secs, nbytes = timed("lossy.webp", fixtures["webp-lossy-2048/file"].tobytes())
+    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["webp-lossy-2048/sha256"].tobytes().decode()
+    write_tiff(tiff_path, got[..., 1])
+    _, twin_s = decode_seconds(tiff_path)
+    print(f"containers: decode webp-lossy {got.shape[1]}x{got.shape[0]} (the fixtures' libwebp file, quality 75, "
+          f"{nbytes} bytes): {secs:.4f} s beside uncompressed TIFF {twin_s:.4f} s (median of 3, host)", flush=True)
+
+    # (c) the dataset through the CLI
+    home = os.path.join(CONTAINERS_DIR, "home")
+    root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
+    t0 = time.perf_counter()
+    files = container_dataset(root, twin)
+    print(f"containers: dataset of {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs "
+          f"({', '.join(files)}) and their TIFF twins written in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = default_config(home)
+    if config_hook:
+        config_hook(cfg)
+    os.makedirs(os.path.join(home, "config"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"sem": [root, root, ["particle", "pore"]], "twin": [twin, twin, ["particle", "pore"]]}, f)
+    flags = ["--dataset_name", "sem", "--no-download", "--no-upload", "--device", device, "--verbosity", "warning"]
+    split_dir = cfg["paths"]["split_dir"]
+    assert run_cli(home, "--task", "prepare", *flags) == 0
+    with open(os.path.join(split_dir, "sem_split.json")) as f:
+        split = json.load(f)
+    n_test = math.ceil(0.2 * len(files))
+    assert len(split["test"]) == n_test, split
+    batch = loader_batch(cfg, split["train"], 4)
+    twin_batch = loader_batch(cfg, split["train"], 4, dataset="twin")
+    assert set(batch) == set(twin_batch) and all(np.array_equal(batch[k], twin_batch[k]) for k in batch)
+    print(f"containers: prepare: split {len(split['train'])}/{n_test}; the first loader batch (4 images) equals "
+          "the TIFF twins' key for key", flush=True)
+    k1_errs, k2_errs = [], []
+    if device == "cuda":
+        k1_errs, k2_errs = hold_train_capture(capture_train_step(batch), "containers 4-image loader batch")
+
+    with TrainRun(device) as run, CountedRoIAlign() as roi:
+        t0 = time.perf_counter()
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--max-iter", str(steps), *flags)
+        wall = time.perf_counter() - t0
+    assert rc == 0 and len(run.steps) == steps, (rc, len(run.steps))
+    for st in run.steps:
+        assert all(math.isfinite(st[k]) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")), st
+        if device == "cuda":
+            assert st["k1"] == 2 and st["k2"] == 2, st
+    k1, k2 = roi.launches, sum(st["k2"] for st in run.steps)
+    print(f"containers: train: {steps} steps from {len(split['train'])} records: {step_stats(run, steps)}; the task "
+          f"took {wall:.1f} s; roi_align_fwd launches={roi.launches} roi_align_bwd launches={k2}; losses at the last "
+          "step " + json.dumps({k: round(run.steps[-1][k], 5) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask",
+                                                                           "total")}), flush=True)
+    print("containers: train: loader waits " + json.dumps([round(x, 4) for x in run.waits[:steps]]), flush=True)
+
+    with CountedRoIAlign(capture=True) as roi:
+        t0 = time.perf_counter()
+        assert run_cli(home, "--task", "evaluate", "--rcnn", "50", *flags) == 0
+        wall = time.perf_counter() - t0
+    with open(os.path.join(cfg["paths"]["output_dir"], "sem", "eval_r50", "metrics.csv")) as f:
+        metrics = {k: float(v) for k, v in (ln.split(",") for ln in f.read().splitlines()[1:])}
+    want = {f"{t}/{m}" for t in ("bbox", "segm") for m in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+                                                          "AR100", "ARs", "ARm", "ARl", "AP-class0", "AP-class1")}
+    assert set(metrics) == want | {"eval_seconds", "num_images"} and metrics["num_images"] == n_test, sorted(metrics)
+    if device == "cuda":
+        assert roi.launches == roi.with_rois == 2 * n_test, (roi.launches, roi.with_rois)
+        errs, _ = hold_captured(roi.shapes, "containers evaluate")
+        k1_errs += errs
+    k1 += roi.launches
+    tested = [f for f in files if f.split(".")[0] + ".json" in split["test"]]
+    print(f"containers: evaluate: {n_test} test images ({', '.join(tested)}) in {wall:.1f} s, roi_align_fwd "
+          f"launches={roi.launches} (2 per image); bbox/AP={metrics['bbox/AP']:.4f} segm/AP={metrics['segm/AP']:.4f} "
+          f"(random init, {steps} steps); card {card}", flush=True)
+    shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
+    return k1, k2, k1_errs, k2_errs
+
+
+def containers_only():
+    """Phase 19 alone (phase 3's first 2048² micrograph rebuilt from its
+    seed for the decode timings)."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd", "roi_align_bwd"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        k1, k2, k1_errs, k2_errs = phase_containers(synthetic_micrograph(2048, 0), card)
+        print(f"phases 19: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"roi_align_fwd": k1, "roi_align_bwd": k2, "max_abs_err_fwd": max(k1_errs),
+                          "max_abs_err_bwd": max(k2_errs)}), flush=True)
+    finally:
+        shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
+
+
 def parallel_only():
     """Phases 1, 11, 16 and 17 alone (phase 3's R50 weights rebuilt from
     their seed; phase 11 makes the rows phase 16 (b) is held to, phase 12's
@@ -4537,6 +4843,11 @@ def main() -> int:
         shutil.rmtree(DATASET_DIR, ignore_errors=True)
     lap(13)
     try:
+        containers_k1, containers_k2, containers_k1_errs, containers_k2_errs = phase_containers(images[0], card)
+    finally:
+        shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
+    lap(19)
+    try:
         ranks_k1, ranks_k2, one_step = phase_ranks(card)
         lap("16 (c)")
         tp_k1, tp_k2 = phase_tp_training(one_step, card)
@@ -4546,7 +4857,8 @@ def main() -> int:
     k3_rows, k3_launches = phase_window_sum()
     lap(10)
 
-    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs
+    errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs \
+        + containers_k1_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -4557,10 +4869,10 @@ def main() -> int:
         # and the wizard started, as their CLI logged them) and 16 (two tile shards, bf16 and int8; the
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
         # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
-        # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters), each counted
-        # from zero
+        # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters) and 19
+        # (training and evaluation on the containers' dataset), each counted from zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -4575,9 +4887,10 @@ def main() -> int:
         "source": "deepemia_tpu_torch/kernels/csrc/roi_align_bwd.cu",
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
         # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI), 16 (the
-        # one-process step and the CLI's training in an NCCL group) and 17 (both ranks of the tensor-parallel step)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2,
-        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs),
+        # one-process step and the CLI's training in an NCCL group), 17 (both ranks of the tensor-parallel step)
+        # and 19 (training on the containers' dataset)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2,
+        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
@@ -4690,9 +5003,10 @@ def main() -> int:
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
           f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}, phase 18 "
-          f"{codings_k1}; roi_align_bwd "
+          f"{codings_k1}, phase 19 {containers_k1}; roi_align_bwd "
           f"launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 "
-          f"{ranks_k2}, phase 17 {tp_k2}; int8_conv launches: phase 14 {int8_launches}, wizard {entry_k4}, phase 16 "
+          f"{ranks_k2}, phase 17 {tp_k2}, phase 19 {containers_k2}; int8_conv launches: phase 14 {int8_launches}, "
+          f"wizard {entry_k4}, phase 16 "
           f"{shard_k4}, phase 17 {rank_k4}; int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}, phase "
           f"16 {shard_k5}, phase 17 {rank_k5}",
           flush=True)

@@ -14,11 +14,12 @@ any worker count (every rank of a data-parallel run makes the same global
 batches).
 
 Unreadable images: the JAX loader skips any file OpenCV cannot read. This
-one skips a file that is missing or corrupt, and raises for an encoding
-``read_image`` does not decode (``UnsupportedImageError``: JPEG's
-arithmetic, lossless, 12-bit and CMYK codings, the rarer TIFF
-compressions), which OpenCV may read: skipping it would train on fewer
-images than the JAX package does.
+one skips a file that is missing or corrupt, or in a form OpenCV refuses
+too (``RefusedImageError``: hierarchical and 12-bit JPEG, the TIFF
+compressions OpenCV's libtiff is built without, and the like), and raises
+for one that OpenCV reads and ``read_image`` does not decode
+(``UnsupportedImageError``: JPEG 2000, AVIF): skipping it would train on
+fewer images than the JAX package does.
 
 With ``workers=1`` the batch sequence is the JAX loader's for the same seed
 (with several, the JAX loader's order follows its threads' timing).
@@ -52,8 +53,8 @@ def prepare_sample(
     min_size_range=(640, 800),
     max_size: int = 1333,
 ) -> Optional[Dict[str, np.ndarray]]:
-    """One record -> fixed-shape arrays, or None for a missing or corrupt
-    image.
+    """One record -> fixed-shape arrays, or None for an image OpenCV
+    cannot read either (missing, corrupt, or refused by both).
 
     ``resize_mode='fixed'``: the long side scaled to ``train_size`` (square
     canvas). ``'range'``: Detectron2's training resize (short side drawn

@@ -28,7 +28,7 @@ from deepemia_tpu_torch.inference.detections import (
     filter_instances,
 )
 from deepemia_tpu_torch.inference.engine import ClassSettings, TileEngine
-from deepemia_tpu_torch.ops.image import read_image
+from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 from deepemia_tpu_torch.parallel import ranks as rank_ops
 
 BASELINE_SCALES = (0.7, 1.0, 1.5, 2.0)
@@ -134,12 +134,15 @@ def calculate_average_mask_sizes(
     sample_size: int = 5,
 ) -> Dict[int, float]:
     """Average confident-instance area per class over a small sample of
-    images (RoI mask fraction x box area); unreadable images are
-    skipped (in a process group, those any rank cannot read)."""
+    images (RoI mask fraction x box area); images OpenCV cannot read
+    either are skipped (in a process group, those any rank cannot read),
+    and one OpenCV reads that the port does not decode raises."""
     sizes: Dict[int, List[float]] = {}
     for path in list(image_paths)[:sample_size]:
         try:
             img = read_image(str(path))
+        except UnsupportedImageError:
+            raise
         except (OSError, ValueError):
             img = None
         if not rank_ops.agree(img is not None):

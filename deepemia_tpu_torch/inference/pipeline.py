@@ -565,6 +565,9 @@ class InferencePipeline:
                             psum, um_pix, sb_debug = detect_scale_bar(img, self.config, self.dataset_name, return_debug=True)
                         unread = None
                     except Exception as e:  # noqa: BLE001 - per-image isolation
+                        # the JAX pipeline skips an image cv2.imread returns None for; this one
+                        # skips any it cannot read, RefusedImageError and UnsupportedImageError
+                        # alike, and logs the error that names the form
                         unread = e
                     # in a process group every rank goes on with the image or none does
                     if not rank_ops.agree(unread is None):

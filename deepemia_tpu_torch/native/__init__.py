@@ -1,6 +1,7 @@
 """ctypes bindings of the native host libraries: the measurement kernels
-(``measure.cpp``) and the LZW, PackBits, CCITT fax and JPEG decoders of
-``read_image`` (``codecs.cpp``).
+(``measure.cpp``), the LZW, PackBits, CCITT fax, JPEG, Radiance HDR and
+GIF LZW decoders of ``read_image`` (``codecs.cpp``) and its WebP decoders
+(``webp.cpp``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
 ``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
@@ -45,6 +46,14 @@ _SIGNATURES = {
         "packbits_decode": ([_P, _L, _P, _L], _L),
         "jpeg_decode": ([_P, _L, _P, _L, _P, _I], _I),
         "fax_decode": ([_P, _L, _P, _L, _L, _I, _I, _I], _I),
+        "hdr_decode": ([_P, _L, _P, _L, _L], _I),
+        "gif_lzw_decode": ([_P, _L, _P, _L, _I], _I),
+        "float_to_u8": ([_P, _L, _I, ctypes.c_float, _P], None),
+    },
+    "webp": {
+        "webp_vp8l_decode": ([_P, _L, _P, _L, _L], _I),
+        "webp_vp8_decode": ([_P, _L, _P, _L, _L], _I),
+        "webp_alpha_check": ([_P, _L, _L, _L], _I),
     },
 }
 
@@ -178,3 +187,58 @@ def jpeg_decode(data: bytes, color: int = -1) -> Tuple[int, np.ndarray, Optional
     out = np.empty((int(meta[0]), int(meta[1]), 4 if color == 1 and meta[2] == 4 else 3), np.uint8)
     status = lib.jpeg_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta), color)
     return status, meta, out if status == 0 else None
+
+
+def hdr_decode(data: bytes, width: int, height: int) -> np.ndarray:
+    """A Radiance file's pixel data (after its header) -> [height, width, 4]
+    uint8 R, G, B, E, flat or new-style RLE scanlines as ``rgbe.cpp``
+    reads them; data that ends early or a bad scanline raises."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width, 4), np.uint8)
+    if get_lib("codecs").hdr_decode(_ptr(src), src.size, _ptr(out), width, height):
+        raise ValueError("HDR: the pixel data ends early or holds a bad scanline")
+    return out
+
+
+def gif_lzw_decode(data: bytes, npix: int, min_size: int) -> np.ndarray:
+    """A GIF frame's LZW data sub-blocks (from the first block's length
+    byte) -> [npix] uint8 palette indices, read as OpenCV's GIF decoder
+    reads them; data it refuses, or a code size outside 2 to 11, raises."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros(max(npix, 1), np.uint8)
+    if get_lib("codecs").gif_lzw_decode(_ptr(src), src.size, _ptr(out), npix, min_size):
+        raise ValueError(f"GIF: LZW data (code size {min_size}) short, corrupt or past the frame")
+    return out[:npix]
+
+
+def webp_decode(data: bytes, lossless: bool, width: int, height: int) -> np.ndarray:
+    """A WebP image's VP8L or VP8 bitstream (from its first byte to the end
+    of the file, as libwebp reads it) -> [height, width, 3] BGR uint8, as
+    libwebp decodes it into BGR; a stream libwebp fails on raises a
+    ``ValueError``."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((height, width, 3), np.uint8)
+    lib = get_lib("webp")
+    fn = lib.webp_vp8l_decode if lossless else lib.webp_vp8_decode
+    status = fn(_ptr(src), src.size, _ptr(out), width, height)
+    if status:
+        raise ValueError(f"WebP: a {'VP8L' if lossless else 'VP8'} bitstream that libwebp does not decode "
+                         f"(status {status})")
+    return out
+
+
+def webp_alpha_check(data: bytes, width: int, height: int) -> bool:
+    """Whether libwebp decodes this ALPH payload for a width x height image
+    (its alpha is not kept)."""
+    src = np.frombuffer(data, np.uint8)
+    return get_lib("webp").webp_alpha_check(_ptr(src), src.size, width, height) == 0
+
+
+def float_to_u8(samples: np.ndarray, scale: float = 1.0, rgbe: bool = False) -> np.ndarray:
+    """[H,W,3] float32 R, G, B times float32 ``scale`` (or [H,W,4] Radiance
+    R, G, B, E bytes, decoded and x255) -> [H,W,3] BGR (R, G, B for float
+    input) uint8 as OpenCV's ``convertTo`` rounds and saturates it."""
+    src = np.ascontiguousarray(samples)
+    out = np.empty(src.shape[:2] + (3,), np.uint8)
+    get_lib("codecs").float_to_u8(_ptr(src), src.shape[0] * src.shape[1], int(rgbe), scale, _ptr(out))
+    return out

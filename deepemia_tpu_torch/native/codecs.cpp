@@ -2,8 +2,9 @@
 // (C ABI, ctypes-loaded by deepemia_tpu_torch/native/__init__.py):
 // LZW (compression 5, libtiff's MSB-first codes with the early code-width
 // change, and its old-style LSB-first ones), PackBits (compression 32773)
-// and CCITT fax (fax_decode); and the JPEG decoder of read_image
-// (jpeg_decode, below the TIFF decoders).
+// and CCITT fax (fax_decode); the JPEG decoder of read_image (jpeg_decode,
+// below the TIFF decoders); and, at the end, the Radiance HDR scanlines,
+// GIF's LZW and the float-to-8-bit step of ops/containers.py.
 //
 // Built on first use: g++ -O2 -shared -fPIC codecs.cpp -o
 // build/torch_native/libcodecs-<hash>.so
@@ -15,6 +16,7 @@
 // against what the strip must hold.
 
 #include <algorithm>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <utility>
@@ -2137,6 +2139,180 @@ int jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t cap, in
     return f.status;
   } catch (const std::bad_alloc&) {
     return jpg::kCorrupt;
+  }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Radiance HDR scanlines, as rgbe.cpp's RGBE_ReadPixels_RLE reads them (the
+// reader of OpenCV's grfmt_hdr.cpp): a width below 8 or past 32767 is read
+// flat; otherwise each scanline starts 2, 2, width (16 bits, high byte below
+// 128) and holds its four channels one after another, each as runs (a count
+// past 128: count - 128 copies of the next byte) and literal stretches (a
+// count of 1 to 128, then that many bytes). A scanline that does not start
+// so is read flat, with every pixel after it. A count of 0, a run past the
+// channel's end, a wrong width or data that ends early fails the file.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int hdr_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t width, int64_t height) {
+  const int64_t total = width * height;
+  int64_t pos = 0;
+  auto flat = [&](int64_t from) -> int {
+    const int64_t need = (total - from) * 4;
+    if (n - pos < need) return -1;
+    std::copy(src + pos, src + pos + need, dst + from * 4);
+    return 0;
+  };
+  if (width < 8 || width > 0x7fff) return flat(0);
+  std::vector<uint8_t> line((size_t)width * 4);
+  for (int64_t y = 0; y < height; ++y) {
+    if (n - pos < 4) return -1;
+    const uint8_t* p = src + pos;
+    if (p[0] != 2 || p[1] != 2 || (p[2] & 0x80)) return flat(y * width);
+    if (((p[2] << 8) | p[3]) != width) return -1;
+    pos += 4;
+    uint8_t* q = line.data();
+    for (int c = 0; c < 4; ++c) {
+      uint8_t* end = line.data() + (c + 1) * width;
+      while (q < end) {
+        if (n - pos < 2) return -1;
+        const int a = src[pos], b = src[pos + 1];
+        pos += 2;
+        if (a > 128) {
+          const int count = a - 128;
+          if (count > end - q) return -1;
+          std::fill(q, q + count, (uint8_t)b);
+          q += count;
+        } else {
+          const int count = a;
+          if (count == 0 || count > end - q) return -1;
+          *q++ = (uint8_t)b;
+          if (count > 1) {
+            if (n - pos < count - 1) return -1;
+            std::copy(src + pos, src + pos + count - 1, q);
+            pos += count - 1;
+            q += count - 1;
+          }
+        }
+      }
+    }
+    uint8_t* row = dst + y * width * 4;
+    for (int64_t x = 0; x < width; ++x)
+      for (int c = 0; c < 4; ++c) row[x * 4 + c] = line[c * width + x];
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// GIF LZW, as OpenCV 5.0's GifDecoder::lzwDecode reads it: LSB-first codes
+// of min_size + 1 bits, widening (up to 12) when the next table entry reaches
+// 1 << width, read byte by byte from the frame's data sub-blocks (`src`
+// starts at the first block's length byte). A Clear resets the table; an End
+// resets it too and stops the codes of that byte, and decoding goes on while
+// data is left. A code that arrives once the frame holds all its pixels ends
+// the frame: read if its sub-block has no bytes left, refused otherwise. A
+// code past the entry being built fails, and so does a frame whose strings
+// fall short of its pixels or run past them. Returns 0 or -1.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+int gif_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t npix, int min_size) {
+  if (min_size < 2 || min_size > 11 || n < 1) return -1;
+  const int clear = 1 << min_size, end = clear + 1, kMax = 4096;
+  // entry i's string: its prefix entry's string, then suffix; first[] is its first byte
+  std::vector<int16_t> prefix(kMax + 1, -1);
+  std::vector<uint8_t> suffix(kMax + 1, 0), first(kMax + 1, 0);
+  std::vector<int32_t> length(kMax + 1, 1);
+  for (int i = 0; i < clear; ++i) { suffix[i] = (uint8_t)i; first[i] = (uint8_t)i; }
+  int width = min_size + 1, next = end, prev = -1;
+  int64_t idx = 0, pos = 0;
+  uint32_t bits = 0;
+  int nbits = 0;
+  int block = src[pos++];
+  while (block) {
+    if (nbits < width) {
+      if (pos >= n) return -1;
+      bits |= (uint32_t)src[pos++] << nbits;
+      nbits += 8;
+      --block;
+    }
+    while (nbits >= width) {
+      const int code = (int)(bits & ((1u << width) - 1));
+      bits >>= width;
+      nbits -= width;
+      if (code == clear || code == end) {
+        width = min_size + 1;
+        next = end;
+        prev = -1;
+        if (code == end) break;
+        continue;
+      }
+      if (idx == npix) return block == 0 ? 0 : -1;
+      if (prev < 0) {
+        if (code >= clear) return -1;
+        next = end + 1;
+      } else {
+        if (code > next) return -1;
+        // complete the entry being built: the previous string, then this one's first byte
+        prefix[next] = (int16_t)prev;
+        suffix[next] = code == next ? first[prev] : first[code];
+        first[next] = first[prev];
+        length[next] = length[prev] + 1;
+        if (next < kMax) ++next;
+      }
+      // the string back to front from its chain (only the part inside the frame is kept)
+      const int64_t n = length[code];
+      int64_t at = idx + n - 1;
+      for (int c = code; c >= 0; c = prefix[c], --at)
+        if (at < npix) dst[at] = suffix[c];
+      idx += n;
+      prev = code;
+      if (next == (1 << width) && width < 12) ++width;
+    }
+    if (block == 0) {
+      if (pos >= n) return -1;
+      block = src[pos++];
+    }
+  }
+  return idx == npix ? 0 : -1;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Float samples to 8 bits as OpenCV's convertTo (saturate_cast<uchar> of
+// float) makes them: v * scale in float32, rounded half to even, 0 where
+// the rounding leaves int32 (NaN and the infinities too, as cvRound gives
+// INT_MIN there), else clamped to 0..255. `rgbe` decodes Radiance pixels
+// (R, G, B, E; rgbe2float: mantissa * 2^(E - 136), 0 where E is 0, then
+// x255) into B, G, R; otherwise `src` holds float32 R, G, B to scale.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+void float_to_u8(const void* src, int64_t pixels, int rgbe, float scale, uint8_t* dst) {
+  auto put = [](float v) -> uint8_t {
+    const float r = std::nearbyint(v);
+    if (!(r >= -2147483648.0f && r < 2147483648.0f)) return 0;
+    return (uint8_t)(r < 0.0f ? 0.0f : r > 255.0f ? 255.0f : r);
+  };
+  if (rgbe) {
+    const uint8_t* p = (const uint8_t*)src;
+    float f[256];
+    for (int e = 0; e < 256; ++e) f[e] = e ? (float)std::ldexp(1.0, e - 136) : 0.0f;
+    for (int64_t i = 0; i < pixels; ++i, p += 4, dst += 3) {
+      const float m = f[p[3]];
+      for (int c = 0; c < 3; ++c) dst[c] = put((float)p[2 - c] * m * 255.0f);
+    }
+  } else {
+    const float* p = (const float*)src;
+    for (int64_t i = 0; i < 3 * pixels; ++i) dst[i] = put(p[i] * scale);
   }
 }
 

@@ -17,9 +17,15 @@ PIXEL_STD_BGR = (1.0, 1.0, 1.0)
 
 
 class UnsupportedImageError(ValueError):
-    """An image file in an encoding ``read_image`` does not decode (where
-    OpenCV may): unlike a missing or corrupt file, which OpenCV cannot read
-    either, it is not to be skipped as unreadable."""
+    """An image file in an encoding that OpenCV reads and ``read_image``
+    does not decode: unlike a file OpenCV refuses too, it is not to be
+    skipped as unreadable, since the JAX package would read it."""
+
+
+class RefusedImageError(ValueError):
+    """An image file in a form ``read_image`` refuses by name; OpenCV
+    returns None for this too, so a reader that skips unreadable files
+    skips it as the JAX package does."""
 
 
 def to_grayscale(image: torch.Tensor) -> torch.Tensor:
@@ -146,13 +152,18 @@ def read_image(path: str) -> np.ndarray:
     a PNG (``eXIf``, before or after the image data), and a TIFF's
     Orientation tag, turn the image as OpenCV's ``ApplyExifOrientation``
     does (OpenCV 5.0 returns None for a TIFF with that tag; the port turns
-    it, so that the scale-bar region lies where the user sees it). What
-    OpenCV refuses too raises an ``UnsupportedImageError`` that names it:
-    old-style JPEG, LZMA, ZSTD and WEBP TIFF, 2- and 4-bit gray TIFF,
-    32-bit samples, hierarchical and arithmetic-coded lossless JPEG,
-    lossless gray or YCbCr JPEG, 12-bit and two-component JPEG; a corrupt
-    file, or one cut off before its pixel data, a ``ValueError`` (where
-    OpenCV returns None), and a missing one an ``OSError``."""
+    it, so that the scale-bar region lies where the user sees it). The
+    other containers OpenCV reads, the PNM family, PAM, PFM, Sun raster,
+    Radiance HDR, GIF and WebP, are ``ops/containers.py``'s. What OpenCV
+    refuses too raises a ``RefusedImageError`` that names it: old-style
+    JPEG, LZMA, ZSTD and WEBP TIFF, 2- and 4-bit gray TIFF, 32-bit samples,
+    hierarchical and arithmetic-coded lossless JPEG, lossless gray or YCbCr
+    JPEG, 12-bit and two-component JPEG, a file of no signature OpenCV
+    knows; what OpenCV reads and the port does not decode (JPEG 2000, AVIF,
+    a palette TIFF with extra samples, CMYK in separate planes, YCbCr with
+    the horizontal predictor) an ``UnsupportedImageError``; a corrupt file,
+    or one cut off before its pixel data, a ``ValueError`` (where OpenCV
+    returns None), and a missing one an ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -164,11 +175,54 @@ def read_image(path: str) -> np.ndarray:
             return _decode_jpeg(data)
         if data[:2] == b"BM":
             return _decode_bmp(data)
+        decode = _container_decoder(data)
+        if decode is not None:
+            return decode(data)
     except (struct.error, KeyError, IndexError, zlib.error) as e:
         raise ValueError(f"{path}: corrupt or truncated file ({type(e).__name__}: {e})") from e
     except ValueError as e:
         raise type(e)(f"{path}: {e}") from None
-    raise UnsupportedImageError(f"{path}: unknown image encoding")
+    unported = _unported_format(data)
+    if unported:
+        raise UnsupportedImageError(f"{path}: {unported}, which OpenCV reads, is not supported")
+    # every reader OpenCV 5.0 is built with here is one of the above, or JPEG 2000 or AVIF
+    raise RefusedImageError(f"{path}: unknown image encoding (no signature OpenCV reads)")
+
+
+def _container_decoder(data: bytes):
+    """The decoder of ``ops/containers.py`` whose signature ``data``
+    starts with, as OpenCV's decoders check them, or None."""
+    from deepemia_tpu_torch.ops import containers
+
+    if len(data) >= 3 and data[0] == 0x50 and data[2] in b" \t\n\x0b\x0c\r":  # 'P', then whitespace
+        if 0x31 <= data[1] <= 0x36:
+            return containers.decode_pnm
+        if data[1] == 0x37:
+            return containers.decode_pam
+        if data[1] in b"fF":
+            return containers.decode_pfm
+    if data[:4] == containers.SUN_MAGIC:
+        return containers.decode_sun
+    if data.startswith((b"#?RGBE", b"#?RADIANCE")):
+        return containers.decode_hdr
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return containers.decode_gif
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return containers.decode_webp
+    return None
+
+
+def _unported_format(data: bytes) -> str:
+    """The name of a format OpenCV reads that the port does not decode, by
+    its signature, or ''."""
+    if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        return "JPEG 2000"
+    if data[4:8] == b"ftyp":  # an ISO BMFF file whose major or compatible brands name AVIF
+        size = int.from_bytes(data[:4], "big")
+        brands = data[8:12] + data[16 : max(16, min(size, len(data)))]
+        if any(brands[i : i + 4] in (b"avif", b"avis") for i in range(0, len(brands) - 3, 4)):
+            return "AVIF"
+    return ""
 
 
 def _to_bgr(pix: np.ndarray) -> np.ndarray:
@@ -247,9 +301,9 @@ def _decode_png(data: bytes) -> np.ndarray:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
     if depth not in _PNG_DEPTHS.get(ctype, ()):
-        raise UnsupportedImageError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
+        raise RefusedImageError(f"PNG: colour type {ctype} at bit depth {depth} is not supported")
     if interlace not in (0, 1):
-        raise UnsupportedImageError(f"PNG: interlace method {interlace} is not supported")
+        raise RefusedImageError(f"PNG: interlace method {interlace} is not supported")
     spp = _PNG_CHANNELS[ctype]
     stream = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if interlace == 0:
@@ -493,19 +547,21 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     fill = get(266, 1)[0]
     predictor, planar = get(317, 1)[0], get(284, 1)[0]
     if comp not in _TIFF_DECODED:
-        raise UnsupportedImageError(
+        raise RefusedImageError(
             f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported"
         )
     # libtiff reads the predictor tag for LZW and Deflate only
     predictor = predictor if comp in (5, 8, 32946) else 1
     if predictor not in (1, 2):
-        raise UnsupportedImageError(f"TIFF: predictor {predictor} is not supported")
+        raise RefusedImageError(f"TIFF: predictor {predictor} is not supported")
     if planar not in (1, 2):
-        raise UnsupportedImageError(f"TIFF: planar configuration {planar} is not supported")
+        raise RefusedImageError(f"TIFF: planar configuration {planar} is not supported")
     if (photometric, spp) not in _TIFF_KINDS:
-        raise UnsupportedImageError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
+        # libtiff's RGBA reader reads a palette with extra samples, which the port does not
+        error = UnsupportedImageError if photometric == 3 else RefusedImageError
+        raise error(f"TIFF: photometric {photometric} with {spp} samples is not supported")
     if len(bits) != 1 or set(get(339, 1)) != {1} or not bits <= set(_TIFF_KINDS[photometric, spp]):
-        raise UnsupportedImageError(
+        raise RefusedImageError(
             f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported with photometric "
             f"{photometric}"
         )
@@ -514,19 +570,20 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise UnsupportedImageError(f"TIFF: separate planes of photometric {photometric} at {depth} bits "
                                     "are not supported")
     if predictor == 2 and (depth < 8 or photometric == 6):
-        raise UnsupportedImageError(f"TIFF: predictor 2 with photometric {photometric} at {depth} bits "
-                                    "is not supported")
+        # libtiff refuses the predictor below 8 bits; it reads YCbCr with it, which the port does not
+        raise (UnsupportedImageError if depth >= 8 else RefusedImageError)(
+            f"TIFF: predictor 2 with photometric {photometric} at {depth} bits is not supported")
     if photometric == 5 and get(332, 1)[0] != 1:
-        raise UnsupportedImageError(f"TIFF: ink set {get(332, 1)[0]} (not CMYK) is not supported")
+        raise RefusedImageError(f"TIFF: ink set {get(332, 1)[0]} (not CMYK) is not supported")
     if comp in _TIFF_FAX and (depth != 1 or spp != 1):
         raise ValueError(f"TIFF: {_TIFF_COMPRESSION[comp]} compression of {spp} samples at {depth} bits")
     if comp == 7 and (photometric not in (1, 2, 5, 6) or planar == 2):
-        raise UnsupportedImageError(f"TIFF: JPEG compression of photometric {photometric}, planar configuration "
-                                    f"{planar} is not supported")
+        raise RefusedImageError(f"TIFF: JPEG compression of photometric {photometric}, planar configuration "
+                                f"{planar} is not supported")
     sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
     ycc = photometric == 6 and comp != 7  # JPEG strips convert YCbCr inside the JPEG decoder
     if ycc and sub not in _YCBCR_SUBSAMPLING:
-        raise UnsupportedImageError(f"TIFF: YCbCr subsampling {sub} is not supported")
+        raise RefusedImageError(f"TIFF: YCbCr subsampling {sub} is not supported")
     tables = bytes(tags.get(347, b""))
     tables = tables[2:-2] if tables[:2] == b"\xff\xd8" else tables  # its SOI and EOI
     dtype = np.dtype(np.uint8) if depth <= 8 else np.dtype(end + "u2")
@@ -680,15 +737,15 @@ def _decode_bmp(data: bytes) -> np.ndarray:
     elif hsize >= 36:
         w, h, _, bits, comp, _, _, _, ncolors = struct.unpack("<iiHHIIiiI", data[18:50])
     else:
-        raise UnsupportedImageError(f"BMP: a header of {hsize} bytes is not supported")
+        raise RefusedImageError(f"BMP: a header of {hsize} bytes is not supported")
     if bits == 16 and comp == 3:  # OpenCV reads the masks after the header and takes 5:5:5 and 5:6:5
         masks = struct.unpack("<III", data[14 + hsize : 26 + hsize])
         if masks not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
-            raise UnsupportedImageError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
+            raise RefusedImageError(f"BMP: bit fields {[hex(m) for m in masks]} are not supported")
     elif comp not in (0, {8: 1, 4: 2, 16: 3, 32: 3}.get(bits, 0)):
-        raise UnsupportedImageError(f"BMP: compression {comp} at {bits} bits is not supported")
+        raise RefusedImageError(f"BMP: compression {comp} at {bits} bits is not supported")
     if bits not in (1, 4, 8, 16, 24, 32) or (bits == 16 and hsize == 12):
-        raise UnsupportedImageError(f"BMP: {bits}-bit pixels are not supported")
+        raise RefusedImageError(f"BMP: {bits}-bit pixels are not supported")
     if ncolors > 256:
         raise ValueError(f"BMP: {ncolors} palette colours")
     rows, width = abs(h), w
@@ -743,13 +800,13 @@ def _jpeg_refusal(status: int, meta: np.ndarray) -> None:
     """Raise for a negative status of ``native.jpeg_decode``."""
     if status == -2:
         coding = int(meta[3])
-        raise UnsupportedImageError(f"JPEG: {_JPEG_CODINGS.get(coding, f'SOF marker 0x{coding:02X}')} is not supported")
+        raise RefusedImageError(f"JPEG: {_JPEG_CODINGS.get(coding, f'SOF marker 0x{coding:02X}')} is not supported")
     if status == -3:
-        raise UnsupportedImageError("JPEG: two components (no colour space libjpeg converts) are not supported")
+        raise RefusedImageError("JPEG: two components (no colour space libjpeg converts) are not supported")
     if status == -4:
-        raise UnsupportedImageError("JPEG: sample precision other than 8 bits (12-bit) is not supported")
+        raise RefusedImageError("JPEG: sample precision other than 8 bits (12-bit) is not supported")
     if status == -5:
-        raise UnsupportedImageError("JPEG: lossless (SOF3) gray, YCbCr or YCCK, which libjpeg-turbo does not "
+        raise RefusedImageError("JPEG: lossless (SOF3) gray, YCbCr or YCCK, which libjpeg-turbo does not "
                                     "convert to BGR, is not supported")
     raise ValueError("JPEG: corrupt, or cut off before its pixel data")
 

@@ -335,8 +335,10 @@ def evaluate_model(
     """Evaluate a trained model on the test split: one whole-image forward
     per image at ``threshold``, COCO-style bbox and segm AP,
     ``<output_dir>/<ds>/eval_r<rcnn>/metrics.csv`` and, with ``visualize``,
-    one ``<image>_eval.png`` overlay per image. An image that is missing or
-    corrupt is skipped; one in an encoding the port does not decode raises."""
+    one ``<image>_eval.png`` overlay per image. An image OpenCV cannot read
+    either (missing, corrupt, or refused by both) is skipped, as the JAX
+    package skips it; one OpenCV reads that the port does not decode
+    (``UnsupportedImageError``) raises."""
     from deepemia_tpu_torch import resolve_device
     from deepemia_tpu_torch.data.models import get_trained_model_paths, load_model
     from deepemia_tpu_torch.inference import viz
@@ -375,7 +377,7 @@ def evaluate_model(
         try:
             img = read_image(rec["file_name"])
         except UnsupportedImageError:
-            raise  # OpenCV may read it: skipping would score fewer images than the JAX package
+            raise  # OpenCV reads it: skipping would score fewer images than the JAX package
         except (OSError, ValueError) as e:
             log.warning("Unreadable test image %s — skipped (%s)", rec["file_name"], e)
             continue

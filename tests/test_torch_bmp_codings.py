@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from deepemia_tpu.inference.pipeline import _load_image
-from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+from deepemia_tpu_torch.ops.image import RefusedImageError, read_image
 
 torch.set_num_threads(2)
 
@@ -51,7 +51,7 @@ def test_header_sizes(tmp_path, bits, hsize):
     ref = reference(path)
     if bits == 16 and hsize == 12:
         assert ref is None
-        with pytest.raises(UnsupportedImageError, match="16-bit pixels"):
+        with pytest.raises(RefusedImageError, match="16-bit pixels"):
             read_image(str(path))
         return
     assert ref is not None
@@ -73,7 +73,7 @@ def test_bit_fields(tmp_path, bits, comp, masks, topdown):
     ref = reference(path)
     if bits == 16 and masks == XRGB:
         assert ref is None
-        with pytest.raises(UnsupportedImageError, match="bit fields"):
+        with pytest.raises(RefusedImageError, match="bit fields"):
             read_image(str(path))
         return
     assert ref is not None

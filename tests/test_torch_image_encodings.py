@@ -10,7 +10,7 @@ palettes, RLE8 and RLE4 with their escapes (random streams of runs,
 absolute stretches, ends of line, deltas and ends of bitmap). Also: the
 committed fixtures (``tests/data/torch_image_fixtures.npz``, which
 ``chip_smoke.py`` decodes on a host without OpenCV), truncated files as a
-``ValueError``, what OpenCV refuses as ``UnsupportedImageError``, and a
+``ValueError``, what OpenCV refuses as ``RefusedImageError``, and a
 palette TIFF through the port's ``InferencePipeline`` giving the CSVs of
 the same raster as a plain TIFF."""
 
@@ -26,7 +26,7 @@ import torch
 from PIL import Image
 
 from deepemia_tpu_torch.inference.pipeline import InferencePipeline
-from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError, read_image
 from test_torch_pipeline import golden  # noqa: F401 - the fixture
 from torch_tmp_weights import drop_weights  # noqa: F401 - autouse: removes the weights a test wrote
 
@@ -308,7 +308,7 @@ def test_what_opencv_refuses_is_unsupported(tmp_path, depth, photometric):
     path = tmp_path / "u.tif"
     path.write_bytes(fx.tiff_image(_levels(depth, 1), depth, photometric=photometric, colormap=cmap))
     assert cv2.imread(str(path), cv2.IMREAD_COLOR) is None
-    with pytest.raises(UnsupportedImageError, match=f"samples of \\[{depth}\\] bits"):
+    with pytest.raises(RefusedImageError, match=f"samples of \\[{depth}\\] bits"):
         read_image(str(path))
 
 

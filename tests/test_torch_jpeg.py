@@ -15,7 +15,7 @@ import pytest
 import torch
 from PIL import Image
 
-from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError, read_image
 
 torch.set_num_threads(2)
 
@@ -235,7 +235,7 @@ def test_codings_it_does_not_decode_are_named(tmp_path, sof, name):
             read_image(str(tmp_path / "b.jpg"))
         assert not isinstance(e.value, UnsupportedImageError)
         return
-    with pytest.raises(UnsupportedImageError, match=f"JPEG: {name} is not supported"):
+    with pytest.raises(RefusedImageError, match=f"JPEG: {name} is not supported"):
         read_image(str(tmp_path / "b.jpg"))
 
 
@@ -243,7 +243,7 @@ def test_precision_and_components_it_does_not_decode_are_named(tmp_path):
     data = bytearray(_write(tmp_path / "a.jpg", _micrograph(16, 16, 8), []).read_bytes())
     data[data.index(b"\xff\xc0") + 4] = 12
     (tmp_path / "p12.jpg").write_bytes(bytes(data))
-    with pytest.raises(UnsupportedImageError, match="12-bit"):
+    with pytest.raises(RefusedImageError, match="12-bit"):
         read_image(str(tmp_path / "p12.jpg"))
     # CMYK decodes now (tests/test_torch_jpeg_codings.py), as OpenCV converts it
     buf = io.BytesIO()

@@ -22,7 +22,7 @@ import torch
 from PIL import Image
 
 from deepemia_tpu.inference.pipeline import _load_image
-from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError, read_image
 
 torch.set_num_threads(2)
 
@@ -221,7 +221,7 @@ def test_lossless_layouts_and_cuts(tmp_path):
 
 def refused_by_both(path, match):
     assert reference(path) is None, f"OpenCV now reads {path.name}"
-    with pytest.raises(UnsupportedImageError, match=match):
+    with pytest.raises(RefusedImageError, match=match):
         read_image(str(path))
 
 

@@ -3,9 +3,11 @@ and augmentation (``train/augment.py``) against the JAX package's, array for
 array: ``prepare_sample`` with augmentation on and off and both resize modes,
 a one-worker ``TrainLoader`` sequence of three batches, the augmentation
 affine and ``boxes_from_masks``; missing or corrupt images are skipped as
-the JAX loader skips them, a JPEG record gives the JAX loader's sample, and
-an encoding ``read_image`` does not decode (an arithmetic-coded JPEG)
-raises rather than be skipped. The colour
+the JAX loader skips them, a JPEG record gives the JAX loader's sample, so
+does a PGM record, and a file OpenCV refuses too (a hierarchical JPEG) is
+skipped as the JAX loader skips it, while one OpenCV reads and
+``read_image`` does not decode (JPEG 2000) raises rather than be skipped.
+The colour
 warp and ``convertScaleAbs`` the loader uses are held to OpenCV in
 ``tests/test_torch_cv.py``."""
 
@@ -22,7 +24,7 @@ import deepemia_tpu.data.loader as jax_loader
 import deepemia_tpu.train.augment as jax_aug
 import deepemia_tpu_torch.data.loader as port_loader
 import deepemia_tpu_torch.train.augment as port_aug
-from deepemia_tpu_torch.ops.image import UnsupportedImageError
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError, read_image
 from test_torch_datasets import make_dataset
 
 torch.set_num_threads(2)
@@ -109,8 +111,10 @@ def test_jpeg_raises_naming_a7(records, tmp_path):
     """A JPEG record (the first record's image, written as JPEG) gives the
     JAX loader's sample, with and without augmentation, and its batch; so
     does the same file with its frame marked arithmetic-coded (SOF9), which
-    both readers decode alike. A coding the port does not decode (the
-    hierarchical SOF5) raises rather than be skipped."""
+    both readers decode alike. A coding OpenCV refuses too (the
+    hierarchical SOF5, which ``read_image`` names) is skipped by both
+    loaders alike: ``prepare_sample`` gives None, and a loader over it and
+    a readable record gives the JAX loader's batch."""
     jpg = tmp_path / "micro.jpg"
     cv2.imwrite(str(jpg), cv2.imread(records[0]["file_name"]), [cv2.IMWRITE_JPEG_QUALITY, 85])
     rec = dict(records[0], file_name=str(jpg))
@@ -119,13 +123,7 @@ def test_jpeg_raises_naming_a7(records, tmp_path):
         got = port_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(0))
         assert want is not None
         _assert_samples_equal(got, want, augment)
-    loaders = [mod.TrainLoader([rec, records[1]], 2, 64, 8, augment=True, seed=3, workers=1)
-               for mod in (jax_loader, port_loader)]
-    try:
-        _assert_samples_equal(next(iter(loaders[1])), next(iter(loaders[0])), "batch")
-    finally:
-        for ld in loaders:
-            ld.close()
+    _assert_first_batches_equal([rec, records[1]])
 
     data = bytearray(jpg.read_bytes())
     data[data.index(b"\xff\xc0") + 1] = 0xC9
@@ -138,12 +136,56 @@ def test_jpeg_raises_naming_a7(records, tmp_path):
     data[data.index(b"\xff\xc9") + 1] = 0xC5
     hierarchical = tmp_path / "hierarchical.jpg"
     hierarchical.write_bytes(bytes(data))
+    assert cv2.imread(str(hierarchical), cv2.IMREAD_COLOR) is None
+    with pytest.raises(RefusedImageError, match="SOF5"):
+        read_image(str(hierarchical))
     rec = dict(records[0], file_name=str(hierarchical))
-    with pytest.raises(UnsupportedImageError, match="SOF5"):
+    assert jax_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0)) is None
+    assert port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0)) is None
+    _assert_first_batches_equal([rec, records[1]])
+
+
+def _assert_first_batches_equal(recs):
+    loaders = [mod.TrainLoader(recs, 2, 64, 8, augment=True, seed=3, workers=1) for mod in (jax_loader, port_loader)]
+    try:
+        _assert_samples_equal(next(iter(loaders[1])), next(iter(loaders[0])), "batch")
+    finally:
+        for ld in loaders:
+            ld.close()
+
+
+def test_pgm_record_matches_jax(records, tmp_path):
+    """A record whose image is a binary PGM (gray, as cv2 writes it) and
+    one whose image is an ASCII PPM give the JAX loader's samples and
+    batch."""
+    img = cv2.imread(records[0]["file_name"])
+    pgm, ppm = tmp_path / "micro.pgm", tmp_path / "micro.ppm"
+    cv2.imwrite(str(pgm), cv2.cvtColor(img, cv2.COLOR_BGR2GRAY))
+    cv2.imwrite(str(ppm), img, [cv2.IMWRITE_PXM_BINARY, 0])
+    for path in (pgm, ppm):
+        rec = dict(records[0], file_name=str(path))
+        for augment in (False, True):
+            want = jax_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(0))
+            assert want is not None
+            _assert_samples_equal(port_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(0)), want,
+                                  (path.name, augment))
+    _assert_first_batches_equal([dict(records[0], file_name=str(pgm)), records[1]])
+
+
+def test_what_opencv_reads_and_the_port_does_not_raises(records, tmp_path):
+    """A JPEG 2000 codestream, which OpenCV reads and the port does not
+    decode, raises ``UnsupportedImageError`` naming it in
+    ``prepare_sample`` and fails a ``TrainLoader``, where skipping it would
+    train on fewer images than the JAX package."""
+    j2k = tmp_path / "micro.jp2"
+    assert cv2.imwrite(str(j2k), cv2.imread(records[0]["file_name"]))
+    assert cv2.imread(str(j2k), cv2.IMREAD_COLOR) is not None
+    rec = dict(records[0], file_name=str(j2k))
+    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
         port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0))
     loader = port_loader.TrainLoader([rec], 2, 64, 8, workers=1)
     try:
-        with pytest.raises(RuntimeError, match="SOF5"):
+        with pytest.raises(RuntimeError, match="JPEG 2000"):
             next(iter(loader))
     finally:
         loader.close()

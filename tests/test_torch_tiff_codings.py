@@ -20,7 +20,7 @@ import torch
 from PIL import Image, TiffImagePlugin
 
 from deepemia_tpu.inference.pipeline import _load_image
-from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError, read_image
 
 torch.set_num_threads(2)
 
@@ -434,7 +434,7 @@ def test_compressions_opencv_refuses_too(tmp_path, code, name):
             data[e + 8 : e + 10] = struct.pack("<H", code)
     (tmp_path / "a.tif").write_bytes(bytes(data))
     assert reference(tmp_path / "a.tif") is None, f"OpenCV now reads {name} TIFF"
-    with pytest.raises(UnsupportedImageError, match=f"{name} compression is not supported"):
+    with pytest.raises(RefusedImageError, match=f"{name} compression is not supported"):
         read_image(str(tmp_path / "a.tif"))
 
 
