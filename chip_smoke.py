@@ -277,15 +277,31 @@ It builds the CUDA kernels from the sources in the checkout and then:
      test image, K1 against its plain version on its calls).
      ``python3 -c "import chip_smoke; chip_smoke.containers_only()"``
      runs phase 19 alone.
+ 20. JPEG 2000 (``native/jpeg2000.cpp``, ``ops/jpeg2000.py``) and the
+     TIFF forms of C11: the host's machine and image libraries (printed,
+     never loaded); (a) the committed fixtures
+     (``tests/data/torch_jpeg2000_fixtures.npz``, written by
+     ``tools/make_torch_jpeg2000_fixtures.py``: Pillow's, cv2's and the
+     numpy writer's JP2 files and codestreams, every code-block style,
+     the markers and boxes, cut and damaged copies, and the C11 TIFFs) decode
+     bit for bit to cv2's arrays, or raise where cv2 returned None; (b)
+     a committed 2048² micrograph, reversible and irreversible: host decode
+     seconds (median of 3) beside an uncompressed TIFF of the same pixels;
+     (c) six 1024x768 labelled micrographs in JPEG 2000 forms (reversible,
+     irreversible, tiled, 16-bit gray, gray and alpha, and a signed one
+     that cv2 refuses; the files committed), through the CLI as phase 19
+     (c) takes its dataset, the refused frame skipped by every reader.
+     ``python3 -c "import chip_smoke; chip_smoke.jpeg2000_only()"`` runs
+     phase 20 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
-phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, phase 19
-after it, and phases 16 (c) and 17 (b) before phase 10. K1's ``launches``
-in the kernel line is the sum of phases 3, 9, 11, 12, 13, 15, 16, 17, 18
-and 19, K2's of phases 7, 13, 16, 17 and 19, K4's and K5's of phase 14's
-two CLI runs, phase 15's wizard
-task, phase 16's two-shard int8 engine and phase 17's ``--quantized trunk``
-runs, each counted from zero over its own run.
+phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, phases 19
+and 20 after it, and phases 16 (c) and 17 (b) before phase 10. K1's
+``launches`` in the kernel line is the sum of phases 3, 9, 11, 12, 13, 15,
+16, 17, 18, 19 and 20, K2's of phases 7, 13, 16, 17, 19 and 20, K4's and
+K5's of phase 14's two CLI runs, phase 15's wizard task, phase 16's
+two-shard int8 engine and phase 17's ``--quantized trunk`` runs, each
+counted from zero over its own run.
 Float32 comparisons run with TF32 off for both cuDNN convolutions and
 matrix products (``torch.backends.*.allow_tf32 = False``), set below.
 Any failure ends the run with a nonzero exit and no result line. The last
@@ -4410,6 +4426,13 @@ HOST_LIBRARIES = ("libwebp", "libopenjp2", "libavif", "libdav1d", "libaom")
 GRAY_PALETTE = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
 
 
+JPEG2000_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_jpeg2000_fixtures.npz")
+JPEG2000_DIR = os.path.join(ROOT, "build", "chip_smoke_jpeg2000")
+# phase 20's dataset: one labelled frame in each JPEG 2000 form (the last one cv2 refuses)
+JPEG2000_FORMS = ("rev", "irr", "tiled", "gray16", "la", "signed")
+JPEG2000_SEED = 20
+
+
 def container_file(kind: str, gray: np.ndarray):
     """A gray raster in one of phase 19's containers, written by the numpy
     writers of ``tools/make_torch_container_fixtures.py`` -> (extension,
@@ -4490,6 +4513,84 @@ def container_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = CONTAINER
     return names
 
 
+def cli_on_dataset(tag, home, root, twin, files, card, skipped=(), device="cuda", config_hook=None,
+                   steps=CONTAINER_STEPS):
+    """Phases 19 (c) and 20 (c): the dataset of ``files`` in ``root``
+    (``skipped``: those every reader refuses) registered as ``sem`` and its
+    TIFF twins in ``twin`` as ``twin`` in ``home``, then through the port's
+    CLI: ``--task prepare``, the first loader batch (4 images) bit-equal to
+    the twins', K1 and K2 against their plain versions on one step of it,
+    ``train --rcnn 50 --max-iter <steps>`` (finite losses, 2 K1 + 2 K2
+    launches a step) and ``evaluate --rcnn 50`` (the JAX evaluator's metric
+    names, 2 K1 launches a test image read, K1 against its plain version on
+    its calls) -> (K1 launches, K2 launches, K1 errors, K2 errors)."""
+    import yaml
+
+    from deepemia_tpu_torch.config.config import default_config
+
+    cfg = default_config(home)
+    if config_hook:
+        config_hook(cfg)
+    os.makedirs(os.path.join(home, "config"))
+    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    with open(cfg["paths"]["category_json"], "w") as f:
+        json.dump({"sem": [root, root, ["particle", "pore"]], "twin": [twin, twin, ["particle", "pore"]]}, f)
+    flags = ["--dataset_name", "sem", "--no-download", "--no-upload", "--device", device, "--verbosity", "warning"]
+    split_dir = cfg["paths"]["split_dir"]
+    assert run_cli(home, "--task", "prepare", *flags) == 0
+    with open(os.path.join(split_dir, "sem_split.json")) as f:
+        split = json.load(f)
+    n_test = math.ceil(0.2 * len(files))
+    assert len(split["test"]) == n_test, split
+    batch = loader_batch(cfg, split["train"], 4)
+    twin_batch = loader_batch(cfg, split["train"], 4, dataset="twin")
+    assert set(batch) == set(twin_batch) and all(np.array_equal(batch[k], twin_batch[k]) for k in batch)
+    print(f"{tag}: prepare: split {len(split['train'])}/{n_test}; the first loader batch (4 images) equals "
+          "the TIFF twins' key for key", flush=True)
+    k1_errs, k2_errs = [], []
+    if device == "cuda":
+        k1_errs, k2_errs = hold_train_capture(capture_train_step(batch), f"{tag} 4-image loader batch")
+
+    with TrainRun(device) as run, CountedRoIAlign() as roi:
+        t0 = time.perf_counter()
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--max-iter", str(steps), *flags)
+        wall = time.perf_counter() - t0
+    assert rc == 0 and len(run.steps) == steps, (rc, len(run.steps))
+    for st in run.steps:
+        assert all(math.isfinite(st[k]) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")), st
+        if device == "cuda":
+            assert st["k1"] == 2 and st["k2"] == 2, st
+    k1, k2 = roi.launches, sum(st["k2"] for st in run.steps)
+    print(f"{tag}: train: {steps} steps from {len(split['train'])} records: {step_stats(run, steps)}; the task "
+          f"took {wall:.1f} s; roi_align_fwd launches={roi.launches} roi_align_bwd launches={k2}; losses at the last "
+          "step " + json.dumps({k: round(run.steps[-1][k], 5) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask",
+                                                                           "total")}), flush=True)
+    print(f"{tag}: train: loader waits " + json.dumps([round(x, 4) for x in run.waits[:steps]]), flush=True)
+
+    with CountedRoIAlign(capture=True) as roi:
+        t0 = time.perf_counter()
+        assert run_cli(home, "--task", "evaluate", "--rcnn", "50", *flags) == 0
+        wall = time.perf_counter() - t0
+    with open(os.path.join(cfg["paths"]["output_dir"], "sem", "eval_r50", "metrics.csv")) as f:
+        metrics = {k: float(v) for k, v in (ln.split(",") for ln in f.read().splitlines()[1:])}
+    want = {f"{t}/{m}" for t in ("bbox", "segm") for m in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+                                                          "AR100", "ARs", "ARm", "ARl", "AP-class0", "AP-class1")}
+    n_read = sum(f.split(".")[0] + ".json" in split["test"] for f in files if f not in skipped)
+    assert set(metrics) == want | {"eval_seconds", "num_images"} and metrics["num_images"] == n_read, sorted(metrics)
+    if device == "cuda":
+        assert roi.launches == roi.with_rois == 2 * n_read, (roi.launches, roi.with_rois)
+        errs, _ = hold_captured(roi.shapes, f"{tag} evaluate")
+        k1_errs += errs
+    k1 += roi.launches
+    tested = [f + (" (refused, skipped)" if f in skipped else "") for f in files
+              if f.split(".")[0] + ".json" in split["test"]]
+    print(f"{tag}: evaluate: {n_test} test images ({', '.join(tested)}) in {wall:.1f} s, roi_align_fwd "
+          f"launches={roi.launches} (2 per image read); bbox/AP={metrics['bbox/AP']:.4f} segm/AP={metrics['segm/AP']:.4f} "
+          f"(random init, {steps} steps); card {card}", flush=True)
+    return k1, k2, k1_errs, k2_errs
+
+
 def phase_containers(image, card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     """Phase 19: the containers ``read_image`` reads beside PNG, TIFF, JPEG
     and BMP. The host's image libraries (``ldconfig -p``, printed for
@@ -4510,9 +4611,6 @@ def phase_containers(image, card, device="cuda", config_hook=None, steps=CONTAIN
     import hashlib
     import shutil
 
-    import yaml
-
-    from deepemia_tpu_torch.config.config import default_config
     from deepemia_tpu_torch.ops.image import read_image
 
     shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
@@ -4574,64 +4672,8 @@ def phase_containers(image, card, device="cuda", config_hook=None, steps=CONTAIN
     files = container_dataset(root, twin)
     print(f"containers: dataset of {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs "
           f"({', '.join(files)}) and their TIFF twins written in {time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = default_config(home)
-    if config_hook:
-        config_hook(cfg)
-    os.makedirs(os.path.join(home, "config"))
-    with open(os.path.join(home, "config", "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False)
-    with open(cfg["paths"]["category_json"], "w") as f:
-        json.dump({"sem": [root, root, ["particle", "pore"]], "twin": [twin, twin, ["particle", "pore"]]}, f)
-    flags = ["--dataset_name", "sem", "--no-download", "--no-upload", "--device", device, "--verbosity", "warning"]
-    split_dir = cfg["paths"]["split_dir"]
-    assert run_cli(home, "--task", "prepare", *flags) == 0
-    with open(os.path.join(split_dir, "sem_split.json")) as f:
-        split = json.load(f)
-    n_test = math.ceil(0.2 * len(files))
-    assert len(split["test"]) == n_test, split
-    batch = loader_batch(cfg, split["train"], 4)
-    twin_batch = loader_batch(cfg, split["train"], 4, dataset="twin")
-    assert set(batch) == set(twin_batch) and all(np.array_equal(batch[k], twin_batch[k]) for k in batch)
-    print(f"containers: prepare: split {len(split['train'])}/{n_test}; the first loader batch (4 images) equals "
-          "the TIFF twins' key for key", flush=True)
-    k1_errs, k2_errs = [], []
-    if device == "cuda":
-        k1_errs, k2_errs = hold_train_capture(capture_train_step(batch), "containers 4-image loader batch")
-
-    with TrainRun(device) as run, CountedRoIAlign() as roi:
-        t0 = time.perf_counter()
-        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--max-iter", str(steps), *flags)
-        wall = time.perf_counter() - t0
-    assert rc == 0 and len(run.steps) == steps, (rc, len(run.steps))
-    for st in run.steps:
-        assert all(math.isfinite(st[k]) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask", "total")), st
-        if device == "cuda":
-            assert st["k1"] == 2 and st["k2"] == 2, st
-    k1, k2 = roi.launches, sum(st["k2"] for st in run.steps)
-    print(f"containers: train: {steps} steps from {len(split['train'])} records: {step_stats(run, steps)}; the task "
-          f"took {wall:.1f} s; roi_align_fwd launches={roi.launches} roi_align_bwd launches={k2}; losses at the last "
-          "step " + json.dumps({k: round(run.steps[-1][k], 5) for k in ("rpn_cls", "rpn_loc", "cls", "box", "mask",
-                                                                           "total")}), flush=True)
-    print("containers: train: loader waits " + json.dumps([round(x, 4) for x in run.waits[:steps]]), flush=True)
-
-    with CountedRoIAlign(capture=True) as roi:
-        t0 = time.perf_counter()
-        assert run_cli(home, "--task", "evaluate", "--rcnn", "50", *flags) == 0
-        wall = time.perf_counter() - t0
-    with open(os.path.join(cfg["paths"]["output_dir"], "sem", "eval_r50", "metrics.csv")) as f:
-        metrics = {k: float(v) for k, v in (ln.split(",") for ln in f.read().splitlines()[1:])}
-    want = {f"{t}/{m}" for t in ("bbox", "segm") for m in ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
-                                                          "AR100", "ARs", "ARm", "ARl", "AP-class0", "AP-class1")}
-    assert set(metrics) == want | {"eval_seconds", "num_images"} and metrics["num_images"] == n_test, sorted(metrics)
-    if device == "cuda":
-        assert roi.launches == roi.with_rois == 2 * n_test, (roi.launches, roi.with_rois)
-        errs, _ = hold_captured(roi.shapes, "containers evaluate")
-        k1_errs += errs
-    k1 += roi.launches
-    tested = [f for f in files if f.split(".")[0] + ".json" in split["test"]]
-    print(f"containers: evaluate: {n_test} test images ({', '.join(tested)}) in {wall:.1f} s, roi_align_fwd "
-          f"launches={roi.launches} (2 per image); bbox/AP={metrics['bbox/AP']:.4f} segm/AP={metrics['segm/AP']:.4f} "
-          f"(random init, {steps} steps); card {card}", flush=True)
+    k1, k2, k1_errs, k2_errs = cli_on_dataset("containers", home, root, twin, files, card, device=device,
+                                              config_hook=config_hook, steps=steps)
     shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
     return k1, k2, k1_errs, k2_errs
 
@@ -4656,6 +4698,151 @@ def containers_only():
                           "max_abs_err_bwd": max(k2_errs)}), flush=True)
     finally:
         shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
+
+
+def jpeg2000_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = JPEG2000_SEED):
+    """Phase 20's dataset: one labelled micrograph (``draw_labelled``) per
+    JPEG2000_FORMS in ``root``, each the fixtures' committed JP2 file of
+    that drawing (its decode held to the SHA-256 of cv2's array), and in
+    ``twin`` the same labels beside uncompressed RGB TIFFs of the arrays
+    ``read_image`` decodes (for the frame cv2 refuses, a TIFF of a
+    compression OpenCV refuses too) -> (the file names, those refused)."""
+    import hashlib
+
+    from deepemia_tpu_torch.ops.image import RefusedImageError, read_image
+
+    fixtures = np.load(JPEG2000_FIXTURES)
+    rng = np.random.default_rng(seed)
+    for d in (root, twin):
+        os.makedirs(d, exist_ok=True)
+    names, refused = [], []
+    for i, form in enumerate(JPEG2000_FORMS):
+        gray, instances = draw_labelled(rng, hw)
+        name = f"sem_{i:02d}.jp2"
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(fixtures[f"dataset-{form}/file"].tobytes())
+        if f"dataset-{form}/none" in fixtures.files:
+            try:
+                read_image(path)
+                raise AssertionError(f"{form}: OpenCV refuses this frame and read_image read it")
+            except RefusedImageError:
+                pass
+            twin_bytes = codings.tiff_of(np.repeat(gray[..., None], 3, 2), extra={259: (codings.SHORT, [34925])})
+            refused.append(name)
+        else:
+            img = read_image(path)
+            assert hashlib.sha256(img.tobytes()).hexdigest() == fixtures[f"dataset-{form}/sha256"].tobytes().decode()
+            # the drawing survives the rate cut (most of what is lost is the background's noise)
+            assert np.corrcoef(img[..., 1].ravel().astype(np.float64), gray.ravel())[0, 1] > 0.8, form
+            twin_bytes = codings.tiff_of(np.ascontiguousarray(img[..., ::-1]))
+        with open(os.path.join(twin, f"sem_{i:02d}.tif"), "wb") as f:
+            f.write(twin_bytes)
+        for d, n in ((root, name), (twin, f"sem_{i:02d}.tif")):
+            with open(os.path.join(d, f"sem_{i:02d}.json"), "w") as f:
+                json.dump({"metadata": {"name": n, "height": hw[0], "width": hw[1]}, "instances": instances}, f)
+        names.append(name)
+    return names, refused
+
+
+def phase_jpeg2000(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
+    """Phase 20: JPEG 2000 (``native/jpeg2000.cpp``, ``ops/jpeg2000.py``)
+    and the TIFF forms of C11. The host's machine and image libraries
+    (``ldconfig -p``, printed; nothing loads them); (a) the committed
+    fixtures (``tests/data/torch_jpeg2000_fixtures.npz``: Pillow's, cv2's
+    and the numpy writer's JP2 files and codestreams, cut and damaged
+    copies, the C11 TIFFs) decode bit for bit to cv2's arrays, or raise
+    where cv2 returned None; (b) the committed 2048² micrograph,
+    reversible (5/3, its layers cut by rate) and irreversible (9/7): host
+    decode seconds (median of 3) beside an uncompressed TIFF of the same
+    pixels; (c) the JPEG2000_FORMS dataset through the CLI
+    (``cli_on_dataset``; the refused frame skipped by every reader) -> (K1
+    launches, K2 launches, K1 errors, K2 errors)."""
+    import hashlib
+    import platform
+    import shutil
+
+    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+
+    shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
+    os.makedirs(JPEG2000_DIR)
+    print(f"jpeg2000: host {platform.machine()}; image libraries (ldconfig -p; information only, nothing loads "
+          "them) " + json.dumps(host_libraries()), flush=True)
+
+    # (a) the fixtures
+    fixtures = np.load(JPEG2000_FIXTURES)
+    names = sorted({k.split("/")[0] for k in fixtures.files} - {f"dataset-{f}" for f in JPEG2000_FORMS})
+    kinds = {"array": 0, "sha256": 0, "refused": 0}
+    for name in names:
+        path = os.path.join(JPEG2000_DIR, "f" + fixtures[f"{name}/ext"].tobytes().decode())
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        if f"{name}/none" in fixtures.files:
+            try:
+                read_image(path)
+                raise AssertionError(f"{name}: OpenCV refuses this file and read_image read it")
+            except UnsupportedImageError:
+                raise
+            except ValueError:
+                kinds["refused"] += 1
+        elif f"{name}/bgr" in fixtures.files:
+            assert np.array_equal(read_image(path), fixtures[f"{name}/bgr"]), name
+            kinds["array"] += 1
+        else:
+            got = read_image(path)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+            kinds["sha256"] += 1
+        os.remove(path)
+    print(f"jpeg2000: {len(names)} committed fixtures as OpenCV read them: {kinds['array']} bit for bit to its "
+          f"arrays, {kinds['sha256']} to its SHA-256, {kinds['refused']} refused where it returned None", flush=True)
+
+    # (b) decode seconds at 2048²
+    tiff_path = os.path.join(JPEG2000_DIR, "plain.tif")
+    for name in ("smoke-rev-2048", "smoke-irr-2048"):
+        path = os.path.join(JPEG2000_DIR, name + ".jp2")
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        got, secs = decode_seconds(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+        write_tiff(tiff_path, got[..., 1])
+        _, plain_s = decode_seconds(tiff_path)
+        print(f"jpeg2000: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, Pillow's "
+              f"OpenJPEG encoder): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host)",
+              flush=True)
+
+    # (c) the dataset through the CLI
+    home = os.path.join(JPEG2000_DIR, "home")
+    root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
+    t0 = time.perf_counter()
+    files, refused = jpeg2000_dataset(root, twin)
+    print(f"jpeg2000: dataset of {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs in the forms "
+          f"{', '.join(JPEG2000_FORMS)} ({', '.join(files)}; refused by OpenCV and read_image: {', '.join(refused)}) "
+          f"and their TIFF twins written in {time.perf_counter() - t0:.1f} s", flush=True)
+    k1, k2, k1_errs, k2_errs = cli_on_dataset("jpeg2000", home, root, twin, files, card, skipped=refused,
+                                              device=device, config_hook=config_hook, steps=steps)
+    shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
+    return k1, k2, k1_errs, k2_errs
+
+
+def jpeg2000_only():
+    """Phase 20 alone."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd", "roi_align_bwd"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        k1, k2, k1_errs, k2_errs = phase_jpeg2000(card)
+        print(f"phases 20: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"roi_align_fwd": k1, "roi_align_bwd": k2, "max_abs_err_fwd": max(k1_errs),
+                          "max_abs_err_bwd": max(k2_errs)}), flush=True)
+    finally:
+        shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
 
 
 def parallel_only():
@@ -4848,6 +5035,11 @@ def main() -> int:
         shutil.rmtree(CONTAINERS_DIR, ignore_errors=True)
     lap(19)
     try:
+        j2k_k1, j2k_k2, j2k_k1_errs, j2k_k2_errs = phase_jpeg2000(card)
+    finally:
+        shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
+    lap(20)
+    try:
         ranks_k1, ranks_k2, one_step = phase_ranks(card)
         lap("16 (c)")
         tp_k1, tp_k2 = phase_tp_training(one_step, card)
@@ -4858,7 +5050,7 @@ def main() -> int:
     lap(10)
 
     errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs \
-        + containers_k1_errs
+        + containers_k1_errs + j2k_k1_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -4870,9 +5062,9 @@ def main() -> int:
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
         # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
         # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters) and 19
-        # (training and evaluation on the containers' dataset), each counted from zero
+        # and 20 (training and evaluation on the containers' and the JPEG 2000 datasets), each counted from zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1 + j2k_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -4888,9 +5080,9 @@ def main() -> int:
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
         # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI), 16 (the
         # one-process step and the CLI's training in an NCCL group), 17 (both ranks of the tensor-parallel step)
-        # and 19 (training on the containers' dataset)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2,
-        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs),
+        # and 19 and 20 (training on the containers' and the JPEG 2000 datasets)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2 + j2k_k2,
+        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs + j2k_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
@@ -5003,10 +5195,10 @@ def main() -> int:
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
           f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}, phase 18 "
-          f"{codings_k1}, phase 19 {containers_k1}; roi_align_bwd "
+          f"{codings_k1}, phase 19 {containers_k1}, phase 20 {j2k_k1}; roi_align_bwd "
           f"launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 "
-          f"{ranks_k2}, phase 17 {tp_k2}, phase 19 {containers_k2}; int8_conv launches: phase 14 {int8_launches}, "
-          f"wizard {entry_k4}, phase 16 "
+          f"{ranks_k2}, phase 17 {tp_k2}, phase 19 {containers_k2}, phase 20 {j2k_k2}; int8_conv launches: phase 14 "
+          f"{int8_launches}, wizard {entry_k4}, phase 16 "
           f"{shard_k4}, phase 17 {rank_k4}; int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}, phase "
           f"16 {shard_k5}, phase 17 {rank_k5}",
           flush=True)

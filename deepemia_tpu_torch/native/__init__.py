@@ -1,7 +1,7 @@
 """ctypes bindings of the native host libraries: the measurement kernels
 (``measure.cpp``), the LZW, PackBits, CCITT fax, JPEG, Radiance HDR and
-GIF LZW decoders of ``read_image`` (``codecs.cpp``) and its WebP decoders
-(``webp.cpp``).
+GIF LZW decoders of ``read_image`` (``codecs.cpp``), its WebP decoders
+(``webp.cpp``) and its JPEG 2000 codestream decoder (``jpeg2000.cpp``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
 ``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
@@ -54,6 +54,9 @@ _SIGNATURES = {
         "webp_vp8l_decode": ([_P, _L, _P, _L, _L], _I),
         "webp_vp8_decode": ([_P, _L, _P, _L, _L], _I),
         "webp_alpha_check": ([_P, _L, _L, _L], _I),
+    },
+    "jpeg2000": {
+        "j2k_decode": ([_P, _L, _P, _L, _P, _L], _I),
     },
 }
 
@@ -232,6 +235,38 @@ def webp_alpha_check(data: bytes, width: int, height: int) -> bool:
     (its alpha is not kept)."""
     src = np.frombuffer(data, np.uint8)
     return get_lib("webp").webp_alpha_check(_ptr(src), src.size, width, height) == 0
+
+
+def jpeg2000_decode(data: bytes, header_only: bool = False) -> Tuple[int, list, Optional[list]]:
+    """A JPEG 2000 codestream (from its SOC marker to the end of the file,
+    as OpenJPEG reads it) -> (status, header, planes). The header is
+    (x0, y0, x1, y1, [(precision, signed, dx, dy) per component]); the
+    planes, unless ``header_only``, each component's [h, w] int32 samples,
+    decoded as OpenJPEG decodes them, with status 0. A negative status
+    (``jpeg2000.cpp``): -1 a codestream OpenJPEG fails on, -2 a
+    High-Throughput one, -3 one with a Part 2 marker; header and planes are
+    then None."""
+    src = np.frombuffer(data, np.uint8)
+    meta = np.zeros(5 + 4 * 16384, np.int64)
+    lib = get_lib("jpeg2000")
+    status = lib.j2k_decode(_ptr(src), src.size, None, 0, _ptr(meta), meta.size)
+    if status != 1:
+        return status, None, None
+    n, x1, y1, x0, y0 = (int(v) for v in meta[:5])
+    comps = [tuple(int(v) for v in meta[5 + 4 * c : 9 + 4 * c]) for c in range(n)]
+    header = (x0, y0, x1, y1, comps)
+    if header_only:
+        return status, header, None
+    shapes = [(-(-y1 // dy) - -(-y0 // dy), -(-x1 // dx) - -(-x0 // dx)) for _, _, dx, dy in comps]
+    out = np.zeros(sum(h * w for h, w in shapes), np.int32)
+    status = lib.j2k_decode(_ptr(src), src.size, _ptr(out), out.size, _ptr(meta), meta.size)
+    if status:
+        return status, None, None
+    planes, at = [], 0
+    for h, w in shapes:
+        planes.append(out[at : at + h * w].reshape(h, w))
+        at += h * w
+    return status, header, planes
 
 
 def float_to_u8(samples: np.ndarray, scale: float = 1.0, rgbe: bool = False) -> np.ndarray:

@@ -105,11 +105,12 @@ _TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 7: ("B", 1), 
 # byte -> its bits reversed: the strips of a FillOrder 2 (LSB first) TIFF
 _BIT_REVERSED = np.packbits(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1)[:, ::-1], axis=1)[:, 0]
 # (photometric, samples per pixel) -> the bit depths OpenCV reads: WhiteIsZero and BlackIsZero gray (with
-# extra samples), RGB(A), palette, CMYK, YCbCr and CIELab. OpenCV refuses 2- and 4-bit gray and 2-bit palettes.
+# extra samples), RGB(A), palette (8-bit with extra samples: libtiff refuses contiguous extra samples below 8
+# bits), CMYK, YCbCr and CIELab. OpenCV refuses 2- and 4-bit gray and 2-bit palettes.
 _TIFF_KINDS = {
     (0, 1): (1, 8, 16), (1, 1): (1, 8, 16), (0, 2): (8, 16), (1, 2): (8, 16), (0, 3): (8, 16), (1, 3): (8, 16),
     (0, 4): (8, 16), (1, 4): (8, 16), (2, 3): (8, 16), (2, 4): (8, 16), (8, 3): (8, 16),
-    (3, 1): (1, 4, 8), (5, 4): (8,), (6, 3): (8,),
+    (3, 1): (1, 4, 8), (3, 2): (8,), (3, 3): (8,), (3, 4): (8,), (5, 4): (8,), (6, 3): (8,),
 }
 # the YCbCr subsamplings libtiff's RGBA reader places (tif_getimage.c)
 _YCBCR_SUBSAMPLING = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
@@ -124,10 +125,12 @@ def read_image(path: str) -> np.ndarray:
     dropped with alpha), TIFF and BigTIFF, either byte order (the first
     page; BlackIsZero and WhiteIsZero gray at 1, 8 and 16 bits, gray+alpha,
     RGB and RGBA at 8 and 16 bits, gray with extra samples, palettes at 1,
-    4 and 8 bits, 8-bit CMYK and YCbCr with any subsampling libtiff places,
-    CIELab at 8 and 16 bits; strips or tiles,
-    contiguous or separate planes; uncompressed, LZW (old-style too),
-    Deflate, PackBits with predictor 1 or 2, JPEG (gray, RGB, YCbCr or
+    4 and 8 bits (8 bits with extra samples, the index the first), 8-bit
+    CMYK and YCbCr with any subsampling libtiff places, CIELab at 8 and 16
+    bits; strips or tiles, contiguous or separate planes (of gray, RGB,
+    CMYK and 1x1 YCbCr); uncompressed, LZW (old-style too), Deflate,
+    PackBits with predictor 1 or 2 (on YCbCr's data units too, in
+    libtiff's rows), JPEG (gray, RGB, YCbCr or
     CMYK) with its ``JPEGTables``, and bilevel CCITT RLE, RLEW, Group 3 (1D
     and 2D) and Group 4; FillOrder 2 bits reversed where libtiff reverses
     them; a strip or tile cut short or damaged read as libtiff's RGBA reader
@@ -154,16 +157,18 @@ def read_image(path: str) -> np.ndarray:
     does (OpenCV 5.0 returns None for a TIFF with that tag; the port turns
     it, so that the scale-bar region lies where the user sees it). The
     other containers OpenCV reads, the PNM family, PAM, PFM, Sun raster,
-    Radiance HDR, GIF and WebP, are ``ops/containers.py``'s. What OpenCV
+    Radiance HDR, GIF and WebP, are ``ops/containers.py``'s; JPEG 2000 (a
+    JP2 file or a bare codestream) is ``ops/jpeg2000.py``'s. What OpenCV
     refuses too raises a ``RefusedImageError`` that names it: old-style
     JPEG, LZMA, ZSTD and WEBP TIFF, 2- and 4-bit gray TIFF, 32-bit samples,
+    a palette TIFF in separate planes or with extra samples below 8 bits,
     hierarchical and arithmetic-coded lossless JPEG, lossless gray or YCbCr
     JPEG, 12-bit and two-component JPEG, a file of no signature OpenCV
-    knows; what OpenCV reads and the port does not decode (JPEG 2000, AVIF,
-    a palette TIFF with extra samples, CMYK in separate planes, YCbCr with
-    the horizontal predictor) an ``UnsupportedImageError``; a corrupt file,
-    or one cut off before its pixel data, a ``ValueError`` (where OpenCV
-    returns None), and a missing one an ``OSError``."""
+    knows; what OpenCV reads and the port does not decode (AVIF, and
+    JPEG 2000's High-Throughput and Part 2 forms) an
+    ``UnsupportedImageError``; a corrupt file, or one cut off before its
+    pixel data, a ``ValueError`` (where OpenCV returns None), and a missing
+    one an ``OSError``."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -185,7 +190,7 @@ def read_image(path: str) -> np.ndarray:
     unported = _unported_format(data)
     if unported:
         raise UnsupportedImageError(f"{path}: {unported}, which OpenCV reads, is not supported")
-    # every reader OpenCV 5.0 is built with here is one of the above, or JPEG 2000 or AVIF
+    # every reader OpenCV 5.0 is built with here is one of the above, or AVIF
     raise RefusedImageError(f"{path}: unknown image encoding (no signature OpenCV reads)")
 
 
@@ -209,14 +214,16 @@ def _container_decoder(data: bytes):
         return containers.decode_gif
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return containers.decode_webp
+    from deepemia_tpu_torch.ops import jpeg2000
+
+    if data.startswith((jpeg2000.JP2_SIGNATURE, jpeg2000.J2K_SIGNATURE)):
+        return jpeg2000.decode_jpeg2000
     return None
 
 
 def _unported_format(data: bytes) -> str:
     """The name of a format OpenCV reads that the port does not decode, by
     its signature, or ''."""
-    if data[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
-        return "JPEG 2000"
     if data[4:8] == b"ftyp":  # an ISO BMFF file whose major or compatible brands name AVIF
         size = int.from_bytes(data[:4], "big")
         brands = data[8:12] + data[16 : max(16, min(size, len(data)))]
@@ -390,14 +397,34 @@ def _tiff_segment(raw: bytes, comp: int, size: int):
     return out, len(out) == size
 
 
-def _ycbcr_units(seg: bytes, sh: int, sw: int, sub) -> np.ndarray:
+def _ycbcr_predictor(seg: bytes, rowsize: int) -> bytes:
+    """Undo predictor 2 on a YCbCr strip or tile's data units as libtiff's
+    PredictorDecodeTile does: each ``rowsize`` bytes (TIFFScanlineSize,
+    or TIFFTileRowSize, which ignores the subsampling) summed on their own
+    with a stride of 3 (horAcc8), across the data units' bounds; where
+    the size is no whole number of rows, or a row no whole number of
+    strides, libtiff fails after its codec and the bytes stay as they
+    were decoded."""
+    if rowsize <= 0 or len(seg) % rowsize or rowsize % 3:
+        return seg
+    a = np.frombuffer(seg, np.uint8).reshape(-1, rowsize // 3, 3)
+    return np.cumsum(a, axis=1, dtype=np.uint8).tobytes()
+
+
+def _ycbcr_units(seg: bytes, sh: int, sw: int, sub, skew: int = 0) -> np.ndarray:
     """A YCbCr strip or tile's data units (TIFF 6.0 section 21: each block
     of sub[0] x sub[1] pixels holds its luma samples row by row, then one
     Cb and one Cr) -> [sh, sw, 3] Y, Cb, Cr, each block's chroma on all of
-    its pixels, as libtiff's RGBA reader places them."""
+    its pixels, as libtiff's RGBA reader places them. ``skew``: the
+    columns of a right-edge tile past the image, which the reader steps
+    over after each row of blocks; putcontig8bitYCbCr44tile steps over
+    each skipped 4x4 block as if it held 10 bytes, not 18."""
     hs, vs = sub
+    block = hs * vs + 2
     by, bx = -(-sh // vs), -(-sw // hs)
-    u = np.frombuffer(seg, np.uint8, count=by * bx * (hs * vs + 2)).reshape(by, bx, hs * vs + 2)
+    step = bx * block + (skew // hs) * (10 if sub == (4, 4) else block)
+    buf = np.frombuffer(seg, np.uint8)
+    u = buf[np.arange(by)[:, None] * step + np.arange(bx * block)].reshape(by, bx, block)
     y = u[..., : hs * vs].reshape(by, bx, vs, hs).transpose(0, 2, 1, 3).reshape(by * vs, bx * hs)
     c = np.repeat(np.repeat(u[..., hs * vs :], vs, axis=0), hs, axis=1)
     return np.concatenate([y[..., None], c], axis=2)[:sh, :sw]
@@ -556,23 +583,22 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise RefusedImageError(f"TIFF: predictor {predictor} is not supported")
     if planar not in (1, 2):
         raise RefusedImageError(f"TIFF: planar configuration {planar} is not supported")
+    planar = 1 if spp == 1 else planar  # libtiff reads one sample a pixel as contiguous whatever the tag says
     if (photometric, spp) not in _TIFF_KINDS:
-        # libtiff's RGBA reader reads a palette with extra samples, which the port does not
-        error = UnsupportedImageError if photometric == 3 else RefusedImageError
-        raise error(f"TIFF: photometric {photometric} with {spp} samples is not supported")
+        raise RefusedImageError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
     if len(bits) != 1 or set(get(339, 1)) != {1} or not bits <= set(_TIFF_KINDS[photometric, spp]):
         raise RefusedImageError(
             f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported with photometric "
             f"{photometric}"
         )
     depth = bits.pop()
-    if planar == 2 and (depth < 8 or photometric > 2):
-        raise UnsupportedImageError(f"TIFF: separate planes of photometric {photometric} at {depth} bits "
-                                    "are not supported")
-    if predictor == 2 and (depth < 8 or photometric == 6):
-        # libtiff refuses the predictor below 8 bits; it reads YCbCr with it, which the port does not
-        raise (UnsupportedImageError if depth >= 8 else RefusedImageError)(
-            f"TIFF: predictor 2 with photometric {photometric} at {depth} bits is not supported")
+    sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
+    # libtiff's RGBA reader reads separate planes of gray, RGB, CMYK and YCbCr without subsampling
+    # (pickSeparateCase), a palette's index from the first of its samples in contiguous ones only
+    if planar == 2 and (photometric not in (0, 1, 2, 5, 6) or (photometric == 6 and sub != (1, 1))):
+        raise RefusedImageError(f"TIFF: separate planes of photometric {photometric} are not supported")
+    if predictor == 2 and depth < 8:  # libtiff refuses the predictor below 8 bits
+        raise RefusedImageError(f"TIFF: predictor 2 with photometric {photometric} at {depth} bits is not supported")
     if photometric == 5 and get(332, 1)[0] != 1:
         raise RefusedImageError(f"TIFF: ink set {get(332, 1)[0]} (not CMYK) is not supported")
     if comp in _TIFF_FAX and (depth != 1 or spp != 1):
@@ -580,8 +606,8 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     if comp == 7 and (photometric not in (1, 2, 5, 6) or planar == 2):
         raise RefusedImageError(f"TIFF: JPEG compression of photometric {photometric}, planar configuration "
                                 f"{planar} is not supported")
-    sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
-    ycc = photometric == 6 and comp != 7  # JPEG strips convert YCbCr inside the JPEG decoder
+    # JPEG strips convert YCbCr inside the JPEG decoder; separate planes hold one sample a pixel
+    ycc = photometric == 6 and comp != 7 and planar == 1
     if ycc and sub not in _YCBCR_SUBSAMPLING:
         raise RefusedImageError(f"TIFF: YCbCr subsampling {sub} is not supported")
     tables = bytes(tags.get(347, b""))
@@ -603,7 +629,7 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         grid = [(y, 0) for y in range(0, h, rps)]
         shape_of = lambda y: (min(rps, h - y), w)  # noqa: E731
         row_bytes = (w * (spp if planar == 1 else 1) * depth + 7) // 8
-        if photometric == 6 and comp == 1:  # TIFFScanlineSize of subsampled YCbCr: a row of data units over v
+        if ycc:  # TIFFScanlineSize of subsampled YCbCr: a row of data units over v
             row_bytes = -(-w // sub[0]) * (sub[0] * sub[1] + 2) // sub[1]
         # tif_dirread.c ignores the StripByteCounts of an uncompressed image where they look wrong (one strip
         # of fewer bytes than the image or more than the file holds, or the first two of three or more
@@ -639,22 +665,26 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                 seg = native.fax_decode(raw, comp, sh, sw, get(293 if comp == 4 else 292, 0)[0], fill == 2)
                 a = _unpack_bits(np.frombuffer(seg, np.uint8).reshape(sh, -1), sw, 1)[..., None]
             else:
+                read = need = sh * ((sw * sps * depth + 7) // 8)
                 if ycc:
-                    need = -(-sh // sub[1]) * -(-sw // sub[0]) * (sub[0] * sub[1] + 2)
-                else:
-                    need = sh * ((sw * sps * depth + 7) // 8)
-                seg, sound = _tiff_segment(raw, comp, need)
+                    read = need = -(-sh // sub[1]) * -(-sw // sub[0]) * (sub[0] * sub[1] + 2)
+                    if 322 not in tags:  # gtStripContig asks for whole rows of blocks of TIFFScanlineSize
+                        read = min(need, -(-sh // sub[1]) * sub[1] * row_bytes)
+                seg, sound = _tiff_segment(raw, comp, read)
                 if comp == 1 and not sound and 322 in tags and first_plane:
                     raise ValueError("TIFF: an uncompressed tile shorter than the tile, which libtiff's tile reader "
                                      "fails on")
+                if ycc and predictor == 2 and sound:
+                    seg = _ycbcr_predictor(seg, sw * 3 if 322 in tags else row_bytes)
                 seg = seg.ljust(need, b"\0")  # the rest of libtiff's buffer, zeroed when allocated
                 if ycc:
-                    a = _ycbcr_units(seg, sh, sw, sub)
+                    vw = min(sw, w - x)  # the columns of the tile in the image
+                    a = _ycbcr_units(seg, sh, vw, sub, sw - vw)
                 elif depth < 8:
                     a = _unpack_bits(np.frombuffer(seg, np.uint8).reshape(sh, -1), sw, depth)[..., None]
                 else:
                     a = np.frombuffer(seg, dtype).reshape(sh, sw, sps).astype(pix.dtype)
-                if predictor == 2 and sound:  # horizontal differencing, undone only where the codec succeeded
+                if predictor == 2 and sound and not ycc:  # horizontal differencing, undone where the codec succeeded
                     a = np.cumsum(a, axis=1, dtype=pix.dtype)
             ch = slice(None) if planar == 1 else slice(p, p + 1)
             pix[y : y + sh, x : x + sw, ch] = a[: h - y, : w - x]

@@ -9,7 +9,7 @@ where the port copies them (ASCII samples scaled while binary ones are
 not, PAM RGB kept in R, G, B order, old-style HDR runs read as pixels) and
 where it cannot (the unset pixels of a PAM row with alpha); every form
 OpenCV refuses, pinned beside ``cv2.imread(...) is None``; cut and damaged
-files as a ``ValueError``; JPEG 2000 and AVIF refused by name; the
+files as a ``ValueError``; AVIF refused by name (JPEG 2000 is now read); the
 committed fixtures ``chip_smoke.py`` decodes without OpenCV; and the C10
 rule: the port's ``prepare_sample`` and ``evaluate_model`` skip a file
 OpenCV refuses where the JAX package's skip it, and raise for one OpenCV
@@ -333,15 +333,20 @@ def test_cut_and_damaged_copies_agree(tmp_path, name):
 
 @pytest.mark.parametrize("ext, name", [(".jp2", "JPEG 2000"), (".j2k", "JPEG 2000"), (".avif", "AVIF")])
 def test_unported_formats_are_named(tmp_path, ext, name):
-    """JPEG 2000 (the JP2 box and a bare codestream) and AVIF, which OpenCV
-    reads and the port does not decode, raise ``UnsupportedImageError``
-    naming the format, never "unknown"."""
+    """AVIF, which OpenCV reads and the port does not decode, raises
+    ``UnsupportedImageError`` naming the format, never "unknown". JPEG 2000
+    (the JP2 box and a bare codestream), named so until the port read it,
+    now decodes to OpenCV's array (``tests/test_torch_jpeg2000.py``)."""
     big = fx.micrograph(64, 80, 5)
     data = fx._cv2_write(".avif" if ext == ".avif" else ".jp2", big)
     if ext == ".j2k":  # the codestream of the JP2 file's jp2c box
         data = data[data.index(b"\xff\x4f\xff\x51"):]
     path = write(tmp_path / f"a{ext}", data)
-    assert reference(path) is not None
+    ref = reference(path)
+    assert ref is not None
+    if name == "JPEG 2000":
+        np.testing.assert_array_equal(read_image(str(path)), ref)
+        return
     with pytest.raises(UnsupportedImageError, match=f"{name}, which OpenCV reads"):
         read_image(str(path))
 
@@ -502,18 +507,18 @@ def test_c10_evaluate_skips_as_jax(tmp_path, monkeypatch, c10_records):
 
 
 def test_c10_unported_file_still_raises(tmp_path, monkeypatch, c10_records):
-    """A JPEG 2000 record, which OpenCV reads: the port's ``evaluate_model``
+    """An AVIF record, which OpenCV reads: the port's ``evaluate_model``
     and size heuristic (``calculate_average_mask_sizes``) raise
     ``UnsupportedImageError`` rather than skip it."""
     import deepemia_tpu_torch.train.workflow as port_wf
     from deepemia_tpu_torch.inference.multiscale import calculate_average_mask_sizes
 
     root, _ = c10_records
-    Path(root, "img0.png").write_bytes(fx._cv2_write(".jp2", cv2.imread(os.path.join(root, "img0.png"))))
+    Path(root, "img0.png").write_bytes(fx._cv2_write(".avif", cv2.imread(os.path.join(root, "img0.png"))))
     assert cv2.imread(os.path.join(root, "img0.png")) is not None
     _fake_eval(monkeypatch, "deepemia_tpu_torch", True, [])
     split, config = _register(tmp_path, root, "port")
-    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
+    with pytest.raises(UnsupportedImageError, match="AVIF"):
         port_wf.evaluate_model("ds", str(split), rcnn=50, config=config, checkpoint="unused.pt", visualize=False,
                                device="cpu")
     port_ds.catalog_clear()
@@ -522,7 +527,7 @@ def test_c10_unported_file_still_raises(tmp_path, monkeypatch, c10_records):
         def infer(self, img, settings):
             raise AssertionError("not reached")
 
-    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
+    with pytest.raises(UnsupportedImageError, match="AVIF"):
         calculate_average_mask_sizes(Engine(), [os.path.join(root, "img0.png")], None)
     # a file OpenCV refuses too is skipped there, as the JAX heuristic skips it
     assert calculate_average_mask_sizes(Engine(), [os.path.join(root, "img1.png")], None) == {}

@@ -6,7 +6,7 @@ affine and ``boxes_from_masks``; missing or corrupt images are skipped as
 the JAX loader skips them, a JPEG record gives the JAX loader's sample, so
 does a PGM record, and a file OpenCV refuses too (a hierarchical JPEG) is
 skipped as the JAX loader skips it, while one OpenCV reads and
-``read_image`` does not decode (JPEG 2000) raises rather than be skipped.
+``read_image`` does not decode (AVIF) raises rather than be skipped.
 The colour
 warp and ``convertScaleAbs`` the loader uses are held to OpenCV in
 ``tests/test_torch_cv.py``."""
@@ -173,19 +173,19 @@ def test_pgm_record_matches_jax(records, tmp_path):
 
 
 def test_what_opencv_reads_and_the_port_does_not_raises(records, tmp_path):
-    """A JPEG 2000 codestream, which OpenCV reads and the port does not
-    decode, raises ``UnsupportedImageError`` naming it in
-    ``prepare_sample`` and fails a ``TrainLoader``, where skipping it would
-    train on fewer images than the JAX package."""
-    j2k = tmp_path / "micro.jp2"
-    assert cv2.imwrite(str(j2k), cv2.imread(records[0]["file_name"]))
-    assert cv2.imread(str(j2k), cv2.IMREAD_COLOR) is not None
-    rec = dict(records[0], file_name=str(j2k))
-    with pytest.raises(UnsupportedImageError, match="JPEG 2000"):
+    """An AVIF file, which OpenCV reads and the port does not decode,
+    raises ``UnsupportedImageError`` naming it in ``prepare_sample`` and
+    fails a ``TrainLoader``, where skipping it would train on fewer images
+    than the JAX package."""
+    avif = tmp_path / "micro.avif"
+    assert cv2.imwrite(str(avif), cv2.imread(records[0]["file_name"]))
+    assert cv2.imread(str(avif), cv2.IMREAD_COLOR) is not None
+    rec = dict(records[0], file_name=str(avif))
+    with pytest.raises(UnsupportedImageError, match="AVIF"):
         port_loader.prepare_sample(rec, 64, 8, False, np.random.default_rng(0))
     loader = port_loader.TrainLoader([rec], 2, 64, 8, workers=1)
     try:
-        with pytest.raises(RuntimeError, match="JPEG 2000"):
+        with pytest.raises(RuntimeError, match="AVIF"):
             next(iter(loader))
     finally:
         loader.close()
