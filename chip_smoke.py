@@ -293,12 +293,27 @@ It builds the CUDA kernels from the sources in the checkout and then:
      (c) takes its dataset, the refused frame skipped by every reader.
      ``python3 -c "import chip_smoke; chip_smoke.jpeg2000_only()"`` runs
      phase 20 alone.
+ 21. Lossless AVIF (``native/av1.cpp``, ``ops/avif.py``) and C12: (a) the
+     committed fixtures (``tests/data/torch_avif_fixtures.npz``, written
+     by ``tools/make_torch_avif_fixtures.py``: cv2's lossless files at odd
+     sizes, 8 to 12 bits, with alpha, the box writer's container forms,
+     cut and damaged copies) decode bit for bit to cv2's arrays, raise
+     where cv2 returned None, or name the forms the port does not decode;
+     the 800 damaged or cut C11 TIFFs of C12 give cv2's outcome; (b) a
+     committed 2048² gray micrograph: host decode seconds (median of 3)
+     beside an uncompressed TIFF of the same pixels; (c) six 1024x768
+     labelled micrographs in lossless forms (BGR, monochrome, 10-bit,
+     12-bit, with irot, split across iloc extents; the files committed)
+     through the CLI as phase 19 (c) takes its dataset; (d) the lossy
+     4:2:0 file cv2 writes at quality 95 raises ``UnsupportedImageError``.
+     ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
+     phase 21 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
 phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, phases 19
-and 20 after it, and phases 16 (c) and 17 (b) before phase 10. K1's
+to 21 after it, and phases 16 (c) and 17 (b) before phase 10. K1's
 ``launches`` in the kernel line is the sum of phases 3, 9, 11, 12, 13, 15,
-16, 17, 18, 19 and 20, K2's of phases 7, 13, 16, 17, 19 and 20, K4's and
+16, 17, 18, 19, 20 and 21, K2's of phases 7, 13, 16, 17, 19, 20 and 21, K4's and
 K5's of phase 14's two CLI runs, phase 15's wizard task, phase 16's
 two-shard int8 engine and phase 17's ``--quantized trunk`` runs, each
 counted from zero over its own run.
@@ -4432,6 +4447,19 @@ JPEG2000_DIR = os.path.join(ROOT, "build", "chip_smoke_jpeg2000")
 JPEG2000_FORMS = ("rev", "irr", "tiled", "gray16", "la", "signed")
 JPEG2000_SEED = 20
 
+AVIF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_fixtures.npz")
+AVIF_DIR = os.path.join(ROOT, "build", "chip_smoke_avif")
+# phase 21's dataset: one labelled frame in each lossless AVIF form
+AVIF_FORMS = ("bgr", "mono", "10bit", "12bit", "irot", "extents")
+AVIF_SEED = 21
+
+
+def avif_flatten(gray: np.ndarray) -> np.ndarray:
+    """A ``draw_labelled`` frame with its background flattened to 80 (the
+    instances, drawn at 160-230, kept): lossless AVIF of the noisy
+    background would hold ~0.55 MB a frame."""
+    return np.where(gray >= 150, gray, 80).astype(np.uint8)
+
 
 def container_file(kind: str, gray: np.ndarray):
     """A gray raster in one of phase 19's containers, written by the numpy
@@ -4845,6 +4873,185 @@ def jpeg2000_only():
         shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
 
 
+def _avif_tool():
+    """``tools/make_torch_avif_fixtures.py``, loaded by its path: the box
+    writer and ``c12_copies``, the seeded fuzz of damaged and cut C11
+    TIFFs whose cv2 outcomes the fixtures hold."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_avif_fixtures", os.path.join(ROOT, "tools", "make_torch_avif_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def avif_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_SEED):
+    """Phase 21's dataset: one labelled micrograph (``draw_labelled``, its
+    background flattened by ``avif_flatten``) per AVIF_FORMS in ``root``,
+    each the fixtures' committed lossless AVIF of that drawing (its decode
+    held to the SHA-256 of cv2's array, and to the drawing), and in
+    ``twin`` the same labels beside uncompressed RGB TIFFs of the arrays
+    ``read_image`` decodes -> the file names."""
+    import hashlib
+
+    from deepemia_tpu_torch.ops.image import read_image
+
+    fixtures = np.load(AVIF_FIXTURES)
+    rng = np.random.default_rng(seed)
+    for d in (root, twin):
+        os.makedirs(d, exist_ok=True)
+    names = []
+    for i, form in enumerate(AVIF_FORMS):
+        gray, instances = draw_labelled(rng, hw)
+        name = f"sem_{i:02d}.avif"
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(fixtures[f"dataset-{form}/file"].tobytes())
+        img = read_image(path)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == fixtures[f"dataset-{form}/sha256"].tobytes().decode()
+        # lossless: the drawing comes back (the 10- and 12-bit forms within a level of it)
+        assert np.abs(img[..., 1].astype(np.int16) - avif_flatten(gray)).max() <= (0 if "bit" not in form else 1), form
+        with open(os.path.join(twin, f"sem_{i:02d}.tif"), "wb") as f:
+            f.write(codings.tiff_of(np.ascontiguousarray(img[..., ::-1])))
+        for d, n in ((root, name), (twin, f"sem_{i:02d}.tif")):
+            with open(os.path.join(d, f"sem_{i:02d}.json"), "w") as f:
+                json.dump({"metadata": {"name": n, "height": hw[0], "width": hw[1]}, "instances": instances}, f)
+        names.append(name)
+    return names
+
+
+def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
+    """Phase 21: lossless AVIF (``native/av1.cpp``, ``ops/avif.py``) and C12.
+    (a) the committed fixtures (``tests/data/torch_avif_fixtures.npz``:
+    cv2's lossless files at odd sizes, 8 to 12 bits, with alpha; the box
+    writer's container forms; cut and damaged copies; the forms refused by
+    name) decode bit for bit to cv2's arrays, raise where cv2 returned
+    None, or raise ``UnsupportedImageError`` naming the form; and the 800
+    damaged or cut C11 TIFFs of C12 give cv2's outcome (the SHA-256 of its
+    array, or a ``ValueError`` where it returned None); (b) the committed
+    2048² gray micrograph: host decode seconds (median of 3) beside an
+    uncompressed TIFF of the same pixels; (c) the AVIF_FORMS dataset
+    through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
+    errors, K2 errors). (d) A lossy 4:2:0 AVIF (cv2's at quality 95)
+    raises ``UnsupportedImageError`` from ``read_image``, outside the
+    dataset, since the loader would raise on it."""
+    import hashlib
+    import shutil
+
+    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+
+    shutil.rmtree(AVIF_DIR, ignore_errors=True)
+    os.makedirs(AVIF_DIR)
+
+    # (a) the fixtures, then C12
+    fixtures = np.load(AVIF_FIXTURES)
+    names = sorted({k.split("/")[0] for k in fixtures.files} - {"c12"} - {f"dataset-{f}" for f in AVIF_FORMS})
+    kinds = {"array": 0, "sha256": 0, "refused": 0, "named": 0}
+    path = os.path.join(AVIF_DIR, "f.avif")
+    for name in names:
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        try:
+            got = read_image(path)
+        except UnsupportedImageError as e:  # a form the port refuses by name, with the words the fixture holds
+            assert f"{name}/named" in fixtures.files and fixtures[f"{name}/named"].tobytes().decode() in str(e), name
+            kinds["named"] += 1
+            continue
+        except ValueError:
+            assert f"{name}/none" in fixtures.files, f"{name}: read_image refused a file OpenCV reads"
+            kinds["refused"] += 1
+            continue
+        assert f"{name}/none" not in fixtures.files, f"{name}: OpenCV refuses this file and read_image read it"
+        if f"{name}/bgr" in fixtures.files:
+            assert np.array_equal(got, fixtures[f"{name}/bgr"]), name
+            kinds["array"] += 1
+        else:
+            assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+            kinds["sha256"] += 1
+    os.remove(path)
+    print(f"avif: {len(names)} committed fixtures as OpenCV read them: {kinds['array']} bit for bit to its arrays, "
+          f"{kinds['sha256']} to its SHA-256, {kinds['refused']} refused where it returned None, {kinds['named']} "
+          f"named as forms the port does not decode", flush=True)
+    c11 = np.load(JPEG2000_FIXTURES)
+    hashes = fixtures["c12/sha256"]
+    tif = os.path.join(AVIF_DIR, "f.tif")
+    c12 = {"array": 0, "refused": 0}
+    for i, (name, data) in enumerate(_avif_tool().c12_copies(c11)):
+        with open(tif, "wb") as f:
+            f.write(data)
+        want = hashes[i].tobytes().decode() if hashes[i].any() else None
+        try:
+            got = hashlib.sha256(read_image(tif).tobytes()).hexdigest()
+        except UnsupportedImageError:
+            raise
+        except ValueError:
+            got = None
+        assert got == want, (name, got, want)
+        c12["array" if want else "refused"] += 1
+    os.remove(tif)
+    print(f"avif: C12, {sum(c12.values())} damaged or cut C11 TIFFs as OpenCV read them: {c12['array']} to the "
+          f"SHA-256 of its array, {c12['refused']} refused where it returned None", flush=True)
+
+    # (b) decode seconds at 2048²
+    tiff_path = os.path.join(AVIF_DIR, "plain.tif")
+    path = os.path.join(AVIF_DIR, "smoke-gray-2048.avif")
+    with open(path, "wb") as f:
+        f.write(fixtures["smoke-gray-2048/file"].tobytes())
+    got, secs = decode_seconds(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["smoke-gray-2048/sha256"].tobytes().decode()
+    write_tiff(tiff_path, got[..., 1])
+    _, plain_s = decode_seconds(tiff_path)
+    print(f"avif: decode smoke-gray-2048 {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, lossless, "
+          f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
+          f"{card})", flush=True)
+
+    # (d) the lossy form, refused by name outside the dataset
+    path = os.path.join(AVIF_DIR, "lossy.avif")
+    with open(path, "wb") as f:
+        f.write(fixtures["refused-lossy-420/file"].tobytes())
+    try:
+        read_image(path)
+        raise AssertionError("read_image decoded a lossy 4:2:0 AVIF")
+    except UnsupportedImageError as e:
+        assert "4:2:0" in str(e), e
+        print(f"avif: lossy 4:2:0 (cv2 at quality 95): {str(e).split(': ', 1)[1]}", flush=True)
+
+    # (c) the dataset through the CLI
+    home = os.path.join(AVIF_DIR, "home")
+    root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
+    t0 = time.perf_counter()
+    files = avif_dataset(root, twin)
+    print(f"avif: dataset of {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs in the lossless "
+          f"forms {', '.join(AVIF_FORMS)} ({', '.join(files)}) and their TIFF twins written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    k1, k2, k1_errs, k2_errs = cli_on_dataset("avif", home, root, twin, files, card, device=device,
+                                              config_hook=config_hook, steps=steps)
+    shutil.rmtree(AVIF_DIR, ignore_errors=True)
+    return k1, k2, k1_errs, k2_errs
+
+
+def avif_only():
+    """Phase 21 alone."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd", "roi_align_bwd"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        k1, k2, k1_errs, k2_errs = phase_avif(card)
+        print(f"phases 21: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"roi_align_fwd": k1, "roi_align_bwd": k2, "max_abs_err_fwd": max(k1_errs),
+                          "max_abs_err_bwd": max(k2_errs)}), flush=True)
+    finally:
+        shutil.rmtree(AVIF_DIR, ignore_errors=True)
+
+
 def parallel_only():
     """Phases 1, 11, 16 and 17 alone (phase 3's R50 weights rebuilt from
     their seed; phase 11 makes the rows phase 16 (b) is held to, phase 12's
@@ -5040,6 +5247,11 @@ def main() -> int:
         shutil.rmtree(JPEG2000_DIR, ignore_errors=True)
     lap(20)
     try:
+        avif_k1, avif_k2, avif_k1_errs, avif_k2_errs = phase_avif(card)
+    finally:
+        shutil.rmtree(AVIF_DIR, ignore_errors=True)
+    lap(21)
+    try:
         ranks_k1, ranks_k2, one_step = phase_ranks(card)
         lap("16 (c)")
         tp_k1, tp_k2 = phase_tp_training(one_step, card)
@@ -5050,7 +5262,7 @@ def main() -> int:
     lap(10)
 
     errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs \
-        + containers_k1_errs + j2k_k1_errs
+        + containers_k1_errs + j2k_k1_errs + avif_k1_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -5062,9 +5274,10 @@ def main() -> int:
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
         # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
         # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters) and 19
-        # and 20 (training and evaluation on the containers' and the JPEG 2000 datasets), each counted from zero
+        # to 21 (training and evaluation on the containers', the JPEG 2000 and the AVIF datasets), each counted from
+        # zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1 + j2k_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1 + j2k_k1 + avif_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -5080,9 +5293,10 @@ def main() -> int:
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
         # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI), 16 (the
         # one-process step and the CLI's training in an NCCL group), 17 (both ranks of the tensor-parallel step)
-        # and 19 and 20 (training on the containers' and the JPEG 2000 datasets)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2 + j2k_k2,
-        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs + j2k_k2_errs),
+        # and 19 to 21 (training on the containers', the JPEG 2000 and the AVIF datasets)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2 + j2k_k2 + avif_k2,
+        "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs + j2k_k2_errs
+                           + avif_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),
@@ -5195,9 +5409,10 @@ def main() -> int:
     print(f"roi_align_fwd launches: tile engine {launches}, pipeline {pipeline_launches}, "
           f"ensemble {ensemble_launches}, CLI and phase 12 {cli_launches}, training from a dataset {dataset_k1}, "
           f"panel and wizard {entry_k1}, phase 16 {shard_k1 + ranks_k1}, phase 17 {rank_k1 + tp_k1}, phase 18 "
-          f"{codings_k1}, phase 19 {containers_k1}, phase 20 {j2k_k1}; roi_align_bwd "
+          f"{codings_k1}, phase 19 {containers_k1}, phase 20 {j2k_k1}, phase 21 {avif_k1}; roi_align_bwd "
           f"launches: ready batches {train_launches['roi_align_bwd']}, training from a dataset {dataset_k2}, phase 16 "
-          f"{ranks_k2}, phase 17 {tp_k2}, phase 19 {containers_k2}, phase 20 {j2k_k2}; int8_conv launches: phase 14 "
+          f"{ranks_k2}, phase 17 {tp_k2}, phase 19 {containers_k2}, phase 20 {j2k_k2}, phase 21 {avif_k2}; int8_conv "
+          f"launches: phase 14 "
           f"{int8_launches}, wizard {entry_k4}, phase 16 "
           f"{shard_k4}, phase 17 {rank_k4}; int8_quant launches: phase 14 {quant_launches}, wizard {entry_k5}, phase "
           f"16 {shard_k5}, phase 17 {rank_k5}",

@@ -1,7 +1,8 @@
 """ctypes bindings of the native host libraries: the measurement kernels
 (``measure.cpp``), the LZW, PackBits, CCITT fax, JPEG, Radiance HDR and
 GIF LZW decoders of ``read_image`` (``codecs.cpp``), its WebP decoders
-(``webp.cpp``) and its JPEG 2000 codestream decoder (``jpeg2000.cpp``).
+(``webp.cpp``), its JPEG 2000 codestream decoder (``jpeg2000.cpp``) and
+its AV1 decoder of lossless still pictures (``av1.cpp``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
 ``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
@@ -42,7 +43,7 @@ _SIGNATURES = {
         "fit_ellipse": ([_P, _I, _P], _I),
     },
     "codecs": {
-        "lzw_decode": ([_P, _L, _P, _L, _P], _L),
+        "lzw_decode": ([_P, _L, _P, _L, _P, _I], _L),
         "packbits_decode": ([_P, _L, _P, _L], _L),
         "jpeg_decode": ([_P, _L, _P, _L, _P, _I], _I),
         "fax_decode": ([_P, _L, _P, _L, _L, _I, _I, _I], _I),
@@ -57,6 +58,10 @@ _SIGNATURES = {
     },
     "jpeg2000": {
         "j2k_decode": ([_P, _L, _P, _L, _P, _L], _I),
+    },
+    "av1": {
+        "av1_decode": ([_P, _L, _P], _I),
+        "av1_planes": ([_P, _L], _I),
     },
 }
 
@@ -140,15 +145,16 @@ def fit_ellipse(pts: np.ndarray) -> Optional[Tuple[float, float, float]]:
     return float(out[0]), float(out[1]), float(out[2])
 
 
-def lzw_decode(data: bytes, size: int) -> Tuple[bytes, bool]:
+def lzw_decode(data: bytes, size: int, old_style: bool = False) -> Tuple[bytes, bool]:
     """A TIFF LZW strip or tile, new-style or old-style (LSB-first) -> (at
-    most ``size`` decoded bytes, whether the stream was sound): a corrupt one
-    gives the bytes decoded before its first bad code, as libtiff leaves
-    them."""
+    most ``size`` decoded bytes, whether the stream was sound): a corrupt
+    one gives the bytes decoded before its first bad code, as libtiff
+    leaves them, and a new-style one that does not start with a Clear code
+    none."""
     src = np.frombuffer(data, np.uint8)
     out = np.zeros(max(size, 1), np.uint8)
     corrupt = np.zeros(1, np.int32)
-    n = get_lib("codecs").lzw_decode(_ptr(src), src.size, _ptr(out), size, _ptr(corrupt))
+    n = get_lib("codecs").lzw_decode(_ptr(src), src.size, _ptr(out), size, _ptr(corrupt), int(old_style))
     return out[:n].tobytes(), not corrupt[0]
 
 
@@ -267,6 +273,26 @@ def jpeg2000_decode(data: bytes, header_only: bool = False) -> Tuple[int, list, 
         planes.append(out[at : at + h * w].reshape(h, w))
         at += h * w
     return status, header, planes
+
+
+def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
+    """An AV1 payload (the OBUs of an AVIF item) -> (status, meta, planes):
+    status 0 with [planes, height, width] uint16 samples (Y, then U and V),
+    -1 a stream libaom fails on, -2 one that uses a tool ``av1.cpp`` does
+    not have (meta[4] its number, ``ops/avif.py:AV1_TOOLS``), -3 a frame
+    past libavif's size limits (meta[0] x meta[1]); planes are then None. meta (``av1.cpp:av1_decode``): width, height, bit depth,
+    planes, tool, colour range, matrix coefficients, colour primaries,
+    transfer characteristics, subsampling x, subsampling y."""
+    src = np.frombuffer(data, np.uint8)
+    meta = np.zeros(11, np.int32)
+    lib = get_lib("av1")
+    status = lib.av1_decode(_ptr(src), src.size, _ptr(meta))
+    if status:
+        return status, meta, None
+    w, h, _, n = (int(v) for v in meta[:4])
+    out = np.empty((n, h, w), np.uint16)
+    lib.av1_planes(_ptr(out), out.size)
+    return status, meta, out
 
 
 def float_to_u8(samples: np.ndarray, scale: float = 1.0, rgbe: bool = False) -> np.ndarray:

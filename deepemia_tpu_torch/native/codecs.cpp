@@ -24,11 +24,11 @@
 
 extern "C" {
 
-int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int32_t* corrupt) {
+int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int32_t* corrupt, int32_t old_style) {
   *corrupt = 0;
   // old-style LZW (LZWDecodeCompat): LSB-first codes that widen when the
-  // table fills, told by its first code, a Clear, in that order
-  const bool compat = n >= 2 && src[0] == 0 && (src[1] & 1);
+  // table fills; the caller tells it as libtiff does (ops/image.py)
+  const bool compat = old_style != 0;
   const int kClear = 256, kEoi = 257, kMaxCode = 4096;
   // every table entry is (prefix entry, last byte, length); strings are
   // written back to front from the chain
@@ -44,6 +44,7 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int
   int nbits = 0;
   int64_t pos = 0;
   int width = 9, next = 258, old = -1;
+  bool cleared = false;
   while (true) {
     while (nbits < width && pos < n) {
       bits = compat ? bits | ((uint64_t)src[pos++] << nbits) : (bits << 8) | src[pos++];
@@ -58,8 +59,13 @@ int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap, int
       code = (int)((bits >> (nbits - width)) & ((1u << width) - 1));
     }
     nbits -= width;
+    if (!compat && !cleared && code != kClear) {  // libtiff 4.7 reads no code before the first Clear
+      *corrupt = 1;
+      break;
+    }
     if (code == kEoi) break;
     if (code == kClear) {
+      cleared = true;
       width = 9; next = 258; old = -1;
       continue;
     }

@@ -1,0 +1,480 @@
+"""AVIF as OpenCV 5.0's ``cv2.imread(path, IMREAD_COLOR)`` reads it
+through libavif 1.4 and libaom 3.14 (``grfmt_avif.cpp``): the HEIF still
+image container (ISO/IEC 23008-12 boxes, read as libavif reads them)
+around the AV1 decoder of ``native/av1.cpp``, then OpenCV's last step to
+8-bit BGR.
+
+OpenCV recognises a file as AVIF when libavif parses its first 500 bytes
+(``checkSignature``): a top-level box whose header does not lie within
+them before the ``meta`` box is read makes it no AVIF OpenCV knows
+(``RefusedImageError``). The primary item's AV1 payload is decoded; an
+alpha item (``auxl``) is decoded too and dropped. The identity matrix
+(``colr`` nclx, else the AV1 sequence header) maps Y, U, V to G, B, R as
+libavif does: 8-bit full range as stored, other depths and limited range
+through libavif's float tables (``(uint8)(0.5f + clamp((v - bias) /
+range) * 255)``); a monochrome image is OpenCV's own: Y, divided by
+2^(depth - 8) and rounded (``convertTo``), replicated to BGR. ``irot``,
+``imir`` and ``clap`` are not applied (OpenCV does not apply them).
+
+What OpenCV refuses raises ``RefusedImageError``; a corrupt or cut file,
+or an ``ispe`` or AV1 frame past libavif's size limits, a ``ValueError``;
+what OpenCV reads and the port does not decode an
+``UnsupportedImageError`` naming it: an image sequence, a grid, the AV1
+tools ``av1.cpp`` lacks (lossy coding, 4:2:0 and 4:2:2, segmentation,
+screen content, superres, film grain, frames other than a shown key
+frame), a matrix other than the identity, premultiplied alpha, and an
+``ispe`` that differs from the AV1 frame (libavif scales the frame)."""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageError
+
+SIGNATURE_BYTES = 500  # grfmt_avif.cpp: kAvifSignatureSize
+_ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
+# av1.cpp's refusals (its enum Tool)
+AV1_TOOLS = {1: "lossy AV1 coding (base_q_idx or a delta q other than 0)", 2: "4:2:0 or 4:2:2 AV1 chroma",
+             3: "AV1 segmentation", 4: "AV1 screen content tools (palette, intra block copy)",
+             5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
+             8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame"}
+_UNIQUE_META = (b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref")
+_TRANSFORMS = (b"irot", b"imir", b"clap")
+# the matrix coefficients other than the identity that libavif converts YUV to RGB with
+_MATRICES = (1, 2, 4, 5, 6, 7, 8, 9, 12, 15)
+
+
+class _Reader:
+    """Big-endian fields of a box's body, failing past its end."""
+
+    def __init__(self, data: bytes, pos: int, end: int):
+        self.data, self.pos, self.end = data, pos, end
+
+    def u(self, n: int) -> int:
+        if self.pos + n > self.end:
+            raise ValueError("AVIF: a box ends early")
+        v = int.from_bytes(self.data[self.pos : self.pos + n], "big")
+        self.pos += n
+        return v
+
+    def bytes(self, n: int) -> bytes:
+        if self.pos + n > self.end:
+            raise ValueError("AVIF: a box ends early")
+        self.pos += n
+        return self.data[self.pos - n : self.pos]
+
+    def string(self) -> bytes:
+        """A null-terminated string (libavif's avifROStreamReadString)."""
+        k = self.data.find(b"\0", self.pos, self.end)
+        if k < 0:
+            raise ValueError("AVIF: a string without its terminator")
+        s, self.pos = self.data[self.pos : k], k + 1
+        return s
+
+    def full(self, max_version: int = 0) -> tuple:
+        version, flags = self.u(1), self.u(3)
+        if version > max_version:
+            raise ValueError(f"AVIF: a box of version {version}")
+        return version, flags
+
+
+def _boxes(data: bytes, pos: int, end: int):
+    """The boxes of data[pos:end] -> [(type, body start, body end)]; a box
+    that runs past ``end`` fails."""
+    out = []
+    while pos < end:
+        r = _Reader(data, pos, end)
+        size, kind = r.u(4), r.bytes(4)
+        if size == 1:
+            size = r.u(8)
+        elif size == 0:
+            size = end - pos
+        if size < r.pos - pos or pos + size > end:
+            raise ValueError(f"AVIF: a {kind!r} box of {size} bytes")
+        out.append((kind, r.pos, pos + size))
+        pos += size
+    return out
+
+
+def _brands(data: bytes, s: int, e: int):
+    r = _Reader(data, s, e)
+    major = r.bytes(4)
+    r.u(4)
+    if (e - r.pos) % 4:
+        raise ValueError("AVIF: an ftyp box of a partial brand")
+    return [major] + [data[k : k + 4] for k in range(r.pos, e, 4)]
+
+
+def _top_level(data: bytes, size: int):
+    """libavif's avifParse over the first ``size`` bytes of the file ->
+    ("ok" or "truncated", brands, meta box, whether a moov box was read);
+    a parse error raises ``ValueError``. Boxes are read until the ftyp
+    box and what its brands need (meta for avif, moov for avis) are;
+    ftyp, meta and moov are read whole (one that runs past ``size`` is
+    truncated data), the others skipped; a box header past ``size`` is an
+    I/O error."""
+    pos, ftyp, meta, moov = 0, None, None, False
+    while True:
+        if pos > size:
+            raise ValueError("AVIF: a box past the end of the file")
+        if pos == size:
+            break
+        if pos + 8 > size:
+            raise ValueError("AVIF: a box header cut off")
+        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        head = 8
+        if length == 1:
+            if pos + 16 > size:
+                raise ValueError("AVIF: a box header cut off")
+            length, head = struct.unpack(">Q", data[pos + 8 : pos + 16])[0], 16
+        elif length == 0:
+            length = len(data) - pos
+        if length < head:
+            raise ValueError(f"AVIF: a {kind!r} box of {length} bytes")
+        if kind in (b"ftyp", b"meta", b"moov"):
+            if pos + length > size:
+                return "truncated", ftyp, meta, moov
+            if kind == b"ftyp":
+                if ftyp is not None:
+                    raise ValueError("AVIF: a second ftyp box")
+                ftyp = _brands(data, pos + head, pos + length)
+                if not {b"avif", b"avis"} & set(ftyp):
+                    raise ValueError("AVIF: no avif or avis brand")
+            elif kind == b"meta":
+                if meta is not None:
+                    raise ValueError("AVIF: a second meta box")
+                meta = _parse_meta(data, pos + head, pos + length)
+            else:
+                moov = True
+        pos += length
+        if ftyp is not None and (b"avif" not in ftyp or meta is not None) and (b"avis" not in ftyp or moov):
+            return "ok", ftyp, meta, moov
+    if ftyp is None:
+        raise ValueError("AVIF: no ftyp box")
+    return "truncated", ftyp, meta, moov
+
+
+def recognized(data: bytes) -> bool:
+    """Whether OpenCV takes the file for an AVIF (``checkSignature``):
+    avifParse of its first SIGNATURE_BYTES bytes gives OK or truncated
+    data."""
+    try:
+        _top_level(data, min(len(data), SIGNATURE_BYTES))
+    except ValueError:
+        return False
+    return True
+
+
+class _Meta:
+    def __init__(self):
+        self.primary = None
+        self.locations = {}  # item -> (construction method, base offset, [(offset, length)])
+        self.types = {}  # item -> type
+        self.props = []  # ipco: [(type, body start, body end)]
+        self.assoc = {}  # item -> [(property index, essential)]
+        self.refs = []  # (type, from, [to])
+        self.idat = None  # (start, end)
+
+
+def _parse_meta(data: bytes, s: int, e: int) -> _Meta:
+    """libavif's avifParseMetaBox: the hdlr box first (handler 'pict'),
+    iloc, pitm, idat, iprp, iinf and iref at most once each."""
+    r = _Reader(data, s, e)
+    r.full(0)
+    m = _Meta()
+    kids = _boxes(data, r.pos, e)
+    if not kids or kids[0][0] != b"hdlr":
+        raise ValueError("AVIF: the meta box does not start with hdlr")
+    seen = set()
+    for kind, ks, ke in kids:
+        if kind in _UNIQUE_META:
+            if kind in seen:
+                raise ValueError(f"AVIF: a second {kind!r} box")
+            seen.add(kind)
+        k = _Reader(data, ks, ke)
+        if kind == b"hdlr":
+            k.full(0)
+            if k.u(4):
+                raise ValueError("AVIF: a handler's pre_defined field other than 0")
+            if k.bytes(4) != b"pict":
+                raise ValueError("AVIF: a handler other than pict")
+            k.bytes(12)
+            k.string()
+        elif kind == b"pitm":
+            version, _ = k.full(1)
+            m.primary = k.u(4 if version else 2)
+        elif kind == b"iloc":
+            _parse_iloc(k, m)
+        elif kind == b"idat":
+            m.idat = (ks, ke)
+        elif kind == b"iinf":
+            version, _ = k.full(1)
+            count = k.u(4 if version else 2)
+            infes = _boxes(data, k.pos, ke)
+            if len(infes) < count:
+                raise ValueError("AVIF: fewer infe boxes than iinf counts")
+            for ik, s2, e2 in infes[:count]:
+                if ik != b"infe":
+                    raise ValueError(f"AVIF: a {ik!r} box in iinf")
+                f = _Reader(data, s2, e2)
+                v, _ = f.full(3)
+                if v < 2:
+                    raise ValueError(f"AVIF: an infe box of version {v}")
+                item = f.u(4 if v == 3 else 2)
+                f.u(2)
+                m.types[item] = f.bytes(4)
+                f.string()  # item_name
+                if m.types[item] in (b"mime", b"uri "):
+                    f.string()  # content_type, or item_uri_type
+        elif kind == b"iprp":
+            iprp = _boxes(data, ks, ke)
+            if not iprp or iprp[0][0] != b"ipco":
+                raise ValueError("AVIF: the iprp box does not start with ipco")
+            m.props = _boxes(data, iprp[0][1], iprp[0][2])
+            for pk, s2, e2 in m.props:
+                _check_property(data, pk, s2, e2)
+            for pk, s2, e2 in iprp[1:]:
+                if pk == b"ipma":
+                    _parse_ipma(_Reader(data, s2, e2), m)
+        elif kind == b"iref":
+            version, _ = k.u(1), k.u(3)
+            if version > 1:  # a version libavif does not read: no references
+                continue
+            for rk, s2, e2 in _boxes(data, k.pos, ke):
+                f = _Reader(data, s2, e2)
+                w = 4 if version else 2
+                src, n = f.u(w), f.u(2)
+                m.refs.append((rk, src, [f.u(w) for _ in range(n)]))
+    for item, kind in m.types.items():
+        kinds = {m.props[i - 1][0]: m.props[i - 1] for i, _ in m.assoc.get(item, []) if 0 < i <= len(m.props)}
+        if kind == b"av01" and item in m.locations and b"ispe" not in kinds:  # libavif skips items of no data
+            raise ValueError(f"AVIF: item {item} of type av01 without ispe")
+        if b"pixi" in kinds and b"av1C" in kinds:  # pixi is held to av1C's depth
+            _, s2, e2 = kinds[b"av1C"]
+            flags = data[s2 + 2]
+            config_depth = 12 if flags & 0x20 else 10 if flags & 0x40 else 8  # twelve_bit, high_bitdepth
+            _, s2, e2 = kinds[b"pixi"]
+            if any(c != config_depth for c in data[s2 + 5 : s2 + 5 + data[s2 + 4]]):
+                raise ValueError(f"AVIF: item {item}'s pixi does not hold av1C's depth {config_depth}")
+    return m
+
+
+def _check_property(data: bytes, kind: bytes, s: int, e: int) -> None:
+    """A property of ipco as libavif parses it when it reads the file."""
+    r = _Reader(data, s, e)
+    if kind == b"ispe":
+        r.full(0)
+        r.u(8)
+    elif kind == b"pixi":
+        r.full(0)
+        r.bytes(r.u(1))
+    elif kind == b"av1C":
+        if r.u(1) != 0x81:  # marker and version 1
+            raise ValueError("AVIF: an av1C box of another marker or version than 1")
+        r.u(3)
+    elif kind == b"colr":
+        if r.bytes(4) == b"nclx":
+            r.u(6)
+            if r.u(1) & 0x7F:
+                raise ValueError("AVIF: an nclx box with reserved bits set")
+    elif kind == b"auxC":
+        r.full(0)
+        r.string()
+    elif kind in (b"irot", b"imir"):
+        r.u(1)
+    elif kind == b"clap":
+        r.u(32)
+
+
+def _parse_iloc(k: _Reader, m: _Meta) -> None:
+    version, _ = k.full(2)
+    sizes = k.u(1)
+    more = k.u(1)
+    off_size, len_size, base_size = sizes >> 4, sizes & 15, more >> 4
+    index_size = more & 15 if version else 0
+    if not {off_size, len_size, base_size, index_size} <= {0, 4, 8}:
+        raise ValueError("AVIF: iloc field sizes other than 0, 4 and 8")
+    for _ in range(k.u(4 if version == 2 else 2)):
+        item = k.u(4 if version == 2 else 2)
+        if item in m.locations:
+            raise ValueError(f"AVIF: item {item} located twice")
+        method = k.u(2) if version else 0  # 12 reserved bits, then construction_method
+        if method > 1:
+            raise ValueError(f"AVIF: construction method {method}")
+        k.u(2)  # data_reference_index, which libavif does not read
+        base = k.u(base_size) if base_size else 0
+        extents = []
+        for _ in range(k.u(2)):
+            if index_size:
+                k.u(index_size)
+            off = k.u(off_size) if off_size else 0
+            extents.append((base + off, k.u(len_size) if len_size else 0))
+        m.locations[item] = (method, extents)
+
+
+def _parse_ipma(k: _Reader, m: _Meta) -> None:
+    version, flags = k.full(1)
+    for _ in range(k.u(4)):
+        item = k.u(4 if version else 2)
+        if item in m.assoc:
+            raise ValueError(f"AVIF: item {item} in ipma twice")
+        a = []
+        for _ in range(k.u(1)):
+            v = k.u(2) if flags & 1 else k.u(1)
+            bits = 15 if flags & 1 else 7
+            a.append((v & ((1 << bits) - 1), v >> bits))
+        m.assoc[item] = a
+
+
+def _item_data(data: bytes, m: _Meta, item: int) -> bytes:
+    if item not in m.locations:
+        raise ValueError(f"AVIF: item {item} has no location")
+    method, extents = m.locations[item]
+    if method == 1 and m.idat is None:
+        raise ValueError("AVIF: an item in idat with no idat box")
+    start, end = (m.idat if method == 1 else (0, len(data)))
+    out = b""
+    for off, n in extents:
+        if n == 0:  # to the end of the file (or of idat)
+            n = end - start - off
+        if off + n > end - start or n < 0:
+            raise ValueError("AVIF: an item's data past the end of the file")
+        out += data[start + off : start + off + n]
+    return out
+
+
+def _properties(data: bytes, m: _Meta, item: int) -> dict:
+    """{type: (body start, body end)} of an item's properties, as libavif
+    checks them: an unknown property marked essential (an item libavif
+    cannot decode: ``RefusedImageError``), or a transform (irot, imir,
+    clap) not marked essential, fails."""
+    known = (b"ispe", b"pixi", b"av1C", b"colr", b"auxC", b"pasp", b"clli", b"a1op", b"lsel", b"a1lx") + _TRANSFORMS
+    props = {}
+    for idx, essential in m.assoc.get(item, []):
+        if idx == 0:
+            if essential:
+                raise ValueError("AVIF: an essential association of no property")
+            continue
+        if idx > len(m.props):
+            raise ValueError(f"AVIF: property {idx} of {len(m.props)}")
+        kind, s, e = m.props[idx - 1]
+        if kind not in known and essential:
+            raise RefusedImageError(f"AVIF: an unknown essential property {kind!r}")
+        if kind in _TRANSFORMS and not essential:
+            raise ValueError(f"AVIF: a {kind!r} property not marked essential")
+        if kind == b"colr" and kind in props:
+            continue
+        props.setdefault(kind, (s, e))
+    return props
+
+
+def decode_avif(data: bytes) -> np.ndarray:
+    if not recognized(data):
+        raise RefusedImageError("unknown image encoding (no signature OpenCV reads)")
+    status, ftyp, meta, moov = _top_level(data, len(data))
+    if status != "ok":
+        raise ValueError("AVIF: the file is cut off before its meta (or moov) box ends")
+    if moov and (ftyp[0] == b"avis" or meta is None or meta.primary is None):
+        raise _unsupported("an image sequence (a track)")
+    if meta is None or meta.primary is None:
+        raise ValueError("AVIF: no meta box, or no primary item")
+    m = meta
+    kind = m.types.get(m.primary)
+    if kind == b"grid":
+        raise _unsupported("a grid image (a derived item of tiles)")
+    if kind != b"av01":
+        raise ValueError(f"AVIF: a primary item of type {kind!r}")
+    props = _properties(data, m, m.primary)
+    if b"av1C" not in props or b"ispe" not in props:
+        raise ValueError("AVIF: a primary item without av1C or ispe")
+    s, e = props[b"ispe"]
+    r = _Reader(data, s, e)
+    r.full(0)
+    width, height = r.u(4), r.u(4)
+    if not width or not height or max(width, height) > 32768 or width * height > 16384 * 16384:
+        raise ValueError(f"AVIF: an image of {width}x{height} (libavif's limits)")
+    alpha = None
+    for rk, src, to in m.refs:
+        if rk == b"auxl" and m.primary in to and m.types.get(src) == b"av01" and src in m.locations:
+            try:
+                aux = _properties(data, m, src)
+            except RefusedImageError:  # an alpha item libavif cannot decode is no alpha item
+                continue
+            if b"auxC" in aux:
+                a = _Reader(data, *aux[b"auxC"])
+                a.full(0)
+                if a.string() in _ALPHA_URNS:
+                    if b"av1C" not in aux:
+                        raise ValueError("AVIF: an alpha item without av1C")
+                    alpha = src
+                    break
+    if alpha is not None and any(rk == b"prem" and src == m.primary and alpha in to for rk, src, to in m.refs):
+        raise _unsupported("premultiplied alpha")
+    if alpha is not None and b"ispe" in _properties(data, m, alpha):
+        a = _Reader(data, *_properties(data, m, alpha)[b"ispe"])
+        a.full(0)
+        if (a.u(4), a.u(4)) != (width, height):
+            raise ValueError("AVIF: an alpha item of another size than the image")
+    planes, meta_av1 = _av1(_item_data(data, m, m.primary))
+    if alpha is not None:
+        _av1(_item_data(data, m, alpha))
+    depth = int(meta_av1[2])
+    flags = data[props[b"av1C"][0] + 2]  # av1C's monochrome bit: OpenCV's channel count
+    if (planes.shape[2], planes.shape[1]) != (width, height):
+        raise _unsupported(f"an ispe of {width}x{height} for an AV1 frame of {planes.shape[2]}x{planes.shape[1]}, "
+                           f"which libavif scales")
+    mc, full_range, nclx = int(meta_av1[6]), int(meta_av1[5]), False
+    if b"colr" in props:
+        c = _Reader(data, *props[b"colr"])
+        if c.bytes(4) == b"nclx":
+            c.u(2), c.u(2)
+            mc, full_range, nclx = c.u(2), c.u(1) >> 7, True
+    if alpha is not None and not nclx:  # OpenCV fails on these (libavif's alpha path takes no CICP of the stream)
+        raise ValueError("AVIF: an image with alpha and no nclx colour box")
+    return _to_bgr(planes, depth, mc, full_range, bool(flags & 0x10))
+
+
+def _unsupported(what: str) -> UnsupportedImageError:
+    return UnsupportedImageError(f"AVIF, which OpenCV reads, is not supported: {what}")
+
+
+def _av1(payload: bytes):
+    from deepemia_tpu_torch import native
+
+    status, meta, planes = native.av1_decode(payload)
+    if status == -2:
+        raise _unsupported(AV1_TOOLS.get(int(meta[4]), "an AV1 tool"))
+    if status == -3:
+        raise ValueError(f"AVIF: an AV1 frame of {meta[0]}x{meta[1]} (libavif's limits)")
+    if status:
+        raise ValueError("AVIF: an AV1 stream libaom fails on (corrupt or cut)")
+    return planes, meta
+
+
+def _to_bgr(planes: np.ndarray, depth: int, mc: int, full_range: int, config_mono: bool) -> np.ndarray:
+    """The decoded planes -> [H,W,3] BGR uint8, as OpenCV and libavif make
+    it: OpenCV takes one channel where av1C says monochrome (CopyToMat: Y,
+    convertTo, GRAY2BGR), else has libavif convert to BGR (a monochrome
+    stream as gray)."""
+    if config_mono:
+        y = planes[0]
+        if depth > 8:
+            y = np.clip(np.rint(y.astype(np.float32) * np.float32(1.0 / (1 << (depth - 8)))), 0, 255)
+        return np.repeat(y.astype(np.uint8)[..., None], 3, axis=2)
+    if planes.shape[0] == 1:
+        bgr = np.repeat(planes[0][..., None], 3, axis=2)
+    else:
+        if mc in _MATRICES:
+            raise _unsupported(f"YUV to RGB with matrix coefficients {mc} (libavif's conversion)")
+        if mc != 0:
+            raise RefusedImageError(f"AVIF: matrix coefficients {mc}, which libavif does not convert")
+        bgr = np.stack([planes[1], planes[0], planes[2]], axis=-1)
+    if depth == 8 and full_range:  # avifImageIdentity8ToRGB8ColorFullRange
+        return bgr.astype(np.uint8)
+    # avifImageYUVAnyToRGBAnySlow: the unorm float table of Y, used for U and V too under the identity matrix
+    bias = np.float32(0 if full_range else 16 << (depth - 8))
+    scale = np.float32((1 << depth) - 1 if full_range else 219 << (depth - 8))
+    f = np.clip((bgr.astype(np.float32) - bias) / scale, np.float32(0), np.float32(1))
+    return (np.float32(0.5) + f * np.float32(255)).astype(np.uint8)

@@ -98,10 +98,27 @@ _TIFF_COMPRESSION = {
     7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP",
 }
 _TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
+# the compressions of libtiff's codec table (tif_codec.c); under any other value every strip fails to decode
+_TIFF_CODECS = (1, 2, 3, 4, 5, 6, 7, 8, 32766, 32771, 32773, 32809, 32909, 32946, 34661, 34676, 34677, 34887, 34925,
+                50000, 50001)
 _TIFF_FAX = (2, 3, 4, 32771)  # CCITT RLE, Group 3, Group 4, RLEW: 1-bit only
 # field type -> (struct code, bytes per value); a RATIONAL is two LONGs; LONG8, SLONG8 and IFD8 are BigTIFF's
-_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 7: ("B", 1), 16: ("Q", 8), 17: ("q", 8),
-               18: ("Q", 8)}
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
+               9: ("i", 4), 13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+# TIFFDataWidth: the bytes of a value of each type libtiff knows (EstimateStripByteCounts fails on the others)
+_TIFF_WIDTHS = {1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4, 5: 8, 10: 8, 12: 8, 16: 8, 17: 8, 18: 8}
+# how TIFFReadDirectory fetches each tag the port reads: one SHORT or LONG ("u16", "u32"), one value or one per
+# sample ("sample"), an array ("u16s"), two SHORTs ("pair"), the ColorMap, bytes, RATIONALs of a fixed count
+# (tag -> count), or the strip and tile arrays ("strile"), read once their number is known
+_TIFF_FETCH = {256: "u32", 257: "u32", 258: "sample", 259: "sample", 262: "u16", 266: "u16", 273: "strile",
+               274: "u16", 277: "u16", 278: "u32", 279: "strile", 280: "sample", 281: "sample", 284: "u16",
+               292: "u32", 293: "u32", 317: "u16", 318: 2, 320: "colormap", 322: "u32", 323: "u32", 324: "strile",
+               325: "strile", 332: "u16", 338: "u16s", 339: "sample", 347: "bytes", 529: 3, 530: "pair", 532: 6}
+# the tags whose unreadable value fails the directory (the others are dropped with a warning)
+_TIFF_FATAL = (256, 257, 258, 259, 277, 278, 280, 281, 284, 322, 323, 338, 339)
+_SHORTS = (1, 3, 4, 6, 8, 9, 16, 17)  # the types TIFFReadDirEntryShort(Array) converts
+_TIFF_INT_TYPES = {"u16": _SHORTS, "sample": _SHORTS, "u16s": _SHORTS, "pair": _SHORTS, "colormap": _SHORTS,
+                   "u32": _SHORTS + (13, 18), "bytes": (1, 7)}
 # byte -> its bits reversed: the strips of a FillOrder 2 (LSB first) TIFF
 _BIT_REVERSED = np.packbits(np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1)[:, ::-1], axis=1)[:, 0]
 # (photometric, samples per pixel) -> the bit depths OpenCV reads: WhiteIsZero and BlackIsZero gray (with
@@ -158,14 +175,17 @@ def read_image(path: str) -> np.ndarray:
     it, so that the scale-bar region lies where the user sees it). The
     other containers OpenCV reads, the PNM family, PAM, PFM, Sun raster,
     Radiance HDR, GIF and WebP, are ``ops/containers.py``'s; JPEG 2000 (a
-    JP2 file or a bare codestream) is ``ops/jpeg2000.py``'s. What OpenCV
-    refuses too raises a ``RefusedImageError`` that names it: old-style
+    JP2 file or a bare codestream) is ``ops/jpeg2000.py``'s, AVIF
+    ``ops/avif.py``'s (its lossless form). A TIFF directory is read as
+    libtiff's ``TIFFReadDirectory`` reads it (``_tiff_tags``), damaged ones
+    included. What OpenCV refuses too raises a ``RefusedImageError`` that names it: old-style
     JPEG, LZMA, ZSTD and WEBP TIFF, 2- and 4-bit gray TIFF, 32-bit samples,
     a palette TIFF in separate planes or with extra samples below 8 bits,
     hierarchical and arithmetic-coded lossless JPEG, lossless gray or YCbCr
     JPEG, 12-bit and two-component JPEG, a file of no signature OpenCV
-    knows; what OpenCV reads and the port does not decode (AVIF, and
-    JPEG 2000's High-Throughput and Part 2 forms) an
+    knows; what OpenCV reads and the port does not decode (lossy AVIF
+    and the other AVIF forms ``ops/avif.py`` names, and JPEG 2000's
+    High-Throughput and Part 2 forms) an
     ``UnsupportedImageError``; a corrupt file, or one cut off before its
     pixel data, a ``ValueError`` (where OpenCV returns None), and a missing
     one an ``OSError``."""
@@ -187,10 +207,7 @@ def read_image(path: str) -> np.ndarray:
         raise ValueError(f"{path}: corrupt or truncated file ({type(e).__name__}: {e})") from e
     except ValueError as e:
         raise type(e)(f"{path}: {e}") from None
-    unported = _unported_format(data)
-    if unported:
-        raise UnsupportedImageError(f"{path}: {unported}, which OpenCV reads, is not supported")
-    # every reader OpenCV 5.0 is built with here is one of the above, or AVIF
+    # every reader OpenCV 5.0 is built with here is one of the above
     raise RefusedImageError(f"{path}: unknown image encoding (no signature OpenCV reads)")
 
 
@@ -218,18 +235,11 @@ def _container_decoder(data: bytes):
 
     if data.startswith((jpeg2000.JP2_SIGNATURE, jpeg2000.J2K_SIGNATURE)):
         return jpeg2000.decode_jpeg2000
+    if data[4:8] == b"ftyp":  # an ISO BMFF file: AVIF if its brands and first 500 bytes say so
+        from deepemia_tpu_torch.ops import avif
+
+        return avif.decode_avif
     return None
-
-
-def _unported_format(data: bytes) -> str:
-    """The name of a format OpenCV reads that the port does not decode, by
-    its signature, or ''."""
-    if data[4:8] == b"ftyp":  # an ISO BMFF file whose major or compatible brands name AVIF
-        size = int.from_bytes(data[:4], "big")
-        brands = data[8:12] + data[16 : max(16, min(size, len(data)))]
-        if any(brands[i : i + 4] in (b"avif", b"avis") for i in range(0, len(brands) - 3, 4)):
-            return "AVIF"
-    return ""
 
 
 def _to_bgr(pix: np.ndarray) -> np.ndarray:
@@ -339,11 +349,25 @@ def _decode_png(data: bytes) -> np.ndarray:
 
 
 def _tiff_tags(data: bytes):
-    """The first IFD -> (byte order, {tag: values}); a RATIONAL's values
-    are its numerators and denominators in turn, an UNDEFINED's its bytes.
-    A BigTIFF (version 43) has an 8-byte first-IFD offset after its
-    ``8, 0`` header, an 8-byte entry count, and 20-byte entries with 8-byte
-    counts and values inline up to 8 bytes."""
+    """The first IFD -> (byte order, {tag: values}, {tag: (type, count,
+    value field, position in the directory)} of the strip and tile
+    offsets and byte counts, whose values ``_tiff_striles`` reads once
+    their number is known, [(type, count)] of every entry).
+
+    The tags the port reads are fetched as libtiff's ``TIFFReadDirectory``
+    and ``TIFFFetchNormalTag`` (tif_dirread.c) fetch them: the first entry
+    of a tag counts; a value of a type, count or range its field does not
+    take, or whose data lies past the end of the file, fails the directory
+    for the tags of ``_TIFF_FATAL`` (a ``ValueError``, where OpenCV returns
+    None) and drops the tag for the others; BitsPerSample, Compression
+    and SampleFormat take one value, or one per sample that are all equal;
+    a ColorMap counts only after BitsPerSample, with 3 << bits entries; an
+    ExtraSamples of more values than samples, or of a value above 2 (999
+    reads as 2), fails. A RATIONAL's values are its numerators and
+    denominators in turn, an UNDEFINED's its bytes. A BigTIFF (version 43)
+    has an 8-byte first-IFD offset after its ``8, 0`` header, an 8-byte
+    entry count, and 20-byte entries with 8-byte counts and values inline up
+    to 8 bytes."""
     end = "<" if data[:2] == b"II" else ">"
     big = struct.unpack(end + "H", data[2:4])[0] == 43
     if big and struct.unpack(end + "HH", data[4:8]) != (8, 0):
@@ -352,26 +376,101 @@ def _tiff_tags(data: bytes):
     (ifd,) = struct.unpack(end + word, data[4 + 4 * big : 8 + 8 * big])
     (n,) = struct.unpack(end + ("Q" if big else "H"), data[ifd : ifd + 2 + 6 * big])
     entry, inline = (20, 8) if big else (12, 4)
-    tags = {}
+    entries, all_entries = {}, []
     for i in range(n):
         e = ifd + 2 + 6 * big + entry * i
+        if len(data[e : e + entry]) < entry:
+            raise ValueError("TIFF: the directory runs past the end of the file")
         tag, typ, count = struct.unpack(end + "HH" + word, data[e : e + entry - inline])
+        all_entries.append((typ, count))
+        if tag not in entries:  # TIFFReadDirectory ignores the duplicates of a tag
+            entries[tag] = (typ, count, data[e + entry - inline : e + entry], i)
+
+    def values(typ, count, field):
+        """The entry's values, or None where libtiff cannot read them."""
         if typ not in _TIFF_TYPES:
-            continue
+            return None
         fmt, size = _TIFF_TYPES[typ]
-        e += entry - inline
-        at = e if count * size <= inline else struct.unpack(end + word, data[e : e + inline])[0]
-        k = 2 * count if typ == 5 else count
-        tags[tag] = struct.unpack(f"{end}{k}{fmt}", data[at : at + count * size])
-    return end, tags
+        if count * size <= inline:
+            raw = field[: count * size]
+        else:
+            at = struct.unpack(end + word, field)[0]
+            raw = data[at : at + count * size]
+            if len(raw) < count * size:
+                return None
+        return struct.unpack(f"{end}{2 * count if typ == 5 else count}{fmt}", raw)
+
+    tags, striles = {}, {}
+    order = {tag: e[3] for tag, e in entries.items()}
+    spp = 1
+    for tag in sorted(entries, key=lambda t: ({277: 0, 259: 1}.get(t, 2), order[t])):  # SamplesPerPixel first
+        typ, count, field, _ = entries[tag]
+        kind = _TIFF_FETCH.get(tag)
+        if kind is None:
+            continue
+        if kind == "strile":
+            striles[tag] = (typ, count, field, order[tag])
+            continue
+        if isinstance(kind, int):  # RATIONALs of a fixed count
+            v = values(typ, count, field) if typ == 5 and count == kind else None
+        else:
+            v = values(typ, count, field) if typ in _TIFF_INT_TYPES[kind] else None
+        if v is not None and kind in ("u16", "sample", "u16s", "pair", "colormap", "u32"):
+            top = 0xFFFFFFFF if kind == "u32" else 0xFFFF
+            v = v if all(0 <= x <= top for x in v) else None
+        if v is not None:
+            if kind in ("u16", "u32"):
+                v = v if count == 1 else None
+            elif kind == "sample":  # TIFFReadDirEntryShort, else TIFFReadDirEntryPersampleShort
+                v = v if count == 1 else v[:1] if count >= spp and len(set(v[:spp])) == 1 else None
+            elif kind == "pair":
+                v = v if count == 2 else None
+            elif kind == "colormap":
+                bits = tags.get(258, (1,))[0]
+                v = v if 258 in tags and order[258] < order[tag] and bits <= 24 and count == 3 << bits else None
+            elif kind == "u16s":  # setExtraSamples
+                v = tuple(2 if x == 999 else x for x in v)
+                v = v if count <= spp and all(x <= 2 for x in v) else None
+        if v is None:
+            if tag in _TIFF_FATAL:
+                raise ValueError(f"TIFF: tag {tag} of type {typ}, count {count} cannot be read")
+            continue
+        tags[tag] = v
+        if tag == 277:
+            spp = v[0]
+    return end, tags, striles, [(e[0], e[1]) for e in all_entries]
 
 
-def _tiff_segment(raw: bytes, comp: int, size: int):
+def _tiff_striles(data: bytes, end: str, big: bool, entry, n: int) -> tuple:
+    """The first n values of a strip or tile offsets or byte counts entry
+    as TIFFFetchStripThing reads them (TIFFReadDirEntryLong8ArrayWithLimit:
+    no more than n values read, at the entry's offset unless all of them
+    fit inline; missing ones 0); values past the end of the file fail."""
+    typ, count, field, _ = entry
+    if typ not in _TIFF_INT_TYPES["u32"]:
+        raise ValueError(f"TIFF: strip or tile offsets or byte counts of type {typ}")
+    fmt, size = _TIFF_TYPES[typ]
+    k = min(count, n)
+    if count * size <= (8 if big else 4):
+        raw = field[: k * size]
+    else:
+        at = struct.unpack(end + ("Q" if big else "I"), field)[0]
+        raw = data[at : at + k * size]
+        if len(raw) < k * size:
+            raise ValueError("TIFF: strip or tile offsets or byte counts past the end of the file")
+    v = struct.unpack(f"{end}{k}{fmt}", raw)
+    if min(v, default=0) < 0:
+        raise ValueError("TIFF: a negative strip or tile offset or byte count")
+    return v + (0,) * (n - k)
+
+
+def _tiff_segment(raw: bytes, comp: int, size: int, lzw_compat: bool = False):
     """One strip or tile, decompressed to at most ``size`` bytes -> (the
     bytes, whether its codec filled ``size`` without an error). A codec that
     fails keeps what it wrote, as libtiff's does: an LZW or Deflate stream
     up to its first bad code, any stream cut short up to its end; an
-    uncompressed one shorter than ``size`` copies nothing (DumpModeDecode)."""
+    uncompressed one shorter than ``size`` copies nothing (DumpModeDecode).
+    ``lzw_compat``: whether LZW is old-style."""
     if comp == 1:
         return (raw[:size], True) if len(raw) >= size else (b"", False)
     if comp in (8, 32946):
@@ -391,7 +490,7 @@ def _tiff_segment(raw: bytes, comp: int, size: int):
     from deepemia_tpu_torch import native
 
     if comp == 5:
-        out, sound = native.lzw_decode(raw, size)
+        out, sound = native.lzw_decode(raw, size, lzw_compat)
         return out, sound and len(out) == size
     out = native.packbits_decode(raw, size)
     return out, len(out) == size
@@ -563,17 +662,33 @@ def _tiff_to_bgr(pix: np.ndarray, photometric: int, depth: int, tags: dict) -> n
 
 
 def _decode_tiff(data: bytes) -> np.ndarray:
-    end, tags = _tiff_tags(data)
+    end, tags, striles, entries = _tiff_tags(data)
     get = lambda t, d: tags.get(t, (d,))  # noqa: E731
     w, h = tags[256][0], tags[257][0]
+    if not 0 < w <= 1 << 20 or not 0 < h <= 1 << 20 or w * h > 1 << 30:  # OpenCV's validateInputImageSize
+        raise ValueError(f"TIFF: an image of {w}x{h} pixels")
     spp = get(277, 1)[0]
-    bits = set(get(258, 1))
-    comp, photometric = get(259, 1)[0], get(262, 1)[0]
+    depth = get(258, 1)[0]
+    comp = get(259, 1)[0]
+    if 262 not in tags:  # OpenCV fails on TIFFGetField(TIFFTAG_PHOTOMETRIC)
+        raise ValueError("TIFF: no readable PhotometricInterpretation")
+    photometric = tags[262][0]
+    # TIFFReadDirectory counts the samples past the photometric's colour channels as extra, then reads a
+    # palette without a ColorMap as RGB (3 samples) or gray
+    extra = len(tags.get(338, ()))
+    channels = {0: 1, 1: 1, 3: 1, 4: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 5: 4}.get(photometric, 0)
+    extra = max(extra, spp - channels) if channels else extra
+    if photometric == 3 and 320 not in tags:
+        if depth < 8:
+            raise ValueError("TIFF: a palette image without a ColorMap")
+        photometric = 2 if spp == 3 else 1
     # libtiff reverses the bits of every raw segment of a FillOrder 2 file, but those of the codecs
     # that set TIFF_NOBITREV: JPEG, and the fax codecs, which read either order through their tables
     fill = get(266, 1)[0]
     predictor, planar = get(317, 1)[0], get(284, 1)[0]
-    if comp not in _TIFF_DECODED:
+    # a compression libtiff has no codec for opens, and every strip then fails to decode
+    undecodable = comp not in _TIFF_CODECS
+    if comp not in _TIFF_DECODED and not undecodable:
         raise RefusedImageError(
             f"TIFF: {_TIFF_COMPRESSION.get(comp, f'compression {comp}')} compression is not supported"
         )
@@ -584,15 +699,16 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     if planar not in (1, 2):
         raise RefusedImageError(f"TIFF: planar configuration {planar} is not supported")
     planar = 1 if spp == 1 else planar  # libtiff reads one sample a pixel as contiguous whatever the tag says
+    if photometric == 2 and spp - extra < 3:  # TIFFRGBAImageOK: fewer than 3 colour channels
+        raise ValueError(f"TIFF: RGB of {spp} samples, {extra} of them extra")
     if (photometric, spp) not in _TIFF_KINDS:
         raise RefusedImageError(f"TIFF: photometric {photometric} with {spp} samples is not supported")
-    if len(bits) != 1 or set(get(339, 1)) != {1} or not bits <= set(_TIFF_KINDS[photometric, spp]):
+    if get(339, 1)[0] != 1 or depth not in _TIFF_KINDS[photometric, spp]:
         raise RefusedImageError(
-            f"TIFF: samples of {sorted(bits)} bits, format {get(339, 1)} are not supported with photometric "
+            f"TIFF: samples of [{depth}] bits, format {get(339, 1)} are not supported with photometric "
             f"{photometric}"
         )
-    depth = bits.pop()
-    sub = tuple(tags[530][:2]) if len(tags.get(530, ())) >= 2 else (2, 2)  # libtiff's default
+    sub = tags.get(530, (2, 2))  # libtiff's default
     # libtiff's RGBA reader reads separate planes of gray, RGB, CMYK and YCbCr without subsampling
     # (pickSeparateCase), a palette's index from the first of its samples in contiguous ones only
     if planar == 2 and (photometric not in (0, 1, 2, 5, 6) or (photometric == 6 and sub != (1, 1))):
@@ -614,35 +730,75 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     tables = tables[2:-2] if tables[:2] == b"\xff\xd8" else tables  # its SOI and EOI
     dtype = np.dtype(np.uint8) if depth <= 8 else np.dtype(end + "u2")
     sps = spp if planar == 1 else 1  # samples per pixel within one segment
-    if 322 in tags and comp == 1 and fill == 2:
+    if (322 in tags or 323 in tags) and comp == 1 and fill == 2:
         raise ValueError("TIFF: uncompressed tiles in FillOrder 2, which libtiff's tile reader fails on")
-    if 322 in tags:  # tiles, padded to the full tile size at the edges
-        tw, th = tags[322][0], tags[323][0]
-        offsets, counts = tags[324], tags[325]
+    tiled = 322 in tags or 323 in tags
+    row_bytes = (w * (spp if planar == 1 else 1) * depth + 7) // 8  # TIFFScanlineSize
+    if ycc:  # of subsampled YCbCr: a row of data units over v
+        row_bytes = -(-w // sub[0]) * (sub[0] * sub[1] + 2) // sub[1]
+    if tiled:  # tiles, padded to the full tile size at the edges
+        tw, th = get(322, 0)[0], get(323, 0)[0]
+        if not tw or not th:
+            raise ValueError(f"TIFF: tiles of {tw}x{th} pixels")
         grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
         shape_of = lambda y: (th, tw)  # noqa: E731
-        if comp == 1 and planar == 1 and len(counts) > 2 and counts[0] != counts[1] and counts[0] and counts[1]:
-            counts = (th * ((tw * spp * depth + 7) // 8),) * len(offsets)  # as for strips, below
+        seg_size = th * ((tw * sps * depth + 7) // 8)  # TIFFTileSize
+        if ycc:
+            seg_size = -(-th // sub[1]) * -(-tw // sub[0]) * (sub[0] * sub[1] + 2)
     else:
         rps = min(get(278, h)[0], h)
-        offsets, counts = tags[273], tags[279]
+        if not rps:
+            raise ValueError("TIFF: RowsPerStrip 0")
         grid = [(y, 0) for y in range(0, h, rps)]
         shape_of = lambda y: (min(rps, h - y), w)  # noqa: E731
-        row_bytes = (w * (spp if planar == 1 else 1) * depth + 7) // 8
-        if ycc:  # TIFFScanlineSize of subsampled YCbCr: a row of data units over v
-            row_bytes = -(-w // sub[0]) * (sub[0] * sub[1] + 2) // sub[1]
-        # tif_dirread.c ignores the StripByteCounts of an uncompressed image where they look wrong (one strip
-        # of fewer bytes than the image or more than the file holds, or the first two of three or more
-        # unequal) and works them out from the image size
-        if comp == 1 and planar == 1 and len(offsets) == 1 and not (
-                0 < row_bytes * h <= counts[0] <= len(data) - offsets[0]):
-            counts = (row_bytes * h,)
-        elif comp == 1 and planar == 1 and len(counts) > 2 and counts[0] != counts[1] and counts[0] and counts[1]:
-            counts = (row_bytes * (h // len(offsets)),) * len(offsets)
+        seg_size = row_bytes * rps
     planes = 1 if planar == 1 else spp
-    if len(offsets) < planes * len(grid) or len(counts) < len(offsets):
-        raise ValueError("TIFF: fewer strips or tiles than the image needs")
+    nstrips = planes * len(grid)
+    if not nstrips:
+        raise ValueError("TIFF: an image of no strips or tiles")
+    big = data[2:4] in (b"+\x00", b"\x00+")
+
+    def strile(tags_):  # the last of the two tags in the directory's order is the one libtiff keeps
+        found = [striles[t] for t in tags_ if t in striles]
+        return max(found, key=lambda e: e[3]) if found else None
+
+    if strile((273, 324)) is None:
+        raise ValueError("TIFF: no StripOffsets or TileOffsets")
+    offsets = _tiff_striles(data, end, big, strile((273, 324)), nstrips)
+    count_entry = strile((279, 325))
+
+    def estimated():  # EstimateStripByteCounts
+        if comp != 1:
+            space = (16 + 8 + 20 * len(entries) + 8) if big else (8 + 2 + 12 * len(entries) + 4)
+            for typ, count in entries:
+                if typ not in _TIFF_WIDTHS:
+                    raise ValueError(f"TIFF: a tag of unknown type {typ}, which libtiff cannot size")
+                size = _TIFF_WIDTHS[typ] * count
+                space += size if size > (8 if big else 4) else 0
+            space = len(data) if len(data) < space else len(data) - space
+            est = [space // spp if planar == 2 else space] * nstrips
+            if offsets[-1] + est[-1] > len(data):
+                est[-1] = 0 if offsets[-1] >= len(data) else len(data) - offsets[-1]
+            return tuple(est)
+        if tiled:
+            return (seg_size,) * nstrips
+        return (row_bytes * (h // len(grid)),) * nstrips
+
+    if count_entry is None:  # TIFFReadDirectory estimates one strip (or plane) of data, else fails
+        if nstrips != planes:
+            raise ValueError("TIFF: no StripByteCounts")
+        counts = estimated()
+    else:
+        counts = _tiff_striles(data, end, big, count_entry, nstrips)
+        # tif_dirread.c ignores the StripByteCounts where they look wrong (ByteCountLooksBad: one strip of no
+        # bytes at a non-zero offset, or, uncompressed, of more bytes than the file holds past it or fewer than
+        # the image; or, uncompressed and contiguous, the first two of three or more unequal) and estimates them
+        bad = nstrips == 1 and not tiled and offsets[0] and (not counts[0] or comp == 1 and (
+            offsets[0] <= len(data) and counts[0] > len(data) - offsets[0] or counts[0] < row_bytes * h))
+        if bad or (comp == 1 and planar == 1 and nstrips > 2 and counts[0] != counts[1] and counts[0] and counts[1]):
+            counts = estimated()
     pix = np.empty((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    lzw_compat = None
     for p in range(planes):
         for k, (y, x) in enumerate(grid):
             sh, sw = shape_of(y)
@@ -655,6 +811,11 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                 if first_plane:
                     raise ValueError("TIFF: a strip or tile of no bytes, or past the end of the file")
                 raw = b""
+            # _TIFFReadEncodedTileAndAllocBuffer refuses a first tile whose buffer would pass 1e8 bytes from
+            # a compressed tile of less than a thousandth of TIFFTileSize
+            alloc = seg_size * (1 if planar == 1 else 4 if spp > 3 else 3)
+            if tiled and j == 0 and comp != 1 and alloc > 100_000_000 and counts[0] < seg_size // 1000:
+                raise ValueError(f"TIFF: a tile of {counts[0]} bytes for {seg_size} decoded ones")
             if fill == 2 and comp != 7 and comp not in _TIFF_FAX:  # tif_read.c: TIFFReverseBits
                 raw = _BIT_REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
             if comp == 7:
@@ -668,14 +829,16 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                 read = need = sh * ((sw * sps * depth + 7) // 8)
                 if ycc:
                     read = need = -(-sh // sub[1]) * -(-sw // sub[0]) * (sub[0] * sub[1] + 2)
-                    if 322 not in tags:  # gtStripContig asks for whole rows of blocks of TIFFScanlineSize
+                    if not tiled:  # gtStripContig asks for whole rows of blocks of TIFFScanlineSize
                         read = min(need, -(-sh // sub[1]) * sub[1] * row_bytes)
-                seg, sound = _tiff_segment(raw, comp, read)
-                if comp == 1 and not sound and 322 in tags and first_plane:
+                if comp == 5 and lzw_compat is None and raw:  # LZWPreDecode keeps the first segment's style
+                    lzw_compat = len(raw) >= 2 and raw[0] == 0 and bool(raw[1] & 1)
+                seg, sound = (b"", False) if undecodable else _tiff_segment(raw, comp, read, bool(lzw_compat))
+                if comp == 1 and not sound and tiled and first_plane:
                     raise ValueError("TIFF: an uncompressed tile shorter than the tile, which libtiff's tile reader "
                                      "fails on")
                 if ycc and predictor == 2 and sound:
-                    seg = _ycbcr_predictor(seg, sw * 3 if 322 in tags else row_bytes)
+                    seg = _ycbcr_predictor(seg, sw * 3 if tiled else row_bytes)
                 seg = seg.ljust(need, b"\0")  # the rest of libtiff's buffer, zeroed when allocated
                 if ycc:
                     vw = min(sw, w - x)  # the columns of the tile in the image

@@ -1,0 +1,897 @@
+"""A lossless AV1 still-picture writer in numpy, for the test fixtures of
+``tests/test_torch_avif.py``: it writes the forms of the bitstream that
+``cv2.imencode('.avif')`` does not (a full sequence header with timing and
+decoder model information, frame header and tile group OBUs apart,
+several tiles, uniform or not, 128x128 superblocks, partitions of every
+type, skipped blocks, CDF updates off, padding and metadata OBUs), so that
+cv2 (libaom) and the port's decoder can be held to each other on them.
+
+Every block takes intra modes drawn at random (every Y and UV mode, angle
+deltas, CFL, filter intra), its residual coded exactly with TX_4X4
+Walsh-Hadamard coefficients; the writer mirrors the
+decoding process of the AV1 specification (the symbol coder of libaom's
+``entenc.c`` on Python integers, the CDFs read from
+``deepemia_tpu_torch/native/av1.cpp``). Slow (pure Python): small images.
+
+    data = encode(planes, bit_depth=8, sb128=True, tiles=("uniform", 1, 1))
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import numpy as np
+
+AV1_CPP = Path(__file__).resolve().parents[1] / "deepemia_tpu_torch" / "native" / "av1.cpp"
+_SCAN = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
+_BASE_OFFSET = ((0, 1, 6, 6), (1, 6, 6, 21), (6, 6, 21, 21), (6, 21, 21, 21))
+_MODE_CTX = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)  # Intra_Mode_Context
+_WIDE = (1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16)
+_HIGH = (1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4)
+B4X4, B8X8, B64X64, B128X128 = 0, 3, 12, 15
+NONE, HORZ, VERT, SPLIT, HORZ_A, HORZ_B, VERT_A, VERT_B, HORZ_4, VERT_4 = range(10)
+
+
+def _tables() -> dict:
+    """The CDF tables of av1.cpp -> {name: [cdfs]} (each N values and a
+    counter)."""
+    src = AV1_CPP.read_text()
+    out = {}
+    for name, per in (("kPartition8", 5), ("kPartition16", 11), ("kPartition128", 9), ("kKfYMode", 14),
+                      ("kUvModeNoCfl", 14), ("kUvModeCfl", 15), ("kSkip", 3), ("kTxbSkip", 3), ("kEobPt16", 6),
+                      ("kEobExtra", 3), ("kCoeffBaseEob", 4), ("kCoeffBase", 5), ("kCoeffBr", 5), ("kDcSign", 3),
+                      ("kAngleDelta", 8), ("kFilterIntra", 3), ("kFilterIntraMode", 6), ("kCflSign", 9),
+                      ("kCflAlpha", 17), ("kSmWeights4", 4), ("kDrIntraDerivative", 90), ("kFilterIntraTaps", 56),
+                      ("kModeToAngle", 13)):
+        body = re.search(rf"\b{name}\b[^=]*=\s*\{{(.*?)\}};", src, re.S).group(1)
+        v = [int(x) for x in re.findall(r"-?\d+", body)]
+        out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
+    return out
+
+
+class Bits:
+    """A big-endian bit writer."""
+
+    def __init__(self):
+        self.bits = []
+
+    def f(self, n: int, v: int) -> None:
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def ns(self, n: int, v: int) -> None:
+        w = n.bit_length()
+        m = (1 << w) - n
+        if v < m:
+            self.f(w - 1, v)
+        else:
+            self.f(w - 1, (v + m) >> 1)
+            self.f(1, (v + m) & 1)
+
+    def trailing(self) -> None:
+        self.bits.append(1)
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def align(self) -> None:
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def bytes(self) -> bytes:
+        assert len(self.bits) % 8 == 0
+        return bytes(int("".join(map(str, self.bits[k : k + 8])), 2) for k in range(0, len(self.bits), 8))
+
+
+class SymbolWriter:
+    """libaom's od_ec encoder (entenc.c) with the low end of the interval a
+    Python integer (no carry buffer), and the specification's CDF
+    adaptation."""
+
+    def __init__(self, adapt: bool):
+        self.low, self.rng, self.shift, self.adapt = 0, 0x8000, 0, adapt
+
+    def symbol(self, s: int, cdf: list, n: int) -> None:
+        r, big_n = self.rng, n - 1
+        fl = 32768 - cdf[s - 1] if s > 0 else 32768
+        fh = 32768 - cdf[s]
+        if fl < 32768:
+            u = ((r >> 8) * (fl >> 6) >> 1) + 4 * (big_n - (s - 1))
+            v = ((r >> 8) * (fh >> 6) >> 1) + 4 * (big_n - s)
+            self.low += r - u
+            r = u - v
+        else:
+            r -= ((r >> 8) * (fh >> 6) >> 1) + 4 * (big_n - s)
+        d = 16 - r.bit_length()
+        self.low <<= d
+        self.rng = r << d
+        self.shift += d
+        if self.adapt:
+            rate = 3 + (cdf[n] > 15) + (cdf[n] > 31) + min(n.bit_length() - 1, 2)
+            tmp = 0
+            for i in range(n - 1):
+                if i == s:
+                    tmp = 1 << 15
+                if tmp < cdf[i]:
+                    cdf[i] -= (cdf[i] - tmp) >> rate
+                else:
+                    cdf[i] += (tmp - cdf[i]) >> rate
+            cdf[n] += cdf[n] < 32
+
+    def bool(self, b: int) -> None:
+        a = self.adapt
+        self.adapt = False
+        self.symbol(b, [1 << 14, 1 << 15, 0], 2)
+        self.adapt = a
+
+    def finish(self) -> bytes:
+        """od_ec_enc_done: the interval's value with a one where the decoder
+        stops telling (its reserved bit), then zeros to a whole byte."""
+        m = 0x3FFF
+        e = ((self.low + m) & ~m) | (m + 1)
+        n = (self.shift + 1 + 7) // 8
+        top = self.shift + 14
+        out = bytearray(n)
+        for k in range(8 * n):
+            if top - k >= 0 and (e >> (top - k)) & 1:
+                out[k >> 3] |= 0x80 >> (k & 7)
+        return bytes(out)
+
+
+def _wht_levels(res: np.ndarray) -> np.ndarray:
+    """The TX_4X4 levels whose inverse Walsh-Hadamard transform (av1.cpp's
+    reconstruct: rows, then columns) gives ``res`` [4,4] exactly."""
+
+    def inverse_step(out):
+        a_f, b_f, c_f, d_f = (int(x) for x in out)
+        a2, d2 = a_f + b_f, d_f - c_f
+        e = (a2 - d2) >> 1
+        b0, c0 = e - b_f, e - c_f
+        return [a2 - c0, c0, d2 + b0, b0]  # T[0], T[1], T[2], T[3] = a, c, d, b
+
+    t = np.zeros((4, 4), np.int64)
+    for j in range(4):
+        t[:, j] = inverse_step(res[:, j])
+    lv = np.zeros((4, 4), np.int64)
+    for i in range(4):
+        lv[i] = inverse_step(t[i])
+    return lv
+
+
+class _Frame:
+    def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes):
+        self.src = [np.asarray(p, np.int64) for p in planes]
+        self.mono = len(planes) == 1
+        self.bd = bit_depth
+        self.sb128 = sb128
+        self.h, self.w = self.src[0].shape
+        self.mi_cols, self.mi_rows = 2 * ((self.w + 7) >> 3), 2 * ((self.h + 7) >> 3)
+        # the decoded area (whole 4x4 blocks up to the 8-aligned size): the source, edges replicated
+        self.pix = [np.pad(p, ((0, self.mi_rows * 4 - self.h), (0, self.mi_cols * 4 - self.w)), mode="edge")
+                    for p in self.src]
+        self.disable_cdf_update = disable_cdf_update
+        self.rng = rng
+        self.tiles = tiles
+        self.weights = weights
+        self.base = _tables()
+        self.mode_odds = np.full(13, 1 / 13) if modes else np.eye(13)[0]
+        self.mode_odds_uv = np.full(14, 1.0) if modes else np.eye(14)[0]
+
+    # ---- tile layout ----
+    def tile_layout(self):
+        sb = 32 if self.sb128 else 16
+        sb_cols, sb_rows = -(-self.mi_cols // sb), -(-self.mi_rows // sb)
+        kind, a, b = self.tiles
+        if kind == "uniform":
+            cols_log2, rows_log2 = a, b
+            w = -(-sb_cols // (1 << cols_log2))
+            h = -(-sb_rows // (1 << rows_log2))
+            cols = list(range(0, sb_cols, w))
+            rows = list(range(0, sb_rows, h))
+        else:  # explicit widths and heights in superblocks
+            cols = list(np.cumsum([0] + list(a))[:-1])
+            rows = list(np.cumsum([0] + list(b))[:-1])
+            assert sum(a) == sb_cols and sum(b) == sb_rows
+        return ([c * sb for c in cols] + [self.mi_cols], [r * sb for r in rows] + [self.mi_rows], sb_cols, sb_rows)
+
+    # ---- a tile ----
+    def encode_tile(self, r0, r1, c0, c1) -> bytes:
+        self.cdf = {k: [list(c) for c in v] for k, v in self.base.items()}
+        self.sym = SymbolWriter(not self.disable_cdf_update)
+        self.tile = (r0, r1, c0, c1)
+        n = 1 if self.mono else 3
+        self.above_level = [np.zeros(self.mi_cols + 32, np.int64) for _ in range(n)]
+        self.above_dc = [np.zeros(self.mi_cols + 32, np.int64) for _ in range(n)]
+        self.mi_size = np.full((self.mi_rows, self.mi_cols), -1)
+        self.skips = np.zeros((self.mi_rows, self.mi_cols), np.int64)
+        self.y_modes = np.zeros((self.mi_rows, self.mi_cols), np.int64)
+        self.uv_modes = np.zeros((self.mi_rows, self.mi_cols), np.int64)
+        self.block_decoded = [None] * n
+        sb4 = 32 if self.sb128 else 16
+        for r in range(r0, r1, sb4):
+            self.left_level = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
+            self.left_dc = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
+            for c in range(c0, c1, sb4):
+                self.clear_block_decoded(r, c)
+                self.partition(r, c, B128X128 if self.sb128 else B64X64)
+        return self.sym.finish()
+
+    def inside(self, r, c):
+        r0, r1, c0, c1 = self.tile
+        return r0 <= r < r1 and c0 <= c < c1
+
+    @staticmethod
+    def sub_size(p, bsize):
+        w, h = _WIDE[bsize], _HIGH[bsize]
+        if p in (HORZ, HORZ_A, HORZ_B):
+            h //= 2
+        elif p in (VERT, VERT_A, VERT_B):
+            w //= 2
+        elif p == SPLIT:
+            w, h = w // 2, h // 2
+        elif p == HORZ_4:
+            h //= 4
+        elif p == VERT_4:
+            w //= 4
+        for b in range(22):
+            if _WIDE[b] == w and _HIGH[b] == h:
+                return b
+        return -1
+
+    def partition(self, r, c, bsize):
+        if r >= self.mi_rows or c >= self.mi_cols:
+            return
+        num4 = _WIDE[bsize]
+        half, quarter = num4 >> 1, num4 >> 2
+        has_rows, has_cols = r + half < self.mi_rows, c + half < self.mi_cols
+        bsl = num4.bit_length() - 1
+        if bsize == B4X4:
+            p = NONE
+        else:
+            above = self.inside(r - 1, c) and (_WIDE[self.mi_size[r - 1, c]].bit_length() - 1) < bsl
+            left = self.inside(r, c - 1) and (_HIGH[self.mi_size[r, c - 1]].bit_length() - 1) < bsl
+            ctx = left * 2 + above
+            if bsl == 1:
+                cdf, n = self.cdf["kPartition8"][ctx], 4
+            elif bsl == 5:
+                cdf, n = self.cdf["kPartition128"][ctx], 8
+            else:
+                cdf, n = self.cdf["kPartition16"][(bsl - 2) * 4 + ctx], 10
+            if has_rows and has_cols:
+                p = int(self.rng.choice(n, p=self._weights(n, bsize)))
+                self.sym.symbol(p, cdf, n)
+            elif has_cols or has_rows:
+                split = int(self.rng.random() < 0.7)
+
+                def prob(e):
+                    return cdf[e] - (cdf[e - 1] if e > 0 else 0)
+
+                if has_cols:
+                    psum = prob(VERT) + prob(SPLIT) + prob(HORZ_A) + prob(VERT_A) + prob(VERT_B)
+                    psum += prob(VERT_4) if bsize != B128X128 else 0
+                else:
+                    psum = prob(HORZ) + prob(SPLIT) + prob(HORZ_A) + prob(HORZ_B) + prob(VERT_A)
+                    psum += prob(HORZ_4) if bsize != B128X128 else 0
+                a = self.sym.adapt
+                self.sym.adapt = False
+                self.sym.symbol(split, [32768 - psum, 32768, 0], 2)
+                self.sym.adapt = a
+                p = SPLIT if split else HORZ if has_cols else VERT
+            else:
+                p = SPLIT
+        sub, split = self.sub_size(p, bsize), self.sub_size(SPLIT, bsize)
+        blk = self.block
+        if p == NONE:
+            blk(r, c, sub)
+        elif p == HORZ:
+            blk(r, c, sub)
+            if has_rows:
+                blk(r + half, c, sub)
+        elif p == VERT:
+            blk(r, c, sub)
+            if has_cols:
+                blk(r, c + half, sub)
+        elif p == SPLIT:
+            for dr, dc in ((0, 0), (0, half), (half, 0), (half, half)):
+                self.partition(r + dr, c + dc, sub)
+        elif p == HORZ_A:
+            blk(r, c, split), blk(r, c + half, split), blk(r + half, c, sub)
+        elif p == HORZ_B:
+            blk(r, c, sub), blk(r + half, c, split), blk(r + half, c + half, split)
+        elif p == VERT_A:
+            blk(r, c, split), blk(r + half, c, split), blk(r, c + half, sub)
+        elif p == VERT_B:
+            blk(r, c, sub), blk(r, c + half, split), blk(r + half, c + half, split)
+        elif p == HORZ_4:
+            for i in range(4):
+                if i < 3 or r + quarter * 3 < self.mi_rows:
+                    blk(r + quarter * i, c, sub)
+        else:
+            for i in range(4):
+                if i < 3 or c + quarter * 3 < self.mi_cols:
+                    blk(r, c + quarter * i, sub)
+
+    def _weights(self, n, bsize):
+        """Partition choices: ``weights`` ({block size: [weight per
+        partition]}) where given, else mostly SPLIT down to 8x8 and every
+        type now and then."""
+        if bsize in self.weights:
+            w = np.asarray(self.weights[bsize][:n], np.float64)
+        else:
+            w = np.full(n, 0.3)
+            w[SPLIT] = 3.0 if bsize > B8X8 else 0.0
+            w[NONE] = 1.0
+        return w / w.sum()
+
+    # ---- a block ----
+    def block(self, r, c, bsize):
+        bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
+        self.avail_u, self.avail_l = self.inside(r - 1, c), self.inside(r, c - 1)
+        self.mi_row, self.mi_col, self.bsize = r, c, bsize
+        rng, cdf, sym = self.rng, self.cdf, self.sym
+        # the modes, drawn
+        self.y_mode = int(rng.choice(13, p=self.mode_odds))
+        self.angle_y = int(rng.integers(-3, 4)) if bsize >= B8X8 and 1 <= self.y_mode <= 8 else 0
+        self.uv_mode, self.angle_uv, self.cfl = 0, 0, (0, 0)
+        if not self.mono:
+            n_uv = 14 if bsize == B4X4 else 13
+            self.uv_mode = int(rng.choice(n_uv, p=self.mode_odds_uv[:n_uv] / self.mode_odds_uv[:n_uv].sum()))
+            if self.uv_mode == 13:
+                self.signs = int(rng.integers(0, 8))
+                sign_u, sign_v = (self.signs + 1) // 3, (self.signs + 1) % 3
+                au, av = int(rng.integers(0, 16)), int(rng.integers(0, 16))
+                self.cfl_codes = (au, av)
+                self.cfl = ((au + 1) * (-1 if sign_u == 1 else 1) if sign_u else 0,
+                            (av + 1) * (-1 if sign_v == 1 else 1) if sign_v else 0)
+            self.angle_uv = int(rng.integers(-3, 4)) if bsize >= B8X8 and 1 <= self.uv_mode <= 8 else 0
+        self.use_filter_intra = 0
+        if self.y_mode == 0 and max(bw4, bh4) <= 8:
+            self.use_filter_intra = int(rng.random() < 0.5)
+            self.filter_mode = int(rng.integers(0, 5))
+        # the residual (a block whose prediction is exact in every plane skips)
+        levels = self.predict_block(r, c, bsize)
+        skip = int(not any(lv.any() for _, _, _, lv in levels))
+        ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
+        sym.symbol(skip, cdf["kSkip"][ctx], 2)
+        above = _MODE_CTX[self.y_modes[r - 1, c]] if self.avail_u else 0
+        left = _MODE_CTX[self.y_modes[r, c - 1]] if self.avail_l else 0
+        sym.symbol(self.y_mode, cdf["kKfYMode"][above * 5 + left], 13)
+        if bsize >= B8X8 and 1 <= self.y_mode <= 8:
+            sym.symbol(self.angle_y + 3, cdf["kAngleDelta"][self.y_mode - 1], 7)
+        if not self.mono:
+            if bsize == B4X4:
+                sym.symbol(self.uv_mode, cdf["kUvModeCfl"][self.y_mode], 14)
+            else:
+                sym.symbol(self.uv_mode, cdf["kUvModeNoCfl"][self.y_mode], 13)
+            if self.uv_mode == 13:
+                sym.symbol(self.signs, cdf["kCflSign"][0], 8)
+                sign_u, sign_v = (self.signs + 1) // 3, (self.signs + 1) % 3
+                if sign_u:
+                    sym.symbol(self.cfl_codes[0], cdf["kCflAlpha"][(sign_u - 1) * 3 + sign_v], 16)
+                if sign_v:
+                    sym.symbol(self.cfl_codes[1], cdf["kCflAlpha"][(sign_v - 1) * 3 + sign_u], 16)
+            if bsize >= B8X8 and 1 <= self.uv_mode <= 8:
+                sym.symbol(self.angle_uv + 3, cdf["kAngleDelta"][self.uv_mode - 1], 7)
+        if self.y_mode == 0 and max(bw4, bh4) <= 8:
+            sym.symbol(self.use_filter_intra, cdf["kFilterIntra"][bsize], 2)
+            if self.use_filter_intra:
+                sym.symbol(self.filter_mode, cdf["kFilterIntraMode"][0], 5)
+        if skip:
+            for p in range(1 if self.mono else 3):
+                self.above_level[p][c : c + bw4] = 0
+                self.above_dc[p][c : c + bw4] = 0
+                self.left_level[p][r : r + bh4] = 0
+                self.left_dc[p][r : r + bh4] = 0
+        rr, cc = min(r + bh4, self.mi_rows), min(c + bw4, self.mi_cols)
+        self.mi_size[r:rr, c:cc] = bsize
+        self.skips[r:rr, c:cc] = skip
+        self.y_modes[r:rr, c:cc] = self.y_mode
+        self.uv_modes[r:rr, c:cc] = self.uv_mode
+        if not skip:
+            for p, x4, y4, lv in levels:
+                self.coeffs(p, x4, y4, lv)
+
+    def predict_block(self, r, c, bsize):
+        """The block's 4x4 transform blocks in the decoder's order (64x64
+        chunks, then planes): each predicted from the frame, whose samples
+        are the decoded ones (lossless) -> [(plane, x4, y4, levels)]."""
+        bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
+        sb_mask = 31 if self.sb128 else 15
+        out = []
+        for cy in range(max(1, bh4 >> 4)):
+            for cx in range(max(1, bw4 >> 4)):
+                for p in range(1 if self.mono else 3):
+                    for y in range(min(bh4, 16)):
+                        for x in range(min(bw4, 16)):
+                            xx, yy = x + (cx << 4), y + (cy << 4)
+                            sx, sy = c * 4 + 4 * xx, r * 4 + 4 * yy
+                            if sx >= self.mi_cols * 4 or sy >= self.mi_rows * 4:
+                                continue
+                            row, col = (sy >> 2) & sb_mask, (sx >> 2) & sb_mask
+                            bd = self.block_decoded[p]
+                            mode = self.y_mode if p == 0 else (0 if self.uv_mode == 13 else self.uv_mode)
+                            pred = self.predict(p, sx, sy, self.avail_l or xx > 0, self.avail_u or yy > 0,
+                                                bd[row, col + 2], bd[row + 2, col], mode)
+                            if p and self.uv_mode == 13:
+                                pred = self.predict_cfl(p, sx, sy, pred)
+                            out.append((p, sx >> 2, sy >> 2, _wht_levels(self.pix[p][sy : sy + 4, sx : sx + 4] - pred)))
+                            bd[row + 1, col + 1] = 1
+        return out
+
+    def clear_block_decoded(self, r, c):
+        sb4 = 32 if self.sb128 else 16
+        _, r1, _, c1 = self.tile
+        w4, h4 = c1 - c, r1 - r
+        for p in range(1 if self.mono else 3):
+            bd = np.zeros((sb4 + 2, sb4 + 2), np.int64)  # index [y + 1, x + 1]
+            for y in range(-1, sb4 + 1):
+                for x in range(-1, sb4 + 1):
+                    bd[y + 1, x + 1] = int((y < 0 and x < w4) or (x < 0 and y < h4))
+            bd[sb4 + 1, 0] = 0
+            self.block_decoded[p] = bd
+
+    # ---- intra prediction (7.11.2), a 4x4 block ----
+    def predict(self, p, x, y, have_left, have_above, have_rt, have_bl, mode):
+        pix, bd_ = self.pix[p], self.bd
+        w = h = 4
+        max_x, max_y = self.mi_cols * 4 - 1, self.mi_rows * 4 - 1
+        above = {}
+        left = {}
+        for i in range(w + h):
+            if not have_above and have_left:
+                above[i] = int(pix[y, x - 1])
+            elif not have_above:
+                above[i] = (1 << (bd_ - 1)) - 1
+            else:
+                lim = min(max_x, x + (2 * w if have_rt else w) - 1)
+                above[i] = int(pix[y - 1, min(lim, x + i)])
+            if not have_left and have_above:
+                left[i] = int(pix[y - 1, x])
+            elif not have_left:
+                left[i] = (1 << (bd_ - 1)) + 1
+            else:
+                lim = min(max_y, y + (2 * h if have_bl else h) - 1)
+                left[i] = int(pix[min(lim, y + i), x - 1])
+        if have_above and have_left:
+            corner = int(pix[y - 1, x - 1])
+        elif have_above:
+            corner = int(pix[y - 1, x])
+        elif have_left:
+            corner = int(pix[y, x - 1])
+        else:
+            corner = 1 << (bd_ - 1)
+        above[-1] = left[-1] = corner
+        maxv = (1 << bd_) - 1
+        pred = np.zeros((4, 4), np.int64)
+        t = self.base
+        if p == 0 and self.use_filter_intra:
+            taps = t["kFilterIntraTaps"][self.filter_mode]
+            for i2 in range(2):
+                pp = [0] * 7
+                for i in range(7):
+                    if i < 5:
+                        if i2 == 0:
+                            pp[i] = above[i - 1]
+                        elif i == 0:
+                            pp[i] = left[1]
+                        else:
+                            pp[i] = int(pred[1, i - 1])
+                    else:
+                        pp[i] = left[2 * i2 + i - 5]
+                for i in range(8):
+                    v = sum(taps[i * 7 + j] * pp[j] for j in range(7))
+                    v = (v + 8) >> 4 if v >= 0 else -((-v + 8) >> 4)
+                    pred[2 * i2 + (i >> 2), i & 3] = min(max(v, 0), maxv)
+            return pred
+        if 1 <= mode <= 8:
+            p_angle = t["kModeToAngle"][0][mode] + (self.angle_y if p == 0 else self.angle_uv) * 3
+            up_a = up_l = 0
+            if p_angle not in (90, 180):
+                ftype = 0
+                if self.avail_u:
+                    ftype |= self.is_smooth(self.mi_row - 1, self.mi_col, p)
+                if self.avail_l:
+                    ftype |= self.is_smooth(self.mi_row, self.mi_col - 1, p)
+                if have_above:
+                    self.edge_filter(above, min(w, max_x - x + 1) + (h if p_angle < 90 else 0) + 1,
+                                     self.strength(ftype, p_angle - 90))
+                if have_left:
+                    self.edge_filter(left, min(h, max_y - y + 1) + (w if p_angle > 180 else 0) + 1,
+                                     self.strength(ftype, p_angle - 180))
+                up_a = int(0 < abs(p_angle - 90) < 40)
+                if up_a:
+                    self.upsample(above, w + (h if p_angle < 90 else 0), maxv)
+                up_l = int(0 < abs(p_angle - 180) < 40)
+                if up_l:
+                    self.upsample(left, h + (w if p_angle > 180 else 0), maxv)
+            dr = t["kDrIntraDerivative"][0]
+            dx = dr[p_angle] if p_angle < 90 else dr[180 - p_angle] if 90 < p_angle < 180 else 0
+            dy = dr[p_angle - 90] if 90 < p_angle < 180 else dr[270 - p_angle] if p_angle > 180 else 0
+            for i in range(h):
+                for j in range(w):
+                    if p_angle < 90:
+                        idx = (i + 1) * dx
+                        base = (idx >> (6 - up_a)) + (j << up_a)
+                        shift = ((idx << up_a) >> 1) & 0x1F
+                        max_base = (w + h - 1) << up_a
+                        v = ((above[base] * (32 - shift) + above[base + 1] * shift + 16) >> 5 if base < max_base
+                             else above[max_base])
+                    elif 90 < p_angle < 180:
+                        idx = (j << 6) - (i + 1) * dx
+                        base = idx >> (6 - up_a)
+                        if base >= -(1 << up_a):
+                            shift = ((idx * (1 << up_a)) >> 1) & 0x1F
+                            v = (above[base] * (32 - shift) + above[base + 1] * shift + 16) >> 5
+                        else:
+                            idx = (i << 6) - (j + 1) * dy
+                            base = idx >> (6 - up_l)
+                            shift = ((idx * (1 << up_l)) >> 1) & 0x1F
+                            v = (left[base] * (32 - shift) + left[base + 1] * shift + 16) >> 5
+                    elif p_angle > 180:
+                        idx = (j + 1) * dy
+                        base = (idx >> (6 - up_l)) + (i << up_l)
+                        shift = ((idx << up_l) >> 1) & 0x1F
+                        v = (left[base] * (32 - shift) + left[base + 1] * shift + 16) >> 5
+                    elif p_angle == 90:
+                        v = above[j]
+                    else:
+                        v = left[i]
+                    pred[i, j] = v
+            return pred
+        wts = t["kSmWeights4"][0]
+        for i in range(h):
+            for j in range(w):
+                if mode == 9:
+                    v = (wts[i] * above[j] + (256 - wts[i]) * left[h - 1] + wts[j] * left[i]
+                         + (256 - wts[j]) * above[w - 1] + 256) >> 9
+                elif mode == 10:
+                    v = (wts[i] * above[j] + (256 - wts[i]) * left[h - 1] + 128) >> 8
+                elif mode == 11:
+                    v = (wts[j] * left[i] + (256 - wts[j]) * above[w - 1] + 128) >> 8
+                elif mode == 0:
+                    if have_left and have_above:
+                        v = (sum(left[k] for k in range(4)) + sum(above[k] for k in range(4)) + 4) // 8
+                    elif have_left:
+                        v = (sum(left[k] for k in range(4)) + 2) >> 2
+                    elif have_above:
+                        v = (sum(above[k] for k in range(4)) + 2) >> 2
+                    else:
+                        v = 1 << (bd_ - 1)
+                else:  # PAETH
+                    base = above[j] + left[i] - corner
+                    pl, pt, ptl = abs(base - left[i]), abs(base - above[j]), abs(base - corner)
+                    v = left[i] if pl <= pt and pl <= ptl else above[j] if pt <= ptl else corner
+                pred[i, j] = v
+        return pred
+
+    def is_smooth(self, r, c, p):
+        m = self.y_modes[r, c] if p == 0 else self.uv_modes[r, c]
+        return int(m in (9, 10, 11))
+
+    @staticmethod
+    def strength(ftype, delta):
+        d = abs(delta)
+        if ftype == 0:
+            return 1 if d >= 56 else 0
+        return 2 if d >= 64 else 1 if d >= 40 else 0
+
+    @staticmethod
+    def edge_filter(edge, sz, strength):
+        if not strength:
+            return
+        kernel = ((0, 4, 8, 4, 0), (0, 5, 6, 5, 0), (2, 4, 4, 4, 2))[strength - 1]
+        e = [edge[i - 1] for i in range(sz)]
+        for i in range(1, sz):
+            s = sum(kernel[j] * e[min(max(i - 2 + j, 0), sz - 1)] for j in range(5))
+            edge[i - 1] = (s + 8) >> 4
+
+    @staticmethod
+    def upsample(buf, num, maxv):
+        dup = [0] * (num + 3)
+        dup[0] = buf[-1]
+        for i in range(-1, num):
+            dup[i + 2] = buf[i]
+        dup[num + 2] = buf[num - 1]
+        buf[-2] = dup[0]
+        for i in range(num):
+            s = (-dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3] + 8) >> 4
+            buf[2 * i - 1] = min(max(s, 0), maxv)
+            buf[2 * i] = dup[i + 2]
+
+    def predict_cfl(self, p, x, y, dc):
+        alpha = self.cfl[p - 1]
+        luma = self.pix[0][y : y + 4, x : x + 4].astype(np.int64) << 3
+        avg = (int(luma.sum()) + 8) >> 4
+        scaled = alpha * (luma - avg)
+        scaled = np.where(scaled >= 0, (scaled + 32) >> 6, -((-scaled + 32) >> 6))
+        return np.clip(dc + scaled, 0, (1 << self.bd) - 1)
+
+    # ---- coefficients (5.11.39) ----
+    def coeffs(self, p, x4, y4, lv):
+        cdf, sym = self.cdf, self.sym
+        ptype = int(p > 0)
+        if p == 0:
+            if self.bsize == B4X4:
+                ctx = 0
+            else:
+                top, left = min(self.above_level[0][x4], 255), min(self.left_level[0][y4], 255)
+                if not top and not left:
+                    ctx = 1
+                elif not top or not left:
+                    ctx = 2 + (max(top, left) > 3)
+                elif max(top, left) <= 3:
+                    ctx = 4
+                elif min(top, left) <= 3:
+                    ctx = 5
+                else:
+                    ctx = 6
+        else:
+            above = self.above_level[p][x4] | self.above_dc[p][x4]
+            left = self.left_level[p][y4] | self.left_dc[p][y4]
+            ctx = 7 + (above != 0) + (left != 0) + (3 if self.bsize != B4X4 else 0)
+        q = lv.ravel()
+        all_zero = int(not q.any())
+        sym.symbol(all_zero, cdf["kTxbSkip"][ctx], 2)
+        cul, dc_cat = 0, 0
+        if not all_zero:
+            eob = max(k for k in range(16) if q[_SCAN[k]]) + 1
+            eob_pt = {1: 1, 2: 2}.get(eob, (eob - 1).bit_length() + 1)
+            sym.symbol(eob_pt - 1, cdf["kEobPt16"][ptype * 2], 5)
+            if eob_pt >= 3:
+                extra = eob - ((1 << (eob_pt - 2)) + 1)
+                sym.symbol((extra >> (eob_pt - 3)) & 1, cdf["kEobExtra"][ptype * 9 + eob_pt - 3], 2)
+                for i in range(1, max(1, eob_pt - 2)):
+                    sym.bool((extra >> (eob_pt - 3 - i)) & 1)
+            ctxq = np.zeros(16, np.int64)
+            for k in range(eob - 1, -1, -1):
+                pos = _SCAN[k]
+                mag = abs(int(q[pos]))
+                if k == eob - 1:
+                    bctx = 0 if k == 0 else 1 if k <= 2 else 2 if k <= 4 else 3
+                    sym.symbol(min(mag, 3) - 1, cdf["kCoeffBaseEob"][ptype * 4 + bctx], 3)
+                else:
+                    sym.symbol(min(mag, 3), cdf["kCoeffBase"][ptype * 42 + self.base_ctx(ctxq, pos)], 4)
+                if mag > 2:
+                    bctx = self.br_ctx(ctxq, pos)
+                    rem = mag - 3
+                    for _ in range(4):
+                        s = min(rem, 3)
+                        sym.symbol(s, cdf["kCoeffBr"][ptype * 21 + bctx], 4)
+                        rem -= s
+                        if s < 3:
+                            break
+                ctxq[pos] = min(mag, 15)
+            for k in range(eob):
+                pos = _SCAN[k]
+                v = int(q[pos])
+                if v:
+                    if k == 0:
+                        s = 0
+                        for cat in (self.above_dc[p][x4], self.left_dc[p][y4]):
+                            s += -1 if cat == 1 else 1 if cat == 2 else 0
+                        sym.symbol(int(v < 0), cdf["kDcSign"][ptype * 3 + (1 if s < 0 else 2 if s > 0 else 0)], 2)
+                    else:
+                        sym.bool(int(v < 0))
+                mag = abs(v)
+                if mag > 14:
+                    x = mag - 14
+                    length = x.bit_length()
+                    for _ in range(length - 1):
+                        sym.bool(0)
+                    sym.bool(1)
+                    for i in range(length - 2, -1, -1):
+                        sym.bool((x >> i) & 1)
+                if pos == 0 and mag:
+                    dc_cat = 1 if v < 0 else 2
+                cul = min(63, cul + mag)
+        self.above_level[p][x4] = self.left_level[p][y4] = cul
+        self.above_dc[p][x4] = self.left_dc[p][y4] = dc_cat
+
+    @staticmethod
+    def base_ctx(q, pos):
+        row, col = pos >> 2, pos & 3
+        mag = 0
+        for dr, dc in ((0, 1), (1, 0), (1, 1), (0, 2), (2, 0)):
+            if row + dr < 4 and col + dc < 4:
+                mag += min(abs(int(q[(row + dr) * 4 + col + dc])), 3)
+        if pos == 0:
+            return 0
+        return min((mag + 1) >> 1, 4) + _BASE_OFFSET[row][col]
+
+    @staticmethod
+    def br_ctx(q, pos):
+        row, col = pos >> 2, pos & 3
+        mag = 0
+        for dr, dc in ((0, 1), (1, 0), (1, 1)):
+            if row + dr < 4 and col + dc < 4:
+                mag += min(int(q[(row + dr) * 4 + col + dc]), 15)
+        mag = min((mag + 1) >> 1, 6)
+        if pos == 0:
+            return mag
+        return mag + 7 if row < 2 and col < 2 else mag + 14
+
+
+def _obu(kind: int, body: bytes) -> bytes:
+    size, n = bytearray(), len(body)
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        size.append(b | (0x80 if n else 0))
+        if not n:
+            break
+    return bytes([kind << 3 | 2]) + bytes(size) + body
+
+
+def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
+           disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
+           seed: int = 0, weights=None, modes: bool = True) -> bytes:
+    """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V] of equal
+    size, 4:4:4 with the identity matrix) -> its OBUs: a temporal
+    delimiter, a sequence header (``reduced``: a reduced still picture
+    header; else a full one with timing and decoder model information and
+    two operating points), then a frame OBU, or with ``split_obus`` a frame
+    header OBU and ``tile_groups`` tile group OBUs; ``extra_obus`` ([(type,
+    body)]) after the sequence header. ``tiles``: ("uniform", cols log2,
+    rows log2) or ("sizes", [widths], [heights]) in superblocks;
+    ``weights``: {block size: [a weight per partition type]}, the odds of
+    each where both halves of a square lie in the frame; ``modes``: every
+    intra mode drawn (angle deltas, CFL, filter intra), else DC only (all
+    drawn from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes)
+    mono = fr.mono
+    # the sequence header
+    b = Bits()
+    b.f(3, 2 if bit_depth == 12 else 0 if mono else 1)  # seq_profile: 0 mono, 1 4:4:4, 2 12-bit
+    b.f(1, 1)  # still_picture
+    b.f(1, int(reduced))
+    if reduced:
+        b.f(5, 8)  # seq_level_idx
+    else:
+        b.f(1, 1)  # timing_info_present_flag
+        b.f(32, 1)
+        b.f(32, 25)
+        b.f(1, 1)  # equal_picture_interval
+        b.f(1, 1)  # num_ticks_per_picture_minus_1 = 0 (uvlc '1')
+        b.f(1, 1)  # decoder_model_info_present_flag
+        b.f(5, 9)  # buffer_delay_length_minus_1
+        b.f(32, 1)
+        b.f(5, 9)  # buffer_removal_time_length_minus_1
+        b.f(5, 9)  # frame_presentation_time_length_minus_1
+        b.f(1, 1)  # initial_display_delay_present_flag
+        b.f(5, 1)  # two operating points
+        for idc in (0x101, 0):
+            b.f(12, idc)
+            b.f(5, 9)  # seq_level_idx > 7: a tier bit
+            b.f(1, 0)
+            b.f(1, 1)  # decoder_model_present_for_this_op
+            b.f(10, 100), b.f(10, 50), b.f(1, 0)
+            b.f(1, 1), b.f(4, 3)  # initial_display_delay
+    wb, hb = max(fr.w - 1, 1).bit_length(), max(fr.h - 1, 1).bit_length()
+    b.f(4, wb - 1), b.f(4, hb - 1), b.f(wb, fr.w - 1), b.f(hb, fr.h - 1)
+    if not reduced:
+        b.f(1, 0)  # frame_id_numbers_present_flag
+    b.f(1, int(sb128)), b.f(1, 1), b.f(1, 1)  # sb128, enable_filter_intra, enable_intra_edge_filter
+    if not reduced:
+        b.f(4, 0)  # interintra, masked compound, warped motion, dual filter
+        b.f(1, 1), b.f(1, 0), b.f(1, 0)  # enable_order_hint, jnt_comp, ref_frame_mvs
+        b.f(1, 0), b.f(1, 0)  # seq_choose_screen_content_tools 0, seq_force_screen_content_tools 0
+        b.f(3, 6)  # order_hint_bits_minus_1
+    b.f(1, 0), b.f(1, 0), b.f(1, 0)  # superres, cdef, restoration
+    profile = 2 if bit_depth == 12 else 0 if mono else 1
+    b.f(1, int(bit_depth > 8))  # high_bitdepth
+    if profile == 2:
+        b.f(1, 1)  # twelve_bit
+    if profile != 1:
+        b.f(1, int(mono))
+    if mono:  # no colour description; the range read
+        b.f(1, 0), b.f(1, 1)
+    else:  # BT.709 primaries, sRGB transfer, identity matrix: full range 4:4:4 implied
+        b.f(1, 1), b.f(8, 1), b.f(8, 13), b.f(8, 0)
+        b.f(1, 0)  # separate_uv_delta_q
+    b.f(1, 0)  # film_grain_params_present
+    b.trailing()
+    seq = b.bytes()
+    # the frame header
+    cols, rows, sb_cols, sb_rows = fr.tile_layout()
+    h = Bits()
+    if not reduced:
+        h.f(1, 0), h.f(2, 0), h.f(1, 1)  # show_existing_frame, KEY_FRAME, show_frame
+    h.f(1, disable_cdf_update)
+    if reduced:
+        h.f(1, 0)  # allow_screen_content_tools (seq_force_screen_content_tools is SELECT)
+    else:
+        h.f(1, 0)  # frame_size_override_flag
+        h.f(7, 0)  # order_hint
+        h.f(1, 1)  # buffer_removal_time_present_flag: op 0 (idc 0x101 holds layer 0) and op 1 (idc 0)
+        h.f(10, 0), h.f(10, 0)
+    h.f(1, 0)  # render_and_frame_size_different
+    if not reduced and not disable_cdf_update:
+        h.f(1, 1)  # disable_frame_end_update_cdf
+    sb_shift = 5 if sb128 else 4
+    sb_size = sb_shift + 2
+    max_w_sb = 4096 >> sb_size
+
+    def tile_log2(blk, target):
+        k = 0
+        while (blk << k) < target:
+            k += 1
+        return k
+
+    min_cols = tile_log2(max_w_sb, sb_cols)
+    max_cols, max_rows = tile_log2(1, min(sb_cols, 64)), tile_log2(1, min(sb_rows, 64))
+    min_tiles = max(min_cols, tile_log2((4096 * 2304) >> (2 * sb_size), sb_rows * sb_cols))
+    kind, a, bb = tiles
+    if kind == "uniform":
+        h.f(1, 1)
+        for k in range(min_cols, max_cols):
+            h.f(1, int(k < a))
+            if k >= a:
+                break
+        for k in range(max(min_tiles - a, 0), max_rows):
+            h.f(1, int(k < bb))
+            if k >= bb:
+                break
+        cols_log2, rows_log2 = a, bb
+    else:
+        h.f(1, 0)
+        start = 0
+        for w in a:
+            h.ns(min(sb_cols - start, max_w_sb), w - 1)
+            start += w
+        area = (sb_rows * sb_cols) >> (min_tiles + 1) if min_tiles > 0 else sb_rows * sb_cols
+        max_h = max(area // max(a), 1)
+        start = 0
+        for hh in bb:
+            h.ns(min(sb_rows - start, max_h), hh - 1)
+            start += hh
+        cols_log2, rows_log2 = tile_log2(1, len(a)), tile_log2(1, len(bb))
+    if cols_log2 or rows_log2:
+        h.f(cols_log2 + rows_log2, 0)  # context_update_tile_id
+        h.f(2, 3)  # tile_size_bytes_minus_1: 4 bytes
+    h.f(8, 0)  # base_q_idx
+    h.f(1, 0)  # DeltaQYDc
+    if not mono:
+        h.f(1, 0), h.f(1, 0)  # DeltaQUDc, DeltaQUAc
+    h.f(1, 0)  # using_qmatrix
+    h.f(1, 0)  # segmentation_enabled
+    h.f(1, 0)  # reduced_tx_set
+    # the tiles
+    n_cols, n_rows = len(cols) - 1, len(rows) - 1
+    data = [fr.encode_tile(rows[t // n_cols], rows[t // n_cols + 1], cols[t % n_cols], cols[t % n_cols + 1])
+            for t in range(n_cols * n_rows)]
+    n_tiles = len(data)
+    groups = np.array_split(np.arange(n_tiles), min(tile_groups, n_tiles))
+
+    def tile_group(first, last):
+        g = Bits()
+        if n_tiles > 1:
+            g.f(1, int(len(groups) > 1))
+            if len(groups) > 1:
+                g.f(cols_log2 + rows_log2, first), g.f(cols_log2 + rows_log2, last)
+        g.align()
+        body = g.bytes()
+        for t in range(first, last + 1):
+            if t < last:
+                body += (len(data[t]) - 1).to_bytes(4, "little")
+            body += data[t]
+        return body
+
+    out = _obu(2, b"") + _obu(1, seq)
+    for kind_, body in extra_obus:
+        out += _obu(kind_, body)
+    if split_obus:
+        h.trailing()
+        out += _obu(3, h.bytes())
+        for g in groups:
+            out += _obu(4, tile_group(int(g[0]), int(g[-1])))
+    else:
+        h.align()
+        out += _obu(6, h.bytes() + tile_group(0, n_tiles - 1))
+    return out
+
+
+def av1c(bit_depth: int, mono: bool) -> bytes:
+    """The av1C box body of what ``encode`` writes."""
+    profile = 2 if bit_depth == 12 else 0 if mono else 1
+    flags = (bit_depth > 8) << 6 | (bit_depth == 12) << 5 | mono << 4 | (mono << 3) | (mono << 2)
+    return bytes([0x81, profile << 5 | 8, flags, 0])
