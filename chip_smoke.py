@@ -305,15 +305,31 @@ It builds the CUDA kernels from the sources in the checkout and then:
      labelled micrographs in lossless forms (BGR, monochrome, 10-bit,
      12-bit, with irot, split across iloc extents; the files committed)
      through the CLI as phase 19 (c) takes its dataset; (d) the lossy
-     4:2:0 file cv2 writes at quality 95 raises ``UnsupportedImageError``.
+     4:2:0 file cv2 writes at quality 75, which deblocks, raises
+     ``UnsupportedImageError`` naming deblocking.
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
+ 22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
+     with the tables of ``native/av1_tables.h``, ``ops/avif.py``'s
+     libavif colour conversion): (a) one 1024x768 labelled micrograph
+     (``draw_labelled``, seed 22, its background flattened) in five forms
+     (cv2's quality 95 BGR 4:2:0 and gray, quality 99 at 10 and 12 bits,
+     where libaom deblocks at 95, and ``tools/av1_writer.py``'s lossless
+     4:2:0 BT.601 frame; the files committed in
+     ``tests/data/torch_avif_lossy_fixtures.npz``) decodes to the SHA-256
+     of cv2's array and near the drawing; (b) cv2's quality-75 frame, which
+     deblocks, raises ``UnsupportedImageError`` naming deblocking; (c) a
+     committed 2048² BGR micrograph at quality 95: host decode seconds
+     (median of 3) beside an uncompressed TIFF of the same pixels; (d) the
+     five frames through the CLI as phase 19 (c) takes its dataset.
+     ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
+     runs phase 22 alone.
 
 Phase 7 runs before phase 6, whose inputs come from a training step,
 phases 11, 12, 14, 15, 16 (a, b), 17 (a) and 18 before phase 13, phases 19
-to 21 after it, and phases 16 (c) and 17 (b) before phase 10. K1's
+to 22 after it, and phases 16 (c) and 17 (b) before phase 10. K1's
 ``launches`` in the kernel line is the sum of phases 3, 9, 11, 12, 13, 15,
-16, 17, 18, 19, 20 and 21, K2's of phases 7, 13, 16, 17, 19, 20 and 21, K4's and
+16, 17, 18, 19, 20, 21 and 22, K2's of phases 7, 13, 16, 17, 19, 20, 21 and 22, K4's and
 K5's of phase 14's two CLI runs, phase 15's wizard task, phase 16's
 two-shard int8 engine and phase 17's ``--quantized trunk`` runs, each
 counted from zero over its own run.
@@ -4453,6 +4469,13 @@ AVIF_DIR = os.path.join(ROOT, "build", "chip_smoke_avif")
 AVIF_FORMS = ("bgr", "mono", "10bit", "12bit", "irot", "extents")
 AVIF_SEED = 21
 
+AVIF_LOSSY_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_lossy_fixtures.npz")
+AVIF_LOSSY_DIR = os.path.join(ROOT, "build", "chip_smoke_avif_lossy")
+# phase 22's dataset: one labelled frame (seed 22) in each lossy or subsampled form -> how far each may lie from
+# the drawing (the lossless one not at all; the BGR ones hold the drawing in G, 12 levels up)
+AVIF_LOSSY_FORMS = {"bgr95": 14, "gray95": 12, "bgr10-99": 14, "bgr12-99": 14, "writer420": 0}
+AVIF_LOSSY_SEED = 22
+
 
 def avif_flatten(gray: np.ndarray) -> np.ndarray:
     """A ``draw_labelled`` frame with its background flattened to 80 (the
@@ -4933,9 +4956,10 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     2048² gray micrograph: host decode seconds (median of 3) beside an
     uncompressed TIFF of the same pixels; (c) the AVIF_FORMS dataset
     through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
-    errors, K2 errors). (d) A lossy 4:2:0 AVIF (cv2's at quality 95)
-    raises ``UnsupportedImageError`` from ``read_image``, outside the
-    dataset, since the loader would raise on it."""
+    errors, K2 errors). (d) A lossy 4:2:0 AVIF that deblocks (cv2's at
+    quality 75) raises ``UnsupportedImageError`` naming deblocking from
+    ``read_image``, outside the dataset, since the loader would raise on
+    it."""
     import hashlib
     import shutil
 
@@ -5006,16 +5030,16 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
           f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
           f"{card})", flush=True)
 
-    # (d) the lossy form, refused by name outside the dataset
+    # (d) the lossy form that deblocks, refused by name outside the dataset
     path = os.path.join(AVIF_DIR, "lossy.avif")
     with open(path, "wb") as f:
         f.write(fixtures["refused-lossy-420/file"].tobytes())
     try:
         read_image(path)
-        raise AssertionError("read_image decoded a lossy 4:2:0 AVIF")
+        raise AssertionError("read_image decoded an AVIF that deblocks")
     except UnsupportedImageError as e:
-        assert "4:2:0" in str(e), e
-        print(f"avif: lossy 4:2:0 (cv2 at quality 95): {str(e).split(': ', 1)[1]}", flush=True)
+        assert "deblocking" in str(e), e
+        print(f"avif: lossy 4:2:0 (cv2 at quality 75): {str(e).split(': ', 1)[1]}", flush=True)
 
     # (c) the dataset through the CLI
     home = os.path.join(AVIF_DIR, "home")
@@ -5050,6 +5074,120 @@ def avif_only():
                           "max_abs_err_bwd": max(k2_errs)}), flush=True)
     finally:
         shutil.rmtree(AVIF_DIR, ignore_errors=True)
+
+
+def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOSSY_SEED):
+    """Phase 22's dataset: the labelled micrograph ``draw_labelled`` makes
+    from ``seed`` in each AVIF_LOSSY_FORMS form in ``root``, each the
+    fixtures' committed file (its decode held to the SHA-256 of cv2's array,
+    and to the drawing with its background flattened), and in ``twin`` the
+    same labels beside uncompressed RGB TIFFs of the arrays ``read_image``
+    decodes -> the file names."""
+    import hashlib
+
+    from deepemia_tpu_torch.ops.image import read_image
+
+    fixtures = np.load(AVIF_LOSSY_FIXTURES)
+    gray, instances = draw_labelled(np.random.default_rng(seed), hw)
+    flat = avif_flatten(gray).astype(np.int16)
+    for d in (root, twin):
+        os.makedirs(d, exist_ok=True)
+    names = []
+    for i, (form, tol) in enumerate(AVIF_LOSSY_FORMS.items()):
+        name = f"sem_{i:02d}.avif"
+        path = os.path.join(root, name)
+        with open(path, "wb") as f:
+            f.write(fixtures[f"smoke-{form}/file"].tobytes())
+        img = read_image(path)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == fixtures[f"smoke-{form}/sha256"].tobytes().decode(), form
+        err = np.abs(img[..., 1].astype(np.int16) - flat - (12 if form.startswith("bgr") else 0))
+        assert err.max() <= tol, (form, int(err.max()))
+        with open(os.path.join(twin, f"sem_{i:02d}.tif"), "wb") as f:
+            f.write(codings.tiff_of(np.ascontiguousarray(img[..., ::-1])))
+        for d, n in ((root, name), (twin, f"sem_{i:02d}.tif")):
+            with open(os.path.join(d, f"sem_{i:02d}.json"), "w") as f:
+                json.dump({"metadata": {"name": n, "height": hw[0], "width": hw[1]}, "instances": instances}, f)
+        names.append(name)
+    return names
+
+
+def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
+    """Phase 22: lossy and subsampled AVIF. (a) the AVIF_LOSSY_FORMS
+    dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
+    cv2's array and near the drawing); (b) cv2's quality-75 frame, which
+    deblocks, raises ``UnsupportedImageError`` naming deblocking; (c) the
+    committed 2048² BGR micrograph at quality 95: host decode seconds
+    (median of 3) beside an uncompressed TIFF of the same pixels, with the
+    card's name and power limit; (d) the dataset through the CLI
+    (``cli_on_dataset``) -> (K1 launches, K2 launches, K1 errors, K2
+    errors)."""
+    import hashlib
+    import shutil
+
+    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+
+    shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
+    os.makedirs(AVIF_LOSSY_DIR)
+    fixtures = np.load(AVIF_LOSSY_FIXTURES)
+    home = os.path.join(AVIF_LOSSY_DIR, "home")
+    root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
+    t0 = time.perf_counter()
+    files = avif_lossy_dataset(root, twin)
+    print(f"avif lossy: {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs in the forms "
+          f"{', '.join(AVIF_LOSSY_FORMS)} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
+          f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) a frame that deblocks
+    path = os.path.join(AVIF_LOSSY_DIR, "q75.avif")
+    with open(path, "wb") as f:
+        f.write(fixtures["smoke-q75/file"].tobytes())
+    try:
+        read_image(path)
+        raise AssertionError("read_image decoded an AVIF that deblocks")
+    except UnsupportedImageError as e:
+        assert "AV1 deblocking" in str(e), e
+        print(f"avif lossy: the same frame at quality 75: {str(e).split(': ', 1)[1]}", flush=True)
+
+    # (c) decode seconds at 2048²
+    path = os.path.join(AVIF_LOSSY_DIR, "smoke-2048-q95.avif")
+    with open(path, "wb") as f:
+        f.write(fixtures["smoke-2048-q95/file"].tobytes())
+    got, secs = decode_seconds(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["smoke-2048-q95/sha256"].tobytes().decode()
+    tiff_path = os.path.join(AVIF_LOSSY_DIR, "plain.tif")
+    with open(tiff_path, "wb") as f:
+        f.write(codings.tiff_of(np.ascontiguousarray(got[..., ::-1])))
+    _, plain_s = decode_seconds(tiff_path)
+    print(f"avif lossy: decode smoke-2048-q95 {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0 "
+          f"quality 95, cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed RGB TIFF {plain_s:.4f} s "
+          f"(median of 3, host; {card})", flush=True)
+
+    # (d) the dataset through the CLI
+    k1, k2, k1_errs, k2_errs = cli_on_dataset("avif lossy", home, root, twin, files, card, device=device,
+                                              config_hook=config_hook, steps=steps)
+    shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
+    return k1, k2, k1_errs, k2_errs
+
+
+def avif_lossy_only():
+    """Phase 22 alone."""
+    import shutil
+
+    from deepemia_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["roi_align_fwd", "roi_align_bwd"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        k1, k2, k1_errs, k2_errs = phase_avif_lossy(card)
+        print(f"phases 22: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"roi_align_fwd": k1, "roi_align_bwd": k2, "max_abs_err_fwd": max(k1_errs),
+                          "max_abs_err_bwd": max(k2_errs)}), flush=True)
+    finally:
+        shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
 
 
 def parallel_only():
@@ -5252,6 +5390,11 @@ def main() -> int:
         shutil.rmtree(AVIF_DIR, ignore_errors=True)
     lap(21)
     try:
+        lossy_k1, lossy_k2, lossy_k1_errs, lossy_k2_errs = phase_avif_lossy(card)
+    finally:
+        shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
+    lap(22)
+    try:
         ranks_k1, ranks_k2, one_step = phase_ranks(card)
         lap("16 (c)")
         tp_k1, tp_k2 = phase_tp_training(one_step, card)
@@ -5262,7 +5405,7 @@ def main() -> int:
     lap(10)
 
     errs = [r["err"] for r in list(tile_rows.values()) + captured] + pipeline_errs + ensemble_errs + dataset_k1_errs \
-        + containers_k1_errs + j2k_k1_errs + avif_k1_errs
+        + containers_k1_errs + j2k_k1_errs + avif_k1_errs + lossy_k1_errs
     kernel = {
         "name": "roi_align_fwd",
         "route": "cuda",
@@ -5274,10 +5417,10 @@ def main() -> int:
         # --chips 2 ensemble's process; the one-process training step and the CLI's training in an NCCL
         # group) and 17 (--task inference on two ranks, bf16 and int8, and in an NCCL group of one; both ranks of
         # the tensor-parallel step) and 18 (--task inference on the BigTIFF and FillOrder 2 rasters) and 19
-        # to 21 (training and evaluation on the containers', the JPEG 2000 and the AVIF datasets), each counted from
-        # zero
+        # to 22 (training and evaluation on the containers', the JPEG 2000, the lossless and the lossy AVIF
+        # datasets), each counted from zero
         "launches": launches + pipeline_launches + ensemble_launches + cli_launches + dataset_k1 + entry_k1
-        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1 + j2k_k1 + avif_k1,
+        + shard_k1 + ranks_k1 + rank_k1 + tp_k1 + codings_k1 + containers_k1 + j2k_k1 + avif_k1 + lossy_k1,
         "max_abs_err": max(errs),
         # one 16-tile batch of the main path: its box-stage + mask-stage call
         "ms": sum(r["ms"] for r in captured),
@@ -5293,10 +5436,11 @@ def main() -> int:
         "replaces": "deepemia_tpu/kernels/roi_align_pallas.py:608",
         # phases 7 (train_on_batches() on ready batches), 13 (training from a dataset through the CLI), 16 (the
         # one-process step and the CLI's training in an NCCL group), 17 (both ranks of the tensor-parallel step)
-        # and 19 to 21 (training on the containers', the JPEG 2000 and the AVIF datasets)
-        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2 + j2k_k2 + avif_k2,
+        # and 19 to 22 (training on the containers', the JPEG 2000, the lossless and the lossy AVIF datasets)
+        "launches": train_launches["roi_align_bwd"] + dataset_k2 + ranks_k2 + tp_k2 + containers_k2 + j2k_k2 + avif_k2
+        + lossy_k2,
         "max_abs_err": max([r["err"] for r in bwd_rows] + dataset_k2_errs + containers_k2_errs + j2k_k2_errs
-                           + avif_k2_errs),
+                           + avif_k2_errs + lossy_k2_errs),
         # one training step: its box-stage + mask-stage call, bf16
         "ms": sum(r["ms"] for r in bwd_rows),
         "plain_ms": sum(r["plain_ms"] for r in bwd_rows),

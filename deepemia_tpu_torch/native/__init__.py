@@ -2,11 +2,13 @@
 (``measure.cpp``), the LZW, PackBits, CCITT fax, JPEG, Radiance HDR and
 GIF LZW decoders of ``read_image`` (``codecs.cpp``), its WebP decoders
 (``webp.cpp``), its JPEG 2000 codestream decoder (``jpeg2000.cpp``) and
-its AV1 decoder of lossless still pictures (``av1.cpp``).
+its AV1 decoder of still pictures (``av1.cpp``, with the tables of
+``av1_tables.h``).
 
 Each library compiles on first use with ``g++ -O2 -shared -fPIC`` into
 ``build/torch_native/lib<name>-<hash>.so`` at the root of the checkout
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the headers it includes from this directory
+and the flags, so an edited source rebuilds).
 A failed build raises; there is no numpy fallback. Nothing here runs at
 import time.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -62,13 +65,19 @@ _SIGNATURES = {
     "av1": {
         "av1_decode": ([_P, _L, _P], _I),
         "av1_planes": ([_P, _L], _I),
+        "yuv_to_bgr_libyuv": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], None),
+        "av1_inverse_transform": ([_P, _I, _I, _I, _P], _I),
     },
 }
 
 
 def library_path(name: str = "measure") -> Path:
     src = SRC_DIR / f"{name}.cpp"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    text = src.read_bytes()
+    # the headers of this directory that the source includes count as source
+    headers = sorted(set(re.findall(rb'#include "([\w.]+)"', text)))
+    digest = hashlib.sha256(text + b"".join((SRC_DIR / h.decode()).read_bytes() for h in headers)
+                            + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -275,9 +284,10 @@ def jpeg2000_decode(data: bytes, header_only: bool = False) -> Tuple[int, list, 
     return status, header, planes
 
 
-def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
+def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[list]]:
     """An AV1 payload (the OBUs of an AVIF item) -> (status, meta, planes):
-    status 0 with [planes, height, width] uint16 samples (Y, then U and V),
+    status 0 with a list of [height, width] uint16 planes (Y, then U and V
+    at their subsampled size),
     -1 a stream libaom fails on, -2 one that uses a tool ``av1.cpp`` does
     not have (meta[4] its number, ``ops/avif.py:AV1_TOOLS``), -3 a frame
     past libavif's size limits (meta[0] x meta[1]); planes are then None. meta (``av1.cpp:av1_decode``): width, height, bit depth,
@@ -290,9 +300,43 @@ def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[np.ndarray]]:
     if status:
         return status, meta, None
     w, h, _, n = (int(v) for v in meta[:4])
-    out = np.empty((n, h, w), np.uint16)
+    sx, sy = int(meta[9]), int(meta[10])
+    shapes = [(h, w)] + [((h + sy) >> sy, (w + sx) >> sx)] * (n - 1)
+    out = np.empty(sum(a * b for a, b in shapes), np.uint16)
     lib.av1_planes(_ptr(out), out.size)
-    return status, meta, out
+    planes, at = [], 0
+    for ph, pw in shapes:
+        planes.append(out[at : at + ph * pw].reshape(ph, pw))
+        at += ph * pw
+    return status, meta, planes
+
+
+def av1_inverse_transform(coef: np.ndarray, tx: int, tx_type: int, bit_depth: int) -> np.ndarray:
+    """``av1.cpp``'s 2D inverse transform: the dequantized coefficients
+    [min(h, 32), min(w, 32)] of transform size ``tx`` (the AV1
+    specification's TxSize) and type ``tx_type`` -> the residual [h, w]
+    int32."""
+    c = np.ascontiguousarray(coef, np.int32)
+    lw = (2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6, 2, 4, 3, 5, 4, 6)[tx]
+    lh = (2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5, 4, 2, 5, 3, 6, 4)[tx]
+    assert c.shape == (min(1 << lh, 32), min(1 << lw, 32)), c.shape
+    out = np.empty((1 << lh, 1 << lw), np.int32)
+    if get_lib("av1").av1_inverse_transform(_ptr(c), tx, tx_type, bit_depth, _ptr(out)):
+        raise ValueError(f"no inverse transform of type {tx_type} at size {tx}")
+    return out
+
+
+def yuv_to_bgr_libyuv(y: np.ndarray, u: np.ndarray, v: np.ndarray, depth: int, constants) -> np.ndarray:
+    """Y, U, V uint16 planes (chroma at its subsampled size) -> [H,W,3]
+    BGR uint8 as libyuv's I4xxToRGB24MatrixFilter makes it from their top
+    8 bits (``av1.cpp:yuv_to_bgr_libyuv``); ``constants``: YG, YB, UB, UG,
+    VG, VR."""
+    y, u, v = (np.ascontiguousarray(p, np.uint16) for p in (y, u, v))
+    k = np.asarray(constants, np.int32)
+    out = np.empty(y.shape + (3,), np.uint8)
+    get_lib("av1").yuv_to_bgr_libyuv(_ptr(y), _ptr(u), _ptr(v), y.shape[1], y.shape[0], u.shape[1], u.shape[0],
+                                     depth, _ptr(k), _ptr(out))
+    return out
 
 
 def float_to_u8(samples: np.ndarray, scale: float = 1.0, rgbe: bool = False) -> np.ndarray:

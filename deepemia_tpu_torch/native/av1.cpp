@@ -1,22 +1,34 @@
-// A decoder of the AV1 still pictures that libaom writes losslessly, as
-// libavif hands them to libaom (AV1 specification, 2019 with errata):
-// the OBU layer (sequence headers, full and reduced; temporal delimiter,
-// frame, frame header and tile group OBUs; padding and metadata skipped),
-// the uncompressed header of a shown key frame, tile info (uniform and
-// not), the symbol decoder with CDF adaptation, partitions of 64x64 and
-// 128x128 superblocks down to 4x4, intra mode info (skip, Y mode, angle
-// delta, UV mode with CFL, filter intra), TX_4X4 coefficients at
-// q-context 0 with the inverse Walsh-Hadamard transform, and intra
-// prediction (DC, V, H, the directional modes with the edge filter and
-// upsampling, smooth, Paeth, CFL, recursive filter intra), at 8, 10 and 12
-// bits in 4:4:4 or 4:0:0. A stream that uses any other tool is refused
-// with the tool's number (kTool*), never decoded wrong.
+// A decoder of the AV1 still pictures that libaom writes, as libavif hands
+// them to libaom (AV1 specification, 2019 with errata): the OBU layer
+// (sequence headers, full and reduced; temporal delimiter, frame, frame
+// header and tile group OBUs; padding and metadata skipped), the
+// uncompressed header of a shown key frame, tile info (uniform and not), the
+// symbol decoder with CDF adaptation, partitions of 64x64 and 128x128
+// superblocks down to 4x4, intra mode info (skip, the CDEF index and
+// delta q of a superblock, Y mode, angle delta, UV mode with CFL, filter
+// intra, the transform depth), coefficients of every transform size from
+// 4x4 to 64x64 at the frame's q-context with their transform types (the
+// intra sets), dequantization with quantizer matrices, the inverse DCT,
+// ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
+// prediction at every transform size (DC, V, H, the directional modes with
+// the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
+// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0. The in-loop
+// filters are not applied: a frame that turns on deblocking, CDEF, delta
+// loop filter levels or loop restoration is refused with the tool's number
+// (kTool*), as is a stream that uses any other tool this decoder lacks;
+// none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
 // (aom_reader_has_overflowed), a Golomb code longer than 20 bits, an OBU
 // larger than its data, a sequence or frame header whose trailing bits are
-// not a one and zeros.
+// not a one and zeros, a partition whose chroma block the subsampling does
+// not allow. A frame refused for an in-loop filter is read to its end first,
+// so that a stream libaom fails on fails here too.
+//
+// The specification's larger tables (quantizer lookups and matrices, the
+// coefficient, transform type and depth CDFs, scans, smooth weights) are in
+// av1_tables.h, generated from libaom by tools/extract_av1_tables.py.
 //
 // Built by ``native/__init__.py`` with g++ at first use; the entry point is
 // av1_decode.
@@ -28,10 +40,14 @@
 #include <new>
 #include <vector>
 
+#include "av1_tables.h"
+
 namespace {
 
-// The default CDFs of the AV1 specification (section 9.4) that a lossless key
-// frame reads, in the specification's form: N cumulative values ending in
+int floor_log2(uint32_t x) { return x > 1 ? 31 - __builtin_clz(x) : 0; }
+
+// The default CDFs of the AV1 specification (section 9.4) of the mode info, in
+// the specification's form: N cumulative values ending in
 // 32768, then the adaptation counter.
 static const uint16_t kPartition8[4][5] = {
   {19132, 25510, 30392, 32768, 0},
@@ -155,186 +171,6 @@ static const uint16_t kCflAlpha[6][17] = {
   {26990, 31402, 32282, 32571, 32692, 32696, 32700, 32704, 32708, 32712, 32716, 32720, 32724, 32728, 32732, 32768, 0},
   {17248, 26058, 28904, 30608, 31305, 31877, 32126, 32321, 32394, 32464, 32516, 32560, 32576, 32593, 32622, 32768, 0},
   {14738, 21678, 25779, 27901, 29024, 30302, 30980, 31843, 32144, 32413, 32520, 32594, 32622, 32656, 32660, 32768, 0}};
-// the coefficient CDFs of TX_4X4 at q-context 0 (base_q_idx <= 20)
-static const uint16_t kTxbSkip[13][3] = {
-  {31849, 32768, 0},
-  {5892, 32768, 0},
-  {12112, 32768, 0},
-  {21935, 32768, 0},
-  {20289, 32768, 0},
-  {27473, 32768, 0},
-  {32487, 32768, 0},
-  {7654, 32768, 0},
-  {19473, 32768, 0},
-  {29984, 32768, 0},
-  {9961, 32768, 0},
-  {30242, 32768, 0},
-  {32117, 32768, 0}};
-static const uint16_t kEobPt16[4][6] = {
-  {840, 1039, 1980, 4895, 32768, 0},
-  {370, 671, 1883, 4471, 32768, 0},
-  {3247, 4950, 9688, 14563, 32768, 0},
-  {1904, 3354, 7763, 14647, 32768, 0}};
-static const uint16_t kEobExtra[18][3] = {
-  {16961, 32768, 0},
-  {17223, 32768, 0},
-  {7621, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {19069, 32768, 0},
-  {22525, 32768, 0},
-  {13377, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0},
-  {16384, 32768, 0}};
-static const uint16_t kCoeffBaseEob[8][4] = {
-  {17837, 29055, 32768, 0},
-  {29600, 31446, 32768, 0},
-  {30844, 31878, 32768, 0},
-  {24926, 28948, 32768, 0},
-  {21365, 30026, 32768, 0},
-  {30512, 32423, 32768, 0},
-  {31658, 32621, 32768, 0},
-  {29630, 31881, 32768, 0}};
-static const uint16_t kCoeffBase[84][5] = {
-  {4034, 8930, 12727, 32768, 0},
-  {18082, 29741, 31877, 32768, 0},
-  {12596, 26124, 30493, 32768, 0},
-  {9446, 21118, 27005, 32768, 0},
-  {6308, 15141, 21279, 32768, 0},
-  {2463, 6357, 9783, 32768, 0},
-  {20667, 30546, 31929, 32768, 0},
-  {13043, 26123, 30134, 32768, 0},
-  {8151, 18757, 24778, 32768, 0},
-  {5255, 12839, 18632, 32768, 0},
-  {2820, 7206, 11161, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {15736, 27553, 30604, 32768, 0},
-  {11210, 23794, 28787, 32768, 0},
-  {5947, 13874, 19701, 32768, 0},
-  {4215, 9323, 13891, 32768, 0},
-  {2833, 6462, 10059, 32768, 0},
-  {19605, 30393, 31582, 32768, 0},
-  {13523, 26252, 30248, 32768, 0},
-  {8446, 18622, 24512, 32768, 0},
-  {3818, 10343, 15974, 32768, 0},
-  {1481, 4117, 6796, 32768, 0},
-  {22649, 31302, 32190, 32768, 0},
-  {14829, 27127, 30449, 32768, 0},
-  {8313, 17702, 23304, 32768, 0},
-  {3022, 8301, 12786, 32768, 0},
-  {1536, 4412, 7184, 32768, 0},
-  {22354, 29774, 31372, 32768, 0},
-  {14723, 25472, 29214, 32768, 0},
-  {6673, 13745, 18662, 32768, 0},
-  {2068, 5766, 9322, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {6302, 16444, 21761, 32768, 0},
-  {23040, 31538, 32475, 32768, 0},
-  {15196, 28452, 31496, 32768, 0},
-  {10020, 22946, 28514, 32768, 0},
-  {6533, 16862, 23501, 32768, 0},
-  {3538, 9816, 15076, 32768, 0},
-  {24444, 31875, 32525, 32768, 0},
-  {15881, 28924, 31635, 32768, 0},
-  {9922, 22873, 28466, 32768, 0},
-  {6527, 16966, 23691, 32768, 0},
-  {4114, 11303, 17220, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {20201, 30770, 32209, 32768, 0},
-  {14754, 28071, 31258, 32768, 0},
-  {8378, 20186, 26517, 32768, 0},
-  {5916, 15299, 21978, 32768, 0},
-  {4268, 11583, 17901, 32768, 0},
-  {24361, 32025, 32581, 32768, 0},
-  {18673, 30105, 31943, 32768, 0},
-  {10196, 22244, 27576, 32768, 0},
-  {5495, 14349, 20417, 32768, 0},
-  {2676, 7415, 11498, 32768, 0},
-  {24678, 31958, 32585, 32768, 0},
-  {18629, 29906, 31831, 32768, 0},
-  {9364, 20724, 26315, 32768, 0},
-  {4641, 12318, 18094, 32768, 0},
-  {2758, 7387, 11579, 32768, 0},
-  {25433, 31842, 32469, 32768, 0},
-  {18795, 29289, 31411, 32768, 0},
-  {7644, 17584, 23592, 32768, 0},
-  {3408, 9014, 15047, 32768, 0},
-  {8192, 16384, 24576, 32768, 0},
-  {8192, 16384, 24576, 32768, 0}};
-static const uint16_t kCoeffBr[42][5] = {
-  {14298, 20718, 24174, 32768, 0},
-  {12536, 19601, 23789, 32768, 0},
-  {8712, 15051, 19503, 32768, 0},
-  {6170, 11327, 15434, 32768, 0},
-  {4742, 8926, 12538, 32768, 0},
-  {3803, 7317, 10546, 32768, 0},
-  {1696, 3317, 4871, 32768, 0},
-  {14392, 19951, 22756, 32768, 0},
-  {15978, 23218, 26818, 32768, 0},
-  {12187, 19474, 23889, 32768, 0},
-  {9176, 15640, 20259, 32768, 0},
-  {7068, 12655, 17028, 32768, 0},
-  {5656, 10442, 14472, 32768, 0},
-  {2580, 4992, 7244, 32768, 0},
-  {12136, 18049, 21426, 32768, 0},
-  {13784, 20721, 24481, 32768, 0},
-  {10836, 17621, 21900, 32768, 0},
-  {8372, 14444, 18847, 32768, 0},
-  {6523, 11779, 16000, 32768, 0},
-  {5337, 9898, 13760, 32768, 0},
-  {3034, 5860, 8462, 32768, 0},
-  {15967, 22905, 26286, 32768, 0},
-  {13534, 20654, 24579, 32768, 0},
-  {9504, 16092, 20535, 32768, 0},
-  {6975, 12568, 16903, 32768, 0},
-  {5364, 10091, 14020, 32768, 0},
-  {4357, 8370, 11857, 32768, 0},
-  {2506, 4934, 7218, 32768, 0},
-  {23032, 28815, 30936, 32768, 0},
-  {19540, 26704, 29719, 32768, 0},
-  {15158, 22969, 27097, 32768, 0},
-  {11408, 18865, 23650, 32768, 0},
-  {8885, 15448, 20250, 32768, 0},
-  {7108, 12853, 17416, 32768, 0},
-  {4231, 8041, 11480, 32768, 0},
-  {19823, 26490, 29156, 32768, 0},
-  {18890, 25929, 28932, 32768, 0},
-  {15660, 23491, 27433, 32768, 0},
-  {12147, 19776, 24488, 32768, 0},
-  {9728, 16774, 21649, 32768, 0},
-  {7919, 14277, 19066, 32768, 0},
-  {5440, 10170, 14185, 32768, 0}};
-static const uint16_t kDcSign[2][3][3] = {{{16000, 32768, 0}, {13056, 32768, 0}, {18816, 32768, 0}},
-  {{15232, 32768, 0}, {12928, 32768, 0}, {17280, 32768, 0}}};
-
-static const uint8_t kSmWeights4[4] = {255, 149, 85, 64};
 static const int16_t kDrIntraDerivative[90] = {
     0, 0, 0, 1023, 0, 0, 547, 0, 0, 372, 0, 0, 0, 0, 273, 0, 0, 215, 0, 0, 178, 0, 0, 151, 0, 0, 132, 0, 0, 116,
     0, 0, 102, 0, 0, 0, 90, 0, 0, 80, 0, 0, 71, 0, 0, 64, 0, 0, 57, 0, 0, 51, 0, 0, 45, 0, 0, 0, 40, 0,
@@ -353,26 +189,391 @@ static const int8_t kFilterIntraTaps[5][8][7] = {
 static const int kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0};
 static const int kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
 static const int kEdgeKernel[3][5] = {{0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
-static const int kDefaultScan4x4[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
-static const int kCoeffBaseCtxOffset4x4[5][5] = {
-    {0, 1, 6, 6, 0}, {1, 6, 6, 21, 0}, {6, 6, 21, 21, 0}, {6, 21, 21, 21, 0}, {0, 0, 0, 0, 0}};
 
 // block sizes, in the specification's order
 enum { B4X4, B4X8, B8X4, B8X8, B8X16, B16X8, B16X16, B16X32, B32X16, B32X32, B32X64, B64X32, B64X64,
        B64X128, B128X64, B128X128, B4X16, B16X4, B8X32, B32X8, B16X64, B64X16, BLOCK_INVALID };
 static const int kWide4[22] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
 static const int kHigh4[22] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
+// Subsampled_Size[block][subsampling x][subsampling y]
+static const uint8_t kSubsampled[22][2][2] = {
+    {{B4X4, B4X4}, {B4X4, B4X4}}, {{B4X8, B4X4}, {BLOCK_INVALID, B4X4}}, {{B8X4, BLOCK_INVALID}, {B4X4, B4X4}},
+    {{B8X8, B8X4}, {B4X8, B4X4}}, {{B8X16, B8X8}, {BLOCK_INVALID, B4X8}}, {{B16X8, BLOCK_INVALID}, {B8X8, B8X4}},
+    {{B16X16, B16X8}, {B8X16, B8X8}}, {{B16X32, B16X16}, {BLOCK_INVALID, B8X16}},
+    {{B32X16, BLOCK_INVALID}, {B16X16, B16X8}}, {{B32X32, B32X16}, {B16X32, B16X16}},
+    {{B32X64, B32X32}, {BLOCK_INVALID, B16X32}}, {{B64X32, BLOCK_INVALID}, {B32X32, B32X16}},
+    {{B64X64, B64X32}, {B32X64, B32X32}}, {{B64X128, B64X64}, {BLOCK_INVALID, B32X64}},
+    {{B128X64, BLOCK_INVALID}, {B64X64, B64X32}}, {{B128X128, B128X64}, {B64X128, B64X64}},
+    {{B4X16, B4X8}, {BLOCK_INVALID, B4X8}}, {{B16X4, BLOCK_INVALID}, {B8X4, B8X4}},
+    {{B8X32, B8X16}, {BLOCK_INVALID, B4X16}}, {{B32X8, BLOCK_INVALID}, {B16X8, B16X4}},
+    {{B16X64, B16X32}, {BLOCK_INVALID, B8X32}}, {{B64X16, BLOCK_INVALID}, {B32X16, B32X8}}};
 enum { P_NONE, P_HORZ, P_VERT, P_SPLIT, P_HORZ_A, P_HORZ_B, P_VERT_A, P_VERT_B, P_HORZ_4, P_VERT_4 };
 enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED, D203_PRED, D67_PRED, SMOOTH_PRED,
        SMOOTH_V_PRED, SMOOTH_H_PRED, PAETH_PRED, UV_CFL_PRED };
+
+// transform sizes, in the specification's order
+enum { TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16,
+       TX_32X64, TX_64X32, TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16 };
+static const int kTxWLog2[19] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4, 5, 5, 6, 2, 4, 3, 5, 4, 6};
+static const int kTxHLog2[19] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5, 4, 6, 5, 4, 2, 5, 3, 6, 4};
+static const int kTxRowShift[19] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2};
+static const int kSplitTx[19] = {TX_4X4, TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_4X4, TX_4X4, TX_8X8, TX_8X8,
+                                 TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8, TX_8X4, TX_8X16, TX_16X8,
+                                 TX_16X32, TX_32X16};
+static const int kMaxTxRect[22] = {TX_4X4, TX_4X8, TX_8X4, TX_8X8, TX_8X16, TX_16X8, TX_16X16, TX_16X32,
+                                   TX_32X16, TX_32X32, TX_32X64, TX_64X32, TX_64X64, TX_64X64, TX_64X64, TX_64X64,
+                                   TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16};
+static const int kMaxTxDepth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+// transform types (the intra sets use the first four, IDTX, V_DCT and H_DCT)
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX = 9, V_DCT, H_DCT };
+static const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+                                    DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
+static const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+static const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+static const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+static const int kSigRefDiffOffset[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+                                              {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+                                              {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+static const int kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}}, {{0, 1}, {1, 0}, {0, 2}},
+                                          {{0, 1}, {1, 0}, {2, 0}}};
+// Coeff_Base_Ctx_Offset by the shape of the transform: square, wide, tall
+static const int kCoeffBaseCtxOffset[3][5][5] = {
+    {{0, 1, 6, 6, 21}, {1, 6, 6, 21, 21}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}},
+    {{0, 16, 6, 6, 21}, {16, 16, 6, 21, 21}, {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}, {16, 16, 21, 21, 21}},
+    {{0, 11, 11, 11, 11}, {11, 11, 11, 11, 11}, {6, 6, 21, 21, 21}, {6, 21, 21, 21, 21}, {21, 21, 21, 21, 21}}};
+
+int tx_w(int t) { return 1 << kTxWLog2[t]; }
+int tx_h(int t) { return 1 << kTxHLog2[t]; }
+int tx_sqr(int t) { return std::min(kTxWLog2[t], kTxHLog2[t]) - 2; }     // Tx_Size_Sqr, as TX_4X4 .. TX_64X64
+int tx_sqr_up(int t) { return std::max(kTxWLog2[t], kTxHLog2[t]) - 2; }  // Tx_Size_Sqr_Up
+
+// the default, mrow and mcol scans of the coded (at most 32x32) part of a transform
+const int16_t* default_scan(int w, int h) {
+  using namespace av1t;
+  switch (w * 100 + h) {
+    case 404: return kDefaultScan4x4;
+    case 808: return kDefaultScan8x8;
+    case 1616: return kDefaultScan16x16;
+    case 3232: return kDefaultScan32x32;
+    case 408: return kDefaultScan4x8;
+    case 804: return kDefaultScan8x4;
+    case 816: return kDefaultScan8x16;
+    case 1608: return kDefaultScan16x8;
+    case 1632: return kDefaultScan16x32;
+    case 3216: return kDefaultScan32x16;
+    case 416: return kDefaultScan4x16;
+    case 1604: return kDefaultScan16x4;
+    case 832: return kDefaultScan8x32;
+    case 3208: return kDefaultScan32x8;
+  }
+  return nullptr;
+}
+const int16_t* mrow_scan(int w, int h) {
+  using namespace av1t;
+  switch (w * 100 + h) {
+    case 404: return kMrowScan4x4;
+    case 808: return kMrowScan8x8;
+    case 1616: return kMrowScan16x16;
+    case 408: return kMrowScan4x8;
+    case 804: return kMrowScan8x4;
+    case 816: return kMrowScan8x16;
+    case 1608: return kMrowScan16x8;
+    case 416: return kMrowScan4x16;
+    case 1604: return kMrowScan16x4;
+  }
+  return nullptr;
+}
+const int16_t* mcol_scan(int w, int h) {
+  using namespace av1t;
+  switch (w * 100 + h) {
+    case 404: return kMcolScan4x4;
+    case 808: return kMcolScan8x8;
+    case 1616: return kMcolScan16x16;
+    case 408: return kMcolScan4x8;
+    case 804: return kMcolScan8x4;
+    case 816: return kMcolScan8x16;
+    case 1608: return kMcolScan16x8;
+    case 416: return kMcolScan4x16;
+    case 1604: return kMcolScan16x4;
+  }
+  return nullptr;
+}
+const uint8_t* sm_weights(int log2) {  // Sm_Weights_Tx_4x4 .. Sm_Weights_Tx_64x64
+  static const int off[5] = {0, 4, 12, 28, 60};
+  return av1t::kSmWeights + off[log2 - 2];
+}
+
+// ---------------------------------------------------------------------------
+// The inverse transforms (7.13.2), as libaom computes them: each butterfly
+// rounds its product, each sum is clamped to the stage's range
+// ---------------------------------------------------------------------------
+
+struct Tx1d {
+  int range;  // bits of the intermediate clamp
+  int32_t clamp(int64_t v) const {
+    const int64_t lo = -(1ll << (range - 1)), hi = (1ll << (range - 1)) - 1;
+    return (int32_t)(v < lo ? lo : v > hi ? hi : v);
+  }
+  static int32_t btf(int w0, int32_t a, int w1, int32_t b) {  // half_btf at cos_bit 12
+    return (int32_t)(((int64_t)w0 * a + (int64_t)w1 * b + 2048) >> 12);
+  }
+  static int cospi(int k) { return av1t::kCos128[k]; }
+  static int brev(int bits, int x) {  // x's low ``bits`` bits reversed (bits 1 .. 5)
+    static const struct Table {
+      uint8_t v[6][32];
+      Table() {
+        for (int b = 1; b < 6; ++b)
+          for (int x = 0; x < (1 << b); ++x) {
+            int r = 0;
+            for (int i = 0; i < b; ++i) r |= ((x >> i) & 1) << (b - 1 - i);
+            v[b][x] = (uint8_t)r;
+          }
+      }
+    } table;
+    return table.v[bits][x];
+  }
+
+  // the odd half of an n-point inverse DCT, on its inputs in natural order
+  void dct_odd(int32_t* a, int m) const {
+    int lm = floor_log2((uint32_t)m), n = 2 * m;
+    int32_t t[32], o[32];
+    for (int i = 0; i < m; ++i) t[i] = a[brev(lm, i)];
+    // the first rotations: (i, m - 1 - i)
+    for (int i = 0; i < m / 2; ++i) {
+      int th = (64 / n) * (n - 1 - 2 * brev(lm, i));
+      o[i] = btf(cospi(th), t[i], -cospi(64 - th), t[m - 1 - i]);
+      o[m - 1 - i] = btf(cospi(64 - th), t[i], cospi(th), t[m - 1 - i]);
+    }
+    for (int i = 0; i < m; ++i) t[i] = o[i];
+    for (int level = 1; (1 << level) < m; ++level) {
+      // sums and differences within groups of 2^level, mirrored, the odd groups reversed
+      int g = 1 << level;
+      for (int s = 0; s < m; s += g) {
+        bool odd = (s / g) & 1;
+        for (int k = 0; k < g / 2; ++k) {
+          int32_t x = t[s + k], y = t[s + g - 1 - k];
+          o[s + k] = odd ? clamp((int64_t)y - x) : clamp((int64_t)x + y);
+          o[s + g - 1 - k] = odd ? clamp((int64_t)x + y) : clamp((int64_t)x - y);
+        }
+      }
+      for (int i = 0; i < m; ++i) t[i] = o[i];
+      int big = 2 << level;  // groups of 2^(level + 1) pair with their mirror group
+      if (big >= m) {       // the last level: a rotation by pi/4 of the middle pairs
+        for (int k = big / 4; k < big / 2; ++k) {
+          o[k] = btf(-cospi(32), t[k], cospi(32), t[m - 1 - k]);
+          o[m - 1 - k] = btf(cospi(32), t[k], cospi(32), t[m - 1 - k]);
+        }
+      } else {
+        int np = 2 * m / big;  // the size of the inverse DCT whose first rotations these are
+        int lp = floor_log2((uint32_t)(np / 2));
+        for (int gi = 0; gi < m / big / 2; ++gi) {
+          int th = (64 / np) * (np - 1 - 2 * brev(lp, gi)), s = gi * big;
+          for (int k = s + big / 4; k < s + big / 2; ++k) {
+            o[k] = btf(-cospi(64 - th), t[k], cospi(th), t[m - 1 - k]);
+            o[m - 1 - k] = btf(cospi(th), t[k], cospi(64 - th), t[m - 1 - k]);
+          }
+          for (int k = s + big / 2; k < s + 3 * big / 4; ++k) {
+            o[k] = btf(-cospi(th), t[k], -cospi(64 - th), t[m - 1 - k]);
+            o[m - 1 - k] = btf(-cospi(64 - th), t[k], cospi(th), t[m - 1 - k]);
+          }
+        }
+      }
+      for (int i = 0; i < m; ++i) t[i] = o[i];
+    }
+    for (int i = 0; i < m; ++i) a[i] = t[i];
+  }
+
+  // the n-point inverse DCT (n = 4 .. 64), in place
+  void dct(int32_t* x, int n) const {
+    if (n == 2) {
+      int32_t a = x[0], b = x[1];
+      x[0] = btf(cospi(32), a, cospi(32), b);
+      x[1] = btf(cospi(32), a, -cospi(32), b);
+      return;
+    }
+    int m = n / 2;
+    int32_t e[32], o[32];
+    for (int i = 0; i < m; ++i) { e[i] = x[2 * i]; o[i] = x[2 * i + 1]; }
+    dct(e, m);
+    if (m == 2) {  // the odd half of the 4-point transform: one rotation
+      int32_t a = o[0], b = o[1];
+      o[0] = btf(cospi(48), a, -cospi(16), b);
+      o[1] = btf(cospi(16), a, cospi(48), b);
+    } else {
+      dct_odd(o, m);
+    }
+    for (int k = 0; k < m; ++k) {
+      x[k] = clamp((int64_t)e[k] + o[m - 1 - k]);
+      x[n - 1 - k] = clamp((int64_t)e[k] - o[m - 1 - k]);
+    }
+  }
+
+  static void adst4(int32_t* x) {
+    const int32_t* s = av1t::kSinpi;
+    int64_t x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+    int64_t s0 = s[1] * x0, s1 = s[2] * x0, s2 = s[3] * x1, s3 = s[4] * x2, s4 = s[1] * x2, s5 = s[2] * x3,
+            s6 = s[4] * x3;
+    int64_t s7 = (x0 - x2) + x3;
+    s0 = s0 + s3;
+    s1 = s1 - s4;
+    s3 = s2;
+    s2 = s[3] * s7;
+    s0 = s0 + s5;
+    s1 = s1 - s6;
+    int64_t y0 = s0 + s3, y1 = s1 + s3, y2 = s2, y3 = s0 + s1;
+    y3 = y3 - s3;
+    x[0] = (int32_t)((y0 + 2048) >> 12);
+    x[1] = (int32_t)((y1 + 2048) >> 12);
+    x[2] = (int32_t)((y2 + 2048) >> 12);
+    x[3] = (int32_t)((y3 + 2048) >> 12);
+  }
+
+  // the 8- and 16-point inverse ADST, in place
+  void adst8(int32_t* x) const {
+    static const int perm[8] = {7, 0, 5, 2, 3, 4, 1, 6};
+    int32_t b[8], c[8];
+    for (int i = 0; i < 8; ++i) b[i] = x[perm[i]];
+    for (int k = 0; k < 4; ++k) {
+      int th = 4 + 16 * k;
+      c[2 * k] = btf(cospi(th), b[2 * k], cospi(64 - th), b[2 * k + 1]);
+      c[2 * k + 1] = btf(cospi(64 - th), b[2 * k], -cospi(th), b[2 * k + 1]);
+    }
+    for (int k = 0; k < 4; ++k) {
+      b[k] = clamp((int64_t)c[k] + c[k + 4]);
+      b[k + 4] = clamp((int64_t)c[k] - c[k + 4]);
+    }
+    for (int k = 0; k < 4; ++k) c[k] = b[k];
+    c[4] = btf(cospi(16), b[4], cospi(48), b[5]);
+    c[5] = btf(cospi(48), b[4], -cospi(16), b[5]);
+    c[6] = btf(-cospi(48), b[6], cospi(16), b[7]);
+    c[7] = btf(cospi(16), b[6], cospi(48), b[7]);
+    for (int s = 0; s < 8; s += 4) {
+      b[s] = clamp((int64_t)c[s] + c[s + 2]);
+      b[s + 1] = clamp((int64_t)c[s + 1] + c[s + 3]);
+      b[s + 2] = clamp((int64_t)c[s] - c[s + 2]);
+      b[s + 3] = clamp((int64_t)c[s + 1] - c[s + 3]);
+    }
+    for (int s = 0; s < 8; s += 4) {
+      c[s] = b[s];
+      c[s + 1] = b[s + 1];
+      c[s + 2] = btf(cospi(32), b[s + 2], cospi(32), b[s + 3]);
+      c[s + 3] = btf(cospi(32), b[s + 2], -cospi(32), b[s + 3]);
+    }
+    x[0] = c[0]; x[1] = -c[4]; x[2] = c[6]; x[3] = -c[2];
+    x[4] = c[3]; x[5] = -c[7]; x[6] = c[5]; x[7] = -c[1];
+  }
+
+  void adst16(int32_t* x) const {
+    static const int perm[16] = {15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14};
+    int32_t b[16], c[16];
+    for (int i = 0; i < 16; ++i) b[i] = x[perm[i]];
+    for (int k = 0; k < 8; ++k) {
+      int th = 2 + 8 * k;
+      c[2 * k] = btf(cospi(th), b[2 * k], cospi(64 - th), b[2 * k + 1]);
+      c[2 * k + 1] = btf(cospi(64 - th), b[2 * k], -cospi(th), b[2 * k + 1]);
+    }
+    for (int k = 0; k < 8; ++k) {
+      b[k] = clamp((int64_t)c[k] + c[k + 8]);
+      b[k + 8] = clamp((int64_t)c[k] - c[k + 8]);
+    }
+    for (int k = 0; k < 8; ++k) c[k] = b[k];
+    c[8] = btf(cospi(8), b[8], cospi(56), b[9]);
+    c[9] = btf(cospi(56), b[8], -cospi(8), b[9]);
+    c[10] = btf(cospi(40), b[10], cospi(24), b[11]);
+    c[11] = btf(cospi(24), b[10], -cospi(40), b[11]);
+    c[12] = btf(-cospi(56), b[12], cospi(8), b[13]);
+    c[13] = btf(cospi(8), b[12], cospi(56), b[13]);
+    c[14] = btf(-cospi(24), b[14], cospi(40), b[15]);
+    c[15] = btf(cospi(40), b[14], cospi(24), b[15]);
+    for (int s = 0; s < 16; s += 8)
+      for (int k = s; k < s + 4; ++k) {
+        b[k] = clamp((int64_t)c[k] + c[k + 4]);
+        b[k + 4] = clamp((int64_t)c[k] - c[k + 4]);
+      }
+    for (int s = 0; s < 16; s += 8) {
+      for (int k = s; k < s + 4; ++k) c[k] = b[k];
+      c[s + 4] = btf(cospi(16), b[s + 4], cospi(48), b[s + 5]);
+      c[s + 5] = btf(cospi(48), b[s + 4], -cospi(16), b[s + 5]);
+      c[s + 6] = btf(-cospi(48), b[s + 6], cospi(16), b[s + 7]);
+      c[s + 7] = btf(cospi(16), b[s + 6], cospi(48), b[s + 7]);
+    }
+    for (int s = 0; s < 16; s += 4) {
+      b[s] = clamp((int64_t)c[s] + c[s + 2]);
+      b[s + 1] = clamp((int64_t)c[s + 1] + c[s + 3]);
+      b[s + 2] = clamp((int64_t)c[s] - c[s + 2]);
+      b[s + 3] = clamp((int64_t)c[s + 1] - c[s + 3]);
+    }
+    for (int s = 0; s < 16; s += 4) {
+      c[s] = b[s];
+      c[s + 1] = b[s + 1];
+      c[s + 2] = btf(cospi(32), b[s + 2], cospi(32), b[s + 3]);
+      c[s + 3] = btf(cospi(32), b[s + 2], -cospi(32), b[s + 3]);
+    }
+    static const int out[16] = {0, 8, 12, 4, 6, 14, 10, 2, 3, 11, 15, 7, 5, 13, 9, 1};
+    for (int i = 0; i < 16; ++i) x[i] = (i & 1) ? -c[out[i]] : c[out[i]];
+  }
+
+  static void identity(int32_t* x, int n) {
+    for (int i = 0; i < n; ++i) {
+      int64_t v = x[i];
+      if (n == 4) x[i] = (int32_t)((v * 5793 + 2048) >> 12);
+      else if (n == 8) x[i] = (int32_t)(v * 2);
+      else if (n == 16) x[i] = (int32_t)((v * 2 * 5793 + 2048) >> 12);
+      else x[i] = (int32_t)(v * 4);
+    }
+  }
+
+  // kind: 0 DCT, 1 ADST, 2 identity
+  void run(int32_t* x, int n, int kind) const {
+    if (kind == 2) identity(x, n);
+    else if (kind == 0) dct(x, n);
+    else if (n == 4) adst4(x);
+    else if (n == 8) adst8(x);
+    else adst16(x);
+  }
+};
+
+// 7.13.3: the 2D inverse transform of dequantized coefficients (the coded top-left part, at most 32x32,
+// row-major) -> the residual [h][w]
+void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int32_t* res) {
+  static const int row_kind[12] = {0, 0, 1, 1, 0, 0, 0, 0, 0, 2, 2, 0};  // DCT_DCT .. H_DCT (no flips)
+  static const int col_kind[12] = {0, 1, 0, 1, 0, 0, 0, 0, 0, 2, 0, 2};
+  const int lw = kTxWLog2[tx], lh = kTxHLog2[tx], w = 1 << lw, h = 1 << lh, tw = std::min(w, 32);
+  const Tx1d rows{bd + 8}, cols{std::max(bd + 6, 16)};
+  const int shift = kTxRowShift[tx];
+  int32_t t[64];
+  for (int i = 0; i < h; ++i) {
+    int32_t* r = res + i * w;
+    bool any = false;
+    for (int j = 0; j < w; ++j) {
+      int64_t v = (i < 32 && j < 32) ? coef[i * tw + j] : 0;
+      if (std::abs(lw - lh) == 1) v = (v * 2896 + 2048) >> 12;
+      t[j] = rows.clamp(v);
+      any |= t[j] != 0;
+    }
+    if (any) {
+      rows.run(t, w, row_kind[tx_type]);
+      for (int j = 0; j < w; ++j) r[j] = shift ? (int32_t)(((int64_t)t[j] + (1 << (shift - 1))) >> shift) : t[j];
+    } else {
+      for (int j = 0; j < w; ++j) r[j] = 0;
+    }
+  }
+  for (int j = 0; j < w; ++j) {
+    for (int i = 0; i < h; ++i) t[i] = cols.clamp(res[i * w + j]);
+    cols.run(t, h, col_kind[tx_type]);
+    for (int i = 0; i < h; ++i) res[i * w + j] = (int32_t)(((int64_t)t[i] + 8) >> 4);
+  }
+}
 
 }  // namespace
 
 // What a refusal names (meta[4]); ops/avif.py holds the names
 enum Tool {
-  kToolLossy = 1, kToolSubsampling = 2, kToolSegmentation = 3, kToolScreenContent = 4,
+  kToolDeblocking = 1, kToolCdef = 2, kToolSegmentation = 3, kToolScreenContent = 4,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
-  kToolShowExisting = 10
+  kToolShowExisting = 10, kToolDeltaLf = 11, kToolRestoration = 12
 };
 
 namespace {
@@ -384,12 +585,6 @@ struct Unsupported {
   int tool;
 };
 struct TooLarge {};
-
-int floor_log2(uint32_t x) {
-  int s = 0;
-  while (x > 1) { x >>= 1; ++s; }
-  return s;
-}
 
 // ---------------------------------------------------------------------------
 // Bits: f(n), uvlc, leb128, su, ns, le
@@ -461,11 +656,15 @@ struct Symbol {
   int64_t max_bits;
   uint32_t value, range;
   bool adapt;
-  uint32_t bits(int n) {
+  uint32_t bits(int n) {  // the next n bits, zeros past the data
     uint32_t x = 0;
-    for (int i = 0; i < n; ++i) {
-      int64_t b = pos++;
-      x = (x << 1) | ((b >> 3) < size ? (p[b >> 3] >> (7 - (b & 7))) & 1 : 0);
+    while (n > 0) {
+      int64_t at = pos >> 3;
+      int off = (int)(pos & 7), take = std::min(n, 8 - off);
+      uint32_t byte = at < size ? p[at] : 0;
+      x = (x << take) | ((byte >> (8 - off - take)) & ((1u << take) - 1));
+      pos += take;
+      n -= take;
     }
     return x;
   }
@@ -557,9 +756,14 @@ struct Cdfs {
   uint16_t partition8[4][5], partition16[12][11], partition128[4][9];
   uint16_t kf_y[25][14], uv_no_cfl[13][14], uv_cfl[13][15], angle[8][8], skip[3][3], filter_intra[22][3];
   uint16_t filter_intra_mode[6], cfl_sign[9], cfl_alpha[6][17];
-  uint16_t txb_skip[13][3], eob16[2][2][6], eob_extra[2][9][3], base_eob[2][4][4], base[2][42][5], br[2][21][5];
-  uint16_t dc_sign[2][3][3];
-  void reset() {
+  uint16_t intra_tx1[2][13][8], intra_tx2[3][13][6], tx8[3][3], tx16[3][4], tx32[3][4], tx64[3][4];
+  uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
+  // the coefficient CDFs of the frame's q context
+  uint16_t txb_skip[5][13][3], eob16[2][2][6], eob32[2][2][7], eob64[2][2][8], eob128[2][2][9], eob256[2][2][10];
+  uint16_t eob512[2][11], eob1024[2][12], eob_extra[5][2][9][3], base_eob[5][2][4][4], base[5][2][42][5];
+  uint16_t br[5][2][21][5], dc_sign[2][3][3];
+  void reset(int qctx) {
+    using namespace av1t;
     std::memcpy(partition8, kPartition8, sizeof partition8);
     std::memcpy(partition16, kPartition16, sizeof partition16);
     std::memcpy(partition128, kPartition128, sizeof partition128);
@@ -574,13 +778,28 @@ struct Cdfs {
     std::memcpy(filter_intra_mode, kFilterIntraMode, sizeof filter_intra_mode);
     std::memcpy(cfl_sign, kCflSign, sizeof cfl_sign);
     std::memcpy(cfl_alpha, kCflAlpha, sizeof cfl_alpha);
-    std::memcpy(txb_skip, kTxbSkip, sizeof txb_skip);
-    std::memcpy(eob16, kEobPt16, sizeof eob16);
-    std::memcpy(eob_extra, kEobExtra, sizeof eob_extra);
-    std::memcpy(base_eob, kCoeffBaseEob, sizeof base_eob);
-    std::memcpy(base, kCoeffBase, sizeof base);
-    std::memcpy(br, kCoeffBr, sizeof br);
-    std::memcpy(dc_sign, kDcSign, sizeof dc_sign);
+    std::memcpy(intra_tx1, kIntraTxTypeSet1Cdf, sizeof intra_tx1);
+    std::memcpy(intra_tx2, kIntraTxTypeSet2Cdf, sizeof intra_tx2);
+    std::memcpy(tx8, kTx8x8Cdf, sizeof tx8);
+    std::memcpy(tx16, kTx16x16Cdf, sizeof tx16);
+    std::memcpy(tx32, kTx32x32Cdf, sizeof tx32);
+    std::memcpy(tx64, kTx64x64Cdf, sizeof tx64);
+    std::memcpy(delta_q, kDeltaQCdf, sizeof delta_q);
+    std::memcpy(delta_lf, kDeltaQCdf, sizeof delta_lf);  // Default_Delta_Lf_Cdf equals Default_Delta_Q_Cdf
+    for (int i = 0; i < 4; ++i) std::memcpy(delta_lf_multi[i], kDeltaQCdf, sizeof delta_lf_multi[i]);
+    std::memcpy(txb_skip, kTxbSkipCdf[qctx], sizeof txb_skip);
+    std::memcpy(eob16, kEobPt16Cdf[qctx], sizeof eob16);
+    std::memcpy(eob32, kEobPt32Cdf[qctx], sizeof eob32);
+    std::memcpy(eob64, kEobPt64Cdf[qctx], sizeof eob64);
+    std::memcpy(eob128, kEobPt128Cdf[qctx], sizeof eob128);
+    std::memcpy(eob256, kEobPt256Cdf[qctx], sizeof eob256);
+    std::memcpy(eob512, kEobPt512Cdf[qctx], sizeof eob512);
+    std::memcpy(eob1024, kEobPt1024Cdf[qctx], sizeof eob1024);
+    std::memcpy(eob_extra, kEobExtraCdf[qctx], sizeof eob_extra);
+    std::memcpy(base_eob, kCoeffBaseEobCdf[qctx], sizeof base_eob);
+    std::memcpy(base, kCoeffBaseCdf[qctx], sizeof base);
+    std::memcpy(br, kCoeffBrCdf[qctx], sizeof br);
+    std::memcpy(dc_sign, kDcSignCdf[qctx], sizeof dc_sign);
   }
 };
 
@@ -595,26 +814,37 @@ struct Decoder {
   int disable_cdf_update = 0;
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 0;
   std::vector<int> mi_col_starts, mi_row_starts;
+  int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
+  int lossless = 0, delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_multi = 0;
+  int cdef_bits = 0, tx_mode_select = 0, reduced_tx_set = 0;
+  int filter_tool = 0;  // an in-loop filter the frame applies: refused once the frame is read
   bool seen_frame_header = false, decoded = false;
   int next_tile = 0;
   Cdfs frame_cdfs, cdf;
-  // the frame: planes of (mi_cols * 4) x (mi_rows * 4) samples
-  int planes = 0, stride = 0;
+  // the frame: plane p has pw[p] x ph[p] samples (the 8x8-aligned frame, subsampled)
+  int planes = 0, pw[3] = {0, 0, 0}, ph[3] = {0, 0, 0}, stride[3] = {0, 0, 0};
   std::vector<uint16_t> frame[3];
   // per 4x4 unit of the frame
-  std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips;
+  std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
+  std::vector<int8_t> cdef_idx;  // per 64x64
   // coefficient contexts, per plane
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
   uint8_t block_decoded_[3][34][34];
   // the tile
   int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
+  int current_q = 0, read_deltas = 0;
   Symbol sym;
   // the block
-  int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, skip, y_mode, uv_mode, angle_y, angle_uv;
-  int use_filter_intra, filter_intra_mode, cfl_alpha_u, cfl_alpha_v;
+  int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
+  int skip, y_mode, uv_mode, angle_y, angle_uv, tx_size;
+  int use_filter_intra, filter_intra_mode, cfl_alpha_u, cfl_alpha_v, max_luma_w, max_luma_h;
+  // scratch of a transform block
+  int32_t quant[1024], dequant[1024], resid[4096];
 
   uint8_t& block_decoded(int plane, int r, int c) { return block_decoded_[plane][r + 1][c + 1]; }
-  uint16_t& px(int plane, int y, int x) { return frame[plane][(int64_t)y * stride + x]; }
+  uint16_t& px(int plane, int y, int x) { return frame[plane][(int64_t)y * stride[plane] + x]; }
+  int ssx(int plane) const { return plane ? seq.ssx : 0; }
+  int ssy(int plane) const { return plane ? seq.ssy : 0; }
 
   // ---- sequence header (5.5) ----
   void sequence_header(Bits& b) {
@@ -727,7 +957,6 @@ struct Decoder {
       s.separate_uv_delta_q = b.f(1);
     }
     s.film_grain = b.f(1);
-    if (!s.mono && (s.ssx || s.ssy)) throw Unsupported{kToolSubsampling};
     seq = s;
   }
 
@@ -779,23 +1008,76 @@ struct Decoder {
     if (!seq.reduced && !disable_cdf_update) b.f(1);
     tile_info(b);
     // quantization_params
-    int base_q = b.f(8);
+    base_q_idx = b.f(8);
     auto delta_q = [&]() { return b.f(1) ? b.su(7) : 0; };
-    int dq = delta_q();
+    for (int p = 0; p < 3; ++p) delta_q_dc[p] = delta_q_ac[p] = 0;
+    delta_q_dc[0] = delta_q();
+    int sep = 0;
     if (seq.mono == 0) {
       int diff = seq.separate_uv_delta_q ? b.f(1) : 0;
-      dq |= delta_q(); dq |= delta_q();
-      if (diff) { dq |= delta_q(); dq |= delta_q(); }
+      delta_q_dc[1] = delta_q();
+      delta_q_ac[1] = delta_q();
+      delta_q_dc[2] = delta_q_dc[1];
+      delta_q_ac[2] = delta_q_ac[1];
+      if (diff) {
+        delta_q_dc[2] = delta_q();
+        delta_q_ac[2] = delta_q();
+      }
+      sep = seq.separate_uv_delta_q;
     }
-    if (base_q != 0 || dq != 0) throw Unsupported{kToolLossy};
-    if (b.f(1)) {  // using_qmatrix: qm_y, qm_u (and qm_v), which a lossless block does not apply
-      b.f(4); b.f(4);
-      if (seq.separate_uv_delta_q) b.f(4);
+    int using_qmatrix = b.f(1), qm[3] = {15, 15, 15};
+    if (using_qmatrix) {
+      qm[0] = b.f(4);
+      qm[1] = b.f(4);
+      qm[2] = sep ? b.f(4) : qm[1];
     }
     if (b.f(1)) throw Unsupported{kToolSegmentation};  // segmentation_enabled
-    // delta_q_params, delta_lf_params: not read at base_q_idx 0; loop filter, CDEF and loop restoration
-    // parameters: not read in a coded-lossless frame; tx_mode: ONLY_4X4; reference mode: intra
-    b.f(1);  // reduced_tx_set
+    // delta_q_params, delta_lf_params
+    delta_q_present = base_q_idx > 0 ? b.f(1) : 0;
+    delta_q_res = delta_q_present ? b.f(2) : 0;
+    delta_lf_present = delta_q_present ? b.f(1) : 0;
+    delta_lf_multi = 0;
+    if (delta_lf_present) {
+      b.f(2);  // delta_lf_res
+      delta_lf_multi = b.f(1);
+      filter_tool = kToolDeltaLf;
+    }
+    lossless = base_q_idx == 0 && delta_q_dc[0] == 0 && delta_q_dc[1] == 0 && delta_q_ac[1] == 0 &&
+               delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
+    for (int p = 0; p < 3; ++p) qm_level[p] = (lossless || !using_qmatrix) ? 15 : qm[p];
+    cdef_bits = 0;
+    if (!lossless) {
+      // loop_filter_params
+      int level0 = b.f(6), level1 = b.f(6);
+      if (seq.mono == 0 && (level0 || level1)) { b.f(6); b.f(6); }
+      if (level0 || level1) filter_tool = kToolDeblocking;
+      b.f(3);  // sharpness
+      if (b.f(1) && b.f(1)) {  // loop_filter_delta_enabled, loop_filter_delta_update
+        for (int i = 0; i < 8; ++i)
+          if (b.f(1)) b.su(7);
+        for (int i = 0; i < 2; ++i)
+          if (b.f(1)) b.su(7);
+      }
+      // cdef_params
+      if (seq.cdef) {
+        b.f(2);  // cdef_damping_minus_3
+        cdef_bits = b.f(2);
+        for (int i = 0; i < (1 << cdef_bits); ++i) {
+          int strength = b.f(4) | b.f(2);
+          if (seq.mono == 0) strength |= b.f(4) | b.f(2);
+          if (strength && filter_tool != kToolDeblocking) filter_tool = kToolCdef;
+        }
+      }
+      // lr_params: a restoration type changes the tile syntax
+      if (seq.restoration) {
+        for (int p = 0; p < (seq.mono ? 1 : 3); ++p)
+          if (b.f(2)) throw Unsupported{kToolRestoration};
+      }
+      tx_mode_select = b.f(1);  // tx_mode: TX_MODE_SELECT, else TX_MODE_LARGEST
+    } else {
+      tx_mode_select = 0;  // ONLY_4X4
+    }
+    reduced_tx_set = b.f(1);
     if (seq.film_grain && b.f(1)) throw Unsupported{kToolFilmGrain};  // apply_grain
   }
 
@@ -867,15 +1149,22 @@ struct Decoder {
 
   void start_frame() {
     planes = seq.mono ? 1 : 3;
-    stride = mi_cols * 4;
-    for (int p = 0; p < planes; ++p) frame[p].assign((size_t)stride * mi_rows * 4, 0);
+    for (int p = 0; p < planes; ++p) {
+      pw[p] = (mi_cols * 4) >> ssx(p);
+      ph[p] = (mi_rows * 4) >> ssy(p);
+      stride[p] = pw[p] + 64;  // a transform block that starts in the frame may reach 60 samples past it
+      frame[p].assign((size_t)stride[p] * (ph[p] + 64), 0);
+    }
     size_t n = (size_t)mi_cols * mi_rows;
     y_modes.assign(n, 0); uv_modes.assign(n, 0); mi_sizes.assign(n, 0); skips.assign(n, 0);
+    tx_sizes.assign(n, 0); tx_types.assign(n, 0);
+    cdef_idx.assign((size_t)((mi_rows + 15) / 16 + 2) * ((mi_cols + 15) / 16 + 2), -1);
     for (int p = 0; p < 3; ++p) {
       above_level[p].assign(mi_cols + 32, 0); above_dc[p].assign(mi_cols + 32, 0);
       left_level[p].assign(mi_rows + 32, 0); left_dc[p].assign(mi_rows + 32, 0);
     }
-    frame_cdfs.reset();
+    int qctx = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1 : base_q_idx <= 120 ? 2 : 3;
+    frame_cdfs.reset(qctx);
     next_tile = 0;
   }
 
@@ -910,6 +1199,7 @@ struct Decoder {
       mi_col_start = mi_col_starts[t % tile_cols];
       mi_col_end = mi_col_starts[t % tile_cols + 1];
       cdf = frame_cdfs;
+      current_q = base_q_idx;
       sym.init(p + at, size, disable_cdf_update);
       decode_tile();
       at += size;
@@ -930,6 +1220,9 @@ struct Decoder {
         std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
       }
       for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = delta_q_present;
+        for (int y = r; y < r + sb4; y += 16)
+          for (int x = c; x < c + sb4; x += 16) cdef(y, x) = -1;
         clear_block_decoded(r, c, sb4);
         decode_partition(r, c, seq.sb128 ? B128X128 : B64X64);
         if (sym.overflowed()) throw Corrupt{__LINE__};
@@ -938,13 +1231,15 @@ struct Decoder {
     if (!sym.trailing_ok()) throw Corrupt{__LINE__};
   }
 
+  int8_t& cdef(int r, int c) { return cdef_idx[(size_t)(r >> 4) * ((mi_cols + 15) / 16 + 2) + (c >> 4)]; }
+
   void clear_block_decoded(int r, int c, int sb4) {
     for (int p = 0; p < planes; ++p) {
-      int w4 = mi_col_end - c, h4 = mi_row_end - r;
-      for (int y = -1; y <= sb4; ++y)
-        for (int x = -1; x <= sb4; ++x)
+      int w4 = (mi_col_end - c) >> ssx(p), h4 = (mi_row_end - r) >> ssy(p);
+      for (int y = -1; y <= (sb4 >> ssy(p)); ++y)
+        for (int x = -1; x <= (sb4 >> ssx(p)); ++x)
           block_decoded(p, y, x) = (y < 0 && x < w4) || (x < 0 && y < h4);
-      block_decoded(p, sb4, -1) = 0;
+      block_decoded(p, sb4 >> ssy(p), -1) = 0;
     }
   }
 
@@ -1002,6 +1297,8 @@ struct Decoder {
     else if (has_cols || has_rows) partition = partition_symbol(r, c, bsize, has_rows, has_cols);
     else partition = P_SPLIT;
     int sub = sub_size(partition, bsize), split = sub_size(P_SPLIT, bsize);
+    // libaom: a partition whose chroma block the subsampling does not allow
+    if (planes > 1 && kSubsampled[sub][seq.ssx][seq.ssy] == BLOCK_INVALID) throw Corrupt{__LINE__};
     switch (partition) {
       case P_NONE: decode_block(r, c, sub); break;
       case P_HORZ:
@@ -1045,14 +1342,23 @@ struct Decoder {
   void decode_block(int r, int c, int bsize) {
     mi_row = r; mi_col = c; mi_size = bsize;
     int bw4 = kWide4[bsize], bh4 = kHigh4[bsize];
-    has_chroma = planes > 1;
+    has_chroma = planes > 1 && !(seq.ssx && bw4 == 1 && (c & 1) == 0) && !(seq.ssy && bh4 == 1 && (r & 1) == 0);
     avail_u = inside(r - 1, c);
     avail_l = inside(r, c - 1);
+    avail_u_chroma = avail_u;
+    avail_l_chroma = avail_l;
+    if (has_chroma) {
+      if (seq.ssy && bh4 == 1) avail_u_chroma = inside(r - 2, c);
+      if (seq.ssx && bw4 == 1) avail_l_chroma = inside(r, c - 2);
+    } else {
+      avail_u_chroma = avail_l_chroma = 0;
+    }
     intra_frame_mode_info();
+    read_tx_size();
     if (skip) {
       for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
-        for (int i = c; i < c + bw4; ++i) { above_level[p][i] = 0; above_dc[p][i] = 0; }
-        for (int i = r; i < r + bh4; ++i) { left_level[p][i] = 0; left_dc[p][i] = 0; }
+        for (int i = c >> ssx(p); i < (c + bw4) >> ssx(p); ++i) { above_level[p][i] = 0; above_dc[p][i] = 0; }
+        for (int i = r >> ssy(p); i < (r + bh4) >> ssy(p); ++i) { left_level[p][i] = 0; left_dc[p][i] = 0; }
       }
     }
     for (int y = 0; y < bh4; ++y) {
@@ -1060,8 +1366,9 @@ struct Decoder {
       for (int x = 0; x < bw4; ++x) {
         if (c + x >= mi_cols) break;
         int64_t k = (int64_t)(r + y) * mi_cols + c + x;
-        y_modes[k] = (uint8_t)y_mode; uv_modes[k] = (uint8_t)uv_mode; mi_sizes[k] = (uint8_t)bsize;
-        skips[k] = (uint8_t)skip;
+        y_modes[k] = (uint8_t)y_mode; mi_sizes[k] = (uint8_t)bsize;
+        if (has_chroma) uv_modes[k] = (uint8_t)uv_mode;
+        skips[k] = (uint8_t)skip; tx_sizes[k] = (uint8_t)tx_size;
       }
     }
     residual();
@@ -1071,6 +1378,10 @@ struct Decoder {
     int ctx = (avail_u ? skips[(mi_row - 1) * mi_cols + mi_col] : 0) +
               (avail_l ? skips[mi_row * mi_cols + mi_col - 1] : 0);
     skip = sym.read(cdf.skip[ctx], 2);
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = 0;
     int above = kIntraModeContext[avail_u ? y_modes[(mi_row - 1) * mi_cols + mi_col] : 0];
     int left = kIntraModeContext[avail_l ? y_modes[mi_row * mi_cols + mi_col - 1] : 0];
     y_mode = sym.read(cdf.kf_y[above * 5 + left], 13);
@@ -1081,7 +1392,8 @@ struct Decoder {
     uv_mode = DC_PRED;
     cfl_alpha_u = cfl_alpha_v = 0;
     if (has_chroma) {
-      bool cfl_allowed = mi_size == B4X4;  // lossless: the chroma residual block is 4x4 (4:4:4)
+      bool cfl_allowed = lossless ? kSubsampled[mi_size][seq.ssx][seq.ssy] == B4X4
+                                  : std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8;
       uv_mode = cfl_allowed ? sym.read(cdf.uv_cfl[y_mode], 14) : sym.read(cdf.uv_no_cfl[y_mode], 13);
       if (uv_mode == UV_CFL_PRED) {
         int signs = sym.read(cdf.cfl_sign, 8);
@@ -1105,38 +1417,119 @@ struct Decoder {
     }
   }
 
+  int literal(int n) {
+    int x = 0;
+    for (int i = 0; i < n; ++i) x = 2 * x + sym.boolean();
+    return x;
+  }
+
+  void read_cdef() {  // the CDEF index of each 64x64, read where its first coded block is
+    if (skip || lossless || !seq.cdef) return;
+    int r = mi_row & ~15, c = mi_col & ~15;
+    if (cdef(r, c) == -1) {
+      int v = literal(cdef_bits);
+      for (int y = r; y < r + kHigh4[mi_size]; y += 16)
+        for (int x = c; x < c + kWide4[mi_size]; x += 16) cdef(y, x) = (int8_t)v;
+      cdef(r, c) = (int8_t)v;
+    }
+  }
+
+  int delta_value(uint16_t* cdf4) {  // delta_q_abs or delta_lf_abs, its extra bits and sign
+    int abs = sym.read(cdf4, 4);
+    if (abs == 3) {
+      int n = literal(3) + 1;
+      abs = literal(n) + (1 << n) + 1;
+    }
+    if (abs && literal(1)) return -abs;
+    return abs;
+  }
+
+  void read_delta_qindex() {
+    if ((mi_size == (seq.sb128 ? B128X128 : B64X64) && skip) || !read_deltas) return;
+    int d = delta_value(cdf.delta_q);
+    if (d) current_q = std::min(255, std::max(1, current_q + (d << delta_q_res)));
+  }
+
+  void read_delta_lf() {  // read and dropped: a frame with delta_lf_present is refused once read
+    if ((mi_size == (seq.sb128 ? B128X128 : B64X64) && skip) || !read_deltas || !delta_lf_present) return;
+    int count = delta_lf_multi ? (planes > 1 ? 4 : 2) : 1;
+    for (int i = 0; i < count; ++i) delta_value(delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf);
+  }
+
+  // 5.11.15-17: TX_MODE_LARGEST takes the largest transform of the block; TX_MODE_SELECT reads up to two splits
+  void read_tx_size() {
+    if (lossless) { tx_size = TX_4X4; return; }
+    tx_size = kMaxTxRect[mi_size];
+    if (mi_size == B4X4 || !tx_mode_select) return;
+    int max_depth = kMaxTxDepth[mi_size];
+    int above = avail_u && tx_w(tx_sizes[(mi_row - 1) * mi_cols + mi_col]) >= tx_w(tx_size);
+    int left = avail_l && tx_h(tx_sizes[mi_row * mi_cols + mi_col - 1]) >= tx_h(tx_size);
+    int ctx = above + left;
+    int depth;
+    if (max_depth == 1) depth = sym.read(cdf.tx8[ctx], 2);
+    else depth = sym.read(max_depth == 2 ? cdf.tx16[ctx] : max_depth == 3 ? cdf.tx32[ctx] : cdf.tx64[ctx], 3);
+    for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
+  }
+
+  int plane_tx_size(int plane) const {  // get_tx_size
+    if (lossless) return TX_4X4;
+    if (plane == 0) return tx_size;
+    int uv = kMaxTxRect[kSubsampled[mi_size][seq.ssx][seq.ssy]];
+    if (tx_w(uv) == 64 || tx_h(uv) == 64) {
+      if (tx_w(uv) == 16) return TX_16X32;
+      if (tx_h(uv) == 16) return TX_32X16;
+      return TX_32X32;
+    }
+    return uv;
+  }
+
   // ---- residual and reconstruction (5.11.34, 7.11, 7.13) ----
   void residual() {
-    int sb_mask = seq.sb128 ? 31 : 15;
     int wc = std::max(1, kWide4[mi_size] >> 4), hc = std::max(1, kHigh4[mi_size] >> 4);
     for (int cy = 0; cy < hc; ++cy) {
       for (int cx = 0; cx < wc; ++cx) {
         for (int plane = 0; plane < 1 + 2 * has_chroma; ++plane) {
-          int n4w = kWide4[mi_size], n4h = kHigh4[mi_size];
-          for (int y = 0; y < std::min(n4h, 16); ++y)
-            for (int x = 0; x < std::min(n4w, 16); ++x)
-              transform_block(plane, mi_col * 4, mi_row * 4, x + (cx << 4), y + (cy << 4), sb_mask);
+          int tx = plane_tx_size(plane);
+          int step_x = tx_w(tx) >> 2, step_y = tx_h(tx) >> 2;
+          int psz = kSubsampled[mi_size][ssx(plane)][ssy(plane)];
+          int n4w = kWide4[psz], n4h = kHigh4[psz];
+          int base_x = (mi_col >> ssx(plane)) * 4, base_y = (mi_row >> ssy(plane)) * 4;
+          for (int y = 0; y < std::min(n4h, 16 >> ssy(plane)); y += step_y)
+            for (int x = 0; x < std::min(n4w, 16 >> ssx(plane)); x += step_x)
+              transform_block(plane, base_x, base_y, tx, x + ((cx << 4) >> ssx(plane)),
+                              y + ((cy << 4) >> ssy(plane)));
         }
       }
     }
   }
 
-  void transform_block(int plane, int base_x, int base_y, int x, int y, int sb_mask) {
+  void transform_block(int plane, int base_x, int base_y, int tx, int x, int y) {
     int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
-    int row = start_y >> 2, col = start_x >> 2;
-    int sub_row = row & sb_mask, sub_col = col & sb_mask;
+    int sx = ssx(plane), sy = ssy(plane);
+    int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+    int sb_mask = seq.sb128 ? 31 : 15;
+    int sub_row = (row & sb_mask) >> sy, sub_col = (col & sb_mask) >> sx;
+    int step_x = tx_w(tx) >> 2, step_y = tx_h(tx) >> 2;
     int max_x = mi_cols * 4 - 1, max_y = mi_rows * 4 - 1;
-    if (start_x >= max_x + 1 || start_y >= max_y + 1) return;
-    int mode = plane == 0 ? y_mode : (uv_mode == UV_CFL_PRED ? DC_PRED : uv_mode);
-    predict_intra(plane, start_x, start_y, avail_l || x > 0, avail_u || y > 0,
-                  block_decoded(plane, sub_row - 1, sub_col + 1), block_decoded(plane, sub_row + 1, sub_col - 1),
-                  mode);
-    if (plane > 0 && uv_mode == UV_CFL_PRED) predict_cfl(plane, start_x, start_y);
-    if (!skip) {
-      int32_t coef[16];
-      if (coeffs(plane, row, col, coef)) reconstruct(plane, start_x, start_y, coef);
+    if (start_x >= (max_x >> sx) + 1 || start_y >= (max_y >> sy) + 1) return;
+    bool is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
+    int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
+    predict_intra(plane, start_x, start_y, (plane == 0 ? avail_l : avail_l_chroma) || x > 0,
+                  (plane == 0 ? avail_u : avail_u_chroma) || y > 0,
+                  block_decoded(plane, sub_row - 1, sub_col + step_x),
+                  block_decoded(plane, sub_row + step_y, sub_col - 1), mode, kTxWLog2[tx], kTxHLog2[tx]);
+    if (is_cfl) predict_cfl(plane, start_x, start_y, tx);
+    if (plane == 0) {
+      max_luma_w = start_x + step_x * 4;
+      max_luma_h = start_y + step_y * 4;
     }
-    block_decoded(plane, sub_row, sub_col) = 1;
+    if (!skip) {
+      int tx_type;
+      int eob = coeffs(plane, start_x, start_y, tx, &tx_type);
+      if (eob > 0) reconstruct(plane, start_x, start_y, tx, tx_type);
+    }
+    for (int i = 0; i < step_y; ++i)
+      for (int j = 0; j < step_x; ++j) block_decoded(plane, sub_row + i, sub_col + j) = 1;
   }
 
   int is_smooth(int r, int c, int plane) const {
@@ -1144,12 +1537,33 @@ struct Decoder {
     return m == SMOOTH_PRED || m == SMOOTH_V_PRED || m == SMOOTH_H_PRED;
   }
 
-  // 7.11.2: a 4x4 prediction at (x, y) of ``plane``
+  int filter_type(int plane) const {  // get_filter_type
+    int above = 0, left = 0;
+    if (plane == 0 ? avail_u : avail_u_chroma) {
+      int r = mi_row - 1, c = mi_col;
+      if (plane > 0) {
+        if (seq.ssx && !(mi_col & 1)) ++c;
+        if (seq.ssy && (mi_row & 1)) --r;
+      }
+      above = is_smooth(r, c, plane);
+    }
+    if (plane == 0 ? avail_l : avail_l_chroma) {
+      int r = mi_row, c = mi_col - 1;
+      if (plane > 0) {
+        if (seq.ssx && (mi_col & 1)) --c;
+        if (seq.ssy && !(mi_row & 1)) ++r;
+      }
+      left = is_smooth(r, c, plane);
+    }
+    return above || left;
+  }
+
+  // 7.11.2: the prediction of a (1 << log2w) x (1 << log2h) transform block at (x, y) of ``plane``
   void predict_intra(int plane, int x, int y, int have_left, int have_above, int have_above_rt,
-                     int have_below_lft, int mode) {
-    const int w = 4, h = 4, bd = seq.bit_depth;
-    int max_x = mi_cols * 4 - 1, max_y = mi_rows * 4 - 1;
-    int above_buf[2 * 16 + 32], left_buf[2 * 16 + 32];
+                     int have_below_lft, int mode, int log2w, int log2h) {
+    const int w = 1 << log2w, h = 1 << log2h, bd = seq.bit_depth;
+    int max_x = ((mi_cols * 4) >> ssx(plane)) - 1, max_y = ((mi_rows * 4) >> ssy(plane)) - 1;
+    int above_buf[16 + 2 * 128 + 32], left_buf[16 + 2 * 128 + 32];
     int* above = above_buf + 16;  // index -16 .. : room for the upsampled edge
     int* left = left_buf + 16;
     for (int i = 0; i < w + h; ++i) {
@@ -1171,7 +1585,7 @@ struct Decoder {
     else if (have_left) above[-1] = px(plane, y, x - 1);
     else above[-1] = 1 << (bd - 1);
     left[-1] = above[-1];
-    int pred[4][4];
+    static thread_local int pred[64][64];
     const int maxv = (1 << bd) - 1;
     auto clip = [&](int v) { return v < 0 ? 0 : v > maxv ? maxv : v; };
     if (plane == 0 && use_filter_intra) {
@@ -1203,23 +1617,24 @@ struct Decoder {
       int up_above = 0, up_left = 0;
       if (seq.edge_filter) {
         if (p_angle != 90 && p_angle != 180) {
-          // filter_corner: only for w + h >= 24
-          int filter_type = 0;
-          if (avail_u) filter_type |= is_smooth(mi_row - 1, mi_col, plane);
-          if (avail_l) filter_type |= is_smooth(mi_row, mi_col - 1, plane);
+          if (p_angle > 90 && p_angle < 180 && w + h >= 24) {  // filter_corner
+            int s = left[0] * 5 + above[-1] * 6 + above[0] * 5;
+            above[-1] = left[-1] = (s + 8) >> 4;
+          }
+          int ftype = filter_type(plane);
           if (have_above) {
-            int strength = edge_strength(filter_type, p_angle - 90);
+            int strength = edge_strength(w, h, ftype, p_angle - 90);
             int num = std::min(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
             edge_filter(above, num, strength);
           }
           if (have_left) {
-            int strength = edge_strength(filter_type, p_angle - 180);
+            int strength = edge_strength(w, h, ftype, p_angle - 180);
             int num = std::min(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
             edge_filter(left, num, strength);
           }
-          up_above = use_upsample(p_angle - 90);
+          up_above = use_upsample(w, h, ftype, p_angle - 90);
           if (up_above) edge_upsample(above, w + (p_angle < 90 ? h : 0), bd);
-          up_left = use_upsample(p_angle - 180);
+          up_left = use_upsample(w, h, ftype, p_angle - 180);
           if (up_left) edge_upsample(left, h + (p_angle > 180 ? w : 0), bd);
         }
       }
@@ -1264,20 +1679,20 @@ struct Decoder {
         }
       }
     } else if (mode == SMOOTH_PRED) {
+      const uint8_t *wy = sm_weights(log2h), *wx = sm_weights(log2w);
       for (int i = 0; i < h; ++i)
         for (int j = 0; j < w; ++j) {
-          int s = kSmWeights4[i] * above[j] + (256 - kSmWeights4[i]) * left[h - 1] + kSmWeights4[j] * left[i] +
-                  (256 - kSmWeights4[j]) * above[w - 1];
+          int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + wx[j] * left[i] + (256 - wx[j]) * above[w - 1];
           pred[i][j] = (s + 256) >> 9;
         }
     } else if (mode == SMOOTH_V_PRED) {
+      const uint8_t* wy = sm_weights(log2h);
       for (int i = 0; i < h; ++i)
-        for (int j = 0; j < w; ++j)
-          pred[i][j] = (kSmWeights4[i] * above[j] + (256 - kSmWeights4[i]) * left[h - 1] + 128) >> 8;
+        for (int j = 0; j < w; ++j) pred[i][j] = (wy[i] * above[j] + (256 - wy[i]) * left[h - 1] + 128) >> 8;
     } else if (mode == SMOOTH_H_PRED) {
+      const uint8_t* wx = sm_weights(log2w);
       for (int i = 0; i < h; ++i)
-        for (int j = 0; j < w; ++j)
-          pred[i][j] = (kSmWeights4[j] * left[i] + (256 - kSmWeights4[j]) * above[w - 1] + 128) >> 8;
+        for (int j = 0; j < w; ++j) pred[i][j] = (wx[j] * left[i] + (256 - wx[j]) * above[w - 1] + 128) >> 8;
     } else if (mode == DC_PRED) {
       int avg;
       if (have_left && have_above) {
@@ -1288,11 +1703,11 @@ struct Decoder {
       } else if (have_left) {
         int sum = 0;
         for (int k = 0; k < h; ++k) sum += left[k];
-        avg = (sum + (h >> 1)) >> 2;
+        avg = clip((sum + (h >> 1)) >> log2h);
       } else if (have_above) {
         int sum = 0;
         for (int k = 0; k < w; ++k) sum += above[k];
-        avg = (sum + (w >> 1)) >> 2;
+        avg = clip((sum + (w >> 1)) >> log2w);
       } else {
         avg = 1 << (bd - 1);
       }
@@ -1311,23 +1726,35 @@ struct Decoder {
       for (int j = 0; j < w; ++j) px(plane, y + i, x + j) = (uint16_t)pred[i][j];
   }
 
-  // 7.11.2.9 (a 4x4 block: w + h is 8)
-  static int edge_strength(int filter_type, int delta) {
-    int d = std::abs(delta);
-    if (filter_type == 0) return d >= 56 ? 1 : 0;
-    return d >= 64 ? 2 : d >= 40 ? 1 : 0;
+  // 7.11.2.9
+  static int edge_strength(int w, int h, int filter_type, int delta) {
+    int d = std::abs(delta), wh = w + h, s = 0;
+    if (filter_type == 0) {
+      if (wh <= 8) { if (d >= 56) s = 1; }
+      else if (wh <= 16) { if (d >= 40) s = 1; }
+      else if (wh <= 24) { if (d >= 8) s = 1; if (d >= 16) s = 2; if (d >= 32) s = 3; }
+      else if (wh <= 32) { if (d >= 1) s = 1; if (d >= 4) s = 2; if (d >= 32) s = 3; }
+      else { if (d >= 1) s = 3; }
+    } else {
+      if (wh <= 8) { if (d >= 40) s = 1; if (d >= 64) s = 2; }
+      else if (wh <= 16) { if (d >= 20) s = 1; if (d >= 48) s = 2; }
+      else if (wh <= 24) { if (d >= 4) s = 3; }
+      else { if (d >= 1) s = 3; }
+    }
+    return s;
   }
 
-  // 7.11.2.10 at w + h = 8, which passes both limits (8 with smooth neighbours, else 16)
-  static int use_upsample(int delta) {
+  // 7.11.2.10
+  static int use_upsample(int w, int h, int filter_type, int delta) {
     int d = std::abs(delta);
-    return d > 0 && d < 40;
+    if (d <= 0 || d >= 40) return 0;
+    return filter_type ? (w + h <= 8) : (w + h <= 16);
   }
 
   // 7.11.2.12: the edge filter over edge[-1 .. sz - 2]
   static void edge_filter(int* edge, int sz, int strength) {
     if (!strength) return;
-    int e[40];
+    int e[160];
     for (int i = 0; i < sz; ++i) e[i] = edge[i - 1];
     for (int i = 1; i < sz; ++i) {
       int s = 0;
@@ -1355,19 +1782,28 @@ struct Decoder {
     }
   }
 
-  // 7.11.5: chroma from luma on a 4x4 block of 4:4:4
-  void predict_cfl(int plane, int x, int y) {
+  // 7.11.5: chroma from luma, the luma averaged over each chroma sample's area and padded past what is decoded
+  void predict_cfl(int plane, int x, int y, int tx) {
+    const int w = tx_w(tx), h = tx_h(tx), sx = seq.ssx, sy = seq.ssy;
     int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
-    int l[4][4], sum = 0;
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j) {
-        l[i][j] = px(0, y + i, x + j) << 3;
+    static thread_local int l[32][32];
+    int64_t sum = 0;
+    for (int i = 0; i < h; ++i) {
+      int ly = std::min((y + i) << sy, max_luma_h - (1 << sy));
+      for (int j = 0; j < w; ++j) {
+        int lx = std::min((x + j) << sx, max_luma_w - (1 << sx));
+        int t = 0;
+        for (int dy = 0; dy <= sy; ++dy)
+          for (int dx = 0; dx <= sx; ++dx) t += px(0, ly + dy, lx + dx);
+        l[i][j] = t << (3 - sx - sy);
         sum += l[i][j];
       }
-    int avg = (sum + 8) >> 4;
+    }
+    int shift = kTxWLog2[tx] + kTxHLog2[tx];
+    int avg = (int)((sum + (1ll << (shift - 1))) >> shift);
     const int maxv = (1 << seq.bit_depth) - 1;
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j) {
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
         int scaled = alpha * (l[i][j] - avg);
         scaled = scaled >= 0 ? (scaled + 32) >> 6 : -((-scaled + 32) >> 6);
         int v = px(plane, y + i, x + j) + scaled;
@@ -1375,70 +1811,147 @@ struct Decoder {
       }
   }
 
-  // 5.11.39: a TX_4X4 block's coefficients -> whether any is non-zero (eob > 0)
-  bool coeffs(int plane, int y4, int x4, int32_t* out) {
-    const int ptype = plane > 0;
-    int ctx;
-    if (plane == 0) {
-      if (mi_size == B4X4) {
-        ctx = 0;
-      } else {
-        int top = std::min<int>(above_level[0][x4], 255), left = std::min<int>(left_level[0][y4], 255);
-        if (!top && !left) ctx = 1;
-        else if (!top || !left) ctx = 2 + (std::max(top, left) > 3);
-        else if (std::max(top, left) <= 3) ctx = 4;
-        else if (std::min(top, left) <= 3) ctx = 5;
-        else ctx = 6;
-      }
-    } else {
-      int above = above_level[plane][x4] | above_dc[plane][x4];
-      int left = left_level[plane][y4] | left_dc[plane][y4];
-      ctx = 7 + (above != 0) + (left != 0) + (mi_size != B4X4 ? 3 : 0);
+  int tx_set(int tx) const {  // get_tx_set of an intra block
+    if (tx_sqr_up(tx) >= TX_32X32) return TX_SET_DCTONLY;
+    if (reduced_tx_set || tx_sqr(tx) == TX_16X16) return TX_SET_INTRA_2;
+    return TX_SET_INTRA_1;
+  }
+
+  static int tx_class(int tx_type) {
+    return tx_type == V_DCT ? TX_CLASS_VERT : tx_type == H_DCT ? TX_CLASS_HORIZ : TX_CLASS_2D;
+  }
+
+  // 5.11.47: the luma transform type, read or DCT_DCT, stored for the block's 4x4 units
+  int read_tx_type(int x4, int y4, int tx) {
+    int set = tx_set(tx), type = DCT_DCT;
+    if (set != TX_SET_DCTONLY && base_q_idx > 0) {
+      int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : y_mode;
+      if (set == TX_SET_INTRA_1) type = kTxTypeIntraInvSet1[sym.read(cdf.intra_tx1[tx_sqr(tx)][dir], 7)];
+      else type = kTxTypeIntraInvSet2[sym.read(cdf.intra_tx2[tx_sqr(tx)][dir], 5)];
     }
-    int all_zero = sym.read(cdf.txb_skip[ctx], 2);
-    int cul_level = 0, dc_category = 0;
-    for (int c = 0; c < 16; ++c) out[c] = 0;
-    int32_t quant[16] = {0};
-    int eob = 0;
-    if (!all_zero) {
-      int eob_pt = sym.read(cdf.eob16[ptype][0], 5) + 1;
+    for (int i = 0; i < (tx_h(tx) >> 2) && y4 + i < mi_rows; ++i)
+      for (int j = 0; j < (tx_w(tx) >> 2) && x4 + j < mi_cols; ++j) tx_types[(y4 + i) * mi_cols + x4 + j] = (uint8_t)type;
+    return type;
+  }
+
+  int plane_tx_type(int plane, int tx, int x4, int y4) const {  // compute_tx_type
+    if (lossless || tx_sqr_up(tx) > TX_32X32) return DCT_DCT;
+    if (plane == 0) return tx_types[y4 * mi_cols + x4];
+    // the UV mode's type (a DCT or ADST pair, in both intra sets), where the size has a set
+    return tx_set(tx) == TX_SET_DCTONLY ? DCT_DCT : kModeToTxfm[uv_mode];
+  }
+
+  // 5.11.39: a transform block's coefficients, dequantized into ``dequant`` -> the end of block
+  int coeffs(int plane, int start_x, int start_y, int tx, int* tx_type_out) {
+    const int ptype = plane > 0;
+    const int x4 = start_x >> 2, y4 = start_y >> 2, w4 = tx_w(tx) >> 2, h4 = tx_h(tx) >> 2;
+    const int max_x4 = mi_cols >> ssx(plane), max_y4 = mi_rows >> ssy(plane);
+    const int tx_ctx = (tx_sqr(tx) + tx_sqr_up(tx) + 1) >> 1;
+    const int w = tx_w(tx), h = tx_h(tx);
+    int ctx;
+    int psz = kSubsampled[mi_size][ssx(plane)][ssy(plane)];
+    int bw = kWide4[psz] * 4, bh = kHigh4[psz] * 4;
+    if (plane == 0) {
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; ++k)
+        if (x4 + k < max_x4) top = std::max<int>(top, above_level[0][x4 + k]);
+      for (int k = 0; k < h4; ++k)
+        if (y4 + k < max_y4) left = std::max<int>(left, left_level[0][y4 + k]);
+      top = std::min(top, 255);
+      left = std::min(left, 255);
+      if (bw == w && bh == h) ctx = 0;
+      else if (!top && !left) ctx = 1;
+      else if (!top || !left) ctx = 2 + (std::max(top, left) > 3);
+      else if (std::max(top, left) <= 3) ctx = 4;
+      else if (std::min(top, left) <= 3) ctx = 5;
+      else ctx = 6;
+    } else {
+      int above = 0, left = 0;
+      for (int k = 0; k < w4; ++k)
+        if (x4 + k < max_x4) above |= above_level[plane][x4 + k] | above_dc[plane][x4 + k];
+      for (int k = 0; k < h4; ++k)
+        if (y4 + k < max_y4) left |= left_level[plane][y4 + k] | left_dc[plane][y4 + k];
+      ctx = 7 + (above != 0) + (left != 0) + (bw * bh > w * h ? 3 : 0);
+    }
+    int all_zero = sym.read(cdf.txb_skip[tx_ctx][ctx], 2);
+    int cul_level = 0, dc_category = 0, eob = 0;
+    if (all_zero) {
+      if (plane == 0)
+        for (int i = 0; i < h4 && (start_y >> 2) + i < mi_rows; ++i)
+          for (int j = 0; j < w4 && x4 + j < mi_cols; ++j) tx_types[(y4 + i) * mi_cols + x4 + j] = DCT_DCT;
+    } else {
+      if (plane == 0) read_tx_type(x4, y4, tx);
+      const int tx_type = plane_tx_type(plane, tx, x4, y4);
+      *tx_type_out = tx_type;
+      // the coded part: at most 32x32
+      const int aw = std::min(w, 32), ah = std::min(h, 32), bwl = floor_log2((uint32_t)aw);
+      const int cls = tx_class(tx_type);
+      const int16_t* scan;
+      if (tx_sqr_up(tx) == TX_64X64) scan = default_scan(aw, ah);
+      else if (tx_type == V_DCT) scan = mrow_scan(w, h);
+      else if (tx_type == H_DCT) scan = mcol_scan(w, h);
+      else scan = default_scan(w, h);
+      const int area = aw * ah;
+      std::memset(quant, 0, sizeof(int32_t) * area);
+      int multi = std::min(kTxWLog2[tx], 5) + std::min(kTxHLog2[tx], 5) - 4;
+      int ectx = cls == TX_CLASS_2D ? 0 : 1, eob_pt;
+      switch (multi) {
+        case 0: eob_pt = sym.read(cdf.eob16[ptype][ectx], 5) + 1; break;
+        case 1: eob_pt = sym.read(cdf.eob32[ptype][ectx], 6) + 1; break;
+        case 2: eob_pt = sym.read(cdf.eob64[ptype][ectx], 7) + 1; break;
+        case 3: eob_pt = sym.read(cdf.eob128[ptype][ectx], 8) + 1; break;
+        case 4: eob_pt = sym.read(cdf.eob256[ptype][ectx], 9) + 1; break;
+        case 5: eob_pt = sym.read(cdf.eob512[ptype], 10) + 1; break;
+        default: eob_pt = sym.read(cdf.eob1024[ptype], 11) + 1; break;
+      }
       eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
       int shift = eob_pt - 3;
       if (shift >= 0) {
-        if (sym.read(cdf.eob_extra[ptype][eob_pt - 3], 2)) eob += 1 << shift;
-        for (int i = 1; i < std::max(1, eob_pt - 2); ++i) {
+        if (sym.read(cdf.eob_extra[tx_ctx][ptype][eob_pt - 3], 2)) eob += 1 << shift;
+        for (int i = 1; i < std::max(0, eob_pt - 2); ++i)
           if (sym.boolean()) eob += 1 << (eob_pt - 3 - i);
-        }
       }
       for (int c = eob - 1; c >= 0; --c) {
-        int pos = kDefaultScan4x4[c];
+        int pos = scan[c];
         int level;
         if (c == eob - 1) {
-          int bctx = c == 0 ? 0 : c <= 2 ? 1 : c <= 4 ? 2 : 3;
-          level = sym.read(cdf.base_eob[ptype][bctx], 3) + 1;
+          int bctx = c == 0 ? 0 : c <= area / 8 ? 1 : c <= area / 4 ? 2 : 3;
+          level = sym.read(cdf.base_eob[tx_ctx][ptype][bctx], 3) + 1;
         } else {
-          level = sym.read(cdf.base[ptype][base_ctx(quant, pos)], 4);
+          level = sym.read(cdf.base[tx_ctx][ptype][base_ctx(tx, cls, pos, aw, ah, bwl)], 4);
         }
         if (level > 2) {
-          int bctx = br_ctx(quant, pos);
+          int bctx = br_ctx(cls, pos, aw, ah, bwl);
           for (int k = 0; k < 4; ++k) {
-            int br = sym.read(cdf.br[ptype][bctx], 4);
+            int br = sym.read(cdf.br[std::min(tx_ctx, 3)][ptype][bctx], 4);
             level += br;
             if (br < 3) break;
           }
         }
         quant[pos] = level;
       }
+      // dequantization (7.12.3): the quantizer, weighted by the quantizer matrix of a 2D transform
+      const int bdi = (seq.bit_depth - 8) >> 1;
+      const int q = std::min(255, std::max(0, delta_q_present ? current_q : base_q_idx));
+      const int dcq = av1t::kDcQLookup[bdi][std::min(255, std::max(0, q + delta_q_dc[plane]))];
+      const int acq = av1t::kAcQLookup[bdi][std::min(255, std::max(0, q + (plane ? delta_q_ac[plane] : 0)))];
+      const int qml = qm_level[plane];
+      const uint8_t* qm = nullptr;
+      if (qml < 15 && tx_type < IDTX) qm = av1t::kQuantizerMatrix[qml][ptype] + qm_offset(aw, ah);
+      const int dq_shift = (w * h > 256) + (w * h > 1024);
+      const int64_t lim = 1ll << (7 + seq.bit_depth);
+      std::memset(dequant, 0, sizeof(int32_t) * area);
       for (int c = 0; c < eob; ++c) {
-        int pos = kDefaultScan4x4[c];
+        int pos = scan[c];
         int sign = 0;
         if (quant[pos] != 0) {
           if (c == 0) {
-            int dctx = 0, s = 0;
-            if (above_dc[plane][x4] == 1) --s; else if (above_dc[plane][x4] == 2) ++s;
-            if (left_dc[plane][y4] == 1) --s; else if (left_dc[plane][y4] == 2) ++s;
-            dctx = s < 0 ? 1 : s > 0 ? 2 : 0;
-            sign = sym.read(cdf.dc_sign[ptype][dctx], 2);
+            int s = 0;
+            for (int k = 0; k < w4; ++k)
+              if (x4 + k < max_x4) { int d = above_dc[plane][x4 + k]; s += d == 1 ? -1 : d == 2 ? 1 : 0; }
+            for (int k = 0; k < h4; ++k)
+              if (y4 + k < max_y4) { int d = left_dc[plane][y4 + k]; s += d == 1 ? -1 : d == 2 ? 1 : 0; }
+            sign = sym.read(cdf.dc_sign[ptype][s < 0 ? 1 : s > 0 ? 2 : 0], 2);
           } else {
             sign = sym.boolean();
           }
@@ -1455,51 +1968,95 @@ struct Decoder {
           level = x + 14;
         }
         if (pos == 0 && level > 0) dc_category = sign ? 1 : 2;
-        cul_level = (int)std::min<int64_t>(63, cul_level + level);
-        // dequantisation at q index 0 (both quantizers 4), as libaom masks it: (level * 4) & 0xFFFFFF
-        int64_t dq = (level * 4) & 0xFFFFFF;
-        const int64_t lim = 1ll << (7 + seq.bit_depth);
-        dq = sign ? -dq : dq;
-        out[pos] = (int32_t)std::min(std::max(dq, -lim), lim - 1);
-        quant[pos] = (int32_t)std::min<int64_t>(level, 1 << 30);
+        level &= 0xFFFFF;
+        cul_level += (int)level;
+        if (level) {
+          int64_t dqv = pos == 0 ? dcq : acq;
+          if (qm) dqv = (qm[pos] * dqv + 16) >> 5;
+          int64_t dq = (level * dqv) & 0xFFFFFF;
+          dq >>= dq_shift;
+          if (sign) dq = -dq;
+          dequant[pos] = (int32_t)std::min(std::max(dq, -lim), lim - 1);
+        }
       }
+      cul_level = std::min(63, cul_level);
     }
-    above_level[plane][x4] = (uint8_t)cul_level;
-    above_dc[plane][x4] = (uint8_t)dc_category;
-    left_level[plane][y4] = (uint8_t)cul_level;
-    left_dc[plane][y4] = (uint8_t)dc_category;
-    return eob > 0;
+    for (int k = 0; k < w4; ++k) {
+      above_level[plane][x4 + k] = (uint8_t)cul_level;
+      above_dc[plane][x4 + k] = (uint8_t)dc_category;
+    }
+    for (int k = 0; k < h4; ++k) {
+      left_level[plane][y4 + k] = (uint8_t)cul_level;
+      left_dc[plane][y4 + k] = (uint8_t)dc_category;
+    }
+    return eob;
   }
 
-  static int base_ctx(const int32_t* q, int pos) {
-    int row = pos >> 2, col = pos & 3;
-    static const int off[5][2] = {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}};
+  static int qm_offset(int w, int h) {  // Qm_Offset: the matrices in the order of the coded sizes
+    static const int sizes[14][2] = {{4, 4}, {8, 8}, {16, 16}, {32, 32}, {4, 8}, {8, 4}, {8, 16}, {16, 8},
+                                     {16, 32}, {32, 16}, {4, 16}, {16, 4}, {8, 32}, {32, 8}};
+    int off = 0;
+    for (auto& s : sizes) {
+      if (s[0] == w && s[1] == h) return off;
+      off += s[0] * s[1];
+    }
+    return 0;
+  }
+
+  int base_ctx(int tx, int cls, int pos, int aw, int ah, int bwl) const {
+    int row = pos >> bwl, col = pos - (row << bwl);
     int mag = 0;
     for (int k = 0; k < 5; ++k) {
-      int r = row + off[k][0], c = col + off[k][1];
-      if (r < 4 && c < 4) mag += std::min(std::abs(q[r * 4 + c]), 3);
+      int r = row + kSigRefDiffOffset[cls][k][0], c = col + kSigRefDiffOffset[cls][k][1];
+      if (r < ah && c < aw) mag += std::min(std::abs(quant[(r << bwl) + c]), 3);
     }
     int ctx = std::min((mag + 1) >> 1, 4);
-    if (row == 0 && col == 0) return 0;
-    return ctx + kCoeffBaseCtxOffset4x4[std::min(row, 4)][std::min(col, 4)];
+    if (cls == TX_CLASS_2D) {
+      if (row == 0 && col == 0) return 0;
+      int shape = tx_w(tx) == tx_h(tx) ? 0 : tx_w(tx) > tx_h(tx) ? 1 : 2;
+      return ctx + kCoeffBaseCtxOffset[shape][std::min(row, 4)][std::min(col, 4)];
+    }
+    int idx = cls == TX_CLASS_VERT ? row : col;
+    return ctx + 26 + 5 * std::min(idx, 2);
   }
 
-  static int br_ctx(const int32_t* q, int pos) {
-    int row = pos >> 2, col = pos & 3;
-    static const int off[3][2] = {{0, 1}, {1, 0}, {1, 1}};
+  int br_ctx(int cls, int pos, int aw, int ah, int bwl) const {
+    int row = pos >> bwl, col = pos - (row << bwl);
     int mag = 0;
     for (int k = 0; k < 3; ++k) {
-      int r = row + off[k][0], c = col + off[k][1];
-      if (r < 4 && c < 4) mag += std::min(q[r * 4 + c], 15);
+      int r = row + kMagRefOffset[cls][k][0], c = col + kMagRefOffset[cls][k][1];
+      if (r < ah && c < aw) mag += std::min(quant[r * aw + c], 15);
     }
     mag = std::min((mag + 1) >> 1, 6);
     if (pos == 0) return mag;
-    if (row < 2 && col < 2) return mag + 7;
+    if (cls == TX_CLASS_2D) {
+      if (row < 2 && col < 2) return mag + 7;
+    } else if (cls == TX_CLASS_HORIZ) {
+      if (col == 0) return mag + 7;
+    } else {
+      if (row == 0) return mag + 7;
+    }
     return mag + 14;
   }
 
-  // 7.13.2.10 and 7.13.3: the inverse Walsh-Hadamard transform (rows with shift 2, then columns), added
-  void reconstruct(int plane, int x, int y, const int32_t* coef) {
+  // 7.13.3: the inverse transform of ``dequant``, added to the prediction
+  void reconstruct(int plane, int x, int y, int tx, int tx_type) {
+    const int w = tx_w(tx), h = tx_h(tx);
+    if (lossless) {
+      inverse_wht(dequant, resid);
+    } else {
+      inverse_transform_2d(dequant, tx, tx_type, seq.bit_depth, resid);
+    }
+    const int maxv = (1 << seq.bit_depth) - 1;
+    for (int i = 0; i < h; ++i)
+      for (int j = 0; j < w; ++j) {
+        int64_t v = px(plane, y + i, x + j) + (int64_t)resid[i * w + j];
+        px(plane, y + i, x + j) = (uint16_t)(v < 0 ? 0 : v > maxv ? maxv : v);
+      }
+  }
+
+  // 7.13.2.10: the inverse Walsh-Hadamard transform of a lossless 4x4 block (rows with shift 2, then columns)
+  static void inverse_wht(const int32_t* coef, int32_t* out) {
     int64_t t[4][4];
     for (int i = 0; i < 4; ++i) {
       int64_t a = coef[i * 4 + 0] >> 2, c = coef[i * 4 + 1] >> 2, d = coef[i * 4 + 2] >> 2, b = coef[i * 4 + 3] >> 2;
@@ -1509,18 +2066,13 @@ struct Decoder {
       a -= b; d += c;
       t[i][0] = a; t[i][1] = b; t[i][2] = c; t[i][3] = d;
     }
-    const int maxv = (1 << seq.bit_depth) - 1;
     for (int j = 0; j < 4; ++j) {
       int64_t a = t[0][j], c = t[1][j], d = t[2][j], b = t[3][j];
       a += c; d -= b;
       int64_t e = (a - d) >> 1;
       b = e - b; c = e - c;
       a -= b; d += c;
-      int64_t r[4] = {a, b, c, d};
-      for (int i = 0; i < 4; ++i) {
-        int64_t v = px(plane, y + i, x + j) + r[i];
-        px(plane, y + i, x + j) = (uint16_t)(v < 0 ? 0 : v > maxv ? maxv : v);
-      }
+      out[0 * 4 + j] = (int32_t)a; out[1 * 4 + j] = (int32_t)b; out[2 * 4 + j] = (int32_t)c; out[3 * 4 + j] = (int32_t)d;
     }
   }
 
@@ -1580,6 +2132,7 @@ struct Decoder {
       at += size;
     }
     if (!decoded) throw Corrupt{__LINE__};  // no whole frame: libaom outputs none
+    if (filter_tool) throw Unsupported{filter_tool};
   }
 };
 
@@ -1622,16 +2175,99 @@ int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   return 0;
 }
 
-// The planes of the last av1_decode of this thread (Y, then U and V, each
-// height rows of width samples) into out; -1 if out is too small.
+// libyuv's conversion of Y, U, V (uint16 samples, the top 8 of ``depth``
+// bits taken, as libavif's Convert16To8Plane does) to BGR as
+// I4xxToRGB24MatrixFilter makes it: chroma of w x h luma samples upsampled
+// (4:2:0 bilinear, 9:3:3:1 across two rows and 3:1 along one at the edges;
+// 4:2:2 linear, 3:1; the first and last columns held), then YuvPixel with
+// constants k = YG, YB, UB, UG, VG, VR in 6-bit fixed point. cw x ch is the
+// chroma size.
+void yuv_to_bgr_libyuv(const uint16_t* y, const uint16_t* u, const uint16_t* v, int w, int h, int cw, int ch,
+                       int depth, const int32_t* k, uint8_t* out) {
+  const int shift = depth - 8;
+  const int yg = k[0], yb = k[1], ub = k[2], ug = k[3], vg = k[4], vr = k[5];
+  const bool sx = cw != w, sy = ch != h;
+  std::vector<int32_t> ur(w), vr_(w), tmp_a(cw), tmp_b(cw);
+  // one output row of a chroma plane from its chroma row(s) a (and b, two-row bilinear)
+  auto across = [&](const uint16_t* a, const uint16_t* b, int32_t* dst) {
+    for (int i = 0; i < cw; ++i) {
+      tmp_a[i] = a[i] >> shift;
+      if (b) tmp_b[i] = b[i] >> shift;
+    }
+    if (!sx) {
+      for (int i = 0; i < w; ++i) dst[i] = b ? (3 * tmp_a[i] + tmp_b[i] + 2) >> 2 : tmp_a[i];
+      return;
+    }
+    const int last = (w - 1) / 2;
+    for (int j = 1; j < w - 1; ++j) {
+      int k0 = (j - 1) / 2, near = (j & 1) ? k0 : k0 + 1, far = (j & 1) ? k0 + 1 : k0;
+      dst[j] = b ? (9 * tmp_a[near] + 3 * tmp_a[far] + 3 * tmp_b[near] + tmp_b[far] + 8) >> 4
+                 : (3 * tmp_a[near] + tmp_a[far] + 2) >> 2;
+    }
+    dst[0] = b ? (3 * tmp_a[0] + tmp_b[0] + 2) >> 2 : tmp_a[0];
+    dst[w - 1] = b ? (3 * tmp_a[last] + tmp_b[last] + 2) >> 2 : tmp_a[last];
+  };
+  for (int r = 0; r < h; ++r) {
+    const uint16_t *ua, *ub_ = nullptr, *va, *vb = nullptr;
+    if (!sy) {
+      ua = u + (int64_t)r * cw;
+      va = v + (int64_t)r * cw;
+    } else if (r == 0 || (h % 2 == 0 && r == h - 1)) {
+      int c = (r == 0) ? 0 : (h - 1) / 2;
+      ua = u + (int64_t)c * cw;
+      va = v + (int64_t)c * cw;
+    } else {
+      int kk = (r - 1) / 2, near = (r & 1) ? kk : kk + 1, far = (r & 1) ? kk + 1 : kk;
+      ua = u + (int64_t)near * cw;
+      ub_ = u + (int64_t)far * cw;
+      va = v + (int64_t)near * cw;
+      vb = v + (int64_t)far * cw;
+    }
+    across(ua, ub_, ur.data());
+    across(va, vb, vr_.data());
+    const uint16_t* yr = y + (int64_t)r * w;
+    uint8_t* o = out + (int64_t)r * w * 3;
+    for (int i = 0; i < w; ++i) {
+      int32_t y1 = (int32_t)(((uint32_t)(yr[i] >> shift) * 0x0101u * (uint32_t)yg) >> 16) + yb;
+      int32_t uu = ur[i] - 128, vv = vr_[i] - 128;
+      int32_t b = (y1 + uu * ub) >> 6, g = (y1 - (uu * ug + vv * vg)) >> 6, rr = (y1 + vv * vr) >> 6;
+      o[3 * i] = (uint8_t)(b < 0 ? 0 : b > 255 ? 255 : b);
+      o[3 * i + 1] = (uint8_t)(g < 0 ? 0 : g > 255 ? 255 : g);
+      o[3 * i + 2] = (uint8_t)(rr < 0 ? 0 : rr > 255 ? 255 : rr);
+    }
+  }
+}
+
+// 7.13.3 on its own: the dequantized coefficients of a transform of size
+// ``tx`` (the specification's TxSize; the coded top-left part, at most 32x32,
+// row-major) and type ``tx_type`` (DCT_DCT .. ADST_ADST, IDTX, V_DCT, H_DCT)
+// at ``bd`` bits -> the residual, tx height rows of tx width; -1 for a size or
+// type the intra sets do not pair.
+int av1_inverse_transform(const int32_t* coef, int tx, int tx_type, int bd, int32_t* out) {
+  if (tx < 0 || tx > 18 || !(tx_type <= ADST_ADST || tx_type == IDTX || tx_type == V_DCT || tx_type == H_DCT))
+    return -1;
+  const int w = tx_w(tx), h = tx_h(tx);
+  const bool adst = tx_type >= ADST_DCT && tx_type <= ADST_ADST, one_d = tx_type == V_DCT || tx_type == H_DCT;
+  if ((adst || one_d) && std::max(w, h) > 16) return -1;
+  if (tx_type == IDTX && std::max(w, h) > 32) return -1;
+  inverse_transform_2d(coef, tx, tx_type, bd, out);
+  return 0;
+}
+
+// The planes of the last av1_decode of this thread into out: Y (height
+// rows of width samples), then U and V (each ((height + ssy) >> ssy) rows of
+// ((width + ssx) >> ssx) samples); -1 if out is too small.
 int av1_planes(uint16_t* out, int64_t cap) {
   if (!g_last) return -1;
   Decoder& d = *g_last;
-  if (cap < (int64_t)d.planes * d.width * d.height) return -1;
+  int64_t need = 0;
   for (int p = 0; p < d.planes; ++p)
-    for (int y = 0; y < d.height; ++y)
-      std::memcpy(out + ((int64_t)p * d.height + y) * d.width, &d.frame[p][(int64_t)y * d.stride],
-                  sizeof(uint16_t) * d.width);
+    need += (int64_t)((d.width + d.ssx(p)) >> d.ssx(p)) * ((d.height + d.ssy(p)) >> d.ssy(p));
+  if (cap < need) return -1;
+  for (int p = 0; p < d.planes; ++p) {
+    int w = (d.width + d.ssx(p)) >> d.ssx(p), h = (d.height + d.ssy(p)) >> d.ssy(p);
+    for (int y = 0; y < h; ++y, out += w) std::memcpy(out, &d.frame[p][(int64_t)y * d.stride[p]], sizeof(uint16_t) * w);
+  }
   delete g_last;
   g_last = nullptr;
   return 0;

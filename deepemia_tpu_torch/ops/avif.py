@@ -12,7 +12,12 @@ alpha item (``auxl``) is decoded too and dropped. The identity matrix
 (``colr`` nclx, else the AV1 sequence header) maps Y, U, V to G, B, R as
 libavif does: 8-bit full range as stored, other depths and limited range
 through libavif's float tables (``(uint8)(0.5f + clamp((v - bias) /
-range) * 255)``); a monochrome image is OpenCV's own: Y, divided by
+range) * 255)``). The other matrices libavif converts (``_MATRICES``)
+take the path libavif 1.4 takes in OpenCV's build: libyuv's fixed point
+with its bilinear chroma upsampling for BT.601, BT.709 and BT.2020
+(``_LIBYUV``; 10 and 12 bits cut to their top 8 bits first), libavif's
+float path for the rest (``_libavif_float``); each was read off
+``cv2.imread``. A monochrome image is OpenCV's own: Y, divided by
 2^(depth - 8) and rounded (``convertTo``), replicated to BGR. ``irot``,
 ``imir`` and ``clap`` are not applied (OpenCV does not apply them).
 
@@ -20,10 +25,12 @@ What OpenCV refuses raises ``RefusedImageError``; a corrupt or cut file,
 or an ``ispe`` or AV1 frame past libavif's size limits, a ``ValueError``;
 what OpenCV reads and the port does not decode an
 ``UnsupportedImageError`` naming it: an image sequence, a grid, the AV1
-tools ``av1.cpp`` lacks (lossy coding, 4:2:0 and 4:2:2, segmentation,
-screen content, superres, film grain, frames other than a shown key
-frame), a matrix other than the identity, premultiplied alpha, and an
-``ispe`` that differs from the AV1 frame (libavif scales the frame)."""
+tools ``av1.cpp`` lacks (the in-loop filters: deblocking, CDEF, delta
+loop filter levels, loop restoration; segmentation, screen content,
+superres, film grain, frames other than a shown key frame), a
+chroma-derived matrix under primaries libyuv has no constants for,
+premultiplied alpha, and an ``ispe`` that differs from the AV1 frame
+(libavif scales the frame)."""
 
 from __future__ import annotations
 
@@ -36,10 +43,11 @@ from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageErro
 SIGNATURE_BYTES = 500  # grfmt_avif.cpp: kAvifSignatureSize
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's refusals (its enum Tool)
-AV1_TOOLS = {1: "lossy AV1 coding (base_q_idx or a delta q other than 0)", 2: "4:2:0 or 4:2:2 AV1 chroma",
+AV1_TOOLS = {1: "AV1 deblocking (a loop filter level other than 0)", 2: "AV1 CDEF (a CDEF strength other than 0)",
              3: "AV1 segmentation", 4: "AV1 screen content tools (palette, intra block copy)",
              5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
-             8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame"}
+             8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame",
+             11: "AV1 delta loop filter levels (delta_lf_present)", 12: "AV1 loop restoration"}
 _UNIQUE_META = (b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref")
 _TRANSFORMS = (b"irot", b"imir", b"clap")
 # the matrix coefficients other than the identity that libavif converts YUV to RGB with
@@ -364,10 +372,30 @@ def _properties(data: bytes, m: _Meta, item: int) -> dict:
             raise RefusedImageError(f"AVIF: an unknown essential property {kind!r}")
         if kind in _TRANSFORMS and not essential:
             raise ValueError(f"AVIF: a {kind!r} property not marked essential")
-        if kind == b"colr" and kind in props:
+        if kind == b"colr":  # read by _nclx, which takes each colour type at most once
             continue
         props.setdefault(kind, (s, e))
     return props
+
+
+def _nclx(data: bytes, m: _Meta, item: int):
+    """The (body start, body end) of an item's nclx ``colr`` property, or
+    None, as libavif's avifReadColorProperties takes them: at most one
+    nclx and one ICC (``rICC`` or ``prof``) among the associations, a
+    second of either failing the file, other colour types ignored."""
+    seen, nclx = set(), None
+    for idx, _ in m.assoc.get(item, []):
+        if not 0 < idx <= len(m.props) or m.props[idx - 1][0] != b"colr":
+            continue
+        _, s, e = m.props[idx - 1]
+        kind = {b"nclx": b"nclx", b"rICC": b"icc", b"prof": b"icc"}.get(data[s : s + 4])
+        if kind in seen:
+            raise ValueError(f"AVIF: an item with two {kind.decode()} colr properties")
+        if kind:
+            seen.add(kind)
+        if kind == b"nclx":
+            nclx = (s, e)
+    return nclx
 
 
 def decode_avif(data: bytes) -> np.ndarray:
@@ -422,18 +450,20 @@ def decode_avif(data: bytes) -> np.ndarray:
         _av1(_item_data(data, m, alpha))
     depth = int(meta_av1[2])
     flags = data[props[b"av1C"][0] + 2]  # av1C's monochrome bit: OpenCV's channel count
-    if (planes.shape[2], planes.shape[1]) != (width, height):
-        raise _unsupported(f"an ispe of {width}x{height} for an AV1 frame of {planes.shape[2]}x{planes.shape[1]}, "
+    fh, fw = planes[0].shape
+    if (fw, fh) != (width, height):
+        raise _unsupported(f"an ispe of {width}x{height} for an AV1 frame of {fw}x{fh}, "
                            f"which libavif scales")
-    mc, full_range, nclx = int(meta_av1[6]), int(meta_av1[5]), False
-    if b"colr" in props:
-        c = _Reader(data, *props[b"colr"])
-        if c.bytes(4) == b"nclx":
-            c.u(2), c.u(2)
-            mc, full_range, nclx = c.u(2), c.u(1) >> 7, True
+    mc, full_range, cp, nclx = int(meta_av1[6]), int(meta_av1[5]), int(meta_av1[7]), False
+    colour = _nclx(data, m, m.primary)
+    if colour is not None:
+        c = _Reader(data, *colour)
+        c.bytes(4)
+        cp, _ = c.u(2), c.u(2)
+        mc, full_range, nclx = c.u(2), c.u(1) >> 7, True
     if alpha is not None and not nclx:  # OpenCV fails on these (libavif's alpha path takes no CICP of the stream)
         raise ValueError("AVIF: an image with alpha and no nclx colour box")
-    return _to_bgr(planes, depth, mc, full_range, bool(flags & 0x10))
+    return _to_bgr(planes, depth, mc, full_range, bool(flags & 0x10), cp)
 
 
 def _unsupported(what: str) -> UnsupportedImageError:
@@ -453,7 +483,7 @@ def _av1(payload: bytes):
     return planes, meta
 
 
-def _to_bgr(planes: np.ndarray, depth: int, mc: int, full_range: int, config_mono: bool) -> np.ndarray:
+def _to_bgr(planes: list, depth: int, mc: int, full_range: int, config_mono: bool, cp: int = 2) -> np.ndarray:
     """The decoded planes -> [H,W,3] BGR uint8, as OpenCV and libavif make
     it: OpenCV takes one channel where av1C says monochrome (CopyToMat: Y,
     convertTo, GRAY2BGR), else has libavif convert to BGR (a monochrome
@@ -463,14 +493,14 @@ def _to_bgr(planes: np.ndarray, depth: int, mc: int, full_range: int, config_mon
         if depth > 8:
             y = np.clip(np.rint(y.astype(np.float32) * np.float32(1.0 / (1 << (depth - 8)))), 0, 255)
         return np.repeat(y.astype(np.uint8)[..., None], 3, axis=2)
-    if planes.shape[0] == 1:
+    if len(planes) == 1:
         bgr = np.repeat(planes[0][..., None], 3, axis=2)
-    else:
-        if mc in _MATRICES:
-            raise _unsupported(f"YUV to RGB with matrix coefficients {mc} (libavif's conversion)")
-        if mc != 0:
-            raise RefusedImageError(f"AVIF: matrix coefficients {mc}, which libavif does not convert")
+    elif mc == 0:
         bgr = np.stack([planes[1], planes[0], planes[2]], axis=-1)
+    elif mc in _MATRICES:
+        return _yuv_to_bgr(planes, depth, mc, full_range, cp)
+    else:
+        raise RefusedImageError(f"AVIF: matrix coefficients {mc}, which libavif does not convert")
     if depth == 8 and full_range:  # avifImageIdentity8ToRGB8ColorFullRange
         return bgr.astype(np.uint8)
     # avifImageYUVAnyToRGBAnySlow: the unorm float table of Y, used for U and V too under the identity matrix
@@ -478,3 +508,83 @@ def _to_bgr(planes: np.ndarray, depth: int, mc: int, full_range: int, config_mon
     scale = np.float32((1 << depth) - 1 if full_range else 219 << (depth - 8))
     f = np.clip((bgr.astype(np.float32) - bias) / scale, np.float32(0), np.float32(1))
     return (np.float32(0.5) + f * np.float32(255)).astype(np.uint8)
+
+
+# libyuv's YuvConstants (YG, YB, UB, UG, VG, VR) that libavif picks by matrix and range: BT.601 (JPEG, I601),
+# BT.709 (F709, H709) and BT.2020 (V2020, 2020), the limited ones with UB held to 128
+_LIBYUV = {("601", 1): (16320, 32, 113, 22, 46, 90), ("601", 0): (18997, -1160, 128, 25, 52, 102),
+           ("709", 1): (16320, 32, 119, 12, 30, 101), ("709", 0): (18997, -1160, 128, 14, 34, 115),
+           ("2020", 1): (16320, 32, 120, 11, 37, 94), ("2020", 0): (19003, -1160, 128, 12, 42, 107)}
+_LIBYUV_MATRIX = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}
+# chroma-derived NCL (12): libyuv's constants by colour primaries, where cv2 was seen to use them (under other
+# primaries libavif derives its coefficients from the primaries in float, which the port does not)
+_LIBYUV_PRIMARIES = {1: "709", 5: "601", 6: "601", 9: "2020"}
+# libavif's own (kr, kb) where libyuv has no constants; 15 takes libavif's BT.601 defaults
+_KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087), 15: (0.299, 0.114)}
+
+
+def _yuv_to_bgr(planes: list, depth: int, mc: int, full_range: int, cp: int) -> np.ndarray:
+    """YUV under a matrix -> BGR as libavif 1.4 converts it in OpenCV's
+    build: libyuv's fixed point (its bilinear chroma upsampling, high bit
+    depths first cut to 8 bits) where libyuv has the matrix's constants,
+    else libavif's float path (bilinear upsampling with weights 9, 3, 3, 1
+    sixteenths)."""
+    y, u, v = planes
+    key = _LIBYUV_MATRIX.get(mc) or (_LIBYUV_PRIMARIES.get(cp) if mc == 12 else None)
+    if key is not None:
+        from deepemia_tpu_torch import native
+
+        return native.yuv_to_bgr_libyuv(y, u, v, depth, _LIBYUV[key, int(bool(full_range))])
+    if mc == 12:
+        raise _unsupported(f"chroma-derived matrix coefficients under colour primaries {cp}")
+    if mc == 8 and not full_range:
+        raise RefusedImageError("AVIF: YCgCo at limited range, which libavif does not convert")
+    return _libavif_float(y, u, v, depth, mc, full_range)
+
+
+def _libavif_float(y, u, v, depth: int, mc: int, full_range: int) -> np.ndarray:
+    """libavif's avifImageYUVAnyToRGBAnySlow in float32: unorm tables,
+    bilinear chroma (9/16, 3/16, 3/16, 1/16 of the sample, its horizontal
+    and vertical neighbours away from the luma sample, and the diagonal),
+    then (uint8)(0.5 + clamp(c) * 255)."""
+    f32 = np.float32
+    mx = (1 << depth) - 1
+    bias_y = 0 if full_range else 16 << (depth - 8)
+    range_y, range_uv = (mx, mx) if full_range else (219 << (depth - 8), 224 << (depth - 8))
+    table_y = ((np.arange(mx + 1) - bias_y).astype(f32) / f32(range_y)).astype(f32)
+    table_uv = ((np.arange(mx + 1) - (1 << (depth - 1))).astype(f32) / f32(range_uv)).astype(f32)
+    h, w = y.shape
+    sx, sy = int(u.shape[1] != w), int(u.shape[0] != h)
+
+    def neighbours(n, sub):
+        i = np.arange(n)
+        base = i >> sub
+        if not sub:
+            return base, base
+        adj = np.where((i == 0) | ((i == n - 1) & (i % 2 == 1)), 0, np.where(i % 2 == 1, 1, -1))
+        return base, base + adj
+
+    cols, cols_adj = neighbours(w, sx)
+    rows, rows_adj = neighbours(h, sy)
+
+    def chroma(p):
+        t = table_uv[np.minimum(p, mx)]
+        if not (sx or sy):
+            return t
+        t00 = t[np.ix_(rows, cols)]
+        t10 = t[np.ix_(rows, cols_adj)]
+        t01 = t[np.ix_(rows_adj, cols)]
+        t11 = t[np.ix_(rows_adj, cols_adj)]
+        return t00 * f32(9 / 16) + t10 * f32(3 / 16) + t01 * f32(3 / 16) + t11 * f32(1 / 16)
+
+    yy, cb, cr = table_y[y], chroma(u), chroma(v)
+    if mc == 8:  # YCgCo
+        t = yy - cb
+        g, b, r = yy + cb, t - cr, t + cr
+    else:
+        kr, kb = (f32(x) for x in _KR_KB[mc])
+        kg = f32(1) - kr - kb
+        r = yy + (f32(2) * (f32(1) - kr)) * cr
+        b = yy + (f32(2) * (f32(1) - kb)) * cb
+        g = yy - ((f32(2) * ((kr * (f32(1) - kr) * cr) + (kb * (f32(1) - kb) * cb))) / kg)
+    return np.stack([(f32(0.5) + np.clip(c, f32(0), f32(1)) * f32(255)).astype(np.uint8) for c in (b, g, r)], -1)

@@ -88,12 +88,12 @@ def test_fixture_reads_as_opencv(tmp_path, name):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_forms_outside_the_decoder_are_named(tmp_path, name):
-    """Lossy 4:2:0 (cv2 at quality 95), an image sequence (cv2's
-    animation), a grid, a matrix libavif converts, premultiplied alpha, an
-    ispe libavif scales to, and a lossless header rewritten to switch on
-    screen content or film grain: ``UnsupportedImageError`` naming the
-    form, never an array; cv2 reads each file, or for the rewrites fails,
-    as the fixture file holds."""
+    """Lossy 4:2:0 that deblocks (cv2 at quality 75), an image sequence
+    (cv2's animation), a grid, premultiplied alpha, an ispe libavif scales
+    to, and a lossless header rewritten to switch on screen content or film
+    grain: ``UnsupportedImageError`` naming the form, never an array; cv2
+    reads each file, or for the rewrites fails, as the fixture file
+    holds."""
     words = REFUSED[name]
     path = _write(tmp_path, name)
     ref = reference(path)
@@ -152,10 +152,11 @@ def test_fixtures_cover_every_form():
 
 FUZZ_BASES = ("bgr-7x5", "gray-7x5", "bgr10-7x5", "gray12-7x5", "bgra-33x17", "box-extents-idat",
               "box-iloc2-sizes8", "gray-65x129")
-# copies the port refuses by name: (where cv2 fails: the damage switches on an AV1 tool, a quantizer index,
-# 4:2:0 or segmentation, and libaom fails on the rest of the stream; where cv2 reads: the damage changes
-# the ispe, and libavif scales the frame to it)
-NAMED = {"bgr-7x5": (0, 0), "gray-7x5": (0, 0), "bgr10-7x5": (0, 0), "gray12-7x5": (1, 2), "bgra-33x17": (0, 0),
+# copies the port refuses by name: (where cv2 fails: the damage switches on an AV1 tool the port refuses
+# in the header, such as segmentation, and libaom fails on the rest of the stream; where cv2 reads: the
+# damage changes the ispe, and libavif scales the frame to it). A frame refused for an in-loop filter is
+# read to its end first, so a copy libaom fails on fails in the port too.
+NAMED = {"bgr-7x5": (0, 0), "gray-7x5": (0, 0), "bgr10-7x5": (0, 0), "gray12-7x5": (0, 2), "bgra-33x17": (0, 0),
          "box-extents-idat": (0, 0), "box-iloc2-sizes8": (0, 0), "gray-65x129": (0, 0)}
 
 
@@ -207,9 +208,11 @@ def test_damaged_and_cut_copies_read_as_opencv(tmp_path, base):
 
 
 def _table(name):
-    """The integers of a table of ``native/av1.cpp``, in order."""
-    src = (ROOT / "deepemia_tpu_torch" / "native" / "av1.cpp").read_text()
-    m = re.search(rf"\b{name}\b[^=]*=\s*\{{(.*?)\}};", src, re.S)
+    """The integers of a table of ``native/av1.cpp`` or of its generated
+    ``native/av1_tables.h``, in order."""
+    native = ROOT / "deepemia_tpu_torch" / "native"
+    src = (native / "av1.cpp").read_text() + (native / "av1_tables.h").read_text()
+    m = re.search(rf"\b{name}\b\s*(?:\[[^\]]*\]\s*)*=\s*\{{(.*?)\}};", src, re.S)  # its definition
     assert m, name
     return [int(v) for v in re.findall(r"-?\d+", m.group(1))]
 
@@ -222,7 +225,8 @@ def test_tables_hold_the_specification_values():
     Default_Coeff_Base_Cdf, Default_Dc_Sign_Cdf, Dr_Intra_Derivative,
     Sm_Weights_Tx_4x4, Mode_To_Angle, Intra_Filter_Taps and the 4x4
     default scan (each CDF N cumulative values ending in 32768, then a
-    counter)."""
+    counter; the coefficient CDFs, weights and scans from the generated
+    ``av1_tables.h``, indexed by q context first)."""
     assert _table("kPartition8")[:5] == [19132, 25510, 30392, 32768, 0]
     assert _table("kKfYMode")[:14] == [15588, 17027, 19338, 20218, 20682, 21110, 21825, 23244, 24189, 28165,
                                        29093, 30466, 32768, 0]
@@ -230,14 +234,14 @@ def test_tables_hold_the_specification_values():
                                          20995, 22455, 24212, 32768, 0]
     assert _table("kSkip") == [31671, 32768, 0, 16515, 32768, 0, 4576, 32768, 0]
     assert _table("kCflSign") == [1418, 2123, 13340, 18405, 26972, 28343, 32294, 32768, 0]
-    assert _table("kTxbSkip")[:6] == [31849, 32768, 0, 5892, 32768, 0]
-    assert _table("kEobPt16")[:6] == [840, 1039, 1980, 4895, 32768, 0]
-    assert _table("kCoeffBase")[:5] == [4034, 8930, 12727, 32768, 0]
-    assert _table("kDcSign") == [128 * 125, 32768, 0, 128 * 102, 32768, 0, 128 * 147, 32768, 0,
-                                 128 * 119, 32768, 0, 128 * 101, 32768, 0, 128 * 135, 32768, 0]
+    assert _table("kTxbSkipCdf")[:6] == [31849, 32768, 0, 5892, 32768, 0]
+    assert _table("kEobPt16Cdf")[:6] == [840, 1039, 1980, 4895, 32768, 0]
+    assert _table("kCoeffBaseCdf")[:5] == [4034, 8930, 12727, 32768, 0]
+    assert _table("kDcSignCdf")[:18] == [128 * 125, 32768, 0, 128 * 102, 32768, 0, 128 * 147, 32768, 0,
+                                         128 * 119, 32768, 0, 128 * 101, 32768, 0, 128 * 135, 32768, 0]
     dr = _table("kDrIntraDerivative")
     assert len(dr) == 90 and (dr[3], dr[6], dr[45], dr[87]) == (1023, 547, 64, 3)
-    assert _table("kSmWeights4") == [255, 149, 85, 64]
+    assert _table("kSmWeights")[:4] == [255, 149, 85, 64]
     assert _table("kModeToAngle") == [0, 90, 180, 45, 135, 113, 157, 203, 67, 0, 0, 0, 0]
     assert _table("kFilterIntraTaps")[:14] == [-6, 10, 0, 0, 0, 12, 0, -5, 2, 10, 0, 0, 9, 0]
     assert _table("kDefaultScan4x4") == [0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15]
@@ -250,9 +254,9 @@ def test_tables_hold_the_specification_values():
 
 @pytest.fixture(scope="module")
 def avif_records(tmp_path_factory):
-    """Five records whose images are lossless AVIF files of the dataset's
-    PNGs: BGR, gray, 10-bit, with irot, and (the third) lossy 4:2:0, which
-    the port names."""
+    """Five records whose images are AVIF files of the dataset's PNGs:
+    lossless BGR, gray, 10-bit, with irot, and (the third) lossy 4:2:0 at
+    quality 95."""
     root = make_dataset(tmp_path_factory.mktemp("avif") / "ds", 5, seed=19, size=(48, 64))
     for i in range(5):
         bgr = cv2.imread(os.path.join(root, f"img{i}.png"))
@@ -262,7 +266,7 @@ def avif_records(tmp_path_factory):
         elif i == 1:
             data = fx.cv2_file(bgr[..., 1])
         elif i == 2:
-            data = fx.cv2_file(bgr, cv2.IMWRITE_AVIF_QUALITY, 90)
+            data = fx.cv2_file(bgr, cv2.IMWRITE_AVIF_QUALITY, 95)
         elif i == 3:
             data = fx.cv2_file(bgr.astype(np.uint16) * 4, cv2.IMWRITE_AVIF_DEPTH, 10)
         else:
@@ -276,16 +280,11 @@ def avif_records(tmp_path_factory):
 
 def test_loaders_read_avif_frames_as_jax(avif_records):
     """The JAX loader and the port's on the same AVIF records: equal
-    samples, plain and augmented; the lossy frame, which OpenCV reads,
-    raises ``UnsupportedImageError`` in the port rather than be skipped."""
+    samples, plain and augmented, the lossy 4:2:0 frame among them."""
     for i, rec in enumerate(avif_records):
         for augment in (False, True):
             want = jax_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(i))
-            if i == 2:
-                assert want is not None
-                with pytest.raises(UnsupportedImageError, match="4:2:0"):
-                    port_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(i))
-                continue
+            assert want is not None
             got = port_loader.prepare_sample(rec, 64, 8, augment, np.random.default_rng(i))
             assert set(got) == set(want)
             for k in want:

@@ -1,0 +1,211 @@
+"""The headers of the AV1 still pictures that libaom writes for cv2
+(a reduced still picture sequence header, one frame OBU), read field by
+field with the position of each, and rewritten: ``strip_filters`` sets the
+loop filter levels and (or not) the CDEF strengths of a lossy frame to 0,
+so that cv2 (libaom) decodes it without those in-loop filters; ``fields`` says what
+a payload switches on (``tx_mode_select``, ``delta_q_present``, the loop
+filter levels, the CDEF strengths, the quantizer).
+
+    f = fields(payload)
+    plain = strip_filters(payload)
+"""
+
+from __future__ import annotations
+
+
+def _obus(payload: bytes) -> list:
+    """[(type, start of the OBU, start of its body, end)] of a payload whose
+    OBUs carry sizes and no extension."""
+    out, at = [], 0
+    while at < len(payload):
+        head = payload[at]
+        pos, size, shift = at + 1, 0, 0
+        while True:
+            b = payload[pos]
+            size |= (b & 0x7F) << shift
+            pos, shift = pos + 1, shift + 7
+            if not b & 0x80:
+                break
+        out.append((head >> 3 & 15, at, pos, pos + size))
+        at = pos + size
+    return out
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+class _Bits:
+    def __init__(self, data: bytes):
+        self.bits = "".join(f"{b:08b}" for b in data)
+        self.pos = 0
+
+    def f(self, n: int) -> int:
+        v = int(self.bits[self.pos : self.pos + n] or "0", 2)
+        self.pos += n
+        return v
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v >> (n - 1) else v
+
+
+def _sequence(body: bytes) -> dict:
+    b = _Bits(body)
+    s = {"profile": b.f(3)}
+    b.f(1)
+    if not b.f(1):
+        raise ValueError("a full sequence header: not one libaom writes for cv2")
+    b.f(5)
+    wb, hb = b.f(4) + 1, b.f(4) + 1
+    s["width"], s["height"] = b.f(wb) + 1, b.f(hb) + 1
+    s["sb128"], _, _ = b.f(1), b.f(1), b.f(1)
+    s["superres"], s["cdef"], s["restoration"] = b.f(1), b.f(1), b.f(1)
+    high = b.f(1)
+    depth = (12 if b.f(1) else 10) if s["profile"] == 2 and high else 10 if high else 8
+    s["mono"] = b.f(1) if s["profile"] != 1 else 0
+    cp = tc = mc = 2
+    if b.f(1):
+        cp, tc, mc = b.f(8), b.f(8), b.f(8)
+    s["separate_uv_delta_q"] = 0
+    if s["mono"]:
+        b.f(1)
+    elif (cp, tc, mc) == (1, 13, 0):  # sRGB: full range 4:4:4, nothing read
+        s["separate_uv_delta_q"] = b.f(1)
+    else:
+        b.f(1)  # color_range
+        if s["profile"] == 2 and depth == 12:
+            ssx = b.f(1)
+            if ssx and b.f(1):
+                b.f(2)  # chroma_sample_position
+        elif s["profile"] == 0:
+            b.f(2)  # chroma_sample_position
+        s["separate_uv_delta_q"] = b.f(1)
+    s["film_grain"] = b.f(1)
+    s["depth"] = depth
+    return s
+
+
+def fields(payload: bytes) -> dict:
+    """The frame header fields of a cv2 payload, and ``bit`` positions
+    (within the frame OBU's body) of the loop filter and CDEF parameters
+    and of the header's end."""
+    obus = {t: (s, e) for t, _, s, e in _obus(payload)}
+    seq = _sequence(payload[obus[1][0] : obus[1][1]])
+    s, e = obus[6]
+    b = _Bits(payload[s:e])
+    out = dict(seq)
+    b.f(1)  # disable_cdf_update
+    if b.f(1):
+        raise ValueError("screen content tools")
+    if b.f(1):  # render_and_frame_size_different
+        b.f(32)
+    if seq["superres"] and b.f(1):
+        raise ValueError("superres")
+    mi_cols, mi_rows = 2 * ((seq["width"] + 7) >> 3), 2 * ((seq["height"] + 7) >> 3)
+    sb_shift = 5 if seq["sb128"] else 4
+    sb_cols, sb_rows = (mi_cols + (1 << sb_shift) - 1) >> sb_shift, (mi_rows + (1 << sb_shift) - 1) >> sb_shift
+
+    def tile_log2(blk, target):
+        k = 0
+        while (blk << k) < target:
+            k += 1
+        return k
+
+    sb_size = sb_shift + 2
+    max_w = 4096 >> sb_size
+    min_cols, max_cols = tile_log2(max_w, sb_cols), tile_log2(1, min(sb_cols, 64))
+    max_rows = tile_log2(1, min(sb_rows, 64))
+    min_tiles = max(min_cols, tile_log2((4096 * 2304) >> (2 * sb_size), sb_rows * sb_cols))
+    if b.f(1):  # uniform_tile_spacing_flag
+        cols_log2 = min_cols
+        while cols_log2 < max_cols and b.f(1):
+            cols_log2 += 1
+        rows_log2 = max(min_tiles - cols_log2, 0)
+        while rows_log2 < max_rows and b.f(1):
+            rows_log2 += 1
+    else:
+        raise ValueError("non-uniform tiles")
+    if cols_log2 or rows_log2:
+        b.f(cols_log2 + rows_log2)
+        b.f(2)
+    out["tiles_log2"] = (cols_log2, rows_log2)
+    out["base_q_idx"] = b.f(8)
+
+    def delta():
+        return b.su(7) if b.f(1) else 0
+
+    out["delta_q_y_dc"] = delta()
+    out["delta_q_uv"] = (0, 0)
+    if not seq["mono"]:
+        diff = b.f(1) if seq["separate_uv_delta_q"] else 0
+        out["delta_q_uv"] = (delta(), delta())
+        if diff:
+            delta(), delta()
+    out["using_qmatrix"] = b.f(1)
+    if out["using_qmatrix"]:
+        out["qm"] = (b.f(4), b.f(4), b.f(4) if seq["separate_uv_delta_q"] else None)
+    if b.f(1):
+        raise ValueError("segmentation")
+    out["delta_q_present"] = b.f(1) if out["base_q_idx"] else 0
+    out["delta_q_res"] = b.f(2) if out["delta_q_present"] else 0
+    out["delta_lf_present"] = b.f(1) if out["delta_q_present"] else 0
+    if out["delta_lf_present"]:
+        b.f(3)
+    lossless = out["base_q_idx"] == 0 and out["delta_q_y_dc"] == 0 and out["delta_q_uv"] == (0, 0)
+    out["loop_filter"], out["cdef_strengths"], out["tx_mode_select"] = (0, 0), [], 0
+    if not lossless:
+        out["bit_lf"] = b.pos
+        out["loop_filter"] = (b.f(6), b.f(6))
+        if not seq["mono"] and any(out["loop_filter"]):
+            b.f(12)
+        out["bit_lf_end"] = b.pos
+        b.f(3)
+        if b.f(1) and b.f(1):
+            for _ in range(10):
+                if b.f(1):
+                    b.f(7)
+        if seq["cdef"]:
+            b.f(2)
+            out["cdef_bits"] = b.f(2)
+            out["bit_cdef"] = b.pos
+            for _ in range(1 << out["cdef_bits"]):
+                strength = [b.f(4), b.f(2)] + ([] if seq["mono"] else [b.f(4), b.f(2)])
+                out["cdef_strengths"].append(strength)
+            out["bit_cdef_end"] = b.pos
+        if seq["restoration"]:
+            for _ in range(1 if seq["mono"] else 3):
+                if b.f(2):
+                    raise ValueError("loop restoration")
+        out["tx_mode_select"] = b.f(1)
+    out["reduced_tx_set"] = b.f(1)
+    if seq["film_grain"] and b.f(1):
+        raise ValueError("film grain")
+    out["bit_end"] = b.pos
+    return out
+
+
+def strip_filters(payload: bytes, keep_cdef: bool = False) -> bytes:
+    """A cv2 payload whose frame header is rewritten with loop filter
+    levels 0 (so no level for U and V) and, unless ``keep_cdef``, CDEF
+    strengths 0; the tile data is kept (neither changes its syntax) after
+    the header's new byte alignment."""
+    f = fields(payload)
+    if "bit_lf" not in f:  # a lossless frame: no filter parameters
+        return payload
+    _, start, s, e = next(o for o in _obus(payload) if o[0] == 6)
+    bits = "".join(f"{x:08b}" for x in payload[s:e])
+    header = bits[: f["bit_lf"]] + "0" * 12 + bits[f["bit_lf_end"] : f["bit_end"]]
+    if "bit_cdef" in f and not keep_cdef:  # the strengths, 12 bits fewer before them now
+        at, n = f["bit_cdef"] - (f["bit_lf_end"] - f["bit_lf"]) + 12, f["bit_cdef_end"] - f["bit_cdef"]
+        header = header[:at] + "0" * n + header[at + n :]
+    header += "0" * (-len(header) % 8)
+    tiles = payload[s + (f["bit_end"] + 7) // 8 : e]
+    body = int(header, 2).to_bytes(len(header) // 8, "big") + tiles
+    return payload[:start] + bytes([6 << 3 | 2]) + _leb128(len(body)) + body + payload[e:]

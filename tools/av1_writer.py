@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 
 AV1_CPP = Path(__file__).resolve().parents[1] / "deepemia_tpu_torch" / "native" / "av1.cpp"
+AV1_TABLES = AV1_CPP.with_name("av1_tables.h")
 _SCAN = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
 _BASE_OFFSET = ((0, 1, 6, 6), (1, 6, 6, 21), (6, 6, 21, 21), (6, 21, 21, 21))
 _MODE_CTX = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)  # Intra_Mode_Context
@@ -33,20 +34,32 @@ B4X4, B8X8, B64X64, B128X128 = 0, 3, 12, 15
 NONE, HORZ, VERT, SPLIT, HORZ_A, HORZ_B, VERT_A, VERT_B, HORZ_4, VERT_4 = range(10)
 
 
+def _values(src: str, name: str) -> list:
+    body = re.search(rf"\b{name}\b\s*(?:\[[^\]]*\]\s*)*=\s*\{{(.*?)\}};", src, re.S).group(1)
+    return [int(x) for x in re.findall(r"-?\d+", body)]
+
+
 def _tables() -> dict:
-    """The CDF tables of av1.cpp -> {name: [cdfs]} (each N values and a
-    counter)."""
+    """The CDF tables of av1.cpp, and the TX_4X4 q-context-0 coefficient
+    CDFs of av1_tables.h (what a lossless frame reads) -> {name: [cdfs]}
+    (each N values and a counter)."""
     src = AV1_CPP.read_text()
     out = {}
     for name, per in (("kPartition8", 5), ("kPartition16", 11), ("kPartition128", 9), ("kKfYMode", 14),
-                      ("kUvModeNoCfl", 14), ("kUvModeCfl", 15), ("kSkip", 3), ("kTxbSkip", 3), ("kEobPt16", 6),
-                      ("kEobExtra", 3), ("kCoeffBaseEob", 4), ("kCoeffBase", 5), ("kCoeffBr", 5), ("kDcSign", 3),
-                      ("kAngleDelta", 8), ("kFilterIntra", 3), ("kFilterIntraMode", 6), ("kCflSign", 9),
-                      ("kCflAlpha", 17), ("kSmWeights4", 4), ("kDrIntraDerivative", 90), ("kFilterIntraTaps", 56),
-                      ("kModeToAngle", 13)):
-        body = re.search(rf"\b{name}\b[^=]*=\s*\{{(.*?)\}};", src, re.S).group(1)
-        v = [int(x) for x in re.findall(r"-?\d+", body)]
+                      ("kUvModeNoCfl", 14), ("kUvModeCfl", 15), ("kSkip", 3), ("kAngleDelta", 8),
+                      ("kFilterIntra", 3), ("kFilterIntraMode", 6), ("kCflSign", 9), ("kCflAlpha", 17),
+                      ("kDrIntraDerivative", 90), ("kFilterIntraTaps", 56), ("kModeToAngle", 13)):
+        v = _values(src, name)
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
+    tables = AV1_TABLES.read_text()
+    # (name in av1_tables.h, values per CDF, CDFs of TX_4X4 at q-context 0 and its index stride per tx size)
+    for name, header, per, count in (("kTxbSkip", "kTxbSkipCdf", 3, 13), ("kEobPt16", "kEobPt16Cdf", 6, 4),
+                                     ("kEobExtra", "kEobExtraCdf", 3, 18), ("kCoeffBaseEob", "kCoeffBaseEobCdf", 4, 8),
+                                     ("kCoeffBase", "kCoeffBaseCdf", 5, 84), ("kCoeffBr", "kCoeffBrCdf", 5, 42),
+                                     ("kDcSign", "kDcSignCdf", 3, 6)):
+        v = _values(tables, header)[: per * count]
+        out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
+    out["kSmWeights4"] = [_values(tables, "kSmWeights")[:4]]
     return out
 
 
@@ -158,16 +171,22 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 
 class _Frame:
-    def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes):
+    def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0)):
         self.src = [np.asarray(p, np.int64) for p in planes]
         self.mono = len(planes) == 1
         self.bd = bit_depth
         self.sb128 = sb128
+        self.ssx, self.ssy = (1, 1) if self.mono else sub
         self.h, self.w = self.src[0].shape
         self.mi_cols, self.mi_rows = 2 * ((self.w + 7) >> 3), 2 * ((self.h + 7) >> 3)
-        # the decoded area (whole 4x4 blocks up to the 8-aligned size): the source, edges replicated
-        self.pix = [np.pad(p, ((0, self.mi_rows * 4 - self.h), (0, self.mi_cols * 4 - self.w)), mode="edge")
-                    for p in self.src]
+        # the decoded area (whole 4x4 blocks up to the 8-aligned size, subsampled for chroma): the source,
+        # edges replicated
+        self.pix = []
+        for k, p in enumerate(self.src):
+            sx, sy = (self.ssx, self.ssy) if k else (0, 0)
+            assert p.shape == ((self.h + sy) >> sy, (self.w + sx) >> sx), p.shape
+            self.pix.append(np.pad(p, ((0, ((self.mi_rows * 4) >> sy) - p.shape[0]),
+                                       (0, ((self.mi_cols * 4) >> sx) - p.shape[1])), mode="edge"))
         self.disable_cdf_update = disable_cdf_update
         self.rng = rng
         self.tiles = tiles
@@ -176,6 +195,13 @@ class _Frame:
         self.mode_odds = np.full(13, 1 / 13) if modes else np.eye(13)[0]
         self.mode_odds_uv = np.full(14, 1.0) if modes else np.eye(14)[0]
 
+    def sub(self, p):
+        return (self.ssx, self.ssy) if p else (0, 0)
+
+    def chroma_invalid(self, bsize):
+        """Whether the subsampling leaves no chroma block for ``bsize``
+        (Subsampled_Size is BLOCK_INVALID: a tall block in 4:2:2)."""
+        return not self.mono and self.ssx and not self.ssy and _HIGH[bsize] > _WIDE[bsize]
     # ---- tile layout ----
     def tile_layout(self):
         sb = 32 if self.sb128 else 16
@@ -257,10 +283,14 @@ class _Frame:
             else:
                 cdf, n = self.cdf["kPartition16"][(bsl - 2) * 4 + ctx], 10
             if has_rows and has_cols:
-                p = int(self.rng.choice(n, p=self._weights(n, bsize)))
+                w = self._weights(n, bsize)
+                for k in range(n):
+                    if self.chroma_invalid(self.sub_size(k, bsize)):
+                        w[k] = 0
+                p = int(self.rng.choice(n, p=w / w.sum()))
                 self.sym.symbol(p, cdf, n)
             elif has_cols or has_rows:
-                split = int(self.rng.random() < 0.7)
+                split = int(self.rng.random() < 0.7 or self.chroma_invalid(self.sub_size(HORZ if has_cols else VERT, bsize)))
 
                 def prob(e):
                     return cdf[e] - (cdf[e - 1] if e > 0 else 0)
@@ -332,8 +362,13 @@ class _Frame:
         self.y_mode = int(rng.choice(13, p=self.mode_odds))
         self.angle_y = int(rng.integers(-3, 4)) if bsize >= B8X8 and 1 <= self.y_mode <= 8 else 0
         self.uv_mode, self.angle_uv, self.cfl = 0, 0, (0, 0)
-        if not self.mono:
-            n_uv = 14 if bsize == B4X4 else 13
+        self.has_chroma = not self.mono and not (self.ssx and bw4 == 1 and c % 2 == 0) and not (
+            self.ssy and bh4 == 1 and r % 2 == 0)
+        self.avail_uc = self.has_chroma and (self.inside(r - 2, c) if self.ssy and bh4 == 1 else self.avail_u)
+        self.avail_lc = self.has_chroma and (self.inside(r, c - 2) if self.ssx and bw4 == 1 else self.avail_l)
+        self.cfl_allowed = _WIDE[self.chroma_size(bsize)] == 1 and _HIGH[self.chroma_size(bsize)] == 1
+        if self.has_chroma:
+            n_uv = 14 if self.cfl_allowed else 13
             self.uv_mode = int(rng.choice(n_uv, p=self.mode_odds_uv[:n_uv] / self.mode_odds_uv[:n_uv].sum()))
             if self.uv_mode == 13:
                 self.signs = int(rng.integers(0, 8))
@@ -357,8 +392,8 @@ class _Frame:
         sym.symbol(self.y_mode, cdf["kKfYMode"][above * 5 + left], 13)
         if bsize >= B8X8 and 1 <= self.y_mode <= 8:
             sym.symbol(self.angle_y + 3, cdf["kAngleDelta"][self.y_mode - 1], 7)
-        if not self.mono:
-            if bsize == B4X4:
+        if self.has_chroma:
+            if self.cfl_allowed:
                 sym.symbol(self.uv_mode, cdf["kUvModeCfl"][self.y_mode], 14)
             else:
                 sym.symbol(self.uv_mode, cdf["kUvModeNoCfl"][self.y_mode], 13)
@@ -376,43 +411,60 @@ class _Frame:
             if self.use_filter_intra:
                 sym.symbol(self.filter_mode, cdf["kFilterIntraMode"][0], 5)
         if skip:
-            for p in range(1 if self.mono else 3):
-                self.above_level[p][c : c + bw4] = 0
-                self.above_dc[p][c : c + bw4] = 0
-                self.left_level[p][r : r + bh4] = 0
-                self.left_dc[p][r : r + bh4] = 0
+            for p in range(3 if self.has_chroma else 1):
+                sx, sy = self.sub(p)
+                self.above_level[p][c >> sx : (c + bw4) >> sx] = 0
+                self.above_dc[p][c >> sx : (c + bw4) >> sx] = 0
+                self.left_level[p][r >> sy : (r + bh4) >> sy] = 0
+                self.left_dc[p][r >> sy : (r + bh4) >> sy] = 0
         rr, cc = min(r + bh4, self.mi_rows), min(c + bw4, self.mi_cols)
         self.mi_size[r:rr, c:cc] = bsize
         self.skips[r:rr, c:cc] = skip
         self.y_modes[r:rr, c:cc] = self.y_mode
-        self.uv_modes[r:rr, c:cc] = self.uv_mode
+        if self.has_chroma:
+            self.uv_modes[r:rr, c:cc] = self.uv_mode
         if not skip:
             for p, x4, y4, lv in levels:
                 self.coeffs(p, x4, y4, lv)
 
+    def chroma_size(self, bsize):
+        """Subsampled_Size of a block, as its (4x4 columns, 4x4 rows)."""
+        w, h = max(1, _WIDE[bsize] >> self.ssx), max(1, _HIGH[bsize] >> self.ssy)
+        for b in range(22):
+            if _WIDE[b] == w and _HIGH[b] == h:
+                return b
+        return -1
+
     def predict_block(self, r, c, bsize):
         """The block's 4x4 transform blocks in the decoder's order (64x64
-        chunks, then planes): each predicted from the frame, whose samples
-        are the decoded ones (lossless) -> [(plane, x4, y4, levels)]."""
+        chunks, then planes, each at its subsampling): each predicted from
+        the frame, whose samples are the decoded ones (lossless) ->
+        [(plane, x4, y4, levels)]."""
         bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
         sb_mask = 31 if self.sb128 else 15
         out = []
         for cy in range(max(1, bh4 >> 4)):
             for cx in range(max(1, bw4 >> 4)):
-                for p in range(1 if self.mono else 3):
-                    for y in range(min(bh4, 16)):
-                        for x in range(min(bw4, 16)):
-                            xx, yy = x + (cx << 4), y + (cy << 4)
-                            sx, sy = c * 4 + 4 * xx, r * 4 + 4 * yy
-                            if sx >= self.mi_cols * 4 or sy >= self.mi_rows * 4:
+                for p in range(3 if self.has_chroma else 1):
+                    ssx, ssy = self.sub(p)
+                    psz = self.chroma_size(bsize) if p else bsize
+                    base_x, base_y = (c >> ssx) * 4, (r >> ssy) * 4
+                    for y in range(min(_HIGH[psz], 16 >> ssy)):
+                        for x in range(min(_WIDE[psz], 16 >> ssx)):
+                            xx, yy = x + ((cx << 4) >> ssx), y + ((cy << 4) >> ssy)
+                            sx, sy = base_x + 4 * xx, base_y + 4 * yy
+                            if sx >= (self.mi_cols * 4) >> ssx or sy >= (self.mi_rows * 4) >> ssy:
                                 continue
-                            row, col = (sy >> 2) & sb_mask, (sx >> 2) & sb_mask
+                            row, col = (((sy << ssy) >> 2) & sb_mask) >> ssy, (((sx << ssx) >> 2) & sb_mask) >> ssx
                             bd = self.block_decoded[p]
                             mode = self.y_mode if p == 0 else (0 if self.uv_mode == 13 else self.uv_mode)
-                            pred = self.predict(p, sx, sy, self.avail_l or xx > 0, self.avail_u or yy > 0,
-                                                bd[row, col + 2], bd[row + 2, col], mode)
+                            left = (self.avail_lc if p else self.avail_l) or xx > 0
+                            up = (self.avail_uc if p else self.avail_u) or yy > 0
+                            pred = self.predict(p, sx, sy, left, up, bd[row, col + 2], bd[row + 2, col], mode)
                             if p and self.uv_mode == 13:
                                 pred = self.predict_cfl(p, sx, sy, pred)
+                            if p == 0:
+                                self.max_luma = (sx + 4, sy + 4)
                             out.append((p, sx >> 2, sy >> 2, _wht_levels(self.pix[p][sy : sy + 4, sx : sx + 4] - pred)))
                             bd[row + 1, col + 1] = 1
         return out
@@ -420,20 +472,22 @@ class _Frame:
     def clear_block_decoded(self, r, c):
         sb4 = 32 if self.sb128 else 16
         _, r1, _, c1 = self.tile
-        w4, h4 = c1 - c, r1 - r
         for p in range(1 if self.mono else 3):
+            ssx, ssy = self.sub(p)
+            w4, h4 = (c1 - c) >> ssx, (r1 - r) >> ssy
             bd = np.zeros((sb4 + 2, sb4 + 2), np.int64)  # index [y + 1, x + 1]
-            for y in range(-1, sb4 + 1):
-                for x in range(-1, sb4 + 1):
+            for y in range(-1, (sb4 >> ssy) + 1):
+                for x in range(-1, (sb4 >> ssx) + 1):
                     bd[y + 1, x + 1] = int((y < 0 and x < w4) or (x < 0 and y < h4))
-            bd[sb4 + 1, 0] = 0
+            bd[(sb4 >> ssy) + 1, 0] = 0
             self.block_decoded[p] = bd
 
     # ---- intra prediction (7.11.2), a 4x4 block ----
     def predict(self, p, x, y, have_left, have_above, have_rt, have_bl, mode):
         pix, bd_ = self.pix[p], self.bd
         w = h = 4
-        max_x, max_y = self.mi_cols * 4 - 1, self.mi_rows * 4 - 1
+        ssx, ssy = self.sub(p)
+        max_x, max_y = ((self.mi_cols * 4) >> ssx) - 1, ((self.mi_rows * 4) >> ssy) - 1
         above = {}
         left = {}
         for i in range(w + h):
@@ -487,10 +541,20 @@ class _Frame:
             up_a = up_l = 0
             if p_angle not in (90, 180):
                 ftype = 0
-                if self.avail_u:
-                    ftype |= self.is_smooth(self.mi_row - 1, self.mi_col, p)
-                if self.avail_l:
-                    ftype |= self.is_smooth(self.mi_row, self.mi_col - 1, p)
+                if self.avail_uc if p else self.avail_u:
+                    rr, cc = self.mi_row - 1, self.mi_col
+                    if p and self.ssx and not self.mi_col & 1:
+                        cc += 1
+                    if p and self.ssy and self.mi_row & 1:
+                        rr -= 1
+                    ftype |= self.is_smooth(rr, cc, p)
+                if self.avail_lc if p else self.avail_l:
+                    rr, cc = self.mi_row, self.mi_col - 1
+                    if p and self.ssx and self.mi_col & 1:
+                        cc -= 1
+                    if p and self.ssy and not self.mi_row & 1:
+                        rr += 1
+                    ftype |= self.is_smooth(rr, cc, p)
                 if have_above:
                     self.edge_filter(above, min(w, max_x - x + 1) + (h if p_angle < 90 else 0) + 1,
                                      self.strength(ftype, p_angle - 90))
@@ -599,7 +663,11 @@ class _Frame:
 
     def predict_cfl(self, p, x, y, dc):
         alpha = self.cfl[p - 1]
-        luma = self.pix[0][y : y + 4, x : x + 4].astype(np.int64) << 3
+        sx, sy = self.ssx, self.ssy
+        ys = np.minimum((y + np.arange(4)) << sy, self.max_luma[1] - (1 << sy))
+        xs = np.minimum((x + np.arange(4)) << sx, self.max_luma[0] - (1 << sx))
+        luma = sum(self.pix[0][np.ix_(ys + dy, xs + dx)].astype(np.int64) for dy in range(sy + 1) for dx in range(sx + 1))
+        luma = luma << (3 - sx - sy)
         avg = (int(luma.sum()) + 8) >> 4
         scaled = alpha * (luma - avg)
         scaled = np.where(scaled >= 0, (scaled + 32) >> 6, -((-scaled + 32) >> 6))
@@ -627,7 +695,7 @@ class _Frame:
         else:
             above = self.above_level[p][x4] | self.above_dc[p][x4]
             left = self.left_level[p][y4] | self.left_dc[p][y4]
-            ctx = 7 + (above != 0) + (left != 0) + (3 if self.bsize != B4X4 else 0)
+            ctx = 7 + (above != 0) + (left != 0) + (3 if self.chroma_size(self.bsize) != B4X4 else 0)
         q = lv.ravel()
         all_zero = int(not q.any())
         sym.symbol(all_zero, cdf["kTxbSkip"][ctx], 2)
@@ -723,9 +791,13 @@ def _obu(kind: int, body: bytes) -> bytes:
 
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
-           seed: int = 0, weights=None, modes: bool = True) -> bytes:
-    """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V] of equal
-    size, 4:4:4 with the identity matrix) -> its OBUs: a temporal
+           seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
+           full_range: bool = True) -> bytes:
+    """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
+    the identity matrix, or with ``matrix`` (colour primaries BT.709,
+    sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
+    0) 4:4:4, (1, 0) 4:2:2, (1, 1) 4:2:0, the chroma planes at their
+    subsampled size) -> its OBUs: a temporal
     delimiter, a sequence header (``reduced``: a reduced still picture
     header; else a full one with timing and decoder model information and
     two operating points), then a frame OBU, or with ``split_obus`` a frame
@@ -737,11 +809,13 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     intra mode drawn (angle deltas, CFL, filter intra), else DC only (all
     drawn from ``seed``)."""
     rng = np.random.default_rng(seed)
-    fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes)
+    assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
+    fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling))
     mono = fr.mono
+    profile = _profile(bit_depth, mono, tuple(subsampling))
     # the sequence header
     b = Bits()
-    b.f(3, 2 if bit_depth == 12 else 0 if mono else 1)  # seq_profile: 0 mono, 1 4:4:4, 2 12-bit
+    b.f(3, profile)  # seq_profile: 0 mono or 4:2:0, 1 4:4:4, 2 12-bit or 4:2:2
     b.f(1, 1)  # still_picture
     b.f(1, int(reduced))
     if reduced:
@@ -777,16 +851,25 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         b.f(1, 0), b.f(1, 0)  # seq_choose_screen_content_tools 0, seq_force_screen_content_tools 0
         b.f(3, 6)  # order_hint_bits_minus_1
     b.f(1, 0), b.f(1, 0), b.f(1, 0)  # superres, cdef, restoration
-    profile = 2 if bit_depth == 12 else 0 if mono else 1
     b.f(1, int(bit_depth > 8))  # high_bitdepth
-    if profile == 2:
-        b.f(1, 1)  # twelve_bit
+    if profile == 2 and bit_depth > 8:
+        b.f(1, int(bit_depth == 12))  # twelve_bit
     if profile != 1:
         b.f(1, int(mono))
     if mono:  # no colour description; the range read
         b.f(1, 0), b.f(1, 1)
-    else:  # BT.709 primaries, sRGB transfer, identity matrix: full range 4:4:4 implied
+    elif not matrix:  # BT.709 primaries, sRGB transfer, identity matrix: full range 4:4:4 implied
         b.f(1, 1), b.f(8, 1), b.f(8, 13), b.f(8, 0)
+        b.f(1, 0)  # separate_uv_delta_q
+    else:
+        b.f(1, 1), b.f(8, 1), b.f(8, 13), b.f(8, matrix)
+        b.f(1, int(full_range))
+        if profile == 2 and bit_depth == 12:
+            b.f(1, subsampling[0])
+            if subsampling[0]:
+                b.f(1, subsampling[1])
+        if subsampling[0] and subsampling[1]:
+            b.f(2, 0)  # chroma_sample_position: unknown
         b.f(1, 0)  # separate_uv_delta_q
     b.f(1, 0)  # film_grain_params_present
     b.trailing()
@@ -890,8 +973,17 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     return out
 
 
-def av1c(bit_depth: int, mono: bool) -> bytes:
+def _profile(bit_depth: int, mono: bool, subsampling) -> int:
+    if bit_depth == 12:
+        return 2
+    if mono or subsampling == (1, 1):
+        return 0
+    return 1 if subsampling == (0, 0) else 2
+
+
+def av1c(bit_depth: int, mono: bool, subsampling=(0, 0)) -> bytes:
     """The av1C box body of what ``encode`` writes."""
-    profile = 2 if bit_depth == 12 else 0 if mono else 1
-    flags = (bit_depth > 8) << 6 | (bit_depth == 12) << 5 | mono << 4 | (mono << 3) | (mono << 2)
+    sx, sy = (1, 1) if mono else subsampling
+    profile = _profile(bit_depth, mono, tuple(subsampling))
+    flags = (bit_depth > 8) << 6 | (bit_depth == 12) << 5 | mono << 4 | (sx << 3) | (sy << 2)
     return bytes([0x81, profile << 5 | 8, flags, 0])

@@ -36,10 +36,9 @@ DEFAULT_OUT = Path(__file__).resolve().parents[1] / "tests" / "data" / "torch_av
 # the forms cv2 reads (or, for a header rewritten to switch a tool on, fails on) that the port refuses by
 # name: fixture -> the words of its UnsupportedImageError
 NAMED = {
-    "refused-lossy-420": "4:2:0 or 4:2:2 AV1 chroma",
+    "refused-lossy-420": "AV1 deblocking",
     "refused-sequence": "an image sequence",
     "refused-grid": "a grid image",
-    "box-bt709-matrix": "matrix coefficients 1",
     "box-premultiplied-alpha": "premultiplied alpha",
     "box-ispe-scaled": "which libavif scales",
     "box-screen-content": "AV1 screen content tools",
@@ -283,13 +282,8 @@ def rewrite(payload: bytes, change: str) -> bytes:
     (the frame header's second bit); ``grain`` sets
     film_grain_params_present (the sequence header's last bit before its
     trailing one), then apply_grain, the first bit after the frame header,
-    where its byte alignment was (found as the bit the port's decoder
-    reads there)."""
-    import sys
-
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from deepemia_tpu_torch import native
-
+    where its byte alignment was (``tools/av1_headers.py`` reads the
+    header to its end)."""
     data = bytearray(payload)
     obus = {t: (s, e) for t, _, s, e in _obus(payload)}
     frame_start = obus[6][0]
@@ -297,16 +291,13 @@ def rewrite(payload: bytes, change: str) -> bytes:
         _set_bit(data, frame_start * 8 + 1)
         return bytes(data)
     assert change == "grain", change
+    end = _tool("av1_headers").fields(payload)["bit_end"]
+    assert end % 8, "no byte alignment after the frame header to hold apply_grain"
     s, e = obus[1]
     last = max(k for k in range(s * 8, e * 8) if data[k >> 3] & (0x80 >> (k & 7)))  # the trailing one
     _set_bit(data, last - 1)
-    for bit in range(frame_start * 8 + 8, frame_start * 8 + 40):
-        trial = bytearray(data)
-        _set_bit(trial, bit)
-        status, meta, _ = native.av1_decode(bytes(trial))
-        if status == -2 and meta[4] == 6:  # film grain, av1.cpp's kToolFilmGrain
-            return bytes(trial)
-    raise AssertionError("no apply_grain bit found")
+    _set_bit(data, frame_start * 8 + end)
+    return bytes(data)
 
 
 def resize(payload: bytes, width: int, height: int) -> bytes:
@@ -502,7 +493,7 @@ def cases() -> dict:
                                                 mdat_first=True)
     small_payload, small_av1c, small_colr = cv2_payload(texture(3, 4, 12))
     out["box-mdat-first"] = avif([image_item(small_payload, small_av1c, 4, 3, 8, 3, small_colr)], mdat_first=True)
-    out["refused-lossy-420"] = cv2_file(img, cv2.IMWRITE_AVIF_QUALITY, 95)
+    out["refused-lossy-420"] = cv2_file(img, cv2.IMWRITE_AVIF_QUALITY, 75)  # libaom deblocks at 75
     anim = cv2.Animation()
     anim.frames = [texture(64, 64, 13), texture(64, 64, 14)]
     anim.durations = [100, 100]
