@@ -305,23 +305,25 @@ It builds the CUDA kernels from the sources in the checkout and then:
      labelled micrographs in lossless forms (BGR, monochrome, 10-bit,
      12-bit, with irot, split across iloc extents; the files committed)
      through the CLI as phase 19 (c) takes its dataset; (d) the lossy
-     4:2:0 file cv2 writes at quality 75, which deblocks, raises
-     ``UnsupportedImageError`` naming deblocking.
+     4:2:0 file cv2 writes at quality 75, which deblocks and applies
+     CDEF, raises ``UnsupportedImageError`` naming CDEF.
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
-     with the tables of ``native/av1_tables.h``, ``ops/avif.py``'s
-     libavif colour conversion): (a) one 1024x768 labelled micrograph
-     (``draw_labelled``, seed 22, its background flattened) in five forms
-     (cv2's quality 95 BGR 4:2:0 and gray, quality 99 at 10 and 12 bits,
-     where libaom deblocks at 95, and ``tools/av1_writer.py``'s lossless
-     4:2:0 BT.601 frame; the files committed in
+     with the tables of ``native/av1_tables.h`` and its loop filter,
+     ``ops/avif.py``'s libavif colour conversion): (a) one 1024x768
+     labelled micrograph (``draw_labelled``, seed 22, its background
+     flattened) in eight forms (cv2's quality 95 BGR 4:2:0 and gray,
+     quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
+     4:2:0 BT.601 frame, and the deblocked frames: cv2's quality 85 BGR,
+     quality 90 at 10 bits BGR and 12 bits gray; the files committed in
      ``tests/data/torch_avif_lossy_fixtures.npz``) decodes to the SHA-256
      of cv2's array and near the drawing; (b) cv2's quality-75 frame, which
-     deblocks, raises ``UnsupportedImageError`` naming deblocking; (c) a
-     committed 2048² BGR micrograph at quality 95: host decode seconds
-     (median of 3) beside an uncompressed TIFF of the same pixels; (d) the
-     five frames through the CLI as phase 19 (c) takes its dataset.
+     deblocks and applies CDEF, raises ``UnsupportedImageError`` naming
+     CDEF; (c) a committed 2048² BGR micrograph at quality 95, and at 85
+     (deblocked): host decode seconds (median of 3) beside an uncompressed
+     TIFF of the same pixels; (d) the eight frames through the CLI as
+     phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
 
@@ -4472,8 +4474,10 @@ AVIF_SEED = 21
 AVIF_LOSSY_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_lossy_fixtures.npz")
 AVIF_LOSSY_DIR = os.path.join(ROOT, "build", "chip_smoke_avif_lossy")
 # phase 22's dataset: one labelled frame (seed 22) in each lossy or subsampled form -> how far each may lie from
-# the drawing (the lossless one not at all; the BGR ones hold the drawing in G, 12 levels up)
-AVIF_LOSSY_FORMS = {"bgr95": 14, "gray95": 12, "bgr10-99": 14, "bgr12-99": 14, "writer420": 0}
+# the drawing (the lossless one not at all; the BGR ones hold the drawing in G, 12 levels up); the last three
+# deblocked
+AVIF_LOSSY_FORMS = {"bgr95": 14, "gray95": 12, "bgr10-99": 14, "bgr12-99": 14, "writer420": 0, "bgr85": 22,
+                    "bgr10-90": 8, "gray12-90": 8}
 AVIF_LOSSY_SEED = 22
 
 
@@ -4956,8 +4960,8 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     2048² gray micrograph: host decode seconds (median of 3) beside an
     uncompressed TIFF of the same pixels; (c) the AVIF_FORMS dataset
     through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
-    errors, K2 errors). (d) A lossy 4:2:0 AVIF that deblocks (cv2's at
-    quality 75) raises ``UnsupportedImageError`` naming deblocking from
+    errors, K2 errors). (d) A lossy 4:2:0 AVIF that applies CDEF (cv2's at
+    quality 75) raises ``UnsupportedImageError`` naming CDEF from
     ``read_image``, outside the dataset, since the loader would raise on
     it."""
     import hashlib
@@ -5030,15 +5034,15 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
           f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
           f"{card})", flush=True)
 
-    # (d) the lossy form that deblocks, refused by name outside the dataset
+    # (d) the lossy form that applies CDEF, refused by name outside the dataset
     path = os.path.join(AVIF_DIR, "lossy.avif")
     with open(path, "wb") as f:
         f.write(fixtures["refused-lossy-420/file"].tobytes())
     try:
         read_image(path)
-        raise AssertionError("read_image decoded an AVIF that deblocks")
+        raise AssertionError("read_image decoded an AVIF that applies CDEF")
     except UnsupportedImageError as e:
-        assert "deblocking" in str(e), e
+        assert "AV1 CDEF" in str(e), e
         print(f"avif: lossy 4:2:0 (cv2 at quality 75): {str(e).split(': ', 1)[1]}", flush=True)
 
     # (c) the dataset through the CLI
@@ -5114,9 +5118,10 @@ def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOS
 def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     """Phase 22: lossy and subsampled AVIF. (a) the AVIF_LOSSY_FORMS
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
-    cv2's array and near the drawing); (b) cv2's quality-75 frame, which
-    deblocks, raises ``UnsupportedImageError`` naming deblocking; (c) the
-    committed 2048² BGR micrograph at quality 95: host decode seconds
+    cv2's array and near the drawing; three of them deblocked); (b) cv2's
+    quality-75 frame, which deblocks and applies CDEF, raises
+    ``UnsupportedImageError`` naming CDEF; (c) the committed 2048² BGR
+    micrograph at quality 95 and at 85 (deblocked): host decode seconds
     (median of 3) beside an uncompressed TIFF of the same pixels, with the
     card's name and power limit; (d) the dataset through the CLI
     (``cli_on_dataset``) -> (K1 launches, K2 launches, K1 errors, K2
@@ -5137,30 +5142,32 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
           f"{', '.join(AVIF_LOSSY_FORMS)} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
           f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (b) a frame that deblocks
+    # (b) a frame that deblocks and applies CDEF
     path = os.path.join(AVIF_LOSSY_DIR, "q75.avif")
     with open(path, "wb") as f:
         f.write(fixtures["smoke-q75/file"].tobytes())
     try:
         read_image(path)
-        raise AssertionError("read_image decoded an AVIF that deblocks")
+        raise AssertionError("read_image decoded an AVIF that applies CDEF")
     except UnsupportedImageError as e:
-        assert "AV1 deblocking" in str(e), e
+        assert "AV1 CDEF" in str(e), e
         print(f"avif lossy: the same frame at quality 75: {str(e).split(': ', 1)[1]}", flush=True)
 
-    # (c) decode seconds at 2048²
-    path = os.path.join(AVIF_LOSSY_DIR, "smoke-2048-q95.avif")
-    with open(path, "wb") as f:
-        f.write(fixtures["smoke-2048-q95/file"].tobytes())
-    got, secs = decode_seconds(path)
-    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["smoke-2048-q95/sha256"].tobytes().decode()
-    tiff_path = os.path.join(AVIF_LOSSY_DIR, "plain.tif")
-    with open(tiff_path, "wb") as f:
-        f.write(codings.tiff_of(np.ascontiguousarray(got[..., ::-1])))
-    _, plain_s = decode_seconds(tiff_path)
-    print(f"avif lossy: decode smoke-2048-q95 {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0 "
-          f"quality 95, cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed RGB TIFF {plain_s:.4f} s "
-          f"(median of 3, host; {card})", flush=True)
+    # (c) decode seconds at 2048², quality 95 and 85 (deblocked)
+    for q, what in ((95, "no in-loop filter"), (85, "deblocked")):
+        name = f"smoke-2048-q{q}"
+        path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        got, secs = decode_seconds(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+        tiff_path = os.path.join(AVIF_LOSSY_DIR, "plain.tif")
+        with open(tiff_path, "wb") as f:
+            f.write(codings.tiff_of(np.ascontiguousarray(got[..., ::-1])))
+        _, plain_s = decode_seconds(tiff_path)
+        print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0 "
+              f"quality {q}, {what}, cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed RGB TIFF "
+              f"{plain_s:.4f} s (median of 3, host; {card})", flush=True)
 
     # (d) the dataset through the CLI
     k1, k2, k1_errs, k2_errs = cli_on_dataset("avif lossy", home, root, twin, files, card, device=device,

@@ -12,11 +12,11 @@
 // ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
 // prediction at every transform size (DC, V, H, the directional modes with
 // the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
-// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0. The in-loop
-// filters are not applied: a frame that turns on deblocking, CDEF, delta
-// loop filter levels or loop restoration is refused with the tool's number
-// (kTool*), as is a stream that uses any other tool this decoder lacks;
-// none is decoded wrong.
+// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and the
+// deblocking loop filter (7.14). The other in-loop filters are not
+// applied: a frame that turns on CDEF, delta loop filter levels or loop
+// restoration is refused with the tool's number (kTool*), as is a stream
+// that uses any other tool this decoder lacks; none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
@@ -34,6 +34,7 @@
 // av1_decode.
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -571,7 +572,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 
 // What a refusal names (meta[4]); ops/avif.py holds the names
 enum Tool {
-  kToolDeblocking = 1, kToolCdef = 2, kToolSegmentation = 3, kToolScreenContent = 4,
+  kToolCdef = 2, kToolSegmentation = 3, kToolScreenContent = 4,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
   kToolShowExisting = 10, kToolDeltaLf = 11, kToolRestoration = 12
 };
@@ -818,6 +819,9 @@ struct Decoder {
   int lossless = 0, delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_multi = 0;
   int cdef_bits = 0, tx_mode_select = 0, reduced_tx_set = 0;
   int filter_tool = 0;  // an in-loop filter the frame applies: refused once the frame is read
+  // loop_filter_params: the levels (Y vertical edges, Y horizontal, U, V), sharpness, the deltas
+  int lf_level[4] = {0, 0, 0, 0}, lf_sharpness = 0, lf_delta_enabled = 0;
+  int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
   bool seen_frame_header = false, decoded = false;
   int next_tile = 0;
   Cdfs frame_cdfs, cdf;
@@ -1046,17 +1050,23 @@ struct Decoder {
                delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
     for (int p = 0; p < 3; ++p) qm_level[p] = (lossless || !using_qmatrix) ? 15 : qm[p];
     cdef_bits = 0;
+    for (int i = 0; i < 4; ++i) lf_level[i] = 0;
+    lf_sharpness = lf_delta_enabled = 0;
     if (!lossless) {
-      // loop_filter_params
-      int level0 = b.f(6), level1 = b.f(6);
-      if (seq.mono == 0 && (level0 || level1)) { b.f(6); b.f(6); }
-      if (level0 || level1) filter_tool = kToolDeblocking;
-      b.f(3);  // sharpness
-      if (b.f(1) && b.f(1)) {  // loop_filter_delta_enabled, loop_filter_delta_update
+      // loop_filter_params, the deltas from setup_past_independence's defaults
+      lf_level[0] = b.f(6);
+      lf_level[1] = b.f(6);
+      if (seq.mono == 0 && (lf_level[0] || lf_level[1])) {
+        lf_level[2] = b.f(6);
+        lf_level[3] = b.f(6);
+      }
+      lf_sharpness = b.f(3);
+      lf_delta_enabled = b.f(1);
+      if (lf_delta_enabled && b.f(1)) {  // loop_filter_delta_update
         for (int i = 0; i < 8; ++i)
-          if (b.f(1)) b.su(7);
+          if (b.f(1)) lf_ref_deltas[i] = b.su(7);
         for (int i = 0; i < 2; ++i)
-          if (b.f(1)) b.su(7);
+          if (b.f(1)) lf_mode_deltas[i] = b.su(7);
       }
       // cdef_params
       if (seq.cdef) {
@@ -1065,7 +1075,7 @@ struct Decoder {
         for (int i = 0; i < (1 << cdef_bits); ++i) {
           int strength = b.f(4) | b.f(2);
           if (seq.mono == 0) strength |= b.f(4) | b.f(2);
-          if (strength && filter_tool != kToolDeblocking) filter_tool = kToolCdef;
+          if (strength) filter_tool = kToolCdef;
         }
       }
       // lr_params: a restoration type changes the tile syntax
@@ -2133,6 +2143,121 @@ struct Decoder {
     }
     if (!decoded) throw Corrupt{__LINE__};  // no whole frame: libaom outputs none
     if (filter_tool) throw Unsupported{filter_tool};
+    loop_filter();
+  }
+
+  // ---- the loop filter (7.14), as libaom applies it to a key frame ----
+  // Every block is intra and there is no segmentation or delta LF, so a plane
+  // and direction has one level, and every transform edge inside the frame
+  // is filtered, with the taps the smaller transform across it allows.
+
+  // the transform width (pass 0) or height (pass 1) of the 4x4 unit at mode info (r, c) in ``plane``
+  int lf_tx_side(int plane, int r, int c, int pass) const {
+    int64_t k = (int64_t)r * mi_cols + c;
+    int tx = tx_sizes[k];
+    if (plane > 0) {  // av1_get_max_uv_txsize
+      tx = kMaxTxRect[kSubsampled[mi_sizes[k]][seq.ssx][seq.ssy]];
+      if (tx_w(tx) == 64 || tx_h(tx) == 64) tx = tx_w(tx) == 16 ? TX_16X32 : tx_h(tx) == 16 ? TX_32X16 : TX_32X32;
+    }
+    return pass == 0 ? tx_w(tx) : tx_h(tx);
+  }
+
+  // av1_loop_filter_frame_init: the level of an intra block's edges in ``plane`` and ``pass``
+  int lf_intra_level(int plane, int pass) const {
+    int base = plane == 0 ? lf_level[pass] : lf_level[plane + 1];
+    if (!lf_delta_enabled) return base;
+    return std::min(63, std::max(0, base + lf_ref_deltas[0] * (1 << (base >> 5))));
+  }
+
+  void loop_filter() {
+    if (!lf_level[0] && !lf_level[1]) return;
+    for (int p = 0; p < planes; ++p) {
+      if (p > 0 && !lf_level[p + 1]) continue;
+      for (int pass = 0; pass < 2; ++pass) {
+        int lvl = lf_intra_level(p, pass);
+        if (lvl) filter_plane(p, pass, lvl);
+      }
+    }
+  }
+
+  // every vertical (pass 0) or horizontal (pass 1) edge of a plane, left to right and top to bottom
+  void filter_plane(int plane, int pass, int lvl) {
+    const int sx = ssx(plane), sy = ssy(plane);
+    const int w = (width + sx) >> sx, h = (height + sy) >> sy;  // the plane's samples in the frame
+    // update_sharpness: the limits of the level
+    int lim = lvl >> ((lf_sharpness > 0) + (lf_sharpness > 4));
+    if (lf_sharpness > 0) lim = std::min(lim, 9 - lf_sharpness);
+    lim = std::max(lim, 1);
+    const int shift = seq.bit_depth - 8;
+    const int limit = lim << shift, blimit = (2 * (lvl + 2) + lim) << shift, thresh = (lvl >> 4) << shift;
+    const ptrdiff_t step = pass == 0 ? 1 : stride[plane], along = pass == 0 ? stride[plane] : 1;
+    for (int y4 = 0; 4 * y4 < h; ++y4) {
+      for (int x4 = 0; 4 * x4 < w; ++x4) {
+        int coord = 4 * (pass == 0 ? x4 : y4);
+        if (coord == 0) continue;
+        int r = (y4 << sy) | sy, c = (x4 << sx) | sx;
+        int side = lf_tx_side(plane, r, c, pass);
+        if (coord % side) continue;
+        int prev = pass == 0 ? lf_tx_side(plane, r, c - (1 << sx), pass) : lf_tx_side(plane, r - (1 << sy), c, pass);
+        int m = std::min(side, prev);
+        int len = m == 4 ? 4 : plane > 0 ? 6 : m == 8 ? 8 : 14;
+        uint16_t* s = &px(plane, 4 * y4, 4 * x4);
+        for (int i = 0; i < 4; ++i, s += along) filter_sample(s, step, len, limit, blimit, thresh, shift);
+      }
+    }
+  }
+
+  // the filter of ``len`` taps across the edge before s[0] (q0; p0 is s[-step]), at one position along it
+  static void filter_sample(uint16_t* s, ptrdiff_t step, int len, int limit, int blimit, int thresh, int shift) {
+    auto p = [&](int k) -> int { return s[-(k + 1) * step]; };
+    auto q = [&](int k) -> int { return s[k * step]; };
+    auto ad = [](int a, int b) { return std::abs(a - b); };
+    // filter_mask, flat_mask, hev_mask
+    bool mask = ad(p(1), p(0)) <= limit && ad(q(1), q(0)) <= limit &&
+                ad(p(0), q(0)) * 2 + ad(p(1), q(1)) / 2 <= blimit;
+    if (len >= 6) mask = mask && ad(p(2), p(1)) <= limit && ad(q(2), q(1)) <= limit;
+    if (len >= 8) mask = mask && ad(p(3), p(2)) <= limit && ad(q(3), q(2)) <= limit;
+    if (!mask) return;
+    const int one = 1 << shift;
+    bool flat = false, flat2 = false;
+    if (len >= 6) {
+      flat = ad(p(1), p(0)) <= one && ad(q(1), q(0)) <= one && ad(p(2), p(0)) <= one && ad(q(2), q(0)) <= one;
+      if (len >= 8) flat = flat && ad(p(3), p(0)) <= one && ad(q(3), q(0)) <= one;
+    }
+    if (len == 14 && flat) {
+      flat2 = true;
+      for (int k = 4; k <= 6; ++k) flat2 = flat2 && ad(p(k), p(0)) <= one && ad(q(k), q(0)) <= one;
+    }
+    if (!flat) {  // filter4
+      const int lo = -(128 << shift), hi = (128 << shift) - 1, off = 128 << shift;
+      auto c = [&](int v) { return v < lo ? lo : v > hi ? hi : v; };
+      const int ps1 = p(1) - off, ps0 = p(0) - off, qs0 = q(0) - off, qs1 = q(1) - off;
+      const bool hev = ad(p(1), p(0)) > thresh || ad(q(1), q(0)) > thresh;
+      int f = hev ? c(ps1 - qs1) : 0;
+      f = c(f + 3 * (qs0 - ps0));
+      const int f1 = c(f + 4) >> 3, f2 = c(f + 3) >> 3;
+      s[0] = (uint16_t)(c(qs0 - f1) + off);
+      s[-step] = (uint16_t)(c(ps0 + f2) + off);
+      if (!hev) {
+        f = (f1 + 1) >> 1;
+        s[step] = (uint16_t)(c(qs1 - f) + off);
+        s[-2 * step] = (uint16_t)(c(ps1 + f) + off);
+      }
+      return;
+    }
+    // the wide filter (7.14.6.4): 2n taps each side of weight 1, the middle ones 2, rounded by 2^log2
+    const int log2 = flat2 ? 4 : 3, n = flat2 ? 6 : len == 6 ? 2 : 3, n2 = (log2 == 3 && len != 6) ? 0 : 1;
+    int v[14], out[12];
+    for (int k = -(n + 1); k <= n; ++k) v[k + n + 1] = k < 0 ? p(-k - 1) : q(k);
+    for (int i = -n; i < n; ++i) {
+      int t = 0;
+      for (int j = -n; j <= n; ++j) {
+        int at = std::min(n, std::max(-(n + 1), i + j));
+        t += (std::abs(j) <= n2 ? 2 : 1) * v[at + n + 1];
+      }
+      out[i + n] = (t + (1 << (log2 - 1))) >> log2;
+    }
+    for (int i = -n; i < n; ++i) s[i * step] = (uint16_t)out[i + n];
   }
 };
 

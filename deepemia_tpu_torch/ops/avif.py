@@ -16,8 +16,9 @@ range) * 255)``). The other matrices libavif converts (``_MATRICES``)
 take the path libavif 1.4 takes in OpenCV's build: libyuv's fixed point
 with its bilinear chroma upsampling for BT.601, BT.709 and BT.2020
 (``_LIBYUV``; 10 and 12 bits cut to their top 8 bits first), libavif's
-float path for the rest (``_libavif_float``); each was read off
-``cv2.imread``. A monochrome image is OpenCV's own: Y, divided by
+float path for the rest (``_libavif_float``; YCgCo-Re, matrix 16, only at
+10 bits and full range, two bits above OpenCV's 8, as libavif has it);
+each was read off ``cv2.imread``. A monochrome image is OpenCV's own: Y, divided by
 2^(depth - 8) and rounded (``convertTo``), replicated to BGR. ``irot``,
 ``imir`` and ``clap`` are not applied (OpenCV does not apply them).
 
@@ -25,7 +26,7 @@ What OpenCV refuses raises ``RefusedImageError``; a corrupt or cut file,
 or an ``ispe`` or AV1 frame past libavif's size limits, a ``ValueError``;
 what OpenCV reads and the port does not decode an
 ``UnsupportedImageError`` naming it: an image sequence, a grid, the AV1
-tools ``av1.cpp`` lacks (the in-loop filters: deblocking, CDEF, delta
+tools ``av1.cpp`` lacks (the in-loop filters but deblocking: CDEF, delta
 loop filter levels, loop restoration; segmentation, screen content,
 superres, film grain, frames other than a shown key frame), a
 chroma-derived matrix under primaries libyuv has no constants for,
@@ -43,7 +44,7 @@ from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageErro
 SIGNATURE_BYTES = 500  # grfmt_avif.cpp: kAvifSignatureSize
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's refusals (its enum Tool)
-AV1_TOOLS = {1: "AV1 deblocking (a loop filter level other than 0)", 2: "AV1 CDEF (a CDEF strength other than 0)",
+AV1_TOOLS = {2: "AV1 CDEF (a CDEF strength other than 0)",
              3: "AV1 segmentation", 4: "AV1 screen content tools (palette, intra block copy)",
              5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
              8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame",
@@ -51,7 +52,7 @@ AV1_TOOLS = {1: "AV1 deblocking (a loop filter level other than 0)", 2: "AV1 CDE
 _UNIQUE_META = (b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref")
 _TRANSFORMS = (b"irot", b"imir", b"clap")
 # the matrix coefficients other than the identity that libavif converts YUV to RGB with
-_MATRICES = (1, 2, 4, 5, 6, 7, 8, 9, 12, 15)
+_MATRICES = (1, 2, 4, 5, 6, 7, 8, 9, 12, 15, 16)
 
 
 class _Reader:
@@ -528,7 +529,7 @@ def _yuv_to_bgr(planes: list, depth: int, mc: int, full_range: int, cp: int) -> 
     build: libyuv's fixed point (its bilinear chroma upsampling, high bit
     depths first cut to 8 bits) where libyuv has the matrix's constants,
     else libavif's float path (bilinear upsampling with weights 9, 3, 3, 1
-    sixteenths)."""
+    sixteenths; YCgCo-Re in integers from it)."""
     y, u, v = planes
     key = _LIBYUV_MATRIX.get(mc) or (_LIBYUV_PRIMARIES.get(cp) if mc == 12 else None)
     if key is not None:
@@ -539,6 +540,9 @@ def _yuv_to_bgr(planes: list, depth: int, mc: int, full_range: int, cp: int) -> 
         raise _unsupported(f"chroma-derived matrix coefficients under colour primaries {cp}")
     if mc == 8 and not full_range:
         raise RefusedImageError("AVIF: YCgCo at limited range, which libavif does not convert")
+    if mc == 16 and (depth != 10 or not full_range):
+        raise RefusedImageError("AVIF: YCgCo-Re other than at 10 bits and full range, which libavif does not "
+                                "convert to 8 bits")
     return _libavif_float(y, u, v, depth, mc, full_range)
 
 
@@ -546,7 +550,10 @@ def _libavif_float(y, u, v, depth: int, mc: int, full_range: int) -> np.ndarray:
     """libavif's avifImageYUVAnyToRGBAnySlow in float32: unorm tables,
     bilinear chroma (9/16, 3/16, 3/16, 1/16 of the sample, its horizontal
     and vertical neighbours away from the luma sample, and the diagonal),
-    then (uint8)(0.5 + clamp(c) * 255)."""
+    then (uint8)(0.5 + clamp(c) * 255). YCgCo-Re (16) takes Y as it is and
+    Cg, Co as floorf(0.5 + chroma * max) and lifts them to 8-bit R, G, B
+    (G = t + Cg, B = t - (Co >> 1), R = B + Co with t = Y - (Cg >> 1), each
+    clamped to 0-255, R from the clamped B)."""
     f32 = np.float32
     mx = (1 << depth) - 1
     bias_y = 0 if full_range else 16 << (depth - 8)
@@ -577,7 +584,13 @@ def _libavif_float(y, u, v, depth: int, mc: int, full_range: int) -> np.ndarray:
         t11 = t[np.ix_(rows_adj, cols_adj)]
         return t00 * f32(9 / 16) + t10 * f32(3 / 16) + t01 * f32(3 / 16) + t11 * f32(1 / 16)
 
-    yy, cb, cr = table_y[y], chroma(u), chroma(v)
+    cb, cr = chroma(u), chroma(v)
+    if mc == 16:  # YCgCo-Re: integers, R from the clamped B
+        cg, co = (np.floor(c * f32(mx) + f32(0.5)).astype(np.int64) for c in (cb, cr))
+        t = y.astype(np.int64) - (cg >> 1)
+        b = np.clip(t - (co >> 1), 0, 255)
+        return np.stack([b, np.clip(t + cg, 0, 255), np.clip(b + co, 0, 255)], -1).astype(np.uint8)
+    yy = table_y[y]
     if mc == 8:  # YCgCo
         t = yy - cb
         g, b, r = yy + cb, t - cr, t + cr

@@ -88,7 +88,7 @@ def test_fixture_reads_as_opencv(tmp_path, name):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_forms_outside_the_decoder_are_named(tmp_path, name):
-    """Lossy 4:2:0 that deblocks (cv2 at quality 75), an image sequence
+    """Lossy 4:2:0 that applies CDEF (cv2 at quality 75), an image sequence
     (cv2's animation), a grid, premultiplied alpha, an ispe libavif scales
     to, and a lossless header rewritten to switch on screen content or film
     grain: ``UnsupportedImageError`` naming the form, never an array; cv2

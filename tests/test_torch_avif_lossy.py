@@ -6,7 +6,8 @@ libaom 3.14), bit for bit: every entry of
 TX_MODE_SELECT; cv2's quality 75 and 50 frames with their in-loop filters
 rewritten off; ``tools/av1_writer.py``'s lossless 4:2:0, 4:2:2 and 4:4:4
 frames under every matrix libavif converts, at both ranges; phase 22's
-frames) reads as cv2 reads it, or is refused by name where it deblocks or
+frames; YCgCo-Re at every subsampling) reads as cv2 reads it, deblocked
+where its loop filter level is not 0, or is refused by name where it
 applies CDEF; each inverse transform holds its float64 matrix within its
 rounding; the generated tables are what their script extracts; a seeded fuzz
 of damaged and cut copies gives cv2's outcome; and the JAX package's loader,
@@ -40,6 +41,8 @@ FIXTURES = np.load(ROOT / "tests" / "data" / "torch_avif_lossy_fixtures.npz")
 NAMES = sorted({k.split("/")[0] for k in FIXTURES.files})
 # the frames cv2 reads that the port refuses for an in-loop filter -> the words of the refusal
 NAMED = {n: FIXTURES[f"{n}/named"].tobytes().decode() for n in NAMES if f"{n}/named" in FIXTURES.files}
+# the frames that apply an in-loop filter or a form the port refuses: those named, and those that deblock only
+FILTERED = sorted(set(NAMED) | {n for n in NAMES if f"{n}/deblocked" in FIXTURES.files})
 
 
 def _tool(name):
@@ -72,7 +75,7 @@ def _write(tmp_path, name):
     return path
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in NAMED])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in FILTERED])
 def test_fixture_reads_as_opencv(tmp_path, name):
     """Each fixture: cv2 here reads it as when it was written, and the port
     reads it to the same array bit for bit (or, where cv2 returns None,
@@ -90,15 +93,19 @@ def test_fixture_reads_as_opencv(tmp_path, name):
     np.testing.assert_array_equal(got, ref, err_msg=name)
 
 
-@pytest.mark.parametrize("name", sorted(NAMED))
+@pytest.mark.parametrize("name", FILTERED)
 def test_filtered_frames_are_named(tmp_path, name):
-    """A frame that deblocks (a loop filter level other than 0) or applies
-    CDEF, or whose chroma-derived matrix libavif works out from colour
-    primaries in float: cv2 reads it; the port raises
-    ``UnsupportedImageError`` naming the filter or the form, never an
-    array."""
+    """A frame that applies CDEF, or whose chroma-derived matrix libavif
+    works out from colour primaries in float: cv2 reads it; the port
+    raises ``UnsupportedImageError`` naming the filter or the form, never
+    an array. A frame that deblocks (a loop filter level other than 0) and
+    applies no CDEF: the port reads it as cv2 does, bit for bit."""
     path = _write(tmp_path, name)
-    assert _committed(name, reference(path)), name
+    ref = reference(path)
+    assert _committed(name, ref), name
+    if name not in NAMED:
+        np.testing.assert_array_equal(read_image(str(path)), ref, err_msg=name)
+        return
     with pytest.raises(UnsupportedImageError, match=re.escape(NAMED[name])):
         read_image(str(path))
 
@@ -113,7 +120,7 @@ def test_fixtures_cover_every_form():
         for sub in ("420", "422"):
             for rng in ("full", "limited"):
                 assert any(n.startswith(f"writer-{sub}-mc{mc}-{rng}-") for n in NAMES), (sub, mc, rng)
-    assert {"AV1 deblocking", "AV1 CDEF", "chroma-derived matrix coefficients under colour primaries 2",
+    assert {"AV1 CDEF", "chroma-derived matrix coefficients under colour primaries 2",
             "chroma-derived matrix coefficients under colour primaries 4"} == set(NAMED.values())
 
 

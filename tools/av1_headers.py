@@ -2,12 +2,16 @@
 (a reduced still picture sequence header, one frame OBU), read field by
 field with the position of each, and rewritten: ``strip_filters`` sets the
 loop filter levels and (or not) the CDEF strengths of a lossy frame to 0,
-so that cv2 (libaom) decodes it without those in-loop filters; ``fields`` says what
-a payload switches on (``tx_mode_select``, ``delta_q_present``, the loop
-filter levels, the CDEF strengths, the quantizer).
+so that cv2 (libaom) decodes it without those in-loop filters;
+``rewrite_loop_filter`` writes other loop filter parameters (levels,
+sharpness, the INTRA_FRAME ref delta) and may zero the CDEF strengths
+alone; ``fields`` says what a payload switches on (``tx_mode_select``,
+``delta_q_present``, the loop filter levels, sharpness and deltas, the
+CDEF strengths, the quantizer).
 
     f = fields(payload)
     plain = strip_filters(payload)
+    deblocked_only = rewrite_loop_filter(payload, cdef=False)
 """
 
 from __future__ import annotations
@@ -164,13 +168,15 @@ def fields(payload: bytes) -> dict:
         out["bit_lf"] = b.pos
         out["loop_filter"] = (b.f(6), b.f(6))
         if not seq["mono"] and any(out["loop_filter"]):
-            b.f(12)
-        out["bit_lf_end"] = b.pos
-        b.f(3)
-        if b.f(1) and b.f(1):
-            for _ in range(10):
+            out["loop_filter_uv"] = (b.f(6), b.f(6))
+        out["sharpness"] = b.f(3)
+        out["bit_lf_deltas"] = b.pos
+        out["lf_delta_enabled"], out["lf_deltas"] = b.f(1), {}
+        if out["lf_delta_enabled"] and b.f(1):
+            for i in range(10):  # eight ref deltas, then two mode deltas
                 if b.f(1):
-                    b.f(7)
+                    out["lf_deltas"][i] = b.su(7)
+        out["bit_lf_params_end"] = b.pos
         if seq["cdef"]:
             b.f(2)
             out["cdef_bits"] = b.f(2)
@@ -191,21 +197,50 @@ def fields(payload: bytes) -> dict:
     return out
 
 
-def strip_filters(payload: bytes, keep_cdef: bool = False) -> bytes:
+def strip_filters(payload: bytes, keep_cdef: bool = False, keep_loop_filter: bool = False) -> bytes:
     """A cv2 payload whose frame header is rewritten with loop filter
     levels 0 (so no level for U and V) and, unless ``keep_cdef``, CDEF
-    strengths 0; the tile data is kept (neither changes its syntax) after
+    strengths 0; with ``keep_loop_filter``, the CDEF strengths alone are
+    set to 0. The tile data is kept (neither changes its syntax) after
     the header's new byte alignment."""
-    f = fields(payload)
-    if "bit_lf" not in f:  # a lossless frame: no filter parameters
+    if "bit_lf" not in fields(payload):  # a lossless frame: no filter parameters
         return payload
+    return rewrite_loop_filter(payload, levels=None if keep_loop_filter else (0, 0, 0, 0), cdef=keep_cdef)
+
+
+def _su(v: int, n: int) -> str:
+    return f"{v & ((1 << n) - 1):0{n}b}"
+
+
+def rewrite_loop_filter(payload: bytes, levels=None, sharpness=None, ref_delta_intra=None, cdef: bool = True) -> bytes:
+    """A cv2 payload whose loop filter parameters are rewritten:
+    ``levels`` (Y vertical, Y horizontal, U, V; U and V are written only
+    where the frame has chroma and level 0 or 1 is not 0), ``sharpness``
+    (0-7) and, with ``ref_delta_intra``, loop_filter_delta_enabled and
+    _update set and the INTRA_FRAME ref delta written (the others left at
+    their defaults); None keeps what the frame has. Unless ``cdef``, the
+    CDEF strengths are set to 0. The tile data is kept after the header's
+    new byte alignment."""
+    f = fields(payload)
+    if "bit_lf" not in f:
+        raise ValueError("a lossless frame: no loop filter parameters")
     _, start, s, e = next(o for o in _obus(payload) if o[0] == 6)
     bits = "".join(f"{x:08b}" for x in payload[s:e])
-    header = bits[: f["bit_lf"]] + "0" * 12 + bits[f["bit_lf_end"] : f["bit_end"]]
-    if "bit_cdef" in f and not keep_cdef:  # the strengths, 12 bits fewer before them now
-        at, n = f["bit_cdef"] - (f["bit_lf_end"] - f["bit_lf"]) + 12, f["bit_cdef_end"] - f["bit_cdef"]
+    lv = tuple(levels) if levels is not None else tuple(f["loop_filter"]) + tuple(f.get("loop_filter_uv", (0, 0)))
+    lf = f"{lv[0]:06b}{lv[1]:06b}"
+    if not f["mono"] and (lv[0] or lv[1]):
+        lf += f"{lv[2]:06b}{lv[3]:06b}"
+    lf += f"{f['sharpness'] if sharpness is None else sharpness:03b}"
+    if ref_delta_intra is None:
+        lf += bits[f["bit_lf_deltas"] : f["bit_lf_params_end"]]
+    else:  # enabled, updated: the INTRA_FRAME ref delta, no other
+        lf += "111" + _su(ref_delta_intra, 7) + "0" * 9
+    header = bits[: f["bit_lf"]] + lf + bits[f["bit_lf_params_end"] : f["bit_end"]]
+    if "bit_cdef" in f and not cdef:
+        at, n = f["bit_cdef"] + len(lf) - (f["bit_lf_params_end"] - f["bit_lf"]), f["bit_cdef_end"] - f["bit_cdef"]
         header = header[:at] + "0" * n + header[at + n :]
     header += "0" * (-len(header) % 8)
     tiles = payload[s + (f["bit_end"] + 7) // 8 : e]
     body = int(header, 2).to_bytes(len(header) // 8, "big") + tiles
     return payload[:start] + bytes([6 << 3 | 2]) + _leb128(len(body)) + body + payload[e:]
+

@@ -8,7 +8,13 @@ cv2 (libaom) and the port's decoder can be held to each other on them.
 
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
-Walsh-Hadamard coefficients; the writer mirrors the
+Walsh-Hadamard coefficients. With ``lossy``, the frame is a lossy one
+(at q-context 0) under the loop filter parameters given (CDEF and loop
+restoration off in the sequence header), its transforms the largest
+(TX_MODE_LARGEST): every block larger than 4x4 skips, and each 4x4 block
+codes a few random coefficients in each plane (the luma transform type
+drawn from the intra set's 2D types), so that the planes are the intra
+prediction of that texture, deblocked; the writer mirrors the
 decoding process of the AV1 specification (the symbol coder of libaom's
 ``entenc.c`` on Python integers, the CDFs read from
 ``deepemia_tpu_torch/native/av1.cpp``). Slow (pure Python): small images.
@@ -60,6 +66,9 @@ def _tables() -> dict:
         v = _values(tables, header)[: per * count]
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
     out["kSmWeights4"] = [_values(tables, "kSmWeights")[:4]]
+    out["kDeltaQ"] = out["kDeltaLf"] = [_values(tables, "kDeltaQCdf")]  # Default_Delta_Lf_Cdf is the same
+    v = _values(tables, "kIntraTxTypeSet1Cdf")[: 8 * 13]  # TX_4X4's, by intra direction
+    out["kIntraTx1"] = [list(v[k : k + 8]) for k in range(0, len(v), 8)]
     return out
 
 
@@ -171,7 +180,9 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 
 class _Frame:
-    def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0)):
+    def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
+                 lossy=False, deltas=False):
+        self.lossy, self.deltas = lossy, deltas
         self.src = [np.asarray(p, np.int64) for p in planes]
         self.mono = len(planes) == 1
         self.bd = bit_depth
@@ -238,6 +249,7 @@ class _Frame:
             self.left_dc = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
             for c in range(c0, c1, sb4):
                 self.clear_block_decoded(r, c)
+                self.read_deltas = self.deltas
                 self.partition(r, c, B128X128 if self.sb128 else B64X64)
         return self.sym.finish()
 
@@ -366,7 +378,10 @@ class _Frame:
             self.ssy and bh4 == 1 and r % 2 == 0)
         self.avail_uc = self.has_chroma and (self.inside(r - 2, c) if self.ssy and bh4 == 1 else self.avail_u)
         self.avail_lc = self.has_chroma and (self.inside(r, c - 2) if self.ssx and bw4 == 1 else self.avail_l)
-        self.cfl_allowed = _WIDE[self.chroma_size(bsize)] == 1 and _HIGH[self.chroma_size(bsize)] == 1
+        if self.lossy:  # a lossy block of 32x32 or less
+            self.cfl_allowed = max(bw4, bh4) <= 8
+        else:
+            self.cfl_allowed = _WIDE[self.chroma_size(bsize)] == 1 and _HIGH[self.chroma_size(bsize)] == 1
         if self.has_chroma:
             n_uv = 14 if self.cfl_allowed else 13
             self.uv_mode = int(rng.choice(n_uv, p=self.mode_odds_uv[:n_uv] / self.mode_odds_uv[:n_uv].sum()))
@@ -383,10 +398,14 @@ class _Frame:
             self.use_filter_intra = int(rng.random() < 0.5)
             self.filter_mode = int(rng.integers(0, 5))
         # the residual (a block whose prediction is exact in every plane skips)
-        levels = self.predict_block(r, c, bsize)
+        levels = self.lossy_levels(r, c, bsize) if self.lossy else self.predict_block(r, c, bsize)
         skip = int(not any(lv.any() for _, _, _, lv in levels))
         ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
         sym.symbol(skip, cdf["kSkip"][ctx], 2)
+        if self.read_deltas and not (bsize == (B128X128 if self.sb128 else B64X64) and skip):
+            sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0, then delta_lf_abs 0 (one, not multi)
+            sym.symbol(0, cdf["kDeltaLf"][0], 4)
+        self.read_deltas = False
         above = _MODE_CTX[self.y_modes[r - 1, c]] if self.avail_u else 0
         left = _MODE_CTX[self.y_modes[r, c - 1]] if self.avail_l else 0
         sym.symbol(self.y_mode, cdf["kKfYMode"][above * 5 + left], 13)
@@ -426,6 +445,24 @@ class _Frame:
         if not skip:
             for p, x4, y4, lv in levels:
                 self.coeffs(p, x4, y4, lv)
+
+    def lossy_levels(self, r, c, bsize):
+        """A lossy frame's coefficients: random ones in each plane of a 4x4
+        block (DC and up to two more), none elsewhere -> [(plane, x4, y4,
+        levels)]; the luma transform type is drawn too."""
+        if bsize != B4X4:
+            return []
+        rng = self.rng
+        self.tx_symbol = int(rng.choice([0, 1, 4, 5, 6]))  # IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST
+        out = []
+        for p in range(3 if self.has_chroma else 1):
+            ssx, ssy = self.sub(p)
+            lv = np.zeros(16, np.int64)
+            lv[0] = rng.integers(-8, 9)
+            for _ in range(int(rng.integers(0, 3))):
+                lv[int(rng.integers(1, 16))] = rng.integers(-3, 4)
+            out.append((p, c >> ssx, r >> ssy, lv.reshape(4, 4)))
+        return out
 
     def chroma_size(self, bsize):
         """Subsampled_Size of a block, as its (4x4 columns, 4x4 rows)."""
@@ -699,6 +736,9 @@ class _Frame:
         q = lv.ravel()
         all_zero = int(not q.any())
         sym.symbol(all_zero, cdf["kTxbSkip"][ctx], 2)
+        if self.lossy and p == 0 and not all_zero:  # the transform type, of the intra direction
+            direction = (0, 1, 2, 6, 0)[self.filter_mode] if self.use_filter_intra else self.y_mode
+            sym.symbol(self.tx_symbol, cdf["kIntraTx1"][direction], 7)
         cul, dc_cat = 0, 0
         if not all_zero:
             eob = max(k for k in range(16) if q[_SCAN[k]]) + 1
@@ -792,7 +832,7 @@ def _obu(kind: int, body: bytes) -> bytes:
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
            seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
-           full_range: bool = True) -> bytes:
+           full_range: bool = True, lossy=None) -> bytes:
     """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
     the identity matrix, or with ``matrix`` (colour primaries BT.709,
     sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
@@ -807,10 +847,24 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     ``weights``: {block size: [a weight per partition type]}, the odds of
     each where both halves of a square lie in the frame; ``modes``: every
     intra mode drawn (angle deltas, CFL, filter intra), else DC only (all
-    drawn from ``seed``)."""
+    drawn from ``seed``). ``lossy``: {"q": base_q_idx (1-20), "levels":
+    (Y vertical, Y horizontal, U, V), "sharpness": 0-7, "delta": the
+    INTRA_FRAME ref delta written with loop_filter_delta_update, or None
+    for deltas off; and, optionally, "delta_lf": delta_q_present and
+    delta_lf_present on, each superblock's deltas 0; "restoration": loop
+    restoration on in the sequence header and Wiener for Y in the frame
+    header, the tiles without its coefficients} for a lossy frame whose planes are
+    the prediction of random 4x4 residuals (``planes`` then give only the
+    size; ``weights`` default to splitting down to 4x4 blocks now and then)."""
     rng = np.random.default_rng(seed)
     assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
-    fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling))
+    if lossy:
+        assert 0 < lossy["q"] <= 20, "q-context 0"
+        big = [1.0, 0.3, 0.3, 5.0] + [0.3] * 6  # mostly SPLIT, down to 4x4 blocks now and then
+        weights = weights or {B8X8: [1.0, 0.3, 0.3, 2.0], 6: big, 9: big, B64X64: big, B128X128: big}
+    fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
+                lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")))
+    restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
     profile = _profile(bit_depth, mono, tuple(subsampling))
     # the sequence header
@@ -850,7 +904,7 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         b.f(1, 1), b.f(1, 0), b.f(1, 0)  # enable_order_hint, jnt_comp, ref_frame_mvs
         b.f(1, 0), b.f(1, 0)  # seq_choose_screen_content_tools 0, seq_force_screen_content_tools 0
         b.f(3, 6)  # order_hint_bits_minus_1
-    b.f(1, 0), b.f(1, 0), b.f(1, 0)  # superres, cdef, restoration
+    b.f(1, 0), b.f(1, 0), b.f(1, restoration)  # superres, cdef, restoration
     b.f(1, int(bit_depth > 8))  # high_bitdepth
     if profile == 2 and bit_depth > 8:
         b.f(1, int(bit_depth == 12))  # twelve_bit
@@ -931,12 +985,32 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     if cols_log2 or rows_log2:
         h.f(cols_log2 + rows_log2, 0)  # context_update_tile_id
         h.f(2, 3)  # tile_size_bytes_minus_1: 4 bytes
-    h.f(8, 0)  # base_q_idx
+    h.f(8, lossy["q"] if lossy else 0)  # base_q_idx
     h.f(1, 0)  # DeltaQYDc
     if not mono:
         h.f(1, 0), h.f(1, 0)  # DeltaQUDc, DeltaQUAc
     h.f(1, 0)  # using_qmatrix
     h.f(1, 0)  # segmentation_enabled
+    if lossy:
+        h.f(1, int(fr.deltas))  # delta_q_present
+        if fr.deltas:
+            h.f(2, 0), h.f(1, 1), h.f(2, 0), h.f(1, 0)  # delta_q_res, delta_lf_present, delta_lf_res, delta_lf_multi
+        levels = lossy["levels"]
+        h.f(6, levels[0]), h.f(6, levels[1])
+        if not mono and (levels[0] or levels[1]):
+            h.f(6, levels[2]), h.f(6, levels[3])
+        h.f(3, lossy.get("sharpness", 0))
+        delta = lossy.get("delta")
+        h.f(1, int(delta is not None))  # loop_filter_delta_enabled
+        if delta is not None:
+            h.f(1, 1), h.f(1, 1), h.f(7, delta & 0x7F)  # update; the INTRA_FRAME ref delta
+            h.f(9, 0)  # the other seven ref deltas and the two mode deltas kept
+        if restoration:  # lr_type: WIENER for Y, none for U and V; lr_unit_shift 0
+            h.f(2, 2)
+            if not mono:
+                h.f(2, 0), h.f(2, 0)
+            h.f(1, 0)
+        h.f(1, 0)  # tx_mode_select: TX_MODE_LARGEST
     h.f(1, 0)  # reduced_tx_set
     # the tiles
     n_cols, n_rows = len(cols) - 1, len(rows) - 1

@@ -36,7 +36,7 @@ DEFAULT_OUT = Path(__file__).resolve().parents[1] / "tests" / "data" / "torch_av
 # the forms cv2 reads (or, for a header rewritten to switch a tool on, fails on) that the port refuses by
 # name: fixture -> the words of its UnsupportedImageError
 NAMED = {
-    "refused-lossy-420": "AV1 deblocking",
+    "refused-lossy-420": "AV1 CDEF",
     "refused-sequence": "an image sequence",
     "refused-grid": "a grid image",
     "box-premultiplied-alpha": "premultiplied alpha",
@@ -493,7 +493,7 @@ def cases() -> dict:
                                                 mdat_first=True)
     small_payload, small_av1c, small_colr = cv2_payload(texture(3, 4, 12))
     out["box-mdat-first"] = avif([image_item(small_payload, small_av1c, 4, 3, 8, 3, small_colr)], mdat_first=True)
-    out["refused-lossy-420"] = cv2_file(img, cv2.IMWRITE_AVIF_QUALITY, 75)  # libaom deblocks at 75
+    out["refused-lossy-420"] = cv2_file(img, cv2.IMWRITE_AVIF_QUALITY, 75)  # libaom applies CDEF at 75
     anim = cv2.Animation()
     anim.frames = [texture(64, 64, 13), texture(64, 64, 14)]
     anim.durations = [100, 100]

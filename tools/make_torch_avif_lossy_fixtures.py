@@ -6,10 +6,12 @@ libavif 1.4 and libaom 3.14) reads from each, for
 Each entry ``<name>/file`` holds the file's bytes; ``<name>/bgr`` cv2's
 BGR array (at most 64x64 pixels) or ``<name>/sha256`` the SHA-256 of its
 bytes, or ``<name>/none`` where cv2 returns None (YCgCo at limited range,
-two colour properties of one type); ``<name>/named`` the words with which the port refuses a frame
+YCgCo-Re other than at 10 bits and full range, two colour properties of
+one type); ``<name>/named`` the words with which the port refuses a frame
 whose in-loop filters it does not apply (read off the frame header by
-``tools/av1_headers.py``: a loop filter level other than 0 is AV1
-deblocking, a CDEF strength other than 0 AV1 CDEF). The entries:
+``tools/av1_headers.py``: a CDEF strength other than 0 is AV1 CDEF);
+``<name>/deblocked`` (empty) marks a frame whose loop filter level is not
+0 and that applies no CDEF, which the port deblocks. The entries:
 
 - ``q<Q>-<form>``: cv2's files at quality 92-99, 8, 10 and 12 bits, BGR
   (4:2:0) and gray (4:0:0), of a blurred-noise image at odd sizes;
@@ -21,19 +23,25 @@ deblocking, a CDEF strength other than 0 AV1 CDEF). The entries:
   (``av1_headers.strip_filters``), which cv2 then decodes without
   them: the larger quantizers, q-contexts 2 and 3, delta q for chroma and
   per superblock;
-- ``filter-*``: frames that deblock or apply CDEF, which cv2 reads and
-  the port refuses by name;
+- ``filter-*``: frames that deblock or apply CDEF, which cv2 reads; the
+  port reads those that only deblock and refuses CDEF by name;
 - ``writer-<sub>-mc<M>-<range>-<depth>``: ``tools/av1_writer.py``'s
   lossless 4:2:0, 4:2:2 and 4:4:4 frames of random planes under every
   matrix libavif converts (``ops/avif.py:_MATRICES``), full and limited
   range, and two under chroma-derived coefficients the port refuses;
+- ``c13-<sub>-<depth>-<range>-cp<P>-<w>x<h>``: the writer's lossless
+  frames under YCgCo-Re (matrix 16), which cv2 reads at 10 bits and full
+  range only, at 4:4:4, 4:2:2 and 4:2:0, odd sizes, colour primaries 1, 9
+  and 12;
 - ``box-colr-*``: a quality-95 frame under ICC, nclx and other ``colr``
   properties in turn, one or two of a type;
 - ``smoke-*``: phase 22's labelled frame (``chip_smoke.draw_labelled``,
   seed 22, its background flattened) as cv2 writes it at quality 95 (BGR
   and gray) and 99 (10 and 12 bits, where libaom deblocks at 95), as the
-  writer's lossless 4:2:0 BT.601 frame, and at quality 75 (refused); a
-  2048² BGR micrograph at quality 95 for the decode time.
+  writer's lossless 4:2:0 BT.601 frame, and at quality 75 (CDEF: refused);
+  frames libaom deblocks and applies no CDEF to: BGR at quality 85, 10-bit
+  BGR and 12-bit gray at quality 90; a 2048² BGR micrograph at quality 95,
+  and at 85 (deblocked), for the decode time.
 
     python tools/make_torch_avif_lossy_fixtures.py
 
@@ -56,6 +64,8 @@ DEFAULT_OUT = ROOT / "tests" / "data" / "torch_avif_lossy_fixtures.npz"
 HASHED_PIXELS = 64 * 64
 MATRICES = (1, 2, 4, 5, 6, 7, 8, 9, 12, 15)  # ops/avif.py:_MATRICES
 SMOKE_SEED = 22
+# the entries whose frames cv2 wrote (their headers read by tools/av1_headers.py)
+CV2_PREFIXES = ("q9", "size-", "txsel-", "plain-", "filter-", "smoke-bgr", "smoke-gray", "smoke-2048", "smoke-q75")
 # the writer's frames cv2 reads that the port refuses -> the words of the refusal
 WRITER_NAMED = {f"writer-420-mc12-primaries{cp}": f"chroma-derived matrix coefficients under colour primaries {cp}"
                 for cp in (2, 4)}
@@ -110,11 +120,15 @@ def with_payload(data: bytes, payload: bytes) -> bytes:
 def named_of(data: bytes):
     """The refusal's words of a cv2 file, from its frame header."""
     f = hd.fields(fx.payload_of(data)[0])
-    if any(f["loop_filter"]):
-        return "AV1 deblocking"
     if any(any(s) for s in f["cdef_strengths"]):
         return "AV1 CDEF"
     return None
+
+
+def deblocks(data: bytes) -> bool:
+    """Whether a cv2 file's frame deblocks and applies no CDEF."""
+    f = hd.fields(fx.payload_of(data)[0])
+    return any(f["loop_filter"]) and not any(any(s) for s in f["cdef_strengths"])
 
 
 def writer_frame(sub, mc: int, full: bool, depth: int, h: int, w: int, seed: int, primaries: int = 1) -> bytes:
@@ -187,6 +201,15 @@ def cases() -> dict:
                 out[f"writer-{tag}-mc{mc}-{'full' if full else 'limited'}-{depth}"] = writer_frame(
                     sub, mc, full, depth, h, w, seed=k)
                 k += 1
+    # YCgCo-Re (C13): read at 10 bits and full range; cv2 returns None at 8 and 12 bits and at limited range
+    for sub, tag in (((0, 0), "444"), ((1, 0), "422"), ((1, 1), "420")):
+        for depth, full, cps, sizes in ((10, True, (1, 9, 12), ((13, 17), (6, 9))), (8, True, (1,), ((10, 7),)),
+                                        (12, True, (9,), ((10, 7),)), (10, False, (12,), ((10, 7),)),
+                                        (8, False, (1,), ((10, 7),))):
+            for cp in cps:
+                for h, w in sizes:
+                    out[f"c13-{tag}-{depth}-{'full' if full else 'limited'}-cp{cp}-{w}x{h}"] = writer_frame(
+                        sub, 16, full, depth, h, w, seed=h * 3 + depth + cp, primaries=cp)
     # chroma-derived coefficients (12) under primaries libavif derives them from in float: refused by name
     for cp in (2, 4):
         out[f"writer-420-mc12-primaries{cp}"] = writer_frame((1, 1), 12, True, 8, 12, 14, seed=200 + cp, primaries=cp)
@@ -214,8 +237,16 @@ def cases() -> dict:
                                                     fx.colr_nclx(1, 13, 6, 1))])
     out["smoke-q75"] = cv2_lossy(bgr, 75)
     p = fx.particles(2048, 0).astype(np.int16)
-    out["smoke-2048-q95"] = cv2_lossy(np.stack([p, np.clip(p + 10, 0, 255), np.clip(p - 8, 0, 255)], -1)
-                                      .astype(np.uint8), 95)
+    particles = np.stack([p, np.clip(p + 10, 0, 255), np.clip(p - 8, 0, 255)], -1).astype(np.uint8)
+    out["smoke-2048-q95"] = cv2_lossy(particles, 95)
+    # deblocked, no CDEF
+    out["smoke-bgr85"] = cv2_lossy(bgr, 85)
+    out["smoke-bgr10-90"] = cv2_lossy(bgr.astype(np.uint16) << 2, 90, 10)
+    out["smoke-gray12-90"] = cv2_lossy(flat.astype(np.uint16) << 4, 90, 12)
+    out["smoke-2048-q85"] = cv2_lossy(particles, 85)
+    for name in ("smoke-bgr85", "smoke-bgr10-90", "smoke-gray12-90", "smoke-2048-q85"):
+        f = hd.fields(fx.payload_of(out[name])[0])
+        assert any(f["loop_filter"]) and not any(any(c) for c in f["cdef_strengths"]), name
     return out
 
 
@@ -232,8 +263,12 @@ def main(out: str = str(DEFAULT_OUT)) -> str:
             words = named_of(data) if not name.startswith("writer-") else WRITER_NAMED.get(name)
             if words:
                 arrays[f"{name}/named"] = np.frombuffer(words.encode(), np.uint8)
-            if ref is None:  # libavif converts YCgCo at full range only, and takes one colr of each type
-                assert ("-mc8-limited" in name) or name in ("box-colr-nclx-twice", "box-colr-icc-prof"), name
+            elif name.startswith(CV2_PREFIXES) and deblocks(data):
+                arrays[f"{name}/deblocked"] = np.zeros(0, np.uint8)
+            if ref is None:  # libavif converts YCgCo at full range only, YCgCo-Re at 10 bits too, and takes one
+                # colr of each type
+                assert ("-mc8-limited" in name or (name.startswith("c13-") and "-10-full-" not in name)
+                        or name in ("box-colr-nclx-twice", "box-colr-icc-prof")), name
                 arrays[f"{name}/none"] = np.zeros(0, np.uint8)
             elif name.startswith("smoke-") or ref.shape[0] * ref.shape[1] > HASHED_PIXELS:
                 arrays[f"{name}/sha256"] = np.frombuffer(hashlib.sha256(ref.tobytes()).hexdigest().encode(), np.uint8)
