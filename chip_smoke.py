@@ -306,24 +306,30 @@ It builds the CUDA kernels from the sources in the checkout and then:
      12-bit, with irot, split across iloc extents; the files committed)
      through the CLI as phase 19 (c) takes its dataset; (d) the lossy
      4:2:0 file cv2 writes at quality 75, which deblocks and applies
-     CDEF, raises ``UnsupportedImageError`` naming CDEF.
+     CDEF, decodes to cv2's array, and cv2's speed-4 frame with loop
+     restoration raises ``UnsupportedImageError`` naming it.
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
-     with the tables of ``native/av1_tables.h`` and its loop filter,
-     ``ops/avif.py``'s libavif colour conversion): (a) one 1024x768
+     with the tables of ``native/av1_tables.h``, its loop filter and
+     CDEF, ``ops/avif.py``'s libavif colour conversion): (a) one 1024x768
      labelled micrograph (``draw_labelled``, seed 22, its background
-     flattened) in eight forms (cv2's quality 95 BGR 4:2:0 and gray,
+     flattened) in eleven forms (cv2's quality 95 BGR 4:2:0 and gray,
      quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
-     4:2:0 BT.601 frame, and the deblocked frames: cv2's quality 85 BGR,
-     quality 90 at 10 bits BGR and 12 bits gray; the files committed in
-     ``tests/data/torch_avif_lossy_fixtures.npz``) decodes to the SHA-256
+     4:2:0 BT.601 frame; the deblocked frames: cv2's quality 85 BGR,
+     quality 90 at 10 bits BGR and 12 bits gray; the CDEF frames: cv2's
+     default quality BGR, quality 75 at 10 bits BGR, the default at 12
+     bits gray; the files committed in
+     ``tests/data/torch_avif_lossy_fixtures.npz`` and
+     ``tests/data/torch_avif_cdef_fixtures.npz``) decodes to the SHA-256
      of cv2's array and near the drawing; (b) cv2's quality-75 frame, which
-     deblocks and applies CDEF, raises ``UnsupportedImageError`` naming
-     CDEF; (c) a committed 2048² BGR micrograph at quality 95, and at 85
-     (deblocked): host decode seconds (median of 3) beside an uncompressed
-     TIFF of the same pixels; (d) the eight frames through the CLI as
-     phase 19 (c) takes its dataset.
+     deblocks and applies CDEF, decodes to the SHA-256 of cv2's array, and
+     cv2's speed-4 frame with loop restoration raises
+     ``UnsupportedImageError`` naming it; (c) a committed 2048² BGR
+     micrograph at quality 95, at 85 (deblocked) and at cv2's default
+     quality (deblocked, CDEF): host decode seconds (median of 3) beside
+     an uncompressed TIFF of the same pixels; (d) the eleven frames
+     through the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
 
@@ -4472,12 +4478,15 @@ AVIF_FORMS = ("bgr", "mono", "10bit", "12bit", "irot", "extents")
 AVIF_SEED = 21
 
 AVIF_LOSSY_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_lossy_fixtures.npz")
+AVIF_CDEF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_cdef_fixtures.npz")
 AVIF_LOSSY_DIR = os.path.join(ROOT, "build", "chip_smoke_avif_lossy")
 # phase 22's dataset: one labelled frame (seed 22) in each lossy or subsampled form -> how far each may lie from
-# the drawing (the lossless one not at all; the BGR ones hold the drawing in G, 12 levels up); the last three
-# deblocked
+# the drawing (the lossless one not at all; the BGR ones hold the drawing in G, 12 levels up); bgr85 to
+# gray12-90 deblocked, the last three deblocked and filtered with CDEF (their files in AVIF_CDEF_FIXTURES)
 AVIF_LOSSY_FORMS = {"bgr95": 14, "gray95": 12, "bgr10-99": 14, "bgr12-99": 14, "writer420": 0, "bgr85": 22,
-                    "bgr10-90": 8, "gray12-90": 8}
+                    "bgr10-90": 8, "gray12-90": 8, "bgr-default": 104, "bgr10-75": 32, "gray12-default": 56}
+# cv2's frame with loop restoration (speed 4), which phases 21 and 22 refuse by name
+AVIF_RESTORATION = "refused-restoration-bgr8-128x128"
 AVIF_LOSSY_SEED = 22
 
 
@@ -4961,7 +4970,8 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     uncompressed TIFF of the same pixels; (c) the AVIF_FORMS dataset
     through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
     errors, K2 errors). (d) A lossy 4:2:0 AVIF that applies CDEF (cv2's at
-    quality 75) raises ``UnsupportedImageError`` naming CDEF from
+    quality 75) decodes to cv2's array; cv2's speed-4 frame with loop
+    restoration raises ``UnsupportedImageError`` naming it from
     ``read_image``, outside the dataset, since the loader would raise on
     it."""
     import hashlib
@@ -5034,16 +5044,13 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
           f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
           f"{card})", flush=True)
 
-    # (d) the lossy form that applies CDEF, refused by name outside the dataset
+    # (d) the lossy form that applies CDEF, read; one with loop restoration, refused by name outside the dataset
     path = os.path.join(AVIF_DIR, "lossy.avif")
     with open(path, "wb") as f:
         f.write(fixtures["refused-lossy-420/file"].tobytes())
-    try:
-        read_image(path)
-        raise AssertionError("read_image decoded an AVIF that applies CDEF")
-    except UnsupportedImageError as e:
-        assert "AV1 CDEF" in str(e), e
-        print(f"avif: lossy 4:2:0 (cv2 at quality 75): {str(e).split(': ', 1)[1]}", flush=True)
+    assert np.array_equal(read_image(path), fixtures["refused-lossy-420/bgr"])
+    print("avif: lossy 4:2:0 (cv2 at quality 75, deblocked and CDEF) decoded bit for bit to cv2's array", flush=True)
+    refuse_restoration("avif", os.path.join(AVIF_DIR, "restoration.avif"))
 
     # (c) the dataset through the CLI
     home = os.path.join(AVIF_DIR, "home")
@@ -5057,6 +5064,21 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
                                               config_hook=config_hook, steps=steps)
     shutil.rmtree(AVIF_DIR, ignore_errors=True)
     return k1, k2, k1_errs, k2_errs
+
+
+def refuse_restoration(tag: str, path: str) -> None:
+    """cv2's committed speed-4 frame with loop restoration raises
+    ``UnsupportedImageError`` naming it (phases 21 (d), 22 (b))."""
+    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+
+    with open(path, "wb") as f:
+        f.write(np.load(AVIF_CDEF_FIXTURES)[f"{AVIF_RESTORATION}/file"].tobytes())
+    try:
+        read_image(path)
+        raise AssertionError("read_image decoded an AVIF that applies loop restoration")
+    except UnsupportedImageError as e:
+        assert "AV1 loop restoration" in str(e), e
+        print(f"{tag}: cv2's frame at speed 4 (loop restoration): {str(e).split(': ', 1)[1]}", flush=True)
 
 
 def avif_only():
@@ -5091,7 +5113,7 @@ def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOS
 
     from deepemia_tpu_torch.ops.image import read_image
 
-    fixtures = np.load(AVIF_LOSSY_FIXTURES)
+    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES)}
     gray, instances = draw_labelled(np.random.default_rng(seed), hw)
     flat = avif_flatten(gray).astype(np.int16)
     for d in (root, twin):
@@ -5118,22 +5140,24 @@ def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOS
 def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     """Phase 22: lossy and subsampled AVIF. (a) the AVIF_LOSSY_FORMS
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
-    cv2's array and near the drawing; three of them deblocked); (b) cv2's
-    quality-75 frame, which deblocks and applies CDEF, raises
-    ``UnsupportedImageError`` naming CDEF; (c) the committed 2048² BGR
-    micrograph at quality 95 and at 85 (deblocked): host decode seconds
-    (median of 3) beside an uncompressed TIFF of the same pixels, with the
-    card's name and power limit; (d) the dataset through the CLI
+    cv2's array and near the drawing; three of them deblocked, three more
+    deblocked and filtered with CDEF); (b) cv2's quality-75 frame, which
+    deblocks and applies CDEF, to the SHA-256 of cv2's array, and cv2's
+    speed-4 frame with loop restoration raises ``UnsupportedImageError``
+    naming it; (c) the committed 2048² BGR micrograph at quality 95, at 85
+    (deblocked) and at cv2's default quality (deblocked, CDEF): host decode
+    seconds (median of 3) beside an uncompressed TIFF of the same pixels,
+    with the card's name and power limit; (d) the dataset through the CLI
     (``cli_on_dataset``) -> (K1 launches, K2 launches, K1 errors, K2
     errors)."""
     import hashlib
     import shutil
 
-    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
+    from deepemia_tpu_torch.ops.image import read_image
 
     shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
     os.makedirs(AVIF_LOSSY_DIR)
-    fixtures = np.load(AVIF_LOSSY_FIXTURES)
+    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES)}
     home = os.path.join(AVIF_LOSSY_DIR, "home")
     root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
     t0 = time.perf_counter()
@@ -5142,20 +5166,20 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
           f"{', '.join(AVIF_LOSSY_FORMS)} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
           f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (b) a frame that deblocks and applies CDEF
+    # (b) a frame that deblocks and applies CDEF, read; one with loop restoration, refused by name
     path = os.path.join(AVIF_LOSSY_DIR, "q75.avif")
     with open(path, "wb") as f:
         f.write(fixtures["smoke-q75/file"].tobytes())
-    try:
-        read_image(path)
-        raise AssertionError("read_image decoded an AVIF that applies CDEF")
-    except UnsupportedImageError as e:
-        assert "AV1 CDEF" in str(e), e
-        print(f"avif lossy: the same frame at quality 75: {str(e).split(': ', 1)[1]}", flush=True)
+    got = read_image(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["smoke-q75/sha256"].tobytes().decode()
+    print("avif lossy: the same frame at quality 75 (deblocked and CDEF) decoded to the SHA-256 of cv2's array",
+          flush=True)
+    refuse_restoration("avif lossy", os.path.join(AVIF_LOSSY_DIR, "restoration.avif"))
 
-    # (c) decode seconds at 2048², quality 95 and 85 (deblocked)
-    for q, what in ((95, "no in-loop filter"), (85, "deblocked")):
-        name = f"smoke-2048-q{q}"
+    # (c) decode seconds at 2048²: quality 95, 85 (deblocked) and cv2's default (deblocked, CDEF)
+    q95 = None
+    for q, what in ((95, "no in-loop filter"), (85, "deblocked"), ("default", "deblocked and CDEF")):
+        name = f"smoke-2048-q{q}" if q != "default" else "smoke-2048-default"
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
         with open(path, "wb") as f:
             f.write(fixtures[f"{name}/file"].tobytes())
@@ -5165,9 +5189,10 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
         with open(tiff_path, "wb") as f:
             f.write(codings.tiff_of(np.ascontiguousarray(got[..., ::-1])))
         _, plain_s = decode_seconds(tiff_path)
+        q95 = q95 or secs
         print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0 "
-              f"quality {q}, {what}, cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed RGB TIFF "
-              f"{plain_s:.4f} s (median of 3, host; {card})", flush=True)
+              f"quality {q}, {what}, cv2's libavif/libaom writer): {secs:.4f} s ({secs / q95:.2f}x quality 95's) "
+              f"beside uncompressed RGB TIFF {plain_s:.4f} s (median of 3, host; {card})", flush=True)
 
     # (d) the dataset through the CLI
     k1, k2, k1_errs, k2_errs = cli_on_dataset("avif lossy", home, root, twin, files, card, device=device,

@@ -12,11 +12,11 @@
 // ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
 // prediction at every transform size (DC, V, H, the directional modes with
 // the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
-// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and the
-// deblocking loop filter (7.14). The other in-loop filters are not
-// applied: a frame that turns on CDEF, delta loop filter levels or loop
-// restoration is refused with the tool's number (kTool*), as is a stream
-// that uses any other tool this decoder lacks; none is decoded wrong.
+// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, the
+// deblocking loop filter (7.14) and CDEF (7.15). Loop restoration and delta
+// loop filter levels are not applied: a frame that turns either on is
+// refused with the tool's number (kTool*), as is a stream that uses any
+// other tool this decoder lacks; none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
@@ -572,7 +572,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 
 // What a refusal names (meta[4]); ops/avif.py holds the names
 enum Tool {
-  kToolCdef = 2, kToolSegmentation = 3, kToolScreenContent = 4,
+  kToolSegmentation = 3, kToolScreenContent = 4,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
   kToolShowExisting = 10, kToolDeltaLf = 11, kToolRestoration = 12
 };
@@ -818,6 +818,8 @@ struct Decoder {
   int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
   int lossless = 0, delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_multi = 0;
   int cdef_bits = 0, tx_mode_select = 0, reduced_tx_set = 0;
+  // cdef_params: the damping and, per entry, the Y and UV primary and secondary strengths (3 read as 4)
+  int cdef_damping = 3, cdef_y_pri[8] = {}, cdef_y_sec[8] = {}, cdef_uv_pri[8] = {}, cdef_uv_sec[8] = {};
   int filter_tool = 0;  // an in-loop filter the frame applies: refused once the frame is read
   // loop_filter_params: the levels (Y vertical edges, Y horizontal, U, V), sharpness, the deltas
   int lf_level[4] = {0, 0, 0, 0}, lf_sharpness = 0, lf_delta_enabled = 0;
@@ -1050,6 +1052,8 @@ struct Decoder {
                delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
     for (int p = 0; p < 3; ++p) qm_level[p] = (lossless || !using_qmatrix) ? 15 : qm[p];
     cdef_bits = 0;
+    cdef_damping = 3;
+    for (int i = 0; i < 8; ++i) cdef_y_pri[i] = cdef_y_sec[i] = cdef_uv_pri[i] = cdef_uv_sec[i] = 0;
     for (int i = 0; i < 4; ++i) lf_level[i] = 0;
     lf_sharpness = lf_delta_enabled = 0;
     if (!lossless) {
@@ -1070,12 +1074,17 @@ struct Decoder {
       }
       // cdef_params
       if (seq.cdef) {
-        b.f(2);  // cdef_damping_minus_3
+        cdef_damping = b.f(2) + 3;
         cdef_bits = b.f(2);
         for (int i = 0; i < (1 << cdef_bits); ++i) {
-          int strength = b.f(4) | b.f(2);
-          if (seq.mono == 0) strength |= b.f(4) | b.f(2);
-          if (strength) filter_tool = kToolCdef;
+          cdef_y_pri[i] = b.f(4);
+          cdef_y_sec[i] = b.f(2);
+          cdef_y_sec[i] += cdef_y_sec[i] == 3;
+          if (seq.mono == 0) {
+            cdef_uv_pri[i] = b.f(4);
+            cdef_uv_sec[i] = b.f(2);
+            cdef_uv_sec[i] += cdef_uv_sec[i] == 3;
+          }
         }
       }
       // lr_params: a restoration type changes the tile syntax
@@ -2144,6 +2153,7 @@ struct Decoder {
     if (!decoded) throw Corrupt{__LINE__};  // no whole frame: libaom outputs none
     if (filter_tool) throw Unsupported{filter_tool};
     loop_filter();
+    cdef();
   }
 
   // ---- the loop filter (7.14), as libaom applies it to a key frame ----
@@ -2258,6 +2268,148 @@ struct Decoder {
       out[i + n] = (t + (1 << (log2 - 1))) >> log2;
     }
     for (int i = -n; i < n; ++i) s[i * step] = (uint16_t)out[i + n];
+  }
+
+  // ---- CDEF (7.15), as libaom's av1_cdef_frame applies it ----
+  // Every 8x8 of a 64x64 whose index is not -1 and whose four 4x4 units do
+  // not all skip is filtered: luma along the direction found on its own
+  // samples, with the primary strength scaled by their variance
+  // (adjust_strength), chroma along that direction (remapped at 4:2:2 and
+  // 4:4:0). Every tap reads the deblocked frame, never a filtered sample, and
+  // a tap outside the 8-aligned frame (the mode info grid) is left out; one
+  // inside it but past the visible crop is read.
+
+  // cdef_find_dir: the direction of the 8x8 luma block at (y, x) of ``src`` and its variance
+  int cdef_direction(const uint16_t* src, int y, int x, int* var) const {
+    static const int kDiv[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+    int32_t cost[8] = {}, partial[8][15] = {};
+    const int shift = seq.bit_depth - 8;
+    for (int i = 0; i < 8; ++i) {
+      const uint16_t* row = src + (int64_t)(y + i) * stride[0] + x;
+      for (int j = 0; j < 8; ++j) {
+        int v = (row[j] >> shift) - 128;
+        partial[0][i + j] += v;
+        partial[1][i + j / 2] += v;
+        partial[2][i] += v;
+        partial[3][3 + i - j / 2] += v;
+        partial[4][7 + i - j] += v;
+        partial[5][3 - i / 2 + j] += v;
+        partial[6][j] += v;
+        partial[7][i / 2 + j] += v;
+      }
+    }
+    for (int i = 0; i < 8; ++i) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= kDiv[8];
+    cost[6] *= kDiv[8];
+    for (int i = 0; i < 7; ++i) {
+      cost[0] += (partial[0][i] * partial[0][i] + partial[0][14 - i] * partial[0][14 - i]) * kDiv[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] + partial[4][14 - i] * partial[4][14 - i]) * kDiv[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * kDiv[8];
+    cost[4] += partial[4][7] * partial[4][7] * kDiv[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; ++j) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= kDiv[8];
+      for (int j = 0; j < 3; ++j)
+        cost[i] += (partial[i][j] * partial[i][j] + partial[i][10 - j] * partial[i][10 - j]) * kDiv[2 * j + 2];
+    }
+    int best = 0;
+    int32_t best_cost = 0;
+    for (int d = 0; d < 8; ++d)
+      if (cost[d] > best_cost) { best_cost = cost[d]; best = d; }
+    *var = (best_cost - cost[(best + 4) & 7]) >> 10;
+    return best;
+  }
+
+  // cdef_filter: the block of ``plane`` that the 8x8 luma block at mode info (r, c) covers, from ``src`` into the
+  // frame. As libaom's filters do, a tap of strength 0 is not read, and the result is clamped to the taps' range
+  // only where both strengths are on: with one, the taps' weights sum to 12 of 16 and the result stays in range.
+  void cdef_filter(const uint16_t* src, int plane, int r, int c, int pri, int sec, int damping, int dir) {
+    // Cdef_Directions: (row, column) steps of the two taps along each direction
+    static const int kDirs[8][2][2] = {{{-1, 1}, {-2, 2}}, {{0, 1}, {-1, 2}}, {{0, 1}, {0, 2}}, {{0, 1}, {1, 2}},
+                                       {{1, 1}, {2, 2}},   {{1, 0}, {2, 1}},  {{1, 0}, {2, 0}}, {{1, 0}, {2, -1}}};
+    const int shift = seq.bit_depth - 8, sx = ssx(plane), sy = ssy(plane);
+    const int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy, w = 8 >> sx, h = 8 >> sy;
+    const int64_t st = stride[plane];
+    // the taps: (row step, column step, weight, strength, the strength's damping shift (constrain))
+    struct Tap { int dy, dx, weight, strength, damp; } taps[12];
+    int n = 0;
+    for (int k = 0; k < 2; ++k) {
+      for (int sign = -1; sign <= 1; sign += 2) {
+        if (pri) {
+          const int weight = ((pri >> shift) & 1) ? 3 : (k ? 2 : 4);
+          taps[n++] = {sign * kDirs[dir][k][0], sign * kDirs[dir][k][1], weight, pri,
+                       std::max(0, damping - floor_log2((uint32_t)pri))};
+        }
+        if (sec) {
+          for (int d : {(dir + 2) & 7, (dir + 6) & 7})
+            taps[n++] = {sign * kDirs[d][k][0], sign * kDirs[d][k][1], k ? 1 : 2, sec,
+                         std::max(0, damping - floor_log2((uint32_t)sec))};
+        }
+      }
+    }
+    const bool clamp = pri && sec;
+    // whether every tap of the block lies in the 8-aligned frame (taps reach 2 samples)
+    const bool inside = x0 >= 2 && y0 >= 2 && x0 + w + 2 <= pw[plane] && y0 + h + 2 <= ph[plane];
+    for (int i = 0; i < h; ++i) {
+      for (int j = 0; j < w; ++j) {
+        const int y = y0 + i, x = x0 + j, v = src[y * st + x];
+        int sum = 0, hi = v, lo = v;
+        for (int t = 0; t < n; ++t) {
+          const int yy = y + taps[t].dy, xx = x + taps[t].dx;
+          if (!inside && (yy < 0 || yy >= ph[plane] || xx < 0 || xx >= pw[plane])) continue;
+          const int p = src[yy * st + xx], diff = p - v, a = std::abs(diff);
+          const int m = std::min(a, std::max(0, taps[t].strength - (a >> taps[t].damp)));  // constrain
+          sum += taps[t].weight * (diff < 0 ? -m : m);
+          hi = std::max(hi, p);
+          lo = std::min(lo, p);
+        }
+        const int out = v + ((8 + sum - (sum < 0)) >> 4);
+        px(plane, y, x) = (uint16_t)(clamp ? std::min(hi, std::max(lo, out)) : out);
+      }
+    }
+  }
+
+  void cdef() {
+    if (lossless || !seq.cdef) return;
+    bool any = false;
+    for (int i = 0; i < (1 << cdef_bits); ++i)
+      any = any || cdef_y_pri[i] || cdef_y_sec[i] || cdef_uv_pri[i] || cdef_uv_sec[i];
+    if (!any) return;
+    // Cdef_Uv_Dir at 4:2:2 (libaom's conv422) and 4:4:0 (conv440)
+    static const int kUvDir[2][8] = {{7, 0, 2, 4, 5, 6, 6, 6}, {1, 2, 2, 2, 3, 4, 6, 0}};
+    const int shift = seq.bit_depth - 8;
+    std::vector<uint16_t> src[3];
+    for (int p = 0; p < planes; ++p) src[p] = frame[p];
+    for (int r = 0; r < mi_rows; r += 2) {
+      for (int c = 0; c < mi_cols; c += 2) {
+        const int idx = cdef(r, c);
+        if (idx == -1) continue;
+        const uint8_t* sk = &skips[(int64_t)r * mi_cols + c];
+        if (sk[0] && sk[1] && sk[mi_cols] && sk[mi_cols + 1]) continue;
+        int var = 0;
+        const int y_dir = cdef_direction(src[0].data(), 4 * r, 4 * c, &var);
+        int pri = cdef_y_pri[idx] << shift, sec = cdef_y_sec[idx] << shift;
+        if (pri || sec) {
+          // adjust_strength: the primary strength by the block's variance
+          const int vs = (var >> 6) ? std::min(floor_log2((uint32_t)(var >> 6)), 12) : 0;
+          const int adjusted = var ? (pri * (4 + vs) + 8) >> 4 : 0;
+          if (adjusted || sec)
+            cdef_filter(src[0].data(), 0, r, c, adjusted, sec, cdef_damping + shift, pri ? y_dir : 0);
+        }
+        if (planes == 1) continue;
+        pri = cdef_uv_pri[idx] << shift;
+        sec = cdef_uv_sec[idx] << shift;
+        if (!pri && !sec) continue;
+        int dir = y_dir;
+        if (seq.ssx != seq.ssy) dir = kUvDir[seq.ssx ? 0 : 1][y_dir];
+        for (int p = 1; p < 3; ++p)
+          cdef_filter(src[p].data(), p, r, c, pri, sec, cdef_damping + shift - 1, pri ? dir : 0);
+      }
+    }
   }
 };
 

@@ -26,8 +26,8 @@ What OpenCV refuses raises ``RefusedImageError``; a corrupt or cut file,
 or an ``ispe`` or AV1 frame past libavif's size limits, a ``ValueError``;
 what OpenCV reads and the port does not decode an
 ``UnsupportedImageError`` naming it: an image sequence, a grid, the AV1
-tools ``av1.cpp`` lacks (the in-loop filters but deblocking: CDEF, delta
-loop filter levels, loop restoration; segmentation, screen content,
+tools ``av1.cpp`` lacks (the in-loop filters but deblocking and CDEF:
+delta loop filter levels, loop restoration; segmentation, screen content,
 superres, film grain, frames other than a shown key frame), a
 chroma-derived matrix under primaries libyuv has no constants for,
 premultiplied alpha, and an ``ispe`` that differs from the AV1 frame
@@ -44,8 +44,7 @@ from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageErro
 SIGNATURE_BYTES = 500  # grfmt_avif.cpp: kAvifSignatureSize
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's refusals (its enum Tool)
-AV1_TOOLS = {2: "AV1 CDEF (a CDEF strength other than 0)",
-             3: "AV1 segmentation", 4: "AV1 screen content tools (palette, intra block copy)",
+AV1_TOOLS = {3: "AV1 segmentation", 4: "AV1 screen content tools (palette, intra block copy)",
              5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
              8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame",
              11: "AV1 delta loop filter levels (delta_lf_present)", 12: "AV1 loop restoration"}
@@ -90,8 +89,10 @@ class _Reader:
 
 
 def _boxes(data: bytes, pos: int, end: int):
-    """The boxes of data[pos:end] -> [(type, body start, body end)]; a box
-    that runs past ``end`` fails."""
+    """The boxes of data[pos:end], nested in another box -> [(type, body
+    start, body end)]; a box that runs past ``end`` fails, and so does one
+    of size 0 (to the end of the file: libavif takes it at the top level
+    only)."""
     out = []
     while pos < end:
         r = _Reader(data, pos, end)
@@ -99,7 +100,7 @@ def _boxes(data: bytes, pos: int, end: int):
         if size == 1:
             size = r.u(8)
         elif size == 0:
-            size = end - pos
+            raise ValueError(f"AVIF: a {kind!r} box of size 0 inside another box")
         if size < r.pos - pos or pos + size > end:
             raise ValueError(f"AVIF: a {kind!r} box of {size} bytes")
         out.append((kind, r.pos, pos + size))

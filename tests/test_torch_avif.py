@@ -43,6 +43,8 @@ _spec.loader.exec_module(fx)
 # what OpenCV reads (or, for a header rewritten to switch a tool on, fails on) and the port names:
 # fixture -> the words of the refusal (the fixture file's ``<name>/named``)
 REFUSED = {n: FIXTURES[f"{n}/named"].tobytes().decode() for n in NAMES if f"{n}/named" in FIXTURES.files}
+# the forms the port refused by name until it applied CDEF, and reads now (``<name>/cdef``)
+CDEF = sorted(n for n in NAMES if f"{n}/cdef" in FIXTURES.files)
 
 
 def reference(path):
@@ -68,7 +70,7 @@ def _write(tmp_path, name):
     return path
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in REFUSED])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in REFUSED and n not in CDEF])
 def test_fixture_reads_as_opencv(tmp_path, name):
     """Each fixture: cv2 here reads it as when it was written (or refuses
     it again), and the port reads it to the same array bit for bit, or
@@ -86,17 +88,21 @@ def test_fixture_reads_as_opencv(tmp_path, name):
         np.testing.assert_array_equal(got, ref, err_msg=name)
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
+@pytest.mark.parametrize("name", sorted(REFUSED) + CDEF)
 def test_forms_outside_the_decoder_are_named(tmp_path, name):
-    """Lossy 4:2:0 that applies CDEF (cv2 at quality 75), an image sequence
-    (cv2's animation), a grid, premultiplied alpha, an ispe libavif scales
-    to, and a lossless header rewritten to switch on screen content or film
-    grain: ``UnsupportedImageError`` naming the form, never an array; cv2
-    reads each file, or for the rewrites fails, as the fixture file
-    holds."""
-    words = REFUSED[name]
+    """An image sequence (cv2's animation), a grid, premultiplied alpha, an
+    ispe libavif scales to, and a lossless header rewritten to switch on
+    screen content or film grain: ``UnsupportedImageError`` naming the
+    form, never an array; cv2 reads each file, or for the rewrites fails,
+    as the fixture file holds. Lossy 4:2:0 that applies CDEF (cv2 at
+    quality 75), once refused here, reads as cv2 reads it, bit for bit."""
     path = _write(tmp_path, name)
     ref = reference(path)
+    if name in CDEF:
+        assert _committed(name, ref) and ref is not None, name
+        np.testing.assert_array_equal(read_image(str(path)), ref, err_msg=name)
+        return
+    words = REFUSED[name]
     assert _committed(name, ref) and (ref is None) == name.startswith(("box-screen", "box-film")), name
     with pytest.raises(UnsupportedImageError, match=re.escape(words)):
         read_image(str(path))

@@ -7,7 +7,8 @@ BGR and gray, 1x1 to 512x512, with TX_MODE_SELECT; cv2's lower qualities
 with the CDEF strengths rewritten to 0; header rewrites of sharpness,
 levels and the INTRA_FRAME delta; ``tools/av1_writer.py``'s lossy 4:4:4,
 4:2:2 and 4:2:0 frames) reads as cv2 reads it; a seeded fuzz of damaged and
-cut copies gives cv2's outcome; CDEF, delta loop filter levels and loop
+cut copies gives cv2's outcome; CDEF frames, with deblocking and without,
+read as cv2 reads them, and delta loop filter levels and loop
 restoration are still refused by name; the JAX package's loader,
 evaluator and size heuristic read cv2's quality-85 frames as the port's;
 and YCgCo-Re (C13) reads as cv2 reads it at 10 bits and full range, and is
@@ -151,16 +152,17 @@ def test_writer_frames_deblock(tmp_path):
 
 
 def test_filters_other_than_deblocking_are_named(tmp_path):
-    """CDEF (with deblocking or without), delta loop filter levels and loop
-    restoration: ``UnsupportedImageError`` naming the filter, never an
-    array. cv2 reads the CDEF frames and the delta LF frame (each
-    superblock's deltas 0); the restoration frame's tiles lack its
-    coefficients, and the port refuses it from its header."""
+    """Delta loop filter levels and loop restoration:
+    ``UnsupportedImageError`` naming the filter, never an array. cv2 reads
+    the delta LF frame (each superblock's deltas 0); the restoration
+    frame's tiles lack its coefficients, and the port refuses it from its
+    header. CDEF (with deblocking or without), once refused here too: cv2
+    and the port read each frame to the same array, bit for bit."""
     deblock = _tool("make_torch_avif_deblock_fixtures")
     aw, fx = deblock.aw, deblock.fx
     lossy = np.load(ROOT / "tests" / "data" / "torch_avif_lossy_fixtures.npz")
-    cases = [(lossy[f"{n}/file"].tobytes(), "AV1 CDEF", True) for n in ("filter-q75-bgr8-61x45", "filter-cdef-bgr8-61x45",
-                                                                      "smoke-q75")]
+    cases = [(lossy[f"{n}/file"].tobytes(), None, True) for n in ("filter-q75-bgr8-61x45", "filter-cdef-bgr8-61x45",
+                                                                "smoke-q75")]
     for tool, words, cv2_reads in (("delta_lf", "AV1 delta loop filter levels", True),
                                    ("restoration", "AV1 loop restoration", None)):
         for sub, depth in (((1, 1), 8), ((1, 0), 10), ((0, 0), 12)):
@@ -174,8 +176,12 @@ def test_filters_other_than_deblocking_are_named(tmp_path):
     path = tmp_path / "f.avif"
     for data, words, cv2_reads in cases:
         path.write_bytes(data)
+        ref = _cv2(path)
         if cv2_reads:
-            assert _cv2(path) is not None, words
+            assert ref is not None, words
+        if words is None:  # CDEF
+            np.testing.assert_array_equal(read_image(str(path)), ref)
+            continue
         with pytest.raises(UnsupportedImageError, match=re.escape(words)):
             read_image(str(path))
 
@@ -186,9 +192,9 @@ def test_filters_other_than_deblocking_are_named(tmp_path):
 
 FUZZ_BASES = ("q85-bgr8-53x37", "q90-gray12-41x29", "txsel-bgr-77x65", "nocdef-q50-bgr10-61x45",
               "writer-422-10-53x37-sb64")
-# copies the port refuses by name: (where cv2 fails, where cv2 reads): the damage switches on a tool the port
-# refuses in the header (CDEF here), and libaom reads the rest of the stream
-NAMED_COPIES = {"q85-bgr8-53x37": (0, 1), "q90-gray12-41x29": (0, 0), "txsel-bgr-77x65": (0, 0),
+# copies the port refuses by name: (where cv2 fails, where cv2 reads): none (one copy of q85-bgr8-53x37 whose
+# damage switches CDEF on, refused until the port applied CDEF, now reads as cv2 reads it)
+NAMED_COPIES = {"q85-bgr8-53x37": (0, 0), "q90-gray12-41x29": (0, 0), "txsel-bgr-77x65": (0, 0),
                 "nocdef-q50-bgr10-61x45": (0, 0), "writer-422-10-53x37-sb64": (0, 0)}
 
 

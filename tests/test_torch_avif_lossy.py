@@ -7,8 +7,8 @@ TX_MODE_SELECT; cv2's quality 75 and 50 frames with their in-loop filters
 rewritten off; ``tools/av1_writer.py``'s lossless 4:2:0, 4:2:2 and 4:4:4
 frames under every matrix libavif converts, at both ranges; phase 22's
 frames; YCgCo-Re at every subsampling) reads as cv2 reads it, deblocked
-where its loop filter level is not 0, or is refused by name where it
-applies CDEF; each inverse transform holds its float64 matrix within its
+where its loop filter level is not 0 and filtered where it applies CDEF;
+each inverse transform holds its float64 matrix within its
 rounding; the generated tables are what their script extracts; a seeded fuzz
 of damaged and cut copies gives cv2's outcome; and the JAX package's loader,
 evaluator and pipeline read the same quality-95 frames as the port's."""
@@ -39,10 +39,11 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = np.load(ROOT / "tests" / "data" / "torch_avif_lossy_fixtures.npz")
 NAMES = sorted({k.split("/")[0] for k in FIXTURES.files})
-# the frames cv2 reads that the port refuses for an in-loop filter -> the words of the refusal
+# the frames cv2 reads that the port refuses -> the words of the refusal
 NAMED = {n: FIXTURES[f"{n}/named"].tobytes().decode() for n in NAMES if f"{n}/named" in FIXTURES.files}
-# the frames that apply an in-loop filter or a form the port refuses: those named, and those that deblock only
-FILTERED = sorted(set(NAMED) | {n for n in NAMES if f"{n}/deblocked" in FIXTURES.files})
+# the frames that apply an in-loop filter or a form the port refuses: those named, those that deblock only and
+# those that apply CDEF
+FILTERED = sorted(set(NAMED) | {n for n in NAMES if {f"{n}/deblocked", f"{n}/cdef"} & set(FIXTURES.files)})
 
 
 def _tool(name):
@@ -95,11 +96,11 @@ def test_fixture_reads_as_opencv(tmp_path, name):
 
 @pytest.mark.parametrize("name", FILTERED)
 def test_filtered_frames_are_named(tmp_path, name):
-    """A frame that applies CDEF, or whose chroma-derived matrix libavif
-    works out from colour primaries in float: cv2 reads it; the port
-    raises ``UnsupportedImageError`` naming the filter or the form, never
-    an array. A frame that deblocks (a loop filter level other than 0) and
-    applies no CDEF: the port reads it as cv2 does, bit for bit."""
+    """A frame whose chroma-derived matrix libavif works out from colour
+    primaries in float: cv2 reads it; the port raises
+    ``UnsupportedImageError`` naming the form, never an array. A frame that
+    deblocks (a loop filter level other than 0), applies CDEF, or both: the
+    port reads it as cv2 does, bit for bit."""
     path = _write(tmp_path, name)
     ref = reference(path)
     assert _committed(name, ref), name
@@ -120,8 +121,10 @@ def test_fixtures_cover_every_form():
         for sub in ("420", "422"):
             for rng in ("full", "limited"):
                 assert any(n.startswith(f"writer-{sub}-mc{mc}-{rng}-") for n in NAMES), (sub, mc, rng)
-    assert {"AV1 CDEF", "chroma-derived matrix coefficients under colour primaries 2",
+    assert {"chroma-derived matrix coefficients under colour primaries 2",
             "chroma-derived matrix coefficients under colour primaries 4"} == set(NAMED.values())
+    cdef = {n for n in NAMES if f"{n}/cdef" in FIXTURES.files}
+    assert {"filter-q75-bgr8-61x45", "filter-q50-bgr8-61x45", "filter-cdef-bgr8-61x45", "smoke-q75"} <= cdef
 
 
 # ---------------------------------------------------------------------------

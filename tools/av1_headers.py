@@ -5,13 +5,16 @@ loop filter levels and (or not) the CDEF strengths of a lossy frame to 0,
 so that cv2 (libaom) decodes it without those in-loop filters;
 ``rewrite_loop_filter`` writes other loop filter parameters (levels,
 sharpness, the INTRA_FRAME ref delta) and may zero the CDEF strengths
-alone; ``fields`` says what a payload switches on (``tx_mode_select``,
+alone; ``rewrite_cdef`` writes the CDEF damping and strengths in place
+(their widths are fixed, so neither the OBU's size nor its tiles change);
+``fields`` says what a payload switches on (``tx_mode_select``,
 ``delta_q_present``, the loop filter levels, sharpness and deltas, the
-CDEF strengths, the quantizer).
+CDEF damping, index bits and strengths, the quantizer).
 
     f = fields(payload)
     plain = strip_filters(payload)
     deblocked_only = rewrite_loop_filter(payload, cdef=False)
+    stronger = rewrite_cdef(payload, damping=6, strengths=[[9, 3, 2, 1]])
 """
 
 from __future__ import annotations
@@ -86,11 +89,16 @@ def _sequence(body: bytes) -> dict:
         b.f(1)  # color_range
         if s["profile"] == 2 and depth == 12:
             ssx = b.f(1)
-            if ssx and b.f(1):
+            ssy = b.f(1) if ssx else 0
+            s["subsampling"] = (ssx, ssy)
+            if ssx and ssy:
                 b.f(2)  # chroma_sample_position
         elif s["profile"] == 0:
             b.f(2)  # chroma_sample_position
         s["separate_uv_delta_q"] = b.f(1)
+    if "subsampling" not in s:  # monochrome, sRGB (4:4:4), or what the profile implies
+        srgb = (cp, tc, mc) == (1, 13, 0)
+        s["subsampling"] = (1, 1) if s["mono"] else (0, 0) if srgb else ((1, 1), (0, 0), (1, 0))[s["profile"]]
     s["film_grain"] = b.f(1)
     s["depth"] = depth
     return s
@@ -178,7 +186,8 @@ def fields(payload: bytes) -> dict:
                     out["lf_deltas"][i] = b.su(7)
         out["bit_lf_params_end"] = b.pos
         if seq["cdef"]:
-            b.f(2)
+            out["bit_cdef_damping"] = b.pos
+            out["cdef_damping"] = b.f(2) + 3
             out["cdef_bits"] = b.f(2)
             out["bit_cdef"] = b.pos
             for _ in range(1 << out["cdef_bits"]):
@@ -206,6 +215,33 @@ def strip_filters(payload: bytes, keep_cdef: bool = False, keep_loop_filter: boo
     if "bit_lf" not in fields(payload):  # a lossless frame: no filter parameters
         return payload
     return rewrite_loop_filter(payload, levels=None if keep_loop_filter else (0, 0, 0, 0), cdef=keep_cdef)
+
+
+def rewrite_cdef(payload: bytes, damping=None, strengths=None) -> bytes:
+    """A cv2 payload whose CDEF damping (3-6) and strength entries are
+    rewritten in place: ``strengths`` holds one entry per CDEF index of the
+    frame (``1 << cdef_bits``), each [Y primary 0-15, Y secondary 0-3] and,
+    where the frame has chroma, [UV primary, UV secondary] after them;
+    None keeps what the frame has."""
+    f = fields(payload)
+    if "bit_cdef" not in f:
+        raise ValueError("a frame without CDEF parameters")
+    _, _, s, e = next(o for o in _obus(payload) if o[0] == 6)
+    bits = list("".join(f"{x:08b}" for x in payload[s:e]))
+    if damping is not None:
+        if not 3 <= damping <= 6:
+            raise ValueError(f"CDEF damping {damping} outside 3-6")
+        bits[f["bit_cdef_damping"] : f["bit_cdef_damping"] + 2] = f"{damping - 3:02b}"
+    if strengths is not None:
+        per = 2 if f["mono"] else 4
+        if len(strengths) != 1 << f["cdef_bits"] or any(len(v) != per for v in strengths):
+            raise ValueError(f"{1 << f['cdef_bits']} CDEF entries of {per} strengths wanted")
+        field = "".join(f"{v[k]:0{4 if k % 2 == 0 else 2}b}" for v in strengths for k in range(per))
+        if len(field) != f["bit_cdef_end"] - f["bit_cdef"]:
+            raise ValueError("a strength outside its field (primary 0-15, secondary 0-3)")
+        bits[f["bit_cdef"] : f["bit_cdef_end"]] = field
+    body = int("".join(bits), 2).to_bytes(e - s, "big")
+    return payload[:s] + body + payload[e:]
 
 
 def _su(v: int, n: int) -> str:

@@ -9,7 +9,7 @@ cv2 (libaom) and the port's decoder can be held to each other on them.
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
 Walsh-Hadamard coefficients. With ``lossy``, the frame is a lossy one
-(at q-context 0) under the loop filter parameters given (CDEF and loop
+(at q-context 0) under the loop filter and CDEF parameters given (loop
 restoration off in the sequence header), its transforms the largest
 (TX_MODE_LARGEST): every block larger than 4x4 skips, and each 4x4 block
 codes a few random coefficients in each plane (the luma transform type
@@ -181,8 +181,12 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
-                 lossy=False, deltas=False):
+                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=()):
         self.lossy, self.deltas = lossy, deltas
+        # CDEF: (index bits, the 64x64s whose blocks all skip); the index of each 64x64 (mode info units) written
+        self.cdef, self.skip64, self.empty = cdef, set(skip64), empty
+        self.cdef_idx = {}
+        self.coded_empty = False
         self.src = [np.asarray(p, np.int64) for p in planes]
         self.mono = len(planes) == 1
         self.bd = bit_depth
@@ -399,9 +403,18 @@ class _Frame:
             self.filter_mode = int(rng.integers(0, 5))
         # the residual (a block whose prediction is exact in every plane skips)
         levels = self.lossy_levels(r, c, bsize) if self.lossy else self.predict_block(r, c, bsize)
-        skip = int(not any(lv.any() for _, _, _, lv in levels))
+        skip = int(not any(lv.any() for _, _, _, lv in levels) and not self.coded_empty)
         ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
         sym.symbol(skip, cdf["kSkip"][ctx], 2)
+        if self.cdef is not None and not skip and (r & ~15, c & ~15) not in self.cdef_idx:
+            # the CDEF index of the 64x64 at this block's first non-skip block, and of the others the block covers
+            bits = self.cdef
+            v = int(rng.integers(0, 1 << bits))
+            for i in range(bits - 1, -1, -1):
+                sym.bool((v >> i) & 1)
+            for y in range(r & ~15, r + bh4, 16):
+                for x in range(c & ~15, c + bw4, 16):
+                    self.cdef_idx[(y, x)] = v
         if self.read_deltas and not (bsize == (B128X128 if self.sb128 else B64X64) and skip):
             sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0, then delta_lf_abs 0 (one, not multi)
             sym.symbol(0, cdf["kDeltaLf"][0], 4)
@@ -450,9 +463,15 @@ class _Frame:
         """A lossy frame's coefficients: random ones in each plane of a 4x4
         block (DC and up to two more), none elsewhere -> [(plane, x4, y4,
         levels)]; the luma transform type is drawn too."""
-        if bsize != B4X4:
+        self.coded_empty = False
+        if bsize != B4X4 or (r >> 4, c >> 4) in self.skip64:
             return []
         rng = self.rng
+        if self.empty and rng.random() < self.empty:  # skip 0, and no coefficient in any plane
+            self.coded_empty = True
+            self.tx_symbol = 0
+            return [(p, c >> self.sub(p)[0], r >> self.sub(p)[1], np.zeros((4, 4), np.int64))
+                    for p in range(3 if self.has_chroma else 1)]
         self.tx_symbol = int(rng.choice([0, 1, 4, 5, 6]))  # IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST
         out = []
         for p in range(3 if self.has_chroma else 1):
@@ -853,7 +872,14 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     for deltas off; and, optionally, "delta_lf": delta_q_present and
     delta_lf_present on, each superblock's deltas 0; "restoration": loop
     restoration on in the sequence header and Wiener for Y in the frame
-    header, the tiles without its coefficients} for a lossy frame whose planes are
+    header, the tiles without its coefficients; "cdef": {"damping": 3-6,
+    "bits": cdef_bits 0-3, "strengths": one [Y primary, Y secondary, UV
+    primary, UV secondary] per index (two values where the frame is
+    monochrome)}: CDEF on in the sequence header, its parameters in the
+    frame header and a random index at each 64x64's first non-skip block;
+    "skip64": [(row, column)] of 64x64s whose blocks all skip (their index
+    is never written); "empty": the odds that a 4x4 block codes skip 0 and
+    no coefficient} for a lossy frame whose planes are
     the prediction of random 4x4 residuals (``planes`` then give only the
     size; ``weights`` default to splitting down to 4x4 blocks now and then)."""
     rng = np.random.default_rng(seed)
@@ -862,8 +888,11 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         assert 0 < lossy["q"] <= 20, "q-context 0"
         big = [1.0, 0.3, 0.3, 5.0] + [0.3] * 6  # mostly SPLIT, down to 4x4 blocks now and then
         weights = weights or {B8X8: [1.0, 0.3, 0.3, 2.0], 6: big, 9: big, B64X64: big, B128X128: big}
+    cdef = lossy.get("cdef") if lossy else None
     fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
-                lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")))
+                lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")),
+                cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
+                skip64=lossy.get("skip64", ()) if lossy else ())
     restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
     profile = _profile(bit_depth, mono, tuple(subsampling))
@@ -904,7 +933,7 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         b.f(1, 1), b.f(1, 0), b.f(1, 0)  # enable_order_hint, jnt_comp, ref_frame_mvs
         b.f(1, 0), b.f(1, 0)  # seq_choose_screen_content_tools 0, seq_force_screen_content_tools 0
         b.f(3, 6)  # order_hint_bits_minus_1
-    b.f(1, 0), b.f(1, 0), b.f(1, restoration)  # superres, cdef, restoration
+    b.f(1, 0), b.f(1, int(bool(cdef))), b.f(1, restoration)  # superres, cdef, restoration
     b.f(1, int(bit_depth > 8))  # high_bitdepth
     if profile == 2 and bit_depth > 8:
         b.f(1, int(bit_depth == 12))  # twelve_bit
@@ -1005,6 +1034,13 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         if delta is not None:
             h.f(1, 1), h.f(1, 1), h.f(7, delta & 0x7F)  # update; the INTRA_FRAME ref delta
             h.f(9, 0)  # the other seven ref deltas and the two mode deltas kept
+        if cdef:  # cdef_params
+            h.f(2, cdef["damping"] - 3), h.f(2, cdef["bits"])
+            assert len(cdef["strengths"]) == 1 << cdef["bits"]
+            for entry in cdef["strengths"]:
+                assert len(entry) == (2 if mono else 4)
+                for k, v in enumerate(entry):
+                    h.f(4 if k % 2 == 0 else 2, v)
         if restoration:  # lr_type: WIENER for Y, none for U and V; lr_unit_shift 0
             h.f(2, 2)
             if not mono:

@@ -7,7 +7,9 @@ Each entry ``<name>/file`` holds the file's bytes; ``<name>/bgr`` cv2's
 BGR array, ``<name>/sha256`` the SHA-256 of its bytes (arrays of more
 than 64x64 pixels, and phase 21's files), or ``<name>/none`` where cv2
 returns None; ``<name>/named`` the words with which the port refuses a
-form it does not decode (``NAMED``); ``c12/sha256`` holds the SHA-256 of
+form it does not decode (``NAMED``); ``<name>/cdef`` (empty) marks a form
+the port once refused and now reads (``CDEF``: cv2's lossy 4:2:0 at
+quality 75, which applies CDEF); ``c12/sha256`` holds the SHA-256 of
 cv2's array (zeros for None) for each of the 800 damaged or cut C11
 TIFFs of ``c12_copies``. The lossless AV1 payloads come
 from ``cv2.imencode('.avif', img, [IMWRITE_AVIF_QUALITY, 100])``; the box
@@ -36,7 +38,6 @@ DEFAULT_OUT = Path(__file__).resolve().parents[1] / "tests" / "data" / "torch_av
 # the forms cv2 reads (or, for a header rewritten to switch a tool on, fails on) that the port refuses by
 # name: fixture -> the words of its UnsupportedImageError
 NAMED = {
-    "refused-lossy-420": "AV1 CDEF",
     "refused-sequence": "an image sequence",
     "refused-grid": "a grid image",
     "box-premultiplied-alpha": "premultiplied alpha",
@@ -44,6 +45,8 @@ NAMED = {
     "box-screen-content": "AV1 screen content tools",
     "box-film-grain": "AV1 film grain",
 }
+# the forms the port refused by name until it applied CDEF, and reads now (each keeps its name)
+CDEF = ("refused-lossy-420",)
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +556,8 @@ def main(out: str = str(DEFAULT_OUT)) -> str:
             arrays[f"{name}/file"] = np.frombuffer(data, np.uint8)
             if name in NAMED:
                 arrays[f"{name}/named"] = np.frombuffer(NAMED[name].encode(), np.uint8)
+            if name in CDEF:
+                arrays[f"{name}/cdef"] = np.zeros(0, np.uint8)
             if ref is None:
                 arrays[f"{name}/none"] = np.zeros(0, np.uint8)
             elif name.startswith(HASHED_PREFIXES) or ref.shape[0] * ref.shape[1] > HASHED_PIXELS:

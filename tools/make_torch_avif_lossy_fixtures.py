@@ -8,10 +8,12 @@ BGR array (at most 64x64 pixels) or ``<name>/sha256`` the SHA-256 of its
 bytes, or ``<name>/none`` where cv2 returns None (YCgCo at limited range,
 YCgCo-Re other than at 10 bits and full range, two colour properties of
 one type); ``<name>/named`` the words with which the port refuses a frame
-whose in-loop filters it does not apply (read off the frame header by
-``tools/av1_headers.py``: a CDEF strength other than 0 is AV1 CDEF);
+(``WRITER_NAMED``: a chroma-derived matrix libavif works out in float);
 ``<name>/deblocked`` (empty) marks a frame whose loop filter level is not
-0 and that applies no CDEF, which the port deblocks. The entries:
+0 and that applies no CDEF, which the port deblocks; ``<name>/cdef``
+(empty) a frame that applies CDEF (a CDEF strength other than 0, read off
+the frame header by ``tools/av1_headers.py``), which the port filters
+too. The entries:
 
 - ``q<Q>-<form>``: cv2's files at quality 92-99, 8, 10 and 12 bits, BGR
   (4:2:0) and gray (4:0:0), of a blurred-noise image at odd sizes;
@@ -23,8 +25,8 @@ whose in-loop filters it does not apply (read off the frame header by
   (``av1_headers.strip_filters``), which cv2 then decodes without
   them: the larger quantizers, q-contexts 2 and 3, delta q for chroma and
   per superblock;
-- ``filter-*``: frames that deblock or apply CDEF, which cv2 reads; the
-  port reads those that only deblock and refuses CDEF by name;
+- ``filter-*``: frames that deblock or apply CDEF, which cv2 reads, and
+  so does the port;
 - ``writer-<sub>-mc<M>-<range>-<depth>``: ``tools/av1_writer.py``'s
   lossless 4:2:0, 4:2:2 and 4:4:4 frames of random planes under every
   matrix libavif converts (``ops/avif.py:_MATRICES``), full and limited
@@ -38,7 +40,7 @@ whose in-loop filters it does not apply (read off the frame header by
 - ``smoke-*``: phase 22's labelled frame (``chip_smoke.draw_labelled``,
   seed 22, its background flattened) as cv2 writes it at quality 95 (BGR
   and gray) and 99 (10 and 12 bits, where libaom deblocks at 95), as the
-  writer's lossless 4:2:0 BT.601 frame, and at quality 75 (CDEF: refused);
+  writer's lossless 4:2:0 BT.601 frame, and at quality 75 (CDEF);
   frames libaom deblocks and applies no CDEF to: BGR at quality 85, 10-bit
   BGR and 12-bit gray at quality 90; a 2048² BGR micrograph at quality 95,
   and at 85 (deblocked), for the decode time.
@@ -117,12 +119,9 @@ def with_payload(data: bytes, payload: bytes) -> bytes:
     return fx.avif([fx.image_item(payload, av1c, f["width"], f["height"], f["depth"], channels, colr)])
 
 
-def named_of(data: bytes):
-    """The refusal's words of a cv2 file, from its frame header."""
-    f = hd.fields(fx.payload_of(data)[0])
-    if any(any(s) for s in f["cdef_strengths"]):
-        return "AV1 CDEF"
-    return None
+def applies_cdef(data: bytes) -> bool:
+    """Whether a cv2 file's frame applies CDEF (a strength other than 0)."""
+    return any(any(s) for s in hd.fields(fx.payload_of(data)[0])["cdef_strengths"])
 
 
 def deblocks(data: bytes) -> bool:
@@ -260,9 +259,11 @@ def main(out: str = str(DEFAULT_OUT)) -> str:
             Path(path).write_bytes(data)
             ref = cv2.imread(path, cv2.IMREAD_COLOR)
             arrays[f"{name}/file"] = np.frombuffer(data, np.uint8)
-            words = named_of(data) if not name.startswith("writer-") else WRITER_NAMED.get(name)
+            words = WRITER_NAMED.get(name)
             if words:
                 arrays[f"{name}/named"] = np.frombuffer(words.encode(), np.uint8)
+            elif name.startswith(CV2_PREFIXES) and applies_cdef(data):
+                arrays[f"{name}/cdef"] = np.zeros(0, np.uint8)
             elif name.startswith(CV2_PREFIXES) and deblocks(data):
                 arrays[f"{name}/deblocked"] = np.zeros(0, np.uint8)
             if ref is None:  # libavif converts YCgCo at full range only, YCgCo-Re at 10 bits too, and takes one
