@@ -98,9 +98,9 @@ It builds the CUDA kernels from the sources in the checkout and then:
      port's ``read_image``) to their shapes, and that every multilevel
      RoIAlign with RoIs launched K1; prints each encoding's decode seconds
      and the steady image's stage seconds (``mask_export``, ``rle``,
-     ``measurements``, ``overlay``, ``png``). Then, in process: the same
-     images with ``measurement_backend: device`` (and the contrast), the
-     last image's instances measured on the card and on the CPU (counts,
+     ``measurements``, ``overlay``, ``png``). Then, in process: the last
+     image with ``measurement_backend: device`` (and the contrast), its
+     instances measured on the card and on the CPU (counts,
      extents, perimeters and contrast equal, moments to 1e-5 relative), and
      one 256² image through that pipeline on the card and on the CPU,
      compared as phase 9's reference is; then one 4096² micrograph without
@@ -116,7 +116,7 @@ It builds the CUDA kernels from the sources in the checkout and then:
      against their plain versions, and the adjoint identity, on one
      training step of a 4-image batch from the loader (4 x 512² levels,
      twice the RoIs of a 2-image step); ``train --rcnn 50 --augment
-     --max-iter 24`` (finite losses, 2 K1 + 2 K2 launches every step,
+     --max-iter 12`` (finite losses, 2 K1 + 2 K2 launches every step,
      checkpoints and ``model_final_r50.pt``, weights moved; steady seconds
      per step, the step's wait in ``next(loader)`` and its share of the
      wall time); ``evaluate --rcnn 50 --visualize`` (metrics.csv with the
@@ -126,7 +126,7 @@ It builds the CUDA kernels from the sources in the checkout and then:
      /64; seconds and detections per image); ``train --pretrained-weights
      <zoo.pkl>`` for 4 steps from a Detectron2-named pickle of the seeded
      model with 81-class heads (those heads skipped and re-initialised, the
-     stem and res2 unchanged); ``train --optimize --n-trials 3 --max-iter 6
+     stem and res2 unchanged); ``train --optimize --n-trials 2 --max-iter 4
      --hpo-strategy random`` (the winner in config.yaml and the dataset
      YAML, no trial directory left); peak device memory;
  10. holds the windowed-sum kernel (K3) against its plain version on the
@@ -171,10 +171,10 @@ It builds the CUDA kernels from the sources in the checkout and then:
      full; the float and int8 engines' detections on one micrograph matched
      as INT8_AP.md counts them; the int8 trunk of one 256² and one 253x259
      tile on the card against the plain int8 trunk on the CPU (bit for bit
-     at every level); and ``--task inference --quantized trunk``
-     through the CLI in its own process on phase 9's micrographs, the first
-     a JPEG, then ``--quantized full`` on the JPEG (every image processed,
-     every bar read, K4 and K5 launched). Phase 13 writes every other image of its
+     at every level); and ``--task inference --quantized trunk``, then
+     ``--quantized full``, through the CLI in its own process on phase 9's
+     first micrograph as a JPEG (the image processed, its bar read, K4 and
+     K5 launched). Phase 13 writes every other image of its
      dataset as JPEG, so train and evaluate read JPEG records.
  15. the entry points users start besides the CLI, on the encodings
      ``read_image`` takes beside the plain ones: the committed fixtures
@@ -186,15 +186,15 @@ It builds the CUDA kernels from the sources in the checkout and then:
      (host seconds printed); the web panel (``deepemia_tpu_torch.gui.server``,
      in this process on port 0, the admin password set) refuses a wrong
      password with 403, starts ``--task inference --visualize
-     --no-download`` on a home holding them (phase 12's config, dataset YAML
-     and checkpoint), is polled on /status until the task ends with exit
+     --no-download`` on a home holding the transposed PNG (phase 12's
+     config, dataset YAML and checkpoint), is polled on /status until the task ends with exit
      code 0, and serves both CSVs through /files and /download and the
      results through /zip; the task ran on the card (the CLI's device line)
-     and its rows match phase 12's CLI rows for the same rasters (instances
+     and its rows match phase 12's CLI rows for the same raster (instances
      at mask IoU >= 0.95, at least 0.98 of them); then the wizard (``python
      -m deepemia_tpu_torch.cli.wizard`` in its own process, started from
      the home, with scripted answers: "Run inference" on that dataset with
-     ``--quantized trunk``, then "Exit") processes every image on the card,
+     ``--quantized trunk``, then "Exit") processes the image on the card,
      reads every bar and launches K1, K4 and K5 (the launches its CLI logs).
      ``python3 -c "import chip_smoke; chip_smoke.entry_points_only()"``
      runs phase 12's CLI run and phase 15 alone.
@@ -224,8 +224,9 @@ It builds the CUDA kernels from the sources in the checkout and then:
      ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``; each sees
      ``cuda:0`` as its GPU through ``$SMOKE_LOCAL_DEVICES``), each on its
      own copy of phase 12's home: bf16, its rows held to phase 12's
-     one-process rows, then ``--quantized trunk`` held to the same run in
-     an NCCL process group of world size 1 (exit 0); every image processed
+     one-process rows, then, on the first micrograph alone, ``--quantized
+     trunk`` held to the same run in an NCCL process group of world size 1
+     (exit 0); every image processed
      and every bar read on both ranks, rank 1 writing no result, and each
      kernel's launches on the two ranks (K1, K4, K5, printed per rank) adding
      up to the one-process run's; (b) one float32 training step with
@@ -245,7 +246,7 @@ It builds the CUDA kernels from the sources in the checkout and then:
      arithmetic-coded, CMYK and YCCK, block-smoothed and lossless JPEG,
      16-bit, bit-field and OS/2 BMP, each beside the array ``cv2.imread``
      returns) decode bit for bit; (b) 2048² files written by
-     that tool's numpy writers in six worker processes: the arithmetic-
+     that tool's numpy writers in worker processes: the arithmetic-
      coded twins (SOF9 and SOF10, gray and 4:2:0, quality 90) of one set of
      quantised coefficients decode bit-equal to its Huffman file; phase 12's
      rasters as FillOrder 2 (raw, LZW, PackBits) and BigTIFF (II and MM,
@@ -306,30 +307,39 @@ It builds the CUDA kernels from the sources in the checkout and then:
      12-bit, with irot, split across iloc extents; the files committed)
      through the CLI as phase 19 (c) takes its dataset; (d) the lossy
      4:2:0 file cv2 writes at quality 75, which deblocks and applies
-     CDEF, decodes to cv2's array, and cv2's speed-4 frame with loop
-     restoration raises ``UnsupportedImageError`` naming it.
+     CDEF, and cv2's speed-4 frame with loop restoration decode to cv2's
+     arrays, and the AV1 writer's frame with delta loop filter levels
+     raises ``UnsupportedImageError`` naming them.
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
-     with the tables of ``native/av1_tables.h``, its loop filter and
-     CDEF, ``ops/avif.py``'s libavif colour conversion): (a) one 1024x768
-     labelled micrograph (``draw_labelled``, seed 22, its background
-     flattened) in eleven forms (cv2's quality 95 BGR 4:2:0 and gray,
+     with the tables of ``native/av1_tables.h``, its loop filter, CDEF and
+     loop restoration, ``ops/avif.py``'s libavif colour conversion): (a)
+     one 1024x768 labelled micrograph (``draw_labelled``, seed 22, its
+     background flattened) in fifteen forms (cv2's quality 95 BGR 4:2:0 and gray,
      quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
      4:2:0 BT.601 frame; the deblocked frames: cv2's quality 85 BGR,
      quality 90 at 10 bits BGR and 12 bits gray; the CDEF frames: cv2's
      default quality BGR, quality 75 at 10 bits BGR, the default at 12
-     bits gray; the files committed in
-     ``tests/data/torch_avif_lossy_fixtures.npz`` and
-     ``tests/data/torch_avif_cdef_fixtures.npz``) decodes to the SHA-256
-     of cv2's array and near the drawing; (b) cv2's quality-75 frame, which
-     deblocks and applies CDEF, decodes to the SHA-256 of cv2's array, and
-     cv2's speed-4 frame with loop restoration raises
-     ``UnsupportedImageError`` naming it; (c) a committed 2048² BGR
-     micrograph at quality 95, at 85 (deblocked) and at cv2's default
-     quality (deblocked, CDEF): host decode seconds (median of 3) beside
-     an uncompressed TIFF of the same pixels; (d) the eleven frames
-     through the CLI as phase 19 (c) takes its dataset.
+     bits gray; the loop restoration frames, with ``avif_textured``'s
+     texture: cv2's 8-bit BGR with Wiener luma units, 10-bit BGR, 8- and
+     10-bit gray with self-guided luma units, at speeds 4 and 2; the files
+     committed in ``tests/data/torch_avif_lossy_fixtures.npz``,
+     ``tests/data/torch_avif_cdef_fixtures.npz`` and
+     ``tests/data/torch_avif_restoration_fixtures.npz``) decodes to the
+     SHA-256 of cv2's array and near the drawing; (b) cv2's quality-75
+     frame, which deblocks and applies CDEF, the textured 8-bit gray frame
+     with CDEF then restoration, and the committed restoration fixtures
+     (cv2's frames at speeds 0-4, the AV1 writer's SWITCHABLE, 4:4:4,
+     4:2:2, 12-bit, 128x128-superblock and tiled frames) decode to cv2's
+     arrays or their SHA-256, and the writer's frame with delta loop filter
+     levels raises ``UnsupportedImageError`` naming them; (c) committed
+     2048² BGR rasters: the micrograph at quality 95, at 85 (deblocked)
+     and at cv2's default quality (deblocked, CDEF), and blurred noise at
+     speed 4 (self-guided restoration in every plane): host decode seconds
+     (median of 3) beside an uncompressed TIFF of the same pixels, and
+     each as a multiple of quality 95's; (d) the fifteen frames through
+     the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
 
@@ -1903,7 +1913,31 @@ def cli_child(out_json: str, *argv: str) -> int:
     devices), its steady stage seconds, the RoIAlign counts and the
     RoIAlign backward (K2), int8 conv (K4) and activation quantizer (K5)
     launches. With ``$SMOKE_LOCAL_DEVICES`` (e.g. ``cuda:0,cuda:0``) the
-    port sees those as the host's GPUs: two on one card."""
+    port sees those as the host's GPUs: two on one card. ``argv`` may hold
+    several invocations apart by "::", run in turn: then ``out_json``
+    holds the list of their reports."""
+    runs = [[]]
+    for a in argv:
+        if a == "::":
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    reports = []
+    for k, run_argv in enumerate(runs):
+        reports.append(_cli_report(run_argv))
+        res = reports[-1]["result"]
+        if len(runs) > 1 and res and os.path.isdir(res["output_dir"]):  # kept apart from the next run's
+            old, new = res["output_dir"], f"{res['output_dir']}.run{k}"
+            os.rename(old, new)
+            reports[-1]["result"] = {key: v.replace(old, new, 1) if isinstance(v, str) and v.startswith(old) else v
+                                     for key, v in res.items()}
+    with open(out_json, "w") as f:
+        json.dump(reports[0] if len(reports) == 1 else reports, f)
+    return 0
+
+
+def _cli_report(argv) -> dict:
+    """One CLI invocation of ``cli_child`` -> its report."""
     import deepemia_tpu_torch.inference.pipeline as pipeline_mod
 
     if os.environ.get("SMOKE_LOCAL_DEVICES"):
@@ -1927,14 +1961,55 @@ def cli_child(out_json: str, *argv: str) -> int:
     from deepemia_tpu_torch.kernels.roi_align import bwd_counter
 
     int8_conv.counter.launches = int8_quant.counter.launches = bwd_counter.launches = 0
-    with StageLog() as stage_log, CountedRoIAlign() as roi:
-        rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
-    with open(out_json, "w") as f:
-        json.dump({"rc": rc, "result": results[0] if results else None, "layout": layouts[0] if layouts else None,
-                   "steady": stage_log.steady(), "with_rois": roi.with_rois, "launches": roi.launches,
-                   "k2_launches": bwd_counter.launches, "k4_launches": int8_conv.counter.launches,
-                   "k5_launches": int8_quant.counter.launches}, f)
-    return 0
+    try:
+        with StageLog() as stage_log, CountedRoIAlign() as roi:
+            rc = run_cli(os.environ["DEEPEMIA_TPU_HOME"], *argv)
+    finally:
+        pipeline_mod.InferencePipeline.run = real_run
+    return {"rc": rc, "result": results[0] if results else None, "layout": layouts[0] if layouts else None,
+            "steady": stage_log.steady(), "with_rois": roi.with_rois, "launches": roi.launches,
+            "k2_launches": bwd_counter.launches, "k4_launches": int8_conv.counter.launches,
+            "k5_launches": int8_quant.counter.launches}
+
+
+# the files ``cli_home`` writes (or futures of them), by (image index, JPEG or not, the micrograph's SHA-1): phases
+# 12, 14 and 17 (a) write the same micrographs, and the LZW TIFF writer takes seconds at 2048²
+_CLI_FILES = {}
+
+
+def cli_file(i: int, img: np.ndarray, as_jpeg: bool) -> bytes:
+    """The file ``cli_home`` writes for micrograph ``i``: its scale bar
+    drawn, then gray JPEG (``jpeg_encode``) or the TIFF of CLI_ENCODINGS[i]
+    (64-row strips)."""
+    import tempfile
+
+    gray = draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2])
+    if as_jpeg:
+        return jpeg_encode(gray, JPEG_QUALITY, (1, 1))
+    _, comp, pred = CLI_ENCODINGS[i]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "f.tif")
+        write_tiff(path, gray, comp, pred, rows_per_strip=64)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def _cli_key(i: int, img: np.ndarray, as_jpeg: bool):
+    import hashlib
+
+    return i, as_jpeg, hashlib.sha1(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def prefetch_cli_files(pool, images, jpeg=()):
+    """``cli_file`` of each of ``images`` (JPEG where its index is in
+    ``jpeg``) started in ``pool``, for ``cli_home`` to take."""
+    for i, img in enumerate(images):
+        _CLI_FILES.setdefault(_cli_key(i, img, i in jpeg), pool.submit(cli_file, i, img, i in jpeg))
+
+
+def micrograph_index(name: str) -> int:
+    """The index of ``micrograph_<i>.<ext>`` (BARS, CLI_ENCODINGS)."""
+    return int(name.split("_", 1)[1].split(".", 1)[0])
 
 
 def cli_home(model, images, config_hook=None, name="cli", jpeg=()):
@@ -1963,19 +2038,23 @@ def cli_home(model, images, config_hook=None, name="cli", jpeg=()):
         json.dump({"smoke": [folder, folder, ["particle", "pore"]]}, f)
     assert default_config(home)["paths"]["local_dataset_root"] == home
     for i, img in enumerate(images):
-        gray = draw_scale_bar(img[..., 0], BARS[i][0], BARS[i][2])
-        if i in jpeg:
-            write_jpeg(os.path.join(folder, f"micrograph_{i}.jpg"), gray)
-            continue
-        _, comp, pred = CLI_ENCODINGS[i]
-        write_tiff(os.path.join(folder, f"micrograph_{i}.tif"), gray, comp, pred, rows_per_strip=64)
+        key = _cli_key(i, img, i in jpeg)
+        data = _CLI_FILES.get(key)
+        if data is None:
+            data = cli_file(i, img, i in jpeg)
+        elif not isinstance(data, bytes):  # prefetched
+            data = data.result()
+        _CLI_FILES[key] = data
+        with open(os.path.join(folder, f"micrograph_{i}.jpg" if i in jpeg else f"micrograph_{i}.tif"), "wb") as f:
+            f.write(data)
     return home, folder
 
 
 def cli_subprocess(home, argv, env=None):
     """``cli_child`` in a new process on the home ``home`` (``env`` added to
-    its environment) -> (its JSON report, wall seconds, the completed
-    process); raises if it failed."""
+    its environment) -> (its JSON report, or the list of them where
+    ``argv`` holds several invocations apart by "::", wall seconds, the
+    completed process); raises if it failed."""
     out_json = os.path.join(home, "child.json")
     env = {**os.environ, "DEEPEMIA_TPU_HOME": home, **(env or {})}
     t0 = time.perf_counter()
@@ -1990,7 +2069,7 @@ def cli_subprocess(home, argv, env=None):
     with open(out_json) as f:
         child = json.load(f)
     os.remove(out_json)
-    assert child["rc"] == 0, (child["rc"], proc.stderr[-4000:])
+    assert all(c["rc"] == 0 for c in (child if isinstance(child, list) else [child])), proc.stderr[-4000:]
     return child, wall, proc
 
 
@@ -2064,8 +2143,8 @@ def phase_cli(model, images, device="cuda", config_hook=None):
 
 def phase_device_measurements(model, images, device="cuda", config_hook=None):
     """Phase 12, in process: ``measurement_backend: device`` on phase 12's
-    images (every RoIAlign with RoIs launching K1); the device measurements
-    of the last image's instances on the card against the CPU (counts,
+    last image (every RoIAlign with RoIs launching K1); the device measurements
+    of its instances on the card against the CPU (counts,
     extents, perimeters and contrast equal, moments to 1e-5 relative); and
     one 256² image through the pipeline with the device backend on the card
     and on the CPU, compared as phase 9's reference is. -> K1 launches."""
@@ -2075,8 +2154,13 @@ def phase_device_measurements(model, images, device="cuda", config_hook=None):
     from deepemia_tpu_torch.inference.pipeline import InferencePipeline
     from deepemia_tpu_torch.ops.image import read_image
 
-    home = os.path.join(PIPELINE_DIR, "cli")
-    folder = os.path.join(home, "DATASET", "INFERENCE")
+    import shutil
+
+    source = os.path.join(PIPELINE_DIR, "cli", "DATASET", "INFERENCE")
+    folder = os.path.join(PIPELINE_DIR, "device_images")
+    os.makedirs(folder, exist_ok=True)
+    last_name = sorted(os.listdir(source))[-1]
+    shutil.copyfile(os.path.join(source, last_name), os.path.join(folder, last_name))
     cfg, split_dir, _, out = pipeline_home("device", model, [])
     if config_hook:
         config_hook(cfg)
@@ -2193,8 +2277,9 @@ DATASET_DIR = os.path.join(ROOT, "build", "chip_smoke_dataset")
 # wider than 96 px so every COCO area range has ground truth)
 DATASET_IMAGES = 10
 DATASET_HW = (768, 1024)
-TRAIN_STEPS = 24
+TRAIN_STEPS = 12
 TUNE_STEPS = 4
+HPO_TRIALS, HPO_STEPS = 2, 4
 
 
 def draw_labelled(rng, hw=DATASET_HW):
@@ -2453,7 +2538,7 @@ def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES
     at the whole-image pass's non-square levels); ``train --pretrained-weights
     <zoo.pkl>`` for TUNE_STEPS steps (81-class heads skipped and
     re-initialised, stem and res2 as loaded), and ``train --optimize
-    --n-trials 3 --max-iter 6 --hpo-strategy random`` (the winner in
+    --n-trials 2 --max-iter 4 --hpo-strategy random`` (the winner in
     config.yaml and the dataset YAML, no trial directory left).
     -> (K1 launches, K2 launches, K1 errors, K2 errors) of the phase."""
     import shutil
@@ -2583,8 +2668,8 @@ def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES
     shutil.rmtree(os.path.join(out_r50, "ckpts"))
     with TrainRun(device) as run, CountedRoIAlign() as roi:
         t0 = time.perf_counter()
-        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--optimize", "--n-trials", "3", "--max-iter", "6",
-                     "--hpo-strategy", "random", *flags)
+        rc = run_cli(home, "--task", "train", "--rcnn", "50", "--optimize", "--n-trials", str(HPO_TRIALS),
+                     "--max-iter", str(HPO_STEPS), "--hpo-strategy", "random", *flags)
         wall = time.perf_counter() - t0
     assert rc == 0, rc
     with open(os.path.join(home, "config", "config.yaml")) as f:
@@ -2594,7 +2679,8 @@ def phase_train_dataset(device="cuda", config_hook=None, n_images=DATASET_IMAGES
     assert best == ds_best and set(best) == {"base_lr", "ims_per_batch", "warmup_iters", "gamma",
                                              "batch_size_per_image"}, (best, ds_best)
     assert not [p for p in os.listdir(os.path.join(split_dir, "sem")) if p.startswith("hpo_")]
-    print(f"hpo: 3 random trials of 6 steps and the winner's run in {wall:.1f} s ({len(run.steps)} steps); "
+    print(f"hpo: {HPO_TRIALS} random trials of {HPO_STEPS} steps and the winner's run in {wall:.1f} s "
+          f"({len(run.steps)} steps); "
           f"winner {json.dumps(best)} in config.yaml and sem.yaml; trial directories removed", flush=True)
     k1, k2 = k1 + roi.launches, k2 + sum(st["k2"] for st in run.steps)
     if device == "cuda":
@@ -2841,13 +2927,40 @@ def write_jpeg(path: str, image: np.ndarray, quality: int = JPEG_QUALITY, sampli
         f.write(jpeg_encode(image, quality, sampling))
 
 
-def phase_jpeg_fixtures(size: int = 2048):
+def timed_jpeg(image: np.ndarray, quality: int, sampling) -> tuple:
+    """``jpeg_encode`` in a worker process -> (the file, its seconds)."""
+    t0 = time.perf_counter()
+    data = jpeg_encode(image, quality, sampling)
+    return data, time.perf_counter() - t0
+
+
+def host_pool(workers: int):
+    """Spawned worker processes for host file writers (numpy encoders)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    return ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def start_jpeg_encodes(pool, size: int = 2048):
+    """Phase 14's ``size``² micrograph as gray and as colour 4:4:4, 4:2:2
+    and 4:2:0 JPEG, encoded by ``timed_jpeg`` in ``pool``; ``main`` starts
+    them ahead of the phase. -> [(tag, image, future)]."""
+    gray = synthetic_micrograph(size, 7)[..., 0]
+    colour = np.stack([gray, np.clip(gray.astype(np.int16) + 25, 0, 255).astype(np.uint8), gray], -1)
+    forms = (("gray", gray, (1, 1)), ("4:4:4", colour, (1, 1)), ("4:2:2", colour, (2, 1)), ("4:2:0", colour, (2, 2)))
+    return [(tag, img, pool.submit(timed_jpeg, img, JPEG_QUALITY, sampling)) for tag, img, sampling in forms]
+
+
+def phase_jpeg_fixtures(size: int = 2048, encodes=None):
     """Phase 14: the committed JPEG fixtures (``python
     tools/make_torch_jpeg_fixtures.py``: OpenCV's and PIL's files beside
     the arrays ``cv2.imread`` returns) decode to those arrays bit for bit;
-    then a ``size``² micrograph written by ``jpeg_encode`` as gray and as
-    colour 4:4:4, 4:2:2 and 4:2:0 decodes within JPEG's own error, and the
-    host decode seconds of each."""
+    then a ``size``² micrograph written by ``jpeg_encode`` (the four forms
+    at once, in worker processes: ``encodes`` as ``start_jpeg_encodes``
+    started them, else started here) as gray and as colour 4:4:4, 4:2:2
+    and 4:2:0 decodes within JPEG's own error, and the host decode seconds
+    of each."""
     from deepemia_tpu_torch.ops.image import read_image
 
     os.makedirs(INT8_DIR, exist_ok=True)
@@ -2862,15 +2975,16 @@ def phase_jpeg_fixtures(size: int = 2048):
         assert got.shape == fixtures[name].shape and np.array_equal(got, fixtures[name]), name
     print(f"jpeg: {len(names)} committed fixtures ({', '.join(names)}) decode bit for bit to OpenCV's arrays",
           flush=True)
-    gray = synthetic_micrograph(size, 7)[..., 0]
-    colour = np.stack([gray, np.clip(gray.astype(np.int16) + 25, 0, 255).astype(np.uint8), gray], -1)
+    if encodes is None:
+        with host_pool(4) as pool:
+            encoded = [(tag, img, *job.result()) for tag, img, job in start_jpeg_encodes(pool, size)]
+    else:
+        encoded = [(tag, img, *job.result()) for tag, img, job in encodes]
     rows = {}
-    for tag, img, sampling in (("gray", gray, (1, 1)), ("4:4:4", colour, (1, 1)), ("4:2:2", colour, (2, 1)),
-                               ("4:2:0", colour, (2, 2))):
+    for tag, img, data, enc in encoded:
         path = os.path.join(INT8_DIR, f"decode_{tag.replace(':', '')}.jpg")
-        t0 = time.perf_counter()
-        write_jpeg(path, img, JPEG_QUALITY, sampling)
-        enc = time.perf_counter() - t0
+        with open(path, "wb") as f:
+            f.write(data)
         secs = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -3352,29 +3466,27 @@ def phase_int8_trunk_reference(sizes=((256, 256), (253, 259))):
 
 
 def phase_int8_cli(model, images):
-    """Phase 14: ``--task inference --quantized trunk`` through the CLI in
-    its own process (``cli_child``) on phase 9's three micrographs, the
-    first written as JPEG (``jpeg_encode``, gray, quality 95) and the others
-    as LZW TIFF; then ``--quantized full`` on the JPEG alone. Every image
-    processed, every bar read, one overlay per image, and K4 and K5
-    launched (their counts from zero in the child). -> the K4 and the K5
-    launches of both runs."""
+    """Phase 14: ``--task inference --quantized trunk``, then ``--quantized
+    full``, through the CLI in one process of their own (``cli_child``, the
+    two invocations in turn) on phase 9's first micrograph, written as JPEG
+    (``jpeg_encode``, gray, quality 95; phase 12 reads the TIFF forms). The
+    image processed, its bar read, one overlay, and K4 and K5 launched
+    (their counts from zero for each run). -> the K4 and the K5 launches of
+    both runs."""
     from deepemia_tpu_torch.ops.image import read_image
 
-    home, folder = cli_home(model, images, name="int8", jpeg=(0,))
+    home, folder = cli_home(model, images[:1], name="int8", jpeg=(0,))
     names = sorted(os.listdir(folder))
     assert names[0].endswith(".jpg"), names
     src = draw_scale_bar(images[0][..., 0], BARS[0][0], BARS[0][2])
     got = read_image(os.path.join(folder, names[0]))
     assert got.shape == images[0].shape and float(np.abs(got[..., 0].astype(np.int16) - src).mean()) < 2.0
     launches = k5_launches = 0
-    for mode, keep in (("trunk", names), ("full", names[:1])):
-        for name in names:
-            if name not in keep and os.path.exists(os.path.join(folder, name)):
-                os.rename(os.path.join(folder, name), os.path.join(home, name))
-        argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--no-download", "--no-upload",
-                "--quantized", mode, "--device", "cuda"]
-        child, wall, _ = cli_subprocess(home, argv)
+    argv = ["--task", "inference", "--dataset_name", "smoke", "--visualize", "--no-download", "--no-upload",
+            "--device", "cuda", "--quantized"]
+    children, wall, _ = cli_subprocess(home, argv + ["trunk", "::"] + argv + ["full"])
+    keep = names
+    for mode, child in zip(("trunk", "full"), children):
         res = child["result"]
         assert child["rc"] == 0 and res["processed"] == list(keep) and not res["failed"], res
         meas = read_csv(res["measurements_csv"])
@@ -3387,8 +3499,8 @@ def phase_int8_cli(model, images):
         print(f"int8 cli --quantized {mode}: {len(keep)} images ({', '.join(keep)}) processed, bars read, "
               f"int8_conv launches={child['k4_launches']}, int8_quant launches={child['k5_launches']}, "
               f"roi_align_fwd launches={child['launches']}; "
-              f"seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]}; the process took "
-              f"{wall:.1f} s", flush=True)
+              f"seconds_per_image first={secs[0]:.4f} steady={[round(x, 4) for x in secs[1:]]}; the process "
+              f"(both runs in turn) took {wall:.1f} s", flush=True)
         print(f"int8 cli --quantized {mode}: steady stage seconds per image {json.dumps(child['steady'])}", flush=True)
         launches += child["k4_launches"]
         k5_launches += child["k5_launches"]
@@ -3486,6 +3598,8 @@ ENTRY_ENCODINGS = (
     ("micrograph_1.png", "PNG stored transposed, eXIf Orientation 5", lambda p, g: write_gray_png(p, g, 5)),
     ("micrograph_2.bmp", "RLE8 BMP", write_rle8_bmp),
 )
+# the one of them the panel's and the wizard's tasks read (their rows held to phase 12's for micrograph_1.tif)
+ENTRY_TASK_IMAGE = "micrograph_1.png"
 
 
 def phase_image_fixtures():
@@ -3637,16 +3751,16 @@ def phase_panel(home, names, cli_rows):
                 os.environ[k] = v
         config_mod._default_store = None
     meas, rle = csvs["measurements_results.csv"], csvs["R50_flip_results.csv"][1:]
-    for i, name in enumerate(names):
-        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[i][0].split()[0]}, name
+    for name in names:
+        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[micrograph_index(name)][0].split()[0]}, name
     print(f"panel: /run with a wrong password -> 403; --task inference --visualize --no-download: exit 0 after "
           f"{wall:.1f} s ({polls} /status polls), device '{device}', kernel launches {json.dumps(launches)}; "
           f"/files {len(files)} files, /download of both CSVs, /zip {len(zipped)} entries; "
           f"seconds_per_image first={secs[0]:.2f} steady={secs[1:]}", flush=True)
     cli_rle, cli_meas = cli_rows
     totals = dict(inst=0, n=0, rows=0, m=0)
-    for i, name in enumerate(names):
-        cli_name = f"micrograph_{i}.tif"
+    for name in names:
+        cli_name = f"micrograph_{micrograph_index(name)}.tif"
         a = csv_agreement(*rows_by_image(rle, meas[1:], name), *rows_by_image(cli_rle, cli_meas, cli_name))
         print(f"panel vs phase 12 CLI, {name} vs {cli_name}: " + json.dumps(a), flush=True)
         assert min(a["n_card"], a["n_cpu"]) > 0, a
@@ -3690,8 +3804,8 @@ def phase_wizard(home, names):
     assert any(f"All {len(names)} images processed" in ln for ln in lines), "the wizard's task skipped an image"
     assert launches["int8_conv"] > 0 and launches["int8_quant"] > 0 and launches["roi_align_fwd"] > 0, launches
     meas = read_csv(os.path.join(out_dir, "measurements_results.csv"))
-    for i, name in enumerate(names):
-        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[i][0].split()[0]}, name
+    for name in names:
+        assert {r[-2] for r in meas[1:] if r[-1] == name} == {BARS[micrograph_index(name)][0].split()[0]}, name
     print(f"wizard: {running[0][len('Running: '):]}: exit 0, the wizard's process took {wall:.1f} s, device "
           f"'{device}', {len(names)} images processed, bars read, kernel launches {json.dumps(launches)}; "
           f"seconds_per_image first={secs[0]:.2f} steady={secs[1:]}", flush=True)
@@ -3701,14 +3815,20 @@ def phase_wizard(home, names):
 def phase_entry_points(model, images, cli_rows, config_hook=None):
     """Phase 15: the committed encoding fixtures; phase 9's micrographs as
     a palette TIFF, a transposed PNG with its eXIf orientation and an RLE8
-    BMP, decoded bit for bit; inference started from the web panel, its
-    rows held to phase 12's, and from the wizard with ``--quantized trunk``.
+    BMP, decoded bit for bit; inference on the transposed PNG
+    (ENTRY_TASK_IMAGE) started from the web panel, its rows held to phase
+    12's, and from the wizard with ``--quantized trunk``.
     ``config_hook`` edits the home's config.yaml, as phase 12's does. ->
     (K1, K4, K5 launches of both tasks)."""
     phase_image_fixtures()
     home, folder = entry_home(model, images, config_hook)
     names = sorted(os.listdir(folder))
     assert names == [n for n, _, _ in ENTRY_ENCODINGS], names
+    # the tasks read one of them: the transposed PNG, which must reach inference turned back
+    for name in names:
+        if name != ENTRY_TASK_IMAGE:
+            os.remove(os.path.join(folder, name))
+    names = [ENTRY_TASK_IMAGE]
     k1 = phase_panel(home, names, cli_rows)
     w1, k4, k5 = phase_wizard(home, names)
     return k1 + w1, k4, k5
@@ -4056,8 +4176,9 @@ def phase_rank_inference(model, images, phase12, card):
     which ``$SMOKE_LOCAL_DEVICES`` shows each rank as its GPU), on phase
     12's three micrographs, home and config, each rank on a home of its
     own: bf16, held to phase 12's one-process rows (``phase12``: its K1
-    launches and rows); then ``--quantized trunk`` in an NCCL group of
-    world size 1 (one process: exit 0) and in the two ranks, held to it.
+    launches and rows); then, on the first micrograph alone, ``--quantized
+    trunk`` in an NCCL group of world size 1 (one process: exit 0) and in
+    the two ranks, held to it.
     Rank 1 writes no result; each kernel's per-rank launches add up to the
     one-process run's. -> (K1, K4, K5 launches of the five processes)."""
     import shutil
@@ -4071,21 +4192,9 @@ def phase_rank_inference(model, images, phase12, card):
 
     one = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0", "WORLD_SIZE": "1",
            "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1"}
-    single, wall1, proc = cli_subprocess(homes[0], argv + ["--quantized", "trunk"], one)
-    started = [ln for ln in proc.stderr.splitlines() if "torch.distributed started" in ln]
-    assert started and "rank 0 of 1 (nccl)" in started[0], proc.stderr[-3000:]
-    print(f"rank inference: --task inference --quantized trunk in an NCCL process group of world size 1: exit 0, "
-          f"'{started[0].split(': ', 1)[-1]}', launches roi_align_fwd={single['launches']} "
-          f"int8_conv={single['k4_launches']} int8_quant={single['k5_launches']}; the process took {wall1:.1f} s "
-          f"({card})", flush=True)
-    res1 = single["result"]
-    quant_ref = (read_csv(res1["rle_csv"])[1:], read_csv(res1["measurements_csv"])[1:])
-    shutil.rmtree(res1["output_dir"])
-    launches = {"k1": single["launches"], "k4": single["k4_launches"], "k5": single["k5_launches"]}
-    for label, extra, (ref_k1, ref_rows), ref_k45 in (
-            ("bf16", [], phase12, (0, 0)),
-            ("--quantized trunk", ["--quantized", "trunk"], (single["launches"], quant_ref),
-             (single["k4_launches"], single["k5_launches"]))):
+    launches = {"k1": 0, "k4": 0, "k5": 0}
+
+    def two_ranks(label, extra, ref_k1, ref_rows, ref_k45):
         reports, wall, logs = cli_ranks(homes, argv + extra, two)
         started = [next(ln for ln in lg.splitlines() if "torch.distributed started" in ln) for lg in logs]
         assert all(f"rank {r} of 2 (gloo)" in ln for r, ln in enumerate(started)), started
@@ -4104,17 +4213,38 @@ def phase_rank_inference(model, images, phase12, card):
         per_rank = [(rep["launches"], rep["k4_launches"], rep["k5_launches"]) for rep in reports]
         sums = tuple(map(sum, zip(*per_rank)))
         secs = [rep["result"]["seconds_per_image"] for rep in reports]
-        print(f"rank inference, {label}: two ranks (gloo, {TWO_ON_ONE}), 3 images 2048²: rows identical to the "
-              f"one-process run's={same}; launches per rank (roi_align_fwd, int8_conv, int8_quant) {per_rank}, "
-              f"sums {sums}, one process ({ref_k1}, {ref_k45[0]}, {ref_k45[1]}); rank 1 wrote nothing; seconds per "
-              f"image rank 0 {[round(x, 4) for x in secs[0]]} rank 1 {[round(x, 4) for x in secs[1]]}; the ranks "
-              f"took {wall:.1f} s ({card})", flush=True)
+        print(f"rank inference, {label}: two ranks (gloo, {TWO_ON_ONE}), {len(names)} images 2048²: rows identical "
+              f"to the one-process run's={same}; launches per rank (roi_align_fwd, int8_conv, int8_quant) "
+              f"{per_rank}, sums {sums}, one process ({ref_k1}, {ref_k45[0]}, {ref_k45[1]}); rank 1 wrote nothing; "
+              f"seconds per image rank 0 {[round(x, 4) for x in secs[0]]} rank 1 {[round(x, 4) for x in secs[1]]}; "
+              f"the ranks took {wall:.1f} s ({card})", flush=True)
         assert sums == (ref_k1, *ref_k45), (sums, ref_k1, ref_k45)
         assert all(rep["launches"] == rep["with_rois"] for rep in reports), \
             "a multilevel RoIAlign of a rank did not launch K1"
         for key, i in (("k1", 0), ("k4", 1), ("k5", 2)):
             launches[key] += sums[i]
         shutil.rmtree(res["output_dir"])
+
+    two_ranks("bf16", [], *phase12, (0, 0))
+    # the int8 runs on the first micrograph alone
+    for home in homes:
+        folder = os.path.join(home, "DATASET", "INFERENCE")
+        for name in sorted(os.listdir(folder))[1:]:
+            os.remove(os.path.join(folder, name))
+    single, wall1, proc = cli_subprocess(homes[0], argv + ["--quantized", "trunk"], one)
+    started = [ln for ln in proc.stderr.splitlines() if "torch.distributed started" in ln]
+    assert started and "rank 0 of 1 (nccl)" in started[0], proc.stderr[-3000:]
+    print(f"rank inference: --task inference --quantized trunk in an NCCL process group of world size 1 on "
+          f"micrograph_0.tif: exit 0, '{started[0].split(': ', 1)[-1]}', launches roi_align_fwd={single['launches']} "
+          f"int8_conv={single['k4_launches']} int8_quant={single['k5_launches']}; the process took {wall1:.1f} s "
+          f"({card})", flush=True)
+    res1 = single["result"]
+    quant_ref = (read_csv(res1["rle_csv"])[1:], read_csv(res1["measurements_csv"])[1:])
+    shutil.rmtree(res1["output_dir"])
+    for key, got in (("k1", "launches"), ("k4", "k4_launches"), ("k5", "k5_launches")):
+        launches[key] += single[got]
+    two_ranks("--quantized trunk", ["--quantized", "trunk"], single["launches"], quant_ref,
+              (single["k4_launches"], single["k5_launches"]))
     print(f"phase 17 (a): {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches["k1"], launches["k4"], launches["k5"]
 
@@ -4318,9 +4448,7 @@ def phase_codings(model, images, phase12, card, size=2048):
     as BigTIFF LZW tiles, FillOrder 2 LZW strips and a FillOrder 2 PackBits
     BigTIFF: its rows in both CSVs byte-equal to phase 12's, as many K1
     launches, the device line naming the card. -> the run's K1 launches."""
-    import multiprocessing
     import shutil
-    from concurrent.futures import ProcessPoolExecutor
 
     from deepemia_tpu_torch.ops.image import read_image
 
@@ -4330,7 +4458,8 @@ def phase_codings(model, images, phase12, card, size=2048):
     colour = np.stack([gray, np.clip(gray.astype(np.int16) + 25, 0, 255).astype(np.uint8), gray], -1)
     bits = (gray < 128).astype(np.uint8)  # the particles
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=6, mp_context=multiprocessing.get_context("spawn")) as pool:
+    workers = min(8, os.cpu_count() or 1)
+    with host_pool(workers) as pool:
         jobs = {}
         for tag, img, sampling in (("gray", gray, (1, 1)), ("4:2:0", colour, (2, 2))):
             for coding in ("arith-progressive", "arith", "huffman"):
@@ -4356,7 +4485,7 @@ def phase_codings(model, images, phase12, card, size=2048):
               flush=True)
         files = {k: j.result() for k, j in jobs.items()}
     print(f"codings: {len(files)} jobs of {size}x{size} files written by the numpy writers in "
-          f"{time.perf_counter() - t0:.1f} s (6 worker processes, host)", flush=True)
+          f"{time.perf_counter() - t0:.1f} s ({workers} worker processes, host)", flush=True)
 
     def write(name, data):
         path = os.path.join(CODINGS_DIR, name)
@@ -4485,8 +4614,11 @@ AVIF_LOSSY_DIR = os.path.join(ROOT, "build", "chip_smoke_avif_lossy")
 # gray12-90 deblocked, the last three deblocked and filtered with CDEF (their files in AVIF_CDEF_FIXTURES)
 AVIF_LOSSY_FORMS = {"bgr95": 14, "gray95": 12, "bgr10-99": 14, "bgr12-99": 14, "writer420": 0, "bgr85": 22,
                     "bgr10-90": 8, "gray12-90": 8, "bgr-default": 104, "bgr10-75": 32, "gray12-default": 56}
-# cv2's frame with loop restoration (speed 4), which phases 21 and 22 refuse by name
-AVIF_RESTORATION = "refused-restoration-bgr8-128x128"
+AVIF_RESTORATION_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_restoration_fixtures.npz")
+# phase 22's loop restoration frames (``smoke-<form>`` in AVIF_RESTORATION_FIXTURES: the labelled frame with
+# ``avif_textured``'s texture, as cv2 writes it) -> how far each may lie from the textured drawing; the first four
+# join the dataset, the last (CDEF, then restoration) is read in (b)
+AVIF_RESTORATION_FORMS = {"lr-bgr8": 14, "lr-bgr10": 10, "lr-gray8": 14, "lr-gray10": 14, "lr-cdef-gray8": 12}
 AVIF_LOSSY_SEED = 22
 
 
@@ -4495,6 +4627,23 @@ def avif_flatten(gray: np.ndarray) -> np.ndarray:
     instances, drawn at 160-230, kept): lossless AVIF of the noisy
     background would hold ~0.55 MB a frame."""
     return np.where(gray >= 150, gray, 80).astype(np.uint8)
+
+
+def avif_textured(flat: np.ndarray, strength: int, seed: int = AVIF_LOSSY_SEED) -> np.ndarray:
+    """``flat`` (an ``avif_flatten`` frame) with a texture added: uniform
+    noise blurred by nine passes of the binomial [1, 4, 6, 4, 1] / 16 each
+    way (integer arithmetic, edges held), its deviation from 128 times
+    ``strength`` / 8. On such content libaom's encoder at speed 4 applies
+    loop restoration (on the flat frame it takes screen content tools)."""
+    t = np.random.default_rng(seed).integers(0, 256, flat.shape).astype(np.int64)
+    h, w = t.shape
+    for _ in range(9):
+        p = np.pad(t, ((2, 2), (0, 0)), mode="edge")
+        t = (p[:h] + 4 * p[1 : h + 1] + 6 * p[2 : h + 2] + 4 * p[3 : h + 3] + p[4 : h + 4] + 8) >> 4
+    for _ in range(9):
+        p = np.pad(t, ((0, 0), (2, 2)), mode="edge")
+        t = (p[:, :w] + 4 * p[:, 1 : w + 1] + 6 * p[:, 2 : w + 2] + 4 * p[:, 3 : w + 3] + p[:, 4 : w + 4] + 8) >> 4
+    return np.clip(flat.astype(np.int64) + ((t - 128) * strength >> 3), 0, 255).astype(np.uint8)
 
 
 def container_file(kind: str, gray: np.ndarray):
@@ -4970,10 +5119,10 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     uncompressed TIFF of the same pixels; (c) the AVIF_FORMS dataset
     through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
     errors, K2 errors). (d) A lossy 4:2:0 AVIF that applies CDEF (cv2's at
-    quality 75) decodes to cv2's array; cv2's speed-4 frame with loop
-    restoration raises ``UnsupportedImageError`` naming it from
-    ``read_image``, outside the dataset, since the loader would raise on
-    it."""
+    quality 75) and cv2's speed-4 frame with loop restoration decode to
+    cv2's arrays; the AV1 writer's frame with delta loop filter levels
+    raises ``UnsupportedImageError`` naming them from ``read_image``,
+    outside the dataset, since the loader would raise on it."""
     import hashlib
     import shutil
 
@@ -5044,13 +5193,21 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
           f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
           f"{card})", flush=True)
 
-    # (d) the lossy form that applies CDEF, read; one with loop restoration, refused by name outside the dataset
+    # (d) the lossy forms that apply CDEF and loop restoration, read; delta LF, refused by name outside the dataset
     path = os.path.join(AVIF_DIR, "lossy.avif")
     with open(path, "wb") as f:
         f.write(fixtures["refused-lossy-420/file"].tobytes())
     assert np.array_equal(read_image(path), fixtures["refused-lossy-420/bgr"])
     print("avif: lossy 4:2:0 (cv2 at quality 75, deblocked and CDEF) decoded bit for bit to cv2's array", flush=True)
-    refuse_restoration("avif", os.path.join(AVIF_DIR, "restoration.avif"))
+    cdef_fixtures = np.load(AVIF_CDEF_FIXTURES)
+    path = os.path.join(AVIF_DIR, "restoration.avif")
+    with open(path, "wb") as f:
+        f.write(cdef_fixtures["refused-restoration-bgr8-128x128/file"].tobytes())
+    got = read_image(path)
+    assert hashlib.sha256(got.tobytes()).hexdigest() == \
+        cdef_fixtures["refused-restoration-bgr8-128x128/sha256"].tobytes().decode()
+    print("avif: cv2's frame at speed 4 (loop restoration) decoded to the SHA-256 of cv2's array", flush=True)
+    refuse_delta_lf("avif", path)
 
     # (c) the dataset through the CLI
     home = os.path.join(AVIF_DIR, "home")
@@ -5066,19 +5223,46 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     return k1, k2, k1_errs, k2_errs
 
 
-def refuse_restoration(tag: str, path: str) -> None:
-    """cv2's committed speed-4 frame with loop restoration raises
-    ``UnsupportedImageError`` naming it (phases 21 (d), 22 (b))."""
+def refuse_delta_lf(tag: str, path: str) -> None:
+    """The AV1 writer's committed frame with delta loop filter levels (each
+    superblock's deltas 0), which cv2 reads, raises
+    ``UnsupportedImageError`` naming them (phases 21 (d), 22 (b))."""
     from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 
     with open(path, "wb") as f:
-        f.write(np.load(AVIF_CDEF_FIXTURES)[f"{AVIF_RESTORATION}/file"].tobytes())
+        f.write(np.load(AVIF_CDEF_FIXTURES)["refused-delta-lf-420-8/file"].tobytes())
     try:
         read_image(path)
-        raise AssertionError("read_image decoded an AVIF that applies loop restoration")
+        raise AssertionError("read_image decoded an AVIF with delta loop filter levels")
     except UnsupportedImageError as e:
-        assert "AV1 loop restoration" in str(e), e
-        print(f"{tag}: cv2's frame at speed 4 (loop restoration): {str(e).split(': ', 1)[1]}", flush=True)
+        assert "AV1 delta loop filter levels" in str(e), e
+        print(f"{tag}: the writer's frame with delta LF: {str(e).split(': ', 1)[1]}", flush=True)
+
+
+def read_restoration_fixtures(tag: str, path: str) -> None:
+    """The committed loop restoration fixtures but the 2048² raster (cv2's
+    frames at speeds 0-4, the AV1 writer's, phase 22's textured frames)
+    decode to cv2's arrays or their SHA-256 (phase 22 (b))."""
+    import hashlib
+
+    from deepemia_tpu_torch.ops.image import read_image
+
+    fixtures = np.load(AVIF_RESTORATION_FIXTURES)
+    names = sorted({k.split("/")[0] for k in fixtures.files} - {"smoke-2048-speed4"})
+    kinds = {"array": 0, "sha256": 0}
+    for name in names:
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        got = read_image(path)
+        if f"{name}/bgr" in fixtures.files:
+            assert np.array_equal(got, fixtures[f"{name}/bgr"]), name
+            kinds["array"] += 1
+        else:
+            assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+            kinds["sha256"] += 1
+    os.remove(path)
+    print(f"{tag}: {len(names)} committed loop restoration fixtures as OpenCV read them: {kinds['array']} bit for "
+          f"bit to its arrays, {kinds['sha256']} to its SHA-256", flush=True)
 
 
 def avif_only():
@@ -5102,31 +5286,40 @@ def avif_only():
         shutil.rmtree(AVIF_DIR, ignore_errors=True)
 
 
+def avif_lossy_forms() -> dict:
+    """Phase 22's dataset forms -> their tolerances: AVIF_LOSSY_FORMS, then
+    the loop restoration forms but the last of AVIF_RESTORATION_FORMS."""
+    return {**AVIF_LOSSY_FORMS, **dict(list(AVIF_RESTORATION_FORMS.items())[:-1])}
+
+
 def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOSSY_SEED):
     """Phase 22's dataset: the labelled micrograph ``draw_labelled`` makes
-    from ``seed`` in each AVIF_LOSSY_FORMS form in ``root``, each the
+    from ``seed`` in each ``avif_lossy_forms`` form in ``root``, each the
     fixtures' committed file (its decode held to the SHA-256 of cv2's array,
-    and to the drawing with its background flattened), and in ``twin`` the
+    and to the drawing with its background flattened, the restoration
+    forms' with ``avif_textured``'s texture added), and in ``twin`` the
     same labels beside uncompressed RGB TIFFs of the arrays ``read_image``
     decodes -> the file names."""
     import hashlib
 
     from deepemia_tpu_torch.ops.image import read_image
 
-    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES)}
+    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES)}
     gray, instances = draw_labelled(np.random.default_rng(seed), hw)
-    flat = avif_flatten(gray).astype(np.int16)
+    flat = avif_flatten(gray)
     for d in (root, twin):
         os.makedirs(d, exist_ok=True)
     names = []
-    for i, (form, tol) in enumerate(AVIF_LOSSY_FORMS.items()):
+    for i, (form, tol) in enumerate(avif_lossy_forms().items()):
         name = f"sem_{i:02d}.avif"
         path = os.path.join(root, name)
         with open(path, "wb") as f:
             f.write(fixtures[f"smoke-{form}/file"].tobytes())
         img = read_image(path)
         assert hashlib.sha256(img.tobytes()).hexdigest() == fixtures[f"smoke-{form}/sha256"].tobytes().decode(), form
-        err = np.abs(img[..., 1].astype(np.int16) - flat - (12 if form.startswith("bgr") else 0))
+        drawn = flat if f"smoke-{form}/strength" not in fixtures else \
+            avif_textured(flat, int(fixtures[f"smoke-{form}/strength"][0]))
+        err = np.abs(img[..., 1].astype(np.int16) - drawn - (12 if "bgr" in form else 0))
         assert err.max() <= tol, (form, int(err.max()))
         with open(os.path.join(twin, f"sem_{i:02d}.tif"), "wb") as f:
             f.write(codings.tiff_of(np.ascontiguousarray(img[..., ::-1])))
@@ -5138,18 +5331,22 @@ def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOS
 
 
 def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
-    """Phase 22: lossy and subsampled AVIF. (a) the AVIF_LOSSY_FORMS
+    """Phase 22: lossy and subsampled AVIF. (a) the ``avif_lossy_forms``
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
     cv2's array and near the drawing; three of them deblocked, three more
-    deblocked and filtered with CDEF); (b) cv2's quality-75 frame, which
-    deblocks and applies CDEF, to the SHA-256 of cv2's array, and cv2's
-    speed-4 frame with loop restoration raises ``UnsupportedImageError``
-    naming it; (c) the committed 2048² BGR micrograph at quality 95, at 85
-    (deblocked) and at cv2's default quality (deblocked, CDEF): host decode
-    seconds (median of 3) beside an uncompressed TIFF of the same pixels,
-    with the card's name and power limit; (d) the dataset through the CLI
-    (``cli_on_dataset``) -> (K1 launches, K2 launches, K1 errors, K2
-    errors)."""
+    deblocked and filtered with CDEF, four with loop restoration); (b)
+    cv2's quality-75 frame, which deblocks and applies CDEF, and the
+    textured gray frame with CDEF then loop restoration, to the SHA-256 of
+    cv2's arrays, the committed restoration fixtures to cv2's arrays
+    (``read_restoration_fixtures``), and the AV1 writer's frame with delta
+    loop filter levels raises ``UnsupportedImageError`` naming them; (c)
+    the committed 2048² BGR micrograph at quality 95, at 85 (deblocked)
+    and at cv2's default quality (deblocked, CDEF), and blurred noise at
+    speed 4 (self-guided restoration in every plane): host decode seconds
+    (median of 3) beside an uncompressed TIFF of the same pixels, each as a
+    multiple of quality 95's, with the card's name and power limit; (d) the
+    dataset through the CLI (``cli_on_dataset``) -> (K1 launches, K2
+    launches, K1 errors, K2 errors)."""
     import hashlib
     import shutil
 
@@ -5157,29 +5354,35 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
 
     shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
     os.makedirs(AVIF_LOSSY_DIR)
-    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES)}
+    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES)}
     home = os.path.join(AVIF_LOSSY_DIR, "home")
     root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
     t0 = time.perf_counter()
     files = avif_lossy_dataset(root, twin)
     print(f"avif lossy: {len(files)} labelled {DATASET_HW[1]}x{DATASET_HW[0]} micrographs in the forms "
-          f"{', '.join(AVIF_LOSSY_FORMS)} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
+          f"{', '.join(avif_lossy_forms())} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
           f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (b) a frame that deblocks and applies CDEF, read; one with loop restoration, refused by name
-    path = os.path.join(AVIF_LOSSY_DIR, "q75.avif")
-    with open(path, "wb") as f:
-        f.write(fixtures["smoke-q75/file"].tobytes())
-    got = read_image(path)
-    assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures["smoke-q75/sha256"].tobytes().decode()
-    print("avif lossy: the same frame at quality 75 (deblocked and CDEF) decoded to the SHA-256 of cv2's array",
-          flush=True)
-    refuse_restoration("avif lossy", os.path.join(AVIF_LOSSY_DIR, "restoration.avif"))
+    # (b) frames that deblock and apply CDEF, and CDEF then loop restoration, read; the restoration fixtures, read;
+    # delta LF, refused by name
+    for name, what in (("smoke-q75", "quality 75, deblocked and CDEF"),
+                       ("smoke-lr-cdef-gray8", "textured, 8-bit gray, CDEF then self-guided restoration")):
+        path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
+        with open(path, "wb") as f:
+            f.write(fixtures[f"{name}/file"].tobytes())
+        got = read_image(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
+        print(f"avif lossy: the same frame ({what}) decoded to the SHA-256 of cv2's array", flush=True)
+    read_restoration_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "lr.avif"))
+    refuse_delta_lf("avif lossy", os.path.join(AVIF_LOSSY_DIR, "delta-lf.avif"))
 
-    # (c) decode seconds at 2048²: quality 95, 85 (deblocked) and cv2's default (deblocked, CDEF)
+    # (c) decode seconds at 2048²: quality 95, 85 (deblocked), cv2's default (deblocked, CDEF) and speed 4 (restoration)
     q95 = None
-    for q, what in ((95, "no in-loop filter"), (85, "deblocked"), ("default", "deblocked and CDEF")):
-        name = f"smoke-2048-q{q}" if q != "default" else "smoke-2048-default"
+    for name, what in (("smoke-2048-q95", "micrograph at quality 95, no in-loop filter"),
+                       ("smoke-2048-q85", "micrograph at quality 85, deblocked"),
+                       ("smoke-2048-default", "micrograph at the default quality, deblocked and CDEF"),
+                       ("smoke-2048-speed4", "blurred noise at speed 4, quality 75, self-guided restoration in "
+                        "every plane")):
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
         with open(path, "wb") as f:
             f.write(fixtures[f"{name}/file"].tobytes())
@@ -5190,8 +5393,8 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
             f.write(codings.tiff_of(np.ascontiguousarray(got[..., ::-1])))
         _, plain_s = decode_seconds(tiff_path)
         q95 = q95 or secs
-        print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0 "
-              f"quality {q}, {what}, cv2's libavif/libaom writer): {secs:.4f} s ({secs / q95:.2f}x quality 95's) "
+        print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0, "
+              f"{what}, cv2's libavif/libaom writer): {secs:.4f} s ({secs / q95:.2f}x quality 95's) "
               f"beside uncompressed RGB TIFF {plain_s:.4f} s (median of 3, host; {card})", flush=True)
 
     # (d) the dataset through the CLI
@@ -5336,6 +5539,12 @@ def main() -> int:
         laps.append(time.perf_counter())
         print(f"phases {phases}: {laps[-1] - laps[-2]:.1f} s", flush=True)
 
+    parts = [t_start]
+
+    def part(what):  # the seconds since the last lap or part, within a phase
+        parts.append(time.perf_counter())
+        print(f"part {what}: {parts[-1] - max(parts[-2], laps[-1]):.1f} s", flush=True)
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
@@ -5368,23 +5577,35 @@ def main() -> int:
 
     import shutil
 
+    writers = []  # host file writers started ahead of their phase (spawned pools), stopped in any case
     try:
         pipeline_launches, pipeline_errs = phase_pipeline(model, images)
+        part("9, the pipeline")
         phase_pipeline_reference(model)
+        part("9, the 256² references")
         lap(9)
+        # phases 12 and 14's files, written while phases 11 and 12 run
+        writers.append(host_pool(4))
+        prefetch_cli_files(writers[-1], images)
+        prefetch_cli_files(writers[-1], images[:1], jpeg=(0,))
         with torch.inference_mode():
+            jpeg_encodes = start_jpeg_encodes(writers[-1])
             ensemble_launches, ensemble_errs, ensemble_rows = phase_ensemble(model, images)
         lap(11)
         cli_launches, cli_rows = phase_cli(model, images)
         phase12 = (cli_launches, cli_rows)
+        part("12, the CLI")
         with torch.inference_mode():
             cli_launches += phase_device_measurements(model, images)
+            part("12, the device measurements")
             cli_launches += phase_windowed_rle(model)
         lap(12)
         with torch.inference_mode():
-            phase_jpeg_fixtures()
+            phase_jpeg_fixtures(encodes=jpeg_encodes)
+            part("14, JPEG")
             int8_rows, int8_err, int8_sums, int8_times, quant_rows, quant_err, quant_sums, trunk_split = \
                 phase_int8_conv(images)
+            part("14, K4 and K5")
             phase_int8_trunk_reference()
         int8_launches, quant_launches = phase_int8_cli(model, images)
         lap(14)
@@ -5399,6 +5620,8 @@ def main() -> int:
         codings_k1 = phase_codings(model, images, phase12, card)
         lap(18)
     finally:
+        for pool in writers:
+            pool.shutdown(cancel_futures=True)
         shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
         shutil.rmtree(INT8_DIR, ignore_errors=True)
     try:
@@ -5517,9 +5740,10 @@ def main() -> int:
         "route": "cuda",
         "source": "deepemia_tpu_torch/kernels/csrc/int8_conv.cu",
         "replaces": "deepemia_tpu/models/quant.py:105",
-        # phase 14's CLI runs, --quantized trunk (3 images) and full (1 image), counted from zero in the CLI's
-        # process, phase 15's wizard task (--quantized trunk, 3 images), as its CLI logged them, phase 16's
-        # two-shard int8 engine (one image) and phase 17's --quantized trunk runs (two ranks, an NCCL group of one)
+        # phase 14's CLI runs, --quantized trunk and full (1 image each), counted from zero in the CLI's
+        # process, phase 15's wizard task (--quantized trunk, 1 image), as its CLI logged them, phase 16's
+        # two-shard int8 engine (one image) and phase 17's --quantized trunk runs (two ranks, an NCCL group of one;
+        # 1 image each)
         "launches": int8_launches + entry_k4 + shard_k4 + rank_k4,
         "max_abs_err": int8_err,
         # one R50 trunk forward (its 53 convs) of a 16-tile batch of 1024² inputs, bf16: each distinct shape's

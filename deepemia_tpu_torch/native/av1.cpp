@@ -12,11 +12,12 @@
 // ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
 // prediction at every transform size (DC, V, H, the directional modes with
 // the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
-// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, the
-// deblocking loop filter (7.14) and CDEF (7.15). Loop restoration and delta
-// loop filter levels are not applied: a frame that turns either on is
-// refused with the tool's number (kTool*), as is a stream that uses any
-// other tool this decoder lacks; none is decoded wrong.
+// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and the
+// three in-loop filters: deblocking (7.14), CDEF (7.15) and loop restoration
+// (7.17: Wiener and self-guided units, switchable or not). Delta loop filter
+// levels are not applied: a frame that turns them on is refused with the
+// tool's number (kTool*), as is a stream that uses any other tool this
+// decoder lacks; none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
@@ -233,6 +234,7 @@ static const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADS
 static const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 static const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
 enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { kRestoreNone, kRestoreWiener, kRestoreSgrproj, kRestoreSwitchable };  // the specification's FrameRestorationType
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 static const int kSigRefDiffOffset[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
                                               {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
@@ -574,7 +576,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 enum Tool {
   kToolSegmentation = 3, kToolScreenContent = 4,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
-  kToolShowExisting = 10, kToolDeltaLf = 11, kToolRestoration = 12
+  kToolShowExisting = 10, kToolDeltaLf = 11
 };
 
 namespace {
@@ -763,6 +765,7 @@ struct Cdfs {
   uint16_t txb_skip[5][13][3], eob16[2][2][6], eob32[2][2][7], eob64[2][2][8], eob128[2][2][9], eob256[2][2][10];
   uint16_t eob512[2][11], eob1024[2][12], eob_extra[5][2][9][3], base_eob[5][2][4][4], base[5][2][42][5];
   uint16_t br[5][2][21][5], dc_sign[2][3][3];
+  uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
   void reset(int qctx) {
     using namespace av1t;
     std::memcpy(partition8, kPartition8, sizeof partition8);
@@ -801,6 +804,9 @@ struct Cdfs {
     std::memcpy(base, kCoeffBaseCdf[qctx], sizeof base);
     std::memcpy(br, kCoeffBrCdf[qctx], sizeof br);
     std::memcpy(dc_sign, kDcSignCdf[qctx], sizeof dc_sign);
+    std::memcpy(restoration_type, kSwitchableRestoreCdf, sizeof restoration_type);
+    std::memcpy(use_wiener, kWienerRestoreCdf, sizeof use_wiener);
+    std::memcpy(use_sgrproj, kSgrprojRestoreCdf, sizeof use_sgrproj);
   }
 };
 
@@ -824,6 +830,8 @@ struct Decoder {
   // loop_filter_params: the levels (Y vertical edges, Y horizontal, U, V), sharpness, the deltas
   int lf_level[4] = {0, 0, 0, 0}, lf_sharpness = 0, lf_delta_enabled = 0;
   int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
+  // lr_params: per plane, the frame's restoration type (kRestore*), its unit size and the units in a row and column
+  int lr_type[3] = {0, 0, 0}, lr_unit_size[3] = {256, 256, 256}, lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
   bool seen_frame_header = false, decoded = false;
   int next_tile = 0;
   Cdfs frame_cdfs, cdf;
@@ -833,6 +841,16 @@ struct Decoder {
   // per 4x4 unit of the frame
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
   std::vector<int8_t> cdef_idx;  // per 64x64
+  // per plane: each restoration unit's type and coefficients (row-major), the references the next unit's are
+  // coded against, the deblocked planes (kept through CDEF for the rows around each restoration stripe)
+  struct LrUnit {
+    uint8_t type, set;
+    int8_t wiener[2][3];  // the vertical, then the horizontal filter's outer three taps
+    int16_t xqd[2];
+  };
+  std::vector<LrUnit> lr_units[3];
+  int ref_wiener[3][2][3], ref_sgr[3][2];
+  std::vector<uint16_t> pre_cdef[3];
   // coefficient contexts, per plane
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3], left_dc[3];
   uint8_t block_decoded_[3][34][34];
@@ -1056,6 +1074,10 @@ struct Decoder {
     for (int i = 0; i < 8; ++i) cdef_y_pri[i] = cdef_y_sec[i] = cdef_uv_pri[i] = cdef_uv_sec[i] = 0;
     for (int i = 0; i < 4; ++i) lf_level[i] = 0;
     lf_sharpness = lf_delta_enabled = 0;
+    for (int p = 0; p < 3; ++p) {
+      lr_type[p] = kRestoreNone;
+      lr_unit_size[p] = 256;
+    }
     if (!lossless) {
       // loop_filter_params, the deltas from setup_past_independence's defaults
       lf_level[0] = b.f(6);
@@ -1087,10 +1109,23 @@ struct Decoder {
           }
         }
       }
-      // lr_params: a restoration type changes the tile syntax
+      // lr_params
       if (seq.restoration) {
-        for (int p = 0; p < (seq.mono ? 1 : 3); ++p)
-          if (b.f(2)) throw Unsupported{kToolRestoration};
+        static const int kRemapLrType[4] = {kRestoreNone, kRestoreSwitchable, kRestoreWiener, kRestoreSgrproj};
+        bool any = false, chroma = false;
+        for (int p = 0; p < (seq.mono ? 1 : 3); ++p) {
+          lr_type[p] = kRemapLrType[b.f(2)];
+          any = any || lr_type[p];
+          chroma = chroma || (p && lr_type[p]);
+        }
+        if (any) {
+          int shift = b.f(1);
+          if (seq.sb128) ++shift;
+          else if (shift) shift += b.f(1);
+          lr_unit_size[0] = 256 >> (2 - shift);
+          const int uv_shift = seq.ssx && seq.ssy && chroma ? b.f(1) : 0;
+          lr_unit_size[1] = lr_unit_size[2] = lr_unit_size[0] >> uv_shift;
+        }
       }
       tx_mode_select = b.f(1);  // tx_mode: TX_MODE_SELECT, else TX_MODE_LARGEST
     } else {
@@ -1178,6 +1213,12 @@ struct Decoder {
     y_modes.assign(n, 0); uv_modes.assign(n, 0); mi_sizes.assign(n, 0); skips.assign(n, 0);
     tx_sizes.assign(n, 0); tx_types.assign(n, 0);
     cdef_idx.assign((size_t)((mi_rows + 15) / 16 + 2) * ((mi_cols + 15) / 16 + 2), -1);
+    for (int p = 0; p < planes; ++p) {  // count_units_in_frame
+      auto count = [&](int n) { return std::max((n + (lr_unit_size[p] >> 1)) / lr_unit_size[p], 1); };
+      lr_rows[p] = count((height + ssy(p)) >> ssy(p));
+      lr_cols[p] = count((width + ssx(p)) >> ssx(p));
+      lr_units[p].assign(lr_type[p] ? (size_t)lr_rows[p] * lr_cols[p] : 0, LrUnit{});
+    }
     for (int p = 0; p < 3; ++p) {
       above_level[p].assign(mi_cols + 32, 0); above_dc[p].assign(mi_cols + 32, 0);
       left_level[p].assign(mi_rows + 32, 0); left_dc[p].assign(mi_rows + 32, 0);
@@ -1219,6 +1260,12 @@ struct Decoder {
       mi_col_end = mi_col_starts[t % tile_cols + 1];
       cdf = frame_cdfs;
       current_q = base_q_idx;
+      for (int q = 0; q < 3; ++q) {  // Wiener_Taps_Mid, Sgrproj_Xqd_Mid
+        for (int pass = 0; pass < 2; ++pass) {
+          ref_wiener[q][pass][0] = 3; ref_wiener[q][pass][1] = -7; ref_wiener[q][pass][2] = 15;
+        }
+        ref_sgr[q][0] = -32; ref_sgr[q][1] = 31;
+      }
       sym.init(p + at, size, disable_cdf_update);
       decode_tile();
       at += size;
@@ -1243,6 +1290,7 @@ struct Decoder {
         for (int y = r; y < r + sb4; y += 16)
           for (int x = c; x < c + sb4; x += 16) cdef(y, x) = -1;
         clear_block_decoded(r, c, sb4);
+        read_lr(r, c, sb4);
         decode_partition(r, c, seq.sb128 ? B128X128 : B64X64);
         if (sym.overflowed()) throw Corrupt{__LINE__};
       }
@@ -1451,6 +1499,73 @@ struct Decoder {
         for (int x = c; x < c + kWide4[mi_size]; x += 16) cdef(y, x) = (int8_t)v;
       cdef(r, c) = (int8_t)v;
     }
+  }
+
+  // 5.11.57: the restoration units whose top-left corner lies in the superblock at (r, c)
+  void read_lr(int r, int c, int sb4) {
+    for (int p = 0; p < planes; ++p) {
+      if (!lr_type[p]) continue;
+      const int size = lr_unit_size[p], mx = 4 >> ssx(p), my = 4 >> ssy(p);
+      const int row0 = (r * my + size - 1) / size, row1 = std::min(lr_rows[p], ((r + sb4) * my + size - 1) / size);
+      const int col0 = (c * mx + size - 1) / size, col1 = std::min(lr_cols[p], ((c + sb4) * mx + size - 1) / size);
+      for (int ur = row0; ur < row1; ++ur)
+        for (int uc = col0; uc < col1; ++uc) read_lr_unit(p, lr_units[p][(size_t)ur * lr_cols[p] + uc]);
+    }
+  }
+
+  // 5.11.58
+  void read_lr_unit(int plane, LrUnit& u) {
+    static const int kWienerMin[3] = {-5, -23, -17}, kWienerMax[3] = {10, 8, 46}, kWienerK[3] = {1, 2, 3};
+    static const int kXqdMin[2] = {-96, -32}, kXqdMax[2] = {31, 95};
+    if (lr_type[plane] == kRestoreSwitchable) u.type = (uint8_t)sym.read(cdf.restoration_type, 3);
+    else if (lr_type[plane] == kRestoreWiener) u.type = sym.read(cdf.use_wiener, 2) ? kRestoreWiener : kRestoreNone;
+    else u.type = sym.read(cdf.use_sgrproj, 2) ? kRestoreSgrproj : kRestoreNone;
+    if (u.type == kRestoreWiener) {
+      for (int pass = 0; pass < 2; ++pass) {
+        u.wiener[pass][0] = 0;
+        for (int j = plane ? 1 : 0; j < 3; ++j) {
+          const int v = subexp_with_ref(kWienerMin[j], kWienerMax[j] + 1, kWienerK[j], ref_wiener[plane][pass][j]);
+          u.wiener[pass][j] = (int8_t)v;
+          ref_wiener[plane][pass][j] = v;
+        }
+      }
+    } else if (u.type == kRestoreSgrproj) {
+      u.set = (uint8_t)literal(4);
+      for (int i = 0; i < 2; ++i) {
+        int v = 0;
+        if (av1t::kSgrParams[u.set][i]) v = subexp_with_ref(kXqdMin[i], kXqdMax[i] + 1, 4, ref_sgr[plane][i]);
+        else if (i == 1) v = std::min(kXqdMax[1], std::max(kXqdMin[1], (1 << 7) - ref_sgr[plane][0]));
+        u.xqd[i] = (int16_t)v;
+        ref_sgr[plane][i] = v;
+      }
+    }
+  }
+
+  // decode_signed_subexp_with_ref_bool: a value of [low, high) coded against the reference r
+  int subexp_with_ref(int low, int high, int k, int r) {
+    const int mx = high - low;
+    r -= low;
+    int v, i = 0, mk = 0;
+    while (true) {  // decode_subexp_bool
+      const int b2 = i ? k + i - 1 : k, a = 1 << b2;
+      if (mx <= mk + 3 * a) {  // NS(mx - mk)
+        const int n = mx - mk, w = floor_log2((uint32_t)n) + 1, m = (1 << w) - n;
+        v = literal(w - 1);
+        if (v >= m) v = (v << 1) - m + literal(1);
+        v += mk;
+        break;
+      }
+      if (!literal(1)) {
+        v = literal(b2) + mk;
+        break;
+      }
+      ++i;
+      mk += a;
+    }
+    auto inverse_recenter = [](int rr, int vv) {
+      return vv > 2 * rr ? vv : (vv & 1) ? rr - ((vv + 1) >> 1) : rr + (vv >> 1);
+    };
+    return low + ((r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v));
   }
 
   int delta_value(uint16_t* cdf4) {  // delta_q_abs or delta_lf_abs, its extra bits and sign
@@ -2154,6 +2269,9 @@ struct Decoder {
     if (filter_tool) throw Unsupported{filter_tool};
     loop_filter();
     cdef();
+    for (int p = 0; p < planes; ++p)
+      if (lr_type[p]) lr_plane(p);
+    for (int p = 0; p < 3; ++p) std::vector<uint16_t>().swap(pre_cdef[p]);
   }
 
   // ---- the loop filter (7.14), as libaom applies it to a key frame ----
@@ -2382,7 +2500,7 @@ struct Decoder {
     // Cdef_Uv_Dir at 4:2:2 (libaom's conv422) and 4:4:0 (conv440)
     static const int kUvDir[2][8] = {{7, 0, 2, 4, 5, 6, 6, 6}, {1, 2, 2, 2, 3, 4, 6, 0}};
     const int shift = seq.bit_depth - 8;
-    std::vector<uint16_t> src[3];
+    std::vector<uint16_t>* src = pre_cdef;  // the deblocked planes, which loop restoration reads too
     for (int p = 0; p < planes; ++p) src[p] = frame[p];
     for (int r = 0; r < mi_rows; r += 2) {
       for (int c = 0; c < mi_cols; c += 2) {
@@ -2408,6 +2526,223 @@ struct Decoder {
         if (seq.ssx != seq.ssy) dir = kUvDir[seq.ssx ? 0 : 1][y_dir];
         for (int p = 1; p < 3; ++p)
           cdef_filter(src[p].data(), p, r, c, pri, sec, cdef_damping + shift - 1, pri ? dir : 0);
+      }
+    }
+  }
+
+  // ---- loop restoration (7.17), as libaom's av1_loop_restoration_filter_frame applies it ----
+  // A plane whose frame type is not RESTORE_NONE is filtered unit by unit into a new buffer: every tap reads the
+  // CDEF'd frame, never a restored sample. The plane is cut into stripes of 64 luma rows, the first 8 rows
+  // shorter; a tap above or below its stripe reads the deblocked (pre-CDEF) frame, at most 2 rows past the
+  // stripe, and every tap is first clamped to the visible plane (get_source_sample). The last unit of a row or
+  // column takes up to 1.5 units.
+
+  void lr_plane(int p) {
+    const int sx = ssx(p), sy = ssy(p), bd = seq.bit_depth;
+    const int w = (width + sx) >> sx, h = (height + sy) >> sy, size = lr_unit_size[p];
+    const int64_t st = stride[p];
+    const uint16_t* cdefd = frame[p].data();
+    const uint16_t* deblocked = pre_cdef[p].empty() ? cdefd : pre_cdef[p].data();  // CDEF off: the same frame
+    std::vector<uint16_t> out = frame[p];
+    const int bw = w + 6;  // a stripe's samples with 3 of border each side
+    std::vector<int32_t> src((size_t)bw * (64 + 6));
+    BoxSums sums;
+    for (int n = 0;; ++n) {
+      const int start = (64 * n - 8) >> sy, y0 = std::max(0, start);  // StripeStartY, the stripe's first row
+      if (y0 >= h) break;
+      const int end = std::min(start + (64 >> sy) - 1, h - 1), sh = end + 1 - y0;  // StripeEndY
+      for (int i = -3; i < sh + 3; ++i) {
+        int y = std::min(h - 1, std::max(0, y0 + i));
+        const uint16_t* from = cdefd;
+        if (y < start) {
+          y = std::max(start - 2, y);
+          from = deblocked;
+        } else if (y > end) {
+          y = std::min(end + 2, y);
+          from = deblocked;
+        }
+        const uint16_t* row = from + y * st;
+        int32_t* d = &src[(size_t)(i + 3) * bw + 3];
+        for (int x = -3; x < w + 3; ++x) d[x] = row[std::min(w - 1, std::max(0, x))];
+      }
+      const int32_t* s0 = &src[3 * (size_t)bw + 3];  // the stripe's first row, column 0
+      const LrUnit* units = &lr_units[p][(size_t)std::min(lr_rows[p] - 1, ((64 * n) >> sy) / size) * lr_cols[p]];
+      sums.reset(s0, bw, w, sh);
+      for (int uc = 0; uc < lr_cols[p]; ++uc) {
+        const int x0 = uc * size, x1 = uc == lr_cols[p] - 1 ? w : x0 + size;
+        uint16_t* o = &out[(size_t)y0 * st + x0];
+        if (units[uc].type == kRestoreWiener) {
+          lr_wiener(units[uc], s0 + x0, bw, x1 - x0, sh, bd, o, st);
+        } else if (units[uc].type == kRestoreSgrproj) {
+          lr_sgrproj(units[uc], s0, bw, sums, x0, x1, sh, y0, bd, o, st);
+        }
+      }
+    }
+    frame[p].swap(out);
+  }
+
+  // av1_wiener_convolve_add_src: the horizontal filter into an intermediate clamped to its range, then the vertical
+  // one (the 7 taps c0 c1 c2 128-2(c0+c1+c2) c2 c1 c0) of w x h samples from s (the top-left; row stride bw)
+  static void lr_wiener(const LrUnit& u, const int32_t* s, int bw, int w, int h, int bd, uint16_t* o, int64_t st) {
+    const int r0 = bd == 12 ? 5 : 3, r1 = bd == 12 ? 9 : 11;  // InterRound0, InterRound1
+    int f[2][7];
+    for (int pass = 0; pass < 2; ++pass) {
+      const int8_t* c = u.wiener[pass];
+      const int taps[7] = {c[0], c[1], c[2], 128 - 2 * (c[0] + c[1] + c[2]), c[2], c[1], c[0]};
+      std::memcpy(f[pass], taps, sizeof taps);
+    }
+    const int limit = (1 << (bd + 8 - r0)) - 1, maxv = (1 << bd) - 1;
+    std::vector<int32_t> mid((size_t)(h + 6) * w);
+    for (int i = 0; i < h + 6; ++i) {
+      const int32_t* row = s + (int64_t)(i - 3) * bw - 3;
+      int32_t* m = &mid[(size_t)i * w];
+      for (int x = 0; x < w; ++x) {
+        int32_t sum = (1 << (bd + 6)) + (1 << (r0 - 1));
+        for (int k = 0; k < 7; ++k) sum += f[1][k] * row[x + k];
+        m[x] = std::min(limit, std::max(0, sum >> r0));
+      }
+    }
+    for (int i = 0; i < h; ++i) {
+      for (int x = 0; x < w; ++x) {
+        int32_t sum = (1 << (r1 - 1)) - (1 << (bd + r1 - 1));
+        for (int k = 0; k < 7; ++k) sum += f[0][k] * mid[(size_t)(i + k) * w + x];
+        o[i * st + x] = (uint16_t)std::min(maxv, std::max(0, sum >> r1));
+      }
+    }
+  }
+
+  // The box sums of a stripe (libaom's boxsum): per radius (1 or 2, filled when first asked for), the sum and the
+  // sum of squares of the (2r+1)^2 samples around each position of rows -1 .. h and columns -1 .. w, running sums
+  // down the columns, then along the rows.
+  struct BoxSums {
+    const int32_t* s = nullptr;  // the stripe's row 0, column 0 (row stride bw)
+    int bw = 0, w = 0, h = 0;
+    bool ready[2] = {false, false};
+    std::vector<uint32_t> sum[2], sq[2], vs, vq;  // [radius - 1], (h + 2) rows of (w + 2)
+    void reset(const int32_t* src, int stride, int width, int height) {
+      s = src;
+      bw = stride;
+      w = width;
+      h = height;
+      ready[0] = ready[1] = false;
+    }
+    void fill(int r) {
+      ready[r - 1] = true;
+      const int cols = w + 6;  // the columns -3 .. w + 2 of the vertical sums
+      vs.assign(cols, 0u);
+      vq.assign(cols, 0u);
+      sum[r - 1].resize((size_t)(h + 2) * (w + 2));
+      sq[r - 1].resize((size_t)(h + 2) * (w + 2));
+      for (int dy = -r; dy < r; ++dy) {  // rows -1 - r .. r - 2: row -1's window but its last row
+        const int32_t* row = s + (int64_t)(dy - 1) * bw - 3;
+        for (int x = 0; x < cols; ++x) {
+          vs[x] += (uint32_t)row[x];
+          vq[x] += (uint32_t)(row[x] * row[x]);
+        }
+      }
+      for (int i = -1; i <= h; ++i) {
+        const int32_t* add = s + (int64_t)(i + r) * bw - 3;
+        for (int x = 0; x < cols; ++x) {
+          vs[x] += (uint32_t)add[x];
+          vq[x] += (uint32_t)(add[x] * add[x]);
+        }
+        uint32_t* os = &sum[r - 1][(size_t)(i + 1) * (w + 2)];
+        uint32_t* oq = &sq[r - 1][(size_t)(i + 1) * (w + 2)];
+        uint32_t a = 0, b = 0;  // the running sums over the 2r+1 columns ending at x + r
+        for (int x = 3 - 1 - r; x < 3 - 1 + r; ++x) {
+          a += vs[x];
+          b += vq[x];
+        }
+        for (int j = 0; j < w + 2; ++j) {  // column j - 1
+          a += vs[j + 2 + r];
+          b += vq[j + 2 + r];
+          os[j] = a;
+          oq[j] = b;
+          a -= vs[j + 2 - r];
+          b -= vq[j + 2 - r];
+        }
+        const int32_t* drop = s + (int64_t)(i - r) * bw - 3;
+        for (int x = 0; x < cols; ++x) {
+          vs[x] -= (uint32_t)drop[x];
+          vq[x] -= (uint32_t)(drop[x] * drop[x]);
+        }
+      }
+    }
+  };
+
+  // av1_apply_selfguided_restoration: the box filters of radius r0 (A and B on every other row, weights 6 and 5)
+  // and r1 (weights 4 and 3) of the set, projected with xqd, for columns x0 .. x1 of the stripe's h rows
+  static void lr_sgrproj(const LrUnit& u, const int32_t* s, int bw, BoxSums& sums, int x0, int x1, int h, int y0,
+                         int bd, uint16_t* o, int64_t st) {
+    const int32_t* prm = av1t::kSgrParams[u.set];  // r0, r1, s0, s1
+    const int w = x1 - x0, maxv = (1 << bd) - 1;
+    std::vector<int32_t> flt[2];
+    std::vector<int32_t> a_((size_t)(h + 2) * (w + 2)), b_((size_t)(h + 2) * (w + 2));
+    for (int pass = 0; pass < 2; ++pass) {
+      const int r = prm[pass];
+      if (!r) continue;
+      // calc_ab: A and B at rows -1 .. h and columns x0 - 1 .. x1 (radius 2: the odd rows only are read)
+      const uint32_t n = (2 * r + 1) * (2 * r + 1), sc = (uint32_t)prm[2 + pass], one_by_n = av1t::kOneByX[n - 1];
+      if (!sums.ready[r - 1]) sums.fill(r);
+      const uint32_t* bsum = sums.sum[r - 1].data();
+      const uint32_t* bsq = sums.sq[r - 1].data();
+      // radius 2 reads A and B on the odd rows alone (y0 is even: a_ row i is row y0 + i - 1)
+      for (int i = 0; i < h + 2; i += r == 2 ? 2 : 1) {
+        for (int j = 0; j < w + 2; ++j) {
+          const size_t k = (size_t)i * (sums.w + 2) + x0 + j, l = (size_t)i * (w + 2) + j;
+          const uint32_t a = (bsq[k] + ((1u << (2 * (bd - 8))) >> 1)) >> (2 * (bd - 8));
+          const uint32_t b = (bsum[k] + ((1u << (bd - 8)) >> 1)) >> (bd - 8);
+          const uint32_t p = a * n < b * b ? 0 : a * n - b * b;
+          const uint32_t z = (p * sc + (1u << 19)) >> 20;
+          const int32_t aa = av1t::kXByXplus1[std::min(z, 255u)];
+          a_[l] = aa;
+          b_[l] = (int32_t)(((uint32_t)(256 - aa) * bsum[k] * one_by_n + (1u << 11)) >> 12);
+        }
+      }
+      flt[pass].resize((size_t)h * w);
+      const int ws = w + 2;
+      for (int i = 0; i < h; ++i) {
+        const int32_t* sr = s + (int64_t)i * bw + x0;
+        for (int j = 0; j < w; ++j) {
+          const size_t k = (size_t)(i + 1) * ws + j + 1;
+          int32_t a, b, nb = 5;
+          if (r == 2) {
+            if (!((y0 + i) & 1)) {  // the rows above and below
+              a = (a_[k - ws] + a_[k + ws]) * 6 + (a_[k - 1 - ws] + a_[k - 1 + ws] + a_[k + 1 - ws] + a_[k + 1 + ws]) * 5;
+              b = (b_[k - ws] + b_[k + ws]) * 6 + (b_[k - 1 - ws] + b_[k - 1 + ws] + b_[k + 1 - ws] + b_[k + 1 + ws]) * 5;
+            } else {
+              a = a_[k] * 6 + (a_[k - 1] + a_[k + 1]) * 5;
+              b = b_[k] * 6 + (b_[k - 1] + b_[k + 1]) * 5;
+              nb = 4;
+            }
+          } else {
+            a = (a_[k] + a_[k - 1] + a_[k + 1] + a_[k - ws] + a_[k + ws]) * 4 +
+                (a_[k - 1 - ws] + a_[k - 1 + ws] + a_[k + 1 - ws] + a_[k + 1 + ws]) * 3;
+            b = (b_[k] + b_[k - 1] + b_[k + 1] + b_[k - ws] + b_[k + ws]) * 4 +
+                (b_[k - 1 - ws] + b_[k - 1 + ws] + b_[k + 1 - ws] + b_[k + 1 + ws]) * 3;
+          }
+          const int32_t v = a * sr[j] + b, shift = 8 + nb - 4;  // SGRPROJ_SGR_BITS + nb - SGRPROJ_RST_BITS
+          flt[pass][(size_t)i * w + j] = (v + (1 << (shift - 1))) >> shift;
+        }
+      }
+    }
+    // av1_decode_xq, then the projection at SGRPROJ_RST_BITS 4 and SGRPROJ_PRJ_BITS 7
+    int xq0 = u.xqd[0], xq1 = (1 << 7) - xq0 - u.xqd[1];
+    if (!prm[0]) {
+      xq0 = 0;
+      xq1 = (1 << 7) - u.xqd[1];
+    } else if (!prm[1]) {
+      xq1 = 0;
+    }
+    for (int i = 0; i < h; ++i) {
+      const int32_t* sr = s + (int64_t)i * bw + x0;
+      for (int j = 0; j < w; ++j) {
+        const int32_t uu = sr[j] << 4;
+        int32_t v = uu << 7;
+        if (prm[0]) v += xq0 * (flt[0][(size_t)i * w + j] - uu);
+        if (prm[1]) v += xq1 * (flt[1][(size_t)i * w + j] - uu);
+        const int16_t out = (int16_t)((v + (1 << 10)) >> 11);
+        o[i * st + j] = (uint16_t)std::min<int>(maxv, std::max<int>(0, out));
       }
     }
   }

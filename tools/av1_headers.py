@@ -9,7 +9,8 @@ alone; ``rewrite_cdef`` writes the CDEF damping and strengths in place
 (their widths are fixed, so neither the OBU's size nor its tiles change);
 ``fields`` says what a payload switches on (``tx_mode_select``,
 ``delta_q_present``, the loop filter levels, sharpness and deltas, the
-CDEF damping, index bits and strengths, the quantizer).
+CDEF damping, index bits and strengths, the loop restoration types, unit
+and chroma shifts, the quantizer).
 
     f = fields(payload)
     plain = strip_filters(payload)
@@ -194,10 +195,22 @@ def fields(payload: bytes) -> dict:
                 strength = [b.f(4), b.f(2)] + ([] if seq["mono"] else [b.f(4), b.f(2)])
                 out["cdef_strengths"].append(strength)
             out["bit_cdef_end"] = b.pos
+        # lr_params: lr_type per plane as coded (0 NONE, 1 SWITCHABLE, 2 WIENER, 3 SGRPROJ), lr_unit_shift as the
+        # specification takes it (units of 256 >> (2 - shift) luma samples) and lr_uv_shift
+        out["lr_type"], out["lr_unit_shift"], out["lr_uv_shift"] = (0,) * (1 if seq["mono"] else 3), 0, 0
         if seq["restoration"]:
-            for _ in range(1 if seq["mono"] else 3):
-                if b.f(2):
-                    raise ValueError("loop restoration")
+            out["bit_lr"] = b.pos
+            out["lr_type"] = tuple(b.f(2) for _ in range(1 if seq["mono"] else 3))
+            if any(out["lr_type"]):
+                shift = b.f(1)
+                if seq["sb128"]:
+                    shift += 1
+                elif shift:
+                    shift += b.f(1)
+                out["lr_unit_shift"] = shift
+                if seq["subsampling"] == (1, 1) and any(out["lr_type"][1:]):
+                    out["lr_uv_shift"] = b.f(1)
+            out["bit_lr_end"] = b.pos
         out["tx_mode_select"] = b.f(1)
     out["reduced_tx_set"] = b.f(1)
     if seq["film_grain"] and b.f(1):

@@ -9,8 +9,8 @@ cv2 (libaom) and the port's decoder can be held to each other on them.
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
 Walsh-Hadamard coefficients. With ``lossy``, the frame is a lossy one
-(at q-context 0) under the loop filter and CDEF parameters given (loop
-restoration off in the sequence header), its transforms the largest
+(at q-context 0) under the loop filter, CDEF and loop restoration
+parameters given, its transforms the largest
 (TX_MODE_LARGEST): every block larger than 4x4 skips, and each 4x4 block
 codes a few random coefficients in each plane (the luma transform type
 drawn from the intra set's 2D types), so that the planes are the intra
@@ -67,6 +67,8 @@ def _tables() -> dict:
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
     out["kSmWeights4"] = [_values(tables, "kSmWeights")[:4]]
     out["kDeltaQ"] = out["kDeltaLf"] = [_values(tables, "kDeltaQCdf")]  # Default_Delta_Lf_Cdf is the same
+    for name in ("kSwitchableRestore", "kWienerRestore", "kSgrprojRestore"):
+        out[name] = [_values(tables, f"{name}Cdf")]
     v = _values(tables, "kIntraTxTypeSet1Cdf")[: 8 * 13]  # TX_4X4's, by intra direction
     out["kIntraTx1"] = [list(v[k : k + 8]) for k in range(0, len(v), 8)]
     return out
@@ -159,6 +161,52 @@ class SymbolWriter:
         return bytes(out)
 
 
+# loop restoration: the Wiener taps' and the self-guided weights' ranges, subexp parameters and references
+WIENER_MIN, WIENER_MAX, WIENER_K, WIENER_MID = (-5, -23, -17), (10, 8, 46), (1, 2, 3), (3, -7, 15)
+XQD_MIN, XQD_MAX, XQD_MID = (-96, -32), (31, 95), (-32, 31)
+# the radii (r0, r1) of each self-guided set (av1_tables.h: kSgrParams)
+SGR_RADII = [tuple(v) for v in np.array(_values(AV1_TABLES.read_text(), "kSgrParams")).reshape(16, 4)[:, :2]]
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+LR_TYPE = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER, RESTORE_SGRPROJ)  # Remap_Lr_Type: lr_type as coded
+
+
+def _subexp_with_ref(sym, low: int, high: int, k: int, ref: int, v: int) -> None:
+    """encode_signed_subexp_with_ref_bool: ``v`` of [low, high) against
+    ``ref`` in bools (libaom's aom_write_primitive_refsubexpfin)."""
+    n, r, x = high - low, ref - low, v - low
+
+    def recenter(r_, v_):
+        return v_ if v_ > 2 * r_ else 2 * (v_ - r_) if v_ >= r_ else 2 * (r_ - v_) - 1
+
+    x = recenter(r, x) if 2 * r <= n else recenter(n - 1 - r, n - 1 - x)
+
+    def literal(value, bits):
+        for i in range(bits - 1, -1, -1):
+            sym.bool((value >> i) & 1)
+
+    i = mk = 0
+    while True:
+        b = k + i - 1 if i else k
+        a = 1 << b
+        if n <= mk + 3 * a:  # quniform(n - mk)
+            m_n, val = n - mk, x - mk
+            if m_n > 1:
+                ln = m_n.bit_length()
+                m = (1 << ln) - m_n
+                if val < m:
+                    literal(val, ln - 1)
+                else:
+                    literal(m + ((val - m) >> 1), ln - 1)
+                    sym.bool((val - m) & 1)
+            return
+        more = int(x >= mk + a)
+        sym.bool(more)
+        if not more:
+            literal(x - mk, b)
+            return
+        i, mk = i + 1, mk + a
+
+
 def _wht_levels(res: np.ndarray) -> np.ndarray:
     """The TX_4X4 levels whose inverse Walsh-Hadamard transform (av1.cpp's
     reconstruct: rows, then columns) gives ``res`` [4,4] exactly."""
@@ -181,8 +229,11 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
-                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=()):
+                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0):
         self.lossy, self.deltas = lossy, deltas
+        self.lr = restoration
+        self.lr_rng = np.random.default_rng([seed, 7])  # the units' draws, apart from the blocks'
+        self.lr_count = 0
         # CDEF: (index bits, the 64x64s whose blocks all skip); the index of each 64x64 (mode info units) written
         self.cdef, self.skip64, self.empty = cdef, set(skip64), empty
         self.cdef_idx = {}
@@ -240,6 +291,8 @@ class _Frame:
         self.sym = SymbolWriter(not self.disable_cdf_update)
         self.tile = (r0, r1, c0, c1)
         n = 1 if self.mono else 3
+        self.ref_wiener = [[list(WIENER_MID), list(WIENER_MID)] for _ in range(n)]
+        self.ref_sgr = [list(XQD_MID) for _ in range(n)]
         self.above_level = [np.zeros(self.mi_cols + 32, np.int64) for _ in range(n)]
         self.above_dc = [np.zeros(self.mi_cols + 32, np.int64) for _ in range(n)]
         self.mi_size = np.full((self.mi_rows, self.mi_cols), -1)
@@ -254,8 +307,73 @@ class _Frame:
             for c in range(c0, c1, sb4):
                 self.clear_block_decoded(r, c)
                 self.read_deltas = self.deltas
+                if self.lr:
+                    self.lr_units(r, c)
                 self.partition(r, c, B128X128 if self.sb128 else B64X64)
         return self.sym.finish()
+
+    # ---- loop restoration units (5.11.57-58) ----
+    def lr_geometry(self, p):
+        """(frame restoration type, unit size, unit rows, unit columns) of plane ``p``."""
+        lr = self.lr
+        ftype = LR_TYPE[lr["types"][p]]
+        size = 256 >> (2 - lr["unit_shift"])
+        if p:
+            size >>= lr.get("uv_shift", 0)
+        sx, sy = self.sub(p)
+
+        def count(n):
+            return max((n + (size >> 1)) // size, 1)
+
+        return ftype, size, count((self.h + sy) >> sy), count((self.w + sx) >> sx)
+
+    def lr_units(self, r, c):
+        """The coefficients of the units whose top-left corner lies in the superblock at (r, c)."""
+        sb4 = 32 if self.sb128 else 16
+        for p in range(1 if self.mono else 3):
+            ftype, size, rows, cols = self.lr_geometry(p)
+            if ftype == RESTORE_NONE:
+                continue
+            sx, sy = self.sub(p)
+            mx, my = 4 >> sx, 4 >> sy
+            for _ in range((r * my + size - 1) // size, min(rows, ((r + sb4) * my + size - 1) // size)):
+                for _ in range((c * mx + size - 1) // size, min(cols, ((c + sb4) * mx + size - 1) // size)):
+                    self.lr_unit(p, ftype)
+
+    def lr_unit(self, p, ftype):
+        lr, rng, sym, cdf = self.lr, self.lr_rng, self.sym, self.cdf
+        none = lr.get("none", False)
+        if ftype == RESTORE_SWITCHABLE:
+            kind = RESTORE_NONE if none else int(rng.choice(3, p=[0.2, 0.4, 0.4]))
+            sym.symbol(kind, cdf["kSwitchableRestore"][0], 3)
+        else:
+            on = int(not none and rng.random() < 0.85)
+            sym.symbol(on, cdf["kWienerRestore" if ftype == RESTORE_WIENER else "kSgrprojRestore"][0], 2)
+            kind = ftype if on else RESTORE_NONE
+        sgr_set = -1
+        if kind == RESTORE_WIENER:
+            for pass_ in range(2):
+                for j in range(1 if p else 0, 3):
+                    lo, hi = WIENER_MIN[j], WIENER_MAX[j]
+                    v = int(rng.choice([lo, hi])) if lr.get("extreme") else int(rng.integers(lo, hi + 1))
+                    _subexp_with_ref(sym, lo, hi + 1, WIENER_K[j], self.ref_wiener[p][pass_][j], v)
+                    self.ref_wiener[p][pass_][j] = v
+        elif kind == RESTORE_SGRPROJ:
+            sets = lr.get("sets")
+            sgr_set = int(sets[self.lr_count % len(sets)]) if sets else int(rng.integers(0, 16))
+            self.lr_count += 1
+            for i in range(3, -1, -1):
+                sym.bool((sgr_set >> i) & 1)
+            for i in range(2):
+                lo, hi = XQD_MIN[i], XQD_MAX[i]
+                if SGR_RADII[sgr_set][i]:
+                    v = int(rng.integers(lo, hi + 1))
+                    _subexp_with_ref(sym, lo, hi + 1, 4, self.ref_sgr[p][i], v)
+                else:
+                    v = 0 if i == 0 else min(hi, max(lo, (1 << 7) - self.ref_sgr[p][0]))
+                self.ref_sgr[p][i] = v
+        if "log" in lr:  # (plane, type, the self-guided set or -1, whether the Wiener taps lie at their ends)
+            lr["log"].append((p, kind, sgr_set, int(kind == RESTORE_WIENER and bool(lr.get("extreme")))))
 
     def inside(self, r, c):
         r0, r1, c0, c1 = self.tile
@@ -870,9 +988,19 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     (Y vertical, Y horizontal, U, V), "sharpness": 0-7, "delta": the
     INTRA_FRAME ref delta written with loop_filter_delta_update, or None
     for deltas off; and, optionally, "delta_lf": delta_q_present and
-    delta_lf_present on, each superblock's deltas 0; "restoration": loop
-    restoration on in the sequence header and Wiener for Y in the frame
-    header, the tiles without its coefficients; "cdef": {"damping": 3-6,
+    delta_lf_present on, each superblock's deltas 0; "restoration":
+    {"types": lr_type per plane as coded (0 NONE, 1 SWITCHABLE, 2
+    WIENER, 3 SGRPROJ), "unit_shift": the specification's lr_unit_shift
+    (units of 256 >> (2 - shift) samples; 1 or 2 under 128x128
+    superblocks), "uv_shift": lr_uv_shift (4:2:0 only), and optionally
+    "sets": the self-guided sets the units take in turn (else drawn),
+    "extreme": every Wiener tap at one end of its range, "none": every
+    unit RESTORE_NONE (the rest of the frame as without it), "log": a
+    list the units are appended to as (plane, type, set or -1, extreme)}: loop
+    restoration on in the sequence header, its parameters in the frame
+    header and each unit's type and coefficients drawn (from ``seed``,
+    apart from the blocks' draws) and coded where the specification
+    reads them; "cdef": {"damping": 3-6,
     "bits": cdef_bits 0-3, "strengths": one [Y primary, Y secondary, UV
     primary, UV secondary] per index (two values where the frame is
     monochrome)}: CDEF on in the sequence header, its parameters in the
@@ -892,7 +1020,8 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
                 lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")),
                 cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
-                skip64=lossy.get("skip64", ()) if lossy else ())
+                skip64=lossy.get("skip64", ()) if lossy else (),
+                restoration=lossy.get("restoration") if lossy else None, seed=seed)
     restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
     profile = _profile(bit_depth, mono, tuple(subsampling))
@@ -1041,11 +1170,25 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
                 assert len(entry) == (2 if mono else 4)
                 for k, v in enumerate(entry):
                     h.f(4 if k % 2 == 0 else 2, v)
-        if restoration:  # lr_type: WIENER for Y, none for U and V; lr_unit_shift 0
-            h.f(2, 2)
-            if not mono:
-                h.f(2, 0), h.f(2, 0)
-            h.f(1, 0)
+        if restoration:  # lr_params
+            lr = lossy["restoration"]
+            types = tuple(lr["types"])
+            assert len(types) == (1 if mono else 3)
+            for t in types:
+                h.f(2, t)
+            if any(types):
+                shift = lr["unit_shift"]
+                if sb128:
+                    assert shift in (1, 2)
+                    h.f(1, shift - 1)
+                else:
+                    h.f(1, int(shift > 0))
+                    if shift:
+                        h.f(1, shift - 1)
+                if tuple(fr.sub(1)) == (1, 1) and not mono and any(types[1:]):
+                    h.f(1, lr.get("uv_shift", 0))
+                else:
+                    assert not lr.get("uv_shift", 0), "lr_uv_shift: 4:2:0 with chroma restoration only"
         h.f(1, 0)  # tx_mode_select: TX_MODE_LARGEST
     h.f(1, 0)  # reduced_tx_set
     # the tiles

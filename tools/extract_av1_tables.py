@@ -1,7 +1,8 @@
 """Write ``deepemia_tpu_torch/native/av1_tables.h``: the AV1 tables of the
 lossy intra path that the specification lists and ``native/av1.cpp``
 needs (the quantizer lookups, the quantizer matrices, the default
-coefficient, transform type, transform depth and delta q CDFs, the scans,
+coefficient, transform type, transform depth, delta q and loop restoration
+CDFs, the self-guided filter's parameters and lookups, the scans,
 the smooth weights and the cosine and sine constants of the inverse
 transforms), read from a libaom build.
 
@@ -214,6 +215,44 @@ def other_cdfs(lib: Library) -> dict:
     return t
 
 
+def restoration_tables(lib: Library) -> dict:
+    """The loop restoration tables: the default CDFs of restoration_type,
+    use_wiener and use_sgrproj, which libaom's frame context setup stores
+    as immediates (``mov [rax + disp32], imm32``, the three in a row, the
+    first with REX.W: its two values and two zeros), the self-guided
+    filter's parameters (``av1_sgr_params``: the radii r0, r1 and the
+    scales s0, s1 of each of the 16 sets, s = round(2^20 / (n^2 eps)), -1
+    where the radius is 0), ``av1_x_by_xplus1`` (256 values) and
+    ``av1_one_by_x`` (round(2^12 / n), n = 1 .. 25)."""
+    at = lib.find([32768 - 9413, 32768 - 22581], "<u2")  # the opening values of the switchable CDF
+    d, k, stores = lib.data, at - 6, []
+    while len(stores) < 3 and k < at + 96:
+        if d[k] == 0xC7 and d[k + 1] == 0x80:  # mov dword/qword [rax + disp32], imm32
+            stores.append((int.from_bytes(d[k + 2 : k + 6], "little"), int.from_bytes(d[k + 6 : k + 10], "little")))
+            k += 10
+        else:
+            k += 1
+    (d0, sw), (d1, wiener), (d2, sgr) = stores
+    assert d0 < d1 < d2 and sw >> 16 and not wiener >> 16 and not sgr >> 16, stores
+    t = {"kSwitchableRestoreCdf": np.array([32768 - (sw & 0xFFFF), 32768 - (sw >> 16), 32768, 0]),
+         "kWienerRestoreCdf": np.array([32768 - wiener, 32768, 0]),
+         "kSgrprojRestoreCdf": np.array([32768 - sgr, 32768, 0])}
+    for cdf in t.values():
+        assert np.all(np.diff(cdf[:-1]) > 0) and cdf[-2] == 32768, cdf
+    params = lib.read(lib.find([2, 1, 140, 3236, 2, 1, 112, 2158], "<i4"), 64, "<i4").reshape(16, 4)
+    for r0, r1, s0, s1 in params:
+        for r, s in ((r0, s0), (r1, s1)):
+            assert (r == 0 and s == -1) or (r in (1, 2) and 0 < s < 1 << 12), params
+    t["kSgrParams"] = params
+    x_by = lib.read(lib.find([1, 128, 171, 192, 205, 213, 219, 224], "<i4"), 256, "<i4")
+    assert x_by[255] == 256 and all(x_by[z] == ((z << 8) + z // 2) // (z + 1) for z in range(1, 255))
+    t["kXByXplus1"] = x_by
+    one_by = lib.read(lib.find([4096, 2048, 1365, 1024, 819], "<i4"), 25, "<i4")
+    assert all(one_by[n - 1] == round(4096 / n) for n in range(1, 26))
+    t["kOneByX"] = one_by
+    return t
+
+
 def constants(lib: Library) -> dict:
     cos128 = [round(4096 * math.cos(i * math.pi / 128)) for i in range(65)]
     libaom = lib.read(lib.find(cos128[:8], "<i4"), 64, "<i4")
@@ -247,6 +286,7 @@ def main(path: str | None = None) -> str:
     dc, ac = quantizer_lookups(lib)
     qm = quantizer_matrices(lib)
     cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib)}
+    restoration = restoration_tables(lib)
     consts = constants(lib)
     sc = scans(lib)
     out = [f"// Generated by tools/extract_av1_tables.py from libaom {version_of(path)} "
@@ -259,6 +299,10 @@ def main(path: str | None = None) -> str:
            c_array("kQuantizerMatrix", "uint8_t", qm, 32)]
     for name, a in cdfs.items():
         out.append(c_array(name, "uint16_t", a))
+    for name in ("kSwitchableRestoreCdf", "kWienerRestoreCdf", "kSgrprojRestoreCdf"):
+        out.append(c_array(name, "uint16_t", restoration[name]))
+    for name in ("kSgrParams", "kXByXplus1", "kOneByX"):
+        out.append(c_array(name, "int32_t", restoration[name]))
     out.append(c_array("kCos128", "int32_t", consts["kCos128"]))
     out.append(c_array("kSinpi", "int32_t", consts["kSinpi"]))
     out.append(c_array("kSmWeights", "uint8_t", consts["kSmWeights"], 32))

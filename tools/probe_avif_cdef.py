@@ -6,7 +6,8 @@ beyond the committed fixtures, and print what was found:
   blurred noise or plain noise), one in three with its CDEF damping and
   strengths rewritten at random (``av1_headers.rewrite_cdef``), each read
   by the port and by cv2; frames libaom writes with loop restoration
-  (speeds 3 and 4) are counted apart, as the port refuses them by name;
+  (speeds 3 and 4), which the port applies after CDEF, are counted as
+  such;
 - ``writer_frames``: ``tools/av1_writer.py``'s lossy frames under random
   CDEF parameters (every subsampling and depth, ``cdef_bits`` 0-3, both
   superblock sizes, 64x64s whose blocks all skip, 4x4 blocks that code
@@ -73,10 +74,8 @@ def random_frames(path: Path, n: int = 300, seed: int = 2027) -> collections.Cou
         data = cdef_fx.cv2_lossy(img, q, depth, speed)
         try:
             f = hd.fields(fx.payload_of(data)[0])
-        except ValueError as e:  # loop restoration: refused by name
-            ref, got = _outcome(path, data)
-            named = isinstance(got, ValueError) and "AV1 loop restoration" in str(got)
-            counts[f"{e}: {'refused by name' if named else 'NOT REFUSED'}"] += 1
+        except ValueError as e:  # a header the tool does not read (screen content tools)
+            counts[str(e)] += 1
             continue
         rewrite = "cdef_strengths" in f and f["cdef_strengths"] and rng.random() < 1 / 3
         if rewrite:
@@ -88,7 +87,7 @@ def random_frames(path: Path, n: int = 300, seed: int = 2027) -> collections.Cou
         same = ref is not None and isinstance(got, np.ndarray) and np.array_equal(ref, got)
         cdef = any(any(e) for e in f["cdef_strengths"])
         counts[("exact" if same else "DIFFERS") + (", rewritten" if rewrite else "") +
-               (", CDEF" if cdef else ", no CDEF")] += 1
+               (", CDEF" if cdef else ", no CDEF") + (", restoration" if any(f["lr_type"]) else "")] += 1
     return counts
 
 

@@ -8,7 +8,8 @@ print what was found:
 - ``random_frames``: seeded random frames (size 1-299 a side, BGR or
   gray, 8/10/12 bits, quality 40-99, now and then an encoder speed),
   their CDEF strengths rewritten to 0, each read by the port and by cv2
-  (frames libaom writes with loop restoration are counted apart);
+  (frames libaom writes with loop restoration, which the port applies
+  too, are counted as such);
 - ``ycgco_re``: the writer's YCgCo-Re (matrix 16) frames at every
   subsampling, 8/10/12 bits, both ranges, primaries 1, 9 and 12 and three
   sizes: how many cv2 reads, and whether the port gives cv2's array or,
@@ -90,13 +91,14 @@ def random_frames(path: Path, n: int = 300, seed: int = 2026) -> None:
         data = buf.tobytes()
         try:
             f = hd.fields(fx.payload_of(data)[0])
-        except ValueError as e:  # loop restoration: its syntax is not read by the header tool
+        except ValueError as e:  # a header the tool does not read (screen content tools)
             counts[str(e)] += 1
             continue
         if any(any(c) for c in f["cdef_strengths"]):
             data = lossy.with_payload(data, hd.strip_filters(fx.payload_of(data)[0], keep_loop_filter=True))
         same = _same(*_outcome(path, data))
-        counts[("exact" if same else "differs") + (", deblocked" if any(f["loop_filter"]) else "")] += 1
+        counts[("exact" if same else "differs") + (", deblocked" if any(f["loop_filter"]) else "")
+               + (", restoration" if any(f["lr_type"]) else "")] += 1
     print(f"random frames ({n}, seed {seed}): {dict(sorted(counts.items()))}")
 
 
