@@ -313,33 +313,39 @@ It builds the CUDA kernels from the sources in the checkout and then:
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
-     with the tables of ``native/av1_tables.h``, its loop filter, CDEF and
-     loop restoration, ``ops/avif.py``'s libavif colour conversion): (a)
-     one 1024x768 labelled micrograph (``draw_labelled``, seed 22, its
-     background flattened) in fifteen forms (cv2's quality 95 BGR 4:2:0 and gray,
+     with the tables of ``native/av1_tables.h``, its palette mode, loop
+     filter, CDEF and loop restoration, ``ops/avif.py``'s libavif colour
+     conversion): (a) one 1024x768 labelled micrograph (``draw_labelled``,
+     seed 22, its background flattened) in sixteen forms (cv2's quality 95 BGR 4:2:0 and gray,
      quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
      4:2:0 BT.601 frame; the deblocked frames: cv2's quality 85 BGR,
      quality 90 at 10 bits BGR and 12 bits gray; the CDEF frames: cv2's
      default quality BGR, quality 75 at 10 bits BGR, the default at 12
      bits gray; the loop restoration frames, with ``avif_textured``'s
      texture: cv2's 8-bit BGR with Wiener luma units, 10-bit BGR, 8- and
-     10-bit gray with self-guided luma units, at speeds 4 and 2; the files
-     committed in ``tests/data/torch_avif_lossy_fixtures.npz``,
-     ``tests/data/torch_avif_cdef_fixtures.npz`` and
-     ``tests/data/torch_avif_restoration_fixtures.npz``) decodes to the
+     10-bit gray with self-guided luma units, at speeds 4 and 2; cv2's
+     BGR frame at speed 8, with palettes; the files committed in
+     ``tests/data/torch_avif_lossy_fixtures.npz``,
+     ``tests/data/torch_avif_cdef_fixtures.npz``,
+     ``tests/data/torch_avif_restoration_fixtures.npz`` and
+     ``tests/data/torch_avif_palette_fixtures.npz``) decodes to the
      SHA-256 of cv2's array and near the drawing; (b) cv2's quality-75
      frame, which deblocks and applies CDEF, the textured 8-bit gray frame
      with CDEF then restoration, and the committed restoration fixtures
      (cv2's frames at speeds 0-4, the AV1 writer's SWITCHABLE, 4:4:4,
-     4:2:2, 12-bit, 128x128-superblock and tiled frames) decode to cv2's
-     arrays or their SHA-256, and the writer's frame with delta loop filter
-     levels raises ``UnsupportedImageError`` naming them; (c) committed
-     2048² BGR rasters: the micrograph at quality 95, at 85 (deblocked)
-     and at cv2's default quality (deblocked, CDEF), and blurred noise at
-     speed 4 (self-guided restoration in every plane): host decode seconds
-     (median of 3) beside an uncompressed TIFF of the same pixels, and
-     each as a multiple of quality 95's; (d) the fifteen frames through
-     the CLI as phase 19 (c) takes its dataset.
+     4:2:2, 12-bit, 128x128-superblock and tiled frames) and palette
+     fixtures (cv2's frames at speeds 0-8, the writer's 4:2:2, lossy
+     4:4:4, 128x128-superblock and tiled ones) decode to cv2's arrays or
+     their SHA-256, and the writer's frame with delta loop filter levels
+     and cv2's speed-4 frame with intra block copy raise
+     ``UnsupportedImageError`` naming them; (c) committed 2048² BGR
+     rasters: the micrograph at quality 95, at 85 (deblocked) and at cv2's
+     default quality (deblocked, CDEF), blurred noise at speed 4
+     (self-guided restoration in every plane), and the flattened labelled
+     frame tiled at speed 8 (palettes) and at cv2's default speed: host
+     decode seconds (median of 3) beside an uncompressed TIFF of the same
+     pixels, and each as a multiple of quality 95's; (d) the sixteen frames
+     through the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
 
@@ -4619,6 +4625,17 @@ AVIF_RESTORATION_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_rest
 # ``avif_textured``'s texture, as cv2 writes it) -> how far each may lie from the textured drawing; the first four
 # join the dataset, the last (CDEF, then restoration) is read in (b)
 AVIF_RESTORATION_FORMS = {"lr-bgr8": 14, "lr-bgr10": 10, "lr-gray8": 14, "lr-gray10": 14, "lr-cdef-gray8": 12}
+AVIF_PALETTE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_palette_fixtures.npz")
+# phase 22's palette frame (``smoke-<form>`` in AVIF_PALETTE_FIXTURES: the labelled frame as cv2 writes it at speed
+# 8, with screen content tools: palettes, deblocked, CDEF) -> how far it may lie from the drawing; it joins the dataset
+AVIF_PALETTE_FORMS = {"palette-bgr8": 96}
+# the committed frames cv2 reads and the port refuses by name: (fixture file, entry, the words of the refusal, what it
+# is): the AV1 writer's frame with delta loop filter levels (each superblock's deltas 0), cv2's speed-4 frame of
+# phase 22's labelled frame, which takes intra block copy
+AVIF_NAMED = {"delta-lf": (AVIF_CDEF_FIXTURES, "refused-delta-lf-420-8", "AV1 delta loop filter levels",
+                           "the writer's frame with delta LF"),
+              "intrabc": (AVIF_PALETTE_FIXTURES, "refused-intrabc-smoke", "AV1 intra block copy",
+                          "cv2's speed-4 frame with intra block copy")}
 AVIF_LOSSY_SEED = 22
 
 
@@ -5207,7 +5224,7 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     assert hashlib.sha256(got.tobytes()).hexdigest() == \
         cdef_fixtures["refused-restoration-bgr8-128x128/sha256"].tobytes().decode()
     print("avif: cv2's frame at speed 4 (loop restoration) decoded to the SHA-256 of cv2's array", flush=True)
-    refuse_delta_lf("avif", path)
+    refuse_named("avif", path, "delta-lf")
 
     # (c) the dataset through the CLI
     home = os.path.join(AVIF_DIR, "home")
@@ -5223,32 +5240,35 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     return k1, k2, k1_errs, k2_errs
 
 
-def refuse_delta_lf(tag: str, path: str) -> None:
-    """The AV1 writer's committed frame with delta loop filter levels (each
-    superblock's deltas 0), which cv2 reads, raises
-    ``UnsupportedImageError`` naming them (phases 21 (d), 22 (b))."""
+def refuse_named(tag: str, path: str, form: str) -> None:
+    """An ``AVIF_NAMED`` frame raises ``UnsupportedImageError`` naming its
+    tool (delta LF in phases 21 (d) and 22 (b), intra block copy in 22 (b))."""
     from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 
+    fixtures, name, words, what = AVIF_NAMED[form]
     with open(path, "wb") as f:
-        f.write(np.load(AVIF_CDEF_FIXTURES)["refused-delta-lf-420-8/file"].tobytes())
+        f.write(np.load(fixtures)[f"{name}/file"].tobytes())
     try:
         read_image(path)
-        raise AssertionError("read_image decoded an AVIF with delta loop filter levels")
+        raise AssertionError(f"read_image decoded {what}")
     except UnsupportedImageError as e:
-        assert "AV1 delta loop filter levels" in str(e), e
-        print(f"{tag}: the writer's frame with delta LF: {str(e).split(': ', 1)[1]}", flush=True)
+        assert words in str(e), e
+        print(f"{tag}: {what}: {str(e).split(': ', 1)[1]}", flush=True)
 
 
-def read_restoration_fixtures(tag: str, path: str) -> None:
-    """The committed loop restoration fixtures but the 2048² raster (cv2's
-    frames at speeds 0-4, the AV1 writer's, phase 22's textured frames)
-    decode to cv2's arrays or their SHA-256 (phase 22 (b))."""
+def read_committed_fixtures(tag: str, path: str, fixtures_path: str, what: str) -> None:
+    """A committed fixture file's frames but the 2048² rasters and those
+    refused by name (the loop restoration file's: cv2's frames at speeds
+    0-4, the AV1 writer's, phase 22's textured frames; the palette file's:
+    cv2's palette frames at speeds 0-8, the writer's, phase 22's palette
+    frame) decode to cv2's arrays or their SHA-256 (phase 22 (b))."""
     import hashlib
 
     from deepemia_tpu_torch.ops.image import read_image
 
-    fixtures = np.load(AVIF_RESTORATION_FIXTURES)
-    names = sorted({k.split("/")[0] for k in fixtures.files} - {"smoke-2048-speed4"})
+    fixtures = np.load(fixtures_path)
+    names = sorted(n for n in {k.split("/")[0] for k in fixtures.files}
+                   if not n.startswith(("smoke-2048", "refused-")))
     kinds = {"array": 0, "sha256": 0}
     for name in names:
         with open(path, "wb") as f:
@@ -5261,7 +5281,7 @@ def read_restoration_fixtures(tag: str, path: str) -> None:
             assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
             kinds["sha256"] += 1
     os.remove(path)
-    print(f"{tag}: {len(names)} committed loop restoration fixtures as OpenCV read them: {kinds['array']} bit for "
+    print(f"{tag}: {len(names)} committed {what} fixtures as OpenCV read them: {kinds['array']} bit for "
           f"bit to its arrays, {kinds['sha256']} to its SHA-256", flush=True)
 
 
@@ -5287,9 +5307,16 @@ def avif_only():
 
 
 def avif_lossy_forms() -> dict:
-    """Phase 22's dataset forms -> their tolerances: AVIF_LOSSY_FORMS, then
-    the loop restoration forms but the last of AVIF_RESTORATION_FORMS."""
-    return {**AVIF_LOSSY_FORMS, **dict(list(AVIF_RESTORATION_FORMS.items())[:-1])}
+    """Phase 22's dataset forms -> their tolerances: AVIF_LOSSY_FORMS, the
+    loop restoration forms but the last of AVIF_RESTORATION_FORMS, then
+    AVIF_PALETTE_FORMS."""
+    return {**AVIF_LOSSY_FORMS, **dict(list(AVIF_RESTORATION_FORMS.items())[:-1]), **AVIF_PALETTE_FORMS}
+
+
+def avif_lossy_fixtures() -> dict:
+    """Phase 22's fixture files, merged: lossy, CDEF, loop restoration and palette."""
+    return {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES),
+            **np.load(AVIF_PALETTE_FIXTURES)}
 
 
 def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOSSY_SEED):
@@ -5304,7 +5331,7 @@ def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOS
 
     from deepemia_tpu_torch.ops.image import read_image
 
-    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES)}
+    fixtures = avif_lossy_fixtures()
     gray, instances = draw_labelled(np.random.default_rng(seed), hw)
     flat = avif_flatten(gray)
     for d in (root, twin):
@@ -5334,19 +5361,21 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
     """Phase 22: lossy and subsampled AVIF. (a) the ``avif_lossy_forms``
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
     cv2's array and near the drawing; three of them deblocked, three more
-    deblocked and filtered with CDEF, four with loop restoration); (b)
-    cv2's quality-75 frame, which deblocks and applies CDEF, and the
-    textured gray frame with CDEF then loop restoration, to the SHA-256 of
-    cv2's arrays, the committed restoration fixtures to cv2's arrays
-    (``read_restoration_fixtures``), and the AV1 writer's frame with delta
-    loop filter levels raises ``UnsupportedImageError`` naming them; (c)
-    the committed 2048² BGR micrograph at quality 95, at 85 (deblocked)
-    and at cv2's default quality (deblocked, CDEF), and blurred noise at
-    speed 4 (self-guided restoration in every plane): host decode seconds
-    (median of 3) beside an uncompressed TIFF of the same pixels, each as a
-    multiple of quality 95's, with the card's name and power limit; (d) the
-    dataset through the CLI (``cli_on_dataset``) -> (K1 launches, K2
-    launches, K1 errors, K2 errors)."""
+    deblocked and filtered with CDEF, four with loop restoration, one with
+    palettes); (b) cv2's quality-75 frame, which deblocks and applies CDEF,
+    and the textured gray frame with CDEF then loop restoration, to the
+    SHA-256 of cv2's arrays, the committed restoration and palette fixtures
+    to cv2's arrays (``read_committed_fixtures``), and the AV1 writer's
+    frame with delta loop filter levels and cv2's frame with intra block
+    copy raise ``UnsupportedImageError`` naming them; (c) the committed
+    2048² BGR micrograph at quality 95, at 85 (deblocked) and at cv2's
+    default quality (deblocked, CDEF), blurred noise at speed 4
+    (self-guided restoration in every plane), and the flattened labelled
+    frame tiled to 2048² at speed 8 (palettes) and at cv2's default speed:
+    host decode seconds (median of 3) beside an uncompressed TIFF of the
+    same pixels, each as a multiple of quality 95's, with the card's name
+    and power limit; (d) the dataset through the CLI (``cli_on_dataset``)
+    -> (K1 launches, K2 launches, K1 errors, K2 errors)."""
     import hashlib
     import shutil
 
@@ -5354,7 +5383,7 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
 
     shutil.rmtree(AVIF_LOSSY_DIR, ignore_errors=True)
     os.makedirs(AVIF_LOSSY_DIR)
-    fixtures = {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES)}
+    fixtures = avif_lossy_fixtures()
     home = os.path.join(AVIF_LOSSY_DIR, "home")
     root, twin = os.path.join(home, "DATASET", "sem"), os.path.join(home, "DATASET", "twin")
     t0 = time.perf_counter()
@@ -5373,8 +5402,12 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
         got = read_image(path)
         assert hashlib.sha256(got.tobytes()).hexdigest() == fixtures[f"{name}/sha256"].tobytes().decode(), name
         print(f"avif lossy: the same frame ({what}) decoded to the SHA-256 of cv2's array", flush=True)
-    read_restoration_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "lr.avif"))
-    refuse_delta_lf("avif lossy", os.path.join(AVIF_LOSSY_DIR, "delta-lf.avif"))
+    read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "lr.avif"), AVIF_RESTORATION_FIXTURES,
+                            "loop restoration")
+    read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "palette.avif"), AVIF_PALETTE_FIXTURES,
+                            "palette")
+    for form in AVIF_NAMED:
+        refuse_named("avif lossy", os.path.join(AVIF_LOSSY_DIR, f"{form}.avif"), form)
 
     # (c) decode seconds at 2048²: quality 95, 85 (deblocked), cv2's default (deblocked, CDEF) and speed 4 (restoration)
     q95 = None
@@ -5382,7 +5415,11 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
                        ("smoke-2048-q85", "micrograph at quality 85, deblocked"),
                        ("smoke-2048-default", "micrograph at the default quality, deblocked and CDEF"),
                        ("smoke-2048-speed4", "blurred noise at speed 4, quality 75, self-guided restoration in "
-                        "every plane")):
+                        "every plane"),
+                       ("smoke-2048-palette", "the flattened labelled frame tiled, at speed 8: screen content tools, "
+                        "palettes, deblocked and CDEF"),
+                       ("smoke-2048-speed9", "the same tiled frame at cv2's default speed: no screen content tools, "
+                        "deblocked and CDEF")):
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
         with open(path, "wb") as f:
             f.write(fixtures[f"{name}/file"].tobytes())

@@ -292,9 +292,12 @@ def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[list]]:
     not have (meta[4] its number, ``ops/avif.py:AV1_TOOLS``), -3 a frame
     past libavif's size limits (meta[0] x meta[1]); planes are then None. meta (``av1.cpp:av1_decode``): width, height, bit depth,
     planes, tool, colour range, matrix coefficients, colour primaries,
-    transfer characteristics, subsampling x, subsampling y."""
+    transfer characteristics, subsampling x, subsampling y, then what the
+    frame's palettes coded: a bit per palette size (1 << n) of Y, of UV,
+    the colours taken from a colour cache, the V colours coded as
+    deltas."""
     src = np.frombuffer(data, np.uint8)
-    meta = np.zeros(11, np.int32)
+    meta = np.zeros(15, np.int32)
     lib = get_lib("av1")
     status = lib.av1_decode(_ptr(src), src.size, _ptr(meta))
     if status:

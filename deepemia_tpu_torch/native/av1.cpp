@@ -5,19 +5,22 @@
 // uncompressed header of a shown key frame, tile info (uniform and not), the
 // symbol decoder with CDF adaptation, partitions of 64x64 and 128x128
 // superblocks down to 4x4, intra mode info (skip, the CDEF index and
-// delta q of a superblock, Y mode, angle delta, UV mode with CFL, filter
-// intra, the transform depth), coefficients of every transform size from
-// 4x4 to 64x64 at the frame's q-context with their transform types (the
+// delta q of a superblock, Y mode, angle delta, UV mode with CFL, palette
+// mode with its colour cache and colour index maps, filter intra, the
+// transform depth), coefficients of every transform size from 4x4 to
+// 64x64 at the frame's q-context with their transform types (the
 // intra sets), dequantization with quantizer matrices, the inverse DCT,
 // ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
 // prediction at every transform size (DC, V, H, the directional modes with
 // the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
-// intra), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and the
-// three in-loop filters: deblocking (7.14), CDEF (7.15) and loop restoration
-// (7.17: Wiener and self-guided units, switchable or not). Delta loop filter
-// levels are not applied: a frame that turns them on is refused with the
-// tool's number (kTool*), as is a stream that uses any other tool this
-// decoder lacks; none is decoded wrong.
+// intra, palette), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and
+// the three in-loop filters: deblocking (7.14), CDEF (7.15) and loop
+// restoration (7.17: Wiener and self-guided units, switchable or not). Of the
+// screen content tools, palette mode is decoded and intra block copy is not:
+// a frame that allows it is refused at its header, as its tiles cannot be
+// parsed without the tool. Delta loop filter levels are not applied: a frame
+// that turns them on is refused with the tool's number (kTool*), as is a
+// stream that uses any other tool this decoder lacks; none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
@@ -574,9 +577,9 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 
 // What a refusal names (meta[4]); ops/avif.py holds the names
 enum Tool {
-  kToolSegmentation = 3, kToolScreenContent = 4,
+  kToolSegmentation = 3,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
-  kToolShowExisting = 10, kToolDeltaLf = 11
+  kToolShowExisting = 10, kToolDeltaLf = 11, kToolIntraBc = 13
 };
 
 namespace {
@@ -766,6 +769,8 @@ struct Cdfs {
   uint16_t eob512[2][11], eob1024[2][12], eob_extra[5][2][9][3], base_eob[5][2][4][4], base[5][2][42][5];
   uint16_t br[5][2][21][5], dc_sign[2][3][3];
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
+  uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3], palette_y_size[7][8], palette_uv_size[7][8];
+  uint16_t palette_color[2][7][5][9];  // [Y, UV][palette size - 2][colour context]
   void reset(int qctx) {
     using namespace av1t;
     std::memcpy(partition8, kPartition8, sizeof partition8);
@@ -807,6 +812,12 @@ struct Cdfs {
     std::memcpy(restoration_type, kSwitchableRestoreCdf, sizeof restoration_type);
     std::memcpy(use_wiener, kWienerRestoreCdf, sizeof use_wiener);
     std::memcpy(use_sgrproj, kSgrprojRestoreCdf, sizeof use_sgrproj);
+    std::memcpy(palette_y_mode, kPaletteYModeCdf, sizeof palette_y_mode);
+    std::memcpy(palette_uv_mode, kPaletteUvModeCdf, sizeof palette_uv_mode);
+    std::memcpy(palette_y_size, kPaletteYSizeCdf, sizeof palette_y_size);
+    std::memcpy(palette_uv_size, kPaletteUvSizeCdf, sizeof palette_uv_size);
+    std::memcpy(palette_color[0], kPaletteYColorCdf, sizeof palette_color[0]);
+    std::memcpy(palette_color[1], kPaletteUvColorCdf, sizeof palette_color[1]);
   }
 };
 
@@ -818,7 +829,7 @@ struct Decoder {
   Sequence seq;
   // the frame header
   int width = 0, height = 0, mi_cols = 0, mi_rows = 0;
-  int disable_cdf_update = 0;
+  int disable_cdf_update = 0, allow_screen_content = 0;
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 0;
   std::vector<int> mi_col_starts, mi_row_starts;
   int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
@@ -841,6 +852,17 @@ struct Decoder {
   // per 4x4 unit of the frame
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
   std::vector<int8_t> cdef_idx;  // per 64x64
+  // under screen content tools: the palettes of the blocks that have one, and per 4x4 unit of the frame the index of
+  // its block's there (-1: none)
+  struct Palette {
+    uint8_t n[2];         // PaletteSizeY, PaletteSizeUV
+    uint16_t colors[2][8];  // Y's and U's, ascending (the cache of a later block merges them)
+  };
+  std::vector<Palette> palettes;
+  std::vector<int32_t> palette_of;
+  // what the frame's palettes coded (meta[11..14]): a bit per palette size of Y and of UV, the colours taken from a
+  // cache, the V colours coded as deltas
+  int palette_y_sizes = 0, palette_uv_sizes = 0, palette_cached = 0, palette_v_deltas = 0;
   // per plane: each restoration unit's type and coefficients (row-major), the references the next unit's are
   // coded against, the deblocked planes (kept through CDEF for the rows around each restoration stripe)
   struct LrUnit {
@@ -862,6 +884,11 @@ struct Decoder {
   int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
   int skip, y_mode, uv_mode, angle_y, angle_uv, tx_size;
   int use_filter_intra, filter_intra_mode, cfl_alpha_u, cfl_alpha_v, max_luma_w, max_luma_h;
+  // the block's palettes: Y's and UV's sizes, the colours of Y, U and V, the colour index maps of Y and UV (row-major,
+  // map_w[k] wide)
+  int palette_size[2], map_w[2];
+  uint16_t palette_colors[3][8];
+  uint8_t color_map[2][64 * 64];
   // scratch of a transform block
   int32_t quant[1024], dequant[1024], resid[4096];
 
@@ -997,8 +1024,8 @@ struct Decoder {
       if (seq.decoder_model_info && !seq.equal_picture_interval) b.f(seq.frame_presentation_len);
     }
     disable_cdf_update = b.f(1);
-    int screen = seq.force_screen_content == 2 ? b.f(1) : seq.force_screen_content;
-    if (screen) throw Unsupported{kToolScreenContent};
+    allow_screen_content = seq.force_screen_content == 2 ? b.f(1) : seq.force_screen_content;
+    if (allow_screen_content && seq.force_integer_mv == 2) b.f(1);  // force_integer_mv: a key frame has no motion
     if (seq.frame_id_numbers) b.f(seq.frame_id_len);
     int size_override = seq.reduced ? 0 : b.f(1);
     b.f(seq.order_hint_bits);
@@ -1026,6 +1053,9 @@ struct Decoder {
     if (width > 32768 || height > 32768 || (int64_t)width * height > 16384 * 16384) throw TooLarge{};
     if (seq.superres && b.f(1)) throw Unsupported{kToolSuperres};
     if (b.f(1)) { b.f(16); b.f(16); }  // render size: libaom decodes at the frame size
+    // allow_intrabc (the upscaled width is the frame's: superres is refused above). Its blocks' syntax cannot be
+    // parsed without the tool, so the frame is refused here, not read to its end as for an in-loop filter
+    if (allow_screen_content && b.f(1)) throw Unsupported{kToolIntraBc};
     mi_cols = 2 * ((width + 7) >> 3);
     mi_rows = 2 * ((height + 7) >> 3);
     // disable_frame_end_update_cdf
@@ -1212,6 +1242,8 @@ struct Decoder {
     size_t n = (size_t)mi_cols * mi_rows;
     y_modes.assign(n, 0); uv_modes.assign(n, 0); mi_sizes.assign(n, 0); skips.assign(n, 0);
     tx_sizes.assign(n, 0); tx_types.assign(n, 0);
+    palettes.clear();
+    palette_of.assign(allow_screen_content ? n : 0, -1);
     cdef_idx.assign((size_t)((mi_rows + 15) / 16 + 2) * ((mi_cols + 15) / 16 + 2), -1);
     for (int p = 0; p < planes; ++p) {  // count_units_in_frame
       auto count = [&](int n) { return std::max((n + (lr_unit_size[p] >> 1)) / lr_unit_size[p], 1); };
@@ -1421,6 +1453,7 @@ struct Decoder {
       avail_u_chroma = avail_l_chroma = 0;
     }
     intra_frame_mode_info();
+    palette_tokens();
     read_tx_size();
     if (skip) {
       for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
@@ -1436,7 +1469,13 @@ struct Decoder {
         y_modes[k] = (uint8_t)y_mode; mi_sizes[k] = (uint8_t)bsize;
         if (has_chroma) uv_modes[k] = (uint8_t)uv_mode;
         skips[k] = (uint8_t)skip; tx_sizes[k] = (uint8_t)tx_size;
+        if (palette_size[0] || palette_size[1]) palette_of[k] = (int32_t)palettes.size();
       }
+    }
+    if (palette_size[0] || palette_size[1]) {
+      Palette pal{{(uint8_t)palette_size[0], (uint8_t)palette_size[1]}, {}};
+      std::memcpy(pal.colors, palette_colors, sizeof pal.colors);
+      palettes.push_back(pal);
     }
     residual();
   }
@@ -1477,8 +1516,11 @@ struct Decoder {
       if (angle_delta && uv_mode >= V_PRED && uv_mode <= D67_PRED)
         angle_uv = sym.read(cdf.angle[uv_mode - V_PRED], 7) - 3;
     }
+    palette_size[0] = palette_size[1] = 0;
+    if (allow_screen_content && mi_size >= B8X8 && kWide4[mi_size] <= 16 && kHigh4[mi_size] <= 16)
+      palette_mode_info();
     use_filter_intra = 0;
-    if (seq.filter_intra && y_mode == DC_PRED && std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8) {
+    if (seq.filter_intra && y_mode == DC_PRED && !palette_size[0] && std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8) {
       use_filter_intra = sym.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sym.read(cdf.filter_intra_mode, 5);
     }
@@ -1488,6 +1530,154 @@ struct Decoder {
     int x = 0;
     for (int i = 0; i < n; ++i) x = 2 * x + sym.boolean();
     return x;
+  }
+
+  int ns(int n) {  // NS(n): ns(n) in bools
+    const int w = floor_log2((uint32_t)n) + 1, m = (1 << w) - n, v = literal(w - 1);
+    return v < m ? v : (v << 1) - m + literal(1);
+  }
+
+  static int ceil_log2(int x) { return x < 2 ? 0 : floor_log2((uint32_t)(x - 1)) + 1; }
+
+  // ---- palette mode (5.11.46, 5.11.49, 7.11.4) ----
+  // the palette of the block that covers the 4x4 unit (r, c), or none
+  const Palette* palette_at(int r, int c) const {
+    const int32_t k = palette_of[(int64_t)r * mi_cols + c];
+    return k < 0 ? nullptr : &palettes[k];
+  }
+
+  void palette_mode_info() {
+    const int bsize_ctx = floor_log2(kWide4[mi_size]) + floor_log2(kHigh4[mi_size]) - 2;
+    if (y_mode == DC_PRED) {
+      const Palette* above = avail_u ? palette_at(mi_row - 1, mi_col) : nullptr;
+      const Palette* left = avail_l ? palette_at(mi_row, mi_col - 1) : nullptr;
+      const int ctx = (above && above->n[0]) + (left && left->n[0]);
+      if (sym.read(cdf.palette_y_mode[bsize_ctx][ctx], 2)) {
+        palette_size[0] = sym.read(cdf.palette_y_size[bsize_ctx], 7) + 2;
+        palette_y_sizes |= 1 << palette_size[0];
+        read_palette_colors(0);
+      }
+    }
+    if (has_chroma && uv_mode == DC_PRED && sym.read(cdf.palette_uv_mode[palette_size[0] > 0], 2)) {
+      palette_size[1] = sym.read(cdf.palette_uv_size[bsize_ctx], 7) + 2;
+      palette_uv_sizes |= 1 << palette_size[1];
+      read_palette_colors(1);
+      const int n = palette_size[1], bd = seq.bit_depth;
+      uint16_t* v = palette_colors[2];
+      if (literal(1)) {  // delta_encode_palette_colors_v: signed deltas, wrapping around 1 << BitDepth
+        ++palette_v_deltas;
+        const int bits = bd - 4 + literal(2);
+        v[0] = (uint16_t)literal(bd);
+        for (int i = 1; i < n; ++i) {
+          int delta = literal(bits);
+          if (delta && literal(1)) delta = -delta;
+          int val = v[i - 1] + delta;
+          if (val < 0) val += 1 << bd;
+          if (val >= 1 << bd) val -= 1 << bd;
+          v[i] = (uint16_t)val;
+        }
+      } else {
+        for (int i = 0; i < n; ++i) v[i] = (uint16_t)literal(bd);
+      }
+    }
+  }
+
+  // get_palette_cache: the ascending, distinct colours of the above (within the same 64-row band) and left blocks'
+  // palettes of Y (plane 0) or U (plane 1)
+  int palette_cache(int plane, uint16_t* cache) const {
+    const Palette* above = (mi_row * 4) % 64 && avail_u ? palette_at(mi_row - 1, mi_col) : nullptr;
+    const Palette* left = avail_l ? palette_at(mi_row, mi_col - 1) : nullptr;
+    const int an = above ? above->n[plane] : 0, ln = left ? left->n[plane] : 0;
+    int ai = 0, li = 0, n = 0;
+    auto put = [&](uint16_t v) {
+      if (n == 0 || cache[n - 1] != v) cache[n++] = v;
+    };
+    while (ai < an && li < ln) {
+      const uint16_t a = above->colors[plane][ai], l = left->colors[plane][li];
+      if (l < a) {
+        put(l);
+        ++li;
+      } else {
+        put(a);
+        ++ai;
+        li += l == a;
+      }
+    }
+    while (ai < an) put(above->colors[plane][ai++]);
+    while (li < ln) put(left->colors[plane][li++]);
+    return n;
+  }
+
+  // the colours of Y (plane 0) or U (plane 1): those of the cache the block takes, then a literal and ascending
+  // deltas (at least 1 for Y) in a width that shrinks with the room left above them; sorted, as the two runs merge
+  void read_palette_colors(int plane) {
+    const int n = palette_size[plane], bd = seq.bit_depth, y = plane == 0;
+    uint16_t cache[16], *out = palette_colors[plane];
+    const int cache_n = palette_cache(plane, cache);
+    int idx = 0;
+    for (int i = 0; i < cache_n && idx < n; ++i)
+      if (literal(1)) out[idx++] = cache[i];
+    palette_cached += idx;
+    if (idx == n) return;
+    out[idx++] = (uint16_t)literal(bd);
+    if (idx < n) {
+      int bits = bd - 3 + literal(2);
+      for (; idx < n; ++idx) {
+        out[idx] = (uint16_t)std::min(out[idx - 1] + literal(bits) + y, (1 << bd) - 1);
+        bits = std::min(bits, ceil_log2((1 << bd) - out[idx] - y));
+      }
+    }
+    std::sort(out, out + n);
+  }
+
+  // palette_tokens: the colour index maps of Y and UV over the block's visible part, wavefront by wavefront, then
+  // extended to the whole block; a chroma map under 4 samples wide or high is 2 wider or higher
+  void palette_tokens() {
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    const int on_w = std::min(bw, (mi_cols - mi_col) * 4), on_h = std::min(bh, (mi_rows - mi_row) * 4);
+    for (int k = 0; k < 2; ++k) {
+      const int n = palette_size[k];
+      if (!n) continue;
+      int w = bw >> ssx(k), h = bh >> ssy(k), ow = on_w >> ssx(k), oh = on_h >> ssy(k);
+      if (w < 4) { w += 2; ow += 2; }
+      if (h < 4) { h += 2; oh += 2; }
+      uint8_t* m = color_map[k];
+      map_w[k] = w;
+      m[0] = (uint8_t)ns(n);
+      for (int i = 1; i < oh + ow - 1; ++i) {
+        for (int j = std::min(i, ow - 1); j >= std::max(0, i - oh + 1); --j) {
+          int order[8];
+          const int ctx = color_context(m, w, i - j, j, n, order);
+          m[(i - j) * w + j] = (uint8_t)order[sym.read(cdf.palette_color[k][n - 2][ctx], n)];
+        }
+      }
+      for (int i = 0; i < oh; ++i) std::memset(m + i * w + ow, m[i * w + ow - 1], w - ow);
+      for (int i = oh; i < h; ++i) std::memcpy(m + i * w, m + (oh - 1) * w, w);
+    }
+  }
+
+  // get_palette_color_context: the colours of the left, above-left and above indices ranked by their weights (2, 1,
+  // 2) into ``order``, and the context their ranked scores hash to (multipliers 1, 2, 2)
+  static int color_context(const uint8_t* m, int stride, int r, int c, int n, int* order) {
+    static const int kHashToCtx[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+    int scores[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (int i = 0; i < 8; ++i) order[i] = i;
+    if (c > 0) scores[m[r * stride + c - 1]] += 2;
+    if (r > 0 && c > 0) scores[m[(r - 1) * stride + c - 1]] += 1;
+    if (r > 0) scores[m[(r - 1) * stride + c]] += 2;
+    for (int i = 0; i < 3; ++i) {
+      int best = i;
+      for (int j = i + 1; j < n; ++j)
+        if (scores[j] > scores[best]) best = j;
+      const int score = scores[best], color = order[best];
+      for (int k = best; k > i; --k) {
+        scores[k] = scores[k - 1];
+        order[k] = order[k - 1];
+      }
+      scores[i] = score;
+      order[i] = color;
+    }
+    return kHashToCtx[scores[0] + 2 * scores[1] + 2 * scores[2]];
   }
 
   void read_cdef() {  // the CDEF index of each 64x64, read where its first coded block is
@@ -1648,11 +1838,19 @@ struct Decoder {
     if (start_x >= (max_x >> sx) + 1 || start_y >= (max_y >> sy) + 1) return;
     bool is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
     int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
-    predict_intra(plane, start_x, start_y, (plane == 0 ? avail_l : avail_l_chroma) || x > 0,
-                  (plane == 0 ? avail_u : avail_u_chroma) || y > 0,
-                  block_decoded(plane, sub_row - 1, sub_col + step_x),
-                  block_decoded(plane, sub_row + step_y, sub_col - 1), mode, kTxWLog2[tx], kTxHLog2[tx]);
-    if (is_cfl) predict_cfl(plane, start_x, start_y, tx);
+    if (palette_size[plane > 0]) {  // 7.11.4: the colours of the map's indices
+      const uint16_t* colors = palette_colors[plane];
+      const int k = plane > 0, w = tx_w(tx), h = tx_h(tx);
+      const uint8_t* m = color_map[k] + (y * 4) * map_w[k] + x * 4;
+      for (int i = 0; i < h; ++i)
+        for (int j = 0; j < w; ++j) px(plane, start_y + i, start_x + j) = colors[m[i * map_w[k] + j]];
+    } else {
+      predict_intra(plane, start_x, start_y, (plane == 0 ? avail_l : avail_l_chroma) || x > 0,
+                    (plane == 0 ? avail_u : avail_u_chroma) || y > 0,
+                    block_decoded(plane, sub_row - 1, sub_col + step_x),
+                    block_decoded(plane, sub_row + step_y, sub_col - 1), mode, kTxWLog2[tx], kTxHLog2[tx]);
+      if (is_cfl) predict_cfl(plane, start_x, start_y, tx);
+    }
     if (plane == 0) {
       max_luma_w = start_x + step_x * 4;
       max_luma_h = start_y + step_y * 4;
@@ -2760,10 +2958,12 @@ static thread_local Decoder* g_last = nullptr;
 // -2 a tool this decoder does not have (meta[4]), -3 a frame past
 // libavif's size limits (meta[0], meta[1]). meta: width, height, bit depth,
 // planes, tool, colour range, matrix coefficients, colour primaries,
-// transfer characteristics, subsampling x, subsampling y.
+// transfer characteristics, subsampling x, subsampling y, then what the
+// palettes coded: a bit per palette size (1 << n) of Y, of UV, the colours
+// taken from a cache, the V colours coded as deltas.
 int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   delete g_last;
-  for (int i = 0; i < 11; ++i) meta[i] = 0;
+  for (int i = 0; i < 15; ++i) meta[i] = 0;
   g_last = new (std::nothrow) Decoder();
   if (!g_last) return -1;
   Decoder& d = *g_last;
@@ -2784,6 +2984,8 @@ int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   meta[0] = d.width; meta[1] = d.height; meta[2] = d.seq.bit_depth; meta[3] = d.planes;
   meta[5] = d.seq.range; meta[6] = d.seq.mc; meta[7] = d.seq.cp; meta[8] = d.seq.tc;
   meta[9] = d.seq.ssx; meta[10] = d.seq.ssy;
+  meta[11] = d.palette_y_sizes; meta[12] = d.palette_uv_sizes; meta[13] = d.palette_cached;
+  meta[14] = d.palette_v_deltas;
   return 0;
 }
 

@@ -92,10 +92,12 @@ def test_fixture_reads_as_opencv(tmp_path, name):
 def test_forms_outside_the_decoder_are_named(tmp_path, name):
     """An image sequence (cv2's animation), a grid, premultiplied alpha, an
     ispe libavif scales to, and a lossless header rewritten to switch on
-    screen content or film grain: ``UnsupportedImageError`` naming the
-    form, never an array; cv2 reads each file, or for the rewrites fails,
-    as the fixture file holds. Lossy 4:2:0 that applies CDEF (cv2 at
-    quality 75), once refused here, reads as cv2 reads it, bit for bit."""
+    film grain, or screen content tools (whose next two header bits then
+    switch intra block copy on): ``UnsupportedImageError`` naming the form
+    (intra block copy for the screen content rewrite), never an array;
+    cv2 reads each file, or for the rewrites fails, as the fixture file
+    holds. Lossy 4:2:0 that applies CDEF (cv2 at quality 75), once refused
+    here, reads as cv2 reads it, bit for bit."""
     path = _write(tmp_path, name)
     ref = reference(path)
     if name in CDEF:

@@ -7,10 +7,12 @@ so that cv2 (libaom) decodes it without those in-loop filters;
 sharpness, the INTRA_FRAME ref delta) and may zero the CDEF strengths
 alone; ``rewrite_cdef`` writes the CDEF damping and strengths in place
 (their widths are fixed, so neither the OBU's size nor its tiles change);
-``fields`` says what a payload switches on (``tx_mode_select``,
-``delta_q_present``, the loop filter levels, sharpness and deltas, the
-CDEF damping, index bits and strengths, the loop restoration types, unit
-and chroma shifts, the quantizer).
+``fields`` says what a payload switches on (screen content tools and
+intra block copy, ``tx_mode_select``, ``delta_q_present``, the loop
+filter levels, sharpness and deltas, the CDEF damping, index bits and
+strengths, the loop restoration types, unit and chroma shifts, the
+quantizer). A frame that allows intra block copy codes no loop filter,
+CDEF or loop restoration parameters: they read as off.
 
     f = fields(payload)
     plain = strip_filters(payload)
@@ -115,12 +117,13 @@ def fields(payload: bytes) -> dict:
     b = _Bits(payload[s:e])
     out = dict(seq)
     b.f(1)  # disable_cdf_update
-    if b.f(1):
-        raise ValueError("screen content tools")
-    if b.f(1):  # render_and_frame_size_different
-        b.f(32)
+    out["screen_content"] = b.f(1)  # allow_screen_content_tools
+    out["force_integer_mv"] = b.f(1) if out["screen_content"] else 0  # SELECT_INTEGER_MV in a reduced header
     if seq["superres"] and b.f(1):
         raise ValueError("superres")
+    if b.f(1):  # render_and_frame_size_different
+        b.f(32)
+    out["intrabc"] = b.f(1) if out["screen_content"] else 0  # allow_intrabc
     mi_cols, mi_rows = 2 * ((seq["width"] + 7) >> 3), 2 * ((seq["height"] + 7) >> 3)
     sb_shift = 5 if seq["sb128"] else 4
     sb_cols, sb_rows = (mi_cols + (1 << sb_shift) - 1) >> sb_shift, (mi_rows + (1 << sb_shift) - 1) >> sb_shift
@@ -168,12 +171,13 @@ def fields(payload: bytes) -> dict:
         raise ValueError("segmentation")
     out["delta_q_present"] = b.f(1) if out["base_q_idx"] else 0
     out["delta_q_res"] = b.f(2) if out["delta_q_present"] else 0
-    out["delta_lf_present"] = b.f(1) if out["delta_q_present"] else 0
+    out["delta_lf_present"] = b.f(1) if out["delta_q_present"] and not out["intrabc"] else 0
     if out["delta_lf_present"]:
         b.f(3)
     lossless = out["base_q_idx"] == 0 and out["delta_q_y_dc"] == 0 and out["delta_q_uv"] == (0, 0)
     out["loop_filter"], out["cdef_strengths"], out["tx_mode_select"] = (0, 0), [], 0
-    if not lossless:
+    out["lr_type"], out["lr_unit_shift"], out["lr_uv_shift"] = (0,) * (1 if seq["mono"] else 3), 0, 0
+    if not lossless and not out["intrabc"]:
         out["bit_lf"] = b.pos
         out["loop_filter"] = (b.f(6), b.f(6))
         if not seq["mono"] and any(out["loop_filter"]):
@@ -197,7 +201,6 @@ def fields(payload: bytes) -> dict:
             out["bit_cdef_end"] = b.pos
         # lr_params: lr_type per plane as coded (0 NONE, 1 SWITCHABLE, 2 WIENER, 3 SGRPROJ), lr_unit_shift as the
         # specification takes it (units of 256 >> (2 - shift) luma samples) and lr_uv_shift
-        out["lr_type"], out["lr_unit_shift"], out["lr_uv_shift"] = (0,) * (1 if seq["mono"] else 3), 0, 0
         if seq["restoration"]:
             out["bit_lr"] = b.pos
             out["lr_type"] = tuple(b.f(2) for _ in range(1 if seq["mono"] else 3))
@@ -211,6 +214,7 @@ def fields(payload: bytes) -> dict:
                 if seq["subsampling"] == (1, 1) and any(out["lr_type"][1:]):
                     out["lr_uv_shift"] = b.f(1)
             out["bit_lr_end"] = b.pos
+    if not lossless:
         out["tx_mode_select"] = b.f(1)
     out["reduced_tx_set"] = b.f(1)
     if seq["film_grain"] and b.f(1):

@@ -5,6 +5,9 @@ decoder model information, frame header and tile group OBUs apart,
 several tiles, uniform or not, 128x128 superblocks, partitions of every
 type, skipped blocks, CDF updates off, padding and metadata OBUs), so that
 cv2 (libaom) and the port's decoder can be held to each other on them.
+With ``palette``, the frame allows screen content tools (and not intra
+block copy), and blocks of 8x8 to 64x64 take palettes of Y and UV, their
+colours partly from the colour cache of their neighbours.
 
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
@@ -71,7 +74,38 @@ def _tables() -> dict:
         out[name] = [_values(tables, f"{name}Cdf")]
     v = _values(tables, "kIntraTxTypeSet1Cdf")[: 8 * 13]  # TX_4X4's, by intra direction
     out["kIntraTx1"] = [list(v[k : k + 8]) for k in range(0, len(v), 8)]
+    for name, per in (("kPaletteYMode", 3), ("kPaletteUvMode", 3), ("kPaletteYSize", 8), ("kPaletteUvSize", 8),
+                      ("kPaletteYColor", 9), ("kPaletteUvColor", 9)):
+        v = _values(tables, f"{name}Cdf")
+        out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
     return out
+
+
+def color_context(m: np.ndarray, r: int, c: int, n: int):
+    """get_palette_color_context: the colours ranked by the weights (2, 1,
+    2) of the left, above-left and above indices of the map ``m``, and
+    the context their ranked scores hash to -> (order, context)."""
+    scores, order = [0] * 8, list(range(8))
+    if c > 0:
+        scores[m[r, c - 1]] += 2
+    if r > 0 and c > 0:
+        scores[m[r - 1, c - 1]] += 1
+    if r > 0:
+        scores[m[r - 1, c]] += 2
+    for i in range(3):
+        best = i
+        for j in range(i + 1, n):
+            if scores[j] > scores[best]:
+                best = j
+        score, color = scores[best], order[best]
+        for k in range(best, i, -1):
+            scores[k], order[k] = scores[k - 1], order[k - 1]
+        scores[i], order[i] = score, color
+    return order, (-1, -1, 0, -1, -1, 4, 3, 2, 1)[scores[0] + 2 * scores[1] + 2 * scores[2]]
+
+
+def _ceil_log2(x: int) -> int:
+    return 0 if x < 2 else (x - 1).bit_length()
 
 
 class Bits:
@@ -229,8 +263,9 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
-                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0):
+                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0, palette=None):
         self.lossy, self.deltas = lossy, deltas
+        self.palette, self.palette_count = palette, 0
         self.lr = restoration
         self.lr_rng = np.random.default_rng([seed, 7])  # the units' draws, apart from the blocks'
         self.lr_count = 0
@@ -299,6 +334,9 @@ class _Frame:
         self.skips = np.zeros((self.mi_rows, self.mi_cols), np.int64)
         self.y_modes = np.zeros((self.mi_rows, self.mi_cols), np.int64)
         self.uv_modes = np.zeros((self.mi_rows, self.mi_cols), np.int64)
+        # each 4x4 unit's palette sizes (Y, UV) and colours (Y, U)
+        self.pal_n = np.zeros((2, self.mi_rows, self.mi_cols), np.int64)
+        self.pal_c = np.zeros((2, self.mi_rows, self.mi_cols, 8), np.int64)
         self.block_decoded = [None] * n
         sb4 = 32 if self.sb128 else 16
         for r in range(r0, r1, sb4):
@@ -519,6 +557,10 @@ class _Frame:
         if self.y_mode == 0 and max(bw4, bh4) <= 8:
             self.use_filter_intra = int(rng.random() < 0.5)
             self.filter_mode = int(rng.integers(0, 5))
+        self.pal, self.pal_colors, self.pal_cached, self.color_maps = [0, 0], [[], [], []], [[], []], [None, None]
+        self.palette_allowed = bool(self.palette) and bsize >= B8X8 and bw4 <= 16 and bh4 <= 16
+        if self.palette_allowed:
+            self.draw_palettes(r, c, bsize)
         # the residual (a block whose prediction is exact in every plane skips)
         levels = self.lossy_levels(r, c, bsize) if self.lossy else self.predict_block(r, c, bsize)
         skip = int(not any(lv.any() for _, _, _, lv in levels) and not self.coded_empty)
@@ -556,10 +598,15 @@ class _Frame:
                     sym.symbol(self.cfl_codes[1], cdf["kCflAlpha"][(sign_v - 1) * 3 + sign_u], 16)
             if bsize >= B8X8 and 1 <= self.uv_mode <= 8:
                 sym.symbol(self.angle_uv + 3, cdf["kAngleDelta"][self.uv_mode - 1], 7)
-        if self.y_mode == 0 and max(bw4, bh4) <= 8:
+        if self.palette_allowed:
+            self.write_palette_mode_info(r, c, bsize)
+        if self.y_mode == 0 and not self.pal[0] and max(bw4, bh4) <= 8:
             sym.symbol(self.use_filter_intra, cdf["kFilterIntra"][bsize], 2)
             if self.use_filter_intra:
                 sym.symbol(self.filter_mode, cdf["kFilterIntraMode"][0], 5)
+        for k in range(2):
+            if self.pal[k]:
+                self.write_color_map(k)
         if skip:
             for p in range(3 if self.has_chroma else 1):
                 sx, sy = self.sub(p)
@@ -573,9 +620,161 @@ class _Frame:
         self.y_modes[r:rr, c:cc] = self.y_mode
         if self.has_chroma:
             self.uv_modes[r:rr, c:cc] = self.uv_mode
+        for k in range(2):
+            self.pal_n[k, r:rr, c:cc] = self.pal[k]
+            self.pal_c[k, r:rr, c:cc, : self.pal[k]] = self.pal_colors[k]
         if not skip:
             for p, x4, y4, lv in levels:
                 self.coeffs(p, x4, y4, lv)
+
+    # ---- palette mode (5.11.46, 5.11.49) ----
+    def palette_cache(self, r, c, k):
+        """get_palette_cache: the ascending distinct colours of the above
+        (within the 64-row band) and left blocks' palettes of Y or U."""
+        above = self.pal_c[k, r - 1, c, : self.pal_n[k, r - 1, c]] if r * 4 % 64 and self.avail_u else []
+        left = self.pal_c[k, r, c - 1, : self.pal_n[k, r, c - 1]] if self.avail_l else []
+        out = []
+        for v in sorted([int(x) for x in above] + [int(x) for x in left]):
+            if not out or out[-1] != v:
+                out.append(v)
+        return out
+
+    def map_size(self, k, r, c, bsize):
+        """The colour index map of Y (k 0) or UV: (width, height, visible width, visible height)."""
+        w, h = _WIDE[bsize] * 4, _HIGH[bsize] * 4
+        ow, oh = min(w, (self.mi_cols - c) * 4), min(h, (self.mi_rows - r) * 4)
+        if k:
+            w, h, ow, oh = w >> self.ssx, h >> self.ssy, ow >> self.ssx, oh >> self.ssy
+            if w < 4:
+                w, ow = w + 2, ow + 2
+            if h < 4:
+                h, oh = h + 2, oh + 2
+        return w, h, ow, oh
+
+    def draw_palettes(self, r, c, bsize):
+        """Each plane type in turn, at the odds ``palette["odds"]``: a palette
+        (its mode DC, of ``palette["sizes"]`` in turn or 2-8 colours, each
+        of the cache taken at the odds ``palette["cache"]``, the rest new),
+        and a colour index map whose indices repeat a neighbour's now and
+        then; V's colours within a small step of each other at the odds
+        ``palette["v_near"]``, so that they code as deltas."""
+        rng, pal, bd = self.rng, self.palette, self.bd
+        for k in range(2 if self.has_chroma else 1):
+            if rng.random() >= pal.get("odds", 0.5):
+                continue
+            sizes = pal.get("sizes")
+            n = int(sizes[self.palette_count % len(sizes)]) if sizes else int(rng.integers(2, 9))
+            self.palette_count += 1
+            if k == 0:
+                self.y_mode, self.angle_y, self.use_filter_intra = 0, 0, 0
+            else:
+                self.uv_mode, self.angle_uv, self.cfl = 0, 0, (0, 0)
+            cached = [v for v in self.palette_cache(r, c, k) if rng.random() < pal.get("cache", 0.5)][:n]
+            colors = set(cached)
+            while len(colors) < n:
+                colors.add(int(rng.integers(0, 1 << bd)))
+            self.pal[k], self.pal_colors[k], self.pal_cached[k] = n, sorted(colors), cached
+            if k:
+                if rng.random() < pal.get("v_near", 0.6):
+                    step = 1 << int(rng.integers(0, bd - 1))
+                    v = [int(rng.integers(0, 1 << bd))]
+                    for _ in range(n - 1):
+                        v.append((v[-1] + int(rng.integers(-step + 1, step))) % (1 << bd))
+                else:
+                    v = [int(x) for x in rng.integers(0, 1 << bd, n)]
+                self.pal_colors[2] = v
+            w, h, ow, oh = self.map_size(k, r, c, bsize)
+            m = np.zeros((h, w), np.int64)
+            for i in range(oh):
+                for j in range(ow):
+                    u = rng.random()
+                    m[i, j] = m[i, j - 1] if j and u < 0.4 else m[i - 1, j] if i and u < 0.7 else rng.integers(0, n)
+            m[:oh, ow:] = m[:oh, ow - 1 : ow]
+            m[oh:] = m[oh - 1]
+            self.color_maps[k] = m
+
+    def write_palette_mode_info(self, r, c, bsize):
+        sym, cdf = self.sym, self.cdf
+        bsize_ctx = (_WIDE[bsize].bit_length() - 1) + (_HIGH[bsize].bit_length() - 1) - 2
+        if self.y_mode == 0:
+            ctx = int(self.avail_u and self.pal_n[0, r - 1, c] > 0) + int(self.avail_l and self.pal_n[0, r, c - 1] > 0)
+            sym.symbol(int(self.pal[0] > 0), cdf["kPaletteYMode"][bsize_ctx * 3 + ctx], 2)
+            if self.pal[0]:
+                sym.symbol(self.pal[0] - 2, cdf["kPaletteYSize"][bsize_ctx], 7)
+                self.write_colors(r, c, 0)
+        if self.has_chroma and self.uv_mode == 0:
+            sym.symbol(int(self.pal[1] > 0), cdf["kPaletteUvMode"][int(self.pal[0] > 0)], 2)
+            if self.pal[1]:
+                sym.symbol(self.pal[1] - 2, cdf["kPaletteUvSize"][bsize_ctx], 7)
+                self.write_colors(r, c, 1)
+                self.write_v()
+
+    def literal(self, v, bits):
+        for i in range(bits - 1, -1, -1):
+            self.sym.bool((v >> i) & 1)
+
+    def write_colors(self, r, c, k):
+        """Y's (k 0) or U's colours: the cache's flags, then the others as a
+        literal and ascending deltas (less 1 for Y) in the narrowest width
+        that holds them, shrinking with the room left above."""
+        n, bd, y = self.pal[k], self.bd, int(k == 0)
+        cached, idx = self.pal_cached[k], 0
+        for v in self.palette_cache(r, c, k):
+            if idx >= n:
+                break
+            self.sym.bool(int(v in cached))
+            idx += v in cached
+        rest = sorted(set(self.pal_colors[k]) - set(cached))
+        if not rest:
+            return
+        self.literal(rest[0], bd)
+        if len(rest) == 1:
+            return
+        deltas = [b - a - y for a, b in zip(rest, rest[1:])]
+        bits = max(bd - 3, max(d.bit_length() for d in deltas))
+        self.literal(bits - (bd - 3), 2)
+        for cur, d in zip(rest[1:], deltas):
+            self.literal(d, bits)
+            bits = min(bits, _ceil_log2((1 << bd) - cur - y))
+
+    def write_v(self):
+        """V's colours: signed deltas that wrap around 1 << BitDepth where they
+        fit in BitDepth - 1 bits (at the odds 0.8), else literals."""
+        v, bd = self.pal_colors[2], self.bd
+        half = 1 << (bd - 1)
+        deltas = [((b - a + half) % (1 << bd)) - half for a, b in zip(v, v[1:])]
+        bits = max([bd - 4] + [abs(d).bit_length() for d in deltas])
+        delta_coded = bits <= bd - 1 and self.rng.random() < 0.8
+        self.sym.bool(int(delta_coded))
+        if not delta_coded:
+            for x in v:
+                self.literal(x, bd)
+            return
+        self.literal(bits - (bd - 4), 2)
+        self.literal(v[0], bd)
+        for d in deltas:
+            self.literal(abs(d), bits)
+            if d:
+                self.sym.bool(int(d < 0))
+
+    def write_color_map(self, k):
+        """palette_tokens: the first index in NS(n), the others wavefront by wavefront by their rank in the context's
+        order."""
+        m, n = self.color_maps[k], self.pal[k]
+        _, _, ow, oh = self.map_size(k, self.mi_row, self.mi_col, self.bsize)
+        nbits = n.bit_length()
+        mm = (1 << nbits) - n
+        first = int(m[0, 0])
+        if first < mm:
+            self.literal(first, nbits - 1)
+        else:
+            self.literal(mm + ((first - mm) >> 1), nbits - 1)
+            self.sym.bool((first - mm) & 1)
+        cdfs = self.cdf["kPaletteUvColor" if k else "kPaletteYColor"]
+        for i in range(1, oh + ow - 1):
+            for j in range(min(i, ow - 1), max(0, i - oh + 1) - 1, -1):
+                order, ctx = color_context(m, i - j, j, n)
+                self.sym.symbol(order.index(int(m[i - j, j])), cdfs[(n - 2) * 5 + ctx], n)
 
     def lossy_levels(self, r, c, bsize):
         """A lossy frame's coefficients: random ones in each plane of a 4x4
@@ -634,7 +833,11 @@ class _Frame:
                             mode = self.y_mode if p == 0 else (0 if self.uv_mode == 13 else self.uv_mode)
                             left = (self.avail_lc if p else self.avail_l) or xx > 0
                             up = (self.avail_uc if p else self.avail_u) or yy > 0
-                            pred = self.predict(p, sx, sy, left, up, bd[row, col + 2], bd[row + 2, col], mode)
+                            if self.pal[int(p > 0)]:
+                                m = self.color_maps[int(p > 0)][4 * yy : 4 * yy + 4, 4 * xx : 4 * xx + 4]
+                                pred = np.asarray(self.pal_colors[p], np.int64)[m]
+                            else:
+                                pred = self.predict(p, sx, sy, left, up, bd[row, col + 2], bd[row + 2, col], mode)
                             if p and self.uv_mode == 13:
                                 pred = self.predict_cfl(p, sx, sy, pred)
                             if p == 0:
@@ -969,7 +1172,7 @@ def _obu(kind: int, body: bytes) -> bytes:
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
            seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
-           full_range: bool = True, lossy=None) -> bytes:
+           full_range: bool = True, lossy=None, palette=None) -> bytes:
     """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
     the identity matrix, or with ``matrix`` (colour primaries BT.709,
     sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
@@ -1009,7 +1212,10 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     is never written); "empty": the odds that a 4x4 block codes skip 0 and
     no coefficient} for a lossy frame whose planes are
     the prediction of random 4x4 residuals (``planes`` then give only the
-    size; ``weights`` default to splitting down to 4x4 blocks now and then)."""
+    size; ``weights`` default to splitting down to 4x4 blocks now and then).
+    ``palette`` ({"odds", "sizes", "cache", "v_near"}, ``_Frame.draw_palettes``;
+    a reduced header only): allow_screen_content_tools on, allow_intrabc
+    off, and palettes in the blocks that may take one."""
     rng = np.random.default_rng(seed)
     assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
     if lossy:
@@ -1021,7 +1227,8 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
                 lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")),
                 cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
                 skip64=lossy.get("skip64", ()) if lossy else (),
-                restoration=lossy.get("restoration") if lossy else None, seed=seed)
+                restoration=lossy.get("restoration") if lossy else None, seed=seed, palette=palette)
+    assert reduced or not palette, "screen content tools under a reduced header only"
     restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
     profile = _profile(bit_depth, mono, tuple(subsampling))
@@ -1092,14 +1299,18 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     if not reduced:
         h.f(1, 0), h.f(2, 0), h.f(1, 1)  # show_existing_frame, KEY_FRAME, show_frame
     h.f(1, disable_cdf_update)
-    if reduced:
-        h.f(1, 0)  # allow_screen_content_tools (seq_force_screen_content_tools is SELECT)
+    if reduced:  # allow_screen_content_tools (seq_force_screen_content_tools is SELECT), then force_integer_mv
+        h.f(1, int(bool(palette)))
+        if palette:
+            h.f(1, 1)
     else:
         h.f(1, 0)  # frame_size_override_flag
         h.f(7, 0)  # order_hint
         h.f(1, 1)  # buffer_removal_time_present_flag: op 0 (idc 0x101 holds layer 0) and op 1 (idc 0)
         h.f(10, 0), h.f(10, 0)
     h.f(1, 0)  # render_and_frame_size_different
+    if palette:
+        h.f(1, 0)  # allow_intrabc
     if not reduced and not disable_cdf_update:
         h.f(1, 1)  # disable_frame_end_update_cdf
     sb_shift = 5 if sb128 else 4

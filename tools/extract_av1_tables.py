@@ -76,13 +76,25 @@ def icdf_records(lib: Library, opening_spec, symbols: int, stride: int, count: i
     libaom's form, starting where the first opens with ``opening_spec``
     (its first values in the specification's form) -> [count, symbols + 1]
     in the specification's form."""
+    start = lib.find(_opening(opening_spec, stride), "<u2")
+    return spec_form(lib.read(start, count * stride, "<u2").reshape(count, stride), symbols)
+
+
+def _opening(opening_spec, stride: int) -> list:
+    """The uint16 libaom stores for the opening records (each whole: its
+    values, AOM_ICDF(32768), the counter, padding to ``stride``)."""
     if not isinstance(opening_spec[0], (list, tuple)):
         opening_spec = [opening_spec]
     pattern = []
-    for rec in opening_spec:  # each opening record whole: its values, AOM_ICDF(32768), the counter, padding
+    for rec in opening_spec:
         pattern += [32768 - v for v in rec] + [0] * (stride - len(rec))
-    start = lib.find(pattern, "<u2")
-    raw = lib.read(start, count * stride, "<u2").reshape(count, stride)
+    return pattern
+
+
+def spec_form(raw: np.ndarray, symbols: int) -> np.ndarray:
+    """libaom's CDF records [count, stride], checked -> [count, symbols + 1]
+    in the specification's form."""
+    count = len(raw)
     out = np.zeros((count, symbols + 1), np.int64)
     for k, r in enumerate(raw):
         vals = r[: symbols - 1].astype(np.int64)
@@ -215,6 +227,41 @@ def other_cdfs(lib: Library) -> dict:
     return t
 
 
+def palette_cdfs(lib: Library) -> dict:
+    """The default palette CDFs: the palette sizes of Y and UV (7 block size
+    contexts, 7 sizes; the UV table follows the Y one), whether Y has a
+    palette ([7 block size contexts][3 neighbour contexts]), whether UV
+    has one (2 contexts), and the colour index CDFs of Y and UV ([7 palette
+    sizes][5 colour contexts], n = 2 .. 8 symbols in records of 9 uint16).
+    libaom's frame context setup copies the Y mode table (63 uint16) as
+    its first 112 bytes, then its last 16 in an overlapping load: the
+    library holds those two runs one after the other. The UV mode table
+    is an immediate (``movabs r64, imm64``: its first value, the end of
+    its first record, then the second value)."""
+    t = {}
+    sizes = icdf_records(lib, [7952, 13000, 18149, 21478, 25527, 29241], 7, 8, 14)
+    t["kPaletteYSizeCdf"], t["kPaletteUvSizeCdf"] = sizes[:7], sizes[7:]
+    start = lib.find(_opening([[31676], [3419], [1261]], 3), "<u2")
+    head, tail = lib.read(start, 56, "<u2"), lib.read(start + 112, 8, "<u2")
+    assert tail[0] == head[55], (head, tail)
+    t["kPaletteYModeCdf"] = spec_form(np.concatenate([head, tail[1:]]).reshape(21, 3), 2).reshape(7, 3, 3)
+    first = np.array([32768 - 32461, 0, 0], "<u2").tobytes()
+    k = lib.data.find(first)
+    while k >= 0 and not (lib.data[k - 2] == 0x48 and 0xB8 <= lib.data[k - 1] <= 0xBF):
+        k = lib.data.find(first, k + 1)
+    assert k >= 0, "no movabs of the UV palette mode CDF"
+    uv = lib.read(k, 4, "<u2")
+    t["kPaletteUvModeCdf"] = spec_form(np.concatenate([uv, [0, 0]]).reshape(2, 3), 2)
+    for name, opening in (("kPaletteYColorCdf", [[28710], [16384], [10553], [27036], [31603]]),
+                          ("kPaletteUvColorCdf", [[29089], [16384], [8713], [29257], [31610]])):
+        raw = lib.read(lib.find(_opening(opening, 9), "<u2"), 7 * 5 * 9, "<u2").reshape(7, 5, 9)
+        out = np.zeros((7, 5, 9), np.int64)
+        for n in range(2, 9):
+            out[n - 2, :, : n + 1] = spec_form(raw[n - 2], n)
+        t[name] = out
+    return t
+
+
 def restoration_tables(lib: Library) -> dict:
     """The loop restoration tables: the default CDFs of restoration_type,
     use_wiener and use_sgrproj, which libaom's frame context setup stores
@@ -285,7 +332,7 @@ def main(path: str | None = None) -> str:
     lib = Library(path)
     dc, ac = quantizer_lookups(lib)
     qm = quantizer_matrices(lib)
-    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib)}
+    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib), **palette_cdfs(lib)}
     restoration = restoration_tables(lib)
     consts = constants(lib)
     sc = scans(lib)

@@ -42,7 +42,10 @@ NAMED = {
     "refused-grid": "a grid image",
     "box-premultiplied-alpha": "premultiplied alpha",
     "box-ispe-scaled": "which libavif scales",
-    "box-screen-content": "AV1 screen content tools",
+    # screen content tools set in place: the frame header's next two bits, read now as force_integer_mv and
+    # allow_intrabc, come from its other fields and switch intra block copy on, which the port refuses at the
+    # header; libaom fails on the tiles
+    "box-screen-content": "AV1 intra block copy",
     "box-film-grain": "AV1 film grain",
 }
 # the forms the port refused by name until it applied CDEF, and reads now (each keeps its name)

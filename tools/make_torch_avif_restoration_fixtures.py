@@ -91,8 +91,10 @@ def lr_of(data: bytes, speed: int = -1) -> np.ndarray:
 
 
 def lr_fields(data: bytes) -> dict:
-    """LR_FIELDS by name; all -1 for a frame ``av1_headers`` does not read
-    (screen content tools, which libaom picks for flat content)."""
+    """LR_FIELDS by name; all -1 for a frame ``av1_headers`` does not read.
+    A frame with intra block copy (libaom picks screen content tools for
+    flat content, and intra block copy with them at some speeds) codes no
+    restoration parameters: its types read as 0."""
     try:
         return dict(zip(LR_FIELDS, (int(v) for v in lr_of(data))))
     except ValueError:

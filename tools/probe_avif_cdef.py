@@ -40,6 +40,7 @@ def _tool(name):
 
 cdef_fx = _tool("make_torch_avif_cdef_fixtures")
 lossy, fx, hd, aw = cdef_fx.lossy, cdef_fx.fx, cdef_fx.hd, cdef_fx.aw
+palette_probe = _tool("probe_avif_palette")
 
 
 def _outcome(path: Path, data: bytes):
@@ -74,8 +75,11 @@ def random_frames(path: Path, n: int = 300, seed: int = 2027) -> collections.Cou
         data = cdef_fx.cv2_lossy(img, q, depth, speed)
         try:
             f = hd.fields(fx.payload_of(data)[0])
-        except ValueError as e:  # a header the tool does not read (screen content tools)
+        except ValueError as e:  # a header the tool does not read
             counts[str(e)] += 1
+            continue
+        if f["intrabc"]:  # no CDEF parameters; refused by name, the tool the port lacks
+            counts[palette_probe.outcome(path, data)] += 1
             continue
         rewrite = "cdef_strengths" in f and f["cdef_strengths"] and rng.random() < 1 / 3
         if rewrite:
@@ -87,7 +91,8 @@ def random_frames(path: Path, n: int = 300, seed: int = 2027) -> collections.Cou
         same = ref is not None and isinstance(got, np.ndarray) and np.array_equal(ref, got)
         cdef = any(any(e) for e in f["cdef_strengths"])
         counts[("exact" if same else "DIFFERS") + (", rewritten" if rewrite else "") +
-               (", CDEF" if cdef else ", no CDEF") + (", restoration" if any(f["lr_type"]) else "")] += 1
+               (", CDEF" if cdef else ", no CDEF") + (", restoration" if any(f["lr_type"]) else "") +
+               (", palettes" if f["screen_content"] else "")] += 1
     return counts
 
 

@@ -91,7 +91,7 @@ def random_frames(path: Path, n: int = 300, seed: int = 2026) -> None:
         data = buf.tobytes()
         try:
             f = hd.fields(fx.payload_of(data)[0])
-        except ValueError as e:  # a header the tool does not read (screen content tools)
+        except ValueError as e:  # a header the tool does not read
             counts[str(e)] += 1
             continue
         if any(any(c) for c in f["cdef_strengths"]):

@@ -40,7 +40,8 @@ def _tool(name):
 
 lr_fx = _tool("make_torch_avif_restoration_fixtures")
 cdef_fx, lossy, fx, aw = lr_fx.cdef_fx, lr_fx.lossy, lr_fx.fx, lr_fx.aw
-cdef_strengths = _tool("probe_avif_cdef")._strengths
+cdef_probe = _tool("probe_avif_cdef")
+cdef_strengths, palette_probe = cdef_probe._strengths, cdef_probe.palette_probe
 _TYPES = {1: "switchable", 2: "Wiener", 3: "self-guided"}
 
 
@@ -71,12 +72,14 @@ def random_frames(path: Path, n: int = 300, seed: int = 2029) -> collections.Cou
         q = int(rng.integers(60, 100))
         img = lossy.blurred(h, w, i, ch, depth) if rng.random() < 0.6 else cdef_fx.noise(h, w, i, ch, depth)
         data = cdef_fx.cv2_lossy(img, q, depth, speed)
-        f = lr_fx.lr_fields(data)
-        if f["y"] < 0:  # a header av1_headers does not read (screen content tools)
-            counts[("exact" if _outcome(path, data) else "DIFFERS") + ", header not read"] += 1
+        screen = palette_probe.pal_fx.palette_fields(data)
+        if screen["intrabc"]:  # no restoration parameters; refused by name, the tool the port lacks
+            counts[palette_probe.outcome(path, data)] += 1
             continue
+        f = lr_fx.lr_fields(data)
         types = sorted({_TYPES[t] for t in (f["y"], f["u"], f["v"]) if t > 0})
         kind = ", restoration: " + "+".join(types) if types else ", no restoration"
+        kind += ", palettes" if screen["screen_content"] else ""
         counts[("exact" if _outcome(path, data) else "DIFFERS") + kind] += 1
     return counts
 
