@@ -313,10 +313,11 @@ It builds the CUDA kernels from the sources in the checkout and then:
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
-     with the tables of ``native/av1_tables.h``, its palette mode, loop
-     filter, CDEF and loop restoration, ``ops/avif.py``'s libavif colour
-     conversion): (a) one 1024x768 labelled micrograph (``draw_labelled``,
-     seed 22, its background flattened) in sixteen forms (cv2's quality 95 BGR 4:2:0 and gray,
+     with the tables of ``native/av1_tables.h``, its palette mode, intra
+     block copy, loop filter, CDEF and loop restoration, ``ops/avif.py``'s
+     libavif colour conversion): (a) one 1024x768 labelled micrograph
+     (``draw_labelled``, seed 22, its background flattened) in seventeen
+     forms (cv2's quality 95 BGR 4:2:0 and gray,
      quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
      4:2:0 BT.601 frame; the deblocked frames: cv2's quality 85 BGR,
      quality 90 at 10 bits BGR and 12 bits gray; the CDEF frames: cv2's
@@ -324,28 +325,33 @@ It builds the CUDA kernels from the sources in the checkout and then:
      bits gray; the loop restoration frames, with ``avif_textured``'s
      texture: cv2's 8-bit BGR with Wiener luma units, 10-bit BGR, 8- and
      10-bit gray with self-guided luma units, at speeds 4 and 2; cv2's
-     BGR frame at speed 8, with palettes; the files committed in
+     BGR frame at speed 4, with intra block copy, and at speed 8, with
+     palettes; the files committed in
      ``tests/data/torch_avif_lossy_fixtures.npz``,
      ``tests/data/torch_avif_cdef_fixtures.npz``,
-     ``tests/data/torch_avif_restoration_fixtures.npz`` and
-     ``tests/data/torch_avif_palette_fixtures.npz``) decodes to the
+     ``tests/data/torch_avif_restoration_fixtures.npz``,
+     ``tests/data/torch_avif_palette_fixtures.npz`` and
+     ``tests/data/torch_avif_intrabc_fixtures.npz``) decodes to the
      SHA-256 of cv2's array and near the drawing; (b) cv2's quality-75
      frame, which deblocks and applies CDEF, the textured 8-bit gray frame
      with CDEF then restoration, and the committed restoration fixtures
      (cv2's frames at speeds 0-4, the AV1 writer's SWITCHABLE, 4:4:4,
-     4:2:2, 12-bit, 128x128-superblock and tiled frames) and palette
+     4:2:2, 12-bit, 128x128-superblock and tiled frames), palette
      fixtures (cv2's frames at speeds 0-8, the writer's 4:2:2, lossy
-     4:4:4, 128x128-superblock and tiled ones) decode to cv2's arrays or
-     their SHA-256, and the writer's frame with delta loop filter levels
-     and cv2's speed-4 frame with intra block copy raise
-     ``UnsupportedImageError`` naming them; (c) committed 2048² BGR
-     rasters: the micrograph at quality 95, at 85 (deblocked) and at cv2's
-     default quality (deblocked, CDEF), blurred noise at speed 4
-     (self-guided restoration in every plane), and the flattened labelled
-     frame tiled at speed 8 (palettes) and at cv2's default speed: host
-     decode seconds (median of 3) beside an uncompressed TIFF of the same
-     pixels, and each as a multiple of quality 95's; (d) the sixteen frames
-     through the CLI as phase 19 (c) takes its dataset.
+     4:4:4, 128x128-superblock and tiled ones) and intra block copy
+     fixtures (cv2's frames at speeds 0-7, the writer's 4:2:2,
+     128x128-superblock and two-tile-row ones) decode to cv2's arrays or
+     their SHA-256, the writer's frame with a DV into its own undecoded
+     block fails where cv2 fails, and the writer's frame with delta loop
+     filter levels raises ``UnsupportedImageError`` naming it; (c)
+     committed 2048² BGR rasters: the micrograph at quality 95, at 85
+     (deblocked) and at cv2's default quality (deblocked, CDEF), blurred
+     noise at speed 4 (self-guided restoration in every plane), and the
+     flattened labelled frame tiled at speed 4 (intra block copy), at
+     speed 8 (palettes) and at cv2's default speed: host decode seconds
+     (median of 3) beside an uncompressed TIFF of the same pixels, and
+     each as a multiple of quality 95's; (d) the seventeen frames through
+     the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
 
@@ -4626,16 +4632,16 @@ AVIF_RESTORATION_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_rest
 # join the dataset, the last (CDEF, then restoration) is read in (b)
 AVIF_RESTORATION_FORMS = {"lr-bgr8": 14, "lr-bgr10": 10, "lr-gray8": 14, "lr-gray10": 14, "lr-cdef-gray8": 12}
 AVIF_PALETTE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_palette_fixtures.npz")
-# phase 22's palette frame (``smoke-<form>`` in AVIF_PALETTE_FIXTURES: the labelled frame as cv2 writes it at speed
-# 8, with screen content tools: palettes, deblocked, CDEF) -> how far it may lie from the drawing; it joins the dataset
-AVIF_PALETTE_FORMS = {"palette-bgr8": 96}
+AVIF_INTRABC_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_intrabc_fixtures.npz")
+# phase 22's screen content frames (``smoke-<form>`` in AVIF_INTRABC_FIXTURES and AVIF_PALETTE_FIXTURES: the
+# labelled frame as cv2 writes it at speed 4, with intra block copy and palettes, no in-loop filter; at speed 8, with
+# palettes, deblocked, CDEF) -> how far each may lie from the drawing; both join the dataset, the first as sem_15,
+# one of the four the split holds out for evaluation
+AVIF_PALETTE_FORMS = {"intrabc-bgr8": 8, "palette-bgr8": 96}
 # the committed frames cv2 reads and the port refuses by name: (fixture file, entry, the words of the refusal, what it
-# is): the AV1 writer's frame with delta loop filter levels (each superblock's deltas 0), cv2's speed-4 frame of
-# phase 22's labelled frame, which takes intra block copy
+# is): the AV1 writer's frame with delta loop filter levels (each superblock's deltas 0)
 AVIF_NAMED = {"delta-lf": (AVIF_CDEF_FIXTURES, "refused-delta-lf-420-8", "AV1 delta loop filter levels",
-                           "the writer's frame with delta LF"),
-              "intrabc": (AVIF_PALETTE_FIXTURES, "refused-intrabc-smoke", "AV1 intra block copy",
-                          "cv2's speed-4 frame with intra block copy")}
+                           "the writer's frame with delta LF")}
 AVIF_LOSSY_SEED = 22
 
 
@@ -5242,7 +5248,7 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
 
 def refuse_named(tag: str, path: str, form: str) -> None:
     """An ``AVIF_NAMED`` frame raises ``UnsupportedImageError`` naming its
-    tool (delta LF in phases 21 (d) and 22 (b), intra block copy in 22 (b))."""
+    tool (delta LF in phases 21 (d) and 22 (b))."""
     from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 
     fixtures, name, words, what = AVIF_NAMED[form]
@@ -5257,22 +5263,34 @@ def refuse_named(tag: str, path: str, form: str) -> None:
 
 
 def read_committed_fixtures(tag: str, path: str, fixtures_path: str, what: str) -> None:
-    """A committed fixture file's frames but the 2048² rasters and those
-    refused by name (the loop restoration file's: cv2's frames at speeds
-    0-4, the AV1 writer's, phase 22's textured frames; the palette file's:
-    cv2's palette frames at speeds 0-8, the writer's, phase 22's palette
-    frame) decode to cv2's arrays or their SHA-256 (phase 22 (b))."""
+    """A committed fixture file's frames but the 2048² rasters and the one
+    once refused by name (the loop restoration file's: cv2's frames at
+    speeds 0-4, the AV1 writer's, phase 22's textured frames; the palette
+    file's: cv2's palette frames at speeds 0-8, the writer's, phase 22's
+    palette frame; the intra block copy file's: cv2's frames at speeds 0-7,
+    the writer's, phase 22's frame) decode to cv2's arrays or their SHA-256,
+    and one cv2 reads nothing of (the writer's DV into its own undecoded
+    block) fails as a corrupt stream (phase 22 (b))."""
     import hashlib
 
-    from deepemia_tpu_torch.ops.image import read_image
+    from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 
     fixtures = np.load(fixtures_path)
     names = sorted(n for n in {k.split("/")[0] for k in fixtures.files}
                    if not n.startswith(("smoke-2048", "refused-")))
-    kinds = {"array": 0, "sha256": 0}
+    kinds = {"array": 0, "sha256": 0, "none": 0}
     for name in names:
         with open(path, "wb") as f:
             f.write(fixtures[f"{name}/file"].tobytes())
+        if f"{name}/none" in fixtures.files:
+            try:
+                read_image(path)
+                raise AssertionError(f"read_image decoded {name}, which cv2 fails on")
+            except UnsupportedImageError:
+                raise
+            except ValueError:
+                kinds["none"] += 1
+            continue
         got = read_image(path)
         if f"{name}/bgr" in fixtures.files:
             assert np.array_equal(got, fixtures[f"{name}/bgr"]), name
@@ -5282,7 +5300,8 @@ def read_committed_fixtures(tag: str, path: str, fixtures_path: str, what: str) 
             kinds["sha256"] += 1
     os.remove(path)
     print(f"{tag}: {len(names)} committed {what} fixtures as OpenCV read them: {kinds['array']} bit for "
-          f"bit to its arrays, {kinds['sha256']} to its SHA-256", flush=True)
+          f"bit to its arrays, {kinds['sha256']} to its SHA-256"
+          + (f", {kinds['none']} failing where it fails" if kinds["none"] else ""), flush=True)
 
 
 def avif_only():
@@ -5314,9 +5333,11 @@ def avif_lossy_forms() -> dict:
 
 
 def avif_lossy_fixtures() -> dict:
-    """Phase 22's fixture files, merged: lossy, CDEF, loop restoration and palette."""
+    """Phase 22's fixture files, merged: lossy, CDEF, loop restoration, palette and, of intra block copy, phase
+    22's frames."""
+    intrabc = np.load(AVIF_INTRABC_FIXTURES)
     return {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES),
-            **np.load(AVIF_PALETTE_FIXTURES)}
+            **np.load(AVIF_PALETTE_FIXTURES), **{k: intrabc[k] for k in intrabc.files if k.startswith("smoke-")}}
 
 
 def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOSSY_SEED):
@@ -5362,16 +5383,17 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
     cv2's array and near the drawing; three of them deblocked, three more
     deblocked and filtered with CDEF, four with loop restoration, one with
-    palettes); (b) cv2's quality-75 frame, which deblocks and applies CDEF,
-    and the textured gray frame with CDEF then loop restoration, to the
-    SHA-256 of cv2's arrays, the committed restoration and palette fixtures
-    to cv2's arrays (``read_committed_fixtures``), and the AV1 writer's
-    frame with delta loop filter levels and cv2's frame with intra block
-    copy raise ``UnsupportedImageError`` naming them; (c) the committed
+    palettes, one with intra block copy); (b) cv2's quality-75 frame, which
+    deblocks and applies CDEF, and the textured gray frame with CDEF then
+    loop restoration, to the SHA-256 of cv2's arrays, the committed
+    restoration, palette and intra block copy fixtures to cv2's arrays
+    (``read_committed_fixtures``), and the AV1 writer's frame with delta
+    loop filter levels raises ``UnsupportedImageError`` naming it; (c) the committed
     2048² BGR micrograph at quality 95, at 85 (deblocked) and at cv2's
     default quality (deblocked, CDEF), blurred noise at speed 4
     (self-guided restoration in every plane), and the flattened labelled
-    frame tiled to 2048² at speed 8 (palettes) and at cv2's default speed:
+    frame tiled to 2048² at speed 4 (intra block copy), at speed 8
+    (palettes) and at cv2's default speed:
     host decode seconds (median of 3) beside an uncompressed TIFF of the
     same pixels, each as a multiple of quality 95's, with the card's name
     and power limit; (d) the dataset through the CLI (``cli_on_dataset``)
@@ -5406,6 +5428,8 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
                             "loop restoration")
     read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "palette.avif"), AVIF_PALETTE_FIXTURES,
                             "palette")
+    read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "intrabc.avif"), AVIF_INTRABC_FIXTURES,
+                            "intra block copy")
     for form in AVIF_NAMED:
         refuse_named("avif lossy", os.path.join(AVIF_LOSSY_DIR, f"{form}.avif"), form)
 
@@ -5416,8 +5440,10 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
                        ("smoke-2048-default", "micrograph at the default quality, deblocked and CDEF"),
                        ("smoke-2048-speed4", "blurred noise at speed 4, quality 75, self-guided restoration in "
                         "every plane"),
-                       ("smoke-2048-palette", "the flattened labelled frame tiled, at speed 8: screen content tools, "
-                        "palettes, deblocked and CDEF"),
+                       ("smoke-2048-intrabc", "the flattened labelled frame tiled, at speed 4: screen content "
+                        "tools, intra block copy and palettes, no in-loop filter"),
+                       ("smoke-2048-palette", "the same tiled frame at speed 8: screen content tools, palettes, "
+                        "deblocked and CDEF"),
                        ("smoke-2048-speed9", "the same tiled frame at cv2's default speed: no screen content tools, "
                         "deblocked and CDEF")):
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")

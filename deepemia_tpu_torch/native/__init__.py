@@ -295,9 +295,10 @@ def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[list]]:
     transfer characteristics, subsampling x, subsampling y, then what the
     frame's palettes coded: a bit per palette size (1 << n) of Y, of UV,
     the colours taken from a colour cache, the V colours coded as
-    deltas."""
+    deltas, then what intra block copy coded: its blocks, those whose DV
+    stack held a candidate, a bit per path taken."""
     src = np.frombuffer(data, np.uint8)
-    meta = np.zeros(15, np.int32)
+    meta = np.zeros(18, np.int32)
     lib = get_lib("av1")
     status = lib.av1_decode(_ptr(src), src.size, _ptr(meta))
     if status:

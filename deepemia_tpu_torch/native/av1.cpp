@@ -9,26 +9,30 @@
 // mode with its colour cache and colour index maps, filter intra, the
 // transform depth), coefficients of every transform size from 4x4 to
 // 64x64 at the frame's q-context with their transform types (the
-// intra sets), dequantization with quantizer matrices, the inverse DCT,
-// ADST, identity and (lossless) Walsh-Hadamard transforms, and intra
-// prediction at every transform size (DC, V, H, the directional modes with
-// the edge filter and upsampling, smooth, Paeth, CFL, recursive filter
-// intra, palette), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or 4:0:0, and
-// the three in-loop filters: deblocking (7.14), CDEF (7.15) and loop
-// restoration (7.17: Wiener and self-guided units, switchable or not). Of the
-// screen content tools, palette mode is decoded and intra block copy is not:
-// a frame that allows it is refused at its header, as its tiles cannot be
-// parsed without the tool. Delta loop filter levels are not applied: a frame
-// that turns them on is refused with the tool's number (kTool*), as is a
-// stream that uses any other tool this decoder lacks; none is decoded wrong.
+// intra and inter sets), dequantization with quantizer matrices, the inverse
+// DCT, ADST, flipped ADST, identity and (lossless) Walsh-Hadamard transforms,
+// and intra prediction at every transform size (DC, V, H, the directional
+// modes with the edge filter and upsampling, smooth, Paeth, CFL, recursive
+// filter intra, palette), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or
+// 4:0:0, and the three in-loop filters: deblocking (7.14), CDEF (7.15) and
+// loop restoration (7.17: Wiener and self-guided units, switchable or not).
+// Both screen content tools are decoded: palette mode, and intra block copy
+// (a block vector from the spatial DV stack, coded against MV_INTRABC_CONTEXT
+// and held to libaom's validity rules; the block copied from the frame's
+// unfiltered reconstruction, chroma bilinear at half pixels; the variable
+// transform partitioning and the inter transform types of its residual).
+// Delta loop filter levels are not applied: a frame that turns them on is
+// refused with the tool's number (kTool*), as is a stream that uses any
+// other tool this decoder lacks; none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
 // (aom_reader_has_overflowed), a Golomb code longer than 20 bits, an OBU
 // larger than its data, a sequence or frame header whose trailing bits are
 // not a one and zeros, a partition whose chroma block the subsampling does
-// not allow. A frame refused for an in-loop filter is read to its end first,
-// so that a stream libaom fails on fails here too.
+// not allow, a block vector libaom's av1_is_dv_valid rejects. A frame refused
+// for an in-loop filter is read to its end first, so that a stream libaom
+// fails on fails here too.
 //
 // The specification's larger tables (quantizer lookups and matrices, the
 // coefficient, transform type and depth CDFs, scans, smooth weights) are in
@@ -229,14 +233,20 @@ static const int kMaxTxRect[22] = {TX_4X4, TX_4X8, TX_8X4, TX_8X8, TX_8X16, TX_1
                                    TX_32X16, TX_32X32, TX_32X64, TX_64X32, TX_64X64, TX_64X64, TX_64X64, TX_64X64,
                                    TX_4X16, TX_16X4, TX_8X32, TX_32X8, TX_16X64, TX_64X16};
 static const int kMaxTxDepth[22] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
-// transform types (the intra sets use the first four, IDTX, V_DCT and H_DCT)
-enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX = 9, V_DCT, H_DCT };
+// transform types (the intra sets use the first four, IDTX, V_DCT and H_DCT; the inter sets all 16)
+enum { DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+       FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST };
 static const int kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
                                     DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST, ADST_ADST, DCT_DCT};
 static const int kTxTypeIntraInvSet1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
 static const int kTxTypeIntraInvSet2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+static const int kTxTypeInterInvSet1[16] = {IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, DCT_DCT,
+                                            ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+                                            FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+static const int kTxTypeInterInvSet2[12] = {IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+                                            DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
 static const int kFilterIntraModeToIntraDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED, DC_PRED};
-enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2, TX_SET_INTER_1, TX_SET_INTER_2, TX_SET_INTER_3 };
 enum { kRestoreNone, kRestoreWiener, kRestoreSgrproj, kRestoreSwitchable };  // the specification's FrameRestorationType
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 static const int kSigRefDiffOffset[3][5][2] = {{{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
@@ -544,8 +554,12 @@ struct Tx1d {
 // 7.13.3: the 2D inverse transform of dequantized coefficients (the coded top-left part, at most 32x32,
 // row-major) -> the residual [h][w]
 void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int32_t* res) {
-  static const int row_kind[12] = {0, 0, 1, 1, 0, 0, 0, 0, 0, 2, 2, 0};  // DCT_DCT .. H_DCT (no flips)
-  static const int col_kind[12] = {0, 1, 0, 1, 0, 0, 0, 0, 0, 2, 0, 2};
+  // per type, the kind of the row (horizontal) and column transforms, and whether a flipped ADST reverses the
+  // rows' outputs (left-right) or the columns' (upside down)
+  static const int row_kind[16] = {0, 0, 1, 1, 0, 1, 1, 1, 1, 2, 2, 0, 2, 1, 2, 1};
+  static const int col_kind[16] = {0, 1, 0, 1, 1, 0, 1, 1, 1, 2, 0, 2, 1, 2, 1, 2};
+  static const bool flip_lr[16] = {0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 1};
+  static const bool flip_ud[16] = {0, 0, 0, 0, 1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 1, 0};
   const int lw = kTxWLog2[tx], lh = kTxHLog2[tx], w = 1 << lw, h = 1 << lh, tw = std::min(w, 32);
   const Tx1d rows{bd + 8}, cols{std::max(bd + 6, 16)};
   const int shift = kTxRowShift[tx];
@@ -561,7 +575,8 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
     }
     if (any) {
       rows.run(t, w, row_kind[tx_type]);
-      for (int j = 0; j < w; ++j) r[j] = shift ? (int32_t)(((int64_t)t[j] + (1 << (shift - 1))) >> shift) : t[j];
+      for (int j = 0; j < w; ++j)
+        r[flip_lr[tx_type] ? w - 1 - j : j] = shift ? (int32_t)(((int64_t)t[j] + (1 << (shift - 1))) >> shift) : t[j];
     } else {
       for (int j = 0; j < w; ++j) r[j] = 0;
     }
@@ -569,7 +584,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
   for (int j = 0; j < w; ++j) {
     for (int i = 0; i < h; ++i) t[i] = cols.clamp(res[i * w + j]);
     cols.run(t, h, col_kind[tx_type]);
-    for (int i = 0; i < h; ++i) res[i * w + j] = (int32_t)(((int64_t)t[i] + 8) >> 4);
+    for (int i = 0; i < h; ++i) res[(flip_ud[tx_type] ? h - 1 - i : i) * w + j] = (int32_t)(((int64_t)t[i] + 8) >> 4);
   }
 }
 
@@ -579,7 +594,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 enum Tool {
   kToolSegmentation = 3,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
-  kToolShowExisting = 10, kToolDeltaLf = 11, kToolIntraBc = 13
+  kToolShowExisting = 10, kToolDeltaLf = 11
 };
 
 namespace {
@@ -771,6 +786,10 @@ struct Cdfs {
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
   uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3], palette_y_size[7][8], palette_uv_size[7][8];
   uint16_t palette_color[2][7][5][9];  // [Y, UV][palette size - 2][colour context]
+  // intra block copy: use_intrabc, the MV CDFs of MV_INTRABC_CONTEXT (per component: row, column), the transform
+  // split flag of inter blocks and the inter transform types of sets 1, 2, 3 by square size
+  uint16_t intrabc[3], mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0[2][3], mv_bits[2][10][3];
+  uint16_t txfm_split[21][3], inter_tx1[4][17], inter_tx2[4][13], inter_tx3[4][3];
   void reset(int qctx) {
     using namespace av1t;
     std::memcpy(partition8, kPartition8, sizeof partition8);
@@ -818,6 +837,16 @@ struct Cdfs {
     std::memcpy(palette_uv_size, kPaletteUvSizeCdf, sizeof palette_uv_size);
     std::memcpy(palette_color[0], kPaletteYColorCdf, sizeof palette_color[0]);
     std::memcpy(palette_color[1], kPaletteUvColorCdf, sizeof palette_color[1]);
+    std::memcpy(intrabc, kIntrabcCdf, sizeof intrabc);
+    std::memcpy(mv_joint, kMvJointCdf, sizeof mv_joint);
+    std::memcpy(mv_class, kMvClassCdf, sizeof mv_class);
+    std::memcpy(mv_sign, kMvSignCdf, sizeof mv_sign);
+    std::memcpy(mv_class0, kMvClass0BitCdf, sizeof mv_class0);
+    std::memcpy(mv_bits, kMvBitsCdf, sizeof mv_bits);
+    std::memcpy(txfm_split, kTxfmSplitCdf, sizeof txfm_split);
+    std::memcpy(inter_tx1, kInterTxTypeSet1Cdf, sizeof inter_tx1);
+    std::memcpy(inter_tx2, kInterTxTypeSet2Cdf, sizeof inter_tx2);
+    std::memcpy(inter_tx3, kInterTxTypeSet3Cdf, sizeof inter_tx3);
   }
 };
 
@@ -829,7 +858,7 @@ struct Decoder {
   Sequence seq;
   // the frame header
   int width = 0, height = 0, mi_cols = 0, mi_rows = 0;
-  int disable_cdf_update = 0, allow_screen_content = 0;
+  int disable_cdf_update = 0, allow_screen_content = 0, allow_intrabc = 0;
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 0;
   std::vector<int> mi_col_starts, mi_row_starts;
   int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
@@ -852,6 +881,19 @@ struct Decoder {
   // per 4x4 unit of the frame
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
   std::vector<int8_t> cdef_idx;  // per 64x64
+  // under intra block copy: per 4x4 unit of the frame whether its block copies (an inter block of INTRA_FRAME) and
+  // its block vector; per mode info column (above) and row (left) the width or height in pixels of the transform
+  // last coded there (the contexts of the transform split flag, 64 where none was)
+  struct Mv {
+    int16_t row, col;  // 1/8 pixels
+    bool operator==(const Mv& o) const { return row == o.row && col == o.col; }
+  };
+  std::vector<uint8_t> is_inters;
+  std::vector<Mv> dvs;
+  std::vector<uint8_t> above_txfm, left_txfm;
+  // what the frame's intra block copy coded (meta[15..17]): its blocks, those whose DV stack held a candidate, and
+  // a bit per path taken (kPath*)
+  int intrabc_blocks = 0, intrabc_stacked = 0, intrabc_paths = 0;
   // under screen content tools: the palettes of the blocks that have one, and per 4x4 unit of the frame the index of
   // its block's there (-1: none)
   struct Palette {
@@ -882,7 +924,9 @@ struct Decoder {
   Symbol sym;
   // the block
   int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
-  int skip, y_mode, uv_mode, angle_y, angle_uv, tx_size;
+  int skip, y_mode, uv_mode, angle_y, angle_uv, tx_size, partition, use_intrabc;
+  Mv dv;
+  uint8_t inter_tx[32][32];  // an intra block copy's transform size per 4x4 luma unit of the block
   int use_filter_intra, filter_intra_mode, cfl_alpha_u, cfl_alpha_v, max_luma_w, max_luma_h;
   // the block's palettes: Y's and UV's sizes, the colours of Y, U and V, the colour index maps of Y and UV (row-major,
   // map_w[k] wide)
@@ -1053,9 +1097,8 @@ struct Decoder {
     if (width > 32768 || height > 32768 || (int64_t)width * height > 16384 * 16384) throw TooLarge{};
     if (seq.superres && b.f(1)) throw Unsupported{kToolSuperres};
     if (b.f(1)) { b.f(16); b.f(16); }  // render size: libaom decodes at the frame size
-    // allow_intrabc (the upscaled width is the frame's: superres is refused above). Its blocks' syntax cannot be
-    // parsed without the tool, so the frame is refused here, not read to its end as for an in-loop filter
-    if (allow_screen_content && b.f(1)) throw Unsupported{kToolIntraBc};
+    // allow_intrabc (the upscaled width is the frame's: superres is refused above)
+    allow_intrabc = allow_screen_content ? b.f(1) : 0;
     mi_cols = 2 * ((width + 7) >> 3);
     mi_rows = 2 * ((height + 7) >> 3);
     // disable_frame_end_update_cdf
@@ -1089,7 +1132,7 @@ struct Decoder {
     // delta_q_params, delta_lf_params
     delta_q_present = base_q_idx > 0 ? b.f(1) : 0;
     delta_q_res = delta_q_present ? b.f(2) : 0;
-    delta_lf_present = delta_q_present ? b.f(1) : 0;
+    delta_lf_present = delta_q_present && !allow_intrabc ? b.f(1) : 0;
     delta_lf_multi = 0;
     if (delta_lf_present) {
       b.f(2);  // delta_lf_res
@@ -1108,7 +1151,7 @@ struct Decoder {
       lr_type[p] = kRestoreNone;
       lr_unit_size[p] = 256;
     }
-    if (!lossless) {
+    if (!lossless && !allow_intrabc) {  // intra block copy codes no in-loop filter: each stays off
       // loop_filter_params, the deltas from setup_past_independence's defaults
       lf_level[0] = b.f(6);
       lf_level[1] = b.f(6);
@@ -1157,10 +1200,8 @@ struct Decoder {
           lr_unit_size[1] = lr_unit_size[2] = lr_unit_size[0] >> uv_shift;
         }
       }
-      tx_mode_select = b.f(1);  // tx_mode: TX_MODE_SELECT, else TX_MODE_LARGEST
-    } else {
-      tx_mode_select = 0;  // ONLY_4X4
     }
+    tx_mode_select = lossless ? 0 : b.f(1);  // tx_mode: ONLY_4X4 when lossless, TX_MODE_SELECT, TX_MODE_LARGEST
     reduced_tx_set = b.f(1);
     if (seq.film_grain && b.f(1)) throw Unsupported{kToolFilmGrain};  // apply_grain
   }
@@ -1242,6 +1283,10 @@ struct Decoder {
     size_t n = (size_t)mi_cols * mi_rows;
     y_modes.assign(n, 0); uv_modes.assign(n, 0); mi_sizes.assign(n, 0); skips.assign(n, 0);
     tx_sizes.assign(n, 0); tx_types.assign(n, 0);
+    is_inters.assign(n, 0);
+    dvs.assign(allow_intrabc ? n : 0, Mv{0, 0});
+    above_txfm.assign(mi_cols + 32, 64);
+    left_txfm.assign(mi_rows + 32, 64);
     palettes.clear();
     palette_of.assign(allow_screen_content ? n : 0, -1);
     cdef_idx.assign((size_t)((mi_rows + 15) / 16 + 2) * ((mi_cols + 15) / 16 + 2), -1);
@@ -1311,12 +1356,14 @@ struct Decoder {
       std::fill(above_level[p].begin(), above_level[p].end(), 0);
       std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
     }
+    std::fill(above_txfm.begin(), above_txfm.end(), 64);
     int sb4 = seq.sb128 ? 32 : 16;
     for (int r = mi_row_start; r < mi_row_end; r += sb4) {
       for (int p = 0; p < planes; ++p) {
         std::fill(left_level[p].begin(), left_level[p].end(), 0);
         std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
       }
+      std::fill(left_txfm.begin(), left_txfm.end(), 64);
       for (int c = mi_col_start; c < mi_col_end; c += sb4) {
         read_deltas = delta_q_present;
         for (int y = r; y < r + sb4; y += 16)
@@ -1399,14 +1446,14 @@ struct Decoder {
     // libaom: a partition whose chroma block the subsampling does not allow
     if (planes > 1 && kSubsampled[sub][seq.ssx][seq.ssy] == BLOCK_INVALID) throw Corrupt{__LINE__};
     switch (partition) {
-      case P_NONE: decode_block(r, c, sub); break;
+      case P_NONE: decode_block(r, c, sub, partition); break;
       case P_HORZ:
-        decode_block(r, c, sub);
-        if (has_rows) decode_block(r + half, c, sub);
+        decode_block(r, c, sub, partition);
+        if (has_rows) decode_block(r + half, c, sub, partition);
         break;
       case P_VERT:
-        decode_block(r, c, sub);
-        if (has_cols) decode_block(r, c + half, sub);
+        decode_block(r, c, sub, partition);
+        if (has_cols) decode_block(r, c + half, sub, partition);
         break;
       case P_SPLIT:
         decode_partition(r, c, sub);
@@ -1415,31 +1462,39 @@ struct Decoder {
         decode_partition(r + half, c + half, sub);
         break;
       case P_HORZ_A:
-        decode_block(r, c, split); decode_block(r, c + half, split); decode_block(r + half, c, sub);
+        decode_block(r, c, split, partition);
+        decode_block(r, c + half, split, partition);
+        decode_block(r + half, c, sub, partition);
         break;
       case P_HORZ_B:
-        decode_block(r, c, sub); decode_block(r + half, c, split); decode_block(r + half, c + half, split);
+        decode_block(r, c, sub, partition);
+        decode_block(r + half, c, split, partition);
+        decode_block(r + half, c + half, split, partition);
         break;
       case P_VERT_A:
-        decode_block(r, c, split); decode_block(r + half, c, split); decode_block(r, c + half, sub);
+        decode_block(r, c, split, partition);
+        decode_block(r + half, c, split, partition);
+        decode_block(r, c + half, sub, partition);
         break;
       case P_VERT_B:
-        decode_block(r, c, sub); decode_block(r, c + half, split); decode_block(r + half, c + half, split);
+        decode_block(r, c, sub, partition);
+        decode_block(r, c + half, split, partition);
+        decode_block(r + half, c + half, split, partition);
         break;
       case P_HORZ_4:
         for (int i = 0; i < 4; ++i)
-          if (i < 3 || r + quarter * 3 < mi_rows) decode_block(r + quarter * i, c, sub);
+          if (i < 3 || r + quarter * 3 < mi_rows) decode_block(r + quarter * i, c, sub, partition);
         break;
       case P_VERT_4:
         for (int i = 0; i < 4; ++i)
-          if (i < 3 || c + quarter * 3 < mi_cols) decode_block(r, c + quarter * i, sub);
+          if (i < 3 || c + quarter * 3 < mi_cols) decode_block(r, c + quarter * i, sub, partition);
         break;
     }
   }
 
   // ---- a block (5.11.5) ----
-  void decode_block(int r, int c, int bsize) {
-    mi_row = r; mi_col = c; mi_size = bsize;
+  void decode_block(int r, int c, int bsize, int part) {
+    mi_row = r; mi_col = c; mi_size = bsize; partition = part;
     int bw4 = kWide4[bsize], bh4 = kHigh4[bsize];
     has_chroma = planes > 1 && !(seq.ssx && bw4 == 1 && (c & 1) == 0) && !(seq.ssy && bh4 == 1 && (r & 1) == 0);
     avail_u = inside(r - 1, c);
@@ -1454,7 +1509,12 @@ struct Decoder {
     }
     intra_frame_mode_info();
     palette_tokens();
-    read_tx_size();
+    if (use_intrabc) {
+      read_block_tx_size();
+    } else {
+      read_tx_size();
+      set_txfm_ctxs(tx_w(tx_size), tx_h(tx_size));
+    }
     if (skip) {
       for (int p = 0; p < 1 + 2 * has_chroma; ++p) {
         for (int i = c >> ssx(p); i < (c + bw4) >> ssx(p); ++i) { above_level[p][i] = 0; above_dc[p][i] = 0; }
@@ -1468,7 +1528,9 @@ struct Decoder {
         int64_t k = (int64_t)(r + y) * mi_cols + c + x;
         y_modes[k] = (uint8_t)y_mode; mi_sizes[k] = (uint8_t)bsize;
         if (has_chroma) uv_modes[k] = (uint8_t)uv_mode;
-        skips[k] = (uint8_t)skip; tx_sizes[k] = (uint8_t)tx_size;
+        skips[k] = (uint8_t)skip; tx_sizes[k] = (uint8_t)(use_intrabc ? inter_tx[y][x] : tx_size);
+        is_inters[k] = (uint8_t)use_intrabc;
+        if (use_intrabc) dvs[k] = dv;
         if (palette_size[0] || palette_size[1]) palette_of[k] = (int32_t)palettes.size();
       }
     }
@@ -1477,6 +1539,7 @@ struct Decoder {
       std::memcpy(pal.colors, palette_colors, sizeof pal.colors);
       palettes.push_back(pal);
     }
+    if (use_intrabc) predict_intrabc();
     residual();
   }
 
@@ -1488,6 +1551,15 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = 0;
+    palette_size[0] = palette_size[1] = 0;
+    use_filter_intra = 0;
+    use_intrabc = allow_intrabc ? sym.read(cdf.intrabc, 2) : 0;
+    if (use_intrabc) {  // read_intrabc_info: the block keeps DC_PRED as its modes, which later blocks' contexts read
+      y_mode = uv_mode = DC_PRED;
+      angle_y = angle_uv = cfl_alpha_u = cfl_alpha_v = 0;
+      read_dv();
+      return;
+    }
     int above = kIntraModeContext[avail_u ? y_modes[(mi_row - 1) * mi_cols + mi_col] : 0];
     int left = kIntraModeContext[avail_l ? y_modes[mi_row * mi_cols + mi_col - 1] : 0];
     y_mode = sym.read(cdf.kf_y[above * 5 + left], 13);
@@ -1516,13 +1588,214 @@ struct Decoder {
       if (angle_delta && uv_mode >= V_PRED && uv_mode <= D67_PRED)
         angle_uv = sym.read(cdf.angle[uv_mode - V_PRED], 7) - 3;
     }
-    palette_size[0] = palette_size[1] = 0;
     if (allow_screen_content && mi_size >= B8X8 && kWide4[mi_size] <= 16 && kHigh4[mi_size] <= 16)
       palette_mode_info();
-    use_filter_intra = 0;
     if (seq.filter_intra && y_mode == DC_PRED && !palette_size[0] && std::max(kWide4[mi_size], kHigh4[mi_size]) <= 8) {
       use_filter_intra = sym.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sym.read(cdf.filter_intra_mode, 5);
+    }
+  }
+
+  // ---- intra block copy (5.11.23-26, 7.10.2, 7.11.3; libaom's read_intrabc_info) ----
+  // the paths a frame's blocks took (meta[17])
+  enum {
+    kPathHalfX = 1, kPathHalfY = 2, kPathVarTx1 = 4, kPathVarTx2 = 8, kPathSet1 = 16, kPathSet2 = 32, kPathSet3 = 64,
+    kPathDefaultAbove = 128, kPathDefaultLeft = 256
+  };
+  struct Candidate {
+    Mv mv;
+    int weight;
+  };
+
+  // add_ref_mv_candidate: the block at (r, c), if it copies, adds its DV or the weight to an equal one
+  void add_candidate(int r, int c, int weight, Candidate* stack, int* n) const {
+    const int64_t k = (int64_t)r * mi_cols + c;
+    if (!is_inters[k]) return;
+    for (int i = 0; i < *n; ++i)
+      if (stack[i].mv == dvs[k]) {
+        stack[i].weight += weight;
+        return;
+      }
+    if (*n < 8) stack[(*n)++] = Candidate{dvs[k], weight};
+  }
+
+  // scan_row_mbmi (rows above, delta < 0) and scan_col_mbmi (columns left): the blocks along the block's side at
+  // ``delta``, weighted by their overlap; a neighbour as wide (high) as the block takes the rows (columns) up to
+  // ``max_delta`` in one weight, and the later scans skip them
+  void scan_line(bool row, int delta, int max_delta, int* processed, Candidate* stack, int* n) const {
+    const int along = row ? kWide4[mi_size] : kHigh4[mi_size];
+    const int end = std::min(std::min(along, row ? mi_cols - mi_col : mi_rows - mi_row), 16);
+    int offset = 0;
+    if (std::abs(delta) > 1) offset = 1 - (((row ? mi_col : mi_row) & 1) && along < 2);
+    for (int i = 0; i < end;) {
+      const int r = row ? mi_row + delta : mi_row + offset + i, c = row ? mi_col + offset + i : mi_col + delta;
+      const int cand = mi_sizes[(int64_t)r * mi_cols + c];
+      const int cand_along = row ? kWide4[cand] : kHigh4[cand], cand_across = row ? kHigh4[cand] : kWide4[cand];
+      int len = std::min(along, cand_along);
+      if (along >= 16) len = std::max(4, len);
+      else if (std::abs(delta) > 1) len = std::max(len, 2);
+      int weight = 2;
+      if (along >= 2 && along <= cand_along) {
+        const int inc = std::min(-max_delta + delta + 1, cand_across);
+        weight = std::max(weight, inc);
+        *processed = inc - delta - 1;
+      }
+      add_candidate(r, c, len * weight, stack, n);
+      i += len;
+    }
+  }
+
+  // has_top_right (libaom's mvref_common.c): whether the block above and to the right is decoded
+  bool dv_has_top_right() const {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size], sb = seq.sb128 ? 32 : 16;
+    const int mask_row = mi_row & (sb - 1), mask_col = mi_col & (sb - 1);
+    int bs = std::max(bw4, bh4);
+    if (bs > 16) return false;
+    bool has_tr = !((mask_row & bs) && (mask_col & bs));
+    for (; bs < sb; bs <<= 1) {
+      if (!(mask_col & bs)) break;
+      if ((mask_col & (2 * bs)) && (mask_row & (2 * bs))) {
+        has_tr = false;
+        break;
+      }
+    }
+    if (bw4 < bh4 && ((mi_col + bw4) & (bh4 - 1))) has_tr = true;  // not the last of a vertical split
+    if (bw4 > bh4 && (mi_row & (bw4 - 1))) has_tr = false;         // not the first of a horizontal split
+    if (partition == P_VERT_A && bw4 == bh4 && (mask_row & bs)) has_tr = false;
+    return has_tr;
+  }
+
+  // setup_ref_mv_list for INTRA_FRAME: the spatial candidates (the nearest row and column, the top-right and
+  // top-left blocks, then two more rows and columns out), ranked by weight, the nearest first, each clamped
+  int dv_stack(Candidate* stack) const {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    const int row_adj = bh4 < 2 && (mi_row & 1), col_adj = bw4 < 2 && (mi_col & 1);
+    int max_row = 0, max_col = 0, done_rows = 0, done_cols = 0, n = 0;
+    if (avail_u) max_row = std::max((bh4 < 2 ? -4 : -6) + row_adj, mi_row_start - mi_row);
+    if (avail_l) max_col = std::max((bw4 < 2 ? -4 : -6) + col_adj, mi_col_start - mi_col);
+    if (max_row) scan_line(true, -1, max_row, &done_rows, stack, &n);
+    if (max_col) scan_line(false, -1, max_col, &done_cols, stack, &n);
+    if (dv_has_top_right() && inside(mi_row - 1, mi_col + bw4)) add_candidate(mi_row - 1, mi_col + bw4, 4, stack, &n);
+    const int nearest = n;
+    for (int i = 0; i < nearest; ++i) stack[i].weight += 640;  // REF_CAT_LEVEL
+    if (inside(mi_row - 1, mi_col - 1)) add_candidate(mi_row - 1, mi_col - 1, 4, stack, &n);
+    for (int idx = 2; idx <= 3; ++idx) {
+      const int dr = -(idx << 1) + 1 + row_adj, dc = -(idx << 1) + 1 + col_adj;
+      if (std::abs(dr) <= std::abs(max_row) && std::abs(dr) > done_rows)
+        scan_line(true, dr, max_row, &done_rows, stack, &n);
+      if (std::abs(dc) <= std::abs(max_col) && std::abs(dc) > done_cols)
+        scan_line(false, dc, max_col, &done_cols, stack, &n);
+    }
+    auto heavier = [](const Candidate& a, const Candidate& b) { return a.weight > b.weight; };
+    std::stable_sort(stack, stack + nearest, heavier);
+    std::stable_sort(stack + nearest, stack + n, heavier);
+    // clamp_mv_ref: at most the block's size and 16 pixels past the frame's edges
+    const int bw = bw4 * 4, bh = bh4 * 4;
+    for (int i = 0; i < n; ++i) {
+      Mv& m = stack[i].mv;
+      m.col = (int16_t)std::min(std::max((int)m.col, -(mi_col * 32) - bw * 8 - 128),
+                                (mi_cols - bw4 - mi_col) * 32 + bw * 8 + 128);
+      m.row = (int16_t)std::min(std::max((int)m.row, -(mi_row * 32) - bh * 8 - 128),
+                                (mi_rows - bh4 - mi_row) * 32 + bh * 8 + 128);
+    }
+    return n;
+  }
+
+  // read_mv_component at whole pixels (force_integer_mv): sign, class, then class 0's bit or the class's bits
+  int read_mv_component(int comp) {
+    const int sign = sym.read(cdf.mv_sign[comp], 2), cls = sym.read(cdf.mv_class[comp], 11);
+    int mag, d = 0;
+    if (cls == 0) {
+      d = sym.read(cdf.mv_class0[comp], 2);
+      mag = 0;
+    } else {
+      for (int i = 0; i < cls; ++i) d |= sym.read(cdf.mv_bits[comp][i], 2) << i;
+      mag = 2 << (cls + 2);
+    }
+    mag += ((d << 3) | 7) + 1;
+    return sign ? -mag : mag;
+  }
+
+  // the block's DV: the first non-zero of the stack's two best (else the default, a superblock up or, in the tile's
+  // first superblock row, a superblock and 256 pixels left) plus the coded difference; a DV libaom rejects marks the
+  // frame corrupt
+  void read_dv() {
+    Candidate stack[8];
+    const int n = dv_stack(stack);
+    ++intrabc_blocks;
+    intrabc_stacked += n > 0;
+    const Mv zero{0, 0};
+    Mv ref = n > 0 ? stack[0].mv : zero;
+    if (ref == zero && n > 1) ref = stack[1].mv;
+    if (ref == zero) {  // av1_find_ref_dv
+      const int sb4 = seq.sb128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        ref = Mv{0, (int16_t)(-(4 * sb4 + 256) * 8)};
+        intrabc_paths |= kPathDefaultLeft;
+      } else {
+        ref = Mv{(int16_t)(-4 * sb4 * 8), 0};
+        intrabc_paths |= kPathDefaultAbove;
+      }
+    }
+    if ((ref.row & 7) || (ref.col & 7)) throw Corrupt{__LINE__};
+    const int joint = sym.read(cdf.mv_joint, 4);
+    const int row = ref.row + (joint >= 2 ? read_mv_component(0) : 0);
+    const int col = ref.col + ((joint & 1) ? read_mv_component(1) : 0);
+    if (!dv_valid(row, col)) throw Corrupt{__LINE__};
+    dv = Mv{(int16_t)row, (int16_t)col};
+  }
+
+  // is_mv_valid and av1_is_dv_valid: whole pixels; the source inside the tile (a sub-8x8 block's chroma, which
+  // reaches 4 luma pixels further up or left, too) and in a superblock coded at least 256 pixels (INTRABC_DELAY_SB64
+  // 64x64s) earlier, the rows above behind a wavefront
+  bool dv_valid(int row, int col) const {
+    if (row <= -(1 << 14) || row >= (1 << 14) || col <= -(1 << 14) || col >= (1 << 14)) return false;
+    if ((row & 7) || (col & 7)) return false;
+    const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+    const int top = mi_row * 32 + row, left = mi_col * 32 + col, bottom = (mi_row * 4 + bh) * 8 + row,
+              right = (mi_col * 4 + bw) * 8 + col;
+    if (top < mi_row_start * 32 || left < mi_col_start * 32 || bottom > mi_row_end * 32 || right > mi_col_end * 32)
+      return false;
+    if (has_chroma) {
+      if (bw < 8 && seq.ssx && left < mi_col_start * 32 + 32) return false;
+      if (bh < 8 && seq.ssy && top < mi_row_start * 32 + 32) return false;
+    }
+    const int sb_log2 = seq.sb128 ? 5 : 4, sb_size = 4 << sb_log2;
+    const int active_sb_row = mi_row >> sb_log2, active_sb64_col = (mi_col * 4) >> 6;
+    const int src_sb_row = ((bottom >> 3) - 1) / sb_size, src_sb64_col = ((right >> 3) - 1) >> 6;
+    const int per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+    if (src_sb_row * per_row + src_sb64_col >= active_sb_row * per_row + active_sb64_col - 4) return false;
+    const int wavefront = (1 + 4 + (sb_size > 64)) * (active_sb_row - src_sb_row);
+    return !(src_sb_row > active_sb_row || src_sb64_col >= active_sb64_col - 4 + wavefront);
+  }
+
+  // The block's prediction in each plane, copied from the frame as decoded so far (no filter has run): luma at whole
+  // pixels, subsampled chroma with the BILINEAR filter at a half pixel where the DV is odd. A chroma block at least 4
+  // wide and high covers a sub-8x8 block's neighbours too, from this block's DV. Both roundings of
+  // block_inter_prediction divide exactly, so a half pixel is the rounded mean of its 2 or 4 samples.
+  void predict_intrabc() {
+    for (int plane = 0; plane < 1 + 2 * has_chroma; ++plane) {
+      const int sx = ssx(plane), sy = ssy(plane);
+      const int bw = kWide4[mi_size] * 4, bh = kHigh4[mi_size] * 4;
+      const int w = std::max(4, bw >> sx), h = std::max(4, bh >> sy);
+      const int bx = (mi_col * 4 - (bw == 4 && sx ? 4 : 0)) >> sx, by = (mi_row * 4 - (bh == 4 && sy ? 4 : 0)) >> sy;
+      const int mx = bx * 16 + dv.col * (2 >> sx), my = by * 16 + dv.row * (2 >> sy);  // 1/16 samples
+      const int x0 = mx >> 4, y0 = my >> 4, fx = (mx & 15) != 0, fy = (my & 15) != 0;
+      intrabc_paths |= (fx ? kPathHalfX : 0) | (fy ? kPathHalfY : 0);
+      // av1_is_dv_valid keeps the source in the tile; a source past the plane would be a fault of that rule
+      if (x0 < 0 || y0 < 0 || x0 + w + fx > pw[plane] || y0 + h + fy > ph[plane]) throw Corrupt{__LINE__};
+      const int rows = std::min(h, ph[plane] - by), cols = std::min(w, pw[plane] - bx);
+      for (int i = 0; i < rows; ++i) {
+        const uint16_t* a = &px(plane, y0 + i, x0);
+        const uint16_t* b = a + (fy ? stride[plane] : 0);
+        uint16_t* o = &px(plane, by + i, bx);
+        for (int j = 0; j < cols; ++j) {
+          if (fx && fy) o[j] = (uint16_t)((a[j] + a[j + 1] + b[j] + b[j + 1] + 2) >> 2);
+          else if (fx) o[j] = (uint16_t)((a[j] + a[j + 1] + 1) >> 1);
+          else if (fy) o[j] = (uint16_t)((a[j] + b[j] + 1) >> 1);
+          else o[j] = a[j];
+        }
+      }
     }
   }
 
@@ -1681,7 +1954,7 @@ struct Decoder {
   }
 
   void read_cdef() {  // the CDEF index of each 64x64, read where its first coded block is
-    if (skip || lossless || !seq.cdef) return;
+    if (skip || lossless || allow_intrabc || !seq.cdef) return;
     int r = mi_row & ~15, c = mi_col & ~15;
     if (cdef(r, c) == -1) {
       int v = literal(cdef_bits);
@@ -1780,19 +2053,75 @@ struct Decoder {
     for (int i = 0; i < count; ++i) delta_value(delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf);
   }
 
-  // 5.11.15-17: TX_MODE_LARGEST takes the largest transform of the block; TX_MODE_SELECT reads up to two splits
+  // 5.11.15-17: TX_MODE_LARGEST takes the largest transform of the block; TX_MODE_SELECT reads up to two splits. The
+  // context (libaom's get_tx_size_context) compares the transform coded above and left with the largest, or an
+  // intra block copy's block size
   void read_tx_size() {
     if (lossless) { tx_size = TX_4X4; return; }
     tx_size = kMaxTxRect[mi_size];
     if (mi_size == B4X4 || !tx_mode_select) return;
     int max_depth = kMaxTxDepth[mi_size];
-    int above = avail_u && tx_w(tx_sizes[(mi_row - 1) * mi_cols + mi_col]) >= tx_w(tx_size);
-    int left = avail_l && tx_h(tx_sizes[mi_row * mi_cols + mi_col - 1]) >= tx_h(tx_size);
+    const int64_t a = (int64_t)(mi_row - 1) * mi_cols + mi_col, l = (int64_t)mi_row * mi_cols + mi_col - 1;
+    int above = avail_u && (is_inters[a] ? kWide4[mi_sizes[a]] * 4 : above_txfm[mi_col]) >= tx_w(tx_size);
+    int left = avail_l && (is_inters[l] ? kHigh4[mi_sizes[l]] * 4 : left_txfm[mi_row]) >= tx_h(tx_size);
     int ctx = above + left;
     int depth;
     if (max_depth == 1) depth = sym.read(cdf.tx8[ctx], 2);
     else depth = sym.read(max_depth == 2 ? cdf.tx16[ctx] : max_depth == 3 ? cdf.tx32[ctx] : cdf.tx64[ctx], 3);
     for (int i = 0; i < depth; ++i) tx_size = kSplitTx[tx_size];
+  }
+
+  // set_txfm_ctxs: a block's transform width and height (in pixels) as the split contexts of the blocks below and
+  // to its right
+  void set_txfm_ctxs(int w, int h) {
+    std::fill_n(&above_txfm[mi_col], kWide4[mi_size], (uint8_t)w);
+    std::fill_n(&left_txfm[mi_row], kHigh4[mi_size], (uint8_t)h);
+  }
+
+  // The transform sizes of an intra block copy (5.11.16-17, libaom's read_tx_size_vartx): under TX_MODE_SELECT a
+  // coded block above 4x4 reads a split tree of each largest transform, two levels deep; otherwise every transform is
+  // the largest (4x4 when lossless), and a skipped block leaves its own size as the contexts
+  void read_block_tx_size() {
+    const int bw4 = kWide4[mi_size], bh4 = kHigh4[mi_size];
+    if (tx_mode_select && mi_size > B4X4 && !skip && !lossless) {
+      const int mtx = kMaxTxRect[mi_size];
+      for (int y = 0; y < bh4; y += tx_h(mtx) >> 2)
+        for (int x = 0; x < bw4; x += tx_w(mtx) >> 2) read_var_tx_size(mtx, 0, y, x);
+      return;
+    }
+    tx_size = lossless ? TX_4X4 : kMaxTxRect[mi_size];
+    for (int y = 0; y < bh4; ++y) std::memset(inter_tx[y], tx_size, bw4);
+    if (skip) set_txfm_ctxs(bw4 * 4, bh4 * 4);
+    else set_txfm_ctxs(tx_w(tx_size), tx_h(tx_size));
+  }
+
+  void read_var_tx_size(int tx, int depth, int y, int x) {
+    if (mi_row + y >= mi_rows || mi_col + x >= mi_cols) return;
+    int leaf = tx;
+    if (depth < 2) {
+      // txfm_partition_context: whether the transforms above and left are narrower and shorter, by the category of
+      // the transform against the block's largest square one
+      const int max_sq = std::min(floor_log2((uint32_t)std::max(kWide4[mi_size], kHigh4[mi_size])), 4);
+      const int category = (tx_sqr_up(tx) != max_sq && max_sq > TX_8X8) + (TX_64X64 - max_sq) * 2;
+      const int ctx = tx == TX_4X4 ? 0
+                                   : category * 3 + (above_txfm[mi_col + x] < tx_w(tx)) +
+                                         (left_txfm[mi_row + y] < tx_h(tx));
+      if (sym.read(cdf.txfm_split[ctx], 2)) {
+        const int sub = kSplitTx[tx];
+        intrabc_paths |= depth ? kPathVarTx2 : kPathVarTx1;
+        if (sub != TX_4X4) {
+          for (int i = 0; i < tx_h(tx) >> 2; i += tx_h(sub) >> 2)
+            for (int j = 0; j < tx_w(tx) >> 2; j += tx_w(sub) >> 2) read_var_tx_size(sub, depth + 1, y + i, x + j);
+          return;
+        }
+        leaf = TX_4X4;  // a split into 4x4s goes no further
+      }
+    }
+    // set_inter_tx_size and txfm_partition_update over the coded transform's area
+    tx_size = leaf;
+    for (int i = 0; i < tx_h(tx) >> 2; ++i) std::memset(&inter_tx[y + i][x], leaf, tx_w(tx) >> 2);
+    std::fill_n(&above_txfm[mi_col + x], tx_w(tx) >> 2, (uint8_t)tx_w(leaf));
+    std::fill_n(&left_txfm[mi_row + y], tx_h(tx) >> 2, (uint8_t)tx_h(leaf));
   }
 
   int plane_tx_size(int plane) const {  // get_tx_size
@@ -1808,23 +2137,40 @@ struct Decoder {
   }
 
   // ---- residual and reconstruction (5.11.34, 7.11, 7.13) ----
+  // Per 64x64 chunk and plane, the transform blocks in raster order; an intra block copy's luma (not lossless)
+  // walks each largest transform's split tree (transform_tree) down to the sizes read for it.
   void residual() {
     int wc = std::max(1, kWide4[mi_size] >> 4), hc = std::max(1, kHigh4[mi_size] >> 4);
     for (int cy = 0; cy < hc; ++cy) {
       for (int cx = 0; cx < wc; ++cx) {
         for (int plane = 0; plane < 1 + 2 * has_chroma; ++plane) {
-          int tx = plane_tx_size(plane);
+          const bool tree = use_intrabc && !lossless && plane == 0;
+          int tx = tree ? kMaxTxRect[mi_size] : plane_tx_size(plane);
           int step_x = tx_w(tx) >> 2, step_y = tx_h(tx) >> 2;
           int psz = kSubsampled[mi_size][ssx(plane)][ssy(plane)];
           int n4w = kWide4[psz], n4h = kHigh4[psz];
           int base_x = (mi_col >> ssx(plane)) * 4, base_y = (mi_row >> ssy(plane)) * 4;
           for (int y = 0; y < std::min(n4h, 16 >> ssy(plane)); y += step_y)
-            for (int x = 0; x < std::min(n4w, 16 >> ssx(plane)); x += step_x)
-              transform_block(plane, base_x, base_y, tx, x + ((cx << 4) >> ssx(plane)),
-                              y + ((cy << 4) >> ssy(plane)));
+            for (int x = 0; x < std::min(n4w, 16 >> ssx(plane)); x += step_x) {
+              const int bx = x + ((cx << 4) >> ssx(plane)), by = y + ((cy << 4) >> ssy(plane));
+              if (tree) transform_tree(base_x, base_y, tx, bx, by);
+              else transform_block(plane, base_x, base_y, tx, bx, by);
+            }
         }
       }
     }
+  }
+
+  // the luma transform ``tx`` at 4x4 unit (x, y) of an intra block copy, split until it is the size read there
+  void transform_tree(int base_x, int base_y, int tx, int x, int y) {
+    if (mi_col + x >= mi_cols || mi_row + y >= mi_rows) return;
+    if (inter_tx[y][x] == tx) {
+      transform_block(0, base_x, base_y, tx, x, y);
+      return;
+    }
+    const int sub = kSplitTx[tx];
+    for (int i = 0; i < tx_h(tx) >> 2; i += tx_h(sub) >> 2)
+      for (int j = 0; j < tx_w(tx) >> 2; j += tx_w(sub) >> 2) transform_tree(base_x, base_y, sub, x + j, y + i);
   }
 
   void transform_block(int plane, int base_x, int base_y, int tx, int x, int y) {
@@ -1838,7 +2184,9 @@ struct Decoder {
     if (start_x >= (max_x >> sx) + 1 || start_y >= (max_y >> sy) + 1) return;
     bool is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
     int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
-    if (palette_size[plane > 0]) {  // 7.11.4: the colours of the map's indices
+    if (use_intrabc) {
+      // predicted with the whole block (predict_intrabc)
+    } else if (palette_size[plane > 0]) {  // 7.11.4: the colours of the map's indices
       const uint16_t* colors = palette_colors[plane];
       const int k = plane > 0, w = tx_w(tx), h = tx_h(tx);
       const uint8_t* m = color_map[k] + (y * 4) * map_w[k] + x * 4;
@@ -2143,20 +2491,43 @@ struct Decoder {
       }
   }
 
-  int tx_set(int tx) const {  // get_tx_set of an intra block
-    if (tx_sqr_up(tx) >= TX_32X32) return TX_SET_DCTONLY;
+  int tx_set(int tx) const {  // get_tx_set of the block (an intra block copy is an inter block)
+    if (tx_sqr_up(tx) > TX_32X32) return TX_SET_DCTONLY;
+    if (use_intrabc) {
+      if (reduced_tx_set || tx_sqr_up(tx) == TX_32X32) return TX_SET_INTER_3;
+      return tx_sqr(tx) == TX_16X16 ? TX_SET_INTER_2 : TX_SET_INTER_1;
+    }
+    if (tx_sqr_up(tx) == TX_32X32) return TX_SET_DCTONLY;
     if (reduced_tx_set || tx_sqr(tx) == TX_16X16) return TX_SET_INTRA_2;
     return TX_SET_INTRA_1;
   }
 
+  static bool in_set(int set, int tx_type) {  // av1_ext_tx_used
+    switch (set) {
+      case TX_SET_DCTONLY: return tx_type == DCT_DCT;
+      case TX_SET_INTER_3: return tx_type == DCT_DCT || tx_type == IDTX;
+      case TX_SET_INTRA_2: return tx_type <= ADST_ADST || tx_type == IDTX;
+      case TX_SET_INTRA_1: return tx_type <= ADST_ADST || (tx_type >= IDTX && tx_type <= H_DCT);
+      case TX_SET_INTER_2: return tx_type <= H_DCT;
+    }
+    return true;  // TX_SET_INTER_1: all 16
+  }
+
   static int tx_class(int tx_type) {
-    return tx_type == V_DCT ? TX_CLASS_VERT : tx_type == H_DCT ? TX_CLASS_HORIZ : TX_CLASS_2D;
+    if (tx_type == V_DCT || tx_type == V_ADST || tx_type == V_FLIPADST) return TX_CLASS_VERT;
+    if (tx_type == H_DCT || tx_type == H_ADST || tx_type == H_FLIPADST) return TX_CLASS_HORIZ;
+    return TX_CLASS_2D;
   }
 
   // 5.11.47: the luma transform type, read or DCT_DCT, stored for the block's 4x4 units
   int read_tx_type(int x4, int y4, int tx) {
     int set = tx_set(tx), type = DCT_DCT;
-    if (set != TX_SET_DCTONLY && base_q_idx > 0) {
+    if (set >= TX_SET_INTER_1 && base_q_idx > 0) {  // the inter CDFs by square size, without an intra direction
+      intrabc_paths |= kPathSet1 << (set - TX_SET_INTER_1);
+      if (set == TX_SET_INTER_1) type = kTxTypeInterInvSet1[sym.read(cdf.inter_tx1[tx_sqr(tx)], 16)];
+      else if (set == TX_SET_INTER_2) type = kTxTypeInterInvSet2[sym.read(cdf.inter_tx2[tx_sqr(tx)], 12)];
+      else type = sym.read(cdf.inter_tx3[tx_sqr(tx)], 2) ? DCT_DCT : IDTX;
+    } else if (set != TX_SET_DCTONLY && base_q_idx > 0) {
       int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : y_mode;
       if (set == TX_SET_INTRA_1) type = kTxTypeIntraInvSet1[sym.read(cdf.intra_tx1[tx_sqr(tx)][dir], 7)];
       else type = kTxTypeIntraInvSet2[sym.read(cdf.intra_tx2[tx_sqr(tx)][dir], 5)];
@@ -2169,6 +2540,12 @@ struct Decoder {
   int plane_tx_type(int plane, int tx, int x4, int y4) const {  // compute_tx_type
     if (lossless || tx_sqr_up(tx) > TX_32X32) return DCT_DCT;
     if (plane == 0) return tx_types[y4 * mi_cols + x4];
+    if (use_intrabc) {  // the luma type at the block's co-located 4x4 unit, where the chroma size's set has it
+      const int r = mi_row + ((y4 - (mi_row >> ssy(plane))) << ssy(plane));
+      const int c = mi_col + ((x4 - (mi_col >> ssx(plane))) << ssx(plane));
+      const int type = tx_types[(int64_t)r * mi_cols + c];
+      return in_set(tx_set(tx), type) ? type : DCT_DCT;
+    }
     // the UV mode's type (a DCT or ADST pair, in both intra sets), where the size has a set
     return tx_set(tx) == TX_SET_DCTONLY ? DCT_DCT : kModeToTxfm[uv_mode];
   }
@@ -2220,8 +2597,8 @@ struct Decoder {
       const int cls = tx_class(tx_type);
       const int16_t* scan;
       if (tx_sqr_up(tx) == TX_64X64) scan = default_scan(aw, ah);
-      else if (tx_type == V_DCT) scan = mrow_scan(w, h);
-      else if (tx_type == H_DCT) scan = mcol_scan(w, h);
+      else if (cls == TX_CLASS_VERT) scan = mrow_scan(w, h);
+      else if (cls == TX_CLASS_HORIZ) scan = mcol_scan(w, h);
       else scan = default_scan(w, h);
       const int area = aw * ah;
       std::memset(quant, 0, sizeof(int32_t) * area);
@@ -2960,10 +3337,14 @@ static thread_local Decoder* g_last = nullptr;
 // planes, tool, colour range, matrix coefficients, colour primaries,
 // transfer characteristics, subsampling x, subsampling y, then what the
 // palettes coded: a bit per palette size (1 << n) of Y, of UV, the colours
-// taken from a cache, the V colours coded as deltas.
+// taken from a cache, the V colours coded as deltas; then what intra block
+// copy coded: its blocks, those whose DV stack held a candidate, a bit per
+// path taken (Decoder::kPath*: half-pixel chroma across and down, a split
+// at transform depth 0 and 1, inter transform sets 1, 2, 3, the default DV
+// a superblock up and one left).
 int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   delete g_last;
-  for (int i = 0; i < 15; ++i) meta[i] = 0;
+  for (int i = 0; i < 18; ++i) meta[i] = 0;
   g_last = new (std::nothrow) Decoder();
   if (!g_last) return -1;
   Decoder& d = *g_last;
@@ -2986,6 +3367,7 @@ int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   meta[9] = d.seq.ssx; meta[10] = d.seq.ssy;
   meta[11] = d.palette_y_sizes; meta[12] = d.palette_uv_sizes; meta[13] = d.palette_cached;
   meta[14] = d.palette_v_deltas;
+  meta[15] = d.intrabc_blocks; meta[16] = d.intrabc_stacked; meta[17] = d.intrabc_paths;
   return 0;
 }
 
@@ -3054,14 +3436,13 @@ void yuv_to_bgr_libyuv(const uint16_t* y, const uint16_t* u, const uint16_t* v, 
 
 // 7.13.3 on its own: the dequantized coefficients of a transform of size
 // ``tx`` (the specification's TxSize; the coded top-left part, at most 32x32,
-// row-major) and type ``tx_type`` (DCT_DCT .. ADST_ADST, IDTX, V_DCT, H_DCT)
-// at ``bd`` bits -> the residual, tx height rows of tx width; -1 for a size or
-// type the intra sets do not pair.
+// row-major) and type ``tx_type`` (the 16 of the specification, DCT_DCT ..
+// H_FLIPADST) at ``bd`` bits -> the residual, tx height rows of tx width; -1
+// for a size or type no transform set pairs.
 int av1_inverse_transform(const int32_t* coef, int tx, int tx_type, int bd, int32_t* out) {
-  if (tx < 0 || tx > 18 || !(tx_type <= ADST_ADST || tx_type == IDTX || tx_type == V_DCT || tx_type == H_DCT))
-    return -1;
+  if (tx < 0 || tx > 18 || tx_type < 0 || tx_type > H_FLIPADST) return -1;
   const int w = tx_w(tx), h = tx_h(tx);
-  const bool adst = tx_type >= ADST_DCT && tx_type <= ADST_ADST, one_d = tx_type == V_DCT || tx_type == H_DCT;
+  const bool adst = (tx_type >= ADST_DCT && tx_type <= FLIPADST_ADST) || tx_type >= V_ADST, one_d = tx_type >= V_DCT;
   if ((adst || one_d) && std::max(w, h) > 16) return -1;
   if (tx_type == IDTX && std::max(w, h) > 32) return -1;
   inverse_transform_2d(coef, tx, tx_type, bd, out);

@@ -93,8 +93,9 @@ def test_forms_outside_the_decoder_are_named(tmp_path, name):
     """An image sequence (cv2's animation), a grid, premultiplied alpha, an
     ispe libavif scales to, and a lossless header rewritten to switch on
     film grain, or screen content tools (whose next two header bits then
-    switch intra block copy on): ``UnsupportedImageError`` naming the form
-    (intra block copy for the screen content rewrite), never an array;
+    switch intra block copy on, and the shifted fields after them
+    segmentation): ``UnsupportedImageError`` naming the form (segmentation
+    for the screen content rewrite), never an array;
     cv2 reads each file, or for the rewrites fails, as the fixture file
     holds. Lossy 4:2:0 that applies CDEF (cv2 at quality 75), once refused
     here, reads as cv2 reads it, bit for bit."""

@@ -5,9 +5,13 @@ decoder model information, frame header and tile group OBUs apart,
 several tiles, uniform or not, 128x128 superblocks, partitions of every
 type, skipped blocks, CDF updates off, padding and metadata OBUs), so that
 cv2 (libaom) and the port's decoder can be held to each other on them.
-With ``palette``, the frame allows screen content tools (and not intra
-block copy), and blocks of 8x8 to 64x64 take palettes of Y and UV, their
-colours partly from the colour cache of their neighbours.
+With ``palette``, the frame allows screen content tools, and blocks of 8x8
+to 64x64 take palettes of Y and UV, their colours partly from the colour
+cache of their neighbours. With ``intrabc``, it allows intra block copy
+too, and some blocks copy: each skipped, far enough from any other that
+its DV stack is empty, its DV the default one or a pixel off it where that
+is valid (half-pixel chroma where subsampled), so that the paths cv2's
+frames do not take (4:2:2, 128x128 superblocks, tile rows) are written.
 
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
@@ -75,7 +79,8 @@ def _tables() -> dict:
     v = _values(tables, "kIntraTxTypeSet1Cdf")[: 8 * 13]  # TX_4X4's, by intra direction
     out["kIntraTx1"] = [list(v[k : k + 8]) for k in range(0, len(v), 8)]
     for name, per in (("kPaletteYMode", 3), ("kPaletteUvMode", 3), ("kPaletteYSize", 8), ("kPaletteUvSize", 8),
-                      ("kPaletteYColor", 9), ("kPaletteUvColor", 9)):
+                      ("kPaletteYColor", 9), ("kPaletteUvColor", 9), ("kIntrabc", 3), ("kMvJoint", 5),
+                      ("kMvClass", 12), ("kMvSign", 3), ("kMvClass0Bit", 3), ("kMvBits", 3)):
         v = _values(tables, f"{name}Cdf")
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
     return out
@@ -263,9 +268,11 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
-                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0, palette=None):
+                 lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0, palette=None,
+                 intrabc=None):
         self.lossy, self.deltas = lossy, deltas
         self.palette, self.palette_count = palette, 0
+        self.intrabc = intrabc
         self.lr = restoration
         self.lr_rng = np.random.default_rng([seed, 7])  # the units' draws, apart from the blocks'
         self.lr_count = 0
@@ -295,6 +302,8 @@ class _Frame:
         self.base = _tables()
         self.mode_odds = np.full(13, 1 / 13) if modes else np.eye(13)[0]
         self.mode_odds_uv = np.full(14, 1.0) if modes else np.eye(14)[0]
+        self.ibc = np.zeros((self.mi_rows, self.mi_cols), bool)  # the 4x4 units of blocks that copy
+        self.ibc_blocks = 0
 
     def sub(self, p):
         return (self.ssx, self.ssy) if p else (0, 0)
@@ -524,18 +533,139 @@ class _Frame:
             w[NONE] = 1.0
         return w / w.sum()
 
+    # ---- intra block copy (5.11.24-26, libaom's read_intrabc_info) ----
+    def dv_valid(self, r, c, bsize, row, col):
+        """av1_is_dv_valid, as ``av1.cpp:dv_valid``: the source in the tile (a sub-8x8 block's chroma too) and in a
+        superblock coded at least 256 pixels earlier, the rows above behind a wavefront."""
+        r0, r1, c0, c1 = self.tile
+        bw, bh = _WIDE[bsize] * 4, _HIGH[bsize] * 4
+        top, left, bottom, right = r * 32 + row, c * 32 + col, (r * 4 + bh) * 8 + row, (c * 4 + bw) * 8 + col
+        if top < r0 * 32 or left < c0 * 32 or bottom > r1 * 32 or right > c1 * 32:
+            return False
+        if self.has_chroma and ((bw < 8 and self.ssx and left < c0 * 32 + 32) or
+                                (bh < 8 and self.ssy and top < r0 * 32 + 32)):
+            return False
+        sb_log2 = 5 if self.sb128 else 4
+        sb_size = 4 << sb_log2
+        active_row, active_col = r >> sb_log2, (c * 4) >> 6
+        src_row, src_col = ((bottom >> 3) - 1) // sb_size, ((right >> 3) - 1) >> 6
+        per_row = ((c1 - c0 - 1) >> 4) + 1
+        if src_row * per_row + src_col >= active_row * per_row + active_col - 4:
+            return False
+        wavefront = (1 + 4 + (sb_size > 64)) * (active_row - src_row)
+        return not (src_row > active_row or src_col >= active_col - 4 + wavefront)
+
+    def choose_dv(self, r, c, bsize):
+        """A DV for a block that may copy: None where a block that copies lies near enough to reach its DV stack,
+        else the default DV (av1_find_ref_dv), or one pixel off it at the odds ``intrabc["shift"]``, the first of
+        those that is valid; with ``intrabc["invalid"]``, the first block's DV is (0, 0)."""
+        bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
+        if self.ibc[max(r - 6, 0) : r + bh4 + 1, max(c - 6, 0) : c + bw4 + 1].any():
+            return None
+        sb4 = 32 if self.sb128 else 16
+        ref = (0, -(4 * sb4 + 256) * 8) if r - sb4 < self.tile[0] else (-4 * sb4 * 8, 0)
+        if self.intrabc.get("invalid") and not self.ibc_blocks:
+            return ref, (0, 0)  # the block itself: not decoded yet, which libaom marks corrupt
+        offsets = [(0, 0)]
+        if self.rng.random() < self.intrabc.get("shift", 0.5):
+            offsets = [(0, -8), (-8, 0), (-8, -8), (0, 8), (8, 0)] + offsets
+        for dr, dc in offsets:
+            if self.dv_valid(r, c, bsize, ref[0] + dr, ref[1] + dc):
+                return ref, (ref[0] + dr, ref[1] + dc)
+        return None
+
+    def write_mv_component(self, comp, diff):
+        """read_mv_component at whole pixels: sign, class, class 0's bit or the class's bits."""
+        sym, cdf = self.sym, self.cdf
+        mag = abs(diff)
+        cls = 0 if mag <= 16 else (mag - 1).bit_length() - 4
+        d = (mag - (0 if cls == 0 else 2 << (cls + 2))) // 8 - 1
+        sym.symbol(int(diff < 0), cdf["kMvSign"][comp], 2)
+        sym.symbol(cls, cdf["kMvClass"][comp], 11)
+        if cls == 0:
+            sym.symbol(d, cdf["kMvClass0Bit"][comp], 2)
+        else:
+            for i in range(cls):
+                sym.symbol((d >> i) & 1, cdf["kMvBits"][comp * 10 + i], 2)
+
+    def copy_block(self, r, c, bsize, dv):
+        """The block's prediction in each plane (av1.cpp:predict_intrabc) into the decoded area, and its 4x4
+        units marked decoded as the decoder's transform blocks mark them."""
+        bw, bh = _WIDE[bsize] * 4, _HIGH[bsize] * 4
+        sb_mask = 31 if self.sb128 else 15
+        for p in range(3 if self.has_chroma else 1):
+            ssx, ssy = self.sub(p)
+            w, h = max(4, bw >> ssx), max(4, bh >> ssy)
+            bx, by = (c * 4 - (4 if bw == 4 and ssx else 0)) >> ssx, (r * 4 - (4 if bh == 4 and ssy else 0)) >> ssy
+            mx, my = bx * 16 + dv[1] * (2 >> ssx), by * 16 + dv[0] * (2 >> ssy)
+            x0, y0, fx, fy = mx >> 4, my >> 4, int(mx & 15 != 0), int(my & 15 != 0)
+            pix = self.pix[p]
+            a = pix[y0 : y0 + h + fy, x0 : x0 + w + fx]
+            pred = (a[:h, :w] + a[fy : h + fy, :w] + a[:h, fx : w + fx] + a[fy : h + fy, fx : w + fx] + 2) >> 2
+            rows, cols = min(h, pix.shape[0] - by), min(w, pix.shape[1] - bx)
+            pix[by : by + rows, bx : bx + cols] = pred[:rows, :cols]
+            bd = self.block_decoded[p]
+            for y in range(by, by + rows, 4):
+                for x in range(bx, bx + cols, 4):
+                    row, col = (((y << ssy) >> 2) & sb_mask) >> ssy, (((x << ssx) >> 2) & sb_mask) >> ssx
+                    bd[row + 1, col + 1] = 1
+
+    def clear_contexts(self, r, c, bsize):
+        """A skipped block's coefficient contexts, zero in each plane it codes."""
+        bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
+        for p in range(3 if self.has_chroma else 1):
+            sx, sy = self.sub(p)
+            self.above_level[p][c >> sx : (c + bw4) >> sx] = 0
+            self.above_dc[p][c >> sx : (c + bw4) >> sx] = 0
+            self.left_level[p][r >> sy : (r + bh4) >> sy] = 0
+            self.left_dc[p][r >> sy : (r + bh4) >> sy] = 0
+
+    def copy(self, r, c, bsize, ref, dv):
+        """A skipped block that copies: its skip, delta q, use_intrabc and DV (against ``ref``, its stack empty)."""
+        bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
+        cdf, sym = self.cdf, self.sym
+        ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
+        sym.symbol(1, cdf["kSkip"][ctx], 2)
+        if self.read_deltas and bsize != (B128X128 if self.sb128 else B64X64):
+            sym.symbol(0, cdf["kDeltaQ"][0], 4)
+        self.read_deltas = False
+        sym.symbol(1, cdf["kIntrabc"][0], 2)
+        diff = (dv[0] - ref[0], dv[1] - ref[1])
+        sym.symbol(2 * (diff[0] != 0) + (diff[1] != 0), cdf["kMvJoint"][0], 4)
+        for comp in range(2):
+            if diff[comp]:
+                self.write_mv_component(comp, diff[comp])
+        self.clear_contexts(r, c, bsize)
+        rr, cc = min(r + bh4, self.mi_rows), min(c + bw4, self.mi_cols)
+        self.mi_size[r:rr, c:cc] = bsize
+        self.skips[r:rr, c:cc] = 1
+        self.y_modes[r:rr, c:cc] = 0
+        if self.has_chroma:
+            self.uv_modes[r:rr, c:cc] = 0
+        self.pal_n[:, r:rr, c:cc] = 0
+        self.ibc[r:rr, c:cc] = True
+        self.ibc_blocks += 1
+        if not self.lossy:
+            self.copy_block(r, c, bsize, dv)
+
     # ---- a block ----
     def block(self, r, c, bsize):
         bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
         self.avail_u, self.avail_l = self.inside(r - 1, c), self.inside(r, c - 1)
         self.mi_row, self.mi_col, self.bsize = r, c, bsize
         rng, cdf, sym = self.rng, self.cdf, self.sym
+        self.has_chroma = not self.mono and not (self.ssx and bw4 == 1 and c % 2 == 0) and not (
+            self.ssy and bh4 == 1 and r % 2 == 0)
+        if self.intrabc is not None and rng.random() < self.intrabc.get("odds", 0.2):
+            chosen = self.choose_dv(r, c, bsize)
+            if chosen:
+                self.coded_empty = False
+                self.copy(r, c, bsize, *chosen)
+                return
         # the modes, drawn
         self.y_mode = int(rng.choice(13, p=self.mode_odds))
         self.angle_y = int(rng.integers(-3, 4)) if bsize >= B8X8 and 1 <= self.y_mode <= 8 else 0
         self.uv_mode, self.angle_uv, self.cfl = 0, 0, (0, 0)
-        self.has_chroma = not self.mono and not (self.ssx and bw4 == 1 and c % 2 == 0) and not (
-            self.ssy and bh4 == 1 and r % 2 == 0)
         self.avail_uc = self.has_chroma and (self.inside(r - 2, c) if self.ssy and bh4 == 1 else self.avail_u)
         self.avail_lc = self.has_chroma and (self.inside(r, c - 2) if self.ssx and bw4 == 1 else self.avail_l)
         if self.lossy:  # a lossy block of 32x32 or less
@@ -579,6 +709,8 @@ class _Frame:
             sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0, then delta_lf_abs 0 (one, not multi)
             sym.symbol(0, cdf["kDeltaLf"][0], 4)
         self.read_deltas = False
+        if self.intrabc is not None:
+            sym.symbol(0, cdf["kIntrabc"][0], 2)
         above = _MODE_CTX[self.y_modes[r - 1, c]] if self.avail_u else 0
         left = _MODE_CTX[self.y_modes[r, c - 1]] if self.avail_l else 0
         sym.symbol(self.y_mode, cdf["kKfYMode"][above * 5 + left], 13)
@@ -608,12 +740,7 @@ class _Frame:
             if self.pal[k]:
                 self.write_color_map(k)
         if skip:
-            for p in range(3 if self.has_chroma else 1):
-                sx, sy = self.sub(p)
-                self.above_level[p][c >> sx : (c + bw4) >> sx] = 0
-                self.above_dc[p][c >> sx : (c + bw4) >> sx] = 0
-                self.left_level[p][r >> sy : (r + bh4) >> sy] = 0
-                self.left_dc[p][r >> sy : (r + bh4) >> sy] = 0
+            self.clear_contexts(r, c, bsize)
         rr, cc = min(r + bh4, self.mi_rows), min(c + bw4, self.mi_cols)
         self.mi_size[r:rr, c:cc] = bsize
         self.skips[r:rr, c:cc] = skip
@@ -1172,7 +1299,7 @@ def _obu(kind: int, body: bytes) -> bytes:
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
            seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
-           full_range: bool = True, lossy=None, palette=None) -> bytes:
+           full_range: bool = True, lossy=None, palette=None, intrabc=None) -> bytes:
     """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
     the identity matrix, or with ``matrix`` (colour primaries BT.709,
     sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
@@ -1214,20 +1341,29 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     the prediction of random 4x4 residuals (``planes`` then give only the
     size; ``weights`` default to splitting down to 4x4 blocks now and then).
     ``palette`` ({"odds", "sizes", "cache", "v_near"}, ``_Frame.draw_palettes``;
-    a reduced header only): allow_screen_content_tools on, allow_intrabc
-    off, and palettes in the blocks that may take one."""
+    a reduced header only): allow_screen_content_tools on, and palettes in
+    the blocks that may take one. ``intrabc`` ({"odds": of a block copying
+    where it may, "shift": of its DV a pixel off the default one}; a reduced
+    header only, no in-loop filter or delta LF): allow_intrabc on as well
+    (palettes at ``palette``'s odds or none), and skipped blocks that copy
+    (``_Frame.copy``)."""
     rng = np.random.default_rng(seed)
     assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
     if lossy:
         assert 0 < lossy["q"] <= 20, "q-context 0"
         big = [1.0, 0.3, 0.3, 5.0] + [0.3] * 6  # mostly SPLIT, down to 4x4 blocks now and then
         weights = weights or {B8X8: [1.0, 0.3, 0.3, 2.0], 6: big, 9: big, B64X64: big, B128X128: big}
+    if intrabc is not None:
+        assert reduced and not (lossy and any(lossy.get(k) for k in ("delta_lf", "cdef", "restoration"))), \
+            "intra block copy: a reduced header, no in-loop filter parameters, no delta LF"
+        palette = palette or {"odds": 0.0}
     cdef = lossy.get("cdef") if lossy else None
     fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
                 lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")),
                 cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
                 skip64=lossy.get("skip64", ()) if lossy else (),
-                restoration=lossy.get("restoration") if lossy else None, seed=seed, palette=palette)
+                restoration=lossy.get("restoration") if lossy else None, seed=seed, palette=palette,
+                intrabc=intrabc)
     assert reduced or not palette, "screen content tools under a reduced header only"
     restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
@@ -1310,7 +1446,7 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         h.f(10, 0), h.f(10, 0)
     h.f(1, 0)  # render_and_frame_size_different
     if palette:
-        h.f(1, 0)  # allow_intrabc
+        h.f(1, int(intrabc is not None))  # allow_intrabc
     if not reduced and not disable_cdf_update:
         h.f(1, 1)  # disable_frame_end_update_cdf
     sb_shift = 5 if sb128 else 4
@@ -1364,42 +1500,43 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         h.f(1, int(fr.deltas))  # delta_q_present
         if fr.deltas:
             h.f(2, 0), h.f(1, 1), h.f(2, 0), h.f(1, 0)  # delta_q_res, delta_lf_present, delta_lf_res, delta_lf_multi
-        levels = lossy["levels"]
-        h.f(6, levels[0]), h.f(6, levels[1])
-        if not mono and (levels[0] or levels[1]):
-            h.f(6, levels[2]), h.f(6, levels[3])
-        h.f(3, lossy.get("sharpness", 0))
-        delta = lossy.get("delta")
-        h.f(1, int(delta is not None))  # loop_filter_delta_enabled
-        if delta is not None:
-            h.f(1, 1), h.f(1, 1), h.f(7, delta & 0x7F)  # update; the INTRA_FRAME ref delta
-            h.f(9, 0)  # the other seven ref deltas and the two mode deltas kept
-        if cdef:  # cdef_params
-            h.f(2, cdef["damping"] - 3), h.f(2, cdef["bits"])
-            assert len(cdef["strengths"]) == 1 << cdef["bits"]
-            for entry in cdef["strengths"]:
-                assert len(entry) == (2 if mono else 4)
-                for k, v in enumerate(entry):
-                    h.f(4 if k % 2 == 0 else 2, v)
-        if restoration:  # lr_params
-            lr = lossy["restoration"]
-            types = tuple(lr["types"])
-            assert len(types) == (1 if mono else 3)
-            for t in types:
-                h.f(2, t)
-            if any(types):
-                shift = lr["unit_shift"]
-                if sb128:
-                    assert shift in (1, 2)
-                    h.f(1, shift - 1)
-                else:
-                    h.f(1, int(shift > 0))
-                    if shift:
+        if intrabc is None:  # intra block copy codes no in-loop filter parameters
+            levels = lossy["levels"]
+            h.f(6, levels[0]), h.f(6, levels[1])
+            if not mono and (levels[0] or levels[1]):
+                h.f(6, levels[2]), h.f(6, levels[3])
+            h.f(3, lossy.get("sharpness", 0))
+            delta = lossy.get("delta")
+            h.f(1, int(delta is not None))  # loop_filter_delta_enabled
+            if delta is not None:
+                h.f(1, 1), h.f(1, 1), h.f(7, delta & 0x7F)  # update; the INTRA_FRAME ref delta
+                h.f(9, 0)  # the other seven ref deltas and the two mode deltas kept
+            if cdef:  # cdef_params
+                h.f(2, cdef["damping"] - 3), h.f(2, cdef["bits"])
+                assert len(cdef["strengths"]) == 1 << cdef["bits"]
+                for entry in cdef["strengths"]:
+                    assert len(entry) == (2 if mono else 4)
+                    for k, v in enumerate(entry):
+                        h.f(4 if k % 2 == 0 else 2, v)
+            if restoration:  # lr_params
+                lr = lossy["restoration"]
+                types = tuple(lr["types"])
+                assert len(types) == (1 if mono else 3)
+                for t in types:
+                    h.f(2, t)
+                if any(types):
+                    shift = lr["unit_shift"]
+                    if sb128:
+                        assert shift in (1, 2)
                         h.f(1, shift - 1)
-                if tuple(fr.sub(1)) == (1, 1) and not mono and any(types[1:]):
-                    h.f(1, lr.get("uv_shift", 0))
-                else:
-                    assert not lr.get("uv_shift", 0), "lr_uv_shift: 4:2:0 with chroma restoration only"
+                    else:
+                        h.f(1, int(shift > 0))
+                        if shift:
+                            h.f(1, shift - 1)
+                    if tuple(fr.sub(1)) == (1, 1) and not mono and any(types[1:]):
+                        h.f(1, lr.get("uv_shift", 0))
+                    else:
+                        assert not lr.get("uv_shift", 0), "lr_uv_shift: 4:2:0 with chroma restoration only"
         h.f(1, 0)  # tx_mode_select: TX_MODE_LARGEST
     h.f(1, 0)  # reduced_tx_set
     # the tiles

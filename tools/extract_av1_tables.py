@@ -1,8 +1,8 @@
 """Write ``deepemia_tpu_torch/native/av1_tables.h``: the AV1 tables of the
 lossy intra path that the specification lists and ``native/av1.cpp``
 needs (the quantizer lookups, the quantizer matrices, the default
-coefficient, transform type, transform depth, delta q and loop restoration
-CDFs, the self-guided filter's parameters and lookups, the scans,
+coefficient, transform type, transform depth, delta q, palette, loop
+restoration and intra block copy CDFs, the self-guided filter's parameters and lookups, the scans,
 the smooth weights and the cosine and sine constants of the inverse
 transforms), read from a libaom build.
 
@@ -227,24 +227,29 @@ def other_cdfs(lib: Library) -> dict:
     return t
 
 
+def split_copy(lib: Library, start: int) -> np.ndarray:
+    """A table of 63 uint16 that libaom's frame context setup copies as its
+    first 112 bytes, then its last 16 in an overlapping load: the library
+    holds those two runs one after the other."""
+    head, tail = lib.read(start, 56, "<u2"), lib.read(start + 112, 8, "<u2")
+    assert tail[0] == head[55], (head, tail)
+    return np.concatenate([head, tail[1:]])
+
+
 def palette_cdfs(lib: Library) -> dict:
     """The default palette CDFs: the palette sizes of Y and UV (7 block size
     contexts, 7 sizes; the UV table follows the Y one), whether Y has a
     palette ([7 block size contexts][3 neighbour contexts]), whether UV
     has one (2 contexts), and the colour index CDFs of Y and UV ([7 palette
     sizes][5 colour contexts], n = 2 .. 8 symbols in records of 9 uint16).
-    libaom's frame context setup copies the Y mode table (63 uint16) as
-    its first 112 bytes, then its last 16 in an overlapping load: the
-    library holds those two runs one after the other. The UV mode table
+    The Y mode table is a ``split_copy``. The UV mode table
     is an immediate (``movabs r64, imm64``: its first value, the end of
     its first record, then the second value)."""
     t = {}
     sizes = icdf_records(lib, [7952, 13000, 18149, 21478, 25527, 29241], 7, 8, 14)
     t["kPaletteYSizeCdf"], t["kPaletteUvSizeCdf"] = sizes[:7], sizes[7:]
     start = lib.find(_opening([[31676], [3419], [1261]], 3), "<u2")
-    head, tail = lib.read(start, 56, "<u2"), lib.read(start + 112, 8, "<u2")
-    assert tail[0] == head[55], (head, tail)
-    t["kPaletteYModeCdf"] = spec_form(np.concatenate([head, tail[1:]]).reshape(21, 3), 2).reshape(7, 3, 3)
+    t["kPaletteYModeCdf"] = spec_form(split_copy(lib, start).reshape(21, 3), 2).reshape(7, 3, 3)
     first = np.array([32768 - 32461, 0, 0], "<u2").tobytes()
     k = lib.data.find(first)
     while k >= 0 and not (lib.data[k - 2] == 0x48 and 0xB8 <= lib.data[k - 1] <= 0xBF):
@@ -259,6 +264,41 @@ def palette_cdfs(lib: Library) -> dict:
         for n in range(2, 9):
             out[n - 2, :, : n + 1] = spec_form(raw[n - 2], n)
         t[name] = out
+    return t
+
+
+def intrabc_cdfs(lib: Library) -> dict:
+    """The default CDFs of intra block copy: ``use_intrabc``, which
+    libaom's frame context setup stores as an immediate (``mov [rax +
+    disp32], imm32``: its value and the end of its record); the MV CDFs of
+    MV_INTRABC_CONTEXT, a copy of libaom's ``default_nmv_context`` (the
+    joints, then per component, row first, the classes, the class 0 and
+    other fractions, the sign, the two high-precision bits, class 0's
+    integer bit and the 10 bits of the larger classes; 143 uint16); the
+    transform split flag of inter blocks (21 contexts, a ``split_copy``); and the inter
+    transform type CDFs (libaom's [4 sets][4 square sizes][17]: set 0 is
+    DCT only and holds zeros, sets 1, 2 and 3 have 16, 12 and 2 symbols)."""
+    t = {}
+    stores = re.findall(rb"\xc7\x80..\x00\x00(..)\x00\x00", lib.data, re.DOTALL)
+    values = [int.from_bytes(v, "little") for v in stores if int.from_bytes(v, "little") == 32768 - 30531]
+    assert len(values) == 1, "no single immediate store of the intra block copy CDF"
+    t["kIntrabcCdf"] = np.array([32768 - values[0], 32768, 0])
+    start = lib.find(_opening([4096, 11264, 19328], 5), "<u2")
+    raw = lib.read(start, 143, "<u2")
+    t["kMvJointCdf"] = spec_form(raw[None, :5], 4)[0]
+    comps = raw[5:].reshape(2, 69)
+    t["kMvClassCdf"] = spec_form(comps[:, :12], 11)
+    t["kMvSignCdf"] = spec_form(comps[:, 27:30], 2)
+    t["kMvClass0BitCdf"] = spec_form(comps[:, 36:39], 2)
+    t["kMvBitsCdf"] = spec_form(comps[:, 39:69].reshape(20, 3), 2).reshape(2, 10, 3)
+    assert np.array_equal(t["kMvClassCdf"][0], t["kMvClassCdf"][1]) and t["kMvSignCdf"][0, 0] == 16384
+    start = lib.find(_opening([[28581], [23846], [20847]], 3), "<u2")
+    t["kTxfmSplitCdf"] = spec_form(split_copy(lib, start).reshape(21, 3), 2)
+    at = lib.find([32768 - v for v in (4458, 5560, 7695, 9709)], "<u2")
+    raw = lib.read(at - 4 * 17 * 2, 4 * 4 * 17, "<u2").reshape(4, 4, 17)
+    assert not raw[0].any(), "set 0 of the inter transform types is not empty"
+    for s, n in ((1, 16), (2, 12), (3, 2)):
+        t[f"kInterTxTypeSet{s}Cdf"] = spec_form(raw[s], n)
     return t
 
 
@@ -332,7 +372,7 @@ def main(path: str | None = None) -> str:
     lib = Library(path)
     dc, ac = quantizer_lookups(lib)
     qm = quantizer_matrices(lib)
-    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib), **palette_cdfs(lib)}
+    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib), **palette_cdfs(lib), **intrabc_cdfs(lib)}
     restoration = restoration_tables(lib)
     consts = constants(lib)
     sc = scans(lib)

@@ -43,9 +43,9 @@ NAMED = {
     "box-premultiplied-alpha": "premultiplied alpha",
     "box-ispe-scaled": "which libavif scales",
     # screen content tools set in place: the frame header's next two bits, read now as force_integer_mv and
-    # allow_intrabc, come from its other fields and switch intra block copy on, which the port refuses at the
-    # header; libaom fails on the tiles
-    "box-screen-content": "AV1 intra block copy",
+    # allow_intrabc, come from its other fields and switch intra block copy on; the fields after them, shifted,
+    # switch segmentation on, which the port refuses; libaom fails on the tiles
+    "box-screen-content": "AV1 segmentation",
     "box-film-grain": "AV1 film grain",
 }
 # the forms the port refused by name until it applied CDEF, and reads now (each keeps its name)

@@ -11,8 +11,9 @@ never), and intra block copy with them on some such frames at speeds 0-7.
 Each entry ``<name>/file`` holds the file's bytes; ``<name>/bgr`` cv2's
 BGR array (at most 40x40 pixels) or ``<name>/sha256`` the SHA-256 of its
 bytes; ``<name>/fields`` (``fields_of``) the frame's PALETTE_FIELDS, read
-off its headers by ``tools/av1_headers.py``; ``<name>/named``, for a
-frame the port refuses, the words of the refusal. The entries:
+off its headers by ``tools/av1_headers.py``; ``<name>/named``, for the
+frame the port refused until it decoded intra block copy, the words of
+that refusal. The entries:
 
 - ``cv2-<content>-<form><depth>-s<S>-q<Q>``: cv2's 256x256 frames of a
   binary mask, flat blobs on a flat background and a six-level label
@@ -35,7 +36,8 @@ frame the port refuses, the words of the refusal. The entries:
   little colour added: ``make_torch_avif_lossy_fixtures.smoke_bgr``) as
   cv2 writes it at speed 8 (palettes, deblocked, CDEF), which joins phase
   22's dataset; ``refused-intrabc-smoke``: the same frame at speed 4,
-  which takes intra block copy (the port refuses it by name);
+  which takes intra block copy (once refused by name, now read; the intra
+  block copy fixtures hold it as ``smoke-intrabc-bgr8``);
 - ``smoke-2048-palette`` and ``smoke-2048-speed9``: the labelled frame
   tiled to 2048x2048, at speed 8 (palettes) and at cv2's default speed,
   for the decode time.
@@ -63,7 +65,7 @@ HASHED_PIXELS = 40 * 40
 # the layout of ``<name>/fields``; speed is cv2's (-1 for the writer's)
 PALETTE_FIELDS = ("screen_content", "intrabc", "depth", "mono", "ssx", "ssy", "lossless", "deblocked", "cdef",
                   "restoration", "sb128", "tiles", "width", "height", "speed")
-# the words of the port's refusal of a frame that allows intra block copy
+# the words of the port's refusal of a frame that allows intra block copy, until it decoded the tool
 INTRABC = "AV1 intra block copy"
 
 

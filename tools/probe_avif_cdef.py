@@ -78,8 +78,8 @@ def random_frames(path: Path, n: int = 300, seed: int = 2027) -> collections.Cou
         except ValueError as e:  # a header the tool does not read
             counts[str(e)] += 1
             continue
-        if f["intrabc"]:  # no CDEF parameters; refused by name, the tool the port lacks
-            counts[palette_probe.outcome(path, data)] += 1
+        if f["intrabc"]:  # no CDEF parameters
+            counts[palette_probe.outcome(path, data) + ", intra block copy"] += 1
             continue
         rewrite = "cdef_strengths" in f and f["cdef_strengths"] and rng.random() < 1 / 3
         if rewrite:

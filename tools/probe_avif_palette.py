@@ -5,9 +5,8 @@ found:
 - ``random_frames``: seeded random low-colour cv2 frames (16-299 px a
   side, 2-39 colours, gray or BGR, 8, 10 or 12 bits, quality 1-100 or the
   default, speed 0-8), each read by the port and by cv2 and counted as
-  exact, DIFFERS (another array), REFUSED (where cv2 reads it) or refused
-  by name for intra block copy, by whether the frame allows screen
-  content tools and intra block copy;
+  exact, DIFFERS (another array) or REFUSED (where cv2 reads it), by
+  whether the frame allows screen content tools and intra block copy;
 - ``writer_frames``: ``tools/av1_writer.py``'s palette frames under
   random forms (every subsampling and depth, lossless or lossy, both
   superblock sizes, one to four tiles, random palette odds and cache
@@ -58,20 +57,13 @@ def _read(path: Path, data: bytes):
 
 
 def outcome(path: Path, data: bytes) -> str:
-    """A frame's outcome: "exact" where the port reads cv2's array, "refused
-    by name: intra block copy" where the frame allows intra block copy,
-    cv2 reads it and the port raises ``UnsupportedImageError`` naming the
-    tool, "REFUSED" where the port raises otherwise, else "DIFFERS"."""
+    """A frame's outcome: "exact" where the port reads cv2's array,
+    "REFUSED" where the port raises, else "DIFFERS"."""
     ref, got = _read(path, data)
-    from deepemia_tpu_torch.ops.image import UnsupportedImageError
-
     if ref is None:
         return "DIFFERS (cv2 None)"
     if isinstance(got, np.ndarray):
         return "exact" if np.array_equal(ref, got) else "DIFFERS"
-    if pal_fx.palette_fields(data)["intrabc"] and isinstance(got, UnsupportedImageError) and \
-            pal_fx.INTRABC in str(got):
-        return "refused by name: intra block copy"
     return "REFUSED"
 
 
@@ -85,7 +77,7 @@ def random_frames(path: Path, n: int = 300, seed: int = 2031) -> collections.Cou
         speed = int(rng.integers(0, 9))
         data = pal_fx.cv2_lossy(pal_fx.low_colour(h, w, colours, ch, depth, 5000 + i), q, depth, speed)
         f = pal_fx.palette_fields(data)
-        kind = "" if f["intrabc"] else ", palettes" if f["screen_content"] else ", no screen content"
+        kind = ", intra block copy" if f["intrabc"] else ", palettes" if f["screen_content"] else ", no screen content"
         counts[outcome(path, data) + kind] += 1
     return counts
 

@@ -73,8 +73,8 @@ def random_frames(path: Path, n: int = 300, seed: int = 2029) -> collections.Cou
         img = lossy.blurred(h, w, i, ch, depth) if rng.random() < 0.6 else cdef_fx.noise(h, w, i, ch, depth)
         data = cdef_fx.cv2_lossy(img, q, depth, speed)
         screen = palette_probe.pal_fx.palette_fields(data)
-        if screen["intrabc"]:  # no restoration parameters; refused by name, the tool the port lacks
-            counts[palette_probe.outcome(path, data)] += 1
+        if screen["intrabc"]:  # no restoration parameters
+            counts[palette_probe.outcome(path, data) + ", intra block copy"] += 1
             continue
         f = lr_fx.lr_fields(data)
         types = sorted({_TYPES[t] for t in (f["y"], f["u"], f["v"]) if t > 0})
