@@ -308,13 +308,14 @@ It builds the CUDA kernels from the sources in the checkout and then:
      through the CLI as phase 19 (c) takes its dataset; (d) the lossy
      4:2:0 file cv2 writes at quality 75, which deblocks and applies
      CDEF, and cv2's speed-4 frame with loop restoration decode to cv2's
-     arrays, and the AV1 writer's frame with delta loop filter levels
-     raises ``UnsupportedImageError`` naming them.
+     arrays, and the AV1 writer's frame with film grain raises
+     ``UnsupportedImageError`` naming it.
      ``python3 -c "import chip_smoke; chip_smoke.avif_only()"`` runs
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
      with the tables of ``native/av1_tables.h``, its palette mode, intra
-     block copy, loop filter, CDEF and loop restoration, ``ops/avif.py``'s
+     block copy, loop filter with delta loop filter levels, CDEF and loop
+     restoration, ``ops/avif.py``'s
      libavif colour conversion): (a) one 1024x768 labelled micrograph
      (``draw_labelled``, seed 22, its background flattened) in seventeen
      forms (cv2's quality 95 BGR 4:2:0 and gray,
@@ -340,17 +341,23 @@ It builds the CUDA kernels from the sources in the checkout and then:
      fixtures (cv2's frames at speeds 0-8, the writer's 4:2:2, lossy
      4:4:4, 128x128-superblock and tiled ones) and intra block copy
      fixtures (cv2's frames at speeds 0-7, the writer's 4:2:2,
-     128x128-superblock and two-tile-row ones) decode to cv2's arrays or
-     their SHA-256, the writer's frame with a DV into its own undecoded
-     block fails where cv2 fails, and the writer's frame with delta loop
-     filter levels raises ``UnsupportedImageError`` naming it; (c)
-     committed 2048² BGR rasters: the micrograph at quality 95, at 85
-     (deblocked) and at cv2's default quality (deblocked, CDEF), blurred
-     noise at speed 4 (self-guided restoration in every plane), and the
-     flattened labelled frame tiled at speed 4 (intra block copy), at
-     speed 8 (palettes) and at cv2's default speed: host decode seconds
-     (median of 3) beside an uncompressed TIFF of the same pixels, and
-     each as a multiple of quality 95's; (d) the seventeen frames through
+     128x128-superblock and two-tile-row ones) and delta loop filter
+     level fixtures (``tests/data/torch_avif_delta_lf_fixtures.npz``: the
+     writer's frames in every subsampling at 8, 10 and 12 bits, one delta
+     or one per plane and direction, every multiplier, the clamp, levels
+     of 0, 128x128 superblocks, tile rows, CDEF and restoration on top,
+     reduced_tx_set 1) decode to cv2's arrays or their SHA-256, the
+     writer's frame with a DV into its own undecoded block fails where cv2
+     fails, and the writer's frame with film grain raises
+     ``UnsupportedImageError`` naming it; (c) committed 2048² BGR rasters:
+     the micrograph at quality 95, at 85 (deblocked) and at cv2's default
+     quality (deblocked, CDEF), blurred noise at speed 4 (self-guided
+     restoration in every plane), and the flattened labelled frame tiled
+     at speed 4 (intra block copy), at speed 8 (palettes) and at cv2's
+     default speed: host decode seconds (median of 3) beside an
+     uncompressed TIFF of the same pixels, and each as a multiple of
+     quality 95's; the writer's 1024² 4:2:0 frame with delta LF beside its
+     twin with every delta 0 (median of 3, as a ratio); (d) the seventeen frames through
      the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
@@ -4638,10 +4645,11 @@ AVIF_INTRABC_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_intrabc_
 # palettes, deblocked, CDEF) -> how far each may lie from the drawing; both join the dataset, the first as sem_15,
 # one of the four the split holds out for evaluation
 AVIF_PALETTE_FORMS = {"intrabc-bgr8": 8, "palette-bgr8": 96}
+AVIF_DELTA_LF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_delta_lf_fixtures.npz")
 # the committed frames cv2 reads and the port refuses by name: (fixture file, entry, the words of the refusal, what it
-# is): the AV1 writer's frame with delta loop filter levels (each superblock's deltas 0)
-AVIF_NAMED = {"delta-lf": (AVIF_CDEF_FIXTURES, "refused-delta-lf-420-8", "AV1 delta loop filter levels",
-                           "the writer's frame with delta LF")}
+# is): the AV1 writer's frame with film grain
+AVIF_NAMED = {"film-grain": (AVIF_CDEF_FIXTURES, "refused-film-grain-420-8", "AV1 film grain",
+                             "the writer's frame with film grain")}
 AVIF_LOSSY_SEED = 22
 
 
@@ -5143,9 +5151,9 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     through the CLI (``cli_on_dataset``) -> (K1 launches, K2 launches, K1
     errors, K2 errors). (d) A lossy 4:2:0 AVIF that applies CDEF (cv2's at
     quality 75) and cv2's speed-4 frame with loop restoration decode to
-    cv2's arrays; the AV1 writer's frame with delta loop filter levels
-    raises ``UnsupportedImageError`` naming them from ``read_image``,
-    outside the dataset, since the loader would raise on it."""
+    cv2's arrays; the AV1 writer's frame with film grain raises
+    ``UnsupportedImageError`` naming it from ``read_image``, outside the
+    dataset, since the loader would raise on it."""
     import hashlib
     import shutil
 
@@ -5216,7 +5224,7 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
           f"cv2's libavif/libaom writer): {secs:.4f} s beside uncompressed TIFF {plain_s:.4f} s (median of 3, host; "
           f"{card})", flush=True)
 
-    # (d) the lossy forms that apply CDEF and loop restoration, read; delta LF, refused by name outside the dataset
+    # (d) the lossy forms that apply CDEF and loop restoration, read; film grain, refused by name outside the dataset
     path = os.path.join(AVIF_DIR, "lossy.avif")
     with open(path, "wb") as f:
         f.write(fixtures["refused-lossy-420/file"].tobytes())
@@ -5230,7 +5238,7 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
     assert hashlib.sha256(got.tobytes()).hexdigest() == \
         cdef_fixtures["refused-restoration-bgr8-128x128/sha256"].tobytes().decode()
     print("avif: cv2's frame at speed 4 (loop restoration) decoded to the SHA-256 of cv2's array", flush=True)
-    refuse_named("avif", path, "delta-lf")
+    refuse_named("avif", path, "film-grain")
 
     # (c) the dataset through the CLI
     home = os.path.join(AVIF_DIR, "home")
@@ -5248,7 +5256,7 @@ def phase_avif(card, device="cuda", config_hook=None, steps=CONTAINER_STEPS):
 
 def refuse_named(tag: str, path: str, form: str) -> None:
     """An ``AVIF_NAMED`` frame raises ``UnsupportedImageError`` naming its
-    tool (delta LF in phases 21 (d) and 22 (b))."""
+    tool (film grain in phases 21 (d) and 22 (b))."""
     from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
 
     fixtures, name, words, what = AVIF_NAMED[form]
@@ -5268,7 +5276,8 @@ def read_committed_fixtures(tag: str, path: str, fixtures_path: str, what: str) 
     speeds 0-4, the AV1 writer's, phase 22's textured frames; the palette
     file's: cv2's palette frames at speeds 0-8, the writer's, phase 22's
     palette frame; the intra block copy file's: cv2's frames at speeds 0-7,
-    the writer's, phase 22's frame) decode to cv2's arrays or their SHA-256,
+    the writer's, phase 22's frame; the delta loop filter level file's: the
+    writer's frames, phase 22's timing pair) decode to cv2's arrays or their SHA-256,
     and one cv2 reads nothing of (the writer's DV into its own undecoded
     block) fails as a corrupt stream (phase 22 (b))."""
     import hashlib
@@ -5386,17 +5395,20 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
     palettes, one with intra block copy); (b) cv2's quality-75 frame, which
     deblocks and applies CDEF, and the textured gray frame with CDEF then
     loop restoration, to the SHA-256 of cv2's arrays, the committed
-    restoration, palette and intra block copy fixtures to cv2's arrays
-    (``read_committed_fixtures``), and the AV1 writer's frame with delta
-    loop filter levels raises ``UnsupportedImageError`` naming it; (c) the committed
+    restoration, palette, intra block copy and delta loop filter level
+    fixtures to cv2's arrays (``read_committed_fixtures``), and the AV1
+    writer's frame with film grain raises ``UnsupportedImageError`` naming
+    it; (c) the committed
     2048² BGR micrograph at quality 95, at 85 (deblocked) and at cv2's
     default quality (deblocked, CDEF), blurred noise at speed 4
     (self-guided restoration in every plane), and the flattened labelled
     frame tiled to 2048² at speed 4 (intra block copy), at speed 8
     (palettes) and at cv2's default speed:
     host decode seconds (median of 3) beside an uncompressed TIFF of the
-    same pixels, each as a multiple of quality 95's, with the card's name
-    and power limit; (d) the dataset through the CLI (``cli_on_dataset``)
+    same pixels, each as a multiple of quality 95's, and the AV1 writer's
+    1024² frame with delta loop filter levels beside its twin with every
+    delta 0 (median of 3, as a ratio), with the card's name and power
+    limit; (d) the dataset through the CLI (``cli_on_dataset``)
     -> (K1 launches, K2 launches, K1 errors, K2 errors)."""
     import hashlib
     import shutil
@@ -5414,8 +5426,8 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
           f"{', '.join(avif_lossy_forms())} ({', '.join(files)}) decoded to the SHA-256 of cv2's arrays, and their TIFF "
           f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (b) frames that deblock and apply CDEF, and CDEF then loop restoration, read; the restoration fixtures, read;
-    # delta LF, refused by name
+    # (b) frames that deblock and apply CDEF, and CDEF then loop restoration, read; the restoration, palette, intra
+    # block copy and delta LF fixtures, read; film grain, refused by name
     for name, what in (("smoke-q75", "quality 75, deblocked and CDEF"),
                        ("smoke-lr-cdef-gray8", "textured, 8-bit gray, CDEF then self-guided restoration")):
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
@@ -5430,6 +5442,8 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
                             "palette")
     read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "intrabc.avif"), AVIF_INTRABC_FIXTURES,
                             "intra block copy")
+    read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "delta_lf.avif"), AVIF_DELTA_LF_FIXTURES,
+                            "delta loop filter level")
     for form in AVIF_NAMED:
         refuse_named("avif lossy", os.path.join(AVIF_LOSSY_DIR, f"{form}.avif"), form)
 
@@ -5459,6 +5473,19 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
         print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0, "
               f"{what}, cv2's libavif/libaom writer): {secs:.4f} s ({secs / q95:.2f}x quality 95's) "
               f"beside uncompressed RGB TIFF {plain_s:.4f} s (median of 3, host; {card})", flush=True)
+    delta_lf = np.load(AVIF_DELTA_LF_FIXTURES)
+    secs = {}
+    for name in ("timing-1024-delta-lf", "timing-1024-zero-deltas"):
+        path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
+        with open(path, "wb") as f:
+            f.write(delta_lf[f"{name}/file"].tobytes())
+        got, secs[name] = decode_seconds(path)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == delta_lf[f"{name}/sha256"].tobytes().decode(), name
+    ratio = secs["timing-1024-delta-lf"] / secs["timing-1024-zero-deltas"]
+    print(f"avif lossy: decode timing-1024-delta-lf 1024x1024 (the AV1 writer's 4:2:0 frame, delta loop filter levels "
+          f"per plane and direction, deblocked at a level per block): {secs['timing-1024-delta-lf']:.4f} s beside its "
+          f"twin with every delta 0 {secs['timing-1024-zero-deltas']:.4f} s: {ratio:.2f}x (median of 3, host; {card})",
+          flush=True)
 
     # (d) the dataset through the CLI
     k1, k2, k1_errs, k2_errs = cli_on_dataset("avif lossy", home, root, twin, files, card, device=device,

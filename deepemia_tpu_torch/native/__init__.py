@@ -296,9 +296,11 @@ def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[list]]:
     frame's palettes coded: a bit per palette size (1 << n) of Y, of UV,
     the colours taken from a colour cache, the V colours coded as
     deltas, then what intra block copy coded: its blocks, those whose DV
-    stack held a candidate, a bit per path taken."""
+    stack held a candidate, a bit per path taken, then what delta loop
+    filter levels coded: the blocks whose deltas are not all 0, a bit per
+    path taken."""
     src = np.frombuffer(data, np.uint8)
-    meta = np.zeros(18, np.int32)
+    meta = np.zeros(20, np.int32)
     lib = get_lib("av1")
     status = lib.av1_decode(_ptr(src), src.size, _ptr(meta))
     if status:

@@ -14,25 +14,23 @@
 // and intra prediction at every transform size (DC, V, H, the directional
 // modes with the edge filter and upsampling, smooth, Paeth, CFL, recursive
 // filter intra, palette), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or
-// 4:0:0, and the three in-loop filters: deblocking (7.14), CDEF (7.15) and
-// loop restoration (7.17: Wiener and self-guided units, switchable or not).
+// 4:0:0, and the three in-loop filters: deblocking (7.14, with delta loop
+// filter levels: a level per block), CDEF (7.15) and loop restoration (7.17:
+// Wiener and self-guided units, switchable or not).
 // Both screen content tools are decoded: palette mode, and intra block copy
 // (a block vector from the spatial DV stack, coded against MV_INTRABC_CONTEXT
 // and held to libaom's validity rules; the block copied from the frame's
 // unfiltered reconstruction, chroma bilinear at half pixels; the variable
 // transform partitioning and the inter transform types of its residual).
-// Delta loop filter levels are not applied: a frame that turns them on is
-// refused with the tool's number (kTool*), as is a stream that uses any
-// other tool this decoder lacks; none is decoded wrong.
+// A stream that uses a tool this decoder lacks is refused with the tool's
+// number (kTool*); none is decoded wrong.
 //
 // Where libaom fails on a damaged stream, so does this decoder: a tile
 // whose symbols run past its data at the end of a superblock
 // (aom_reader_has_overflowed), a Golomb code longer than 20 bits, an OBU
 // larger than its data, a sequence or frame header whose trailing bits are
 // not a one and zeros, a partition whose chroma block the subsampling does
-// not allow, a block vector libaom's av1_is_dv_valid rejects. A frame refused
-// for an in-loop filter is read to its end first, so that a stream libaom
-// fails on fails here too.
+// not allow, a block vector libaom's av1_is_dv_valid rejects.
 //
 // The specification's larger tables (quantizer lookups and matrices, the
 // coefficient, transform type and depth CDFs, scans, smooth weights) are in
@@ -594,7 +592,7 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 enum Tool {
   kToolSegmentation = 3,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
-  kToolShowExisting = 10, kToolDeltaLf = 11
+  kToolShowExisting = 10
 };
 
 namespace {
@@ -862,11 +860,13 @@ struct Decoder {
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 0;
   std::vector<int> mi_col_starts, mi_row_starts;
   int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
-  int lossless = 0, delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0, delta_lf_multi = 0;
+  int lossless = 0, delta_q_present = 0, delta_q_res = 0;
+  // delta_lf_params: whether each superblock codes deltas to the loop filter levels, their multiplier (1 << the
+  // coded delta_lf_res) and whether there is one per plane and direction (FRAME_LF_COUNT) or one for all
+  int delta_lf_present = 0, delta_lf_res = 1, delta_lf_multi = 0;
   int cdef_bits = 0, tx_mode_select = 0, reduced_tx_set = 0;
   // cdef_params: the damping and, per entry, the Y and UV primary and secondary strengths (3 read as 4)
   int cdef_damping = 3, cdef_y_pri[8] = {}, cdef_y_sec[8] = {}, cdef_uv_pri[8] = {}, cdef_uv_sec[8] = {};
-  int filter_tool = 0;  // an in-loop filter the frame applies: refused once the frame is read
   // loop_filter_params: the levels (Y vertical edges, Y horizontal, U, V), sharpness, the deltas
   int lf_level[4] = {0, 0, 0, 0}, lf_sharpness = 0, lf_delta_enabled = 0;
   int lf_ref_deltas[8] = {1, 0, 0, 0, -1, 0, -1, -1}, lf_mode_deltas[2] = {0, 0};
@@ -881,6 +881,11 @@ struct Decoder {
   // per 4x4 unit of the frame
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
   std::vector<int8_t> cdef_idx;  // per 64x64
+  // under delta LF: per 4x4 unit of the frame its block's DeltaLF[0..3] (only [0] without delta_lf_multi)
+  std::vector<int8_t> delta_lfs;
+  // what the frame's delta LF coded (meta[18..19]): the blocks whose deltas are not all 0, and a bit per path taken
+  // (kLf*)
+  int delta_lf_blocks = 0, delta_lf_paths = 0;
   // under intra block copy: per 4x4 unit of the frame whether its block copies (an inter block of INTRA_FRAME) and
   // its block vector; per mode info column (above) and row (left) the width or height in pixels of the transform
   // last coded there (the contexts of the transform split flag, 64 where none was)
@@ -920,7 +925,7 @@ struct Decoder {
   uint8_t block_decoded_[3][34][34];
   // the tile
   int mi_row_start, mi_row_end, mi_col_start, mi_col_end;
-  int current_q = 0, read_deltas = 0;
+  int current_q = 0, read_deltas = 0, delta_lf[4] = {0, 0, 0, 0};
   Symbol sym;
   // the block
   int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
@@ -1133,11 +1138,11 @@ struct Decoder {
     delta_q_present = base_q_idx > 0 ? b.f(1) : 0;
     delta_q_res = delta_q_present ? b.f(2) : 0;
     delta_lf_present = delta_q_present && !allow_intrabc ? b.f(1) : 0;
+    delta_lf_res = 1;
     delta_lf_multi = 0;
     if (delta_lf_present) {
-      b.f(2);  // delta_lf_res
+      delta_lf_res = 1 << b.f(2);
       delta_lf_multi = b.f(1);
-      filter_tool = kToolDeltaLf;
     }
     lossless = base_q_idx == 0 && delta_q_dc[0] == 0 && delta_q_dc[1] == 0 && delta_q_ac[1] == 0 &&
                delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
@@ -1284,6 +1289,7 @@ struct Decoder {
     y_modes.assign(n, 0); uv_modes.assign(n, 0); mi_sizes.assign(n, 0); skips.assign(n, 0);
     tx_sizes.assign(n, 0); tx_types.assign(n, 0);
     is_inters.assign(n, 0);
+    delta_lfs.assign(delta_lf_present ? 4 * n : 0, 0);
     dvs.assign(allow_intrabc ? n : 0, Mv{0, 0});
     above_txfm.assign(mi_cols + 32, 64);
     left_txfm.assign(mi_rows + 32, 64);
@@ -1337,6 +1343,10 @@ struct Decoder {
       mi_col_end = mi_col_starts[t % tile_cols + 1];
       cdf = frame_cdfs;
       current_q = base_q_idx;
+      for (int i = 0; i < 4; ++i) {  // av1_reset_loop_filter_delta
+        if (delta_lf[i]) delta_lf_paths |= kLfTileReset;
+        delta_lf[i] = 0;
+      }
       for (int q = 0; q < 3; ++q) {  // Wiener_Taps_Mid, Sgrproj_Xqd_Mid
         for (int pass = 0; pass < 2; ++pass) {
           ref_wiener[q][pass][0] = 3; ref_wiener[q][pass][1] = -7; ref_wiener[q][pass][2] = 15;
@@ -1531,6 +1541,8 @@ struct Decoder {
         skips[k] = (uint8_t)skip; tx_sizes[k] = (uint8_t)(use_intrabc ? inter_tx[y][x] : tx_size);
         is_inters[k] = (uint8_t)use_intrabc;
         if (use_intrabc) dvs[k] = dv;
+        if (delta_lf_present)
+          for (int i = 0; i < 4; ++i) delta_lfs[4 * k + i] = (int8_t)delta_lf[i];
         if (palette_size[0] || palette_size[1]) palette_of[k] = (int32_t)palettes.size();
       }
     }
@@ -1539,6 +1551,7 @@ struct Decoder {
       std::memcpy(pal.colors, palette_colors, sizeof pal.colors);
       palettes.push_back(pal);
     }
+    if (delta_lf_present && (delta_lf[0] || delta_lf[1] || delta_lf[2] || delta_lf[3])) ++delta_lf_blocks;
     if (use_intrabc) predict_intrabc();
     residual();
   }
@@ -2047,10 +2060,24 @@ struct Decoder {
     if (d) current_q = std::min(255, std::max(1, current_q + (d << delta_q_res)));
   }
 
-  void read_delta_lf() {  // read and dropped: a frame with delta_lf_present is refused once read
+  // the paths a frame's delta LF took (meta[19]): deltas per plane and direction, a multiplier above 1, a running
+  // delta clamped to +-MAX_LOOP_FILTER, an edge filtered in a pass whose frame level is 0, a tile that reset deltas
+  // that were not 0
+  enum { kLfMulti = 1, kLfRes = 2, kLfClamp = 4, kLfBaseZero = 8, kLfTileReset = 16 };
+
+  // read_delta_lflevel: each running delta (FRAME_LF_COUNT of them, 2 in a monochrome frame, or the one
+  // delta_lf_from_base) plus its coded delta times delta_lf_res, clamped; each has its CDF
+  void read_delta_lf() {
     if ((mi_size == (seq.sb128 ? B128X128 : B64X64) && skip) || !read_deltas || !delta_lf_present) return;
     int count = delta_lf_multi ? (planes > 1 ? 4 : 2) : 1;
-    for (int i = 0; i < count; ++i) delta_value(delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf);
+    for (int i = 0; i < count; ++i) {
+      int d = delta_value(delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf);
+      if (!d) continue;
+      delta_lf_paths |= (delta_lf_multi ? kLfMulti : 0) | (delta_lf_res > 1 ? kLfRes : 0);
+      int v = delta_lf[i] + d * delta_lf_res;
+      if (v < -63 || v > 63) delta_lf_paths |= kLfClamp;
+      delta_lf[i] = std::min(63, std::max(-63, v));
+    }
   }
 
   // 5.11.15-17: TX_MODE_LARGEST takes the largest transform of the block; TX_MODE_SELECT reads up to two splits. The
@@ -2841,7 +2868,6 @@ struct Decoder {
       at += size;
     }
     if (!decoded) throw Corrupt{__LINE__};  // no whole frame: libaom outputs none
-    if (filter_tool) throw Unsupported{filter_tool};
     loop_filter();
     cdef();
     for (int p = 0; p < planes; ++p)
@@ -2850,9 +2876,11 @@ struct Decoder {
   }
 
   // ---- the loop filter (7.14), as libaom applies it to a key frame ----
-  // Every block is intra and there is no segmentation or delta LF, so a plane
-  // and direction has one level, and every transform edge inside the frame
-  // is filtered, with the taps the smaller transform across it allows.
+  // Every block is intra and there is no segmentation, so the level of an
+  // edge in a plane and direction is the frame's, moved by the delta LF of
+  // the block on its q side (of the p side where that gives 0), and every
+  // transform edge inside the frame is filtered, with the taps the smaller
+  // transform across it allows.
 
   // the transform width (pass 0) or height (pass 1) of the 4x4 unit at mode info (r, c) in ``plane``
   int lf_tx_side(int plane, int r, int c, int pass) const {
@@ -2865,34 +2893,48 @@ struct Decoder {
     return pass == 0 ? tx_w(tx) : tx_h(tx);
   }
 
-  // av1_loop_filter_frame_init: the level of an intra block's edges in ``plane`` and ``pass``
-  int lf_intra_level(int plane, int pass) const {
-    int base = plane == 0 ? lf_level[pass] : lf_level[plane + 1];
-    if (!lf_delta_enabled) return base;
-    return std::min(63, std::max(0, base + lf_ref_deltas[0] * (1 << (base >> 5))));
+  // av1_get_filter_level: the level of an intra block's edges in ``plane`` and ``pass``, its delta LF ``delta``
+  int lf_block_level(int plane, int pass, int delta) const {
+    int lvl = plane == 0 ? lf_level[pass] : lf_level[plane + 1];
+    if (delta_lf_present) lvl = std::min(63, std::max(0, lvl + delta));
+    // segmentation's SEG_LVL_ALT_LF_* feature of the block's segment adds here, clamped to 0..63
+    if (lf_delta_enabled) lvl = std::min(63, std::max(0, lvl + lf_ref_deltas[0] * (1 << (lvl >> 5))));
+    return lvl;
   }
 
+  // av1_loop_filter_frame and its set_planes_to_loop_filter: nothing when both luma levels are 0, a chroma plane
+  // whose level is 0 skipped whatever its deltas; a pass at level 0 filters only under delta LF
   void loop_filter() {
     if (!lf_level[0] && !lf_level[1]) return;
     for (int p = 0; p < planes; ++p) {
       if (p > 0 && !lf_level[p + 1]) continue;
-      for (int pass = 0; pass < 2; ++pass) {
-        int lvl = lf_intra_level(p, pass);
-        if (lvl) filter_plane(p, pass, lvl);
-      }
+      for (int pass = 0; pass < 2; ++pass)
+        if (delta_lf_present || lf_block_level(p, pass, 0)) filter_plane(p, pass);
     }
   }
 
   // every vertical (pass 0) or horizontal (pass 1) edge of a plane, left to right and top to bottom
-  void filter_plane(int plane, int pass, int lvl) {
+  void filter_plane(int plane, int pass) {
     const int sx = ssx(plane), sy = ssy(plane);
     const int w = (width + sx) >> sx, h = (height + sy) >> sy;  // the plane's samples in the frame
-    // update_sharpness: the limits of the level
-    int lim = lvl >> ((lf_sharpness > 0) + (lf_sharpness > 4));
-    if (lf_sharpness > 0) lim = std::min(lim, 9 - lf_sharpness);
-    lim = std::max(lim, 1);
     const int shift = seq.bit_depth - 8;
-    const int limit = lim << shift, blimit = (2 * (lvl + 2) + lim) << shift, thresh = (lvl >> 4) << shift;
+    // update_sharpness: the limits of each level
+    int limit[64], blimit[64], thresh[64];
+    for (int lvl = 0; lvl < 64; ++lvl) {
+      int lim = lvl >> ((lf_sharpness > 0) + (lf_sharpness > 4));
+      if (lf_sharpness > 0) lim = std::min(lim, 9 - lf_sharpness);
+      lim = std::max(lim, 1);
+      limit[lvl] = lim << shift;
+      blimit[lvl] = (2 * (lvl + 2) + lim) << shift;
+      thresh[lvl] = (lvl >> 4) << shift;
+    }
+    // delta_lf_id_lut: the running delta of the plane and direction
+    static const int kDeltaLfId[3][2] = {{0, 1}, {2, 2}, {3, 3}};
+    const int id = delta_lf_multi ? kDeltaLfId[plane][pass] : 0, frame_lvl = lf_block_level(plane, pass, 0);
+    const bool base_zero = (plane == 0 ? lf_level[pass] : lf_level[plane + 1]) == 0;
+    auto level = [&](int r, int c) {
+      return delta_lf_present ? lf_block_level(plane, pass, delta_lfs[((int64_t)r * mi_cols + c) * 4 + id]) : frame_lvl;
+    };
     const ptrdiff_t step = pass == 0 ? 1 : stride[plane], along = pass == 0 ? stride[plane] : 1;
     for (int y4 = 0; 4 * y4 < h; ++y4) {
       for (int x4 = 0; 4 * x4 < w; ++x4) {
@@ -2901,11 +2943,16 @@ struct Decoder {
         int r = (y4 << sy) | sy, c = (x4 << sx) | sx;
         int side = lf_tx_side(plane, r, c, pass);
         if (coord % side) continue;
-        int prev = pass == 0 ? lf_tx_side(plane, r, c - (1 << sx), pass) : lf_tx_side(plane, r - (1 << sy), c, pass);
-        int m = std::min(side, prev);
+        int pr = pass == 0 ? r : r - (1 << sy), pc = pass == 0 ? c - (1 << sx) : c;
+        int lvl = level(r, c);
+        if (!lvl) lvl = level(pr, pc);  // set_lpf_parameters: the q side's level, else the p side's
+        if (!lvl) continue;
+        if (base_zero) delta_lf_paths |= kLfBaseZero;
+        int m = std::min(side, lf_tx_side(plane, pr, pc, pass));
         int len = m == 4 ? 4 : plane > 0 ? 6 : m == 8 ? 8 : 14;
         uint16_t* s = &px(plane, 4 * y4, 4 * x4);
-        for (int i = 0; i < 4; ++i, s += along) filter_sample(s, step, len, limit, blimit, thresh, shift);
+        for (int i = 0; i < 4; ++i, s += along)
+          filter_sample(s, step, len, limit[lvl], blimit[lvl], thresh[lvl], shift);
       }
     }
   }
@@ -3341,10 +3388,13 @@ static thread_local Decoder* g_last = nullptr;
 // copy coded: its blocks, those whose DV stack held a candidate, a bit per
 // path taken (Decoder::kPath*: half-pixel chroma across and down, a split
 // at transform depth 0 and 1, inter transform sets 1, 2, 3, the default DV
-// a superblock up and one left).
+// a superblock up and one left); then what delta LF coded: the blocks whose
+// deltas are not all 0, a bit per path taken (Decoder::kLf*: deltas per plane
+// and direction, a multiplier above 1, a delta clamped, an edge filtered in a
+// pass at level 0, a tile reset).
 int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   delete g_last;
-  for (int i = 0; i < 18; ++i) meta[i] = 0;
+  for (int i = 0; i < 20; ++i) meta[i] = 0;
   g_last = new (std::nothrow) Decoder();
   if (!g_last) return -1;
   Decoder& d = *g_last;
@@ -3368,6 +3418,7 @@ int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   meta[11] = d.palette_y_sizes; meta[12] = d.palette_uv_sizes; meta[13] = d.palette_cached;
   meta[14] = d.palette_v_deltas;
   meta[15] = d.intrabc_blocks; meta[16] = d.intrabc_stacked; meta[17] = d.intrabc_paths;
+  meta[18] = d.delta_lf_blocks; meta[19] = d.delta_lf_paths;
   return 0;
 }
 

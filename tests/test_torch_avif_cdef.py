@@ -8,8 +8,9 @@ frames at speeds 0-6; header rewrites of the damping and every strength;
 ``tools/av1_writer.py``'s lossy 4:4:4, 4:2:2, 4:2:0 and 4:0:0 frames with
 ``cdef_bits`` 0-3, 128x128 superblocks and 64x64s that skip) reads as cv2
 reads it; each rewrite group changes what cv2 reads; cv2's speed-4 frame
-with loop restoration, once refused by name, reads as cv2 reads it, and
-delta loop filter levels are still refused by name; a seeded fuzz of
+with loop restoration and the writer's frame with delta loop filter
+levels, once refused by name, read as cv2 reads them, and film grain is
+still refused by name; a seeded fuzz of
 damaged and cut copies gives cv2's outcome; the JAX package's loader,
 evaluator and size heuristic read cv2's default-quality frames as the
 port's; and (C15) a box nested in ``meta`` with size 0 fails as libavif
@@ -175,18 +176,20 @@ def test_writer_frames_apply_cdef(tmp_path):
 
 
 def test_cdef_is_no_longer_refused():
-    """Neither CDEF nor loop restoration is named as a tool the port
-    lacks; delta loop filter levels are."""
-    assert not any("CDEF" in words or "restoration" in words for words in AV1_TOOLS.values())
-    assert "AV1 delta loop filter levels (delta_lf_present)" in AV1_TOOLS.values()
+    """Neither CDEF, loop restoration nor delta loop filter levels is
+    named as a tool the port lacks; film grain is."""
+    assert not any("CDEF" in words or "restoration" in words or "delta" in words for words in AV1_TOOLS.values())
+    assert "AV1 film grain" in AV1_TOOLS.values()
 
 
-@pytest.mark.parametrize("name", ["refused-delta-lf-420-8", "refused-restoration-bgr8-128x128"])
+@pytest.mark.parametrize("name", ["refused-delta-lf-420-8", "refused-restoration-bgr8-128x128",
+                                  "refused-film-grain-420-8"])
 def test_restoration_and_delta_lf_are_named(tmp_path, name):
-    """The writer's frame with delta loop filter levels (each superblock's
-    deltas 0): cv2 reads it; the port raises ``UnsupportedImageError``
-    naming the filter. cv2's frame with loop restoration (speed 4), once
-    refused by name too: the port reads it to cv2's array."""
+    """The writer's frame with film grain: cv2 reads it (grain applied);
+    the port raises ``UnsupportedImageError`` naming the tool. cv2's frame
+    with loop restoration (speed 4) and the writer's with delta loop filter
+    levels (each superblock's deltas 0), once refused by name too: the
+    port reads each to cv2's array."""
     path = _write(tmp_path, name)
     ref = _cv2(path)
     assert _held(name, ref), name

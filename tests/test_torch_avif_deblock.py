@@ -8,9 +8,9 @@ with the CDEF strengths rewritten to 0; header rewrites of sharpness,
 levels and the INTRA_FRAME delta; ``tools/av1_writer.py``'s lossy 4:4:4,
 4:2:2 and 4:2:0 frames) reads as cv2 reads it; a seeded fuzz of damaged and
 cut copies gives cv2's outcome; CDEF frames, with deblocking and without,
-read as cv2 reads them, and so does the writer's frame with loop
-restoration; delta loop filter levels are still refused by name; the
-JAX package's loader,
+read as cv2 reads them, and so do the writer's frames with loop
+restoration and with delta loop filter levels; film grain is still
+refused by name; the JAX package's loader,
 evaluator and size heuristic read cv2's quality-85 frames as the port's;
 and YCgCo-Re (C13) reads as cv2 reads it at 10 bits and full range, and is
 refused where cv2 returns None."""
@@ -153,25 +153,29 @@ def test_writer_frames_deblock(tmp_path):
 
 
 def test_filters_other_than_deblocking_are_named(tmp_path):
-    """Delta loop filter levels: ``UnsupportedImageError`` naming the
-    filter, never an array; cv2 reads the delta LF frame (each
-    superblock's deltas 0). CDEF (with deblocking or without) and loop
-    restoration (the writer's frame with Wiener luma units, which its
-    tiles now carry), once refused here too: cv2 and the port read each
-    frame to the same array, bit for bit."""
+    """Film grain (the writer's frame, three luma points): cv2 reads it;
+    ``UnsupportedImageError`` naming the tool, never an array. CDEF (with
+    deblocking or without), loop restoration (the writer's frame with
+    Wiener luma units, which its tiles now carry) and delta loop filter
+    levels (each superblock's deltas 0), once refused here too: cv2 and
+    the port read each frame to the same array, bit for bit."""
     deblock = _tool("make_torch_avif_deblock_fixtures")
     aw, fx = deblock.aw, deblock.fx
     lossy = np.load(ROOT / "tests" / "data" / "torch_avif_lossy_fixtures.npz")
     cases = [(lossy[f"{n}/file"].tobytes(), None, True) for n in ("filter-q75-bgr8-61x45", "filter-cdef-bgr8-61x45",
                                                                 "smoke-q75")]
-    for tool, words, cv2_reads in (("delta_lf", "AV1 delta loop filter levels", True),
-                                   ("restoration", None, True)):
+    for tool, words, cv2_reads in (("delta_lf", None, True), ("restoration", None, True),
+                                   ("film_grain", "AV1 film grain", True)):
         for sub, depth in (((1, 1), 8), ((1, 0), 10), ((0, 0), 12)):
             y = np.zeros((40, 72), np.int64)
             c = np.zeros(((40 + sub[1]) >> sub[1], (72 + sub[0]) >> sub[0]), np.int64)
             setting = {"types": (2, 0, 0), "unit_shift": 0} if tool == "restoration" else True
-            payload = aw.encode([y, c, c], depth, subsampling=sub, matrix=1, seed=depth,
-                                lossy={"q": 12, "levels": (5, 7, 3, 2), "sharpness": 1, "delta": 1, tool: setting})
+            lossy_params = {"q": 12, "levels": (5, 7, 3, 2), "sharpness": 1, "delta": 1}
+            grain = depth if tool == "film_grain" else None
+            if grain is None:
+                lossy_params[tool] = setting
+            payload = aw.encode([y, c, c], depth, subsampling=sub, matrix=1, seed=depth, lossy=lossy_params,
+                                film_grain=grain)
             data = fx.avif([fx.image_item(payload, aw.av1c(depth, False, sub), 72, 40, depth, 3,
                                           fx.colr_nclx(1, 13, 1, 1))])
             cases.append((data, words, cv2_reads))
@@ -181,7 +185,7 @@ def test_filters_other_than_deblocking_are_named(tmp_path):
         ref = _cv2(path)
         if cv2_reads:
             assert ref is not None, words
-        if words is None:  # CDEF, loop restoration
+        if words is None:  # CDEF, loop restoration, delta LF
             np.testing.assert_array_equal(read_image(str(path)), ref)
             continue
         with pytest.raises(UnsupportedImageError, match=re.escape(words)):

@@ -10,7 +10,7 @@ units, ``lr_uv_shift`` 1, 4:4:4, 4:2:2 and 4:0:0, 12 bits, 128x128
 superblocks, two and four tiles, every self-guided set and Wiener taps at
 the ends of their ranges) reads as cv2 reads it; each writer frame reads
 to another array with its units RESTORE_NONE, and the port reads that
-one as cv2 does; delta loop filter levels are still refused by name; a
+one as cv2 does; film grain is still refused by name; a
 seeded fuzz of damaged and cut copies gives cv2's outcome; and the JAX
 package's loader, evaluator and size heuristic read cv2's restoration
 frames as the port's."""
@@ -151,15 +151,14 @@ def test_writer_frames_change_without_their_units(tmp_path, name):
 
 
 def test_restoration_is_no_longer_refused(tmp_path):
-    """``AV1_TOOLS`` names no loop restoration; delta loop filter levels
-    (the writer's frame, each superblock's deltas 0) are still refused by
-    name, where cv2 reads the frame."""
+    """``AV1_TOOLS`` names no loop restoration; film grain (the writer's
+    frame) is still refused by name, where cv2 reads the frame."""
     assert not any("restoration" in words for words in AV1_TOOLS.values())
-    assert "AV1 delta loop filter levels (delta_lf_present)" in AV1_TOOLS.values()
+    assert "AV1 film grain" in AV1_TOOLS.values()
     path = tmp_path / "f.avif"
-    path.write_bytes(CDEF_FIXTURES["refused-delta-lf-420-8/file"].tobytes())
+    path.write_bytes(CDEF_FIXTURES["refused-film-grain-420-8/file"].tobytes())
     assert _cv2(path) is not None
-    with pytest.raises(UnsupportedImageError, match=re.escape("AV1 delta loop filter levels")):
+    with pytest.raises(UnsupportedImageError, match=re.escape("AV1 film grain")):
         read_image(str(path))
 
 

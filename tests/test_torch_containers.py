@@ -331,21 +331,23 @@ def test_cut_and_damaged_copies_agree(tmp_path, name):
             np.testing.assert_array_equal(read_image(str(path)), ref, err_msg=f"{name} copy {i}")
 
 
-# an AVIF form OpenCV reads and the port refuses by name: the AV1 writer's frame with delta loop filter levels
-# (cv2's frames with CDEF or loop restoration, once refused here too, decode)
-AVIF_DELTA_LF = np.load(ROOT / "tests" / "data" / "torch_avif_cdef_fixtures.npz")["refused-delta-lf-420-8/file"].tobytes()
+# an AVIF form OpenCV reads and the port refuses by name: the AV1 writer's frame with film grain (cv2's frames with
+# CDEF or loop restoration and the writer's with delta loop filter levels, once refused here too, decode)
+AVIF_FILM_GRAIN = np.load(ROOT / "tests" / "data" / "torch_avif_cdef_fixtures.npz")[
+    "refused-film-grain-420-8/file"].tobytes()
 
 
 @pytest.mark.parametrize("ext, name", [(".jp2", "JPEG 2000"), (".j2k", "JPEG 2000"), (".avif", "AVIF")])
 def test_unported_formats_are_named(tmp_path, ext, name):
     """AVIF in a form OpenCV reads and the port does not decode (the AV1
-    writer's frame with delta loop filter levels; cv2's speed-4 frame with
-    loop restoration, named so until the port applied restoration) raises
+    writer's frame with film grain; its frame with delta loop filter levels
+    and cv2's speed-4 frame with loop restoration, named so until the port
+    applied them) raises
     ``UnsupportedImageError`` naming the format, never "unknown". JPEG 2000
     (the JP2 box and a bare codestream), named so until the port read it,
     now decodes to OpenCV's array (``tests/test_torch_jpeg2000.py``)."""
     big = fx.micrograph(64, 80, 5)
-    data = AVIF_DELTA_LF if ext == ".avif" else fx._cv2_write(".jp2", big)
+    data = AVIF_FILM_GRAIN if ext == ".avif" else fx._cv2_write(".jp2", big)
     if ext == ".j2k":  # the codestream of the JP2 file's jp2c box
         data = data[data.index(b"\xff\x4f\xff\x51"):]
     path = write(tmp_path / f"a{ext}", data)
@@ -360,10 +362,10 @@ def test_unported_formats_are_named(tmp_path, ext, name):
 
 def test_avif_named_by_a_compatible_brand(tmp_path):
     """An ISO BMFF file whose major brand is mif1 and whose compatible
-    brands list avif is AVIF too (a form the port does not decode: delta
-    loop filter levels)."""
+    brands list avif is AVIF too (a form the port does not decode: film
+    grain)."""
     path = tmp_path / "a.avif"
-    data = bytearray(AVIF_DELTA_LF)
+    data = bytearray(AVIF_FILM_GRAIN)
     assert data[4:8] == b"ftyp"
     data[8:12] = b"mif1"
     size = int.from_bytes(data[:4], "big")
@@ -516,15 +518,16 @@ def test_c10_evaluate_skips_as_jax(tmp_path, monkeypatch, c10_records):
 
 def test_c10_unported_file_still_raises(tmp_path, monkeypatch, c10_records):
     """An AVIF record in a form OpenCV reads and the port does not decode
-    (the AV1 writer's frame with delta loop filter levels; cv2's speed-2
-    frame with loop restoration until the port applied it): the port's
+    (the AV1 writer's frame with film grain; its frame with delta loop
+    filter levels and cv2's speed-2 frame with loop restoration until the
+    port applied them): the port's
     ``evaluate_model`` and size heuristic (``calculate_average_mask_sizes``)
     raise ``UnsupportedImageError`` rather than skip it."""
     import deepemia_tpu_torch.train.workflow as port_wf
     from deepemia_tpu_torch.inference.multiscale import calculate_average_mask_sizes
 
     root, _ = c10_records
-    Path(root, "img0.png").write_bytes(AVIF_DELTA_LF)
+    Path(root, "img0.png").write_bytes(AVIF_FILM_GRAIN)
     assert cv2.imread(os.path.join(root, "img0.png")) is not None
     _fake_eval(monkeypatch, "deepemia_tpu_torch", True, [])
     split, config = _register(tmp_path, root, "port")

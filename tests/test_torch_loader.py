@@ -174,14 +174,14 @@ def test_pgm_record_matches_jax(records, tmp_path):
 
 def test_what_opencv_reads_and_the_port_does_not_raises(records, tmp_path):
     """An AVIF file in a form OpenCV reads and the port does not decode
-    (the AV1 writer's frame with delta loop filter levels; cv2's speed-4
-    frame with loop restoration until the port applied it) raises
-    ``UnsupportedImageError`` naming it in ``prepare_sample`` and
-    fails a ``TrainLoader``, where skipping it would train on fewer images
-    than the JAX package."""
+    (the AV1 writer's frame with film grain; its frame with delta loop
+    filter levels and cv2's speed-4 frame with loop restoration until the
+    port applied them) raises ``UnsupportedImageError`` naming it in
+    ``prepare_sample`` and fails a ``TrainLoader``, where skipping it would
+    train on fewer images than the JAX package."""
     avif = tmp_path / "micro.avif"
     cdef = os.path.join(os.path.dirname(__file__), "data", "torch_avif_cdef_fixtures.npz")
-    avif.write_bytes(np.load(cdef)["refused-delta-lf-420-8/file"].tobytes())
+    avif.write_bytes(np.load(cdef)["refused-film-grain-420-8/file"].tobytes())
     assert cv2.imread(str(avif), cv2.IMREAD_COLOR) is not None
     rec = dict(records[0], file_name=str(avif))
     with pytest.raises(UnsupportedImageError, match="AVIF"):

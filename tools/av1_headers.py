@@ -172,8 +172,7 @@ def fields(payload: bytes) -> dict:
     out["delta_q_present"] = b.f(1) if out["base_q_idx"] else 0
     out["delta_q_res"] = b.f(2) if out["delta_q_present"] else 0
     out["delta_lf_present"] = b.f(1) if out["delta_q_present"] and not out["intrabc"] else 0
-    if out["delta_lf_present"]:
-        b.f(3)
+    out["delta_lf_res"], out["delta_lf_multi"] = (b.f(2), b.f(1)) if out["delta_lf_present"] else (0, 0)
     lossless = out["base_q_idx"] == 0 and out["delta_q_y_dc"] == 0 and out["delta_q_uv"] == (0, 0)
     out["loop_filter"], out["cdef_strengths"], out["tx_mode_select"] = (0, 0), [], 0
     out["lr_type"], out["lr_unit_shift"], out["lr_uv_shift"] = (0,) * (1 if seq["mono"] else 3), 0, 0

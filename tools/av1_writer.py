@@ -7,7 +7,9 @@ type, skipped blocks, CDF updates off, padding and metadata OBUs), so that
 cv2 (libaom) and the port's decoder can be held to each other on them.
 With ``palette``, the frame allows screen content tools, and blocks of 8x8
 to 64x64 take palettes of Y and UV, their colours partly from the colour
-cache of their neighbours. With ``intrabc``, it allows intra block copy
+cache of their neighbours. With ``lossy``'s ``delta_lf``, superblocks
+code delta loop filter levels, one or one per plane and direction, under
+any multiplier, drawn at random. With ``intrabc``, it allows intra block copy
 too, and some blocks copy: each skipped, far enough from any other that
 its DV stack is empty, its DV the default one or a pixel off it where that
 is valid (half-pixel chroma where subsampled), so that the paths cv2's
@@ -74,10 +76,13 @@ def _tables() -> dict:
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
     out["kSmWeights4"] = [_values(tables, "kSmWeights")[:4]]
     out["kDeltaQ"] = out["kDeltaLf"] = [_values(tables, "kDeltaQCdf")]  # Default_Delta_Lf_Cdf is the same
+    out["kDeltaLfMulti"] = out["kDeltaLf"] * 4  # FRAME_LF_COUNT CDFs, each adapting on its own
     for name in ("kSwitchableRestore", "kWienerRestore", "kSgrprojRestore"):
         out[name] = [_values(tables, f"{name}Cdf")]
     v = _values(tables, "kIntraTxTypeSet1Cdf")[: 8 * 13]  # TX_4X4's, by intra direction
     out["kIntraTx1"] = [list(v[k : k + 8]) for k in range(0, len(v), 8)]
+    v = _values(tables, "kIntraTxTypeSet2Cdf")[: 6 * 13]  # TX_4X4's under reduced_tx_set
+    out["kIntraTx2"] = [list(v[k : k + 6]) for k in range(0, len(v), 6)]
     for name, per in (("kPaletteYMode", 3), ("kPaletteUvMode", 3), ("kPaletteYSize", 8), ("kPaletteUvSize", 8),
                       ("kPaletteYColor", 9), ("kPaletteUvColor", 9), ("kIntrabc", 3), ("kMvJoint", 5),
                       ("kMvClass", 12), ("kMvSign", 3), ("kMvClass0Bit", 3), ("kMvBits", 3)):
@@ -269,8 +274,13 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
                  lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0, palette=None,
-                 intrabc=None):
+                 intrabc=None, reduced_tx_set=False):
         self.lossy, self.deltas = lossy, deltas
+        # delta LF: {"multi", "res", "odds", "range", "sign"} where deltas are drawn (else each 0), drawn from its own
+        # rng, so that odds 0 gives the blocks of the same seed with every delta 0
+        self.delta_lf = deltas if isinstance(deltas, dict) else None
+        self.dlf_rng = np.random.default_rng([seed, 26])
+        self.reduced_tx_set = reduced_tx_set
         self.palette, self.palette_count = palette, 0
         self.intrabc = intrabc
         self.lr = restoration
@@ -347,13 +357,14 @@ class _Frame:
         self.pal_n = np.zeros((2, self.mi_rows, self.mi_cols), np.int64)
         self.pal_c = np.zeros((2, self.mi_rows, self.mi_cols, 8), np.int64)
         self.block_decoded = [None] * n
+        self.delta_lf_running = [0] * 4  # av1_reset_loop_filter_delta
         sb4 = 32 if self.sb128 else 16
         for r in range(r0, r1, sb4):
             self.left_level = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
             self.left_dc = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
             for c in range(c0, c1, sb4):
                 self.clear_block_decoded(r, c)
-                self.read_deltas = self.deltas
+                self.read_deltas = bool(self.deltas)
                 if self.lr:
                     self.lr_units(r, c)
                 self.partition(r, c, B128X128 if self.sb128 else B64X64)
@@ -531,6 +542,8 @@ class _Frame:
             w = np.full(n, 0.3)
             w[SPLIT] = 3.0 if bsize > B8X8 else 0.0
             w[NONE] = 1.0
+        if self.delta_lf is not None and bsize == (B128X128 if self.sb128 else B64X64):
+            w[NONE] = 0.0  # a whole lossy superblock skips, and reads no delta
         return w / w.sum()
 
     # ---- intra block copy (5.11.24-26, libaom's read_intrabc_info) ----
@@ -706,8 +719,8 @@ class _Frame:
                 for x in range(c & ~15, c + bw4, 16):
                     self.cdef_idx[(y, x)] = v
         if self.read_deltas and not (bsize == (B128X128 if self.sb128 else B64X64) and skip):
-            sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0, then delta_lf_abs 0 (one, not multi)
-            sym.symbol(0, cdf["kDeltaLf"][0], 4)
+            sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0
+            self.write_delta_lf()
         self.read_deltas = False
         if self.intrabc is not None:
             sym.symbol(0, cdf["kIntrabc"][0], 2)
@@ -753,6 +766,34 @@ class _Frame:
         if not skip:
             for p, x4, y4, lv in levels:
                 self.coeffs(p, x4, y4, lv)
+
+    # ---- delta loop filter levels (5.11.41, libaom's read_delta_lflevel) ----
+    def write_delta_lf(self):
+        """The superblock's deltas: each running delta's (one, or one per
+        plane and direction) drawn at ``odds``, 1 to ``range`` in size, of
+        ``sign`` (0 either), coded in its own CDF; the running deltas move
+        by it times 1 << ``res``, clamped to +-63 as the decoder's, and are
+        appended to ``log`` where given."""
+        dlf = self.delta_lf or {}
+        multi, rng = dlf.get("multi", 0), self.dlf_rng
+        for i in range((2 if self.mono else 4) if multi else 1):
+            d = 0
+            if dlf and rng.random() < dlf.get("odds", 0.7):
+                d = int(rng.integers(1, dlf.get("range", 3) + 1))
+                sign = dlf.get("sign", 0)
+                d = -d if sign < 0 or (sign == 0 and rng.random() < 0.5) else d
+            cdf = self.cdf["kDeltaLfMulti"][i] if multi else self.cdf["kDeltaLf"][0]
+            a = abs(d)
+            self.sym.symbol(min(a, 3), cdf, 4)
+            if a >= 3:  # delta_lf_rem_bits, then the rest
+                n = (a - 1).bit_length() - 1
+                self.literal(n - 1, 3)
+                self.literal(a - (1 << n) - 1, n)
+            if a:
+                self.sym.bool(int(d < 0))
+            self.delta_lf_running[i] = min(63, max(-63, self.delta_lf_running[i] + d * (1 << dlf.get("res", 0))))
+        if "log" in dlf:
+            dlf["log"].append(tuple(self.delta_lf_running))
 
     # ---- palette mode (5.11.46, 5.11.49) ----
     def palette_cache(self, r, c, k):
@@ -1205,7 +1246,10 @@ class _Frame:
         sym.symbol(all_zero, cdf["kTxbSkip"][ctx], 2)
         if self.lossy and p == 0 and not all_zero:  # the transform type, of the intra direction
             direction = (0, 1, 2, 6, 0)[self.filter_mode] if self.use_filter_intra else self.y_mode
-            sym.symbol(self.tx_symbol, cdf["kIntraTx1"][direction], 7)
+            if self.reduced_tx_set:  # TX_SET_INTRA_2: the same five types, IDTX, DCT_DCT, then the ADSTs
+                sym.symbol((0, 1, None, None, 2, 3, 4)[self.tx_symbol], cdf["kIntraTx2"][direction], 5)
+            else:
+                sym.symbol(self.tx_symbol, cdf["kIntraTx1"][direction], 7)
         cul, dc_cat = 0, 0
         if not all_zero:
             eob = max(k for k in range(16) if q[_SCAN[k]]) + 1
@@ -1299,7 +1343,7 @@ def _obu(kind: int, body: bytes) -> bytes:
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
            seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
-           full_range: bool = True, lossy=None, palette=None, intrabc=None) -> bytes:
+           full_range: bool = True, lossy=None, palette=None, intrabc=None, film_grain=None) -> bytes:
     """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
     the identity matrix, or with ``matrix`` (colour primaries BT.709,
     sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
@@ -1317,8 +1361,17 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     drawn from ``seed``). ``lossy``: {"q": base_q_idx (1-20), "levels":
     (Y vertical, Y horizontal, U, V), "sharpness": 0-7, "delta": the
     INTRA_FRAME ref delta written with loop_filter_delta_update, or None
-    for deltas off; and, optionally, "delta_lf": delta_q_present and
-    delta_lf_present on, each superblock's deltas 0; "restoration":
+    for deltas off (any level may be 0; U and V are written where a Y one
+    is not); and, optionally, "delta_lf": delta_q_present and
+    delta_lf_present on, True for each superblock's deltas 0, or {"multi":
+    delta_lf_multi, "res": delta_lf_res as coded (0-3), "odds": of each
+    delta not 0 (0.7), "range": the largest coded delta (3), "sign": 1 or
+    -1 for deltas of that sign only, 0 either (0), "log": a list each
+    superblock's running deltas are appended to} for deltas drawn (from
+    ``seed``, apart from the blocks' draws) at each superblock's first
+    block, no superblock left whole (it would skip and read none);
+    "reduced_tx_set": reduced_tx_set 1, the 4x4 luma types coded in
+    TX_SET_INTRA_2; "restoration":
     {"types": lr_type per plane as coded (0 NONE, 1 SWITCHABLE, 2
     WIENER, 3 SGRPROJ), "unit_shift": the specification's lr_unit_shift
     (units of 256 >> (2 - shift) samples; 1 or 2 under 128x128
@@ -1346,7 +1399,9 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     where it may, "shift": of its DV a pixel off the default one}; a reduced
     header only, no in-loop filter or delta LF): allow_intrabc on as well
     (palettes at ``palette``'s odds or none), and skipped blocks that copy
-    (``_Frame.copy``)."""
+    (``_Frame.copy``). ``film_grain`` (a grain_seed):
+    film_grain_params_present on, and the frame applies grain of three
+    luma points (no chroma points, no auto-regression)."""
     rng = np.random.default_rng(seed)
     assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
     if lossy:
@@ -1359,11 +1414,11 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         palette = palette or {"odds": 0.0}
     cdef = lossy.get("cdef") if lossy else None
     fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
-                lossy=bool(lossy), deltas=bool(lossy and lossy.get("delta_lf")),
+                lossy=bool(lossy), deltas=(lossy.get("delta_lf") or False) if lossy else False,
                 cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
                 skip64=lossy.get("skip64", ()) if lossy else (),
                 restoration=lossy.get("restoration") if lossy else None, seed=seed, palette=palette,
-                intrabc=intrabc)
+                intrabc=intrabc, reduced_tx_set=bool(lossy and lossy.get("reduced_tx_set")))
     assert reduced or not palette, "screen content tools under a reduced header only"
     restoration = int(bool(lossy and lossy.get("restoration")))
     mono = fr.mono
@@ -1426,7 +1481,7 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         if subsampling[0] and subsampling[1]:
             b.f(2, 0)  # chroma_sample_position: unknown
         b.f(1, 0)  # separate_uv_delta_q
-    b.f(1, 0)  # film_grain_params_present
+    b.f(1, int(film_grain is not None))  # film_grain_params_present
     b.trailing()
     seq = b.bytes()
     # the frame header
@@ -1497,9 +1552,11 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     h.f(1, 0)  # using_qmatrix
     h.f(1, 0)  # segmentation_enabled
     if lossy:
-        h.f(1, int(fr.deltas))  # delta_q_present
+        h.f(1, int(bool(fr.deltas)))  # delta_q_present
         if fr.deltas:
-            h.f(2, 0), h.f(1, 1), h.f(2, 0), h.f(1, 0)  # delta_q_res, delta_lf_present, delta_lf_res, delta_lf_multi
+            dlf = fr.delta_lf or {}
+            h.f(2, 0), h.f(1, 1)  # delta_q_res, delta_lf_present
+            h.f(2, dlf.get("res", 0)), h.f(1, dlf.get("multi", 0))  # delta_lf_res, delta_lf_multi
         if intrabc is None:  # intra block copy codes no in-loop filter parameters
             levels = lossy["levels"]
             h.f(6, levels[0]), h.f(6, levels[1])
@@ -1538,7 +1595,18 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
                     else:
                         assert not lr.get("uv_shift", 0), "lr_uv_shift: 4:2:0 with chroma restoration only"
         h.f(1, 0)  # tx_mode_select: TX_MODE_LARGEST
-    h.f(1, 0)  # reduced_tx_set
+    h.f(1, int(fr.reduced_tx_set))
+    if film_grain is not None:  # film_grain_params (update_grain is implied on a key frame)
+        h.f(1, 1), h.f(16, film_grain)  # apply_grain, grain_seed
+        h.f(4, 3)  # num_y_points, then each (point_y_value, point_y_scaling)
+        for value, scaling in ((0, 48), (96, 64), (255, 40)):
+            h.f(8, value), h.f(8, scaling)
+        if not mono:
+            h.f(1, 0)  # chroma_scaling_from_luma
+            h.f(4, 0), h.f(4, 0)  # num_cb_points, num_cr_points
+        h.f(2, 0), h.f(2, 0)  # grain_scaling_minus_8, ar_coeff_lag: no auto-regressive coefficients
+        h.f(2, 0), h.f(2, 0)  # ar_coeff_shift_minus_6, grain_scale_shift
+        h.f(1, 0), h.f(1, 0)  # overlap_flag, clip_to_restricted_range
     # the tiles
     n_cols, n_rows = len(cols) - 1, len(rows) - 1
     data = [fr.encode_tile(rows[t // n_cols], rows[t // n_cols + 1], cols[t % n_cols], cols[t % n_cols + 1])

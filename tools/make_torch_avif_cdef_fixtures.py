@@ -31,10 +31,13 @@ The entries:
   blocks all skip (its index never written, -1) and 4x4 blocks that code
   skip 0 and no coefficient (filtered: libaom's skip is the flag read):
   the forms cv2 does not write;
-- ``refused-*``: cv2's frame at speed 4 with loop restoration, which the
-  port refused by name until it applied restoration and now reads, and
-  the writer's with delta loop filter levels, which it still refuses by
-  name (phases 21 and 22 check that refusal);
+- ``refused-*``: cv2's frame at speed 4 with loop restoration and the
+  writer's with delta loop filter levels (each superblock's deltas 0),
+  which the port refused by name until it applied each and now reads,
+  and the writer's with film grain (``apply_grain``, three luma points:
+  cv2's pixels differ from the frame's without grain), which it still
+  refuses by name (phases 21 and 22 and every "refused by name" test
+  check that refusal);
 - ``smoke-*``: phase 22's labelled frame (``chip_smoke.draw_labelled``,
   seed 22, its background flattened) as cv2 writes it by default (BGR),
   at quality 75 and 10 bits (BGR) and by default at 12 bits (gray); a
@@ -113,10 +116,11 @@ def rewritten(data: bytes, **kw) -> bytes:
 
 
 def writer_cdef(sub, depth: int, h: int, w: int, seed: int, cdef: dict, sb128: bool = False, skip64=(),
-                empty: float = 0.0, mono: bool = False, **extra) -> bytes:
+                empty: float = 0.0, mono: bool = False, film_grain=None, search: bool = True, **extra) -> bytes:
     """The writer's lossy frame under CDEF (deblocked too), from the first
     seed from ``seed`` on whose frame cv2 reads otherwise with every
-    strength 0 (one whose blocks the filter changes)."""
+    strength 0 (one whose blocks the filter changes); without ``search``,
+    the frame of ``seed``."""
     import cv2
 
     y = np.zeros((h, w), np.int64)
@@ -126,12 +130,12 @@ def writer_cdef(sub, depth: int, h: int, w: int, seed: int, cdef: dict, sb128: b
         path = str(Path(d) / "f.avif")
         for s in range(seed, seed + 20):
             payload = aw.encode([y] if mono else [y, c, c], depth, subsampling=sub, matrix=1, full_range=True,
-                                seed=s, sb128=sb128,
+                                seed=s, sb128=sb128, film_grain=film_grain,
                                 lossy={"q": 18, "levels": (6, 9, 4, 5), "sharpness": 1, "delta": 1, "cdef": cdef,
                                        "skip64": skip64, "empty": empty, **extra})
             data = fx.avif([fx.image_item(payload, aw.av1c(depth, mono, sub), w, h, depth, 1 if mono else 3,
                                           fx.colr_nclx(1, 13, 1, 1))])
-            if extra:  # a frame refused by name: any seed
+            if not search:
                 return data
             reads = []
             for frame in (data, with_payload(data, hd.rewrite_cdef(payload, strengths=zero))):
@@ -233,20 +237,39 @@ def cases() -> dict:
                 sub, depth, h, w, 800 + 20 * k, cdef, sb128=sb128, skip64=[(0, 1)] if sb128 else (),
                 empty=0.1, mono=mono)
             k += 1
-    # loop restoration (cv2 at speed 4; refused by name until the port applied it) and delta loop filter levels (the
-    # writer's; refused by name)
+    # loop restoration (cv2 at speed 4) and delta loop filter levels (the writer's), refused by name until the port
+    # applied each; film grain (the writer's), refused by name
     for seed in range(1, 40):
         data = cv2_lossy(blurred(128, 128, seed, 3), 75, speed=4)
         if any(hd.fields(fx.payload_of(data)[0])["lr_type"]):
             out["refused-restoration-bgr8-128x128"] = data
             break
     out["refused-delta-lf-420-8"] = writer_cdef((1, 1), 8, 40, 72, 900, {"damping": 4, "bits": 0,
-                                                                          "strengths": [[6, 1, 3, 1]]}, delta_lf=True)
+                                                                          "strengths": [[6, 1, 3, 1]]}, delta_lf=True,
+                                              search=False)
+    out["refused-film-grain-420-8"] = film_grain_frame()
     out.update(smoke_cases())
     return out
 
 
-NAMED = {"refused-delta-lf-420-8": "AV1 delta loop filter levels"}
+NAMED = {"refused-film-grain-420-8": "AV1 film grain"}
+
+
+def film_grain_frame() -> bytes:
+    """The writer's 4:2:0 frame with film grain, held to change what cv2 reads from the same frame without it."""
+    import cv2
+
+    cdef = {"damping": 4, "bits": 0, "strengths": [[6, 1, 3, 1]]}
+    grain, plain = (writer_cdef((1, 1), 8, 40, 72, 901, cdef, film_grain=g, search=False)
+                    for g in (2026, None))
+    with tempfile.TemporaryDirectory() as d:
+        reads = []
+        for data in (grain, plain):
+            path = Path(d) / "f.avif"
+            path.write_bytes(data)
+            reads.append(cv2.imread(str(path), cv2.IMREAD_COLOR))
+    assert reads[0] is not None and not np.array_equal(*reads), "film grain changes no pixel"
+    return grain
 
 
 def main(out: str = str(DEFAULT_OUT)) -> str:
