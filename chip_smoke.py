@@ -314,10 +314,10 @@ It builds the CUDA kernels from the sources in the checkout and then:
      phase 21 alone.
  22. Lossy and subsampled AVIF (``native/av1.cpp``'s lossy intra path
      with the tables of ``native/av1_tables.h``, its palette mode, intra
-     block copy, loop filter with delta loop filter levels, CDEF and loop
-     restoration, ``ops/avif.py``'s
+     block copy, segmentation, loop filter with delta loop filter levels
+     and segmentation's, CDEF and loop restoration, ``ops/avif.py``'s
      libavif colour conversion): (a) one 1024x768 labelled micrograph
-     (``draw_labelled``, seed 22, its background flattened) in seventeen
+     (``draw_labelled``, seed 22, its background flattened) in eighteen
      forms (cv2's quality 95 BGR 4:2:0 and gray,
      quality 99 at 10 and 12 bits, ``tools/av1_writer.py``'s lossless
      4:2:0 BT.601 frame; the deblocked frames: cv2's quality 85 BGR,
@@ -327,13 +327,16 @@ It builds the CUDA kernels from the sources in the checkout and then:
      texture: cv2's 8-bit BGR with Wiener luma units, 10-bit BGR, 8- and
      10-bit gray with self-guided luma units, at speeds 4 and 2; cv2's
      BGR frame at speed 4, with intra block copy, and at speed 8, with
-     palettes; the files committed in
+     palettes; the writer's lossless 4:2:0 frame with eight segments, all
+     lossless, a training frame; the files committed in
      ``tests/data/torch_avif_lossy_fixtures.npz``,
      ``tests/data/torch_avif_cdef_fixtures.npz``,
      ``tests/data/torch_avif_restoration_fixtures.npz``,
-     ``tests/data/torch_avif_palette_fixtures.npz`` and
-     ``tests/data/torch_avif_intrabc_fixtures.npz``) decodes to the
-     SHA-256 of cv2's array and near the drawing; (b) cv2's quality-75
+     ``tests/data/torch_avif_palette_fixtures.npz``,
+     ``tests/data/torch_avif_intrabc_fixtures.npz`` and
+     ``tests/data/torch_avif_segmentation_fixtures.npz``) decodes to the
+     SHA-256 of cv2's array and near the drawing (the segmented frame to
+     it exactly); (b) cv2's quality-75
      frame, which deblocks and applies CDEF, the textured 8-bit gray frame
      with CDEF then restoration, and the committed restoration fixtures
      (cv2's frames at speeds 0-4, the AV1 writer's SWITCHABLE, 4:4:4,
@@ -346,9 +349,16 @@ It builds the CUDA kernels from the sources in the checkout and then:
      writer's frames in every subsampling at 8, 10 and 12 bits, one delta
      or one per plane and direction, every multiplier, the clamp, levels
      of 0, 128x128 superblocks, tile rows, CDEF and restoration on top,
-     reduced_tx_set 1) decode to cv2's arrays or their SHA-256, the
-     writer's frame with a DV into its own undecoded block fails where cv2
-     fails, and the writer's frame with film grain raises
+     reduced_tx_set 1) and segmentation fixtures
+     (``tests/data/torch_avif_segmentation_fixtures.npz``: the writer's
+     lossy and lossless frames in every subsampling at 8, 10 and 12 bits, a
+     lossless segment among lossy ones, ALT_Q under delta q, ALT_LF per
+     plane and direction, SKIP, REF_FRAME and GLOBALMV before skip,
+     128x128 superblocks, tiles, CDEF, restoration, delta LF, palettes and
+     intra block copy on top) decode to cv2's arrays or their SHA-256, the
+     writer's frame with a DV into its own undecoded block and its frame
+     with a segment id past the last active segment fail where cv2 fails,
+     and the writer's frame with film grain raises
      ``UnsupportedImageError`` naming it; (c) committed 2048² BGR rasters:
      the micrograph at quality 95, at 85 (deblocked) and at cv2's default
      quality (deblocked, CDEF), blurred noise at speed 4 (self-guided
@@ -357,7 +367,9 @@ It builds the CUDA kernels from the sources in the checkout and then:
      default speed: host decode seconds (median of 3) beside an
      uncompressed TIFF of the same pixels, and each as a multiple of
      quality 95's; the writer's 1024² 4:2:0 frame with delta LF beside its
-     twin with every delta 0 (median of 3, as a ratio); (d) the seventeen frames through
+     twin with every delta 0, and its 1024² 4:2:0 frame with ALT_Q and
+     ALT_LF segments beside its twin from the same seed with segmentation
+     off (median of 3, each as a ratio); (d) the eighteen frames through
      the CLI as phase 19 (c) takes its dataset.
      ``python3 -c "import chip_smoke; chip_smoke.avif_lossy_only()"``
      runs phase 22 alone.
@@ -4642,10 +4654,14 @@ AVIF_PALETTE_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_palette_
 AVIF_INTRABC_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_intrabc_fixtures.npz")
 # phase 22's screen content frames (``smoke-<form>`` in AVIF_INTRABC_FIXTURES and AVIF_PALETTE_FIXTURES: the
 # labelled frame as cv2 writes it at speed 4, with intra block copy and palettes, no in-loop filter; at speed 8, with
-# palettes, deblocked, CDEF) -> how far each may lie from the drawing; both join the dataset, the first as sem_15,
-# one of the four the split holds out for evaluation
+# palettes, deblocked, CDEF) -> how far each may lie from the drawing; both join the dataset for training
 AVIF_PALETTE_FORMS = {"intrabc-bgr8": 8, "palette-bgr8": 96}
 AVIF_DELTA_LF_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_delta_lf_fixtures.npz")
+AVIF_SEGMENTATION_FIXTURES = os.path.join(ROOT, "tests", "data", "torch_avif_segmentation_fixtures.npz")
+# phase 22's segmented frame (``smoke-writer-seg`` in AVIF_SEGMENTATION_FIXTURES: the writer's lossless 4:2:0 frame of
+# the flattened drawing, eight segments, all lossless) -> its distance from the drawing; the dataset's last frame,
+# sem_17, for training (of the eighteen the split holds out sem_00, sem_01, sem_05 and sem_08)
+AVIF_SEGMENTATION_FORMS = {"writer-seg": 0}
 # the committed frames cv2 reads and the port refuses by name: (fixture file, entry, the words of the refusal, what it
 # is): the AV1 writer's frame with film grain
 AVIF_NAMED = {"film-grain": (AVIF_CDEF_FIXTURES, "refused-film-grain-420-8", "AV1 film grain",
@@ -5277,9 +5293,11 @@ def read_committed_fixtures(tag: str, path: str, fixtures_path: str, what: str) 
     file's: cv2's palette frames at speeds 0-8, the writer's, phase 22's
     palette frame; the intra block copy file's: cv2's frames at speeds 0-7,
     the writer's, phase 22's frame; the delta loop filter level file's: the
-    writer's frames, phase 22's timing pair) decode to cv2's arrays or their SHA-256,
-    and one cv2 reads nothing of (the writer's DV into its own undecoded
-    block) fails as a corrupt stream (phase 22 (b))."""
+    writer's frames, phase 22's timing pair; the segmentation file's: the
+    writer's frames, phase 22's dataset frame and timing pair) decode to
+    cv2's arrays or their SHA-256, and those cv2 reads nothing of (the
+    writer's DV into its own undecoded block, its segment id past the last
+    active segment) fail as a corrupt stream (phase 22 (b))."""
     import hashlib
 
     from deepemia_tpu_torch.ops.image import UnsupportedImageError, read_image
@@ -5336,17 +5354,19 @@ def avif_only():
 
 def avif_lossy_forms() -> dict:
     """Phase 22's dataset forms -> their tolerances: AVIF_LOSSY_FORMS, the
-    loop restoration forms but the last of AVIF_RESTORATION_FORMS, then
-    AVIF_PALETTE_FORMS."""
-    return {**AVIF_LOSSY_FORMS, **dict(list(AVIF_RESTORATION_FORMS.items())[:-1]), **AVIF_PALETTE_FORMS}
+    loop restoration forms but the last of AVIF_RESTORATION_FORMS,
+    AVIF_PALETTE_FORMS, then AVIF_SEGMENTATION_FORMS."""
+    return {**AVIF_LOSSY_FORMS, **dict(list(AVIF_RESTORATION_FORMS.items())[:-1]), **AVIF_PALETTE_FORMS,
+            **AVIF_SEGMENTATION_FORMS}
 
 
 def avif_lossy_fixtures() -> dict:
-    """Phase 22's fixture files, merged: lossy, CDEF, loop restoration, palette and, of intra block copy, phase
-    22's frames."""
-    intrabc = np.load(AVIF_INTRABC_FIXTURES)
+    """Phase 22's fixture files, merged: lossy, CDEF, loop restoration, palette and, of intra block copy and
+    segmentation, phase 22's frames."""
+    intrabc, seg = np.load(AVIF_INTRABC_FIXTURES), np.load(AVIF_SEGMENTATION_FIXTURES)
     return {**np.load(AVIF_LOSSY_FIXTURES), **np.load(AVIF_CDEF_FIXTURES), **np.load(AVIF_RESTORATION_FIXTURES),
-            **np.load(AVIF_PALETTE_FIXTURES), **{k: intrabc[k] for k in intrabc.files if k.startswith("smoke-")}}
+            **np.load(AVIF_PALETTE_FIXTURES), **{k: intrabc[k] for k in intrabc.files if k.startswith("smoke-")},
+            **{k: seg[k] for k in seg.files if k.startswith("smoke-")}}
 
 
 def avif_lossy_dataset(root: str, twin: str, hw=DATASET_HW, seed: int = AVIF_LOSSY_SEED):
@@ -5392,23 +5412,25 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
     dataset written (``avif_lossy_dataset``: each frame to the SHA-256 of
     cv2's array and near the drawing; three of them deblocked, three more
     deblocked and filtered with CDEF, four with loop restoration, one with
-    palettes, one with intra block copy); (b) cv2's quality-75 frame, which
-    deblocks and applies CDEF, and the textured gray frame with CDEF then
-    loop restoration, to the SHA-256 of cv2's arrays, the committed
-    restoration, palette, intra block copy and delta loop filter level
-    fixtures to cv2's arrays (``read_committed_fixtures``), and the AV1
-    writer's frame with film grain raises ``UnsupportedImageError`` naming
-    it; (c) the committed
+    palettes, one with intra block copy, one with segmentation, the
+    drawing exactly); (b) cv2's quality-75 frame, which deblocks and
+    applies CDEF, and the textured gray frame with CDEF then loop
+    restoration, to the SHA-256 of cv2's arrays, the committed
+    restoration, palette, intra block copy, delta loop filter level and
+    segmentation fixtures to cv2's arrays (``read_committed_fixtures``),
+    and the AV1 writer's frame with film grain raises
+    ``UnsupportedImageError`` naming it; (c) the committed
     2048² BGR micrograph at quality 95, at 85 (deblocked) and at cv2's
     default quality (deblocked, CDEF), blurred noise at speed 4
     (self-guided restoration in every plane), and the flattened labelled
     frame tiled to 2048² at speed 4 (intra block copy), at speed 8
     (palettes) and at cv2's default speed:
     host decode seconds (median of 3) beside an uncompressed TIFF of the
-    same pixels, each as a multiple of quality 95's, and the AV1 writer's
-    1024² frame with delta loop filter levels beside its twin with every
-    delta 0 (median of 3, as a ratio), with the card's name and power
-    limit; (d) the dataset through the CLI (``cli_on_dataset``)
+    same pixels, each as a multiple of quality 95's, the AV1 writer's 1024²
+    frame with delta loop filter levels beside its twin with every delta 0,
+    and its 1024² frame with ALT_Q and ALT_LF segments beside its twin from
+    the same seed with segmentation off (median of 3, each as a ratio),
+    with the card's name and power limit; (d) the dataset through the CLI (``cli_on_dataset``)
     -> (K1 launches, K2 launches, K1 errors, K2 errors)."""
     import hashlib
     import shutil
@@ -5427,7 +5449,7 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
           f"twins written, in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # (b) frames that deblock and apply CDEF, and CDEF then loop restoration, read; the restoration, palette, intra
-    # block copy and delta LF fixtures, read; film grain, refused by name
+    # block copy, delta LF and segmentation fixtures, read; film grain, refused by name
     for name, what in (("smoke-q75", "quality 75, deblocked and CDEF"),
                        ("smoke-lr-cdef-gray8", "textured, 8-bit gray, CDEF then self-guided restoration")):
         path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
@@ -5444,6 +5466,8 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
                             "intra block copy")
     read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "delta_lf.avif"), AVIF_DELTA_LF_FIXTURES,
                             "delta loop filter level")
+    read_committed_fixtures("avif lossy", os.path.join(AVIF_LOSSY_DIR, "segmentation.avif"),
+                            AVIF_SEGMENTATION_FIXTURES, "segmentation")
     for form in AVIF_NAMED:
         refuse_named("avif lossy", os.path.join(AVIF_LOSSY_DIR, f"{form}.avif"), form)
 
@@ -5473,19 +5497,26 @@ def phase_avif_lossy(card, device="cuda", config_hook=None, steps=CONTAINER_STEP
         print(f"avif lossy: decode {name} {got.shape[1]}x{got.shape[0]} ({os.path.getsize(path)} bytes, BGR 4:2:0, "
               f"{what}, cv2's libavif/libaom writer): {secs:.4f} s ({secs / q95:.2f}x quality 95's) "
               f"beside uncompressed RGB TIFF {plain_s:.4f} s (median of 3, host; {card})", flush=True)
-    delta_lf = np.load(AVIF_DELTA_LF_FIXTURES)
     secs = {}
-    for name in ("timing-1024-delta-lf", "timing-1024-zero-deltas"):
-        path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
-        with open(path, "wb") as f:
-            f.write(delta_lf[f"{name}/file"].tobytes())
-        got, secs[name] = decode_seconds(path)
-        assert hashlib.sha256(got.tobytes()).hexdigest() == delta_lf[f"{name}/sha256"].tobytes().decode(), name
+    for fixtures_path, pair in ((AVIF_DELTA_LF_FIXTURES, ("timing-1024-delta-lf", "timing-1024-zero-deltas")),
+                                (AVIF_SEGMENTATION_FIXTURES, ("timing-1024-segmentation", "timing-1024-no-segmentation"))):
+        timed = np.load(fixtures_path)
+        for name in pair:
+            path = os.path.join(AVIF_LOSSY_DIR, f"{name}.avif")
+            with open(path, "wb") as f:
+                f.write(timed[f"{name}/file"].tobytes())
+            got, secs[name] = decode_seconds(path)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == timed[f"{name}/sha256"].tobytes().decode(), name
     ratio = secs["timing-1024-delta-lf"] / secs["timing-1024-zero-deltas"]
     print(f"avif lossy: decode timing-1024-delta-lf 1024x1024 (the AV1 writer's 4:2:0 frame, delta loop filter levels "
           f"per plane and direction, deblocked at a level per block): {secs['timing-1024-delta-lf']:.4f} s beside its "
           f"twin with every delta 0 {secs['timing-1024-zero-deltas']:.4f} s: {ratio:.2f}x (median of 3, host; {card})",
           flush=True)
+    ratio = secs["timing-1024-segmentation"] / secs["timing-1024-no-segmentation"]
+    print(f"avif lossy: decode timing-1024-segmentation 1024x1024 (the AV1 writer's 4:2:0 frame, four segments with "
+          f"ALT_Q and ALT_LF, a quantizer and deblocking levels per segment): {secs['timing-1024-segmentation']:.4f} s "
+          f"beside its twin from the same seed with segmentation off {secs['timing-1024-no-segmentation']:.4f} s: "
+          f"{ratio:.2f}x (median of 3, host; {card})", flush=True)
 
     # (d) the dataset through the CLI
     k1, k2, k1_errs, k2_errs = cli_on_dataset("avif lossy", home, root, twin, files, card, device=device,

@@ -298,9 +298,10 @@ def av1_decode(data: bytes) -> Tuple[int, np.ndarray, Optional[list]]:
     deltas, then what intra block copy coded: its blocks, those whose DV
     stack held a candidate, a bit per path taken, then what delta loop
     filter levels coded: the blocks whose deltas are not all 0, a bit per
-    path taken."""
+    path taken, then what segmentation coded: a bit per segment id a block
+    took, a bit per path taken."""
     src = np.frombuffer(data, np.uint8)
-    meta = np.zeros(20, np.int32)
+    meta = np.zeros(22, np.int32)
     lib = get_lib("av1")
     status = lib.av1_decode(_ptr(src), src.size, _ptr(meta))
     if status:

@@ -2,11 +2,13 @@
 // them to libaom (AV1 specification, 2019 with errata): the OBU layer
 // (sequence headers, full and reduced; temporal delimiter, frame, frame
 // header and tile group OBUs; padding and metadata skipped), the
-// uncompressed header of a shown key frame, tile info (uniform and not), the
+// uncompressed header of a shown key frame, tile info (uniform and not),
+// segmentation (7.12.2: a quantizer, a lossless flag and loop filter levels
+// per segment, the segment id of each block spatially predicted), the
 // symbol decoder with CDF adaptation, partitions of 64x64 and 128x128
-// superblocks down to 4x4, intra mode info (skip, the CDEF index and
-// delta q of a superblock, Y mode, angle delta, UV mode with CFL, palette
-// mode with its colour cache and colour index maps, filter intra, the
+// superblocks down to 4x4, intra mode info (the segment id, skip, the CDEF
+// index and delta q of a superblock, Y mode, angle delta, UV mode with CFL,
+// palette mode with its colour cache and colour index maps, filter intra, the
 // transform depth), coefficients of every transform size from 4x4 to
 // 64x64 at the frame's q-context with their transform types (the
 // intra and inter sets), dequantization with quantizer matrices, the inverse
@@ -15,8 +17,8 @@
 // modes with the edge filter and upsampling, smooth, Paeth, CFL, recursive
 // filter intra, palette), at 8, 10 and 12 bits in 4:4:4, 4:2:2, 4:2:0 or
 // 4:0:0, and the three in-loop filters: deblocking (7.14, with delta loop
-// filter levels: a level per block), CDEF (7.15) and loop restoration (7.17:
-// Wiener and self-guided units, switchable or not).
+// filter levels and segmentation's: a level per block), CDEF (7.15) and loop
+// restoration (7.17: Wiener and self-guided units, switchable or not).
 // Both screen content tools are decoded: palette mode, and intra block copy
 // (a block vector from the spatial DV stack, coded against MV_INTRABC_CONTEXT
 // and held to libaom's validity rules; the block copied from the frame's
@@ -590,7 +592,6 @@ void inverse_transform_2d(const int32_t* coef, int tx, int tx_type, int bd, int3
 
 // What a refusal names (meta[4]); ops/avif.py holds the names
 enum Tool {
-  kToolSegmentation = 3,
   kToolSuperres = 5, kToolFilmGrain = 6, kToolNotKeyFrame = 7, kToolNotShown = 8, kToolLargeScaleTile = 9,
   kToolShowExisting = 10
 };
@@ -788,6 +789,7 @@ struct Cdfs {
   // split flag of inter blocks and the inter transform types of sets 1, 2, 3 by square size
   uint16_t intrabc[3], mv_joint[5], mv_class[2][12], mv_sign[2][3], mv_class0[2][3], mv_bits[2][10][3];
   uint16_t txfm_split[21][3], inter_tx1[4][17], inter_tx2[4][13], inter_tx3[4][3];
+  uint16_t spatial_seg[3][9];  // the segment id, by how many of its neighbours' ids agree
   void reset(int qctx) {
     using namespace av1t;
     std::memcpy(partition8, kPartition8, sizeof partition8);
@@ -845,6 +847,7 @@ struct Cdfs {
     std::memcpy(inter_tx1, kInterTxTypeSet1Cdf, sizeof inter_tx1);
     std::memcpy(inter_tx2, kInterTxTypeSet2Cdf, sizeof inter_tx2);
     std::memcpy(inter_tx3, kInterTxTypeSet3Cdf, sizeof inter_tx3);
+    std::memcpy(spatial_seg, kSpatialPredSegCdf, sizeof spatial_seg);
   }
 };
 
@@ -859,8 +862,14 @@ struct Decoder {
   int disable_cdf_update = 0, allow_screen_content = 0, allow_intrabc = 0;
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0, tile_size_bytes = 0;
   std::vector<int> mi_col_starts, mi_row_starts;
-  int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0}, qm_level[3] = {15, 15, 15};
-  int lossless = 0, delta_q_present = 0, delta_q_res = 0;
+  int base_q_idx = 0, delta_q_dc[3] = {0, 0, 0}, delta_q_ac[3] = {0, 0, 0};
+  int delta_q_present = 0, delta_q_res = 0;
+  // segmentation_params: whether it is on, each segment's features (a bit per SEG_LVL_*) and their data, the last
+  // segment with a feature (LastActiveSegId) and whether the id is read before skip (SegIdPreSkip)
+  int seg_enabled = 0, seg_features[8] = {}, seg_data[8][8] = {}, last_active_seg = 0, seg_preskip = 0;
+  // per segment: its quantizer index without delta q (get_qindex(1, ·)), LosslessArray, SegQMLevel per plane; and
+  // CodedLossless (every segment lossless), which AllLossless equals without superres
+  int seg_qindex[8] = {}, seg_lossless[8] = {}, seg_qm_level[8][3] = {}, coded_lossless = 0;
   // delta_lf_params: whether each superblock codes deltas to the loop filter levels, their multiplier (1 << the
   // coded delta_lf_res) and whether there is one per plane and direction (FRAME_LF_COUNT) or one for all
   int delta_lf_present = 0, delta_lf_res = 1, delta_lf_multi = 0;
@@ -881,6 +890,11 @@ struct Decoder {
   // per 4x4 unit of the frame
   std::vector<uint8_t> y_modes, uv_modes, mi_sizes, skips, tx_sizes, tx_types;
   std::vector<int8_t> cdef_idx;  // per 64x64
+  // under segmentation: per 4x4 unit of the frame its block's segment id
+  std::vector<uint8_t> segment_ids;
+  // what the frame's segmentation coded (meta[20..21]): a bit per segment id a block took, and a bit per path taken
+  // (kSeg*)
+  int seg_ids_used = 0, seg_paths = 0;
   // under delta LF: per 4x4 unit of the frame its block's DeltaLF[0..3] (only [0] without delta_lf_multi)
   std::vector<int8_t> delta_lfs;
   // what the frame's delta LF coded (meta[18..19]): the blocks whose deltas are not all 0, and a bit per path taken
@@ -929,7 +943,7 @@ struct Decoder {
   Symbol sym;
   // the block
   int mi_row, mi_col, mi_size, has_chroma, avail_u, avail_l, avail_u_chroma, avail_l_chroma;
-  int skip, y_mode, uv_mode, angle_y, angle_uv, tx_size, partition, use_intrabc;
+  int segment_id, lossless, skip, y_mode, uv_mode, angle_y, angle_uv, tx_size, partition, use_intrabc;
   Mv dv;
   uint8_t inter_tx[32][32];  // an intra block copy's transform size per 4x4 luma unit of the block
   int use_filter_intra, filter_intra_mode, cfl_alpha_u, cfl_alpha_v, max_luma_w, max_luma_h;
@@ -1133,7 +1147,7 @@ struct Decoder {
       qm[1] = b.f(4);
       qm[2] = sep ? b.f(4) : qm[1];
     }
-    if (b.f(1)) throw Unsupported{kToolSegmentation};  // segmentation_enabled
+    segmentation_params(b);
     // delta_q_params, delta_lf_params
     delta_q_present = base_q_idx > 0 ? b.f(1) : 0;
     delta_q_res = delta_q_present ? b.f(2) : 0;
@@ -1144,9 +1158,14 @@ struct Decoder {
       delta_lf_res = 1 << b.f(2);
       delta_lf_multi = b.f(1);
     }
-    lossless = base_q_idx == 0 && delta_q_dc[0] == 0 && delta_q_dc[1] == 0 && delta_q_ac[1] == 0 &&
-               delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
-    for (int p = 0; p < 3; ++p) qm_level[p] = (lossless || !using_qmatrix) ? 15 : qm[p];
+    coded_lossless = 1;
+    for (int s = 0; s < 8; ++s) {  // 5.9.2's tail: each segment's quantizer, lossless flag and matrix levels
+      seg_qindex[s] = qindex(1, s);
+      seg_lossless[s] = seg_qindex[s] == 0 && delta_q_dc[0] == 0 && delta_q_dc[1] == 0 && delta_q_ac[1] == 0 &&
+                        delta_q_dc[2] == 0 && delta_q_ac[2] == 0;
+      coded_lossless = coded_lossless && seg_lossless[s];
+      for (int p = 0; p < 3; ++p) seg_qm_level[s][p] = (seg_lossless[s] || !using_qmatrix) ? 15 : qm[p];
+    }
     cdef_bits = 0;
     cdef_damping = 3;
     for (int i = 0; i < 8; ++i) cdef_y_pri[i] = cdef_y_sec[i] = cdef_uv_pri[i] = cdef_uv_sec[i] = 0;
@@ -1156,7 +1175,7 @@ struct Decoder {
       lr_type[p] = kRestoreNone;
       lr_unit_size[p] = 256;
     }
-    if (!lossless && !allow_intrabc) {  // intra block copy codes no in-loop filter: each stays off
+    if (!coded_lossless && !allow_intrabc) {  // intra block copy codes no in-loop filter: each stays off
       // loop_filter_params, the deltas from setup_past_independence's defaults
       lf_level[0] = b.f(6);
       lf_level[1] = b.f(6);
@@ -1206,9 +1225,41 @@ struct Decoder {
         }
       }
     }
-    tx_mode_select = lossless ? 0 : b.f(1);  // tx_mode: ONLY_4X4 when lossless, TX_MODE_SELECT, TX_MODE_LARGEST
+    tx_mode_select = coded_lossless ? 0 : b.f(1);  // tx_mode: ONLY_4X4 when lossless, TX_MODE_SELECT, TX_MODE_LARGEST
     reduced_tx_set = b.f(1);
     if (seq.film_grain && b.f(1)) throw Unsupported{kToolFilmGrain};  // apply_grain
+  }
+
+  // 5.9.14 (libaom's setup_segmentation): a shown key frame has no primary reference frame, so the map and the
+  // data are coded (update_map 1, temporal_update 0, update_data 1). Each feature's data has Segmentation_Feature_Bits
+  // bits, signed ones one more, and is clamped to Segmentation_Feature_Max.
+  void segmentation_params(Bits& b) {
+    static const int kBits[8] = {8, 6, 6, 6, 6, 3, 0, 0}, kSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+    static const int kMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+    seg_enabled = b.f(1);
+    seg_preskip = last_active_seg = 0;
+    for (int s = 0; s < 8; ++s) {
+      seg_features[s] = 0;
+      for (int j = 0; j < 8; ++j) {
+        seg_data[s][j] = 0;
+        if (!seg_enabled || !b.f(1)) continue;
+        seg_features[s] |= 1 << j;
+        int v = kSigned[j] ? b.su(1 + kBits[j]) : b.f(kBits[j]);
+        seg_data[s][j] = std::min(kMax[j], std::max(-kMax[j], v));
+        seg_preskip |= j >= kSegLvlRefFrame;
+        last_active_seg = s;
+      }
+    }
+  }
+
+  enum { kSegLvlAltQ = 0, kSegLvlAltLfYV = 1, kSegLvlRefFrame = 5, kSegLvlSkip = 6 };
+  bool seg_feature(int s, int j) const { return (seg_features[s] >> j) & 1; }
+
+  // 7.12.2 get_qindex: the segment's quantizer index, from CurrentQIndex under delta q unless ``ignore_delta_q``
+  int qindex(int ignore_delta_q, int s) const {
+    const int base = !ignore_delta_q && delta_q_present ? current_q : base_q_idx;
+    if (seg_feature(s, kSegLvlAltQ)) return std::min(255, std::max(0, base + seg_data[s][kSegLvlAltQ]));
+    return base;
   }
 
   // libaom's is_valid_seq_level_idx: levels 2.0 to 6.3 but x.2 and x.3 of 2 to 4, and 31
@@ -1290,6 +1341,7 @@ struct Decoder {
     tx_sizes.assign(n, 0); tx_types.assign(n, 0);
     is_inters.assign(n, 0);
     delta_lfs.assign(delta_lf_present ? 4 * n : 0, 0);
+    segment_ids.assign(seg_enabled ? n : 0, 0);
     dvs.assign(allow_intrabc ? n : 0, Mv{0, 0});
     above_txfm.assign(mi_cols + 32, 64);
     left_txfm.assign(mi_rows + 32, 64);
@@ -1543,6 +1595,7 @@ struct Decoder {
         if (use_intrabc) dvs[k] = dv;
         if (delta_lf_present)
           for (int i = 0; i < 4; ++i) delta_lfs[4 * k + i] = (int8_t)delta_lf[i];
+        if (seg_enabled) segment_ids[k] = (uint8_t)segment_id;
         if (palette_size[0] || palette_size[1]) palette_of[k] = (int32_t)palettes.size();
       }
     }
@@ -1556,10 +1609,28 @@ struct Decoder {
     residual();
   }
 
+  // 5.11.7: the segment id, read before skip where a segment has a feature from SEG_LVL_REF_FRAME on (skip is then 1
+  // without a symbol under SEG_LVL_SKIP), after it otherwise
   void intra_frame_mode_info() {
-    int ctx = (avail_u ? skips[(mi_row - 1) * mi_cols + mi_col] : 0) +
-              (avail_l ? skips[mi_row * mi_cols + mi_col - 1] : 0);
-    skip = sym.read(cdf.skip[ctx], 2);
+    segment_id = 0;
+    if (seg_enabled && seg_preskip) {
+      read_segment_id(false);
+      seg_paths |= kSegPreskip;
+    }
+    if (seg_enabled && seg_feature(segment_id, kSegLvlSkip)) {
+      skip = 1;
+      seg_paths |= kSegSkip;
+    } else {
+      int ctx = (avail_u ? skips[(mi_row - 1) * mi_cols + mi_col] : 0) +
+                (avail_l ? skips[mi_row * mi_cols + mi_col - 1] : 0);
+      skip = sym.read(cdf.skip[ctx], 2);
+    }
+    if (seg_enabled && !seg_preskip) read_segment_id(skip);
+    lossless = seg_lossless[segment_id];
+    if (seg_enabled) {
+      seg_ids_used |= 1 << segment_id;
+      if (lossless && !coded_lossless) seg_paths |= kSegLosslessBlock;
+    }
     read_cdef();
     read_delta_qindex();
     read_delta_lf();
@@ -1607,6 +1678,45 @@ struct Decoder {
       use_filter_intra = sym.read(cdf.filter_intra[mi_size], 2);
       if (use_filter_intra) filter_intra_mode = sym.read(cdf.filter_intra_mode, 5);
     }
+  }
+
+  // the paths a frame's segmentation took (meta[21]): the id read before skip, skip set by SEG_LVL_SKIP, the id
+  // predicted without a symbol (a skipped block), a neighbour left out at a tile edge inside the frame, a lossless
+  // block in a frame that is not coded lossless, a quantizer of CurrentQIndex plus ALT_Q that base_q_idx plus ALT_Q
+  // is not, an edge filtered at a level its segment raised from a frame level of 0
+  enum {
+    kSegPreskip = 1, kSegSkip = 2, kSegPredicted = 4, kSegTileEdge = 8, kSegLosslessBlock = 16, kSegDeltaQ = 32,
+    kSegLfRaised = 64
+  };
+
+  // 5.11.9 read_segment_id with libaom's av1_get_spatial_seg_pred: the prediction and context from the upper-left,
+  // upper and left ids within the tile; a skipped block (read after skip) takes the prediction, another codes the id
+  // against it (neg_deinterleave). libaom fails on an id past LastActiveSegId where the specification clips it.
+  void read_segment_id(int skipped) {
+    auto id = [&](int r, int c) { return (int)segment_ids[(int64_t)r * mi_cols + c]; };
+    const int ul = avail_u && avail_l ? id(mi_row - 1, mi_col - 1) : -1;
+    const int u = avail_u ? id(mi_row - 1, mi_col) : -1, l = avail_l ? id(mi_row, mi_col - 1) : -1;
+    if ((!avail_u && mi_row > 0) || (!avail_l && mi_col > 0)) seg_paths |= kSegTileEdge;
+    const int ctx = ul < 0 ? 0 : ul == u && ul == l ? 2 : ul == u || ul == l || u == l ? 1 : 0;
+    const int pred = u == -1 ? (l == -1 ? 0 : l) : l == -1 ? u : ul == u ? u : l;
+    if (skipped) {
+      segment_id = pred;
+      seg_paths |= kSegPredicted;
+      return;
+    }
+    const int v = neg_deinterleave(sym.read(cdf.spatial_seg[ctx], 8), pred, last_active_seg + 1);
+    if (v < 0 || v > last_active_seg) throw Corrupt{__LINE__};  // "Corrupted segment_ids"
+    segment_id = v;
+  }
+
+  // libaom's av1_neg_deinterleave: the id that ``diff`` codes against the prediction ``ref`` of ``max`` ids (a
+  // symbol of ``max`` or more gives one outside them)
+  static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    const int near = 2 * ref < max ? 2 * ref : 2 * (max - ref - 1);
+    if (diff <= near) return (diff & 1) ? ref + ((diff + 1) >> 1) : ref - (diff >> 1);
+    return 2 * ref < max ? diff : max - (diff + 1);
   }
 
   // ---- intra block copy (5.11.23-26, 7.10.2, 7.11.3; libaom's read_intrabc_info) ----
@@ -1967,7 +2077,7 @@ struct Decoder {
   }
 
   void read_cdef() {  // the CDEF index of each 64x64, read where its first coded block is
-    if (skip || lossless || allow_intrabc || !seq.cdef) return;
+    if (skip || coded_lossless || allow_intrabc || !seq.cdef) return;
     int r = mi_row & ~15, c = mi_col & ~15;
     if (cdef(r, c) == -1) {
       int v = literal(cdef_bits);
@@ -2549,12 +2659,14 @@ struct Decoder {
   // 5.11.47: the luma transform type, read or DCT_DCT, stored for the block's 4x4 units
   int read_tx_type(int x4, int y4, int tx) {
     int set = tx_set(tx), type = DCT_DCT;
-    if (set >= TX_SET_INTER_1 && base_q_idx > 0) {  // the inter CDFs by square size, without an intra direction
+    // libaom reads a type where the segment's quantizer without delta q (xd->qindex) is above 0; an intra block
+    // copy's from the inter CDFs by square size, without an intra direction
+    if (set >= TX_SET_INTER_1 && seg_qindex[segment_id] > 0) {
       intrabc_paths |= kPathSet1 << (set - TX_SET_INTER_1);
       if (set == TX_SET_INTER_1) type = kTxTypeInterInvSet1[sym.read(cdf.inter_tx1[tx_sqr(tx)], 16)];
       else if (set == TX_SET_INTER_2) type = kTxTypeInterInvSet2[sym.read(cdf.inter_tx2[tx_sqr(tx)], 12)];
       else type = sym.read(cdf.inter_tx3[tx_sqr(tx)], 2) ? DCT_DCT : IDTX;
-    } else if (set != TX_SET_DCTONLY && base_q_idx > 0) {
+    } else if (set != TX_SET_DCTONLY && seg_qindex[segment_id] > 0) {
       int dir = use_filter_intra ? kFilterIntraModeToIntraDir[filter_intra_mode] : y_mode;
       if (set == TX_SET_INTRA_1) type = kTxTypeIntraInvSet1[sym.read(cdf.intra_tx1[tx_sqr(tx)][dir], 7)];
       else type = kTxTypeIntraInvSet2[sym.read(cdf.intra_tx2[tx_sqr(tx)][dir], 5)];
@@ -2668,10 +2780,11 @@ struct Decoder {
       }
       // dequantization (7.12.3): the quantizer, weighted by the quantizer matrix of a 2D transform
       const int bdi = (seq.bit_depth - 8) >> 1;
-      const int q = std::min(255, std::max(0, delta_q_present ? current_q : base_q_idx));
+      const int q = qindex(0, segment_id);
+      if (q != seg_qindex[segment_id] && seg_feature(segment_id, kSegLvlAltQ)) seg_paths |= kSegDeltaQ;
       const int dcq = av1t::kDcQLookup[bdi][std::min(255, std::max(0, q + delta_q_dc[plane]))];
       const int acq = av1t::kAcQLookup[bdi][std::min(255, std::max(0, q + (plane ? delta_q_ac[plane] : 0)))];
-      const int qml = qm_level[plane];
+      const int qml = seg_qm_level[segment_id][plane];
       const uint8_t* qm = nullptr;
       if (qml < 15 && tx_type < IDTX) qm = av1t::kQuantizerMatrix[qml][ptype] + qm_offset(aw, ah);
       const int dq_shift = (w * h > 256) + (w * h > 1024);
@@ -2876,40 +2989,48 @@ struct Decoder {
   }
 
   // ---- the loop filter (7.14), as libaom applies it to a key frame ----
-  // Every block is intra and there is no segmentation, so the level of an
-  // edge in a plane and direction is the frame's, moved by the delta LF of
-  // the block on its q side (of the p side where that gives 0), and every
+  // Every block is intra, so the level of an edge in a plane and direction
+  // is the frame's, moved by the delta LF and the segment's feature of the
+  // block on its q side (of the p side where that gives 0), and every
   // transform edge inside the frame is filtered, with the taps the smaller
   // transform across it allows.
 
-  // the transform width (pass 0) or height (pass 1) of the 4x4 unit at mode info (r, c) in ``plane``
+  int seg_of(int64_t k) const { return seg_enabled ? segment_ids[k] : 0; }
+
+  // the transform width (pass 0) or height (pass 1) of the 4x4 unit at mode info (r, c) in ``plane`` (libaom's
+  // get_transform_size: 4x4 in every plane of a lossless block)
   int lf_tx_side(int plane, int r, int c, int pass) const {
     int64_t k = (int64_t)r * mi_cols + c;
     int tx = tx_sizes[k];
-    if (plane > 0) {  // av1_get_max_uv_txsize
+    if (plane > 0 && !seg_lossless[seg_of(k)]) {  // av1_get_max_uv_txsize
       tx = kMaxTxRect[kSubsampled[mi_sizes[k]][seq.ssx][seq.ssy]];
       if (tx_w(tx) == 64 || tx_h(tx) == 64) tx = tx_w(tx) == 16 ? TX_16X32 : tx_h(tx) == 16 ? TX_32X16 : TX_32X32;
     }
     return pass == 0 ? tx_w(tx) : tx_h(tx);
   }
 
-  // av1_get_filter_level: the level of an intra block's edges in ``plane`` and ``pass``, its delta LF ``delta``
-  int lf_block_level(int plane, int pass, int delta) const {
+  // av1_get_filter_level: the level of an intra block's edges in ``plane`` and ``pass``, its delta LF ``delta`` and
+  // its segment ``seg`` (whose SEG_LVL_ALT_LF_Y_V, _Y_H, _U or _V adds, clamped)
+  int lf_block_level(int plane, int pass, int delta, int seg) const {
     int lvl = plane == 0 ? lf_level[pass] : lf_level[plane + 1];
     if (delta_lf_present) lvl = std::min(63, std::max(0, lvl + delta));
-    // segmentation's SEG_LVL_ALT_LF_* feature of the block's segment adds here, clamped to 0..63
+    const int feature = kSegLvlAltLfYV + (plane == 0 ? pass : plane + 1);
+    if (seg_enabled && seg_feature(seg, feature)) lvl = std::min(63, std::max(0, lvl + seg_data[seg][feature]));
     if (lf_delta_enabled) lvl = std::min(63, std::max(0, lvl + lf_ref_deltas[0] * (1 << (lvl >> 5))));
     return lvl;
   }
 
   // av1_loop_filter_frame and its set_planes_to_loop_filter: nothing when both luma levels are 0, a chroma plane
-  // whose level is 0 skipped whatever its deltas; a pass at level 0 filters only under delta LF
+  // whose level is 0 skipped whatever its deltas and segments; a pass filters where some block's level may be above 0
   void loop_filter() {
     if (!lf_level[0] && !lf_level[1]) return;
     for (int p = 0; p < planes; ++p) {
       if (p > 0 && !lf_level[p + 1]) continue;
-      for (int pass = 0; pass < 2; ++pass)
-        if (delta_lf_present || lf_block_level(p, pass, 0)) filter_plane(p, pass);
+      for (int pass = 0; pass < 2; ++pass) {
+        bool any = delta_lf_present;
+        for (int s = 0; s < 8 && !any; ++s) any = lf_block_level(p, pass, 0, s) > 0;
+        if (any) filter_plane(p, pass);
+      }
     }
   }
 
@@ -2930,10 +3051,19 @@ struct Decoder {
     }
     // delta_lf_id_lut: the running delta of the plane and direction
     static const int kDeltaLfId[3][2] = {{0, 1}, {2, 2}, {3, 3}};
-    const int id = delta_lf_multi ? kDeltaLfId[plane][pass] : 0, frame_lvl = lf_block_level(plane, pass, 0);
+    const int id = delta_lf_multi ? kDeltaLfId[plane][pass] : 0;
     const bool base_zero = (plane == 0 ? lf_level[pass] : lf_level[plane + 1]) == 0;
+    // each segment's level without delta LF, and whether its feature raises the pass from a frame level of 0
+    const int feature = kSegLvlAltLfYV + (plane == 0 ? pass : plane + 1);
+    int seg_lvl[8];
+    bool raised[8];
+    for (int s = 0; s < 8; ++s) {
+      seg_lvl[s] = lf_block_level(plane, pass, 0, s);
+      raised[s] = base_zero && seg_enabled && seg_feature(s, feature) && seg_data[s][feature] > 0;
+    }
     auto level = [&](int r, int c) {
-      return delta_lf_present ? lf_block_level(plane, pass, delta_lfs[((int64_t)r * mi_cols + c) * 4 + id]) : frame_lvl;
+      const int64_t k = (int64_t)r * mi_cols + c;
+      return delta_lf_present ? lf_block_level(plane, pass, delta_lfs[k * 4 + id], seg_of(k)) : seg_lvl[seg_of(k)];
     };
     const ptrdiff_t step = pass == 0 ? 1 : stride[plane], along = pass == 0 ? stride[plane] : 1;
     for (int y4 = 0; 4 * y4 < h; ++y4) {
@@ -2947,7 +3077,9 @@ struct Decoder {
         int lvl = level(r, c);
         if (!lvl) lvl = level(pr, pc);  // set_lpf_parameters: the q side's level, else the p side's
         if (!lvl) continue;
-        if (base_zero) delta_lf_paths |= kLfBaseZero;
+        if (base_zero && delta_lf_present) delta_lf_paths |= kLfBaseZero;
+        if (raised[seg_of((int64_t)r * mi_cols + c)] || raised[seg_of((int64_t)pr * mi_cols + pc)])
+          seg_paths |= kSegLfRaised;
         int m = std::min(side, lf_tx_side(plane, pr, pc, pass));
         int len = m == 4 ? 4 : plane > 0 ? 6 : m == 8 ? 8 : 14;
         uint16_t* s = &px(plane, 4 * y4, 4 * x4);
@@ -3114,7 +3246,7 @@ struct Decoder {
   }
 
   void cdef() {
-    if (lossless || !seq.cdef) return;
+    if (coded_lossless || !seq.cdef) return;
     bool any = false;
     for (int i = 0; i < (1 << cdef_bits); ++i)
       any = any || cdef_y_pri[i] || cdef_y_sec[i] || cdef_uv_pri[i] || cdef_uv_sec[i];
@@ -3391,10 +3523,11 @@ static thread_local Decoder* g_last = nullptr;
 // a superblock up and one left); then what delta LF coded: the blocks whose
 // deltas are not all 0, a bit per path taken (Decoder::kLf*: deltas per plane
 // and direction, a multiplier above 1, a delta clamped, an edge filtered in a
-// pass at level 0, a tile reset).
+// pass at level 0, a tile reset); then what segmentation coded: a bit per
+// segment id a block took, a bit per path taken (Decoder::kSeg*).
 int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   delete g_last;
-  for (int i = 0; i < 20; ++i) meta[i] = 0;
+  for (int i = 0; i < 22; ++i) meta[i] = 0;
   g_last = new (std::nothrow) Decoder();
   if (!g_last) return -1;
   Decoder& d = *g_last;
@@ -3419,6 +3552,7 @@ int av1_decode(const uint8_t* src, int64_t n, int32_t* meta) {
   meta[14] = d.palette_v_deltas;
   meta[15] = d.intrabc_blocks; meta[16] = d.intrabc_stacked; meta[17] = d.intrabc_paths;
   meta[18] = d.delta_lf_blocks; meta[19] = d.delta_lf_paths;
+  meta[20] = d.seg_ids_used; meta[21] = d.seg_paths;
   return 0;
 }
 

@@ -26,10 +26,11 @@ What OpenCV refuses raises ``RefusedImageError``; a corrupt or cut file,
 or an ``ispe`` or AV1 frame past libavif's size limits, a ``ValueError``;
 what OpenCV reads and the port does not decode an
 ``UnsupportedImageError`` naming it: an image sequence, a grid, the AV1
-tools ``av1.cpp`` lacks (segmentation, superres, film grain, frames other
-than a shown key frame; every in-loop filter is applied, deblocking with
-delta loop filter levels, CDEF and loop restoration, as are both screen
-content tools, palette mode and intra block copy), a
+tools ``av1.cpp`` lacks (superres, film grain, frames other than a shown
+key frame; segmentation is decoded, every in-loop filter is applied,
+deblocking with delta loop filter levels and segmentation's, CDEF and loop
+restoration, as are both screen content tools, palette mode and intra
+block copy), a
 chroma-derived matrix under primaries libyuv has no constants for,
 premultiplied alpha, and an ``ispe`` that differs from the AV1 frame
 (libavif scales the frame)."""
@@ -45,7 +46,7 @@ from deepemia_tpu_torch.ops.image import RefusedImageError, UnsupportedImageErro
 SIGNATURE_BYTES = 500  # grfmt_avif.cpp: kAvifSignatureSize
 _ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha", b"urn:mpeg:hevc:2015:auxid:1")
 # av1.cpp's refusals (its enum Tool)
-AV1_TOOLS = {3: "AV1 segmentation", 5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
+AV1_TOOLS = {5: "AV1 superres", 6: "AV1 film grain", 7: "an AV1 frame that is not a key frame",
              8: "an AV1 frame that is not shown", 9: "AV1 large-scale tile lists", 10: "an AV1 shown existing frame"}
 _UNIQUE_META = (b"iloc", b"pitm", b"idat", b"iprp", b"iinf", b"iref")
 _TRANSFORMS = (b"irot", b"imir", b"clap")

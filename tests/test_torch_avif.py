@@ -45,6 +45,9 @@ _spec.loader.exec_module(fx)
 REFUSED = {n: FIXTURES[f"{n}/named"].tobytes().decode() for n in NAMES if f"{n}/named" in FIXTURES.files}
 # the forms the port refused by name until it applied CDEF, and reads now (``<name>/cdef``)
 CDEF = sorted(n for n in NAMES if f"{n}/cdef" in FIXTURES.files)
+# the header rewrite the port refused by name until it parsed segmentation, and fails on now as cv2 does
+# (``<name>/segmentation``)
+SEGMENTATION = sorted(n for n in NAMES if f"{n}/segmentation" in FIXTURES.files)
 
 
 def reference(path):
@@ -70,7 +73,7 @@ def _write(tmp_path, name):
     return path
 
 
-@pytest.mark.parametrize("name", [n for n in NAMES if n not in REFUSED and n not in CDEF])
+@pytest.mark.parametrize("name", [n for n in NAMES if n not in REFUSED and n not in CDEF and n not in SEGMENTATION])
 def test_fixture_reads_as_opencv(tmp_path, name):
     """Each fixture: cv2 here reads it as when it was written (or refuses
     it again), and the port reads it to the same array bit for bit, or
@@ -88,25 +91,33 @@ def test_fixture_reads_as_opencv(tmp_path, name):
         np.testing.assert_array_equal(got, ref, err_msg=name)
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED) + CDEF)
+@pytest.mark.parametrize("name", sorted(REFUSED) + CDEF + SEGMENTATION)
 def test_forms_outside_the_decoder_are_named(tmp_path, name):
     """An image sequence (cv2's animation), a grid, premultiplied alpha, an
     ispe libavif scales to, and a lossless header rewritten to switch on
-    film grain, or screen content tools (whose next two header bits then
-    switch intra block copy on, and the shifted fields after them
-    segmentation): ``UnsupportedImageError`` naming the form (segmentation
-    for the screen content rewrite), never an array;
-    cv2 reads each file, or for the rewrites fails, as the fixture file
+    film grain: ``UnsupportedImageError`` naming the form, never an array;
+    cv2 reads each file, or for the rewrite fails, as the fixture file
     holds. Lossy 4:2:0 that applies CDEF (cv2 at quality 75), once refused
-    here, reads as cv2 reads it, bit for bit."""
+    here, reads as cv2 reads it, bit for bit. A lossless header rewritten
+    to switch on screen content tools (whose next two header bits then
+    switch intra block copy on, and the shifted fields after them
+    segmentation), once refused by name for segmentation: cv2 returns None,
+    and the port, which parses segmentation, fails on the rest of the
+    stream with a ``ValueError`` that is not ``UnsupportedImageError``."""
     path = _write(tmp_path, name)
     ref = reference(path)
     if name in CDEF:
         assert _committed(name, ref) and ref is not None, name
         np.testing.assert_array_equal(read_image(str(path)), ref, err_msg=name)
         return
+    if name in SEGMENTATION:
+        assert _committed(name, ref) and ref is None, name
+        with pytest.raises(ValueError) as e:
+            read_image(str(path))
+        assert not isinstance(e.value, UnsupportedImageError), (name, e.value)
+        return
     words = REFUSED[name]
-    assert _committed(name, ref) and (ref is None) == name.startswith(("box-screen", "box-film")), name
+    assert _committed(name, ref) and (ref is None) == name.startswith("box-film"), name
     with pytest.raises(UnsupportedImageError, match=re.escape(words)):
         read_image(str(path))
 
@@ -162,9 +173,8 @@ def test_fixtures_cover_every_form():
 FUZZ_BASES = ("bgr-7x5", "gray-7x5", "bgr10-7x5", "gray12-7x5", "bgra-33x17", "box-extents-idat",
               "box-iloc2-sizes8", "gray-65x129")
 # copies the port refuses by name: (where cv2 fails: the damage switches on an AV1 tool the port refuses
-# in the header, such as segmentation, and libaom fails on the rest of the stream; where cv2 reads: the
-# damage changes the ispe, and libavif scales the frame to it). A frame refused for an in-loop filter is
-# read to its end first, so a copy libaom fails on fails in the port too.
+# in the header, and libaom fails on the rest of the stream; where cv2 reads: the damage changes the ispe,
+# and libavif scales the frame to it).
 NAMED = {"bgr-7x5": (0, 0), "gray-7x5": (0, 0), "bgr10-7x5": (0, 0), "gray12-7x5": (0, 2), "bgra-33x17": (0, 0),
          "box-extents-idat": (0, 0), "box-iloc2-sizes8": (0, 0), "gray-65x129": (0, 0)}
 

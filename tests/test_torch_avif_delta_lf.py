@@ -123,7 +123,7 @@ def test_delta_lf_is_no_longer_refused():
     """No entry of ``AV1_TOOLS`` names delta loop filter levels; the tools
     still refused by name stay named."""
     assert not any("delta" in words or "loop filter" in words for words in AV1_TOOLS.values())
-    for words in ("AV1 segmentation", "AV1 superres", "AV1 film grain"):
+    for words in ("AV1 superres", "AV1 film grain"):
         assert words in AV1_TOOLS.values(), words
 
 

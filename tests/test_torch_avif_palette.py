@@ -183,8 +183,9 @@ def test_palette_cdfs_hold_the_specification_values():
 FUZZ_BASES = ("cv2-labels-bgr-bgr8-s8-q75", "cv2-labels-bgr-bgr10-s8-q100", "cv2-blobs-gray12-s3-q50",
               "writer-422-10-lossy")
 # copies the port refuses by name: (where cv2 fails: the damage switches on a tool the port refuses in the
-# header, segmentation here, and libaom fails on the rest of the stream; where cv2 reads)
-NAMED_COPIES = {"cv2-labels-bgr-bgr8-s8-q75": (1, 0), "cv2-labels-bgr-bgr10-s8-q100": (0, 0),
+# header, and libaom fails on the rest of the stream; where cv2 reads). The q75 copy whose damage switches
+# segmentation on, once named here, fails in the port as in cv2 now that segmentation is parsed
+NAMED_COPIES = {"cv2-labels-bgr-bgr8-s8-q75": (0, 0), "cv2-labels-bgr-bgr10-s8-q100": (0, 0),
                 "cv2-blobs-gray12-s3-q50": (0, 0), "writer-422-10-lossy": (0, 0)}
 
 

@@ -8,7 +8,8 @@ sharpness, the INTRA_FRAME ref delta) and may zero the CDEF strengths
 alone; ``rewrite_cdef`` writes the CDEF damping and strengths in place
 (their widths are fixed, so neither the OBU's size nor its tiles change);
 ``fields`` says what a payload switches on (screen content tools and
-intra block copy, ``tx_mode_select``, ``delta_q_present``, the loop
+intra block copy, ``tx_mode_select``, ``delta_q_present``, segmentation
+and each segment's features, the loop
 filter levels, sharpness and deltas, the CDEF damping, index bits and
 strengths, the loop restoration types, unit and chroma shifts, the
 quantizer). A frame that allows intra block copy codes no loop filter,
@@ -167,13 +168,21 @@ def fields(payload: bytes) -> dict:
     out["using_qmatrix"] = b.f(1)
     if out["using_qmatrix"]:
         out["qm"] = (b.f(4), b.f(4), b.f(4) if seq["separate_uv_delta_q"] else None)
-    if b.f(1):
-        raise ValueError("segmentation")
+    # segmentation_params of a key frame: per segment, {SEG_LVL_* index: its data, clamped}
+    out["segmentation"], out["seg_features"] = b.f(1), [{} for _ in range(8)]
+    if out["segmentation"]:
+        for f in out["seg_features"]:
+            for j, (bits, signed, mx) in enumerate(zip((8, 6, 6, 6, 6, 3, 0, 0), (1, 1, 1, 1, 1, 0, 0, 0),
+                                                       (255, 63, 63, 63, 63, 7, 0, 0))):
+                if b.f(1):
+                    f[j] = max(-mx, min(mx, b.su(bits + 1) if signed else b.f(bits)))
     out["delta_q_present"] = b.f(1) if out["base_q_idx"] else 0
     out["delta_q_res"] = b.f(2) if out["delta_q_present"] else 0
     out["delta_lf_present"] = b.f(1) if out["delta_q_present"] and not out["intrabc"] else 0
     out["delta_lf_res"], out["delta_lf_multi"] = (b.f(2), b.f(1)) if out["delta_lf_present"] else (0, 0)
-    lossless = out["base_q_idx"] == 0 and out["delta_q_y_dc"] == 0 and out["delta_q_uv"] == (0, 0)
+    # CodedLossless: every segment's quantizer (base_q_idx plus ALT_Q) 0, and every delta q 0
+    qindex = [min(255, max(0, out["base_q_idx"] + f.get(0, 0))) for f in out["seg_features"]]
+    lossless = all(v == 0 for v in qindex) and out["delta_q_y_dc"] == 0 and out["delta_q_uv"] == (0, 0)
     out["loop_filter"], out["cdef_strengths"], out["tx_mode_select"] = (0, 0), [], 0
     out["lr_type"], out["lr_unit_shift"], out["lr_uv_shift"] = (0,) * (1 if seq["mono"] else 3), 0, 0
     if not lossless and not out["intrabc"]:

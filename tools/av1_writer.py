@@ -14,6 +14,11 @@ too, and some blocks copy: each skipped, far enough from any other that
 its DV stack is empty, its DV the default one or a pixel off it where that
 is valid (half-pixel chroma where subsampled), so that the paths cv2's
 frames do not take (4:2:2, 128x128 superblocks, tile rows) are written.
+With ``segmentation``, the frame codes segments with any features (a
+quantizer per segment, lossless ones among lossy ones, loop filter levels
+per plane and direction, SKIP, REF_FRAME or GLOBALMV, which move the id
+before skip) and each block's segment id, drawn at random and coded
+against its spatial prediction.
 
 Every block takes intra modes drawn at random (every Y and UV mode, angle
 deltas, CFL, filter intra), its residual coded exactly with TX_4X4
@@ -88,7 +93,41 @@ def _tables() -> dict:
                       ("kMvClass", 12), ("kMvSign", 3), ("kMvClass0Bit", 3), ("kMvBits", 3)):
         v = _values(tables, f"{name}Cdf")
         out[name] = [list(v[k : k + per]) for k in range(0, len(v), per)]
+    v = _values(tables, "kSpatialPredSegCdf")
+    out["kSpatialPredSeg"] = [list(v[k : k + 9]) for k in range(0, len(v), 9)]
     return out
+
+
+# segmentation: Segmentation_Feature_Bits, _Signed and _Max of each SEG_LVL_* (ALT_Q, ALT_LF_Y_V, ALT_LF_Y_H,
+# ALT_LF_U, ALT_LF_V, REF_FRAME, SKIP, GLOBALMV)
+SEG_BITS, SEG_SIGNED, SEG_MAX = (8, 6, 6, 6, 6, 3, 0, 0), (1, 1, 1, 1, 1, 0, 0, 0), (255, 63, 63, 63, 63, 7, 0, 0)
+SEG_LVL_ALT_Q, SEG_LVL_REF_FRAME, SEG_LVL_SKIP = 0, 5, 6
+
+
+def segment_features(seg) -> list:
+    """``encode``'s ``segmentation`` -> per segment {SEG_LVL_* index: value as coded}."""
+    return [{int(j): int(v) for j, v in seg.get("features", {}).get(s, {}).items()} for s in range(8)]
+
+
+def segment_qindex(seg, q: int) -> list:
+    """Per segment, its quantizer without delta q (base_q_idx ``q`` plus ALT_Q clamped, as get_qindex(1, ·))."""
+    if seg is None:
+        return [q] * 8
+    return [min(255, max(0, q + max(-255, min(255, f[SEG_LVL_ALT_Q])))) if SEG_LVL_ALT_Q in f else q
+            for f in segment_features(seg)]
+
+
+def neg_interleave(x: int, ref: int, n: int) -> int:
+    """libaom's av1_neg_interleave: the symbol that codes segment id ``x``
+    against the prediction ``ref`` of ``n`` ids (neg_deinterleave's inverse)."""
+    diff = x - ref
+    if not ref:
+        return x
+    if ref >= n - 1:
+        return n - x - 1
+    if abs(diff) <= (ref if 2 * ref < n else n - ref - 1):
+        return 2 * diff - 1 if diff > 0 else -2 * diff
+    return x if 2 * ref < n else n - x - 1
 
 
 def color_context(m: np.ndarray, r: int, c: int, n: int):
@@ -274,8 +313,11 @@ def _wht_levels(res: np.ndarray) -> np.ndarray:
 class _Frame:
     def __init__(self, planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights, modes, sub=(0, 0),
                  lossy=False, deltas=False, cdef=None, empty=0.0, skip64=(), restoration=None, seed=0, palette=None,
-                 intrabc=None, reduced_tx_set=False):
+                 intrabc=None, reduced_tx_set=False, segmentation=None, q=0, dq=(0, 0, 0), delta_q=None):
         self.lossy, self.deltas = lossy, deltas
+        # delta q: {"odds", "range", "res"} where each superblock's delta is drawn (else each 0), from its own rng
+        self.delta_q = delta_q
+        self.dq_rng = np.random.default_rng([seed, 27])
         # delta LF: {"multi", "res", "odds", "range", "sign"} where deltas are drawn (else each 0), drawn from its own
         # rng, so that odds 0 gives the blocks of the same seed with every delta 0
         self.delta_lf = deltas if isinstance(deltas, dict) else None
@@ -314,6 +356,87 @@ class _Frame:
         self.mode_odds_uv = np.full(14, 1.0) if modes else np.eye(14)[0]
         self.ibc = np.zeros((self.mi_rows, self.mi_cols), bool)  # the 4x4 units of blocks that copy
         self.ibc_blocks = 0
+        self.seg_setup(segmentation, q, dq, seed)
+
+    # ---- segmentation (5.9.14, 5.11.9) ----
+    def seg_setup(self, seg, q, dq, seed):
+        """The segments' features as coded, LastActiveSegId, SegIdPreSkip,
+        each segment's quantizer without delta q (ALT_Q clamped as the
+        decoder clamps it) and lossless flag."""
+        self.seg = seg
+        self.seg_map = np.zeros((self.mi_rows, self.mi_cols), np.int64)  # each 4x4 unit's segment id
+        self.seg_rng = np.random.default_rng([seed, 28])  # the ids' draws, apart from the blocks'
+        self.seg_corrupted = False
+        self.segment_id, self.forced_skip = 0, False
+        self.seg_qindex = segment_qindex(seg, q)
+        self.seg_lossless = [v == 0 and not any(dq) for v in self.seg_qindex]  # LosslessArray
+        self.lossless_blk = self.seg_lossless[0]
+        if seg is None:
+            return
+        self.seg_features = segment_features(seg)
+        self.seg_last = max([s for s in range(8) if self.seg_features[s]], default=0)
+        self.seg_preskip = any(j >= SEG_LVL_REF_FRAME for f in self.seg_features for j in f)
+
+    def seg_begin(self, r, c, bsize, skip_known):
+        """A block's segment id before its skip is known: the spatial
+        prediction and its context (av1_get_spatial_seg_pred), and the id,
+        the prediction where the block reads none (``skip_known`` and the
+        id read after skip), else the prediction at the odds ``repeat``
+        (0.4), else drawn at the odds ``odds`` (a weight per id up to
+        LastActiveSegId, else even)."""
+        if self.seg is None:
+            return
+        m = self.seg_map
+        ul = int(m[r - 1, c - 1]) if self.avail_u and self.avail_l else -1
+        u, lt = (int(m[r - 1, c]) if self.avail_u else -1), (int(m[r, c - 1]) if self.avail_l else -1)
+        self.seg_ctx = 0 if ul < 0 else 2 if ul == u == lt else 1 if ul in (u, lt) or u == lt else 0
+        self.seg_pred = (0 if lt == -1 else lt) if u == -1 else u if lt == -1 else u if ul == u else lt
+        rng, n = self.seg_rng, self.seg_last + 1
+        if skip_known and not self.seg_preskip:
+            seg_id = self.seg_pred
+        elif rng.random() < self.seg.get("repeat", 0.4):
+            seg_id = self.seg_pred
+        else:
+            odds = np.asarray(self.seg.get("odds", [1.0] * n), np.float64)[:n]
+            seg_id = int(rng.choice(n, p=odds / odds.sum()))
+        self.set_segment(seg_id)
+
+    def set_segment(self, seg_id):
+        self.segment_id = seg_id
+        self.forced_skip = SEG_LVL_SKIP in self.seg_features[seg_id]
+        self.lossless_blk = self.seg_lossless[seg_id]
+
+    def write_segment_id(self):
+        """The block's id against its prediction, in the CDF of its context;
+        with ``corrupt``, the first id coded is one past LastActiveSegId
+        (libaom fails on it)."""
+        n = self.seg_last + 1
+        coded = neg_interleave(self.segment_id, self.seg_pred, n)
+        if self.seg.get("corrupt") and not self.seg_corrupted and n < 8:
+            coded, self.seg_corrupted = n, True  # neg_deinterleave gives an id outside 0..n-1 for every symbol >= n
+        self.sym.symbol(coded, self.cdf["kSpatialPredSeg"][self.seg_ctx], 8)
+
+    def write_skip_and_segment(self, r, c, bsize, skip):
+        """skip and the segment id in the order intra_frame_mode_info reads
+        them (the id first under SegIdPreSkip; no skip symbol under
+        SEG_LVL_SKIP; after skip, a skipped block takes the prediction), and
+        the id kept for the 4x4 units the block covers."""
+        ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
+        if self.seg is None:
+            self.sym.symbol(skip, self.cdf["kSkip"][ctx], 2)
+            return
+        if self.seg_preskip:
+            self.write_segment_id()
+        if self.forced_skip:
+            assert skip, "SEG_LVL_SKIP: the block codes no residual"
+        else:
+            self.sym.symbol(skip, self.cdf["kSkip"][ctx], 2)
+        if not self.seg_preskip:
+            if skip:
+                self.set_segment(self.seg_pred)
+            else:
+                self.write_segment_id()
+        self.seg_map[r : r + _HIGH[bsize], c : c + _WIDE[bsize]] = self.segment_id
 
     def sub(self, p):
         return (self.ssx, self.ssy) if p else (0, 0)
@@ -364,7 +487,7 @@ class _Frame:
             self.left_dc = [np.zeros(self.mi_rows + 32, np.int64) for _ in range(n)]
             for c in range(c0, c1, sb4):
                 self.clear_block_decoded(r, c)
-                self.read_deltas = bool(self.deltas)
+                self.read_deltas = bool(self.deltas or self.delta_q)
                 if self.lr:
                     self.lr_units(r, c)
                 self.partition(r, c, B128X128 if self.sb128 else B64X64)
@@ -637,8 +760,7 @@ class _Frame:
         """A skipped block that copies: its skip, delta q, use_intrabc and DV (against ``ref``, its stack empty)."""
         bw4, bh4 = _WIDE[bsize], _HIGH[bsize]
         cdf, sym = self.cdf, self.sym
-        ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
-        sym.symbol(1, cdf["kSkip"][ctx], 2)
+        self.write_skip_and_segment(r, c, bsize, 1)
         if self.read_deltas and bsize != (B128X128 if self.sb128 else B64X64):
             sym.symbol(0, cdf["kDeltaQ"][0], 4)
         self.read_deltas = False
@@ -669,6 +791,8 @@ class _Frame:
         rng, cdf, sym = self.rng, self.cdf, self.sym
         self.has_chroma = not self.mono and not (self.ssx and bw4 == 1 and c % 2 == 0) and not (
             self.ssy and bh4 == 1 and r % 2 == 0)
+        # a lossy frame's block skips unless it is 4x4 (whose CFL rule is the same lossless or not)
+        self.seg_begin(r, c, bsize, self.lossy and (bsize != B4X4 or (r >> 4, c >> 4) in self.skip64))
         if self.intrabc is not None and rng.random() < self.intrabc.get("odds", 0.2):
             chosen = self.choose_dv(r, c, bsize)
             if chosen:
@@ -681,7 +805,7 @@ class _Frame:
         self.uv_mode, self.angle_uv, self.cfl = 0, 0, (0, 0)
         self.avail_uc = self.has_chroma and (self.inside(r - 2, c) if self.ssy and bh4 == 1 else self.avail_u)
         self.avail_lc = self.has_chroma and (self.inside(r, c - 2) if self.ssx and bw4 == 1 else self.avail_l)
-        if self.lossy:  # a lossy block of 32x32 or less
+        if self.lossy and not self.lossless_blk:  # a lossy block of 32x32 or less
             self.cfl_allowed = max(bw4, bh4) <= 8
         else:
             self.cfl_allowed = _WIDE[self.chroma_size(bsize)] == 1 and _HIGH[self.chroma_size(bsize)] == 1
@@ -707,8 +831,7 @@ class _Frame:
         # the residual (a block whose prediction is exact in every plane skips)
         levels = self.lossy_levels(r, c, bsize) if self.lossy else self.predict_block(r, c, bsize)
         skip = int(not any(lv.any() for _, _, _, lv in levels) and not self.coded_empty)
-        ctx = (self.skips[r - 1, c] if self.avail_u else 0) + (self.skips[r, c - 1] if self.avail_l else 0)
-        sym.symbol(skip, cdf["kSkip"][ctx], 2)
+        self.write_skip_and_segment(r, c, bsize, skip)
         if self.cdef is not None and not skip and (r & ~15, c & ~15) not in self.cdef_idx:
             # the CDEF index of the 64x64 at this block's first non-skip block, and of the others the block covers
             bits = self.cdef
@@ -719,8 +842,9 @@ class _Frame:
                 for x in range(c & ~15, c + bw4, 16):
                     self.cdef_idx[(y, x)] = v
         if self.read_deltas and not (bsize == (B128X128 if self.sb128 else B64X64) and skip):
-            sym.symbol(0, cdf["kDeltaQ"][0], 4)  # delta_q_abs 0
-            self.write_delta_lf()
+            self.write_delta_q()
+            if self.deltas:
+                self.write_delta_lf()
         self.read_deltas = False
         if self.intrabc is not None:
             sym.symbol(0, cdf["kIntrabc"][0], 2)
@@ -767,6 +891,25 @@ class _Frame:
             for p, x4, y4, lv in levels:
                 self.coeffs(p, x4, y4, lv)
 
+    def write_delta_value(self, d, cdf):
+        """delta_q_abs or delta_lf_abs (the remaining bits past 2), then the sign."""
+        a = abs(d)
+        self.sym.symbol(min(a, 3), cdf, 4)
+        if a >= 3:
+            n = (a - 1).bit_length() - 1
+            self.literal(n - 1, 3)
+            self.literal(a - (1 << n) - 1, n)
+        if a:
+            self.sym.bool(int(d < 0))
+
+    def write_delta_q(self):
+        """The superblock's delta q: with ``delta_q``, drawn at ``odds``
+        (0.5), 1 to ``range`` (3) in size, either sign; else 0."""
+        dq, d = self.delta_q, 0
+        if dq and self.dq_rng.random() < dq.get("odds", 0.5):
+            d = int(self.dq_rng.integers(1, dq.get("range", 3) + 1)) * (1 if self.dq_rng.random() < 0.5 else -1)
+        self.write_delta_value(d, self.cdf["kDeltaQ"][0])
+
     # ---- delta loop filter levels (5.11.41, libaom's read_delta_lflevel) ----
     def write_delta_lf(self):
         """The superblock's deltas: each running delta's (one, or one per
@@ -782,18 +925,13 @@ class _Frame:
                 d = int(rng.integers(1, dlf.get("range", 3) + 1))
                 sign = dlf.get("sign", 0)
                 d = -d if sign < 0 or (sign == 0 and rng.random() < 0.5) else d
-            cdf = self.cdf["kDeltaLfMulti"][i] if multi else self.cdf["kDeltaLf"][0]
-            a = abs(d)
-            self.sym.symbol(min(a, 3), cdf, 4)
-            if a >= 3:  # delta_lf_rem_bits, then the rest
-                n = (a - 1).bit_length() - 1
-                self.literal(n - 1, 3)
-                self.literal(a - (1 << n) - 1, n)
-            if a:
-                self.sym.bool(int(d < 0))
+            self.write_delta_value(d, self.cdf["kDeltaLfMulti"][i] if multi else self.cdf["kDeltaLf"][0])
             self.delta_lf_running[i] = min(63, max(-63, self.delta_lf_running[i] + d * (1 << dlf.get("res", 0))))
         if "log" in dlf:
             dlf["log"].append(tuple(self.delta_lf_running))
+
+    def seg_qindex_zero(self):
+        return self.seg is not None and self.seg_qindex[self.segment_id] == 0
 
     # ---- palette mode (5.11.46, 5.11.49) ----
     def palette_cache(self, r, c, k):
@@ -949,7 +1087,7 @@ class _Frame:
         block (DC and up to two more), none elsewhere -> [(plane, x4, y4,
         levels)]; the luma transform type is drawn too."""
         self.coded_empty = False
-        if bsize != B4X4 or (r >> 4, c >> 4) in self.skip64:
+        if bsize != B4X4 or (r >> 4, c >> 4) in self.skip64 or self.forced_skip:
             return []
         rng = self.rng
         if self.empty and rng.random() < self.empty:  # skip 0, and no coefficient in any plane
@@ -1010,6 +1148,8 @@ class _Frame:
                                 pred = self.predict_cfl(p, sx, sy, pred)
                             if p == 0:
                                 self.max_luma = (sx + 4, sy + 4)
+                            if self.forced_skip:  # SEG_LVL_SKIP: the prediction is the decoded block
+                                self.pix[p][sy : sy + 4, sx : sx + 4] = pred
                             out.append((p, sx >> 2, sy >> 2, _wht_levels(self.pix[p][sy : sy + 4, sx : sx + 4] - pred)))
                             bd[row + 1, col + 1] = 1
         return out
@@ -1244,7 +1384,8 @@ class _Frame:
         q = lv.ravel()
         all_zero = int(not q.any())
         sym.symbol(all_zero, cdf["kTxbSkip"][ctx], 2)
-        if self.lossy and p == 0 and not all_zero:  # the transform type, of the intra direction
+        # the transform type, of the intra direction, where the segment's quantizer is above 0
+        if self.lossy and p == 0 and not all_zero and not self.seg_qindex_zero():
             direction = (0, 1, 2, 6, 0)[self.filter_mode] if self.use_filter_intra else self.y_mode
             if self.reduced_tx_set:  # TX_SET_INTRA_2: the same five types, IDTX, DCT_DCT, then the ADSTs
                 sym.symbol((0, 1, None, None, 2, 3, 4)[self.tx_symbol], cdf["kIntraTx2"][direction], 5)
@@ -1343,7 +1484,8 @@ def _obu(kind: int, body: bytes) -> bytes:
 def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0, 0), reduced: bool = True,
            disable_cdf_update: int = 0, split_obus: bool = False, tile_groups: int = 1, extra_obus=(),
            seed: int = 0, weights=None, modes: bool = True, subsampling=(0, 0), matrix: int = 0,
-           full_range: bool = True, lossy=None, palette=None, intrabc=None, film_grain=None) -> bytes:
+           full_range: bool = True, lossy=None, palette=None, intrabc=None, film_grain=None,
+           segmentation=None) -> bytes:
     """A lossless AV1 key frame of ``planes`` ([Y] or [Y, U, V]: 4:4:4 with
     the identity matrix, or with ``matrix`` (colour primaries BT.709,
     sRGB transfer, ``full_range`` or not) at ``subsampling`` (x, y): (0,
@@ -1371,7 +1513,12 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     ``seed``, apart from the blocks' draws) at each superblock's first
     block, no superblock left whole (it would skip and read none);
     "reduced_tx_set": reduced_tx_set 1, the 4x4 luma types coded in
-    TX_SET_INTRA_2; "restoration":
+    TX_SET_INTRA_2; "delta_q": {"odds", "range", "res": delta_q_res as
+    coded} for delta_q_present on and each superblock's delta q drawn
+    (``_Frame.write_delta_q``, from ``seed`` apart from the blocks'
+    draws; without "delta_lf", delta_lf_present 0); "qm": (qm_y, qm_u) for
+    using_qmatrix on; "dq": (DeltaQYDc, DeltaQUDc, DeltaQUAc) coded;
+    "restoration":
     {"types": lr_type per plane as coded (0 NONE, 1 SWITCHABLE, 2
     WIENER, 3 SGRPROJ), "unit_shift": the specification's lr_unit_shift
     (units of 256 >> (2 - shift) samples; 1 or 2 under 128x128
@@ -1401,7 +1548,17 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     (palettes at ``palette``'s odds or none), and skipped blocks that copy
     (``_Frame.copy``). ``film_grain`` (a grain_seed):
     film_grain_params_present on, and the frame applies grain of three
-    luma points (no chroma points, no auto-regression)."""
+    luma points (no chroma points, no auto-regression). ``segmentation``
+    ({"features": {segment: {SEG_LVL_* index: value as coded}}, "odds": a
+    weight per id up to the last segment with a feature, "repeat": the
+    odds of an id equal to its prediction (0.4), "corrupt": one id coded
+    past the last segment}):
+    segmentation_enabled on, the features coded (signed values in
+    su(1 + bits), so one past Segmentation_Feature_Max is written too), and
+    each block's id drawn (from ``seed``, apart from the blocks' draws;
+    ``_Frame.seg_begin``). In a lossless frame every segment is lossless;
+    a lossy frame whose segments are all lossless (CodedLossless) codes no
+    filter parameters and no tx_mode."""
     rng = np.random.default_rng(seed)
     assert matrix or tuple(subsampling) == (0, 0), "the identity matrix needs 4:4:4"
     if lossy:
@@ -1412,15 +1569,20 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
         assert reduced and not (lossy and any(lossy.get(k) for k in ("delta_lf", "cdef", "restoration"))), \
             "intra block copy: a reduced header, no in-loop filter parameters, no delta LF"
         palette = palette or {"odds": 0.0}
-    cdef = lossy.get("cdef") if lossy else None
+    lossy_ = lossy or {}
+    q, dq = lossy_.get("q", 0), tuple(lossy_.get("dq", (0, 0, 0)))
+    # CodedLossless: every segment's quantizer 0 and every delta q 0; no filter parameters, no tx_mode
+    coded_lossless = not any(segment_qindex(segmentation, q)) and not any(dq)
+    assert lossy or coded_lossless, "a lossless frame: every segment lossless"
+    cdef = lossy_.get("cdef") if not coded_lossless else None
     fr = _Frame(planes, bit_depth, sb128, tiles, disable_cdf_update, rng, weights or {}, modes, tuple(subsampling),
-                lossy=bool(lossy), deltas=(lossy.get("delta_lf") or False) if lossy else False,
-                cdef=cdef["bits"] if cdef else None, empty=lossy.get("empty", 0.0) if lossy else 0.0,
-                skip64=lossy.get("skip64", ()) if lossy else (),
-                restoration=lossy.get("restoration") if lossy else None, seed=seed, palette=palette,
-                intrabc=intrabc, reduced_tx_set=bool(lossy and lossy.get("reduced_tx_set")))
+                lossy=bool(lossy), deltas=lossy_.get("delta_lf") or False,
+                cdef=cdef["bits"] if cdef else None, empty=lossy_.get("empty", 0.0), skip64=lossy_.get("skip64", ()),
+                restoration=lossy_.get("restoration") if not coded_lossless else None, seed=seed, palette=palette,
+                intrabc=intrabc, reduced_tx_set=bool(lossy_.get("reduced_tx_set")), segmentation=segmentation, q=q,
+                dq=dq, delta_q=lossy_.get("delta_q"))
     assert reduced or not palette, "screen content tools under a reduced header only"
-    restoration = int(bool(lossy and lossy.get("restoration")))
+    restoration = int(bool(lossy_.get("restoration")))
     mono = fr.mono
     profile = _profile(bit_depth, mono, tuple(subsampling))
     # the sequence header
@@ -1545,18 +1707,34 @@ def encode(planes, bit_depth: int = 8, sb128: bool = False, tiles=("uniform", 0,
     if cols_log2 or rows_log2:
         h.f(cols_log2 + rows_log2, 0)  # context_update_tile_id
         h.f(2, 3)  # tile_size_bytes_minus_1: 4 bytes
-    h.f(8, lossy["q"] if lossy else 0)  # base_q_idx
-    h.f(1, 0)  # DeltaQYDc
-    if not mono:
-        h.f(1, 0), h.f(1, 0)  # DeltaQUDc, DeltaQUAc
-    h.f(1, 0)  # using_qmatrix
-    h.f(1, 0)  # segmentation_enabled
+    h.f(8, q)  # base_q_idx
+    for v in dq[: 1 if mono else 3]:  # DeltaQYDc, DeltaQUDc, DeltaQUAc
+        h.f(1, int(v != 0))
+        if v:
+            h.f(7, v & 0x7F)
+    qm = lossy_.get("qm")
+    h.f(1, int(qm is not None))  # using_qmatrix
+    if qm is not None:
+        h.f(4, qm[0]), h.f(4, qm[1])  # qm_y, qm_u (qm_v = qm_u: no separate_uv_delta_q)
+    h.f(1, int(segmentation is not None))  # segmentation_enabled
+    if segmentation is not None:  # segmentation_update_data is implied on a key frame
+        for f in fr.seg_features:
+            for j in range(8):
+                h.f(1, int(j in f))
+                if j in f:
+                    n = SEG_BITS[j] + SEG_SIGNED[j]
+                    h.f(n, f[j] & ((1 << n) - 1))
     if lossy:
-        h.f(1, int(bool(fr.deltas)))  # delta_q_present
-        if fr.deltas:
-            dlf = fr.delta_lf or {}
-            h.f(2, 0), h.f(1, 1)  # delta_q_res, delta_lf_present
-            h.f(2, dlf.get("res", 0)), h.f(1, dlf.get("multi", 0))  # delta_lf_res, delta_lf_multi
+        delta_q = bool(fr.deltas or fr.delta_q)
+        h.f(1, int(delta_q))  # delta_q_present
+        if delta_q:
+            h.f(2, (fr.delta_q or {}).get("res", 0))  # delta_q_res
+            if intrabc is None:
+                h.f(1, int(bool(fr.deltas)))  # delta_lf_present
+                if fr.deltas:
+                    dlf = fr.delta_lf or {}
+                    h.f(2, dlf.get("res", 0)), h.f(1, dlf.get("multi", 0))  # delta_lf_res, delta_lf_multi
+    if lossy and not coded_lossless:
         if intrabc is None:  # intra block copy codes no in-loop filter parameters
             levels = lossy["levels"]
             h.f(6, levels[0]), h.f(6, levels[1])

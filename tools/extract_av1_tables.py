@@ -2,7 +2,7 @@
 lossy intra path that the specification lists and ``native/av1.cpp``
 needs (the quantizer lookups, the quantizer matrices, the default
 coefficient, transform type, transform depth, delta q, palette, loop
-restoration and intra block copy CDFs, the self-guided filter's parameters and lookups, the scans,
+restoration, intra block copy and segment id CDFs, the self-guided filter's parameters and lookups, the scans,
 the smooth weights and the cosine and sine constants of the inverse
 transforms), read from a libaom build.
 
@@ -302,6 +302,14 @@ def intrabc_cdfs(lib: Library) -> dict:
     return t
 
 
+def segmentation_cdfs(lib: Library) -> dict:
+    """The default CDFs of the spatially predicted segment id
+    (``default_spatial_pred_seg_tree_cdf``: 3 contexts, MAX_SEGMENTS
+    symbols). The library holds each record without its counter (the frame
+    context setup stores the counters apart): 8 uint16 apart."""
+    return {"kSpatialPredSegCdf": icdf_records(lib, [5622, 7893, 16093, 18233, 27809, 28373, 32533], 8, 8, 3)}
+
+
 def restoration_tables(lib: Library) -> dict:
     """The loop restoration tables: the default CDFs of restoration_type,
     use_wiener and use_sgrproj, which libaom's frame context setup stores
@@ -372,7 +380,8 @@ def main(path: str | None = None) -> str:
     lib = Library(path)
     dc, ac = quantizer_lookups(lib)
     qm = quantizer_matrices(lib)
-    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib), **palette_cdfs(lib), **intrabc_cdfs(lib)}
+    cdfs = {**coefficient_cdfs(lib), **other_cdfs(lib), **palette_cdfs(lib), **intrabc_cdfs(lib),
+            **segmentation_cdfs(lib)}
     restoration = restoration_tables(lib)
     consts = constants(lib)
     sc = scans(lib)

@@ -9,7 +9,9 @@ than 64x64 pixels, and phase 21's files), or ``<name>/none`` where cv2
 returns None; ``<name>/named`` the words with which the port refuses a
 form it does not decode (``NAMED``); ``<name>/cdef`` (empty) marks a form
 the port once refused and now reads (``CDEF``: cv2's lossy 4:2:0 at
-quality 75, which applies CDEF); ``c12/sha256`` holds the SHA-256 of
+quality 75, which applies CDEF); ``<name>/segmentation`` (empty) a header
+rewrite the port once refused by name for switching segmentation on, and
+now fails on as cv2 does (``SEGMENTATION``); ``c12/sha256`` holds the SHA-256 of
 cv2's array (zeros for None) for each of the 800 damaged or cut C11
 TIFFs of ``c12_copies``. The lossless AV1 payloads come
 from ``cv2.imencode('.avif', img, [IMWRITE_AVIF_QUALITY, 100])``; the box
@@ -42,14 +44,15 @@ NAMED = {
     "refused-grid": "a grid image",
     "box-premultiplied-alpha": "premultiplied alpha",
     "box-ispe-scaled": "which libavif scales",
-    # screen content tools set in place: the frame header's next two bits, read now as force_integer_mv and
-    # allow_intrabc, come from its other fields and switch intra block copy on; the fields after them, shifted,
-    # switch segmentation on, which the port refuses; libaom fails on the tiles
-    "box-screen-content": "AV1 segmentation",
     "box-film-grain": "AV1 film grain",
 }
 # the forms the port refused by name until it applied CDEF, and reads now (each keeps its name)
 CDEF = ("refused-lossy-420",)
+# screen content tools set in place: the frame header's next two bits, read now as force_integer_mv and
+# allow_intrabc, come from its other fields and switch intra block copy on; the fields after them, shifted, switch
+# segmentation on. The port refused it by name until it parsed segmentation; libaom, and the port now, fail on the
+# rest of the stream
+SEGMENTATION = ("box-screen-content",)
 
 
 # ---------------------------------------------------------------------------
@@ -561,6 +564,8 @@ def main(out: str = str(DEFAULT_OUT)) -> str:
                 arrays[f"{name}/named"] = np.frombuffer(NAMED[name].encode(), np.uint8)
             if name in CDEF:
                 arrays[f"{name}/cdef"] = np.zeros(0, np.uint8)
+            if name in SEGMENTATION:
+                arrays[f"{name}/segmentation"] = np.zeros(0, np.uint8)
             if ref is None:
                 arrays[f"{name}/none"] = np.zeros(0, np.uint8)
             elif name.startswith(HASHED_PREFIXES) or ref.shape[0] * ref.shape[1] > HASHED_PIXELS:
